@@ -1,0 +1,536 @@
+"""Slot-based continuous batching over a paged KV pool (the core of
+``pyspark_tf_gke_tpu/train/continuous.py``).
+
+A fixed pool of ``num_slots`` request slots decodes together; requests
+arrive and finish at different times and every free slot is refilled
+at the next chunk boundary. Admission prefills prompts right-padded to
+a length bucket (exact under causal attention: no real token sees the
+padding after it), batching the FIFO prefix of the queue that shares a
+bucket into ONE forward, and scatters the dense prefill K/V into the
+pages the engine allocated for each slot. A decode chunk runs ``chunk``
+slot-decode steps in the emit-then-step order of ``generate``: emit
+token t from the carried logits, then run the model at each row's own
+position. Dead rows (free slot, or past eos) keep computing with a pad
+token at their FROZEN position; their emitted tokens are ``pad_id``.
+
+The engine owns the page pool on the host: a free list plus refcounts,
+allocation at admission and release at finish — no allocation inside
+a chunk. A freed slot's block-table row goes back to the sentinel, so
+its dead-row writes can never land in pages handed to another request.
+
+This slice's engine is serial (``pipeline_depth=0``): one chunk is
+dispatched and collected per ``step``, with one device-to-host copy per
+chunk. The attribute names ``_queue``, ``_slots``, ``_admitting``,
+``_inflight_q``, ``_page_refs``, ``_free_pages``, ``_slot_pages`` and
+``radix`` match the JAX engine so its invariant checker can run here.
+Sampled lanes draw from a per-slot ``torch.Generator`` seeded from the
+request's ``seed``: deterministic per (prompt, seed), not bit-equal to
+JAX's threefry stream.
+"""
+
+from __future__ import annotations
+
+import itertools
+from collections import deque
+from dataclasses import dataclass, field
+from typing import Deque, Dict, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from pyspark_tf_gke_tpu_torch.models.causal_lm import (CausalLM, DenseCache,
+                                                       PagedKV,
+                                                       _filter_logits,
+                                                       gumbel_argmax)
+
+PAD_BUCKETS = (32, 64, 128, 256, 512, 1024)
+
+# engine options of the JAX engine this slice does not carry, with the
+# ROADMAP item (queue 1) that brings each
+_NOT_PORTED = {
+    "prefill_chunk": "P3 chunked prefill (_paged_prefill_chunk)",
+    "step_token_budget": "P3 chunked prefill (_paged_prefill_chunk)",
+    "prefix_cache_size": "P4 radix prefix cache",
+    "pipeline_depth": "P5 async step pipeline",
+    "adaptive_chunk": "P5 async step pipeline",
+    "spec_tokens": "P6 in-engine speculative decoding",
+    "draft_model": "P6 in-engine speculative decoding",
+    "tenant_weights": "P7 tenants and deadlines",
+}
+
+
+def bucket_length(n: int, buckets: Sequence[int] = PAD_BUCKETS) -> int:
+    """Smallest bucket >= n."""
+    for b in buckets:
+        if n <= b:
+            return b
+    raise ValueError(f"prompt length {n} exceeds largest bucket {buckets[-1]}")
+
+
+@dataclass
+class _Request:
+    rid: int
+    prompt: np.ndarray            # [S_true] int32
+    max_new_tokens: int
+    tokens: List[int] = field(default_factory=list)
+    done: bool = False
+    temperature: float = 0.0      # 0 = greedy
+    top_p: Optional[float] = None
+    seed: int = 0
+
+
+class SlotState:
+    """The slot pool's device state (``_paged_zeros_state``): the paged
+    cache, per-slot fill levels, carried logits, live flags and sampling
+    lanes. Mutated in place by the functions below."""
+
+    def __init__(self, model: CausalLM, num_slots: int,
+                 device: torch.device):
+        cfg = model.cfg
+        self.cache = PagedKV(cfg, num_slots, device)
+        self.positions = torch.zeros(num_slots, dtype=torch.long,
+                                     device=device)
+        self.last_logits = torch.zeros(num_slots, cfg.vocab_size,
+                                       device=device)
+        self.live = torch.zeros(num_slots, dtype=torch.bool, device=device)
+        self.temps = torch.zeros(num_slots, device=device)
+        self.topps = torch.ones(num_slots, device=device)
+        self.generators: List[Optional[torch.Generator]] = [None] * num_slots
+
+
+def _slot_generator(seed: int, device: torch.device) -> torch.Generator:
+    return torch.Generator(device=device).manual_seed(int(seed) % (1 << 64))
+
+
+def _prefill_padded_batch(model: CausalLM, padded: np.ndarray,
+                          true_lens: np.ndarray):
+    """Right-padded prefill of ``[k, S_bucket]`` prompts in ONE forward.
+    Returns the dense ``[k, S_bucket]`` cache and the logits at each
+    row's last real token ``[k, V]``."""
+    device = model.device
+    ids = torch.from_numpy(padded).to(device=device, dtype=torch.long)
+    last = torch.from_numpy(true_lens.astype(np.int64) - 1).to(device)
+    cache = DenseCache(model.cfg, padded.shape[0], padded.shape[1], device)
+    logits = model(ids, cache=cache, prefill=True, last_index=last)
+    return cache, logits[:, 0]
+
+
+def _insert_slots_batch_paged(state: SlotState, caches: DenseCache,
+                              logits: torch.Tensor, slots: List[int],
+                              fills: np.ndarray, pages_b: np.ndarray,
+                              samplings: List[tuple], n_rows: int) -> None:
+    """Scatter every admitted row's first ``n_rows`` prefill rows (the
+    padded bucket) into its allocated pages, point its block-table row
+    at them, and set its fill level, carried logits, live flag and
+    sampling lane."""
+    kv = state.cache
+    device = logits.device
+    ps = kv.page_size
+    nc = n_rows // ps
+    k_rows = len(slots)
+    idx = torch.from_numpy(
+        np.ascontiguousarray(pages_b[:, :nc]).reshape(-1)).to(device)
+    for layer in range(len(caches.k)):
+        def chunks(t):
+            rows = t[:, :n_rows]
+            return rows.reshape((k_rows * nc, ps) + tuple(rows.shape[2:]))
+        scales = ((chunks(caches.k_scale[layer]),
+                   chunks(caches.v_scale[layer]))
+                  if caches.k_scale is not None else (None, None))
+        kv.write_pages(layer, idx, chunks(caches.k[layer]),
+                       chunks(caches.v[layer]), *scales)
+    slot_idx = torch.tensor(slots, dtype=torch.long, device=device)
+    kv.block_table[slot_idx] = torch.from_numpy(pages_b).to(device)
+    state.positions[slot_idx] = torch.from_numpy(
+        fills.astype(np.int64)).to(device)
+    state.last_logits[slot_idx] = logits
+    state.live[slot_idx] = True
+    state.temps[slot_idx] = torch.tensor([s[0] for s in samplings],
+                                         dtype=torch.float32, device=device)
+    state.topps[slot_idx] = torch.tensor([s[1] for s in samplings],
+                                         dtype=torch.float32, device=device)
+    for slot, (temp, _, seed) in zip(slots, samplings):
+        state.generators[slot] = (_slot_generator(seed, device) if temp > 0
+                                  else None)
+
+
+def _clear_live_paged(state: SlotState, slot: int) -> None:
+    """Paged free: drop the live flag AND reset the slot's block-table
+    row to the sentinel."""
+    state.cache.block_table[slot] = state.cache.num_pages
+    state.live[slot] = False
+    state.generators[slot] = None
+
+
+def _pick_tokens(logits: torch.Tensor, state: SlotState,
+                 sampling_rows: Sequence[int]) -> torch.Tensor:
+    """[B] next tokens: greedy rows argmax; each sampling row draws from
+    its temperature-scaled, top-p-filtered distribution with its own
+    generator."""
+    tok = torch.argmax(logits, dim=-1)
+    for row in sampling_rows:
+        scaled = logits[row:row + 1] / state.temps[row].clamp_min(1e-6)
+        filtered = _filter_logits(scaled, None, state.topps[row])
+        tok[row] = gumbel_argmax(filtered, state.generators[row])[0]
+    return tok
+
+
+def _decode_chunk(model: CausalLM, state: SlotState, chunk: int,
+                  eos_token_id: Optional[int], pad_id: int,
+                  sampling_rows: Sequence[int]) -> torch.Tensor:
+    """``chunk`` decode steps for ALL slots; returns the emitted tokens
+    ``[B, chunk]`` (on the device) and updates ``state`` in place."""
+    emitted_steps = []
+    for _ in range(chunk):
+        tok = _pick_tokens(state.last_logits, state, sampling_rows)
+        live = state.live
+        # emit BEFORE the eos latch drops `live`: the eos token itself
+        # belongs to the output
+        emitted_steps.append(torch.where(live, tok, pad_id))
+        if eos_token_id is not None:
+            live = live & (tok != eos_token_id)
+        # dead rows replay their FROZEN position with a pad token
+        step_tok = torch.where(live, tok, pad_id)
+        logits = model(step_tok[:, None], positions=state.positions[:, None],
+                       cache=state.cache)
+        state.positions = torch.where(live, state.positions + 1,
+                                      state.positions)
+        state.last_logits = logits[:, 0]
+        state.live = live
+    return torch.stack(emitted_steps, dim=1)
+
+
+class ContinuousEngine:
+    """Admit requests any time; every free KV slot is refilled at the
+    next chunk boundary. ``submit`` queues, ``run_until_drained`` (or
+    repeated ``step``) decodes; finished requests come back as
+    ``(rid, token_list)``. The model must be paged
+    (``CausalLMConfig.kv_num_pages``)."""
+
+    def __init__(self, model: CausalLM, num_slots: int = 8, chunk: int = 8,
+                 eos_token_id: Optional[int] = None, pad_id: int = 0,
+                 buckets: Sequence[int] = PAD_BUCKETS, **unported):
+        for name, value in unported.items():
+            if name not in _NOT_PORTED:
+                raise TypeError(f"unexpected engine option {name!r}")
+            if value:
+                raise NotImplementedError(
+                    f"engine option {name}={value!r} is not ported yet "
+                    f"(ROADMAP queue 1, {_NOT_PORTED[name]})")
+        cfg = model.cfg
+        if not cfg.paged_kv:
+            raise NotImplementedError(
+                "the dense slot-cache engine is not ported yet (ROADMAP "
+                "queue 1, dense slot-cache engine); use a bundle with "
+                "kv_num_pages")
+        if num_slots < 1 or chunk < 1:
+            raise ValueError("num_slots and chunk must be >= 1")
+        self.model = model
+        self.device = model.device
+        self.num_slots, self.chunk = num_slots, chunk
+        self.eos_token_id, self.pad_id = eos_token_id, pad_id
+        s_max = cfg.max_seq_len
+        ps = cfg.kv_page_size
+        if s_max % ps:
+            raise ValueError(f"kv_page_size {ps} must divide max_seq_len "
+                             f"{s_max}")
+        if buckets is PAD_BUCKETS:
+            buckets = tuple(b for b in PAD_BUCKETS if b < s_max) + (s_max,)
+        # prefill rows scatter whole pages: every bucket is page-aligned
+        self.buckets = tuple(b for b in buckets if b <= s_max and b % ps == 0)
+        if not self.buckets:
+            raise ValueError(f"no prompt bucket fits max_seq_len {s_max} as "
+                             f"a multiple of kv_page_size {ps}")
+        self._free_pages: List[int] = list(range(cfg.kv_num_pages))
+        self._page_refs: Dict[int, int] = {}
+        self._slot_pages: Dict[int, List[int]] = {}
+        self._peak_pages_in_use = 0
+        self._n_page_alloc_failures = 0
+        self._rid = itertools.count()
+        self._queue: List[_Request] = []
+        self._slots: Dict[int, _Request] = {}
+        self._admitting = None            # chunked prefill: not ported
+        self._inflight_q: Deque = deque()  # decode-ahead: not ported
+        self.radix = None                 # radix prefix cache: not ported
+        self._n_finished = 0
+        self._n_batch_admits = 0
+        self._n_solo_admits = 0
+        self._n_dispatched_steps = 0
+        self._n_prefill_tokens = 0
+        self._state = SlotState(model, num_slots, self.device)
+
+    # -- submission ------------------------------------------------------
+    def submit(self, prompt_ids, max_new_tokens: int,
+               temperature: float = 0.0, top_p: Optional[float] = None,
+               seed: int = 0, deadline_s: Optional[float] = None) -> int:
+        if deadline_s is not None:
+            raise NotImplementedError(
+                "request deadlines are not ported yet (ROADMAP queue 1, P7 "
+                "tenants and deadlines)")
+        if temperature and temperature < 0:
+            raise ValueError(f"temperature must be >= 0, got {temperature}")
+        if top_p is not None and not 0 < top_p <= 1:
+            raise ValueError(f"top_p must be in (0, 1], got {top_p}")
+        prompt = np.asarray(prompt_ids, np.int32).reshape(-1)
+        if prompt.size == 0:
+            raise ValueError("empty prompt")
+        if max_new_tokens < 1:
+            raise ValueError("max_new_tokens must be >= 1")
+        cfg = self.model.cfg
+        if prompt.size + max_new_tokens > cfg.max_seq_len:
+            raise ValueError(
+                f"prompt {prompt.size} + {max_new_tokens} new tokens "
+                f"exceeds max_seq_len {cfg.max_seq_len}")
+        sb = bucket_length(prompt.size, self.buckets)
+        need = self._pages_needed(sb, prompt.size, max_new_tokens)
+        if need > cfg.kv_num_pages:
+            # with the whole pool free it still could not admit —
+            # queueing it would livelock run_until_drained
+            raise ValueError(
+                f"request needs {need} KV pages but the pool has "
+                f"{cfg.kv_num_pages} (page_size {cfg.kv_page_size})")
+        req = _Request(next(self._rid), prompt, int(max_new_tokens),
+                       temperature=float(temperature or 0.0), top_p=top_p,
+                       seed=int(seed))
+        self._queue.append(req)
+        return req.rid
+
+    def cancel(self, rid: int) -> bool:
+        """Drop a queued request or free the slot of an active one."""
+        for i, req in enumerate(self._queue):
+            if req.rid == rid:
+                req.done = True
+                del self._queue[i]
+                return True
+        for slot, req in list(self._slots.items()):
+            if req.rid == rid:
+                req.done = True
+                del self._slots[slot]
+                self._free_slot(slot)
+                return True
+        return False
+
+    # -- page pool (host side) -------------------------------------------
+    def _pages_needed(self, s_bucket: int, true_len: int,
+                      max_new: int) -> int:
+        """Pages covering BOTH the padded prefill scatter (``s_bucket``
+        rows land in pages) and the request's maximum token extent."""
+        ps = self.model.cfg.kv_page_size
+        return -(-max(int(s_bucket), int(true_len) + int(max_new)) // ps)
+
+    def _unref_pages(self, pages) -> None:
+        """-1 refcount; pages reaching zero return to the free list.
+        Raises on a double free."""
+        for p in pages:
+            left = self._page_refs.get(p, 0) - 1
+            if left > 0:
+                self._page_refs[p] = left
+            elif left == 0:
+                del self._page_refs[p]
+                self._free_pages.append(p)
+            else:
+                raise RuntimeError(
+                    f"KV page {p} unreferenced while already free "
+                    "(double free)")
+
+    def _take_pages(self, n: int) -> Optional[List[int]]:
+        """Pop ``n`` fresh pages (refcount 1 each), or None."""
+        if n > len(self._free_pages):
+            return None
+        taken = [self._free_pages.pop() for _ in range(n)]
+        for p in taken:
+            self._page_refs[p] = 1
+        used = self.model.cfg.kv_num_pages - len(self._free_pages)
+        self._peak_pages_in_use = max(self._peak_pages_in_use, used)
+        return taken
+
+    def _alloc_pages(self, n: int):
+        """``(row, taken)`` — the sentinel-padded ``[max_pages_per_slot]``
+        block-table row and the page list — or None when the pool cannot
+        cover ``n`` (the request stays queued)."""
+        taken = self._take_pages(n)
+        if taken is None:
+            self._n_page_alloc_failures += 1
+            return None
+        cfg = self.model.cfg
+        row = np.full((cfg.max_pages_per_slot,), cfg.kv_num_pages, np.int32)
+        row[:n] = taken
+        return row, taken
+
+    def _release_pages(self, slot: int) -> None:
+        taken = self._slot_pages.pop(slot, None)
+        if taken:
+            self._unref_pages(taken)
+
+    def _free_slot(self, slot: int) -> None:
+        _clear_live_paged(self._state, slot)
+        self._release_pages(slot)
+
+    # -- admission -------------------------------------------------------
+    def _device_admit(self, group: List[_Request], slots: List[int],
+                      sb: int, pages_b: np.ndarray) -> None:
+        """ONE batched prefill + ONE scatter admits ``group``."""
+        padded = np.full((len(group), sb), self.pad_id, np.int32)
+        lens = np.zeros((len(group),), np.int32)
+        for i, req in enumerate(group):
+            padded[i, :req.prompt.size] = req.prompt
+            lens[i] = req.prompt.size
+        samplings = [(r.temperature,
+                      float(r.top_p if r.top_p is not None else 1.0), r.seed)
+                     for r in group]
+        with torch.no_grad():
+            caches, logits = _prefill_padded_batch(self.model, padded, lens)
+            _insert_slots_batch_paged(self._state, caches, logits, slots,
+                                      lens, pages_b, samplings, n_rows=sb)
+        self._n_prefill_tokens += int(lens.sum())
+
+    def _admit_group(self, group: List[_Request], slots: List[int],
+                     sb: int, allocs: List[tuple]) -> None:
+        pages_b = np.stack([row for row, _ in allocs])
+        try:
+            self._device_admit(group, slots, sb, pages_b)
+        except BaseException:
+            for _, taken in allocs:  # a failed admit must not leak pages
+                self._unref_pages(taken)
+            raise
+        for slot, req, (_, taken) in zip(slots, group, allocs):
+            self._slots[slot] = req
+            self._slot_pages[slot] = taken
+
+    def _admit_batch(self, free: List[int]) -> None:
+        """Batched admission: the FIFO prefix of the queue that shares
+        one prompt bucket and fits the pool prefills in one forward. The
+        batch stops at the first request needing another bucket or more
+        pages than remain."""
+        group: List[_Request] = []
+        needs: List[int] = []
+        sb0 = None
+        pages_left = len(self._free_pages)
+        for req in self._queue:
+            if len(group) >= len(free):
+                break
+            sb = bucket_length(req.prompt.size, self.buckets)
+            if sb0 is None:
+                sb0 = sb
+            elif sb != sb0:
+                break
+            need = self._pages_needed(sb, req.prompt.size, req.max_new_tokens)
+            if need > pages_left:
+                break
+            pages_left -= need
+            needs.append(need)
+            group.append(req)
+        if len(group) < 2:
+            return
+        allocs = [self._alloc_pages(n) for n in needs]  # covered above
+        self._admit_group(group, free[:len(group)], sb0, allocs)
+        del self._queue[:len(group)]
+        self._n_batch_admits += len(group)
+
+    def _try_admit(self, slot: int, req: _Request) -> bool:
+        """Admit ``req`` into ``slot``; False when the pool cannot cover
+        it yet (FIFO holds; the request stays queued)."""
+        sb = bucket_length(req.prompt.size, self.buckets)
+        alloc = self._alloc_pages(self._pages_needed(
+            sb, req.prompt.size, req.max_new_tokens))
+        if alloc is None:
+            return False
+        self._admit_group([req], [slot], sb, [alloc])
+        return True
+
+    def _admit_waiting(self) -> None:
+        free = [s for s in range(self.num_slots) if s not in self._slots]
+        if len(free) >= 2 and len(self._queue) >= 2:
+            self._admit_batch(free)
+            free = [s for s in range(self.num_slots) if s not in self._slots]
+        while free and self._queue:
+            if not self._try_admit(free[0], self._queue[0]):
+                break  # pool dry: admit after frees return pages
+            free.pop(0)
+            self._queue.pop(0)
+            self._n_solo_admits += 1
+
+    # -- the loop --------------------------------------------------------
+    def _run_chunk(self, size: int):
+        """Dispatch one ``size``-step chunk over the current slots and
+        read it back: ``(tokens [B, size], live [B])`` as numpy."""
+        sampling_rows = [slot for slot, req in self._slots.items()
+                         if req.temperature > 0]
+        self._n_dispatched_steps += size
+        with torch.no_grad():
+            toks = _decode_chunk(self.model, self._state, size,
+                                 self.eos_token_id, self.pad_id,
+                                 sampling_rows)
+            # the loop's one device-to-host copy per chunk
+            return toks.cpu().numpy(), self._state.live.cpu().numpy()
+
+    def _collect(self, toks: np.ndarray, live_host: np.ndarray,
+                 snapshot: Dict[int, _Request]) -> List[_Request]:
+        """Host bookkeeping for one chunk: token append, eos/budget
+        completion, frees."""
+        newly_done = []
+        for slot, req in snapshot.items():
+            budget = req.max_new_tokens - len(req.tokens)
+            take = toks[slot, :budget]
+            if self.eos_token_id is not None:
+                hit = np.nonzero(take == self.eos_token_id)[0]
+                if hit.size:
+                    take = take[:hit[0] + 1]
+            req.tokens.extend(int(t) for t in take)
+            eos_done = self.eos_token_id is not None and not live_host[slot]
+            if eos_done or len(req.tokens) >= req.max_new_tokens:
+                req.done = True
+                newly_done.append(req)
+                if self._slots.get(slot) is req:
+                    del self._slots[slot]
+                self._free_slot(slot)
+        self._n_finished += len(newly_done)
+        return newly_done
+
+    def step(self) -> List[_Request]:
+        """Admit into free slots, run one decode chunk, collect tokens.
+        Returns requests finished during this chunk."""
+        self._admit_waiting()
+        if not self._slots:
+            return []
+        snapshot = dict(self._slots)
+        toks, live_host = self._run_chunk(self.chunk)
+        return self._collect(toks, live_host, snapshot)
+
+    def run_until_drained(self):
+        """Drive steps until queue and slots are empty; yields finished
+        ``(rid, tokens)`` in completion order."""
+        while self._queue or self._slots:
+            for req in self.step():
+                yield req.rid, req.tokens
+
+    @property
+    def busy(self) -> bool:
+        return bool(self._queue or self._slots)
+
+    def outstanding_requests(self) -> List[_Request]:
+        """Every accepted, undelivered request (queued or in a slot)."""
+        return ([r for r in self._queue if not r.done]
+                + [r for r in self._slots.values() if not r.done])
+
+    @property
+    def stats(self) -> dict:
+        cfg = self.model.cfg
+        return {
+            "queued": len(self._queue),
+            "active": len(self._slots),
+            "finished": self._n_finished,
+            "num_slots": self.num_slots,
+            "chunk": self.chunk,
+            "batch_admits": self._n_batch_admits,
+            "solo_admits": self._n_solo_admits,
+            "dispatched_steps": self._n_dispatched_steps,
+            "prefill_tokens_computed": self._n_prefill_tokens,
+            "paged": {
+                "page_size": cfg.kv_page_size,
+                "pages_total": cfg.kv_num_pages,
+                "pages_in_use": cfg.kv_num_pages - len(self._free_pages),
+                "peak_pages_in_use": self._peak_pages_in_use,
+                "page_alloc_failures": self._n_page_alloc_failures,
+            },
+        }

@@ -1,0 +1,214 @@
+"""PyTorch port, kernel modules: the plain versions the kernel wrappers
+take on CPU tensors, held against the JAX package's kernels run as its
+own tests run them (Pallas ``interpret=True``) on the same numpy inputs.
+
+Tolerances (f32 on the CPU, where the point is the algorithm): 2e-5
+absolute for the ops — both sides compute in f32, the differences are
+summation order and exp/rsqrt rounding, a few ulps of O(1) values.
+The CUDA kernels themselves are held against these plain versions on
+the card by ``chip_smoke.py``.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from pyspark_tf_gke_tpu.ops.pallas.flash_attention import (
+    flash_attention as jax_flash)
+from pyspark_tf_gke_tpu.ops.pallas.layernorm import (
+    fused_layernorm as jax_layernorm)
+from pyspark_tf_gke_tpu.ops.pallas.paged_attention import (
+    paged_attention_chunk as jax_paged_chunk)
+from pyspark_tf_gke_tpu_torch.ops import flash_attention as t_flash
+from pyspark_tf_gke_tpu_torch.ops import paged_attention as t_paged
+from pyspark_tf_gke_tpu_torch.ops.attention import dot_product_attention
+from pyspark_tf_gke_tpu_torch.ops.layernorm import fused_layernorm
+from pyspark_tf_gke_tpu_torch.ops.quant import quantize_tree
+
+torch.set_num_threads(1)
+
+OP_ATOL = 2e-5
+
+
+def _t(a):
+    return torch.from_numpy(np.asarray(a))
+
+
+# -- K3 LayerNorm -------------------------------------------------------------
+
+
+@pytest.mark.parametrize("residual", [False, True])
+def test_layernorm_matches_jax_kernel(residual):
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((2, 8, 32)).astype(np.float32) * 3 + 1
+    r = rng.standard_normal((2, 8, 32)).astype(np.float32)
+    scale = rng.standard_normal(32).astype(np.float32)
+    bias = rng.standard_normal(32).astype(np.float32)
+    ref = jax_layernorm(jnp.asarray(x), jnp.asarray(scale), jnp.asarray(bias),
+                        eps=1e-5, interpret=True,
+                        residual=jnp.asarray(r) if residual else None)
+    out = fused_layernorm(_t(x), _t(scale), _t(bias), eps=1e-5,
+                          residual=_t(r) if residual else None)
+    assert out.dtype == torch.float32 and out.shape == x.shape
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=OP_ATOL)
+
+
+def test_layernorm_keeps_input_dtype():
+    x = torch.randn(4, 32, generator=torch.Generator().manual_seed(0))
+    out = fused_layernorm(x.to(torch.bfloat16), torch.ones(32),
+                          torch.zeros(32))
+    assert out.dtype == torch.bfloat16
+
+
+# -- K2 forward: flash attention ----------------------------------------------
+
+
+def _np_lse(q, k, keep):
+    """numpy logsumexp of the masked scores, +inf on rows with no key."""
+    d = q.shape[-1]
+    s = np.einsum("bqhd,bkhd->bhqk", q.astype(np.float64),
+                  k.astype(np.float64)) * d ** -0.5
+    s = np.where(keep, s, -np.inf)
+    m = s.max(-1, keepdims=True)
+    with np.errstate(invalid="ignore"):
+        out = (m + np.log(np.exp(s - m).sum(-1, keepdims=True)))[..., 0]
+    return np.where(keep.any(-1), out, np.inf)
+
+
+@pytest.mark.parametrize("case", ["causal", "kv_mask", "segments",
+                                  "masked_row", "all"])
+def test_flash_matches_jax_kernel(case):
+    rng = np.random.default_rng(1)
+    b, s, h, d = 2, 16, 2, 8
+    q, k, v = (rng.standard_normal((b, s, h, d)).astype(np.float32)
+               for _ in range(3))
+    causal = case in ("causal", "all")
+    kv_mask = segs = None
+    keep = np.ones((b, h, s, s), bool)
+    if causal:
+        keep &= np.tril(np.ones((s, s), bool))[None, None]
+    if case in ("kv_mask", "masked_row", "all"):
+        kv_mask = rng.random((b, s)) > 0.3
+        if case == "masked_row":
+            kv_mask[1] = False  # every key of batch row 1 masked
+        if case == "all":
+            # the first key of the second segment is padding: that query
+            # row's only unmasked keys lie in its future -> an empty row
+            kv_mask[:, 4] = False
+            kv_mask[:, 5] = True
+        keep &= kv_mask[:, None, None, :]
+    if case in ("segments", "all"):
+        segs = np.repeat(np.arange(4), 4)[None].repeat(b, 0).astype(np.int32)
+        keep &= (segs[:, None, :, None] == segs[:, None, None, :])
+    ref = jax_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                    kv_mask=None if kv_mask is None else jnp.asarray(kv_mask),
+                    causal=causal,
+                    segment_ids=None if segs is None else jnp.asarray(segs),
+                    interpret=True)
+    out, lse = t_flash.flash_attention_fwd(
+        _t(q), _t(k), _t(v),
+        kv_mask=None if kv_mask is None else _t(kv_mask),
+        causal=causal, segment_ids=None if segs is None else _t(segs))
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=OP_ATOL)
+    np.testing.assert_allclose(lse.numpy(), _np_lse(q, k, keep),
+                               atol=1e-5, rtol=1e-5)
+    if case == "masked_row":
+        assert np.all(out.numpy()[1] == 0.0)
+        assert np.all(np.isposinf(lse.numpy()[1]))
+
+
+def test_dot_product_attention_fully_masked_row_is_zero():
+    rng = np.random.default_rng(2)
+    q, k, v = (_t(rng.standard_normal((1, 4, 2, 8)).astype(np.float32))
+               for _ in range(3))
+    mask = torch.ones(1, 1, 4, 4, dtype=torch.bool)
+    mask[..., 2, :] = False
+    out = dot_product_attention(q, k, v, mask=mask)
+    assert torch.all(out[0, 2] == 0)
+    assert torch.all(out[0, 1] != 0)
+
+
+# -- K1: paged attention -----------------------------------------------------
+
+
+def _paged_inputs(rng, g, sq, quant):
+    n, ps, hkv, d, b, mp = 12, 8, 2, 16, 6, 4
+    h = hkv * g
+    if quant:
+        kp = rng.integers(-127, 128, (n, ps, hkv, d)).astype(np.int8)
+        vp = rng.integers(-127, 128, (n, ps, hkv, d)).astype(np.int8)
+        ks = (rng.random((n, ps, hkv)) * 0.02 + 1e-3).astype(np.float32)
+        vs = (rng.random((n, ps, hkv)) * 0.02 + 1e-3).astype(np.float32)
+    else:
+        kp = rng.standard_normal((n, ps, hkv, d)).astype(np.float32)
+        vp = rng.standard_normal((n, ps, hkv, d)).astype(np.float32)
+        ks = vs = None
+    q = rng.standard_normal((b, sq, h, d)).astype(np.float32)
+    table = rng.integers(0, n, (b, mp)).astype(np.int32)
+    table[0] = n           # fully unallocated row (sentinels)
+    table[1, 2:] = n       # allocated prefix, sentinel tail
+    # empty, one token, page boundary, partial last page, mid, full
+    fills = np.asarray([0, max(1, sq), ps, ps + 3, 2 * ps + 5, mp * ps],
+                       np.int32)
+    return q, kp, vp, table, fills, ks, vs
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["f32", "int8"])
+@pytest.mark.parametrize("sq", [1, 4])
+@pytest.mark.parametrize("g", [1, 2])
+def test_paged_matches_jax_kernel(g, sq, quant):
+    rng = np.random.default_rng(10 + 4 * g + sq)
+    q, kp, vp, table, fills, ks, vs = _paged_inputs(rng, g, sq, quant)
+    jscales = ({} if ks is None else
+               dict(k_scales=jnp.asarray(ks), v_scales=jnp.asarray(vs)))
+    ref = jax_paged_chunk(jnp.asarray(q), jnp.asarray(kp), jnp.asarray(vp),
+                          jnp.asarray(table), jnp.asarray(fills),
+                          interpret=True, **jscales)
+    tscales = ({} if ks is None else
+               dict(k_scales=_t(ks), v_scales=_t(vs)))
+    if sq == 1:
+        out = t_paged.paged_attention(_t(q[:, 0]), _t(kp), _t(vp), _t(table),
+                                      _t(fills), **tscales)[:, None]
+    else:
+        out = t_paged.paged_attention_chunk(_t(q), _t(kp), _t(vp), _t(table),
+                                            _t(fills), **tscales)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=OP_ATOL)
+    assert np.all(out.numpy()[0] == 0.0)  # empty slot: exact zeros
+
+
+def test_paged_validation():
+    kp = torch.zeros(4, 4, 2, 8)
+    table = torch.zeros(1, 2, dtype=torch.int32)
+    fills = torch.ones(1, dtype=torch.int32)
+    with pytest.raises(ValueError, match="divide"):
+        t_paged.paged_attention(torch.zeros(1, 3, 8), kp, kp, table, fills)
+    with pytest.raises(ValueError, match="together"):
+        t_paged.paged_attention(torch.zeros(1, 4, 8), kp, kp, table, fills,
+                                k_scales=torch.ones(4, 4, 2))
+
+
+# -- weight quantization ------------------------------------------------------
+
+
+def test_quantize_tree_matches_jax():
+    from pyspark_tf_gke_tpu.ops.quant import quantize_tree as jax_qtree
+
+    rng = np.random.default_rng(3)
+    tree = {"wte": {"embedding": rng.standard_normal((97, 64))},
+            "lm_head": {"kernel": rng.standard_normal((64, 97)),
+                        "bias": rng.standard_normal(97)}}
+    tree = {m: {k: v.astype(np.float32) for k, v in d.items()}
+            for m, d in tree.items()}
+    jq = jax_qtree(tree)
+    flat = {f"{m}/{k}": _t(v) for m, d in tree.items() for k, v in d.items()}
+    tq = quantize_tree(flat)
+    for path in ("wte/embedding", "lm_head/kernel"):
+        m, k = path.split("/")
+        np.testing.assert_array_equal(tq[path].q.numpy(),
+                                      np.asarray(jq[m][k].q))
+        np.testing.assert_array_equal(tq[path].scale.numpy(),
+                                      np.asarray(jq[m][k].scale))
+    assert tq["wte/embedding"].scale.shape == (97, 1)   # per row
+    assert tq["lm_head/kernel"].scale.shape == (97,)    # per column
+    assert isinstance(tq["lm_head/bias"], torch.Tensor)  # 1-D stays dense
