@@ -7,27 +7,45 @@
    versions, compute capability; 9.0 is required);
 2. builds the hand-written kernels from ``pyspark_tf_gke_tpu_torch/csrc``;
 3. holds each kernel against its plain PyTorch version on the card at
-   the main path's shapes, in bf16 and f32, and times kernel, plain
-   version and a library yardstick with CUDA events;
-4. serves a full-width GPT-small paged bundle (random weights from a
-   numpy seed, int8 export) through ``BundleServer`` + the HTTP server
-   with 8 continuous slots: 12 ``/v1/generate`` requests from 3 client
-   threads (greedy and seeded top-p) and one ``/v1/score``; every
-   kernel's launch counter must move during this phase; then profiles
-   one batched prefill admission and two decode chunks of the engine
-   (host wall time against device-busy time, top kernels);
-5. checks parity on the card: the engine's f32 greedy tokens equal the
-   dense ``generate``'s, and full-width bf16 prefill logits through the
-   kernels agree with the plain versions;
-6. prints one ``{"kernels": [...]}`` line, then
-7. ``{"ok": true, "device": {...}}`` as the last line.
+   the main paths' shapes, in bf16 and f32 — the serving kernels, and
+   the training backwards (K2dq/K2dkv at B=16 S=512 H=12 D=64: causal,
+   causal + segments, and key padding + segments + causal with a fully
+   masked row; K3b at [8192, 768] with and without residual) — and times
+   kernel, plain version and a library yardstick with CUDA events;
+4. serving main path: serves a full-width GPT-small paged bundle
+   (random weights from a numpy seed, int8 export) through
+   ``BundleServer`` + the HTTP server with 8 continuous slots: 12
+   ``/v1/generate`` requests from 3 client threads (greedy and seeded
+   top-p) and one ``/v1/score``; every serving kernel's launch counter
+   must move during this phase; then profiles one batched prefill
+   admission and two decode chunks of the engine (host wall time
+   against device-busy time, top kernels);
+5. checks serving parity on the card: the engine's f32 greedy tokens
+   equal the dense ``generate``'s, and full-width bf16 prefill logits
+   through the kernels agree with the plain versions;
+6. training main path: ``lm_pretrain.main`` on a seeded synthetic text
+   corpus at the GPT-small width (hidden 768, 12 layers, 12 heads, FFN
+   3072, seq 512, batch 16, bf16, Adam 3e-4), 2 epochs x 10 steps with
+   ``--export-bundle``; the losses must be finite and fall from epoch 1
+   to epoch 2, every training kernel's counter must move, and the
+   exported bundle must load and generate on the card; then profiles
+   two steady training steps;
+7. checks training parity on the card: a 2-layer f32 model trains 3
+   steps with the kernels and with ``use_kernels=False`` from one init
+   (losses and step-0 gradients agree), and full-width bf16 step-0
+   gradients through the kernels agree with the plain versions;
+8. prints one ``{"kernels": [...]}`` line, then
+9. ``{"ok": true, "device": {...}}`` as the last line.
 
 Any failed check exits non-zero. Without a CUDA device, or outside a
 checkout of the repository, it exits non-zero and prints no result.
+``--phases 1,2,3`` (for example) runs a subset for a quick check and
+then prints neither result line.
 """
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import json
 import math
@@ -61,6 +79,10 @@ PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}
 # a fault confined to the bf16 instantiation moves that by far more.
 TOL = {"float32": dict(atol=5e-5, rtol=1e-5, rel_l2=None),
        "bfloat16": dict(atol=2e-2, rtol=1.6e-2, rel_l2=1e-2)}
+# Column sums over 8192 rows (LayerNorm dscale/dbias, f32 on both sides
+# from the same inputs, summed in another order): relative to the
+# largest sum, a few f32 roundings of a sum of 8192 terms.
+SUM_TOL = dict(atol=0.0, rtol=1e-4, rel_l2=2e-5)
 
 
 class SmokeFailure(RuntimeError):
@@ -106,13 +128,16 @@ def bound(nbytes: float, ops: float, dtype_name: str):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def compare(out, ref, dtype_name: str, what: str) -> float:
+def compare(out, ref, dtype_name: str, what: str, tol=None) -> float:
     import torch
 
     out, ref = out.float(), ref.float()
     check(bool(torch.isfinite(out).all()), f"{what}: non-finite output")
     err = (out - ref).abs()
-    tol = TOL[dtype_name]
+    if tol is None:
+        tol = TOL[dtype_name]
+    else:  # relative to the largest reference value
+        tol = dict(tol, atol=tol["rtol"] * float(ref.abs().max()), rtol=0.0)
     ok = bool((err <= tol["atol"] + tol["rtol"] * ref.abs()).all())
     max_err = float(err.max()) if err.numel() else 0.0
     rel = float(err.norm() / ref.norm().clamp_min(1e-30))
@@ -214,6 +239,130 @@ def check_flash(torch, dev):
         compare(lse[finite], ref_lse[finite], "float32",
                 f"flash lse {name}")
     return rec
+
+
+def check_layernorm_bwd(torch, dev):
+    """K3b against ``layernorm_bwd_plain`` at the training shape."""
+    import torch.nn.functional as F
+
+    from pyspark_tf_gke_tpu_torch.ops import layernorm as ln
+
+    g = torch.Generator(device=dev).manual_seed(5)
+    rec = None
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).split(".")[-1]
+        x = (torch.randn(8192, 768, generator=g, device=dev) * 2 + 0.5
+             ).to(dtype)
+        r = torch.randn(8192, 768, generator=g, device=dev).to(dtype)
+        dy = torch.randn(8192, 768, generator=g, device=dev).to(dtype)
+        scale = torch.randn(768, generator=g, device=dev)
+        for res in (None, r):
+            tag = (f"layernorm_bwd {name} [8192,768]"
+                   f"{' +residual' if res is not None else ''}")
+            got = ln.layernorm_bwd(dy, x, scale, 1e-5, res)
+            want = ln.layernorm_bwd_plain(dy, x, scale, 1e-5, res)
+            err = compare(got[0], want[0], name, f"{tag} dx")
+            compare(got[1], want[1], "float32", f"{tag} dscale", SUM_TOL)
+            compare(got[2], want[2], "float32", f"{tag} dbias", SUM_TOL)
+            if dtype == torch.bfloat16 and res is None:
+                ms = cuda_ms(lambda: ln.layernorm_bwd(dy, x, scale, 1e-5))
+                plain = cuda_ms(lambda: ln.layernorm_bwd_plain(dy, x, scale,
+                                                               1e-5))
+                xr = x.detach().requires_grad_()
+                w = scale.to(dtype).requires_grad_()
+                b = torch.zeros_like(w, requires_grad=True)
+                y = F.layer_norm(xr, (768,), w, b, 1e-5)
+                lib = cuda_ms(lambda: torch.autograd.grad(
+                    y, (xr, w, b), dy, retain_graph=True))
+                # x and dy read, dx written, scale read, dscale and dbias
+                # written; ~17 f32 operations per element (statistics,
+                # closed form, column sums)
+                nbytes = 3 * x.numel() * x.element_size() + 3 * 768 * 4
+                bms, by = bound(nbytes, 17 * x.numel(), "float32")
+                rec = dict(max_abs_err=err, ms=ms, plain_ms=plain,
+                           bound_ms=bms, bound_by=by, library_ms=lib,
+                           shape="[8192,768] bf16")
+    return rec
+
+
+def _flash_bwd_case(torch, dev, g, dtype, case):
+    b, s, h, d = 16, 512, 12, 64
+    q, k, v, dout = (torch.randn(b, s, h, d, generator=g, device=dev
+                                 ).to(dtype) for _ in range(4))
+    kv_mask = segs = None
+    if case in ("segments", "masked"):
+        # documents of 100 tokens, as packed rows carry them
+        segs = (torch.arange(s, device=dev) // 100).to(torch.int32)
+        segs = segs[None].repeat(b, 1).contiguous()
+    if case == "masked":
+        kv_mask = torch.rand(b, s, generator=g, device=dev) > 0.1
+        kv_mask[:, 200] = False  # row 200 sees only key 200: an empty row
+        kv_mask[3] = False       # batch row 3: no key at all
+    return q, k, v, dout, kv_mask, segs
+
+
+def check_flash_bwd(torch, dev):
+    """K2dq and K2dkv against ``flash_attention_bwd_plain`` on the same
+    inputs (q, k, v, dO and the forward kernel's out and lse)."""
+    import torch.nn.functional as F
+
+    from pyspark_tf_gke_tpu_torch.ops import flash_attention as fa
+
+    g = torch.Generator(device=dev).manual_seed(6)
+    recs = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).split(".")[-1]
+        for case in ("causal", "segments", "masked"):
+            q, k, v, dout, kv_mask, segs = _flash_bwd_case(torch, dev, g,
+                                                           dtype, case)
+            out, lse = fa.flash_attention_fwd(q, k, v, kv_mask, True, segs)
+            delta = (dout.float() * out.float()).sum(-1).transpose(
+                1, 2).contiguous()
+            dq = fa.flash_attention_dq(dout, q, k, v, lse, delta, kv_mask,
+                                       True, segs)
+            dk, dv = fa.flash_attention_dkv(dout, q, k, v, lse, delta,
+                                            kv_mask, True, segs)
+            ref = fa.flash_attention_bwd_plain(q, k, v, dout, lse, delta,
+                                               kv_mask, True, segs)
+            tag = f"flash bwd {case} {name} B=16 S=512 H=12 D=64"
+            err_q = compare(dq, ref[0], name, f"{tag} dq")
+            err_k = compare(dk, ref[1], name, f"{tag} dk")
+            err_v = compare(dv, ref[2], name, f"{tag} dv")
+            if case == "masked":
+                check(bool((dq[3] == 0).all() and (dk[3] == 0).all()
+                           and (dv[3] == 0).all()),
+                      "fully masked batch row has a gradient")
+                check(bool((dq[:, 200] == 0).all()),
+                      "the empty query row has a gradient")
+            if dtype != torch.bfloat16 or case != "causal":
+                continue
+            plain = cuda_ms(lambda: fa.flash_attention_bwd_plain(
+                q, k, v, dout, lse, delta, causal=True))
+            qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                          for t in (q, k, v))
+            y = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+            lib = cuda_ms(lambda: torch.autograd.grad(
+                y, (qt, kt, vt), dout.transpose(1, 2), retain_graph=True))
+            pairs = 16 * 12 * 512 * 513 / 2  # causal (query, key) pairs
+            row = q.numel() * q.element_size()  # one [B, S, H, D] tensor
+            vecs = 2 * 16 * 12 * 512 * 4  # lse and delta
+            shape = "B=16 S=512 H=12 D=64 causal bf16"
+            ms = cuda_ms(lambda: fa.flash_attention_dq(dout, q, k, v, lse,
+                                                       delta, causal=True))
+            # reads q, k, v, dO, lse, delta; writes dq; s, dp and the dq
+            # update are 3 products of D per pair
+            bms, by = bound(5 * row + vecs, 6 * 64 * pairs, name)
+            recs["flash_attention_dq"] = dict(
+                max_abs_err=err_q, ms=ms, plain_ms=plain, bound_ms=bms,
+                bound_by=by, library_ms=lib, shape=shape)
+            ms = cuda_ms(lambda: fa.flash_attention_dkv(dout, q, k, v, lse,
+                                                        delta, causal=True))
+            # writes dk and dv; s, dp, dv and dk are 4 products of D
+            bms, by = bound(6 * row + vecs, 8 * 64 * pairs, name)
+            recs["flash_attention_dkv"] = dict(
+                max_abs_err=max(err_k, err_v), ms=ms, plain_ms=plain,
+                bound_ms=bms, bound_by=by, library_ms=lib, shape=shape)
+    return recs
 
 
 def _paged_case(torch, dev, g, dtype, hkv, s, quant):
@@ -319,7 +468,7 @@ def _post(url: str, body: dict):
         return resp.status, json.loads(resp.read())
 
 
-def run_main_path(torch, dev, modules, cfg):
+def run_main_path(torch, dev, counters, cfg):
     from pyspark_tf_gke_tpu_torch.models.causal_lm import init_params
     from pyspark_tf_gke_tpu_torch.train.export import export_serving_bundle
     from pyspark_tf_gke_tpu_torch.train.serve import (BundleServer,
@@ -349,8 +498,8 @@ def run_main_path(torch, dev, modules, cfg):
             jobs.append(body)
         _post(url + "/v1/generate", {"prompt": "warm up", "max_new_tokens": 2})
         torch.cuda.synchronize()
-        for mod in modules.values():  # count only the traffic below
-            mod.launches = 0
+        for mod, attr in counters.values():  # count only the traffic below
+            setattr(mod, attr, 0)
         results, errors = [None] * len(jobs), []
 
         def client(idx):
@@ -372,7 +521,8 @@ def run_main_path(torch, dev, modules, cfg):
         texts = [_prompt(rng, n) for n in (40, 200, 600, 1000)]
         score = _post(url + "/v1/score", {"texts": texts})
         torch.cuda.synchronize()
-        launches = {name: mod.launches for name, mod in modules.items()}
+        launches = {name: getattr(mod, attr)
+                    for name, (mod, attr) in counters.items()}
     finally:
         httpd.shutdown()
         httpd.server_close()
@@ -523,20 +673,238 @@ def check_parity(torch, dev, full_model, cfg):
           "bf16 prefill logits through the kernels disagree with plain")
 
 
+# -- phase 6: the training main path --------------------------------------------
+
+CORPUS_WORDS = ("flash", "attention", "kernel", "hopper", "gradient",
+                "layer", "norm", "token", "train", "step", "batch", "loss",
+                "adam", "warp", "shared", "memory", "the", "a", "of", "and")
+
+
+def write_corpus(root: Path, docs: int = 1200, seed: int = 0) -> str:
+    """A seeded synthetic corpus: sentences of words from a fixed list,
+    blank-line-separated documents of 60-120 words (~600 KB, ~1100 rows
+    of 512 bytes: past lm_pretrain's 256-row shuffle buffer)."""
+    rng = random.Random(seed)
+    root.mkdir(parents=True, exist_ok=True)
+    for f in range(4):
+        parts = []
+        for _ in range(docs // 4):
+            words = [rng.choice(CORPUS_WORDS)
+                     for _ in range(rng.randint(60, 120))]
+            parts.append(" ".join(words) + ".")
+        (root / f"part-{f}.txt").write_text("\n\n".join(parts) + "\n")
+    return str(root / "*.txt")
+
+
+TRAIN_FLAGS = ["--seq-len", "512", "--batch-size", "16",
+               "--compute-dtype", "bfloat16", "--learning-rate", "3e-4",
+               "--epochs", "2", "--steps-per-epoch", "10", "--seed", "0"]
+
+
+def run_training(torch, dev, counters):
+    from pyspark_tf_gke_tpu_torch.models.causal_lm import generate
+    from pyspark_tf_gke_tpu_torch.train.export import load_serving_bundle
+    from pyspark_tf_gke_tpu_torch.train.lm_pretrain import main as lm_main
+
+    work = PORT_PKG / "_build" / "chip_smoke_train"
+    shutil.rmtree(work, ignore_errors=True)
+    pattern = write_corpus(work / "corpus")
+    bundle = work / "bundle"
+    torch.cuda.synchronize()
+    for mod, attr in counters.values():
+        setattr(mod, attr, 0)
+    t0 = time.perf_counter()
+    history = lm_main(["--data-pattern", pattern, *TRAIN_FLAGS,
+                       "--output-dir", str(work / "run"),
+                       "--export-bundle", str(bundle), "--device", str(dev)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: getattr(mod, attr)
+                for name, (mod, attr) in counters.items()}
+    losses = history["loss"]
+    log(f"  lm_pretrain 2 epochs x 10 steps in {wall:.1f} s (model init, "
+        f"data, training, checkpoint and int8 export)")
+    for key in ("loss", "next_token_accuracy", "step_time_ms",
+                "examples_per_sec"):
+        log(f"  {key}: {history[key]}")
+    tokens_s = [e * 512 for e in history["examples_per_sec"]]
+    log(f"  tokens/s: {tokens_s}")
+    log(f"  kernel launches on the training path (20 steps): {launches}")
+    check(all(math.isfinite(v) for v in losses), f"non-finite loss {losses}")
+    check(losses[1] < losses[0], f"epoch-2 mean loss {losses[1]} is not "
+          f"below epoch 1's {losses[0]}")
+    for name, n in launches.items():
+        check(n > 0, f"kernel {name} was not launched on the training path")
+    model, _, meta = load_serving_bundle(str(bundle), device=str(dev))
+    out = generate(model, [list(b"the flash kernel ")], 16)
+    text = bytes(t for t in out[0].tolist() if t < 256).decode(
+        "utf-8", "replace")
+    check(out.shape == (1, 33) and out.device.type == "cuda",
+          f"generate from the exported bundle gave {tuple(out.shape)}")
+    log(f"  exported bundle ({'int8' if meta['quantized'] else 'dense'}) "
+        f"generates on the card: {text!r}")
+    shutil.rmtree(work, ignore_errors=True)
+    return launches, history
+
+
+def _train_model(torch, dev, cfg, seed, use_kernels=True):
+    from pyspark_tf_gke_tpu_torch.models.causal_lm import CausalLM, init_params
+
+    with torch.device(dev):
+        model = CausalLM(cfg, use_kernels=use_kernels,
+                         param_dtype=torch.float32)
+    return model.load_params(init_params(cfg, seed=seed))
+
+
+def _lm_batch(torch, dev, cfg, b, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return {"input_ids": torch.randint(0, cfg.vocab_size,
+                                       (b, cfg.max_seq_len), generator=g,
+                                       device=dev, dtype=torch.int32)}
+
+
+def profile_training(torch, dev):
+    """Two steady full-width training steps under ``torch.profiler``:
+    host wall against device-busy time, and the top device ops."""
+    from pyspark_tf_gke_tpu_torch.models.causal_lm import CausalLMConfig
+    from pyspark_tf_gke_tpu_torch.train.harness import make_optimizer
+    from pyspark_tf_gke_tpu_torch.train.trainer import TASKS, Trainer
+
+    cfg = CausalLMConfig(vocab_size=259, max_seq_len=512)
+    trainer = Trainer(_train_model(torch, dev, cfg, 0),
+                      TASKS["causal_lm"](), tx=make_optimizer(3e-4))
+    state = trainer.init_state()
+    batch = _lm_batch(torch, dev, cfg, 16, 7)
+    for _ in range(3):
+        trainer.step(state, batch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        trainer.step(state, batch)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / 5
+    log(f"  5 steady steps without the profiler: {step_ms:.2f} ms/step, "
+        f"{16 * 512 / step_ms * 1e3:.0f} tokens/s")
+    wall, busy, top = _profiled(
+        torch, lambda: [trainer.step(state, batch) for _ in range(2)])
+    if busy <= 0:
+        log(f"  2 steps: wall {wall:.2f} ms; device time not visible to "
+            "torch.profiler")
+        return
+    log(f"  2 steps under the profiler: wall {wall:.2f} ms, device busy "
+        f"{busy:.2f} ms ({100 * busy / wall:.1f}%), idle "
+        f"{100 * (1 - busy / wall):.1f}%")
+    for name, ms in top[:10]:
+        log(f"    {ms:9.3f} ms  {name[:90]}")
+
+
+# -- phase 7: training parity on the card ------------------------------------------
+
+
+def _grads(torch, model, batch):
+    from pyspark_tf_gke_tpu_torch.train.trainer import TASKS
+
+    task = TASKS["causal_lm"]()
+    loss, _ = task.loss_and_metrics(task.forward(model, batch), batch)
+    loss.backward()
+    grads = {n: p.grad.detach().float().clone()
+             for n, p in model.named_parameters()}
+    model.zero_grad(set_to_none=True)
+    return float(loss.detach()), grads
+
+
+def _grad_diff(torch, got, want):
+    """Relative L2 error of the whole gradient tree, and the tensor with
+    the largest error relative to max(its norm, 1e-3 x the largest
+    tensor norm): some gradients are zero up to rounding (a key bias
+    shifts every score of a row equally), and their relative error is
+    noise."""
+    num = sum(float(((got[n] - want[n]) ** 2).sum()) for n in want)
+    den = sum(float((want[n] ** 2).sum()) for n in want)
+    floor = 1e-3 * max(float(w.norm()) for w in want.values())
+    rels = {n: float((got[n] - want[n]).norm()) / max(float(want[n].norm()),
+                                                      floor, 1e-30)
+            for n in want}
+    worst = max(rels, key=rels.get)
+    return math.sqrt(num / max(den, 1e-30)), worst, rels[worst]
+
+
+def check_training_parity(torch, dev):
+    from pyspark_tf_gke_tpu_torch.models.causal_lm import CausalLMConfig
+    from pyspark_tf_gke_tpu_torch.train.harness import make_optimizer
+    from pyspark_tf_gke_tpu_torch.train.trainer import TASKS, Trainer
+
+    # f32, 2 layers at the full width: kernels against use_kernels=False
+    # from one init. Both compute every product in f32 (TF32 is off), so
+    # they differ by summation order: step-0 gradients within 1e-4
+    # relative L2 (whole tree) and losses within 1e-4 over 3 Adam steps.
+    cfg = CausalLMConfig(vocab_size=259, max_seq_len=512, num_layers=2,
+                         dtype=torch.float32)
+    batches = [_lm_batch(torch, dev, cfg, 8, 10 + i) for i in range(3)]
+    runs = {}
+    for use_kernels in (True, False):
+        model = _train_model(torch, dev, cfg, 3, use_kernels)
+        _, g0 = _grads(torch, model, batches[0])
+        trainer = Trainer(model, TASKS["causal_lm"](),
+                          tx=make_optimizer(3e-4))
+        state = trainer.init_state()
+        losses = [float(trainer.step(state, b)[1]["loss"]) for b in batches]
+        runs[use_kernels] = (g0, losses)
+    rel, worst, worst_rel = _grad_diff(torch, runs[True][0], runs[False][0])
+    dloss = max(abs(a - b) for a, b in zip(runs[True][1], runs[False][1]))
+    log(f"  f32 2-layer: losses kernels {runs[True][1]} vs plain "
+        f"{runs[False][1]} (max diff {dloss:.2e}, tolerance 1e-4); step-0 "
+        f"gradients relative L2 {rel:.2e} (tolerance 1e-4; worst tensor "
+        f"{worst} {worst_rel:.2e})")
+    check(dloss <= 1e-4 and rel <= 1e-4,
+          "f32 training through the kernels disagrees with plain")
+
+    # bf16 at full width: the kernels keep P, dS and the LayerNorm
+    # statistics in f32 and round once, while the plain path's autograd
+    # rounds the probabilities and every intermediate product to bf16
+    # (as its forward does: 2e-2 on the prefill logits); through 12 layers of
+    # backward allow 5e-2 relative L2 over the whole gradient tree.
+    cfg = CausalLMConfig(vocab_size=259, max_seq_len=512)
+    batch = _lm_batch(torch, dev, cfg, 16, 20)
+    loss_k, gk = _grads(torch, _train_model(torch, dev, cfg, 4), batch)
+    loss_p, gp = _grads(torch, _train_model(torch, dev, cfg, 4, False), batch)
+    rel, worst, worst_rel = _grad_diff(torch, gk, gp)
+    log(f"  full-width bf16 step-0: loss kernels {loss_k:.5f} vs plain "
+        f"{loss_p:.5f}; gradients relative L2 {rel:.2e} (tolerance 5e-2; "
+        f"worst tensor {worst} {worst_rel:.2e})")
+    check(all(bool(torch.isfinite(g).all()) for g in gk.values()),
+          "non-finite bf16 gradient")
+    check(rel <= 5e-2, "bf16 gradients through the kernels disagree")
+
+
 # -- main -----------------------------------------------------------------------
 
 
 KERNELS = (
     ("layernorm", "pyspark_tf_gke_tpu_torch/csrc/layernorm.cu",
      "pyspark_tf_gke_tpu/ops/pallas/layernorm.py:37"),
+    ("layernorm_bwd", "pyspark_tf_gke_tpu_torch/csrc/layernorm_bwd.cu",
+     "pyspark_tf_gke_tpu/ops/pallas/layernorm.py:98"),
     ("flash_attention_fwd", "pyspark_tf_gke_tpu_torch/csrc/flash_attention.cu",
      "pyspark_tf_gke_tpu/ops/pallas/flash_attention.py:49"),
+    ("flash_attention_dq",
+     "pyspark_tf_gke_tpu_torch/csrc/flash_attention_bwd.cu",
+     "pyspark_tf_gke_tpu/ops/pallas/flash_attention.py:162"),
+    ("flash_attention_dkv",
+     "pyspark_tf_gke_tpu_torch/csrc/flash_attention_bwd.cu",
+     "pyspark_tf_gke_tpu/ops/pallas/flash_attention.py:215"),
     ("paged_attention", "pyspark_tf_gke_tpu_torch/csrc/paged_attention.cu",
      "pyspark_tf_gke_tpu/ops/pallas/paged_attention.py:124"),
 )
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7",
+                    help="comma-separated phases to run (default: all, and "
+                         "only then the result lines)")
+    args = ap.parse_args(argv)
+    phases = {int(p) for p in args.phases.split(",") if p}
     if not PORT_PKG.is_dir():
         print("chip_smoke.py must run from a checkout of the repository "
               f"({PORT_PKG} is missing)", file=sys.stderr)
@@ -572,39 +940,78 @@ def main() -> int:
     kernels.library()
     log(f"  kernels ready in {time.perf_counter() - t0:.1f} s "
         f"(nvcc wall time {kernels.build_seconds})")
+    for line in kernels.build_log.splitlines():
+        if "Compiling entry function" in line or "Used " in line \
+                or "spill" in line:
+            log(f"  ptxas: {line.strip()[:150]}")
 
-    log("== 3. kernels vs plain versions")
-    records = {"layernorm": check_layernorm(torch, dev),
-               "flash_attention_fwd": check_flash(torch, dev),
-               "paged_attention": check_paged(torch, dev)}
-    for name, rec in records.items():
-        log(f"  {name} at {rec['shape']}: kernel_ms {rec['ms']:.4f}, "
-            f"plain_ms {rec['plain_ms']:.4f}, library_ms "
-            f"{rec['library_ms']:.4f}, bound_ms {rec['bound_ms']:.4f} "
-            f"({rec['bound_by']})")
+    records = {}
+    if 3 in phases:
+        log("== 3. kernels vs plain versions")
+        records = {"layernorm": check_layernorm(torch, dev),
+                   "layernorm_bwd": check_layernorm_bwd(torch, dev),
+                   "flash_attention_fwd": check_flash(torch, dev),
+                   **check_flash_bwd(torch, dev),
+                   "paged_attention": check_paged(torch, dev)}
+        for name, rec in records.items():
+            log(f"  {name} at {rec['shape']}: kernel_ms {rec['ms']:.4f}, "
+                f"plain_ms {rec['plain_ms']:.4f}, library_ms "
+                f"{rec['library_ms']:.4f}, bound_ms {rec['bound_ms']:.4f} "
+                f"({rec['bound_by']})")
 
-    modules = {"layernorm": ln, "flash_attention_fwd": fa,
-               "paged_attention": pa}
+    serve_counters = {"layernorm": (ln, "launches"),
+                      "flash_attention_fwd": (fa, "launches"),
+                      "paged_attention": (pa, "launches")}
+    train_counters = {"layernorm": (ln, "launches"),
+                      "layernorm_bwd": (ln, "bwd_launches"),
+                      "flash_attention_fwd": (fa, "launches"),
+                      "flash_attention_dq": (fa, "dq_launches"),
+                      "flash_attention_dkv": (fa, "dkv_launches")}
     from pyspark_tf_gke_tpu_torch.models.causal_lm import CausalLMConfig
 
     # GPT-small (CausalLMConfig defaults: vocab 32000, hidden 768, 12
     # layers, 12 heads, FFN 3072, 1024 positions, bf16), paged as the
     # cb bench pages it: 64-token pages, slots x 16 of them
     cfg = CausalLMConfig(kv_page_size=64, kv_num_pages=128)
-    log("== 4. main path: BundleServer + HTTP, GPT-small paged, 8 slots")
-    launches, full_model = run_main_path(torch, dev, modules, cfg)
-    log("== 4b. where the engine's time goes (torch.profiler)")
-    profile_engine(torch, full_model)
+    serve_launches, train_launches = {}, {}
+    if 4 in phases:
+        log("== 4. serving main path: BundleServer + HTTP, GPT-small paged, "
+            "8 slots")
+        serve_launches, full_model = run_main_path(torch, dev,
+                                                   serve_counters, cfg)
+        log("== 4b. where the engine's time goes (torch.profiler)")
+        profile_engine(torch, full_model)
+        if 5 in phases:
+            log("== 5. serving parity on the card")
+            check_parity(torch, dev, full_model, dataclasses.replace(
+                cfg, num_layers=2, dtype=torch.float32))
+        del full_model
+        torch.cuda.empty_cache()
+    if 6 in phases:
+        log("== 6. training main path: lm_pretrain, GPT-small width, bf16, "
+            "batch 16 x 512")
+        train_launches, _ = run_training(torch, dev, train_counters)
+        log("== 6b. where a training step's time goes (torch.profiler)")
+        profile_training(torch, dev)
+        torch.cuda.empty_cache()
+    if 7 in phases:
+        log("== 7. training parity on the card")
+        check_training_parity(torch, dev)
 
-    log("== 5. parity on the card")
-    check_parity(torch, dev, full_model, dataclasses.replace(
-        cfg, num_layers=2, dtype=torch.float32))
-
+    if phases != {1, 2, 3, 4, 5, 6, 7}:
+        log(f"partial run (phases {sorted(phases)}): no result lines")
+        return 0
     out = []
     for name, source, replaces in KERNELS:
         rec = records[name]
+        per_path = {"serve": serve_launches.get(name, 0),
+                    "train": train_launches.get(name, 0)}
+        # this slice's main path is training; paged attention runs only
+        # on the serving path
+        launches = per_path["train"] or per_path["serve"]
         out.append({"name": name, "route": "cuda", "source": source,
-                    "replaces": replaces, "launches": launches[name],
+                    "replaces": replaces, "launches": launches,
+                    "launches_per_path": per_path,
                     "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
                     "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
                     "bound_by": rec["bound_by"],
@@ -618,7 +1025,7 @@ def main() -> int:
 
 if __name__ == "__main__":
     try:
-        sys.exit(main())
+        sys.exit(main(sys.argv[1:]))
     except SmokeFailure as exc:
         print(f"chip_smoke FAILED: {exc}", file=sys.stderr)
         sys.exit(1)

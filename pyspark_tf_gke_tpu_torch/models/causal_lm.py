@@ -17,11 +17,21 @@ variable collection:
 
 Both are updated IN PLACE (the JAX version returns new arrays).
 
-On CUDA every causal full forward (prefill, score) runs through the
-flash kernel, at any length; ``use_flash=False`` raises there (on the
-CPU, ``True`` selects the flash plain version). ``use_kernels=False``
-asks for the plain PyTorch version of every kernel on any device (the
-reference the kernels are held against).
+On CUDA every causal full forward (prefill, score, training) runs
+through the flash kernel, at any length; ``use_flash=False`` raises
+there (on the CPU, ``True`` selects the flash plain version).
+``use_kernels=False`` asks for the plain PyTorch version of every kernel
+on any device (the reference the kernels are held against).
+
+Two ways to hold the weights (``param_dtype``): ``None`` keeps them in
+the compute dtype ``cfg.dtype`` without gradients (serving), and
+``torch.float32`` keeps trainable f32 master weights cast to
+``cfg.dtype`` at use, as the JAX model keeps f32 parameters under a bf16
+``dtype`` (training). A full causal forward with grad enabled is the
+training forward (``CausalLM.__call__`` ``:547-633``): flash attention
+and LayerNorm differentiate through their kernels (K2dq/K2dkv, K3b),
+and ``cfg.remat`` recomputes each block in the backward
+(``torch.utils.checkpoint``, as ``nn.remat`` does).
 """
 
 from __future__ import annotations
@@ -33,6 +43,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from pyspark_tf_gke_tpu_torch.ops.attention import dot_product_attention
 from pyspark_tf_gke_tpu_torch.ops.flash_attention import flash_attention
@@ -55,7 +66,7 @@ class CausalLMConfig:
     max_seq_len: int = 1024
     layer_norm_eps: float = 1e-5
     dtype: torch.dtype = torch.bfloat16
-    remat: bool = False  # training-only; kept for config.json parity
+    remat: bool = False  # training: recompute each block in the backward
     use_flash: Optional[bool] = None  # CUDA: None/True = the kernel
     num_kv_heads: Optional[int] = None
     pos_embedding: str = "learned"
@@ -130,12 +141,12 @@ def quantize_kv(x: torch.Tensor):
 
 class RMSNorm(nn.Module):
     def __init__(self, features: int, epsilon: float = 1e-5,
-                 dtype: torch.dtype = torch.bfloat16):
+                 dtype: torch.dtype = torch.bfloat16, trainable: bool = False):
         super().__init__()
         self.epsilon = epsilon
         self.dtype = dtype
         self.scale = nn.Parameter(torch.ones(features, dtype=torch.float32),
-                                  requires_grad=False)
+                                  requires_grad=trainable)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         xf = x.float()
@@ -143,14 +154,17 @@ class RMSNorm(nn.Module):
         return (xf / rms * self.scale).to(self.dtype)
 
 
-def _norm(cfg: CausalLMConfig, use_kernels: bool) -> nn.Module:
+def _norm(cfg: CausalLMConfig, use_kernels: bool,
+          param_dtype: Optional[torch.dtype]) -> nn.Module:
+    trainable = param_dtype is not None
     if cfg.norm == "rmsnorm":
-        return RMSNorm(cfg.hidden_size, cfg.layer_norm_eps, cfg.dtype)
+        return RMSNorm(cfg.hidden_size, cfg.layer_norm_eps, cfg.dtype,
+                       trainable)
     if cfg.norm != "layernorm":
         raise ValueError(f"norm must be 'layernorm' or 'rmsnorm', "
                          f"got {cfg.norm!r}")
     return FusedLayerNorm(cfg.hidden_size, cfg.layer_norm_eps, cfg.dtype,
-                          use_fused=use_kernels)
+                          use_fused=use_kernels, trainable=trainable)
 
 
 # -- caches -------------------------------------------------------------------
@@ -277,15 +291,17 @@ class PagedKV:
 
 
 class CausalSelfAttention(nn.Module):
-    def __init__(self, cfg: CausalLMConfig, use_kernels: bool = True):
+    def __init__(self, cfg: CausalLMConfig, use_kernels: bool = True,
+                 param_dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.cfg = cfg
         self.use_kernels = use_kernels
         hkv, d = cfg.kv_heads, cfg.head_dim
-        self.query = Dense(cfg.hidden_size, cfg.hidden_size, cfg.dtype)
-        self.key = Dense(cfg.hidden_size, hkv * d, cfg.dtype)
-        self.value = Dense(cfg.hidden_size, hkv * d, cfg.dtype)
-        self.out = Dense(cfg.hidden_size, cfg.hidden_size, cfg.dtype)
+        dense = lambda i, o: Dense(i, o, cfg.dtype, param_dtype)  # noqa: E731
+        self.query = dense(cfg.hidden_size, cfg.hidden_size)
+        self.key = dense(cfg.hidden_size, hkv * d)
+        self.value = dense(cfg.hidden_size, hkv * d)
+        self.out = dense(cfg.hidden_size, cfg.hidden_size)
 
     def forward(self, hidden, positions, layer: int, cache=None,
                 prefill: bool = False, segment_ids=None):
@@ -382,19 +398,20 @@ class CausalSelfAttention(nn.Module):
 
 
 class CausalLMBlock(nn.Module):
-    def __init__(self, cfg: CausalLMConfig, use_kernels: bool = True):
+    def __init__(self, cfg: CausalLMConfig, use_kernels: bool = True,
+                 param_dtype: Optional[torch.dtype] = None):
         super().__init__()
         if cfg.ffn not in ("gelu", "swiglu"):
             raise ValueError(f"ffn must be 'gelu' or 'swiglu', got {cfg.ffn!r}")
         self.cfg = cfg
-        self.ln_attn = _norm(cfg, use_kernels)
-        self.attention = CausalSelfAttention(cfg, use_kernels)
-        self.ln_mlp = _norm(cfg, use_kernels)
+        self.ln_attn = _norm(cfg, use_kernels, param_dtype)
+        self.attention = CausalSelfAttention(cfg, use_kernels, param_dtype)
+        self.ln_mlp = _norm(cfg, use_kernels, param_dtype)
+        h, f = cfg.hidden_size, cfg.intermediate_size
         if cfg.ffn == "swiglu":
-            self.mlp_gate = Dense(cfg.hidden_size, cfg.intermediate_size,
-                                  cfg.dtype)
-        self.mlp_in = Dense(cfg.hidden_size, cfg.intermediate_size, cfg.dtype)
-        self.mlp_out = Dense(cfg.intermediate_size, cfg.hidden_size, cfg.dtype)
+            self.mlp_gate = Dense(h, f, cfg.dtype, param_dtype)
+        self.mlp_in = Dense(h, f, cfg.dtype, param_dtype)
+        self.mlp_out = Dense(f, h, cfg.dtype, param_dtype)
 
     def forward(self, hidden, positions, layer: int, cache=None,
                 prefill: bool = False, segment_ids=None):
@@ -412,22 +429,27 @@ class CausalLMBlock(nn.Module):
 class CausalLM(nn.Module):
     """Pre-LN decoder stack with an untied LM head. Parameters follow
     the flax tree: ``wte``, ``wpe`` (learned positions), ``layer_{i}``,
-    ``ln_final``, ``lm_head``."""
+    ``ln_final``, ``lm_head``. ``param_dtype=None`` holds the weights in
+    ``cfg.dtype`` without gradients (serving); ``torch.float32`` holds
+    trainable f32 weights cast to ``cfg.dtype`` at use (training)."""
 
-    def __init__(self, cfg: CausalLMConfig, use_kernels: bool = True):
+    def __init__(self, cfg: CausalLMConfig, use_kernels: bool = True,
+                 param_dtype: Optional[torch.dtype] = None):
         super().__init__()
         if cfg.pos_embedding not in ("learned", "rope"):
             raise ValueError(f"pos_embedding must be 'learned' or 'rope', "
                              f"got {cfg.pos_embedding!r}")
         self.cfg = cfg
         self.use_kernels = use_kernels
-        self.wte = TokenEmbed(cfg.vocab_size, cfg.hidden_size, cfg.dtype)
+        h = cfg.hidden_size
+        self.wte = TokenEmbed(cfg.vocab_size, h, cfg.dtype, param_dtype)
         if cfg.pos_embedding == "learned":
-            self.wpe = TokenEmbed(cfg.max_seq_len, cfg.hidden_size, cfg.dtype)
+            self.wpe = TokenEmbed(cfg.max_seq_len, h, cfg.dtype, param_dtype)
         for i in range(cfg.num_layers):
-            self.add_module(f"layer_{i}", CausalLMBlock(cfg, use_kernels))
-        self.ln_final = _norm(cfg, use_kernels)
-        self.lm_head = Dense(cfg.hidden_size, cfg.vocab_size, cfg.dtype)
+            self.add_module(f"layer_{i}",
+                            CausalLMBlock(cfg, use_kernels, param_dtype))
+        self.ln_final = _norm(cfg, use_kernels, param_dtype)
+        self.lm_head = Dense(h, cfg.vocab_size, cfg.dtype, param_dtype)
 
     @property
     def device(self) -> torch.device:
@@ -464,9 +486,16 @@ class CausalLM(nn.Module):
         hidden = self.wte(input_ids)
         if self.cfg.pos_embedding == "learned":
             hidden = hidden + self.wpe(positions)
+        remat = (self.cfg.remat and cache is None
+                 and torch.is_grad_enabled())
         for i in range(self.cfg.num_layers):
-            hidden = getattr(self, f"layer_{i}")(hidden, positions, i, cache,
-                                                 prefill, segment_ids)
+            block = getattr(self, f"layer_{i}")
+            if remat:
+                hidden = checkpoint(block, hidden, positions, i, None, False,
+                                    segment_ids, use_reentrant=False)
+            else:
+                hidden = block(hidden, positions, i, cache, prefill,
+                               segment_ids)
         if last_index is not None:
             rows = torch.arange(b, device=hidden.device)
             hidden = hidden[rows, last_index.long()][:, None]

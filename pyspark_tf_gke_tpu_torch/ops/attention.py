@@ -1,7 +1,8 @@
 """Plain batched attention (counterpart of
 ``pyspark_tf_gke_tpu/ops/attention.py::dot_product_attention``).
 
-Scores and softmax in f32 whatever the input dtype; the probabilities
+Scores and softmax in f32 whatever the input dtype (f64 for f64 inputs,
+as ``gradcheck`` needs); the probabilities
 are cast back to the input dtype before the P.V product, as in the JAX
 version. A query row with no valid key (every key masked) returns 0,
 not the mean of V. Ring and Ulysses attention wait for the parallelism
@@ -20,10 +21,12 @@ NEG_INF = -1e30
 def masked_scores(q: torch.Tensor, k: torch.Tensor,
                   mask: Optional[torch.Tensor] = None,
                   causal: bool = False) -> torch.Tensor:
-    """f32 scores ``[B, H, Sq, Sk]`` with masked entries at NEG_INF.
-    ``mask`` broadcasts to ``[B, H, Sq, Sk]`` (True = keep)."""
+    """f32 (f64 for f64 inputs) scores ``[B, H, Sq, Sk]`` with masked
+    entries at NEG_INF. ``mask`` broadcasts to ``[B, H, Sq, Sk]`` (True =
+    keep)."""
     scale = q.shape[-1] ** -0.5
-    scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    acc = torch.promote_types(q.dtype, torch.float32)
+    scores = torch.einsum("bqhd,bkhd->bhqk", q.to(acc), k.to(acc)) * scale
     if causal:
         sq, sk = q.shape[1], k.shape[1]
         cm = torch.ones((sq, sk), dtype=torch.bool,

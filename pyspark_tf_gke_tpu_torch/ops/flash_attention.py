@@ -1,18 +1,28 @@
-"""Flash attention forward (K2 forward) on ``[B, S, H, D]``.
+"""Flash attention (K2 forward, K2dq and K2dkv backward) on ``[B, S, H,
+D]``, differentiable.
 
 Counterpart of ``pyspark_tf_gke_tpu/ops/pallas/flash_attention.py``
-(``flash_attention`` ``:433``, kernel ``_fwd_kernel`` ``:49``), with the
-same masking: ``kv_mask [B, S]`` (True = key present) acts as an
-additive 0 / NEG_INF bias, ``segment_ids [B, S]`` confine attention
-within matching ids, ``causal`` hides future keys, and a query row with
-no unmasked key returns 0. The kernel (``csrc/flash_attention.cu``)
-also writes the per-row logsumexp ``lse [B, H, S]`` (+inf on fully
-masked rows) so the backward kernels and ``flash_attention_block`` can
-be added later on the same forward. The plain version is
-``dot_product_attention`` with the key-padding and segment masks.
+(``flash_attention`` ``:433``, kernels ``_fwd_kernel`` ``:49``,
+``_dq_kernel`` ``:162``, ``_dkv_kernel`` ``:215``, the ``custom_vjp``
+``:342-364``), with the same masking: ``kv_mask [B, S]`` (True = key
+present) acts as an additive 0 / NEG_INF bias, ``segment_ids [B, S]``
+confine attention within matching ids, ``causal`` hides future keys,
+and a query row with no unmasked key returns 0.
 
-The wrapper takes the plain version only for tensors on the CPU; a CUDA
-tensor launches the kernel or raises.
+:func:`flash_attention` is a ``torch.autograd.Function``. Its forward
+(``csrc/flash_attention.cu``) also writes the per-row logsumexp ``lse
+[B, H, S]`` (+inf on fully masked rows); the residuals are (q, k, v,
+masks, out, lse). The backward computes ``delta = rowsum(dO * O)`` with
+torch, as the JAX package computes it outside Pallas (``:281``), then
+launches K2dq and K2dkv (``csrc/flash_attention_bwd.cu``), which
+recompute ``P = exp(S - lse)`` and ``dS = P * (dP - delta) * scale``.
+The plain versions are :func:`flash_attention_plain` (masked
+``dot_product_attention`` plus the lse) and
+:func:`flash_attention_bwd_plain` (the same recompute-from-lse math).
+They keep P and dS unrounded (f32, or f64 for f64 inputs), as the
+kernels do; the TPU kernels round them to the input dtype before their
+bf16 products. The wrappers take the plain versions only for tensors on
+the CPU; a CUDA tensor launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -26,9 +36,11 @@ from pyspark_tf_gke_tpu_torch.ops.attention import (dot_product_attention,
                                                     masked_scores)
 
 NEG_INF = -1e30
-HEAD_DIMS = (64,)  # instantiated in csrc/flash_attention.cu
+HEAD_DIMS = (64,)  # instantiated in csrc/flash_attention*.cu
 
-launches = 0  # kernel launches since the last reset (chip_smoke reads it)
+launches = 0  # K2 forward launches since the last reset (chip_smoke reads it)
+dq_launches = 0  # K2dq launches since the last reset
+dkv_launches = 0  # K2dkv launches since the last reset
 
 
 def _mask(kv_mask: Optional[torch.Tensor],
@@ -43,6 +55,13 @@ def _mask(kv_mask: Optional[torch.Tensor],
     return mask
 
 
+def _causal_mask(mask: Optional[torch.Tensor], sq: int, sk: int,
+                 device) -> torch.Tensor:
+    tri = torch.ones((sq, sk), dtype=torch.bool,
+                     device=device).tril(diagonal=sk - sq)[None, None]
+    return tri if mask is None else mask & tri
+
+
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           kv_mask: Optional[torch.Tensor] = None,
                           causal: bool = False,
@@ -54,10 +73,7 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         # fold causality into the keep-mask, so a row whose only
         # unmasked keys lie in its future counts as empty (0), as in
         # the kernel
-        sq, sk = q.shape[1], k.shape[1]
-        tri = torch.ones((sq, sk), dtype=torch.bool,
-                         device=q.device).tril(diagonal=sk - sq)[None, None]
-        mask = tri if mask is None else mask & tri
+        mask = _causal_mask(mask, q.shape[1], k.shape[1], q.device)
     out = dot_product_attention(q, k, v, mask=mask)
     scores = masked_scores(q, k, mask)
     lse = torch.logsumexp(scores, dim=-1)
@@ -66,17 +82,43 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out, lse
 
 
-def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        kv_mask: Optional[torch.Tensor] = None,
-                        causal: bool = False,
-                        segment_ids: Optional[torch.Tensor] = None
-                        ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``(out [B, S, H, D], lse [B, H, S])``."""
-    global launches
-    if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, kv_mask, causal, segment_ids)
+def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, dout: torch.Tensor,
+                              lse: torch.Tensor, delta: torch.Tensor,
+                              kv_mask: Optional[torch.Tensor] = None,
+                              causal: bool = False,
+                              segment_ids: Optional[torch.Tensor] = None
+                              ) -> Tuple[torch.Tensor, torch.Tensor,
+                                         torch.Tensor]:
+    """``(dq, dk, dv)`` from the saved ``lse [B, H, S]`` and ``delta =
+    rowsum(dO * O) [B, H, S]``, as the K2dq/K2dkv kernels compute them:
+    scores in the forward's order (scale, additive key bias, then the
+    segment and causal masks replace the score), ``P = exp(S - lse)``,
+    ``dS = P * (dP - delta) * scale``."""
+    acc = torch.promote_types(q.dtype, torch.float32)
+    qf, kf, vf, dof = (t.to(acc) for t in (q, k, v, dout))
+    scale = q.shape[-1] ** -0.5
+    s = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale
+    if kv_mask is not None:
+        bias = torch.where(kv_mask.bool(), 0.0, NEG_INF).to(acc)
+        s = s + bias[:, None, None, :]
+    keep = _mask(None, segment_ids)
+    if causal:
+        keep = _causal_mask(keep, q.shape[1], k.shape[1], q.device)
+    if keep is not None:
+        s = torch.where(keep, s, NEG_INF)
+    p = torch.exp(s - lse.to(acc)[..., None])
+    dp = torch.einsum("bqhd,bkhd->bhqk", dof, vf)
+    ds = p * (dp - delta.to(acc)[..., None]) * scale
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf)
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf)
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, dof)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _check(kernel: str, q, k, v, kv_mask, segment_ids, *more):
     extra = tuple(t for t in (kv_mask, segment_ids) if t is not None)
-    device = kernels.require_cuda("flash_attention", q, k, v, *extra)
+    device = kernels.require_cuda(kernel, q, k, v, *extra, *more)
     if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
         raise ValueError(f"q/k/v must share one [B, S, H, D] shape, got "
                          f"{tuple(q.shape)}/{tuple(k.shape)}/{tuple(v.shape)}")
@@ -85,7 +127,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"flash kernel takes head_dim in {HEAD_DIMS}, got {d}")
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError("q/k/v must share one dtype")
-    code = kernels.dtype_code(q.dtype, "flash_attention")
+    code = kernels.dtype_code(q.dtype, kernel)
     if code == kernels.DTYPE_CODES[torch.int8]:
         raise TypeError("flash kernel takes float q/k/v")
     if any(t.stride(-1) != 1 for t in (q, k, v)):
@@ -98,22 +140,143 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                               or not t.is_contiguous()):
             raise ValueError(f"{name} must be a contiguous [B, S] {dt} "
                              f"tensor, got {tuple(t.shape)} {t.dtype}")
+    return device, code
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return t.data_ptr() if t is not None else None
+
+
+def _strides(*tensors):
+    return [st for t in tensors for st in t.stride()[:3]]
+
+
+def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        kv_mask: Optional[torch.Tensor] = None,
+                        causal: bool = False,
+                        segment_ids: Optional[torch.Tensor] = None
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K2 forward: ``(out [B, S, H, D], lse [B, H, S])`` (no autograd)."""
+    global launches
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, kv_mask, causal, segment_ids)
+    device, code = _check("flash_attention", q, k, v, kv_mask, segment_ids)
+    b, s, h, d = q.shape
     out = torch.empty((b, s, h, d), dtype=q.dtype, device=device)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=device)
     lib = kernels.library()
     rc = lib.port_flash_attention_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        kv_mask.data_ptr() if kv_mask is not None else None,
-        segment_ids.data_ptr() if segment_ids is not None else None,
-        out.data_ptr(), lse.data_ptr(), b, s, h, d,
-        q.stride(0), q.stride(1), q.stride(2),
-        k.stride(0), k.stride(1), k.stride(2),
-        v.stride(0), v.stride(1), v.stride(2),
-        int(bool(causal)), float(d ** -0.5), code,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(kv_mask),
+        _ptr(segment_ids), out.data_ptr(), lse.data_ptr(), b, s, h, d,
+        *_strides(q, k, v), int(bool(causal)), float(d ** -0.5), code,
         *kernels.launch_args(device))
     kernels.check(rc, "flash_attention")
     launches += 1
     return out, lse
+
+
+def _check_bwd(kernel, dout, q, k, v, lse, delta, kv_mask, segment_ids):
+    device, code = _check(kernel, q, k, v, kv_mask, segment_ids, dout, lse,
+                          delta)
+    b, s, h, _ = q.shape
+    if dout.shape != q.shape or dout.dtype != q.dtype:
+        raise ValueError("the output gradient must match q in shape and dtype")
+    if dout.stride(-1) != 1:
+        raise ValueError("flash kernel needs a contiguous head_dim axis")
+    for name, t in (("lse", lse), ("delta", delta)):
+        if t.shape != (b, h, s) or t.dtype != torch.float32 \
+                or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous float32 [B, H, S] "
+                             "tensor")
+    return device, code
+
+
+def _bwd_args(dout, q, k, v, lse, delta, kv_mask, segment_ids, causal,
+              code, device):
+    b, s, h, d = q.shape
+    head = (q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+            _ptr(kv_mask), _ptr(segment_ids), lse.data_ptr(), delta.data_ptr())
+    tail = (b, s, h, d, *_strides(q, k, v, dout), int(bool(causal)),
+            float(d ** -0.5), code, *kernels.launch_args(device))
+    return head, tail
+
+
+def flash_attention_dq(dout: torch.Tensor, q: torch.Tensor, k: torch.Tensor,
+                       v: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor,
+                       kv_mask: Optional[torch.Tensor] = None,
+                       causal: bool = False,
+                       segment_ids: Optional[torch.Tensor] = None
+                       ) -> torch.Tensor:
+    """K2dq: ``dq [B, S, H, D]`` (CUDA tensors only)."""
+    global dq_launches
+    device, code = _check_bwd("flash_attention_dq", dout, q, k, v, lse, delta,
+                              kv_mask, segment_ids)
+    head, tail = _bwd_args(dout, q, k, v, lse, delta, kv_mask, segment_ids,
+                           causal, code, device)
+    dq = torch.empty(q.shape, dtype=q.dtype, device=device)
+    kernels.check(kernels.library().port_flash_attention_dq(
+        *head, dq.data_ptr(), *tail), "flash_attention_dq")
+    dq_launches += 1
+    return dq
+
+
+def flash_attention_dkv(dout: torch.Tensor, q: torch.Tensor, k: torch.Tensor,
+                        v: torch.Tensor, lse: torch.Tensor,
+                        delta: torch.Tensor,
+                        kv_mask: Optional[torch.Tensor] = None,
+                        causal: bool = False,
+                        segment_ids: Optional[torch.Tensor] = None
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K2dkv: ``(dk, dv)``, each ``[B, S, H, D]`` (CUDA tensors only)."""
+    global dkv_launches
+    device, code = _check_bwd("flash_attention_dkv", dout, q, k, v, lse,
+                              delta, kv_mask, segment_ids)
+    head, tail = _bwd_args(dout, q, k, v, lse, delta, kv_mask, segment_ids,
+                           causal, code, device)
+    dk = torch.empty(q.shape, dtype=q.dtype, device=device)
+    dv = torch.empty_like(dk)
+    kernels.check(kernels.library().port_flash_attention_dkv(
+        *head, dk.data_ptr(), dv.data_ptr(), *tail), "flash_attention_dkv")
+    dkv_launches += 1
+    return dk, dv
+
+
+def flash_attention_bwd(dout: torch.Tensor, q: torch.Tensor, k: torch.Tensor,
+                        v: torch.Tensor, out: torch.Tensor, lse: torch.Tensor,
+                        kv_mask: Optional[torch.Tensor] = None,
+                        causal: bool = False,
+                        segment_ids: Optional[torch.Tensor] = None
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``(dq, dk, dv)`` for the output gradient ``dout``, from the
+    forward's ``out`` and ``lse``: ``delta`` here, then K2dq and K2dkv
+    (the plain version for CPU tensors)."""
+    acc = torch.promote_types(q.dtype, torch.float32)
+    delta = (dout.to(acc) * out.to(acc)).sum(-1).transpose(1, 2)  # [B,H,S]
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(q, k, v, dout, lse, delta, kv_mask,
+                                         causal, segment_ids)
+    dout, delta = dout.contiguous(), delta.contiguous()
+    dq = flash_attention_dq(dout, q, k, v, lse, delta, kv_mask, causal,
+                            segment_ids)
+    dk, dv = flash_attention_dkv(dout, q, k, v, lse, delta, kv_mask, causal,
+                                 segment_ids)
+    return dq, dk, dv
+
+
+class _FlashAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, kv_mask, segment_ids, causal):
+        out, lse = flash_attention_fwd(q, k, v, kv_mask, causal, segment_ids)
+        ctx.save_for_backward(q, k, v, kv_mask, segment_ids, out, lse)
+        ctx.causal = causal
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, kv_mask, segment_ids, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(dout, q, k, v, out, lse, kv_mask,
+                                         ctx.causal, segment_ids)
+        return dq, dk, dv, None, None, None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -122,5 +285,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     segment_ids: Optional[torch.Tensor] = None
                     ) -> torch.Tensor:
     """Fused attention; drop-in for ``dot_product_attention`` on
-    ``[B, S, H, D]`` with key-padding, segment and causal masks."""
-    return flash_attention_fwd(q, k, v, kv_mask, causal, segment_ids)[0]
+    ``[B, S, H, D]`` with key-padding, segment and causal masks.
+    Differentiable in q, k and v (K2dq, K2dkv)."""
+    return _FlashAttention.apply(q, k, v, kv_mask, segment_ids, causal)

@@ -33,7 +33,10 @@ CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
-NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
+# -Xptxas=-v: each kernel's registers, shared memory and spills land in
+# build_log (chip_smoke prints them)
+NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+                           "-Xptxas=-v"]
 
 # dtype codes shared with csrc/common.cuh (enum DType): the kernels are
 # built and checked on the card for these only
@@ -50,11 +53,17 @@ SIGNATURES = {
     "port_flash_attention_fwd": ([_P] * 7 + [_I] * 4 + [_L] * 9
                                  + [_I, _F, _I, _I, _P]),
     "port_paged_attention": [_P] * 8 + [_I] * 8 + [_F, _I, _I, _I, _P],
+    "port_layernorm_bwd": [_P] * 9 + [_I] * 3 + [_F, _I, _I, _P],
+    "port_flash_attention_dq": ([_P] * 9 + [_I] * 4 + [_L] * 12
+                                + [_I, _F, _I, _I, _P]),
+    "port_flash_attention_dkv": ([_P] * 10 + [_I] * 4 + [_L] * 12
+                                 + [_I, _F, _I, _I, _P]),
 }
 
 _lock = threading.Lock()
 _library: Optional[ctypes.CDLL] = None
 build_seconds: Optional[float] = None  # wall time of this process's build
+build_log: str = ""  # the compilers' output of this process's build
 
 
 def sources() -> List[Path]:
@@ -105,7 +114,7 @@ def build_commands(nvcc: str = "nvcc", out: Optional[Path] = None,
 
 def build(out: Optional[Path] = None) -> Path:
     """Compile every source in parallel and link the library."""
-    global build_seconds
+    global build_seconds, build_log
     out = out if out is not None else library_path()
     out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".tmp{os.getpid()}.so")
@@ -114,11 +123,12 @@ def build(out: Optional[Path] = None) -> Path:
     procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
                               stderr=subprocess.STDOUT, text=True)
              for cmd in compiles]
-    failures = []
+    failures, logs = [], []
     for cmd, proc in zip(compiles, procs):
         log, _ = proc.communicate()
+        logs.append(f"$ {' '.join(cmd)}\n{log}")
         if proc.returncode != 0:
-            failures.append(f"$ {' '.join(cmd)}\n{log}")
+            failures.append(logs[-1])
     if failures:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failures))
     result = subprocess.run(link, capture_output=True, text=True)
@@ -127,6 +137,7 @@ def build(out: Optional[Path] = None) -> Path:
                            f"{result.stdout}{result.stderr}")
     os.replace(tmp, out)  # atomic: a concurrent loader never sees half
     build_seconds = time.perf_counter() - t0
+    build_log = "\n".join(logs)
     return out
 
 

@@ -1,38 +1,169 @@
-"""Fused LayerNorm forward (K3): ``y = LN(x)`` or ``y = LN(x + r)``.
+"""Fused LayerNorm (K3 forward, K3b backward): ``y = LN(x)`` or
+``y = LN(x + r)``, differentiable.
 
 Counterpart of ``pyspark_tf_gke_tpu/ops/pallas/layernorm.py``. The
 statistics are f32 for any input dtype and ``y`` comes back in ``x``'s
-dtype. The kernel is ``csrc/layernorm.cu``; :func:`layernorm_plain` is
-the same closed form in plain PyTorch. :func:`fused_layernorm` takes
-the plain version only for tensors that lie on the CPU; a CUDA tensor
-launches the kernel or raises. Forward only: the closed-form backward
-(``layernorm.py:98-137``) waits for the training slice.
+dtype. :func:`fused_layernorm` is a ``torch.autograd.Function``: its
+forward is the K3 kernel (``csrc/layernorm.cu``) and its backward the
+K3b kernel (``csrc/layernorm_bwd.cu``), the closed-form gradient of
+``_ln_bwd`` / ``_ln_res_bwd`` (``layernorm.py:98-137``): dx (returned
+for the residual too), f32 dscale and dbias. :func:`layernorm_plain`
+and :func:`layernorm_bwd_plain` are the same closed forms in plain
+PyTorch; the wrappers take them only for tensors that lie on the CPU,
+and a CUDA tensor launches the kernel or raises. The plain versions
+compute in f32, or in f64 for f64 inputs (``gradcheck``).
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
 from pyspark_tf_gke_tpu_torch.ops import kernels
 
-MAX_D = 1024  # csrc/layernorm.cu keeps D/32 values per lane in registers
+MAX_D = 1024  # csrc/layernorm*.cu keep D/32 values per lane in registers
+BWD_WARPS = 8  # rows in flight per K3b block (csrc/layernorm_bwd.cu)
+BWD_MAX_BLOCKS = 256  # K3b's fixed grid: one partial-sum row per block
 
-launches = 0  # kernel launches since the last reset (chip_smoke reads it)
+launches = 0  # K3 launches since the last reset (chip_smoke reads it)
+bwd_launches = 0  # K3b launches since the last reset
+
+
+def _acc(t: torch.Tensor) -> torch.Tensor:
+    """``t`` in the plain versions' arithmetic type: f32, or f64."""
+    return t.to(torch.promote_types(t.dtype, torch.float32))
 
 
 def layernorm_plain(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                     eps: float = 1e-6,
                     residual: Optional[torch.Tensor] = None) -> torch.Tensor:
-    xf = x.float()
+    xf = _acc(x)
     if residual is not None:
-        xf = xf + residual.float()
+        xf = xf + _acc(residual)
     mean = xf.mean(dim=-1, keepdim=True)
     xc = xf - mean
     var = (xc * xc).mean(dim=-1, keepdim=True)
-    y = xc * torch.rsqrt(var + eps) * scale.float() + bias.float()
+    y = xc * torch.rsqrt(var + eps) * _acc(scale) + _acc(bias)
     return y.to(x.dtype)
+
+
+def layernorm_bwd_plain(g: torch.Tensor, x: torch.Tensor, scale: torch.Tensor,
+                        eps: float = 1e-6,
+                        residual: Optional[torch.Tensor] = None
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``(dx, dscale, dbias)`` of :func:`layernorm_plain` for the output
+    gradient ``g``. With ``residual`` the statistics come from ``x + r``
+    rounded to x's dtype, as ``_ln_res_bwd`` recomputes them, and ``dx``
+    is also the residual's gradient."""
+    d = x.shape[-1]
+    xs = x if residual is None else (_acc(x) + _acc(residual)).to(x.dtype)
+    xf = _acc(xs).reshape(-1, d)
+    gf = _acc(g).reshape(-1, d).to(xf.dtype)
+    mean = xf.mean(-1, keepdim=True)
+    xc = xf - mean
+    var = (xc * xc).mean(-1, keepdim=True)
+    inv = torch.rsqrt(var + eps)
+    xhat = xc * inv
+    gs = gf * scale.to(xf.dtype)[None, :]
+    dx = inv / d * (d * gs - gs.sum(-1, keepdim=True)
+                    - xhat * (gs * xhat).sum(-1, keepdim=True))
+    dscale = (gf * xhat).sum(0)
+    dbias = gf.sum(0)
+    return (dx.to(x.dtype).reshape(x.shape), dscale.to(scale.dtype),
+            dbias.to(scale.dtype))
+
+
+def _check(kernel: str, x, scale, residual, *rest) -> torch.device:
+    tensors = ((x, scale) + rest
+               + ((residual,) if residual is not None else ()))
+    device = kernels.require_cuda(kernel, *tensors)
+    d = x.shape[-1]
+    if not 0 < d <= MAX_D:
+        raise ValueError(f"{kernel} kernel takes 0 < D <= {MAX_D}, got {d}")
+    if scale.shape != (d,) or scale.dtype != torch.float32:
+        raise ValueError(f"{kernel} kernel takes float32 scale [{d}], got "
+                         f"{scale.dtype} {tuple(scale.shape)}")
+    if residual is not None and (residual.shape != x.shape
+                                 or residual.dtype != x.dtype):
+        raise ValueError("residual must match x in shape and dtype")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"{kernel} kernel takes contiguous tensors")
+    if kernels.dtype_code(x.dtype, kernel) == kernels.DTYPE_CODES[torch.int8]:
+        raise TypeError(f"{kernel} kernel takes a float x")
+    return device
+
+
+def layernorm_fwd(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                  eps: float = 1e-6,
+                  residual: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K3: ``LN(x)`` or ``LN(x + residual)`` (no autograd)."""
+    global launches
+    if x.device.type == "cpu":
+        return layernorm_plain(x, scale, bias, eps, residual)
+    device = _check("layernorm", x, scale, residual, bias)
+    d = x.shape[-1]
+    if bias.shape != (d,) or bias.dtype != torch.float32:
+        raise ValueError(f"layernorm kernel takes float32 bias [{d}], got "
+                         f"{bias.dtype} {tuple(bias.shape)}")
+    y = torch.empty_like(x)
+    lib = kernels.library()
+    rc = lib.port_layernorm(
+        x.data_ptr(), residual.data_ptr() if residual is not None else None,
+        scale.data_ptr(), bias.data_ptr(), y.data_ptr(), x.numel() // d, d,
+        float(eps), kernels.dtype_code(x.dtype, "layernorm"),
+        *kernels.launch_args(device))
+    kernels.check(rc, "layernorm")
+    launches += 1
+    return y
+
+
+def layernorm_bwd(g: torch.Tensor, x: torch.Tensor, scale: torch.Tensor,
+                  eps: float = 1e-6, residual: Optional[torch.Tensor] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K3b: ``(dx, dscale, dbias)`` for the output gradient ``g``."""
+    global bwd_launches
+    if x.device.type == "cpu":
+        return layernorm_bwd_plain(g, x, scale, eps, residual)
+    device = _check("layernorm_bwd", x, scale, residual, g)
+    if g.shape != x.shape or g.dtype != x.dtype:
+        raise ValueError("the output gradient must match x in shape and dtype")
+    d = x.shape[-1]
+    rows = x.numel() // d
+    dx = torch.empty_like(x)
+    if rows == 0:
+        zero = torch.zeros(d, dtype=torch.float32, device=device)
+        return dx, zero, zero.clone()
+    nparts = min(BWD_MAX_BLOCKS, -(-rows // BWD_WARPS))
+    parts = torch.empty((2, nparts, d), dtype=torch.float32, device=device)
+    dscale = torch.empty(d, dtype=torch.float32, device=device)
+    dbias = torch.empty(d, dtype=torch.float32, device=device)
+    lib = kernels.library()
+    rc = lib.port_layernorm_bwd(
+        x.data_ptr(), residual.data_ptr() if residual is not None else None,
+        g.data_ptr(), scale.data_ptr(), dx.data_ptr(), parts[0].data_ptr(),
+        parts[1].data_ptr(), dscale.data_ptr(), dbias.data_ptr(), rows, d,
+        nparts, float(eps), kernels.dtype_code(x.dtype, "layernorm_bwd"),
+        *kernels.launch_args(device))
+    kernels.check(rc, "layernorm_bwd")
+    bwd_launches += 1
+    return dx, dscale, dbias
+
+
+class _LayerNorm(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, scale, bias, residual, eps):
+        ctx.save_for_backward(x, scale, residual)
+        ctx.eps = eps
+        return layernorm_fwd(x, scale, bias, eps, residual)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, scale, residual = ctx.saved_tensors
+        dx, dscale, dbias = layernorm_bwd(g.contiguous(), x, scale, ctx.eps,
+                                          residual)
+        return (dx, dscale, dbias, dx if residual is not None else None,
+                None)
 
 
 def fused_layernorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
@@ -40,35 +171,6 @@ def fused_layernorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                     residual: Optional[torch.Tensor] = None) -> torch.Tensor:
     """LayerNorm over the last axis of ``x [..., D]`` with f32 ``scale``
     and ``bias [D]``; ``residual`` (same shape and dtype as ``x``) gives
-    ``LN(x + residual)`` with the add inside the kernel."""
-    global launches
-    if x.device.type == "cpu":
-        return layernorm_plain(x, scale, bias, eps, residual)
-    tensors = (x, scale, bias) + ((residual,) if residual is not None else ())
-    device = kernels.require_cuda("layernorm", *tensors)
-    d = x.shape[-1]
-    if not 0 < d <= MAX_D:
-        raise ValueError(f"layernorm kernel takes 0 < D <= {MAX_D}, got {d}")
-    if scale.shape != (d,) or bias.shape != (d,):
-        raise ValueError(f"scale/bias must be [{d}], got "
-                         f"{tuple(scale.shape)}/{tuple(bias.shape)}")
-    if scale.dtype != torch.float32 or bias.dtype != torch.float32:
-        raise TypeError("layernorm kernel takes float32 scale and bias")
-    if residual is not None and (residual.shape != x.shape
-                                 or residual.dtype != x.dtype):
-        raise ValueError("residual must match x in shape and dtype")
-    if not all(t.is_contiguous() for t in tensors):
-        raise ValueError("layernorm kernel takes contiguous tensors")
-    code = kernels.dtype_code(x.dtype, "layernorm")
-    if code == kernels.DTYPE_CODES[torch.int8]:
-        raise TypeError("layernorm kernel takes a float x")
-    y = torch.empty_like(x)
-    rows = x.numel() // d
-    lib = kernels.library()
-    rc = lib.port_layernorm(
-        x.data_ptr(), residual.data_ptr() if residual is not None else None,
-        scale.data_ptr(), bias.data_ptr(), y.data_ptr(), rows, d,
-        float(eps), code, *kernels.launch_args(device))
-    kernels.check(rc, "layernorm")
-    launches += 1
-    return y
+    ``LN(x + residual)`` with the add inside the kernel. Differentiable
+    in ``x``, ``scale``, ``bias`` and ``residual`` (K3b)."""
+    return _LayerNorm.apply(x, scale, bias, residual, eps)

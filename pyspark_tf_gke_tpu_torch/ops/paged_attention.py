@@ -18,7 +18,10 @@ contract is exactly ``paged_attention_chunk_reference`` (``:63-104``):
 
 One kernel body (``csrc/paged_attention.cu``) serves ``S = 1`` and
 ``S > 1``. The wrappers take the plain version only for CPU tensors; a
-CUDA tensor launches the kernel or raises.
+CUDA tensor launches the kernel or raises. Paged attention has no
+backward (neither has the JAX kernel): under grad mode, an input that
+requires a gradient makes the wrappers raise, on every device, instead
+of returning a result that autograd would not track.
 """
 
 from __future__ import annotations
@@ -65,6 +68,15 @@ def paged_attention_chunk_plain(q, k_pages, v_pages, block_table, fills,
     keep = (q_abs >= 0)[:, :, None, None]
     return torch.where(keep, out, torch.zeros((), dtype=q.dtype,
                                               device=q.device))
+
+
+def refuse_grad(*tensors: Optional[torch.Tensor]) -> None:
+    """Raise when autograd would need a backward of paged attention."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            "paged attention has no backward: call it under torch.no_grad()"
+            " or torch.inference_mode(), on inputs that need no gradient")
 
 
 def _smem_bytes(s: int, h: int, hkv: int, d: int, p: int) -> int:
@@ -139,6 +151,7 @@ def paged_attention_chunk(q: torch.Tensor, k_pages: torch.Tensor,
     ``[B, S, H, D]``."""
     if (k_scales is None) != (v_scales is None):
         raise ValueError("k_scales and v_scales must be passed together")
+    refuse_grad(q, k_pages, v_pages, k_scales, v_scales)
     h, hkv = q.shape[2], k_pages.shape[2]
     if h % hkv:
         raise ValueError(f"num_kv_heads {hkv} must divide num_heads {h}")

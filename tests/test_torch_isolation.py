@@ -27,11 +27,19 @@ REPO = Path(__file__).resolve().parent.parent
 FORBIDDEN = {"jax", "jaxlib", "flax", "orbax", "optax", "pyspark_tf_gke_tpu"}
 
 
+TRAINING_MODULES = ("utils/fs.py", "data/text.py", "data/pipeline.py",
+                    "train/losses.py", "train/state.py", "train/harness.py",
+                    "train/checkpoint.py", "train/resilience.py",
+                    "train/trainer.py", "train/lm_pretrain.py")
+
+
 def _port_files():
     pkg = REPO / "pyspark_tf_gke_tpu_torch"
     files = sorted(p for p in pkg.rglob("*.py")
                    if "_build" not in p.relative_to(pkg).parts)
     assert len(files) > 10
+    rel = {p.relative_to(pkg).as_posix() for p in files}
+    assert set(TRAINING_MODULES) <= rel
     return files + [REPO / "chip_smoke.py"]
 
 
@@ -52,6 +60,7 @@ def test_no_forbidden_import_in_source():
 def test_importing_the_server_loads_no_jax():
     # a subprocess: this test process has imported jax already (conftest)
     code = ("import sys, pyspark_tf_gke_tpu_torch.train.serve, chip_smoke\n"
+            "import pyspark_tf_gke_tpu_torch.train.lm_pretrain\n"
             f"bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{sorted(FORBIDDEN)!r})\n"
             "print(bad)\nsys.exit(1 if bad else 0)\n")
@@ -99,7 +108,8 @@ def test_float16_is_not_ported():
 def test_build_targets_sm90a_into_the_ignored_build_dir():
     compiles, link = kernels.build_commands("nvcc")
     assert {Path(c[c.index("-c") + 1]).name for c in compiles} == {
-        "layernorm.cu", "flash_attention.cu", "paged_attention.cu"}
+        "layernorm.cu", "layernorm_bwd.cu", "flash_attention.cu",
+        "flash_attention_bwd.cu", "paged_attention.cu"}
     for cmd in compiles + [link]:
         assert "arch=compute_90a,code=sm_90a" in cmd
     for cmd in compiles:
