@@ -8,9 +8,9 @@
 2. builds the hand-written kernels from ``pyspark_tf_gke_tpu_torch/csrc``;
 3. holds each kernel against its plain PyTorch version on the card at
    the main paths' shapes, in bf16 and f32 — the serving kernels, and
-   the training backwards (K2dq/K2dkv at B=16 S=512 H=12 D=64: causal,
-   causal + segments, and key padding + segments + causal with a fully
-   masked row; K3b at [8192, 768] with and without residual) — and times
+   the training kernels (K2f, K2dq and K2dkv at B=16 S=512 H=12 D=64:
+   causal, causal + segments, and key padding + segments + causal with a
+   fully masked row; K3b at [8192, 768] with and without residual) — and times
    kernel, plain version and a library yardstick with CUDA events;
 4. serving main path: serves a full-width GPT-small paged bundle
    (random weights from a numpy seed, int8 export) through
@@ -32,20 +32,19 @@
    two steady training steps;
 7. checks training parity on the card: a 2-layer f32 model trains 3
    steps with the kernels and with ``use_kernels=False`` from one init
-   (losses and step-0 gradients agree), and full-width bf16 step-0
-   gradients through the kernels agree with the plain versions;
+   (losses and step-0 gradients agree), and full-width bf16 step-0 loss
+   and gradients (whole tree and worst tensor) through the kernels agree
+   with the plain versions;
 8. prints one ``{"kernels": [...]}`` line, then
 9. ``{"ok": true, "device": {...}}`` as the last line.
 
-Any failed check exits non-zero. Without a CUDA device, or outside a
-checkout of the repository, it exits non-zero and prints no result.
-``--phases 1,2,3`` (for example) runs a subset for a quick check and
-then prints neither result line.
+It takes no arguments. Any failed check exits non-zero. Without a CUDA
+device, or outside a checkout of the repository, it exits non-zero and
+prints no result.
 """
 
 from __future__ import annotations
 
-import argparse
 import dataclasses
 import json
 import math
@@ -80,9 +79,10 @@ PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}
 TOL = {"float32": dict(atol=5e-5, rtol=1e-5, rel_l2=None),
        "bfloat16": dict(atol=2e-2, rtol=1.6e-2, rel_l2=1e-2)}
 # Column sums over 8192 rows (LayerNorm dscale/dbias, f32 on both sides
-# from the same inputs, summed in another order): relative to the
-# largest sum, a few f32 roundings of a sum of 8192 terms.
-SUM_TOL = dict(atol=0.0, rtol=1e-4, rel_l2=2e-5)
+# from the same inputs, summed in another order): absolute error within
+# 1e-4 of the largest reference sum (a few f32 roundings of a sum of
+# 8192 terms), and relative L2 within 2e-5.
+SUM_REL_MAX, SUM_REL_L2 = 1e-4, 2e-5
 
 
 class SmokeFailure(RuntimeError):
@@ -134,10 +134,7 @@ def compare(out, ref, dtype_name: str, what: str, tol=None) -> float:
     out, ref = out.float(), ref.float()
     check(bool(torch.isfinite(out).all()), f"{what}: non-finite output")
     err = (out - ref).abs()
-    if tol is None:
-        tol = TOL[dtype_name]
-    else:  # relative to the largest reference value
-        tol = dict(tol, atol=tol["rtol"] * float(ref.abs().max()), rtol=0.0)
+    tol = TOL[dtype_name] if tol is None else tol
     ok = bool((err <= tol["atol"] + tol["rtol"] * ref.abs()).all())
     max_err = float(err.max()) if err.numel() else 0.0
     rel = float(err.norm() / ref.norm().clamp_min(1e-30))
@@ -262,8 +259,10 @@ def check_layernorm_bwd(torch, dev):
             got = ln.layernorm_bwd(dy, x, scale, 1e-5, res)
             want = ln.layernorm_bwd_plain(dy, x, scale, 1e-5, res)
             err = compare(got[0], want[0], name, f"{tag} dx")
-            compare(got[1], want[1], "float32", f"{tag} dscale", SUM_TOL)
-            compare(got[2], want[2], "float32", f"{tag} dbias", SUM_TOL)
+            for i, what in ((1, "dscale"), (2, "dbias")):
+                tol = dict(atol=SUM_REL_MAX * float(want[i].abs().max()),
+                           rtol=0.0, rel_l2=SUM_REL_L2)
+                compare(got[i], want[i], "float32", f"{tag} {what}", tol)
             if dtype == torch.bfloat16 and res is None:
                 ms = cuda_ms(lambda: ln.layernorm_bwd(dy, x, scale, 1e-5))
                 plain = cuda_ms(lambda: ln.layernorm_bwd_plain(dy, x, scale,
@@ -302,8 +301,10 @@ def _flash_bwd_case(torch, dev, g, dtype, case):
 
 
 def check_flash_bwd(torch, dev):
-    """K2dq and K2dkv against ``flash_attention_bwd_plain`` on the same
-    inputs (q, k, v, dO and the forward kernel's out and lse)."""
+    """At the training shape: K2f's out and lse against
+    ``flash_attention_plain``, then K2dq and K2dkv against
+    ``flash_attention_bwd_plain`` on the same inputs (q, k, v, dO and the
+    forward kernel's out and lse, just held against the plain ones)."""
     import torch.nn.functional as F
 
     from pyspark_tf_gke_tpu_torch.ops import flash_attention as fa
@@ -316,6 +317,14 @@ def check_flash_bwd(torch, dev):
             q, k, v, dout, kv_mask, segs = _flash_bwd_case(torch, dev, g,
                                                            dtype, case)
             out, lse = fa.flash_attention_fwd(q, k, v, kv_mask, True, segs)
+            ref_out, ref_lse = fa.flash_attention_plain(q, k, v, kv_mask,
+                                                        True, segs)
+            tag = f"flash fwd {case} {name} B=16 S=512 H=12 D=64"
+            compare(out, ref_out, name, f"{tag} out")
+            finite = torch.isfinite(ref_lse)
+            check(bool((torch.isfinite(lse) == finite).all()),
+                  f"{tag}: lse masked rows disagree")
+            compare(lse[finite], ref_lse[finite], "float32", f"{tag} lse")
             delta = (dout.float() * out.float()).sum(-1).transpose(
                 1, 2).contiguous()
             dq = fa.flash_attention_dq(dout, q, k, v, lse, delta, kv_mask,
@@ -837,7 +846,8 @@ def check_training_parity(torch, dev):
     # f32, 2 layers at the full width: kernels against use_kernels=False
     # from one init. Both compute every product in f32 (TF32 is off), so
     # they differ by summation order: step-0 gradients within 1e-4
-    # relative L2 (whole tree) and losses within 1e-4 over 3 Adam steps.
+    # relative L2 (the whole tree, and each tensor on its own) and losses
+    # within 1e-4 over 3 Adam steps.
     cfg = CausalLMConfig(vocab_size=259, max_seq_len=512, num_layers=2,
                          dtype=torch.float32)
     batches = [_lm_batch(torch, dev, cfg, 8, 10 + i) for i in range(3)]
@@ -854,27 +864,37 @@ def check_training_parity(torch, dev):
     dloss = max(abs(a - b) for a, b in zip(runs[True][1], runs[False][1]))
     log(f"  f32 2-layer: losses kernels {runs[True][1]} vs plain "
         f"{runs[False][1]} (max diff {dloss:.2e}, tolerance 1e-4); step-0 "
-        f"gradients relative L2 {rel:.2e} (tolerance 1e-4; worst tensor "
-        f"{worst} {worst_rel:.2e})")
-    check(dloss <= 1e-4 and rel <= 1e-4,
+        f"gradients relative L2 {rel:.2e}, worst tensor {worst} "
+        f"{worst_rel:.2e} (tolerance 1e-4 each)")
+    check(dloss <= 1e-4 and rel <= 1e-4 and worst_rel <= 1e-4,
           "f32 training through the kernels disagrees with plain")
 
     # bf16 at full width: the kernels keep P, dS and the LayerNorm
     # statistics in f32 and round once, while the plain path's autograd
     # rounds the probabilities and every intermediate product to bf16
     # (as its forward does: 2e-2 on the prefill logits); through 12 layers of
-    # backward allow 5e-2 relative L2 over the whole gradient tree.
+    # backward allow 5e-2 relative L2 over the whole gradient tree. The
+    # tree's norm is dominated by the embedding, head and MLP, so each
+    # tensor is held on its own too: the worst read 1.96e-2 on an H100
+    # (layer 11's key kernel), allow 1e-1 — a wrong attention or
+    # LayerNorm gradient in any layer is off by O(1). The step-0 loss (an
+    # f32 mean over 8192 tokens of bf16 logits) read 3e-5 apart: allow
+    # 1e-3.
     cfg = CausalLMConfig(vocab_size=259, max_seq_len=512)
     batch = _lm_batch(torch, dev, cfg, 16, 20)
     loss_k, gk = _grads(torch, _train_model(torch, dev, cfg, 4), batch)
     loss_p, gp = _grads(torch, _train_model(torch, dev, cfg, 4, False), batch)
     rel, worst, worst_rel = _grad_diff(torch, gk, gp)
     log(f"  full-width bf16 step-0: loss kernels {loss_k:.5f} vs plain "
-        f"{loss_p:.5f}; gradients relative L2 {rel:.2e} (tolerance 5e-2; "
-        f"worst tensor {worst} {worst_rel:.2e})")
+        f"{loss_p:.5f} (diff {abs(loss_k - loss_p):.2e}, tolerance 1e-3); "
+        f"gradients relative L2 {rel:.2e} (tolerance 5e-2); worst tensor "
+        f"{worst} {worst_rel:.2e} (tolerance 1e-1)")
     check(all(bool(torch.isfinite(g).all()) for g in gk.values()),
           "non-finite bf16 gradient")
-    check(rel <= 5e-2, "bf16 gradients through the kernels disagree")
+    check(abs(loss_k - loss_p) <= 1e-3,
+          "bf16 loss through the kernels disagrees")
+    check(rel <= 5e-2 and worst_rel <= 1e-1,
+          "bf16 gradients through the kernels disagree")
 
 
 # -- main -----------------------------------------------------------------------
@@ -898,13 +918,7 @@ KERNELS = (
 )
 
 
-def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7",
-                    help="comma-separated phases to run (default: all, and "
-                         "only then the result lines)")
-    args = ap.parse_args(argv)
-    phases = {int(p) for p in args.phases.split(",") if p}
+def main() -> int:
     if not PORT_PKG.is_dir():
         print("chip_smoke.py must run from a checkout of the repository "
               f"({PORT_PKG} is missing)", file=sys.stderr)
@@ -945,19 +959,17 @@ def main(argv=None) -> int:
                 or "spill" in line:
             log(f"  ptxas: {line.strip()[:150]}")
 
-    records = {}
-    if 3 in phases:
-        log("== 3. kernels vs plain versions")
-        records = {"layernorm": check_layernorm(torch, dev),
-                   "layernorm_bwd": check_layernorm_bwd(torch, dev),
-                   "flash_attention_fwd": check_flash(torch, dev),
-                   **check_flash_bwd(torch, dev),
-                   "paged_attention": check_paged(torch, dev)}
-        for name, rec in records.items():
-            log(f"  {name} at {rec['shape']}: kernel_ms {rec['ms']:.4f}, "
-                f"plain_ms {rec['plain_ms']:.4f}, library_ms "
-                f"{rec['library_ms']:.4f}, bound_ms {rec['bound_ms']:.4f} "
-                f"({rec['bound_by']})")
+    log("== 3. kernels vs plain versions")
+    records = {"layernorm": check_layernorm(torch, dev),
+               "layernorm_bwd": check_layernorm_bwd(torch, dev),
+               "flash_attention_fwd": check_flash(torch, dev),
+               **check_flash_bwd(torch, dev),
+               "paged_attention": check_paged(torch, dev)}
+    for name, rec in records.items():
+        log(f"  {name} at {rec['shape']}: kernel_ms {rec['ms']:.4f}, "
+            f"plain_ms {rec['plain_ms']:.4f}, library_ms "
+            f"{rec['library_ms']:.4f}, bound_ms {rec['bound_ms']:.4f} "
+            f"({rec['bound_by']})")
 
     serve_counters = {"layernorm": (ln, "launches"),
                       "flash_attention_fwd": (fa, "launches"),
@@ -973,34 +985,26 @@ def main(argv=None) -> int:
     # layers, 12 heads, FFN 3072, 1024 positions, bf16), paged as the
     # cb bench pages it: 64-token pages, slots x 16 of them
     cfg = CausalLMConfig(kv_page_size=64, kv_num_pages=128)
-    serve_launches, train_launches = {}, {}
-    if 4 in phases:
-        log("== 4. serving main path: BundleServer + HTTP, GPT-small paged, "
-            "8 slots")
-        serve_launches, full_model = run_main_path(torch, dev,
-                                                   serve_counters, cfg)
-        log("== 4b. where the engine's time goes (torch.profiler)")
-        profile_engine(torch, full_model)
-        if 5 in phases:
-            log("== 5. serving parity on the card")
-            check_parity(torch, dev, full_model, dataclasses.replace(
-                cfg, num_layers=2, dtype=torch.float32))
-        del full_model
-        torch.cuda.empty_cache()
-    if 6 in phases:
-        log("== 6. training main path: lm_pretrain, GPT-small width, bf16, "
-            "batch 16 x 512")
-        train_launches, _ = run_training(torch, dev, train_counters)
-        log("== 6b. where a training step's time goes (torch.profiler)")
-        profile_training(torch, dev)
-        torch.cuda.empty_cache()
-    if 7 in phases:
-        log("== 7. training parity on the card")
-        check_training_parity(torch, dev)
+    log("== 4. serving main path: BundleServer + HTTP, GPT-small paged, "
+        "8 slots")
+    serve_launches, full_model = run_main_path(torch, dev, serve_counters,
+                                               cfg)
+    log("== 4b. where the engine's time goes (torch.profiler)")
+    profile_engine(torch, full_model)
+    log("== 5. serving parity on the card")
+    check_parity(torch, dev, full_model, dataclasses.replace(
+        cfg, num_layers=2, dtype=torch.float32))
+    del full_model
+    torch.cuda.empty_cache()
+    log("== 6. training main path: lm_pretrain, GPT-small width, bf16, "
+        "batch 16 x 512")
+    train_launches, _ = run_training(torch, dev, train_counters)
+    log("== 6b. where a training step's time goes (torch.profiler)")
+    profile_training(torch, dev)
+    torch.cuda.empty_cache()
+    log("== 7. training parity on the card")
+    check_training_parity(torch, dev)
 
-    if phases != {1, 2, 3, 4, 5, 6, 7}:
-        log(f"partial run (phases {sorted(phases)}): no result lines")
-        return 0
     out = []
     for name, source, replaces in KERNELS:
         rec = records[name]
@@ -1025,7 +1029,7 @@ def main(argv=None) -> int:
 
 if __name__ == "__main__":
     try:
-        sys.exit(main(sys.argv[1:]))
+        sys.exit(main())
     except SmokeFailure as exc:
         print(f"chip_smoke FAILED: {exc}", file=sys.stderr)
         sys.exit(1)
