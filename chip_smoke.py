@@ -10,8 +10,11 @@
    the main paths' shapes, in bf16 and f32 — the serving kernels, and
    the training kernels (K2f, K2dq and K2dkv at B=16 S=512 H=12 D=64:
    causal, causal + segments, and key padding + segments + causal with a
-   fully masked row; K3b at [8192, 768] with and without residual) — and times
-   kernel, plain version and a library yardstick with CUDA events;
+   fully masked row; K3b at [8192, 768] with and without residual), and
+   the ResNet kernels (K4f, K4dx and K4dw at four of ResNet-50's 1x1-conv
+   shapes and a ragged one) — and times kernel, plain version and a
+   library yardstick with CUDA events (K4: on all 16 shapes of a
+   ResNet-50 step, summed over its 36 calls);
 4. serving main path: serves a full-width GPT-small paged bundle
    (random weights from a numpy seed, int8 export) through
    ``BundleServer`` + the HTTP server with 8 continuous slots: 12
@@ -35,8 +38,20 @@
    (losses and step-0 gradients agree), and full-width bf16 step-0 loss
    and gradients (whole tree and worst tensor) through the kernels agree
    with the plain versions;
-8. prints one ``{"kernels": [...]}`` line, then
-9. ``{"ok": true, "device": {...}}`` as the last line.
+8. ResNet-50 training main path: ``Trainer`` on ``ResNet50(norm_variant=
+   "fused")`` (bf16 over f32 weights and statistics, Adam 1e-3), 2 epochs
+   x 10 steps on one batch of 64 images at 224^2; every K4 counter must
+   move by 36 per step, the loss must be finite and fall from epoch 1 to
+   2, every running statistic must leave its init, and one ``evaluate``
+   (``train=False``) must launch K4f 36 times and nothing else and leave
+   the statistics as they were; then times the step, profiles two steps,
+   and times the ``bn`` variant's step (cuDNN convs, no port kernel);
+9. checks ResNet-50 training parity on the card: one step through the
+   kernels against ``use_kernels=False`` from one init with every norm3
+   scale non-zero — f32 at full depth on 8 images of 64^2, bf16 on the
+   full path;
+10. prints one ``{"kernels": [...]}`` line, then
+11. ``{"ok": true, "device": {...}}`` as the last line.
 
 It takes no arguments. Any failed check exits non-zero. Without a CUDA
 device, or outside a checkout of the repository, it exits non-zero and
@@ -374,6 +389,168 @@ def check_flash_bwd(torch, dev):
     return recs
 
 
+# ResNet-50's 36 fused 1x1 convs at batch 64 (224^2), as (M, K, N,
+# transform, count): M rows of NHWC pixels, K input and N output
+# channels, "relu" where the conv reads relu(norm(x)) (conv3), and how
+# many of the 36 calls of one forward have the shape
+RESNET50_K4_SHAPES = (
+    (200704, 64, 64, None, 1), (200704, 64, 256, "relu", 3),
+    (200704, 64, 256, None, 1), (200704, 256, 64, None, 2),
+    (200704, 256, 128, None, 1), (50176, 128, 512, "relu", 4),
+    (50176, 256, 512, None, 1), (50176, 512, 128, None, 3),
+    (50176, 512, 256, None, 1), (12544, 256, 1024, "relu", 6),
+    (12544, 512, 1024, None, 1), (12544, 1024, 256, None, 5),
+    (12544, 1024, 512, None, 1), (3136, 512, 2048, "relu", 3),
+    (3136, 1024, 2048, None, 1), (3136, 2048, 512, None, 2))
+# the shapes held against the plain versions (bf16 and f32): two of
+# stage 1, one of stage 3, one of stage 4, and a ragged one with the
+# affine transform and no relu
+K4_CHECK_SHAPES = ((200704, 256, 64, None), (200704, 64, 256, "relu"),
+                   (12544, 1024, 256, None), (3136, 512, 2048, "relu"),
+                   (1000, 72, 40, "affine"))
+
+
+def _k4_tol(ref, dtype_name: str, over_m: bool = False):
+    """K4 outputs against the plain versions: both sum the same f32
+    products in another order, then round once to the output type, so a
+    bf16 output may sit one rounding (2^-7 relative) apart, and the
+    whole tensor within 1e-3 relative L2 (a few such roundings); f32
+    within 1e-5 relative, element and L2, for sums over K or N (<= 2048
+    terms), and 1e-4 for dw's sums over M (up to 200,704 terms: f32
+    rounding of a sum of n zero-mean terms grows as sqrt(n) eps, 2.7e-5
+    at that n). Near-zero outputs (cancellation) get an absolute slack of
+    1e-4 (bf16) or 1e-5 (f32) of the largest reference element."""
+    top = float(ref.abs().max())
+    if dtype_name == "bfloat16":
+        return dict(atol=1e-4 * top, rtol=2.0 ** -7, rel_l2=1e-3)
+    rel = 1e-4 if over_m else 1e-5
+    return dict(atol=1e-5 * top, rtol=rel, rel_l2=rel)
+
+
+def _sum_tol(ref):
+    """f32 column sums over up to 200,704 rows in another order."""
+    return dict(atol=SUM_REL_MAX * float(ref.abs().max()), rtol=0.0,
+                rel_l2=SUM_REL_L2)
+
+
+def _k4_inputs(torch, dev, g, m, k, n, dtype, transform):
+    x = torch.randn(m, k, generator=g, device=dev).to(dtype)
+    w = (torch.randn(k, n, generator=g, device=dev) / math.sqrt(k)).to(dtype)
+    dy = torch.randn(m, n, generator=g, device=dev).to(dtype)
+    a = b = None
+    if transform is not None:
+        a = torch.rand(k, generator=g, device=dev) + 0.5
+        b = torch.randn(k, generator=g, device=dev) * 0.5
+    return x, w, dy, a, b
+
+
+def check_fused_matmul(torch, dev):
+    """K4f, K4dx and K4dw against their plain versions at ResNet-50's
+    shapes in bf16 and f32; then each kernel, its plain version and a
+    ``torch.matmul`` of the same product (cuBLAS, operands prepared
+    outside the timed region: no transform, mask or statistics) timed
+    on all 16 distinct shapes of a step, summed over its 36 calls."""
+    from pyspark_tf_gke_tpu_torch.ops import fused_matmul as fm
+
+    g = torch.Generator(device=dev).manual_seed(8)
+    errs = {"fused_matmul_fwd": 0.0, "fused_matmul_dx": 0.0,
+            "fused_matmul_dw": 0.0}
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).split(".")[-1]
+        for m, k, n, transform in K4_CHECK_SHAPES:
+            x, w, dy, a, b = _k4_inputs(torch, dev, g, m, k, n, dtype,
+                                        transform)
+            relu = transform == "relu"
+            tag = f"k4 {name} M={m} K={k} N={n} {transform or 'plain'}"
+            y, st = fm.norm_relu_matmul_fwd(x, w, a, b, relu, True)
+            ry, rs, rss = fm.norm_relu_matmul_plain(x, w, a, b, relu=relu,
+                                                    want_stats=True)
+            rst = torch.stack([rs, rss])
+            errs["fused_matmul_fwd"] = max(errs["fused_matmul_fwd"], compare(
+                y, ry, name, f"{tag} K4f y", _k4_tol(ry, name)))
+            compare(st, rst, "float32", f"{tag} K4f stats", _sum_tol(rst))
+            y0, st0 = fm.norm_relu_matmul_fwd(x, w, a, b, relu, False)
+            check(st0 is None and torch.equal(y0, y),
+                  f"{tag}: K4f without statistics differs")
+            dx, ds = fm.norm_relu_matmul_dx(dy, w, x, a, b, relu)
+            rdx, rds = fm.norm_relu_matmul_dx_plain(dy, w, x, a, b, relu)
+            errs["fused_matmul_dx"] = max(errs["fused_matmul_dx"], compare(
+                dx, rdx, name, f"{tag} K4dx dx", _k4_tol(rdx, name)))
+            if a is not None:
+                compare(ds, rds, "float32", f"{tag} K4dx da/db", _sum_tol(rds))
+            dw = fm.norm_relu_matmul_dw(x, dy, a, b, relu)
+            rdw = fm.norm_relu_matmul_dw_plain(x, dy, a, b, relu)
+            errs["fused_matmul_dw"] = max(errs["fused_matmul_dw"], compare(
+                dw, rdw, name, f"{tag} K4dw dw",
+                _k4_tol(rdw, name, over_m=True)))
+            del x, w, dy, y, ry, dx, rdx, dw, rdw
+        torch.cuda.empty_cache()
+
+    totals = {key: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
+                        ops_ms=0.0, bytes_ms=0.0) for key in errs}
+    for m, k, n, transform, count in RESNET50_K4_SHAPES:
+        x, w, dy, a, b = _k4_inputs(torch, dev, g, m, k, n, torch.bfloat16,
+                                    transform)
+        relu = transform == "relu"
+        xn = x if a is None else torch.relu(x.float() * a + b).to(x.dtype)
+        wt = w.t().contiguous()
+        xnt = xn.t().contiguous()
+        s = 2  # bytes per bf16 element
+        ops = 2.0 * m * k * n
+        vec = 2 * k * 4 if a is not None else 0  # a and b
+        work = {
+            # reads x, w (a, b); writes y and the [2, N] statistics
+            "fused_matmul_fwd": (
+                lambda: fm.norm_relu_matmul_fwd(x, w, a, b, relu, True),
+                lambda: fm.norm_relu_matmul_plain(x, w, a, b, relu=relu,
+                                                  want_stats=True),
+                lambda: torch.matmul(xn, w),
+                (m * k + k * n + m * n) * s + vec + 2 * n * 4),
+            # reads dy, w (and x, a, b with a transform); writes dx (and
+            # the [2, K] d a, d b)
+            "fused_matmul_dx": (
+                lambda: fm.norm_relu_matmul_dx(dy, w, x, a, b, relu),
+                lambda: fm.norm_relu_matmul_dx_plain(dy, w, x, a, b, relu),
+                lambda: torch.matmul(dy, wt),
+                (m * n + k * n + m * k) * s
+                + (m * k * s + vec + 2 * k * 4 if a is not None else 0)),
+            # reads x, dy (a, b); writes dw
+            "fused_matmul_dw": (
+                lambda: fm.norm_relu_matmul_dw(x, dy, a, b, relu),
+                lambda: fm.norm_relu_matmul_dw_plain(x, dy, a, b, relu),
+                lambda: torch.matmul(xnt, dy),
+                (m * k + m * n + k * n) * s + vec),
+        }
+        line = []
+        for key, (kern, plain, lib, nbytes) in work.items():
+            ms = cuda_ms(kern, warmup=1, iters=3, reps=3)
+            pms = cuda_ms(plain, warmup=1, iters=2, reps=3)
+            lms = cuda_ms(lib, warmup=1, iters=3, reps=3)
+            bms, _ = bound(nbytes, ops, "bfloat16")
+            tot = totals[key]
+            tot["ms"] += count * ms
+            tot["plain_ms"] += count * pms
+            tot["library_ms"] += count * lms
+            tot["bound_ms"] += count * bms
+            tot["bytes_ms"] += count * nbytes / HBM_BYTES_PER_S * 1e3
+            tot["ops_ms"] += count * ops / PEAK_OPS["bfloat16"] * 1e3
+            line.append(f"{key[13:]} {ms:.4f}/{pms:.4f}/{lms:.4f}/{bms:.4f}")
+        log(f"  k4 bf16 M={m} K={k} N={n} {transform or 'plain'} x{count} "
+            f"(kernel/plain/matmul/bound ms): {', '.join(line)}")
+        del x, w, dy, xn, wt, xnt
+    torch.cuda.empty_cache()
+    recs = {}
+    for key, tot in totals.items():
+        recs[key] = dict(
+            max_abs_err=errs[key], ms=tot["ms"], plain_ms=tot["plain_ms"],
+            library_ms=tot["library_ms"], bound_ms=tot["bound_ms"],
+            bound_by=("bytes" if tot["bytes_ms"] >= tot["ops_ms"]
+                      else "operations"),
+            shape="the 36 calls of one ResNet-50 step, batch 64, bf16 "
+                  "(summed)")
+    return recs
+
+
 def _paged_case(torch, dev, g, dtype, hkv, s, quant):
     n, p, h, d, mp = 128, 64, 12, 64, 16
     fills = torch.tensor([0, 1, 63, 64, 65, 500, 960, 1024],
@@ -458,7 +635,7 @@ def _sdpa_over_gathered(torch, q, kp, vp, table, fills):
                                           attn_mask=keep)
 
 
-# -- phase 4: the main path -----------------------------------------------------
+# -- phase 4: the main path ---------------------------------------------------
 
 
 def _prompt(rng: random.Random, n: int) -> str:
@@ -625,7 +802,7 @@ def profile_engine(torch, full_model):
         f"{(time.perf_counter() - t0) * 1e3:.2f} ms for 16 steps")
 
 
-# -- phase 5: parity on the card ------------------------------------------------
+# -- phase 5: parity on the card ----------------------------------------------
 
 
 def check_parity(torch, dev, full_model, cfg):
@@ -682,7 +859,7 @@ def check_parity(torch, dev, full_model, cfg):
           "bf16 prefill logits through the kernels disagree with plain")
 
 
-# -- phase 6: the training main path --------------------------------------------
+# -- phase 6: the training main path ------------------------------------------
 
 CORPUS_WORDS = ("flash", "attention", "kernel", "hopper", "gradient",
                 "layer", "norm", "token", "train", "step", "batch", "loss",
@@ -807,7 +984,7 @@ def profile_training(torch, dev):
         log(f"    {ms:9.3f} ms  {name[:90]}")
 
 
-# -- phase 7: training parity on the card ------------------------------------------
+# -- phase 7: training parity on the card -------------------------------------
 
 
 def _grads(torch, model, batch):
@@ -897,7 +1074,310 @@ def check_training_parity(torch, dev):
           "bf16 gradients through the kernels disagree")
 
 
-# -- main -----------------------------------------------------------------------
+# -- phases 8 and 9: ResNet-50 training ---------------------------------------
+
+RESNET_BATCH, RESNET_IMAGE, RESNET_STEPS = 64, 224, (2, 10)
+
+
+def resnet_batch(b: int, size: int, seed: int = 0):
+    """Images ``default_rng(seed).uniform(0, 1)`` as f32 NHWC, labels in
+    [0, 1000)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return {"image": rng.uniform(0, 1, size=(b, size, size, 3)
+                                 ).astype(np.float32),
+            "label": rng.integers(0, 1000, size=b).astype(np.int32)}
+
+
+def run_resnet_training(torch, dev, counters):
+    """ResNet-50 ``fused`` (bf16, f32 master weights and statistics)
+    through ``Trainer.fit``: 2 epochs x 10 steps on one repeated batch of
+    64 images at 224^2, Adam 1e-3; then one ``evaluate`` with
+    ``train=False``."""
+    import itertools
+
+    from pyspark_tf_gke_tpu_torch.data.pipeline import put_batch
+    from pyspark_tf_gke_tpu_torch.models.resnet import ResNet50
+    from pyspark_tf_gke_tpu_torch.train.trainer import TASKS, Trainer
+
+    t0 = time.perf_counter()
+    model = ResNet50(norm_variant="fused", device=dev, seed=0)
+    trainer = Trainer(model, TASKS["resnet"](), learning_rate=1e-3)
+    state = trainer.init_state()
+    init_stats = {k: v.clone() for k, v in state.batch_stats.items()}
+    batch = resnet_batch(RESNET_BATCH, RESNET_IMAGE)
+    log(f"  model ({sum(p.numel() for p in model.parameters())} parameters, "
+        f"{len(init_stats)} statistics buffers) and batch ready in "
+        f"{time.perf_counter() - t0:.1f} s")
+    epochs, steps = RESNET_STEPS
+    torch.cuda.synchronize()
+    for mod, attr in counters.values():
+        setattr(mod, attr, 0)
+    t0 = time.perf_counter()
+    state, history = trainer.fit(state, itertools.repeat(batch), epochs,
+                                 steps)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: getattr(mod, attr)
+                for name, (mod, attr) in counters.items()}
+    log(f"  Trainer.fit {epochs} epochs x {steps} steps in {wall:.1f} s")
+    for key in ("loss", "accuracy", "step_time_ms", "examples_per_sec"):
+        log(f"  {key}: {history[key]}")
+    log(f"  kernel launches on the ResNet path ({epochs * steps} steps): "
+        f"{launches}")
+    losses = history["loss"]
+    check(all(math.isfinite(v) for v in losses), f"non-finite loss {losses}")
+    check(losses[1] < losses[0], f"epoch-2 mean loss {losses[1]} is not "
+          f"below epoch 1's {losses[0]}")
+    for name, n in launches.items():
+        check(n == 36 * epochs * steps, f"kernel {name} launched {n} times, "
+              f"not 36 per step")
+    moved = [k for k, v in state.batch_stats.items()
+             if not torch.equal(v, init_stats[k])]
+    check(len(moved) == len(init_stats), f"{len(init_stats) - len(moved)} "
+          "running statistics never left their init")
+    # eval: the running statistics, K4f without statistics, no backward
+    dev_batch = put_batch(batch, dev)
+    before = {k: v.clone() for k, v in state.batch_stats.items()}
+    for mod, attr in counters.values():
+        setattr(mod, attr, 0)
+    metrics = trainer.evaluate(state, [dev_batch])
+    torch.cuda.synchronize()
+    eval_launches = {name: getattr(mod, attr)
+                     for name, (mod, attr) in counters.items()}
+    log(f"  evaluate (train=False): {metrics}; launches {eval_launches}")
+    check(all(math.isfinite(v) for v in metrics.values()),
+          f"non-finite eval metrics {metrics}")
+    check(eval_launches == {"fused_matmul_fwd": 36, "fused_matmul_dx": 0,
+                            "fused_matmul_dw": 0},
+          f"evaluate launched {eval_launches}")
+    check(all(torch.equal(v, before[k])
+              for k, v in state.batch_stats.items()),
+          "evaluate changed the running statistics")
+    return launches, trainer, state, dev_batch
+
+
+def profile_resnet(torch, dev, trainer, state, batch):
+    """Step time of the fused path without the profiler, two steps
+    under ``torch.profiler`` (device busy and idle share, top device
+    ops), and the ``bn`` variant's step (cuDNN convs, no port kernel)
+    as the yardstick."""
+    from pyspark_tf_gke_tpu_torch.models.resnet import ResNet50
+    from pyspark_tf_gke_tpu_torch.train.trainer import TASKS, Trainer
+
+    def timed(tr, st, n=5):
+        for _ in range(2):
+            tr.step(st, batch)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            tr.step(st, batch)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / n
+
+    b = RESNET_BATCH
+    ms = timed(trainer, state)
+    log(f"  fused: {ms:.2f} ms/step, {b / ms * 1e3:.1f} images/s (5 steady "
+        "steps, no profiler)")
+    wall, busy, top = _profiled(
+        torch, lambda: [trainer.step(state, batch) for _ in range(2)])
+    if busy <= 0:
+        log(f"  2 steps: wall {wall:.2f} ms; device time not visible to "
+            "torch.profiler")
+    else:
+        log(f"  2 fused steps under the profiler: wall {wall:.2f} ms, device "
+            f"busy {busy:.2f} ms ({100 * busy / wall:.1f}%), idle "
+            f"{100 * (1 - busy / wall):.1f}%")
+        for name, t in top[:12]:
+            log(f"    {t:9.3f} ms  {name[:90]}")
+    bn_model = ResNet50(norm_variant="bn", device=dev, seed=0)
+    bn_trainer = Trainer(bn_model, TASKS["resnet"](), learning_rate=1e-3)
+    bms = timed(bn_trainer, bn_trainer.init_state())
+    log(f"  bn (cuDNN convs, no port kernel): {bms:.2f} ms/step, "
+        f"{b / bms * 1e3:.1f} images/s; fused / bn = {ms / bms:.2f}")
+    del bn_model, bn_trainer
+    torch.cuda.empty_cache()
+
+
+def _nonzero_norm3(torch, model, seed: int):
+    """Every norm3 scale to seeded values in [0.1, 0.2): at its zero
+    init every residual branch's gradient (K4dx and K4dw inside the
+    branches, and the statistics' cotangents) is exactly zero. Larger
+    scales make the f32 gradients of this deep, small-batch network
+    chaotic: at [0.25, 0.75) a 1e-6 relative change of the input moves
+    them by 1e-2 (relative L2) on the CPU; at [0.1, 0.2), by 5e-4."""
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith("norm3_scale"):
+                p.copy_(torch.rand(p.shape, generator=g) * 0.1 + 0.1)
+
+
+def _resnet_grads(torch, model, batch):
+    from pyspark_tf_gke_tpu_torch.train.trainer import TASKS
+
+    task = TASKS["resnet"]()
+    loss, _ = task.loss_and_metrics(task.forward(model, batch, train=True),
+                                    batch)
+    loss.backward()
+    grads = {n: p.grad.detach().float().clone()
+             for n, p in model.named_parameters()}
+    model.zero_grad(set_to_none=True)
+    return float(loss.detach()), grads
+
+
+# Kernels against use_kernels=False (the plain versions, which round at
+# the kernels' points) on one ResNet-50 training step: |loss diff|,
+# whole-tree and worst-tensor gradient relative L2, and the running
+# statistics' max abs difference (f32). Every K4 call agrees with its
+# plain version on the same inputs to ~1e-6 (f32) — held below as
+# K4_CALL_REL_L2 — but the network amplifies rounding-level changes into
+# the gradients: on an H100 the plain versions on the card against the
+# same plain versions on the host's CPU read 1.0e-2 (f32), as far apart
+# as the kernels are, and the "noise" reading printed beside (the plain
+# versions against themselves with the input scaled by 1 + 1e-6) reads
+# 1.7e-3 (f32) and 1.0e-1 (bf16; worst tensor bn_init.bias 0.42, whose
+# gradient is zero up to rounding). Limits: the H100 readings (PERF.md,
+# ResNet-50 parity) with a margin of 2-10x.
+RESNET_PARITY_LIMITS = {
+    "float32": dict(loss=1e-5, rel=3e-2, worst=5e-2, stats=1e-5),
+    "bfloat16": dict(loss=2e-3, rel=2e-1, worst=6e-1, stats=None),
+}
+# each K4 call of the kernels' step against its plain version on the
+# same inputs, relative L2 of every output: f32 sums in another order
+# (read <= 1.2e-6); bf16 outputs one rounding apart where the f32 sums
+# straddle a rounding point (read <= 8.9e-5)
+K4_CALL_REL_L2 = {"float32": 1e-5, "bfloat16": 1e-3}
+
+
+class _K4CallCheck:
+    """While active, every K4 wrapper call also runs the plain version
+    on the same inputs and keeps the worst relative L2 per output."""
+
+    def __init__(self, torch):
+        from pyspark_tf_gke_tpu_torch.ops import fused_matmul as fm
+
+        self.torch, self.fm, self.worst, self.calls = torch, fm, {}, 0
+        self.saved = (fm.norm_relu_matmul_fwd, fm.norm_relu_matmul_dx,
+                      fm.norm_relu_matmul_dw)
+
+    def _note(self, what, got, want):
+        if got is None:
+            return
+        got, want = got.float(), want.float()
+        rel = float((got - want).norm() / want.norm().clamp_min(1e-30))
+        if rel >= self.worst.get(what, (-1.0,))[0]:
+            self.worst[what] = (rel, tuple(got.shape))
+
+    def __enter__(self):
+        fm = self.fm
+        fwd, dx, dw = self.saved
+
+        def check_fwd(x, w, a, b, relu, want_stats):
+            y, st = fwd(x, w, a, b, relu, want_stats)
+            ref = fm.norm_relu_matmul_plain(x, w, a, b, relu=relu,
+                                            want_stats=want_stats)
+            ry = ref[0] if want_stats else ref
+            self._note("K4f y", y, ry)
+            if want_stats:
+                self._note("K4f stats", st, self.torch.stack(ref[1:]))
+            self.calls += 1
+            return y, st
+
+        def check_dx(dy, w, x, a, b, relu):
+            got, ds = dx(dy, w, x, a, b, relu)
+            want, rds = fm.norm_relu_matmul_dx_plain(dy, w, x, a, b, relu)
+            self._note("K4dx dx", got, want)
+            self._note("K4dx da/db", ds, rds)
+            self.calls += 1
+            return got, ds
+
+        def check_dw(x, dy, a, b, relu):
+            got = dw(x, dy, a, b, relu)
+            self._note("K4dw dw", got,
+                       fm.norm_relu_matmul_dw_plain(x, dy, a, b, relu))
+            self.calls += 1
+            return got
+
+        (fm.norm_relu_matmul_fwd, fm.norm_relu_matmul_dx,
+         fm.norm_relu_matmul_dw) = check_fwd, check_dx, check_dw
+        return self
+
+    def __exit__(self, *exc):
+        (self.fm.norm_relu_matmul_fwd, self.fm.norm_relu_matmul_dx,
+         self.fm.norm_relu_matmul_dw) = self.saved
+
+
+def check_resnet_parity(torch, dev):
+    """One training forward and backward through the kernels against
+    ``use_kernels=False`` from one init with every norm3 scale non-zero:
+    f32 (TF32 off) at full depth on 8 images of 64^2 — step-0 loss,
+    gradients and the running statistics after the step; bf16 on the
+    full path (64 images of 224^2) — step-0 loss and gradients. During
+    the kernels' step every K4 call is held against its plain version on
+    the same inputs."""
+    from pyspark_tf_gke_tpu_torch.data.pipeline import put_batch
+    from pyspark_tf_gke_tpu_torch.models.resnet import ResNet50
+
+    results = {}
+    for dtype, b, size in ((torch.float32, 8, 64),
+                           (torch.bfloat16, RESNET_BATCH, RESNET_IMAGE)):
+        name = str(dtype).split(".")[-1]
+        batch = put_batch(resnet_batch(b, size, seed=1), dev)
+        nudged = dict(batch, image=batch["image"] * (1.0 + 1e-6))
+        runs = {}
+        for key, use_kernels, inputs in (("kernels", True, batch),
+                                         ("plain", False, batch),
+                                         ("noise", False, nudged)):
+            model = ResNet50(norm_variant="fused", dtype=dtype, device=dev,
+                             seed=3, use_kernels=use_kernels)
+            _nonzero_norm3(torch, model, 4)
+            if use_kernels:
+                with _K4CallCheck(torch) as calls:
+                    loss, grads = _resnet_grads(torch, model, inputs)
+            else:
+                loss, grads = _resnet_grads(torch, model, inputs)
+            stats = {k: v.clone() for k, v in model.named_buffers()}
+            runs[key] = (loss, grads, stats)
+            del model
+        worst_call = max(rel for rel, _ in calls.worst.values())
+        log(f"  {name} B={b} {size}^2: {calls.calls} K4 calls each held "
+            "against its plain version on the same inputs, worst relative "
+            "L2 per output: " + ", ".join(
+                f"{what} {rel:.2e} {list(shape)}"
+                for what, (rel, shape) in calls.worst.items())
+            + f" (limit {K4_CALL_REL_L2[name]:g})")
+        check(calls.calls == 3 * 36 and worst_call <= K4_CALL_REL_L2[name],
+              f"{name}: a K4 call of the training step disagrees with its "
+              "plain version")
+        (lk, gk, sk), (lp, gp, sp) = runs["kernels"], runs["plain"]
+        rel, worst, worst_rel = _grad_diff(torch, gk, gp)
+        nrel, nworst, nworst_rel = _grad_diff(torch, runs["noise"][1], gp)
+        check(all(bool(torch.isfinite(g).all()) for g in gk.values()),
+              f"non-finite {name} gradient")
+        stat_err = max(float((sk[k] - sp[k]).abs().max()) for k in sk)
+        lim = RESNET_PARITY_LIMITS[name]
+        log(f"  {name} B={b} {size}^2: loss kernels {lk:.6f} vs plain "
+            f"{lp:.6f} (diff {abs(lk - lp):.2e}, limit {lim['loss']:g}); "
+            f"gradients relative L2 {rel:.2e} (limit {lim['rel']:g}), worst "
+            f"tensor {worst} {worst_rel:.2e} (limit {lim['worst']:g}); "
+            f"running statistics max abs diff {stat_err:.2e} (limit "
+            f"{lim['stats']})")
+        log(f"    noise: plain with the input x (1 + 1e-6) vs plain: "
+            f"gradients relative L2 {nrel:.2e}, worst tensor {nworst} "
+            f"{nworst_rel:.2e}")
+        check(abs(lk - lp) <= lim["loss"] and rel <= lim["rel"]
+              and worst_rel <= lim["worst"]
+              and (lim["stats"] is None or stat_err <= lim["stats"]),
+              f"{name} ResNet-50 training through the kernels disagrees "
+              "with the plain versions")
+        results[name] = (abs(lk - lp), rel, worst_rel, stat_err)
+        torch.cuda.empty_cache()
+    return results
+
+
+# -- main ---------------------------------------------------------------------
 
 
 KERNELS = (
@@ -915,6 +1395,12 @@ KERNELS = (
      "pyspark_tf_gke_tpu/ops/pallas/flash_attention.py:215"),
     ("paged_attention", "pyspark_tf_gke_tpu_torch/csrc/paged_attention.cu",
      "pyspark_tf_gke_tpu/ops/pallas/paged_attention.py:124"),
+    ("fused_matmul_fwd", "pyspark_tf_gke_tpu_torch/csrc/fused_matmul.cu",
+     "pyspark_tf_gke_tpu/ops/pallas/fused_matmul.py:91"),
+    ("fused_matmul_dx", "pyspark_tf_gke_tpu_torch/csrc/fused_matmul.cu",
+     "pyspark_tf_gke_tpu/ops/pallas/fused_matmul.py:178"),
+    ("fused_matmul_dw", "pyspark_tf_gke_tpu_torch/csrc/fused_matmul.cu",
+     "pyspark_tf_gke_tpu/ops/pallas/fused_matmul.py:246"),
 )
 
 
@@ -932,6 +1418,7 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     from pyspark_tf_gke_tpu_torch.device import resolve_device
     from pyspark_tf_gke_tpu_torch.ops import flash_attention as fa
+    from pyspark_tf_gke_tpu_torch.ops import fused_matmul as fm
     from pyspark_tf_gke_tpu_torch.ops import kernels
     from pyspark_tf_gke_tpu_torch.ops import layernorm as ln
     from pyspark_tf_gke_tpu_torch.ops import paged_attention as pa
@@ -964,7 +1451,8 @@ def main() -> int:
                "layernorm_bwd": check_layernorm_bwd(torch, dev),
                "flash_attention_fwd": check_flash(torch, dev),
                **check_flash_bwd(torch, dev),
-               "paged_attention": check_paged(torch, dev)}
+               "paged_attention": check_paged(torch, dev),
+               **check_fused_matmul(torch, dev)}
     for name, rec in records.items():
         log(f"  {name} at {rec['shape']}: kernel_ms {rec['ms']:.4f}, "
             f"plain_ms {rec['plain_ms']:.4f}, library_ms "
@@ -1004,15 +1492,33 @@ def main() -> int:
     torch.cuda.empty_cache()
     log("== 7. training parity on the card")
     check_training_parity(torch, dev)
+    torch.cuda.empty_cache()
+
+    resnet_counters = {"fused_matmul_fwd": (fm, "fwd_launches"),
+                       "fused_matmul_dx": (fm, "dx_launches"),
+                       "fused_matmul_dw": (fm, "dw_launches")}
+    log("== 8. ResNet-50 training main path: Trainer, norm_variant=fused, "
+        "bf16, batch 64 x 224^2")
+    resnet_launches, trainer, state, batch = run_resnet_training(
+        torch, dev, resnet_counters)
+    log("== 8b. where a ResNet-50 step's time goes (torch.profiler), and the "
+        "bn variant's step")
+    profile_resnet(torch, dev, trainer, state, batch)
+    del trainer, state, batch
+    torch.cuda.empty_cache()
+    log("== 9. ResNet-50 training parity on the card: kernels vs plain")
+    check_resnet_parity(torch, dev)
 
     out = []
     for name, source, replaces in KERNELS:
         rec = records[name]
         per_path = {"serve": serve_launches.get(name, 0),
-                    "train": train_launches.get(name, 0)}
-        # this slice's main path is training; paged attention runs only
-        # on the serving path
-        launches = per_path["train"] or per_path["serve"]
+                    "lm_train": train_launches.get(name, 0),
+                    "resnet_train": resnet_launches.get(name, 0)}
+        # each kernel's count from the path that runs it, the newest
+        # slice's path first (paged attention runs only on serving)
+        launches = (per_path["resnet_train"] or per_path["lm_train"]
+                    or per_path["serve"])
         out.append({"name": name, "route": "cuda", "source": source,
                     "replaces": replaces, "launches": launches,
                     "launches_per_path": per_path,

@@ -1,0 +1,339 @@
+"""Fused 1x1-conv matmul with a BatchNorm input transform and statistics
+epilogue (K4f forward, K4dx and K4dw backward), differentiable.
+
+Counterpart of ``pyspark_tf_gke_tpu/ops/pallas/fused_matmul.py``. A
+bottleneck block's 1x1 convs are matmuls over NHWC rows, ``[B*H*W, Cin]
+@ [Cin, Cout]``; :func:`norm_relu_matmul` computes
+
+    y = relu(x * a + b) @ w      (the transform and relu are optional)
+
+with ``a = scale * rsqrt(var + eps)`` and ``b = bias - mean * a`` folded
+from the producer's BatchNorm (:func:`bn_fold`), and optionally the f32
+per-column ``sum`` and ``sumsq`` of the rounded ``y`` — the consumer
+BatchNorm's statistics (:func:`stats_to_moments`). It is a
+``torch.autograd.Function``: the forward is the K4f kernel and the
+backward is K4dx (``dx`` with the relu mask, and ``d a``, ``d b``) plus
+K4dw (``dw``), all in ``csrc/fused_matmul.cu``. The BatchNorm chain
+around it (moments from the sums, the fold) is plain PyTorch that
+autograd differentiates, as JAX differentiates it around the
+``custom_vjp``.
+
+Rounding points (``:106-109``, ``:127``, ``:329-350``): the transformed
+input is rounded to ``x``'s dtype before the product; products
+accumulate in f32; ``y`` is in ``x``'s dtype and the statistics are sums
+of the rounded ``y``. In the backward the output cotangent ``gy + gs +
+2*y*gss`` is formed in f32 and rounded to ``y``'s dtype before both
+kernels; ``dx`` is in ``x``'s dtype, ``d a`` and ``d b`` in f32, and
+``dw`` in ``dy``'s dtype, then cast to ``w``'s.
+
+The ``*_plain`` functions are the same computations in plain PyTorch (f32
+products). The wrappers take them only for tensors that lie on the CPU;
+a CUDA tensor launches the kernel or raises. :func:`norm_relu_matmul_plain`
+is the differentiable op through the plain versions on any device.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from pyspark_tf_gke_tpu_torch.ops import kernels
+
+BLOCK_M = 128  # output tile of every K4 kernel (csrc/fused_matmul.cu kBM, kBN)
+BLOCK_N = 64
+BLOCK_K = 16   # reduction step; K4dw's M splits are multiples of it
+DW_TARGET_BLOCKS = 528  # K4dw: split M until ~4 blocks per SM of an H100
+DW_MIN_ROWS = 256  # ... but give each split at least this many rows
+
+fwd_launches = 0  # K4f launches since the last reset (chip_smoke reads them)
+dx_launches = 0   # K4dx
+dw_launches = 0   # K4dw
+
+Stats = Optional[torch.Tensor]  # [2, C] f32: per-column sum and sumsq
+
+
+# -- BatchNorm helpers (``fused_matmul.py:379-395``) --------------------------
+
+
+def bn_fold(mean: torch.Tensor, var: torch.Tensor, scale: torch.Tensor,
+            bias: torch.Tensor, eps: float
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Fold BN parameters and statistics into the per-channel affine
+    ``(a, b)`` the kernels take: ``norm(x) = x*a + b``."""
+    a = scale.float() * torch.rsqrt(var.float() + eps)
+    b = bias.float() - mean.float() * a
+    return a, b
+
+
+def stats_to_moments(s: torch.Tensor, ss: torch.Tensor,
+                     count: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(sum, sumsq, N) -> (mean, biased variance clamped at 0), flax
+    BatchNorm's convention (``mean(x^2) - mean(x)^2``)."""
+    mean = s / count
+    var = torch.clamp_min(ss / count - mean * mean, 0.0)
+    return mean, var
+
+
+# -- plain versions -----------------------------------------------------------
+
+
+def _transform(x: torch.Tensor, a: Optional[torch.Tensor],
+               b: Optional[torch.Tensor], relu: bool) -> torch.Tensor:
+    """``relu(x*a + b)`` in f32, rounded to x's dtype (x when a is None)."""
+    if a is None:
+        return x
+    t = x.float() * a + b
+    if relu:
+        t = torch.relu(t)
+    return t.to(x.dtype)
+
+
+def _fwd_plain(x, w, a, b, relu: bool, want_stats: bool
+               ) -> Tuple[torch.Tensor, Stats]:
+    y = (_transform(x, a, b, relu).float() @ w.float()).to(x.dtype)
+    if not want_stats:
+        return y, None
+    yr = y.float()
+    return y, torch.stack([yr.sum(0), (yr * yr).sum(0)])
+
+
+def norm_relu_matmul_dx_plain(dy: torch.Tensor, w: torch.Tensor,
+                              x: torch.Tensor, a: Optional[torch.Tensor],
+                              b: Optional[torch.Tensor], relu: bool
+                              ) -> Tuple[torch.Tensor, Stats]:
+    """``(dx, [d a; d b])`` for the output cotangent ``dy`` (K4dx);
+    the second is None without a transform."""
+    u = dy.float() @ w.float().t()
+    if a is None:
+        return u.to(x.dtype), None
+    xf = x.float()
+    if relu:
+        u = torch.where(xf * a + b > 0, u, torch.zeros_like(u))
+    return (u * a).to(x.dtype), torch.stack([(u * xf).sum(0), u.sum(0)])
+
+
+def norm_relu_matmul_dw_plain(x: torch.Tensor, dy: torch.Tensor,
+                              a: Optional[torch.Tensor],
+                              b: Optional[torch.Tensor], relu: bool
+                              ) -> torch.Tensor:
+    """``dw = relu(x*a + b)^T @ dy`` in dy's dtype (K4dw)."""
+    xn = _transform(x, a, b, relu)
+    return (xn.float().t() @ dy.float()).to(dy.dtype)
+
+
+# -- kernel wrappers ----------------------------------------------------------
+
+
+def _check_pair(a, b) -> None:
+    if (a is None) != (b is None):
+        raise ValueError("a and b must be provided together")
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _transform_code(a, relu: bool) -> int:
+    return 0 if a is None else (2 if relu else 1)
+
+
+def _check(kernel: str, operands, a, b, kdim: int) -> Tuple[torch.device, int]:
+    """Device, contiguity and dtypes of a K4 call; returns the device and
+    the dtype code. ``operands`` are the [rows, cols] matrices, all of one
+    float dtype; ``a`` and ``b`` are f32 ``[kdim]`` or both None."""
+    _check_pair(a, b)
+    extra = () if a is None else (a, b)
+    device = kernels.require_cuda(kernel, *operands, *extra)
+    dtype = operands[0].dtype
+    code = kernels.dtype_code(dtype, kernel)
+    if code == kernels.DTYPE_CODES[torch.int8]:
+        raise TypeError(f"{kernel} kernel takes float operands")
+    for t in operands:
+        if t.dtype != dtype or t.dim() != 2:
+            raise ValueError(f"{kernel} kernel takes 2-D operands of one "
+                             f"dtype, got {t.dtype} {tuple(t.shape)} beside "
+                             f"{dtype}")
+    for t in extra:
+        if t.dtype != torch.float32 or tuple(t.shape) != (kdim,):
+            raise ValueError(f"{kernel} kernel takes float32 a and b "
+                             f"[{kdim}], got {t.dtype} {tuple(t.shape)}")
+    if not all(t.is_contiguous() for t in (*operands, *extra)):
+        raise ValueError(f"{kernel} kernel takes contiguous tensors")
+    return device, code
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def norm_relu_matmul_fwd(x: torch.Tensor, w: torch.Tensor,
+                         a: Optional[torch.Tensor], b: Optional[torch.Tensor],
+                         relu: bool, want_stats: bool
+                         ) -> Tuple[torch.Tensor, Stats]:
+    """K4f: ``(y, [sum; sumsq] or None)`` (no autograd)."""
+    global fwd_launches
+    if x.device.type == "cpu":
+        return _fwd_plain(x, w, a, b, relu, want_stats)
+    m, kdim = x.shape
+    device, code = _check("k4_fwd", (x, w), a, b, kdim)
+    n = w.shape[1]
+    if w.shape[0] != kdim:
+        raise ValueError(f"k4_fwd: x {tuple(x.shape)} @ w {tuple(w.shape)}")
+    y = torch.empty((m, n), dtype=x.dtype, device=device)
+    stats = (torch.zeros((2, n), dtype=torch.float32, device=device)
+             if want_stats else None)
+    if m == 0 or n == 0:
+        return y, stats
+    if kdim == 0:  # an empty product: y and its statistics are zero
+        return y.zero_(), stats
+    part = (torch.empty((_cdiv(m, BLOCK_M), 2, n), dtype=torch.float32,
+                        device=device) if want_stats else None)
+    rc = kernels.library().port_k4_fwd(
+        x.data_ptr(), w.data_ptr(), _ptr(a), _ptr(b), y.data_ptr(),
+        _ptr(part), _ptr(stats), m, kdim, n, _transform_code(a, relu),
+        int(want_stats), code, *kernels.launch_args(device))
+    kernels.check(rc, "k4_fwd")
+    fwd_launches += 1
+    return y, stats
+
+
+def norm_relu_matmul_dx(dy: torch.Tensor, w: torch.Tensor, x: torch.Tensor,
+                        a: Optional[torch.Tensor], b: Optional[torch.Tensor],
+                        relu: bool) -> Tuple[torch.Tensor, Stats]:
+    """K4dx: ``(dx, [d a; d b] or None)``."""
+    global dx_launches
+    if x.device.type == "cpu":
+        return norm_relu_matmul_dx_plain(dy, w, x, a, b, relu)
+    m, kdim = x.shape
+    device, code = _check("k4_dx", (dy, w, x), a, b, kdim)
+    n = dy.shape[1]
+    if dy.shape[0] != m or tuple(w.shape) != (kdim, n):
+        raise ValueError(f"k4_dx: dy {tuple(dy.shape)}, w {tuple(w.shape)}, "
+                         f"x {tuple(x.shape)}")
+    dx = torch.empty_like(x)
+    dstats = (torch.zeros((2, kdim), dtype=torch.float32, device=device)
+              if a is not None else None)
+    if m == 0 or kdim == 0:
+        return dx, dstats
+    if n == 0:
+        return dx.zero_(), dstats
+    part = (torch.empty((_cdiv(m, BLOCK_M), 2, kdim), dtype=torch.float32,
+                        device=device) if a is not None else None)
+    rc = kernels.library().port_k4_dx(
+        dy.data_ptr(), w.data_ptr(), x.data_ptr(), _ptr(a), _ptr(b),
+        dx.data_ptr(), _ptr(part), _ptr(dstats), m, kdim, n,
+        _transform_code(a, relu), code, *kernels.launch_args(device))
+    kernels.check(rc, "k4_dx")
+    dx_launches += 1
+    return dx, dstats
+
+
+def dw_splits(m: int, kdim: int, n: int) -> Tuple[int, int]:
+    """K4dw's split of the M rows across blocks: ``(splits, chunk)`` with
+    ``chunk`` a multiple of :data:`BLOCK_K` and every split non-empty.
+    A function of the shape alone, so the summation order (and the
+    result) does not depend on the card."""
+    tiles = _cdiv(kdim, BLOCK_M) * _cdiv(n, BLOCK_N)
+    want = max(1, min(_cdiv(DW_TARGET_BLOCKS, tiles), m // DW_MIN_ROWS, 65535))
+    chunk = _cdiv(_cdiv(m, want), BLOCK_K) * BLOCK_K
+    return _cdiv(m, chunk), chunk
+
+
+def norm_relu_matmul_dw(x: torch.Tensor, dy: torch.Tensor,
+                        a: Optional[torch.Tensor], b: Optional[torch.Tensor],
+                        relu: bool) -> torch.Tensor:
+    """K4dw: ``dw [K, N]`` in dy's dtype."""
+    global dw_launches
+    if x.device.type == "cpu":
+        return norm_relu_matmul_dw_plain(x, dy, a, b, relu)
+    m, kdim = x.shape
+    device, code = _check("k4_dw", (x, dy), a, b, kdim)
+    n = dy.shape[1]
+    if dy.shape[0] != m:
+        raise ValueError(f"k4_dw: x {tuple(x.shape)}, dy {tuple(dy.shape)}")
+    dw = torch.empty((kdim, n), dtype=dy.dtype, device=device)
+    if kdim == 0 or n == 0:
+        return dw
+    if m == 0:
+        return dw.zero_()
+    splits, chunk = dw_splits(m, kdim, n)
+    part = torch.empty((splits, kdim, n), dtype=torch.float32, device=device)
+    rc = kernels.library().port_k4_dw(
+        x.data_ptr(), dy.data_ptr(), _ptr(a), _ptr(b), part.data_ptr(),
+        dw.data_ptr(), m, kdim, n, _transform_code(a, relu), splits, chunk,
+        code, *kernels.launch_args(device))
+    kernels.check(rc, "k4_dw")
+    dw_launches += 1
+    return dw
+
+
+# -- the differentiable op ----------------------------------------------------
+
+
+class _NormReluMatmul(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w, a, b, relu, want_stats, plain):
+        fwd = _fwd_plain if plain else norm_relu_matmul_fwd
+        y, stats = fwd(x, w, a, b, relu, want_stats)
+        ctx.save_for_backward(x, w, a, b, y)
+        ctx.relu = relu
+        ctx.plain = plain
+        ctx.set_materialize_grads(False)
+        return (y, stats[0], stats[1]) if want_stats else y
+
+    @staticmethod
+    def backward(ctx, gy, gs=None, gss=None):
+        x, w, a, b, y = ctx.saved_tensors
+        if gs is None and gss is None:
+            dy = gy if gy is not None else torch.zeros_like(y)
+        else:
+            # the statistics' cotangent: d sum -> +gs per column, d sumsq
+            # -> +2*y*gss; formed in f32, rounded to y's dtype
+            d = gy.float() if gy is not None else torch.zeros(
+                y.shape, dtype=torch.float32, device=y.device)
+            if gs is not None:
+                d = d + gs[None, :]
+            if gss is not None:
+                d = d + 2.0 * y.float() * gss[None, :]
+            dy = d.to(y.dtype)
+        dy = dy.contiguous()
+        dx = da = db = dw = None
+        need_x, need_w, need_a, need_b = ctx.needs_input_grad[:4]
+        dx_fn, dw_fn = ((norm_relu_matmul_dx_plain, norm_relu_matmul_dw_plain)
+                        if ctx.plain else
+                        (norm_relu_matmul_dx, norm_relu_matmul_dw))
+        if need_x or (a is not None and (need_a or need_b)):
+            dx, dstats = dx_fn(dy, w, x, a, b, ctx.relu)
+            if a is not None:
+                da, db = dstats[0], dstats[1]
+        if need_w:
+            dw = dw_fn(x, dy, a, b, ctx.relu).to(w.dtype)
+        return dx, dw, da, db, None, None, None
+
+
+def norm_relu_matmul(x: torch.Tensor, w: torch.Tensor,
+                     a: Optional[torch.Tensor] = None,
+                     b: Optional[torch.Tensor] = None, *,
+                     relu: bool = True, want_stats: bool = False):
+    """``relu(x*a + b) @ w`` for ``x [M, K]`` and ``w [K, N]`` of one
+    float dtype, with f32 ``a`` and ``b [K]`` (both None: no transform,
+    and no relu). Returns ``y [M, N]`` in x's dtype, or ``(y, sum,
+    sumsq)`` with ``want_stats``: f32 per-column reductions of the
+    rounded ``y``. Differentiable in ``x``, ``w``, ``a`` and ``b``."""
+    _check_pair(a, b)
+    return _NormReluMatmul.apply(x, w, a, b, relu and a is not None,
+                                 want_stats, False)
+
+
+def norm_relu_matmul_plain(x: torch.Tensor, w: torch.Tensor,
+                           a: Optional[torch.Tensor] = None,
+                           b: Optional[torch.Tensor] = None, *,
+                           relu: bool = True, want_stats: bool = False):
+    """:func:`norm_relu_matmul` through the plain versions on any device
+    (the models' ``use_kernels=False``): K4f's plain version forward,
+    K4dx's and K4dw's as the backward, so it rounds at the kernels'
+    points and differs from them only by the order of f32 sums."""
+    _check_pair(a, b)
+    return _NormReluMatmul.apply(x, w, a, b, relu and a is not None,
+                                 want_stats, True)

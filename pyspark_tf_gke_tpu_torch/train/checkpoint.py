@@ -2,8 +2,9 @@
 ``pyspark_tf_gke_tpu/train/checkpoint.py``), in the port's own format.
 
 Each save writes the FULL training state — step, parameters, optimizer
-state, EMA — as one ``torch.save`` file, ``<directory>/<step>/state.pt``,
-staged in a temporary directory and renamed into place, so a reader
+state, EMA, BatchNorm statistics — as one ``torch.save`` file,
+``<directory>/<step>/state.pt``, staged in a temporary directory and
+renamed into place, so a reader
 never sees half a checkpoint. Loads use ``weights_only=True`` (tensors,
 numbers and strings; no pickled code). The newest ``max_to_keep`` steps
 are kept, and every save rewrites ``history.json`` beside them. The JAX
@@ -95,7 +96,8 @@ class CheckpointManager:
             torch.save({"step": step,
                         "params": _cpu(state.params),
                         "opt_state": _cpu(state.opt_state),
-                        "ema_params": _cpu(state.ema_params)},
+                        "ema_params": _cpu(state.ema_params),
+                        "batch_stats": _cpu(state.batch_stats)},
                        os.path.join(tmp, STATE_FILE))
             shutil.rmtree(final, ignore_errors=True)
             os.replace(tmp, final)
@@ -136,6 +138,11 @@ class CheckpointManager:
             raise ValueError("checkpoint and state disagree on EMA")
         if state.ema_params is not None:
             _copy_into(state.ema_params, saved["ema_params"], "ema_params")
+        saved_stats = saved.get("batch_stats")
+        if (state.batch_stats is None) != (saved_stats is None):
+            raise ValueError("checkpoint and state disagree on batch_stats")
+        if state.batch_stats is not None:
+            _copy_into(state.batch_stats, saved_stats, "batch_stats")
         state.step = int(saved["step"])
         logger.info("Restored checkpoint step %d from %s", step,
                     self.directory)

@@ -6,7 +6,11 @@ name), and :meth:`TrainState.apply_gradients` updates them, the
 optimizer state and the optional EMA IN PLACE (no second copy of the
 weights), then advances ``step`` — a host integer, so reading it never
 waits for the device. The EMA update and the ``ema_decay`` check are
-the JAX ones (``:35-37``, ``:47-50``).
+the JAX ones (``:35-37``, ``:47-50``). ``batch_stats`` holds a model's
+running BatchNorm statistics by buffer name (the JAX
+``TrainState.create(params, tx, batch_stats)``): the same tensors as
+the model's buffers, which its forward updates in place in train mode,
+so they are state that is saved and restored, not parameters.
 """
 
 from __future__ import annotations
@@ -27,6 +31,7 @@ class TrainState:
     tx: Any  # train.harness.Optimizer
     ema_params: Optional[Params] = None
     ema_decay: float = 0.0
+    batch_stats: Optional[Params] = None
 
     @torch.no_grad()
     def apply_gradients(self, grads: Params) -> "TrainState":
@@ -42,8 +47,8 @@ class TrainState:
         return self
 
     @classmethod
-    def create(cls, params: Params, tx, ema_decay: float = 0.0
-               ) -> "TrainState":
+    def create(cls, params: Params, tx, batch_stats: Optional[Params] = None,
+               ema_decay: float = 0.0) -> "TrainState":
         if not 0.0 <= ema_decay < 1.0:
             # decay == 1 would freeze the EMA at init forever (and the
             # export path prefers EMA weights) — reject it loudly.
@@ -51,4 +56,5 @@ class TrainState:
         ema = ({k: p.detach().clone() for k, p in params.items()}
                if ema_decay else None)
         return cls(step=0, params=params, opt_state=tx.init(params), tx=tx,
-                   ema_params=ema, ema_decay=ema_decay)
+                   ema_params=ema, ema_decay=ema_decay,
+                   batch_stats=batch_stats)

@@ -1,10 +1,14 @@
 """The trainer: train step + epoch loop (counterpart of
-``pyspark_tf_gke_tpu/train/trainer.py``, causal-LM task).
+``pyspark_tf_gke_tpu/train/trainer.py``, the causal-LM and ResNet tasks).
 
 A step is forward, loss, ``backward`` and the optimizer update, eager on
-one device: the attention and LayerNorm gradients come from the port's
-kernels (K2dq/K2dkv, K3b) through their ``autograd.Function``s, the rest
-from PyTorch's autograd. The epoch loop keeps the JAX one's contract:
+one device: the attention, LayerNorm and fused 1x1-conv gradients come
+from the port's kernels (K2dq/K2dkv, K3b, K4dx/K4dw) through their
+``autograd.Function``s, the rest from PyTorch's autograd. A task with
+BatchNorm statistics (``has_batch_stats``) keeps the model's buffers in
+``TrainState.batch_stats``: the train-mode forward updates them in
+place, and ``evaluate`` runs the forward with ``train=False``, which
+reads them. The epoch loop keeps the JAX one's contract:
 
 * metrics accumulate as device scalars — no host sync inside the step
   loop, so the host queues step ``n+1`` while the device runs step ``n``;
@@ -31,7 +35,9 @@ from torch.func import functional_call
 
 from pyspark_tf_gke_tpu_torch.data.pipeline import prefetch_to_device, put_batch
 from pyspark_tf_gke_tpu_torch.train.harness import make_optimizer
-from pyspark_tf_gke_tpu_torch.train.losses import per_token_cross_entropy
+from pyspark_tf_gke_tpu_torch.train.losses import (accuracy_metric,
+                                                   per_token_cross_entropy,
+                                                   softmax_cross_entropy)
 from pyspark_tf_gke_tpu_torch.train.state import TrainState
 from pyspark_tf_gke_tpu_torch.utils.logging import get_logger
 
@@ -43,13 +49,14 @@ Batch = Dict[str, torch.Tensor]
 @dataclasses.dataclass(frozen=True)
 class TrainerTask:
     """How a model family plugs into the step: how to call it
-    (``forward(model, batch) -> preds``) and how to score it
+    (``forward(model, batch, train=True) -> preds``) and how to score it
     (``loss_and_metrics(preds, batch) -> (loss, metrics)``)."""
 
     name: str
     forward: Callable[..., Any]
     loss_and_metrics: Callable[[Any, Batch],
                                Tuple[torch.Tensor, Dict[str, torch.Tensor]]]
+    has_batch_stats: bool = False
 
 
 def causal_lm_task(vocab_chunks: Optional[int] = None) -> TrainerTask:
@@ -72,7 +79,7 @@ def causal_lm_task(vocab_chunks: Optional[int] = None) -> TrainerTask:
             acc = (pred_ids == targets).float().mean()
         return loss, {"loss": loss, "next_token_accuracy": acc}
 
-    def forward(model, batch):
+    def forward(model, batch, train=True):
         return model(batch["input_ids"].long(),
                      segment_ids=batch.get("segment_ids"))
 
@@ -86,7 +93,25 @@ def causal_lm_task(vocab_chunks: Optional[int] = None) -> TrainerTask:
     return TrainerTask("causal_lm", forward, lam)
 
 
-TASKS = {"causal_lm": causal_lm_task}
+def _image_cls_lam(preds, batch):
+    loss = softmax_cross_entropy(preds, batch["label"])
+    return loss, {"loss": loss,
+                  "accuracy": accuracy_metric(preds, batch["label"])}
+
+
+def resnet_task() -> TrainerTask:
+    """Image classification with BatchNorm statistics (``:103-115``):
+    ``train=True`` normalises with the batch statistics and updates the
+    running ones; ``train=False`` reads them."""
+
+    def forward(model, batch, train=True):
+        return model(batch["image"], train=train)
+
+    return TrainerTask("resnet", forward, _image_cls_lam,
+                       has_batch_stats=True)
+
+
+TASKS = {"causal_lm": causal_lm_task, "resnet": resnet_task}
 
 
 class _CountingIterator:
@@ -112,8 +137,9 @@ def _sync(device: torch.device) -> None:
 
 class Trainer:
     """Runs the step and the epoch loop for ``model``, whose trainable
-    parameters (``CausalLM(..., param_dtype=torch.float32)``) are the
-    training state's parameters."""
+    parameters (``CausalLM(..., param_dtype=torch.float32)``, ``ResNet``)
+    are the training state's parameters, and whose buffers are its
+    ``batch_stats`` when the task has them."""
 
     def __init__(self, model: torch.nn.Module, task: TrainerTask,
                  learning_rate: float = 1e-3, tx=None,
@@ -131,11 +157,14 @@ class Trainer:
     def init_state(self) -> TrainState:
         params = {name: p for name, p in self.model.named_parameters()
                   if p.requires_grad}
-        return TrainState.create(params, self.tx, ema_decay=self.ema_decay)
+        batch_stats = (dict(self.model.named_buffers())
+                       if self.task.has_batch_stats else None)
+        return TrainState.create(params, self.tx, batch_stats,
+                                 ema_decay=self.ema_decay)
 
     def _grads(self, batch: Batch):
         """Loss, metrics; leaves the gradients in ``.grad``."""
-        preds = self.task.forward(self.model, batch)
+        preds = self.task.forward(self.model, batch, train=True)
         loss, metrics = self.task.loss_and_metrics(preds, batch)
         loss.backward()
         return {k: v.detach() for k, v in metrics.items()}
@@ -158,12 +187,23 @@ class Trainer:
 
     def accum_step(self, state: TrainState, batches, accum: int):
         """One optimizer step from ``accum`` consecutive batches: the
-        gradients (summed in ``.grad``) and metrics are averaged."""
+        gradients (summed in ``.grad``), metrics and BatchNorm statistics
+        are averaged. Every microbatch starts from the same running
+        statistics, as in the JAX step."""
         sums: Dict[str, torch.Tensor] = {}
+        stats = state.batch_stats or {}
+        start = {k: v.clone() for k, v in stats.items()}
+        stat_sums = {k: torch.zeros_like(v) for k, v in stats.items()}
         for _ in range(accum):
+            for k, v in stats.items():
+                v.copy_(start[k])
             metrics = self._grads(next(batches))
+            for k, v in stats.items():
+                stat_sums[k] += v
             for k, v in metrics.items():
                 sums[k] = sums[k] + v if k in sums else v
+        for k, v in stats.items():
+            v.copy_(stat_sums[k] / accum)
         state.apply_gradients(self._take_grads(state, accum))
         return state, {k: v / accum for k, v in sums.items()}
 
@@ -184,7 +224,7 @@ class Trainer:
         sums: Optional[Dict[str, torch.Tensor]] = None
         count = 0
         for batch in batches:
-            preds = self.task.forward(model, batch)
+            preds = self.task.forward(model, batch, train=False)
             _, metrics = self.task.loss_and_metrics(preds, batch)
             sums = (metrics if sums is None
                     else {k: sums[k] + v for k, v in metrics.items()})

@@ -30,7 +30,8 @@ FORBIDDEN = {"jax", "jaxlib", "flax", "orbax", "optax", "pyspark_tf_gke_tpu"}
 TRAINING_MODULES = ("utils/fs.py", "data/text.py", "data/pipeline.py",
                     "train/losses.py", "train/state.py", "train/harness.py",
                     "train/checkpoint.py", "train/resilience.py",
-                    "train/trainer.py", "train/lm_pretrain.py")
+                    "train/trainer.py", "train/lm_pretrain.py",
+                    "ops/fused_matmul.py", "models/resnet.py")
 
 
 def _port_files():
@@ -61,6 +62,7 @@ def test_importing_the_server_loads_no_jax():
     # a subprocess: this test process has imported jax already (conftest)
     code = ("import sys, pyspark_tf_gke_tpu_torch.train.serve, chip_smoke\n"
             "import pyspark_tf_gke_tpu_torch.train.lm_pretrain\n"
+            "import pyspark_tf_gke_tpu_torch.models.resnet\n"
             f"bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{sorted(FORBIDDEN)!r})\n"
             "print(bad)\nsys.exit(1 if bad else 0)\n")
@@ -109,7 +111,7 @@ def test_build_targets_sm90a_into_the_ignored_build_dir():
     compiles, link = kernels.build_commands("nvcc")
     assert {Path(c[c.index("-c") + 1]).name for c in compiles} == {
         "layernorm.cu", "layernorm_bwd.cu", "flash_attention.cu",
-        "flash_attention_bwd.cu", "paged_attention.cu"}
+        "flash_attention_bwd.cu", "paged_attention.cu", "fused_matmul.cu"}
     for cmd in compiles + [link]:
         assert "arch=compute_90a,code=sm_90a" in cmd
     for cmd in compiles:
