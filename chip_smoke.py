@@ -12,9 +12,12 @@
    causal, causal + segments, and key padding + segments + causal with a
    fully masked row; K3b at [8192, 768] with and without residual), and
    the ResNet kernels (K4f, K4dx and K4dw at four of ResNet-50's 1x1-conv
-   shapes and a ragged one) — and times kernel, plain version and a
-   library yardstick with CUDA events (K4: on all 16 shapes of a
-   ResNet-50 step, summed over its 36 calls);
+   shapes and a ragged one; K5f, K5dx and K5dw at the four stride-1 3x3
+   shapes and a ragged one, with and without the transform and the
+   statistics) — and times kernel, plain version and a library yardstick
+   with CUDA events (K4: on all 16 shapes of a ResNet-50 step, summed
+   over its 36 calls; K5: on the four stage shapes, summed over its 13
+   calls, against cuDNN);
 4. serving main path: serves a full-width GPT-small paged bundle
    (random weights from a numpy seed, int8 export) through
    ``BundleServer`` + the HTTP server with 8 continuous slots: 12
@@ -41,17 +44,29 @@
 8. ResNet-50 training main path: ``Trainer`` on ``ResNet50(norm_variant=
    "fused")`` (bf16 over f32 weights and statistics, Adam 1e-3), 2 epochs
    x 10 steps on one batch of 64 images at 224^2; every K4 counter must
-   move by 36 per step, the loss must be finite and fall from epoch 1 to
-   2, every running statistic must leave its init, and one ``evaluate``
-   (``train=False``) must launch K4f 36 times and nothing else and leave
-   the statistics as they were; then times the step, profiles two steps,
-   and times the ``bn`` variant's step (cuDNN convs, no port kernel);
-9. checks ResNet-50 training parity on the card: one step through the
-   kernels against ``use_kernels=False`` from one init with every norm3
-   scale non-zero — f32 at full depth on 8 images of 64^2, bf16 on the
-   full path;
-10. prints one ``{"kernels": [...]}`` line, then
-11. ``{"ok": true, "device": {...}}`` as the last line.
+   move by 36 per step (and no K5 counter), the loss must be finite and
+   fall from epoch 1 to 2, every running statistic must leave its init,
+   and one ``evaluate`` (``train=False``) must launch K4f 36 times and
+   nothing else and leave the statistics as they were; then times the
+   step, profiles two steps, and times the ``bn`` variant's step (cuDNN
+   convs, no port kernel);
+9. checks ResNet-50 ``fused`` training parity on the card: one step
+   through the kernels against ``use_kernels=False`` from one init with
+   every norm3 scale non-zero — f32 at full depth on 8 images of 64^2,
+   bf16 on the full path — and every K4 call of the step against its
+   plain version on the same inputs;
+10. ResNet-50 ``fused3`` training main path, as phase 8: every K4
+    counter must move by 36 per step and every K5 counter by 13, and
+    ``evaluate`` must launch K4f 36 and K5f 13 times and nothing else;
+    then times and profiles the step beside phase 8's;
+11. checks ``fused3`` training parity as phase 9, every K4 and K5 call
+    held against its plain version;
+12. one training step of each other variant (``bn_f32``, ``gn``,
+    ``none``, ``nf``, ``nf`` and ``fused3`` with the s2d stem; bf16, 8
+    images of 64^2): finite loss, gradients and parameters, and K5
+    launched under ``fused3``;
+13. prints one ``{"kernels": [...]}`` line, then
+14. ``{"ok": true, "device": {...}}`` as the last line.
 
 It takes no arguments. Any failed check exits non-zero. Without a CUDA
 device, or outside a checkout of the repository, it exits non-zero and
@@ -547,6 +562,156 @@ def check_fused_matmul(torch, dev):
             bound_by=("bytes" if tot["bytes_ms"] >= tot["ops_ms"]
                       else "operations"),
             shape="the 36 calls of one ResNet-50 step, batch 64, bf16 "
+                  "(summed)")
+    return recs
+
+
+# ResNet-50's 13 stride-1 3x3 convs at batch 64 (224^2), as (B, H, W,
+# K = N, count): the input [B, H, W, K] of conv2 in the stride-1 blocks
+# of each stage, and how many of the 13 calls of one forward have it
+RESNET50_K5_SHAPES = ((64, 56, 56, 64, 3), (64, 28, 28, 128, 3),
+                      (64, 14, 14, 256, 5), (64, 7, 7, 512, 2))
+# the shapes held against the plain versions (bf16 and f32): the four
+# stages, with and without the transform, and a ragged one (H, W not
+# multiples of anything, K and N not multiples of the 16 / 64 tiles,
+# tiles of 128 pixels crossing rows and images) in all three modes
+K5_CHECK_SHAPES = tuple((b, h, w, k, k, t) for b, h, w, k, _ in
+                        RESNET50_K5_SHAPES for t in ("relu", None)) + tuple(
+    (3, 9, 5, 48, 80, t) for t in ("relu", "affine", None))
+
+
+def _k5_tol(ref, dtype_name: str, over_m: bool = False):
+    """K5 outputs against the plain versions: as :func:`_k4_tol`, but the
+    f32 sums of y and dx run over 9 x K terms (up to 4,608; f32 rounding
+    of such a sum grows as sqrt(n) eps, 4e-6 at that n): 2e-5 relative.
+    dw's sums over the pixels (up to 200,704 terms a tap) keep 1e-4."""
+    if dtype_name == "bfloat16" or over_m:
+        return _k4_tol(ref, dtype_name, over_m)
+    return dict(atol=1e-5 * float(ref.abs().max()), rtol=2e-5, rel_l2=2e-5)
+
+
+def _k5_inputs(torch, dev, g, b, h, w, k, n, dtype, transform):
+    x = torch.randn(b, h, w, k, generator=g, device=dev).to(dtype)
+    wt = (torch.randn(3, 3, k, n, generator=g, device=dev)
+          / math.sqrt(9 * k)).to(dtype)
+    dy = torch.randn(b, h, w, n, generator=g, device=dev).to(dtype)
+    a = bb = None
+    if transform is not None:
+        a = torch.rand(k, generator=g, device=dev) + 0.5
+        bb = torch.randn(k, generator=g, device=dev) * 0.5
+    return x, wt, dy, a, bb
+
+
+def check_fused_conv3(torch, dev):
+    """K5f, K5dx and K5dw against their plain versions at ResNet-50's
+    stride-1 3x3 shapes and a ragged one, in bf16 and f32, with and
+    without the transform and the statistics; then each kernel, its plain
+    version and a cuDNN yardstick (bf16, channels-last: ``F.conv2d`` on
+    the materialised ``relu(x*a+b)``, and the conv's ``conv2d_input`` and
+    ``conv2d_weight`` gradients; operands prepared outside the timed
+    region) timed at the four stage shapes, summed over the 13 calls of
+    one step."""
+    import torch.nn.functional as F
+    from torch.nn import grad as conv_grad
+
+    from pyspark_tf_gke_tpu_torch.ops import fused_conv3 as fc
+
+    g = torch.Generator(device=dev).manual_seed(9)
+    errs = {"fused_conv3_fwd": 0.0, "fused_conv3_dx": 0.0,
+            "fused_conv3_dw": 0.0}
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).split(".")[-1]
+        for b, h, w, k, n, transform in K5_CHECK_SHAPES:
+            x, wt, dy, a, bb = _k5_inputs(torch, dev, g, b, h, w, k, n, dtype,
+                                          transform)
+            relu = transform == "relu"
+            tag = (f"k5 {name} x=[{b},{h},{w},{k}] N={n} "
+                   f"{transform or 'plain'}")
+            y, st = fc.conv3_fwd(x, wt, a, bb, relu, True)
+            ry, rst = fc.conv3_fwd_plain(x, wt, a, bb, relu, True)
+            errs["fused_conv3_fwd"] = max(errs["fused_conv3_fwd"], compare(
+                y, ry, name, f"{tag} K5f y", _k5_tol(ry, name)))
+            compare(st, rst, "float32", f"{tag} K5f stats", _sum_tol(rst))
+            y0, st0 = fc.conv3_fwd(x, wt, a, bb, relu, False)
+            check(st0 is None and torch.equal(y0, y),
+                  f"{tag}: K5f without statistics differs")
+            dx, ds = fc.conv3_dx(dy, wt, x, a, bb, relu)
+            rdx, rds = fc.conv3_dx_plain(dy, wt, x, a, bb, relu)
+            errs["fused_conv3_dx"] = max(errs["fused_conv3_dx"], compare(
+                dx, rdx, name, f"{tag} K5dx dx", _k5_tol(rdx, name)))
+            check((ds is None) == (a is None), f"{tag}: K5dx d a / d b")
+            if a is not None:
+                compare(ds, rds, "float32", f"{tag} K5dx da/db", _sum_tol(rds))
+            dw = fc.conv3_dw(x, dy, a, bb, relu)
+            rdw = fc.conv3_dw_plain(x, dy, a, bb, relu)
+            errs["fused_conv3_dw"] = max(errs["fused_conv3_dw"], compare(
+                dw, rdw, name, f"{tag} K5dw dw",
+                _k5_tol(rdw, name, over_m=True)))
+            del x, wt, dy, y, ry, y0, dx, rdx, dw, rdw
+        torch.cuda.empty_cache()
+
+    totals = {key: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
+                        ops_ms=0.0, bytes_ms=0.0) for key in errs}
+    for b, h, w, k, count in RESNET50_K5_SHAPES:
+        n = k
+        x, wt, dy, a, bb = _k5_inputs(torch, dev, g, b, h, w, k, n,
+                                      torch.bfloat16, "relu")
+        xn = torch.relu(x.float() * a + bb).to(x.dtype)
+        # channels-last NCHW views of the NHWC tensors, OIHW weights
+        xn_c, x_c, dy_c = (t.permute(0, 3, 1, 2) for t in (xn, x, dy))
+        w_c = wt.permute(3, 2, 0, 1).contiguous(
+            memory_format=torch.channels_last)
+        m, s = b * h * w, 2  # pixels, bytes per bf16 element
+        ops = 2.0 * m * 9 * k * n
+        vec = 2 * k * 4  # a and b
+        work = {
+            # reads x, w, a, b; writes y and the [2, N] statistics
+            "fused_conv3_fwd": (
+                lambda: fc.conv3_fwd(x, wt, a, bb, True, True),
+                lambda: fc.conv3_fwd_plain(x, wt, a, bb, True, True),
+                lambda: F.conv2d(xn_c, w_c, padding=1),
+                (m * k + 9 * k * n + m * n) * s + vec + 2 * n * 4),
+            # reads dy, w, x, a, b; writes dx and the [2, K] d a, d b
+            "fused_conv3_dx": (
+                lambda: fc.conv3_dx(dy, wt, x, a, bb, True),
+                lambda: fc.conv3_dx_plain(dy, wt, x, a, bb, True),
+                lambda: conv_grad.conv2d_input(x_c.shape, w_c, dy_c,
+                                               padding=1),
+                (m * n + 9 * k * n + 2 * m * k) * s + vec + 2 * k * 4),
+            # reads x, dy, a, b; writes dw
+            "fused_conv3_dw": (
+                lambda: fc.conv3_dw(x, dy, a, bb, True),
+                lambda: fc.conv3_dw_plain(x, dy, a, bb, True),
+                lambda: conv_grad.conv2d_weight(xn_c, w_c.shape, dy_c,
+                                                padding=1),
+                (m * k + m * n + 9 * k * n) * s + vec),
+        }
+        line = []
+        for key, (kern, plain, lib, nbytes) in work.items():
+            ms = cuda_ms(kern, warmup=1, iters=3, reps=3)
+            pms = cuda_ms(plain, warmup=1, iters=2, reps=3)
+            lms = cuda_ms(lib, warmup=1, iters=3, reps=3)
+            bms, _ = bound(nbytes, ops, "bfloat16")
+            tot = totals[key]
+            tot["ms"] += count * ms
+            tot["plain_ms"] += count * pms
+            tot["library_ms"] += count * lms
+            tot["bound_ms"] += count * bms
+            tot["bytes_ms"] += count * nbytes / HBM_BYTES_PER_S * 1e3
+            tot["ops_ms"] += count * ops / PEAK_OPS["bfloat16"] * 1e3
+            line.append(f"{key[12:]} {ms:.4f}/{pms:.4f}/{lms:.4f}/{bms:.4f}")
+        log(f"  k5 bf16 x=[{b},{h},{w},{k}] N={n} relu x{count} "
+            f"(kernel/plain/cudnn/bound ms): {', '.join(line)}")
+        del x, wt, dy, xn, xn_c, x_c, dy_c, w_c
+    torch.cuda.empty_cache()
+    recs = {}
+    for key, tot in totals.items():
+        recs[key] = dict(
+            max_abs_err=errs[key], ms=tot["ms"], plain_ms=tot["plain_ms"],
+            library_ms=tot["library_ms"], bound_ms=tot["bound_ms"],
+            bound_by=("bytes" if tot["bytes_ms"] >= tot["ops_ms"]
+                      else "operations"),
+            shape="the 13 calls of one ResNet-50 step, batch 64, bf16 "
                   "(summed)")
     return recs
 
@@ -1090,19 +1255,32 @@ def resnet_batch(b: int, size: int, seed: int = 0):
             "label": rng.integers(0, 1000, size=b).astype(np.int32)}
 
 
-def run_resnet_training(torch, dev, counters):
-    """ResNet-50 ``fused`` (bf16, f32 master weights and statistics)
+# launches of each ResNet kernel per training step of ResNet-50, by
+# variant: K4 on the 36 1x1 convs, K5 on the 13 stride-1 3x3 convs of
+# fused3 (none in fused, whose 3x3 convs are cuDNN's)
+RESNET_K4 = ("fused_matmul_fwd", "fused_matmul_dx", "fused_matmul_dw")
+RESNET_K5 = ("fused_conv3_fwd", "fused_conv3_dx", "fused_conv3_dw")
+RESNET_PER_STEP = {
+    "fused": {**{k: 36 for k in RESNET_K4}, **{k: 0 for k in RESNET_K5}},
+    "fused3": {**{k: 36 for k in RESNET_K4}, **{k: 13 for k in RESNET_K5}},
+}
+
+
+def run_resnet_training(torch, dev, counters, variant):
+    """ResNet-50 ``variant`` (bf16, f32 master weights and statistics)
     through ``Trainer.fit``: 2 epochs x 10 steps on one repeated batch of
     64 images at 224^2, Adam 1e-3; then one ``evaluate`` with
-    ``train=False``."""
+    ``train=False``, which must launch only the forward kernels (once per
+    call site) and leave the statistics as they were."""
     import itertools
 
     from pyspark_tf_gke_tpu_torch.data.pipeline import put_batch
     from pyspark_tf_gke_tpu_torch.models.resnet import ResNet50
     from pyspark_tf_gke_tpu_torch.train.trainer import TASKS, Trainer
 
+    per_step = RESNET_PER_STEP[variant]
     t0 = time.perf_counter()
-    model = ResNet50(norm_variant="fused", device=dev, seed=0)
+    model = ResNet50(norm_variant=variant, device=dev, seed=0)
     trainer = Trainer(model, TASKS["resnet"](), learning_rate=1e-3)
     state = trainer.init_state()
     init_stats = {k: v.clone() for k, v in state.batch_stats.items()}
@@ -1124,20 +1302,21 @@ def run_resnet_training(torch, dev, counters):
     log(f"  Trainer.fit {epochs} epochs x {steps} steps in {wall:.1f} s")
     for key in ("loss", "accuracy", "step_time_ms", "examples_per_sec"):
         log(f"  {key}: {history[key]}")
-    log(f"  kernel launches on the ResNet path ({epochs * steps} steps): "
-        f"{launches}")
+    log(f"  kernel launches on the ResNet {variant} path ({epochs * steps} "
+        f"steps): {launches}")
     losses = history["loss"]
     check(all(math.isfinite(v) for v in losses), f"non-finite loss {losses}")
     check(losses[1] < losses[0], f"epoch-2 mean loss {losses[1]} is not "
           f"below epoch 1's {losses[0]}")
     for name, n in launches.items():
-        check(n == 36 * epochs * steps, f"kernel {name} launched {n} times, "
-              f"not 36 per step")
+        check(n == per_step[name] * epochs * steps, f"kernel {name} "
+              f"launched {n} times, not {per_step[name]} per step")
     moved = [k for k, v in state.batch_stats.items()
              if not torch.equal(v, init_stats[k])]
     check(len(moved) == len(init_stats), f"{len(init_stats) - len(moved)} "
           "running statistics never left their init")
-    # eval: the running statistics, K4f without statistics, no backward
+    # eval: the running statistics, the forward kernels without
+    # statistics, no backward
     dev_batch = put_batch(batch, dev)
     before = {k: v.clone() for k, v in state.batch_stats.items()}
     for mod, attr in counters.values():
@@ -1149,8 +1328,8 @@ def run_resnet_training(torch, dev, counters):
     log(f"  evaluate (train=False): {metrics}; launches {eval_launches}")
     check(all(math.isfinite(v) for v in metrics.values()),
           f"non-finite eval metrics {metrics}")
-    check(eval_launches == {"fused_matmul_fwd": 36, "fused_matmul_dx": 0,
-                            "fused_matmul_dw": 0},
+    check(eval_launches == {k: n if k.endswith("_fwd") else 0
+                            for k, n in per_step.items()},
           f"evaluate launched {eval_launches}")
     check(all(torch.equal(v, before[k])
               for k, v in state.batch_stats.items()),
@@ -1158,46 +1337,50 @@ def run_resnet_training(torch, dev, counters):
     return launches, trainer, state, dev_batch
 
 
-def profile_resnet(torch, dev, trainer, state, batch):
-    """Step time of the fused path without the profiler, two steps
-    under ``torch.profiler`` (device busy and idle share, top device
-    ops), and the ``bn`` variant's step (cuDNN convs, no port kernel)
-    as the yardstick."""
-    from pyspark_tf_gke_tpu_torch.models.resnet import ResNet50
-    from pyspark_tf_gke_tpu_torch.train.trainer import TASKS, Trainer
-
-    def timed(tr, st, n=5):
-        for _ in range(2):
-            tr.step(st, batch)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(n):
-            tr.step(st, batch)
-        torch.cuda.synchronize()
-        return (time.perf_counter() - t0) * 1e3 / n
-
+def time_resnet(torch, trainer, state, batch, label, profile=True):
+    """ms/step of ``trainer`` over 5 steady steps without the profiler;
+    with ``profile``, two more steps under ``torch.profiler`` (device busy
+    and idle share, top device ops)."""
+    for _ in range(2):
+        trainer.step(state, batch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        trainer.step(state, batch)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / 5
     b = RESNET_BATCH
-    ms = timed(trainer, state)
-    log(f"  fused: {ms:.2f} ms/step, {b / ms * 1e3:.1f} images/s (5 steady "
+    log(f"  {label}: {ms:.2f} ms/step, {b / ms * 1e3:.1f} images/s (5 steady "
         "steps, no profiler)")
+    if not profile:
+        return ms
     wall, busy, top = _profiled(
         torch, lambda: [trainer.step(state, batch) for _ in range(2)])
     if busy <= 0:
         log(f"  2 steps: wall {wall:.2f} ms; device time not visible to "
             "torch.profiler")
-    else:
-        log(f"  2 fused steps under the profiler: wall {wall:.2f} ms, device "
-            f"busy {busy:.2f} ms ({100 * busy / wall:.1f}%), idle "
-            f"{100 * (1 - busy / wall):.1f}%")
-        for name, t in top[:12]:
-            log(f"    {t:9.3f} ms  {name[:90]}")
-    bn_model = ResNet50(norm_variant="bn", device=dev, seed=0)
-    bn_trainer = Trainer(bn_model, TASKS["resnet"](), learning_rate=1e-3)
-    bms = timed(bn_trainer, bn_trainer.init_state())
-    log(f"  bn (cuDNN convs, no port kernel): {bms:.2f} ms/step, "
-        f"{b / bms * 1e3:.1f} images/s; fused / bn = {ms / bms:.2f}")
-    del bn_model, bn_trainer
+        return ms
+    log(f"  2 {label} steps under the profiler: wall {wall:.2f} ms, device "
+        f"busy {busy:.2f} ms ({100 * busy / wall:.1f}%), idle "
+        f"{100 * (1 - busy / wall):.1f}%")
+    for name, t in top[:12]:
+        log(f"    {t:9.3f} ms  {name[:90]}")
+    return ms
+
+
+def time_bn_resnet(torch, dev, batch):
+    """The ``bn`` variant's step (cuDNN convs, no port kernel), the
+    yardstick of the fused paths."""
+    from pyspark_tf_gke_tpu_torch.models.resnet import ResNet50
+    from pyspark_tf_gke_tpu_torch.train.trainer import TASKS, Trainer
+
+    trainer = Trainer(ResNet50(norm_variant="bn", device=dev, seed=0),
+                      TASKS["resnet"](), learning_rate=1e-3)
+    ms = time_resnet(torch, trainer, trainer.init_state(), batch,
+                     "bn (cuDNN convs, no port kernel)", profile=False)
+    del trainer
     torch.cuda.empty_cache()
+    return ms
 
 
 def _nonzero_norm3(torch, model, seed: int):
@@ -1230,37 +1413,52 @@ def _resnet_grads(torch, model, batch):
 # Kernels against use_kernels=False (the plain versions, which round at
 # the kernels' points) on one ResNet-50 training step: |loss diff|,
 # whole-tree and worst-tensor gradient relative L2, and the running
-# statistics' max abs difference (f32). Every K4 call agrees with its
-# plain version on the same inputs to ~1e-6 (f32) — held below as
-# K4_CALL_REL_L2 — but the network amplifies rounding-level changes into
+# statistics' max abs difference (f32). Every K4 / K5 call agrees with
+# its plain version on the same inputs to ~1e-6 (f32) — held below as
+# CALL_REL_L2 — but the network amplifies rounding-level changes into
 # the gradients: on an H100 the plain versions on the card against the
-# same plain versions on the host's CPU read 1.0e-2 (f32), as far apart
-# as the kernels are, and the "noise" reading printed beside (the plain
-# versions against themselves with the input scaled by 1 + 1e-6) reads
-# 1.7e-3 (f32) and 1.0e-1 (bf16; worst tensor bn_init.bias 0.42, whose
-# gradient is zero up to rounding). Limits: the H100 readings (PERF.md,
-# ResNet-50 parity) with a margin of 2-10x.
+# same plain versions on the host's CPU read 1.0e-2 (f32, fused), as far
+# apart as the kernels are, and the "noise" reading printed beside (the
+# plain versions against themselves with the input scaled by 1 + 1e-6)
+# reads 1.7e-3 (f32) and 1.0e-1 (bf16; worst tensor bn_init.bias 0.42,
+# whose gradient is zero up to rounding). Limits: the H100 readings
+# (PERF.md, ResNet-50 parity) with a margin of 2-10x; fused3's f32 loss
+# read 0 and takes 10x fused's 4.8e-7.
 RESNET_PARITY_LIMITS = {
-    "float32": dict(loss=1e-5, rel=3e-2, worst=5e-2, stats=1e-5),
-    "bfloat16": dict(loss=2e-3, rel=2e-1, worst=6e-1, stats=None),
+    ("fused", "float32"): dict(loss=1e-5, rel=3e-2, worst=5e-2, stats=1e-5),
+    ("fused", "bfloat16"): dict(loss=2e-3, rel=2e-1, worst=6e-1, stats=None),
+    ("fused3", "float32"): dict(loss=5e-6, rel=3e-2, worst=5e-2, stats=3e-6),
+    ("fused3", "bfloat16"): dict(loss=1e-3, rel=2e-1, worst=7.5e-1,
+                                 stats=None),
 }
-# each K4 call of the kernels' step against its plain version on the
-# same inputs, relative L2 of every output: f32 sums in another order
-# (read <= 1.2e-6); bf16 outputs one rounding apart where the f32 sums
-# straddle a rounding point (read <= 8.9e-5)
-K4_CALL_REL_L2 = {"float32": 1e-5, "bfloat16": 1e-3}
+# each K4 and K5 call of the kernels' step against its plain version on
+# the same inputs, relative L2 of every output: f32 sums in another order
+# (K4 read <= 1.2e-6); bf16 outputs one rounding apart where the f32
+# sums straddle a rounding point (K4 read <= 8.9e-5)
+CALL_REL_L2 = {"float32": 1e-5, "bfloat16": 1e-3}
 
 
-class _K4CallCheck:
-    """While active, every K4 wrapper call also runs the plain version
-    on the same inputs and keeps the worst relative L2 per output."""
+class _CallCheck:
+    """While active, every K4 and K5 wrapper call also runs the plain
+    version on the same inputs and keeps the worst relative L2 per
+    output; ``calls`` counts the kernel calls by op."""
 
     def __init__(self, torch):
+        from pyspark_tf_gke_tpu_torch.ops import fused_conv3 as fc
         from pyspark_tf_gke_tpu_torch.ops import fused_matmul as fm
 
-        self.torch, self.fm, self.worst, self.calls = torch, fm, {}, 0
-        self.saved = (fm.norm_relu_matmul_fwd, fm.norm_relu_matmul_dx,
-                      fm.norm_relu_matmul_dw)
+        self.torch, self.worst = torch, {}
+        self.calls = {"K4": 0, "K5": 0}
+        # (op, module, wrapper names, plain versions)
+        self.ops = (
+            ("K4", fm, ("norm_relu_matmul_fwd", "norm_relu_matmul_dx",
+                        "norm_relu_matmul_dw"),
+             (fm._fwd_plain, fm.norm_relu_matmul_dx_plain,
+              fm.norm_relu_matmul_dw_plain)),
+            ("K5", fc, ("conv3_fwd", "conv3_dx", "conv3_dw"),
+             (fc.conv3_fwd_plain, fc.conv3_dx_plain, fc.conv3_dw_plain)))
+        self.saved = [(mod, names, [getattr(mod, n) for n in names])
+                      for _, mod, names, _ in self.ops]
 
     def _note(self, what, got, want):
         if got is None:
@@ -1270,56 +1468,61 @@ class _K4CallCheck:
         if rel >= self.worst.get(what, (-1.0,))[0]:
             self.worst[what] = (rel, tuple(got.shape))
 
-    def __enter__(self):
-        fm = self.fm
-        fwd, dx, dw = self.saved
+    def _wrap(self, op, kernels, plains):
+        fwd, dx, dw = kernels
+        pfwd, pdx, pdw = plains
 
         def check_fwd(x, w, a, b, relu, want_stats):
             y, st = fwd(x, w, a, b, relu, want_stats)
-            ref = fm.norm_relu_matmul_plain(x, w, a, b, relu=relu,
-                                            want_stats=want_stats)
-            ry = ref[0] if want_stats else ref
-            self._note("K4f y", y, ry)
-            if want_stats:
-                self._note("K4f stats", st, self.torch.stack(ref[1:]))
-            self.calls += 1
+            ry, rst = pfwd(x, w, a, b, relu, want_stats)
+            self._note(f"{op}f y", y, ry)
+            self._note(f"{op}f stats", st, rst)
+            self.calls[op] += 1
             return y, st
 
         def check_dx(dy, w, x, a, b, relu):
             got, ds = dx(dy, w, x, a, b, relu)
-            want, rds = fm.norm_relu_matmul_dx_plain(dy, w, x, a, b, relu)
-            self._note("K4dx dx", got, want)
-            self._note("K4dx da/db", ds, rds)
-            self.calls += 1
+            want, rds = pdx(dy, w, x, a, b, relu)
+            self._note(f"{op}dx dx", got, want)
+            self._note(f"{op}dx da/db", ds, rds)
+            self.calls[op] += 1
             return got, ds
 
         def check_dw(x, dy, a, b, relu):
             got = dw(x, dy, a, b, relu)
-            self._note("K4dw dw", got,
-                       fm.norm_relu_matmul_dw_plain(x, dy, a, b, relu))
-            self.calls += 1
+            self._note(f"{op}dw dw", got, pdw(x, dy, a, b, relu))
+            self.calls[op] += 1
             return got
 
-        (fm.norm_relu_matmul_fwd, fm.norm_relu_matmul_dx,
-         fm.norm_relu_matmul_dw) = check_fwd, check_dx, check_dw
+        return check_fwd, check_dx, check_dw
+
+    def __enter__(self):
+        for (op, mod, names, plains), (_, _, kernels) in zip(self.ops,
+                                                             self.saved):
+            for name, fn in zip(names, self._wrap(op, kernels, plains)):
+                setattr(mod, name, fn)
         return self
 
     def __exit__(self, *exc):
-        (self.fm.norm_relu_matmul_fwd, self.fm.norm_relu_matmul_dx,
-         self.fm.norm_relu_matmul_dw) = self.saved
+        for mod, names, kernels in self.saved:
+            for name, fn in zip(names, kernels):
+                setattr(mod, name, fn)
 
 
-def check_resnet_parity(torch, dev):
-    """One training forward and backward through the kernels against
-    ``use_kernels=False`` from one init with every norm3 scale non-zero:
-    f32 (TF32 off) at full depth on 8 images of 64^2 — step-0 loss,
-    gradients and the running statistics after the step; bf16 on the
-    full path (64 images of 224^2) — step-0 loss and gradients. During
-    the kernels' step every K4 call is held against its plain version on
-    the same inputs."""
+def check_resnet_parity(torch, dev, variant):
+    """One training forward and backward of ResNet-50 ``variant`` through
+    the kernels against ``use_kernels=False`` from one init with every
+    norm3 scale non-zero: f32 (TF32 off) at full depth on 8 images of
+    64^2 — step-0 loss, gradients and the running statistics after the
+    step; bf16 on the full path (64 images of 224^2) — step-0 loss and
+    gradients. During the kernels' step every K4 and K5 call is held
+    against its plain version on the same inputs."""
     from pyspark_tf_gke_tpu_torch.data.pipeline import put_batch
     from pyspark_tf_gke_tpu_torch.models.resnet import ResNet50
 
+    per_step = RESNET_PER_STEP[variant]
+    want_calls = {"K4": 3 * per_step[RESNET_K4[0]],
+                  "K5": 3 * per_step[RESNET_K5[0]]}
     results = {}
     for dtype, b, size in ((torch.float32, 8, 64),
                            (torch.bfloat16, RESNET_BATCH, RESNET_IMAGE)):
@@ -1330,11 +1533,11 @@ def check_resnet_parity(torch, dev):
         for key, use_kernels, inputs in (("kernels", True, batch),
                                          ("plain", False, batch),
                                          ("noise", False, nudged)):
-            model = ResNet50(norm_variant="fused", dtype=dtype, device=dev,
+            model = ResNet50(norm_variant=variant, dtype=dtype, device=dev,
                              seed=3, use_kernels=use_kernels)
             _nonzero_norm3(torch, model, 4)
             if use_kernels:
-                with _K4CallCheck(torch) as calls:
+                with _CallCheck(torch) as calls:
                     loss, grads = _resnet_grads(torch, model, inputs)
             else:
                 loss, grads = _resnet_grads(torch, model, inputs)
@@ -1342,39 +1545,89 @@ def check_resnet_parity(torch, dev):
             runs[key] = (loss, grads, stats)
             del model
         worst_call = max(rel for rel, _ in calls.worst.values())
-        log(f"  {name} B={b} {size}^2: {calls.calls} K4 calls each held "
-            "against its plain version on the same inputs, worst relative "
-            "L2 per output: " + ", ".join(
+        log(f"  {variant} {name} B={b} {size}^2: {calls.calls} kernel calls "
+            "each held against its plain version on the same inputs, worst "
+            "relative L2 per output: " + ", ".join(
                 f"{what} {rel:.2e} {list(shape)}"
                 for what, (rel, shape) in calls.worst.items())
-            + f" (limit {K4_CALL_REL_L2[name]:g})")
-        check(calls.calls == 3 * 36 and worst_call <= K4_CALL_REL_L2[name],
-              f"{name}: a K4 call of the training step disagrees with its "
-              "plain version")
+            + f" (limit {CALL_REL_L2[name]:g})")
+        check(calls.calls == want_calls and worst_call <= CALL_REL_L2[name],
+              f"{variant} {name}: a kernel call of the training step "
+              "disagrees with its plain version")
         (lk, gk, sk), (lp, gp, sp) = runs["kernels"], runs["plain"]
         rel, worst, worst_rel = _grad_diff(torch, gk, gp)
         nrel, nworst, nworst_rel = _grad_diff(torch, runs["noise"][1], gp)
         check(all(bool(torch.isfinite(g).all()) for g in gk.values()),
-              f"non-finite {name} gradient")
+              f"non-finite {variant} {name} gradient")
         stat_err = max(float((sk[k] - sp[k]).abs().max()) for k in sk)
-        lim = RESNET_PARITY_LIMITS[name]
-        log(f"  {name} B={b} {size}^2: loss kernels {lk:.6f} vs plain "
-            f"{lp:.6f} (diff {abs(lk - lp):.2e}, limit {lim['loss']:g}); "
-            f"gradients relative L2 {rel:.2e} (limit {lim['rel']:g}), worst "
-            f"tensor {worst} {worst_rel:.2e} (limit {lim['worst']:g}); "
-            f"running statistics max abs diff {stat_err:.2e} (limit "
-            f"{lim['stats']})")
+        lim = RESNET_PARITY_LIMITS[variant, name]
+        log(f"  {variant} {name} B={b} {size}^2: loss kernels {lk:.6f} vs "
+            f"plain {lp:.6f} (diff {abs(lk - lp):.2e}, limit "
+            f"{lim['loss']:g}); gradients relative L2 {rel:.2e} (limit "
+            f"{lim['rel']:g}), worst tensor {worst} {worst_rel:.2e} (limit "
+            f"{lim['worst']:g}); running statistics max abs diff "
+            f"{stat_err:.2e} (limit {lim['stats']})")
         log(f"    noise: plain with the input x (1 + 1e-6) vs plain: "
             f"gradients relative L2 {nrel:.2e}, worst tensor {nworst} "
             f"{nworst_rel:.2e}")
         check(abs(lk - lp) <= lim["loss"] and rel <= lim["rel"]
               and worst_rel <= lim["worst"]
               and (lim["stats"] is None or stat_err <= lim["stats"]),
-              f"{name} ResNet-50 training through the kernels disagrees "
-              "with the plain versions")
+              f"{variant} {name} ResNet-50 training through the kernels "
+              "disagrees with the plain versions")
         results[name] = (abs(lk - lp), rel, worst_rel, stat_err)
         torch.cuda.empty_cache()
     return results
+
+
+# -- phase 12: the other ResNet variants -------------------------------------
+
+# (norm_variant, s2d_stem): every variant of models/resnet.py not trained
+# above, and the space-to-depth stem under both stem families
+RESNET_OTHER_VARIANTS = (("bn_f32", False), ("gn", False), ("none", False),
+                         ("nf", False), ("nf", True), ("fused3", True))
+
+
+def check_resnet_variants(torch, dev, k5_counters):
+    """One ``Trainer`` step of ResNet-50 (bf16) for each of
+    :data:`RESNET_OTHER_VARIANTS` on 8 images of 64^2: the forward and
+    backward give a finite loss and finite gradients, the update finite
+    parameters, and ``fused3`` with the s2d stem launches the K5
+    kernels."""
+    from pyspark_tf_gke_tpu_torch.data.pipeline import put_batch
+    from pyspark_tf_gke_tpu_torch.models.resnet import ResNet50
+    from pyspark_tf_gke_tpu_torch.train.trainer import TASKS, Trainer
+
+    batch = put_batch(resnet_batch(8, 64, seed=2), dev)
+    for variant, s2d in RESNET_OTHER_VARIANTS:
+        tag = f"{variant}{' + s2d_stem' if s2d else ''}"
+        model = ResNet50(norm_variant=variant, s2d_stem=s2d, device=dev,
+                         seed=5)
+        for mod, attr in k5_counters.values():
+            setattr(mod, attr, 0)
+        loss, grads = _resnet_grads(torch, model, batch)
+        torch.cuda.synchronize()
+        launches = {name: getattr(mod, attr)
+                    for name, (mod, attr) in k5_counters.items()}
+        trainer = Trainer(model, TASKS["resnet"](), learning_rate=1e-3)
+        state, metrics = trainer.step(trainer.init_state(), batch)
+        step_loss = float(metrics["loss"])
+        finite = all(bool(torch.isfinite(g).all()) for g in grads.values())
+        params_ok = all(bool(torch.isfinite(p).all())
+                        for p in state.params.values())
+        gnorm = math.sqrt(sum(float((g * g).sum()) for g in grads.values()))
+        log(f"  {tag}: loss {loss:.5f}, {len(grads)} gradients, all finite "
+            f"{finite}, norm {gnorm:.4e}; after one Adam step: loss "
+            f"{step_loss:.5f}, parameters finite {params_ok}; K5 launches "
+            f"{launches}")
+        check(math.isfinite(loss) and math.isfinite(step_loss) and finite
+              and params_ok and gnorm > 0, f"ResNet-50 {tag}: non-finite "
+              "or zero training step")
+        if variant == "fused3":
+            check(all(n > 0 for n in launches.values()),
+                  f"ResNet-50 {tag} did not launch every K5 kernel")
+        del model, trainer, state
+        torch.cuda.empty_cache()
 
 
 # -- main ---------------------------------------------------------------------
@@ -1401,6 +1654,12 @@ KERNELS = (
      "pyspark_tf_gke_tpu/ops/pallas/fused_matmul.py:178"),
     ("fused_matmul_dw", "pyspark_tf_gke_tpu_torch/csrc/fused_matmul.cu",
      "pyspark_tf_gke_tpu/ops/pallas/fused_matmul.py:246"),
+    ("fused_conv3_fwd", "pyspark_tf_gke_tpu_torch/csrc/fused_conv3.cu",
+     "pyspark_tf_gke_tpu/ops/pallas/fused_conv3.py:55"),
+    ("fused_conv3_dx", "pyspark_tf_gke_tpu_torch/csrc/fused_conv3.cu",
+     "pyspark_tf_gke_tpu/ops/pallas/fused_conv3.py:116"),
+    ("fused_conv3_dw", "pyspark_tf_gke_tpu_torch/csrc/fused_conv3.cu",
+     "pyspark_tf_gke_tpu/ops/pallas/fused_conv3.py:179"),
 )
 
 
@@ -1418,6 +1677,7 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     from pyspark_tf_gke_tpu_torch.device import resolve_device
     from pyspark_tf_gke_tpu_torch.ops import flash_attention as fa
+    from pyspark_tf_gke_tpu_torch.ops import fused_conv3 as fc
     from pyspark_tf_gke_tpu_torch.ops import fused_matmul as fm
     from pyspark_tf_gke_tpu_torch.ops import kernels
     from pyspark_tf_gke_tpu_torch.ops import layernorm as ln
@@ -1452,7 +1712,8 @@ def main() -> int:
                "flash_attention_fwd": check_flash(torch, dev),
                **check_flash_bwd(torch, dev),
                "paged_attention": check_paged(torch, dev),
-               **check_fused_matmul(torch, dev)}
+               **check_fused_matmul(torch, dev),
+               **check_fused_conv3(torch, dev)}
     for name, rec in records.items():
         log(f"  {name} at {rec['shape']}: kernel_ms {rec['ms']:.4f}, "
             f"plain_ms {rec['plain_ms']:.4f}, library_ms "
@@ -1494,30 +1755,57 @@ def main() -> int:
     check_training_parity(torch, dev)
     torch.cuda.empty_cache()
 
-    resnet_counters = {"fused_matmul_fwd": (fm, "fwd_launches"),
-                       "fused_matmul_dx": (fm, "dx_launches"),
-                       "fused_matmul_dw": (fm, "dw_launches")}
+    k4_counters = {"fused_matmul_fwd": (fm, "fwd_launches"),
+                   "fused_matmul_dx": (fm, "dx_launches"),
+                   "fused_matmul_dw": (fm, "dw_launches")}
+    k5_counters = {"fused_conv3_fwd": (fc, "fwd_launches"),
+                   "fused_conv3_dx": (fc, "dx_launches"),
+                   "fused_conv3_dw": (fc, "dw_launches")}
+    resnet_counters = {**k4_counters, **k5_counters}
     log("== 8. ResNet-50 training main path: Trainer, norm_variant=fused, "
         "bf16, batch 64 x 224^2")
     resnet_launches, trainer, state, batch = run_resnet_training(
-        torch, dev, resnet_counters)
-    log("== 8b. where a ResNet-50 step's time goes (torch.profiler), and the "
-        "bn variant's step")
-    profile_resnet(torch, dev, trainer, state, batch)
+        torch, dev, resnet_counters, "fused")
+    log("== 8b. where a ResNet-50 fused step's time goes (torch.profiler), "
+        "and the bn variant's step")
+    fused_ms = time_resnet(torch, trainer, state, batch, "fused")
+    del trainer, state
+    torch.cuda.empty_cache()
+    bn_ms = time_bn_resnet(torch, dev, batch)
+    del batch
+    log(f"  fused / bn = {fused_ms / bn_ms:.2f}")
+    log("== 9. ResNet-50 fused training parity on the card: kernels vs "
+        "plain")
+    check_resnet_parity(torch, dev, "fused")
+    log("== 10. ResNet-50 training main path: Trainer, norm_variant=fused3, "
+        "bf16, batch 64 x 224^2")
+    fused3_launches, trainer, state, batch = run_resnet_training(
+        torch, dev, resnet_counters, "fused3")
+    log("== 10b. where a ResNet-50 fused3 step's time goes (torch.profiler)")
+    fused3_ms = time_resnet(torch, trainer, state, batch, "fused3")
+    log(f"  fused3 / fused = {fused3_ms / fused_ms:.2f}, fused3 / bn = "
+        f"{fused3_ms / bn_ms:.2f} (fused {fused_ms:.2f}, bn {bn_ms:.2f} "
+        "ms/step, phase 8b)")
     del trainer, state, batch
     torch.cuda.empty_cache()
-    log("== 9. ResNet-50 training parity on the card: kernels vs plain")
-    check_resnet_parity(torch, dev)
+    log("== 11. ResNet-50 fused3 training parity on the card: kernels vs "
+        "plain")
+    check_resnet_parity(torch, dev, "fused3")
+    log("== 12. the other ResNet-50 variants: one training step each, "
+        "bf16, 8 x 64^2")
+    check_resnet_variants(torch, dev, k5_counters)
 
     out = []
     for name, source, replaces in KERNELS:
         rec = records[name]
         per_path = {"serve": serve_launches.get(name, 0),
                     "lm_train": train_launches.get(name, 0),
-                    "resnet_train": resnet_launches.get(name, 0)}
+                    "resnet_train": resnet_launches.get(name, 0),
+                    "resnet_fused3_train": fused3_launches.get(name, 0)}
         # each kernel's count from the path that runs it, the newest
         # slice's path first (paged attention runs only on serving)
-        launches = (per_path["resnet_train"] or per_path["lm_train"]
+        launches = (per_path["resnet_fused3_train"]
+                    or per_path["resnet_train"] or per_path["lm_train"]
                     or per_path["serve"])
         out.append({"name": name, "route": "cuda", "source": source,
                     "replaces": replaces, "launches": launches,

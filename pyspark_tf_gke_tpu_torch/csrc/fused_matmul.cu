@@ -23,7 +23,8 @@
 // FMA throughput well above either bound; moving the product onto wgmma
 // with TMA loads is later work.
 //
-// Design: one shared-memory GEMM mainloop for all three. A block owns a
+// Design: one shared-memory GEMM mainloop for all three (tile_gemm.cuh,
+// shared with K5's fused 3x3 conv in fused_conv3.cu). A block owns a
 // 128 x 64 output tile (256 threads, 8 x 4 outputs each) and walks the
 // reduction in steps of 16: both operand tiles are staged in shared memory
 // as f32, reduction-major, and the input transform (and its rounding) is
@@ -39,107 +40,12 @@
 //     rounds to dy's dtype.
 // No atomics anywhere: every result is independent of scheduling.
 
-#include "common.cuh"
+#include "tile_gemm.cuh"
 
 using namespace port;
+using namespace port::tile;
 
 namespace {
-
-constexpr int kBM = 128;  // output tile rows (kept in step with ops/fused_matmul.py)
-constexpr int kBN = 64;   // output tile columns
-constexpr int kBK = 16;   // reduction step
-constexpr int kTM = 8;    // outputs per thread: rows
-constexpr int kTN = 4;    //                     columns
-constexpr int kThreads = (kBM / kTM) * (kBN / kTN);  // 256
-constexpr int kPad = 4;   // keeps rows 16-byte aligned for float4 reads
-
-static_assert(kThreads == 256, "tile shape");
-
-enum Chan { kNoTransform = 0, kChanIsRed = 1, kChanIsRow = 2 };
-
-// Stage one operand tile as dst[kk][r] (reduction-major, f32) from a
-// row-major global matrix. The tile covers tile rows [row0, row0 + ROWS)
-// and reduction indices [red0, red0 + kBK). kRedContig: the reduction
-// index is the global matrix's contiguous axis (src[row * ld + red]),
-// else the tile-row index is (src[red * ld + row]). kChan says which of
-// the two indexes the transform's channel (a, b); out-of-range elements
-// are 0.
-template <typename T, int ROWS, bool kRedContig, int kChan, bool kRelu>
-__device__ __forceinline__ void stage(float (*dst)[ROWS + kPad], const T* __restrict__ src,
-                                      long long ld, int row0, int nrows, int red0,
-                                      int nred, const float* __restrict__ a,
-                                      const float* __restrict__ b) {
-#pragma unroll
-  for (int i = 0; i < ROWS * kBK / kThreads; ++i) {
-    const int idx = threadIdx.x + i * kThreads;
-    const int r = kRedContig ? idx / kBK : idx % ROWS;
-    const int kk = kRedContig ? idx % kBK : idx / ROWS;
-    const int gr = row0 + r, gk = red0 + kk;
-    float v = 0.f;
-    if (gr < nrows && gk < nred) {
-      const long long off = kRedContig ? static_cast<long long>(gr) * ld + gk
-                                       : static_cast<long long>(gk) * ld + gr;
-      v = to_f32(src[off]);
-      if (kChan != kNoTransform) {
-        const int c = kChan == kChanIsRed ? gk : gr;
-        float t = __fadd_rn(__fmul_rn(v, a[c]), b[c]);
-        if (kRelu) t = fmaxf(t, 0.f);
-        v = round_through<T>(t);
-      }
-    }
-    dst[kk][r] = v;
-  }
-}
-
-// acc[i][j] += sum_kk As[kk][ty*kTM + i] * Bs[kk][tx*kTN + j]
-__device__ __forceinline__ void tile_product(float (*As)[kBM + kPad],
-                                             float (*Bs)[kBN + kPad],
-                                             float (&acc)[kTM][kTN], int ty, int tx) {
-#pragma unroll
-  for (int kk = 0; kk < kBK; ++kk) {
-    const float4 a0 = *reinterpret_cast<const float4*>(&As[kk][ty * kTM]);
-    const float4 a1 = *reinterpret_cast<const float4*>(&As[kk][ty * kTM + 4]);
-    const float4 bv = *reinterpret_cast<const float4*>(&Bs[kk][tx * kTN]);
-    const float av[kTM] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-    const float bw[kTN] = {bv.x, bv.y, bv.z, bv.w};
-#pragma unroll
-    for (int i = 0; i < kTM; ++i) {
-#pragma unroll
-      for (int j = 0; j < kTN; ++j) acc[i][j] = fmaf(av[i], bw[j], acc[i][j]);
-    }
-  }
-}
-
-// Column partials of one tile: s0/s1 hold each thread's sums over its kTM
-// rows; add the 16 row-groups in order and write row `tile` of the
-// [tiles, 2, ncols] partials.
-__device__ __forceinline__ void write_col_partials(float (*red)[kBN], const float (&s0)[kTN],
-                                                   const float (&s1)[kTN], int ty, int tx,
-                                                   float* __restrict__ part, int tile,
-                                                   int col0, int ncols) {
-  constexpr int kGroups = kBM / kTM;  // 16
-  float(*r0)[kBN] = red;
-  float(*r1)[kBN] = red + kGroups;
-#pragma unroll
-  for (int j = 0; j < kTN; ++j) {
-    r0[ty][tx * kTN + j] = s0[j];
-    r1[ty][tx * kTN + j] = s1[j];
-  }
-  __syncthreads();
-  if (threadIdx.x < kBN) {
-    const int c = threadIdx.x;
-    float t0 = 0.f, t1 = 0.f;
-    for (int g = 0; g < kGroups; ++g) {
-      t0 += r0[g][c];
-      t1 += r1[g][c];
-    }
-    if (col0 + c < ncols) {
-      float* row = part + static_cast<long long>(tile) * 2 * ncols;
-      row[col0 + c] = t0;
-      row[ncols + col0 + c] = t1;
-    }
-  }
-}
 
 template <typename T, bool kTransform, bool kRelu, bool kStats>
 __global__ void __launch_bounds__(kThreads)
@@ -262,38 +168,6 @@ k4_dw_kernel(const T* __restrict__ x, const T* __restrict__ dy, const float* __r
   }
 }
 
-// out[c] = sum over rows r of in[r, c], rows in order per thread and a
-// fixed tree across the block: one block per column.
-__global__ void __launch_bounds__(256)
-colsum_kernel(const float* __restrict__ in, int rows, int cols, float* __restrict__ out) {
-  __shared__ float buf[256];
-  const int c = blockIdx.x;
-  float s = 0.f;
-  for (int r = threadIdx.x; r < rows; r += 256) s += in[static_cast<long long>(r) * cols + c];
-  buf[threadIdx.x] = s;
-  __syncthreads();
-  for (int half = 128; half > 0; half >>= 1) {
-    if (threadIdx.x < half) buf[threadIdx.x] += buf[threadIdx.x + half];
-    __syncthreads();
-  }
-  if (threadIdx.x == 0) out[c] = buf[0];
-}
-
-// out[i] = round_T(sum over splits s, in order, of part[s, i])
-template <typename T>
-__global__ void __launch_bounds__(256)
-splitsum_kernel(const float* __restrict__ part, int splits, long long count, T* __restrict__ out) {
-  const long long i = static_cast<long long>(blockIdx.x) * 256 + threadIdx.x;
-  if (i >= count) return;
-  float s = 0.f;
-  for (int z = 0; z < splits; ++z) s += part[z * count + i];
-  out[i] = from_f32<T>(s);
-}
-
-inline dim3 tiles(int rows, int cols, int z = 1) {
-  return dim3((rows + kBM - 1) / kBM, (cols + kBN - 1) / kBN, z);
-}
-
 template <typename T, bool kTransform, bool kRelu, bool kStats>
 void fwd(const void* x, const void* w, const void* a, const void* b, void* y, void* part,
          void* stats, int m, int kdim, int n, cudaStream_t s) {
@@ -301,10 +175,7 @@ void fwd(const void* x, const void* w, const void* a, const void* b, void* y, vo
   k4_fwd_kernel<T, kTransform, kRelu, kStats><<<grid, kThreads, 0, s>>>(
       static_cast<const T*>(x), static_cast<const T*>(w), static_cast<const float*>(a),
       static_cast<const float*>(b), static_cast<T*>(y), static_cast<float*>(part), m, kdim, n);
-  if (kStats) {
-    colsum_kernel<<<2 * n, 256, 0, s>>>(static_cast<const float*>(part), grid.x, 2 * n,
-                                        static_cast<float*>(stats));
-  }
+  if (kStats) colsum(part, grid.x, 2 * n, stats, s);
 }
 
 template <typename T, bool kTransform, bool kRelu>
@@ -315,10 +186,7 @@ void dx_launch(const void* dy, const void* w, const void* x, const void* a, cons
       static_cast<const T*>(dy), static_cast<const T*>(w), static_cast<const T*>(x),
       static_cast<const float*>(a), static_cast<const float*>(b), static_cast<T*>(dx),
       static_cast<float*>(part), m, kdim, n);
-  if (kTransform) {
-    colsum_kernel<<<2 * kdim, 256, 0, s>>>(static_cast<const float*>(part), grid.x, 2 * kdim,
-                                           static_cast<float*>(dstats));
-  }
+  if (kTransform) colsum(part, grid.x, 2 * kdim, dstats, s);
 }
 
 template <typename T, bool kTransform, bool kRelu>
@@ -327,9 +195,7 @@ void dw_launch(const void* x, const void* dy, const void* a, const void* b, void
   k4_dw_kernel<T, kTransform, kRelu><<<tiles(kdim, n, splits), kThreads, 0, s>>>(
       static_cast<const T*>(x), static_cast<const T*>(dy), static_cast<const float*>(a),
       static_cast<const float*>(b), static_cast<float*>(part), m, kdim, n, chunk);
-  const long long count = static_cast<long long>(kdim) * n;
-  splitsum_kernel<T><<<static_cast<unsigned>((count + 255) / 256), 256, 0, s>>>(
-      static_cast<const float*>(part), splits, count, static_cast<T*>(dw));
+  splitsum<T>(part, splits, static_cast<long long>(kdim) * n, dw, s);
 }
 
 // transform: 0 none, 1 x*a+b, 2 relu(x*a+b)

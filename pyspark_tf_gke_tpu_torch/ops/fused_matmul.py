@@ -104,7 +104,16 @@ def norm_relu_matmul_dx_plain(dy: torch.Tensor, w: torch.Tensor,
                               ) -> Tuple[torch.Tensor, Stats]:
     """``(dx, [d a; d b])`` for the output cotangent ``dy`` (K4dx);
     the second is None without a transform."""
-    u = dy.float() @ w.float().t()
+    return dx_epilogue(dy.float() @ w.float().t(), x, a, b, relu)
+
+
+def dx_epilogue(u: torch.Tensor, x: torch.Tensor, a: Optional[torch.Tensor],
+                b: Optional[torch.Tensor], relu: bool
+                ) -> Tuple[torch.Tensor, Stats]:
+    """From ``u``, the f32 gradient of the transformed input ``[M, K]``
+    (``x`` is ``[M, K]`` too): ``dx = u*a`` (``u`` masked where ``x*a + b
+    <= 0`` with relu) in x's dtype, and the per-column ``[sum(u*x);
+    sum(u)]`` (d a, d b); ``(u, None)`` without a transform."""
     if a is None:
         return u.to(x.dtype), None
     xf = x.float()
@@ -229,13 +238,15 @@ def norm_relu_matmul_dx(dy: torch.Tensor, w: torch.Tensor, x: torch.Tensor,
     return dx, dstats
 
 
-def dw_splits(m: int, kdim: int, n: int) -> Tuple[int, int]:
-    """K4dw's split of the M rows across blocks: ``(splits, chunk)`` with
+def dw_splits(m: int, kdim: int, n: int, taps: int = 1) -> Tuple[int, int]:
+    """K4dw's split of the M rows across blocks (and K5dw's, whose grid
+    has ``taps = 9`` times the K x N tiles): ``(splits, chunk)`` with
     ``chunk`` a multiple of :data:`BLOCK_K` and every split non-empty.
     A function of the shape alone, so the summation order (and the
     result) does not depend on the card."""
-    tiles = _cdiv(kdim, BLOCK_M) * _cdiv(n, BLOCK_N)
-    want = max(1, min(_cdiv(DW_TARGET_BLOCKS, tiles), m // DW_MIN_ROWS, 65535))
+    tiles = taps * _cdiv(kdim, BLOCK_M) * _cdiv(n, BLOCK_N)
+    want = max(1, min(_cdiv(DW_TARGET_BLOCKS, tiles), m // DW_MIN_ROWS,
+                      65535 // taps))
     chunk = _cdiv(_cdiv(m, want), BLOCK_K) * BLOCK_K
     return _cdiv(m, chunk), chunk
 
@@ -271,14 +282,21 @@ def norm_relu_matmul_dw(x: torch.Tensor, dy: torch.Tensor,
 # -- the differentiable op ----------------------------------------------------
 
 
-class _NormReluMatmul(torch.autograd.Function):
+class FusedNormOp(torch.autograd.Function):
+    """The differentiable op of the fused conv+BN kernels: K4 here, K5 in
+    ``ops/fused_conv3.py``. ``apply(x, w, a, b, relu, want_stats, fns)``
+    with ``fns = (fwd, dx, dw)``, the op's three kernel wrappers (or
+    their plain versions): ``fwd(x, w, a, b, relu, want_stats) -> (y,
+    [sum; sumsq] or None)``, ``dx(dy, w, x, a, b, relu) -> (dx, [d a; d
+    b] or None)`` and ``dw(x, dy, a, b, relu) -> dw``. The statistics
+    run over every axis of ``y`` but the last (the channels)."""
+
     @staticmethod
-    def forward(ctx, x, w, a, b, relu, want_stats, plain):
-        fwd = _fwd_plain if plain else norm_relu_matmul_fwd
+    def forward(ctx, x, w, a, b, relu, want_stats, fns):
+        fwd, ctx.dx_fn, ctx.dw_fn = fns
         y, stats = fwd(x, w, a, b, relu, want_stats)
         ctx.save_for_backward(x, w, a, b, y)
         ctx.relu = relu
-        ctx.plain = plain
         ctx.set_materialize_grads(False)
         return (y, stats[0], stats[1]) if want_stats else y
 
@@ -288,27 +306,24 @@ class _NormReluMatmul(torch.autograd.Function):
         if gs is None and gss is None:
             dy = gy if gy is not None else torch.zeros_like(y)
         else:
-            # the statistics' cotangent: d sum -> +gs per column, d sumsq
+            # the statistics' cotangent: d sum -> +gs per channel, d sumsq
             # -> +2*y*gss; formed in f32, rounded to y's dtype
             d = gy.float() if gy is not None else torch.zeros(
                 y.shape, dtype=torch.float32, device=y.device)
             if gs is not None:
-                d = d + gs[None, :]
+                d = d + gs
             if gss is not None:
-                d = d + 2.0 * y.float() * gss[None, :]
+                d = d + 2.0 * y.float() * gss
             dy = d.to(y.dtype)
         dy = dy.contiguous()
         dx = da = db = dw = None
         need_x, need_w, need_a, need_b = ctx.needs_input_grad[:4]
-        dx_fn, dw_fn = ((norm_relu_matmul_dx_plain, norm_relu_matmul_dw_plain)
-                        if ctx.plain else
-                        (norm_relu_matmul_dx, norm_relu_matmul_dw))
         if need_x or (a is not None and (need_a or need_b)):
-            dx, dstats = dx_fn(dy, w, x, a, b, ctx.relu)
+            dx, dstats = ctx.dx_fn(dy, w, x, a, b, ctx.relu)
             if a is not None:
                 da, db = dstats[0], dstats[1]
         if need_w:
-            dw = dw_fn(x, dy, a, b, ctx.relu).to(w.dtype)
+            dw = ctx.dw_fn(x, dy, a, b, ctx.relu).to(w.dtype)
         return dx, dw, da, db, None, None, None
 
 
@@ -322,8 +337,9 @@ def norm_relu_matmul(x: torch.Tensor, w: torch.Tensor,
     sumsq)`` with ``want_stats``: f32 per-column reductions of the
     rounded ``y``. Differentiable in ``x``, ``w``, ``a`` and ``b``."""
     _check_pair(a, b)
-    return _NormReluMatmul.apply(x, w, a, b, relu and a is not None,
-                                 want_stats, False)
+    return FusedNormOp.apply(x, w, a, b, relu and a is not None, want_stats,
+                             (norm_relu_matmul_fwd, norm_relu_matmul_dx,
+                              norm_relu_matmul_dw))
 
 
 def norm_relu_matmul_plain(x: torch.Tensor, w: torch.Tensor,
@@ -335,5 +351,6 @@ def norm_relu_matmul_plain(x: torch.Tensor, w: torch.Tensor,
     K4dx's and K4dw's as the backward, so it rounds at the kernels'
     points and differs from them only by the order of f32 sums."""
     _check_pair(a, b)
-    return _NormReluMatmul.apply(x, w, a, b, relu and a is not None,
-                                 want_stats, True)
+    return FusedNormOp.apply(x, w, a, b, relu and a is not None, want_stats,
+                             (_fwd_plain, norm_relu_matmul_dx_plain,
+                              norm_relu_matmul_dw_plain))

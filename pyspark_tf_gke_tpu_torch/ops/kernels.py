@@ -61,6 +61,9 @@ SIGNATURES = {
     "port_k4_fwd": [_P] * 7 + [_I] * 7 + [_P],
     "port_k4_dx": [_P] * 8 + [_I] * 6 + [_P],
     "port_k4_dw": [_P] * 6 + [_I] * 8 + [_P],
+    "port_k5_fwd": [_P] * 7 + [_I] * 9 + [_P],
+    "port_k5_dx": [_P] * 8 + [_I] * 8 + [_P],
+    "port_k5_dw": [_P] * 6 + [_I] * 10 + [_P],
 }
 
 _lock = threading.Lock()

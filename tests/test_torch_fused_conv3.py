@@ -1,0 +1,215 @@
+"""PyTorch port, the fused 3x3 conv (K5f forward, K5dx and K5dw
+backward, through the plain versions the wrappers take for CPU tensors)
+on the CPU against the JAX ``conv3_norm_stats`` (its Pallas kernels in
+interpret mode, as ``tests/test_fused_resnet.py`` runs them): the same
+numpy-seeded inputs, the outputs, and the gradients in x, w, a and b of
+``sum(y*cy) + sum(s*cs) + sum(ss*css)`` (the statistics terms only with
+``want_stats``).
+
+Tolerances, relative to the largest element of the reference:
+* f32: 1e-5 for every output and gradient — both sides compute the same
+  f32 products and sum them in another order (sums of <= 9 x 4 terms
+  for y and dx, <= 72 for dw and the statistics);
+* bf16: one bf16 rounding (8e-3) of y, dx and dw, and 2e-3 for the f32
+  statistics and d a, d b (sums of values that may sit one bf16
+  rounding apart).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+import torch.nn.functional as F
+
+from pyspark_tf_gke_tpu.ops.pallas import fused_conv3 as jfc
+from pyspark_tf_gke_tpu_torch.ops import fused_conv3 as tfc
+from pyspark_tf_gke_tpu_torch.ops import fused_matmul as tfm
+
+torch.set_num_threads(1)
+
+# (x shape [B, H, W, K], N): an even and an odd one (H != W, K and N
+# below every tile)
+SHAPES = (((2, 6, 6, 4), 5), ((1, 7, 5, 3), 4))
+
+
+def _close(got, want, rel, what=""):
+    got = np.asarray(got, dtype=np.float32)
+    want = np.asarray(want, dtype=np.float32)
+    assert got.shape == want.shape, what
+    scale = max(float(np.abs(want).max()), 1e-30)
+    np.testing.assert_allclose(got, want, rtol=0, atol=rel * scale,
+                               err_msg=what)
+
+
+def _inputs(shape, n, seed):
+    rng = np.random.default_rng(seed)
+    k = shape[-1]
+    x = rng.normal(size=shape).astype(np.float32)
+    w = (rng.normal(size=(3, 3, k, n)) / np.sqrt(9 * k)).astype(np.float32)
+    a = rng.uniform(0.5, 1.5, size=k).astype(np.float32)
+    b = (rng.normal(size=k) * 0.5).astype(np.float32)
+    cy = rng.normal(size=shape[:3] + (n,)).astype(np.float32)
+    cs = rng.normal(size=n).astype(np.float32)
+    css = (rng.normal(size=n) * 0.1).astype(np.float32)
+    return x, w, a, b, cy, cs, css
+
+
+def _jax_op(x, w, a, b, cy, cs, css, transform, relu, want_stats, dtype):
+    def f(x, w, a, b):
+        out = jfc.conv3_norm_stats(
+            x, w, a if transform else None, b if transform else None,
+            relu=relu, want_stats=want_stats, interpret=True)
+        if want_stats:
+            y, s, ss = out
+            return (y * cy).sum() + (s * cs).sum() + (ss * css).sum(), out
+        return (out * cy).sum(), (out,)
+
+    args = (jnp.asarray(x, dtype), jnp.asarray(w, dtype), jnp.asarray(a),
+            jnp.asarray(b))
+    argnums = (0, 1, 2, 3) if transform else (0, 1)
+    (_, outs), grads = jax.jit(jax.value_and_grad(
+        f, argnums=argnums, has_aux=True))(*args)
+    return ([np.asarray(o.astype(jnp.float32)) for o in outs],
+            [np.asarray(g.astype(jnp.float32)) for g in grads])
+
+
+def _port_op(x, w, a, b, cy, cs, css, transform, relu, want_stats, dtype):
+    tx = torch.tensor(x).to(dtype).requires_grad_()
+    tw = torch.tensor(w).to(dtype).requires_grad_()
+    ta = torch.tensor(a, requires_grad=True)
+    tb = torch.tensor(b, requires_grad=True)
+    out = tfc.conv3_norm_stats(tx, tw, ta if transform else None,
+                               tb if transform else None, relu=relu,
+                               want_stats=want_stats)
+    outs = out if want_stats else (out,)
+    loss = (outs[0] * torch.tensor(cy)).sum()
+    if want_stats:
+        loss = (loss + (outs[1] * torch.tensor(cs)).sum()
+                + (outs[2] * torch.tensor(css)).sum())
+    wrt = (tx, tw, ta, tb) if transform else (tx, tw)
+    grads = torch.autograd.grad(loss, wrt)
+    return ([o.detach().float().numpy() for o in outs],
+            [g.float().numpy() for g in grads])
+
+
+@pytest.mark.parametrize("shape,n", SHAPES)
+@pytest.mark.parametrize("want_stats", [False, True])
+@pytest.mark.parametrize("mode", ["none", "affine", "relu"])
+def test_conv3_norm_stats_matches_jax_f32(mode, want_stats, shape, n):
+    inputs = _inputs(shape, n, seed=60)
+    kw = dict(transform=mode != "none", relu=mode == "relu",
+              want_stats=want_stats)
+    jouts, jgrads = _jax_op(*inputs, dtype=jnp.float32, **kw)
+    touts, tgrads = _port_op(*inputs, dtype=torch.float32, **kw)
+    assert len(touts) == len(jouts) and len(tgrads) == len(jgrads)
+    for name, got, want in zip(("y", "sum", "sumsq"), touts, jouts):
+        _close(got, want, 1e-5, name)
+    for name, got, want in zip(("dx", "dw", "da", "db"), tgrads, jgrads):
+        _close(got, want, 1e-5, name)
+
+
+@pytest.mark.parametrize("shape,n", SHAPES)
+def test_conv3_norm_stats_matches_jax_bf16(shape, n):
+    inputs = _inputs(shape, n, seed=61)
+    kw = dict(transform=True, relu=True, want_stats=True)
+    jouts, jgrads = _jax_op(*inputs, dtype=jnp.bfloat16, **kw)
+    touts, tgrads = _port_op(*inputs, dtype=torch.bfloat16, **kw)
+    for name, got, want, rel in zip(("y", "sum", "sumsq"), touts, jouts,
+                                    (8e-3, 2e-3, 2e-3)):
+        _close(got, want, rel, name)
+    for name, got, want, rel in zip(("dx", "dw", "da", "db"), tgrads,
+                                    jgrads, (8e-3, 8e-3, 2e-3, 2e-3)):
+        _close(got, want, rel, name)
+
+
+def test_hand_backward_equals_autograd_through_the_plain_forward():
+    """The hand-written backward (K5dx + K5dw through their plain
+    versions on the CPU) equals autograd through K5f's plain forward,
+    and ``conv3_norm_stats_plain`` (the plain versions on any device)
+    equals the wrapper on the CPU bit for bit."""
+    x, w, a, b, cy, cs, css = (torch.tensor(t) for t in _inputs(
+        (2, 5, 7, 6), 9, seed=62))
+
+    def autograd_plain(x, w, a, b, relu, want_stats):
+        y, stats = tfc.conv3_fwd_plain(x, w, a, b, relu, want_stats)
+        return y, stats[0], stats[1]
+
+    res = []
+    for fn in (tfc.conv3_norm_stats, tfc.conv3_norm_stats_plain,
+               autograd_plain):
+        p = [t.clone().requires_grad_() for t in (x, w, a, b)]
+        y, s, ss = (fn(*p, True, True) if fn is autograd_plain
+                    else fn(*p, relu=True, want_stats=True))
+        loss = (y * cy).sum() + (s * cs).sum() + (ss * css).sum()
+        res.append((y, s, ss) + torch.autograd.grad(loss, p))
+    for got, same, want in zip(*res):
+        assert torch.equal(got, same)
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+def test_plain_versions_are_the_padded_conv():
+    """An independent f64 reference at a ragged shape (tiles of 128
+    pixels cross rows and images on the card): ``F.conv2d`` with
+    ``padding=1`` on the normalised input (the pad is zero AFTER the
+    transform) and its autograd gradients, against the three plain
+    versions (f32); the relu mask and d a, d b by the chain rule."""
+    x, w, a, b, _, _, _ = (torch.tensor(t) for t in _inputs((3, 9, 5, 7), 6,
+                                                            seed=63))
+    dy = torch.randn(3, 9, 5, 6, generator=torch.Generator().manual_seed(0))
+    xr, wr, ar, br = (t.double().requires_grad_() for t in (x, w, a, b))
+    xn = torch.relu(xr * ar + br)
+    ref = F.conv2d(xn.permute(0, 3, 1, 2), wr.permute(3, 2, 0, 1),
+                   padding=1).permute(0, 2, 3, 1)
+    grads = torch.autograd.grad(ref, (xr, wr, ar, br), dy.double())
+    gx, gw, ga, gb = (g.float() for g in grads)
+    tol = dict(rtol=1e-5, atol=1e-5)
+    y, stats = tfc.conv3_fwd_plain(x, w, a, b, True, True)
+    torch.testing.assert_close(y, ref.detach().float(), **tol)
+    torch.testing.assert_close(stats, torch.stack(
+        [y.reshape(-1, 6).sum(0), (y * y).reshape(-1, 6).sum(0)]))
+    dx, dstats = tfc.conv3_dx_plain(dy, w, x, a, b, True)
+    torch.testing.assert_close(dx, gx, **tol)
+    torch.testing.assert_close(dstats, torch.stack([ga, gb]), **tol)
+    torch.testing.assert_close(tfc.conv3_dw_plain(x, dy, a, b, True), gw,
+                               **tol)
+
+
+def test_k5_wrappers_launch_or_raise_off_the_cpu():
+    """A tensor that is not on the CPU goes to the kernel or raises: a
+    meta tensor (no card needed) is refused; a lone half of the
+    transform, a kernel that is not 3x3 and mismatched dtypes raise on
+    any device."""
+    x = torch.empty(2, 5, 5, 3, device="meta")
+    w = torch.empty(3, 3, 3, 4, device="meta")
+    a = torch.empty(3, device="meta")
+    dy = torch.empty(2, 5, 5, 4, device="meta")
+    for call in (lambda: tfc.conv3_fwd(x, w, a, a, True, True),
+                 lambda: tfc.conv3_dx(dy, w, x, a, a, True),
+                 lambda: tfc.conv3_dw(x, dy, None, None, False)):
+        with pytest.raises(ValueError, match="CUDA"):
+            call()
+    with pytest.raises(ValueError, match="together"):
+        tfc.conv3_fwd(x, w, a, None, True, False)
+    xc, wc = torch.zeros(1, 4, 4, 3), torch.zeros(3, 3, 3, 2)
+    with pytest.raises(ValueError, match="together"):
+        tfc.conv3_norm_stats(xc, wc, torch.ones(3))
+    with pytest.raises(ValueError, match="3x3"):
+        tfc.conv3_norm_stats(xc, torch.zeros(1, 1, 3, 2))
+    with pytest.raises(ValueError, match="one dtype"):
+        tfc.conv3_norm_stats(xc, wc.to(torch.bfloat16))
+
+
+def test_dw_splits_give_enough_blocks_per_tap():
+    """K5dw's grid is 9 taps x the K x N tiles x the splits: ResNet-50's
+    stage 1 (9 tiles) splits its 200,704 pixels, stage 4 (288 tiles)
+    hardly; every split is a whole number of 16-pixel steps."""
+    got = {}
+    for m, k in ((200704, 64), (50176, 128), (12544, 256), (3136, 512),
+                 (45, 3)):
+        splits, chunk = tfm.dw_splits(m, k, k, tfc.TAPS)
+        assert chunk % tfm.BLOCK_K == 0 and chunk > 0
+        assert (splits - 1) * chunk < m <= splits * chunk
+        assert 9 * splits <= 65535
+        got[k] = splits
+    assert got[64] > 50 and got[512] <= 2 and got[3] == 1

@@ -1,18 +1,24 @@
-"""PyTorch port, the ResNet training slice on the CPU against the JAX
+"""PyTorch port, the ResNet training slices on the CPU against the JAX
 package: the fused 1x1-conv op (K4f forward, K4dx and K4dw backward,
 through the plain versions the wrappers take for CPU tensors) against
 the JAX ``norm_relu_matmul`` (its Pallas kernels in interpret mode, as
-``tests/test_fused_resnet.py`` runs them); a small ResNet in the
-``fused`` and ``bn`` variants against the JAX model with the same
-weights (train-mode logits, every running statistic, every gradient,
-eval-mode logits); 3 Adam steps of the port's ``Trainer`` against the
-JAX ``Trainer``; and a checkpoint round trip of the batch statistics.
+``tests/test_fused_resnet.py`` runs them); a small ResNet in every
+variant (``fused``, ``fused3``, ``bn``, ``bn_f32``, ``gn``, ``none``,
+``nf``, and the s2d stem under ``bn`` and ``nf``) against the JAX model
+with the same weights (train-mode logits, every running statistic,
+every gradient, eval-mode logits); 3 Adam steps of the port's
+``Trainer`` against the JAX ``Trainer`` (``fused``, ``fused3``, and the
+statistics-free ``nf``); and a checkpoint round trip of the batch
+statistics. The K5 op itself is held against JAX in
+``tests/test_torch_fused_conv3.py``.
 
 The weights are made with numpy and handed to both models, so no JAX
-init runs for the model tests. ``norm3_scale`` is zero at init, which
-makes every residual-branch gradient exactly zero (only the shortcut,
-projections, stem, head and norm3 carry gradient); the gradient cases
-set it non-zero (numpy-seeded) as well as leaving it at zero.
+init runs for the model tests. ``norm3_scale`` (``nf``: ``skip_gain``)
+is zero at init, which makes every residual-branch gradient exactly
+zero (only the shortcut, projections, stem, head and norm3 carry
+gradient); the gradient cases set it non-zero (numpy-seeded) as well as
+leaving it at zero. ``gn`` needs channels in groups of 32, so it runs
+at ``num_filters=32``.
 
 Tolerances, f32 throughout unless stated (both sides compute the same
 f32 products and sums in another order):
@@ -44,6 +50,25 @@ torch.set_num_threads(1)
 
 SMALL = dict(stage_sizes=(1, 1), num_filters=8, num_classes=10)
 IMAGE = (2, 32, 32, 3)
+# the model tests' cases: ResNet keyword arguments beside SMALL's. SMALL
+# has one stride-1 block (K5 under fused3) and one stride-2 block
+CASES = {
+    "fused": dict(norm_variant="fused"),
+    "fused3": dict(norm_variant="fused3"),
+    "bn": dict(norm_variant="bn"),
+    "bn_f32": dict(norm_variant="bn_f32"),
+    "gn": dict(norm_variant="gn", num_filters=32),
+    "none": dict(norm_variant="none"),
+    "nf": dict(norm_variant="nf"),
+    "bn_s2d": dict(norm_variant="bn", s2d_stem=True),
+    "nf_s2d": dict(norm_variant="nf", s2d_stem=True),
+}
+# the weights' numpy seed per case (default 45). At seed 45 one
+# pre-relu BatchNorm output of bn_s2d's second block lies 5.8e-7 from 0,
+# within the two frameworks' f32 rounding of each other, so its relu
+# mask can flip and move every gradient upstream of it by ~10%: a kink
+# of relu, not a fault of either side
+SEEDS = {"bn_s2d": 46}
 
 
 def _close(got, want, rel, what=""):
@@ -221,11 +246,12 @@ def test_bn_helpers_match_jax():
 # -- the model ----------------------------------------------------------------
 
 
-def _numpy_variables(variant, seed, norm3):
-    """flax variables of the small ResNet, made with numpy from the
-    model's own shapes (``eval_shape``: no JAX init runs). ``norm3``:
-    "zero" keeps norm3's scale at its init, "random" sets it non-zero."""
-    jmodel = jresnet.ResNet(**SMALL, dtype=jnp.float32, norm_variant=variant)
+def _numpy_variables(case, seed, norm3):
+    """flax variables of the small ResNet of ``case`` (a :data:`CASES`
+    key), made with numpy from the model's own shapes (``eval_shape``: no
+    JAX init runs). ``norm3``: "zero" keeps norm3's scale (``nf``:
+    ``skip_gain``) at its init, "random" sets it non-zero."""
+    jmodel = jresnet.ResNet(**{**SMALL, **CASES[case]}, dtype=jnp.float32)
     shapes = jax.eval_shape(lambda k: jmodel.init(k, jnp.zeros(IMAGE),
                                                   train=False),
                             jax.random.key(0))
@@ -239,10 +265,11 @@ def _numpy_variables(variant, seed, norm3):
             return rng.normal(size=shape).astype(np.float32) / np.sqrt(fan_in)
         if name.endswith("var"):
             return rng.uniform(0.5, 1.5, size=shape).astype(np.float32)
-        is_norm3 = "norm3_scale" in name or "BatchNorm_2/scale" in name
-        if name.endswith("scale") and is_norm3 and norm3 == "zero":
+        is_norm3 = any(n in name for n in ("norm3_scale", "BatchNorm_2/scale",
+                                           "GroupNorm_2/scale", "skip_gain"))
+        if is_norm3 and norm3 == "zero":
             return np.zeros(shape, np.float32)
-        if name.endswith("scale"):
+        if name.endswith(("scale", "gain")):
             return rng.uniform(0.5, 1.5, size=shape).astype(np.float32)
         return (rng.normal(size=shape) * 0.1).astype(np.float32)
 
@@ -263,30 +290,32 @@ def _batch(seed=44):
             "label": rng.integers(0, 10, size=IMAGE[0]).astype(np.int32)}
 
 
-def _jax_reference(variant):
+def _jax_reference(case):
     """Per norm3 case: train-mode logits, loss, the new batch stats, the
     gradients, and eval-mode logits from the updated running stats (one
-    compiled step for both cases)."""
+    compiled step for both cases). Statistics-free variants have an empty
+    ``batch_stats``."""
     batch = _batch()
     task = jtrainer.resnet_task()
-    jmodel = jresnet.ResNet(**SMALL, dtype=jnp.float32, norm_variant=variant)
+    jmodel = jresnet.ResNet(**{**SMALL, **CASES[case]}, dtype=jnp.float32)
 
     def loss_fn(params, stats):
-        preds, new_stats = task.forward(
-            jmodel, {"params": params, "batch_stats": stats}, batch, True,
-            True)
+        variables = {"params": params, **({"batch_stats": stats} if stats
+                                          else {})}
+        preds, new_stats = task.forward(jmodel, variables, batch, True, True)
         loss, _ = task.loss_and_metrics(preds, batch)
-        return loss, (preds, new_stats)
+        return loss, (preds, new_stats or {})
 
     step = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))
     evaluate = jax.jit(lambda v: jmodel.apply(v, batch["image"], train=False))
     out = {}
     for norm3 in ("zero", "random"):
-        _, variables = _numpy_variables(variant, 45, norm3)
-        (loss, (logits, new_stats)), grads = step(variables["params"],
-                                                  variables["batch_stats"])
+        _, variables = _numpy_variables(case, SEEDS.get(case, 45), norm3)
+        (loss, (logits, new_stats)), grads = step(
+            variables["params"], variables.get("batch_stats", {}))
         evals = evaluate({"params": variables["params"],
-                          "batch_stats": new_stats})
+                          **({"batch_stats": new_stats} if new_stats
+                             else {})})
         out[norm3] = dict(variables=jax.device_get(variables),
                           loss=float(loss), logits=np.asarray(logits),
                           stats=_flat(jax.device_get(new_stats)),
@@ -295,27 +324,37 @@ def _jax_reference(variant):
     return out
 
 
+_REFERENCES = {}
+
+
+def _reference(case):
+    """:func:`_jax_reference` of ``case``, computed once per process."""
+    if case not in _REFERENCES:
+        _REFERENCES[case] = _jax_reference(case)
+    return _REFERENCES[case]
+
+
 @pytest.fixture(scope="module")
 def jax_fused():
-    return _jax_reference("fused")
+    return _reference("fused")
 
 
 @pytest.fixture(scope="module")
-def jax_bn():
-    return _jax_reference("bn")
+def jax_fused3():
+    return _reference("fused3")
 
 
-def _port_model(variant, variables, **kw):
-    model = tresnet.ResNet(**SMALL, dtype=torch.float32, norm_variant=variant,
+def _port_model(case, variables, **kw):
+    model = tresnet.ResNet(**{**SMALL, **CASES[case]}, dtype=torch.float32,
                            device="cpu", **kw)
     model.load_state_dict(tresnet.params_from_flax(variables))
     return model
 
 
 @pytest.mark.parametrize("norm3", ["zero", "random"])
-@pytest.mark.parametrize("variant", ["fused", "bn"])
-def test_small_resnet_matches_jax(variant, norm3, jax_fused, jax_bn):
-    ref = (jax_fused if variant == "fused" else jax_bn)[norm3]
+@pytest.mark.parametrize("variant", list(CASES))
+def test_small_resnet_matches_jax(variant, norm3):
+    ref = _reference(variant)[norm3]
     model = _port_model(variant, ref["variables"])
     batch = {k: torch.from_numpy(v) for k, v in _batch().items()}
     task = ttrainer.resnet_task()
@@ -337,10 +376,11 @@ def test_small_resnet_matches_jax(variant, norm3, jax_fused, jax_bn):
             assert not params[name].grad.any(), name
             continue
         _close(params[name].grad.numpy(), want, 2e-3, name)
-    if norm3 == "zero" and variant == "fused":
-        assert not np.any(ref["grads"]["FusedBottleneckBlock_0.conv1_kernel"])
-    if norm3 == "random" and variant == "fused":
-        assert np.any(ref["grads"]["FusedBottleneckBlock_0.conv1_kernel"])
+    branch = {"fused": "FusedBottleneckBlock_0.conv1_kernel",
+              "fused3": "FusedBottleneckBlock_0.conv2_kernel",
+              "nf": "NFBottleneckBlock_0.conv2.kernel"}.get(variant)
+    if branch is not None:  # the residual branch's gradient: zero or not
+        assert np.any(ref["grads"][branch]) == (norm3 == "random")
     with torch.no_grad():
         evals = task.forward(model, batch, train=False)
     _close(evals.numpy(), ref["eval_logits"], 1e-4, "eval logits")
@@ -350,16 +390,19 @@ def test_small_resnet_matches_jax(variant, norm3, jax_fused, jax_bn):
                                    atol=1e-5, err_msg=name)
 
 
-def test_fused_use_kernels_false_matches_the_default_on_cpu(jax_fused):
+@pytest.mark.parametrize("variant", ["fused", "fused3"])
+def test_fused_use_kernels_false_matches_the_default_on_cpu(
+        variant, jax_fused, jax_fused3):
     """``use_kernels=False`` (the plain versions on any device) and the
-    default (the K4 wrappers, which take the plain versions for CPU
-    tensors) give the same logits and gradients on the CPU."""
-    variables = jax_fused["random"]["variables"]
+    default (the K4 and K5 wrappers, which take the plain versions for
+    CPU tensors) give the same logits and gradients on the CPU."""
+    ref = jax_fused if variant == "fused" else jax_fused3
+    variables = ref["random"]["variables"]
     batch = {k: torch.from_numpy(v) for k, v in _batch().items()}
     task = ttrainer.resnet_task()
     grads = []
     for use_kernels in (True, False):
-        model = _port_model("fused", variables, use_kernels=use_kernels)
+        model = _port_model(variant, variables, use_kernels=use_kernels)
         loss, _ = task.loss_and_metrics(task.forward(model, batch), batch)
         loss.backward()
         grads.append({n: p.grad for n, p in model.named_parameters()})
@@ -368,13 +411,23 @@ def test_fused_use_kernels_false_matches_the_default_on_cpu(jax_fused):
 
 
 def test_unported_variants_raise():
-    for variant in ("fused3", "bn_f32", "gn", "none", "nf"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tresnet.ResNet50(norm_variant=variant, device="cpu")
-    with pytest.raises(NotImplementedError, match="s2d_stem"):
-        tresnet.ResNet50(norm_variant="fused", s2d_stem=True, device="cpu")
+    """Every variant of the JAX module is ported: an unknown one raises
+    ``ValueError``, as in JAX, and so does GroupNorm-32 on channels that
+    do not split into 32 groups (flax raises there too)."""
     with pytest.raises(ValueError, match="norm_variant"):
         tresnet.ResNet50(norm_variant="layer", device="cpu")
+    with pytest.raises(ValueError, match="GroupNorm"):
+        tresnet.ResNet(**SMALL, norm_variant="gn", device="cpu")
+
+
+def test_space_to_depth_matches_jax():
+    x = np.random.default_rng(50).normal(size=(2, 6, 4, 3)).astype(
+        np.float32)
+    got = tresnet.space_to_depth(torch.from_numpy(x), 2)
+    np.testing.assert_array_equal(got.numpy(),
+                                  np.asarray(jresnet.space_to_depth(x, 2)))
+    with pytest.raises(ValueError, match="divisible"):
+        tresnet.space_to_depth(torch.zeros(1, 5, 4, 3), 2)
 
 
 def test_resnet50_shapes_and_names_match_flax():
@@ -406,24 +459,29 @@ def test_same_pads_are_xla_same(size, kernel, stride, pads):
 # -- training -----------------------------------------------------------------
 
 
-def test_three_adam_steps_match_jax_trainer(devices):
+@pytest.mark.parametrize("variant", ["fused", "fused3", "nf"])
+def test_three_adam_steps_match_jax_trainer(devices, variant):
+    """The port's ``Trainer`` and ``resnet_task`` against the JAX ones,
+    unchanged for the K5 path (``fused3``) and for a variant without
+    statistics (``nf``: JAX keeps ``batch_stats=None``, the port an empty
+    dict)."""
     from pyspark_tf_gke_tpu.data.pipeline import put_global_batch
     from pyspark_tf_gke_tpu.parallel.mesh import batch_sharding, make_mesh
     from pyspark_tf_gke_tpu.utils.seeding import make_rng
 
     mesh = make_mesh({"dp": 1}, devices[:1])
-    jmodel = jresnet.ResNet(**SMALL, dtype=jnp.float32, norm_variant="fused")
+    jmodel = jresnet.ResNet(**SMALL, dtype=jnp.float32, norm_variant=variant)
     batch = _batch(46)
     jt = jtrainer.Trainer(jmodel, jtrainer.TASKS["resnet"](), mesh,
                           learning_rate=1e-3)
     state = jt.init_state(make_rng(0), batch)
-    model = _port_model("fused", jax.device_get(
-        {"params": state.params, "batch_stats": state.batch_stats}))
+    jstats = state.batch_stats or {}
+    model = _port_model(variant, jax.device_get(
+        {"params": state.params, "batch_stats": jstats}))
     tt = ttrainer.Trainer(model, ttrainer.TASKS["resnet"](),
                           learning_rate=1e-3)
     tstate = tt.init_state()
-    assert set(tstate.batch_stats) == set(_flat(jax.device_get(
-        state.batch_stats)))
+    assert set(tstate.batch_stats) == set(_flat(jax.device_get(jstats)))
     tbatch = {k: torch.from_numpy(v) for k, v in batch.items()}
     jlosses, tlosses = [], []
     for _ in range(3):
@@ -448,18 +506,19 @@ def test_three_adam_steps_match_jax_trainer(devices):
         if name != "bn_init.bias":
             np.testing.assert_allclose(p.detach().numpy(), jparams[name],
                                        atol=1e-5, err_msg=name)
-    for name, want in _flat(jax.device_get(state.batch_stats)).items():
+    for name, want in _flat(jax.device_get(state.batch_stats or {})).items():
         atol = 1e-5 if name.startswith("bn_init") else 1e-3
         np.testing.assert_allclose(tstate.batch_stats[name].numpy(), want,
                                    rtol=1e-5, atol=atol, err_msg=name)
 
 
-def test_checkpoint_round_trips_batch_stats(tmp_path):
+@pytest.mark.parametrize("variant", ["fused", "fused3"])
+def test_checkpoint_round_trips_batch_stats(tmp_path, variant):
     batch = {k: torch.from_numpy(v) for k, v in _batch(47).items()}
 
     def trainer(seed):
         model = tresnet.ResNet(**SMALL, dtype=torch.float32,
-                               norm_variant="fused", device="cpu", seed=seed)
+                               norm_variant=variant, device="cpu", seed=seed)
         return ttrainer.Trainer(model, ttrainer.TASKS["resnet"](),
                                 learning_rate=1e-3)
 
@@ -488,6 +547,33 @@ def test_checkpoint_round_trips_batch_stats(tmp_path):
     bare.batch_stats = None
     with pytest.raises(ValueError, match="batch_stats"):
         ckpt.restore(bare)
+
+
+def test_checkpoint_round_trips_a_model_without_statistics(tmp_path):
+    """``nf`` has no BatchNorm statistics: its training state carries an
+    empty ``batch_stats``, which saves and restores with the rest."""
+    batch = {k: torch.from_numpy(v) for k, v in _batch(47).items()}
+
+    def trainer(seed):
+        model = tresnet.ResNet(**SMALL, dtype=torch.float32,
+                               norm_variant="nf", device="cpu", seed=seed)
+        return ttrainer.Trainer(model, ttrainer.TASKS["resnet"](),
+                                learning_rate=1e-3)
+
+    tt = trainer(0)
+    state = tt.init_state()
+    assert state.batch_stats == {}
+    for _ in range(2):
+        tt.step(state, batch)
+    before = tt.evaluate(state, [batch])
+    ckpt = CheckpointManager(str(tmp_path / "ck"))
+    ckpt.save(state)
+    other = trainer(5)
+    restored = ckpt.restore(other.init_state())
+    assert restored.step == 2 and restored.batch_stats == {}
+    for name, p in state.params.items():
+        assert torch.equal(restored.params[name], p), name
+    assert other.evaluate(restored, [batch]) == before
 
 
 def test_grad_accum_averages_batch_stats_as_jax_does():
