@@ -5,19 +5,25 @@
 
 1. reports the card (``nvidia-smi`` name and power limit, torch/CUDA
    versions, compute capability; 9.0 is required);
-2. builds the hand-written kernels from ``pyspark_tf_gke_tpu_torch/csrc``;
+2. builds the hand-written kernels from ``pyspark_tf_gke_tpu_torch/csrc``
+   and prints ptxas's registers, shared memory and spills; a tensor-core
+   (``wgmma``) kernel that spills fails the run;
 3. holds each kernel against its plain PyTorch version on the card at
-   the main paths' shapes, in bf16 and f32 — the serving kernels, and
-   the training kernels (K2f, K2dq and K2dkv at B=16 S=512 H=12 D=64:
-   causal, causal + segments, and key padding + segments + causal with a
-   fully masked row; K3b at [8192, 768] with and without residual), and
-   the ResNet kernels (K4f, K4dx and K4dw at four of ResNet-50's 1x1-conv
-   shapes and a ragged one; K5f, K5dx and K5dw at the four stride-1 3x3
-   shapes and a ragged one, with and without the transform and the
+   the main paths' shapes, in bf16 and f32 — the serving kernels (K2f
+   also at ragged S = 200 and 77 and on q/k/v views of one [B, S, 3, H,
+   D] tensor), the training kernels (K2f, K2dq and K2dkv at B=16 S=512
+   H=12 D=64: causal, causal + segments, and key padding + segments +
+   causal with a fully masked row; K3b at [8192, 768] with and without
+   residual), and the ResNet kernels (K4f, K4dx and K4dw at four of
+   ResNet-50's 1x1-conv shapes and a ragged one; K5f, K5dx and K5dw at
+   the four stride-1 3x3 shapes, a ragged one and one whose K and N are
+   not multiples of 8, with and without the transform and the
    statistics) — and times kernel, plain version and a library yardstick
-   with CUDA events (K4: on all 16 shapes of a ResNet-50 step, summed
-   over its 36 calls; K5: on the four stage shapes, summed over its 13
-   calls, against cuDNN);
+   with CUDA events (K2f at B=8 S=1024 and B=16 S=512; K4: on all 16
+   shapes of a ResNet-50 step, summed over its 36 calls; K5: on the four
+   stage shapes, summed over its 13 calls, against cuDNN; K2f and K5f
+   and their yardsticks also replayed from a CUDA graph, which takes the
+   host's launch cost out);
 4. serving main path: serves a full-width GPT-small paged bundle
    (random weights from a numpy seed, int8 export) through
    ``BundleServer`` + the HTTP server with 8 continuous slots: 12
@@ -98,10 +104,11 @@ PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}
 
 # Tolerances of kernel vs plain version on the same inputs. f32: both
 # sides compute in f32 and differ by summation order and exp/rsqrt
-# rounding (a few ulps of O(1) values). bf16: the kernels keep scores,
-# probabilities and accumulators in f32 and round once at the output,
-# while the plain versions round the probabilities (and dequantized
-# pages) to bf16 before the P.V product — allow 2 bf16 ulps relative.
+# rounding (a few ulps of O(1) values). bf16: the kernels keep scores
+# and accumulators in f32 and round once at the output (bf16 K2f also
+# rounds its unnormalised P, as the TPU kernel does), while the plain
+# versions round the normalised probabilities (and dequantized pages)
+# to bf16 before the P.V product — allow 2 bf16 ulps relative.
 # Attention outputs average many values and can be small (|out| ~ 0.05
 # in late rows), so bf16 also requires the relative L2 error of the
 # whole tensor to stay under 1e-2 (a few bf16 roundings of ~2e-3 each);
@@ -152,6 +159,28 @@ def cuda_ms(fn, warmup: int = 3, iters: int = 10, reps: int = 5) -> float:
     return statistics.median(times)
 
 
+def graph_ms(fn, calls: int = 10) -> float:
+    """Device time of one call of ``fn``: ``calls`` calls captured in a
+    CUDA graph and replayed, so no host launch cost reaches the device's
+    timeline (``cuda_ms`` of eager calls includes it where the host is
+    slower than a short kernel)."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    ms = cuda_ms(graph.replay, warmup=2, iters=3, reps=5) / calls
+    del graph
+    return ms
+
+
 def bound(nbytes: float, ops: float, dtype_name: str):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_OPS[dtype_name] * 1e3
@@ -175,6 +204,31 @@ def compare(out, ref, dtype_name: str, what: str, tol=None) -> float:
         f"{rel:.2e} (tolerance {tol['rel_l2']}) {'ok' if ok else 'FAIL'}")
     check(ok, f"{what}: kernel disagrees with its plain version")
     return max_err
+
+
+def ptxas_report(build_log: str) -> dict:
+    """``{entry function: {"used": "Used ... registers, ...",
+    "spill_stores": bytes, "spill_loads": bytes}}`` from ``nvcc
+    -Xptxas=-v`` output."""
+    import re
+
+    report, fn = {}, None
+    for line in build_log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            fn = m.group(1)
+            report[fn] = {"used": "", "spill_stores": 0, "spill_loads": 0}
+            continue
+        if fn is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            report[fn]["spill_stores"] = int(m.group(1))
+            report[fn]["spill_loads"] = int(m.group(2))
+        elif "Used " in line:
+            report[fn]["used"] = line.split("Used ", 1)[1].strip()
+    return report
 
 
 # -- phase 3: kernels against their plain versions ----------------------------
@@ -216,9 +270,54 @@ def check_layernorm(torch, dev):
     return rec
 
 
-def check_flash(torch, dev):
+def _flash_record(torch, fa, q, k, v, err, shape):
+    """K2f, its plain version and SDPA timed on causal bf16 q/k/v, with
+    the bound: q/k/v read and out written once plus the f32 lse, and
+    4*D operations per unmasked (query, key) pair."""
     import torch.nn.functional as F
 
+    b, s, h, d = q.shape
+    kern = lambda: fa.flash_attention(q, k, v, causal=True)  # noqa: E731
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        qt, kt, vt, is_causal=True)
+    plain = cuda_ms(lambda: fa.flash_attention_plain(q, k, v, causal=True))
+    nbytes = 4 * q.numel() * q.element_size() + b * h * s * 4
+    ops = 4 * b * h * d * (s * (s + 1) / 2)
+    bms, by = bound(nbytes, ops, "bfloat16")
+    return dict(max_abs_err=err, ms=cuda_ms(kern), plain_ms=plain,
+                bound_ms=bms, bound_by=by, library_ms=cuda_ms(lib),
+                graph_ms=graph_ms(kern), library_graph_ms=graph_ms(lib),
+                shape=shape)
+
+
+def _flash_case(torch, fa, q, k, v, name, what, kv_mask=None, causal=True,
+                segs=None):
+    """K2f against its plain version: out, the finite lse, and rows with
+    no unmasked key 0 with lse +inf. Returns ``(out, lse, max abs err)``."""
+    out, lse = fa.flash_attention_fwd(q, k, v, kv_mask=kv_mask,
+                                      causal=causal, segment_ids=segs)
+    ref, ref_lse = fa.flash_attention_plain(q, k, v, kv_mask=kv_mask,
+                                            causal=causal, segment_ids=segs)
+    err = compare(out, ref, name, what)
+    finite = torch.isfinite(ref_lse)
+    check(bool((torch.isfinite(lse) == finite).all())
+          and bool(torch.isposinf(lse[~finite]).all()),
+          f"{what}: lse masked rows disagree")
+    empty = ~finite.transpose(1, 2)  # [B, S, H]
+    check(bool((out[empty] == 0).all()), f"{what}: an empty row is not 0")
+    compare(lse[finite], ref_lse[finite], "float32", f"{what} lse")
+    return out, lse, err
+
+
+def check_flash(torch, dev):
+    """K2f against its plain version in bf16 (the tensor-core kernel) and
+    f32 (the CUDA-core one): causal at B=8 S=128 and S=1024; key padding
+    + segments + causal with a fully masked batch row; ragged S=200
+    (causal) and S=77 (segments, with and without causal and key
+    padding), which no tile divides; q/k/v as strided views of one [B, S,
+    3, H, D] tensor. Then timed (bf16) at B=8 S=1024 and at the LM
+    training shape B=16 S=512."""
     from pyspark_tf_gke_tpu_torch.ops import flash_attention as fa
 
     g = torch.Generator(device=dev).manual_seed(1)
@@ -233,18 +332,8 @@ def check_flash(torch, dev):
             err = compare(out, ref, name,
                           f"flash causal {name} B=8 S={s} H=12 D=64")
             if dtype == torch.bfloat16 and s == 1024:
-                ms = cuda_ms(lambda: fa.flash_attention(q, k, v, causal=True))
-                plain = cuda_ms(lambda: fa.flash_attention_plain(
-                    q, k, v, causal=True))
-                qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-                lib = cuda_ms(lambda: F.scaled_dot_product_attention(
-                    qt, kt, vt, is_causal=True))
-                nbytes = 4 * q.numel() * q.element_size() + 8 * 12 * s * 4
-                ops = 4 * 8 * 12 * 64 * (s * (s + 1) / 2)
-                bms, by = bound(nbytes, ops, name)
-                rec = dict(max_abs_err=err, ms=ms, plain_ms=plain,
-                           bound_ms=bms, bound_by=by, library_ms=lib,
-                           shape="B=8 S=1024 H=12 D=64 causal bf16")
+                rec = _flash_record(torch, fa, q, k, v, err,
+                                    "B=8 S=1024 H=12 D=64 causal bf16")
         # key padding + segments, with one fully masked row, and the lse
         q, k, v = (torch.randn(2, 256, 12, 64, generator=g, device=dev
                                ).to(dtype) for _ in range(3))
@@ -252,19 +341,50 @@ def check_flash(torch, dev):
         kv_mask[1] = False  # batch row 1: no key at all
         segs = (torch.arange(256, device=dev) // 48).to(torch.int32)
         segs = segs[None].repeat(2, 1).contiguous()
-        out, lse = fa.flash_attention_fwd(q, k, v, kv_mask=kv_mask,
-                                          causal=True, segment_ids=segs)
-        ref, ref_lse = fa.flash_attention_plain(q, k, v, kv_mask=kv_mask,
-                                                causal=True, segment_ids=segs)
-        compare(out, ref, name, f"flash kv_mask+segments {name} B=2 S=256")
+        out, lse, _ = _flash_case(torch, fa, q, k, v, name,
+                                  f"flash kv_mask+segments {name} B=2 S=256",
+                                  kv_mask=kv_mask, segs=segs)
         check(bool((out[1] == 0).all()), "fully masked row is not zero")
         check(bool(torch.isposinf(lse[1]).all()),
               "fully masked row lse is not +inf")
-        finite = torch.isfinite(ref_lse)
-        check(bool((torch.isfinite(lse) == finite).all()),
-              "lse masked rows disagree")
-        compare(lse[finite], ref_lse[finite], "float32",
-                f"flash lse {name}")
+        # ragged lengths: S = 200 causal; S = 77 with segments
+        q, k, v = (torch.randn(2, 200, 12, 64, generator=g, device=dev
+                               ).to(dtype) for _ in range(3))
+        _flash_case(torch, fa, q, k, v, name,
+                    f"flash causal {name} B=2 S=200 (ragged)")
+        q, k, v = (torch.randn(3, 77, 12, 64, generator=g, device=dev
+                               ).to(dtype) for _ in range(3))
+        segs = (torch.arange(77, device=dev) // 20).to(torch.int32)
+        segs = segs[None].repeat(3, 1).contiguous()
+        kv_mask = torch.rand(3, 77, generator=g, device=dev) > 0.3
+        kv_mask[2, :25] = False  # segment 0 of batch row 2: no key
+        _flash_case(torch, fa, q, k, v, name,
+                    f"flash segments {name} B=3 S=77 (ragged)",
+                    causal=False, segs=segs)
+        _flash_case(torch, fa, q, k, v, name,
+                    f"flash kv_mask+segments+causal {name} B=3 S=77 "
+                    "(ragged, empty rows)", kv_mask=kv_mask, segs=segs)
+        # q, k, v as strided views of one fused projection [B, S, 3, H, D]
+        qkv = torch.randn(2, 300, 3, 12, 64, generator=g, device=dev
+                          ).to(dtype)
+        q, k, v = qkv.unbind(2)
+        check(not q.is_contiguous() and q.stride(-1) == 1,
+              "the strided case is not strided")
+        _flash_case(torch, fa, q, k, v, name,
+                    f"flash causal {name} B=2 S=300, q/k/v views of [B, S, "
+                    "3, H, D]")
+    # the LM training shape (12 launches a step)
+    q, k, v = (torch.randn(16, 512, 12, 64, generator=g, device=dev
+                           ).to(torch.bfloat16) for _ in range(3))
+    _, _, err = _flash_case(torch, fa, q, k, v, "bfloat16",
+                            "flash causal bfloat16 B=16 S=512 H=12 D=64")
+    rec["train_shape"] = _flash_record(
+        torch, fa, q, k, v, err, "B=16 S=512 H=12 D=64 causal bf16")
+    for r in (rec, rec["train_shape"]):
+        log(f"  K2f bf16 {r['shape']}: kernel {r['ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.4f}, SDPA {r['library_ms']:.4f}, bound "
+            f"{r['bound_ms']:.4f} ({r['bound_by']}); graph-replayed: "
+            f"kernel {r['graph_ms']:.4f}, SDPA {r['library_graph_ms']:.4f}")
     return rec
 
 
@@ -503,6 +623,8 @@ def check_fused_matmul(torch, dev):
 
     totals = {key: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
                         ops_ms=0.0, bytes_ms=0.0) for key in errs}
+    # K5f (the tensor-core kernel) and cuDNN also graph-replayed
+    graphed = dict(graph_ms=0.0, library_graph_ms=0.0)
     for m, k, n, transform, count in RESNET50_K4_SHAPES:
         x, w, dy, a, b = _k4_inputs(torch, dev, g, m, k, n, torch.bfloat16,
                                     transform)
@@ -574,10 +696,12 @@ RESNET50_K5_SHAPES = ((64, 56, 56, 64, 3), (64, 28, 28, 128, 3),
 # the shapes held against the plain versions (bf16 and f32): the four
 # stages, with and without the transform, and a ragged one (H, W not
 # multiples of anything, K and N not multiples of the 16 / 64 tiles,
-# tiles of 128 pixels crossing rows and images) in all three modes
+# tiles of 128 pixels crossing rows and images) in all three modes, and
+# one whose K and N are not multiples of 8 (bf16 K5f's masked edge path)
 K5_CHECK_SHAPES = tuple((b, h, w, k, k, t) for b, h, w, k, _ in
                         RESNET50_K5_SHAPES for t in ("relu", None)) + tuple(
-    (3, 9, 5, 48, 80, t) for t in ("relu", "affine", None))
+    (3, 9, 5, 48, 80, t) for t in ("relu", "affine", None)) + (
+    (2, 6, 7, 12, 20, "relu"),)
 
 
 def _k5_tol(ref, dtype_name: str, over_m: bool = False):
@@ -652,6 +776,8 @@ def check_fused_conv3(torch, dev):
 
     totals = {key: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
                         ops_ms=0.0, bytes_ms=0.0) for key in errs}
+    # K5f (the tensor-core kernel) and cuDNN also graph-replayed
+    graphed = dict(graph_ms=0.0, library_graph_ms=0.0)
     for b, h, w, k, count in RESNET50_K5_SHAPES:
         n = k
         x, wt, dy, a, bb = _k5_inputs(torch, dev, g, b, h, w, k, n,
@@ -700,6 +826,11 @@ def check_fused_conv3(torch, dev):
             tot["bytes_ms"] += count * nbytes / HBM_BYTES_PER_S * 1e3
             tot["ops_ms"] += count * ops / PEAK_OPS["bfloat16"] * 1e3
             line.append(f"{key[12:]} {ms:.4f}/{pms:.4f}/{lms:.4f}/{bms:.4f}")
+            if key == "fused_conv3_fwd":
+                gms, glms = graph_ms(kern, 5), graph_ms(lib, 5)
+                graphed["graph_ms"] += count * gms
+                graphed["library_graph_ms"] += count * glms
+                line.append(f"fwd graph-replayed {gms:.4f}/{glms:.4f}")
         log(f"  k5 bf16 x=[{b},{h},{w},{k}] N={n} relu x{count} "
             f"(kernel/plain/cudnn/bound ms): {', '.join(line)}")
         del x, wt, dy, xn, xn_c, x_c, dy_c, w_c
@@ -713,6 +844,7 @@ def check_fused_conv3(torch, dev):
                       else "operations"),
             shape="the 13 calls of one ResNet-50 step, batch 64, bf16 "
                   "(summed)")
+    recs["fused_conv3_fwd"].update(graphed)
     return recs
 
 
@@ -1633,33 +1765,37 @@ def check_resnet_variants(torch, dev, k5_counters):
 # -- main ---------------------------------------------------------------------
 
 
+# the records' keys beyond the contract's that the kernels line carries
+EXTRA_KEYS = ("graph_ms", "library_graph_ms", "train_shape")
+# (name, source, the TPU kernel it replaces, design of its bf16
+# instantiation: "wgmma" on the tensor cores, "simt" on the CUDA cores)
 KERNELS = (
     ("layernorm", "pyspark_tf_gke_tpu_torch/csrc/layernorm.cu",
-     "pyspark_tf_gke_tpu/ops/pallas/layernorm.py:37"),
+     "pyspark_tf_gke_tpu/ops/pallas/layernorm.py:37", "simt"),
     ("layernorm_bwd", "pyspark_tf_gke_tpu_torch/csrc/layernorm_bwd.cu",
-     "pyspark_tf_gke_tpu/ops/pallas/layernorm.py:98"),
+     "pyspark_tf_gke_tpu/ops/pallas/layernorm.py:98", "simt"),
     ("flash_attention_fwd", "pyspark_tf_gke_tpu_torch/csrc/flash_attention.cu",
-     "pyspark_tf_gke_tpu/ops/pallas/flash_attention.py:49"),
+     "pyspark_tf_gke_tpu/ops/pallas/flash_attention.py:49", "wgmma"),
     ("flash_attention_dq",
      "pyspark_tf_gke_tpu_torch/csrc/flash_attention_bwd.cu",
-     "pyspark_tf_gke_tpu/ops/pallas/flash_attention.py:162"),
+     "pyspark_tf_gke_tpu/ops/pallas/flash_attention.py:162", "simt"),
     ("flash_attention_dkv",
      "pyspark_tf_gke_tpu_torch/csrc/flash_attention_bwd.cu",
-     "pyspark_tf_gke_tpu/ops/pallas/flash_attention.py:215"),
+     "pyspark_tf_gke_tpu/ops/pallas/flash_attention.py:215", "simt"),
     ("paged_attention", "pyspark_tf_gke_tpu_torch/csrc/paged_attention.cu",
-     "pyspark_tf_gke_tpu/ops/pallas/paged_attention.py:124"),
+     "pyspark_tf_gke_tpu/ops/pallas/paged_attention.py:124", "simt"),
     ("fused_matmul_fwd", "pyspark_tf_gke_tpu_torch/csrc/fused_matmul.cu",
-     "pyspark_tf_gke_tpu/ops/pallas/fused_matmul.py:91"),
+     "pyspark_tf_gke_tpu/ops/pallas/fused_matmul.py:91", "simt"),
     ("fused_matmul_dx", "pyspark_tf_gke_tpu_torch/csrc/fused_matmul.cu",
-     "pyspark_tf_gke_tpu/ops/pallas/fused_matmul.py:178"),
+     "pyspark_tf_gke_tpu/ops/pallas/fused_matmul.py:178", "simt"),
     ("fused_matmul_dw", "pyspark_tf_gke_tpu_torch/csrc/fused_matmul.cu",
-     "pyspark_tf_gke_tpu/ops/pallas/fused_matmul.py:246"),
+     "pyspark_tf_gke_tpu/ops/pallas/fused_matmul.py:246", "simt"),
     ("fused_conv3_fwd", "pyspark_tf_gke_tpu_torch/csrc/fused_conv3.cu",
-     "pyspark_tf_gke_tpu/ops/pallas/fused_conv3.py:55"),
+     "pyspark_tf_gke_tpu/ops/pallas/fused_conv3.py:55", "wgmma"),
     ("fused_conv3_dx", "pyspark_tf_gke_tpu_torch/csrc/fused_conv3.cu",
-     "pyspark_tf_gke_tpu/ops/pallas/fused_conv3.py:116"),
+     "pyspark_tf_gke_tpu/ops/pallas/fused_conv3.py:116", "simt"),
     ("fused_conv3_dw", "pyspark_tf_gke_tpu_torch/csrc/fused_conv3.cu",
-     "pyspark_tf_gke_tpu/ops/pallas/fused_conv3.py:179"),
+     "pyspark_tf_gke_tpu/ops/pallas/fused_conv3.py:179", "simt"),
 )
 
 
@@ -1705,6 +1841,16 @@ def main() -> int:
         if "Compiling entry function" in line or "Used " in line \
                 or "spill" in line:
             log(f"  ptxas: {line.strip()[:150]}")
+    for fn, info in ptxas_report(kernels.build_log).items():
+        if "wgmma" in fn:  # the tensor-core kernels: none may spill
+            log(f"  ptxas wgmma {fn[:90]}: {info['used']}; spill stores "
+                f"{info['spill_stores']} B, spill loads "
+                f"{info['spill_loads']} B")
+            check(info["spill_stores"] == 0 and info["spill_loads"] == 0,
+                  f"{fn} spills registers")
+    for line in kernels.build_log.splitlines():
+        if "warning" in line and "wgmma" in line:
+            log(f"  ptxas: {line.strip()[:200]}")
 
     log("== 3. kernels vs plain versions")
     records = {"layernorm": check_layernorm(torch, dev),
@@ -1796,7 +1942,7 @@ def main() -> int:
     check_resnet_variants(torch, dev, k5_counters)
 
     out = []
-    for name, source, replaces in KERNELS:
+    for name, source, replaces, design in KERNELS:
         rec = records[name]
         per_path = {"serve": serve_launches.get(name, 0),
                     "lm_train": train_launches.get(name, 0),
@@ -1808,12 +1954,14 @@ def main() -> int:
                     or per_path["resnet_train"] or per_path["lm_train"]
                     or per_path["serve"])
         out.append({"name": name, "route": "cuda", "source": source,
-                    "replaces": replaces, "launches": launches,
+                    "replaces": replaces, "design": design,
+                    "launches": launches,
                     "launches_per_path": per_path,
                     "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
                     "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
                     "bound_by": rec["bound_by"],
-                    "library_ms": rec["library_ms"]})
+                    "library_ms": rec["library_ms"],
+                    **{key: rec[key] for key in EXTRA_KEYS if key in rec}})
     log(json.dumps({"kernels": out}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

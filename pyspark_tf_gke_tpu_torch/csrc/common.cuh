@@ -1,7 +1,8 @@
 // Shared helpers for the port's Hopper kernels: dtype codes (kept in
 // step with ops/kernels.py DTYPE_CODES), conversions to and from f32,
-// and warp reductions. Every kernel computes in f32 and stores in the
-// caller's dtype.
+// and warp reductions. Every kernel accumulates in f32 and stores in the
+// caller's dtype; the bf16 tensor-core kernels (wgmma.cuh) multiply bf16
+// operands, the others compute in f32.
 #pragma once
 
 #include <cuda_bf16.h>

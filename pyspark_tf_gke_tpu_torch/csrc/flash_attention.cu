@@ -5,24 +5,45 @@
 // Replaces pyspark_tf_gke_tpu/ops/pallas/flash_attention.py::_fwd_kernel
 // (:49), launched from _flash_fwd_bh (:146).
 //
-// Bound on the H100: at the serving shapes (S <= 1024, D = 64) the
-// causal forward does 4*S*S/2*D operations per (batch, head) against
-// 4*S*D*2 bytes of q/k/v/out, so bf16 work on the tensor cores would be
-// close to the memory bound; this first kernel computes on the f32
-// units instead and is bound by them. Design: one CTA per (b*h, 64-row
-// query block) and one thread per query row. Each thread keeps its
-// query row and f32 accumulator in registers; K/V tiles of 64 keys are
-// staged in shared memory as f32 and read by every thread at the same
-// address (a broadcast, no bank conflicts). The online softmax
-// (running max m, normaliser l) updates once per 16 keys. Causal
-// blocks stop at the block's last query row, so key tiles wholly in
-// the future are never loaded. The kernel reads [B, S, H, D] through
-// strides, so no transposed copy of q/k/v is made (the TPU version
-// transposes to [B*H, S, D]). S need not be a multiple of the tile:
-// query rows and keys past S are masked. Tensor cores (wgmma), TMA and
-// a pipelined K/V ring are later work.
+// Bound on the H100: the causal forward does 4*S*S/2*D operations per
+// (batch, head) against 4*S*D*2 bytes of q/k/v/out; at B=8 S=1024 H=12
+// D=64 that is 0.0151 ms of bytes against 0.0130 ms of bf16 tensor-core
+// operations, so the kernel is bound by bytes, and by the rate it can
+// feed the tensor cores from shared memory once the bytes are in.
+//
+// The port's entry point chooses the design by dtype and nothing else:
+//
+// bf16 (flash_fwd_wgmma, the tensor-core design): a CTA owns 128 query
+// rows of one (b, h) on two warpgroups of 64 rows. Q is loaded once and
+// 64-key K/V tiles stream through a 2-stage shared-memory ring, all by
+// TMA from 4-D tensor maps over the strided [B, S, H, D] views (no
+// transposed copy; rows past S arrive as zeros), each stage guarded by
+// an mbarrier. S = Q K^T is four wgmma k16 steps from shared memory
+// (bf16 operands, f32 accumulators); the scale, the kv bias, the segment
+// and causal masks are applied to the accumulator fragments (the causal
+// compare on diagonal tiles only; key tiles wholly in a warpgroup's
+// future are skipped; the tile's bias and segment ids are staged in
+// shared memory); the row max and sum use the quad shuffles of the
+// fragment. The rounding points are the TPU kernel's: l sums the
+// unrounded f32 P (:93-95), P is rounded to bf16 in registers (:97) and
+// O += P V is a wgmma with A from registers and V read through the
+// transpose bit (V is key-major, head_dim contiguous); the f32
+// accumulator is divided by l once at the end, rows with no unmasked key
+// give 0 and lse +inf (:108-114). Causal CTAs start with the last query
+// block (the longest) so the tail of the grid is short. Warp
+// specialisation, persistent CTAs and pingpong scheduling are later
+// work; each tile's two products wait for each other here.
+//
+// f32 (flash_fwd_kernel, the first, CUDA-core design, kept as the f32
+// reference that the model-parity gates stand on): one CTA per (b*h,
+// 64-row query block) and one thread per query row on the CUDA cores;
+// K/V tiles of 64 keys staged in shared memory as f32; P stays f32 for
+// P V.
+
+#include <dlfcn.h>
 
 #include "common.cuh"
+#include "wgmma.cuh"
 
 using namespace port;
 
@@ -143,10 +164,281 @@ void launch(const void* q, const void* k, const void* v, const void* kv_mask,
       st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], causal, scale);
 }
 
+// -- bf16: the tensor-core design ---------------------------------------------
+
+namespace wg {
+
+using namespace port::hopper;
+
+constexpr int kBQ = 128;    // query rows per CTA: two warpgroups of 64
+constexpr int kBKV = 64;    // keys per K/V tile
+constexpr int kStages = 2;  // K/V ring depth
+constexpr int kThreads = 256;
+constexpr int kRowBytes = 128;  // 64 bf16 of head_dim: one swizzle row
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr int kQBytes = kBQ * kRowBytes;
+constexpr int kTileBytes = kBKV * kRowBytes;
+constexpr int kStageBytes = 2 * kTileBytes;  // K then V
+constexpr int kBarOffset = kQBytes + kStages * kStageBytes;
+// 1024 of slack to align the swizzled tiles, the tiles, the stage and Q
+// barriers, then each stage's kv bias (f32) and segment ids
+constexpr int kSmem = 1024 + kBarOffset + 8 * (kStages + 1) + 2 * kStages * kBKV * 4;
+
+__global__ void __launch_bounds__(kThreads)
+flash_fwd_wgmma(__grid_constant__ const CUtensorMap tq, __grid_constant__ const CUtensorMap tk,
+                __grid_constant__ const CUtensorMap tv, const uint8_t* __restrict__ kv_mask,
+                const int* __restrict__ segs, __nv_bfloat16* __restrict__ out,
+                float* __restrict__ lse, int S, int H, int causal, float scale) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* q_s = smem;
+  uint8_t* kv_s = smem + kQBytes;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + kBarOffset);  // stages, then Q
+  float* bias_s = reinterpret_cast<float*>(bars + kStages + 1);      // [kStages][kBKV]
+  int* seg_s = reinterpret_cast<int*>(bias_s + kStages * kBKV);      // [kStages][kBKV]
+
+  const int t = threadIdx.x, g = t >> 7, warp = (t >> 5) & 3, lane = t & 31;
+  // causal: the last query block (the most keys) first
+  const int q0 = (causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x) * kBQ;
+  const int b = blockIdx.y / H, h = blockIdx.y % H;
+  const int wg_row0 = q0 + 64 * g;                       // the warpgroup's first row
+  const int row_a = wg_row0 + 16 * warp + (lane >> 2);  // the thread's two rows
+  const int row_b = row_a + 8;
+  const int k_end = causal ? min(q0 + kBQ, S) : S;
+  const int ntiles = (k_end + kBKV - 1) / kBKV;
+  const bool masks = kv_mask != nullptr || segs != nullptr;
+  const long long brow = static_cast<long long>(b) * S;
+
+  auto load_kv = [&](int tile, int st) {  // one thread
+    mbar_arrive_expect_tx(&bars[st], kStageBytes);
+    tma_load_4d(kv_s + st * kStageBytes, &tk, &bars[st], 0, h, tile * kBKV, b);
+    tma_load_4d(kv_s + st * kStageBytes + kTileBytes, &tv, &bars[st], 0, h, tile * kBKV, b);
+  };
+  auto stage_masks = [&](int tile, int st) {  // threads 0..kBKV-1
+    const int key = tile * kBKV + t;
+    const bool in = key < S;
+    bias_s[st * kBKV + t] = (in && kv_mask != nullptr && !kv_mask[brow + key]) ? kNegInf : 0.f;
+    seg_s[st * kBKV + t] = (in && segs != nullptr) ? segs[brow + key] : 0;
+  };
+
+  if (t == 0) {
+    for (int st = 0; st <= kStages; ++st) mbar_init(&bars[st], 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+  if (t == 0) {
+    mbar_arrive_expect_tx(&bars[kStages], kQBytes);
+    tma_load_4d(q_s, &tq, &bars[kStages], 0, h, q0, b);
+    for (int i = 0; i < kStages && i < ntiles; ++i) load_kv(i, i);
+  }
+  if (masks && t < kBKV) stage_masks(0, 0);
+  const int seg_a = (segs != nullptr && row_a < S) ? segs[brow + row_a] : 0;
+  const int seg_b = (segs != nullptr && row_b < S) ? segs[brow + row_b] : 0;
+  __syncthreads();
+
+  float o[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) o[i] = 0.f;
+  float m_a = kNegInf, m_b = kNegInf, l_a = 0.f, l_b = 0.f;  // l: this thread's columns
+  const uint32_t q_addr = smem_u32(q_s) + g * 64 * kRowBytes;
+  mbar_wait(&bars[kStages], 0);
+
+  for (int it = 0; it < ntiles; ++it) {
+    const int st = it % kStages;
+    const int k0 = it * kBKV;
+    mbar_wait(&bars[st], (it / kStages) & 1);
+    // a tile wholly in the future of every row of the warpgroup is skipped
+    if (!causal || k0 <= wg_row0 + 63) {
+      const uint32_t k_addr = smem_u32(kv_s + st * kStageBytes);
+      const uint32_t v_addr = k_addr + kTileBytes;
+      float s[32];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) s[i] = 0.f;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_m64n64k16_ss<0>(s, desc_kmajor(q_addr + kk * 32), desc_kmajor(k_addr + kk * 32), kk);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_operand(s);
+
+      // scale, kv bias, then the segment and causal masks replace the
+      // score (the TPU kernel's order); keys past S take no part. Each
+      // mask runs only on the tiles that need it.
+      const int kq = 2 * (lane & 3);  // the thread's first column in each 8
+#pragma unroll
+      for (int i = 0; i < 32; ++i) s[i] *= scale;
+      if (masks) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int kc = j * 8 + kq + (e & 1);
+            float v = s[j * 4 + e] + bias_s[st * kBKV + kc];
+            if (segs != nullptr && seg_s[st * kBKV + kc] != (e < 2 ? seg_a : seg_b)) v = kNegInf;
+            s[j * 4 + e] = v;
+          }
+        }
+      }
+      if (causal && k0 + kBKV - 1 > wg_row0) {  // a diagonal tile
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            if (k0 + j * 8 + kq + (e & 1) > (e < 2 ? row_a : row_b)) s[j * 4 + e] = kNegInf;
+          }
+        }
+      }
+      if (k0 + kBKV > S) {  // the last tile of a ragged S
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            if (k0 + j * 8 + kq + (e & 1) >= S) s[j * 4 + e] = -INFINITY;
+          }
+        }
+      }
+      float mx_a = m_a, mx_b = m_b;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        mx_a = fmaxf(mx_a, fmaxf(s[j * 4 + 0], s[j * 4 + 1]));
+        mx_b = fmaxf(mx_b, fmaxf(s[j * 4 + 2], s[j * 4 + 3]));
+      }
+      // the four threads of a quad hold one row's 64 columns
+      mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, 1));
+      mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, 2));
+      mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, 1));
+      mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, 2));
+      // exp(v - m) as exp2((v - m) * log2 e): one multiply and MUFU.EX2
+      const float alpha_a = exp2f((m_a - mx_a) * kLog2e), alpha_b = exp2f((m_b - mx_b) * kLog2e);
+      m_a = mx_a;
+      m_b = mx_b;
+      uint32_t p[4][4];  // bf16 P as the A fragments of the four k16 steps
+      float sum_a = 0.f, sum_b = 0.f;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float pa0 = exp2f((s[j * 4 + 0] - m_a) * kLog2e);
+        const float pa1 = exp2f((s[j * 4 + 1] - m_a) * kLog2e);
+        const float pb0 = exp2f((s[j * 4 + 2] - m_b) * kLog2e);
+        const float pb1 = exp2f((s[j * 4 + 3] - m_b) * kLog2e);
+        sum_a += pa0 + pa1;  // l sums the unrounded P
+        sum_b += pb0 + pb1;
+        p[j / 2][(j % 2) * 2 + 0] = pack_bf16(pa0, pa1);
+        p[j / 2][(j % 2) * 2 + 1] = pack_bf16(pb0, pb1);
+      }
+      l_a = l_a * alpha_a + sum_a;
+      l_b = l_b * alpha_b + sum_b;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        o[j * 4 + 0] *= alpha_a;
+        o[j * 4 + 1] *= alpha_a;
+        o[j * 4 + 2] *= alpha_b;
+        o[j * 4 + 3] *= alpha_b;
+      }
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_m64n64k16_rs<1>(o, p[kk], desc_mnmajor(v_addr + kk * 16 * kRowBytes), 1);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_operand(o);
+    }
+    if (masks && it + 1 < ntiles && t < kBKV) stage_masks(it + 1, (it + 1) % kStages);
+    __syncthreads();  // stage st is free for the tile kStages on
+    if (t == 0 && it + kStages < ntiles) load_kv(it + kStages, st);
+  }
+
+  l_a += __shfl_xor_sync(0xffffffffu, l_a, 1);
+  l_a += __shfl_xor_sync(0xffffffffu, l_a, 2);
+  l_b += __shfl_xor_sync(0xffffffffu, l_b, 1);
+  l_b += __shfl_xor_sync(0xffffffffu, l_b, 2);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = r == 0 ? row_a : row_b;
+    if (row >= S) continue;
+    const float m = r == 0 ? m_a : m_b;
+    const float l = r == 0 ? l_a : l_b;
+    const bool valid = m > kNegInf * 0.5f;  // at least one unmasked key
+    const float denom = (l == 0.f) ? 1.f : l;
+    __nv_bfloat16* orow = out + ((brow + row) * H + h) * 64;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float v0 = valid ? o[j * 4 + 2 * r] / denom : 0.f;
+      const float v1 = valid ? o[j * 4 + 2 * r + 1] / denom : 0.f;
+      *reinterpret_cast<__nv_bfloat162*>(orow + j * 8 + 2 * (lane & 3)) =
+          __floats2bfloat162_rn(v0, v1);
+    }
+    if ((lane & 3) == 0)
+      lse[(static_cast<long long>(b) * H + h) * S + row] = valid ? m + logf(denom) : INFINITY;
+  }
+}
+
+// cuTensorMapEncodeTiled from libcuda, which the process has loaded (the
+// CUDA runtime linked into this library has no tensor-map call)
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encoder() {
+  static const EncodeTiled fn = [] {
+    void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_LOCAL);
+    return lib ? reinterpret_cast<EncodeTiled>(dlsym(lib, "cuTensorMapEncodeTiled")) : nullptr;
+  }();
+  return fn;
+}
+
+// A 4-D map over the [B, S, H, 64] bf16 view with element strides (sb,
+// ss, sh, 1), dimensions innermost first as (head_dim, head, seq,
+// batch), boxes of `rows` positions of one (batch, head), 128-byte
+// swizzle, zeros past S. The stride of a size-1 dimension is never
+// followed and is replaced by a valid one.
+bool tensor_map(EncodeTiled encode, CUtensorMap* map, const void* base, int B, int S, int H,
+                long long sb, long long ss, long long sh, int rows) {
+  const cuuint64_t st_h = static_cast<cuuint64_t>(H > 1 ? sh : 64) * 2;
+  const cuuint64_t st_s = S > 1 ? static_cast<cuuint64_t>(ss) * 2 : st_h * H;
+  const cuuint64_t st_b = B > 1 ? static_cast<cuuint64_t>(sb) * 2 : st_s * S;
+  const cuuint64_t dims[4] = {64, static_cast<cuuint64_t>(H), static_cast<cuuint64_t>(S),
+                              static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {st_h, st_s, st_b};
+  const cuuint32_t box[4] = {64, 1, static_cast<cuuint32_t>(rows), 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
+                strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+int launch(const void* q, const void* k, const void* v, const void* kv_mask, const void* segs,
+           void* out, void* lse, int B, int S, int H, const long long* st, int causal,
+           float scale, cudaStream_t stream) {
+  const EncodeTiled encode = encoder();
+  if (encode == nullptr) return static_cast<int>(cudaErrorSharedObjectSymbolNotFound);
+  CUtensorMap mq, mk, mv;
+  if (!tensor_map(encode, &mq, q, B, S, H, st[0], st[1], st[2], kBQ) ||
+      !tensor_map(encode, &mk, k, B, S, H, st[3], st[4], st[5], kBKV) ||
+      !tensor_map(encode, &mv, v, B, S, H, st[6], st[7], st[8], kBKV)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_wgmma, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((S + kBQ - 1) / kBQ, B * H);
+  flash_fwd_wgmma<<<grid, kThreads, kSmem, stream>>>(
+      mq, mk, mv, static_cast<const uint8_t*>(kv_mask), static_cast<const int*>(segs),
+      static_cast<__nv_bfloat16*>(out), static_cast<float*>(lse), S, H, causal, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace wg
+
 }  // namespace
 
 // strides: q (batch, seq, head), k (batch, seq, head), v (batch, seq,
-// head), in elements; the head_dim axis must be contiguous.
+// head), in elements; the head_dim axis must be contiguous. bf16 (the
+// tensor-core design, through TMA) also needs 16-byte aligned bases and
+// strides of size>1 dimensions that are multiples of 8 elements, or it
+// returns cudaErrorInvalidValue; f32 runs the CUDA-core design.
 extern "C" int port_flash_attention_fwd(
     const void* q, const void* k, const void* v, const void* kv_mask,
     const void* segs, void* out, void* lse, int B, int S, int H, int D,
@@ -166,7 +458,7 @@ extern "C" int port_flash_attention_fwd(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case kF32: launch<float, 64>(q, k, v, kv_mask, segs, out, lse, B, S, H, st, causal, scale, s); break;
-    case kBF16: launch<__nv_bfloat16, 64>(q, k, v, kv_mask, segs, out, lse, B, S, H, st, causal, scale, s); break;
+    case kBF16: return wg::launch(q, k, v, kv_mask, segs, out, lse, B, S, H, st, causal, scale, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());

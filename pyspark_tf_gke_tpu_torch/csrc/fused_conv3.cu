@@ -28,27 +28,58 @@
 // ResNet-50's stride-1 3x3 convs at batch 64 (15.0 us at 989 TFLOP/s
 // bf16), against 11-51 MB of bytes (stage 4 to stage 1; 15.3 us at 3.35
 // TB/s for stage 1's forward): ~15 us a call, operations and bytes about
-// even at stage 1, operations beyond it. This first version computes the
-// products on the CUDA cores in f32, as K4 does, so it runs at f32 FMA
-// throughput far above that bound; wgmma with TMA loads is later work.
+// even at stage 1, operations beyond it.
 //
-// Design: an implicit GEMM over output pixels on K4's tiled mainloop
-// (tile_gemm.cuh). The TPU kernels keep one whole zero-padded image in
-// VMEM (grid = (B,)); at stage 1 that is 58x58x64 bf16, more than an SM's
-// shared memory, so here a block owns a tile of 128 output pixels x 64
-// channels, which may cross image rows and images. For each of the nine
-// taps the block stages the shifted input pixels of its tile (the
-// transform applied while staging, out-of-image taps set to 0) and that
-// tap's weights, and accumulates; each row's image coordinates are
-// computed once per block. K5f and K5dx write one row of per-channel
-// partials per tile, summed in tile order by colsum_kernel. K5dw owns a
-// K x N tile of one tap and a split of the pixels (grid z = split * 9 +
-// tap): f32 partials [splits, 3, 3, K, N] summed in order and rounded by
-// splitsum_kernel. No atomics: every result is independent of scheduling.
+// K5f's entry point chooses the design by dtype and nothing else.
+//
+// K5f bf16 (wg::k5_fwd_wgmma, the tensor-core design): an implicit GEMM
+// over output pixels on two warpgroups (m64n64 each), a CTA owning 128
+// pixels x 64 output channels where N <= 64 and 64 pixels x 128 channels
+// beyond (ResNet-50's stages 2-4: every A element is transformed once for
+// 128 outputs; stage 4 still gets 196 CTAs). The reduction walks 9 taps x K in steps of 64
+// channels through a 4-stage shared-memory ring, the copies two steps
+// ahead of the products. A (pixels x channels, K-major) and B (w[tap]
+// rows, N contiguous: MN-major, read through the transpose bit) arrive
+// by cp.async into 128-byte swizzled tiles; a tap-shifted pixel off its
+// image (the next row, the next image, past M) or a channel past K is
+// filled with zeros. Each thread then applies the transform in place to
+// the A chunks it copied (bf16 -> f32, x*a then + b each rounded, relu,
+// rounded to bf16), leaving the off-image chunks 0 — the padding comes
+// after the transform, so TMA alone cannot do this — and fences the
+// async proxy before the barrier that hands the stage to wgmma (four
+// m64n64k16 steps, f32 accumulators). Each tap's products accumulate in
+// a fresh wgmma accumulator and the nine tap sums are added in tap order
+// in f32 registers, the structure of the plain version (nine products,
+// summed in order): chained through all 9*K/16 steps, the tensor core's
+// accumulation left 3-10x more y elements a bf16 rounding away from an
+// f64 reference than the plain version does (PERF.md), at no gain
+// in time. Each row's image coordinates are
+// computed once a block. The epilogue rounds y to bf16 once and writes
+// one row of per-channel partials of the rounded y and y^2 per tile
+// (quad shuffles, then the 8 warps in order), summed in tile order by
+// colsum_kernel. K and N not multiples of 8, or unaligned tensors, take
+// a masked edge path of the same kernel that loads element by element.
+//
+// K5f f32, K5dx and K5dw (the first, CUDA-core design, kept for f32 as
+// the reference the model-parity gates stand on): an implicit GEMM on
+// K4's tiled f32 CUDA-core mainloop (tile_gemm.cuh). The TPU kernels keep one whole
+// zero-padded image in VMEM (grid = (B,)); at stage 1 that is 58x58x64
+// bf16, more than an SM's shared memory, so here a block owns a tile of
+// 128 output pixels x 64 channels, which may cross image rows and
+// images. For each of the nine taps the block stages the shifted input
+// pixels of its tile (the transform applied while staging, out-of-image
+// taps set to 0) and that tap's weights, and accumulates; each row's
+// image coordinates are computed once per block. K5f and K5dx write one
+// row of per-channel partials per tile, summed in tile order by
+// colsum_kernel. K5dw owns a K x N tile of one tap and a split of the
+// pixels (grid z = split * 9 + tap): f32 partials [splits, 3, 3, K, N]
+// summed in order and rounded by splitsum_kernel. No atomics: every
+// result is independent of scheduling.
 
 #include <climits>
 
 #include "tile_gemm.cuh"
+#include "wgmma.cuh"
 
 using namespace port;
 using namespace port::tile;
@@ -307,6 +338,323 @@ void fwd_dispatch(int transform, int want_stats, const void* x, const void* w, c
 #undef K5_FWD
 }
 
+// -- K5f, bf16: the tensor-core design ----------------------------------------
+
+namespace wg {
+
+using namespace port::hopper;
+
+// Two CTA tiles on two warpgroups (kept in step with ops/fused_conv3.py
+// K5F_TILES): N <= 64 takes 128 pixels x 64 channels (a warpgroup a
+// 64-pixel half, one B tile); wider N takes 64 pixels x 128 channels (a
+// warpgroup a 64-channel half of B, one A tile), which transforms and
+// reads each A element once for 128 output channels instead of 64.
+constexpr int kBM = 128;     // narrow: N <= 64
+constexpr int kBN = 64;
+constexpr int kWideBM = 64;  // wide: N > 64
+constexpr int kWideBN = 128;
+constexpr int kBK = 64;     // input channels per reduction step: one 128-byte swizzle row
+constexpr int kStages = 4;  // ring depth
+constexpr int kAhead = 2;   // steps whose copies are in flight ahead of the products
+constexpr int kThreads = 256;
+constexpr int kStageBytes = kBM * 128 + kBK * kBN * 2;  // A + B, the same for both tiles
+static_assert(kStageBytes == kWideBM * 128 + kBK * kWideBN * 2, "tile bytes");
+constexpr int kRedOffset = kStages * kStageBytes;
+// 1024 of slack to align the swizzled tiles, the ring, then the
+// statistics' per-warp column sums [2][8 warps][64]
+constexpr int kSmem = 1024 + kRedOffset + 2 * 8 * 64 * 4;
+
+static_assert(kStages >= kAhead + 2, "a stage is refilled only after its products finished");
+
+// kVec: K and N are multiples of 8 and x, w, y (a, b) 16-byte aligned, so that
+// every 16-byte chunk of a row is wholly in or out and moves by cp.async;
+// else the masked edge path loads element by element.
+template <bool kWide, bool kTransform, bool kRelu, bool kStats, bool kVec>
+__global__ void __launch_bounds__(kThreads)
+k5_fwd_wgmma(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ w,
+             const float* __restrict__ a, const float* __restrict__ b,
+             __nv_bfloat16* __restrict__ y, float* __restrict__ part, int m, int h, int wd,
+             int kdim, int n) {
+  constexpr int BM = kWide ? kWideBM : kBM, BN = kWide ? kWideBN : kBN;
+  constexpr int kARows = BM / 32;        // A rows a thread copies
+  constexpr int kBChunks = BN / 32;      // B chunks a thread copies (64 k rows x BN/8)
+  constexpr int kABytes = BM * 128;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  float* red = reinterpret_cast<float*>(smem + kRedOffset);
+
+  const int t = threadIdx.x, g = t >> 7, warp = t >> 5, lane = t & 31;
+  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
+  // copy assignment: A rows ar + 32i and B rows ar + 32(i%2) of 64-column
+  // atom i/2, each at the 16-byte chunk ac (8 channels)
+  const int ar = t >> 3, ac = t & 7;
+  // image coordinates of the thread's A rows, once a block; kFar past m,
+  // so that every tap of such a row falls outside the image
+  int ri[kARows], rj[kARows];
+#pragma unroll
+  for (int i = 0; i < kARows; ++i) {
+    const int p = m0 + ar + 32 * i;
+    const int q = p % (h * wd);
+    ri[i] = p < m ? q / wd : kFar;
+    rj[i] = p < m ? q % wd : kFar;
+  }
+  const int kchunks = (kdim + kBK - 1) / kBK;
+  const int nsteps = kTaps * kchunks;
+
+  auto in_image = [&](int i, int di, int dj) {
+    const int ii = ri[i] + di, jj = rj[i] + dj;
+    return ii >= 0 && ii < h && jj >= 0 && jj < wd;
+  };
+  // step s = (tap, 64-channel chunk): raw x at the tap-shifted pixels
+  // into A (zeros off the image), w[tap] rows into B (zeros past K, N)
+  auto copy_step = [&](int s) {
+    const int tap = s / kchunks, k0 = (s % kchunks) * kBK;
+    const int di = tap / 3 - 1, dj = tap % 3 - 1;
+    uint8_t* A = smem + (s % kStages) * kStageBytes;
+    uint8_t* B = A + kABytes;
+    const int c = k0 + ac * 8;
+#pragma unroll
+    for (int i = 0; i < kARows; ++i) {
+      const int row = ar + 32 * i;
+      const bool ok = c < kdim && in_image(i, di, dj);
+      const __nv_bfloat16* src = x + (static_cast<long long>(m0 + row) + di * wd + dj) * kdim + c;
+      if (kVec) {
+        cp_async16(smem_u32(A) + sw128(row, ac), ok ? src : x, ok ? 16 : 0);
+      } else {
+        __align__(16) __nv_bfloat16 v[8];
+#pragma unroll
+        for (int e = 0; e < 8; ++e) v[e] = (ok && c + e < kdim) ? src[e] : __float2bfloat16(0.f);
+        *reinterpret_cast<uint4*>(A + sw128(row, ac)) = *reinterpret_cast<const uint4*>(v);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kBChunks; ++i) {
+      const int kr = ar + 32 * (i % 2), atom = i / 2;
+      const int col = n0 + atom * 64 + ac * 8;
+      const bool ok = k0 + kr < kdim && col < n;
+      const __nv_bfloat16* src = w + (static_cast<long long>(tap) * kdim + k0 + kr) * n + col;
+      uint8_t* dst = B + atom * kBK * 128 + sw128(kr, ac);
+      if (kVec) {
+        cp_async16(smem_u32(dst), ok ? src : w, ok ? 16 : 0);
+      } else {
+        __align__(16) __nv_bfloat16 v[8];
+#pragma unroll
+        for (int e = 0; e < 8; ++e) v[e] = (ok && col + e < n) ? src[e] : __float2bfloat16(0.f);
+        *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(v);
+      }
+    }
+  };
+  // a, b of the thread's 8 channels of step s, loaded a step ahead of
+  // the transform that reads them
+  float av[8], bv[8];
+  auto load_ab = [&](int s) {
+    const int c = (s % kchunks) * kBK + ac * 8;
+    if (kVec && c < kdim) {
+      const float4* pa = reinterpret_cast<const float4*>(a + c);
+      const float4* pb = reinterpret_cast<const float4*>(b + c);
+      const float4 a0 = pa[0], a1 = pa[1], b0 = pb[0], b1 = pb[1];
+      av[0] = a0.x; av[1] = a0.y; av[2] = a0.z; av[3] = a0.w;
+      av[4] = a1.x; av[5] = a1.y; av[6] = a1.z; av[7] = a1.w;
+      bv[0] = b0.x; bv[1] = b0.y; bv[2] = b0.z; bv[3] = b0.w;
+      bv[4] = b1.x; bv[5] = b1.y; bv[6] = b1.z; bv[7] = b1.w;
+    } else {
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        const bool in = c + e < kdim;
+        av[e] = in ? a[c + e] : 0.f;
+        bv[e] = in ? b[c + e] : 0.f;
+      }
+    }
+  };
+  // the input transform, in place on the thread's own A chunks of step
+  // s; chunks off the image stay 0 (the padding comes after the transform)
+  auto transform = [&](int s) {
+    const int tap = s / kchunks, k0 = (s % kchunks) * kBK;
+    const int di = tap / 3 - 1, dj = tap % 3 - 1;
+    const int c = k0 + ac * 8;
+    if (c >= kdim) return;
+    uint8_t* A = smem + (s % kStages) * kStageBytes;
+#pragma unroll
+    for (int i = 0; i < kARows; ++i) {
+      if (!in_image(i, di, dj)) continue;
+      uint4* chunk = reinterpret_cast<uint4*>(A + sw128(ar + 32 * i, ac));
+      uint4 raw = *chunk;
+      __nv_bfloat162* v = reinterpret_cast<__nv_bfloat162*>(&raw);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        // norm_transform's arithmetic (x*a, + b, each rounded; relu),
+        // rounded to bf16 once, two channels a conversion
+        const float2 xf = __bfloat1622float2(v[e]);
+        float t0 = __fadd_rn(__fmul_rn(xf.x, av[2 * e]), bv[2 * e]);
+        float t1 = __fadd_rn(__fmul_rn(xf.y, av[2 * e + 1]), bv[2 * e + 1]);
+        if (kRelu) {
+          t0 = fmaxf(t0, 0.f);
+          t1 = fmaxf(t1, 0.f);
+        }
+        if (!kVec) {  // channels past K stay 0
+          t0 = c + 2 * e < kdim ? t0 : 0.f;
+          t1 = c + 2 * e + 1 < kdim ? t1 : 0.f;
+        }
+        v[e] = __floats2bfloat162_rn(t0, t1);
+      }
+      *chunk = raw;
+    }
+  };
+
+  // acc: the current tap's products; sum: the taps' sums in tap order
+  float acc[32], sum[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] = sum[i] = 0.f;
+  auto add_tap = [&] {
+    wgmma_wait<0>();
+    fence_operand(acc);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) sum[i] += acc[i];
+  };
+  if (kTransform) load_ab(0);
+#pragma unroll
+  for (int s = 0; s < kAhead; ++s) {
+    if (s < nsteps) copy_step(s);
+    cp_async_commit();
+  }
+  for (int s = 0; s < nsteps; ++s) {
+    cp_async_wait<kAhead - 1>();  // this thread's copies of step s have landed
+    if (kTransform) transform(s);  // while step s-1's products run
+    if (s > 0 && s % kchunks == 0) add_tap();  // step s-1 ended a tap
+    fence_proxy_async();  // this thread's shared-memory writes before the products' reads
+    __syncthreads();      // every thread's; and step s-2's products are done
+    if (s + kAhead < nsteps) copy_step(s + kAhead);
+    cp_async_commit();
+    if (kTransform && s + 1 < nsteps) load_ab(s + 1);
+    // narrow: the warpgroup's 64 pixels, all of B; wide: all of A, the
+    // warpgroup's 64-column atom of B
+    const uint8_t* stage = smem + (s % kStages) * kStageBytes;
+    const uint32_t a_addr = smem_u32(stage) + (kWide ? 0 : g * 64 * 128);
+    const uint32_t b_addr = smem_u32(stage + kABytes) + (kWide ? g * kBK * 128 : 0);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_m64n64k16_ss<1>(acc, desc_kmajor(a_addr + kk * 32), desc_mnmajor(b_addr + kk * 2048),
+                            (s % kchunks == 0 && kk == 0) ? 0 : 1);  // a tap starts at 0
+    wgmma_commit();
+    wgmma_wait<1>();  // step s-1's products are done
+  }
+  add_tap();  // the last tap
+
+  // epilogue: y rounded once; statistics of the rounded y
+  const int row_a = m0 + (kWide ? 0 : 64 * g) + 16 * (warp & 3) + (lane >> 2);
+  const int col0 = n0 + (kWide ? 64 * g : 0);
+  float s0[16], s1[16];
+#pragma unroll
+  for (int j = 0; j < 16; ++j) s0[j] = s1[j] = 0.f;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row_a + 8 * r;
+    if (row >= m) continue;
+    __nv_bfloat16* yrow = y + static_cast<long long>(row) * n;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int col = col0 + j * 8 + 2 * (lane & 3);
+      const __nv_bfloat162 v = __floats2bfloat162_rn(sum[j * 4 + 2 * r], sum[j * 4 + 2 * r + 1]);
+      if (kVec) {
+        if (col < n) *reinterpret_cast<__nv_bfloat162*>(yrow + col) = v;
+      } else {
+        if (col < n) yrow[col] = v.x;
+        if (col + 1 < n) yrow[col + 1] = v.y;
+      }
+      const float v0 = __bfloat162float(v.x), v1 = __bfloat162float(v.y);
+      s0[2 * j] += v0;
+      s1[2 * j] += v0 * v0;
+      s0[2 * j + 1] += v1;
+      s1[2 * j + 1] += v1 * v1;
+    }
+  }
+  if (kStats) {
+    // over the 8 row groups of the warp (lanes of one lane % 4), then
+    // over the warps that hold the column, in order: one row of partials
+    // per tile of BM pixels
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+#pragma unroll
+      for (int o = 4; o < 32; o <<= 1) {
+        s0[j] += __shfl_xor_sync(0xffffffffu, s0[j], o);
+        s1[j] += __shfl_xor_sync(0xffffffffu, s1[j], o);
+      }
+    }
+    if (lane < 4) {
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const int c = (j / 2) * 8 + 2 * lane + (j % 2);  // the warpgroup's column
+        red[warp * 64 + c] = s0[j];
+        red[(8 + warp) * 64 + c] = s1[j];
+      }
+    }
+    __syncthreads();
+    if (t < BN && n0 + t < n) {
+      const int c = t % 64, v0 = kWide ? 4 * (t / 64) : 0, v1 = kWide ? v0 + 4 : 8;
+      float t0 = 0.f, t1 = 0.f;
+      for (int v = v0; v < v1; ++v) {
+        t0 += red[v * 64 + c];
+        t1 += red[(8 + v) * 64 + c];
+      }
+      float* prow = part + static_cast<long long>(blockIdx.x) * 2 * n;
+      prow[n0 + t] = t0;
+      prow[n + n0 + t] = t1;
+    }
+  }
+}
+
+template <bool kWide, bool kTransform, bool kRelu, bool kStats, bool kVec>
+cudaError_t launch(const void* x, const void* w, const void* a, const void* b, void* y,
+                   void* part, void* stats, int m, int h, int wd, int kdim, int n,
+                   cudaStream_t s) {
+  constexpr int BM = kWide ? kWideBM : kBM, BN = kWide ? kWideBN : kBN;
+  auto kernel = k5_fwd_wgmma<kWide, kTransform, kRelu, kStats, kVec>;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((m + BM - 1) / BM, (n + BN - 1) / BN);
+  kernel<<<grid, kThreads, kSmem, s>>>(
+      static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(w),
+      static_cast<const float*>(a), static_cast<const float*>(b),
+      static_cast<__nv_bfloat16*>(y), static_cast<float*>(part), m, h, wd, kdim, n);
+  if (kStats) colsum(part, grid.x, 2 * n, stats, s);
+  return cudaGetLastError();
+}
+
+template <bool kWide, bool kVec>
+cudaError_t dispatch_modes(int transform, int want_stats, const void* x, const void* w,
+                           const void* a, const void* b, void* y, void* part, void* stats,
+                           int m, int h, int wd, int kdim, int n, cudaStream_t s) {
+#define K5_WG(TR, RE)                                                                           \
+  (want_stats                                                                                   \
+       ? launch<kWide, TR, RE, true, kVec>(x, w, a, b, y, part, stats, m, h, wd, kdim, n, s)  \
+       : launch<kWide, TR, RE, false, kVec>(x, w, a, b, y, part, stats, m, h, wd, kdim, n, s))
+  if (transform == 0) return K5_WG(false, false);
+  if (transform == 1) return K5_WG(true, false);
+  return K5_WG(true, true);
+#undef K5_WG
+}
+
+// part: [ceil(M / BM), 2, n] for the tile that N selects (kBM for N <=
+// kBN, else kWideBM)
+cudaError_t dispatch(int transform, int want_stats, const void* x, const void* w, const void* a,
+                     const void* b, void* y, void* part, void* stats, int m, int h, int wd,
+                     int kdim, int n, cudaStream_t s) {
+  auto aligned = [](const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; };
+  const bool vec = kdim % 8 == 0 && n % 8 == 0 && aligned(x) && aligned(w) && aligned(y) &&
+                   (transform == 0 || (aligned(a) && aligned(b)));
+#define K5_WG_TILE(WIDE)                                                                     \
+  (vec ? dispatch_modes<WIDE, true>(transform, want_stats, x, w, a, b, y, part, stats, m, h, \
+                                    wd, kdim, n, s)                                          \
+       : dispatch_modes<WIDE, false>(transform, want_stats, x, w, a, b, y, part, stats, m, h, \
+                                     wd, kdim, n, s))
+  return n > kBN ? K5_WG_TILE(true) : K5_WG_TILE(false);
+#undef K5_WG_TILE
+}
+
+}  // namespace wg
+
 // The pixel count M = bsz * h * wd, or -1 when a dimension is not
 // positive or M does not fit an int.
 int pixels(int bsz, int h, int wd, int kdim, int n) {
@@ -318,7 +666,8 @@ int pixels(int bsz, int h, int wd, int kdim, int n) {
 }  // namespace
 
 // x [bsz, h, wd, kdim], w [3, 3, kdim, n], y [bsz, h, wd, n];
-// part: f32 scratch [ceil(M / 128), 2, n] (want_stats), stats: f32 [2, n].
+// part: f32 scratch [pixel tiles, 2, n] (want_stats): tiles of 128 pixels,
+// or of 64 for bf16 with n > 64 (ops/fused_conv3.py k5f_plan); stats: f32 [2, n].
 extern "C" int port_k5_fwd(const void* x, const void* w, const void* a, const void* b, void* y,
                            void* part, void* stats, int bsz, int h, int wd, int kdim, int n,
                            int transform, int want_stats, int dtype, int device, void* stream) {
@@ -330,7 +679,7 @@ extern "C" int port_k5_fwd(const void* x, const void* w, const void* a, const vo
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case kF32: fwd_dispatch<float>(transform, want_stats, x, w, a, b, y, part, stats, m, h, wd, kdim, n, s); break;
-    case kBF16: fwd_dispatch<__nv_bfloat16>(transform, want_stats, x, w, a, b, y, part, stats, m, h, wd, kdim, n, s); break;
+    case kBF16: return static_cast<int>(wg::dispatch(transform, want_stats, x, w, a, b, y, part, stats, m, h, wd, kdim, n, s));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());

@@ -1,0 +1,187 @@
+// Hopper building blocks of the port's tensor-core kernels (sm_90a): the
+// 128-byte swizzled shared-memory layout and its wgmma matrix
+// descriptors, the bf16 m64n64k16 warpgroup products (A from shared
+// memory or from registers), mbarriers, the proxy fence, TMA tensor
+// loads and cp.async. Only what the bf16 flash forward
+// (flash_attention.cu) and the bf16 fused 3x3 conv forward
+// (fused_conv3.cu) use; PTX as in the PTX ISA's wgmma, mbarrier,
+// cp.async and cp.async.bulk.tensor sections.
+//
+// Layout. A tile row of 64 bf16 is 128 bytes, one row of the 128-byte
+// swizzle atom (8 rows, 1024 bytes): the 16-byte chunk c of row r lives
+// at r*128 + ((c ^ (r % 8)) * 16) from a 1024-byte aligned tile base,
+// which is what TMA's CU_TENSOR_MAP_SWIZZLE_128B writes and what a
+// descriptor of layout type 1 (128B) reads.
+//  - K-major operand (the reduction axis contiguous: Q and K rows of
+//    head_dim, pixels x channels): rows at 128 bytes, 8-row groups at
+//    SBO = 1024 bytes; a k16 step advances the start address by 32
+//    bytes inside the atom.
+//  - MN-major operand (the output axis contiguous: V [keys, head_dim],
+//    weights [K, N]), read with the transpose bit: one row of 64 output
+//    columns per reduction index, 8 reduction rows per atom, so a k16
+//    step advances 2048 bytes. The tile is one atom wide (64 columns),
+//    so the stride between atoms along the output axis is never used;
+//    both offsets are set to 1024.
+#pragma once
+
+#include <cuda.h>
+#include <cuda_bf16.h>
+#include <stdint.h>
+
+namespace port {
+namespace hopper {
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// byte offset of 16-byte chunk `chunk` of row `row` in a 128B-swizzled tile
+__device__ __forceinline__ uint32_t sw128(int row, int chunk) {
+  return static_cast<uint32_t>(row * 128 + ((chunk ^ (row & 7)) << 4));
+}
+
+// wgmma shared-memory matrix descriptor, 128-byte swizzle
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t saddr, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((saddr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
+         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+}
+__device__ __forceinline__ uint64_t desc_kmajor(uint32_t saddr) { return desc_sw128(saddr, 16, 1024); }
+__device__ __forceinline__ uint64_t desc_mnmajor(uint32_t saddr) { return desc_sw128(saddr, 1024, 1024); }
+
+// -- warpgroup products -------------------------------------------------------
+
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Keep the compiler from moving reads or writes of the accumulator
+// registers across the asynchronous product (launch ... wait).
+template <int N>
+__device__ __forceinline__ void fence_operand(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+#define PORT_D32                                                                          \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),     \
+      "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),          \
+      "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),       \
+      "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),       \
+      "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),       \
+      "+f"(d[31])
+#define PORT_DREGS                                                                        \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "               \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
+
+// d[64 x 64] (+)= A[64 x 16] B[16 x 64], bf16 operands from shared
+// memory, f32 accumulators; kTransB: B is MN-major. scale_d 0: d = A B.
+// Accumulator layout (thread t of the warpgroup, warp w = t / 32, lane
+// l): d[4j + e] is row 16w + l/4 + 8*(e/2), column 8j + 2*(l%4) + e%2.
+template <int kTransB>
+__device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t da, uint64_t db,
+                                                   int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " PORT_DREGS
+      ", %32, %33, p, 1, 1, 0, %35;\n}\n"
+      : PORT_D32
+      : "l"(da), "l"(db), "r"(scale_d), "n"(kTransB));
+}
+
+// As above with A from registers: a[4] holds the thread's bf16 pairs of
+// the 64 x 16 A tile in mma.sync's m16n8k16 A-fragment order (warp w
+// rows 16w..16w+15): a[0] (row l/4, cols 2(l%4)+{0,1}), a[1] (row
+// l/4+8, same cols), a[2] (row l/4, cols 8+2(l%4)+{0,1}), a[3] (row
+// l/4+8, those cols) — which is the accumulator layout above, so an f32
+// result can be fed back as bf16 without moving between threads.
+template <int kTransB>
+__device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32], const uint32_t (&a)[4],
+                                                   uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " PORT_DREGS
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+      : PORT_D32
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d), "n"(kTransB));
+}
+
+#undef PORT_D32
+#undef PORT_DREGS
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (low half) = lo
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// -- mbarriers, fences, asynchronous copies -----------------------------------
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+// make initialised barriers visible to the other threads and to TMA
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+// spin until the barrier's phase with parity `phase` has completed; a
+// wait of more than ~2^34 cycles (seconds: a lost copy, a wrong byte
+// count) traps, so that a fault surfaces as a launch error, not a hang
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t phase) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done = 0;
+  long long start = 0;
+  while (true) {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(phase)
+        : "memory");
+    if (done) return;
+    if (start == 0) start = clock64();
+    else if (clock64() - start > (1ll << 34)) __trap();
+  }
+}
+
+// order this thread's generic-proxy shared-memory writes (st.shared,
+// cp.async) before later async-proxy reads (wgmma operands)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// TMA: the box at coordinates (c0, c1, c2, c3) of a 4-D tensor map into
+// shared memory at dst; completion counts `bytes` on `bar`
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3)
+      : "memory");
+}
+
+// 16 bytes global -> shared, asynchronously; src_bytes 0 writes zeros
+// (src must still be a valid address)
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+}  // namespace hopper
+}  // namespace port

@@ -19,10 +19,18 @@ recompute ``P = exp(S - lse)`` and ``dS = P * (dP - delta) * scale``.
 The plain versions are :func:`flash_attention_plain` (masked
 ``dot_product_attention`` plus the lse) and
 :func:`flash_attention_bwd_plain` (the same recompute-from-lse math).
-They keep P and dS unrounded (f32, or f64 for f64 inputs), as the
-kernels do; the TPU kernels round them to the input dtype before their
-bf16 products. The wrappers take the plain versions only for tensors on
-the CPU; a CUDA tensor launches the kernel or raises.
+
+The forward chooses its design by dtype: bf16 runs the tensor-core
+kernel (``wgmma``, K/V by TMA), which rounds P to bf16 before P.V as the
+TPU kernel does (``:97``; the plain version rounds its normalised
+probabilities there); f32 runs the CUDA-core kernel, P in f32. The
+bf16 kernel reads q/k/v through TMA tensor maps, so each needs a
+16-byte aligned base and strides (of dimensions longer than 1) that are
+multiples of 8 elements: :func:`tma_compatible`; another layout raises.
+The backward keeps P and dS unrounded (f32, or f64 for f64 inputs); the
+TPU kernels round them to the input dtype before their bf16 products.
+The wrappers take the plain versions only for tensors on the CPU; a
+CUDA tensor launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -143,6 +151,17 @@ def _check(kernel: str, q, k, v, kv_mask, segment_ids, *more):
     return device, code
 
 
+def tma_compatible(t: torch.Tensor) -> bool:
+    """Whether the bf16 forward's TMA tensor maps can address ``t [B, S,
+    H, D]``: head_dim contiguous, the base 16-byte aligned, and the
+    strides of the batch, sequence and head dimensions longer than 1
+    positive multiples of 8 elements (16 bytes)."""
+    if t.stride(-1) != 1 or t.data_ptr() % 16:
+        return False
+    return all(st > 0 and st % 8 == 0
+               for size, st in zip(t.shape[:3], t.stride()[:3]) if size > 1)
+
+
 def _ptr(t: Optional[torch.Tensor]):
     return t.data_ptr() if t is not None else None
 
@@ -161,6 +180,11 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, kv_mask, causal, segment_ids)
     device, code = _check("flash_attention", q, k, v, kv_mask, segment_ids)
+    if q.dtype == torch.bfloat16 and not all(
+            tma_compatible(t) for t in (q, k, v)):
+        raise ValueError("the bf16 flash kernel reads q/k/v by TMA: it "
+                         "needs 16-byte aligned bases and strides that "
+                         "are multiples of 8 elements")
     b, s, h, d = q.shape
     out = torch.empty((b, s, h, d), dtype=q.dtype, device=device)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=device)

@@ -15,6 +15,12 @@ the autograd Function K4 uses: the forward is the K5f kernel and the
 backward is K5dx (``dx`` with the relu mask, and ``d a``, ``d b``) plus
 K5dw (``dw``), all in ``csrc/fused_conv3.cu``.
 
+K5f chooses its design by dtype: bf16 runs the tensor-core kernel
+(``wgmma`` over cp.async-filled swizzled tiles, the transform applied in
+shared memory, each tap's products summed in f32 in tap order), f32 the
+CUDA-core kernel, which K5dx and K5dw run in both dtypes. Both
+round at the same points; :func:`k5f_plan` gives each one's tile.
+
 Rounding points (``:43-52``, ``:62-72``, ``:243-257``): the transformed
 input is rounded to x's dtype before the products; each output is the
 sum of the nine tap products, accumulated in f32 and rounded once; the
@@ -52,6 +58,13 @@ from pyspark_tf_gke_tpu_torch.ops.fused_matmul import (BLOCK_M, FusedNormOp,
                                                        dx_epilogue)
 
 TAPS = 9
+# K5f's CTA tiles, (pixels, output channels), kept in step with
+# csrc/fused_conv3.cu: the bf16 tensor-core kernel takes wg::kBM x kBN
+# for N <= 64 and wg::kWideBM x kWideBN beyond; the f32 CUDA-core kernel
+# takes tile_gemm.cuh's kBM x kBN (the narrow tile). One row of
+# statistics partials per pixel tile. K5dx keeps K4's fused_matmul.BLOCK_M.
+K5F_TILE = (128, 64)
+K5F_WIDE_TILE = (64, 128)
 
 fwd_launches = 0  # K5f launches since the last reset (chip_smoke reads them)
 dx_launches = 0   # K5dx
@@ -120,6 +133,16 @@ def conv3_dw_plain(x: torch.Tensor, dy: torch.Tensor,
 # -- kernel wrappers ----------------------------------------------------------
 
 
+def k5f_plan(m: int, n: int, dtype: torch.dtype
+             ) -> Tuple[int, int, int, int]:
+    """K5f's tile and grid for M pixels and N output channels:
+    ``(block_m, block_n, pixel tiles, channel tiles)``; the statistics
+    partials are ``[pixel tiles, 2, N]``."""
+    wide = dtype == torch.bfloat16 and n > K5F_TILE[1]
+    bm, bn = K5F_WIDE_TILE if wide else K5F_TILE
+    return bm, bn, _cdiv(m, bm), _cdiv(n, bn)
+
+
 def _check(kernel: str, x, w, dy, a, b) -> Tuple[torch.device, int]:
     """Device, dtypes, shapes and contiguity of a K5 call; returns the
     device and the dtype code. ``x [B, H, W, K]``, ``w [3, 3, K, N]`` and
@@ -171,8 +194,9 @@ def conv3_fwd(x: torch.Tensor, w: torch.Tensor, a: Optional[torch.Tensor],
         return y, stats
     if kdim == 0:  # an empty product: y and its statistics are zero
         return y.zero_(), stats
-    part = (torch.empty((_cdiv(m, BLOCK_M), 2, n), dtype=torch.float32,
-                        device=device) if want_stats else None)
+    tiles = k5f_plan(m, n, x.dtype)[2]
+    part = (torch.empty((tiles, 2, n), dtype=torch.float32, device=device)
+            if want_stats else None)
     rc = kernels.library().port_k5_fwd(
         x.data_ptr(), w.data_ptr(), _ptr(a), _ptr(b), y.data_ptr(),
         _ptr(part), _ptr(stats), bsz, h, wd, kdim, n,

@@ -213,3 +213,49 @@ def test_dw_splits_give_enough_blocks_per_tap():
         assert 9 * splits <= 65535
         got[k] = splits
     assert got[64] > 50 and got[512] <= 2 and got[3] == 1
+
+
+# ResNet-50's stride-1 3x3 convs at batch 64 as (M pixels, N channels),
+# and the ragged chip check shape ([3, 9, 5, 48] -> 80)
+K5F_SHAPES = ((200704, 64), (50176, 128), (12544, 256), (3136, 512), (135, 80))
+
+
+def _cu_constant(text: str, name: str) -> int:
+    import re
+
+    return int(re.search(rf"constexpr int {name} = (\d+);", text).group(1))
+
+
+@pytest.mark.parametrize("m,n", K5F_SHAPES)
+def test_k5f_partials_follow_its_own_tile_plan(m, n):
+    """K5f sizes its [tiles, 2, N] statistics partials by its own tile
+    plan, which is the tile of each kernel in csrc: bf16 runs the
+    tensor-core kernel, 128 x 64 (wg::kBM x kBN) up to N = 64 and 64 x 128
+    (wg::kWideBM x kWideBN) beyond; f32 the CUDA-core kernel, 128 x 64
+    (tile_gemm.cuh's kBM x kBN)."""
+    from pathlib import Path
+
+    csrc = Path(tfc.__file__).resolve().parent.parent / "csrc"
+    conv3 = (csrc / "fused_conv3.cu").read_text()
+    wg = conv3[conv3.index("namespace wg {"):]
+    simt = (csrc / "tile_gemm.cuh").read_text()
+    assert (_cu_constant(wg, "kBM"), _cu_constant(wg, "kBN")) == tfc.K5F_TILE
+    assert (_cu_constant(wg, "kWideBM"),
+            _cu_constant(wg, "kWideBN")) == tfc.K5F_WIDE_TILE
+    assert (_cu_constant(simt, "kBM"),
+            _cu_constant(simt, "kBN")) == tfc.K5F_TILE
+    for dtype in (torch.bfloat16, torch.float32):
+        bm, bn, tiles_m, tiles_n = tfc.k5f_plan(m, n, dtype)
+        want = (tfc.K5F_WIDE_TILE if dtype == torch.bfloat16 and n > 64
+                else tfc.K5F_TILE)
+        assert (bm, bn) == want
+        assert (tiles_m - 1) * bm < m <= tiles_m * bm
+        assert (tiles_n - 1) * bn < n <= tiles_n * bn
+
+
+@pytest.mark.parametrize("m,n", K5F_SHAPES[:4])
+def test_k5f_plan_fills_the_h100(m, n):
+    """At every ResNet-50 stage shape bf16 K5f launches at least one CTA
+    for each of an H100's 132 SMs (stage 4: 49 x 4 = 196)."""
+    _, _, tiles_m, tiles_n = tfc.k5f_plan(m, n, torch.bfloat16)
+    assert tiles_m * tiles_n >= 132

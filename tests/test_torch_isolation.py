@@ -1,7 +1,8 @@
-"""PyTorch port, isolation: the package and ``chip_smoke.py`` import no
-JAX and nothing of the JAX package; the device is explicit and nothing
-falls back to the CPU; the kernels build for ``sm_90a`` into the
-ignored build directory (checked without running ``nvcc``).
+"""PyTorch port, isolation: the package, ``chip_smoke.py`` and
+``kernel_probe.py`` import no JAX and nothing of the JAX package; the
+device is explicit and nothing falls back to the CPU; the kernels build
+for ``sm_90a`` into the ignored build directory (checked without running
+``nvcc``).
 """
 
 import ast
@@ -42,7 +43,7 @@ def _port_files():
     assert len(files) > 10
     rel = {p.relative_to(pkg).as_posix() for p in files}
     assert set(TRAINING_MODULES) <= rel
-    return files + [REPO / "chip_smoke.py"]
+    return files + [REPO / "chip_smoke.py", REPO / "kernel_probe.py"]
 
 
 def test_no_forbidden_import_in_source():
@@ -124,6 +125,15 @@ def test_build_targets_sm90a_into_the_ignored_build_dir():
     assert kernels.BUILD_DIR == REPO / "pyspark_tf_gke_tpu_torch" / "_build"
     ignored = (REPO / ".gitignore").read_text().splitlines()
     assert "pyspark_tf_gke_tpu_torch/_build/" in ignored
+
+
+def test_kernel_probe_fails_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    res = subprocess.run([sys.executable, str(REPO / "kernel_probe.py"),
+                          "graph"], cwd=REPO, capture_output=True,
+                         text=True, timeout=120)
+    assert res.returncode != 0 and "CUDA" in res.stderr
 
 
 def test_chip_smoke_fails_without_a_card_or_a_checkout(tmp_path):

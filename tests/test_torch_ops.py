@@ -212,3 +212,22 @@ def test_quantize_tree_matches_jax():
     assert tq["wte/embedding"].scale.shape == (97, 1)   # per row
     assert tq["lm_head/kernel"].scale.shape == (97,)    # per column
     assert isinstance(tq["lm_head/bias"], torch.Tensor)  # 1-D stays dense
+
+
+def test_flash_tma_layouts():
+    """The bf16 flash forward reads q/k/v by TMA: contiguous [B, S, H, D]
+    and the q/k/v views of a fused [B, S, 3, H, D] projection qualify
+    (any S, ragged ones too); a head_dim that is not contiguous, a base
+    off 16 bytes or a stride that is not a multiple of 8 elements does
+    not; the stride of a size-1 dimension is never followed."""
+    for s in (77, 200, 512):
+        assert t_flash.tma_compatible(torch.zeros(2, s, 12, 64))
+        for t in torch.zeros(2, s, 3, 12, 64).unbind(2):
+            assert t_flash.tma_compatible(t)
+    base = torch.zeros(2, 5, 2, 72)
+    assert not t_flash.tma_compatible(base[..., 1:65])  # base off 16 bytes
+    assert not t_flash.tma_compatible(torch.zeros(2, 5, 2, 68)[..., :64])
+    assert not t_flash.tma_compatible(torch.zeros(2, 5, 2, 64, 2)[..., 0])
+    one = torch.zeros(1, 7, 1, 67)[..., :64]  # B = H = 1: only S strides
+    assert not t_flash.tma_compatible(one)
+    assert t_flash.tma_compatible(torch.zeros(1, 1, 1, 64))
