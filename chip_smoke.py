@@ -11,7 +11,9 @@
 3. holds each kernel against its plain PyTorch version on the card at
    the main paths' shapes, in bf16 and f32 — the serving kernels (K2f
    also at ragged S = 200 and 77 and on q/k/v views of one [B, S, 3, H,
-   D] tensor), the training kernels (K2f, K2dq and K2dkv at B=16 S=512
+   D] tensor; K1 at S = 1 and 8, and in row blocks at S = 256 and at S =
+   512 with 12/4 GQA, queries with no key giving zeros), the training
+   kernels (K2f, K2dq and K2dkv at B=16 S=512
    H=12 D=64: causal, causal + segments, and key padding + segments +
    causal with a fully masked row; K3b at [8192, 768] with and without
    residual), and the ResNet kernels (K4f, K4dx and K4dw at four of
@@ -21,9 +23,9 @@
    statistics) — and times kernel, plain version and a library yardstick
    with CUDA events (K2f at B=8 S=1024 and B=16 S=512; K4: on all 16
    shapes of a ResNet-50 step, summed over its 36 calls; K5: on the four
-   stage shapes, summed over its 13 calls, against cuDNN; K2f and K5f
-   and their yardsticks also replayed from a CUDA graph, which takes the
-   host's launch cost out);
+   stage shapes, summed over its 13 calls, against cuDNN; K2f, K5f and
+   the bf16 K4dw and K5dw and their yardsticks also replayed from a CUDA
+   graph, which takes the host's launch cost out);
 4. serving main path: serves a full-width GPT-small paged bundle
    (random weights from a numpy seed, int8 export) through
    ``BundleServer`` + the HTTP server with 8 continuous slots: 12
@@ -33,8 +35,10 @@
    admission and two decode chunks of the engine (host wall time
    against device-busy time, top kernels);
 5. checks serving parity on the card: the engine's f32 greedy tokens
-   equal the dense ``generate``'s, and full-width bf16 prefill logits
-   through the kernels agree with the plain versions;
+   equal the dense ``generate``'s, full-width bf16 prefill logits
+   through the kernels agree with the plain versions, and so do two
+   256-token chunked-prefill pieces through the paged model (K1 in row
+   blocks);
 6. training main path: ``lm_pretrain.main`` on a seeded synthetic text
    corpus at the GPT-small width (hidden 768, 12 layers, 12 heads, FFN
    3072, seq 512, batch 16, bf16, Adam 3e-4), 2 epochs x 10 steps with
@@ -623,7 +627,7 @@ def check_fused_matmul(torch, dev):
 
     totals = {key: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
                         ops_ms=0.0, bytes_ms=0.0) for key in errs}
-    # K5f (the tensor-core kernel) and cuDNN also graph-replayed
+    # K4dw (the tensor-core kernel) and its matmul also graph-replayed
     graphed = dict(graph_ms=0.0, library_graph_ms=0.0)
     for m, k, n, transform, count in RESNET50_K4_SHAPES:
         x, w, dy, a, b = _k4_inputs(torch, dev, g, m, k, n, torch.bfloat16,
@@ -672,6 +676,11 @@ def check_fused_matmul(torch, dev):
             tot["bytes_ms"] += count * nbytes / HBM_BYTES_PER_S * 1e3
             tot["ops_ms"] += count * ops / PEAK_OPS["bfloat16"] * 1e3
             line.append(f"{key[13:]} {ms:.4f}/{pms:.4f}/{lms:.4f}/{bms:.4f}")
+            if key == "fused_matmul_dw":
+                gms, glms = graph_ms(kern, 5), graph_ms(lib, 5)
+                graphed["graph_ms"] += count * gms
+                graphed["library_graph_ms"] += count * glms
+                line.append(f"dw graph-replayed {gms:.4f}/{glms:.4f}")
         log(f"  k4 bf16 M={m} K={k} N={n} {transform or 'plain'} x{count} "
             f"(kernel/plain/matmul/bound ms): {', '.join(line)}")
         del x, w, dy, xn, wt, xnt
@@ -685,6 +694,7 @@ def check_fused_matmul(torch, dev):
                       else "operations"),
             shape="the 36 calls of one ResNet-50 step, batch 64, bf16 "
                   "(summed)")
+    recs["fused_matmul_dw"].update(graphed)
     return recs
 
 
@@ -776,8 +786,9 @@ def check_fused_conv3(torch, dev):
 
     totals = {key: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
                         ops_ms=0.0, bytes_ms=0.0) for key in errs}
-    # K5f (the tensor-core kernel) and cuDNN also graph-replayed
-    graphed = dict(graph_ms=0.0, library_graph_ms=0.0)
+    # K5f and K5dw (the tensor-core kernels) and cuDNN also graph-replayed
+    graphed = {key: dict(graph_ms=0.0, library_graph_ms=0.0)
+               for key in ("fused_conv3_fwd", "fused_conv3_dw")}
     for b, h, w, k, count in RESNET50_K5_SHAPES:
         n = k
         x, wt, dy, a, bb = _k5_inputs(torch, dev, g, b, h, w, k, n,
@@ -826,11 +837,11 @@ def check_fused_conv3(torch, dev):
             tot["bytes_ms"] += count * nbytes / HBM_BYTES_PER_S * 1e3
             tot["ops_ms"] += count * ops / PEAK_OPS["bfloat16"] * 1e3
             line.append(f"{key[12:]} {ms:.4f}/{pms:.4f}/{lms:.4f}/{bms:.4f}")
-            if key == "fused_conv3_fwd":
+            if key in graphed:
                 gms, glms = graph_ms(kern, 5), graph_ms(lib, 5)
-                graphed["graph_ms"] += count * gms
-                graphed["library_graph_ms"] += count * glms
-                line.append(f"fwd graph-replayed {gms:.4f}/{glms:.4f}")
+                graphed[key]["graph_ms"] += count * gms
+                graphed[key]["library_graph_ms"] += count * glms
+                line.append(f"{key[12:]} graph-replayed {gms:.4f}/{glms:.4f}")
         log(f"  k5 bf16 x=[{b},{h},{w},{k}] N={n} relu x{count} "
             f"(kernel/plain/cudnn/bound ms): {', '.join(line)}")
         del x, wt, dy, xn, xn_c, x_c, dy_c, w_c
@@ -844,14 +855,29 @@ def check_fused_conv3(torch, dev):
                       else "operations"),
             shape="the 13 calls of one ResNet-50 step, batch 64, bf16 "
                   "(summed)")
-    recs["fused_conv3_fwd"].update(graphed)
+    for key, times in graphed.items():
+        recs[key].update(times)
     return recs
 
 
-def _paged_case(torch, dev, g, dtype, hkv, s, quant):
+# K1's checked cases (H_kv, S, int8 pages, fills) at H = 12, 8 slots of
+# 16 pages of 64 tokens: decode (S = 1) and verify-sized chunks (S = 8)
+# in one row block; S = 256 (a chunked-prefill piece of GPT-small: R =
+# 256 rows, two blocks of 128), S = 512 at 12/4 GQA (R = 1536 rows, seven
+# blocks), and S = 256 with every fill <= 128, so that the first row
+# block of every slot sees no key and must give zeros
+PAGED_FILLS = (0, 1, 63, 64, 65, 500, 960, 1024)
+PAGED_CASES = ((12, 1, False, PAGED_FILLS), (4, 1, False, PAGED_FILLS),
+               (12, 1, True, PAGED_FILLS), (4, 8, True, PAGED_FILLS),
+               (12, 8, False, PAGED_FILLS), (12, 256, False, PAGED_FILLS),
+               (12, 256, True, PAGED_FILLS), (4, 512, False, PAGED_FILLS),
+               (4, 512, True, PAGED_FILLS),
+               (12, 256, False, (0, 1, 63, 64, 100, 127, 128, 128)))
+
+
+def _paged_case(torch, dev, g, dtype, hkv, s, quant, fills=PAGED_FILLS):
     n, p, h, d, mp = 128, 64, 12, 64, 16
-    fills = torch.tensor([0, 1, 63, 64, 65, 500, 960, 1024],
-                         dtype=torch.int32, device=dev)
+    fills = torch.tensor(fills, dtype=torch.int32, device=dev)
     b = fills.numel()
     table = torch.full((b, mp), n, dtype=torch.int32)
     perm = torch.randperm(n, generator=torch.Generator().manual_seed(2))
@@ -881,21 +907,36 @@ def _paged_case(torch, dev, g, dtype, hkv, s, quant):
 def check_paged(torch, dev):
     from pyspark_tf_gke_tpu_torch.ops import paged_attention as pa
 
+    # the S <= 8 cases draw from their own generator, the row-block cases
+    # from another
     g = torch.Generator(device=dev).manual_seed(3)
+    g_rows = torch.Generator(device=dev).manual_seed(4)
     rec = None
     for dtype in (torch.bfloat16, torch.float32):
         name = str(dtype).split(".")[-1]
-        for hkv, s, quant in ((12, 1, False), (4, 1, False), (12, 1, True),
-                              (4, 8, True), (12, 8, False)):
+        for hkv, s, quant, fill_list in PAGED_CASES:
             q, kp, vp, table, fills, ks, vs = _paged_case(
-                torch, dev, g, dtype, hkv, s, quant)
+                torch, dev, g if s <= 8 else g_rows, dtype, hkv, s, quant,
+                fill_list)
+            rows, blocks, smem = pa.row_plan(s, 12, hkv, 64, 64)
+            if s <= 8:  # decode and verify chunks launch as before
+                check(blocks == 1 and rows == s * 12 // hkv,
+                      f"K1 at S={s} splits its {s * 12 // hkv} rows")
             out = pa.paged_attention_chunk(q, kp, vp, table, fills, ks, vs)
             ref = pa.paged_attention_chunk_plain(q, kp, vp, table, fills,
                                                  ks, vs)
-            err = compare(out, ref, name,
-                          f"paged {name} slots=8 N=128 P=64 H=12 Hkv={hkv} "
-                          f"S={s}{' int8' if quant else ''}")
+            tag = (f"paged {name} slots=8 N=128 P=64 H=12 Hkv={hkv} S={s}"
+                   f"{' int8' if quant else ''} fills {list(fill_list)} "
+                   f"({blocks} row blocks of {rows}, {smem} B)")
+            err = compare(out, ref, name, tag)
             check(bool((out[0] == 0).all()), "empty slot is not zero")
+            before = (fills[:, None] - s + torch.arange(s, device=dev)) < 0
+            check(bool((out[before] == 0).all()),
+                  f"{tag}: a query with no key is not zero")
+            if dtype == torch.bfloat16 and s > 8 and not quant:
+                ms = cuda_ms(lambda: pa.paged_attention_chunk(
+                    q, kp, vp, table, fills), warmup=1, iters=3, reps=3)
+                log(f"  {tag}: kernel {ms:.4f} ms")
             if dtype == torch.bfloat16 and (hkv, s, quant) == (12, 1, False):
                 q1 = q[:, 0].contiguous()
                 ms = cuda_ms(lambda: pa.paged_attention(q1, kp, vp, table,
@@ -1154,6 +1195,71 @@ def check_parity(torch, dev, full_model, cfg):
     check(bool(torch.isfinite(out).all()), "non-finite logits")
     check(max_abs <= 0.25 and rel <= 2e-2,
           "bf16 prefill logits through the kernels disagree with plain")
+
+
+def check_paged_piece(torch, dev, full_model):
+    """Two 256-token pieces of chunked prefill (the JAX bench's chip
+    piece, ``bench.py:1199``) through the full-width paged model's
+    ``_paged_decode_attend`` on 4 slots at ragged offsets, with the
+    kernels (K1 on 256 query rows a head: two row blocks) against
+    ``use_kernels=False`` on its own cache, as phase 5's prefill logits."""
+    from pyspark_tf_gke_tpu_torch.models.causal_lm import CausalLM, PagedKV
+    from pyspark_tf_gke_tpu_torch.ops import paged_attention as pa
+
+    cfg = full_model.cfg
+    plain = CausalLM(cfg, use_kernels=False).to(dev).eval()
+    plain.load_state_dict(full_model.state_dict())
+    b, piece, starts = 4, 256, (0, 37, 64, 200)
+    caches = [PagedKV(cfg, b, dev) for _ in range(2)]
+    per_slot = cfg.max_pages_per_slot
+    for kv in caches:  # slot i owns pages [i * 16, i * 16 + 16)
+        kv.block_table.copy_(torch.arange(b * per_slot, dtype=torch.int32,
+                                          device=dev).reshape(b, per_slot))
+    ids = torch.randint(0, cfg.vocab_size, (b, 2 * piece),
+                        generator=torch.Generator(device=dev).manual_seed(6),
+                        device=dev)
+    start = torch.tensor(starts, device=dev)[:, None]
+    launches = pa.launches
+    for i in range(2):
+        pos = start + i * piece + torch.arange(piece, device=dev)[None]
+        chunk = ids[:, i * piece:(i + 1) * piece]
+        with torch.inference_mode():
+            out = full_model(chunk, positions=pos, cache=caches[0])
+            ref = plain(chunk, positions=pos, cache=caches[1])
+        diff = (out - ref).abs()
+        rel = float(diff.norm() / ref.norm())
+        max_abs = float(diff.max())
+        log(f"  paged piece {i + 1}: {b} slots x {piece} tokens at "
+            f"positions {[int(v) for v in pos[:, 0]]}.., logits "
+            f"{list(out.shape)}, kernels vs plain: max_abs {max_abs:.4f} "
+            f"(tolerance 0.25), relative L2 {rel:.2e} (tolerance 2e-2)")
+        check(bool(torch.isfinite(out).all()), "non-finite paged logits")
+        check(max_abs <= 0.25 and rel <= 2e-2, "a 256-token paged piece "
+              "through the kernels disagrees with plain")
+    launched = pa.launches - launches
+    check(launched == 2 * cfg.num_layers,
+          f"K1 launched {launched} times for 2 pieces x {cfg.num_layers} "
+          "layers")
+    blocks = pa.row_plan(piece, cfg.num_heads, cfg.kv_heads, cfg.head_dim,
+                         cfg.kv_page_size)[1]
+    log(f"  K1 launched {launched} times (S = {piece}: {blocks} row blocks)")
+    # K1 alone on one layer of the pieces' own cache: the second piece's
+    # positions, a seeded query, against its plain version at phase 3's
+    # tolerance (the logits above also carry the other kernels' rounding)
+    kv = caches[0]
+    kp, vp, ks, vs = kv.pages(cfg.num_layers - 1)
+    fills = (start[:, 0] + 2 * piece).to(torch.int32)
+    q = torch.randn(b, piece, cfg.num_heads, cfg.head_dim,
+                    generator=torch.Generator(device=dev).manual_seed(7),
+                    device=dev).to(cfg.dtype)
+    with torch.inference_mode():
+        out = pa.paged_attention_chunk(q, kp, vp, kv.block_table, fills,
+                                       ks, vs)
+        ref = pa.paged_attention_chunk_plain(q, kp, vp, kv.block_table,
+                                             fills, ks, vs)
+    compare(out, ref, str(cfg.dtype).split(".")[-1],
+            f"paged piece: K1 on layer {cfg.num_layers - 1}'s cache, "
+            f"S = {piece}, fills {[int(v) for v in fills]}")
 
 
 # -- phase 6: the training main path ------------------------------------------
@@ -1789,13 +1895,13 @@ KERNELS = (
     ("fused_matmul_dx", "pyspark_tf_gke_tpu_torch/csrc/fused_matmul.cu",
      "pyspark_tf_gke_tpu/ops/pallas/fused_matmul.py:178", "simt"),
     ("fused_matmul_dw", "pyspark_tf_gke_tpu_torch/csrc/fused_matmul.cu",
-     "pyspark_tf_gke_tpu/ops/pallas/fused_matmul.py:246", "simt"),
+     "pyspark_tf_gke_tpu/ops/pallas/fused_matmul.py:246", "wgmma"),
     ("fused_conv3_fwd", "pyspark_tf_gke_tpu_torch/csrc/fused_conv3.cu",
      "pyspark_tf_gke_tpu/ops/pallas/fused_conv3.py:55", "wgmma"),
     ("fused_conv3_dx", "pyspark_tf_gke_tpu_torch/csrc/fused_conv3.cu",
      "pyspark_tf_gke_tpu/ops/pallas/fused_conv3.py:116", "simt"),
     ("fused_conv3_dw", "pyspark_tf_gke_tpu_torch/csrc/fused_conv3.cu",
-     "pyspark_tf_gke_tpu/ops/pallas/fused_conv3.py:179", "simt"),
+     "pyspark_tf_gke_tpu/ops/pallas/fused_conv3.py:179", "wgmma"),
 )
 
 
@@ -1889,6 +1995,7 @@ def main() -> int:
     log("== 5. serving parity on the card")
     check_parity(torch, dev, full_model, dataclasses.replace(
         cfg, num_layers=2, dtype=torch.float32))
+    check_paged_piece(torch, dev, full_model)
     del full_model
     torch.cuda.empty_cache()
     log("== 6. training main path: lm_pretrain, GPT-small width, bf16, "

@@ -13,7 +13,19 @@ editing a ``.cu`` file, and for the experiments PERF.md reports.
         bf16 K5f's time at ResNet-50's stage shapes with and without
         the transform and the statistics;
     python3 kernel_probe.py graph
-        K2f, SDPA and K5f eager and replayed from a CUDA graph.
+        K2f, SDPA and K5f eager and replayed from a CUDA graph;
+    python3 kernel_probe.py trans-a
+        the transposed-A wgmma form once: bf16 K4dw (each CTA tile) and
+        K5dw on small-integer inputs, whose f32 sums are exact, must
+        equal an f64 reference rounded to bf16 bit for bit;
+    python3 kernel_probe.py dw-accuracy
+        bf16 K4dw, K5dw and their plain versions against an f64
+        reference: dw elements a bf16 rounding away from it and the
+        relative L2 (the accumulator granularity is wgmma_dw.cuh's
+        kFresh);
+    python3 kernel_probe.py dw-modes
+        bf16 K4dw and K5dw at ResNet-50's stage shapes with and without
+        the transform, eager and replayed from a CUDA graph.
 
 Each exits non-zero without a CUDA device.
 """
@@ -123,6 +135,118 @@ def graph(torch, dev) -> None:
               f"{cs.graph_ms(fn, 5):.4f} ms", flush=True)
 
 
+# bf16 dw shapes: K4 (M, K, N) one of each CTA tile (64 or 128 along K
+# and N) and the ragged edge path; K5 (B, H, W, K, N) the four stages
+# and a ragged one
+DW_K4_SHAPES = ((200704, 64, 64), (200704, 64, 256), (200704, 256, 64),
+                (3136, 2048, 512), (1000, 72, 40))
+DW_K5_SHAPES = ((64, 56, 56, 64, 64), (64, 28, 28, 128, 128),
+                (64, 14, 14, 256, 256), (64, 7, 7, 512, 512),
+                (3, 9, 5, 48, 80), (2, 6, 7, 12, 20))
+
+
+def _dw_reference(torch, fc, op, x, dy, a, b, relu):
+    """f64 dw from the bf16-rounded transformed input (K4: [K, N];
+    K5: [3, 3, K, N])."""
+    xn = fc._transform(x, a, b, relu).double()
+    if op == "K4":
+        return xn.t() @ dy.double()
+    n = dy.shape[-1]
+    dyd = dy.double().reshape(-1, n)
+    return torch.stack([win.t() @ dyd for _, _, win in
+                        fc._windows(xn, False)]).reshape(3, 3, -1, n)
+
+
+def _dw_cases(torch, dev, g, transform="relu", ints=False):
+    """``(op, tag, x, dy, a, b, relu)`` for every bf16 dw shape."""
+    import chip_smoke as cs
+
+    def draw(*shape):
+        if ints:  # small integers: exact products and f32 sums
+            return torch.randint(-3, 4, shape, generator=g,
+                                 device=dev).to(torch.bfloat16)
+        return torch.randn(*shape, generator=g,
+                           device=dev).to(torch.bfloat16)
+
+    for m, k, n in DW_K4_SHAPES:
+        x, dy = draw(m, k), draw(m, n)
+        a = b = None
+        if transform is not None:
+            _, _, _, a, b = cs._k4_inputs(torch, dev, g, 8, k, n,
+                                          torch.bfloat16, transform)
+        yield "K4", f"K4dw M={m} K={k} N={n}", x, dy, a, b, transform == "relu"
+    for bb, h, w, k, n in DW_K5_SHAPES:
+        x, dy = draw(bb, h, w, k), draw(bb, h, w, n)
+        a = b = None
+        if transform is not None:
+            _, _, _, a, b = cs._k5_inputs(torch, dev, g, 1, 1, 1, k, n,
+                                          torch.bfloat16, transform)
+        yield ("K5", f"K5dw x=[{bb},{h},{w},{k}] N={n}", x, dy, a, b,
+               transform == "relu")
+
+
+def _dw_fns(fm, fc, op):
+    return ((fm.norm_relu_matmul_dw, fm.norm_relu_matmul_dw_plain)
+            if op == "K4" else (fc.conv3_dw, fc.conv3_dw_plain))
+
+
+def trans_a(torch, dev) -> None:
+    from pyspark_tf_gke_tpu_torch.ops import fused_conv3 as fc
+    from pyspark_tf_gke_tpu_torch.ops import fused_matmul as fm
+
+    g = torch.Generator(device=dev).manual_seed(5)
+    bad = 0
+    for op, tag, x, dy, a, b, relu in _dw_cases(torch, dev, g, None, True):
+        got = _dw_fns(fm, fc, op)[0](x, dy, a, b, relu)
+        want = _dw_reference(torch, fc, op, x, dy, a, b, relu).to(
+            torch.bfloat16)
+        off = int((got != want).sum())
+        bad += off
+        print(f"trans-a {tag} integer inputs: {off} of {got.numel()} "
+              f"elements differ from f64 (max |diff| "
+              f"{float((got.double() - want.double()).abs().max()):g})",
+              flush=True)
+    if bad:
+        raise SystemExit("trans-a: the tensor-core dw disagrees with f64")
+
+
+def dw_accuracy(torch, dev) -> None:
+    from pyspark_tf_gke_tpu_torch.ops import fused_conv3 as fc
+    from pyspark_tf_gke_tpu_torch.ops import fused_matmul as fm
+
+    for transform in ("relu", None):
+        g = torch.Generator(device=dev).manual_seed(9)
+        for op, tag, x, dy, a, b, relu in _dw_cases(torch, dev, g,
+                                                    transform):
+            kern, plain = _dw_fns(fm, fc, op)
+            ref = _dw_reference(torch, fc, op, x, dy, a, b, relu)
+            ref16 = ref.to(torch.bfloat16).double()
+            pl = plain(x, dy, a, b, relu)
+            got = kern(x, dy, a, b, relu)
+            print(f"{tag} {transform or 'plain'} ({ref.numel()} elements): "
+                  f"plain off {int((pl.double() != ref16).sum())} rel "
+                  f"{_rel(pl, ref):.2e}; kernel off "
+                  f"{int((got.double() != ref16).sum())} rel "
+                  f"{_rel(got, ref):.2e} vs plain {_rel(got, pl):.2e}",
+                  flush=True)
+
+
+def dw_modes(torch, dev) -> None:
+    import chip_smoke as cs
+    from pyspark_tf_gke_tpu_torch.ops import fused_conv3 as fc
+    from pyspark_tf_gke_tpu_torch.ops import fused_matmul as fm
+
+    g = torch.Generator(device=dev).manual_seed(9)
+    for transform in ("relu", None):
+        for op, tag, x, dy, a, b, relu in _dw_cases(torch, dev, g,
+                                                    transform):
+            kern = _dw_fns(fm, fc, op)[0]
+            fn = lambda: kern(x, dy, a, b, relu)  # noqa: E731
+            print(f"{tag} {transform or 'plain'}: eager "
+                  f"{cs.cuda_ms(fn, warmup=2, iters=5, reps=5):.4f} graph "
+                  f"{cs.graph_ms(fn, 5):.4f} ms", flush=True)
+
+
 def main(argv) -> int:
     import torch
 
@@ -136,7 +260,10 @@ def main(argv) -> int:
     commands = {"check": lambda: check(torch, dev, argv[1:]),
                 "k5-accuracy": lambda: k5_accuracy(torch, dev),
                 "k5-modes": lambda: k5_modes(torch, dev),
-                "graph": lambda: graph(torch, dev)}
+                "graph": lambda: graph(torch, dev),
+                "trans-a": lambda: trans_a(torch, dev),
+                "dw-accuracy": lambda: dw_accuracy(torch, dev),
+                "dw-modes": lambda: dw_modes(torch, dev)}
     if not argv or argv[0] not in commands:
         print(__doc__, file=sys.stderr)
         return 2

@@ -40,7 +40,6 @@
 // K/V tiles of 64 keys staged in shared memory as f32; P stays f32 for
 // P V.
 
-#include <dlfcn.h>
 
 #include "common.cuh"
 #include "wgmma.cuh"
@@ -373,21 +372,6 @@ flash_fwd_wgmma(__grid_constant__ const CUtensorMap tq, __grid_constant__ const 
   }
 }
 
-// cuTensorMapEncodeTiled from libcuda, which the process has loaded (the
-// CUDA runtime linked into this library has no tensor-map call)
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encoder() {
-  static const EncodeTiled fn = [] {
-    void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_LOCAL);
-    return lib ? reinterpret_cast<EncodeTiled>(dlsym(lib, "cuTensorMapEncodeTiled")) : nullptr;
-  }();
-  return fn;
-}
-
 // A 4-D map over the [B, S, H, 64] bf16 view with element strides (sb,
 // ss, sh, 1), dimensions innermost first as (head_dim, head, seq,
 // batch), boxes of `rows` positions of one (batch, head), 128-byte
@@ -412,7 +396,7 @@ bool tensor_map(EncodeTiled encode, CUtensorMap* map, const void* base, int B, i
 int launch(const void* q, const void* k, const void* v, const void* kv_mask, const void* segs,
            void* out, void* lse, int B, int S, int H, const long long* st, int causal,
            float scale, cudaStream_t stream) {
-  const EncodeTiled encode = encoder();
+  const EncodeTiled encode = tensor_map_encoder();
   if (encode == nullptr) return static_cast<int>(cudaErrorSharedObjectSymbolNotFound);
   CUtensorMap mq, mk, mv;
   if (!tensor_map(encode, &mq, q, B, S, H, st[0], st[1], st[2], kBQ) ||

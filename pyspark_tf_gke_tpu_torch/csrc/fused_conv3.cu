@@ -60,8 +60,25 @@
 // colsum_kernel. K and N not multiples of 8, or unaligned tensors, take
 // a masked edge path of the same kernel that loads element by element.
 //
-// K5f f32, K5dx and K5dw (the first, CUDA-core design, kept for f32 as
-// the reference the model-parity gates stand on): an implicit GEMM on
+// K5dw's entry point chooses the design by dtype too. K5dw bf16
+// (wgdw::k5_dw_wgmma, the tensor-core design) moves the tap shift onto
+// dy: dw[tap] = sum over x pixels q of xn[q]^T dy[q - shift(tap)], a
+// term counting only where that dy pixel lies in q's image at the tap's
+// offset. A CTA owns one 64 x 64 (K x N) tile of the three taps of one
+// kernel row and a split of the pixels, on three warpgroups, one a tap
+// (wgmma_dw.cuh's mainloop): each step brings 64 consecutive pixels of x
+// by TMA, transforms them in place once for the three taps, and gathers
+// each tap's 64 dy rows by cp.async, zero-filling rows whose pixel is
+// off the image or past the split (src_bytes 0; each thread keeps its
+// rows' image coordinates and steps them, no divisions in the loop). x
+// is transformed 3 times in all (once a kernel row) instead of 9, and a
+// 64-wide tile leaves no half of it empty at K = 64. f32 partials
+// [splits, 3, 3, K, N] summed in split order by splitsum_kernel. K or N
+// not a multiple of 8, or a pointer off 16 bytes, takes a masked edge
+// path of the same kernel that copies element by element.
+//
+// K5f f32, K5dx, and K5dw f32 (the first, CUDA-core design, kept for f32
+// as the reference the model-parity gates stand on): an implicit GEMM on
 // K4's tiled f32 CUDA-core mainloop (tile_gemm.cuh). The TPU kernels keep one whole
 // zero-padded image in VMEM (grid = (B,)); at stage 1 that is 58x58x64
 // bf16, more than an SM's shared memory, so here a block owns a tile of
@@ -80,6 +97,7 @@
 
 #include "tile_gemm.cuh"
 #include "wgmma.cuh"
+#include "wgmma_dw.cuh"
 
 using namespace port;
 using namespace port::tile;
@@ -655,6 +673,156 @@ cudaError_t dispatch(int transform, int want_stats, const void* x, const void* w
 
 }  // namespace wg
 
+// -- K5dw, bf16: the tensor-core design ----------------------------------------
+
+namespace wgdw {
+
+using namespace port::hopper;
+
+constexpr int kTile = 64;      // a warpgroup's dw tile, K x N (ops/fused_matmul.py DW_WG_TILE)
+constexpr int kThreads = 384;  // three warpgroups: the taps of one kernel row
+// a step's tiles in the ring: x, then dy at each of the three taps
+using Ring = dw::Ring<1, 3>;
+
+// kVec: K and N multiples of 8 and x, dy 16-byte aligned: x by TMA, dy
+// rows by cp.async; else the edge path copies element by element.
+template <bool kTransform, bool kRelu, bool kVec>
+__global__ void __launch_bounds__(kThreads, 1)
+k5_dw_wgmma(const __grid_constant__ CUtensorMap tx, const __nv_bfloat16* __restrict__ x,
+            const __nv_bfloat16* __restrict__ dy, const float* __restrict__ a,
+            const float* __restrict__ b, float* __restrict__ part, int m, int h, int wd,
+            int kdim, int n, int chunk) {
+  extern __shared__ uint8_t smem_raw[];
+  const Ring ring(smem_raw);
+  // blockIdx.x = ((split * K tiles + k tile) * N tiles + n tile) * 3 + kernel row
+  const int ntk = (kdim + kTile - 1) / kTile, ntn = (n + kTile - 1) / kTile;
+  int rest = blockIdx.x;
+  const int dh = rest % 3;
+  rest /= 3;
+  const int n0 = (rest % ntn) * kTile;
+  rest /= ntn;
+  const int k0 = (rest % ntk) * kTile, split = rest / ntk;
+  const int mbeg = split * chunk, mend = min(mbeg + chunk, m);
+  const int nsteps = (mend - mbeg + dw::kPix - 1) / dw::kPix;
+  // warpgroup g: tap (dh, g), whose dy pixel is the x pixel minus shift
+  const int g = threadIdx.x >> 7, shift = (dh - 1) * wd + (g - 1);
+  // the thread's dy rows r0 + 16k (k < 4) of its tap's tile, chunk c
+  const int l = threadIdx.x & 127, c = l & 7, r0 = l >> 3;
+  dw::setup(ring, a, b, k0, kdim, kTransform);
+
+  // image coordinates (i, j) of the thread's rows at the next step to
+  // issue, stepped by 64 pixels a step
+  int ri[4], rj[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const int q = (mbeg + r0 + 16 * k) % (h * wd);
+    ri[k] = q / wd;
+    rj[k] = q % wd;
+  }
+  const int di = dw::kPix / wd, dj = dw::kPix % wd;
+
+  auto issue = [&](int s) {
+    if (s < nsteps) {
+      uint8_t* stage = ring.slot(s);
+      const int row0 = mbeg + s * dw::kPix;
+      if (kVec) {
+        if (threadIdx.x == 0) {
+          uint64_t* bar = ring.bar(s);
+          mbar_arrive_expect_tx(bar, dw::kTileBytes);
+          tma_load_2d(stage, &tx, bar, k0, row0);
+        }
+      } else {
+        for (int idx = threadIdx.x; idx < dw::kChunks; idx += kThreads) {
+          const int r = idx >> 3, cc = idx & 7;
+          dw::copy_chunk_elems(stage + sw128(r, cc), x, row0 + r, row0 + r < mend,
+                               k0 + 8 * cc, kdim, kdim);
+        }
+      }
+      uint8_t* tile = stage + (1 + g) * dw::kTileBytes;
+      const int col = n0 + 8 * c;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int r = r0 + 16 * k, q = row0 + r;
+        const int ii = ri[k] - (dh - 1), jj = rj[k] - (g - 1);
+        const bool ok = q < mend && ii >= 0 && ii < h && jj >= 0 && jj < wd;
+        const long long p = static_cast<long long>(q) - shift;
+        if (kVec) {
+          const bool in = ok && col < n;
+          cp_async16(smem_u32(tile + sw128(r, c)), in ? dy + p * n + col : dy, in ? 16 : 0);
+        } else {
+          dw::copy_chunk_elems(tile + sw128(r, c), dy, p, ok, col, n, n);
+        }
+        rj[k] += dj;
+        ri[k] += di;
+        if (rj[k] >= wd) {
+          rj[k] -= wd;
+          ++ri[k];
+        }
+        while (ri[k] >= h) ri[k] -= h;
+      }
+    }
+    if (kVec) cp_async_commit();
+  };
+  auto landed = [&](int s) {
+    if (kVec) {
+      cp_async_wait<dw::kAhead - 1>();  // this thread's dy rows of step s
+      mbar_wait(ring.bar(s), ring.phase(s));  // x
+    }
+  };
+  auto prepare = [&](uint8_t* stage) {
+    if (kTransform) dw::transform<kRelu>(stage, ring);
+  };
+  float sum[32];
+  dw::mainloop(sum, ring, nsteps, 0, g, issue, landed, prepare);
+  const int tap = 3 * dh + g;
+  dw::store(sum, part + (static_cast<long long>(split) * kTaps + tap) * kdim * n, k0, kdim, n0,
+            n);
+}
+
+template <bool kTransform, bool kRelu, bool kVec>
+cudaError_t launch(const CUtensorMap& tx, const void* x, const void* dy, const void* a,
+                   const void* b, void* part, int m, int h, int wd, int kdim, int n, int splits,
+                   int chunk, cudaStream_t s) {
+  auto kernel = k5_dw_wgmma<kTransform, kRelu, kVec>;
+  constexpr int kSmem = Ring::kSmem;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+  if (err != cudaSuccess) return err;
+  const long long ctas = 3LL * ((kdim + kTile - 1) / kTile) * ((n + kTile - 1) / kTile) * splits;
+  if (ctas > INT_MAX) return cudaErrorInvalidValue;
+  kernel<<<static_cast<unsigned>(ctas), kThreads, kSmem, s>>>(
+      tx, static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(dy),
+      static_cast<const float*>(a), static_cast<const float*>(b), static_cast<float*>(part), m, h,
+      wd, kdim, n, chunk);
+  return cudaGetLastError();
+}
+
+// part: f32 [splits, 3, 3, kdim, n]; the result rounded to bf16 by splitsum
+cudaError_t run(int transform, const void* x, const void* dy, const void* a, const void* b,
+                void* part, void* out, int m, int h, int wd, int kdim, int n, int splits,
+                int chunk, cudaStream_t s) {
+  auto aligned = [](const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; };
+  const bool vec = kdim % 8 == 0 && n % 8 == 0 && aligned(x) && aligned(dy);
+  CUtensorMap tx{};
+  if (vec) {
+    const EncodeTiled encode = tensor_map_encoder();
+    if (encode == nullptr) return cudaErrorSharedObjectSymbolNotFound;
+    if (!tensor_map_2d(encode, &tx, x, m, kdim, dw::kPix)) return cudaErrorInvalidValue;
+  }
+#define K5_DW_WG(TR, RE)                                                                 \
+  (vec ? launch<TR, RE, true>(tx, x, dy, a, b, part, m, h, wd, kdim, n, splits, chunk, s) \
+       : launch<TR, RE, false>(tx, x, dy, a, b, part, m, h, wd, kdim, n, splits, chunk, s))
+  const cudaError_t err = transform == 0   ? K5_DW_WG(false, false)
+                          : transform == 1 ? K5_DW_WG(true, false)
+                                           : K5_DW_WG(true, true);
+#undef K5_DW_WG
+  if (err != cudaSuccess) return err;
+  splitsum<__nv_bfloat16>(part, splits, static_cast<long long>(kTaps) * kdim * n, out, s);
+  return cudaGetLastError();
+}
+
+}  // namespace wgdw
+
 // The pixel count M = bsz * h * wd, or -1 when a dimension is not
 // positive or M does not fit an int.
 int pixels(int bsz, int h, int wd, int kdim, int n) {
@@ -709,28 +877,33 @@ extern "C" int port_k5_dx(const void* dy, const void* w, const void* x, const vo
 }
 
 // part: f32 scratch [splits, 3, 3, kdim, n]; split z sums pixels
-// [z*chunk, (z+1)*chunk); dw [3, 3, kdim, n] in the operands' dtype.
+// [z*chunk, (z+1)*chunk), chunk a multiple of 16 pixels (f32) or of 64
+// (bf16: ops/fused_matmul.py dw_plan); dw [3, 3, kdim, n] in the
+// operands' dtype.
 extern "C" int port_k5_dw(const void* x, const void* dy, const void* a, const void* b,
                           void* part, void* dw, int bsz, int h, int wd, int kdim, int n,
                           int transform, int splits, int chunk, int dtype, int device,
                           void* stream) {
   if (cudaSetDevice(device) != cudaSuccess) return static_cast<int>(cudaGetLastError());
   const int m = pixels(bsz, h, wd, kdim, n);
+  const int step = dtype == kBF16 ? port::dw::kPix : kBK;
   if (m < 0 || transform < 0 || transform > 2 || splits <= 0 || chunk <= 0 ||
-      chunk % kBK != 0 || static_cast<long long>(splits) * chunk < m ||
-      static_cast<long long>(splits - 1) * chunk >= m || kTaps * splits > 65535) {
+      chunk % step != 0 || static_cast<long long>(splits) * chunk < m ||
+      static_cast<long long>(splits - 1) * chunk >= m ||
+      (dtype != kBF16 && kTaps * splits > 65535)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define K5_DW(T)                                                                                       \
-  (transform == 0   ? dw_launch<T, false, false>(x, dy, a, b, part, dw, m, h, wd, kdim, n, splits, chunk, s) \
-   : transform == 1 ? dw_launch<T, true, false>(x, dy, a, b, part, dw, m, h, wd, kdim, n, splits, chunk, s)  \
-                    : dw_launch<T, true, true>(x, dy, a, b, part, dw, m, h, wd, kdim, n, splits, chunk, s))
   switch (dtype) {
-    case kF32: K5_DW(float); break;
-    case kBF16: K5_DW(__nv_bfloat16); break;
+    case kF32:
+      if (transform == 0) dw_launch<float, false, false>(x, dy, a, b, part, dw, m, h, wd, kdim, n, splits, chunk, s);
+      else if (transform == 1) dw_launch<float, true, false>(x, dy, a, b, part, dw, m, h, wd, kdim, n, splits, chunk, s);
+      else dw_launch<float, true, true>(x, dy, a, b, part, dw, m, h, wd, kdim, n, splits, chunk, s);
+      break;
+    case kBF16:
+      return static_cast<int>(wgdw::run(transform, x, dy, a, b, part, dw, m, h, wd, kdim, n,
+                                        splits, chunk, s));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
-#undef K5_DW
   return static_cast<int>(cudaGetLastError());
 }

@@ -18,10 +18,25 @@
 //
 // Bound on the H100: most of ResNet-50's calls move more bytes than their
 // tensor-core time (M = 200,704 rows at K, N = 64..256); the K = 1024..2048
-// calls are bound by operations. This first version computes the product
-// on the CUDA cores in f32 (for bf16 inputs too), so it is bound by f32
-// FMA throughput well above either bound; moving the product onto wgmma
-// with TMA loads is later work.
+// calls are bound by operations.
+//
+// K4dw's entry point chooses the design by dtype and nothing else. bf16
+// K4dw (k4_dw_wgmma, the tensor-core design) runs the weight-gradient
+// mainloop of wgmma_dw.cuh: a CTA owns a (64 a) x (64 b) tile of dw, a,
+// b in {1, 2} (64 wide where K or N is at most 64: no half-empty tile at
+// stage 1), one warpgroup per 64 x 64 part, and a split of the M rows;
+// x [M, K] and dy [M, N] arrive by 2-D TMA, 64 rows a step, into a
+// 4-slot mbarrier ring (zeros past M and past K, N), the transform runs
+// in place on the x tiles, and both operands feed wgmma MN-major. The
+// splits write f32 partials [splits, K, N], summed in split order by
+// splitsum_kernel. K or N not a multiple of 8, or a pointer off 16
+// bytes, takes a masked edge path of the same kernel that copies
+// element by element.
+//
+// K4f, K4dx, and K4dw in f32 (the first, CUDA-core design; f32 K4dw is
+// kept as the reference the model-parity gates stand on) compute the
+// product on the CUDA cores in f32, bound by f32 FMA throughput well
+// above either bound.
 //
 // Design: one shared-memory GEMM mainloop for all three (tile_gemm.cuh,
 // shared with K5's fused 3x3 conv in fused_conv3.cu). A block owns a
@@ -40,7 +55,10 @@
 //     rounds to dy's dtype.
 // No atomics anywhere: every result is independent of scheduling.
 
+#include <climits>
+
 #include "tile_gemm.cuh"
+#include "wgmma_dw.cuh"
 
 using namespace port;
 using namespace port::tile;
@@ -198,6 +216,154 @@ void dw_launch(const void* x, const void* dy, const void* a, const void* b, void
   splitsum<T>(part, splits, static_cast<long long>(kdim) * n, dw, s);
 }
 
+// -- K4dw, bf16: the tensor-core design -----------------------------------------
+
+namespace wgdw {
+
+using namespace port::hopper;
+
+constexpr int kTile = 64;  // a warpgroup's dw tile, K x N (ops/fused_matmul.py DW_WG_TILE)
+
+// CTAs an SM holds for 1, 2 or 4 warpgroups a CTA: what the ring's 4
+// slots of 16, 24 or 32 KB and the registers allow (ops/fused_matmul.py
+// DW_RESIDENT, which sizes the plan's waves by them)
+constexpr int kResident1 = 3;
+constexpr int kResident2 = 2;
+constexpr int kResident4 = 1;
+
+// CTA tile (64 * kA) x (64 * kB) of dw, warpgroup g = (g / kB, g % kB);
+// kA and kB are the plan's (ops/fused_matmul.py dw_plan).
+// kVec: K and N multiples of 8 and x, dy 16-byte aligned: both operands
+// by TMA; else the edge path copies element by element.
+template <int kA, int kB, bool kTransform, bool kRelu, bool kVec>
+__global__ void __launch_bounds__(128 * kA * kB, kA * kB == 1   ? kResident1
+                                                 : kA * kB == 2 ? kResident2
+                                                                : kResident4)
+k4_dw_wgmma(const __grid_constant__ CUtensorMap tx, const __grid_constant__ CUtensorMap tdy,
+            const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ dy,
+            const float* __restrict__ a, const float* __restrict__ b, float* __restrict__ part,
+            int m, int kdim, int n, int chunk) {
+  using R = dw::Ring<kA, kB>;
+  extern __shared__ uint8_t smem_raw[];
+  const R ring(smem_raw);
+  const int ntk = (kdim + kTile * kA - 1) / (kTile * kA);
+  const int ntn = (n + kTile * kB - 1) / (kTile * kB);
+  const int tile = blockIdx.x % (ntk * ntn), split = blockIdx.x / (ntk * ntn);
+  const int k0 = (tile / ntn) * kTile * kA, n0 = (tile % ntn) * kTile * kB;
+  const int mbeg = split * chunk, mend = min(mbeg + chunk, m);
+  const int nsteps = (mend - mbeg + dw::kPix - 1) / dw::kPix;
+  const int g = threadIdx.x >> 7, ai = g / kB, bj = g % kB;
+  dw::setup(ring, a, b, k0, kdim, kTransform);
+
+  auto issue = [&](int s) {
+    if (s >= nsteps) return;
+    uint8_t* stage = ring.slot(s);
+    const int row0 = mbeg + s * dw::kPix;
+    if (kVec) {
+      if (threadIdx.x == 0) {
+        uint64_t* bar = ring.bar(s);
+        mbar_arrive_expect_tx(bar, R::kStageBytes);
+#pragma unroll
+        for (int i = 0; i < kA; ++i)
+          tma_load_2d(stage + i * dw::kTileBytes, &tx, bar, k0 + kTile * i, row0);
+#pragma unroll
+        for (int j = 0; j < kB; ++j)
+          tma_load_2d(stage + (kA + j) * dw::kTileBytes, &tdy, bar, n0 + kTile * j, row0);
+      }
+    } else {
+      for (int idx = threadIdx.x; idx < R::kTiles * dw::kChunks; idx += blockDim.x) {
+        const int t = idx / dw::kChunks, r = (idx % dw::kChunks) >> 3, c = idx & 7;
+        const bool is_x = t < kA;
+        const int col = is_x ? k0 + kTile * t + 8 * c : n0 + kTile * (t - kA) + 8 * c;
+        dw::copy_chunk_elems(stage + t * dw::kTileBytes + sw128(r, c), is_x ? x : dy, row0 + r,
+                             row0 + r < mend, col, is_x ? kdim : n, is_x ? kdim : n);
+      }
+    }
+  };
+  auto landed = [&](int s) {
+    if (kVec) mbar_wait(ring.bar(s), ring.phase(s));
+  };
+  auto prepare = [&](uint8_t* stage) {
+    if (kTransform) dw::transform<kRelu>(stage, ring);
+  };
+  float sum[32];
+  dw::mainloop(sum, ring, nsteps, ai, bj, issue, landed, prepare);
+  dw::store(sum, part + static_cast<long long>(split) * kdim * n, k0 + kTile * ai, kdim,
+            n0 + kTile * bj, n);
+}
+
+template <int kA, int kB, bool kTransform, bool kRelu, bool kVec>
+cudaError_t launch(const CUtensorMap& tx, const CUtensorMap& tdy, const void* x, const void* dy,
+                   const void* a, const void* b, void* part, int m, int kdim, int n, int splits,
+                   int chunk, cudaStream_t s) {
+  auto kernel = k4_dw_wgmma<kA, kB, kTransform, kRelu, kVec>;
+  constexpr int kSmem = dw::Ring<kA, kB>::kSmem;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+  if (err != cudaSuccess) return err;
+  const long long tiles = static_cast<long long>((kdim + kTile * kA - 1) / (kTile * kA)) *
+                          ((n + kTile * kB - 1) / (kTile * kB));
+  if (tiles * splits > INT_MAX) return cudaErrorInvalidValue;
+  kernel<<<static_cast<unsigned>(tiles * splits), 128 * kA * kB, kSmem, s>>>(
+      tx, tdy, static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(dy),
+      static_cast<const float*>(a), static_cast<const float*>(b), static_cast<float*>(part), m,
+      kdim, n, chunk);
+  return cudaGetLastError();
+}
+
+template <int kA, int kB, bool kVec>
+cudaError_t dispatch_modes(int transform, const CUtensorMap& tx, const CUtensorMap& tdy,
+                           const void* x, const void* dy, const void* a, const void* b,
+                           void* part, int m, int kdim, int n, int splits, int chunk,
+                           cudaStream_t s) {
+#define K4_WG(TR, RE) \
+  launch<kA, kB, TR, RE, kVec>(tx, tdy, x, dy, a, b, part, m, kdim, n, splits, chunk, s)
+  if (transform == 0) return K4_WG(false, false);
+  if (transform == 1) return K4_WG(true, false);
+  return K4_WG(true, true);
+#undef K4_WG
+}
+
+// tk, tn: the CTA tile in warpgroup tiles along K and N, 1 or 2 each
+template <bool kVec>
+cudaError_t dispatch_tiles(int tk, int tn, int transform, const CUtensorMap& tx,
+                           const CUtensorMap& tdy, const void* x, const void* dy, const void* a,
+                           const void* b, void* part, int m, int kdim, int n, int splits,
+                           int chunk, cudaStream_t s) {
+#define K4_TILE(A, B) \
+  dispatch_modes<A, B, kVec>(transform, tx, tdy, x, dy, a, b, part, m, kdim, n, splits, chunk, s)
+  if (tk == 2) return tn == 2 ? K4_TILE(2, 2) : K4_TILE(2, 1);
+  return tn == 2 ? K4_TILE(1, 2) : K4_TILE(1, 1);
+#undef K4_TILE
+}
+
+// part: f32 [splits, kdim, n]; the result rounded to bf16 by splitsum
+cudaError_t run(int tk, int tn, int transform, const void* x, const void* dy, const void* a,
+                const void* b, void* part, void* out, int m, int kdim, int n, int splits,
+                int chunk, cudaStream_t s) {
+  auto aligned = [](const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; };
+  const bool vec = kdim % 8 == 0 && n % 8 == 0 && aligned(x) && aligned(dy);
+  CUtensorMap tx{}, tdy{};
+  if (vec) {
+    const EncodeTiled encode = tensor_map_encoder();
+    if (encode == nullptr) return cudaErrorSharedObjectSymbolNotFound;
+    if (!tensor_map_2d(encode, &tx, x, m, kdim, dw::kPix) ||
+        !tensor_map_2d(encode, &tdy, dy, m, n, dw::kPix)) {
+      return cudaErrorInvalidValue;
+    }
+  }
+  const cudaError_t err =
+      vec ? dispatch_tiles<true>(tk, tn, transform, tx, tdy, x, dy, a, b, part, m, kdim, n,
+                                 splits, chunk, s)
+          : dispatch_tiles<false>(tk, tn, transform, tx, tdy, x, dy, a, b, part, m, kdim, n,
+                                  splits, chunk, s);
+  if (err != cudaSuccess) return err;
+  splitsum<__nv_bfloat16>(part, splits, static_cast<long long>(kdim) * n, out, s);
+  return cudaGetLastError();
+}
+
+}  // namespace wgdw
+
 // transform: 0 none, 1 x*a+b, 2 relu(x*a+b)
 template <typename T>
 void fwd_dispatch(int transform, int want_stats, const void* x, const void* w, const void* a,
@@ -257,26 +423,33 @@ extern "C" int port_k4_dx(const void* dy, const void* w, const void* x, const vo
   return static_cast<int>(cudaGetLastError());
 }
 
-// part: f32 scratch [splits, kdim, n]; split z sums rows [z*chunk, (z+1)*chunk).
+// part: f32 scratch [splits, kdim, n]; split z sums rows [z*chunk, (z+1)*chunk),
+// chunk a multiple of 16 rows (f32) or of 64 (bf16); tk, tn: bf16's CTA
+// tile in 64 x 64 warpgroup tiles along K and N, 1 or 2 each, unused in
+// f32 (both from ops/fused_matmul.py dw_plan).
 extern "C" int port_k4_dw(const void* x, const void* dy, const void* a, const void* b,
                           void* part, void* dw, int m, int kdim, int n, int transform,
-                          int splits, int chunk, int dtype, int device, void* stream) {
+                          int splits, int chunk, int tk, int tn, int dtype, int device,
+                          void* stream) {
   if (cudaSetDevice(device) != cudaSuccess) return static_cast<int>(cudaGetLastError());
+  const int step = dtype == kBF16 ? port::dw::kPix : kBK;
   if (!shape_ok(m, kdim, n) || transform < 0 || transform > 2 || splits <= 0 ||
-      chunk <= 0 || chunk % kBK != 0 || static_cast<long long>(splits) * chunk < m ||
-      static_cast<long long>(splits - 1) * chunk >= m || splits > 65535) {
+      chunk <= 0 || chunk % step != 0 || static_cast<long long>(splits) * chunk < m ||
+      static_cast<long long>(splits - 1) * chunk >= m ||
+      (dtype == kBF16 ? tk < 1 || tk > 2 || tn < 1 || tn > 2 : splits > 65535)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define K4_DW(T)                                                                             \
-  (transform == 0   ? dw_launch<T, false, false>(x, dy, a, b, part, dw, m, kdim, n, splits, chunk, s) \
-   : transform == 1 ? dw_launch<T, true, false>(x, dy, a, b, part, dw, m, kdim, n, splits, chunk, s)  \
-                    : dw_launch<T, true, true>(x, dy, a, b, part, dw, m, kdim, n, splits, chunk, s))
   switch (dtype) {
-    case kF32: K4_DW(float); break;
-    case kBF16: K4_DW(__nv_bfloat16); break;
+    case kF32:
+      if (transform == 0) dw_launch<float, false, false>(x, dy, a, b, part, dw, m, kdim, n, splits, chunk, s);
+      else if (transform == 1) dw_launch<float, true, false>(x, dy, a, b, part, dw, m, kdim, n, splits, chunk, s);
+      else dw_launch<float, true, true>(x, dy, a, b, part, dw, m, kdim, n, splits, chunk, s);
+      break;
+    case kBF16:
+      return static_cast<int>(wgdw::run(tk, tn, transform, x, dy, a, b, part, dw, m, kdim, n,
+                                        splits, chunk, s));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
-#undef K4_DW
   return static_cast<int>(cudaGetLastError());
 }

@@ -19,12 +19,25 @@
 // into the pool as the reference does. Each page's K and V tile for
 // this KV head is staged in shared memory (dequantized on load for
 // int8, then rounded through the query dtype as the reference does);
-// the G*S query rows of the head group live in shared memory, so each
-// KV head is read once for its whole query group. Scores, the online
-// softmax (one warp per row, f32) and the P.V update run out of shared
-// memory. Pages are loaded one at a time with a barrier between
+// the query rows of the head group live in shared memory, so each KV
+// head is read once for a whole block of its query group. Scores, the
+// online softmax (one warp per row, f32) and the P.V update run out of
+// shared memory. Pages are loaded one at a time with a barrier between
 // (no cp.async/TMA double buffering yet); splitting a long sequence
 // across CTAs (flash-decoding) is later work.
+//
+// Row blocks. The R = S*G query rows of a head group need 4*(P(D+1) +
+// PD + R(2D + P + 3)) bytes of shared memory; the TPU kernel keeps its
+// (S*H, D) scratch in VMEM and takes any S. So the grid is (slot, KV
+// head, row block): a CTA holds `rows` consecutive query rows (r = s*G +
+// g), all R of them whenever they fit (every decode step and verify
+// chunk: one block, as before), else the R rows split into equal blocks
+// that fit (ops/paged_attention.py row_plan computes the split; this file
+// only checks it). Rows are independent (one online softmax each), and a
+// CTA walks only the pages up to the key position of its last row: the
+// pages after it are masked for every row of the block, so skipping them
+// changes no result, and a block of rows wholly before the slot's first
+// key walks none and writes zeros.
 
 #include "common.cuh"
 
@@ -41,20 +54,23 @@ paged_kernel(const T* __restrict__ q, const KV* __restrict__ kp,
              const KV* __restrict__ vp, const float* __restrict__ ks,
              const float* __restrict__ vs, const int* __restrict__ table,
              const int* __restrict__ fills, T* __restrict__ out,
-             int S, int H, int Hkv, int D, int N, int P, int MP, float scale) {
+             int S, int H, int Hkv, int D, int N, int P, int MP, float scale, int rows) {
   extern __shared__ float smem[];
   const int b = blockIdx.x;
   const int hk = blockIdx.y;
   const int G = H / Hkv;
-  const int R = S * G;  // query rows of this CTA: r = s * G + g
+  // this CTA's query rows of the group: r0 + r, r < R, with r0 + r =
+  // s * G + g (query s, head hk * G + g)
+  const int r0 = blockIdx.z * rows;
+  const int R = min(rows, S * G - r0);
   float* k_t = smem;                 // [P][D + 1] (padded: conflict-free)
   float* v_t = k_t + P * (D + 1);    // [P][D]
-  float* q_s = v_t + P * D;          // [R][D]
-  float* sc = q_s + R * D;           // [R][P] scores, then probabilities
-  float* acc = sc + R * P;           // [R][D]
-  float* m_r = acc + R * D;          // [R] running max
-  float* l_r = m_r + R;              // [R] running normaliser
-  float* a_r = l_r + R;              // [R] this page's rescale factor
+  float* q_s = v_t + P * D;          // [rows][D]
+  float* sc = q_s + rows * D;        // [rows][P] scores, then probabilities
+  float* acc = sc + rows * P;        // [rows][D]
+  float* m_r = acc + rows * D;       // [rows] running max
+  float* l_r = m_r + rows;           // [rows] running normaliser
+  float* a_r = l_r + rows;           // [rows] this page's rescale factor
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
@@ -62,7 +78,7 @@ paged_kernel(const T* __restrict__ q, const KV* __restrict__ kp,
 
   for (int idx = tid; idx < R * D; idx += kThreads) {
     const int r = idx / D, d = idx % D;
-    const int s = r / G, g = r % G;
+    const int s = (r0 + r) / G, g = (r0 + r) % G;
     q_s[idx] = to_f32(q[((static_cast<long long>(b) * S + s) * H + hk * G + g) * D + d]);
     acc[idx] = 0.f;
   }
@@ -73,6 +89,10 @@ paged_kernel(const T* __restrict__ q, const KV* __restrict__ kp,
 
   int live_pages = fill > 0 ? (fill + P - 1) / P : 0;
   if (live_pages > MP) live_pages = MP;
+  // no page past the one holding the last row's own key position
+  const int last_key = fill - S + (r0 + R - 1) / G;
+  const int block_pages = last_key >= 0 ? last_key / P + 1 : 0;
+  if (live_pages > block_pages) live_pages = block_pages;
   for (int j = 0; j < live_pages; ++j) {
     int page = table[static_cast<long long>(b) * MP + j];
     page = page < 0 ? 0 : (page >= N ? N - 1 : page);  // sentinel clamp
@@ -92,7 +112,7 @@ paged_kernel(const T* __restrict__ q, const KV* __restrict__ kp,
     __syncthreads();
     for (int idx = tid; idx < R * P; idx += kThreads) {
       const int r = idx / P, t = idx % P;
-      const int q_abs = fill - S + r / G;
+      const int q_abs = fill - S + (r0 + r) / G;
       const float* qr = q_s + r * D;
       const float* kr = k_t + t * (D + 1);
       float dot = 0.f;
@@ -133,7 +153,7 @@ paged_kernel(const T* __restrict__ q, const KV* __restrict__ kp,
   __syncthreads();
   for (int idx = tid; idx < R * D; idx += kThreads) {
     const int r = idx / D, d = idx % D;
-    const int s = r / G, g = r % G;
+    const int s = (r0 + r) / G, g = (r0 + r) % G;
     const bool valid = m_r[r] > kNegInf * 0.5f;
     const float l = l_r[r] == 0.f ? 1.f : l_r[r];
     out[((static_cast<long long>(b) * S + s) * H + hk * G + g) * D + d] =
@@ -145,53 +165,61 @@ template <typename T, typename KV, bool kQuant>
 int launch(const void* q, const void* kp, const void* vp, const void* ks,
            const void* vs, const void* table, const void* fills, void* out,
            int B, int S, int H, int Hkv, int D, int N, int P, int MP,
-           float scale, size_t smem, cudaStream_t stream) {
+           float scale, int rows, int blocks, size_t smem, cudaStream_t stream) {
   auto kernel = paged_kernel<T, KV, kQuant>;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  kernel<<<dim3(B, Hkv), kThreads, smem, stream>>>(
+  kernel<<<dim3(B, Hkv, blocks), kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const KV*>(kp), static_cast<const KV*>(vp),
       static_cast<const float*>(ks), static_cast<const float*>(vs),
       static_cast<const int*>(table), static_cast<const int*>(fills),
-      static_cast<T*>(out), S, H, Hkv, D, N, P, MP, scale);
+      static_cast<T*>(out), S, H, Hkv, D, N, P, MP, scale, rows);
   return 0;
 }
 
 }  // namespace
 
-// Shared memory the kernel needs, in bytes (ops/paged_attention.py
-// computes the same figure to refuse shapes before launching).
-static long long smem_bytes(int S, int H, int Hkv, int D, int P) {
-  const long long R = static_cast<long long>(S) * (H / Hkv);
-  return 4LL * (P * (D + 1LL) + P * D + R * D + R * P + R * D + 3 * R);
+constexpr long long kMaxSmem = 232448;  // bytes of shared memory a block may use
+
+// Shared memory a CTA of `rows` query rows needs, in bytes (the figure
+// ops/paged_attention.py row_plan fits to kMaxSmem).
+static long long smem_bytes(long long rows, int D, int P) {
+  return 4LL * (P * (D + 1LL) + P * D + rows * D + rows * P + rows * D + 3 * rows);
 }
 
+// rows: query rows a CTA holds (ops/paged_attention.py row_plan), every
+// CTA but the last of a head group holding exactly that many.
 extern "C" int port_paged_attention(
     const void* q, const void* kp, const void* vp, const void* ks, const void* vs,
     const void* table, const void* fills, void* out, int B, int S, int H, int Hkv,
-    int D, int N, int P, int MP, float scale, int qdtype, int kvdtype, int device, void* stream) {
+    int D, int N, int P, int MP, int rows, float scale, int qdtype, int kvdtype, int device,
+    void* stream) {
   // this library links its own CUDA runtime: select the caller's
   // device in it before launching on the caller's stream
   if (cudaSetDevice(device) != cudaSuccess) return static_cast<int>(cudaGetLastError());
   if (B <= 0 || S <= 0) return 0;
   if (Hkv <= 0 || H % Hkv != 0 || N <= 0 || P <= 0 || MP <= 0 || B > 2147483647 || Hkv > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
-  const long long smem = smem_bytes(S, H, Hkv, D, P);
-  if (smem > 232448) return static_cast<int>(cudaErrorInvalidValue);
+  const long long R = static_cast<long long>(S) * (H / Hkv);
+  const long long blocks = rows > 0 ? (R + rows - 1) / rows : 0;
+  const long long smem = smem_bytes(rows, D, P);
+  if (rows <= 0 || rows > R || blocks > 65535 || smem > kMaxSmem)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const size_t sm = static_cast<size_t>(smem);
+  const int nb = static_cast<int>(blocks);
   int rc;
   if (qdtype == kF32 && kvdtype == kF32) {
-    rc = launch<float, float, false>(q, kp, vp, ks, vs, table, fills, out, B, S, H, Hkv, D, N, P, MP, scale, sm, s);
+    rc = launch<float, float, false>(q, kp, vp, ks, vs, table, fills, out, B, S, H, Hkv, D, N, P, MP, scale, rows, nb, sm, s);
   } else if (qdtype == kBF16 && kvdtype == kBF16) {
-    rc = launch<__nv_bfloat16, __nv_bfloat16, false>(q, kp, vp, ks, vs, table, fills, out, B, S, H, Hkv, D, N, P, MP, scale, sm, s);
+    rc = launch<__nv_bfloat16, __nv_bfloat16, false>(q, kp, vp, ks, vs, table, fills, out, B, S, H, Hkv, D, N, P, MP, scale, rows, nb, sm, s);
   } else if (qdtype == kF32 && kvdtype == kI8) {
-    rc = launch<float, int8_t, true>(q, kp, vp, ks, vs, table, fills, out, B, S, H, Hkv, D, N, P, MP, scale, sm, s);
+    rc = launch<float, int8_t, true>(q, kp, vp, ks, vs, table, fills, out, B, S, H, Hkv, D, N, P, MP, scale, rows, nb, sm, s);
   } else if (qdtype == kBF16 && kvdtype == kI8) {
-    rc = launch<__nv_bfloat16, int8_t, true>(q, kp, vp, ks, vs, table, fills, out, B, S, H, Hkv, D, N, P, MP, scale, sm, s);
+    rc = launch<__nv_bfloat16, int8_t, true>(q, kp, vp, ks, vs, table, fills, out, B, S, H, Hkv, D, N, P, MP, scale, rows, nb, sm, s);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

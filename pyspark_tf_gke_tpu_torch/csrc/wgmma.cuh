@@ -1,11 +1,12 @@
 // Hopper building blocks of the port's tensor-core kernels (sm_90a): the
 // 128-byte swizzled shared-memory layout and its wgmma matrix
 // descriptors, the bf16 m64n64k16 warpgroup products (A from shared
-// memory or from registers), mbarriers, the proxy fence, TMA tensor
-// loads and cp.async. Only what the bf16 flash forward
-// (flash_attention.cu) and the bf16 fused 3x3 conv forward
-// (fused_conv3.cu) use; PTX as in the PTX ISA's wgmma, mbarrier,
-// cp.async and cp.async.bulk.tensor sections.
+// memory, K- or MN-major, or from registers), mbarriers, the proxy
+// fence, TMA tensor loads and their tensor maps, and cp.async. Only what
+// the bf16 flash forward (flash_attention.cu), the bf16 fused 3x3 conv
+// forward (fused_conv3.cu) and the bf16 weight gradients (wgmma_dw.cuh)
+// use; PTX as in the PTX ISA's wgmma, mbarrier, cp.async and
+// cp.async.bulk.tensor sections.
 //
 // Layout. A tile row of 64 bf16 is 128 bytes, one row of the 128-byte
 // swizzle atom (8 rows, 1024 bytes): the 16-byte chunk c of row r lives
@@ -17,15 +18,17 @@
 //    SBO = 1024 bytes; a k16 step advances the start address by 32
 //    bytes inside the atom.
 //  - MN-major operand (the output axis contiguous: V [keys, head_dim],
-//    weights [K, N]), read with the transpose bit: one row of 64 output
-//    columns per reduction index, 8 reduction rows per atom, so a k16
-//    step advances 2048 bytes. The tile is one atom wide (64 columns),
-//    so the stride between atoms along the output axis is never used;
-//    both offsets are set to 1024.
+//    weights [K, N]; for the weight gradients both A = x^T and B = dy,
+//    pixels x channels), read with the transpose bit: one row of 64
+//    output columns per reduction index, 8 reduction rows per atom, so a
+//    k16 step advances 2048 bytes. The tile is one atom wide (64
+//    columns), so the stride between atoms along the output axis is
+//    never used; both offsets are set to 1024.
 #pragma once
 
 #include <cuda.h>
 #include <cuda_bf16.h>
+#include <dlfcn.h>
 #include <stdint.h>
 
 namespace port {
@@ -78,18 +81,20 @@ __device__ __forceinline__ void fence_operand(float (&d)[N]) {
   "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
 
 // d[64 x 64] (+)= A[64 x 16] B[16 x 64], bf16 operands from shared
-// memory, f32 accumulators; kTransB: B is MN-major. scale_d 0: d = A B.
+// memory, f32 accumulators; kTransB: B is MN-major; kTransA: A is
+// MN-major (the PTX imm-trans-a, legal for bf16 with A in shared
+// memory). scale_d 0: d = A B.
 // Accumulator layout (thread t of the warpgroup, warp w = t / 32, lane
 // l): d[4j + e] is row 16w + l/4 + 8*(e/2), column 8j + 2*(l%4) + e%2.
-template <int kTransB>
+template <int kTransB, int kTransA = 0>
 __device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t da, uint64_t db,
                                                    int scale_d) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " PORT_DREGS
-      ", %32, %33, p, 1, 1, 0, %35;\n}\n"
+      ", %32, %33, p, 1, 1, %35, %36;\n}\n"
       : PORT_D32
-      : "l"(da), "l"(db), "r"(scale_d), "n"(kTransB));
+      : "l"(da), "l"(db), "r"(scale_d), "n"(kTransA), "n"(kTransB));
 }
 
 // As above with A from registers: a[4] holds the thread's bf16 pairs of
@@ -168,6 +173,48 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2),
       "r"(c3)
       : "memory");
+}
+
+// TMA: the box at coordinates (c0, c1) of a 2-D tensor map (c0 the
+// contiguous axis) into shared memory at dst; completion counts the
+// box's bytes on `bar`, zeros included where the box leaves the tensor
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// cuTensorMapEncodeTiled from libcuda, which the process has loaded (the
+// CUDA runtime linked into this library has no tensor-map call)
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+inline EncodeTiled tensor_map_encoder() {
+  static const EncodeTiled fn = [] {
+    void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_LOCAL);
+    return lib ? reinterpret_cast<EncodeTiled>(dlsym(lib, "cuTensorMapEncodeTiled")) : nullptr;
+  }();
+  return fn;
+}
+
+// A 2-D map over a row-major bf16 matrix [rows, cols] (cols contiguous,
+// a multiple of 8, the base 16-byte aligned), boxes of 64 columns x
+// box_rows rows in the 128-byte swizzle, zeros past either edge.
+inline bool tensor_map_2d(EncodeTiled encode, CUtensorMap* map, const void* base,
+                          long long rows, long long cols, int box_rows) {
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * 2};
+  const cuuint32_t box[2] = {64, static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t elem[2] = {1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims,
+                strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 // 16 bytes global -> shared, asynchronously; src_bytes 0 writes zeros

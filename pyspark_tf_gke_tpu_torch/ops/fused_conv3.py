@@ -15,11 +15,13 @@ the autograd Function K4 uses: the forward is the K5f kernel and the
 backward is K5dx (``dx`` with the relu mask, and ``d a``, ``d b``) plus
 K5dw (``dw``), all in ``csrc/fused_conv3.cu``.
 
-K5f chooses its design by dtype: bf16 runs the tensor-core kernel
-(``wgmma`` over cp.async-filled swizzled tiles, the transform applied in
-shared memory, each tap's products summed in f32 in tap order), f32 the
-CUDA-core kernel, which K5dx and K5dw run in both dtypes. Both
-round at the same points; :func:`k5f_plan` gives each one's tile.
+K5f and K5dw choose their design by dtype: bf16 runs the tensor-core
+kernels (``wgmma`` over swizzled shared-memory tiles, the transform
+applied in shared memory; K5f each tap's products summed in f32 in tap
+order, K5dw the tap shift moved onto dy and x transformed once a kernel
+row, on K4dw's mainloop ``csrc/wgmma_dw.cuh``), f32 the CUDA-core
+kernels, which K5dx runs in both dtypes. Both round at the same points;
+:func:`k5f_plan` and ``fused_matmul.dw_plan`` give each one's tile.
 
 Rounding points (``:43-52``, ``:62-72``, ``:243-257``): the transformed
 input is rounded to x's dtype before the products; each output is the
@@ -54,8 +56,7 @@ from pyspark_tf_gke_tpu_torch.ops.fused_matmul import (BLOCK_M, FusedNormOp,
                                                        _check_pair, _ptr,
                                                        _transform,
                                                        _transform_code,
-                                                       dw_splits,
-                                                       dx_epilogue)
+                                                       dw_plan, dx_epilogue)
 
 TAPS = 9
 # K5f's CTA tiles, (pixels, output channels), kept in step with
@@ -238,8 +239,8 @@ def conv3_dx(dy: torch.Tensor, w: torch.Tensor, x: torch.Tensor,
 
 def conv3_dw(x: torch.Tensor, dy: torch.Tensor, a: Optional[torch.Tensor],
              b: Optional[torch.Tensor], relu: bool) -> torch.Tensor:
-    """K5dw: ``dw [3, 3, K, N]`` in dy's dtype, reduced in f32 over
-    :func:`dw_splits` (``taps=9``) splits of the pixels."""
+    """K5dw: ``dw [3, 3, K, N]`` in dy's dtype, reduced in f32 over the
+    ``fused_matmul.dw_plan`` (``taps=9``) splits of the pixels."""
     global dw_launches
     if x.device.type == "cpu":
         return conv3_dw_plain(x, dy, a, b, relu)
@@ -252,7 +253,7 @@ def conv3_dw(x: torch.Tensor, dy: torch.Tensor, a: Optional[torch.Tensor],
         return dw
     if m == 0:
         return dw.zero_()
-    splits, chunk = dw_splits(m, kdim, n, TAPS)
+    splits, chunk = dw_plan(m, kdim, n, x.dtype, TAPS)[2:]
     part = torch.empty((splits, 3, 3, kdim, n), dtype=torch.float32,
                        device=device)
     rc = kernels.library().port_k5_dw(

@@ -13,7 +13,11 @@ per-column ``sum`` and ``sumsq`` of the rounded ``y`` — the consumer
 BatchNorm's statistics (:func:`stats_to_moments`). It is a
 ``torch.autograd.Function``: the forward is the K4f kernel and the
 backward is K4dx (``dx`` with the relu mask, and ``d a``, ``d b``) plus
-K4dw (``dw``), all in ``csrc/fused_matmul.cu``. The BatchNorm chain
+K4dw (``dw``), all in ``csrc/fused_matmul.cu``. K4dw chooses its design
+by dtype: bf16 runs the tensor-core kernel (``wgmma`` over TMA-filled
+swizzled tiles, ``csrc/wgmma_dw.cuh``, shared with K5dw), f32 the
+CUDA-core kernel that K4f and K4dx run in both dtypes; :func:`dw_plan`
+gives each one's tile and split of the rows. The BatchNorm chain
 around it (moments from the sums, the fold) is plain PyTorch that
 autograd differentiates, as JAX differentiates it around the
 ``custom_vjp``.
@@ -34,17 +38,32 @@ is the differentiable op through the plain versions on any device.
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 import torch
 
 from pyspark_tf_gke_tpu_torch.ops import kernels
 
-BLOCK_M = 128  # output tile of every K4 kernel (csrc/fused_matmul.cu kBM, kBN)
+BLOCK_M = 128  # output tile of the CUDA-core K4 kernels (tile_gemm.cuh kBM, kBN)
 BLOCK_N = 64
-BLOCK_K = 16   # reduction step; K4dw's M splits are multiples of it
-DW_TARGET_BLOCKS = 528  # K4dw: split M until ~4 blocks per SM of an H100
+BLOCK_K = 16   # reduction step; f32 K4dw's M splits are multiples of it
+DW_TARGET_BLOCKS = 528  # f32 K4dw: split M until ~4 blocks per SM of an H100
 DW_MIN_ROWS = 256  # ... but give each split at least this many rows
+
+# bf16 K4dw and K5dw, the tensor-core kernels (csrc/wgmma_dw.cuh): a
+# warpgroup owns a DW_WG_TILE x DW_WG_TILE tile of dw and reduces
+# DW_STEP rows (pixels) a step. K4dw's CTA is 1 or 2 such tiles along
+# K and along N (64 wide where K or N is at most 64); K5dw's is one tile
+# at the three taps of a kernel row (three warpgroups).
+DW_WG_TILE = 64
+DW_STEP = 64
+DW_SMS = 132  # the plan sizes its waves for an H100's SMs
+# CTAs an SM holds, by warpgroups a CTA: what the 4-slot ring's shared
+# memory (16, 24, 32 KB a slot) and 128 registers a thread allow (the
+# kernels' launch bounds: fused_matmul.cu wgdw::kResident1, 2, 4)
+DW_RESIDENT = {1: 3, 2: 2, 3: 1, 4: 1}
+DW_MIN_STEPS = 8  # steps a split reduces at least (the ring's fill and drain)
 
 fwd_launches = 0  # K4f launches since the last reset (chip_smoke reads them)
 dx_launches = 0   # K4dx
@@ -239,11 +258,11 @@ def norm_relu_matmul_dx(dy: torch.Tensor, w: torch.Tensor, x: torch.Tensor,
 
 
 def dw_splits(m: int, kdim: int, n: int, taps: int = 1) -> Tuple[int, int]:
-    """K4dw's split of the M rows across blocks (and K5dw's, whose grid
-    has ``taps = 9`` times the K x N tiles): ``(splits, chunk)`` with
-    ``chunk`` a multiple of :data:`BLOCK_K` and every split non-empty.
-    A function of the shape alone, so the summation order (and the
-    result) does not depend on the card."""
+    """f32 K4dw's split of the M rows across blocks (and f32 K5dw's,
+    whose grid has ``taps = 9`` times the K x N tiles): ``(splits,
+    chunk)`` with ``chunk`` a multiple of :data:`BLOCK_K` and every split
+    non-empty. A function of the shape alone, so the summation order (and
+    the result) does not depend on the card."""
     tiles = taps * _cdiv(kdim, BLOCK_M) * _cdiv(n, BLOCK_N)
     want = max(1, min(_cdiv(DW_TARGET_BLOCKS, tiles), m // DW_MIN_ROWS,
                       65535 // taps))
@@ -251,10 +270,48 @@ def dw_splits(m: int, kdim: int, n: int, taps: int = 1) -> Tuple[int, int]:
     return _cdiv(m, chunk), chunk
 
 
+@functools.lru_cache(maxsize=None)
+def dw_plan(m: int, kdim: int, n: int, dtype: torch.dtype,
+            taps: int = 1) -> Tuple[int, int, int, int]:
+    """K4dw's (``taps=1``) or K5dw's (``taps=9``) plan: ``(tile_k,
+    tile_n, splits, chunk)``, a CTA's dw tile and the split of the M rows
+    (pixels) into ``splits`` runs of ``chunk``, every one non-empty; the
+    f32 partials are ``[splits, taps, K, N]``. f32 runs the CUDA-core
+    kernels (:data:`BLOCK_M` x :data:`BLOCK_N` tiles, :func:`dw_splits`);
+    bf16 the tensor-core ones, whose chunk is a whole number of
+    :data:`DW_STEP` steps and whose split count makes the fewest
+    step-times over the waves of :data:`DW_SMS` SMs; bf16 K4dw launches
+    its kernel at this tile, K5dw's is 64 x 64 at each tap. A function
+    of the shape and dtype alone, so the summation order (and the
+    result) does not depend on the card."""
+    if dtype != torch.bfloat16:
+        return (BLOCK_M, BLOCK_N) + dw_splits(m, kdim, n, taps)
+    t = DW_WG_TILE
+    if taps == 1:
+        tk, tn = (2 * t if kdim > t else t), (2 * t if n > t else t)
+        wgs = (tk // t) * (tn // t)
+        tiles = _cdiv(kdim, tk) * _cdiv(n, tn)
+    else:  # the three taps of a kernel row, a warpgroup each
+        tk = tn = t
+        wgs = 3
+        tiles = 3 * _cdiv(kdim, t) * _cdiv(n, t)
+    wave = DW_SMS * DW_RESIDENT[wgs]
+    steps = _cdiv(m, DW_STEP)
+    best_cost, best_steps = None, steps
+    for splits in range(1, max(1, steps // DW_MIN_STEPS) + 1):
+        per = _cdiv(steps, splits)
+        cost = _cdiv(tiles * splits, wave) * per
+        if best_cost is None or cost < best_cost:
+            best_cost, best_steps = cost, per
+    chunk = best_steps * DW_STEP
+    return tk, tn, _cdiv(m, chunk), chunk
+
+
 def norm_relu_matmul_dw(x: torch.Tensor, dy: torch.Tensor,
                         a: Optional[torch.Tensor], b: Optional[torch.Tensor],
                         relu: bool) -> torch.Tensor:
-    """K4dw: ``dw [K, N]`` in dy's dtype."""
+    """K4dw: ``dw [K, N]`` in dy's dtype, reduced in f32 over the
+    :func:`dw_plan` splits of the rows."""
     global dw_launches
     if x.device.type == "cpu":
         return norm_relu_matmul_dw_plain(x, dy, a, b, relu)
@@ -268,12 +325,13 @@ def norm_relu_matmul_dw(x: torch.Tensor, dy: torch.Tensor,
         return dw
     if m == 0:
         return dw.zero_()
-    splits, chunk = dw_splits(m, kdim, n)
+    tk, tn, splits, chunk = dw_plan(m, kdim, n, dy.dtype)
     part = torch.empty((splits, kdim, n), dtype=torch.float32, device=device)
     rc = kernels.library().port_k4_dw(
         x.data_ptr(), dy.data_ptr(), _ptr(a), _ptr(b), part.data_ptr(),
         dw.data_ptr(), m, kdim, n, _transform_code(a, relu), splits, chunk,
-        code, *kernels.launch_args(device))
+        tk // DW_WG_TILE, tn // DW_WG_TILE, code,
+        *kernels.launch_args(device))
     kernels.check(rc, "k4_dw")
     dw_launches += 1
     return dw

@@ -17,16 +17,19 @@ contract is exactly ``paged_attention_chunk_reference`` (``:63-104``):
   rounded through the query dtype.
 
 One kernel body (``csrc/paged_attention.cu``) serves ``S = 1`` and
-``S > 1``. The wrappers take the plain version only for CPU tensors; a
-CUDA tensor launches the kernel or raises. Paged attention has no
-backward (neither has the JAX kernel): under grad mode, an input that
-requires a gradient makes the wrappers raise, on every device, instead
-of returning a result that autograd would not track.
+``S > 1``: a CTA holds a block of the ``S * H / H_kv`` query rows of a
+KV head group, all of them whenever they fit its shared memory
+(:func:`row_plan`), so any ``S`` launches. The wrappers take the plain
+version only for CPU tensors; a CUDA tensor launches the kernel or
+raises. Paged attention has no backward (neither has the JAX kernel):
+under grad mode, an input that requires a gradient makes the wrappers
+raise, on every device, instead of returning a result that autograd
+would not track.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -34,6 +37,7 @@ from pyspark_tf_gke_tpu_torch.ops import kernels
 
 NEG_INF = -1e30
 MAX_SMEM = 232448  # bytes of shared memory one block may use on Hopper
+MAX_ROW_BLOCKS = 65535  # the grid's z dimension: row blocks of a group
 
 launches = 0  # kernel launches since the last reset (chip_smoke reads it)
 
@@ -79,10 +83,37 @@ def refuse_grad(*tensors: Optional[torch.Tensor]) -> None:
             " or torch.inference_mode(), on inputs that need no gradient")
 
 
-def _smem_bytes(s: int, h: int, hkv: int, d: int, p: int) -> int:
-    # same figure as csrc/paged_attention.cu smem_bytes
+def smem_bytes(rows: int, d: int, p: int) -> int:
+    """Shared memory of a K1 CTA holding ``rows`` query rows (the figure
+    of ``csrc/paged_attention.cu`` ``smem_bytes``): a page of K (rows
+    padded to D + 1) and V, and per row its query, scores, accumulator
+    and three softmax scalars, all f32."""
+    return 4 * (p * (d + 1) + p * d + rows * d + rows * p + rows * d
+                + 3 * rows)
+
+
+def row_plan(s: int, h: int, hkv: int, d: int, p: int) -> Tuple[int, int,
+                                                                  int]:
+    """K1's split of a KV head group's ``R = S * H / H_kv`` query rows
+    over CTAs: ``(rows per CTA, row blocks, shared-memory bytes)``. All R
+    rows in one CTA when they fit :data:`MAX_SMEM` (every decode step and
+    verify chunk), else the fewest equal blocks that fit. A function of
+    the shape alone. Raises ``ValueError`` only where the grid cannot
+    express the split: a page of K and V leaves no room for one row, or
+    more than :data:`MAX_ROW_BLOCKS` blocks."""
     r = s * (h // hkv)
-    return 4 * (p * (d + 1) + p * d + r * d + r * p + r * d + 3 * r)
+    fixed = smem_bytes(0, d, p)
+    most = (MAX_SMEM - fixed) // (smem_bytes(1, d, p) - fixed)
+    if most < 1:
+        raise ValueError(f"paged kernel: a page of P={p}, D={d} needs "
+                         f"{smem_bytes(1, d, p)} bytes of shared memory for "
+                         f"one query row (max {MAX_SMEM})")
+    rows = -(-r // -(-r // most))  # the fewest blocks, equal to a row
+    blocks = -(-r // rows)         # as the kernel counts them
+    if blocks > MAX_ROW_BLOCKS:
+        raise ValueError(f"paged kernel: {r} query rows need {blocks} row "
+                         f"blocks (max {MAX_ROW_BLOCKS})")
+    return rows, blocks, smem_bytes(rows, d, p)
 
 
 def _launch(q, k_pages, v_pages, block_table, fills, k_scales, v_scales):
@@ -119,11 +150,7 @@ def _launch(q, k_pages, v_pages, block_table, fills, k_scales, v_scales):
     tensors = (q, k_pages, v_pages, block_table, fills) + extra
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("paged kernel takes contiguous tensors")
-    smem = _smem_bytes(s, h, hkv, d, p_sz)
-    if smem > MAX_SMEM:
-        raise ValueError(f"paged kernel needs {smem} bytes of shared memory "
-                         f"for S={s}, G={h // hkv}, P={p_sz}, D={d} (max "
-                         f"{MAX_SMEM})")
+    rows = row_plan(s, h, hkv, d, p_sz)[0]
     if hkv > 65535:
         raise ValueError("paged kernel grid takes H_kv <= 65535")
     out = torch.empty_like(q)
@@ -133,7 +160,7 @@ def _launch(q, k_pages, v_pages, block_table, fills, k_scales, v_scales):
         k_scales.data_ptr() if quant else None,
         v_scales.data_ptr() if quant else None,
         block_table.data_ptr(), fills.data_ptr(), out.data_ptr(),
-        b, s, h, hkv, d, n, p_sz, mp, float(d ** -0.5), qcode, kvcode,
+        b, s, h, hkv, d, n, p_sz, mp, rows, float(d ** -0.5), qcode, kvcode,
         *kernels.launch_args(device))
     kernels.check(rc, "paged_attention")
     launches += 1

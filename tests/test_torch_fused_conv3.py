@@ -253,6 +253,49 @@ def test_k5f_partials_follow_its_own_tile_plan(m, n):
         assert (tiles_n - 1) * bn < n <= tiles_n * bn
 
 
+@pytest.mark.parametrize("m,n", K5F_SHAPES)
+def test_bf16_k5dw_plan_covers_the_pixels_in_whole_steps(m, n):
+    """bf16 K5dw's plan: 64 x 64 tiles (no half-empty tile at K = 64),
+    the pixels in whole 64-pixel steps, every split non-empty, a grid of
+    3 kernel rows x tiles x splits that fills the H100's 132 SMs at every
+    ResNet-50 stage; f32 keeps ``dw_splits(taps=9)``."""
+    tk, tn, splits, chunk = tfm.dw_plan(m, n, n, torch.bfloat16, tfc.TAPS)
+    assert (tk, tn) == (tfm.DW_WG_TILE, tfm.DW_WG_TILE)
+    assert chunk % tfm.DW_STEP == 0
+    assert (splits - 1) * chunk < m <= splits * chunk
+    ctas = 3 * -(-n // tk) * -(-n // tn) * splits
+    assert ctas <= 2 ** 31 - 1
+    if m >= 3136:
+        assert ctas >= 132
+    assert tfm.dw_plan(m, n, n, torch.float32, tfc.TAPS) == (
+        tfm.BLOCK_M, tfm.BLOCK_N) + tfm.dw_splits(m, n, n, tfc.TAPS)
+
+
+@pytest.mark.parametrize("source", ["fused_matmul.cu", "fused_conv3.cu"])
+def test_bf16_dw_constants_match_the_kernels(source):
+    """The bf16 dw plan's constants are the kernels': a warpgroup's dw
+    tile (each source's ``wgdw::kTile``), the pixels a step
+    (``wgmma_dw.cuh``), and the CTAs an SM holds (K4dw's launch bounds,
+    ``wgdw::kResident1, 2, 4``: 3, 2, 1 for 1, 2, 4 warpgroups; K5dw:
+    384 threads, one a SM)."""
+    from pathlib import Path
+
+    csrc = Path(tfc.__file__).resolve().parent.parent / "csrc"
+    text = (csrc / source).read_text()
+    wgdw = text[text.index("namespace wgdw {"):]
+    assert _cu_constant(wgdw, "kTile") == tfm.DW_WG_TILE
+    header = (csrc / "wgmma_dw.cuh").read_text()
+    assert _cu_constant(header, "kPix") == tfm.DW_STEP
+    if source == "fused_conv3.cu":
+        assert _cu_constant(wgdw, "kThreads") == 384
+        assert tfm.DW_RESIDENT[3] == 1
+    else:
+        for wgs in (1, 2, 4):
+            assert _cu_constant(wgdw, f"kResident{wgs}") == tfm.DW_RESIDENT[wgs]
+        assert (tfm.DW_RESIDENT[1], tfm.DW_RESIDENT[2],
+                tfm.DW_RESIDENT[4]) == (3, 2, 1)
+
+
 @pytest.mark.parametrize("m,n", K5F_SHAPES[:4])
 def test_k5f_plan_fills_the_h100(m, n):
     """At every ResNet-50 stage shape bf16 K5f launches at least one CTA

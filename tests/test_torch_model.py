@@ -70,6 +70,41 @@ def test_greedy_generate_token_exact(kind):
     np.testing.assert_array_equal(out.numpy(), np.asarray(ref))
 
 
+# generate's logit options under greedy decoding (top_k and top_p filter
+# only a sampled distribution, and are ignored there, as in JAX)
+GENERATE_OPTIONS = {
+    "repetition_penalty": dict(repetition_penalty=1.5),
+    "repetition_penalty_eos": dict(repetition_penalty=1.5, eos=True),
+    "top_k": dict(top_k=5),
+    "top_p": dict(top_p=0.5),
+}
+
+
+@pytest.mark.parametrize("option", list(GENERATE_OPTIONS))
+@pytest.mark.parametrize("kind", ["gpt2", "llama"])
+def test_generate_options_token_exact(kind, option):
+    """Whole-batch ``generate`` with each option, 16 new tokens, against
+    the JAX ``generate``: the same tokens. With eos, the token the run
+    without eos emits third in row 0 is the eos, so that row stops and
+    pads with it."""
+    jmodel, params = _jax_model(kind)
+    prompt = np.random.default_rng(4).integers(1, 97, (2, 9)).astype(np.int32)
+    kw = dict(GENERATE_OPTIONS[option])
+    if kw.pop("eos", False):
+        free = jlm.generate(jmodel, params, jnp.asarray(prompt),
+                            max_new_tokens=16, **kw)
+        kw["eos_token_id"] = int(np.asarray(free)[0, 9 + 2])
+    ref = jlm.generate(jmodel, params, jnp.asarray(prompt),
+                       max_new_tokens=16, **kw)
+    out = tlm.generate(port_model(jmodel, params), prompt, max_new_tokens=16,
+                       **kw)
+    np.testing.assert_array_equal(out.numpy(), np.asarray(ref))
+    if "eos_token_id" in kw:
+        row = out.numpy()[0, 9:]
+        stop = int(np.argmax(row == kw["eos_token_id"]))
+        assert stop <= 2 and np.all(row[stop:] == kw["eos_token_id"])
+
+
 def test_sampled_generate_is_seeded():
     jmodel, params = _jax_model("gpt2")
     model = port_model(jmodel, params)

@@ -188,6 +188,80 @@ def test_paged_validation():
                                 k_scales=torch.ones(4, 4, 2))
 
 
+class _FakeKernelLibrary:
+    """Stands in for the built kernel library: records the K1 launch's
+    arguments and refuses what ``port_paged_attention`` refuses (a row
+    block over the group's rows, too many blocks, too much shared
+    memory)."""
+
+    def __init__(self):
+        self.calls = []
+
+    def port_paged_attention(self, *args):
+        b, s, h, hkv, d, n, p, mp, rows = args[8:17]
+        r = s * (h // hkv)
+        blocks = -(-r // rows)
+        self.calls.append((s, rows, blocks))
+        smem = t_paged.smem_bytes(rows, d, p)
+        ok = 0 < rows <= r and blocks <= 65535 and smem <= 232448
+        return 0 if ok else 1
+
+
+@pytest.mark.parametrize("kv", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("g", [1, 3, 4, 12])
+def test_paged_row_plan_takes_any_chunk(g, kv, monkeypatch):
+    """K1's row blocks (``row_plan``): every chunk width up to 2048 at
+    P = D = 64 fits the 232,448 bytes of shared memory a block may use
+    (the figure ``csrc/paged_attention.cu`` checks), in equal blocks
+    that cover the group's rows; S <= 8 keeps one block of every row, as
+    before. Through the wrapper, with the launch recorded instead of
+    run, no S — 256 at H = H_kv = 12, GPT-small's chunked-prefill piece,
+    included — is refused for shared memory, for f32, bf16 or int8
+    pages."""
+    import re
+    from pathlib import Path
+
+    from pyspark_tf_gke_tpu_torch.ops import kernels
+
+    cu = (Path(t_paged.__file__).resolve().parent.parent / "csrc"
+          / "paged_attention.cu").read_text()
+    limit = int(re.search(r"constexpr long long kMaxSmem = (\d+);",
+                          cu).group(1))
+    assert limit == t_paged.MAX_SMEM == 232448
+    h, hkv, d, p = 12, 12 // g, 64, 64
+    widths = (1, 2, 8, 85, 86, 255, 256, 257, 512, 1000, 1024, 2048)
+    for s in widths:
+        r = s * g
+        rows, blocks, smem = t_paged.row_plan(s, h, hkv, d, p)
+        assert smem == t_paged.smem_bytes(rows, d, p) <= limit
+        assert (blocks - 1) * rows < r <= blocks * rows
+        old = 4 * (p * (d + 1) + p * d + r * (2 * d + p + 3))
+        if s <= 8 or old <= limit:  # everything that launched before
+            assert (rows, blocks, smem) == (r, 1, old)
+        else:  # the fewest blocks: one block fewer would not fit
+            assert t_paged.smem_bytes(-(-r // (blocks - 1)), d, p) > limit
+    fake = _FakeKernelLibrary()
+    monkeypatch.setattr(kernels, "library", lambda: fake)
+    monkeypatch.setattr(kernels, "require_cuda", lambda name, *t: t[0].device)
+    monkeypatch.setattr(kernels, "launch_args", lambda device: (0, None))
+    dtype = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+             "int8": torch.int8}[kv]
+    qdtype = torch.float32 if kv == "int8" else dtype
+    pages = torch.zeros(2, p, hkv, d, dtype=dtype)
+    scales = ({} if kv != "int8" else
+              dict(k_scales=torch.ones(2, p, hkv),
+                   v_scales=torch.ones(2, p, hkv)))
+    table = torch.zeros(1, 1, dtype=torch.int32)
+    fills = torch.full((1,), 1, dtype=torch.int32)
+    for s in (1, 8, 256, 2048):
+        q = torch.zeros(1, s, h, d, dtype=qdtype)
+        t_paged._launch(q, pages, pages, table, fills,
+                        scales.get("k_scales"), scales.get("v_scales"))
+    assert [c[0] for c in fake.calls] == [1, 8, 256, 2048]
+    if g == 1:
+        assert fake.calls[2] == (256, 128, 2)
+
+
 # -- weight quantization ------------------------------------------------------
 
 

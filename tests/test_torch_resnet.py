@@ -222,6 +222,70 @@ def test_dw_splits_cover_m_in_block_k_steps():
     assert tfm.dw_splits(200704, 64, 256)[0] > 100  # 4 tiles: split M
 
 
+# ResNet-50's 36 fused 1x1 convs at batch 64: the 15 distinct (M, K, N)
+# of its 16 shapes (two differ only in the transform)
+RESNET50_K4_SHAPES = (
+    (200704, 64, 64), (200704, 64, 256), (200704, 256, 64),
+    (200704, 256, 128), (50176, 128, 512), (50176, 256, 512),
+    (50176, 512, 128), (50176, 512, 256), (12544, 256, 1024),
+    (12544, 512, 1024), (12544, 1024, 256), (12544, 1024, 512),
+    (3136, 512, 2048), (3136, 1024, 2048), (3136, 2048, 512))
+
+
+@pytest.mark.parametrize("m,k,n", RESNET50_K4_SHAPES + ((1000, 72, 40),))
+def test_bf16_dw_plan_covers_m_in_whole_steps(m, k, n):
+    """bf16 K4dw's plan: the rows in whole 64-row steps, every split
+    non-empty and at least one step, a CTA tile of 64 or 128 a side —
+    64 where K (N) is at most 64, so no half of a tile is empty at stage
+    1 — and a grid the kernel can launch; f32 keeps ``dw_splits``."""
+    tk, tn, splits, chunk = tfm.dw_plan(m, k, n, torch.bfloat16)
+    assert chunk % tfm.DW_STEP == 0 and chunk >= tfm.DW_STEP
+    assert (splits - 1) * chunk < m <= splits * chunk
+    assert tk == (64 if k <= 64 else 128) and tn == (64 if n <= 64 else 128)
+    tiles = -(-k // tk) * -(-n // tn)
+    assert tiles * splits <= 2 ** 31 - 1
+    if m >= tfm.DW_MIN_STEPS * tfm.DW_STEP:
+        assert chunk >= tfm.DW_MIN_STEPS * tfm.DW_STEP
+    assert tfm.dw_plan(m, k, n, torch.float32) == (
+        tfm.BLOCK_M, tfm.BLOCK_N) + tfm.dw_splits(m, k, n)
+
+
+class _RecordingK4dwLibrary:
+    """Stands in for the built kernel library: records the arguments of
+    ``port_k4_dw`` and refuses what it refuses for bf16 (a CTA tile
+    other than 1 or 2 warpgroup tiles a side)."""
+
+    def __init__(self):
+        self.calls = []
+
+    def port_k4_dw(self, *args):
+        m, kdim, n, transform, splits, chunk, tk, tn = args[6:14]
+        self.calls.append((m, kdim, n, splits, chunk, tk, tn))
+        return 0 if tk in (1, 2) and tn in (1, 2) else 1
+
+
+@pytest.mark.parametrize("m,k,n", RESNET50_K4_SHAPES[::4] + ((1000, 72, 40),))
+def test_bf16_k4dw_launches_at_the_plan_tile(m, k, n, monkeypatch):
+    """The K4dw wrapper hands ``dw_plan``'s tile and split to the kernel,
+    which dispatches on them: the tile rule lives in the plan alone.
+    Shape-only tensors stand in for the card's, and the launch is
+    recorded instead of run."""
+    from pyspark_tf_gke_tpu_torch.ops import kernels
+
+    lib = _RecordingK4dwLibrary()
+    monkeypatch.setattr(kernels, "library", lambda: lib)
+    monkeypatch.setattr(kernels, "require_cuda", lambda name, *t: t[0].device)
+    monkeypatch.setattr(kernels, "launch_args", lambda device: (0, None))
+    x = torch.empty(m, k, dtype=torch.bfloat16, device="meta")
+    dy = torch.empty(m, n, dtype=torch.bfloat16, device="meta")
+    a = torch.empty(k, dtype=torch.float32, device="meta")
+    dw = tfm.norm_relu_matmul_dw(x, dy, a, a, True)
+    assert tuple(dw.shape) == (k, n) and dw.dtype == torch.bfloat16
+    tk, tn, splits, chunk = tfm.dw_plan(m, k, n, torch.bfloat16)
+    assert lib.calls == [(m, k, n, splits, chunk, tk // tfm.DW_WG_TILE,
+                          tn // tfm.DW_WG_TILE)]
+
+
 def test_bn_helpers_match_jax():
     rng = np.random.default_rng(43)
     s, ss = rng.normal(size=7), rng.uniform(0, 3, size=7)
