@@ -17,15 +17,16 @@
    H=12 D=64: causal, causal + segments, and key padding + segments +
    causal with a fully masked row; K3b at [8192, 768] with and without
    residual), and the ResNet kernels (K4f, K4dx and K4dw at four of
-   ResNet-50's 1x1-conv shapes and a ragged one; K5f, K5dx and K5dw at
+   ResNet-50's 1x1-conv shapes, a ragged one and one whose K and N are
+   not multiples of 8; K5f, K5dx and K5dw at
    the four stride-1 3x3 shapes, a ragged one and one whose K and N are
    not multiples of 8, with and without the transform and the
    statistics) — and times kernel, plain version and a library yardstick
    with CUDA events (K2f at B=8 S=1024 and B=16 S=512; K4: on all 16
    shapes of a ResNet-50 step, summed over its 36 calls; K5: on the four
-   stage shapes, summed over its 13 calls, against cuDNN; K2f, K5f and
-   the bf16 K4dw and K5dw and their yardsticks also replayed from a CUDA
-   graph, which takes the host's launch cost out);
+   stage shapes, summed over its 13 calls, against cuDNN; K2f, K5f, K4f,
+   K4dx and the bf16 K4dw and K5dw and their yardsticks also replayed
+   from a CUDA graph, which takes the host's launch cost out);
 4. serving main path: serves a full-width GPT-small paged bundle
    (random weights from a numpy seed, int8 export) through
    ``BundleServer`` + the HTTP server with 8 continuous slots: 12
@@ -542,11 +543,12 @@ RESNET50_K4_SHAPES = (
     (12544, 1024, 512, None, 1), (3136, 512, 2048, "relu", 3),
     (3136, 1024, 2048, None, 1), (3136, 2048, 512, None, 2))
 # the shapes held against the plain versions (bf16 and f32): two of
-# stage 1, one of stage 3, one of stage 4, and a ragged one with the
-# affine transform and no relu
+# stage 1, one of stage 3, one of stage 4, a ragged one with the affine
+# transform and no relu, and one whose K and N are not multiples of 8
+# (the masked edge path of the bf16 kernels)
 K4_CHECK_SHAPES = ((200704, 256, 64, None), (200704, 64, 256, "relu"),
                    (12544, 1024, 256, None), (3136, 512, 2048, "relu"),
-                   (1000, 72, 40, "affine"))
+                   (1000, 72, 40, "affine"), (1000, 12, 20, "relu"))
 
 
 def _k4_tol(ref, dtype_name: str, over_m: bool = False):
@@ -588,7 +590,9 @@ def check_fused_matmul(torch, dev):
     shapes in bf16 and f32; then each kernel, its plain version and a
     ``torch.matmul`` of the same product (cuBLAS, operands prepared
     outside the timed region: no transform, mask or statistics) timed
-    on all 16 distinct shapes of a step, summed over its 36 calls."""
+    on all 16 distinct shapes of a step, summed over its 36 calls,
+    eager and replayed from a CUDA graph (the bf16 kernels are all on
+    the tensor cores)."""
     from pyspark_tf_gke_tpu_torch.ops import fused_matmul as fm
 
     g = torch.Generator(device=dev).manual_seed(8)
@@ -627,8 +631,8 @@ def check_fused_matmul(torch, dev):
 
     totals = {key: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
                         ops_ms=0.0, bytes_ms=0.0) for key in errs}
-    # K4dw (the tensor-core kernel) and its matmul also graph-replayed
-    graphed = dict(graph_ms=0.0, library_graph_ms=0.0)
+    # each kernel and its matmul also graph-replayed
+    graphed = {key: dict(graph_ms=0.0, library_graph_ms=0.0) for key in errs}
     for m, k, n, transform, count in RESNET50_K4_SHAPES:
         x, w, dy, a, b = _k4_inputs(torch, dev, g, m, k, n, torch.bfloat16,
                                     transform)
@@ -675,12 +679,11 @@ def check_fused_matmul(torch, dev):
             tot["bound_ms"] += count * bms
             tot["bytes_ms"] += count * nbytes / HBM_BYTES_PER_S * 1e3
             tot["ops_ms"] += count * ops / PEAK_OPS["bfloat16"] * 1e3
-            line.append(f"{key[13:]} {ms:.4f}/{pms:.4f}/{lms:.4f}/{bms:.4f}")
-            if key == "fused_matmul_dw":
-                gms, glms = graph_ms(kern, 5), graph_ms(lib, 5)
-                graphed["graph_ms"] += count * gms
-                graphed["library_graph_ms"] += count * glms
-                line.append(f"dw graph-replayed {gms:.4f}/{glms:.4f}")
+            gms, glms = graph_ms(kern, 5), graph_ms(lib, 5)
+            graphed[key]["graph_ms"] += count * gms
+            graphed[key]["library_graph_ms"] += count * glms
+            line.append(f"{key[13:]} {ms:.4f}/{pms:.4f}/{lms:.4f}/{bms:.4f} "
+                        f"graph-replayed {gms:.4f}/{glms:.4f}")
         log(f"  k4 bf16 M={m} K={k} N={n} {transform or 'plain'} x{count} "
             f"(kernel/plain/matmul/bound ms): {', '.join(line)}")
         del x, w, dy, xn, wt, xnt
@@ -694,7 +697,8 @@ def check_fused_matmul(torch, dev):
                       else "operations"),
             shape="the 36 calls of one ResNet-50 step, batch 64, bf16 "
                   "(summed)")
-    recs["fused_matmul_dw"].update(graphed)
+    for key, times in graphed.items():
+        recs[key].update(times)
     return recs
 
 
@@ -1891,9 +1895,9 @@ KERNELS = (
     ("paged_attention", "pyspark_tf_gke_tpu_torch/csrc/paged_attention.cu",
      "pyspark_tf_gke_tpu/ops/pallas/paged_attention.py:124", "simt"),
     ("fused_matmul_fwd", "pyspark_tf_gke_tpu_torch/csrc/fused_matmul.cu",
-     "pyspark_tf_gke_tpu/ops/pallas/fused_matmul.py:91", "simt"),
+     "pyspark_tf_gke_tpu/ops/pallas/fused_matmul.py:91", "wgmma"),
     ("fused_matmul_dx", "pyspark_tf_gke_tpu_torch/csrc/fused_matmul.cu",
-     "pyspark_tf_gke_tpu/ops/pallas/fused_matmul.py:178", "simt"),
+     "pyspark_tf_gke_tpu/ops/pallas/fused_matmul.py:178", "wgmma"),
     ("fused_matmul_dw", "pyspark_tf_gke_tpu_torch/csrc/fused_matmul.cu",
      "pyspark_tf_gke_tpu/ops/pallas/fused_matmul.py:246", "wgmma"),
     ("fused_conv3_fwd", "pyspark_tf_gke_tpu_torch/csrc/fused_conv3.cu",

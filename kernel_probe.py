@@ -25,7 +25,16 @@ editing a ``.cu`` file, and for the experiments PERF.md reports.
         kFresh);
     python3 kernel_probe.py dw-modes
         bf16 K4dw and K5dw at ResNet-50's stage shapes with and without
-        the transform, eager and replayed from a CUDA graph.
+        the transform, eager and replayed from a CUDA graph;
+    python3 kernel_probe.py k4-accuracy
+        bf16 K4f and K4dx and their plain versions against an f64
+        reference: y and dx elements a bf16 rounding away from it, and
+        the statistics (y's, and d a, d b; the accumulator granularity
+        is fused_matmul.cu's wg::kGroup);
+    python3 kernel_probe.py k4-modes
+        bf16 K4f and K4dx at the 16 shapes of a ResNet-50 step with and
+        without the transform, eager and replayed from a CUDA graph, and
+        the sums over a step's 36 calls.
 
 Each exits non-zero without a CUDA device.
 """
@@ -247,6 +256,105 @@ def dw_modes(torch, dev) -> None:
                   f"{cs.graph_ms(fn, 5):.4f} ms", flush=True)
 
 
+def _k4_ptxas() -> None:
+    """Build the kernels and print ptxas's registers and spills of the
+    bf16 K4f and K4dx kernels (none where this process found the
+    library built)."""
+    import chip_smoke as cs
+    from pyspark_tf_gke_tpu_torch.ops import kernels
+
+    kernels.library()
+    for fn, info in cs.ptxas_report(kernels.build_log).items():
+        if "k4_fwd_wgmma" in fn or "k4_dx_wgmma" in fn:
+            print(f"ptxas {fn[fn.index('k4_'):][:40]}: {info['used']}; spill "
+                  f"{info['spill_stores']}/{info['spill_loads']} B", flush=True)
+
+
+# K4 (M, K, N, transform) for the accuracy probe: K from 64 to 2048, both
+# tile widths, and the ragged vector path
+K4_ACC_SHAPES = ((200704, 64, 256, "relu"), (200704, 256, 64, None),
+                 (50176, 512, 128, None), (12544, 1024, 256, None),
+                 (3136, 2048, 512, None), (3136, 512, 2048, "relu"),
+                 (1000, 72, 40, "affine"))
+
+
+def _k4_f64(torch, fm, x, w, dy, a, b, relu):
+    """f64 references of K4f (y rounded to bf16, its statistics) and
+    K4dx (dx rounded to bf16, d a and d b), from the bf16 inputs, with
+    the relu mask of the f32 transform the kernels and plain versions
+    use."""
+    y = (fm._transform(x, a, b, relu).double() @ w.double()).to(
+        torch.bfloat16).double()
+    ystats = torch.stack([y.sum(0), (y * y).sum(0)])
+    u = dy.double() @ w.double().t()
+    if a is None:
+        return y, ystats, u.to(torch.bfloat16).double(), None
+    xf = x.float()
+    if relu:
+        u = torch.where(xf * a + b > 0, u, torch.zeros_like(u))
+    dx = (u * a.double()).to(torch.bfloat16).double()
+    return y, ystats, dx, torch.stack([(u * xf.double()).sum(0), u.sum(0)])
+
+
+def k4_accuracy(torch, dev) -> None:
+    import chip_smoke as cs
+    from pyspark_tf_gke_tpu_torch.ops import fused_matmul as fm
+
+    _k4_ptxas()
+    g = torch.Generator(device=dev).manual_seed(8)
+    for m, k, n, t in K4_ACC_SHAPES:
+        x, w, dy, a, b = cs._k4_inputs(torch, dev, g, m, k, n,
+                                       torch.bfloat16, t)
+        relu = t == "relu"
+        y, st = fm.norm_relu_matmul_fwd(x, w, a, b, relu, True)
+        ry, rst = fm._fwd_plain(x, w, a, b, relu, True)
+        dx, ds = fm.norm_relu_matmul_dx(dy, w, x, a, b, relu)
+        rdx, rds = fm.norm_relu_matmul_dx_plain(dy, w, x, a, b, relu)
+        y64, st64, dx64, ds64 = _k4_f64(torch, fm, x, w, dy, a, b, relu)
+        line = (f"M={m} K={k} N={n} {t or 'plain'}: y off f64 by a "
+                f"rounding: kernel {int((y.double() != y64).sum())}, plain "
+                f"{int((ry.double() != y64).sum())} of {y.numel()}; stats "
+                f"rel kernel {_rel(st, st64):.2e}, plain "
+                f"{_rel(rst, st64):.2e}; dx off: kernel "
+                f"{int((dx.double() != dx64).sum())}, plain "
+                f"{int((rdx.double() != dx64).sum())} of {dx.numel()}")
+        if ds64 is not None:
+            line += (f"; d a, d b rel kernel {_rel(ds, ds64):.2e}, "
+                     f"plain {_rel(rds, ds64):.2e}")
+        print(line, flush=True)
+        del x, w, dy, y, ry, dx, rdx, y64, dx64
+    torch.cuda.empty_cache()
+
+
+def k4_modes(torch, dev) -> None:
+    import chip_smoke as cs
+    from pyspark_tf_gke_tpu_torch.ops import fused_matmul as fm
+
+    _k4_ptxas()
+    sums = {}
+    g = torch.Generator(device=dev).manual_seed(9)
+    for m, k, n, _, count in cs.RESNET50_K4_SHAPES:
+        x, w, dy, a, b = cs._k4_inputs(torch, dev, g, m, k, n, torch.bfloat16,
+                                       "relu")
+        for mode, aa, bb, relu in (("relu", a, b, True),
+                                   ("plain", None, None, False)):
+            calls = (("K4f", lambda: fm.norm_relu_matmul_fwd(
+                         x, w, aa, bb, relu, True)),
+                     ("K4dx", lambda: fm.norm_relu_matmul_dx(
+                         dy, w, x, aa, bb, relu)))
+            for op, fn in calls:
+                eager = cs.cuda_ms(fn, warmup=2, iters=5, reps=5)
+                graph = cs.graph_ms(fn, 5)
+                e0, g0 = sums.get((op, mode), (0.0, 0.0))
+                sums[(op, mode)] = (e0 + count * eager, g0 + count * graph)
+                print(f"{op} M={m} K={k} N={n} {mode} x{count}: eager "
+                      f"{eager:.4f} graph {graph:.4f} ms", flush=True)
+        del x, w, dy
+    for (op, mode), (eager, graph) in sums.items():
+        print(f"{op} {mode}, a step's 36 calls: eager {eager:.4f} "
+              f"graph {graph:.4f} ms", flush=True)
+
+
 def main(argv) -> int:
     import torch
 
@@ -263,7 +371,9 @@ def main(argv) -> int:
                 "graph": lambda: graph(torch, dev),
                 "trans-a": lambda: trans_a(torch, dev),
                 "dw-accuracy": lambda: dw_accuracy(torch, dev),
-                "dw-modes": lambda: dw_modes(torch, dev)}
+                "dw-modes": lambda: dw_modes(torch, dev),
+                "k4-accuracy": lambda: k4_accuracy(torch, dev),
+                "k4-modes": lambda: k4_modes(torch, dev)}
     if not argv or argv[0] not in commands:
         print(__doc__, file=sys.stderr)
         return 2

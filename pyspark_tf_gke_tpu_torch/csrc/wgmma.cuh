@@ -1,11 +1,13 @@
 // Hopper building blocks of the port's tensor-core kernels (sm_90a): the
 // 128-byte swizzled shared-memory layout and its wgmma matrix
-// descriptors, the bf16 m64n64k16 warpgroup products (A from shared
-// memory, K- or MN-major, or from registers), mbarriers, the proxy
-// fence, TMA tensor loads and their tensor maps, and cp.async. Only what
-// the bf16 flash forward (flash_attention.cu), the bf16 fused 3x3 conv
-// forward (fused_conv3.cu) and the bf16 weight gradients (wgmma_dw.cuh)
-// use; PTX as in the PTX ISA's wgmma, mbarrier, cp.async and
+// descriptors, the bf16 m64n64k16 and m64n128k16 warpgroup products (A
+// from shared memory, K- or MN-major, or from registers), mbarriers,
+// named barriers, register moves between warpgroups, the proxy fence,
+// TMA tensor loads and stores and their tensor maps, and cp.async. Only what the bf16 flash forward
+// (flash_attention.cu), the bf16 fused 3x3 conv forward (fused_conv3.cu),
+// the bf16 fused 1x1 conv forward and input gradient (fused_matmul.cu)
+// and the bf16 weight gradients (wgmma_dw.cuh) use; PTX as in the PTX
+// ISA's wgmma, mbarrier, bar, cp.async, cp.async.bulk and
 // cp.async.bulk.tensor sections.
 //
 // Layout. A tile row of 64 bf16 is 128 bytes, one row of the 128-byte
@@ -21,9 +23,11 @@
 //    weights [K, N]; for the weight gradients both A = x^T and B = dy,
 //    pixels x channels), read with the transpose bit: one row of 64
 //    output columns per reduction index, 8 reduction rows per atom, so a
-//    k16 step advances 2048 bytes. The tile is one atom wide (64
-//    columns), so the stride between atoms along the output axis is
-//    never used; both offsets are set to 1024.
+//    k16 step advances 2048 bytes. The stride between 8-row groups
+//    along the reduction (SBO) is 1024; the stride between 64-column
+//    atoms along the output axis (LBO) is used only by an n128 product
+//    over two atoms (K4f's B: the atoms 8 KB apart), and set to 1024 where
+//    the tile is one atom wide.
 #pragma once
 
 #include <cuda.h>
@@ -50,7 +54,9 @@ __device__ __forceinline__ uint64_t desc_sw128(uint32_t saddr, uint32_t lbo, uin
          (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
 }
 __device__ __forceinline__ uint64_t desc_kmajor(uint32_t saddr) { return desc_sw128(saddr, 16, 1024); }
-__device__ __forceinline__ uint64_t desc_mnmajor(uint32_t saddr) { return desc_sw128(saddr, 1024, 1024); }
+__device__ __forceinline__ uint64_t desc_mnmajor(uint32_t saddr, uint32_t atom_stride = 1024) {
+  return desc_sw128(saddr, atom_stride, 1024);
+}
 
 // -- warpgroup products -------------------------------------------------------
 
@@ -76,6 +82,13 @@ __device__ __forceinline__ void fence_operand(float (&d)[N]) {
       "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),       \
       "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),       \
       "+f"(d[31])
+#define PORT_D32_OUT                                                                      \
+  "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]), "=f"(d[4]), "=f"(d[5]), "=f"(d[6]),     \
+      "=f"(d[7]), "=f"(d[8]), "=f"(d[9]), "=f"(d[10]), "=f"(d[11]), "=f"(d[12]),          \
+      "=f"(d[13]), "=f"(d[14]), "=f"(d[15]), "=f"(d[16]), "=f"(d[17]), "=f"(d[18]),       \
+      "=f"(d[19]), "=f"(d[20]), "=f"(d[21]), "=f"(d[22]), "=f"(d[23]), "=f"(d[24]),       \
+      "=f"(d[25]), "=f"(d[26]), "=f"(d[27]), "=f"(d[28]), "=f"(d[29]), "=f"(d[30]),       \
+      "=f"(d[31])
 #define PORT_DREGS                                                                        \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "               \
   "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
@@ -97,6 +110,21 @@ __device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t da, 
       : "l"(da), "l"(db), "r"(scale_d), "n"(kTransA), "n"(kTransB));
 }
 
+// d = A B (scale_d 0) as above with B from shared memory and A K-major,
+// the outputs write-only: the old accumulator is dead before the product
+// (the "+f" form keeps it live), so a restarted accumulator costs no
+// registers while the other one's products run.
+template <int kTransB>
+__device__ __forceinline__ void wgmma_m64n64k16_ss_first(float (&d)[32], uint64_t da,
+                                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " PORT_DREGS
+      ", %32, %33, p, 1, 1, 0, %35;\n}\n"
+      : PORT_D32_OUT
+      : "l"(da), "l"(db), "r"(0), "n"(kTransB));
+}
+
 // As above with A from registers: a[4] holds the thread's bf16 pairs of
 // the 64 x 16 A tile in mma.sync's m16n8k16 A-fragment order (warp w
 // rows 16w..16w+15): a[0] (row l/4, cols 2(l%4)+{0,1}), a[1] (row
@@ -115,7 +143,70 @@ __device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32], const uint32_
 }
 
 #undef PORT_D32
+#undef PORT_D32_OUT
 #undef PORT_DREGS
+
+#define PORT_D64                                                                     \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),            \
+      "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),      \
+      "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),  \
+      "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),  \
+      "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),  \
+      "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),  \
+      "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),  \
+      "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),  \
+      "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),  \
+      "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),  \
+      "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+#define PORT_D64_OUT                                                                    \
+  "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]), "=f"(d[4]), "=f"(d[5]),            \
+      "=f"(d[6]), "=f"(d[7]), "=f"(d[8]), "=f"(d[9]), "=f"(d[10]), "=f"(d[11]),      \
+      "=f"(d[12]), "=f"(d[13]), "=f"(d[14]), "=f"(d[15]), "=f"(d[16]), "=f"(d[17]),  \
+      "=f"(d[18]), "=f"(d[19]), "=f"(d[20]), "=f"(d[21]), "=f"(d[22]), "=f"(d[23]),  \
+      "=f"(d[24]), "=f"(d[25]), "=f"(d[26]), "=f"(d[27]), "=f"(d[28]), "=f"(d[29]),  \
+      "=f"(d[30]), "=f"(d[31]), "=f"(d[32]), "=f"(d[33]), "=f"(d[34]), "=f"(d[35]),  \
+      "=f"(d[36]), "=f"(d[37]), "=f"(d[38]), "=f"(d[39]), "=f"(d[40]), "=f"(d[41]),  \
+      "=f"(d[42]), "=f"(d[43]), "=f"(d[44]), "=f"(d[45]), "=f"(d[46]), "=f"(d[47]),  \
+      "=f"(d[48]), "=f"(d[49]), "=f"(d[50]), "=f"(d[51]), "=f"(d[52]), "=f"(d[53]),  \
+      "=f"(d[54]), "=f"(d[55]), "=f"(d[56]), "=f"(d[57]), "=f"(d[58]), "=f"(d[59]),  \
+      "=f"(d[60]), "=f"(d[61]), "=f"(d[62]), "=f"(d[63])
+#define PORT_DREGS64                                                                           \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "     \
+      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "  \
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, "  \
+      "%53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}"
+
+// d[64 x 128] (+)= A[64 x 16] B[16 x 128], both from shared memory (A
+// K-major), f32 accumulators; kTransB: B is MN-major (two 64-column
+// atoms, LBO apart). Accumulator layout as the n64 product's, for
+// 8-column groups j < 16: d[4j + e] is row 16w + l/4 + 8*(e/2), column
+// 8j + 2*(l%4) + e%2.
+template <int kTransB>
+__device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64], uint64_t da, uint64_t db,
+                                                    int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " PORT_DREGS64
+      ", %64, %65, p, 1, 1, 0, %67;\n}\n"
+      : PORT_D64
+      : "l"(da), "l"(db), "r"(scale_d), "n"(kTransB));
+}
+
+// d = A B, the outputs write-only (as wgmma_m64n64k16_ss_first)
+template <int kTransB>
+__device__ __forceinline__ void wgmma_m64n128k16_ss_first(float (&d)[64], uint64_t da,
+                                                          uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " PORT_DREGS64
+      ", %64, %65, p, 1, 1, 0, %67;\n}\n"
+      : PORT_D64_OUT
+      : "l"(da), "l"(db), "r"(0), "n"(kTransB));
+}
+
+#undef PORT_D64
+#undef PORT_D64_OUT
+#undef PORT_DREGS64
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (low half) = lo
@@ -157,8 +248,34 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t phase) {
   }
 }
 
+// a plain arrival (no transaction bytes): a count of arrivals, or
+// copies made by threads, completes the phase
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
+// barrier `id` (1-15; 0 is __syncthreads) over `count` threads, a
+// multiple of 32: the warps that name it wait for each other only
+__device__ __forceinline__ void named_barrier(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+// Move registers between the warpgroups of a warp-specialised CTA: the
+// warpgroup that executes dec gives its registers above N back, inc
+// waits until N a thread are free; every warp of the warpgroup executes
+// it. ptxas allocates the code that follows within N.
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
 // order this thread's generic-proxy shared-memory writes (st.shared,
-// cp.async) before later async-proxy reads (wgmma operands)
+// cp.async) before later async-proxy accesses (wgmma operands, TMA
+// stores; and TMA loads into the same bytes)
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
@@ -185,6 +302,25 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, u
       "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
       : "memory");
+}
+
+// TMA store: shared memory at src to the box at coordinates (c0, c1) of
+// a 2-D tensor map; the parts of the box outside the tensor are not
+// written. Tracked by this thread's bulk groups.
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, const void* src, int c0,
+                                             int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() { asm volatile("cp.async.bulk.commit_group;\n" ::: "memory"); }
+// wait until at most N of this thread's committed bulk groups still read
+// shared memory (their global writes may still be in flight)
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
 }
 
 // cuTensorMapEncodeTiled from libcuda, which the process has loaded (the

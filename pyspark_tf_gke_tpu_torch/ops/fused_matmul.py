@@ -13,11 +13,12 @@ per-column ``sum`` and ``sumsq`` of the rounded ``y`` — the consumer
 BatchNorm's statistics (:func:`stats_to_moments`). It is a
 ``torch.autograd.Function``: the forward is the K4f kernel and the
 backward is K4dx (``dx`` with the relu mask, and ``d a``, ``d b``) plus
-K4dw (``dw``), all in ``csrc/fused_matmul.cu``. K4dw chooses its design
-by dtype: bf16 runs the tensor-core kernel (``wgmma`` over TMA-filled
-swizzled tiles, ``csrc/wgmma_dw.cuh``, shared with K5dw), f32 the
-CUDA-core kernel that K4f and K4dx run in both dtypes; :func:`dw_plan`
-gives each one's tile and split of the rows. The BatchNorm chain
+K4dw (``dw``), all in ``csrc/fused_matmul.cu``. Each chooses its design
+by dtype: bf16 runs the tensor-core kernels (``wgmma`` over TMA-filled
+swizzled tiles; K4f and K4dx on persistent CTAs with a producer
+warpgroup, K4dw on ``csrc/wgmma_dw.cuh``, shared with K5dw), f32 the CUDA-core
+kernels; :func:`k4_plan` gives K4f's and K4dx's tile, :func:`dw_plan`
+K4dw's tile and split of the rows. The BatchNorm chain
 around it (moments from the sums, the fold) is plain PyTorch that
 autograd differentiates, as JAX differentiates it around the
 ``custom_vjp``.
@@ -48,6 +49,13 @@ from pyspark_tf_gke_tpu_torch.ops import kernels
 BLOCK_M = 128  # output tile of the CUDA-core K4 kernels (tile_gemm.cuh kBM, kBN)
 BLOCK_N = 64
 BLOCK_K = 16   # reduction step; f32 K4dw's M splits are multiples of it
+
+# bf16 K4f and K4dx, the tensor-core kernels (fused_matmul.cu wg::): a
+# CTA tile of K4_BLOCK_M rows (two warpgroups of 64) by 64 output
+# columns where the output is at most 64 wide, else 128; persistent
+# CTAs, one an SM, walk the tiles
+K4_BLOCK_M = 128
+K4_BLOCK_N = (64, 128)
 DW_TARGET_BLOCKS = 528  # f32 K4dw: split M until ~4 blocks per SM of an H100
 DW_MIN_ROWS = 256  # ... but give each split at least this many rows
 
@@ -195,6 +203,24 @@ def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
+@functools.lru_cache(maxsize=None)
+def k4_plan(m: int, kdim: int, n: int, dtype: torch.dtype
+            ) -> Tuple[int, int, int, int]:
+    """The output tiles of K4f's product ``[m, kdim] @ [kdim, n]`` (and of
+    K4dx's ``dy [m, n] @ w^T``, as ``k4_plan(m, n, kdim, dtype)``):
+    ``(block_m, block_n, tiles_m, tiles_n)``; the statistics partials
+    are ``[tiles_m, 2, n]``. bf16 runs the tensor-core kernel
+    (:data:`K4_BLOCK_M` rows, 64 columns up to ``n = 64`` and 128
+    beyond), f32 the CUDA-core kernel (:data:`BLOCK_M` x
+    :data:`BLOCK_N`). A function of the shape and dtype alone, so the
+    order of summation (and the result) does not depend on the card."""
+    if dtype != torch.bfloat16:
+        bm, bn = BLOCK_M, BLOCK_N
+    else:
+        bm, bn = K4_BLOCK_M, K4_BLOCK_N[0 if n <= K4_BLOCK_N[0] else 1]
+    return bm, bn, _cdiv(m, bm), _cdiv(n, bn)
+
+
 def norm_relu_matmul_fwd(x: torch.Tensor, w: torch.Tensor,
                          a: Optional[torch.Tensor], b: Optional[torch.Tensor],
                          relu: bool, want_stats: bool
@@ -209,18 +235,19 @@ def norm_relu_matmul_fwd(x: torch.Tensor, w: torch.Tensor,
     if w.shape[0] != kdim:
         raise ValueError(f"k4_fwd: x {tuple(x.shape)} @ w {tuple(w.shape)}")
     y = torch.empty((m, n), dtype=x.dtype, device=device)
-    stats = (torch.zeros((2, n), dtype=torch.float32, device=device)
+    # the kernel writes every column of the statistics
+    stats = (torch.empty((2, n), dtype=torch.float32, device=device)
              if want_stats else None)
-    if m == 0 or n == 0:
-        return y, stats
-    if kdim == 0:  # an empty product: y and its statistics are zero
-        return y.zero_(), stats
-    part = (torch.empty((_cdiv(m, BLOCK_M), 2, n), dtype=torch.float32,
-                        device=device) if want_stats else None)
+    if m == 0 or n == 0 or kdim == 0:  # an empty product: all zero
+        return y.zero_(), None if stats is None else stats.zero_()
+    _, block_n, tiles_m, _ = k4_plan(m, kdim, n, x.dtype)
+    part = (torch.empty((tiles_m, 2, n), dtype=torch.float32, device=device)
+            if want_stats else None)
     rc = kernels.library().port_k4_fwd(
         x.data_ptr(), w.data_ptr(), _ptr(a), _ptr(b), y.data_ptr(),
         _ptr(part), _ptr(stats), m, kdim, n, _transform_code(a, relu),
-        int(want_stats), code, *kernels.launch_args(device))
+        int(want_stats), block_n, code,
+        *kernels.launch_args(device))
     kernels.check(rc, "k4_fwd")
     fwd_launches += 1
     return y, stats
@@ -240,18 +267,19 @@ def norm_relu_matmul_dx(dy: torch.Tensor, w: torch.Tensor, x: torch.Tensor,
         raise ValueError(f"k4_dx: dy {tuple(dy.shape)}, w {tuple(w.shape)}, "
                          f"x {tuple(x.shape)}")
     dx = torch.empty_like(x)
-    dstats = (torch.zeros((2, kdim), dtype=torch.float32, device=device)
+    # the kernel writes every column of d a, d b
+    dstats = (torch.empty((2, kdim), dtype=torch.float32, device=device)
               if a is not None else None)
-    if m == 0 or kdim == 0:
-        return dx, dstats
-    if n == 0:
-        return dx.zero_(), dstats
-    part = (torch.empty((_cdiv(m, BLOCK_M), 2, kdim), dtype=torch.float32,
+    if m == 0 or kdim == 0 or n == 0:  # an empty product: all zero
+        return dx.zero_(), None if dstats is None else dstats.zero_()
+    _, block_n, tiles_m, _ = k4_plan(m, n, kdim, x.dtype)
+    part = (torch.empty((tiles_m, 2, kdim), dtype=torch.float32,
                         device=device) if a is not None else None)
     rc = kernels.library().port_k4_dx(
         dy.data_ptr(), w.data_ptr(), x.data_ptr(), _ptr(a), _ptr(b),
         dx.data_ptr(), _ptr(part), _ptr(dstats), m, kdim, n,
-        _transform_code(a, relu), code, *kernels.launch_args(device))
+        _transform_code(a, relu), block_n, code,
+        *kernels.launch_args(device))
     kernels.check(rc, "k4_dx")
     dx_launches += 1
     return dx, dstats

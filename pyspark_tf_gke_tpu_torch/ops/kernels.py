@@ -58,8 +58,8 @@ SIGNATURES = {
                                 + [_I, _F, _I, _I, _P]),
     "port_flash_attention_dkv": ([_P] * 10 + [_I] * 4 + [_L] * 12
                                  + [_I, _F, _I, _I, _P]),
-    "port_k4_fwd": [_P] * 7 + [_I] * 7 + [_P],
-    "port_k4_dx": [_P] * 8 + [_I] * 6 + [_P],
+    "port_k4_fwd": [_P] * 7 + [_I] * 8 + [_P],
+    "port_k4_dx": [_P] * 8 + [_I] * 7 + [_P],
     "port_k4_dw": [_P] * 6 + [_I] * 10 + [_P],
     "port_k5_fwd": [_P] * 7 + [_I] * 9 + [_P],
     "port_k5_dx": [_P] * 8 + [_I] * 8 + [_P],

@@ -286,6 +286,97 @@ def test_bf16_k4dw_launches_at_the_plan_tile(m, k, n, monkeypatch):
                           tn // tfm.DW_WG_TILE)]
 
 
+@pytest.mark.parametrize("m,k,n", RESNET50_K4_SHAPES + ((1000, 72, 40),))
+def test_k4_plan_tiles_cover_the_output(m, k, n):
+    """K4f's and K4dx's plan: bf16 tiles of 128 rows (the tensor-core
+    kernel's ``wg::kBM``) by 64 columns where the output is at most 64
+    wide (no half-empty tile at stage 1) and 128 beyond; f32 keeps the
+    CUDA-core kernel's ``BLOCK_M`` x ``BLOCK_N``. The tiles cover the
+    output, K4f's [M, N] and K4dx's [M, K] alike."""
+    from pathlib import Path
+
+    csrc = Path(tfm.__file__).resolve().parent.parent / "csrc"
+    text = (csrc / "fused_matmul.cu").read_text()
+    wg = text[text.index("namespace wg {"):]
+    assert int(wg.split("constexpr int kBM = ")[1].split(";")[0]) == (
+        tfm.K4_BLOCK_M)
+    for rows, red, cols in ((m, k, n), (m, n, k)):  # K4f, K4dx
+        for dtype in (torch.bfloat16, torch.float32):
+            bm, bn, tiles_m, tiles_n = tfm.k4_plan(rows, red, cols, dtype)
+            if dtype == torch.bfloat16:
+                assert (bm, bn) == (tfm.K4_BLOCK_M, 64 if cols <= 64 else 128)
+            else:
+                assert (bm, bn) == (tfm.BLOCK_M, tfm.BLOCK_N)
+            assert (tiles_m - 1) * bm < rows <= tiles_m * bm
+            assert (tiles_n - 1) * bn < cols <= tiles_n * bn
+
+
+class _RecordingK4Library:
+    """Stands in for the built kernel library: records the arguments of
+    ``port_k4_fwd`` and ``port_k4_dx`` after the dtype-independent ones
+    (M, K, N, the transform, K4f's want_stats and the tile width),
+    checks the count against ``kernels.SIGNATURES``, and refuses what
+    the C entry points refuse (bf16: a tile other than 64 or 128 wide;
+    f32: other than 64)."""
+
+    def __init__(self):
+        self.calls = []
+
+    def _record(self, name, args, first):
+        from pyspark_tf_gke_tpu_torch.ops import kernels
+
+        assert len(args) == len(kernels.SIGNATURES[name])
+        fields = args[first:-3]
+        self.calls.append((name,) + tuple(fields))
+        block_n, dtype = args[-4], args[-3]
+        ok = block_n in (64, 128) if dtype == 1 else block_n == 64
+        return 0 if ok else 1
+
+    def port_k4_fwd(self, *args):
+        return self._record("port_k4_fwd", args, 7)
+
+    def port_k4_dx(self, *args):
+        return self._record("port_k4_dx", args, 8)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("m,k,n", RESNET50_K4_SHAPES[::4] + ((1000, 72, 40),))
+def test_k4_fwd_and_dx_launch_at_the_plan_tile(m, k, n, dtype, monkeypatch):
+    """The K4f and K4dx wrappers size the statistics partials ``[tiles_m,
+    2, C]`` from ``k4_plan`` and hand its tile width to the kernel,
+    which dispatches on it. Shape-only tensors stand in for the card's,
+    and the launches are recorded instead of run."""
+    from pyspark_tf_gke_tpu_torch.ops import kernels
+
+    lib = _RecordingK4Library()
+    monkeypatch.setattr(kernels, "library", lambda: lib)
+    monkeypatch.setattr(kernels, "require_cuda", lambda name, *t: t[0].device)
+    monkeypatch.setattr(kernels, "launch_args", lambda device: (0, None))
+    partials = []
+    empty = torch.empty
+
+    def recording_empty(*shape, **kwargs):
+        dims = tuple(shape[0]) if isinstance(shape[0], tuple) else shape
+        if kwargs.get("dtype") == torch.float32 and len(dims) == 3:
+            partials.append(dims)
+        return empty(*shape, **kwargs)
+
+    monkeypatch.setattr(torch, "empty", recording_empty)
+    x = torch.empty(m, k, dtype=dtype, device="meta")
+    w = torch.empty(k, n, dtype=dtype, device="meta")
+    dy = torch.empty(m, n, dtype=dtype, device="meta")
+    a = torch.empty(k, dtype=torch.float32, device="meta")
+    y, stats = tfm.norm_relu_matmul_fwd(x, w, a, a, True, True)
+    assert tuple(y.shape) == (m, n) and tuple(stats.shape) == (2, n)
+    dx, dstats = tfm.norm_relu_matmul_dx(dy, w, x, a, a, True)
+    assert tuple(dx.shape) == (m, k) and tuple(dstats.shape) == (2, k)
+    _, bn_f, tiles_f, _ = tfm.k4_plan(m, k, n, dtype)
+    _, bn_d, tiles_d, _ = tfm.k4_plan(m, n, k, dtype)
+    assert partials == [(tiles_f, 2, n), (tiles_d, 2, k)]
+    assert lib.calls == [("port_k4_fwd", m, k, n, 2, 1, bn_f),
+                         ("port_k4_dx", m, k, n, 2, bn_d)]
+
+
 def test_bn_helpers_match_jax():
     rng = np.random.default_rng(43)
     s, ss = rng.normal(size=7), rng.uniform(0, 3, size=7)
