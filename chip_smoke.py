@@ -13,20 +13,25 @@
    also at ragged S = 200 and 77 and on q/k/v views of one [B, S, 3, H,
    D] tensor; K1 at S = 1 and 8, and in row blocks at S = 256 and at S =
    512 with 12/4 GQA, queries with no key giving zeros), the training
-   kernels (K2f, K2dq and K2dkv at B=16 S=512
-   H=12 D=64: causal, causal + segments, and key padding + segments +
-   causal with a fully masked row; K3b at [8192, 768] with and without
-   residual), and the ResNet kernels (K4f, K4dx and K4dw at four of
+   kernels (K2f, K2dq and K2dkv at B=16 S=512 H=12 D=64 and at ragged
+   S = 200 and 77: causal, causal + segments, and key padding + segments
+   + causal with an empty row and a fully masked batch row, at S = 200
+   also on q/k/v views of one [B, S, 3, H, D] tensor with an expanded
+   dO; K3b at [8192, 768] with and without residual), and the ResNet
+   kernels (K4f, K4dx and K4dw at four of
    ResNet-50's 1x1-conv shapes, a ragged one and one whose K and N are
    not multiples of 8; K5f, K5dx and K5dw at
    the four stride-1 3x3 shapes, a ragged one and one whose K and N are
    not multiples of 8, with and without the transform and the
    statistics) — and times kernel, plain version and a library yardstick
-   with CUDA events (K2f at B=8 S=1024 and B=16 S=512; K4: on all 16
-   shapes of a ResNet-50 step, summed over its 36 calls; K5: on the four
-   stage shapes, summed over its 13 calls, against cuDNN; K2f, K5f, K4f,
-   K4dx and the bf16 K4dw and K5dw and their yardsticks also replayed
-   from a CUDA graph, which takes the host's launch cost out);
+   with CUDA events (K2f at B=8 S=1024 and B=16 S=512; K2dq and K2dkv at
+   B=16 S=512 against the SDPA backward, which computes dQ, dK and dV
+   together, on [B, S, H, D] views and on contiguous [B, H, S, D]
+   tensors; K4: on all 16 shapes of a ResNet-50 step, summed over its 36
+   calls; K5: on the four stage shapes, summed over its 13 calls, against
+   cuDNN; K2f, K2dq, K2dkv, K5f, K5dx, K4f, K4dx and the bf16 K4dw and
+   K5dw and their yardsticks also replayed from a CUDA graph, which takes
+   the host's launch cost out);
 4. serving main path: serves a full-width GPT-small paged bundle
    (random weights from a numpy seed, int8 export) through
    ``BundleServer`` + the HTTP server with 8 continuous slots: 12
@@ -439,8 +444,8 @@ def check_layernorm_bwd(torch, dev):
     return rec
 
 
-def _flash_bwd_case(torch, dev, g, dtype, case):
-    b, s, h, d = 16, 512, 12, 64
+def _flash_bwd_case(torch, dev, g, dtype, case, b=16, s=512):
+    h, d = 12, 64
     q, k, v, dout = (torch.randn(b, s, h, d, generator=g, device=dev
                                  ).to(dtype) for _ in range(4))
     kv_mask = segs = None
@@ -450,83 +455,173 @@ def _flash_bwd_case(torch, dev, g, dtype, case):
         segs = segs[None].repeat(b, 1).contiguous()
     if case == "masked":
         kv_mask = torch.rand(b, s, generator=g, device=dev) > 0.1
-        kv_mask[:, 200] = False  # row 200 sees only key 200: an empty row
-        kv_mask[3] = False       # batch row 3: no key at all
+        kv_mask[:, _empty_row(s)] = False
+        kv_mask[_masked_batch(b)] = False  # no key at all
     return q, k, v, dout, kv_mask, segs
 
 
-def check_flash_bwd(torch, dev):
-    """At the training shape: K2f's out and lse against
-    ``flash_attention_plain``, then K2dq and K2dkv against
-    ``flash_attention_bwd_plain`` on the same inputs (q, k, v, dO and the
-    forward kernel's out and lse, just held against the plain ones)."""
-    import torch.nn.functional as F
+def _empty_row(s: int) -> int:
+    """A query row that starts a 100-token document, so that under the
+    causal mask it sees only its own key: with that key padded it is
+    empty (200 at S = 512)."""
+    return min(200, (s - 1) // 100 * 100)
 
+
+def _masked_batch(b: int) -> int:
+    return min(3, b - 1)
+
+
+def _flash_bwd_check(torch, fa, name, tag, q, k, v, dout, kv_mask, segs):
+    """K2f's out and lse against the plain version, then K2dq and K2dkv
+    against ``flash_attention_bwd_plain`` on the same inputs (q, k, v, dO
+    and the forward kernel's out and lse). Returns the errors of dq, dk,
+    dv and the backward's inputs."""
+    out, lse = fa.flash_attention_fwd(q, k, v, kv_mask, True, segs)
+    ref_out, ref_lse = fa.flash_attention_plain(q, k, v, kv_mask, True, segs)
+    compare(out, ref_out, name, f"flash fwd {tag} out")
+    finite = torch.isfinite(ref_lse)
+    check(bool((torch.isfinite(lse) == finite).all()),
+          f"flash fwd {tag}: lse masked rows disagree")
+    compare(lse[finite], ref_lse[finite], "float32", f"flash fwd {tag} lse")
+    delta = (dout.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    dq = fa.flash_attention_dq(dout, q, k, v, lse, delta, kv_mask, True, segs)
+    dk, dv = fa.flash_attention_dkv(dout, q, k, v, lse, delta, kv_mask, True,
+                                    segs)
+    ref = fa.flash_attention_bwd_plain(q, k, v, dout, lse, delta, kv_mask,
+                                       True, segs)
+    errs = tuple(compare(got, want, name, f"flash bwd {tag} {what}")
+                 for got, want, what in zip((dq, dk, dv), ref,
+                                            ("dq", "dk", "dv")))
+    if kv_mask is not None:
+        row = _masked_batch(q.shape[0])
+        check(bool((dq[row] == 0).all() and (dk[row] == 0).all()
+                   and (dv[row] == 0).all()),
+              f"flash bwd {tag}: fully masked batch row has a gradient")
+        check(bool((dq[:, _empty_row(q.shape[1])] == 0).all()),
+              f"flash bwd {tag}: the empty query row has a gradient")
+    return errs, lse, delta
+
+
+def check_flash_bwd(torch, dev):
+    """At the training shape B=16 S=512 H=12 D=64 (causal; causal +
+    segments; key padding + segments + causal with an empty row and a
+    fully masked batch row) and at ragged S = 200 and 77 (the same three
+    masks; q/k/v as views of one [B, S, 3, H, D] tensor and an expanded
+    dO at S = 200): K2f's out and lse, then K2dq and K2dkv against
+    ``flash_attention_bwd_plain``, in bf16 (K2dkv: the tensor-core
+    kernel) and f32. Then timed at the training shape, eager and
+    replayed from a CUDA graph, beside the plain version and the SDPA
+    backward (which computes dQ, dK and dV together) on today's [B, S, H,
+    D] views and on contiguous [B, H, S, D] tensors."""
     from pyspark_tf_gke_tpu_torch.ops import flash_attention as fa
 
     g = torch.Generator(device=dev).manual_seed(6)
     recs = {}
     for dtype in (torch.bfloat16, torch.float32):
         name = str(dtype).split(".")[-1]
-        for case in ("causal", "segments", "masked"):
-            q, k, v, dout, kv_mask, segs = _flash_bwd_case(torch, dev, g,
-                                                           dtype, case)
-            out, lse = fa.flash_attention_fwd(q, k, v, kv_mask, True, segs)
-            ref_out, ref_lse = fa.flash_attention_plain(q, k, v, kv_mask,
-                                                        True, segs)
-            tag = f"flash fwd {case} {name} B=16 S=512 H=12 D=64"
-            compare(out, ref_out, name, f"{tag} out")
-            finite = torch.isfinite(ref_lse)
-            check(bool((torch.isfinite(lse) == finite).all()),
-                  f"{tag}: lse masked rows disagree")
-            compare(lse[finite], ref_lse[finite], "float32", f"{tag} lse")
-            delta = (dout.float() * out.float()).sum(-1).transpose(
-                1, 2).contiguous()
-            dq = fa.flash_attention_dq(dout, q, k, v, lse, delta, kv_mask,
-                                       True, segs)
-            dk, dv = fa.flash_attention_dkv(dout, q, k, v, lse, delta,
-                                            kv_mask, True, segs)
-            ref = fa.flash_attention_bwd_plain(q, k, v, dout, lse, delta,
-                                               kv_mask, True, segs)
-            tag = f"flash bwd {case} {name} B=16 S=512 H=12 D=64"
-            err_q = compare(dq, ref[0], name, f"{tag} dq")
-            err_k = compare(dk, ref[1], name, f"{tag} dk")
-            err_v = compare(dv, ref[2], name, f"{tag} dv")
-            if case == "masked":
-                check(bool((dq[3] == 0).all() and (dk[3] == 0).all()
-                           and (dv[3] == 0).all()),
-                      "fully masked batch row has a gradient")
-                check(bool((dq[:, 200] == 0).all()),
-                      "the empty query row has a gradient")
-            if dtype != torch.bfloat16 or case != "causal":
-                continue
-            plain = cuda_ms(lambda: fa.flash_attention_bwd_plain(
-                q, k, v, dout, lse, delta, causal=True))
-            qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
-                          for t in (q, k, v))
-            y = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
-            lib = cuda_ms(lambda: torch.autograd.grad(
-                y, (qt, kt, vt), dout.transpose(1, 2), retain_graph=True))
-            pairs = 16 * 12 * 512 * 513 / 2  # causal (query, key) pairs
-            row = q.numel() * q.element_size()  # one [B, S, H, D] tensor
-            vecs = 2 * 16 * 12 * 512 * 4  # lse and delta
-            shape = "B=16 S=512 H=12 D=64 causal bf16"
-            ms = cuda_ms(lambda: fa.flash_attention_dq(dout, q, k, v, lse,
-                                                       delta, causal=True))
-            # reads q, k, v, dO, lse, delta; writes dq; s, dp and the dq
-            # update are 3 products of D per pair
-            bms, by = bound(5 * row + vecs, 6 * 64 * pairs, name)
-            recs["flash_attention_dq"] = dict(
-                max_abs_err=err_q, ms=ms, plain_ms=plain, bound_ms=bms,
-                bound_by=by, library_ms=lib, shape=shape)
-            ms = cuda_ms(lambda: fa.flash_attention_dkv(dout, q, k, v, lse,
-                                                        delta, causal=True))
-            # writes dk and dv; s, dp, dv and dk are 4 products of D
-            bms, by = bound(6 * row + vecs, 8 * 64 * pairs, name)
-            recs["flash_attention_dkv"] = dict(
-                max_abs_err=max(err_k, err_v), ms=ms, plain_ms=plain,
-                bound_ms=bms, bound_by=by, library_ms=lib, shape=shape)
+        for s in (512, 200, 77):
+            for case in ("causal", "segments", "masked"):
+                q, k, v, dout, kv_mask, segs = _flash_bwd_case(
+                    torch, dev, g, dtype, case, b=16 if s == 512 else 3, s=s)
+                tag = f"{case} {name} B={q.shape[0]} S={s} H=12 D=64"
+                if s == 200 and case == "masked":
+                    # q/k/v as strided views of one fused projection, and
+                    # a cotangent expanded over the heads
+                    qkv = torch.randn(3, s, 3, 12, 64, generator=g,
+                                      device=dev).to(dtype)
+                    q, k, v = qkv.unbind(2)
+                    dout = dout[:, :, :1].expand(-1, -1, 12, -1)
+                    check(not q.is_contiguous() and dout.stride(2) == 0,
+                          "the strided case is not strided")
+                    tag += ", q/k/v views of [B, S, 3, H, D], dO expanded"
+                errs, lse, delta = _flash_bwd_check(
+                    torch, fa, name, tag, q, k, v, dout, kv_mask, segs)
+                if dtype == torch.bfloat16 and s == 512 and case == "causal":
+                    recs = _flash_bwd_record(torch, fa, q, k, v, dout, lse,
+                                             delta, errs)
     return recs
+
+
+def _flash_bwd_record(torch, fa, q, k, v, dout, lse, delta, errs):
+    """K2dq and K2dkv at the causal bf16 training shape, eager and
+    graph-replayed, beside the plain version and the SDPA backward."""
+    import torch.nn.functional as F
+
+    plain = cuda_ms(lambda: fa.flash_attention_bwd_plain(
+        q, k, v, dout, lse, delta, causal=True))
+    lib, lib_graph, lib_c, lib_c_graph = _sdpa_bwd_times(torch, F, q, k, v,
+                                                         dout)
+    log(f"  SDPA backward (dQ + dK + dV) bf16 B=16 S=512 H=12 D=64 causal: "
+        f"[B, S, H, D] views {lib:.4f} ms, graph-replayed {lib_graph}; "
+        f"contiguous [B, H, S, D] {lib_c:.4f}, graph-replayed "
+        f"{lib_c_graph}")
+    pairs = 16 * 12 * 512 * 513 / 2  # causal (query, key) pairs
+    row = q.numel() * q.element_size()  # one [B, S, H, D] tensor
+    vecs = 2 * 16 * 12 * 512 * 4  # lse and delta
+    shape = "B=16 S=512 H=12 D=64 causal bf16"
+    libs = dict(library_ms=lib, library_graph_ms=lib_graph,
+                library_contiguous_ms=lib_c,
+                library_contiguous_graph_ms=lib_c_graph)
+    dq_fn = lambda: fa.flash_attention_dq(  # noqa: E731
+        dout, q, k, v, lse, delta, causal=True)
+    dkv_fn = lambda: fa.flash_attention_dkv(  # noqa: E731
+        dout, q, k, v, lse, delta, causal=True)
+    # K2dq reads q, k, v, dO, lse, delta and writes dq; s, dp and the dq
+    # update are 3 products of D per pair. K2dkv writes dk and dv; s, dp,
+    # dv and dk are 4 products of D per pair.
+    recs = {}
+    for key, fn, nbytes, ops, err in (
+            ("flash_attention_dq", dq_fn, 5 * row + vecs, 6 * 64 * pairs,
+             errs[0]),
+            ("flash_attention_dkv", dkv_fn, 6 * row + vecs, 8 * 64 * pairs,
+             max(errs[1], errs[2]))):
+        bms, by = bound(nbytes, ops, "bfloat16")
+        recs[key] = dict(max_abs_err=err, ms=cuda_ms(fn), plain_ms=plain,
+                         bound_ms=bms, bound_by=by, graph_ms=graph_ms(fn),
+                         shape=shape, **libs)
+        r = recs[key]
+        log(f"  {key} {shape}: kernel {r['ms']:.4f} ms, graph-replayed "
+            f"{r['graph_ms']:.4f}, plain {plain:.4f}, bound {bms:.4f} ({by})")
+    return recs
+
+
+def _sdpa_bwd_times(torch, F, q, k, v, dout):
+    """The SDPA backward (dQ, dK and dV together), eager and
+    graph-replayed, on transposed [B, S, H, D] views and on contiguous
+    [B, H, S, D] copies. Graph-replayed: forward and backward captured
+    together, less the forward alone; autograd's backward syncs with the
+    stream its leaves were made on, so the captured function makes its
+    own leaves (views of the inputs). A capture that fails leaves that
+    time None ("not measured") and is logged: it is a yardstick, not a
+    kernel of the port."""
+    times = []
+    for contiguous in (False, True):
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        dt = dout.transpose(1, 2)
+        if contiguous:
+            qt, kt, vt, dt = (t.contiguous() for t in (qt, kt, vt, dt))
+        leaves = [t.detach().requires_grad_() for t in (qt, kt, vt)]
+        y = F.scaled_dot_product_attention(*leaves, is_causal=True)
+        eager = cuda_ms(lambda: torch.autograd.grad(
+            y, leaves, dt, retain_graph=True))
+
+        def fwd():
+            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+
+        def fwd_bwd():
+            own = [t.detach().requires_grad_() for t in (qt, kt, vt)]
+            torch.autograd.grad(F.scaled_dot_product_attention(
+                *own, is_causal=True), own, dt)
+
+        try:
+            graphed = max(graph_ms(fwd_bwd) - graph_ms(fwd), 0.0)
+        except RuntimeError as exc:  # torch.AcceleratorError included
+            log(f"  SDPA backward graph capture failed, not measured: "
+                f"{str(exc).splitlines()[0]}")
+            torch.cuda.synchronize()
+            graphed = None
+        times += [eager, graphed]
+    return times
 
 
 # ResNet-50's 36 fused 1x1 convs at batch 64 (224^2), as (M, K, N,
@@ -790,9 +885,11 @@ def check_fused_conv3(torch, dev):
 
     totals = {key: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
                         ops_ms=0.0, bytes_ms=0.0) for key in errs}
-    # K5f and K5dw (the tensor-core kernels) and cuDNN also graph-replayed
+    # each kernel (the bf16 ones are the tensor-core kernels) and cuDNN
+    # also graph-replayed
     graphed = {key: dict(graph_ms=0.0, library_graph_ms=0.0)
-               for key in ("fused_conv3_fwd", "fused_conv3_dw")}
+               for key in ("fused_conv3_fwd", "fused_conv3_dx",
+                           "fused_conv3_dw")}
     for b, h, w, k, count in RESNET50_K5_SHAPES:
         n = k
         x, wt, dy, a, bb = _k5_inputs(torch, dev, g, b, h, w, k, n,
@@ -1453,8 +1550,9 @@ def check_training_parity(torch, dev):
     check(dloss <= 1e-4 and rel <= 1e-4 and worst_rel <= 1e-4,
           "f32 training through the kernels disagrees with plain")
 
-    # bf16 at full width: the kernels keep P, dS and the LayerNorm
-    # statistics in f32 and round once, while the plain path's autograd
+    # bf16 at full width: the kernels round P and dS to bf16 where the
+    # TPU kernels do and keep the LayerNorm statistics in f32, rounding
+    # each output once, while the plain path's autograd
     # rounds the probabilities and every intermediate product to bf16
     # (as its forward does: 2e-2 on the prefill logits); through 12 layers of
     # backward allow 5e-2 relative L2 over the whole gradient tree. The
@@ -1876,7 +1974,8 @@ def check_resnet_variants(torch, dev, k5_counters):
 
 
 # the records' keys beyond the contract's that the kernels line carries
-EXTRA_KEYS = ("graph_ms", "library_graph_ms", "train_shape")
+EXTRA_KEYS = ("graph_ms", "library_graph_ms", "library_contiguous_ms",
+              "library_contiguous_graph_ms", "train_shape")
 # (name, source, the TPU kernel it replaces, design of its bf16
 # instantiation: "wgmma" on the tensor cores, "simt" on the CUDA cores)
 KERNELS = (
@@ -1891,7 +1990,7 @@ KERNELS = (
      "pyspark_tf_gke_tpu/ops/pallas/flash_attention.py:162", "simt"),
     ("flash_attention_dkv",
      "pyspark_tf_gke_tpu_torch/csrc/flash_attention_bwd.cu",
-     "pyspark_tf_gke_tpu/ops/pallas/flash_attention.py:215", "simt"),
+     "pyspark_tf_gke_tpu/ops/pallas/flash_attention.py:215", "wgmma"),
     ("paged_attention", "pyspark_tf_gke_tpu_torch/csrc/paged_attention.cu",
      "pyspark_tf_gke_tpu/ops/pallas/paged_attention.py:124", "simt"),
     ("fused_matmul_fwd", "pyspark_tf_gke_tpu_torch/csrc/fused_matmul.cu",
@@ -1903,7 +2002,7 @@ KERNELS = (
     ("fused_conv3_fwd", "pyspark_tf_gke_tpu_torch/csrc/fused_conv3.cu",
      "pyspark_tf_gke_tpu/ops/pallas/fused_conv3.py:55", "wgmma"),
     ("fused_conv3_dx", "pyspark_tf_gke_tpu_torch/csrc/fused_conv3.cu",
-     "pyspark_tf_gke_tpu/ops/pallas/fused_conv3.py:116", "simt"),
+     "pyspark_tf_gke_tpu/ops/pallas/fused_conv3.py:116", "wgmma"),
     ("fused_conv3_dw", "pyspark_tf_gke_tpu_torch/csrc/fused_conv3.cu",
      "pyspark_tf_gke_tpu/ops/pallas/fused_conv3.py:179", "wgmma"),
 )

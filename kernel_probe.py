@@ -34,7 +34,25 @@ editing a ``.cu`` file, and for the experiments PERF.md reports.
     python3 kernel_probe.py k4-modes
         bf16 K4f and K4dx at the 16 shapes of a ResNet-50 step with and
         without the transform, eager and replayed from a CUDA graph, and
-        the sums over a step's 36 calls.
+        the sums over a step's 36 calls;
+    python3 kernel_probe.py k5dx-accuracy
+        bf16 K5dx and its plain version against an f64 reference: dx
+        elements a bf16 rounding away from it, and d a, d b (the built
+        design: a fresh wgmma accumulator every 64-wide step);
+    python3 kernel_probe.py k5dx-modes
+        bf16 K5dx at ResNet-50's four stage shapes with and without the
+        transform, eager and replayed from a CUDA graph, beside cuDNN's
+        conv2d_input, and the sums over a step's 13 calls; then stages 1
+        and 3 against shapes of the same M, K and N whose images fill
+        every 128-pixel tile (what the whole-row tiles' idle rows cost);
+    python3 kernel_probe.py dkv-accuracy
+        bf16 K2dkv and the plain backward against an f64 reference that
+        rounds P and dS to bf16 where the TPU kernel does: dk and dv
+        elements a bf16 rounding away from it, at the LM training shape
+        in the three mask cases;
+    python3 kernel_probe.py dkv-modes
+        bf16 K2dkv and K2dq at the LM training shape, causal and not,
+        eager and replayed from a CUDA graph.
 
 Each exits non-zero without a CUDA device.
 """
@@ -50,6 +68,22 @@ ROOT = Path(__file__).resolve().parent
 def _rel(a, b) -> float:
     a, b = a.double(), b.double()
     return float((a - b).norm() / b.norm())
+
+
+def _ptxas(names) -> None:
+    """Build the kernels and print ptxas's registers and spills of the
+    named bf16 kernels (none where this process found the library
+    built)."""
+    import chip_smoke as cs
+    from pyspark_tf_gke_tpu_torch.ops import kernels
+
+    kernels.library()
+    for fn, info in cs.ptxas_report(kernels.build_log).items():
+        for name in names:
+            if name in fn:
+                print(f"ptxas {fn[fn.index(name):][:40]}: {info['used']}; "
+                      f"spill {info['spill_stores']}/{info['spill_loads']} B",
+                      flush=True)
 
 
 def check(torch, dev, names) -> None:
@@ -256,20 +290,6 @@ def dw_modes(torch, dev) -> None:
                   f"{cs.graph_ms(fn, 5):.4f} ms", flush=True)
 
 
-def _k4_ptxas() -> None:
-    """Build the kernels and print ptxas's registers and spills of the
-    bf16 K4f and K4dx kernels (none where this process found the
-    library built)."""
-    import chip_smoke as cs
-    from pyspark_tf_gke_tpu_torch.ops import kernels
-
-    kernels.library()
-    for fn, info in cs.ptxas_report(kernels.build_log).items():
-        if "k4_fwd_wgmma" in fn or "k4_dx_wgmma" in fn:
-            print(f"ptxas {fn[fn.index('k4_'):][:40]}: {info['used']}; spill "
-                  f"{info['spill_stores']}/{info['spill_loads']} B", flush=True)
-
-
 # K4 (M, K, N, transform) for the accuracy probe: K from 64 to 2048, both
 # tile widths, and the ragged vector path
 K4_ACC_SHAPES = ((200704, 64, 256, "relu"), (200704, 256, 64, None),
@@ -300,7 +320,7 @@ def k4_accuracy(torch, dev) -> None:
     import chip_smoke as cs
     from pyspark_tf_gke_tpu_torch.ops import fused_matmul as fm
 
-    _k4_ptxas()
+    _ptxas(("k4_fwd_wgmma", "k4_dx_wgmma"))
     g = torch.Generator(device=dev).manual_seed(8)
     for m, k, n, t in K4_ACC_SHAPES:
         x, w, dy, a, b = cs._k4_inputs(torch, dev, g, m, k, n,
@@ -330,7 +350,7 @@ def k4_modes(torch, dev) -> None:
     import chip_smoke as cs
     from pyspark_tf_gke_tpu_torch.ops import fused_matmul as fm
 
-    _k4_ptxas()
+    _ptxas(("k4_fwd_wgmma", "k4_dx_wgmma"))
     sums = {}
     g = torch.Generator(device=dev).manual_seed(9)
     for m, k, n, _, count in cs.RESNET50_K4_SHAPES:
@@ -355,6 +375,181 @@ def k4_modes(torch, dev) -> None:
               f"graph {graph:.4f} ms", flush=True)
 
 
+# K5dx (B, H, W, K = N, transform) for the accuracy probe: the four
+# stages with and without the transform, and the ragged vector path
+K5DX_ACC_SHAPES = tuple((b, h, w, k, t) for b, h, w, k, _ in (
+    (64, 56, 56, 64, 3), (64, 28, 28, 128, 3), (64, 14, 14, 256, 5),
+    (64, 7, 7, 512, 2)) for t in ("relu", None)) + (
+    (3, 9, 5, 48, "affine"),)
+
+
+def _k5dx_f64(torch, fc, dy, w, x, a, b, relu):
+    """f64 reference of K5dx from the bf16 inputs: dx rounded to bf16,
+    d a and d b, with the relu mask of the f32 transform the kernel and
+    the plain version use."""
+    u = None
+    for dh, dw, win in fc._windows(dy.double(), True):
+        prod = win @ w.double()[dh, dw].t()
+        u = prod if u is None else u + prod
+    xf = x.reshape(-1, x.shape[-1]).float()
+    if a is None:
+        return u.to(torch.bfloat16).double(), None
+    if relu:
+        u = torch.where(xf * a + b > 0, u, torch.zeros_like(u))
+    dx = (u * a.double()).to(torch.bfloat16).double()
+    return dx, torch.stack([(u * xf.double()).sum(0), u.sum(0)])
+
+
+def k5dx_accuracy(torch, dev) -> None:
+    import chip_smoke as cs
+    from pyspark_tf_gke_tpu_torch.ops import fused_conv3 as fc
+
+    _ptxas(("k5_dx_wgmma",))
+    g = torch.Generator(device=dev).manual_seed(8)
+    for b, h, w, k, t in K5DX_ACC_SHAPES:
+        x, wt, dy, a, bb = cs._k5_inputs(torch, dev, g, b, h, w, k, k,
+                                         torch.bfloat16, t)
+        relu = t == "relu"
+        dx, ds = fc.conv3_dx(dy, wt, x, a, bb, relu)
+        rdx, rds = fc.conv3_dx_plain(dy, wt, x, a, bb, relu)
+        dx64, ds64 = _k5dx_f64(torch, fc, dy, wt, x, a, bb, relu)
+        dx, rdx = dx.reshape(dx64.shape), rdx.reshape(dx64.shape)
+        line = (f"K5dx x=[{b},{h},{w},{k}] {t or 'plain'}: dx off f64 by a "
+                f"rounding: kernel {int((dx.double() != dx64).sum())}, plain "
+                f"{int((rdx.double() != dx64).sum())} of {dx.numel()}")
+        if ds64 is not None:
+            line += (f"; d a, d b rel kernel {_rel(ds, ds64):.2e}, plain "
+                     f"{_rel(rds, ds64):.2e}")
+        print(line, flush=True)
+        del x, wt, dy, dx, rdx, dx64
+    torch.cuda.empty_cache()
+
+
+def k5dx_modes(torch, dev) -> None:
+    from torch.nn import grad as conv_grad
+
+    import chip_smoke as cs
+    from pyspark_tf_gke_tpu_torch.ops import fused_conv3 as fc
+
+    _ptxas(("k5_dx_wgmma",))
+    sums = {}
+    g = torch.Generator(device=dev).manual_seed(9)
+    for b, h, w, k, count in cs.RESNET50_K5_SHAPES:
+        x, wt, dy, a, bb = cs._k5_inputs(torch, dev, g, b, h, w, k, k,
+                                         torch.bfloat16, "relu")
+        x_c, dy_c = x.permute(0, 3, 1, 2), dy.permute(0, 3, 1, 2)
+        w_c = wt.permute(3, 2, 0, 1).contiguous(
+            memory_format=torch.channels_last)
+        calls = (("K5dx relu", lambda: fc.conv3_dx(dy, wt, x, a, bb, True)),
+                 ("K5dx plain", lambda: fc.conv3_dx(dy, wt, x, None, None,
+                                                    False)),
+                 ("cuDNN conv2d_input", lambda: conv_grad.conv2d_input(
+                     x_c.shape, w_c, dy_c, padding=1)))
+        for name, fn in calls:
+            eager = cs.cuda_ms(fn, warmup=2, iters=5, reps=5)
+            graph = cs.graph_ms(fn, 5)
+            e0, g0 = sums.get(name, (0.0, 0.0))
+            sums[name] = (e0 + count * eager, g0 + count * graph)
+            print(f"{name} x=[{b},{h},{w},{k}] x{count}: eager {eager:.4f} "
+                  f"graph {graph:.4f} ms", flush=True)
+        del x, wt, dy, x_c, dy_c, w_c
+    torch.cuda.empty_cache()
+    for name, (eager, graph) in sums.items():
+        print(f"{name}, a step's 13 calls: eager {eager:.4f} graph "
+              f"{graph:.4f} ms", flush=True)
+    # what the whole-row tiles' idle rows cost: a stage shape against one
+    # of the same M, K and N whose images fill every 128-row tile
+    for shape, full in (((64, 56, 56, 64), (49, 64, 64, 64)),
+                        ((64, 14, 14, 256), (49, 16, 16, 256))):
+        line = []
+        for b, h, w, k in (shape, full):
+            (nb, rows, wc), tiles = fc.k5dx_plan(b, h, w, torch.bfloat16)
+            x, wt, dy, a, bb = cs._k5_inputs(torch, dev, g, b, h, w, k, k,
+                                             torch.bfloat16, "relu")
+            fn = lambda: fc.conv3_dx(dy, wt, x, a, bb, True)  # noqa: E731
+            line.append(f"x=[{b},{h},{w},{k}] {tiles} tiles of "
+                        f"{nb * rows * wc} pixels: graph "
+                        f"{cs.graph_ms(fn, 5):.4f} ms")
+            del x, wt, dy
+        print(f"K5dx tile fill, M={b * h * w}: {'; '.join(line)}", flush=True)
+
+
+def _dkv_f64(torch, fa, q, k, v, dout, lse, delta, kv_mask, segs):
+    """f64 reference of dk, dv with P and dS rounded to bf16 where the
+    TPU kernel rounds them, each rounded to bf16 at the end."""
+    qd, kd, vd, dod = (t.double() for t in (q, k, v, dout))
+    scale = q.shape[-1] ** -0.5
+    s = torch.einsum("bqhd,bkhd->bhqk", qd, kd) * scale
+    if kv_mask is not None:
+        s = s + torch.where(kv_mask.bool(), 0.0, fa.NEG_INF).double()[
+            :, None, None, :]
+    keep = fa._causal_mask(fa._mask(None, segs), q.shape[1], k.shape[1],
+                           q.device)
+    s = torch.where(keep, s, fa.NEG_INF)
+    p = torch.exp(s - lse.double()[..., None])
+    dp = torch.einsum("bqhd,bkhd->bhqk", dod, vd)
+    ds = p * (dp - delta.double()[..., None]) * scale
+    del s, dp
+    p = p.to(torch.bfloat16).double()
+    ds = ds.to(torch.bfloat16).double()
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, qd)
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, dod)
+    return dk.to(torch.bfloat16).double(), dv.to(torch.bfloat16).double()
+
+
+def dkv_accuracy(torch, dev) -> None:
+    import chip_smoke as cs
+    from pyspark_tf_gke_tpu_torch.ops import flash_attention as fa
+
+    _ptxas(("flash_dkv_wgmma",))
+    g = torch.Generator(device=dev).manual_seed(6)
+    for case in ("causal", "segments", "masked"):
+        q, k, v, dout, kv_mask, segs = cs._flash_bwd_case(
+            torch, dev, g, torch.bfloat16, case)
+        out, lse = fa.flash_attention_fwd(q, k, v, kv_mask, True, segs)
+        delta = (dout.float() * out.float()).sum(-1).transpose(
+            1, 2).contiguous()
+        dk, dv = fa.flash_attention_dkv(dout, q, k, v, lse, delta, kv_mask,
+                                        True, segs)
+        _, rdk, rdv = fa.flash_attention_bwd_plain(q, k, v, dout, lse, delta,
+                                                   kv_mask, True, segs)
+        dk64, dv64 = _dkv_f64(torch, fa, q, k, v, dout, lse, delta, kv_mask,
+                              segs)
+        print(f"K2dkv {case} B=16 S=512 H=12 D=64: off f64 by a rounding: "
+              f"dk kernel {int((dk.double() != dk64).sum())}, plain "
+              f"{int((rdk.double() != dk64).sum())}; dv kernel "
+              f"{int((dv.double() != dv64).sum())}, plain "
+              f"{int((rdv.double() != dv64).sum())} of {dk.numel()}; rel dk "
+              f"kernel {_rel(dk, dk64):.2e} plain {_rel(rdk, dk64):.2e}, dv "
+              f"kernel {_rel(dv, dv64):.2e} plain {_rel(rdv, dv64):.2e}",
+              flush=True)
+        del dk64, dv64
+        torch.cuda.empty_cache()
+
+
+def dkv_modes(torch, dev) -> None:
+    import chip_smoke as cs
+    from pyspark_tf_gke_tpu_torch.ops import flash_attention as fa
+
+    _ptxas(("flash_dkv_wgmma",))
+    g = torch.Generator(device=dev).manual_seed(6)
+    q, k, v, dout, _, _ = cs._flash_bwd_case(torch, dev, g, torch.bfloat16,
+                                             "causal")
+    for causal in (True, False):
+        out, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
+        delta = (dout.float() * out.float()).sum(-1).transpose(
+            1, 2).contiguous()
+        calls = (("K2dkv", lambda: fa.flash_attention_dkv(
+                     dout, q, k, v, lse, delta, causal=causal)),
+                 ("K2dq", lambda: fa.flash_attention_dq(
+                     dout, q, k, v, lse, delta, causal=causal)))
+        for name, fn in calls:
+            print(f"{name} B=16 S=512 H=12 D=64 "
+                  f"{'causal' if causal else 'full'}: eager "
+                  f"{cs.cuda_ms(fn):.4f} graph {cs.graph_ms(fn):.4f} ms",
+                  flush=True)
+
+
 def main(argv) -> int:
     import torch
 
@@ -373,7 +568,11 @@ def main(argv) -> int:
                 "dw-accuracy": lambda: dw_accuracy(torch, dev),
                 "dw-modes": lambda: dw_modes(torch, dev),
                 "k4-accuracy": lambda: k4_accuracy(torch, dev),
-                "k4-modes": lambda: k4_modes(torch, dev)}
+                "k4-modes": lambda: k4_modes(torch, dev),
+                "k5dx-accuracy": lambda: k5dx_accuracy(torch, dev),
+                "k5dx-modes": lambda: k5dx_modes(torch, dev),
+                "dkv-accuracy": lambda: dkv_accuracy(torch, dev),
+                "dkv-modes": lambda: dkv_modes(torch, dev)}
     if not argv or argv[0] not in commands:
         print(__doc__, file=sys.stderr)
         return 2

@@ -372,36 +372,15 @@ flash_fwd_wgmma(__grid_constant__ const CUtensorMap tq, __grid_constant__ const 
   }
 }
 
-// A 4-D map over the [B, S, H, 64] bf16 view with element strides (sb,
-// ss, sh, 1), dimensions innermost first as (head_dim, head, seq,
-// batch), boxes of `rows` positions of one (batch, head), 128-byte
-// swizzle, zeros past S. The stride of a size-1 dimension is never
-// followed and is replaced by a valid one.
-bool tensor_map(EncodeTiled encode, CUtensorMap* map, const void* base, int B, int S, int H,
-                long long sb, long long ss, long long sh, int rows) {
-  const cuuint64_t st_h = static_cast<cuuint64_t>(H > 1 ? sh : 64) * 2;
-  const cuuint64_t st_s = S > 1 ? static_cast<cuuint64_t>(ss) * 2 : st_h * H;
-  const cuuint64_t st_b = B > 1 ? static_cast<cuuint64_t>(sb) * 2 : st_s * S;
-  const cuuint64_t dims[4] = {64, static_cast<cuuint64_t>(H), static_cast<cuuint64_t>(S),
-                              static_cast<cuuint64_t>(B)};
-  const cuuint64_t strides[3] = {st_h, st_s, st_b};
-  const cuuint32_t box[4] = {64, 1, static_cast<cuuint32_t>(rows), 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
-                strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 int launch(const void* q, const void* k, const void* v, const void* kv_mask, const void* segs,
            void* out, void* lse, int B, int S, int H, const long long* st, int causal,
            float scale, cudaStream_t stream) {
   const EncodeTiled encode = tensor_map_encoder();
   if (encode == nullptr) return static_cast<int>(cudaErrorSharedObjectSymbolNotFound);
   CUtensorMap mq, mk, mv;
-  if (!tensor_map(encode, &mq, q, B, S, H, st[0], st[1], st[2], kBQ) ||
-      !tensor_map(encode, &mk, k, B, S, H, st[3], st[4], st[5], kBKV) ||
-      !tensor_map(encode, &mv, v, B, S, H, st[6], st[7], st[8], kBKV)) {
+  if (!tensor_map_bshd(encode, &mq, q, B, S, H, st[0], st[1], st[2], kBQ) ||
+      !tensor_map_bshd(encode, &mk, k, B, S, H, st[3], st[4], st[5], kBKV) ||
+      !tensor_map_bshd(encode, &mv, v, B, S, H, st[6], st[7], st[8], kBKV)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const cudaError_t err = cudaFuncSetAttribute(

@@ -12,32 +12,63 @@
 // of storing them: p = exp(s - lse), dp = dO.v, ds = p * (dp - delta) *
 // scale with delta = rowsum(dO * O) (computed by the caller, as the TPU
 // version computes it outside Pallas). Rows with lse = +inf (no unmasked
-// key) get p = 0 and contribute nothing.
+// key) get p = 0 and contribute nothing. The rounding points are the TPU
+// kernels': for bf16, P is rounded to bf16 before dV += P^T dO (:255)
+// and dS before dK += dS^T Q (:262) and dQ += dS K (:202); f32 keeps
+// both in f32.
 //
-// Bound on the H100: at the training shapes (S = 512, D = 64) the causal
-// backward does ~5 * 2 * S*S/2 * D operations per (batch, head) against
-// ~10 * S * D bytes (q, k, v, dO, dQ, dK, dV and the f32 row vectors), so
-// on the tensor cores it would sit near the memory bound; this first
-// version computes in f32 on the CUDA cores and is bound by them.
+// Bound on the H100: at the training shapes (B=16 S=512 H=12 D=64,
+// causal) K2dkv does 8*D operations a visible (query, key) pair (S, dP,
+// dV, dK) against q, k, v, dO, dK, dV and the f32 row vectors once:
+// 0.0228 ms of bytes against 0.0130 ms of bf16 tensor-core operations,
+// so bound by bytes, and in practice by how fast the products are fed.
 //
-// Design. One CTA per (b*h, 64-row block): 64 query rows for K2dq, 64
-// keys for K2dkv. Each row belongs to a PAIR of neighbouring threads and
-// each thread holds half of head_dim in registers: K2dq keeps q, dO and
-// the dQ accumulator (3 x 32 floats a thread), K2dkv keeps k, v and the
-// dK and dV accumulators (4 x 32 floats). One thread per row, as in the
-// forward, would need 192 or 256 floats a thread and spill; with the
-// split, a dot product over D is two half-sums and one shuffle between
-// the pair. The thread with `half` = h holds the float4 chunks 2c + h
-// (c < D/8), so the two threads of a pair read neighbouring 16-byte words
-// of a shared-memory row, and every thread of a warp reads the same row
-// (a broadcast, no bank conflicts). The walked tiles (K/V for K2dq, Q/dO
+// Each entry point chooses the design by dtype and nothing else.
+//
+// K2dkv bf16 (wg::flash_dkv_wgmma, the tensor-core design): a CTA owns
+// 128 keys of one (b, h) on two consumer warpgroups of 64 keys, and a
+// producer warpgroup that gives its registers to them. K and V arrive
+// once by TMA from the 4-D maps over the strided [B, S, H, D] views
+// (wgmma.cuh tensor_map_bshd); 64-row Q and dO tiles, with their lse,
+// delta and segment ids, come through a 3-stage ring (full: TMA bytes
+// and the producer warp's 32 arrivals; empty: the 8 consumer warps).
+// Per tile, each warpgroup computes S^T = K Q^T and dP^T = V dO^T as
+// wgmma products from shared memory (every operand K-major, head_dim
+// contiguous), applies the scale, the key's bias (constant in the CTA),
+// the segment ids (per query column) and the causal compare (diagonal
+// tiles only; tiles wholly before the warpgroup's keys are skipped),
+// forms P = exp(S - lse) and dS = P (dP - delta) scale in f32 on the
+// accumulator fragments, rounds both to bf16 in registers as A
+// fragments, and runs dV += P^T dO and dK += dS^T Q with A from
+// registers and dO, Q read MN-major through the transpose bit. Each
+// tile's two products go into fresh accumulators that are added to the
+// f32 sums in tile order (the TPU kernel also adds one f32 product a
+// block). Keys and query rows past S arrive as zeros from TMA
+// and padded query rows take lse = +inf, so they contribute nothing;
+// dK and dV are rounded once and stored from the fragments. Causal CTAs
+// are launched longest first: the key block is the slow grid axis, so
+// the first wave takes the blocks that see every query tile.
+//
+// K2dq (both dtypes) and K2dkv f32 (the first, CUDA-core design, kept
+// as the f32 reference the model-parity gates stand on): one CTA per
+// (b*h, 64-row block): 64 query rows for K2dq, 64 keys for K2dkv. Each
+// row belongs to a PAIR of neighbouring threads and each thread holds
+// half of head_dim in registers: K2dq keeps q, dO and the dQ accumulator
+// (3 x 32 floats a thread), K2dkv keeps k, v and the dK and dV
+// accumulators (4 x 32 floats). One thread per row, as in the forward,
+// would need 192 or 256 floats a thread and spill; with the split, a dot
+// product over D is two half-sums and one shuffle between the pair. The
+// thread with `half` = h holds the float4 chunks 2c + h (c < D/8), so
+// the two threads of a pair read neighbouring 16-byte words of a
+// shared-memory row, and every thread of a warp reads the same row (a
+// broadcast, no bank conflicts). The walked tiles (K/V for K2dq, Q/dO
 // plus lse/delta for K2dkv) are staged in shared memory as f32. Causal
 // K2dq blocks stop at the block's last query row; causal K2dkv blocks
 // start at the first query row that can see the block. Query rows and
-// keys past S are masked, so S need not be a multiple of 64. Tensor cores
-// (wgmma), TMA and pipelined tiles are later work.
+// keys past S are masked, so S need not be a multiple of 64.
 
 #include "common.cuh"
+#include "wgmma.cuh"
 
 using namespace port;
 
@@ -174,7 +205,9 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
       if (segs != nullptr && k_seg[j] != seg_q) s = kNegInf;
       if (causal && k0 + j > qi) s = kNegInf;
       const float p = expf(s - lse_i);
-      const float ds = p * (dp - delta_i) * scale;
+      // dS rounded to the input dtype before dQ += dS K, as the TPU
+      // kernel rounds it (:202); the identity for f32
+      const float ds = round_through<T>(p * (dp - delta_i) * scale);
       half_axpy<D>(acc, ds, k_tile[j], half);
     }
   }
@@ -276,6 +309,256 @@ void launch_dkv(const void* q, const void* k, const void* v, const void* dout,
       S, H, st, causal, scale);
 }
 
+// -- K2dkv, bf16: the tensor-core design ----------------------------------------
+
+namespace wg {
+
+using namespace port::hopper;
+
+constexpr int kBK = 128;    // keys a CTA: two consumer warpgroups of 64
+constexpr int kBQ = 64;     // query rows a tile
+constexpr int kStages = 3;  // Q / dO ring depth
+constexpr int kConsumers = 256;
+constexpr int kThreads = kConsumers + 128;  // and a producer warpgroup
+// registers a thread after the move (launched at 65536 / 384 = 168): the
+// producer warpgroup needs few; a consumer holds the dK and dV sums, a
+// tile's S and dP (or its two fresh products) and the bf16 fragments
+constexpr int kProducerRegs = 40;
+constexpr int kConsumerRegs = 232;
+static_assert(kProducerRegs * 128 + kConsumerRegs * kConsumers <= 65536, "register file");
+constexpr int kRowBytes = 128;             // 64 bf16 of head_dim: one swizzle row
+constexpr int kKVBytes = kBK * kRowBytes;  // K or V of the CTA's keys
+constexpr int kTileBytes = kBQ * kRowBytes;
+constexpr int kStageBytes = 2 * kTileBytes;  // Q, then dO
+constexpr int kVecs = 3 * kBQ;               // a stage's lse, delta (f32) and segment ids
+constexpr int kVecOffset = 2 * kKVBytes + kStages * kStageBytes;
+constexpr int kBarOffset = kVecOffset + kStages * kVecs * 4;
+// 1024 of slack to align the swizzled tiles; full and empty a stage, K/V
+constexpr int kSmem = 1024 + kBarOffset + 8 * (2 * kStages + 1);
+
+// The accumulator granularity: each query tile's dV and dK products go
+// into fresh wgmma accumulators, added to f32 sums in tile order, as the
+// TPU kernel adds one f32 product a block. Chaining every tile (up to 8
+// at S = 512) into the two accumulators left up to 14% more dK and dV
+// elements a bf16 rounding away from an f64 reference (causal; as many
+// with segments) and was 3-6% faster (PERF.md).
+
+__global__ void __launch_bounds__(kThreads, 1)
+flash_dkv_wgmma(__grid_constant__ const CUtensorMap tq, __grid_constant__ const CUtensorMap tk,
+                __grid_constant__ const CUtensorMap tv, __grid_constant__ const CUtensorMap tdo,
+                const uint8_t* __restrict__ kv_mask, const int* __restrict__ segs,
+                const float* __restrict__ lse, const float* __restrict__ delta,
+                __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int S, int H,
+                int causal, float scale) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* k_s = smem;
+  uint8_t* v_s = smem + kKVBytes;
+  uint8_t* ring = smem + 2 * kKVBytes;
+  float* vecs = reinterpret_cast<float*>(smem + kVecOffset);  // [kStages][3][kBQ]
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + kBarOffset);
+  uint64_t* empty = full + kStages;
+  uint64_t* kvbar = empty + kStages;
+
+  const int t = threadIdx.x, warp = t >> 5, lane = t & 31;
+  const int b = blockIdx.x / H, h = blockIdx.x % H;
+  const int k0 = blockIdx.y * kBK;  // the slow axis: block 0, the longest causal one, first
+  const int qt0 = causal ? k0 / kBQ : 0;  // causal: earlier query rows never see the block
+  const int ntiles = (S + kBQ - 1) / kBQ - qt0;
+  const long long brow = static_cast<long long>(b) * S;
+  const long long rv0 = (static_cast<long long>(b) * H + h) * S;
+
+  if (t == 0) {
+    for (int i = 0; i < kStages; ++i) {
+      mbar_init(&full[i], 32);                  // the producer warp's lanes
+      mbar_init(&empty[i], kConsumers / 32);    // one arrival a consumer warp
+    }
+    mbar_init(kvbar, 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (warp >= kConsumers / 32) {  // -- the producer warpgroup --------------------------
+    setmaxnreg_dec<kProducerRegs>();
+    if (warp != kConsumers / 32) return;  // its first warp loads
+    if (lane == 0) {
+      mbar_arrive_expect_tx(kvbar, 2 * kKVBytes);
+      tma_load_4d(k_s, &tk, kvbar, 0, h, k0, b);
+      tma_load_4d(v_s, &tv, kvbar, 0, h, k0, b);
+    }
+    for (int it = 0; it < ntiles; ++it) {
+      const int slot = it % kStages, q0 = (qt0 + it) * kBQ;
+      if (it >= kStages) mbar_wait(&empty[slot], ((it / kStages) - 1) & 1);
+      // lse (+inf past S: p = 0), delta and segment ids of the tile's rows
+      float* vl = vecs + slot * kVecs;
+      for (int i = lane; i < kBQ; i += 32) {
+        const int q = q0 + i;
+        const bool in = q < S;
+        vl[i] = in ? lse[rv0 + q] : INFINITY;
+        vl[kBQ + i] = in ? delta[rv0 + q] : 0.f;
+        reinterpret_cast<int*>(vl)[2 * kBQ + i] = (in && segs != nullptr) ? segs[brow + q] : 0;
+      }
+      if (lane == 0) {
+        uint8_t* st = ring + slot * kStageBytes;
+        mbar_arrive_expect_tx(&full[slot], kStageBytes);
+        tma_load_4d(st, &tq, &full[slot], 0, h, q0, b);
+        tma_load_4d(st + kTileBytes, &tdo, &full[slot], 0, h, q0, b);
+      } else {
+        mbar_arrive(&full[slot]);
+      }
+    }
+    return;
+  }
+
+  // -- the consumer warpgroups: warpgroup g owns keys k0 + 64 g .. + 63 ----------
+  setmaxnreg_inc<kConsumerRegs>();
+  const int g = warp >> 2;
+  const int wk0 = k0 + 64 * g;
+  const int key_a = wk0 + 16 * (warp & 3) + (lane >> 2);  // the thread's two rows
+  const int key_b = key_a + 8;
+  const float bias_a =
+      (kv_mask != nullptr && key_a < S && !kv_mask[brow + key_a]) ? kNegInf : 0.f;
+  const float bias_b =
+      (kv_mask != nullptr && key_b < S && !kv_mask[brow + key_b]) ? kNegInf : 0.f;
+  const int seg_a = (segs != nullptr && key_a < S) ? segs[brow + key_a] : 0;
+  const int seg_b = (segs != nullptr && key_b < S) ? segs[brow + key_b] : 0;
+  const int kq = 2 * (lane & 3);  // the thread's first column in each 8
+  const uint32_t k_addr = smem_u32(k_s) + g * 64 * kRowBytes;
+  const uint32_t v_addr = smem_u32(v_s) + g * 64 * kRowBytes;
+
+  float dks[32], dvs[32];  // the f32 sums of the tiles' products
+#pragma unroll
+  for (int i = 0; i < 32; ++i) dks[i] = dvs[i] = 0.f;
+  mbar_wait(kvbar, 0);
+
+  for (int it = 0; it < ntiles; ++it) {
+    const int slot = it % kStages, q0 = (qt0 + it) * kBQ;
+    mbar_wait(&full[slot], (it / kStages) & 1);
+    // causal: a tile wholly before the warpgroup's keys sees none of them
+    if (!causal || q0 + kBQ - 1 >= wk0) {
+      const uint32_t q_addr = smem_u32(ring + slot * kStageBytes);
+      const uint32_t do_addr = q_addr + kTileBytes;
+      const float* vl = vecs + slot * kVecs;
+      const float* vd = vl + kBQ;
+      const int* vs = reinterpret_cast<const int*>(vl + 2 * kBQ);
+      float s[32], dp[32];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {  // S^T = K Q^T
+        if (kk == 0) wgmma_m64n64k16_ss_first<0>(s, desc_kmajor(k_addr), desc_kmajor(q_addr));
+        else wgmma_m64n64k16_ss<0>(s, desc_kmajor(k_addr + kk * 32),
+                                   desc_kmajor(q_addr + kk * 32), 1);
+      }
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {  // dP^T = V dO^T
+        if (kk == 0) wgmma_m64n64k16_ss_first<0>(dp, desc_kmajor(v_addr), desc_kmajor(do_addr));
+        else wgmma_m64n64k16_ss<0>(dp, desc_kmajor(v_addr + kk * 32),
+                                   desc_kmajor(do_addr + kk * 32), 1);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_operand(s);
+      fence_operand(dp);
+
+      // the TPU kernel's order: scale, the key's bias, then the segment
+      // and causal masks replace the score; P = exp(S - lse) and dS =
+      // P (dP - delta) scale in f32, each rounded to bf16 once, as the A
+      // fragments of the four k16 steps (rows: keys; columns: queries)
+      const bool diag = causal && q0 < wk0 + 64;
+      uint32_t pf[4][4], df[4][4];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        float pv[4], dsv[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = j * 8 + kq + (e & 1);
+          const bool ra = e < 2;
+          float sv = s[j * 4 + e] * scale + (ra ? bias_a : bias_b);
+          if (segs != nullptr && vs[col] != (ra ? seg_a : seg_b)) sv = kNegInf;
+          if (diag && q0 + col < (ra ? key_a : key_b)) sv = kNegInf;
+          pv[e] = expf(sv - vl[col]);
+          dsv[e] = pv[e] * (dp[j * 4 + e] - vd[col]) * scale;
+        }
+        pf[j / 2][(j % 2) * 2 + 0] = pack_bf16(pv[0], pv[1]);
+        pf[j / 2][(j % 2) * 2 + 1] = pack_bf16(pv[2], pv[3]);
+        df[j / 2][(j % 2) * 2 + 0] = pack_bf16(dsv[0], dsv[1]);
+        df[j / 2][(j % 2) * 2 + 1] = pack_bf16(dsv[2], dsv[3]);
+      }
+
+      // dV += P^T dO and dK += dS^T Q, dO and Q read MN-major (head_dim
+      // contiguous) through the transpose bit, a k16 step 16 query rows
+      float dvt[32], dkt[32];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const uint64_t db = desc_mnmajor(do_addr + kk * 16 * kRowBytes);
+        if (kk == 0) wgmma_m64n64k16_rs_first<1>(dvt, pf[kk], db);
+        else wgmma_m64n64k16_rs<1>(dvt, pf[kk], db, 1);
+      }
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const uint64_t db = desc_mnmajor(q_addr + kk * 16 * kRowBytes);
+        if (kk == 0) wgmma_m64n64k16_rs_first<1>(dkt, df[kk], db);
+        else wgmma_m64n64k16_rs<1>(dkt, df[kk], db, 1);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_operand(dvt);
+      fence_operand(dkt);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        dvs[i] += dvt[i];
+        dks[i] += dkt[i];
+      }
+    }
+    if (lane == 0) mbar_arrive(&empty[slot]);  // this warp is done with the stage
+  }
+
+  // dK and dV rounded once; rows past S are not stored
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int key = r == 0 ? key_a : key_b;
+    if (key >= S) continue;
+    const long long off = ((brow + key) * H + h) * 64;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int col = j * 8 + kq;
+      *reinterpret_cast<__nv_bfloat162*>(dk + off + col) =
+          __floats2bfloat162_rn(dks[j * 4 + 2 * r], dks[j * 4 + 2 * r + 1]);
+      *reinterpret_cast<__nv_bfloat162*>(dv + off + col) =
+          __floats2bfloat162_rn(dvs[j * 4 + 2 * r], dvs[j * 4 + 2 * r + 1]);
+    }
+  }
+}
+
+// st: q, k, v, dout strides (batch, seq, head) in elements; every
+// operand TMA-addressable (ops/flash_attention.py tma_compatible)
+int launch(const void* q, const void* k, const void* v, const void* dout, const void* kv_mask,
+           const void* segs, const void* lse, const void* delta, void* dk, void* dv, int B, int S,
+           int H, const Strides& st, int causal, float scale, cudaStream_t stream) {
+  const EncodeTiled encode = tensor_map_encoder();
+  if (encode == nullptr) return static_cast<int>(cudaErrorSharedObjectSymbolNotFound);
+  CUtensorMap mq, mk, mv, mdo;
+  if (!tensor_map_bshd(encode, &mq, q, B, S, H, st.qb, st.qs, st.qh, kBQ) ||
+      !tensor_map_bshd(encode, &mk, k, B, S, H, st.kb, st.ks, st.kh, kBK) ||
+      !tensor_map_bshd(encode, &mv, v, B, S, H, st.vb, st.vs, st.vh, kBK) ||
+      !tensor_map_bshd(encode, &mdo, dout, B, S, H, st.ob, st.os, st.oh, kBQ)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const cudaError_t err =
+      cudaFuncSetAttribute(flash_dkv_wgmma, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // x: (b, h); y: the key block, the slow axis (longest causal blocks first)
+  const dim3 grid(B * H, (S + kBK - 1) / kBK);
+  flash_dkv_wgmma<<<grid, kThreads, kSmem, stream>>>(
+      mq, mk, mv, mdo, static_cast<const uint8_t*>(kv_mask), static_cast<const int*>(segs),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), S, H, causal, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace wg
+
 int check_shape(int B, int S, int H, int D) {
   if (B * H > 65535) return static_cast<int>(cudaErrorInvalidValue);
   // head_dim 64 only, as the forward (csrc/flash_attention.cu)
@@ -287,7 +570,10 @@ int check_shape(int B, int S, int H, int D) {
 
 // strides: q, k, v, dout (batch, seq, head), in elements; the head_dim
 // axis of each must be contiguous. dq/dk/dv are written contiguous
-// [B, S, H, D]; lse and delta are f32 [B, H, S].
+// [B, S, H, D]; lse and delta are f32 [B, H, S]. bf16 K2dkv (the
+// tensor-core design, through TMA) also needs 16-byte aligned bases and
+// strides of size>1 dimensions that are multiples of 8 elements, or it
+// returns cudaErrorInvalidValue.
 extern "C" int port_flash_attention_dq(
     const void* q, const void* k, const void* v, const void* dout,
     const void* kv_mask, const void* segs, const void* lse, const void* delta,
@@ -328,7 +614,7 @@ extern "C" int port_flash_attention_dkv(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case kF32: launch_dkv<float>(q, k, v, dout, kv_mask, segs, lse, delta, dk, dv, B, S, H, st, causal, scale, s); break;
-    case kBF16: launch_dkv<__nv_bfloat16>(q, k, v, dout, kv_mask, segs, lse, delta, dk, dv, B, S, H, st, causal, scale, s); break;
+    case kBF16: return wg::launch(q, k, v, dout, kv_mask, segs, lse, delta, dk, dv, B, S, H, st, causal, scale, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());

@@ -60,6 +60,32 @@
 // colsum_kernel. K and N not multiples of 8, or unaligned tensors, take
 // a masked edge path of the same kernel that loads element by element.
 //
+// K5dx's entry point chooses the design by dtype too. K5dx bf16
+// (wgdx::k5_dx_wgmma, the tensor-core design) is K4dx's design (PR 7,
+// fused_matmul.cu wg::) with the taps added: persistent CTAs, one an SM,
+// of two consumer warpgroups and a producer warpgroup that gives them
+// its registers (setmaxnreg); its first thread brings each step's
+// operands by TMA into a 3-slot mbarrier ring. A step is one tap's 64
+// channels of N: A is dy at the flipped tap, brought as ONE 4-D box over
+// [B, H, W, N] at the tap's offset — the pixel tile is whole image rows
+// (nb images x rows x wc columns, at most 128 pixels: two rows at W =
+// 56, four at 28, nine at 14, two images at 7; ops/fused_conv3.py
+// k5dx_plan), so the
+// box's out-of-bounds zeros are exactly the SAME padding and no thread
+// computes an address (dy is not transformed, unlike K5f's A). B is
+// w[tap] rows k, N contiguous: K-major, a 3-D box over [9, K, N]. Each
+// step's products go into a fresh wgmma accumulator added to the f32
+// sum in step order, the structure of the plain version's nine f32
+// products summed in order, one step finer.
+// The epilogue is K4dx's: x arrives by TMA into the output tile a tile
+// ahead (three output buffers), the relu mask x*a + b > 0, dx = u*a
+// rounded once and written over x by a 4-D TMA store (rows off the
+// image dropped), one row of d a / d b partials a pixel tile, summed in
+// order by colsum_kernel. A tile of whole rows leaves 16 of 128 rows
+// idle at W = 56 and 28 and 30 at 14 and 7. K or N not a multiple of 8,
+// or a pointer off 16 bytes, takes a masked edge path of the same
+// kernel: the producer warpgroup gathers element by element.
+//
 // K5dw's entry point chooses the design by dtype too. K5dw bf16
 // (wgdw::k5_dw_wgmma, the tensor-core design) moves the tap shift onto
 // dy: dw[tap] = sum over x pixels q of xn[q]^T dy[q - shift(tap)], a
@@ -77,7 +103,7 @@
 // not a multiple of 8, or a pointer off 16 bytes, takes a masked edge
 // path of the same kernel that copies element by element.
 //
-// K5f f32, K5dx, and K5dw f32 (the first, CUDA-core design, kept for f32
+// K5f, K5dx and K5dw f32 (the first, CUDA-core design, kept for f32
 // as the reference the model-parity gates stand on): an implicit GEMM on
 // K4's tiled f32 CUDA-core mainloop (tile_gemm.cuh). The TPU kernels keep one whole
 // zero-padded image in VMEM (grid = (B,)); at stage 1 that is 58x58x64
@@ -673,6 +699,457 @@ cudaError_t dispatch(int transform, int want_stats, const void* x, const void* w
 
 }  // namespace wg
 
+// -- K5dx, bf16: the tensor-core design ----------------------------------------
+
+namespace wgdx {
+
+using namespace port::hopper;
+
+constexpr int kBM = 128;         // pixel rows of a CTA tile (two warpgroups of 64), at most
+constexpr int kBK = 64;          // reduction (N) a step: one 128-byte swizzle row
+constexpr int kConsumers = 256;  // two warpgroups, 64 rows each
+constexpr int kThreads = kConsumers + 128;  // and a producer warpgroup
+// registers a thread after the move (launched at 65536 / 384 = 168)
+constexpr int kProducerRegs = 40;
+constexpr int kConsumerRegs = 232;
+static_assert(kProducerRegs * 128 + kConsumerRegs * kConsumers <= 65536, "register file");
+constexpr int kABytes = kBM * 128;     // A tile: 128 pixel rows x 64 bf16
+constexpr int kAtomBytes = kBM * 128;  // an output tile's 64-column atom
+constexpr int kStages = 3;             // ring slots (A and B a step)
+constexpr int kOuts = 3;               // output tiles: x lands a tile ahead, dx stored over it
+
+// The accumulator granularity: a fresh wgmma accumulator every 64-wide
+// step, added to the f32 sum in step order. One a tap (4-8 steps chained
+// at stages 3-4) left up to 1.8x as many dx elements a bf16 rounding away
+// from an f64 reference as the plain version, at the same time; a fresh
+// one every step leaves fewer than the plain version at every ResNet-50
+// stage (PERF.md; kernel_probe.py k5dx-accuracy).
+
+// Shared memory of a CTA with output tiles BN wide (as K4dx's): the ring
+// (A [128 x 64], B = w[tap] rows k [BN x 64 n], K-major), kOuts output
+// tiles [128 x BN], the statistics' per-warp column sums [2][8][BN], the
+// barriers.
+template <int BN>
+struct Smem {
+  static constexpr int kStageBytes = kABytes + BN * 128;
+  static constexpr int kOutBytes = (BN / 64) * kAtomBytes;
+  static constexpr int kOut = kStages * kStageBytes;
+  static constexpr int kRed = kOut + kOuts * kOutBytes;
+  static constexpr int kBars = kRed + 2 * 8 * BN * 4;
+  // full and empty a slot; xfull and xempty an output tile
+  static constexpr int kBytes = 1024 + kBars + (2 * kStages + 2 * kOuts) * 8;
+};
+
+// A pixel tile is nb images x rows image rows x wc columns (<= kBM
+// pixels), so that one 4-D TMA box over [B, H, W, C] brings it, and a
+// tap's shifted box is its dy window with the zero padding filled in by
+// the box's out-of-bounds zeros. The tile is the caller's plan
+// (ops/fused_conv3.py k5dx_plan, which sizes the partials by it).
+struct Geo {
+  int nb, rows, wc;  // the tile
+  int tb, ti, tj;    // tiles along the batch, the image rows, the columns
+};
+
+// The geometry of the tile (nb, rows, wc), or false where it is not a
+// tile of at most kBM pixels within the tensor's dimensions.
+inline bool geometry(int bsz, int h, int wd, int nb, int rows, int wc, Geo* g) {
+  if (nb < 1 || rows < 1 || wc < 1 || nb > bsz || rows > h || wc > wd ||
+      nb * rows * wc > kBM) {
+    return false;
+  }
+  *g = Geo{nb, rows, wc, (bsz + nb - 1) / nb, (h + rows - 1) / rows, (wd + wc - 1) / wc};
+  return true;
+}
+
+template <int N>
+__device__ __forceinline__ void add_to(float (&sum)[N], float (&acc)[N]) {
+  fence_operand(acc);
+#pragma unroll
+  for (int e = 0; e < N; ++e) sum[e] += acc[e];
+}
+
+struct Args {
+  const __nv_bfloat16* dy;  // [B, H, W, N]
+  const __nv_bfloat16* w;   // [3, 3, K, N]
+  const __nv_bfloat16* x;   // [B, H, W, K]
+  const float* a;
+  const float* b;
+  __nv_bfloat16* dx;  // [B, H, W, K]
+  float* part;        // [pixel tiles, 2, K]
+  int bsz, h, wd, kdim, n;
+  Geo geo;
+};
+
+// Pixel tile pt's origin (b0, i0, j0) and the image coordinates of its
+// row r (-1 in `b` where the row is past the tile or off the tensor).
+struct TileOrigin {
+  int b0, i0, j0;
+};
+__device__ __forceinline__ TileOrigin origin(const Geo& g, int pt) {
+  return {(pt / (g.ti * g.tj)) * g.nb, ((pt / g.tj) % g.ti) * g.rows, (pt % g.tj) * g.wc};
+}
+__device__ __forceinline__ void row_pixel(const Args& a, const TileOrigin& o, int r, int& b,
+                                          int& i, int& j) {
+  const Geo& g = a.geo;
+  j = o.j0 + r % g.wc;
+  i = o.i0 + (r / g.wc) % g.rows;
+  b = o.b0 + r / (g.wc * g.rows);
+  if (r >= g.nb * g.rows * g.wc || b >= a.bsz || i >= a.h || j >= a.wd) b = -1;
+}
+
+// One CTA walks output tiles blockIdx.x, + gridDim.x, ... (persistent),
+// tile t = (pixel tile t / tiles_n, channel tile t % tiles_n). Warps 8-11
+// are the producer warpgroup: its first thread issues the TMA loads of
+// each step (the tap-shifted dy box, w[tap]'s rows) into the ring, and
+// after a tile's last step the x box into the tile's output buffer (on
+// the edge path the whole warpgroup copies element by element). Warps
+// 0-7 consume: warpgroup wg owns rows 64 wg .. 64 wg + 63 of the tile.
+// kVec: K and N multiples of 8 and every pointer 16-byte aligned.
+template <int BN, bool kTransform, bool kRelu, bool kVec>
+__global__ void __launch_bounds__(kThreads, 1)
+k5_dx_wgmma(const __grid_constant__ CUtensorMap tdy, const __grid_constant__ CUtensorMap tw,
+            const __grid_constant__ CUtensorMap tx, const __grid_constant__ CUtensorMap tdx,
+            const Args g) {
+  using S = Smem<BN>;
+  constexpr int kNA = BN / 2;  // accumulators a thread: 64 rows x BN over 128 threads
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* ring = smem;
+  float* red = reinterpret_cast<float*>(smem + S::kRed);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + S::kBars);
+  uint64_t* empty = full + kStages;
+  uint64_t* xfull = empty + kStages;
+  uint64_t* xempty = xfull + kOuts;
+
+  const Geo& geo = g.geo;
+  const int kdim = g.kdim, n = g.n;
+  const int tiles_n = (kdim + BN - 1) / BN;
+  const int ntiles = geo.tb * geo.ti * geo.tj * tiles_n;
+  const int nchunks = (n + kBK - 1) / kBK;
+  const int nsteps = kTaps * nchunks;
+  const int pix = geo.nb * geo.rows * geo.wc;  // the tile's rows in use
+  const int t = threadIdx.x, warp = t >> 5, lane = t & 31;
+
+  if (t == 0) {
+    for (int i = 0; i < kStages; ++i) {
+      mbar_init(&full[i], kVec ? 1 : 128);
+      mbar_init(&empty[i], kConsumers / 32);
+    }
+    for (int i = 0; i < kOuts; ++i) {
+      mbar_init(&xfull[i], 1);
+      mbar_init(&xempty[i], 1);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (warp >= kConsumers / 32) {  // -- the producer warpgroup --------------------------
+    setmaxnreg_dec<kProducerRegs>();
+    const int p = t - kConsumers;
+    if (kVec && p != 0) return;
+    const int total = ((ntiles - 1 - static_cast<int>(blockIdx.x)) / gridDim.x + 1) * nsteps;
+    for (int q = 0; q < total; ++q) {
+      const int tile = blockIdx.x + (q / nsteps) * gridDim.x;
+      const TileOrigin o = origin(geo, tile / tiles_n);
+      const int c0 = (tile % tiles_n) * BN;
+      const int s = q % nsteps, tap = s / nchunks, n0 = (s % nchunks) * kBK;
+      // the adjoint of tap (dh, dw) reads dy[b, i - dh + 1, j - dw + 1]
+      const int di = 1 - tap / 3, dj = 1 - tap % 3;
+      const int slot = q % kStages;
+      if (q >= kStages) mbar_wait(&empty[slot], ((q / kStages) - 1) & 1);
+      uint8_t* sa = ring + slot * S::kStageBytes;
+      uint8_t* sb = sa + kABytes;
+      if constexpr (kVec) {
+        mbar_arrive_expect_tx(&full[slot], pix * 128 + BN * 128);
+        tma_load_4d(sa, &tdy, &full[slot], n0, o.j0 + dj, o.i0 + di, o.b0);
+        tma_load_3d(sb, &tw, &full[slot], n0, c0, tap);
+        if (kTransform && s == nsteps - 1) {  // the tile's x, into its output buffer
+          const int i = q / nsteps, buf = i % kOuts;
+          if (i >= kOuts) mbar_wait(&xempty[buf], ((i / kOuts) - 1) & 1);
+          uint8_t* xt = smem + S::kOut + buf * S::kOutBytes;
+          mbar_arrive_expect_tx(&xfull[buf], (BN / 64) * pix * 128);
+#pragma unroll
+          for (int j = 0; j < BN / 64; ++j)
+            tma_load_4d(xt + j * kAtomBytes, &tx, &xfull[buf], c0 + 64 * j, o.j0, o.i0, o.b0);
+        }
+      } else {  // the edge path: element by element, zeros off the image
+        for (int idx = p; idx < kBM * 8; idx += 128) {
+          const int r = idx >> 3, c = idx & 7;
+          int bb, ii, jj;
+          row_pixel(g, o, r, bb, ii, jj);
+          ii += di;
+          jj += dj;
+          const bool ok = bb >= 0 && ii >= 0 && ii < g.h && jj >= 0 && jj < g.wd;
+          const long long pixel = ok ? (static_cast<long long>(bb) * g.h + ii) * g.wd + jj : 0;
+          dw::copy_chunk_elems(sa + sw128(r, c), g.dy, pixel, ok, n0 + 8 * c, n, n);
+        }
+        const __nv_bfloat16* wt = g.w + static_cast<long long>(tap) * kdim * n;
+        for (int idx = p; idx < BN * 8; idx += 128) {  // row r of B: output channel c0 + r
+          const int r = idx >> 3, c = idx & 7;
+          dw::copy_chunk_elems(sb + sw128(r, c), wt, c0 + r, c0 + r < kdim, n0 + 8 * c, n, n);
+        }
+        fence_proxy_async();
+        mbar_arrive(&full[slot]);
+      }
+    }
+    return;
+  }
+
+  // -- the consumer warpgroups ---------------------------------------------------
+  setmaxnreg_inc<kConsumerRegs>();
+  const int wg = warp >> 2;
+  float sum[kNA], acc[kNA];
+#pragma unroll
+  for (int e = 0; e < kNA; ++e) acc[e] = 0.f;
+
+  int it = 0, i = 0;
+  for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x, ++i) {
+    const int pt = tile / tiles_n, c0 = (tile % tiles_n) * BN;
+    const TileOrigin o = origin(geo, pt);
+
+    // mainloop: the f32 sum of the accumulators' products, in step order
+#pragma unroll
+    for (int e = 0; e < kNA; ++e) sum[e] = 0.f;
+    for (int s = 0; s < nsteps; ++s, ++it) {
+      const int slot = it % kStages;
+      uint8_t* sa = ring + slot * S::kStageBytes;
+      mbar_wait(&full[slot], (it / kStages) & 1);
+      const uint32_t a_addr = smem_u32(sa) + wg * 64 * 128;
+      const uint32_t b_addr = smem_u32(sa + kABytes);
+      if (s > 0) {  // the previous step's products are done before these overwrite them
+        wgmma_wait<0>();
+        add_to(sum, acc);
+      }
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {  // a fresh accumulator a step
+        const uint64_t da = desc_kmajor(a_addr + kk * 32);
+        const uint64_t db = desc_kmajor(b_addr + kk * 32);
+        if constexpr (BN == 128) {
+          if (kk == 0) wgmma_m64n128k16_ss_first<0>(acc, da, db);
+          else wgmma_m64n128k16_ss<0>(acc, da, db, 1);
+        } else {
+          if (kk == 0) wgmma_m64n64k16_ss_first<0>(acc, da, db);
+          else wgmma_m64n64k16_ss<0>(acc, da, db, 1);
+        }
+      }
+      wgmma_commit();
+      wgmma_wait<1>();
+      if (s > 0 && lane == 0) mbar_arrive(&empty[(it - 1) % kStages]);  // step s-1's slot
+    }
+    wgmma_wait<0>();
+    add_to(sum, acc);
+    if (lane == 0) mbar_arrive(&empty[(it - 1) % kStages]);
+
+    // epilogue (K4dx's): u = d xn, the relu mask from x, dx = u*a rounded
+    // once and staged for the TMA store, the d a / d b partials of the tile
+    const int buf = i % kOuts;
+    uint8_t* ot = smem + S::kOut + buf * S::kOutBytes;
+    if (kTransform && kVec) mbar_wait(&xfull[buf], (i / kOuts) & 1);
+    const int row_a = 64 * wg + 16 * (warp & 3) + (lane >> 2);
+    long long orow[2];
+    bool in[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      int bb, ii, jj;
+      row_pixel(g, o, row_a + 8 * r, bb, ii, jj);
+      in[r] = bb >= 0;
+      orow[r] = in[r] ? ((static_cast<long long>(bb) * g.h + ii) * g.wd + jj) * kdim : 0;
+    }
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      const int col = c0 + 8 * j + 2 * (lane & 3);
+      float p0[2] = {0.f, 0.f}, p1[2] = {0.f, 0.f};
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int lr = row_a + 8 * r;
+        __nv_bfloat162* sp = reinterpret_cast<__nv_bfloat162*>(
+            ot + (j >> 3) * kAtomBytes + sw128(lr, j & 7) + 4 * (lane & 3));
+        float v0 = sum[4 * j + 2 * r], v1 = sum[4 * j + 2 * r + 1];
+        __nv_bfloat162 out;
+        if (kTransform) {
+          float x0 = 0.f, x1 = 0.f, a0 = 0.f, a1 = 0.f, b0 = 0.f, b1 = 0.f;
+          if (kVec) {
+            const float2 xf = __bfloat1622float2(*sp);
+            x0 = xf.x;
+            x1 = xf.y;
+            if (col < kdim) {
+              const float2 av = *reinterpret_cast<const float2*>(g.a + col);
+              const float2 bv = *reinterpret_cast<const float2*>(g.b + col);
+              a0 = av.x; a1 = av.y; b0 = bv.x; b1 = bv.y;
+            }
+          } else {
+            if (col < kdim) {
+              a0 = g.a[col];
+              b0 = g.b[col];
+              if (in[r]) x0 = __bfloat162float(g.x[orow[r] + col]);
+            }
+            if (col + 1 < kdim) {
+              a1 = g.a[col + 1];
+              b1 = g.b[col + 1];
+              if (in[r]) x1 = __bfloat162float(g.x[orow[r] + col + 1]);
+            }
+          }
+          if (kRelu) {
+            if (!(__fadd_rn(__fmul_rn(x0, a0), b0) > 0.f)) v0 = 0.f;
+            if (!(__fadd_rn(__fmul_rn(x1, a1), b1) > 0.f)) v1 = 0.f;
+          }
+          out = __floats2bfloat162_rn(v0 * a0, v1 * a1);
+          if (in[r]) {
+            p0[0] += v0 * x0;
+            p1[0] += v0;
+            p0[1] += v1 * x1;
+            p1[1] += v1;
+          }
+        } else {
+          out = __floats2bfloat162_rn(v0, v1);
+        }
+        if (kVec) {
+          *sp = out;
+        } else if (in[r]) {
+          if (col < kdim) g.dx[orow[r] + col] = out.x;
+          if (col + 1 < kdim) g.dx[orow[r] + col + 1] = out.y;
+        }
+      }
+      if (kTransform) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+#pragma unroll
+          for (int sh = 4; sh < 32; sh <<= 1) {
+            p0[e] += __shfl_xor_sync(0xffffffffu, p0[e], sh);
+            p1[e] += __shfl_xor_sync(0xffffffffu, p1[e], sh);
+          }
+          if (lane < 4) {
+            red[warp * BN + 8 * j + 2 * lane + e] = p0[e];
+            red[(8 + warp) * BN + 8 * j + 2 * lane + e] = p1[e];
+          }
+        }
+      }
+    }
+    if (kVec) fence_proxy_async();  // the staged tile before the TMA store's reads
+    named_barrier(1, kConsumers);
+    if (kVec && t == 0) {
+#pragma unroll
+      for (int j = 0; j < BN / 64; ++j)
+        tma_store_4d(&tdx, ot + j * kAtomBytes, c0 + 64 * j, o.j0, o.i0, o.b0);
+      bulk_commit();
+      bulk_wait_read<1>();  // the previous tile's store has read its buffer
+      if (kTransform && i > 0) mbar_arrive(&xempty[(i - 1) % kOuts]);
+    }
+    if (kTransform && t < BN && c0 + t < kdim) {
+      float t0 = 0.f, t1 = 0.f;
+#pragma unroll
+      for (int v = 0; v < 8; ++v) {
+        t0 += red[v * BN + t];
+        t1 += red[(8 + v) * BN + t];
+      }
+      float* prow = g.part + static_cast<long long>(pt) * 2 * kdim;
+      prow[c0 + t] = t0;
+      prow[kdim + c0 + t] = t1;
+    }
+    named_barrier(1, kConsumers);  // red, and the other output tile, free for the next tile
+  }
+  if (kVec && t == 0) bulk_wait_read<0>();  // shared memory outlives the last store's reads
+}
+
+// A 4-D map over an NHWC bf16 tensor [bsz, h, wd, c] (c a multiple of 8,
+// the base 16-byte aligned), dimensions innermost first (c, wd, h, bsz),
+// boxes of 64 channels x the pixel tile, 128-byte swizzle, zeros off the
+// tensor: a tap-shifted box reads the zero padding there.
+inline bool tensor_map_nhwc(EncodeTiled encode, CUtensorMap* map, const void* base, int bsz,
+                            int h, int wd, int c, const Geo& g) {
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(c), static_cast<cuuint64_t>(wd),
+                              static_cast<cuuint64_t>(h), static_cast<cuuint64_t>(bsz)};
+  const cuuint64_t row = static_cast<cuuint64_t>(c) * 2;
+  const cuuint64_t strides[3] = {row, row * wd, row * wd * h};
+  const cuuint32_t box[4] = {64, static_cast<cuuint32_t>(g.wc), static_cast<cuuint32_t>(g.rows),
+                             static_cast<cuuint32_t>(g.nb)};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
+                strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A 3-D map over w [3, 3, K, N] as [9 taps, K, N], boxes of 64 n x rows
+// k of one tap, zeros past K and N (not the next tap's rows).
+inline bool tensor_map_taps(EncodeTiled encode, CUtensorMap* map, const void* base, int kdim,
+                            int n, int rows) {
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(n), static_cast<cuuint64_t>(kdim), kTaps};
+  const cuuint64_t row = static_cast<cuuint64_t>(n) * 2;
+  const cuuint64_t strides[2] = {row, row * kdim};
+  const cuuint32_t box[3] = {64, static_cast<cuuint32_t>(rows), 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims,
+                strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int BN, bool kTransform, bool kRelu, bool kVec>
+cudaError_t launch(const CUtensorMap& tdy, const CUtensorMap& tw, const CUtensorMap& tx,
+                   const CUtensorMap& tdx, const Args& g, cudaStream_t s) {
+  auto kernel = k5_dx_wgmma<BN, kTransform, kRelu, kVec>;
+  constexpr int kSmem = Smem<BN>::kBytes;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+  if (err != cudaSuccess) return err;
+  // one persistent CTA an SM, no more than the tiles; each tile is one
+  // CTA's whatever the grid, so the result does not depend on the card
+  const long long tiles = static_cast<long long>(g.geo.tb) * g.geo.ti * g.geo.tj *
+                          ((g.kdim + BN - 1) / BN);
+  const int ctas = sm_count();
+  if (ctas == 0) return cudaErrorInvalidDevice;
+  if (tiles > INT_MAX) return cudaErrorInvalidValue;
+  kernel<<<static_cast<unsigned>(tiles < ctas ? tiles : ctas), kThreads, kSmem, s>>>(
+      tdy, tw, tx, tdx, g);
+  return cudaGetLastError();
+}
+
+template <int BN, bool kVec>
+cudaError_t modes(int transform, const CUtensorMap& tdy, const CUtensorMap& tw,
+                  const CUtensorMap& tx, const CUtensorMap& tdx, const Args& g, cudaStream_t s) {
+  if (transform == 0) return launch<BN, false, false, kVec>(tdy, tw, tx, tdx, g, s);
+  if (transform == 1) return launch<BN, true, false, kVec>(tdy, tw, tx, tdx, g, s);
+  return launch<BN, true, true, kVec>(tdy, tw, tx, tdx, g, s);
+}
+
+// part: [pixel tiles of geo, 2, kdim] (transform); the output tile is
+// 64 channels wide where K <= 64, else 128
+cudaError_t run(int transform, const void* dy, const void* w, const void* x, const void* a,
+                const void* b, void* dxp, void* part, void* dstats, int bsz, int h, int wd,
+                int kdim, int n, const Geo& geo, cudaStream_t s) {
+  auto aligned = [](const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; };
+  const bool vec = kdim % 8 == 0 && n % 8 == 0 && aligned(dy) && aligned(w) && aligned(x) &&
+                   aligned(dxp) && (transform == 0 || (aligned(a) && aligned(b)));
+  const int bn = kdim <= 64 ? 64 : 128;
+  CUtensorMap tdy{}, tw{}, tx{}, tdx{};
+  if (vec) {
+    const EncodeTiled encode = tensor_map_encoder();
+    if (encode == nullptr) return cudaErrorSharedObjectSymbolNotFound;
+    if (!tensor_map_nhwc(encode, &tdy, dy, bsz, h, wd, n, geo) ||
+        !tensor_map_taps(encode, &tw, w, kdim, n, bn) ||
+        !tensor_map_nhwc(encode, &tx, x, bsz, h, wd, kdim, geo) ||
+        !tensor_map_nhwc(encode, &tdx, dxp, bsz, h, wd, kdim, geo)) {
+      return cudaErrorInvalidValue;
+    }
+  }
+  const Args g{static_cast<const __nv_bfloat16*>(dy), static_cast<const __nv_bfloat16*>(w),
+               static_cast<const __nv_bfloat16*>(x), static_cast<const float*>(a),
+               static_cast<const float*>(b), static_cast<__nv_bfloat16*>(dxp),
+               static_cast<float*>(part), bsz, h, wd, kdim, n, geo};
+#define K5DX_TILE(BN) \
+  (vec ? modes<BN, true>(transform, tdy, tw, tx, tdx, g, s) \
+       : modes<BN, false>(transform, tdy, tw, tx, tdx, g, s))
+  const cudaError_t err = bn == 128 ? K5DX_TILE(128) : K5DX_TILE(64);
+#undef K5DX_TILE
+  if (err != cudaSuccess) return err;
+  if (transform != 0) colsum(part, geo.tb * geo.ti * geo.tj, 2 * kdim, dstats, s);
+  return cudaGetLastError();
+}
+
+}  // namespace wgdx
+
 // -- K5dw, bf16: the tensor-core design ----------------------------------------
 
 namespace wgdw {
@@ -853,26 +1330,35 @@ extern "C" int port_k5_fwd(const void* x, const void* w, const void* a, const vo
   return static_cast<int>(cudaGetLastError());
 }
 
-// dy [bsz, h, wd, n], dx and x [bsz, h, wd, kdim];
-// part: f32 scratch [ceil(M / 128), 2, kdim] (transform), dstats: f32 [2, kdim].
+// dy [bsz, h, wd, n], dx and x [bsz, h, wd, kdim]; part: f32 scratch
+// [pixel tiles, 2, kdim] (transform), dstats: f32 [2, kdim]. f32: tiles
+// of 128 flattened pixels; bf16: tiles of tile_nb images x tile_rows
+// image rows x tile_cols columns (ops/fused_conv3.py k5dx_plan; unused
+// in f32).
 extern "C" int port_k5_dx(const void* dy, const void* w, const void* x, const void* a,
                           const void* b, void* dx, void* part, void* dstats, int bsz, int h,
-                          int wd, int kdim, int n, int transform, int dtype, int device,
-                          void* stream) {
+                          int wd, int kdim, int n, int transform, int tile_nb, int tile_rows,
+                          int tile_cols, int dtype, int device, void* stream) {
   if (cudaSetDevice(device) != cudaSuccess) return static_cast<int>(cudaGetLastError());
   const int m = pixels(bsz, h, wd, kdim, n);
   if (m < 0 || transform < 0 || transform > 2) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define K5_DX(T)                                                                                      \
-  (transform == 0   ? dx_launch<T, false, false>(dy, w, x, a, b, dx, part, dstats, m, h, wd, kdim, n, s) \
-   : transform == 1 ? dx_launch<T, true, false>(dy, w, x, a, b, dx, part, dstats, m, h, wd, kdim, n, s)  \
-                    : dx_launch<T, true, true>(dy, w, x, a, b, dx, part, dstats, m, h, wd, kdim, n, s))
   switch (dtype) {
-    case kF32: K5_DX(float); break;
-    case kBF16: K5_DX(__nv_bfloat16); break;
+    case kF32:
+      if (transform == 0) dx_launch<float, false, false>(dy, w, x, a, b, dx, part, dstats, m, h, wd, kdim, n, s);
+      else if (transform == 1) dx_launch<float, true, false>(dy, w, x, a, b, dx, part, dstats, m, h, wd, kdim, n, s);
+      else dx_launch<float, true, true>(dy, w, x, a, b, dx, part, dstats, m, h, wd, kdim, n, s);
+      break;
+    case kBF16: {
+      wgdx::Geo geo;
+      if (!wgdx::geometry(bsz, h, wd, tile_nb, tile_rows, tile_cols, &geo)) {
+        return static_cast<int>(cudaErrorInvalidValue);
+      }
+      return static_cast<int>(wgdx::run(transform, dy, w, x, a, b, dx, part, dstats, bsz, h, wd,
+                                        kdim, n, geo, s));
+    }
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
-#undef K5_DX
   return static_cast<int>(cudaGetLastError());
 }
 

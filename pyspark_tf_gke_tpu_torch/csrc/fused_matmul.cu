@@ -101,7 +101,6 @@
 //     rounds to dy's dtype.
 // No atomics in any kernel: every result is independent of scheduling.
 
-#include <atomic>
 #include <climits>
 
 #include "tile_gemm.cuh"
@@ -708,22 +707,6 @@ k4_dx_wgmma(const __grid_constant__ CUtensorMap tdy, const __grid_constant__ CUt
             const __grid_constant__ CUtensorMap tx, const __grid_constant__ CUtensorMap tdx,
             const Args g) {
   k4_body<BN, true, kTransform, kRelu, kTransform, kVec>(tdy, tw, tx, tdx, g);
-}
-
-// The current device's SMs, looked up once a device; 0 if the lookup fails.
-inline int sm_count() {
-  constexpr int kDevices = 64;
-  static std::atomic<int> counts[kDevices];
-  int device = 0, count = 0;
-  if (cudaGetDevice(&device) != cudaSuccess) return 0;
-  if (device < kDevices && (count = counts[device].load(std::memory_order_relaxed)) > 0) {
-    return count;
-  }
-  if (cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount, device) != cudaSuccess) {
-    return 0;
-  }
-  if (device < kDevices) counts[device].store(count, std::memory_order_relaxed);
-  return count;
 }
 
 // grid: one persistent CTA an SM (a CTA takes most of an SM's shared

@@ -5,8 +5,10 @@
 // named barriers, register moves between warpgroups, the proxy fence,
 // TMA tensor loads and stores and their tensor maps, and cp.async. Only what the bf16 flash forward
 // (flash_attention.cu), the bf16 fused 3x3 conv forward (fused_conv3.cu),
-// the bf16 fused 1x1 conv forward and input gradient (fused_matmul.cu)
-// and the bf16 weight gradients (wgmma_dw.cuh) use; PTX as in the PTX
+// the bf16 fused 1x1 conv forward and input gradient (fused_matmul.cu),
+// the bf16 fused 3x3 conv input gradient (fused_conv3.cu), the bf16
+// flash dK/dV (flash_attention_bwd.cu) and the bf16 weight gradients
+// (wgmma_dw.cuh) use; PTX as in the PTX
 // ISA's wgmma, mbarrier, bar, cp.async, cp.async.bulk and
 // cp.async.bulk.tensor sections.
 //
@@ -30,7 +32,10 @@
 //    the tile is one atom wide.
 #pragma once
 
+#include <atomic>
+
 #include <cuda.h>
+#include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <dlfcn.h>
 #include <stdint.h>
@@ -140,6 +145,19 @@ __device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32], const uint32_
       ", {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
       : PORT_D32
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d), "n"(kTransB));
+}
+
+// d = A B with A from registers (as wgmma_m64n64k16_rs), the outputs
+// write-only: a fresh accumulator whose old value is dead
+template <int kTransB>
+__device__ __forceinline__ void wgmma_m64n64k16_rs_first(float (&d)[32], const uint32_t (&a)[4],
+                                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " PORT_DREGS
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+      : PORT_D32_OUT
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(0), "n"(kTransB));
 }
 
 #undef PORT_D32
@@ -292,6 +310,29 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
       : "memory");
 }
 
+// TMA: the box at coordinates (c0, c1, c2) of a 3-D tensor map into
+// shared memory at dst; completion counts the box's bytes on `bar`
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// TMA store: shared memory at src to the box at coordinates (c0, c1,
+// c2, c3) of a 4-D tensor map; the parts of the box outside the tensor
+// are not written. Tracked by this thread's bulk groups.
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map, const void* src, int c0,
+                                             int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
 // TMA: the box at coordinates (c0, c1) of a 2-D tensor map (c0 the
 // contiguous axis) into shared memory at dst; completion counts the
 // box's bytes on `bar`, zeros included where the box leaves the tensor
@@ -351,6 +392,44 @@ inline bool tensor_map_2d(EncodeTiled encode, CUtensorMap* map, const void* base
                 strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A 4-D map over a [B, S, H, 64] bf16 view with element strides (sb, ss,
+// sh, 1), dimensions innermost first as (head_dim, head, seq, batch),
+// boxes of `rows` positions of one (batch, head), 128-byte swizzle,
+// zeros past S. The stride of a size-1 dimension is never followed and
+// is replaced by a valid one. The flash kernels' Q, K, V and dO.
+inline bool tensor_map_bshd(EncodeTiled encode, CUtensorMap* map, const void* base, int B, int S,
+                            int H, long long sb, long long ss, long long sh, int rows) {
+  const cuuint64_t st_h = static_cast<cuuint64_t>(H > 1 ? sh : 64) * 2;
+  const cuuint64_t st_s = S > 1 ? static_cast<cuuint64_t>(ss) * 2 : st_h * H;
+  const cuuint64_t st_b = B > 1 ? static_cast<cuuint64_t>(sb) * 2 : st_s * S;
+  const cuuint64_t dims[4] = {64, static_cast<cuuint64_t>(H), static_cast<cuuint64_t>(S),
+                              static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {st_h, st_s, st_b};
+  const cuuint32_t box[4] = {64, 1, static_cast<cuuint32_t>(rows), 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
+                strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The current device's SMs, looked up once a device; 0 if the lookup
+// fails. The persistent kernels launch one CTA an SM.
+inline int sm_count() {
+  constexpr int kDevices = 64;
+  static std::atomic<int> counts[kDevices];
+  int device = 0, count = 0;
+  if (cudaGetDevice(&device) != cudaSuccess) return 0;
+  if (device < kDevices && (count = counts[device].load(std::memory_order_relaxed)) > 0) {
+    return count;
+  }
+  if (cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount, device) != cudaSuccess) {
+    return 0;
+  }
+  if (device < kDevices) counts[device].store(count, std::memory_order_relaxed);
+  return count;
 }
 
 // 16 bytes global -> shared, asynchronously; src_bytes 0 writes zeros

@@ -27,10 +27,14 @@ probabilities there); f32 runs the CUDA-core kernel, P in f32. The
 bf16 kernel reads q/k/v through TMA tensor maps, so each needs a
 16-byte aligned base and strides (of dimensions longer than 1) that are
 multiples of 8 elements: :func:`tma_compatible`; another layout raises.
-The backward keeps P and dS unrounded (f32, or f64 for f64 inputs); the
-TPU kernels round them to the input dtype before their bf16 products.
-The wrappers take the plain versions only for tensors on the CPU; a
-CUDA tensor launches the kernel or raises.
+The backward rounds where the TPU kernels round (``:202``, ``:255``,
+``:262``): for inputs narrower than f32, P is rounded to dO's dtype
+before ``dV += P^T dO`` and dS to q's dtype before ``dK += dS^T Q`` and
+``dQ += dS K``; f32 and f64 inputs keep both unrounded. The bf16 K2dkv
+is a tensor-core kernel (``wgmma``; K/V once, Q/dO tiles by TMA) whose
+products take bf16 P and dS anyway; bf16 K2dq and both f32 kernels are
+the CUDA-core designs. The wrappers take the plain versions only for
+tensors on the CPU; a CUDA tensor launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -102,7 +106,8 @@ def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
     rowsum(dO * O) [B, H, S]``, as the K2dq/K2dkv kernels compute them:
     scores in the forward's order (scale, additive key bias, then the
     segment and causal masks replace the score), ``P = exp(S - lse)``,
-    ``dS = P * (dP - delta) * scale``."""
+    ``dS = P * (dP - delta) * scale``; for inputs narrower than f32, P
+    and dS rounded to the input dtype before their products."""
     acc = torch.promote_types(q.dtype, torch.float32)
     qf, kf, vf, dof = (t.to(acc) for t in (q, k, v, dout))
     scale = q.shape[-1] ** -0.5
@@ -118,6 +123,9 @@ def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
     p = torch.exp(s - lse.to(acc)[..., None])
     dp = torch.einsum("bqhd,bkhd->bhqk", dof, vf)
     ds = p * (dp - delta.to(acc)[..., None]) * scale
+    if torch.finfo(q.dtype).bits < 32:  # the TPU kernels' rounding points
+        p = p.to(dout.dtype).to(acc)
+        ds = ds.to(q.dtype).to(acc)
     dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf)
     dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf)
     dv = torch.einsum("bhqk,bqhd->bkhd", p, dof)
@@ -162,6 +170,22 @@ def tma_compatible(t: torch.Tensor) -> bool:
                for size, st in zip(t.shape[:3], t.stride()[:3]) if size > 1)
 
 
+def _require_tma(kernel: str, q, k, v) -> None:
+    if not all(tma_compatible(t) for t in (q, k, v)):
+        raise ValueError(f"the bf16 {kernel} kernel reads q/k/v by TMA: it "
+                         "needs 16-byte aligned bases and strides that are "
+                         "multiples of 8 elements")
+
+
+def tma_dout(dout: torch.Tensor) -> torch.Tensor:
+    """``dout`` as bf16 K2dkv reads it: itself where TMA can address it,
+    else a contiguous copy. Autograd may hand the backward an expanded
+    or strided cotangent (a broadcast loss, a sliced output); unlike q,
+    k and v, which the caller laid out, it is copied, not refused."""
+    return dout if tma_compatible(dout) else dout.clone(
+        memory_format=torch.contiguous_format)
+
+
 def _ptr(t: Optional[torch.Tensor]):
     return t.data_ptr() if t is not None else None
 
@@ -180,11 +204,8 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, kv_mask, causal, segment_ids)
     device, code = _check("flash_attention", q, k, v, kv_mask, segment_ids)
-    if q.dtype == torch.bfloat16 and not all(
-            tma_compatible(t) for t in (q, k, v)):
-        raise ValueError("the bf16 flash kernel reads q/k/v by TMA: it "
-                         "needs 16-byte aligned bases and strides that "
-                         "are multiples of 8 elements")
+    if q.dtype == torch.bfloat16:
+        _require_tma("flash", q, k, v)
     b, s, h, d = q.shape
     out = torch.empty((b, s, h, d), dtype=q.dtype, device=device)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=device)
@@ -251,10 +272,17 @@ def flash_attention_dkv(dout: torch.Tensor, q: torch.Tensor, k: torch.Tensor,
                         causal: bool = False,
                         segment_ids: Optional[torch.Tensor] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K2dkv: ``(dk, dv)``, each ``[B, S, H, D]`` (CUDA tensors only)."""
+    """K2dkv: ``(dk, dv)``, each ``[B, S, H, D]`` (CUDA tensors only).
+    bf16 runs the tensor-core kernel, which reads q, k, v and dout by
+    TMA: q, k and v must be TMA-addressable, dout is copied where not
+    (:func:`tma_dout`)."""
     global dkv_launches
+    if q.dtype == torch.bfloat16:
+        dout = tma_dout(dout)
     device, code = _check_bwd("flash_attention_dkv", dout, q, k, v, lse,
                               delta, kv_mask, segment_ids)
+    if q.dtype == torch.bfloat16:
+        _require_tma("flash_attention_dkv", q, k, v)
     head, tail = _bwd_args(dout, q, k, v, lse, delta, kv_mask, segment_ids,
                            causal, code, device)
     dk = torch.empty(q.shape, dtype=q.dtype, device=device)

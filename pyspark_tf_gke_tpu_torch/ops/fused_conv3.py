@@ -15,13 +15,15 @@ the autograd Function K4 uses: the forward is the K5f kernel and the
 backward is K5dx (``dx`` with the relu mask, and ``d a``, ``d b``) plus
 K5dw (``dw``), all in ``csrc/fused_conv3.cu``.
 
-K5f and K5dw choose their design by dtype: bf16 runs the tensor-core
-kernels (``wgmma`` over swizzled shared-memory tiles, the transform
-applied in shared memory; K5f each tap's products summed in f32 in tap
-order, K5dw the tap shift moved onto dy and x transformed once a kernel
-row, on K4dw's mainloop ``csrc/wgmma_dw.cuh``), f32 the CUDA-core
-kernels, which K5dx runs in both dtypes. Both round at the same points;
-:func:`k5f_plan` and ``fused_matmul.dw_plan`` give each one's tile.
+Each chooses its design by dtype: bf16 runs the tensor-core kernels
+(``wgmma`` over swizzled shared-memory tiles; K5f the transform applied
+in shared memory and each tap's products summed in f32 in tap order;
+K5dx K4dx's persistent design with the tap-shifted dy brought as one 4-D
+TMA box of whole image rows, whose out-of-bounds zeros are the padding;
+K5dw the tap shift moved onto dy and x transformed once a kernel row, on
+K4dw's mainloop ``csrc/wgmma_dw.cuh``), f32 the CUDA-core kernels. Both
+round at the same points; :func:`k5f_plan`, :func:`k5dx_plan` and
+``fused_matmul.dw_plan`` give each one's tile.
 
 Rounding points (``:43-52``, ``:62-72``, ``:243-257``): the transformed
 input is rounded to x's dtype before the products; each output is the
@@ -63,9 +65,15 @@ TAPS = 9
 # csrc/fused_conv3.cu: the bf16 tensor-core kernel takes wg::kBM x kBN
 # for N <= 64 and wg::kWideBM x kWideBN beyond; the f32 CUDA-core kernel
 # takes tile_gemm.cuh's kBM x kBN (the narrow tile). One row of
-# statistics partials per pixel tile. K5dx keeps K4's fused_matmul.BLOCK_M.
+# statistics partials per pixel tile.
 K5F_TILE = (128, 64)
 K5F_WIDE_TILE = (64, 128)
+# K5dx's pixel tiles: the bf16 tensor-core kernel (csrc/fused_conv3.cu
+# wgdx::) takes the tile k5dx_plan gives it, whole image rows of at most
+# K5DX_PIXELS pixels (wgdx::kBM); the f32 CUDA-core kernel takes
+# fused_matmul.BLOCK_M flattened pixels. One row of d a / d b partials
+# per pixel tile.
+K5DX_PIXELS = 128
 
 fwd_launches = 0  # K5f launches since the last reset (chip_smoke reads them)
 dx_launches = 0   # K5dx
@@ -142,6 +150,22 @@ def k5f_plan(m: int, n: int, dtype: torch.dtype
     wide = dtype == torch.bfloat16 and n > K5F_TILE[1]
     bm, bn = K5F_WIDE_TILE if wide else K5F_TILE
     return bm, bn, _cdiv(m, bm), _cdiv(n, bn)
+
+
+def k5dx_plan(bsz: int, h: int, wd: int, dtype: torch.dtype
+              ) -> Tuple[Tuple[int, int, int], int]:
+    """K5dx's pixel tile and the number of pixel tiles (the rows of the
+    d a / d b partials ``[tiles, 2, K]``) for ``x [bsz, h, wd, K]``.
+    bf16: ``(nb, rows, wc)`` = nb images of ``rows`` whole image rows of
+    ``wc`` columns (at most K5DX_PIXELS pixels), so that one 4-D TMA box
+    brings a tap-shifted tile with its zero padding; the kernel takes
+    this tile. f32: 128 flattened pixels, ``(1, 1, BLOCK_M)``."""
+    if dtype != torch.bfloat16:
+        return (1, 1, BLOCK_M), _cdiv(bsz * h * wd, BLOCK_M)
+    wc = min(wd, K5DX_PIXELS)
+    rows = 1 if wc < wd else min(h, K5DX_PIXELS // wd)
+    nb = 1 if (rows < h or wc < wd) else min(bsz, K5DX_PIXELS // (h * wd))
+    return (nb, rows, wc), _cdiv(bsz, nb) * _cdiv(h, rows) * _cdiv(wd, wc)
 
 
 def _check(kernel: str, x, w, dy, a, b) -> Tuple[torch.device, int]:
@@ -226,12 +250,13 @@ def conv3_dx(dy: torch.Tensor, w: torch.Tensor, x: torch.Tensor,
         return dx, dstats
     if n == 0:
         return dx.zero_(), dstats
-    part = (torch.empty((_cdiv(m, BLOCK_M), 2, kdim), dtype=torch.float32,
+    tile, tiles = k5dx_plan(bsz, h, wd, x.dtype)
+    part = (torch.empty((tiles, 2, kdim), dtype=torch.float32,
                         device=device) if a is not None else None)
     rc = kernels.library().port_k5_dx(
         dy.data_ptr(), w.data_ptr(), x.data_ptr(), _ptr(a), _ptr(b),
         dx.data_ptr(), _ptr(part), _ptr(dstats), bsz, h, wd, kdim, n,
-        _transform_code(a, relu), code, *kernels.launch_args(device))
+        _transform_code(a, relu), *tile, code, *kernels.launch_args(device))
     kernels.check(rc, "k5_dx")
     dx_launches += 1
     return dx, dstats

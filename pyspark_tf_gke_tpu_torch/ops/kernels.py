@@ -62,7 +62,7 @@ SIGNATURES = {
     "port_k4_dx": [_P] * 8 + [_I] * 7 + [_P],
     "port_k4_dw": [_P] * 6 + [_I] * 10 + [_P],
     "port_k5_fwd": [_P] * 7 + [_I] * 9 + [_P],
-    "port_k5_dx": [_P] * 8 + [_I] * 8 + [_P],
+    "port_k5_dx": [_P] * 8 + [_I] * 11 + [_P],
     "port_k5_dw": [_P] * 6 + [_I] * 10 + [_P],
 }
 

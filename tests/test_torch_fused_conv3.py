@@ -302,3 +302,93 @@ def test_k5f_plan_fills_the_h100(m, n):
     for each of an H100's 132 SMs (stage 4: 49 x 4 = 196)."""
     _, _, tiles_m, tiles_n = tfc.k5f_plan(m, n, torch.bfloat16)
     assert tiles_m * tiles_n >= 132
+
+
+# K5dx's shapes (B, H, W, K): ResNet-50's four stride-1 stages at batch
+# 64, the ragged chip check shape, one wider than a tile (W > 128) and
+# one whose images are smaller than a tile
+K5DX_SHAPES = ((64, 56, 56, 64), (64, 28, 28, 128), (64, 14, 14, 256),
+               (64, 7, 7, 512), (3, 9, 5, 48), (2, 3, 200, 16),
+               (5, 2, 3, 8))
+
+
+def _k5dx_block_n(k: int) -> int:
+    """bf16 K5dx's output tile width along K (csrc/fused_conv3.cu
+    wgdx::run)."""
+    return 64 if k <= 64 else 128
+
+
+@pytest.mark.parametrize("shape", K5DX_SHAPES)
+def test_k5dx_partials_follow_its_own_tile_plan(shape, monkeypatch):
+    """bf16 K5dx's pixel tile is whole image rows of at most wgdx::kBM
+    pixels (csrc/fused_conv3.cu), so that one 4-D TMA box brings a
+    tap-shifted tile; the tiles cover every pixel exactly once; the
+    wrapper sizes the [tiles, 2, K] d a / d b partials by the plan and
+    hands the kernel the same tile (f32: tiles of fused_matmul.BLOCK_M
+    flattened pixels, the CUDA-core kernel's)."""
+    from pathlib import Path
+
+    bsz, h, wd, k = shape
+    csrc = Path(tfc.__file__).resolve().parent.parent / "csrc"
+    conv3 = (csrc / "fused_conv3.cu").read_text()
+    wgdx = conv3[conv3.index("namespace wgdx {"):]
+    assert _cu_constant(wgdx, "kBM") == tfc.K5DX_PIXELS
+    assert "const int bn = kdim <= 64 ? 64 : 128;" in wgdx
+    (nb, rows, wc), tiles = tfc.k5dx_plan(bsz, h, wd, torch.bfloat16)
+    assert nb * rows * wc <= tfc.K5DX_PIXELS
+    assert (nb == 1 or rows == h) and (rows == 1 or wc == wd)
+    seen = torch.zeros(bsz, h, wd, dtype=torch.int32)
+    tb, ti, tj = -(-bsz // nb), -(-h // rows), -(-wd // wc)
+    assert tb * ti * tj == tiles
+    for pt in range(tiles):  # wgdx::origin
+        b0, i0, j0 = (pt // (ti * tj)) * nb, (pt // tj % ti) * rows, \
+            (pt % tj) * wc
+        seen[b0:b0 + nb, i0:i0 + rows, j0:j0 + wc] += 1
+    assert bool((seen == 1).all())
+    if wd <= 64:  # a tile of more than one row when rows fit
+        assert nb * rows * wc > tfc.K5DX_PIXELS // 2 or nb * rows == bsz * h
+    assert tfc.k5dx_plan(bsz, h, wd, torch.float32) == (
+        (1, 1, tfm.BLOCK_M), -(-bsz * h * wd // tfm.BLOCK_M))
+
+    # the wrapper allocates the partials of that many tiles and passes the
+    # tile after the transform code
+    calls = []
+
+    class FakeLibrary:
+        def port_k5_dx(self, *args):
+            calls.append(args)
+            return 0
+
+    monkeypatch.setattr(tfc.kernels, "require_cuda",
+                        lambda kernel, *ts: ts[0].device)
+    monkeypatch.setattr(tfc.kernels, "library", FakeLibrary)
+    monkeypatch.setattr(tfc.kernels, "launch_args", lambda device: (0, 0))
+    made = []
+    real_empty = torch.empty
+    monkeypatch.setattr(tfc.torch, "empty", lambda *a, **kw: made.append(
+        tuple(a[0]) if a and isinstance(a[0], tuple) else None) or
+        real_empty(*a, **kw))
+    for dtype in (torch.bfloat16, torch.float32):
+        made.clear()
+        calls.clear()
+        tile, want = tfc.k5dx_plan(bsz, h, wd, dtype)
+        x = torch.empty(bsz, h, wd, k, device="meta", dtype=dtype)
+        w = torch.empty(3, 3, k, 24, device="meta", dtype=dtype)
+        dy = torch.empty(bsz, h, wd, 24, device="meta", dtype=dtype)
+        a = torch.empty(k, device="meta")
+        tfc.conv3_dx(dy, w, x, a, a, True)
+        assert (want, 2, k) in made, made
+        assert calls[0][8:17] == (bsz, h, wd, k, 24, 2, *tile)
+
+
+@pytest.mark.parametrize("shape", K5DX_SHAPES[:4])
+def test_k5dx_plan_fills_the_h100(shape):
+    """At every ResNet-50 stage shape bf16 K5dx's output tiles fill at
+    least 128 of an H100's 132 SMs (its persistent grid is one CTA an
+    SM; stage 4's 32 pixel tiles of two 7x7 images x 4 channel tiles are
+    one wave of 128), and its whole-row tiles use at least 3/4 of their
+    128 rows."""
+    bsz, h, wd, k = shape
+    (nb, rows, wc), tiles = tfc.k5dx_plan(bsz, h, wd, torch.bfloat16)
+    assert tiles * -(-k // _k5dx_block_n(k)) >= 128
+    assert bsz * h * wd >= 0.75 * tiles * tfc.K5DX_PIXELS

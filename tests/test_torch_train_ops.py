@@ -7,10 +7,13 @@ in f64; paged attention refuses a gradient.
 
 Tolerances: f32 gradients within 5e-5 absolute (+1e-4 relative) — both
 sides compute in f32 and differ by summation order over at most 32 keys
-or rows of O(1) values. bf16 LayerNorm: dx within one bf16 rounding of
-the JAX value (rtol 8e-3 plus 1e-2 of the largest |dx|; both round the
-same f32 closed form once), dscale/dbias (f32 sums of bf16 inputs)
-within 1e-4 relative.
+or rows of O(1) values. bf16 flash backward (the same bf16 q, k, v, out,
+dO and lse into the JAX package's ``_flash_bwd_bh`` and the port): dv
+bit-identical, dq and dk bit-identical but for elements within one bf16
+step of the JAX value or 2e-6 absolute (see that test). bf16 LayerNorm:
+dx within one bf16 rounding of the JAX value (rtol 8e-3 plus 1e-2 of the
+largest |dx|; both round the same f32 closed form once), dscale/dbias
+(f32 sums of bf16 inputs) within 1e-4 relative.
 """
 
 import jax
@@ -20,6 +23,7 @@ import pytest
 import torch
 
 from pyspark_tf_gke_tpu.ops.pallas.flash_attention import (
+    NEG_INF as JAX_NEG_INF, _flash_bwd_bh as jax_flash_bwd_bh,
     flash_attention as jax_flash)
 from pyspark_tf_gke_tpu.ops.pallas.layernorm import (
     fused_layernorm as jax_layernorm)
@@ -104,6 +108,183 @@ def test_flash_gradcheck_f64():
     fn = lambda q, k, v: t_flash.flash_attention(  # noqa: E731
         q, k, v, kv_mask=kv_mask, causal=True, segment_ids=segs)
     assert torch.autograd.gradcheck(fn, (q, k, v))
+
+
+@pytest.mark.parametrize("case", ["causal", "segments", "masked"])
+def test_flash_backward_bf16_rounds_where_jax_rounds(case):
+    """The bf16 backward rounds P to bf16 before dV and dS before dK and
+    dQ, as the TPU kernels do. The same bf16 q, k, v, dO and the port
+    forward's out and lse go through the JAX package's ``_flash_bwd_bh``
+    (Pallas ``interpret=True``, blocks of 16) and the port's autograd
+    Function and plain version. Before the repair (P and dS in f32) ~40%
+    of the elements differed, by up to 0.031. Now dv is bit-identical.
+    dq and dk are bit-identical but for a few elements: dP and delta =
+    rowsum(dO * O) are f32 sums taken in another order by XLA and by
+    torch, so where dP - delta is a rounding residual (a query row that
+    sees one key, whose dS is then ~1e-7 instead of 0) a bf16 dS can land
+    one rounding apart, and an f32 sum over keys or queries taken in
+    another order than the JAX kernel's blocks of 16 can round to the
+    neighbouring bf16 value. Such an element is within one bf16 step
+    (2**-7 relative) of the JAX value or within 2e-6 absolute, and at
+    most 1/32 of the elements differ at all."""
+    b, s, h, d = 2, 64, 2, 64
+    rng = np.random.default_rng(30)
+
+    def bf16(shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(torch.bfloat16)
+
+    q, k, v, do = (bf16((b, s, h, d)) for _ in range(4))
+    kv_mask = segs = None
+    if case in ("segments", "masked"):
+        segs = torch.from_numpy(np.repeat(np.arange(4), 16).astype(
+            np.int32))[None].repeat(b, 1)
+    if case == "masked":
+        kv_mask = torch.from_numpy(rng.random((b, s)) > 0.25)
+        kv_mask[:, 16] = False  # row 16 sees only key 16: an empty row
+        kv_mask[1] = False      # batch row 1: no key at all
+    tq, tk, tv = (t.clone().requires_grad_() for t in (q, k, v))
+    out = t_flash.flash_attention(tq, tk, tv, kv_mask=kv_mask, causal=True,
+                                  segment_ids=segs)
+    out.backward(do)
+    with torch.no_grad():
+        out, lse = t_flash.flash_attention_fwd(q, k, v, kv_mask, True, segs)
+        delta = (do.float() * out.float()).sum(-1).transpose(1, 2)
+        plain = t_flash.flash_attention_bwd_plain(q, k, v, do, lse, delta,
+                                                  kv_mask, True, segs)
+
+    def to_bh(t):
+        return jnp.asarray(t.float().numpy()).astype(jnp.bfloat16).transpose(
+            0, 2, 1, 3).reshape(b * h, s, d)
+
+    bias = jnp.zeros((b, s), jnp.float32) if kv_mask is None else jnp.where(
+        jnp.asarray(kv_mask.numpy()), 0.0, JAX_NEG_INF).astype(jnp.float32)
+    bias = jnp.repeat(bias, h, axis=0)[:, None, :]
+    jsegs = None if segs is None else jnp.repeat(
+        jnp.asarray(segs.numpy()), h, axis=0)[:, None, :]
+    ref = jax_flash_bwd_bh(to_bh(q), to_bh(k), to_bh(v), bias,
+                           jnp.asarray(lse.numpy()).reshape(b * h, 1, s),
+                           to_bh(out), to_bh(do), jsegs, causal=True,
+                           block_q=16, block_k=16, interpret=True)
+    for name, got_fn, got_plain, want in zip(
+            ("dq", "dk", "dv"), (tq.grad, tk.grad, tv.grad), plain, ref):
+        want = torch.from_numpy(np.array(want.astype(jnp.float32))).reshape(
+            b, h, s, d).transpose(1, 2)
+        for how, got in (("autograd", got_fn), ("plain", got_plain)):
+            assert got.dtype == torch.bfloat16
+            got = got.float()
+            off = got != want
+            if name == "dv":
+                assert not off.any(), f"{case} {how} dv"
+            near = (got - want).abs() <= torch.maximum(
+                want.abs() * 2.0 ** -7, torch.full_like(want, 2e-6))
+            assert bool(near.all()), (case, how, name,
+                                      float((got - want).abs().max()))
+            assert int(off.sum()) <= want.numel() // 32, (case, how, name)
+
+
+def _cu_constant(text: str, name: str) -> int:
+    import re
+
+    return int(re.search(rf"constexpr int {name} = (\d+);", text).group(1))
+
+
+DKV_BLOCK_K, DKV_BLOCK_Q = 128, 64  # bf16 K2dkv's keys a CTA, queries a tile
+
+
+def _dkv_launch_order(b: int, s: int, h: int, causal: bool):
+    """``[(batch, head, first key, query tiles)]`` of bf16 K2dkv's CTAs
+    in launch order (grid x = B*H fastest, y = key blocks): a causal
+    block walks the query tiles from its first key on."""
+    tiles = -(-s // DKV_BLOCK_Q)
+    return [(bh // h, bh % h, kb * DKV_BLOCK_K,
+             tiles - (kb * DKV_BLOCK_K // DKV_BLOCK_Q if causal else 0))
+            for kb in range(-(-s // DKV_BLOCK_K)) for bh in range(b * h)]
+
+
+def test_dkv_grid_follows_the_kernel_and_fills_the_h100():
+    """bf16 K2dkv (csrc/flash_attention_bwd.cu wg::): CTAs of 128 keys
+    walking 64-row query tiles, the grid (B*H, key blocks) with the key
+    block the slow axis, so that causal CTAs launch longest first; at
+    the LM training shape (B=16 S=512 H=12) its 768 CTAs are more than
+    five waves of an H100's 132 SMs and the whole first wave sees every
+    query tile. Ragged S: the last block is partial."""
+    from pathlib import Path
+
+    src = (Path(t_flash.__file__).resolve().parent.parent / "csrc"
+           / "flash_attention_bwd.cu").read_text()
+    wg = src[src.index("namespace wg {"):]
+    assert _cu_constant(wg, "kBK") == DKV_BLOCK_K
+    assert _cu_constant(wg, "kBQ") == DKV_BLOCK_Q
+    assert "const dim3 grid(B * H, (S + kBK - 1) / kBK);" in wg
+    assert "const int k0 = blockIdx.y * kBK;" in wg
+    assert "const int qt0 = causal ? k0 / kBQ : 0;" in wg
+
+    order = _dkv_launch_order(16, 512, 12, causal=True)
+    assert len(order) == 768 >= 132
+    tiles = [o[3] for o in order]
+    assert tiles == sorted(tiles, reverse=True)
+    assert all(o[2] == 0 and o[3] == 8 for o in order[:132])
+    assert {o[:3] for o in order} == {(b, h, k0) for b in range(16)
+                                      for h in range(12)
+                                      for k0 in (0, 128, 256, 384)}
+    assert all(o[3] == 8 for o in _dkv_launch_order(16, 512, 12,
+                                                    causal=False))
+    ragged = _dkv_launch_order(3, 200, 12, causal=True)
+    assert len(ragged) == 36 * 2 and ragged[-1][2:] == (128, 4 - 2)
+
+
+def test_dkv_wrapper_copies_an_unaddressable_dout_and_refuses_q(
+        monkeypatch):
+    """bf16 K2dkv reads q, k, v and dout by TMA. An expanded or strided
+    cotangent, as autograd may hand over, is copied into a layout TMA
+    can address (the kernel gets the copy's strides); an addressable one
+    is passed as it is; a q, k or v that TMA cannot address raises, as
+    the forward does. (The kernel library is replaced by a recorder: no
+    card here.)"""
+    calls = []
+
+    class FakeLibrary:
+        def port_flash_attention_dkv(self, *args):
+            calls.append(args)
+            return 0
+
+    monkeypatch.setattr(t_flash.kernels, "require_cuda",
+                        lambda kernel, *ts: ts[0].device)
+    monkeypatch.setattr(t_flash.kernels, "library", FakeLibrary)
+    monkeypatch.setattr(t_flash.kernels, "launch_args", lambda dev: (0, 0))
+    b, s, h, d = 2, 8, 3, 64
+    q, k, v = (torch.zeros(b, s, h, d, dtype=torch.bfloat16)
+               for _ in range(3))
+    lse, delta = (torch.zeros(b, h, s) for _ in range(2))
+    expanded = torch.ones(b, 1, h, d, dtype=torch.bfloat16).expand(b, s, h, d)
+    sliced = torch.ones(b, s, h, d + 4, dtype=torch.bfloat16)[..., :d]
+    assert not t_flash.tma_compatible(expanded)
+    assert not t_flash.tma_compatible(sliced)
+    for dout in (expanded, sliced):
+        got = t_flash.tma_dout(dout)
+        assert got is not dout and t_flash.tma_compatible(got)
+        assert torch.equal(got, dout)
+        calls.clear()
+        t_flash.flash_attention_dkv(dout, q, k, v, lse, delta, causal=True)
+        args = calls[0]
+        # q, k, v, dout strides (batch, seq, head) follow the 14 leading
+        # arguments: the kernel got a contiguous dout
+        assert args[23:26] == (s * h * d, h * d, d)
+    ok = torch.ones(b, s, h, d, dtype=torch.bfloat16)
+    assert t_flash.tma_dout(ok) is ok
+    bad_q = torch.zeros(b, s, h, d + 4, dtype=torch.bfloat16)[..., :d]
+    with pytest.raises(ValueError, match="TMA"):
+        t_flash.flash_attention_dkv(ok, bad_q, k, v, lse, delta)
+    with pytest.raises(ValueError, match="TMA"):
+        t_flash.flash_attention_dkv(ok, q, k, bad_q, lse, delta)
+    # f32 runs the CUDA-core kernel, which takes any head_dim-contiguous
+    # strides: no copy, no refusal
+    calls.clear()
+    q32 = q.float()
+    sliced32 = torch.ones(b, s, h, d + 4)[..., :d]
+    t_flash.flash_attention_dkv(sliced32, q32, q32, q32, lse, delta)
+    assert calls[0][23:26] == (s * h * (d + 4), h * (d + 4), d + 4)
 
 
 # -- K3b ----------------------------------------------------------------------
