@@ -17,21 +17,25 @@
    S = 200 and 77: causal, causal + segments, and key padding + segments
    + causal with an empty row and a fully masked batch row, at S = 200
    also on q/k/v views of one [B, S, 3, H, D] tensor with an expanded
-   dO; K3b at [8192, 768] with and without residual), and the ResNet
+   dO; K3 and K3b, with and without the residual, at [8192, 768] and
+   [8, 768] and at D = 1024, 1280, 1600, 4096, 100 and 2050, and 1280
+   from an unaligned base), and the ResNet
    kernels (K4f, K4dx and K4dw at four of
    ResNet-50's 1x1-conv shapes, a ragged one and one whose K and N are
    not multiples of 8; K5f, K5dx and K5dw at
    the four stride-1 3x3 shapes, a ragged one and one whose K and N are
    not multiples of 8, with and without the transform and the
    statistics) — and times kernel, plain version and a library yardstick
-   with CUDA events (K2f at B=8 S=1024 and B=16 S=512; K2dq and K2dkv at
+   with CUDA events (K3 at [8192, 768] bf16 with and without the
+   residual against F.layer_norm; K3b against autograd's LayerNorm
+   backward; K2f at B=8 S=1024 and B=16 S=512; K2dq and K2dkv at
    B=16 S=512 against the SDPA backward, which computes dQ, dK and dV
    together, on [B, S, H, D] views and on contiguous [B, H, S, D]
    tensors; K4: on all 16 shapes of a ResNet-50 step, summed over its 36
    calls; K5: on the four stage shapes, summed over its 13 calls, against
-   cuDNN; K2f, K2dq, K2dkv, K5f, K5dx, K4f, K4dx and the bf16 K4dw and
-   K5dw and their yardsticks also replayed from a CUDA graph, which takes
-   the host's launch cost out);
+   cuDNN; K3, K3b, K2f, K2dq, K2dkv, K5f, K5dx, K4f, K4dx and the bf16
+   K4dw and K5dw and their yardsticks also replayed from a CUDA graph,
+   which takes the host's launch cost out);
 4. serving main path: serves a full-width GPT-small paged bundle
    (random weights from a numpy seed, int8 export) through
    ``BundleServer`` + the HTTP server with 8 continuous slots: 12
@@ -57,6 +61,11 @@
    (losses and step-0 gradients agree), and full-width bf16 step-0 loss
    and gradients (whole tree and worst tensor) through the kernels agree
    with the plain versions;
+7b. a training step at GPT-2 large's widths (hidden 1280, 20 heads of
+   64, FFN 5120; 2 layers, bf16, batch 4 x 128): step-0 loss and
+   gradients through the kernels against ``use_kernels=False`` under
+   phase 7's bf16 limits, one Adam step, and the K3 and K3b counters
+   must move (LayerNorm at D = 1280);
 8. ResNet-50 training main path: ``Trainer`` on ``ResNet50(norm_variant=
    "fused")`` (bf16 over f32 weights and statistics, Adam 1e-3), 2 epochs
    x 10 steps on one batch of 64 images at 224^2; every K4 counter must
@@ -244,39 +253,97 @@ def ptxas_report(build_log: str) -> dict:
 # -- phase 3: kernels against their plain versions ----------------------------
 
 
+# LayerNorm widths (D, rows) held against the plain versions: the LM's
+# 768 (8192 rows, a training step's, and 8), 1024 (the narrow design's
+# widest), GPT-2 large's 1280 and XL's 1600, 4096, and two whose rows
+# are not a whole number of 16-byte chunks: 100 (narrow) and 2050 (the
+# wide design's scalar loads); 1280 also from a base 2 or 4 bytes off 16
+# (the scalar loads again)
+LN_CHECK_WIDTHS = ((768, 8192), (768, 8), (1024, 512), (1280, 512),
+                   (1600, 512), (4096, 512), (100, 512), (2050, 512))
+
+
+def _ln_inputs(torch, dev, g, rows, d, dtype, aligned=True):
+    """x, r, dy ``[rows, d]`` of ``dtype`` (from a base one element past
+    a 16-byte boundary unless ``aligned``), f32 scale and bias."""
+    def draw(scale=1.0, shift=0.0):
+        t = (torch.randn(rows * d + 1, generator=g, device=dev) * scale
+             + shift).to(dtype)
+        return (t[:-1] if aligned else t[1:]).view(rows, d)
+
+    x, r, dy = draw(2.0, 0.5), draw(), draw()
+    scale, bias = (torch.randn(d, generator=g, device=dev) for _ in range(2))
+    return x, r, dy, scale, bias
+
+
+def _ln_cases(torch, dev, g):
+    """``(dtype name, tag, plan, x, r, dy, scale, bias)`` for every
+    LayerNorm check, bf16 and f32."""
+    from pyspark_tf_gke_tpu_torch.ops import layernorm as ln
+
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).split(".")[-1]
+        for d, rows, aligned in (*((d, rows, True)
+                                   for d, rows in LN_CHECK_WIDTHS),
+                                 (1280, 512, False)):
+            x, r, dy, scale, bias = _ln_inputs(torch, dev, g, rows, d, dtype,
+                                               aligned)
+            check(ln._aligned(x, r) == aligned, "the unaligned case is "
+                  "aligned")
+            plan = ln.ln_plan(d, dtype, aligned)
+            check(aligned or plan.vec == 1, f"D={d} unaligned: {plan}")
+            tag = f"{name} [{rows},{d}]{'' if aligned else ' unaligned'}"
+            yield name, tag, plan, x, r, dy, scale, bias
+
+
 def check_layernorm(torch, dev):
+    """K3 against ``layernorm_plain`` at every width of
+    ``LN_CHECK_WIDTHS``, bf16 and f32, with and without the residual;
+    timed at [8192, 768] bf16 with and without it, eager and
+    graph-replayed, beside ``F.layer_norm`` (after ``x + r``)."""
     import torch.nn.functional as F
 
     from pyspark_tf_gke_tpu_torch.ops import layernorm as ln
 
     g = torch.Generator(device=dev).manual_seed(0)
     rec = None
-    for dtype in (torch.bfloat16, torch.float32):
-        name = str(dtype).split(".")[-1]
-        for rows in (8 * 1024, 8):
-            x = (torch.randn(rows, 768, generator=g, device=dev) * 2 + 0.5
-                 ).to(dtype)
-            r = torch.randn(rows, 768, generator=g, device=dev).to(dtype)
-            scale = torch.randn(768, generator=g, device=dev)
-            bias = torch.randn(768, generator=g, device=dev)
-            for res in (None, r):
-                tag = (f"layernorm {name} [{rows},768]"
-                       f"{' +residual' if res is not None else ''}")
-                err = compare(ln.fused_layernorm(x, scale, bias, 1e-5, res),
-                              ln.layernorm_plain(x, scale, bias, 1e-5, res),
-                              name, tag)
-                if dtype == torch.bfloat16 and rows == 8192 and res is None:
-                    ms = cuda_ms(lambda: ln.fused_layernorm(x, scale, bias,
-                                                            1e-5))
-                    plain = cuda_ms(lambda: ln.layernorm_plain(x, scale, bias,
-                                                               1e-5))
-                    w, b = scale.to(dtype), bias.to(dtype)
-                    lib = cuda_ms(lambda: F.layer_norm(x, (768,), w, b, 1e-5))
-                    nbytes = 2 * x.numel() * x.element_size() + 2 * 768 * 4
-                    bms, by = bound(nbytes, 8 * x.numel(), "float32")
-                    rec = dict(max_abs_err=err, ms=ms, plain_ms=plain,
-                               bound_ms=bms, bound_by=by, library_ms=lib,
-                               shape="[8192,768] bf16")
+    for name, tag, plan, x, r, _, scale, bias in _ln_cases(torch, dev, g):
+        log(f"  layernorm {tag}: {plan}")
+        for res in (None, r):
+            what = f"layernorm {tag}{' +residual' if res is not None else ''}"
+            err = compare(ln.fused_layernorm(x, scale, bias, 1e-5, res),
+                          ln.layernorm_plain(x, scale, bias, 1e-5, res),
+                          name, what)
+            if name != "bfloat16" or x.shape != (8192, 768):
+                continue
+            kern = lambda: ln.fused_layernorm(  # noqa: E731
+                x, scale, bias, 1e-5, res)
+            w, b = scale.to(x.dtype), bias.to(x.dtype)
+            lib = (lambda: F.layer_norm(x, (768,), w, b, 1e-5)  # noqa: E731
+                   ) if res is None else (
+                lambda: F.layer_norm(x + r, (768,), w, b, 1e-5))
+            # x (and r) read and y written once, scale and bias read
+            rows_in = 1 if res is None else 2
+            nbytes = (rows_in + 1) * x.numel() * x.element_size() + 2 * 768 * 4
+            bms, by = bound(nbytes, 8 * x.numel(), "float32")
+            shape = ("[8192,768] bf16"
+                     + ("" if res is None else " +residual"))
+            got = dict(max_abs_err=err, ms=cuda_ms(kern),
+                       plain_ms=cuda_ms(lambda: ln.layernorm_plain(
+                           x, scale, bias, 1e-5, res)),
+                       bound_ms=bms, bound_by=by, library_ms=cuda_ms(lib),
+                       graph_ms=graph_ms(kern), library_graph_ms=graph_ms(lib),
+                       shape=shape)
+            log(f"  K3 {got['shape']}: kernel {got['ms']:.4f} ms, "
+                f"graph-replayed {got['graph_ms']:.4f}; F.layer_norm"
+                f"{'' if res is None else ' after x + r'} "
+                f"{got['library_ms']:.4f}, graph-replayed "
+                f"{got['library_graph_ms']:.4f}; plain {got['plain_ms']:.4f};"
+                f" bound {bms:.4f} ({by})")
+            if res is None:
+                rec = got
+            else:
+                rec["residual"] = got
     return rec
 
 
@@ -399,36 +466,34 @@ def check_flash(torch, dev):
 
 
 def check_layernorm_bwd(torch, dev):
-    """K3b against ``layernorm_bwd_plain`` at the training shape."""
+    """K3b against ``layernorm_bwd_plain`` at every width of
+    ``LN_CHECK_WIDTHS``, bf16 and f32, with and without the residual;
+    timed at the training shape [8192, 768] bf16, eager and
+    graph-replayed."""
     import torch.nn.functional as F
 
     from pyspark_tf_gke_tpu_torch.ops import layernorm as ln
 
     g = torch.Generator(device=dev).manual_seed(5)
     rec = None
-    for dtype in (torch.bfloat16, torch.float32):
-        name = str(dtype).split(".")[-1]
-        x = (torch.randn(8192, 768, generator=g, device=dev) * 2 + 0.5
-             ).to(dtype)
-        r = torch.randn(8192, 768, generator=g, device=dev).to(dtype)
-        dy = torch.randn(8192, 768, generator=g, device=dev).to(dtype)
-        scale = torch.randn(768, generator=g, device=dev)
+    for name, tag, _, x, r, dy, scale, _ in _ln_cases(torch, dev, g):
         for res in (None, r):
-            tag = (f"layernorm_bwd {name} [8192,768]"
-                   f"{' +residual' if res is not None else ''}")
+            what = (f"layernorm_bwd {tag}"
+                    f"{' +residual' if res is not None else ''}")
             got = ln.layernorm_bwd(dy, x, scale, 1e-5, res)
             want = ln.layernorm_bwd_plain(dy, x, scale, 1e-5, res)
-            err = compare(got[0], want[0], name, f"{tag} dx")
-            for i, what in ((1, "dscale"), (2, "dbias")):
+            err = compare(got[0], want[0], name, f"{what} dx")
+            for i, sums in ((1, "dscale"), (2, "dbias")):
                 tol = dict(atol=SUM_REL_MAX * float(want[i].abs().max()),
                            rtol=0.0, rel_l2=SUM_REL_L2)
-                compare(got[i], want[i], "float32", f"{tag} {what}", tol)
-            if dtype == torch.bfloat16 and res is None:
-                ms = cuda_ms(lambda: ln.layernorm_bwd(dy, x, scale, 1e-5))
+                compare(got[i], want[i], "float32", f"{what} {sums}", tol)
+            if name == "bfloat16" and x.shape == (8192, 768) and res is None:
+                kern = lambda: ln.layernorm_bwd(dy, x, scale,  # noqa: E731
+                                                1e-5)
                 plain = cuda_ms(lambda: ln.layernorm_bwd_plain(dy, x, scale,
                                                                1e-5))
                 xr = x.detach().requires_grad_()
-                w = scale.to(dtype).requires_grad_()
+                w = scale.to(x.dtype).requires_grad_()
                 b = torch.zeros_like(w, requires_grad=True)
                 y = F.layer_norm(xr, (768,), w, b, 1e-5)
                 lib = cuda_ms(lambda: torch.autograd.grad(
@@ -438,9 +503,12 @@ def check_layernorm_bwd(torch, dev):
                 # closed form, column sums)
                 nbytes = 3 * x.numel() * x.element_size() + 3 * 768 * 4
                 bms, by = bound(nbytes, 17 * x.numel(), "float32")
-                rec = dict(max_abs_err=err, ms=ms, plain_ms=plain,
+                rec = dict(max_abs_err=err, ms=cuda_ms(kern), plain_ms=plain,
                            bound_ms=bms, bound_by=by, library_ms=lib,
-                           shape="[8192,768] bf16")
+                           graph_ms=graph_ms(kern), shape="[8192,768] bf16")
+                log(f"  K3b [8192,768] bf16: kernel {rec['ms']:.4f} ms, "
+                    f"graph-replayed {rec['graph_ms']:.4f}; autograd's "
+                    f"LayerNorm backward {lib:.4f}; bound {bms:.4f} ({by})")
     return rec
 
 
@@ -1579,6 +1647,50 @@ def check_training_parity(torch, dev):
           "bf16 gradients through the kernels disagree")
 
 
+def check_wide_lm_step(torch, dev, counters):
+    """GPT-2 large's widths (hidden 1280, 20 heads of 64, FFN 5120; the
+    JAX package trains them with ``lm_pretrain --hidden-size 1280
+    --num-heads 20``), 2 layers, bf16, batch 4 x 128: step-0 loss and
+    gradients through the kernels (K3 and K3b at D = 1280) against
+    ``use_kernels=False`` from one init under phase 7's bf16 limits, then
+    one Adam step through the ``Trainer``. Every LayerNorm counter must
+    move. Returns the launches."""
+    from pyspark_tf_gke_tpu_torch.models.causal_lm import CausalLMConfig
+    from pyspark_tf_gke_tpu_torch.train.harness import make_optimizer
+    from pyspark_tf_gke_tpu_torch.train.trainer import TASKS, Trainer
+
+    cfg = CausalLMConfig(vocab_size=259, max_seq_len=128, hidden_size=1280,
+                         num_layers=2, num_heads=20, intermediate_size=5120)
+    batch = _lm_batch(torch, dev, cfg, 4, 30)
+    torch.cuda.synchronize()
+    for mod, attr in counters.values():
+        setattr(mod, attr, 0)
+    model = _train_model(torch, dev, cfg, 5)
+    loss_k, gk = _grads(torch, model, batch)
+    trainer = Trainer(model, TASKS["causal_lm"](), tx=make_optimizer(3e-4))
+    state = trainer.init_state()
+    step_loss = float(trainer.step(state, batch)[1]["loss"])
+    torch.cuda.synchronize()
+    launches = {name: getattr(mod, attr)
+                for name, (mod, attr) in counters.items()}
+    loss_p, gp = _grads(torch, _train_model(torch, dev, cfg, 5, False), batch)
+    rel, worst, worst_rel = _grad_diff(torch, gk, gp)
+    log(f"  hidden 1280, 20 heads, 2 layers, bf16, 4 x 128: loss kernels "
+        f"{loss_k:.5f} vs plain {loss_p:.5f} (diff {abs(loss_k - loss_p):.2e}"
+        f", tolerance 1e-3); gradients relative L2 {rel:.2e} (tolerance "
+        f"5e-2); worst tensor {worst} {worst_rel:.2e} (tolerance 1e-1); "
+        f"Adam step loss {step_loss:.5f}; launches {launches}")
+    check(all(bool(torch.isfinite(g).all()) for g in gk.values())
+          and math.isfinite(step_loss), "non-finite hidden-1280 step")
+    check(abs(loss_k - loss_p) <= 1e-3,
+          "hidden-1280 loss through the kernels disagrees")
+    check(rel <= 5e-2 and worst_rel <= 1e-1,
+          "hidden-1280 gradients through the kernels disagree")
+    for name, n in launches.items():
+        check(n > 0, f"kernel {name} was not launched at hidden 1280")
+    return launches
+
+
 # -- phases 8 and 9: ResNet-50 training ---------------------------------------
 
 RESNET_BATCH, RESNET_IMAGE, RESNET_STEPS = 64, 224, (2, 10)
@@ -1987,7 +2099,7 @@ KERNELS = (
      "pyspark_tf_gke_tpu/ops/pallas/flash_attention.py:49", "wgmma"),
     ("flash_attention_dq",
      "pyspark_tf_gke_tpu_torch/csrc/flash_attention_bwd.cu",
-     "pyspark_tf_gke_tpu/ops/pallas/flash_attention.py:162", "simt"),
+     "pyspark_tf_gke_tpu/ops/pallas/flash_attention.py:162", "wgmma"),
     ("flash_attention_dkv",
      "pyspark_tf_gke_tpu_torch/csrc/flash_attention_bwd.cu",
      "pyspark_tf_gke_tpu/ops/pallas/flash_attention.py:215", "wgmma"),
@@ -2110,6 +2222,11 @@ def main() -> int:
     log("== 7. training parity on the card")
     check_training_parity(torch, dev)
     torch.cuda.empty_cache()
+    log("== 7b. a training step at GPT-2 large's widths (hidden 1280, 20 "
+        "heads): LayerNorm at D = 1280")
+    wide_launches = check_wide_lm_step(torch, dev, {
+        "layernorm": (ln, "launches"), "layernorm_bwd": (ln, "bwd_launches")})
+    torch.cuda.empty_cache()
 
     k4_counters = {"fused_matmul_fwd": (fm, "fwd_launches"),
                    "fused_matmul_dx": (fm, "dx_launches"),
@@ -2156,6 +2273,7 @@ def main() -> int:
         rec = records[name]
         per_path = {"serve": serve_launches.get(name, 0),
                     "lm_train": train_launches.get(name, 0),
+                    "lm_train_1280": wide_launches.get(name, 0),
                     "resnet_train": resnet_launches.get(name, 0),
                     "resnet_fused3_train": fused3_launches.get(name, 0)}
         # each kernel's count from the path that runs it, the newest

@@ -50,9 +50,17 @@ editing a ``.cu`` file, and for the experiments PERF.md reports.
         rounds P and dS to bf16 where the TPU kernel does: dk and dv
         elements a bf16 rounding away from it, at the LM training shape
         in the three mask cases;
+    python3 kernel_probe.py dq-accuracy
+        the same for bf16 K2dq: dq elements a bf16 rounding away from the
+        f64 reference (dS rounded to bf16 before dQ += dS K);
     python3 kernel_probe.py dkv-modes
         bf16 K2dkv and K2dq at the LM training shape, causal and not,
-        eager and replayed from a CUDA graph.
+        eager and replayed from a CUDA graph;
+    python3 kernel_probe.py ln-widths [D ...]
+        bf16 K3 and K3b at [8192, D] (default D 768, 1024, 1280, 1600
+        and 4096), with and without the residual, eager and replayed
+        from a CUDA graph, beside F.layer_norm (after x + r for the
+        residual) and autograd's LayerNorm backward, with the bounds.
 
 Each exits non-zero without a CUDA device.
 """
@@ -474,9 +482,9 @@ def k5dx_modes(torch, dev) -> None:
         print(f"K5dx tile fill, M={b * h * w}: {'; '.join(line)}", flush=True)
 
 
-def _dkv_f64(torch, fa, q, k, v, dout, lse, delta, kv_mask, segs):
-    """f64 reference of dk, dv with P and dS rounded to bf16 where the
-    TPU kernel rounds them, each rounded to bf16 at the end."""
+def _bwd_f64(torch, fa, q, k, v, dout, lse, delta, kv_mask, segs):
+    """f64 reference of dq, dk, dv with P and dS rounded to bf16 where
+    the TPU kernels round them, each rounded to bf16 at the end."""
     qd, kd, vd, dod = (t.double() for t in (q, k, v, dout))
     scale = q.shape[-1] ** -0.5
     s = torch.einsum("bqhd,bkhd->bhqk", qd, kd) * scale
@@ -492,16 +500,19 @@ def _dkv_f64(torch, fa, q, k, v, dout, lse, delta, kv_mask, segs):
     del s, dp
     p = p.to(torch.bfloat16).double()
     ds = ds.to(torch.bfloat16).double()
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kd)
     dk = torch.einsum("bhqk,bqhd->bkhd", ds, qd)
     dv = torch.einsum("bhqk,bqhd->bkhd", p, dod)
-    return dk.to(torch.bfloat16).double(), dv.to(torch.bfloat16).double()
+    return tuple(t.to(torch.bfloat16).double() for t in (dq, dk, dv))
 
 
-def dkv_accuracy(torch, dev) -> None:
+def _bwd_accuracy(torch, dev, which) -> None:
+    """bf16 K2dq ("dq") or K2dkv ("dkv") and the plain backward against
+    ``_bwd_f64`` at the LM training shape in the three mask cases."""
     import chip_smoke as cs
     from pyspark_tf_gke_tpu_torch.ops import flash_attention as fa
 
-    _ptxas(("flash_dkv_wgmma",))
+    _ptxas((f"flash_{which}_wgmma",))
     g = torch.Generator(device=dev).manual_seed(6)
     for case in ("causal", "segments", "masked"):
         q, k, v, dout, kv_mask, segs = cs._flash_bwd_case(
@@ -509,21 +520,27 @@ def dkv_accuracy(torch, dev) -> None:
         out, lse = fa.flash_attention_fwd(q, k, v, kv_mask, True, segs)
         delta = (dout.float() * out.float()).sum(-1).transpose(
             1, 2).contiguous()
-        dk, dv = fa.flash_attention_dkv(dout, q, k, v, lse, delta, kv_mask,
-                                        True, segs)
-        _, rdk, rdv = fa.flash_attention_bwd_plain(q, k, v, dout, lse, delta,
-                                                   kv_mask, True, segs)
-        dk64, dv64 = _dkv_f64(torch, fa, q, k, v, dout, lse, delta, kv_mask,
-                              segs)
-        print(f"K2dkv {case} B=16 S=512 H=12 D=64: off f64 by a rounding: "
-              f"dk kernel {int((dk.double() != dk64).sum())}, plain "
-              f"{int((rdk.double() != dk64).sum())}; dv kernel "
-              f"{int((dv.double() != dv64).sum())}, plain "
-              f"{int((rdv.double() != dv64).sum())} of {dk.numel()}; rel dk "
-              f"kernel {_rel(dk, dk64):.2e} plain {_rel(rdk, dk64):.2e}, dv "
-              f"kernel {_rel(dv, dv64):.2e} plain {_rel(rdv, dv64):.2e}",
-              flush=True)
-        del dk64, dv64
+        if which == "dq":
+            got = (fa.flash_attention_dq(dout, q, k, v, lse, delta, kv_mask,
+                                         True, segs),)
+        else:
+            got = fa.flash_attention_dkv(dout, q, k, v, lse, delta, kv_mask,
+                                         True, segs)
+        plain = fa.flash_attention_bwd_plain(q, k, v, dout, lse, delta,
+                                             kv_mask, True, segs)
+        ref = _bwd_f64(torch, fa, q, k, v, dout, lse, delta, kv_mask, segs)
+        names = ("dq",) if which == "dq" else ("dk", "dv")
+        first = 0 if which == "dq" else 1
+        parts = []
+        for i, name in enumerate(names):
+            kern, pl, want = got[i], plain[first + i], ref[first + i]
+            parts.append(
+                f"{name} kernel {int((kern.double() != want).sum())}, plain "
+                f"{int((pl.double() != want).sum())} (rel kernel "
+                f"{_rel(kern, want):.2e}, plain {_rel(pl, want):.2e})")
+        print(f"K2{which} {case} B=16 S=512 H=12 D=64: elements off f64 by a "
+              f"rounding of {q.numel()}: {'; '.join(parts)}", flush=True)
+        del ref, plain, got
         torch.cuda.empty_cache()
 
 
@@ -550,6 +567,61 @@ def dkv_modes(torch, dev) -> None:
                   flush=True)
 
 
+LN_WIDTHS = (768, 1024, 1280, 1600, 4096)
+
+
+def ln_widths(torch, dev, widths) -> None:
+    import torch.nn.functional as F
+
+    import chip_smoke as cs
+    from pyspark_tf_gke_tpu_torch.ops import layernorm as ln
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    for d in widths or LN_WIDTHS:
+        x, r, dy = ((torch.randn(8192, d, generator=g, device=dev) * 2 + 0.5
+                     ).to(torch.bfloat16) for _ in range(3))
+        scale, bias = (torch.randn(d, generator=g, device=dev)
+                       for _ in range(2))
+        w, b = scale.to(torch.bfloat16), bias.to(torch.bfloat16)
+        print(f"D={d}: {ln.ln_plan(d, torch.bfloat16)}", flush=True)
+        row = x.numel() * x.element_size()
+        for res in (None, r):
+            tag = f"[8192,{d}] bf16{' +residual' if res is not None else ''}"
+            rows_in = 1 if res is None else 2
+            # K3: x (and r) read, y written, scale and bias read; K3b: x
+            # (and r), g read, dx written, scale read, dscale and dbias
+            # written
+            fwd_bound = cs.bound((rows_in + 1) * row + 2 * d * 4,
+                                 8 * x.numel(), "float32")
+            bwd_bound = cs.bound((rows_in + 2) * row + 3 * d * 4,
+                                 17 * x.numel(), "float32")
+            fwd = lambda: ln.layernorm_fwd(x, scale, bias, 1e-5,  # noqa: E731
+                                           res)
+            bwd = lambda: ln.layernorm_bwd(dy, x, scale, 1e-5,  # noqa: E731
+                                           res)
+            lib = (lambda: F.layer_norm(x, (d,), w, b, 1e-5)  # noqa: E731
+                   ) if res is None else (
+                lambda: F.layer_norm(x + r, (d,), w, b, 1e-5))
+            xr = x.detach().requires_grad_()
+            wr, br = (t.detach().requires_grad_() for t in (w, b))
+            y = F.layer_norm(xr if res is None else xr + r, (d,), wr, br,
+                             1e-5)
+            lib_bwd = lambda: torch.autograd.grad(  # noqa: E731
+                y, (xr, wr, br), dy, retain_graph=True)
+            print(f"K3 {tag}: eager {cs.cuda_ms(fwd):.4f} graph "
+                  f"{cs.graph_ms(fwd):.4f} ms, bound {fwd_bound[0]:.4f} "
+                  f"({fwd_bound[1]}); F.layer_norm eager "
+                  f"{cs.cuda_ms(lib):.4f} graph {cs.graph_ms(lib):.4f}",
+                  flush=True)
+            print(f"K3b {tag}: eager {cs.cuda_ms(bwd):.4f} graph "
+                  f"{cs.graph_ms(bwd):.4f} ms, bound {bwd_bound[0]:.4f} "
+                  f"({bwd_bound[1]}); autograd LayerNorm backward eager "
+                  f"{cs.cuda_ms(lib_bwd):.4f}", flush=True)
+            del y, xr
+        del x, r, dy
+    torch.cuda.empty_cache()
+
+
 def main(argv) -> int:
     import torch
 
@@ -571,8 +643,11 @@ def main(argv) -> int:
                 "k4-modes": lambda: k4_modes(torch, dev),
                 "k5dx-accuracy": lambda: k5dx_accuracy(torch, dev),
                 "k5dx-modes": lambda: k5dx_modes(torch, dev),
-                "dkv-accuracy": lambda: dkv_accuracy(torch, dev),
-                "dkv-modes": lambda: dkv_modes(torch, dev)}
+                "dkv-accuracy": lambda: _bwd_accuracy(torch, dev, "dkv"),
+                "dq-accuracy": lambda: _bwd_accuracy(torch, dev, "dq"),
+                "dkv-modes": lambda: dkv_modes(torch, dev),
+                "ln-widths": lambda: ln_widths(
+                    torch, dev, [int(a) for a in argv[1:]])}
     if not argv or argv[0] not in commands:
         print(__doc__, file=sys.stderr)
         return 2

@@ -23,7 +23,8 @@
 // 0.0228 ms of bytes against 0.0130 ms of bf16 tensor-core operations,
 // so bound by bytes, and in practice by how fast the products are fed.
 //
-// Each entry point chooses the design by dtype and nothing else.
+// Each entry point chooses the design by dtype and nothing else: bf16
+// runs the tensor-core kernels below, f32 the CUDA-core ones.
 //
 // K2dkv bf16 (wg::flash_dkv_wgmma, the tensor-core design): a CTA owns
 // 128 keys of one (b, h) on two consumer warpgroups of 64 keys, and a
@@ -49,8 +50,42 @@
 // are launched longest first: the key block is the slow grid axis, so
 // the first wave takes the blocks that see every query tile.
 //
-// K2dq (both dtypes) and K2dkv f32 (the first, CUDA-core design, kept
-// as the f32 reference the model-parity gates stand on): one CTA per
+// K2dq bf16 (wgdq::flash_dq_wgmma, the tensor-core design): K2dkv's
+// design with the roles turned. A CTA owns 128 query rows of one (b, h)
+// on two consumer warpgroups of 64 rows, and a producer warpgroup that
+// gives its registers to them (setmaxnreg 40 / 232, as wg::). Q and dO
+// of the CTA's rows arrive once by TMA from the 4-D maps over the
+// strided [B, S, H, D] views; each thread keeps its two rows' lse (+inf
+// past S), delta and segment ids in registers. 64-key K and V tiles,
+// with the keys' bias (NEG_INF for padding and for keys past S) and
+// segment ids, come through a 3-stage ring (full: TMA bytes and the
+// producer warp's 32 arrivals; empty: the 8 consumer warps). Per tile,
+// each warpgroup computes S = Q K^T and dP = dO V^T as wgmma products
+// from shared memory (every operand K-major, head_dim contiguous),
+// applies the scale, the key's bias, the segment compare and the causal
+// compare (diagonal tiles only) in the TPU kernel's order, forms P =
+// exp(S - lse) (expf: exp2f left ~20% more K2dkv elements off f64) and
+// dS = P (dP - delta) scale in f32 on the accumulator fragments, rounds
+// dS to bf16 once in registers as the RS A-fragment (:202), and runs
+// dQ_t = dS K with K read MN-major through the transpose bit into a
+// fresh accumulator, added to the f32 sum in tile order. Causal CTAs
+// walk key tiles up to their last row, a warpgroup skips (and still
+// releases) a tile wholly after its rows, and the query block is the
+// slow grid axis taken from the last block down, so the longest CTAs
+// launch first; dQ is rounded once and stored from the fragments, rows
+// past S not stored.
+//
+// Bound of K2dq at the training shape (B=16 S=512 H=12 D=64, causal):
+// q, k, v, dO and dq once plus lse and delta, 0.0190 ms of bytes,
+// against 6*D operations a visible pair (S, dP, dQ), ~0.0098 ms of bf16
+// tensor-core work: bytes-bound on paper. What holds the design back:
+// each tile's three products and the elementwise pass between them run
+// in series within a warpgroup (only the other warpgroup and the TMA
+// ring overlap them), and each CTA re-reads the K/V tiles that the
+// other query blocks of its (b, h) also read (from L2).
+//
+// K2dq f32 and K2dkv f32 (the first, CUDA-core design, kept as the f32
+// reference the model-parity gates stand on): one CTA per
 // (b*h, 64-row block): 64 query rows for K2dq, 64 keys for K2dkv. Each
 // row belongs to a PAIR of neighbouring threads and each thread holds
 // half of head_dim in registers: K2dq keeps q, dO and the dQ accumulator
@@ -205,9 +240,7 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
       if (segs != nullptr && k_seg[j] != seg_q) s = kNegInf;
       if (causal && k0 + j > qi) s = kNegInf;
       const float p = expf(s - lse_i);
-      // dS rounded to the input dtype before dQ += dS K, as the TPU
-      // kernel rounds it (:202); the identity for f32
-      const float ds = round_through<T>(p * (dp - delta_i) * scale);
+      const float ds = p * (dp - delta_i) * scale;
       half_axpy<D>(acc, ds, k_tile[j], half);
     }
   }
@@ -307,6 +340,22 @@ void launch_dkv(const void* q, const void* k, const void* v, const void* dout,
       static_cast<const int*>(segs), static_cast<const float*>(lse),
       static_cast<const float*>(delta), static_cast<T*>(dk), static_cast<T*>(dv),
       S, H, st, causal, scale);
+}
+
+// The 4-D TMA maps (q, k, v, dout) of a bf16 backward kernel over the
+// strided [B, S, H, D] views, q and dout in boxes of q_rows positions,
+// k and v of kv_rows. Returns 0 or a CUDA error code.
+int bwd_maps(CUtensorMap (&m)[4], const void* q, const void* k, const void* v,
+             const void* dout, int B, int S, int H, const Strides& st, int q_rows,
+             int kv_rows) {
+  using namespace port::hopper;
+  const EncodeTiled encode = tensor_map_encoder();
+  if (encode == nullptr) return static_cast<int>(cudaErrorSharedObjectSymbolNotFound);
+  const bool ok = tensor_map_bshd(encode, &m[0], q, B, S, H, st.qb, st.qs, st.qh, q_rows) &&
+                  tensor_map_bshd(encode, &m[1], k, B, S, H, st.kb, st.ks, st.kh, kv_rows) &&
+                  tensor_map_bshd(encode, &m[2], v, B, S, H, st.vb, st.vs, st.vh, kv_rows) &&
+                  tensor_map_bshd(encode, &m[3], dout, B, S, H, st.ob, st.os, st.oh, q_rows);
+  return ok ? 0 : static_cast<int>(cudaErrorInvalidValue);
 }
 
 // -- K2dkv, bf16: the tensor-core design ----------------------------------------
@@ -536,28 +585,248 @@ flash_dkv_wgmma(__grid_constant__ const CUtensorMap tq, __grid_constant__ const 
 int launch(const void* q, const void* k, const void* v, const void* dout, const void* kv_mask,
            const void* segs, const void* lse, const void* delta, void* dk, void* dv, int B, int S,
            int H, const Strides& st, int causal, float scale, cudaStream_t stream) {
-  const EncodeTiled encode = tensor_map_encoder();
-  if (encode == nullptr) return static_cast<int>(cudaErrorSharedObjectSymbolNotFound);
-  CUtensorMap mq, mk, mv, mdo;
-  if (!tensor_map_bshd(encode, &mq, q, B, S, H, st.qb, st.qs, st.qh, kBQ) ||
-      !tensor_map_bshd(encode, &mk, k, B, S, H, st.kb, st.ks, st.kh, kBK) ||
-      !tensor_map_bshd(encode, &mv, v, B, S, H, st.vb, st.vs, st.vh, kBK) ||
-      !tensor_map_bshd(encode, &mdo, dout, B, S, H, st.ob, st.os, st.oh, kBQ)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+  CUtensorMap m[4];
+  if (int rc = bwd_maps(m, q, k, v, dout, B, S, H, st, kBQ, kBK)) return rc;
   const cudaError_t err =
       cudaFuncSetAttribute(flash_dkv_wgmma, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
   if (err != cudaSuccess) return static_cast<int>(err);
   // x: (b, h); y: the key block, the slow axis (longest causal blocks first)
   const dim3 grid(B * H, (S + kBK - 1) / kBK);
   flash_dkv_wgmma<<<grid, kThreads, kSmem, stream>>>(
-      mq, mk, mv, mdo, static_cast<const uint8_t*>(kv_mask), static_cast<const int*>(segs),
+      m[0], m[1], m[2], m[3], static_cast<const uint8_t*>(kv_mask),
+      static_cast<const int*>(segs),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
       static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), S, H, causal, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace wg
+
+// -- K2dq, bf16: the tensor-core design ----------------------------------------
+
+namespace wgdq {
+
+using namespace port::hopper;
+using wg::kConsumerRegs;
+using wg::kConsumers;
+using wg::kProducerRegs;
+using wg::kRowBytes;
+using wg::kStages;
+using wg::kThreads;
+
+constexpr int kBQ = 128;  // query rows a CTA: two consumer warpgroups of 64
+constexpr int kBK = 64;   // keys a tile
+constexpr int kQBytes = kBQ * kRowBytes;  // Q or dO of the CTA's rows
+constexpr int kTileBytes = kBK * kRowBytes;
+constexpr int kStageBytes = 2 * kTileBytes;  // K, then V
+constexpr int kVecs = 2 * kBK;               // a stage's key bias (f32) and segment ids
+constexpr int kVecOffset = 2 * kQBytes + kStages * kStageBytes;
+constexpr int kBarOffset = kVecOffset + kStages * kVecs * 4;
+// 1024 of slack to align the swizzled tiles; full and empty a stage, Q/dO
+constexpr int kSmem = 1024 + kBarOffset + 8 * (2 * kStages + 1);
+
+// The accumulator granularity is K2dkv's: each key tile's dQ product
+// goes into a fresh wgmma accumulator, added to the f32 sum in tile
+// order.
+
+__global__ void __launch_bounds__(kThreads, 1)
+flash_dq_wgmma(__grid_constant__ const CUtensorMap tq, __grid_constant__ const CUtensorMap tk,
+               __grid_constant__ const CUtensorMap tv, __grid_constant__ const CUtensorMap tdo,
+               const uint8_t* __restrict__ kv_mask, const int* __restrict__ segs,
+               const float* __restrict__ lse, const float* __restrict__ delta,
+               __nv_bfloat16* __restrict__ dq, int S, int H, int causal, float scale) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* q_s = smem;
+  uint8_t* do_s = smem + kQBytes;
+  uint8_t* ring = smem + 2 * kQBytes;
+  float* vecs = reinterpret_cast<float*>(smem + kVecOffset);  // [kStages][2][kBK]
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + kBarOffset);
+  uint64_t* empty = full + kStages;
+  uint64_t* qbar = empty + kStages;
+
+  const int t = threadIdx.x, warp = t >> 5, lane = t & 31;
+  const int b = blockIdx.x / H, h = blockIdx.x % H;
+  // the slow axis, from the last query block down: the longest causal
+  // CTAs (those that see the most key tiles) launch first
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBQ;
+  const int q_last = min(q0 + kBQ, S) - 1;  // the CTA's last row
+  const int ntiles = (causal ? q_last : S - 1) / kBK + 1;
+  const long long brow = static_cast<long long>(b) * S;
+  const long long rv0 = (static_cast<long long>(b) * H + h) * S;
+
+  if (t == 0) {
+    for (int i = 0; i < kStages; ++i) {
+      mbar_init(&full[i], 32);                  // the producer warp's lanes
+      mbar_init(&empty[i], kConsumers / 32);    // one arrival a consumer warp
+    }
+    mbar_init(qbar, 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (warp >= kConsumers / 32) {  // -- the producer warpgroup --------------------------
+    setmaxnreg_dec<kProducerRegs>();
+    if (warp != kConsumers / 32) return;  // its first warp loads
+    if (lane == 0) {
+      mbar_arrive_expect_tx(qbar, 2 * kQBytes);
+      tma_load_4d(q_s, &tq, qbar, 0, h, q0, b);
+      tma_load_4d(do_s, &tdo, qbar, 0, h, q0, b);
+    }
+    for (int it = 0; it < ntiles; ++it) {
+      const int slot = it % kStages, k0 = it * kBK;
+      if (it >= kStages) mbar_wait(&empty[slot], ((it / kStages) - 1) & 1);
+      // the tile's key bias (NEG_INF for padding and for keys past S,
+      // whose K and V rows TMA fills with zeros) and segment ids
+      float* vk = vecs + slot * kVecs;
+      for (int j = lane; j < kBK; j += 32) {
+        const int key = k0 + j;
+        const bool in = key < S;
+        vk[j] = (!in || (kv_mask != nullptr && !kv_mask[brow + key])) ? kNegInf : 0.f;
+        reinterpret_cast<int*>(vk)[kBK + j] = (in && segs != nullptr) ? segs[brow + key] : 0;
+      }
+      if (lane == 0) {
+        uint8_t* st = ring + slot * kStageBytes;
+        mbar_arrive_expect_tx(&full[slot], kStageBytes);
+        tma_load_4d(st, &tk, &full[slot], 0, h, k0, b);
+        tma_load_4d(st + kTileBytes, &tv, &full[slot], 0, h, k0, b);
+      } else {
+        mbar_arrive(&full[slot]);
+      }
+    }
+    return;
+  }
+
+  // -- the consumer warpgroups: warpgroup g owns rows q0 + 64 g .. + 63 ----------
+  setmaxnreg_inc<kConsumerRegs>();
+  const int g = warp >> 2;
+  const int wq0 = q0 + 64 * g;
+  const int wq_last = min(wq0 + 63, S - 1);  // below wq0 when the warpgroup has no row
+  const int row_a = wq0 + 16 * (warp & 3) + (lane >> 2);  // the thread's two rows
+  const int row_b = row_a + 8;
+  // rows past S take lse = +inf: p = 0, so they contribute nothing
+  const float lse_a = row_a < S ? lse[rv0 + row_a] : INFINITY;
+  const float lse_b = row_b < S ? lse[rv0 + row_b] : INFINITY;
+  const float delta_a = row_a < S ? delta[rv0 + row_a] : 0.f;
+  const float delta_b = row_b < S ? delta[rv0 + row_b] : 0.f;
+  const int seg_a = (segs != nullptr && row_a < S) ? segs[brow + row_a] : 0;
+  const int seg_b = (segs != nullptr && row_b < S) ? segs[brow + row_b] : 0;
+  const int kq = 2 * (lane & 3);  // the thread's first column in each 8
+  const uint32_t q_addr = smem_u32(q_s) + g * 64 * kRowBytes;
+  const uint32_t do_addr = smem_u32(do_s) + g * 64 * kRowBytes;
+
+  float dqs[32];  // the f32 sum of the tiles' products
+#pragma unroll
+  for (int i = 0; i < 32; ++i) dqs[i] = 0.f;
+  mbar_wait(qbar, 0);
+
+  for (int it = 0; it < ntiles; ++it) {
+    const int slot = it % kStages, k0 = it * kBK;
+    mbar_wait(&full[slot], (it / kStages) & 1);
+    // causal: a tile wholly after the warpgroup's rows is none of its
+    // business (nor is any tile of a warpgroup past S)
+    if (wq0 < S && (!causal || k0 <= wq_last)) {
+      const uint32_t k_addr = smem_u32(ring + slot * kStageBytes);
+      const uint32_t v_addr = k_addr + kTileBytes;
+      const float* vk = vecs + slot * kVecs;
+      const int* vs = reinterpret_cast<const int*>(vk + kBK);
+      float s[32], dp[32];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {  // S = Q K^T
+        if (kk == 0) wgmma_m64n64k16_ss_first<0>(s, desc_kmajor(q_addr), desc_kmajor(k_addr));
+        else wgmma_m64n64k16_ss<0>(s, desc_kmajor(q_addr + kk * 32),
+                                   desc_kmajor(k_addr + kk * 32), 1);
+      }
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {  // dP = dO V^T
+        if (kk == 0) wgmma_m64n64k16_ss_first<0>(dp, desc_kmajor(do_addr), desc_kmajor(v_addr));
+        else wgmma_m64n64k16_ss<0>(dp, desc_kmajor(do_addr + kk * 32),
+                                   desc_kmajor(v_addr + kk * 32), 1);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_operand(s);
+      fence_operand(dp);
+
+      // the TPU kernel's order (flash_attention.py:186-195): scale, the
+      // key's bias, then the segment and causal masks replace the score;
+      // P = exp(S - lse) and dS = P (dP - delta) scale in f32, rounded to
+      // bf16 once (:202), as the A fragments of the four k16 steps (rows:
+      // queries; columns: keys)
+      const bool diag = causal && k0 + kBK - 1 > wq0;
+      uint32_t df[4][4];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        float dsv[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = j * 8 + kq + (e & 1);
+          const bool ra = e < 2;
+          float sv = s[j * 4 + e] * scale + vk[col];
+          if (segs != nullptr && vs[col] != (ra ? seg_a : seg_b)) sv = kNegInf;
+          if (diag && k0 + col > (ra ? row_a : row_b)) sv = kNegInf;
+          const float p = expf(sv - (ra ? lse_a : lse_b));
+          dsv[e] = p * (dp[j * 4 + e] - (ra ? delta_a : delta_b)) * scale;
+        }
+        df[j / 2][(j % 2) * 2 + 0] = pack_bf16(dsv[0], dsv[1]);
+        df[j / 2][(j % 2) * 2 + 1] = pack_bf16(dsv[2], dsv[3]);
+      }
+
+      // dQ_t = dS K into a fresh accumulator, K read MN-major (head_dim
+      // contiguous) through the transpose bit, a k16 step 16 keys
+      float dqt[32];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const uint64_t db = desc_mnmajor(k_addr + kk * 16 * kRowBytes);
+        if (kk == 0) wgmma_m64n64k16_rs_first<1>(dqt, df[kk], db);
+        else wgmma_m64n64k16_rs<1>(dqt, df[kk], db, 1);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_operand(dqt);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) dqs[i] += dqt[i];
+    }
+    if (lane == 0) mbar_arrive(&empty[slot]);  // this warp is done with the stage
+  }
+
+  // dQ rounded once; rows past S are not stored
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = r == 0 ? row_a : row_b;
+    if (row >= S) continue;
+    const long long off = ((brow + row) * H + h) * 64;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      *reinterpret_cast<__nv_bfloat162*>(dq + off + j * 8 + kq) =
+          __floats2bfloat162_rn(dqs[j * 4 + 2 * r], dqs[j * 4 + 2 * r + 1]);
+    }
+  }
+}
+
+// st: q, k, v, dout strides (batch, seq, head) in elements; every
+// operand TMA-addressable (ops/flash_attention.py tma_compatible)
+int launch(const void* q, const void* k, const void* v, const void* dout, const void* kv_mask,
+           const void* segs, const void* lse, const void* delta, void* dq, int B, int S, int H,
+           const Strides& st, int causal, float scale, cudaStream_t stream) {
+  CUtensorMap m[4];
+  if (int rc = bwd_maps(m, q, k, v, dout, B, S, H, st, kBQ, kBK)) return rc;
+  const cudaError_t err =
+      cudaFuncSetAttribute(flash_dq_wgmma, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // x: (b, h); y: the query block, the slow axis (longest causal blocks first)
+  const dim3 grid(B * H, (S + kBQ - 1) / kBQ);
+  flash_dq_wgmma<<<grid, kThreads, kSmem, stream>>>(
+      m[0], m[1], m[2], m[3], static_cast<const uint8_t*>(kv_mask),
+      static_cast<const int*>(segs),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<__nv_bfloat16*>(dq), S, H, causal, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace wgdq
 
 int check_shape(int B, int S, int H, int D) {
   if (B * H > 65535) return static_cast<int>(cudaErrorInvalidValue);
@@ -592,7 +861,7 @@ extern "C" int port_flash_attention_dq(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case kF32: launch_dq<float>(q, k, v, dout, kv_mask, segs, lse, delta, dq, B, S, H, st, causal, scale, s); break;
-    case kBF16: launch_dq<__nv_bfloat16>(q, k, v, dout, kv_mask, segs, lse, delta, dq, B, S, H, st, causal, scale, s); break;
+    case kBF16: return wgdq::launch(q, k, v, dout, kv_mask, segs, lse, delta, dq, B, S, H, st, causal, scale, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());

@@ -31,10 +31,11 @@ The backward rounds where the TPU kernels round (``:202``, ``:255``,
 ``:262``): for inputs narrower than f32, P is rounded to dO's dtype
 before ``dV += P^T dO`` and dS to q's dtype before ``dK += dS^T Q`` and
 ``dQ += dS K``; f32 and f64 inputs keep both unrounded. The bf16 K2dkv
-is a tensor-core kernel (``wgmma``; K/V once, Q/dO tiles by TMA) whose
-products take bf16 P and dS anyway; bf16 K2dq and both f32 kernels are
-the CUDA-core designs. The wrappers take the plain versions only for
-tensors on the CPU; a CUDA tensor launches the kernel or raises.
+and K2dq are tensor-core kernels (``wgmma``; K2dkv: K/V once, Q/dO
+tiles by TMA; K2dq: Q/dO once, K/V tiles by TMA) whose products take
+bf16 P and dS anyway; both f32 kernels are the CUDA-core designs. The
+wrappers take the plain versions only for tensors on the CPU; a CUDA
+tensor launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -178,10 +179,11 @@ def _require_tma(kernel: str, q, k, v) -> None:
 
 
 def tma_dout(dout: torch.Tensor) -> torch.Tensor:
-    """``dout`` as bf16 K2dkv reads it: itself where TMA can address it,
-    else a contiguous copy. Autograd may hand the backward an expanded
-    or strided cotangent (a broadcast loss, a sliced output); unlike q,
-    k and v, which the caller laid out, it is copied, not refused."""
+    """``dout`` as bf16 K2dq and K2dkv read it: itself where TMA can
+    address it, else a contiguous copy. Autograd may hand the backward an
+    expanded or strided cotangent (a broadcast loss, a sliced output);
+    unlike q, k and v, which the caller laid out, it is copied, not
+    refused."""
     return dout if tma_compatible(dout) else dout.clone(
         memory_format=torch.contiguous_format)
 
@@ -252,10 +254,16 @@ def flash_attention_dq(dout: torch.Tensor, q: torch.Tensor, k: torch.Tensor,
                        causal: bool = False,
                        segment_ids: Optional[torch.Tensor] = None
                        ) -> torch.Tensor:
-    """K2dq: ``dq [B, S, H, D]`` (CUDA tensors only)."""
+    """K2dq: ``dq [B, S, H, D]`` (CUDA tensors only). bf16 runs the
+    tensor-core kernel, which reads q, k, v and dout by TMA: q, k and v
+    must be TMA-addressable, dout is copied where not (:func:`tma_dout`)."""
     global dq_launches
+    if q.dtype == torch.bfloat16:
+        dout = tma_dout(dout)
     device, code = _check_bwd("flash_attention_dq", dout, q, k, v, lse, delta,
                               kv_mask, segment_ids)
+    if q.dtype == torch.bfloat16:
+        _require_tma("flash_attention_dq", q, k, v)
     head, tail = _bwd_args(dout, q, k, v, lse, delta, kv_mask, segment_ids,
                            causal, code, device)
     dq = torch.empty(q.shape, dtype=q.dtype, device=device)

@@ -49,11 +49,11 @@ _F = ctypes.c_float
 
 # argtypes of every C entry point (the ctypes contract with csrc/)
 SIGNATURES = {
-    "port_layernorm": [_P, _P, _P, _P, _P, _I, _I, _F, _I, _I, _P],
+    "port_layernorm": [_P] * 5 + [_I, _I, _F] + [_I] * 6 + [_P],
     "port_flash_attention_fwd": ([_P] * 7 + [_I] * 4 + [_L] * 9
                                  + [_I, _F, _I, _I, _P]),
     "port_paged_attention": [_P] * 8 + [_I] * 9 + [_F, _I, _I, _I, _P],
-    "port_layernorm_bwd": [_P] * 9 + [_I] * 3 + [_F, _I, _I, _P],
+    "port_layernorm_bwd": [_P] * 9 + [_I] * 5 + [_F, _I, _I, _P],
     "port_flash_attention_dq": ([_P] * 9 + [_I] * 4 + [_L] * 12
                                 + [_I, _F, _I, _I, _P]),
     "port_flash_attention_dkv": ([_P] * 10 + [_I] * 4 + [_L] * 12

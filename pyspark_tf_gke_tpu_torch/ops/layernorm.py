@@ -12,18 +12,34 @@ and :func:`layernorm_bwd_plain` are the same closed forms in plain
 PyTorch; the wrappers take them only for tensors that lie on the CPU,
 and a CUDA tensor launches the kernel or raises. The plain versions
 compute in f32, or in f64 for f64 inputs (``gradcheck``).
+
+Both kernels take any row width ``0 < D <= MAX_D`` (8192); the JAX
+kernel takes any D. :func:`ln_plan` chooses each one's variant and launch
+shape from D, the dtype and the pointers' alignment; the wrappers pass
+it to the kernels, which check it.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from pyspark_tf_gke_tpu_torch.ops import kernels
 
-MAX_D = 1024  # csrc/layernorm*.cu keep D/32 values per lane in registers
-BWD_WARPS = 8  # rows in flight per K3b block (csrc/layernorm_bwd.cu)
+MAX_D = 8192  # the widest row csrc/layernorm*.cu take
+# Up to NARROW_D both kernels take a warp a row, 32 values a lane (K3 4
+# rows a block, K3b 8). Beyond, K3 (csrc/layernorm.cu) takes at most
+# MAX_VEC_PER 16-byte chunks a thread, or SCALAR_PER elements in the
+# scalar variant, in CTAs of CTA_THREADS (or a row's threads, if more),
+# and K3b (csrc/layernorm_bwd.cu) a CTA of BWD_CTA_THREADS a row, 8, 16
+# or 32 columns a thread.
+NARROW_D = 1024
+MAX_VEC_PER = 4
+SCALAR_PER = 8
+CTA_THREADS = 256
+BWD_CTA_THREADS = 256
+BWD_WIDE_PERS = (8, 16, 32)
 BWD_MAX_BLOCKS = 256  # K3b's fixed grid: one partial-sum row per block
 
 launches = 0  # K3 launches since the last reset (chip_smoke reads it)
@@ -74,13 +90,62 @@ def layernorm_bwd_plain(g: torch.Tensor, x: torch.Tensor, scale: torch.Tensor,
             dbias.to(scale.dtype))
 
 
+class LnPlan(NamedTuple):
+    """The launch shape of K3 and K3b for one row width."""
+    vec: int  # K3: elements a load: a 16-byte chunk, or 1 (scalar loads)
+    per: int  # K3: loads a thread makes of a row
+    row_threads: int  # K3: threads a row (> 32: a block reduction)
+    threads: int  # K3: threads a CTA
+    bwd_per: int  # K3b: values a thread holds of a row
+    bwd_row_threads: int  # K3b: threads a row: a warp (narrow) or a CTA
+
+    @property
+    def bwd_rows_a_part(self) -> int:
+        """Rows a K3b CTA has in flight, one partial-sum row a CTA."""
+        return BWD_CTA_THREADS // self.bwd_row_threads
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def ln_plan(d: int, dtype: torch.dtype, aligned: bool = True) -> LnPlan:
+    """K3's and K3b's variant and launch shape for rows of ``d`` elements
+    of ``dtype`` (``aligned``: every tensor K3 touches starts on 16
+    bytes). Up to 1024 both keep their first design, a warp a row (32
+    values a lane). Beyond, K3 reads 16-byte chunks where ``d`` is a
+    multiple of one and ``aligned``, else one element at a time (the
+    scalar variant), and a row belongs to the fewest threads (a power of
+    two) that cover it with at most 4 chunks or 8 elements each; K3b
+    takes a 256-thread CTA a row, 8, 16 or 32 columns a thread. Raises
+    for ``d`` outside ``0 < d <= MAX_D``."""
+    if not 0 < d <= MAX_D:
+        raise ValueError(f"the layernorm kernels take 0 < D <= {MAX_D}, got "
+                         f"{d}")
+    if d <= NARROW_D:
+        return LnPlan(1, 32, 32, 128, 32, 32)
+    chunk = 16 // (torch.finfo(dtype).bits // 8)
+    vec = chunk if aligned and d % chunk == 0 else 1
+    n = _cdiv(d, vec)
+    most = MAX_VEC_PER if vec > 1 else SCALAR_PER
+    row_threads = 32
+    while row_threads * most < n:
+        row_threads *= 2
+    per = _cdiv(n, row_threads) if vec > 1 else SCALAR_PER
+    bwd_per = next(p for p in BWD_WIDE_PERS if p * BWD_CTA_THREADS >= d)
+    return LnPlan(vec, per, row_threads, max(row_threads, CTA_THREADS),
+                  bwd_per, BWD_CTA_THREADS)
+
+
+def _aligned(*tensors) -> bool:
+    return all(t.data_ptr() % 16 == 0 for t in tensors if t is not None)
+
+
 def _check(kernel: str, x, scale, residual, *rest) -> torch.device:
     tensors = ((x, scale) + rest
                + ((residual,) if residual is not None else ()))
     device = kernels.require_cuda(kernel, *tensors)
     d = x.shape[-1]
-    if not 0 < d <= MAX_D:
-        raise ValueError(f"{kernel} kernel takes 0 < D <= {MAX_D}, got {d}")
     if scale.shape != (d,) or scale.dtype != torch.float32:
         raise ValueError(f"{kernel} kernel takes float32 scale [{d}], got "
                          f"{scale.dtype} {tuple(scale.shape)}")
@@ -91,6 +156,7 @@ def _check(kernel: str, x, scale, residual, *rest) -> torch.device:
         raise ValueError(f"{kernel} kernel takes contiguous tensors")
     if kernels.dtype_code(x.dtype, kernel) == kernels.DTYPE_CODES[torch.int8]:
         raise TypeError(f"{kernel} kernel takes a float x")
+    ln_plan(d, x.dtype)  # raises for a width the kernels do not take
     return device
 
 
@@ -107,11 +173,13 @@ def layernorm_fwd(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
         raise ValueError(f"layernorm kernel takes float32 bias [{d}], got "
                          f"{bias.dtype} {tuple(bias.shape)}")
     y = torch.empty_like(x)
+    plan = ln_plan(d, x.dtype, _aligned(x, residual, scale, bias, y))
     lib = kernels.library()
     rc = lib.port_layernorm(
         x.data_ptr(), residual.data_ptr() if residual is not None else None,
         scale.data_ptr(), bias.data_ptr(), y.data_ptr(), x.numel() // d, d,
-        float(eps), kernels.dtype_code(x.dtype, "layernorm"),
+        float(eps), plan.vec, plan.per, plan.row_threads, plan.threads,
+        kernels.dtype_code(x.dtype, "layernorm"),
         *kernels.launch_args(device))
     kernels.check(rc, "layernorm")
     launches += 1
@@ -134,7 +202,8 @@ def layernorm_bwd(g: torch.Tensor, x: torch.Tensor, scale: torch.Tensor,
     if rows == 0:
         zero = torch.zeros(d, dtype=torch.float32, device=device)
         return dx, zero, zero.clone()
-    nparts = min(BWD_MAX_BLOCKS, -(-rows // BWD_WARPS))
+    plan = ln_plan(d, x.dtype)
+    nparts = min(BWD_MAX_BLOCKS, _cdiv(rows, plan.bwd_rows_a_part))
     parts = torch.empty((2, nparts, d), dtype=torch.float32, device=device)
     dscale = torch.empty(d, dtype=torch.float32, device=device)
     dbias = torch.empty(d, dtype=torch.float32, device=device)
@@ -143,7 +212,8 @@ def layernorm_bwd(g: torch.Tensor, x: torch.Tensor, scale: torch.Tensor,
         x.data_ptr(), residual.data_ptr() if residual is not None else None,
         g.data_ptr(), scale.data_ptr(), dx.data_ptr(), parts[0].data_ptr(),
         parts[1].data_ptr(), dscale.data_ptr(), dbias.data_ptr(), rows, d,
-        nparts, float(eps), kernels.dtype_code(x.dtype, "layernorm_bwd"),
+        nparts, plan.bwd_per, plan.bwd_row_threads, float(eps),
+        kernels.dtype_code(x.dtype, "layernorm_bwd"),
         *kernels.launch_args(device))
     kernels.check(rc, "layernorm_bwd")
     bwd_launches += 1

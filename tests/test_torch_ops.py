@@ -39,12 +39,15 @@ def _t(a):
 
 
 @pytest.mark.parametrize("residual", [False, True])
-def test_layernorm_matches_jax_kernel(residual):
+@pytest.mark.parametrize("d", [32, 1280, 4096])
+def test_layernorm_matches_jax_kernel(residual, d):
+    """Widths: 32, GPT-2 large's 1280 and 4096 (the kernels' wide
+    variant on the card; the JAX kernel takes any D)."""
     rng = np.random.default_rng(0)
-    x = rng.standard_normal((2, 8, 32)).astype(np.float32) * 3 + 1
-    r = rng.standard_normal((2, 8, 32)).astype(np.float32)
-    scale = rng.standard_normal(32).astype(np.float32)
-    bias = rng.standard_normal(32).astype(np.float32)
+    x = rng.standard_normal((2, 8, d)).astype(np.float32) * 3 + 1
+    r = rng.standard_normal((2, 8, d)).astype(np.float32)
+    scale = rng.standard_normal(d).astype(np.float32)
+    bias = rng.standard_normal(d).astype(np.float32)
     ref = jax_layernorm(jnp.asarray(x), jnp.asarray(scale), jnp.asarray(bias),
                         eps=1e-5, interpret=True,
                         residual=jnp.asarray(r) if residual else None)
@@ -52,6 +55,73 @@ def test_layernorm_matches_jax_kernel(residual):
                           residual=_t(r) if residual else None)
     assert out.dtype == torch.float32 and out.shape == x.shape
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=OP_ATOL)
+
+
+def _cu_ints(path, *names):
+    import re
+    from pathlib import Path
+
+    text = (Path(t_flash.__file__).resolve().parent.parent / "csrc"
+            / path).read_text()
+    return [int(re.search(rf"constexpr int {n} = (\d+);", text).group(1))
+            for n in names]
+
+
+def test_ln_plan_takes_every_width_and_fits_the_kernels():
+    """``ln_plan`` gives every D from 1 to 8192, bf16 and f32, aligned or
+    not, a launch shape the kernels (csrc/layernorm*.cu, whose constants
+    are read from the source) take and that fits their registers and
+    shared memory; 0 and 8193 raise. Up to 1024 both kernels keep their
+    first design's warp a row (32 values a lane). Beyond, K3 takes
+    16-byte chunks where D allows and the pointers are aligned, else
+    scalar loads; a row belongs to the fewest threads that hold at most
+    4 chunks or 8 values each; a thread keeps its row slice in f32, the
+    raw loads of x and r, and one chunk's scale and bias in registers,
+    within the register file's share of its CTA. K3b takes a 256-thread
+    CTA a row, 4 x 8-32 values a thread (its narrow variant holds 4 x
+    32)."""
+    from pyspark_tf_gke_tpu_torch.ops import layernorm as t_ln
+
+    warps, per_lane, cta, vec_per, scalar_per, max_d = _cu_ints(
+        "layernorm.cu", "kWarps", "kMaxPerLane", "kCtaThreads", "kMaxVecPer",
+        "kScalarPer", "kMaxD")
+    bwd_per_lane, wide_threads, bwd_max_d, max_blocks = _cu_ints(
+        "layernorm_bwd.cu", "kMaxPerLane", "kWideThreads", "kMaxD",
+        "kMaxBlocks")
+    assert max_d == bwd_max_d == t_ln.MAX_D == 8192
+    assert (cta, vec_per, scalar_per) == (t_ln.CTA_THREADS, t_ln.MAX_VEC_PER,
+                                          t_ln.SCALAR_PER)
+    assert (wide_threads, max_blocks) == (t_ln.BWD_CTA_THREADS,
+                                          t_ln.BWD_MAX_BLOCKS)
+    narrow = 32 * per_lane
+    assert narrow == 32 * bwd_per_lane == t_ln.NARROW_D
+    for dtype in (torch.bfloat16, torch.float32):
+        size = torch.finfo(dtype).bits // 8
+        for aligned in (True, False):
+            for d in range(1, max_d + 1):
+                p = t_ln.ln_plan(d, dtype, aligned)
+                if d <= narrow:
+                    assert p == (1, per_lane, 32, warps * 32, per_lane, 32)
+                    continue
+                chunk = 16 // size
+                assert p.vec == (chunk if aligned and d % chunk == 0 else 1)
+                most = vec_per if p.vec > 1 else scalar_per
+                n = -(-d // p.vec)
+                rt = p.row_threads
+                assert rt >= 64 and rt & (rt - 1) == 0
+                assert p.per <= most and p.per * rt >= n > most * rt // 2
+                assert p.threads == max(rt, cta) <= 1024
+                # registers: the f32 row slice, the raw loads of x and r,
+                # a chunk's scale and bias, within 255 and the CTA's share
+                values = p.per * p.vec * (1 + 2 * size / 4) + 2 * p.vec
+                assert values + 24 <= min(255, 65536 // p.threads), (d, p)
+                assert p.bwd_row_threads == wide_threads
+                assert p.bwd_per in (8, 16, 32)
+                assert p.bwd_per * wide_threads >= d
+                assert p.bwd_per == 8 or (p.bwd_per // 2) * wide_threads < d
+    for d in (0, max_d + 1):
+        with pytest.raises(ValueError, match="8192"):
+            t_ln.ln_plan(d, torch.bfloat16)
 
 
 def test_layernorm_keeps_input_dtype():

@@ -110,7 +110,8 @@ def test_flash_gradcheck_f64():
     assert torch.autograd.gradcheck(fn, (q, k, v))
 
 
-@pytest.mark.parametrize("case", ["causal", "segments", "masked"])
+@pytest.mark.parametrize("case", ["causal", "segments", "masked",
+                                  "masked_s77"])
 def test_flash_backward_bf16_rounds_where_jax_rounds(case):
     """The bf16 backward rounds P to bf16 before dV and dS before dK and
     dQ, as the TPU kernels do. The same bf16 q, k, v, dO and the port
@@ -126,8 +127,12 @@ def test_flash_backward_bf16_rounds_where_jax_rounds(case):
     another order than the JAX kernel's blocks of 16 can round to the
     neighbouring bf16 value. Such an element is within one bf16 step
     (2**-7 relative) of the JAX value or within 2e-6 absolute, and at
-    most 1/32 of the elements differ at all."""
-    b, s, h, d = 2, 64, 2, 64
+    most 1/32 of the elements differ at all. ``masked_s77``: the masked
+    case at a ragged S = 77 (JAX blocks of 11), the edge that bf16 K2dq's
+    128-row and K2dkv's 128-key CTAs meet on the card."""
+    case, _, ragged = case.partition("_")
+    b, s, h, d = 2, (77 if ragged else 64), 2, 64
+    block = 11 if ragged else 16
     rng = np.random.default_rng(30)
 
     def bf16(shape):
@@ -137,7 +142,7 @@ def test_flash_backward_bf16_rounds_where_jax_rounds(case):
     q, k, v, do = (bf16((b, s, h, d)) for _ in range(4))
     kv_mask = segs = None
     if case in ("segments", "masked"):
-        segs = torch.from_numpy(np.repeat(np.arange(4), 16).astype(
+        segs = torch.from_numpy((np.arange(s) // 16).astype(
             np.int32))[None].repeat(b, 1)
     if case == "masked":
         kv_mask = torch.from_numpy(rng.random((b, s)) > 0.25)
@@ -165,7 +170,7 @@ def test_flash_backward_bf16_rounds_where_jax_rounds(case):
     ref = jax_flash_bwd_bh(to_bh(q), to_bh(k), to_bh(v), bias,
                            jnp.asarray(lse.numpy()).reshape(b * h, 1, s),
                            to_bh(out), to_bh(do), jsegs, causal=True,
-                           block_q=16, block_k=16, interpret=True)
+                           block_q=block, block_k=block, interpret=True)
     for name, got_fn, got_plain, want in zip(
             ("dq", "dk", "dv"), (tq.grad, tk.grad, tv.grad), plain, ref):
         want = torch.from_numpy(np.array(want.astype(jnp.float32))).reshape(
@@ -234,20 +239,76 @@ def test_dkv_grid_follows_the_kernel_and_fills_the_h100():
     assert len(ragged) == 36 * 2 and ragged[-1][2:] == (128, 4 - 2)
 
 
+DQ_BLOCK_Q, DQ_BLOCK_K = 128, 64  # bf16 K2dq's rows a CTA, keys a tile
+
+
+def _dq_launch_order(b: int, s: int, h: int, causal: bool):
+    """``[(batch, head, first row, key tiles)]`` of bf16 K2dq's CTAs in
+    launch order (grid x = B*H fastest, y = query blocks taken from the
+    last down): a causal CTA walks the key tiles up to its last row."""
+    blocks = -(-s // DQ_BLOCK_Q)
+    order = []
+    for y in range(blocks):
+        q0 = (blocks - 1 - y) * DQ_BLOCK_Q
+        last = min(q0 + DQ_BLOCK_Q, s) - 1
+        tiles = (last if causal else s - 1) // DQ_BLOCK_K + 1
+        order += [(bh // h, bh % h, q0, tiles) for bh in range(b * h)]
+    return order
+
+
+def test_dq_grid_follows_the_kernel_and_fills_the_h100():
+    """bf16 K2dq (csrc/flash_attention_bwd.cu wgdq::): CTAs of 128 query
+    rows walking 64-key tiles, the grid (B*H, query blocks) with the
+    query block the slow axis taken from the last block down, so that
+    causal CTAs launch longest first; at the LM training shape (B=16
+    S=512 H=12) its 768 CTAs are more than five waves of an H100's 132
+    SMs and the whole first wave walks every key tile. Ragged S: the
+    last block is partial and walks the tiles up to S."""
+    from pathlib import Path
+
+    src = (Path(t_flash.__file__).resolve().parent.parent / "csrc"
+           / "flash_attention_bwd.cu").read_text()
+    wg = src[src.index("namespace wgdq {"):]
+    assert _cu_constant(wg, "kBQ") == DQ_BLOCK_Q
+    assert _cu_constant(wg, "kBK") == DQ_BLOCK_K
+    assert "const dim3 grid(B * H, (S + kBQ - 1) / kBQ);" in wg
+    assert "const int q0 = (gridDim.y - 1 - blockIdx.y) * kBQ;" in wg
+    assert "const int ntiles = (causal ? q_last : S - 1) / kBK + 1;" in wg
+
+    order = _dq_launch_order(16, 512, 12, causal=True)
+    assert len(order) == 768 > 5 * 132
+    tiles = [o[3] for o in order]
+    assert tiles == sorted(tiles, reverse=True)
+    assert all(o[2] == 384 and o[3] == 8 for o in order[:132])
+    assert {o[:3] for o in order} == {(b, h, q0) for b in range(16)
+                                      for h in range(12)
+                                      for q0 in (0, 128, 256, 384)}
+    assert all(o[3] == 8 for o in _dq_launch_order(16, 512, 12,
+                                                   causal=False))
+    ragged = _dq_launch_order(3, 200, 12, causal=True)
+    assert len(ragged) == 36 * 2
+    assert ragged[0][2:] == (128, 4) and ragged[-1][2:] == (0, 2)
+
+
+@pytest.mark.parametrize("kernel", ["flash_attention_dq",
+                                    "flash_attention_dkv"],
+                         ids=["dq", "dkv"])
 def test_dkv_wrapper_copies_an_unaddressable_dout_and_refuses_q(
-        monkeypatch):
-    """bf16 K2dkv reads q, k, v and dout by TMA. An expanded or strided
-    cotangent, as autograd may hand over, is copied into a layout TMA
-    can address (the kernel gets the copy's strides); an addressable one
-    is passed as it is; a q, k or v that TMA cannot address raises, as
-    the forward does. (The kernel library is replaced by a recorder: no
-    card here.)"""
+        kernel, monkeypatch):
+    """bf16 K2dkv and K2dq read q, k, v and dout by TMA. An expanded or
+    strided cotangent, as autograd may hand over, is copied into a
+    layout TMA can address (the kernel gets the copy's strides); an
+    addressable one is passed as it is; a q, k or v that TMA cannot
+    address raises, as the forward does. (The kernel library is replaced
+    by a recorder: no card here.)"""
     calls = []
 
     class FakeLibrary:
-        def port_flash_attention_dkv(self, *args):
+        def port_flash_attention_dq(self, *args):
             calls.append(args)
             return 0
+
+        port_flash_attention_dkv = port_flash_attention_dq
 
     monkeypatch.setattr(t_flash.kernels, "require_cuda",
                         lambda kernel, *ts: ts[0].device)
@@ -257,6 +318,10 @@ def test_dkv_wrapper_copies_an_unaddressable_dout_and_refuses_q(
     q, k, v = (torch.zeros(b, s, h, d, dtype=torch.bfloat16)
                for _ in range(3))
     lse, delta = (torch.zeros(b, h, s) for _ in range(2))
+    wrapper = getattr(t_flash, kernel)
+    # q, k, v, dout strides (batch, seq, head) follow the leading
+    # pointers and sizes: 13 for K2dq (one output), 14 for K2dkv (two)
+    at = 22 if kernel == "flash_attention_dq" else 23
     expanded = torch.ones(b, 1, h, d, dtype=torch.bfloat16).expand(b, s, h, d)
     sliced = torch.ones(b, s, h, d + 4, dtype=torch.bfloat16)[..., :d]
     assert not t_flash.tma_compatible(expanded)
@@ -266,25 +331,23 @@ def test_dkv_wrapper_copies_an_unaddressable_dout_and_refuses_q(
         assert got is not dout and t_flash.tma_compatible(got)
         assert torch.equal(got, dout)
         calls.clear()
-        t_flash.flash_attention_dkv(dout, q, k, v, lse, delta, causal=True)
-        args = calls[0]
-        # q, k, v, dout strides (batch, seq, head) follow the 14 leading
-        # arguments: the kernel got a contiguous dout
-        assert args[23:26] == (s * h * d, h * d, d)
+        wrapper(dout, q, k, v, lse, delta, causal=True)
+        # the kernel got a contiguous dout
+        assert calls[0][at:at + 3] == (s * h * d, h * d, d)
     ok = torch.ones(b, s, h, d, dtype=torch.bfloat16)
     assert t_flash.tma_dout(ok) is ok
     bad_q = torch.zeros(b, s, h, d + 4, dtype=torch.bfloat16)[..., :d]
     with pytest.raises(ValueError, match="TMA"):
-        t_flash.flash_attention_dkv(ok, bad_q, k, v, lse, delta)
+        wrapper(ok, bad_q, k, v, lse, delta)
     with pytest.raises(ValueError, match="TMA"):
-        t_flash.flash_attention_dkv(ok, q, k, bad_q, lse, delta)
+        wrapper(ok, q, k, bad_q, lse, delta)
     # f32 runs the CUDA-core kernel, which takes any head_dim-contiguous
     # strides: no copy, no refusal
     calls.clear()
     q32 = q.float()
     sliced32 = torch.ones(b, s, h, d + 4)[..., :d]
-    t_flash.flash_attention_dkv(sliced32, q32, q32, q32, lse, delta)
-    assert calls[0][23:26] == (s * h * (d + 4), h * (d + 4), d + 4)
+    wrapper(sliced32, q32, q32, q32, lse, delta)
+    assert calls[0][at:at + 3] == (s * h * (d + 4), h * (d + 4), d + 4)
 
 
 # -- K3b ----------------------------------------------------------------------
@@ -292,13 +355,16 @@ def test_dkv_wrapper_copies_an_unaddressable_dout_and_refuses_q(
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("residual", [False, True])
-def test_layernorm_backward_matches_jax_grad(residual, dtype):
+@pytest.mark.parametrize("d", [64, 1280, 4096])
+def test_layernorm_backward_matches_jax_grad(residual, dtype, d):
+    """Widths: 64, GPT-2 large's 1280 and 4096 (K3b's wide variant on the
+    card)."""
     rng = np.random.default_rng(22)
-    x = rng.standard_normal((4, 8, 64)).astype(np.float32) * 2 + 0.5
-    r = rng.standard_normal((4, 8, 64)).astype(np.float32)
-    w = rng.standard_normal((4, 8, 64)).astype(np.float32)
-    scale = rng.standard_normal(64).astype(np.float32)
-    bias = rng.standard_normal(64).astype(np.float32)
+    x = rng.standard_normal((4, 8, d)).astype(np.float32) * 2 + 0.5
+    r = rng.standard_normal((4, 8, d)).astype(np.float32)
+    w = rng.standard_normal((4, 8, d)).astype(np.float32)
+    scale = rng.standard_normal(d).astype(np.float32)
+    bias = rng.standard_normal(d).astype(np.float32)
     jdt = jnp.dtype(dtype)
 
     def jax_loss(x, r, scale, bias):
@@ -365,6 +431,48 @@ def test_layernorm_bwd_plain_is_the_wrappers_cpu_path():
     for a, b in zip(t_ln.layernorm_bwd(g, x, scale, 1e-5),
                     t_ln.layernorm_bwd_plain(g, x, scale, 1e-5)):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("d", [1280, 4096])
+def test_layernorm_wrappers_hand_wide_rows_to_the_kernels(d, monkeypatch):
+    """``layernorm_fwd`` and ``layernorm_bwd`` hand rows of GPT-2
+    large's 1280 and of 4096 to the kernels with ``ln_plan``'s launch
+    shape (before the width repair both raised ValueError for D >
+    1024), and K3b's partial-sum rows follow the plan: one row a part
+    beyond 1024. Meta tensors stand in for CUDA ones and a recorder for
+    the kernel library: no card here."""
+    calls = {}
+
+    class FakeLibrary:
+        def port_layernorm(self, *args):
+            calls["fwd"] = args
+            return 0
+
+        def port_layernorm_bwd(self, *args):
+            calls["bwd"] = args
+            return 0
+
+    monkeypatch.setattr(t_ln.kernels, "require_cuda",
+                        lambda kernel, *ts: ts[0].device)
+    monkeypatch.setattr(t_ln.kernels, "library", FakeLibrary)
+    monkeypatch.setattr(t_ln.kernels, "launch_args", lambda dev: (0, 0))
+    x, r, g = (torch.zeros(3, 5, d, dtype=torch.bfloat16, device="meta")
+               for _ in range(3))
+    scale, bias = (torch.zeros(d, device="meta") for _ in range(2))
+    plan = t_ln.ln_plan(d, torch.bfloat16)
+    assert plan.vec == 8 and plan.row_threads > 32
+    y = t_ln.layernorm_fwd(x, scale, bias, 1e-5, residual=r)
+    assert y.shape == x.shape
+    # x, r, scale, bias, y, rows, d, eps, vec, per, row_threads, threads
+    args = calls["fwd"]
+    assert args[5:7] == (15, d) and args[8:12] == tuple(plan[:4])
+    dx, dscale, dbias = t_ln.layernorm_bwd(g, x, scale, 1e-5, residual=r)
+    assert dx.shape == x.shape and dscale.shape == dbias.shape == (d,)
+    # x, r, g, scale, dx, parts, parts, dscale, dbias, rows, d, nparts,
+    # per, row_threads
+    args = calls["bwd"]
+    assert args[9:12] == (15, d, 15)
+    assert args[12:14] == (plan.bwd_per, 256)
 
 
 # -- K1 has no backward ---------------------------------------------------------
