@@ -11,8 +11,11 @@
 3. holds each kernel against its plain PyTorch version on the card at
    the main paths' shapes, in bf16 and f32 — the serving kernels (K2f
    also at ragged S = 200 and 77 and on q/k/v views of one [B, S, 3, H,
-   D] tensor; K1 at S = 1 and 8, and in row blocks at S = 256 and at S =
-   512 with 12/4 GQA, queries with no key giving zeros), the training
+   D] tensor; K1 at S = 1 and 8 on its decode variant, at fills on its
+   split boundaries and at the serving decode shape, and at S = 256 and
+   at S = 512 with 12/4 GQA on its chunk variant (bf16) or first design
+   (f32), float and int8 pages, queries with no key giving zeros, each
+   call on the variant its plan names), the training
    kernels (K2f, K2dq and K2dkv at B=16 S=512 H=12 D=64 and at ragged
    S = 200 and 77: causal, causal + segments, and key padding + segments
    + causal with an empty row and a fully masked batch row, at S = 200
@@ -26,14 +29,16 @@
    the four stride-1 3x3 shapes, a ragged one and one whose K and N are
    not multiples of 8, with and without the transform and the
    statistics) — and times kernel, plain version and a library yardstick
-   with CUDA events (K3 at [8192, 768] bf16 with and without the
-   residual against F.layer_norm; K3b against autograd's LayerNorm
-   backward; K2f at B=8 S=1024 and B=16 S=512; K2dq and K2dkv at
+   with CUDA events (K1 at S = 1 at fills {0..1024}, 716 each and 1024
+   each, and at S = 256, against SDPA over the gathered pages; K3 at
+   [8192, 768] bf16 with and without the
+   residual against F.layer_norm; K3b against
+   native_layer_norm_backward; K2f at B=8 S=1024 and B=16 S=512; K2dq and K2dkv at
    B=16 S=512 against the SDPA backward, which computes dQ, dK and dV
    together, on [B, S, H, D] views and on contiguous [B, H, S, D]
    tensors; K4: on all 16 shapes of a ResNet-50 step, summed over its 36
    calls; K5: on the four stage shapes, summed over its 13 calls, against
-   cuDNN; K3, K3b, K2f, K2dq, K2dkv, K5f, K5dx, K4f, K4dx and the bf16
+   cuDNN; K1, K3, K3b, K2f, K2dq, K2dkv, K5f, K5dx, K4f, K4dx and the bf16
    K4dw and K5dw and their yardsticks also replayed from a CUDA graph,
    which takes the host's launch cost out);
 4. serving main path: serves a full-width GPT-small paged bundle
@@ -41,14 +46,15 @@
    ``BundleServer`` + the HTTP server with 8 continuous slots: 12
    ``/v1/generate`` requests from 3 client threads (greedy and seeded
    top-p) and one ``/v1/score``; every serving kernel's launch counter
-   must move during this phase; then profiles one batched prefill
+   must move during this phase, K1's decode variant among them; then
+   profiles one batched prefill
    admission and two decode chunks of the engine (host wall time
    against device-busy time, top kernels);
 5. checks serving parity on the card: the engine's f32 greedy tokens
    equal the dense ``generate``'s, full-width bf16 prefill logits
    through the kernels agree with the plain versions, and so do two
-   256-token chunked-prefill pieces through the paged model (K1 in row
-   blocks);
+   256-token chunked-prefill pieces through the paged model (every K1
+   call on its chunk variant);
 6. training main path: ``lm_pretrain.main`` on a seeded synthetic text
    corpus at the GPT-small width (hidden 768, 12 layers, 12 heads, FFN
    3072, seq 512, batch 16, bf16, Adam 3e-4), 2 epochs x 10 steps with
@@ -469,9 +475,7 @@ def check_layernorm_bwd(torch, dev):
     """K3b against ``layernorm_bwd_plain`` at every width of
     ``LN_CHECK_WIDTHS``, bf16 and f32, with and without the residual;
     timed at the training shape [8192, 768] bf16, eager and
-    graph-replayed."""
-    import torch.nn.functional as F
-
+    graph-replayed, beside ``native_layer_norm_backward``."""
     from pyspark_tf_gke_tpu_torch.ops import layernorm as ln
 
     g = torch.Generator(device=dev).manual_seed(5)
@@ -492,12 +496,16 @@ def check_layernorm_bwd(torch, dev):
                                                 1e-5)
                 plain = cuda_ms(lambda: ln.layernorm_bwd_plain(dy, x, scale,
                                                                1e-5))
-                xr = x.detach().requires_grad_()
-                w = scale.to(x.dtype).requires_grad_()
-                b = torch.zeros_like(w, requires_grad=True)
-                y = F.layer_norm(xr, (768,), w, b, 1e-5)
-                lib = cuda_ms(lambda: torch.autograd.grad(
-                    y, (xr, w, b), dy, retain_graph=True))
+                # the library yardstick: one call computing the same
+                # function, native_layer_norm_backward on the statistics
+                # native_layer_norm saves (never called by the port)
+                w = scale.to(x.dtype)
+                b = torch.zeros_like(w)
+                _, mean, rstd = torch.ops.aten.native_layer_norm(
+                    x, [768], w, b, 1e-5)
+                native = lambda: torch.ops.aten.native_layer_norm_backward(  # noqa: E731,E501
+                    dy, x, [768], mean, rstd, w, b, [True, True, True])
+                lib = cuda_ms(native)
                 # x and dy read, dx written, scale read, dscale and dbias
                 # written; ~17 f32 operations per element (statistics,
                 # closed form, column sums)
@@ -505,10 +513,13 @@ def check_layernorm_bwd(torch, dev):
                 bms, by = bound(nbytes, 17 * x.numel(), "float32")
                 rec = dict(max_abs_err=err, ms=cuda_ms(kern), plain_ms=plain,
                            bound_ms=bms, bound_by=by, library_ms=lib,
-                           graph_ms=graph_ms(kern), shape="[8192,768] bf16")
+                           graph_ms=graph_ms(kern),
+                           library_graph_ms=graph_ms(native),
+                           shape="[8192,768] bf16")
                 log(f"  K3b [8192,768] bf16: kernel {rec['ms']:.4f} ms, "
-                    f"graph-replayed {rec['graph_ms']:.4f}; autograd's "
-                    f"LayerNorm backward {lib:.4f}; bound {bms:.4f} ({by})")
+                    f"graph-replayed {rec['graph_ms']:.4f}; "
+                    f"native_layer_norm_backward {lib:.4f}, graph-replayed "
+                    f"{rec['library_graph_ms']:.4f}; bound {bms:.4f} ({by})")
     return rec
 
 
@@ -1030,18 +1041,39 @@ def check_fused_conv3(torch, dev):
 
 
 # K1's checked cases (H_kv, S, int8 pages, fills) at H = 12, 8 slots of
-# 16 pages of 64 tokens: decode (S = 1) and verify-sized chunks (S = 8)
-# in one row block; S = 256 (a chunked-prefill piece of GPT-small: R =
-# 256 rows, two blocks of 128), S = 512 at 12/4 GQA (R = 1536 rows, seven
-# blocks), and S = 256 with every fill <= 128, so that the first row
-# block of every slot sees no key and must give zeros
+# 16 pages of 64 tokens: decode (S = 1) and verify-sized chunks (S = 8),
+# the decode variant; S = 256 (a chunked-prefill piece of GPT-small: R =
+# 256 rows, two 128-row blocks) and S = 512 at 12/4 GQA (R = 1536), the
+# chunk variant for a bf16 query and the first design for f32; S = 256
+# with every fill <= 128, so that the first row block of every slot sees
+# no key and must give zeros; the serving decode shape (every slot at
+# 716, the phase-4 prompts after 16 steps); and fills on the decode
+# variant's split boundaries (SPLIT_FILLS: a split's last entry, one
+# past it, the table's end)
 PAGED_FILLS = (0, 1, 63, 64, 65, 500, 960, 1024)
+SERVE_FILLS = (716,) * 8
+SPLIT_FILLS = "split"
 PAGED_CASES = ((12, 1, False, PAGED_FILLS), (4, 1, False, PAGED_FILLS),
                (12, 1, True, PAGED_FILLS), (4, 8, True, PAGED_FILLS),
                (12, 8, False, PAGED_FILLS), (12, 256, False, PAGED_FILLS),
                (12, 256, True, PAGED_FILLS), (4, 512, False, PAGED_FILLS),
                (4, 512, True, PAGED_FILLS),
-               (12, 256, False, (0, 1, 63, 64, 100, 127, 128, 128)))
+               (12, 256, False, (0, 1, 63, 64, 100, 127, 128, 128)),
+               (12, 1, False, SERVE_FILLS), (12, 1, True, SERVE_FILLS),
+               (12, 1, False, SPLIT_FILLS), (12, 1, True, SPLIT_FILLS),
+               (4, 8, False, SPLIT_FILLS))
+
+
+def _split_fills(torch, pa, hkv, s):
+    """Fills on the decode plan's split boundaries at this shape (8
+    slots, H = 12, 16 pages of 64 tokens; the split does not depend on
+    the dtypes): empty, a split's entries full (pages_per_split x P) and
+    one token past them, two splits less one token, every entry (MP x
+    P), and three others."""
+    plan = pa.paged_plan(8, s, 12, hkv, 64, 64, 16, torch.bfloat16,
+                         torch.bfloat16)
+    edge = plan.pages_per_split * 64
+    return (0, edge, edge + 1, 2 * edge - 1, 1024, 65, 700, s)
 
 
 def _paged_case(torch, dev, g, dtype, hkv, s, quant, fills=PAGED_FILLS):
@@ -1073,62 +1105,101 @@ def _paged_case(torch, dev, g, dtype, hkv, s, quant, fills=PAGED_FILLS):
     return q, kp, vp, table, fills, ks, vs
 
 
+def _paged_record(torch, pa, q, kp, vp, table, fills, err, shape):
+    """Times of bf16 K1 and of SDPA over the gathered pages, eager and
+    graph-replayed, and the bound, at one shape."""
+    kern = lambda: pa.paged_attention_chunk(q, kp, vp, table,  # noqa: E731
+                                            fills)
+    lib = lambda: _sdpa_over_gathered(torch, q, kp, vp, table,  # noqa: E731
+                                      fills)
+    bms, by = _paged_bound(q, kp, table, fills)
+    return dict(max_abs_err=err, ms=cuda_ms(kern), graph_ms=graph_ms(kern),
+                plain_ms=cuda_ms(lambda: pa.paged_attention_chunk_plain(
+                    q, kp, vp, table, fills), iters=3, reps=3),
+                library_ms=cuda_ms(lib), library_graph_ms=graph_ms(lib),
+                bound_ms=bms, bound_by=by, shape=shape)
+
+
 def check_paged(torch, dev):
+    """K1 against ``paged_attention_chunk_plain`` in every case of
+    ``PAGED_CASES``, bf16 and f32 (a query with no key, and the empty
+    slot, exactly zero), each call's variant the one ``paged_plan``
+    names; timed, with SDPA over the gathered pages and the bound, at the
+    checked shape (S = 1, fills {0..1024}), the serving decode shape, the
+    full pool and the 256-token piece, eager and graph-replayed."""
     from pyspark_tf_gke_tpu_torch.ops import paged_attention as pa
 
     # the S <= 8 cases draw from their own generator, the row-block cases
     # from another
     g = torch.Generator(device=dev).manual_seed(3)
     g_rows = torch.Generator(device=dev).manual_seed(4)
-    rec = None
+    rec, timed = None, {}
     for dtype in (torch.bfloat16, torch.float32):
         name = str(dtype).split(".")[-1]
         for hkv, s, quant, fill_list in PAGED_CASES:
+            if fill_list == SPLIT_FILLS:
+                fill_list = _split_fills(torch, pa, hkv, s)
             q, kp, vp, table, fills, ks, vs = _paged_case(
                 torch, dev, g if s <= 8 else g_rows, dtype, hkv, s, quant,
                 fill_list)
-            rows, blocks, smem = pa.row_plan(s, 12, hkv, 64, 64)
-            if s <= 8:  # decode and verify chunks launch as before
-                check(blocks == 1 and rows == s * 12 // hkv,
-                      f"K1 at S={s} splits its {s * 12 // hkv} rows")
+            plan = pa.paged_plan(8, s, 12, hkv, 64, 64, 16, dtype, kp.dtype)
+            if s <= 8:
+                check(plan.variant == "decode",
+                      f"K1 at S={s} takes the {plan.variant} variant")
+            before_variants = dict(pa.variant_launches)
             out = pa.paged_attention_chunk(q, kp, vp, table, fills, ks, vs)
             ref = pa.paged_attention_chunk_plain(q, kp, vp, table, fills,
                                                  ks, vs)
+            check(pa.variant_launches[plan.variant]
+                  == before_variants[plan.variant] + 1,
+                  f"K1 did not launch its {plan.variant} variant")
             tag = (f"paged {name} slots=8 N=128 P=64 H=12 Hkv={hkv} S={s}"
                    f"{' int8' if quant else ''} fills {list(fill_list)} "
-                   f"({blocks} row blocks of {rows}, {smem} B)")
+                   f"({plan.variant}: {plan.blocks} row blocks of "
+                   f"{plan.rows}, {plan.splits} splits of "
+                   f"{plan.pages_per_split} pages, {plan.smem} B)")
             err = compare(out, ref, name, tag)
-            check(bool((out[0] == 0).all()), "empty slot is not zero")
+            check(bool((out[0] == 0).all()) or fill_list[0] != 0,
+                  "empty slot is not zero")
             before = (fills[:, None] - s + torch.arange(s, device=dev)) < 0
             check(bool((out[before] == 0).all()),
                   f"{tag}: a query with no key is not zero")
-            if dtype == torch.bfloat16 and s > 8 and not quant:
-                ms = cuda_ms(lambda: pa.paged_attention_chunk(
-                    q, kp, vp, table, fills), warmup=1, iters=3, reps=3)
-                log(f"  {tag}: kernel {ms:.4f} ms")
-            if dtype == torch.bfloat16 and (hkv, s, quant) == (12, 1, False):
-                q1 = q[:, 0].contiguous()
-                ms = cuda_ms(lambda: pa.paged_attention(q1, kp, vp, table,
-                                                        fills))
-                plain = cuda_ms(lambda: pa.paged_attention_chunk_plain(
-                    q, kp, vp, table, fills))
-                lib = cuda_ms(lambda: _sdpa_over_gathered(
-                    torch, q, kp, vp, table, fills))
-                live = int(fills.sum())
-                nbytes = (2 * live * hkv * 64 * kp.element_size()
-                          + 2 * q.numel() * q.element_size()
-                          + table.numel() * 4 + fills.numel() * 4)
-                ops = 4 * live * 12 * 64
-                bms, by = bound(nbytes, ops, name)
-                rec = dict(max_abs_err=err, ms=ms, plain_ms=plain,
-                           bound_ms=bms, bound_by=by, library_ms=lib,
-                           shape="8 slots, fills {0..1024}, S=1 bf16")
+            if dtype != torch.bfloat16 or quant or hkv != 12:
+                continue
+            if (s, fill_list) == (1, PAGED_FILLS):
+                rec = _paged_record(torch, pa, q, kp, vp, table, fills, err,
+                                    "8 slots, fills {0..1024}, S=1 bf16")
+            elif (s, fill_list) == (1, SERVE_FILLS):
+                timed["decode_shape"] = _paged_record(
+                    torch, pa, q, kp, vp, table, fills, err,
+                    "8 slots at fill 716, S=1 bf16")
+                q, kp, vp, table, fills, _, _ = _paged_case(
+                    torch, dev, g, dtype, hkv, s, quant, (1024,) * 8)
+                timed["full_pool"] = _paged_record(
+                    torch, pa, q, kp, vp, table, fills, compare(
+                        pa.paged_attention_chunk(q, kp, vp, table, fills),
+                        pa.paged_attention_chunk_plain(q, kp, vp, table,
+                                                       fills), name,
+                        "paged bfloat16 8 slots at fill 1024, S=1"),
+                    "8 slots at fill 1024, S=1 bf16")
+            elif (s, fill_list) == (256, PAGED_FILLS):
+                timed["piece"] = _paged_record(
+                    torch, pa, q, kp, vp, table, fills, err,
+                    "8 slots, fills {0..1024}, S=256 bf16")
+    rec.update(timed)
+    for r in (rec, *timed.values()):
+        log(f"  K1 {r['shape']}: kernel {r['ms']:.4f} ms, graph-replayed "
+            f"{r['graph_ms']:.4f}; SDPA over gathered pages "
+            f"{r['library_ms']:.4f}, graph-replayed "
+            f"{r['library_graph_ms']:.4f}; plain {r['plain_ms']:.4f}; bound "
+            f"{r['bound_ms']:.4f} ({r['bound_by']})")
     return rec
 
 
 def _sdpa_over_gathered(torch, q, kp, vp, table, fills):
     """Library yardstick (never called by the port): gather every table
-    page, then ``scaled_dot_product_attention`` with a key mask."""
+    page, then ``scaled_dot_product_attention`` with each query row's
+    causal key mask (query ``s`` at ``fill - S + s``)."""
     import torch.nn.functional as F
 
     n, p, hkv, d = kp.shape
@@ -1136,10 +1207,33 @@ def _sdpa_over_gathered(torch, q, kp, vp, table, fills):
     safe = table.long().clamp(0, n - 1)
     k = kp[safe].reshape(b, -1, hkv, d).transpose(1, 2)
     v = vp[safe].reshape(b, -1, hkv, d).transpose(1, 2)
-    keep = (torch.arange(k.shape[2], device=q.device)[None, :]
-            < fills[:, None])[:, None, None, :]
+    q_abs = fills.long()[:, None] - s + torch.arange(s, device=q.device)
+    keep = (torch.arange(k.shape[2], device=q.device)[None, None, :]
+            <= q_abs[:, :, None])[:, None]
     return F.scaled_dot_product_attention(q.transpose(1, 2), k, v,
-                                          attn_mask=keep)
+                                          attn_mask=keep,
+                                          enable_gqa=hkv != h)
+
+
+def _paged_bound(q, kp, table, fills):
+    """K1's bound at these inputs: each slot's live K/V bytes of every
+    KV head read once (the fill capped at the table's pages; int8 pages
+    with their f32 scales), q read and the output written once, against
+    4 operations per (query row, key it sees, head_dim element) over the
+    peak for the query's type."""
+    b, s, h, d = q.shape
+    hkv = kp.shape[2]
+    cap = table.shape[1] * kp.shape[1]
+    per_token = 2 * hkv * (d * kp.element_size()
+                           + (4 if kp.element_size() == 1 else 0))
+    nbytes = 2 * q.numel() * q.element_size()
+    ops = 0
+    for fill in fills.tolist():
+        live = max(0, min(fill, cap))
+        nbytes += live * per_token
+        ops += 4 * h * d * sum(max(0, min(fill - s + i + 1, live))
+                               for i in range(s))
+    return bound(nbytes, ops, str(q.dtype).split(".")[-1])
 
 
 # -- phase 4: the main path ---------------------------------------------------
@@ -1163,6 +1257,7 @@ def _post(url: str, body: dict):
 
 def run_main_path(torch, dev, counters, cfg):
     from pyspark_tf_gke_tpu_torch.models.causal_lm import init_params
+    from pyspark_tf_gke_tpu_torch.ops import paged_attention as pa
     from pyspark_tf_gke_tpu_torch.train.export import export_serving_bundle
     from pyspark_tf_gke_tpu_torch.train.serve import (BundleServer,
                                                       start_http_server)
@@ -1193,6 +1288,8 @@ def run_main_path(torch, dev, counters, cfg):
         torch.cuda.synchronize()
         for mod, attr in counters.values():  # count only the traffic below
             setattr(mod, attr, 0)
+        for variant in pa.variant_launches:
+            pa.variant_launches[variant] = 0
         results, errors = [None] * len(jobs), []
 
         def client(idx):
@@ -1216,6 +1313,7 @@ def run_main_path(torch, dev, counters, cfg):
         torch.cuda.synchronize()
         launches = {name: getattr(mod, attr)
                     for name, (mod, attr) in counters.items()}
+        variants = dict(pa.variant_launches)
     finally:
         httpd.shutdown()
         httpd.server_close()
@@ -1244,11 +1342,14 @@ def run_main_path(torch, dev, counters, cfg):
     log(f"  score: {[round(s['nll'], 3) for s in score[1]['scores']]}")
     log(f"  aggregate {new_tokens} new tokens in {wall:.3f} s = "
         f"{new_tokens / wall:.1f} tokens/s (12 requests, 3 clients)")
-    log(f"  kernel launches on the main path: {launches}")
+    log(f"  kernel launches on the main path: {launches}; K1 by variant "
+        f"{variants}")
     for name, n in launches.items():
         check(n > 0, f"kernel {name} was not launched on the main path")
+    check(variants["decode"] > 0, "the decode steps did not launch K1's "
+          "decode variant")
     shutil.rmtree(bundle, ignore_errors=True)
-    return launches, server.model
+    return launches, variants, server.model
 
 
 def _profiled(torch, fn):
@@ -1370,8 +1471,9 @@ def check_paged_piece(torch, dev, full_model):
     """Two 256-token pieces of chunked prefill (the JAX bench's chip
     piece, ``bench.py:1199``) through the full-width paged model's
     ``_paged_decode_attend`` on 4 slots at ragged offsets, with the
-    kernels (K1 on 256 query rows a head: two row blocks) against
-    ``use_kernels=False`` on its own cache, as phase 5's prefill logits."""
+    kernels (K1's chunk variant on 256 query rows a head: two 128-row
+    blocks) against ``use_kernels=False`` on its own cache, as phase 5's
+    prefill logits."""
     from pyspark_tf_gke_tpu_torch.models.causal_lm import CausalLM, PagedKV
     from pyspark_tf_gke_tpu_torch.ops import paged_attention as pa
 
@@ -1389,6 +1491,7 @@ def check_paged_piece(torch, dev, full_model):
                         device=dev)
     start = torch.tensor(starts, device=dev)[:, None]
     launches = pa.launches
+    chunks = pa.variant_launches["chunk"]
     for i in range(2):
         pos = start + i * piece + torch.arange(piece, device=dev)[None]
         chunk = ids[:, i * piece:(i + 1) * piece]
@@ -1406,12 +1509,15 @@ def check_paged_piece(torch, dev, full_model):
         check(max_abs <= 0.25 and rel <= 2e-2, "a 256-token paged piece "
               "through the kernels disagrees with plain")
     launched = pa.launches - launches
-    check(launched == 2 * cfg.num_layers,
-          f"K1 launched {launched} times for 2 pieces x {cfg.num_layers} "
-          "layers")
-    blocks = pa.row_plan(piece, cfg.num_heads, cfg.kv_heads, cfg.head_dim,
-                         cfg.kv_page_size)[1]
-    log(f"  K1 launched {launched} times (S = {piece}: {blocks} row blocks)")
+    chunked = pa.variant_launches["chunk"] - chunks
+    check(launched == chunked == 2 * cfg.num_layers,
+          f"K1 launched {launched} times ({chunked} on its chunk variant) "
+          f"for 2 pieces x {cfg.num_layers} layers")
+    kp = caches[0].pages(0)[0]
+    plan = pa.paged_plan(b, piece, cfg.num_heads, cfg.kv_heads, cfg.head_dim,
+                         cfg.kv_page_size, per_slot, cfg.dtype, kp.dtype)
+    log(f"  K1 launched {launched} times, all on its chunk variant (S = "
+        f"{piece}: {plan})")
     # K1 alone on one layer of the pieces' own cache: the second piece's
     # positions, a seeded query, against its plain version at phase 3's
     # tolerance (the logits above also carry the other kernels' rounding)
@@ -2087,9 +2193,14 @@ def check_resnet_variants(torch, dev, k5_counters):
 
 # the records' keys beyond the contract's that the kernels line carries
 EXTRA_KEYS = ("graph_ms", "library_graph_ms", "library_contiguous_ms",
-              "library_contiguous_graph_ms", "train_shape")
+              "library_contiguous_graph_ms", "train_shape", "decode_shape",
+              "full_pool", "piece", "launches_by_variant")
+# kernels (substrings of ptxas's entry names) that must not spill: the
+# tensor-core kernels and K1's decode variant and merge
+NO_SPILL = ("wgmma", "paged_decode", "paged_merge")
 # (name, source, the TPU kernel it replaces, design of its bf16
-# instantiation: "wgmma" on the tensor cores, "simt" on the CUDA cores)
+# instantiation: "wgmma" on the tensor cores, "simt" on the CUDA cores;
+# K1 by variant)
 KERNELS = (
     ("layernorm", "pyspark_tf_gke_tpu_torch/csrc/layernorm.cu",
      "pyspark_tf_gke_tpu/ops/pallas/layernorm.py:37", "simt"),
@@ -2104,7 +2215,8 @@ KERNELS = (
      "pyspark_tf_gke_tpu_torch/csrc/flash_attention_bwd.cu",
      "pyspark_tf_gke_tpu/ops/pallas/flash_attention.py:215", "wgmma"),
     ("paged_attention", "pyspark_tf_gke_tpu_torch/csrc/paged_attention.cu",
-     "pyspark_tf_gke_tpu/ops/pallas/paged_attention.py:124", "simt"),
+     "pyspark_tf_gke_tpu/ops/pallas/paged_attention.py:124",
+     "split-kv simt (decode), wgmma (chunk)"),
     ("fused_matmul_fwd", "pyspark_tf_gke_tpu_torch/csrc/fused_matmul.cu",
      "pyspark_tf_gke_tpu/ops/pallas/fused_matmul.py:91", "wgmma"),
     ("fused_matmul_dx", "pyspark_tf_gke_tpu_torch/csrc/fused_matmul.cu",
@@ -2163,8 +2275,9 @@ def main() -> int:
                 or "spill" in line:
             log(f"  ptxas: {line.strip()[:150]}")
     for fn, info in ptxas_report(kernels.build_log).items():
-        if "wgmma" in fn:  # the tensor-core kernels: none may spill
-            log(f"  ptxas wgmma {fn[:90]}: {info['used']}; spill stores "
+        # the tensor-core kernels and K1's decode variant: none may spill
+        if any(k in fn for k in NO_SPILL):
+            log(f"  ptxas {fn[:90]}: {info['used']}; spill stores "
                 f"{info['spill_stores']} B, spill loads "
                 f"{info['spill_loads']} B")
             check(info["spill_stores"] == 0 and info["spill_loads"] == 0,
@@ -2203,8 +2316,9 @@ def main() -> int:
     cfg = CausalLMConfig(kv_page_size=64, kv_num_pages=128)
     log("== 4. serving main path: BundleServer + HTTP, GPT-small paged, "
         "8 slots")
-    serve_launches, full_model = run_main_path(torch, dev, serve_counters,
-                                               cfg)
+    serve_launches, serve_variants, full_model = run_main_path(
+        torch, dev, serve_counters, cfg)
+    records["paged_attention"]["launches_by_variant"] = serve_variants
     log("== 4b. where the engine's time goes (torch.profiler)")
     profile_engine(torch, full_model)
     log("== 5. serving parity on the card")

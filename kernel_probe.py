@@ -4,8 +4,8 @@
 editing a ``.cu`` file, and for the experiments PERF.md reports.
 
     python3 kernel_probe.py check check_flash [check_fused_conv3 ...]
-        build the kernels, print the tensor-core kernels' ptxas lines,
-        run chip_smoke's check functions by name;
+        build the kernels, print the ptxas lines of the kernels that must
+        not spill and of K3b, run chip_smoke's check functions by name;
     python3 kernel_probe.py k5-accuracy
         bf16 K5f and its plain version against an f64 reference: y
         elements a bf16 rounding away from it, and the statistics;
@@ -60,7 +60,21 @@ editing a ``.cu`` file, and for the experiments PERF.md reports.
         bf16 K3 and K3b at [8192, D] (default D 768, 1024, 1280, 1600
         and 4096), with and without the residual, eager and replayed
         from a CUDA graph, beside F.layer_norm (after x + r for the
-        residual) and autograd's LayerNorm backward, with the bounds.
+        residual) and autograd's LayerNorm backward and
+        ``native_layer_norm_backward`` on the saved statistics, with the
+        bounds;
+    python3 kernel_probe.py paged-modes
+        bf16 K1 at the four shapes PERF.md reports (8 slots, H = H_kv =
+        12, 64-token pages: S = 1 at fills {0..1024}, at 716 each and at
+        1024 each; the 256-token piece at fills {0..1024}), eager and
+        replayed from a CUDA graph, beside SDPA over the gathered pages,
+        with the bounds; then, where the wrapper has a plan, the decode
+        variant at each pages-a-split and the decode and chunk variants
+        at chunk widths around the threshold;
+    python3 kernel_probe.py paged-accuracy
+        bf16 K1 and its plain version against an f64 reference at the
+        checked shape and the 256-token piece: output elements a bf16
+        rounding away from it.
 
 Each exits non-zero without a CUDA device.
 """
@@ -100,7 +114,7 @@ def check(torch, dev, names) -> None:
 
     kernels.library()
     for fn, info in cs.ptxas_report(kernels.build_log).items():
-        if "wgmma" in fn:
+        if any(k in fn for k in cs.NO_SPILL + ("ln_bwd",)):
             print("ptxas", fn[:100], info)
     for name in names:
         print(name, getattr(cs, name)(torch, dev))
@@ -613,13 +627,132 @@ def ln_widths(torch, dev, widths) -> None:
                   f"({fwd_bound[1]}); F.layer_norm eager "
                   f"{cs.cuda_ms(lib):.4f} graph {cs.graph_ms(lib):.4f}",
                   flush=True)
+            native = _native_ln_bwd(torch, x if res is None else x + r,
+                                    dy, w, b)
             print(f"K3b {tag}: eager {cs.cuda_ms(bwd):.4f} graph "
                   f"{cs.graph_ms(bwd):.4f} ms, bound {bwd_bound[0]:.4f} "
                   f"({bwd_bound[1]}); autograd LayerNorm backward eager "
-                  f"{cs.cuda_ms(lib_bwd):.4f}", flush=True)
+                  f"{cs.cuda_ms(lib_bwd):.4f}; native_layer_norm_backward "
+                  f"eager {cs.cuda_ms(native):.4f} graph "
+                  f"{cs.graph_ms(native):.4f}", flush=True)
             del y, xr
         del x, r, dy
     torch.cuda.empty_cache()
+
+
+def _native_ln_bwd(torch, x, dy, w, b):
+    """One PyTorch call computing K3b's function (the library yardstick,
+    never called by the port): ``native_layer_norm_backward`` on the
+    statistics ``native_layer_norm`` saves."""
+    d = x.shape[-1]
+    _, mean, rstd = torch.ops.aten.native_layer_norm(x, [d], w, b, 1e-5)
+    return lambda: torch.ops.aten.native_layer_norm_backward(
+        dy, x, [d], mean, rstd, w, b, [True, True, True])
+
+
+# The shapes PERF.md reports K1 at (8 slots of 16 pages of 64 tokens, H
+# = H_kv = 12, D = 64, bf16): (name, fills, S)
+PAGED_SHAPES = (("a: checked, S=1", None, 1),
+                ("b: serving decode, S=1", (716,) * 8, 1),
+                ("c: full pool, S=1", (1024,) * 8, 1),
+                ("d: 256-token piece", None, 256))
+
+
+def _paged_shape(torch, dev, fills, s, seed=11, hkv=12):
+    import chip_smoke as cs
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return cs._paged_case(torch, dev, g, torch.bfloat16, hkv, s, False,
+                          cs.PAGED_FILLS if fills is None else fills)
+
+
+def paged_modes(torch, dev) -> None:
+    import chip_smoke as cs
+    from pyspark_tf_gke_tpu_torch.ops import paged_attention as pa
+
+    _ptxas(("paged",))
+    planned = hasattr(pa, "paged_plan")
+    for name, fills, s in PAGED_SHAPES:
+        q, kp, vp, table, fills_t, _, _ = _paged_shape(torch, dev, fills, s)
+        kern = lambda: pa.paged_attention_chunk(  # noqa: E731
+            q, kp, vp, table, fills_t)
+        lib = lambda: cs._sdpa_over_gathered(  # noqa: E731
+            torch, q, kp, vp, table, fills_t)
+        bms, by = cs._paged_bound(q, kp, table, fills_t)
+        plan = (pa.paged_plan(*_plan_args(q, kp, table)) if planned
+                else None)
+        print(f"K1 {name}: eager {cs.cuda_ms(kern):.4f} graph "
+              f"{cs.graph_ms(kern):.4f} ms; SDPA over gathered pages eager "
+              f"{cs.cuda_ms(lib):.4f} graph {cs.graph_ms(lib):.4f}; bound "
+              f"{bms:.4f} ({by}); plan {plan}", flush=True)
+        if not planned:
+            continue
+        if s == 1:  # the decode variant at each split size
+            for pps in (1, 2, 3, 4, 6, 8, 16):
+                pl = pa.paged_plan(*_plan_args(q, kp, table),
+                                   pages_per_split=pps)
+                fn = lambda: pa._launch(  # noqa: E731
+                    q, kp, vp, table, fills_t, None, None, pl)
+                print(f"  decode pages_per_split={pps} ({pl.splits} "
+                      f"splits): graph {cs.graph_ms(fn):.4f} ms", flush=True)
+    if not planned:
+        return
+    # the decode/chunk threshold: both variants at widths around it
+    for hkv in (12, 4):
+        for s in (4, 8, 16, 32, 64, 128):
+            q, kp, vp, table, fills_t, _, _ = _paged_shape(
+                torch, dev, None, s, hkv=hkv)
+            times = []
+            for variant in ("decode", "chunk"):
+                pl = pa.paged_plan(*_plan_args(q, kp, table), variant=variant)
+                fn = lambda: pa._launch(  # noqa: E731
+                    q, kp, vp, table, fills_t, None, None, pl)
+                times.append(f"{variant} {cs.graph_ms(fn):.4f}")
+            print(f"  S={s} H_kv={hkv} (R={s * 12 // hkv}) graph: "
+                  f"{', '.join(times)} ms; plan "
+                  f"{pa.paged_plan(*_plan_args(q, kp, table)).variant}",
+                  flush=True)
+
+
+def _plan_args(q, kp, table):
+    b, s, h, d = q.shape
+    return (b, s, h, kp.shape[2], d, kp.shape[1], table.shape[1], q.dtype,
+            kp.dtype)
+
+
+def _paged_f64(torch, q, kp, vp, table, fills):
+    """The chunk reference in f64 (no rounding inside), rounded to bf16."""
+    n, p, hkv, d = kp.shape
+    b, s, h, _ = q.shape
+    g = h // hkv
+    safe = table.long().clamp(0, n - 1)
+    k = kp[safe].reshape(b, -1, hkv, d).double()
+    v = vp[safe].reshape(b, -1, hkv, d).double()
+    sc = torch.einsum("bqhgd,bkhd->bhgqk", q.double().reshape(b, s, hkv, g,
+                                                              d), k) * d ** -0.5
+    q_abs = fills.long()[:, None] - s + torch.arange(s, device=q.device)
+    valid = (torch.arange(k.shape[1], device=q.device)[None, None]
+             <= q_abs[:, :, None])
+    sc = sc.masked_fill(~valid[:, None, None], float("-inf"))
+    pr = torch.softmax(sc, -1).nan_to_num(0.0)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", pr, v).reshape(b, s, h, d)
+    return out.masked_fill((q_abs < 0)[:, :, None, None], 0.0).to(
+        torch.bfloat16).double()
+
+
+def paged_accuracy(torch, dev) -> None:
+    from pyspark_tf_gke_tpu_torch.ops import paged_attention as pa
+
+    for name, fills, s in (PAGED_SHAPES[0], PAGED_SHAPES[3]):
+        q, kp, vp, table, fills_t, _, _ = _paged_shape(torch, dev, fills, s)
+        kern = pa.paged_attention_chunk(q, kp, vp, table, fills_t).double()
+        plain = pa.paged_attention_chunk_plain(q, kp, vp, table,
+                                               fills_t).double()
+        ref = _paged_f64(torch, q, kp, vp, table, fills_t)
+        print(f"K1 {name}: elements off f64 by a bf16 rounding of "
+              f"{q.numel()}: kernel {int((kern != ref).sum())}, plain "
+              f"{int((plain != ref).sum())} (rel kernel {_rel(kern, ref):.2e}"
+              f", plain {_rel(plain, ref):.2e})", flush=True)
 
 
 def main(argv) -> int:
@@ -646,6 +779,8 @@ def main(argv) -> int:
                 "dkv-accuracy": lambda: _bwd_accuracy(torch, dev, "dkv"),
                 "dq-accuracy": lambda: _bwd_accuracy(torch, dev, "dq"),
                 "dkv-modes": lambda: dkv_modes(torch, dev),
+                "paged-modes": lambda: paged_modes(torch, dev),
+                "paged-accuracy": lambda: paged_accuracy(torch, dev),
                 "ln-widths": lambda: ln_widths(
                     torch, dev, [int(a) for a in argv[1:]])}
     if not argv or argv[0] not in commands:

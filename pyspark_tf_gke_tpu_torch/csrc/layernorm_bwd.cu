@@ -13,327 +13,464 @@
 //   dscale = sum over rows of g * xhat,  dbias = sum over rows of g.
 //
 // Bound on the H100: memory. x (and r), g are read once and dx written
-// once; ~20 f32 operations per element. The variant comes from
-// ops/layernorm.py ln_plan (its bwd_* fields), which the wrapper passes
-// and the entry point checks; both variants take D up to 8192.
+// once; ~17 f32 operations per element. At the LM's [8192, 768] bf16
+// that is 37.8 MB, 0.0113 ms at 3.35 TB/s.
 //
-// Narrow (D <= 1024): one warp per row, as the narrow forward: each lane
-// keeps its D/32 values of x and g in registers, and the row sums are
-// warp shuffles. A fixed grid of at most 256 blocks of 8 warps walks the
-// rows, and each lane also keeps its columns' running g * xhat and g
-// sums. The column sums need a reduction across rows, and blocks run in
-// no order, so: the 8 warps of a block add their partial sums into
-// shared memory in warp order, and each block writes one partial row.
+// One design for every width D from 1 to 8192 (the plan of
+// ops/layernorm.py ln_plan, its bwd_* fields, which the wrapper passes
+// and check_plan below recomputes):
+//  - 16-byte loads and stores (8 bf16 or 4 f32 a chunk) where D is a
+//    multiple of the chunk and every pointer is 16-byte aligned; else
+//    one element a load (the scalar variant).
+//  - A row belongs to `row_threads` threads: one warp while a lane holds
+//    at most 3 chunks in bf16 (D 768), 4 in f32 (D 512) or 8 elements
+//    scalar (D 256), else the fewest warps (a power of two) within those
+//    limits; a warp's row sums are shuffles, a row of several warps
+//    meets in shared memory in warp order. Each thread holds `kPer`
+//    chunks of its row, chunk c at column c * kVec, c = place + k *
+//    row_threads: the values a thread holds are sized by D (768 in bf16:
+//    3 chunks, 24 values a lane), a template constant. The limits keep a
+//    thread within 128 registers (at 4 bf16 chunks ptxas gave it 177, one
+//    256-thread CTA an SM, and it was 1.35x slower at D 1600; PERF.md).
+//  - x and g stay in registers as loaded (bf16 pairs) and xhat is
+//    recomputed from them in each pass; the f32 scale is re-read for each
+//    row from L1, 16 bytes at a time. Each thread keeps the running g *
+//    xhat and g sums of its columns in f32 registers across the rows it
+//    walks.
+//  - A row's loads (x, r, g) are all issued before its first reduction.
+//    A row of several warps (D > 768 in bf16) also has the next row in
+//    flight: each thread copies its chunks of the next row by cp.async
+//    into its own slots of a 2-row shared-memory stage while it computes
+//    this one (no registers, no barrier: a thread reads back only its
+//    own copies). Replayed from a CUDA graph on an H100 it was 6-15%
+//    faster at D 1280-4096 and 9-25% with the residual, and 12% slower
+//    at 768 (a row a warp), which loads directly (PERF.md).
+//  - A fixed grid of at most 256 CTAs (256 threads, or a row's threads
+//    if more) walks the rows: one wave on the card at two CTAs an SM
+//    (128 registers a thread).
 //
-// Wide (D > 1024): one CTA of 256 threads per row, a fixed grid of at
-// most 256 CTAs walking the rows. Thread t owns columns t + 256 k (k <
-// kPer, kPer = 8, 16 or 32 as D needs): it keeps that slice of the
-// row's x and g and of the running g * xhat and g sums in registers, and
-// the row sums meet in shared memory in warp order. Each thread owns its
-// columns for every row, so the CTA's partial row needs no shared
-// memory: each thread writes its own columns of it.
-//
-// Either way a second kernel sums the partial rows of each column in
-// block order. No atomics: the result does not depend on scheduling, and
-// the grid does not depend on the card.
+// The column sums need a reduction across rows, and blocks run in no
+// order, so each CTA writes one partial row (its row groups' sums added
+// in group order through shared memory, or from registers when a CTA
+// holds one row at a time), and a second kernel sums the partial rows of
+// each column in block order (sixteen strided runs a column, then those
+// sixteen in order). No atomics: the result does not depend on
+// scheduling, and the grid does not depend on the card.
 
 #include "common.cuh"
+#include "wgmma.cuh"
 
 using namespace port;
 
 namespace {
 
-constexpr int kWarps = 8;
-constexpr int kMaxPerLane = 32;  // narrow: D <= 32 * 32 = 1024
-constexpr int kNarrowD = 32 * kMaxPerLane;
-constexpr int kWideThreads = 256;  // wide: a CTA per row
-constexpr int kMaxD = 8192;        // wide: 32 columns a thread
-constexpr int kMaxBlocks = 256;  // kept in step with ops/layernorm.py
+constexpr int kMaxD = 8192;
+constexpr int kCtaThreads = 256;  // threads a CTA, or a row's threads if more
+constexpr int kMaxChunksBf16 = 3;  // 16-byte chunks a thread a row, bf16
+constexpr int kMaxChunksF32 = 4;   // and f32
+constexpr int kScalarPer = 8;      // elements a thread a row, the scalar variant
+constexpr int kMaxBlocks = 256;   // the fixed grid: one partial row a CTA
+constexpr int kReduceRuns = 16;   // strided runs a column in ln_bwd_reduce
 
-template <typename T, bool kResidual>
-__global__ void __launch_bounds__(kWarps * 32)
-ln_bwd_kernel(const T* __restrict__ x, const T* __restrict__ r,
-              const T* __restrict__ g, const float* __restrict__ scale,
-              T* __restrict__ dx, float* __restrict__ part_scale,
-              float* __restrict__ part_bias, int rows, int d, float eps) {
-  __shared__ float blk_scale[kNarrowD];
-  __shared__ float blk_bias[kNarrowD];
+// the most threads a CTA of each variant takes (ln_plan stays within
+// them at D <= kMaxD): chunks 512 (128 registers a thread), scalar 1024
+__host__ __device__ constexpr int max_threads(int vec) { return vec == 1 ? 1024 : 512; }
+
+template <typename T, int kVec>
+struct alignas(sizeof(T) * kVec) Chunk {
+  T e[kVec];
+};
+
+// Sum of v over the threads of a row: a warp shuffle, then, for a row
+// of several warps, the row's warps through `red` in warp order. Every
+// thread of the CTA calls it the same number of times (a barrier inside
+// when a row spans warps; warps_per_row is the same for the whole CTA).
+__device__ __forceinline__ float row_sum(float v, float* red, int warps_per_row) {
+  v = warp_sum(v);
+  if (warps_per_row == 1) return v;
   const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  for (int i = threadIdx.x; i < d; i += kWarps * 32) {
-    blk_scale[i] = 0.f;
-    blk_bias[i] = 0.f;
-  }
-  float ds[kMaxPerLane], db[kMaxPerLane];
+  if ((threadIdx.x & 31) == 0) red[warp] = v;
+  __syncthreads();
+  const int first = warp - warp % warps_per_row;
+  float s = 0.f;
+  for (int i = 0; i < warps_per_row; ++i) s += red[first + i];
+  return s;
+}
+
+// kVec f32 scale values of the chunk at column col, from L1
+template <int kVec>
+__device__ __forceinline__ void load_scale(const float* scale, int col, float (&sc)[kVec]) {
+  if constexpr (kVec == 1) {
+    sc[0] = __ldg(scale + col);
+  } else {
 #pragma unroll
-  for (int k = 0; k < kMaxPerLane; ++k) {
-    ds[k] = 0.f;
-    db[k] = 0.f;
+    for (int i = 0; i < kVec / 4; ++i) {
+      const float4 a = __ldg(reinterpret_cast<const float4*>(scale + col) + i);
+      sc[4 * i] = a.x;
+      sc[4 * i + 1] = a.y;
+      sc[4 * i + 2] = a.z;
+      sc[4 * i + 3] = a.w;
+    }
   }
+}
+
+// One row's 16-byte chunks of x, g (and r) for this thread, by cp.async
+// into its slots of staging buffer `buf`; chunks past the row or past
+// the last row arrive as zeros.
+template <typename T, int kVec, int kPer, int kStreams>
+__device__ __forceinline__ void stage_row(uint4* stage, int buf, const T* __restrict__ x,
+                                          const T* __restrict__ g, const T* __restrict__ r,
+                                          long long row, bool live, int place, int row_threads,
+                                          int d) {
+#pragma unroll
+  for (int k = 0; k < kPer; ++k) {
+    const int col = (place + k * row_threads) * kVec;
+    const bool ok = live && col < d;
+#pragma unroll
+    for (int s = 0; s < kStreams; ++s) {
+      const T* base = s == 0 ? x : (s == 1 ? g : r);
+      uint4* dst = stage + ((buf * kStreams + s) * kPer + k) * blockDim.x + threadIdx.x;
+      hopper::cp_async16(hopper::smem_u32(dst), ok ? base + row * d + col : base, ok ? 16 : 0);
+    }
+  }
+}
+
+template <typename T, int kVec, int kPer, bool kResidual, bool kStaged>
+__global__ void __launch_bounds__(max_threads(kVec))
+ln_bwd_kernel(const T* __restrict__ x, const T* __restrict__ r, const T* __restrict__ g,
+              const float* __restrict__ scale, T* __restrict__ dx,
+              float* __restrict__ part_scale, float* __restrict__ part_bias, int rows, int d,
+              int row_threads, float eps) {
+  using C = Chunk<T, kVec>;
+  constexpr int kN = kPer * kVec;
+  // four row sums a row, each its own buffer: a buffer is written again
+  // only after a later barrier that every reader of it has passed
+  __shared__ float red[4][32];
+  static_assert(!kStaged || kVec > 1, "staging copies 16-byte chunks");
+  constexpr int kStreams = kResidual ? 3 : 2;
+  extern __shared__ __align__(16) unsigned char dyn[];
+  uint4* stage = reinterpret_cast<uint4*>(dyn);  // [2][kStreams][kPer][threads]
+  float* blk = reinterpret_cast<float*>(           // [2][d]: the partial row
+      dyn + (kStaged ? 2 * kStreams * kPer * blockDim.x * 16 : 0));
+  const int place = threadIdx.x % row_threads;
+  const int group = threadIdx.x / row_threads;
+  const int groups = blockDim.x / row_threads;  // rows a CTA has in flight
+  const int warps_per_row = row_threads >> 5;
   const float fd = static_cast<float>(d);
-  const long long stride = static_cast<long long>(gridDim.x) * kWarps;
-  for (long long row = static_cast<long long>(blockIdx.x) * kWarps + warp; row < rows;
-       row += stride) {
-    const T* xr = x + row * d;
-    const T* gr = g + row * d;
-    float xv[kMaxPerLane], gv[kMaxPerLane];
+
+  float ds[kN], db[kN];
+#pragma unroll
+  for (int i = 0; i < kN; ++i) {
+    ds[i] = 0.f;
+    db[i] = 0.f;
+  }
+  // every thread of the CTA walks the same row groups, so the row
+  // reductions' barriers line up; a group past the last row only takes
+  // part in them
+  const long long first = static_cast<long long>(blockIdx.x) * groups;
+  const long long stride = static_cast<long long>(gridDim.x) * groups;
+  if constexpr (kStaged) {
+    if (first < rows) {
+      stage_row<T, kVec, kPer, kStreams>(stage, 0, x, g, r, first + group,
+                                         first + group < rows, place, row_threads, d);
+    }
+    hopper::cp_async_commit();
+  }
+  int it = 0;
+  for (long long base = first; base < rows; base += stride, ++it) {
+    const long long row = base + group;
+    const bool live = row < rows;
+    C cx[kPer], cg[kPer];
+    if constexpr (kStaged) {  // the next row in flight while this one is computed
+      const long long next = base + stride;
+      if (next < rows) {
+        stage_row<T, kVec, kPer, kStreams>(stage, (it + 1) & 1, x, g, r, next + group,
+                                           next + group < rows, place, row_threads, d);
+      }
+      hopper::cp_async_commit();
+      hopper::cp_async_wait<1>();  // this thread's copies of this row have landed
+      const int buf = it & 1;
+#pragma unroll
+      for (int k = 0; k < kPer; ++k) {
+        const uint4* slot = stage + ((buf * kStreams) * kPer + k) * blockDim.x + threadIdx.x;
+        cx[k] = *reinterpret_cast<const C*>(slot);
+        cg[k] = *reinterpret_cast<const C*>(slot + kPer * blockDim.x);
+        if constexpr (kResidual) {
+          const C cr = *reinterpret_cast<const C*>(slot + 2 * kPer * blockDim.x);
+#pragma unroll
+          for (int e = 0; e < kVec; ++e)  // x + r rounded to x's dtype
+            cx[k].e[e] = from_f32<T>(to_f32(cx[k].e[e]) + to_f32(cr.e[e]));
+        }
+      }
+    } else {
+#pragma unroll
+    for (int k = 0; k < kPer; ++k) {  // the whole row in flight
+      const int col = (place + k * row_threads) * kVec;
+      if (live && col < d) {
+        cx[k] = *reinterpret_cast<const C*>(x + row * d + col);
+        cg[k] = *reinterpret_cast<const C*>(g + row * d + col);
+        if constexpr (kResidual) {
+          const C cr = *reinterpret_cast<const C*>(r + row * d + col);
+#pragma unroll
+          for (int e = 0; e < kVec; ++e)  // x + r rounded to x's dtype
+            cx[k].e[e] = from_f32<T>(to_f32(cx[k].e[e]) + to_f32(cr.e[e]));
+        }
+      } else {
+#pragma unroll
+        for (int e = 0; e < kVec; ++e) {
+          cx[k].e[e] = from_f32<T>(0.f);
+          cg[k].e[e] = from_f32<T>(0.f);
+        }
+      }
+    }
+    }
     float sum = 0.f;
 #pragma unroll
-    for (int k = 0; k < kMaxPerLane; ++k) {
-      const int i = lane + 32 * k;
-      float a = 0.f, gg = 0.f;
-      if (i < d) {
-        a = to_f32(xr[i]);
-        if (kResidual) a = round_through<T>(a + to_f32(r[row * d + i]));
-        gg = to_f32(gr[i]);
-      }
-      xv[k] = a;
-      gv[k] = gg;
-      sum += a;
+    for (int k = 0; k < kPer; ++k) {
+#pragma unroll
+      for (int e = 0; e < kVec; ++e) sum += to_f32(cx[k].e[e]);
     }
-    const float mean = warp_sum(sum) / fd;
+    const float mean = row_sum(sum, red[0], warps_per_row) / fd;
     float sq = 0.f;
 #pragma unroll
-    for (int k = 0; k < kMaxPerLane; ++k) {
-      if (lane + 32 * k < d) {
-        const float c = xv[k] - mean;
-        xv[k] = c;
-        sq += c * c;
+    for (int k = 0; k < kPer; ++k) {
+      if ((place + k * row_threads) * kVec < d) {
+#pragma unroll
+        for (int e = 0; e < kVec; ++e) {
+          const float c = to_f32(cx[k].e[e]) - mean;
+          sq += c * c;
+        }
       }
     }
-    const float inv = rsqrtf(warp_sum(sq) / fd + eps);
+    const float inv = rsqrtf(row_sum(sq, red[1], warps_per_row) / fd + eps);
     float sum_gs = 0.f, sum_gsx = 0.f;
 #pragma unroll
-    for (int k = 0; k < kMaxPerLane; ++k) {
-      const int i = lane + 32 * k;
-      if (i < d) {
-        const float xhat = xv[k] * inv;
-        const float gs = gv[k] * scale[i];
-        xv[k] = xhat;
-        sum_gs += gs;
-        sum_gsx += gs * xhat;
-        ds[k] += gv[k] * xhat;
-        db[k] += gv[k];
+    for (int k = 0; k < kPer; ++k) {
+      const int col = (place + k * row_threads) * kVec;
+      if (col < d) {
+        float sc[kVec];
+        load_scale<kVec>(scale, col, sc);
+#pragma unroll
+        for (int e = 0; e < kVec; ++e) {
+          const float xhat = (to_f32(cx[k].e[e]) - mean) * inv;
+          const float gg = to_f32(cg[k].e[e]);
+          const float gs = gg * sc[e];
+          sum_gs += gs;
+          sum_gsx += gs * xhat;
+          ds[k * kVec + e] += gg * xhat;
+          db[k * kVec + e] += gg;
+        }
       }
     }
-    sum_gs = warp_sum(sum_gs);
-    sum_gsx = warp_sum(sum_gsx);
+    sum_gs = row_sum(sum_gs, red[2], warps_per_row);
+    sum_gsx = row_sum(sum_gsx, red[3], warps_per_row);
     const float f = inv / fd;
-    T* dxr = dx + row * d;
 #pragma unroll
-    for (int k = 0; k < kMaxPerLane; ++k) {
-      const int i = lane + 32 * k;
-      if (i < d) {
-        const float gs = gv[k] * scale[i];
-        dxr[i] = from_f32<T>(f * (fd * gs - sum_gs - xv[k] * sum_gsx));
+    for (int k = 0; k < kPer; ++k) {
+      const int col = (place + k * row_threads) * kVec;
+      if (live && col < d) {
+        float sc[kVec];
+        load_scale<kVec>(scale, col, sc);
+        C out;
+#pragma unroll
+        for (int e = 0; e < kVec; ++e) {
+          const float xhat = (to_f32(cx[k].e[e]) - mean) * inv;
+          const float gs = to_f32(cg[k].e[e]) * sc[e];
+          out.e[e] = from_f32<T>(f * (fd * gs - sum_gs - xhat * sum_gsx));
+        }
+        *reinterpret_cast<C*>(dx + row * d + col) = out;
       }
     }
   }
-  __syncthreads();  // the zeroed block sums are visible
-  for (int w = 0; w < kWarps; ++w) {  // warp order: deterministic
-    if (warp == w) {
+
+  if constexpr (kStaged) hopper::cp_async_wait<0>();
+  float* ps = part_scale + static_cast<long long>(blockIdx.x) * d;
+  float* pb = part_bias + static_cast<long long>(blockIdx.x) * d;
+  if (groups == 1) {  // one row at a time: each thread writes its own columns
 #pragma unroll
-      for (int k = 0; k < kMaxPerLane; ++k) {
-        const int i = lane + 32 * k;
-        if (i < d) {
-          blk_scale[i] += ds[k];
-          blk_bias[i] += db[k];
+    for (int k = 0; k < kPer; ++k) {
+#pragma unroll
+      for (int e = 0; e < kVec; ++e) {
+        const int col = (place + k * row_threads) * kVec + e;
+        if (col < d) {
+          ps[col] = ds[k * kVec + e];
+          pb[col] = db[k * kVec + e];
+        }
+      }
+    }
+    return;
+  }
+  for (int i = threadIdx.x; i < 2 * d; i += blockDim.x) blk[i] = 0.f;
+  __syncthreads();
+  for (int gi = 0; gi < groups; ++gi) {  // group order: deterministic
+    if (group == gi) {
+#pragma unroll
+      for (int k = 0; k < kPer; ++k) {
+#pragma unroll
+        for (int e = 0; e < kVec; ++e) {
+          const int col = (place + k * row_threads) * kVec + e;
+          if (col < d) {
+            blk[col] += ds[k * kVec + e];
+            blk[d + col] += db[k * kVec + e];
+          }
         }
       }
     }
     __syncthreads();
   }
-  for (int i = threadIdx.x; i < d; i += kWarps * 32) {
-    part_scale[static_cast<long long>(blockIdx.x) * d + i] = blk_scale[i];
-    part_bias[static_cast<long long>(blockIdx.x) * d + i] = blk_bias[i];
+  for (int i = threadIdx.x; i < d; i += blockDim.x) {
+    ps[i] = blk[i];
+    pb[i] = blk[d + i];
   }
 }
 
-// Sum of v over the CTA's threads (the wide variant: one row a CTA),
-// through `red` in warp order. Every thread calls it the same number of
-// times.
-__device__ __forceinline__ float cta_sum(float v, float* red) {
-  v = warp_sum(v);
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
-  __syncthreads();
-  float s = 0.f;
-#pragma unroll
-  for (int w = 0; w < kWideThreads / 32; ++w) s += red[w];
-  return s;
-}
-
-template <typename T, bool kResidual, int kPer>
-__global__ void __launch_bounds__(kWideThreads)
-ln_bwd_wide_kernel(const T* __restrict__ x, const T* __restrict__ r,
-                   const T* __restrict__ g, const float* __restrict__ scale,
-                   T* __restrict__ dx, float* __restrict__ part_scale,
-                   float* __restrict__ part_bias, int rows, int d, float eps) {
-  // four row sums a row, each its own buffer: a buffer is written again
-  // only after a later barrier that every reader of it has passed
-  __shared__ float red[4][kWideThreads / 32];
-  const int t = threadIdx.x;
-  float ds[kPer], db[kPer];
-#pragma unroll
-  for (int k = 0; k < kPer; ++k) {
-    ds[k] = 0.f;
-    db[k] = 0.f;
-  }
-  const float fd = static_cast<float>(d);
-  for (long long row = blockIdx.x; row < rows; row += gridDim.x) {
-    const T* xr = x + row * d;
-    const T* gr = g + row * d;
-    float xv[kPer], gv[kPer];
-    float sum = 0.f;
-#pragma unroll
-    for (int k = 0; k < kPer; ++k) {
-      const int i = t + kWideThreads * k;
-      float a = 0.f, gg = 0.f;
-      if (i < d) {
-        a = to_f32(xr[i]);
-        if (kResidual) a = round_through<T>(a + to_f32(r[row * d + i]));
-        gg = to_f32(gr[i]);
-      }
-      xv[k] = a;
-      gv[k] = gg;
-      sum += a;
-    }
-    const float mean = cta_sum(sum, red[0]) / fd;
-    float sq = 0.f;
-#pragma unroll
-    for (int k = 0; k < kPer; ++k) {
-      if (t + kWideThreads * k < d) {
-        const float c = xv[k] - mean;
-        xv[k] = c;
-        sq += c * c;
-      }
-    }
-    const float inv = rsqrtf(cta_sum(sq, red[1]) / fd + eps);
-    float sum_gs = 0.f, sum_gsx = 0.f;
-#pragma unroll
-    for (int k = 0; k < kPer; ++k) {
-      const int i = t + kWideThreads * k;
-      if (i < d) {
-        const float xhat = xv[k] * inv;
-        const float gs = gv[k] * scale[i];
-        xv[k] = xhat;
-        sum_gs += gs;
-        sum_gsx += gs * xhat;
-        ds[k] += gv[k] * xhat;
-        db[k] += gv[k];
-      }
-    }
-    sum_gs = cta_sum(sum_gs, red[2]);
-    sum_gsx = cta_sum(sum_gsx, red[3]);
-    const float f = inv / fd;
-    T* dxr = dx + row * d;
-#pragma unroll
-    for (int k = 0; k < kPer; ++k) {
-      const int i = t + kWideThreads * k;
-      if (i < d) dxr[i] = from_f32<T>(f * (fd * (gv[k] * scale[i]) - sum_gs - xv[k] * sum_gsx));
-    }
-  }
-#pragma unroll
-  for (int k = 0; k < kPer; ++k) {
-    const int i = t + kWideThreads * k;
-    if (i < d) {
-      part_scale[static_cast<long long>(blockIdx.x) * d + i] = ds[k];
-      part_bias[static_cast<long long>(blockIdx.x) * d + i] = db[k];
-    }
-  }
-}
-
-// Column sums of the [nparts, d] partial rows, in row order.
-__global__ void ln_bwd_reduce(const float* __restrict__ part_scale,
-                              const float* __restrict__ part_bias, int nparts,
-                              int d, float* __restrict__ dscale,
-                              float* __restrict__ dbias) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= d) return;
+// Column sums of the [nparts, d] partial rows: a CTA takes 32 columns;
+// its warp k sums the rows k, k + 16, ... in order, then the sixteen
+// runs are added in run order. Coalesced, and the same order on any
+// card.
+__global__ void __launch_bounds__(32 * kReduceRuns)
+ln_bwd_reduce(const float* __restrict__ part_scale, const float* __restrict__ part_bias,
+              int nparts, int d, float* __restrict__ dscale, float* __restrict__ dbias) {
+  __shared__ float red[2][kReduceRuns][32];
+  const int c = threadIdx.x & 31, k = threadIdx.x >> 5;
+  const int col = blockIdx.x * 32 + c;
   float s = 0.f, b = 0.f;
-  for (int p = 0; p < nparts; ++p) {
-    s += part_scale[static_cast<long long>(p) * d + i];
-    b += part_bias[static_cast<long long>(p) * d + i];
+  if (col < d) {
+#pragma unroll 4
+    for (int p = k; p < nparts; p += kReduceRuns) {
+      s += part_scale[static_cast<long long>(p) * d + col];
+      b += part_bias[static_cast<long long>(p) * d + col];
+    }
   }
-  dscale[i] = s;
-  dbias[i] = b;
+  red[0][k][c] = s;
+  red[1][k][c] = b;
+  __syncthreads();
+  if (k == 0 && col < d) {
+    float ts = 0.f, tb = 0.f;
+#pragma unroll
+    for (int i = 0; i < kReduceRuns; ++i) {
+      ts += red[0][i][c];
+      tb += red[1][i][c];
+    }
+    dscale[col] = ts;
+    dbias[col] = tb;
+  }
 }
 
-template <typename T, bool kResidual>
-void launch_rows(const T* x, const T* r, const T* g, const float* scale, T* dx,
+template <typename T, int kVec, int kPer, bool kStaged>
+void launch_rows(const void* x, const void* r, const void* g, const void* scale, void* dx,
                  float* part_scale, float* part_bias, int rows, int d, int nparts,
-                 int per, float eps, cudaStream_t stream) {
-  switch (per) {
-    case 8: ln_bwd_wide_kernel<T, kResidual, 8><<<nparts, kWideThreads, 0, stream>>>(
-        x, r, g, scale, dx, part_scale, part_bias, rows, d, eps); break;
-    case 16: ln_bwd_wide_kernel<T, kResidual, 16><<<nparts, kWideThreads, 0, stream>>>(
-        x, r, g, scale, dx, part_scale, part_bias, rows, d, eps); break;
-    case 32: ln_bwd_wide_kernel<T, kResidual, 32><<<nparts, kWideThreads, 0, stream>>>(
-        x, r, g, scale, dx, part_scale, part_bias, rows, d, eps); break;
-    default:  // the narrow variant (check_plan: per 32 a lane)
-      ln_bwd_kernel<T, kResidual><<<nparts, kWarps * 32, 0, stream>>>(
-          x, r, g, scale, dx, part_scale, part_bias, rows, d, eps);
-  }
-}
-
-// per: the wide variant's columns a thread, or 0 for the narrow variant
-template <typename T>
-void launch(const void* x, const void* r, const void* g, const void* scale, void* dx,
-            void* part_scale, void* part_bias, void* dscale, void* dbias, int rows,
-            int d, int nparts, int per, float eps, cudaStream_t stream) {
+                 int row_threads, int threads, float eps, cudaStream_t stream) {
+  // the staging buffers, then the partial row when a CTA holds several
+  // rows (row_threads <= 128)
+  const size_t staged = kStaged ? 2 * (r != nullptr ? 3 : 2) * kPer * threads * 16 : 0;
+  const size_t smem = staged + (threads > row_threads ? 2 * sizeof(float) * d : 0);
   if (r != nullptr) {
-    launch_rows<T, true>(static_cast<const T*>(x), static_cast<const T*>(r),
-                         static_cast<const T*>(g), static_cast<const float*>(scale),
-                         static_cast<T*>(dx), static_cast<float*>(part_scale),
-                         static_cast<float*>(part_bias), rows, d, nparts, per, eps, stream);
+    cudaFuncSetAttribute(ln_bwd_kernel<T, kVec, kPer, true, kStaged>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    ln_bwd_kernel<T, kVec, kPer, true, kStaged><<<nparts, threads, smem, stream>>>(
+        static_cast<const T*>(x), static_cast<const T*>(r), static_cast<const T*>(g),
+        static_cast<const float*>(scale), static_cast<T*>(dx), part_scale, part_bias, rows, d,
+        row_threads, eps);
   } else {
-    launch_rows<T, false>(static_cast<const T*>(x), nullptr, static_cast<const T*>(g),
-                          static_cast<const float*>(scale), static_cast<T*>(dx),
-                          static_cast<float*>(part_scale), static_cast<float*>(part_bias),
-                          rows, d, nparts, per, eps, stream);
+    cudaFuncSetAttribute(ln_bwd_kernel<T, kVec, kPer, false, kStaged>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    ln_bwd_kernel<T, kVec, kPer, false, kStaged><<<nparts, threads, smem, stream>>>(
+        static_cast<const T*>(x), nullptr, static_cast<const T*>(g),
+        static_cast<const float*>(scale), static_cast<T*>(dx), part_scale, part_bias, rows, d,
+        row_threads, eps);
   }
-  ln_bwd_reduce<<<(d + 255) / 256, 256, 0, stream>>>(
-      static_cast<const float*>(part_scale), static_cast<const float*>(part_bias),
-      nparts, d, static_cast<float*>(dscale), static_cast<float*>(dbias));
 }
 
-// ln_plan's backward fields (ops/layernorm.py): 32 values a lane and a
-// warp a row up to D 1024, else 8, 16 or 32 columns a thread of a
-// 256-thread CTA a row. Returns the wide variant's columns a thread (0:
-// the narrow variant), or -1 if (per, row_threads) is not the plan.
-int check_plan(int d, int per, int row_threads) {
-  if (d <= kNarrowD) return per == kMaxPerLane && row_threads == 32 ? 0 : -1;
-  const int want = d <= 8 * kWideThreads ? 8 : d <= 16 * kWideThreads ? 16 : 32;
-  return per == want && row_threads == kWideThreads ? want : -1;
+template <typename T>
+int launch(const void* x, const void* r, const void* g, const void* scale, void* dx,
+           void* part_scale, void* part_bias, void* dscale, void* dbias, int rows, int d,
+           int nparts, int vec, int per, int row_threads, int threads, float eps,
+           cudaStream_t stream) {
+  constexpr int kChunk = 16 / sizeof(T);
+  float* ps = static_cast<float*>(part_scale);
+  float* pb = static_cast<float*>(part_bias);
+  // a row of one warp loads directly; a row of several warps brings the
+  // next row by cp.async while it computes this one
+  const bool staged = row_threads > 32;
+#define PORT_ROWS(V, P, ST) \
+  launch_rows<T, V, P, ST>(x, r, g, scale, dx, ps, pb, rows, d, nparts, row_threads, threads, eps, stream)
+  if (vec == 1) {
+    PORT_ROWS(1, kScalarPer, false);
+  } else {
+    switch (per) {
+      case 1: PORT_ROWS(kChunk, 1, false); break;  // one warp a row (ln_plan)
+      case 2: staged ? PORT_ROWS(kChunk, 2, true) : PORT_ROWS(kChunk, 2, false); break;
+      case 3: staged ? PORT_ROWS(kChunk, 3, true) : PORT_ROWS(kChunk, 3, false); break;
+      case 4:  // f32 only (bf16 takes at most 3 chunks a thread)
+        if constexpr (kChunk == 4) {
+          staged ? PORT_ROWS(kChunk, 4, true) : PORT_ROWS(kChunk, 4, false);
+          break;
+        }
+        return static_cast<int>(cudaErrorInvalidValue);
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+  }
+#undef PORT_ROWS
+  ln_bwd_reduce<<<(d + 31) / 32, 32 * kReduceRuns, 0, stream>>>(
+      ps, pb, nparts, d, static_cast<float*>(dscale), static_cast<float*>(dbias));
+  return 0;
 }
+
+// ln_plan's backward fields (ops/layernorm.py) for width d with chunks of
+// vec elements (chunk: the dtype's 16-byte chunk). Returns 0 if (vec,
+// per, row_threads, threads) is that plan.
+int check_plan(int d, int vec, int per, int row_threads, int threads, int chunk) {
+  if (vec != 1 && vec != chunk) return static_cast<int>(cudaErrorInvalidValue);
+  const int max_per = vec == 1 ? kScalarPer : vec == 8 ? kMaxChunksBf16 : kMaxChunksF32;
+  const int n = (d + vec - 1) / vec;  // chunks a row
+  int rt = 32;
+  while (rt * max_per < n) rt *= 2;
+  const int want = vec == 1 ? kScalarPer : (n + rt - 1) / rt;
+  const int cta = rt > kCtaThreads ? rt : kCtaThreads;
+  const bool ok = per == want && row_threads == rt && threads == cta &&
+                  threads <= max_threads(vec);
+  return ok ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 
 }  // namespace
 
-// part_scale/part_bias: f32 scratch [nparts, d]; per and row_threads:
-// ln_plan's bwd_per and bwd_row_threads; nparts must be min(256,
-// ceil(rows / (256 / row_threads))): 8 rows a part narrow, 1 wide (the
-// wrapper's figure).
+// part_scale/part_bias: f32 scratch [nparts, d]; vec, per, row_threads,
+// threads: ln_plan's bwd_vec, bwd_per, bwd_row_threads, bwd_threads;
+// nparts must be min(256, ceil(rows / (threads / row_threads))) (the
+// wrapper's figure). The chunked variant (vec > 1) needs d a multiple of
+// vec and x, r, g, scale and dx 16-byte aligned.
 extern "C" int port_layernorm_bwd(const void* x, const void* r, const void* g,
                                   const void* scale, void* dx, void* part_scale,
                                   void* part_bias, void* dscale, void* dbias,
-                                  int rows, int d, int nparts, int per, int row_threads,
-                                  float eps, int dtype, int device, void* stream) {
+                                  int rows, int d, int nparts, int vec, int per,
+                                  int row_threads, int threads, float eps, int dtype,
+                                  int device, void* stream) {
   // this library links its own CUDA runtime: select the caller's
   // device in it before launching on the caller's stream
   if (cudaSetDevice(device) != cudaSuccess) return static_cast<int>(cudaGetLastError());
   if (rows <= 0) return 0;
   if (d <= 0 || d > kMaxD) return static_cast<int>(cudaErrorInvalidValue);
-  const int wide = check_plan(d, per, row_threads);
-  if (wide < 0) return static_cast<int>(cudaErrorInvalidValue);
-  const int rows_a_part = wide ? 1 : kWarps;
-  const int want = (rows + rows_a_part - 1) / rows_a_part;
+  const int chunk = dtype == kF32 ? 4 : 8;
+  if (int rc = check_plan(d, vec, per, row_threads, threads, chunk)) return rc;
+  if (vec > 1 && (d % vec != 0 || !aligned16(x) || !aligned16(g) || !aligned16(scale) ||
+                  !aligned16(dx) || (r != nullptr && !aligned16(r)))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int groups = threads / row_threads;
+  const int want = (rows + groups - 1) / groups;
   if (nparts != (want < kMaxBlocks ? want : kMaxBlocks)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int rc;
   switch (dtype) {
-    case kF32: launch<float>(x, r, g, scale, dx, part_scale, part_bias, dscale, dbias, rows, d, nparts, wide, eps, s); break;
-    case kBF16: launch<__nv_bfloat16>(x, r, g, scale, dx, part_scale, part_bias, dscale, dbias, rows, d, nparts, wide, eps, s); break;
+    case kF32: rc = launch<float>(x, r, g, scale, dx, part_scale, part_bias, dscale, dbias, rows, d, nparts, vec, per, row_threads, threads, eps, s); break;
+    case kBF16: rc = launch<__nv_bfloat16>(x, r, g, scale, dx, part_scale, part_bias, dscale, dbias, rows, d, nparts, vec, per, row_threads, threads, eps, s); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+  if (rc != 0) return rc;
   return static_cast<int>(cudaGetLastError());
 }

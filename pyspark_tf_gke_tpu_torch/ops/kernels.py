@@ -52,8 +52,8 @@ SIGNATURES = {
     "port_layernorm": [_P] * 5 + [_I, _I, _F] + [_I] * 6 + [_P],
     "port_flash_attention_fwd": ([_P] * 7 + [_I] * 4 + [_L] * 9
                                  + [_I, _F, _I, _I, _P]),
-    "port_paged_attention": [_P] * 8 + [_I] * 9 + [_F, _I, _I, _I, _P],
-    "port_layernorm_bwd": [_P] * 9 + [_I] * 5 + [_F, _I, _I, _P],
+    "port_paged_attention": [_P] * 9 + [_I] * 13 + [_F, _I, _I, _I, _P],
+    "port_layernorm_bwd": [_P] * 9 + [_I] * 7 + [_F, _I, _I, _P],
     "port_flash_attention_dq": ([_P] * 9 + [_I] * 4 + [_L] * 12
                                 + [_I, _F, _I, _I, _P]),
     "port_flash_attention_dkv": ([_P] * 10 + [_I] * 4 + [_L] * 12

@@ -16,7 +16,11 @@ compute in f32, or in f64 for f64 inputs (``gradcheck``).
 Both kernels take any row width ``0 < D <= MAX_D`` (8192); the JAX
 kernel takes any D. :func:`ln_plan` chooses each one's variant and launch
 shape from D, the dtype and the pointers' alignment; the wrappers pass
-it to the kernels, which check it.
+it to the kernels, which check it. K3 keeps its first design (a warp a
+row) up to D 1024; K3b has one design for every D: 16-byte loads where
+D and the pointers allow, a row on the fewest warps at which a thread
+holds at most 3 chunks in bf16, 4 in f32 (8 elements with scalar
+loads), the values a thread holds sized by D.
 """
 
 from __future__ import annotations
@@ -28,18 +32,21 @@ import torch
 from pyspark_tf_gke_tpu_torch.ops import kernels
 
 MAX_D = 8192  # the widest row csrc/layernorm*.cu take
-# Up to NARROW_D both kernels take a warp a row, 32 values a lane (K3 4
-# rows a block, K3b 8). Beyond, K3 (csrc/layernorm.cu) takes at most
-# MAX_VEC_PER 16-byte chunks a thread, or SCALAR_PER elements in the
-# scalar variant, in CTAs of CTA_THREADS (or a row's threads, if more),
-# and K3b (csrc/layernorm_bwd.cu) a CTA of BWD_CTA_THREADS a row, 8, 16
-# or 32 columns a thread.
+# Up to NARROW_D K3 takes a warp a row, 32 values a lane, 4 rows a
+# block. Beyond, K3 (csrc/layernorm.cu) takes at most MAX_VEC_PER
+# 16-byte chunks a thread, or SCALAR_PER elements in the scalar variant,
+# in CTAs of CTA_THREADS (or a row's threads, if more). K3b
+# (csrc/layernorm_bwd.cu) takes that rule at every D: at most
+# BWD_MAX_CHUNKS[bytes an element] chunks or BWD_SCALAR_PER elements a
+# thread (within 128 registers), CTAs of BWD_CTA_THREADS (or a row's
+# threads), on a fixed grid of at most BWD_MAX_BLOCKS CTAs.
 NARROW_D = 1024
 MAX_VEC_PER = 4
 SCALAR_PER = 8
 CTA_THREADS = 256
+BWD_MAX_CHUNKS = {2: 3, 4: 4}  # bf16: 3 chunks a thread, f32: 4
+BWD_SCALAR_PER = 8
 BWD_CTA_THREADS = 256
-BWD_WIDE_PERS = (8, 16, 32)
 BWD_MAX_BLOCKS = 256  # K3b's fixed grid: one partial-sum row per block
 
 launches = 0  # K3 launches since the last reset (chip_smoke reads it)
@@ -96,45 +103,58 @@ class LnPlan(NamedTuple):
     per: int  # K3: loads a thread makes of a row
     row_threads: int  # K3: threads a row (> 32: a block reduction)
     threads: int  # K3: threads a CTA
-    bwd_per: int  # K3b: values a thread holds of a row
-    bwd_row_threads: int  # K3b: threads a row: a warp (narrow) or a CTA
+    bwd_vec: int  # K3b: elements a load
+    bwd_per: int  # K3b: loads a thread makes of a row
+    bwd_row_threads: int  # K3b: threads a row
+    bwd_threads: int  # K3b: threads a CTA
 
     @property
     def bwd_rows_a_part(self) -> int:
         """Rows a K3b CTA has in flight, one partial-sum row a CTA."""
-        return BWD_CTA_THREADS // self.bwd_row_threads
+        return self.bwd_threads // self.bwd_row_threads
 
 
 def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def ln_plan(d: int, dtype: torch.dtype, aligned: bool = True) -> LnPlan:
-    """K3's and K3b's variant and launch shape for rows of ``d`` elements
-    of ``dtype`` (``aligned``: every tensor K3 touches starts on 16
-    bytes). Up to 1024 both keep their first design, a warp a row (32
-    values a lane). Beyond, K3 reads 16-byte chunks where ``d`` is a
-    multiple of one and ``aligned``, else one element at a time (the
-    scalar variant), and a row belongs to the fewest threads (a power of
-    two) that cover it with at most 4 chunks or 8 elements each; K3b
-    takes a 256-thread CTA a row, 8, 16 or 32 columns a thread. Raises
-    for ``d`` outside ``0 < d <= MAX_D``."""
-    if not 0 < d <= MAX_D:
-        raise ValueError(f"the layernorm kernels take 0 < D <= {MAX_D}, got "
-                         f"{d}")
-    if d <= NARROW_D:
-        return LnPlan(1, 32, 32, 128, 32, 32)
-    chunk = 16 // (torch.finfo(dtype).bits // 8)
+def _rows_plan(d: int, chunk: int, aligned: bool, most_vec: int,
+               scalar_per: int, cta: int) -> Tuple[int, int, int, int]:
+    """``(vec, per, row_threads, threads)``: 16-byte chunks of ``chunk``
+    elements where ``d`` is a multiple of one and ``aligned``, else one
+    element a load; a row on the fewest threads (a power of two, at least
+    a warp) that cover it with at most ``most_vec`` chunks or
+    ``scalar_per`` elements each; CTAs of ``cta`` threads or a row's."""
     vec = chunk if aligned and d % chunk == 0 else 1
     n = _cdiv(d, vec)
-    most = MAX_VEC_PER if vec > 1 else SCALAR_PER
+    most = most_vec if vec > 1 else scalar_per
     row_threads = 32
     while row_threads * most < n:
         row_threads *= 2
-    per = _cdiv(n, row_threads) if vec > 1 else SCALAR_PER
-    bwd_per = next(p for p in BWD_WIDE_PERS if p * BWD_CTA_THREADS >= d)
-    return LnPlan(vec, per, row_threads, max(row_threads, CTA_THREADS),
-                  bwd_per, BWD_CTA_THREADS)
+    per = _cdiv(n, row_threads) if vec > 1 else scalar_per
+    return vec, per, row_threads, max(row_threads, cta)
+
+
+def ln_plan(d: int, dtype: torch.dtype, aligned: bool = True) -> LnPlan:
+    """K3's and K3b's variant and launch shape for rows of ``d`` elements
+    of ``dtype`` (``aligned``: every tensor the kernel touches starts on
+    16 bytes). Up to 1024 K3 keeps its first design, a warp a row (32
+    values a lane). Beyond, K3 reads 16-byte chunks where ``d`` is a
+    multiple of one and ``aligned``, else one element at a time (the
+    scalar variant), and a row belongs to the fewest threads (a power of
+    two) that cover it with at most 4 chunks or 8 elements each. K3b
+    takes that rule at every ``d``, with at most 3 chunks a thread in
+    bf16. Raises for ``d`` outside ``0 < d <= MAX_D``."""
+    if not 0 < d <= MAX_D:
+        raise ValueError(f"the layernorm kernels take 0 < D <= {MAX_D}, got "
+                         f"{d}")
+    chunk = 16 // dtype.itemsize
+    bwd = _rows_plan(d, chunk, aligned, BWD_MAX_CHUNKS[dtype.itemsize],
+                     BWD_SCALAR_PER, BWD_CTA_THREADS)
+    if d <= NARROW_D:
+        return LnPlan(1, 32, 32, 128, *bwd)
+    return LnPlan(*_rows_plan(d, chunk, aligned, MAX_VEC_PER, SCALAR_PER,
+                              CTA_THREADS), *bwd)
 
 
 def _aligned(*tensors) -> bool:
@@ -202,7 +222,7 @@ def layernorm_bwd(g: torch.Tensor, x: torch.Tensor, scale: torch.Tensor,
     if rows == 0:
         zero = torch.zeros(d, dtype=torch.float32, device=device)
         return dx, zero, zero.clone()
-    plan = ln_plan(d, x.dtype)
+    plan = ln_plan(d, x.dtype, _aligned(x, residual, g, scale, dx))
     nparts = min(BWD_MAX_BLOCKS, _cdiv(rows, plan.bwd_rows_a_part))
     parts = torch.empty((2, nparts, d), dtype=torch.float32, device=device)
     dscale = torch.empty(d, dtype=torch.float32, device=device)
@@ -212,7 +232,8 @@ def layernorm_bwd(g: torch.Tensor, x: torch.Tensor, scale: torch.Tensor,
         x.data_ptr(), residual.data_ptr() if residual is not None else None,
         g.data_ptr(), scale.data_ptr(), dx.data_ptr(), parts[0].data_ptr(),
         parts[1].data_ptr(), dscale.data_ptr(), dbias.data_ptr(), rows, d,
-        nparts, plan.bwd_per, plan.bwd_row_threads, float(eps),
+        nparts, plan.bwd_vec, plan.bwd_per, plan.bwd_row_threads,
+        plan.bwd_threads, float(eps),
         kernels.dtype_code(x.dtype, "layernorm_bwd"),
         *kernels.launch_args(device))
     kernels.check(rc, "layernorm_bwd")

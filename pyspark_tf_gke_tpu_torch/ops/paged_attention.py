@@ -16,10 +16,15 @@ contract is exactly ``paged_attention_chunk_reference`` (``:63-104``):
 * int8 pages are dequantized with f32 ``[N, P, H_kv]`` scale pages and
   rounded through the query dtype.
 
-One kernel body (``csrc/paged_attention.cu``) serves ``S = 1`` and
-``S > 1``: a CTA holds a block of the ``S * H / H_kv`` query rows of a
-KV head group, all of them whenever they fit its shared memory
-(:func:`row_plan`), so any ``S`` launches. The wrappers take the plain
+The kernel (``csrc/paged_attention.cu``) has three variants, and
+:func:`paged_plan` picks one and its launch shape from the shapes and
+dtypes alone (never from ``fills``, never from the card): ``decode``, a
+split-KV design for every decode step and verify chunk (``S <= 8``);
+``chunk``, a tensor-core design for wider chunks with a bf16 query (the
+256-token chunked-prefill piece); and ``rows``, the first design, for
+wider f32 chunks and shapes the others do not take (head_dim other
+than 64, pages not a multiple of 16 tokens). Any ``S`` launches. The
+wrappers take the plain
 version only for CPU tensors; a CUDA tensor launches the kernel or
 raises. Paged attention has no backward (neither has the JAX kernel):
 under grad mode, an input that requires a gradient makes the wrappers
@@ -29,7 +34,7 @@ would not track.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -39,7 +44,36 @@ NEG_INF = -1e30
 MAX_SMEM = 232448  # bytes of shared memory one block may use on Hopper
 MAX_ROW_BLOCKS = 65535  # the grid's z dimension: row blocks of a group
 
+# The decode variant: 128-thread CTAs of four warps, 1-8 query rows a
+# CTA, head_dim 64, key groups of 16 tokens; a split walks
+# ``pages_per_split`` table entries, each warp through a ring of at most
+# DECODE_MAX_STAGES cp.async slots, the slots of a CTA within
+# DECODE_RING_BYTES. Splits are sized so that ``B * H_kv * splits *
+# row blocks`` reaches DECODE_TARGET_CTAS (a constant: the plan never
+# asks the card); at 8 slots x 12 KV heads x 16 pages that is 4 splits
+# of 4 pages, the fastest split measured there (kernel_probe.py
+# paged-modes, PERF.md). Every chunk of S <= DECODE_MAX_S takes the
+# decode variant; a wider one the chunk variant where it takes the
+# shape (at S = 16 it was 2.2x faster than the decode variant), else
+# the first design.
+DECODE_ROWS = (1, 2, 4, 8)
+DECODE_D = 64
+DECODE_KEYS = 16
+DECODE_WARPS = 4
+DECODE_MAX_STAGES = 4
+DECODE_RING_BYTES = 64 * 1024
+DECODE_TARGET_CTAS = 384
+DECODE_MAX_S = 8
+# The chunk variant: 128 query rows a CTA, 64-token pages, head_dim 64,
+# a bf16 query; two K/V slots and a 128-row Q tile, 1024-byte aligned.
+CHUNK_ROWS = 128
+CHUNK_SMEM = 1024 + 128 * 128 + 2 * 2 * 64 * 128
+VARIANTS = {"rows": 0, "decode": 1, "chunk": 2}  # csrc enum Variant
+PART_STRIDE = DECODE_D + 2  # a split's partial row: acc[64], m, l (f32)
+
 launches = 0  # kernel launches since the last reset (chip_smoke reads it)
+# launches by variant since the last reset: which one a path took
+variant_launches = {name: 0 for name in VARIANTS}
 
 
 def paged_attention_chunk_plain(q, k_pages, v_pages, block_table, fills,
@@ -116,7 +150,103 @@ def row_plan(s: int, h: int, hkv: int, d: int, p: int) -> Tuple[int, int,
     return rows, blocks, smem_bytes(rows, d, p)
 
 
-def _launch(q, k_pages, v_pages, block_table, fills, k_scales, v_scales):
+class PagedPlan(NamedTuple):
+    """K1's variant and launch shape for one call."""
+    variant: str  # "decode", "chunk" or "rows" (the first design)
+    rows: int  # query rows a CTA holds
+    blocks: int  # row blocks of a head group's R rows
+    splits: int  # decode: CTAs along the table; otherwise 1
+    pages_per_split: int  # decode: table entries a split walks; else MP
+    stages: int  # decode: cp.async slots a warp; chunk 2; rows 1
+    smem: int  # dynamic shared memory of a CTA, bytes
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _decode_slots(kv_size: int) -> int:
+    """Bytes of one ring slot of each of a decode CTA's warps: a key
+    group's K and V rows, and for int8 pages their 16 + 16 scales."""
+    return DECODE_WARPS * (2 * DECODE_KEYS * DECODE_D * kv_size
+                           + (2 * DECODE_KEYS * 4 if kv_size == 1 else 0))
+
+
+def decode_smem(rows: int, stages: int, kv_size: int) -> int:
+    """Shared memory of a decode CTA (``csrc/paged_attention.cu``
+    ``dec::smem_bytes``): its f32 query rows, then the four warps' rings
+    of K and V key groups (and int8 scales), which the warps' final
+    states (m, l and 64 sums a row) reuse."""
+    ring = stages * _decode_slots(kv_size)
+    merge = 4 * DECODE_WARPS * rows * (DECODE_D + 2)
+    return 4 * rows * DECODE_D + max(ring, merge)
+
+
+def paged_plan(b: int, s: int, h: int, hkv: int, d: int, p: int, mp: int,
+               qdtype: torch.dtype, kvdtype: torch.dtype,
+               pages_per_split: Optional[int] = None,
+               variant: Optional[str] = None) -> PagedPlan:
+    """K1's variant and launch shape for ``b`` slots of ``s`` queries,
+    ``h`` heads over ``hkv`` KV heads of width ``d``, pages of ``p``
+    tokens, ``mp`` table entries a slot — a function of the shape and
+    dtypes alone. ``decode`` for ``s <= DECODE_MAX_S`` (head_dim 64,
+    pages a multiple of 16 tokens); else ``chunk`` for a bf16 query over
+    64-token pages of head_dim 64; else the first design
+    (:func:`row_plan`). ``pages_per_split`` and ``variant`` override the
+    choice (``kernel_probe.py paged-modes`` sweeps them); a variant that
+    cannot take the shape raises ``ValueError``."""
+    r = s * (h // hkv)
+    decode_ok = d == DECODE_D and p % DECODE_KEYS == 0
+    chunk_ok = (d == 64 and p == 64 and qdtype == torch.bfloat16
+                and kvdtype in (torch.bfloat16, torch.int8))
+    if variant is None:
+        if decode_ok and s <= DECODE_MAX_S:
+            variant = "decode"
+        elif chunk_ok:
+            variant = "chunk"
+        else:
+            variant = "rows"
+    if variant == "decode":
+        if not decode_ok:
+            raise ValueError(f"the decode variant takes head_dim {DECODE_D} "
+                             f"and pages of a multiple of {DECODE_KEYS} "
+                             f"tokens, got D={d}, P={p}")
+        rows = next(n for n in DECODE_ROWS if n >= min(r, DECODE_ROWS[-1]))
+        blocks = _cdiv(r, rows)
+        if blocks > MAX_ROW_BLOCKS:
+            raise ValueError(f"paged kernel: {r} query rows need {blocks} "
+                             f"row blocks (max {MAX_ROW_BLOCKS})")
+        if pages_per_split is None:
+            want = _cdiv(DECODE_TARGET_CTAS, b * hkv * blocks)
+            pages_per_split = mp // want  # at least `want` splits
+        # splits x row blocks share the grid's z axis
+        fewest = _cdiv(mp, MAX_ROW_BLOCKS // blocks)
+        pages_per_split = max(1, fewest, min(pages_per_split, mp))
+        kv_size = kvdtype.itemsize
+        items = pages_per_split * _cdiv(p // DECODE_KEYS, DECODE_WARPS)
+        stages = max(1, min(DECODE_MAX_STAGES, items,
+                            DECODE_RING_BYTES // _decode_slots(kv_size)))
+        return PagedPlan("decode", rows, blocks, _cdiv(mp, pages_per_split),
+                         pages_per_split, stages,
+                         decode_smem(rows, stages, kv_size))
+    if variant == "chunk":
+        if not chunk_ok:
+            raise ValueError("the chunk variant takes a bfloat16 query over "
+                             "bfloat16 or int8 pages of 64 tokens, head_dim "
+                             f"64, got {qdtype}/{kvdtype}, P={p}, D={d}")
+        blocks = _cdiv(r, CHUNK_ROWS)
+        if blocks > MAX_ROW_BLOCKS:
+            raise ValueError(f"paged kernel: {r} query rows need {blocks} "
+                             f"row blocks (max {MAX_ROW_BLOCKS})")
+        return PagedPlan("chunk", CHUNK_ROWS, blocks, 1, mp, 2, CHUNK_SMEM)
+    if variant != "rows":
+        raise ValueError(f"unknown paged attention variant {variant!r}")
+    rows, blocks, smem = row_plan(s, h, hkv, d, p)
+    return PagedPlan("rows", rows, blocks, 1, mp, 1, smem)
+
+
+def _launch(q, k_pages, v_pages, block_table, fills, k_scales, v_scales,
+            plan: Optional[PagedPlan] = None):
     global launches
     quant = k_scales is not None
     extra = (k_scales, v_scales) if quant else ()
@@ -150,20 +280,29 @@ def _launch(q, k_pages, v_pages, block_table, fills, k_scales, v_scales):
     tensors = (q, k_pages, v_pages, block_table, fills) + extra
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("paged kernel takes contiguous tensors")
-    rows = row_plan(s, h, hkv, d, p_sz)[0]
-    if hkv > 65535:
-        raise ValueError("paged kernel grid takes H_kv <= 65535")
+    if hkv > 65535 or b > 65535:
+        raise ValueError("paged kernel grid takes B, H_kv <= 65535")
+    if plan is None:
+        plan = paged_plan(b, s, h, hkv, d, p_sz, mp, q.dtype, k_pages.dtype)
     out = torch.empty_like(q)
+    part = None
+    if plan.splits > 1:  # the splits' partials, merged in split order
+        part = torch.empty((b, hkv, plan.splits, plan.blocks * plan.rows,
+                            PART_STRIDE), dtype=torch.float32,
+                           device=device)
     lib = kernels.library()
     rc = lib.port_paged_attention(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         k_scales.data_ptr() if quant else None,
         v_scales.data_ptr() if quant else None,
         block_table.data_ptr(), fills.data_ptr(), out.data_ptr(),
-        b, s, h, hkv, d, n, p_sz, mp, rows, float(d ** -0.5), qcode, kvcode,
-        *kernels.launch_args(device))
+        part.data_ptr() if part is not None else None,
+        b, s, h, hkv, d, n, p_sz, mp, VARIANTS[plan.variant], plan.rows,
+        plan.splits, plan.pages_per_split, plan.stages, float(d ** -0.5),
+        qcode, kvcode, *kernels.launch_args(device))
     kernels.check(rc, "paged_attention")
     launches += 1
+    variant_launches[plan.variant] += 1
     return out
 
 

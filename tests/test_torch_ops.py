@@ -71,39 +71,69 @@ def test_ln_plan_takes_every_width_and_fits_the_kernels():
     """``ln_plan`` gives every D from 1 to 8192, bf16 and f32, aligned or
     not, a launch shape the kernels (csrc/layernorm*.cu, whose constants
     are read from the source) take and that fits their registers and
-    shared memory; 0 and 8193 raise. Up to 1024 both kernels keep their
-    first design's warp a row (32 values a lane). Beyond, K3 takes
-    16-byte chunks where D allows and the pointers are aligned, else
-    scalar loads; a row belongs to the fewest threads that hold at most
-    4 chunks or 8 values each; a thread keeps its row slice in f32, the
+    shared memory; 0 and 8193 raise. Up to 1024 K3 keeps its first
+    design's warp a row (32 values a lane). Beyond, K3 takes 16-byte
+    chunks where D allows and the pointers are aligned, else scalar
+    loads; a row belongs to the fewest threads that hold at most 4
+    chunks or 8 values each; a thread keeps its row slice in f32, the
     raw loads of x and r, and one chunk's scale and bias in registers,
-    within the register file's share of its CTA. K3b takes a 256-thread
-    CTA a row, 4 x 8-32 values a thread (its narrow variant holds 4 x
-    32)."""
+    within the register file's share of its CTA. K3b takes that rule at
+    every D with at most 3 chunks a thread in bf16 (a warp a row up to
+    768), its values a thread sized by D: the raw loads of x and g and
+    two f32 column sums a value, within 128 registers (64 scalar); a CTA
+    holding several rows keeps its partial row in at most 48 KB of
+    shared memory."""
     from pyspark_tf_gke_tpu_torch.ops import layernorm as t_ln
 
     warps, per_lane, cta, vec_per, scalar_per, max_d = _cu_ints(
         "layernorm.cu", "kWarps", "kMaxPerLane", "kCtaThreads", "kMaxVecPer",
         "kScalarPer", "kMaxD")
-    bwd_per_lane, wide_threads, bwd_max_d, max_blocks = _cu_ints(
-        "layernorm_bwd.cu", "kMaxPerLane", "kWideThreads", "kMaxD",
-        "kMaxBlocks")
+    (bwd_cta, bwd_chunks_bf16, bwd_chunks_f32, bwd_scalar_per, bwd_max_d,
+     max_blocks) = _cu_ints("layernorm_bwd.cu", "kCtaThreads",
+                            "kMaxChunksBf16", "kMaxChunksF32", "kScalarPer",
+                            "kMaxD", "kMaxBlocks")
     assert max_d == bwd_max_d == t_ln.MAX_D == 8192
     assert (cta, vec_per, scalar_per) == (t_ln.CTA_THREADS, t_ln.MAX_VEC_PER,
                                           t_ln.SCALAR_PER)
-    assert (wide_threads, max_blocks) == (t_ln.BWD_CTA_THREADS,
-                                          t_ln.BWD_MAX_BLOCKS)
+    assert (bwd_cta, bwd_scalar_per, max_blocks) == (
+        t_ln.BWD_CTA_THREADS, t_ln.BWD_SCALAR_PER, t_ln.BWD_MAX_BLOCKS)
+    assert t_ln.BWD_MAX_CHUNKS == {2: bwd_chunks_bf16, 4: bwd_chunks_f32}
     narrow = 32 * per_lane
-    assert narrow == 32 * bwd_per_lane == t_ln.NARROW_D
+    assert narrow == t_ln.NARROW_D
     for dtype in (torch.bfloat16, torch.float32):
         size = torch.finfo(dtype).bits // 8
+        chunk = 16 // size
         for aligned in (True, False):
             for d in range(1, max_d + 1):
                 p = t_ln.ln_plan(d, dtype, aligned)
+                # K3b, every width
+                vec = p.bwd_vec
+                assert vec == (chunk if aligned and d % chunk == 0 else 1)
+                most = (t_ln.BWD_MAX_CHUNKS[size] if vec > 1
+                        else bwd_scalar_per)
+                n = -(-d // vec)
+                rt = p.bwd_row_threads
+                assert rt >= 32 and rt & (rt - 1) == 0
+                assert rt * most >= n and (rt == 32 or rt * most // 2 < n)
+                if vec > 1:
+                    assert p.bwd_per <= most
+                    assert p.bwd_per * rt >= n > (p.bwd_per - 1) * rt
+                else:
+                    assert p.bwd_per == bwd_scalar_per
+                assert p.bwd_threads == max(rt, bwd_cta)
+                assert p.bwd_threads <= (1024 if vec == 1 else 512)
+                if d <= 768 and dtype == torch.bfloat16 and vec > 1:
+                    assert rt == 32  # a warp a row: shuffles only
+                # registers: x and g as loaded, two f32 column sums a
+                # value, within the 128 a thread of a 512-thread CTA has
+                values = p.bwd_per * vec * (2 * size / 4 + 2)
+                assert values + 24 <= (64 if vec == 1 else 128), (d, p)
+                if p.bwd_threads > rt:
+                    assert 2 * 4 * d <= 48 * 1024
+                # K3
                 if d <= narrow:
-                    assert p == (1, per_lane, 32, warps * 32, per_lane, 32)
+                    assert p[:4] == (1, per_lane, 32, warps * 32)
                     continue
-                chunk = 16 // size
                 assert p.vec == (chunk if aligned and d % chunk == 0 else 1)
                 most = vec_per if p.vec > 1 else scalar_per
                 n = -(-d // p.vec)
@@ -115,10 +145,6 @@ def test_ln_plan_takes_every_width_and_fits_the_kernels():
                 # a chunk's scale and bias, within 255 and the CTA's share
                 values = p.per * p.vec * (1 + 2 * size / 4) + 2 * p.vec
                 assert values + 24 <= min(255, 65536 // p.threads), (d, p)
-                assert p.bwd_row_threads == wide_threads
-                assert p.bwd_per in (8, 16, 32)
-                assert p.bwd_per * wide_threads >= d
-                assert p.bwd_per == 8 or (p.bwd_per // 2) * wide_threads < d
     for d in (0, max_d + 1):
         with pytest.raises(ValueError, match="8192"):
             t_ln.ln_plan(d, torch.bfloat16)
@@ -258,40 +284,162 @@ def test_paged_validation():
                                 k_scales=torch.ones(4, 4, 2))
 
 
+def _split_merge_plain(q, kp, vp, table, fills, ks, vs, pages_per_split):
+    """The decode variant's arithmetic in plain PyTorch (f32): each split
+    of ``pages_per_split`` table entries runs its own online softmax over
+    the live pages it holds (m, the unrounded l, and P V with p rounded
+    to V's dtype; an empty split gives m = NEG_INF, l = 0), then the
+    splits merge in split order, a row with no live key giving zeros."""
+    n, ps, hkv, d = kp.shape
+    b, sq, h, _ = q.shape
+    g = h // hkv
+    mp = table.shape[1]
+    neg = t_paged.NEG_INF
+    out = torch.zeros(b, sq, h, d)
+    for slot in range(b):
+        fill = int(fills[slot])
+        live = min(-(-fill // ps) if fill > 0 else 0, mp)
+        for hk in range(hkv):
+            for r in range(sq * g):
+                s_idx, gi = divmod(r, g)
+                q_abs = fill - sq + s_idx
+                qv = q[slot, s_idx, hk * g + gi].float()
+                parts = []
+                for j0 in range(0, mp, pages_per_split):
+                    m, l, acc = neg, 0.0, torch.zeros(d)
+                    for j in range(j0, min(j0 + pages_per_split, live)):
+                        page = min(max(int(table[slot, j]), 0), n - 1)
+                        k = kp[page, :, hk].float()
+                        v = vp[page, :, hk].float()
+                        if ks is not None:
+                            k = (k * ks[page, :, hk, None]).to(q.dtype).float()
+                            v = (v * vs[page, :, hk, None]).to(q.dtype).float()
+                        sc = (k @ qv) * d ** -0.5
+                        pos = j * ps + torch.arange(ps)
+                        sc = torch.where(pos <= q_abs, sc,
+                                         torch.tensor(neg))
+                        m_new = max(m, float(sc.max()))
+                        alpha = float(np.exp(np.float32(m - m_new)))
+                        pr = torch.exp(sc - m_new)
+                        l = l * alpha + float(pr.sum())
+                        acc = acc * alpha + pr.to(q.dtype).float() @ v
+                        m = m_new
+                    parts.append((m, l, acc))
+                big = max(m for m, _, _ in parts)
+                tot_l, tot = 0.0, torch.zeros(d)
+                for m, l, acc in parts:  # split order
+                    if m > neg / 2:
+                        f = float(np.exp(np.float32(m - big)))
+                        tot_l += l * f
+                        tot = tot + acc * f
+                if big > neg / 2:
+                    out[slot, s_idx, hk * g + gi] = tot / (tot_l or 1.0)
+    return out.to(q.dtype)
+
+
+@pytest.mark.parametrize("pages_per_split", [1, 2, 3])
+@pytest.mark.parametrize("quant", [False, True], ids=["f32", "int8"])
+@pytest.mark.parametrize("sq", [1, 4])
+@pytest.mark.parametrize("g", [1, 2])
+def test_paged_split_merge_matches_jax_kernel(g, sq, quant, pages_per_split):
+    """The decode variant's split-then-merge (partials of
+    ``pages_per_split`` table entries, merged in split order), emulated
+    in plain PyTorch, against the JAX kernel (``interpret=True``) at the
+    fills of ``_paged_inputs`` and, in the last three slots, fills on a
+    split's boundary, one past it, and the whole table; the empty slot
+    gives exact zeros."""
+    rng = np.random.default_rng(40 + 4 * g + sq)
+    q, kp, vp, table, fills, ks, vs = _paged_inputs(rng, g, sq, quant)
+    ps, mp = kp.shape[1], table.shape[1]
+    fills[3:] = [pages_per_split * ps, pages_per_split * ps + 1, mp * ps]
+    jscales = ({} if ks is None else
+               dict(k_scales=jnp.asarray(ks), v_scales=jnp.asarray(vs)))
+    ref = jax_paged_chunk(jnp.asarray(q), jnp.asarray(kp), jnp.asarray(vp),
+                          jnp.asarray(table), jnp.asarray(fills),
+                          interpret=True, **jscales)
+    out = _split_merge_plain(_t(q), _t(kp), _t(vp), _t(table), _t(fills),
+                             None if ks is None else _t(ks),
+                             None if vs is None else _t(vs), pages_per_split)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=OP_ATOL)
+    assert np.all(out.numpy()[0] == 0.0)  # empty slot: exact zeros
+
+
 class _FakeKernelLibrary:
     """Stands in for the built kernel library: records the K1 launch's
-    arguments and refuses what ``port_paged_attention`` refuses (a row
-    block over the group's rows, too many blocks, too much shared
-    memory)."""
+    arguments and refuses what ``port_paged_attention`` refuses, variant
+    by variant (``csrc/paged_attention.cu``): a decode plan whose splits
+    do not cover the table, rows outside 1-8, a ring over its shared
+    memory or no scratch for several splits; a chunk plan off its bf16
+    query, 64-token pages, head_dim 64 and 128 rows; a first-design row
+    block over the group's rows or its shared memory; more than 65535
+    blocks."""
 
     def __init__(self):
         self.calls = []
 
     def port_paged_attention(self, *args):
-        b, s, h, hkv, d, n, p, mp, rows = args[8:17]
+        part = args[8]
+        b, s, h, hkv, d, n, p, mp = args[9:17]
+        variant, rows, splits, pps, stages = args[17:22]
+        qcode, kvcode = args[23:25]
         r = s * (h // hkv)
         blocks = -(-r // rows)
-        self.calls.append((s, rows, blocks))
-        smem = t_paged.smem_bytes(rows, d, p)
-        ok = 0 < rows <= r and blocks <= 65535 and smem <= 232448
+        self.calls.append((s, rows, blocks, variant, splits, pps))
+        if variant == t_paged.VARIANTS["decode"]:
+            kv_size = 1 if kvcode == 2 else 4 if kvcode == 0 else 2
+            ok = (d == 64 and p % 16 == 0 and pps > 0
+                  and splits == -(-mp // pps) and splits * blocks <= 65535
+                  and 1 <= stages <= 4 and rows in (1, 2, 4, 8)
+                  and t_paged.decode_smem(rows, stages, kv_size) <= 232448
+                  and (splits == 1 or part is not None))
+        elif variant == t_paged.VARIANTS["chunk"]:
+            ok = (qcode == 1 and d == 64 and p == 64 and rows == 128
+                  and splits == 1 and pps == mp and stages == 2
+                  and blocks <= 65535)
+        else:
+            smem = t_paged.smem_bytes(rows, d, p)
+            ok = (0 < rows <= r and blocks <= 65535 and smem <= 232448
+                  and splits == 1 and pps == mp and stages == 1)
         return 0 if ok else 1
+
+
+def _fake_library(monkeypatch):
+    from pyspark_tf_gke_tpu_torch.ops import kernels
+
+    fake = _FakeKernelLibrary()
+    monkeypatch.setattr(kernels, "library", lambda: fake)
+    monkeypatch.setattr(kernels, "require_cuda", lambda name, *t: t[0].device)
+    monkeypatch.setattr(kernels, "launch_args", lambda device: (0, None))
+    return fake
+
+
+_KV_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+              "int8": torch.int8}
+
+
+def _paged_pages(kv, n, p, hkv, d):
+    dtype = _KV_DTYPES[kv]
+    pages = torch.zeros(n, p, hkv, d, dtype=dtype)
+    scales = ({} if kv != "int8" else
+              dict(k_scales=torch.ones(n, p, hkv),
+                   v_scales=torch.ones(n, p, hkv)))
+    return pages, scales, torch.float32 if kv == "int8" else dtype
 
 
 @pytest.mark.parametrize("kv", ["float32", "bfloat16", "int8"])
 @pytest.mark.parametrize("g", [1, 3, 4, 12])
 def test_paged_row_plan_takes_any_chunk(g, kv, monkeypatch):
-    """K1's row blocks (``row_plan``): every chunk width up to 2048 at
-    P = D = 64 fits the 232,448 bytes of shared memory a block may use
-    (the figure ``csrc/paged_attention.cu`` checks), in equal blocks
-    that cover the group's rows; S <= 8 keeps one block of every row, as
-    before. Through the wrapper, with the launch recorded instead of
+    """K1's first-design row blocks (``row_plan``): every chunk width up
+    to 2048 at P = D = 64 fits the 232,448 bytes of shared memory a
+    block may use (the figure ``csrc/paged_attention.cu`` checks), in
+    equal blocks that cover the group's rows; S <= 8 keeps one block of
+    every row. Through the wrapper, with the launch recorded instead of
     run, no S — 256 at H = H_kv = 12, GPT-small's chunked-prefill piece,
-    included — is refused for shared memory, for f32, bf16 or int8
-    pages."""
+    included — is refused, for f32, bf16 or int8 pages: S = 1 and 8 take
+    the decode variant, wider chunks the chunk variant (bf16) or the
+    first design, 128 rows a block at S = 256, G = 1 either way."""
     import re
     from pathlib import Path
-
-    from pyspark_tf_gke_tpu_torch.ops import kernels
 
     cu = (Path(t_paged.__file__).resolve().parent.parent / "csrc"
           / "paged_attention.cu").read_text()
@@ -310,17 +458,8 @@ def test_paged_row_plan_takes_any_chunk(g, kv, monkeypatch):
             assert (rows, blocks, smem) == (r, 1, old)
         else:  # the fewest blocks: one block fewer would not fit
             assert t_paged.smem_bytes(-(-r // (blocks - 1)), d, p) > limit
-    fake = _FakeKernelLibrary()
-    monkeypatch.setattr(kernels, "library", lambda: fake)
-    monkeypatch.setattr(kernels, "require_cuda", lambda name, *t: t[0].device)
-    monkeypatch.setattr(kernels, "launch_args", lambda device: (0, None))
-    dtype = {"float32": torch.float32, "bfloat16": torch.bfloat16,
-             "int8": torch.int8}[kv]
-    qdtype = torch.float32 if kv == "int8" else dtype
-    pages = torch.zeros(2, p, hkv, d, dtype=dtype)
-    scales = ({} if kv != "int8" else
-              dict(k_scales=torch.ones(2, p, hkv),
-                   v_scales=torch.ones(2, p, hkv)))
+    fake = _fake_library(monkeypatch)
+    pages, scales, qdtype = _paged_pages(kv, 2, p, hkv, d)
     table = torch.zeros(1, 1, dtype=torch.int32)
     fills = torch.full((1,), 1, dtype=torch.int32)
     for s in (1, 8, 256, 2048):
@@ -328,8 +467,81 @@ def test_paged_row_plan_takes_any_chunk(g, kv, monkeypatch):
         t_paged._launch(q, pages, pages, table, fills,
                         scales.get("k_scales"), scales.get("v_scales"))
     assert [c[0] for c in fake.calls] == [1, 8, 256, 2048]
+    decode = t_paged.VARIANTS["decode"]
+    assert [c[3] for c in fake.calls[:2]] == [decode, decode]
+    wide = (t_paged.VARIANTS["chunk"] if qdtype == torch.bfloat16
+            else t_paged.VARIANTS["rows"])
+    assert [c[3] for c in fake.calls[2:]] == [wide, wide]
     if g == 1:
-        assert fake.calls[2] == (256, 128, 2)
+        assert fake.calls[2][:3] == (256, 128, 2)
+
+
+@pytest.mark.parametrize("kv", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("g", [1, 3, 4, 12])
+def test_paged_plan_splits_the_table_and_takes_decode_for_small_chunks(
+        g, kv, monkeypatch):
+    """``paged_plan`` is a function of the shape and dtypes alone (no
+    fills, no card): the same shape gives the same plan. Its decode
+    splits cover every table entry exactly once, in at most 65535 CTAs
+    along the grid's z axis, and reach the target CTA count where the
+    table has the pages for it; every decode step and every chunk of S
+    <= 8 takes the decode variant, wider chunks the chunk variant for a
+    bf16 query (rows in 128-row blocks) and the first design otherwise.
+    Every plan for S up to 2048 and tables of 1 to 5000 entries launches
+    through the wrapper (the launch recorded, as the kernel checks it)."""
+    fake = _fake_library(monkeypatch)
+    h, hkv, d, p = 12, 12 // g, 64, 64
+    pages, scales, qdtype = _paged_pages(kv, 4, p, hkv, d)
+    decode = t_paged.VARIANTS["decode"]
+    for b in (1, 8, 64):
+        for mp in (1, 3, 16, 100, 5000):
+            for s in (1, 2, 4, 8, 9, 16, 17, 64, 256, 512, 2048):
+                plan = t_paged.paged_plan(b, s, h, hkv, d, p, mp, qdtype,
+                                          pages.dtype)
+                assert plan == t_paged.paged_plan(b, s, h, hkv, d, p, mp,
+                                                  qdtype, pages.dtype)
+                r = s * g
+                assert (plan.blocks - 1) * plan.rows < r <= (plan.blocks
+                                                             * plan.rows)
+                if s <= 8:
+                    assert plan.variant == "decode"
+                if plan.variant == "decode":
+                    assert s <= 8
+                    covered = [j for z in range(plan.splits)
+                               for j in range(z * plan.pages_per_split,
+                                              min((z + 1)
+                                                  * plan.pages_per_split,
+                                                  mp))]
+                    assert covered == list(range(mp))
+                    assert plan.splits * plan.blocks <= 65535
+                    ctas = b * hkv * plan.blocks * plan.splits
+                    assert (ctas >= t_paged.DECODE_TARGET_CTAS
+                            or plan.splits == mp
+                            or plan.splits * plan.blocks > 65535 // 2)
+                    assert plan.smem == t_paged.decode_smem(
+                        plan.rows, plan.stages, pages.element_size())
+                elif qdtype == torch.bfloat16:
+                    assert plan.variant == "chunk" and plan.rows == 128
+                else:
+                    assert plan.variant == "rows"
+                if b == 8 and mp == 16:
+                    table = torch.zeros(b, mp, dtype=torch.int32)
+                    fills = torch.full((b,), 1, dtype=torch.int32)
+                    q = torch.zeros(b, s, h, d, dtype=qdtype)
+                    fake.calls.clear()
+                    t_paged._launch(q, pages, pages, table, fills,
+                                    scales.get("k_scales"),
+                                    scales.get("v_scales"))
+                    call = fake.calls[0]
+                    assert call[3] == t_paged.VARIANTS[plan.variant]
+                    assert call[1:3] == (plan.rows, plan.blocks)
+                    assert call[4:] == (plan.splits, plan.pages_per_split)
+                    assert call[3] != decode or s <= 8
+    # the serving decode shape: 8 slots x 12 heads, 16 pages a slot
+    plan = t_paged.paged_plan(8, 1, 12, 12, 64, 64, 16, torch.bfloat16,
+                              torch.bfloat16)
+    assert plan.variant == "decode" and plan.rows == 1
+    assert 8 * 12 * plan.splits >= 2 * 132
 
 
 # -- weight quantization ------------------------------------------------------

@@ -438,9 +438,10 @@ def test_layernorm_wrappers_hand_wide_rows_to_the_kernels(d, monkeypatch):
     """``layernorm_fwd`` and ``layernorm_bwd`` hand rows of GPT-2
     large's 1280 and of 4096 to the kernels with ``ln_plan``'s launch
     shape (before the width repair both raised ValueError for D >
-    1024), and K3b's partial-sum rows follow the plan: one row a part
-    beyond 1024. Meta tensors stand in for CUDA ones and a recorder for
-    the kernel library: no card here."""
+    1024), and K3b's partial-sum rows follow the plan: one a CTA, a CTA
+    holding ``bwd_threads / bwd_row_threads`` rows at a time. Meta
+    tensors stand in for CUDA ones and a recorder for the kernel
+    library: no card here."""
     calls = {}
 
     class FakeLibrary:
@@ -469,10 +470,11 @@ def test_layernorm_wrappers_hand_wide_rows_to_the_kernels(d, monkeypatch):
     dx, dscale, dbias = t_ln.layernorm_bwd(g, x, scale, 1e-5, residual=r)
     assert dx.shape == x.shape and dscale.shape == dbias.shape == (d,)
     # x, r, g, scale, dx, parts, parts, dscale, dbias, rows, d, nparts,
-    # per, row_threads
+    # vec, per, row_threads, threads
     args = calls["bwd"]
-    assert args[9:12] == (15, d, 15)
-    assert args[12:14] == (plan.bwd_per, 256)
+    assert args[9:12] == (15, d, -(-15 // plan.bwd_rows_a_part))
+    assert args[12:16] == tuple(plan[4:])
+    assert plan.bwd_vec == 8 and plan.bwd_threads == 256
 
 
 # -- K1 has no backward ---------------------------------------------------------
