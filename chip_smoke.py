@@ -28,7 +28,13 @@
    not multiples of 8; K5f, K5dx and K5dw at
    the four stride-1 3x3 shapes, a ragged one and one whose K and N are
    not multiples of 8, with and without the transform and the
-   statistics) — and times kernel, plain version and a library yardstick
+   statistics); 3b. K2f, K2dq and K2dkv at head widths 128 (bf16 on the
+   tensor cores, f32 on the CUDA cores), 32 and 80 (the CUDA cores, 80
+   on the 128-wide instantiation) in three mask cases, each call's
+   counter moving and ``flash_plan`` naming the expected design, and
+   K1's first design at head_dim 128 (decode, the serving decode shape
+   and a 256-token piece) — and times kernel, plain version and a
+   library yardstick
    with CUDA events (K1 at S = 1 at fills {0..1024}, 716 each and 1024
    each, and at S = 256, against SDPA over the gathered pages; K3 at
    [8192, 768] bf16 with and without the
@@ -40,7 +46,8 @@
    calls; K5: on the four stage shapes, summed over its 13 calls, against
    cuDNN; K1, K3, K3b, K2f, K2dq, K2dkv, K5f, K5dx, K4f, K4dx and the bf16
    K4dw and K5dw and their yardsticks also replayed from a CUDA graph,
-   which takes the host's launch cost out);
+   which takes the host's launch cost out; K2 also at D 128 and D 80
+   and K1 at D 128);
 4. serving main path: serves a full-width GPT-small paged bundle
    (random weights from a numpy seed, int8 export) through
    ``BundleServer`` + the HTTP server with 8 continuous slots: 12
@@ -55,6 +62,19 @@
    through the kernels agree with the plain versions, and so do two
    256-token chunked-prefill pieces through the paged model (every K1
    call on its chunk variant);
+4c. chunked prefill on the serving path, the JAX bench's chunked
+   configuration at full width (``bench.py:1196-1199``): GPT-small at
+   2048 positions (int8 export), 8 slots, chunk 16, 64-token pages,
+   ``prefill_chunk`` 256, ``step_token_budget`` 384; 32 requests, every
+   4th with a 1024-token prompt and the rest 64, 64 new tokens each,
+   through the unchunked and the chunked engine in turns (unchunked,
+   chunked, chunked, unchunked). Every piece's K1 calls
+   must take the chunk variant and every serving kernel must launch;
+   an f32 run of the same arrivals (the full width cut to 2 layers)
+   must give the unchunked engine's tokens exactly. Prints the short
+   requests' time to first token and largest gap between tokens, new
+   tokens/s and the engine's step times of each run, and the ratios of
+   the two engines' means;
 6. training main path: ``lm_pretrain.main`` on a seeded synthetic text
    corpus at the GPT-small width (hidden 768, 12 layers, 12 heads, FFN
    3072, seq 512, batch 16, bf16, Adam 3e-4), 2 epochs x 10 steps with
@@ -72,6 +92,13 @@
    gradients through the kernels against ``use_kernels=False`` under
    phase 7's bf16 limits, one Adam step, and the K3 and K3b counters
    must move (LayerNorm at D = 1280);
+7c. a training step at a head width of 128 (``--hidden-size 1024
+   --num-heads 8``, FFN 4096; depth cut to 2 layers, bf16, batch 4 x
+   512) against ``use_kernels=False`` under phase 7's bf16 limits, every
+   training kernel's counter moving; then a paged bundle of those widths
+   served over HTTP for three greedy requests (K2f at D 128 in prefill,
+   K1's first design at D 128 in decode) and an f32 copy's engine
+   holding the dense ``generate``'s tokens;
 8. ResNet-50 training main path: ``Trainer`` on ``ResNet50(norm_variant=
    "fused")`` (bf16 over f32 weights and statistics, Adam 1e-3), 2 epochs
    x 10 steps on one batch of 64 images at 224^2; every K4 counter must
@@ -367,7 +394,7 @@ def _flash_record(torch, fa, q, k, v, err, shape):
     plain = cuda_ms(lambda: fa.flash_attention_plain(q, k, v, causal=True))
     nbytes = 4 * q.numel() * q.element_size() + b * h * s * 4
     ops = 4 * b * h * d * (s * (s + 1) / 2)
-    bms, by = bound(nbytes, ops, "bfloat16")
+    bms, by = bound(nbytes, ops, str(q.dtype).split(".")[-1])
     return dict(max_abs_err=err, ms=cuda_ms(kern), plain_ms=plain,
                 bound_ms=bms, bound_by=by, library_ms=cuda_ms(lib),
                 graph_ms=graph_ms(kern), library_graph_ms=graph_ms(lib),
@@ -523,8 +550,7 @@ def check_layernorm_bwd(torch, dev):
     return rec
 
 
-def _flash_bwd_case(torch, dev, g, dtype, case, b=16, s=512):
-    h, d = 12, 64
+def _flash_bwd_case(torch, dev, g, dtype, case, b=16, s=512, h=12, d=64):
     q, k, v, dout = (torch.randn(b, s, h, d, generator=g, device=dev
                                  ).to(dtype) for _ in range(4))
     kv_mask = segs = None
@@ -622,22 +648,25 @@ def check_flash_bwd(torch, dev):
 
 
 def _flash_bwd_record(torch, fa, q, k, v, dout, lse, delta, errs):
-    """K2dq and K2dkv at the causal bf16 training shape, eager and
-    graph-replayed, beside the plain version and the SDPA backward."""
+    """K2dq and K2dkv at a causal shape (the bf16 training shape, and
+    phase 3's other head widths), eager and graph-replayed, beside the
+    plain version and the SDPA backward."""
     import torch.nn.functional as F
 
+    b, s, h, d = q.shape
+    name = str(q.dtype).split(".")[-1]
+    shape = f"B={b} S={s} H={h} D={d} causal {name.replace('bfloat16', 'bf16')}"
     plain = cuda_ms(lambda: fa.flash_attention_bwd_plain(
         q, k, v, dout, lse, delta, causal=True))
     lib, lib_graph, lib_c, lib_c_graph = _sdpa_bwd_times(torch, F, q, k, v,
                                                          dout)
-    log(f"  SDPA backward (dQ + dK + dV) bf16 B=16 S=512 H=12 D=64 causal: "
+    log(f"  SDPA backward (dQ + dK + dV) {shape}: "
         f"[B, S, H, D] views {lib:.4f} ms, graph-replayed {lib_graph}; "
         f"contiguous [B, H, S, D] {lib_c:.4f}, graph-replayed "
         f"{lib_c_graph}")
-    pairs = 16 * 12 * 512 * 513 / 2  # causal (query, key) pairs
+    pairs = b * h * s * (s + 1) / 2  # causal (query, key) pairs
     row = q.numel() * q.element_size()  # one [B, S, H, D] tensor
-    vecs = 2 * 16 * 12 * 512 * 4  # lse and delta
-    shape = "B=16 S=512 H=12 D=64 causal bf16"
+    vecs = 2 * b * h * s * 4  # lse and delta
     libs = dict(library_ms=lib, library_graph_ms=lib_graph,
                 library_contiguous_ms=lib_c,
                 library_contiguous_graph_ms=lib_c_graph)
@@ -650,11 +679,11 @@ def _flash_bwd_record(torch, fa, q, k, v, dout, lse, delta, errs):
     # dv and dk are 4 products of D per pair.
     recs = {}
     for key, fn, nbytes, ops, err in (
-            ("flash_attention_dq", dq_fn, 5 * row + vecs, 6 * 64 * pairs,
+            ("flash_attention_dq", dq_fn, 5 * row + vecs, 6 * d * pairs,
              errs[0]),
-            ("flash_attention_dkv", dkv_fn, 6 * row + vecs, 8 * 64 * pairs,
+            ("flash_attention_dkv", dkv_fn, 6 * row + vecs, 8 * d * pairs,
              max(errs[1], errs[2]))):
-        bms, by = bound(nbytes, ops, "bfloat16")
+        bms, by = bound(nbytes, ops, name)
         recs[key] = dict(max_abs_err=err, ms=cuda_ms(fn), plain_ms=plain,
                          bound_ms=bms, bound_by=by, graph_ms=graph_ms(fn),
                          shape=shape, **libs)
@@ -701,6 +730,95 @@ def _sdpa_bwd_times(torch, F, q, k, v, dout):
             graphed = None
         times += [eager, graphed]
     return times
+
+
+# Head widths beside GPT-small's 64 that phase 3 holds K2f, K2dq and
+# K2dkv at, with the design flash_plan must pick for each dtype: 128 (a
+# Llama-width head: bf16 on the tensor cores, f32 on the CUDA cores) and
+# 32 and 80 (CUDA-core widths: 32 is instantiated, 80 runs the 128-wide
+# instantiation with its loads masked). Each is timed (bf16) at B=16
+# S=512 H=8, a training batch of the LM's sequence length.
+FLASH_WIDTHS = ((128, {"bfloat16": "wgmma", "float32": "simt"}),
+                (32, {"bfloat16": "simt", "float32": "simt"}),
+                (80, {"bfloat16": "simt", "float32": "simt"}))
+FLASH_TIMED_WIDTHS = (128, 80)
+
+
+def check_flash_widths(torch, dev):
+    """K2f, K2dq and K2dkv at head widths 128, 32 and 80 in bf16 and f32
+    against their plain versions: causal at B=2 S=200 H=4 (ragged), key
+    padding + segments + causal with an empty row and a fully masked
+    batch row at B=3 S=77, and q/k/v as views of one [B, S, 3, H, D]
+    tensor with a cotangent expanded over the heads; each call's launch
+    counter must move and flash_plan must pick the expected design. Then
+    the bf16 kernels at D 128 (tensor cores) and D 80 (CUDA cores) are
+    timed at B=16 S=512 H=8, eager and graph-replayed, beside their bound,
+    the plain versions and SDPA forward and backward. Returns ``{kernel:
+    {"d128": record, "d80": record}}``."""
+    from pyspark_tf_gke_tpu_torch.ops import flash_attention as fa
+
+    g = torch.Generator(device=dev).manual_seed(16)
+    recs = {"flash_attention_fwd": {}, "flash_attention_dq": {},
+            "flash_attention_dkv": {}}
+    for d, designs in FLASH_WIDTHS:
+        for dtype in (torch.bfloat16, torch.float32):
+            name = str(dtype).split(".")[-1]
+            plan = fa.flash_plan(d, dtype)
+            check(plan.design == designs[name],
+                  f"flash_plan({d}, {name}) = {plan}, expected the "
+                  f"{designs[name]} design")
+            log(f"  flash D={d} {name}: plan {plan.design} at width "
+                f"{plan.width}")
+            for b, s, case in ((2, 200, "causal"), (3, 77, "masked"),
+                               (3, 77, "views")):
+                q, k, v, dout, kv_mask, segs = _flash_bwd_case(
+                    torch, dev, g, dtype, "causal" if case == "views"
+                    else case, b=b, s=s, h=4, d=d)
+                tag = f"{case} {name} B={b} S={s} H=4 D={d}"
+                if case == "views":
+                    qkv = torch.randn(b, s, 3, 4, d, generator=g,
+                                      device=dev).to(dtype)
+                    q, k, v = qkv.unbind(2)
+                    dout = dout[:, :, :1].expand(-1, -1, 4, -1)
+                before = (fa.launches, fa.dq_launches, fa.dkv_launches)
+                _flash_bwd_check(torch, fa, name, tag, q, k, v, dout,
+                                 kv_mask, segs)
+                check((fa.launches, fa.dq_launches, fa.dkv_launches)
+                      == tuple(n + 1 for n in before),
+                      f"flash {tag}: a kernel was not launched")
+    for d in FLASH_TIMED_WIDTHS:
+        for key, rec in time_flash_width(torch, dev, g, d).items():
+            recs[key][f"d{d}"] = rec
+    return recs
+
+
+def time_flash_width(torch, dev, g, d, b=16, s=512, h=8, dtype=None):
+    """K2f, K2dq and K2dkv at head width ``d`` (bf16 unless ``dtype``;
+    causal, B=16 S=512 H=8 by default), checked against their plain
+    versions, then timed eager and graph-replayed beside their bound, the
+    plain versions and SDPA forward and backward. Returns ``{kernel:
+    record}``."""
+    from pyspark_tf_gke_tpu_torch.ops import flash_attention as fa
+
+    dtype = dtype or torch.bfloat16
+    name = str(dtype).split(".")[-1]
+    q, k, v, dout, _, _ = _flash_bwd_case(
+        torch, dev, g, dtype, "causal", b=b, s=s, h=h, d=d)
+    errs, lse, delta = _flash_bwd_check(
+        torch, fa, name, f"causal {name} B={b} S={s} H={h} D={d}",
+        q, k, v, dout, None, None)
+    out = fa.flash_attention_fwd(q, k, v, causal=True)[0]
+    err = float((out.float() - fa.flash_attention_plain(
+        q, k, v, causal=True)[0].float()).abs().max())
+    fwd = _flash_record(torch, fa, q, k, v, err,
+                        f"B={b} S={s} H={h} D={d} causal {name}")
+    log(f"  K2f {name} {fwd['shape']} ({fa.flash_plan(d, q.dtype).design}"
+        f"): kernel {fwd['ms']:.4f} ms, plain {fwd['plain_ms']:.4f}, "
+        f"SDPA {fwd['library_ms']:.4f}, bound {fwd['bound_ms']:.4f} "
+        f"({fwd['bound_by']}); graph-replayed: kernel "
+        f"{fwd['graph_ms']:.4f}, SDPA {fwd['library_graph_ms']:.4f}")
+    return {"flash_attention_fwd": fwd,
+            **_flash_bwd_record(torch, fa, q, k, v, dout, lse, delta, errs)}
 
 
 # ResNet-50's 36 fused 1x1 convs at batch 64 (224^2), as (M, K, N,
@@ -1076,8 +1194,9 @@ def _split_fills(torch, pa, hkv, s):
     return (0, edge, edge + 1, 2 * edge - 1, 1024, 65, 700, s)
 
 
-def _paged_case(torch, dev, g, dtype, hkv, s, quant, fills=PAGED_FILLS):
-    n, p, h, d, mp = 128, 64, 12, 64, 16
+def _paged_case(torch, dev, g, dtype, hkv, s, quant, fills=PAGED_FILLS,
+                h=12, d=64):
+    n, p, mp = 128, 64, 16
     fills = torch.tensor(fills, dtype=torch.int32, device=dev)
     b = fills.numel()
     table = torch.full((b, mp), n, dtype=torch.int32)
@@ -1193,6 +1312,51 @@ def check_paged(torch, dev):
             f"{r['library_ms']:.4f}, graph-replayed "
             f"{r['library_graph_ms']:.4f}; plain {r['plain_ms']:.4f}; bound "
             f"{r['bound_ms']:.4f} ({r['bound_by']})")
+    return rec
+
+
+def check_paged_d128(torch, dev):
+    """K1 at head_dim 128 (8 heads, the phase-7c model's decode): its
+    decode and chunk variants are built for head_dim 64, so the plan
+    takes the first design (``rows``), which takes any head_dim. Decode
+    (S = 1) at fills {0..1024} and at the serving shape (8 slots at 716),
+    and a 256-token piece, bf16 and f32, float and int8 pages, against
+    the plain version; timed (bf16, the serving decode shape) beside SDPA
+    over the gathered pages and the bound."""
+    from pyspark_tf_gke_tpu_torch.ops import paged_attention as pa
+
+    g = torch.Generator(device=dev).manual_seed(17)
+    rec = None
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).split(".")[-1]
+        for s, quant, fill_list in ((1, False, PAGED_FILLS),
+                                    (1, True, PAGED_FILLS),
+                                    (1, False, SERVE_FILLS),
+                                    (256, False, PAGED_FILLS)):
+            q, kp, vp, table, fills, ks, vs = _paged_case(
+                torch, dev, g, dtype, 8, s, quant, fill_list, h=8, d=128)
+            plan = pa.paged_plan(8, s, 8, 8, 128, 64, 16, dtype, kp.dtype)
+            check(plan.variant == "rows",
+                  f"K1 at D=128 S={s} takes the {plan.variant} variant")
+            before = pa.variant_launches["rows"]
+            out = pa.paged_attention_chunk(q, kp, vp, table, fills, ks, vs)
+            ref = pa.paged_attention_chunk_plain(q, kp, vp, table, fills,
+                                                 ks, vs)
+            check(pa.variant_launches["rows"] == before + 1,
+                  "K1 at D=128 did not launch its first design")
+            tag = (f"paged {name} slots=8 N=128 P=64 H=Hkv=8 D=128 S={s}"
+                   f"{' int8' if quant else ''} fills {list(fill_list)} "
+                   f"(rows: {plan.blocks} row blocks of {plan.rows})")
+            err = compare(out, ref, name, tag)
+            if (dtype, s, fill_list) == (torch.bfloat16, 1, SERVE_FILLS):
+                rec = _paged_record(torch, pa, q, kp, vp, table, fills, err,
+                                    "8 slots at fill 716, H=8 D=128, S=1 "
+                                    "bf16 (first design)")
+    log(f"  K1 {rec['shape']}: kernel {rec['ms']:.4f} ms, graph-replayed "
+        f"{rec['graph_ms']:.4f}; SDPA over gathered pages "
+        f"{rec['library_ms']:.4f}, graph-replayed "
+        f"{rec['library_graph_ms']:.4f}; plain {rec['plain_ms']:.4f}; bound "
+        f"{rec['bound_ms']:.4f} ({rec['bound_by']})")
     return rec
 
 
@@ -1537,6 +1701,197 @@ def check_paged_piece(torch, dev, full_model):
             f"S = {piece}, fills {[int(v) for v in fills]}")
 
 
+# -- phase 4c: chunked prefill on the serving main path ------------------------
+
+# The JAX bench's chunked-prefill configuration at full width
+# (bench.py:1196-1199): GPT-small at 2048 positions, 8 slots, chunk 16,
+# 64-token pages (a pool of 8 x 32), pieces of 256 under a 384-token
+# step budget; 32 requests, every 4th with a 1024-token prompt and the
+# rest 64, 64 new tokens each.
+CB = dict(slots=8, chunk=16, page=64, prefill_chunk=256, budget=384,
+          requests=32, short=64, long=1024, new=64)
+
+
+def _cb_prompts(vocab: int):
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    return [rng.integers(0, vocab, CB["long"] if i % 4 == 3 else CB["short"]
+                         ).astype(np.int32) for i in range(CB["requests"])]
+
+
+def _drive_engine(torch, eng, prompts):
+    """Submit every prompt at t0 and step to the end; returns ``(tokens
+    by request, first-token seconds by request, [per request: the gaps
+    between deliveries in ms], wall seconds, [per step: (ms, prefill
+    pieces, decode steps)])``. A step ends in a device-to-host copy, so
+    its end is when its tokens are delivered."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rids = [eng.submit(p, max_new_tokens=CB["new"]) for p in prompts]
+    reqs = {r.rid: r for r in eng._queue}
+    seen = {rid: 0 for rid in rids}
+    stamps = {rid: [] for rid in rids}
+    steps = []
+    while eng.busy:
+        pieces, decode = eng._n_prefill_chunks, eng._n_dispatched_steps
+        t_step = time.perf_counter()
+        eng.step()
+        now = time.perf_counter()
+        steps.append(((now - t_step) * 1e3, eng._n_prefill_chunks - pieces,
+                      eng._n_dispatched_steps - decode))
+        for rid, req in reqs.items():
+            if len(req.tokens) > seen[rid]:
+                seen[rid] = len(req.tokens)
+                stamps[rid].append(now)
+    wall = time.perf_counter() - t0
+    tokens = [list(reqs[r].tokens) for r in rids]
+    ttft = [stamps[r][0] - t0 for r in rids]
+    gaps = [[(b - a) * 1e3 for a, b in zip(stamps[r], stamps[r][1:])]
+            for r in rids]
+    return tokens, ttft, gaps, wall, steps
+
+
+def _top2_margin(torch, model, ids) -> float:
+    """The top-2 logit margin of ``model``'s next-token logits after
+    ``ids`` (a full causal forward)."""
+    with torch.inference_mode():
+        logits = model(torch.tensor([ids], device=model.device))[0, -1]
+    top = torch.topk(logits.float(), 2).values
+    return float(top[0] - top[1])
+
+
+def run_chunked_serving(torch, dev, counters):
+    """Phase 4c: the same 32 arrivals through the unchunked engine and
+    the chunked one (``prefill_chunk`` 256, ``step_token_budget`` 384) on
+    a full-width GPT-small bundle (2048 positions, bf16, int8 export),
+    after a warm-up of both, in turns (unchunked, chunked, chunked,
+    unchunked). Gates: every request gets its 64 tokens,
+    every kernel of the serving path launches during the chunked run,
+    and every piece's K1 calls take the chunk variant (one a layer a
+    piece); then an f32 run of the same arrivals at the full width cut to
+    2 layers must give the unchunked engine's tokens exactly (on a
+    mismatch the first divergent step's top-2 logit margin is printed).
+    Prints time to first token and the largest gap between tokens of the
+    short requests, new tokens a second and the engine's step times,
+    chunked against unchunked. Returns the chunked run's launches and K1
+    launches by variant."""
+    from pyspark_tf_gke_tpu_torch.models.causal_lm import (CausalLM,
+                                                           CausalLMConfig,
+                                                           init_params)
+    from pyspark_tf_gke_tpu_torch.ops import paged_attention as pa
+    from pyspark_tf_gke_tpu_torch.train.continuous import ContinuousEngine
+    from pyspark_tf_gke_tpu_torch.train.export import (export_serving_bundle,
+                                                       load_serving_bundle)
+
+    cfg = CausalLMConfig(max_seq_len=2048, kv_page_size=CB["page"],
+                         kv_num_pages=CB["slots"] * 2048 // CB["page"])
+    bundle = PORT_PKG / "_build" / "chip_smoke_cb_bundle"
+    export_serving_bundle(cfg, init_params(cfg, seed=0), str(bundle),
+                          quantize=True)
+    model = load_serving_bundle(str(bundle), dev)[0]
+    shutil.rmtree(bundle, ignore_errors=True)
+    prompts = _cb_prompts(cfg.vocab_size)
+    chunked_kw = dict(prefill_chunk=CB["prefill_chunk"],
+                      step_token_budget=CB["budget"])
+
+    def engine(m, chunked):
+        return ContinuousEngine(m, num_slots=CB["slots"], chunk=CB["chunk"],
+                                **(chunked_kw if chunked else {}))
+
+    for chunked in (False, True):  # warm-up: both engines' shapes
+        warm = engine(model, chunked)
+        for p in (prompts[0], prompts[1], prompts[3]):
+            warm.submit(p, max_new_tokens=2)
+        list(warm.run_until_drained())
+    # the two engines in turns (unchunked, chunked, chunked, unchunked):
+    # host wall clocks drift by tens of percent within a call, so each
+    # engine's numbers are the mean of its two runs; the counters count
+    # the first chunked run
+    results = {False: [], True: []}
+    launches = variants = None
+    for run, chunked in enumerate((False, True, True, False)):
+        eng = engine(model, chunked)
+        counted = chunked and launches is None
+        if counted:
+            torch.cuda.synchronize()
+            for mod, attr in counters.values():
+                setattr(mod, attr, 0)
+            for variant in pa.variant_launches:
+                pa.variant_launches[variant] = 0
+        tokens, ttft, gaps, wall, steps = _drive_engine(torch, eng, prompts)
+        if counted:
+            torch.cuda.synchronize()
+            launches = {name: getattr(mod, attr)
+                        for name, (mod, attr) in counters.items()}
+            variants = dict(pa.variant_launches)
+        check(all(len(t) == CB["new"] for t in tokens),
+              f"{'chunked' if chunked else 'unchunked'} engine: a request "
+              "did not get its 64 tokens")
+        short = [i for i, p in enumerate(prompts) if len(p) == CB["short"]]
+        r = dict(wall_s=wall, tokens_per_s=sum(map(len, tokens)) / wall,
+                 ttft_ms=statistics.median(ttft[i] * 1e3 for i in short),
+                 ttft_max_ms=max(ttft[i] * 1e3 for i in short),
+                 max_gap_ms=max(max(gaps[i]) for i in short),
+                 pieces=eng.stats["prefill_chunks"],
+                 decode_steps=eng.stats["dispatched_steps"])
+        results[chunked].append(r)
+        ms = [st[0] for st in steps]
+        with_piece = [st[0] for st in steps if st[1]]
+        slow = max(steps)
+        log(f"  run {run + 1}, {'chunked  ' if chunked else 'unchunked'}: "
+            f"{CB['requests'] * CB['new']} new tokens in {wall:.3f} s = "
+            f"{r['tokens_per_s']:.1f} tokens/s; short requests' time to "
+            f"first token median {r['ttft_ms']:.1f} ms, max "
+            f"{r['ttft_max_ms']:.1f} ms; largest gap between tokens "
+            f"{r['max_gap_ms']:.1f} ms; prefill pieces {r['pieces']}, "
+            f"decode steps {r['decode_steps']}; {len(ms)} engine steps, "
+            f"median {statistics.median(ms):.1f} ms, {len(with_piece)} with "
+            f"a piece (median "
+            f"{statistics.median(with_piece) if with_piece else 0:.1f} ms), "
+            f"slowest {slow[0]:.1f} ms ({slow[1]} pieces, {slow[2]} decode "
+            "steps)")
+    mean = {c: {key: statistics.mean(r[key] for r in rs) for key in
+                ("tokens_per_s", "ttft_ms", "max_gap_ms")}
+            for c, rs in results.items()}
+    log(f"  chunked / unchunked, means of two runs each: tokens/s "
+        f"{mean[True]['tokens_per_s'] / mean[False]['tokens_per_s']:.3f}, "
+        f"median TTFT {mean[True]['ttft_ms'] / mean[False]['ttft_ms']:.3f}, "
+        f"largest gap "
+        f"{mean[True]['max_gap_ms'] / mean[False]['max_gap_ms']:.3f}")
+    pieces = results[True][0]["pieces"]
+    log(f"  chunked run's launches {launches}; K1 by variant {variants}")
+    n_long = sum(len(p) == CB["long"] for p in prompts)
+    check(pieces == n_long * CB["long"] // CB["prefill_chunk"],
+          f"{pieces} prefill pieces for {n_long} long prompts of "
+          f"{CB['long'] // CB['prefill_chunk']}")
+    check(variants["chunk"] == pieces * cfg.num_layers,
+          f"K1's chunk variant launched {variants['chunk']} times for "
+          f"{pieces} pieces x {cfg.num_layers} layers")
+    for name, n in launches.items():
+        check(n > 0, f"kernel {name} was not launched on the chunked path")
+
+    # f32 (the full width, 2 layers): chunked == unchunked, token for token
+    cfg32 = dataclasses.replace(cfg, num_layers=2, dtype=torch.float32)
+    with torch.device(dev):
+        m32 = CausalLM(cfg32)
+    m32.load_params(init_params(cfg32, seed=1)).eval()
+    outs = {chunked: _drive_engine(torch, engine(m32, chunked), prompts)[0]
+            for chunked in (False, True)}
+    for i, (a, b) in enumerate(zip(outs[True], outs[False])):
+        if a != b:
+            j = next(k for k, (x, y) in enumerate(zip(a, b)) if x != y)
+            margin = _top2_margin(torch, m32, list(prompts[i]) + b[:j])
+            raise SmokeFailure(
+                f"f32 chunked engine diverges from the unchunked one at "
+                f"request {i} (prompt {len(prompts[i])}), new token {j}: "
+                f"{a[j]} != {b[j]}; top-2 logit margin there {margin:.3e}")
+    log(f"  f32 2-layer chunked engine == unchunked engine for all "
+        f"{len(prompts)} requests ({CB['new']} tokens each)")
+    del model, m32
+    return launches, variants
+
+
 # -- phase 6: the training main path ------------------------------------------
 
 CORPUS_WORDS = ("flash", "attention", "kernel", "hopper", "gradient",
@@ -1795,6 +2150,131 @@ def check_wide_lm_step(torch, dev, counters):
     for name, n in launches.items():
         check(n > 0, f"kernel {name} was not launched at hidden 1280")
     return launches
+
+
+def check_d128_lm(torch, dev, counters):
+    """Phase 7c: a Llama-width head (``lm_pretrain --hidden-size 1024
+    --num-heads 8``: 8 heads of 128, FFN 4096; depth cut to 2 layers,
+    bf16, batch 4 x 512): step-0 loss and gradients through the kernels
+    (K2f, K2dq and K2dkv on the tensor cores at D 128) against
+    ``use_kernels=False`` from one init under phase 7's bf16 limits, then
+    one Adam step; every training kernel's counter must move. Then a
+    paged bundle of the same widths is served over HTTP (4 slots) for
+    three greedy requests: prefill through K2f at D 128, decode through
+    K1's first design at D 128; and an f32 copy's engine must give the
+    dense ``generate``'s tokens. Returns ``(training launches, serving
+    launches)``."""
+    from pyspark_tf_gke_tpu_torch.models.causal_lm import (CausalLM,
+                                                           CausalLMConfig,
+                                                           generate,
+                                                           init_params)
+    from pyspark_tf_gke_tpu_torch.ops import flash_attention as fa
+    from pyspark_tf_gke_tpu_torch.ops import layernorm as ln
+    from pyspark_tf_gke_tpu_torch.ops import paged_attention as pa
+    from pyspark_tf_gke_tpu_torch.train.continuous import ContinuousEngine
+    from pyspark_tf_gke_tpu_torch.train.export import export_serving_bundle
+    from pyspark_tf_gke_tpu_torch.train.harness import make_optimizer
+    from pyspark_tf_gke_tpu_torch.train.serve import (BundleServer,
+                                                      start_http_server)
+    from pyspark_tf_gke_tpu_torch.train.trainer import TASKS, Trainer
+
+    cfg = CausalLMConfig(vocab_size=259, max_seq_len=512, hidden_size=1024,
+                         num_layers=2, num_heads=8, intermediate_size=4096)
+    check(cfg.head_dim == 128
+          and fa.flash_plan(cfg.head_dim, cfg.dtype).design == "wgmma",
+          "the phase-7c model does not run the D-128 tensor-core kernels")
+    batch = _lm_batch(torch, dev, cfg, 4, 40)
+    torch.cuda.synchronize()
+    for mod, attr in counters.values():
+        setattr(mod, attr, 0)
+    model = _train_model(torch, dev, cfg, 6)
+    loss_k, gk = _grads(torch, model, batch)
+    trainer = Trainer(model, TASKS["causal_lm"](), tx=make_optimizer(3e-4))
+    state = trainer.init_state()
+    step_loss = float(trainer.step(state, batch)[1]["loss"])
+    torch.cuda.synchronize()
+    launches = {name: getattr(mod, attr)
+                for name, (mod, attr) in counters.items()}
+    loss_p, gp = _grads(torch, _train_model(torch, dev, cfg, 6, False), batch)
+    rel, worst, worst_rel = _grad_diff(torch, gk, gp)
+    log(f"  hidden 1024, 8 heads of 128, 2 layers, bf16, 4 x 512: loss "
+        f"kernels {loss_k:.5f} vs plain {loss_p:.5f} (diff "
+        f"{abs(loss_k - loss_p):.2e}, tolerance 1e-3); gradients relative "
+        f"L2 {rel:.2e} (tolerance 5e-2); worst tensor {worst} "
+        f"{worst_rel:.2e} (tolerance 1e-1); Adam step loss "
+        f"{step_loss:.5f}; launches {launches}")
+    check(all(bool(torch.isfinite(g).all()) for g in gk.values())
+          and math.isfinite(step_loss), "non-finite D-128 step")
+    check(abs(loss_k - loss_p) <= 1e-3,
+          "D-128 loss through the kernels disagrees")
+    check(rel <= 5e-2 and worst_rel <= 1e-1,
+          "D-128 gradients through the kernels disagree")
+    for name, n in launches.items():
+        check(n > 0, f"kernel {name} was not launched at head_dim 128")
+    del model, trainer, state, gk, gp
+
+    serve_cfg = dataclasses.replace(cfg, kv_page_size=64, kv_num_pages=32)
+    bundle = PORT_PKG / "_build" / "chip_smoke_d128_bundle"
+    export_serving_bundle(serve_cfg, init_params(serve_cfg, seed=2),
+                          str(bundle), quantize=True)
+    server = BundleServer(str(bundle), device=str(dev), continuous_slots=4,
+                          continuous_chunk=8)
+    httpd = start_http_server(server, "127.0.0.1", 0)
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{httpd.server_address[1]}"
+    rng = random.Random(3)
+    serve_counters = {"layernorm": (ln, "launches"),
+                      "flash_attention_fwd": (fa, "launches"),
+                      "paged_attention": (pa, "launches")}
+    try:
+        _post(url + "/v1/generate", {"prompt": "warm up", "max_new_tokens": 2})
+        torch.cuda.synchronize()
+        for mod, attr in serve_counters.values():
+            setattr(mod, attr, 0)
+        rows0 = pa.variant_launches["rows"]
+        body = {"prompts": [_prompt(rng, n) for n in (30, 150, 400)],
+                "max_new_tokens": 24}
+        res = _post(url + "/v1/generate", body)
+        torch.cuda.synchronize()
+        served = {name: getattr(mod, attr)
+                  for name, (mod, attr) in serve_counters.items()}
+        rows = pa.variant_launches["rows"] - rows0
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        server.shutdown()
+        thread.join(30)
+        shutil.rmtree(bundle, ignore_errors=True)
+    check(res[0] == 200 and len(res[1]["completions"]) == 3,
+          f"D-128 generate failed: {res}")
+    for prompt, comp in zip(body["prompts"], res[1]["completions"]):
+        check(comp["completion"].startswith(prompt)
+              and 0 <= comp["new_tokens"] <= 24,
+              f"malformed D-128 completion {comp}")
+    log(f"  D-128 bundle served 3 greedy requests: new tokens "
+        f"{[c['new_tokens'] for c in res[1]['completions']]}; launches "
+        f"{served}, K1 first design {rows}")
+    for name, n in served.items():
+        check(n > 0, f"kernel {name} was not launched serving head_dim 128")
+    check(rows == served["paged_attention"],
+          "K1 at head_dim 128 did not run its first design")
+
+    cfg32 = dataclasses.replace(serve_cfg, dtype=torch.float32)
+    with torch.device(dev):
+        m32 = CausalLM(cfg32)
+    m32.load_params(init_params(cfg32, seed=2)).eval()
+    prompts = [[rng.randrange(256) for _ in range(n)] for n in (20, 100, 300)]
+    eng = ContinuousEngine(m32, num_slots=4, chunk=8)
+    rids = {eng.submit(p, max_new_tokens=16): p for p in prompts}
+    got = dict(eng.run_until_drained())
+    for rid, p in rids.items():
+        ref = generate(m32, [p], 16)[0, len(p):].tolist()
+        check(got[rid] == ref, f"D-128 f32 engine tokens {got[rid]} != "
+              f"generate {ref} (prompt {len(p)} tokens)")
+    log("  D-128 f32 engine greedy tokens == dense generate for 3 prompts "
+        "(16 tokens each)")
+    return launches, served
 
 
 # -- phases 8 and 9: ResNet-50 training ---------------------------------------
@@ -2194,29 +2674,32 @@ def check_resnet_variants(torch, dev, k5_counters):
 # the records' keys beyond the contract's that the kernels line carries
 EXTRA_KEYS = ("graph_ms", "library_graph_ms", "library_contiguous_ms",
               "library_contiguous_graph_ms", "train_shape", "decode_shape",
-              "full_pool", "piece", "launches_by_variant")
+              "full_pool", "piece", "d128", "d80", "launches_by_variant",
+              "launches_by_variant_chunked")
 # kernels (substrings of ptxas's entry names) that must not spill: the
 # tensor-core kernels and K1's decode variant and merge
 NO_SPILL = ("wgmma", "paged_decode", "paged_merge")
 # (name, source, the TPU kernel it replaces, design of its bf16
 # instantiation: "wgmma" on the tensor cores, "simt" on the CUDA cores;
-# K1 by variant)
+# K1 by variant, K2 by head width)
+FLASH_DESIGN = ("wgmma (bf16 at head_dim 64, 128), simt "
+                "(csrc/flash_attention_simt.cu: other head_dim, f32)")
 KERNELS = (
     ("layernorm", "pyspark_tf_gke_tpu_torch/csrc/layernorm.cu",
      "pyspark_tf_gke_tpu/ops/pallas/layernorm.py:37", "simt"),
     ("layernorm_bwd", "pyspark_tf_gke_tpu_torch/csrc/layernorm_bwd.cu",
      "pyspark_tf_gke_tpu/ops/pallas/layernorm.py:98", "simt"),
     ("flash_attention_fwd", "pyspark_tf_gke_tpu_torch/csrc/flash_attention.cu",
-     "pyspark_tf_gke_tpu/ops/pallas/flash_attention.py:49", "wgmma"),
+     "pyspark_tf_gke_tpu/ops/pallas/flash_attention.py:49", FLASH_DESIGN),
     ("flash_attention_dq",
      "pyspark_tf_gke_tpu_torch/csrc/flash_attention_bwd.cu",
-     "pyspark_tf_gke_tpu/ops/pallas/flash_attention.py:162", "wgmma"),
+     "pyspark_tf_gke_tpu/ops/pallas/flash_attention.py:162", FLASH_DESIGN),
     ("flash_attention_dkv",
      "pyspark_tf_gke_tpu_torch/csrc/flash_attention_bwd.cu",
-     "pyspark_tf_gke_tpu/ops/pallas/flash_attention.py:215", "wgmma"),
+     "pyspark_tf_gke_tpu/ops/pallas/flash_attention.py:215", FLASH_DESIGN),
     ("paged_attention", "pyspark_tf_gke_tpu_torch/csrc/paged_attention.cu",
      "pyspark_tf_gke_tpu/ops/pallas/paged_attention.py:124",
-     "split-kv simt (decode), wgmma (chunk)"),
+     "split-kv simt (decode), wgmma (chunk), rows (other head_dim, f32)"),
     ("fused_matmul_fwd", "pyspark_tf_gke_tpu_torch/csrc/fused_matmul.cu",
      "pyspark_tf_gke_tpu/ops/pallas/fused_matmul.py:91", "wgmma"),
     ("fused_matmul_dx", "pyspark_tf_gke_tpu_torch/csrc/fused_matmul.cu",
@@ -2294,6 +2777,10 @@ def main() -> int:
                "paged_attention": check_paged(torch, dev),
                **check_fused_matmul(torch, dev),
                **check_fused_conv3(torch, dev)}
+    log("== 3b. K2 at head widths 128, 32 and 80; K1 at head_dim 128")
+    for name, by_width in check_flash_widths(torch, dev).items():
+        records[name].update(by_width)
+    records["paged_attention"]["d128"] = check_paged_d128(torch, dev)
     for name, rec in records.items():
         log(f"  {name} at {rec['shape']}: kernel_ms {rec['ms']:.4f}, "
             f"plain_ms {rec['plain_ms']:.4f}, library_ms "
@@ -2327,6 +2814,13 @@ def main() -> int:
     check_paged_piece(torch, dev, full_model)
     del full_model
     torch.cuda.empty_cache()
+    log("== 4c. chunked prefill on the serving path: GPT-small at 2048 "
+        "positions, 8 slots, pieces of 256 under a 384-token step budget")
+    chunked_launches, chunked_variants = run_chunked_serving(
+        torch, dev, serve_counters)
+    records["paged_attention"]["launches_by_variant_chunked"] = \
+        chunked_variants
+    torch.cuda.empty_cache()
     log("== 6. training main path: lm_pretrain, GPT-small width, bf16, "
         "batch 16 x 512")
     train_launches, _ = run_training(torch, dev, train_counters)
@@ -2340,6 +2834,10 @@ def main() -> int:
         "heads): LayerNorm at D = 1280")
     wide_launches = check_wide_lm_step(torch, dev, {
         "layernorm": (ln, "launches"), "layernorm_bwd": (ln, "bwd_launches")})
+    torch.cuda.empty_cache()
+    log("== 7c. head_dim 128 (hidden 1024, 8 heads): a training step and a "
+        "served bundle")
+    d128_launches, d128_served = check_d128_lm(torch, dev, train_counters)
     torch.cuda.empty_cache()
 
     k4_counters = {"fused_matmul_fwd": (fm, "fwd_launches"),
@@ -2386,8 +2884,11 @@ def main() -> int:
     for name, source, replaces, design in KERNELS:
         rec = records[name]
         per_path = {"serve": serve_launches.get(name, 0),
+                    "serve_chunked": chunked_launches.get(name, 0),
                     "lm_train": train_launches.get(name, 0),
                     "lm_train_1280": wide_launches.get(name, 0),
+                    "lm_train_d128": d128_launches.get(name, 0),
+                    "serve_d128": d128_served.get(name, 0),
                     "resnet_train": resnet_launches.get(name, 0),
                     "resnet_fused3_train": fused3_launches.get(name, 0)}
         # each kernel's count from the path that runs it, the newest

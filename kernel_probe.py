@@ -71,6 +71,13 @@ editing a ``.cu`` file, and for the experiments PERF.md reports.
         with the bounds; then, where the wrapper has a plan, the decode
         variant at each pages-a-split and the decode and chunk variants
         at chunk widths around the threshold;
+    python3 kernel_probe.py flash-widths [f32] [D ...]
+        K2f, K2dq and K2dkv in bf16 (f32 with ``f32``) at head width D
+        (default 128, 80 and 64; causal, B=16 S=512 H=8), checked against
+        their plain versions, eager and replayed from a CUDA graph,
+        beside SDPA forward and backward, the plain versions and the
+        bounds (bf16 D 64 and 128 on the tensor cores, other widths and
+        f32 on the CUDA cores);
     python3 kernel_probe.py paged-accuracy
         bf16 K1 and its plain version against an f64 reference at the
         checked shape and the 256-token piece: output elements a bf16
@@ -114,7 +121,7 @@ def check(torch, dev, names) -> None:
 
     kernels.library()
     for fn, info in cs.ptxas_report(kernels.build_log).items():
-        if any(k in fn for k in cs.NO_SPILL + ("ln_bwd",)):
+        if any(k in fn for k in cs.NO_SPILL + ("ln_bwd", "flash_")):
             print("ptxas", fn[:100], info)
     for name in names:
         print(name, getattr(cs, name)(torch, dev))
@@ -755,6 +762,17 @@ def paged_accuracy(torch, dev) -> None:
               f", plain {_rel(plain, ref):.2e})", flush=True)
 
 
+def flash_widths(torch, dev, args) -> None:
+    import chip_smoke as cs
+
+    dtype = torch.float32 if "f32" in args else torch.bfloat16
+    widths = [int(a) for a in args if a != "f32"] or (128, 80, 64)
+    g = torch.Generator(device=dev).manual_seed(16)
+    for d in widths:
+        print(f"D={d}", cs.time_flash_width(torch, dev, g, d, dtype=dtype),
+              flush=True)
+
+
 def main(argv) -> int:
     import torch
 
@@ -781,6 +799,7 @@ def main(argv) -> int:
                 "dkv-modes": lambda: dkv_modes(torch, dev),
                 "paged-modes": lambda: paged_modes(torch, dev),
                 "paged-accuracy": lambda: paged_accuracy(torch, dev),
+                "flash-widths": lambda: flash_widths(torch, dev, argv[1:]),
                 "ln-widths": lambda: ln_widths(
                     torch, dev, [int(a) for a in argv[1:]])}
     if not argv or argv[0] not in commands:

@@ -11,15 +11,23 @@
 // operations, so the kernel is bound by bytes, and by the rate it can
 // feed the tensor cores from shared memory once the bytes are in.
 //
-// The port's entry point chooses the design by dtype and nothing else:
+// The entry point runs the design of the plan (flash_attention.cuh,
+// ops/flash_attention.py flash_plan), from the head width and dtype
+// alone: bf16 at head_dim 64 and 128 takes the tensor-core design below,
+// every other width and f32 at every width the CUDA-core design
+// (flash_attention_simt.cu).
 //
-// bf16 (flash_fwd_wgmma, the tensor-core design): a CTA owns 128 query
-// rows of one (b, h) on two warpgroups of 64 rows. Q is loaded once and
-// 64-key K/V tiles stream through a 2-stage shared-memory ring, all by
-// TMA from 4-D tensor maps over the strided [B, S, H, D] views (no
-// transposed copy; rows past S arrive as zeros), each stage guarded by
-// an mbarrier. S = Q K^T is four wgmma k16 steps from shared memory
-// (bf16 operands, f32 accumulators); the scale, the kv bias, the segment
+// bf16 (flash_fwd_wgmma<D>, the tensor-core design, D 64 or 128): a CTA
+// owns 128 query rows of one (b, h) on two warpgroups of 64 rows. Q is
+// loaded once and 64-key K/V tiles stream through a 2-stage shared-memory
+// ring, all by TMA from 4-D tensor maps over the strided [B, S, H, D]
+// views (no transposed copy; rows past S arrive as zeros), each stage
+// guarded by an mbarrier. A tile row of D bf16 is D/64 128-byte swizzle
+// atoms: each tile is D/64 column blocks of 64 head_dim values, one TMA
+// box each (a 128B-swizzled box is at most 128 bytes wide). S = Q K^T is
+// D/16 wgmma k16 steps from shared memory (bf16 operands, f32
+// accumulators), the descriptors stepping 32 bytes inside an atom and
+// then to the next column block; the scale, the kv bias, the segment
 // and causal masks are applied to the accumulator fragments (the causal
 // compare on diagonal tiles only; key tiles wholly in a warpgroup's
 // future are skipped; the tile's bias and segment ids are staged in
@@ -27,141 +35,22 @@
 // fragment. The rounding points are the TPU kernel's: l sums the
 // unrounded f32 P (:93-95), P is rounded to bf16 in registers (:97) and
 // O += P V is a wgmma with A from registers and V read through the
-// transpose bit (V is key-major, head_dim contiguous); the f32
-// accumulator is divided by l once at the end, rows with no unmasked key
-// give 0 and lse +inf (:108-114). Causal CTAs start with the last query
-// block (the longest) so the tail of the grid is short. Warp
-// specialisation, persistent CTAs and pingpong scheduling are later
-// work; each tile's two products wait for each other here.
-//
-// f32 (flash_fwd_kernel, the first, CUDA-core design, kept as the f32
-// reference that the model-parity gates stand on): one CTA per (b*h,
-// 64-row query block) and one thread per query row on the CUDA cores;
-// K/V tiles of 64 keys staged in shared memory as f32; P stays f32 for
-// P V.
+// transpose bit (V is key-major, head_dim contiguous; at D 128 an n128
+// product over the two column blocks, 8 KB apart); the f32 accumulator
+// is divided by l once at the end, rows with no unmasked key give 0 and
+// lse +inf (:108-114). Causal CTAs start with the last query block (the
+// longest) so the tail of the grid is short. Warp specialisation,
+// persistent CTAs and pingpong scheduling are later work; each tile's
+// two products wait for each other here. Shared memory: 48 KB at D 64,
+// 96 KB at D 128.
 
 
-#include "common.cuh"
+#include "flash_attention.cuh"
 #include "wgmma.cuh"
 
 using namespace port;
 
 namespace {
-
-constexpr int kBQ = 64;   // query rows per CTA == threads per CTA
-constexpr int kBK = 64;   // keys per shared-memory tile
-constexpr int kSub = 16;  // keys per online-softmax update
-
-template <typename T, int D>
-__global__ void __launch_bounds__(kBQ)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, const uint8_t* __restrict__ kv_mask,
-                 const int* __restrict__ segs, T* __restrict__ out,
-                 float* __restrict__ lse, int S, int H,
-                 long long qsb, long long qss, long long qsh,
-                 long long ksb, long long kss, long long ksh,
-                 long long vsb, long long vss, long long vsh,
-                 int causal, float scale) {
-  __shared__ float k_tile[kBK][D];
-  __shared__ float v_tile[kBK][D];
-  __shared__ float k_bias[kBK];
-  __shared__ int k_seg[kBK];
-
-  const int bh = blockIdx.y;
-  const int b = bh / H;
-  const int h = bh % H;
-  const int q0 = blockIdx.x * kBQ;
-  const int qi = q0 + threadIdx.x;
-  const bool row_ok = qi < S;
-
-  float qv[D];
-  float acc[D];
-  const T* qrow = q + b * qsb + static_cast<long long>(qi) * qss + h * qsh;
-#pragma unroll
-  for (int dd = 0; dd < D; ++dd) {
-    qv[dd] = row_ok ? to_f32(qrow[dd]) : 0.f;
-    acc[dd] = 0.f;
-  }
-  const int seg_q = (segs != nullptr && row_ok) ? segs[static_cast<long long>(b) * S + qi] : 0;
-  float m = kNegInf;
-  float l = 0.f;
-
-  const int q_last = min(q0 + kBQ, S) - 1;
-  const int k_end = causal ? q_last + 1 : S;
-  for (int k0 = 0; k0 < k_end; k0 += kBK) {
-    const int nk = min(kBK, k_end - k0);
-    __syncthreads();  // the previous tile's readers are done
-    for (int idx = threadIdx.x; idx < nk * D; idx += kBQ) {
-      const int j = idx / D;
-      const int dd = idx % D;
-      const long long key = k0 + j;
-      k_tile[j][dd] = to_f32(k[b * ksb + key * kss + h * ksh + dd]);
-      v_tile[j][dd] = to_f32(v[b * vsb + key * vss + h * vsh + dd]);
-    }
-    for (int j = threadIdx.x; j < nk; j += kBQ) {
-      const long long key = static_cast<long long>(b) * S + k0 + j;
-      k_bias[j] = (kv_mask != nullptr && !kv_mask[key]) ? kNegInf : 0.f;
-      k_seg[j] = segs != nullptr ? segs[key] : 0;
-    }
-    __syncthreads();
-    if (!row_ok) continue;
-    for (int j0 = 0; j0 < nk; j0 += kSub) {
-      float sc[kSub];
-      float mx = m;
-#pragma unroll
-      for (int t = 0; t < kSub; ++t) {
-        const int j = j0 + t;
-        float s = kNegInf;
-        if (j < nk) {
-          float dot = 0.f;
-#pragma unroll
-          for (int dd = 0; dd < D; ++dd) dot = fmaf(qv[dd], k_tile[j][dd], dot);
-          // same order as the TPU kernel: scale, additive bias, then
-          // the segment and causal masks replace the score
-          s = dot * scale + k_bias[j];
-          if (segs != nullptr && k_seg[j] != seg_q) s = kNegInf;
-          if (causal && k0 + j > qi) s = kNegInf;
-          mx = fmaxf(mx, s);
-        }
-        sc[t] = s;
-      }
-      const float alpha = expf(m - mx);
-      l *= alpha;
-#pragma unroll
-      for (int dd = 0; dd < D; ++dd) acc[dd] *= alpha;
-#pragma unroll
-      for (int t = 0; t < kSub; ++t) {
-        const int j = j0 + t;
-        if (j < nk) {
-          const float p = expf(sc[t] - mx);
-          l += p;
-#pragma unroll
-          for (int dd = 0; dd < D; ++dd) acc[dd] = fmaf(p, v_tile[j][dd], acc[dd]);
-        }
-      }
-      m = mx;
-    }
-  }
-  if (!row_ok) return;
-  const bool valid = m > kNegInf * 0.5f;  // at least one unmasked key
-  const float denom = (l == 0.f) ? 1.f : l;
-  T* orow = out + ((static_cast<long long>(b) * S + qi) * H + h) * D;
-#pragma unroll
-  for (int dd = 0; dd < D; ++dd) orow[dd] = from_f32<T>(valid ? acc[dd] / denom : 0.f);
-  lse[(static_cast<long long>(b) * H + h) * S + qi] = valid ? m + logf(denom) : INFINITY;
-}
-
-template <typename T, int D>
-void launch(const void* q, const void* k, const void* v, const void* kv_mask,
-            const void* segs, void* out, void* lse, int B, int S, int H,
-            const long long* st, int causal, float scale, cudaStream_t stream) {
-  const dim3 grid((S + kBQ - 1) / kBQ, B * H);
-  flash_fwd_kernel<T, D><<<grid, kBQ, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const uint8_t*>(kv_mask), static_cast<const int*>(segs),
-      static_cast<T*>(out), static_cast<float*>(lse), S, H,
-      st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], causal, scale);
-}
 
 // -- bf16: the tensor-core design ---------------------------------------------
 
@@ -173,28 +62,54 @@ constexpr int kBQ = 128;    // query rows per CTA: two warpgroups of 64
 constexpr int kBKV = 64;    // keys per K/V tile
 constexpr int kStages = 2;  // K/V ring depth
 constexpr int kThreads = 256;
-constexpr int kRowBytes = 128;  // 64 bf16 of head_dim: one swizzle row
+constexpr int kAtomRow = 128;  // a swizzle-atom row: 64 bf16 of head_dim
 constexpr float kLog2e = 1.4426950408889634f;
-constexpr int kQBytes = kBQ * kRowBytes;
-constexpr int kTileBytes = kBKV * kRowBytes;
-constexpr int kStageBytes = 2 * kTileBytes;  // K then V
-constexpr int kBarOffset = kQBytes + kStages * kStageBytes;
-// 1024 of slack to align the swizzled tiles, the tiles, the stage and Q
-// barriers, then each stage's kv bias (f32) and segment ids
-constexpr int kSmem = 1024 + kBarOffset + 8 * (kStages + 1) + 2 * kStages * kBKV * 4;
 
+// The shared-memory plan at head width D: every tile is D/64 column
+// blocks ([rows][64 bf16], 128B-swizzled), block a at a * rows * 128.
+template <int D>
+struct Layout {
+  static constexpr int kAtoms = D / 64;
+  static constexpr int kQBlock = kBQ * kAtomRow;    // Q's column-block stride
+  static constexpr int kKVBlock = kBKV * kAtomRow;  // a K or V tile's
+  static constexpr int kQBytes = kAtoms * kQBlock;
+  static constexpr int kTileBytes = kAtoms * kKVBlock;
+  static constexpr int kStageBytes = 2 * kTileBytes;  // K then V
+  static constexpr int kBarOffset = kQBytes + kStages * kStageBytes;
+  // 1024 of slack to align the swizzled tiles, the tiles, the stage and
+  // Q barriers, then each stage's kv bias (f32) and segment ids
+  static constexpr int kSmem = 1024 + kBarOffset + 8 * (kStages + 1) + 2 * kStages * kBKV * 4;
+};
+static_assert(Layout<128>::kSmem <= 232448, "shared memory");
+
+// O (+)= P V over one 64-key tile: four k16 steps, A (bf16 P) from
+// registers, V read MN-major through the transpose bit; at D 128 one
+// n128 product whose B spans the tile's two column blocks (LBO apart)
+template <int D>
+__device__ __forceinline__ void pv_product(float (&o)[D / 2], const uint32_t (&p)[4][4],
+                                           uint32_t v_addr) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const uint64_t db = desc_mnmajor(v_addr + kk * 16 * kAtomRow, Layout<D>::kKVBlock);
+    if constexpr (D == 64) wgmma_m64n64k16_rs<1>(o, p[kk], db, 1);
+    else wgmma_m64n128k16_rs<1>(o, p[kk], db, 1);
+  }
+}
+
+template <int D>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_wgmma(__grid_constant__ const CUtensorMap tq, __grid_constant__ const CUtensorMap tk,
                 __grid_constant__ const CUtensorMap tv, const uint8_t* __restrict__ kv_mask,
                 const int* __restrict__ segs, __nv_bfloat16* __restrict__ out,
                 float* __restrict__ lse, int S, int H, int causal, float scale) {
+  using L = Layout<D>;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   uint8_t* q_s = smem;
-  uint8_t* kv_s = smem + kQBytes;
-  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + kBarOffset);  // stages, then Q
-  float* bias_s = reinterpret_cast<float*>(bars + kStages + 1);      // [kStages][kBKV]
-  int* seg_s = reinterpret_cast<int*>(bias_s + kStages * kBKV);      // [kStages][kBKV]
+  uint8_t* kv_s = smem + L::kQBytes;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L::kBarOffset);  // stages, then Q
+  float* bias_s = reinterpret_cast<float*>(bars + kStages + 1);         // [kStages][kBKV]
+  int* seg_s = reinterpret_cast<int*>(bias_s + kStages * kBKV);         // [kStages][kBKV]
 
   const int t = threadIdx.x, g = t >> 7, warp = (t >> 5) & 3, lane = t & 31;
   // causal: the last query block (the most keys) first
@@ -209,9 +124,14 @@ flash_fwd_wgmma(__grid_constant__ const CUtensorMap tq, __grid_constant__ const 
   const long long brow = static_cast<long long>(b) * S;
 
   auto load_kv = [&](int tile, int st) {  // one thread
-    mbar_arrive_expect_tx(&bars[st], kStageBytes);
-    tma_load_4d(kv_s + st * kStageBytes, &tk, &bars[st], 0, h, tile * kBKV, b);
-    tma_load_4d(kv_s + st * kStageBytes + kTileBytes, &tv, &bars[st], 0, h, tile * kBKV, b);
+    uint8_t* dst = kv_s + st * L::kStageBytes;
+    mbar_arrive_expect_tx(&bars[st], L::kStageBytes);
+#pragma unroll
+    for (int a = 0; a < L::kAtoms; ++a) {
+      tma_load_4d(dst + a * L::kKVBlock, &tk, &bars[st], 64 * a, h, tile * kBKV, b);
+      tma_load_4d(dst + L::kTileBytes + a * L::kKVBlock, &tv, &bars[st], 64 * a, h,
+                  tile * kBKV, b);
+    }
   };
   auto stage_masks = [&](int tile, int st) {  // threads 0..kBKV-1
     const int key = tile * kBKV + t;
@@ -226,8 +146,10 @@ flash_fwd_wgmma(__grid_constant__ const CUtensorMap tq, __grid_constant__ const 
   }
   __syncthreads();
   if (t == 0) {
-    mbar_arrive_expect_tx(&bars[kStages], kQBytes);
-    tma_load_4d(q_s, &tq, &bars[kStages], 0, h, q0, b);
+    mbar_arrive_expect_tx(&bars[kStages], L::kQBytes);
+#pragma unroll
+    for (int a = 0; a < L::kAtoms; ++a)
+      tma_load_4d(q_s + a * L::kQBlock, &tq, &bars[kStages], 64 * a, h, q0, b);
     for (int i = 0; i < kStages && i < ntiles; ++i) load_kv(i, i);
   }
   if (masks && t < kBKV) stage_masks(0, 0);
@@ -235,11 +157,11 @@ flash_fwd_wgmma(__grid_constant__ const CUtensorMap tq, __grid_constant__ const 
   const int seg_b = (segs != nullptr && row_b < S) ? segs[brow + row_b] : 0;
   __syncthreads();
 
-  float o[32];
+  float o[D / 2];
 #pragma unroll
-  for (int i = 0; i < 32; ++i) o[i] = 0.f;
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
   float m_a = kNegInf, m_b = kNegInf, l_a = 0.f, l_b = 0.f;  // l: this thread's columns
-  const uint32_t q_addr = smem_u32(q_s) + g * 64 * kRowBytes;
+  const uint32_t q_addr = smem_u32(q_s) + g * 64 * kAtomRow;
   mbar_wait(&bars[kStages], 0);
 
   for (int it = 0; it < ntiles; ++it) {
@@ -248,15 +170,19 @@ flash_fwd_wgmma(__grid_constant__ const CUtensorMap tq, __grid_constant__ const 
     mbar_wait(&bars[st], (it / kStages) & 1);
     // a tile wholly in the future of every row of the warpgroup is skipped
     if (!causal || k0 <= wg_row0 + 63) {
-      const uint32_t k_addr = smem_u32(kv_s + st * kStageBytes);
-      const uint32_t v_addr = k_addr + kTileBytes;
+      const uint32_t k_addr = smem_u32(kv_s + st * L::kStageBytes);
+      const uint32_t v_addr = k_addr + L::kTileBytes;
       float s[32];
 #pragma unroll
       for (int i = 0; i < 32; ++i) s[i] = 0.f;
       wgmma_fence();
+      // D/16 k16 steps: 32 bytes on inside a column block, then the next block
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-        wgmma_m64n64k16_ss<0>(s, desc_kmajor(q_addr + kk * 32), desc_kmajor(k_addr + kk * 32), kk);
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t step = (kk & 3) * 32;
+        wgmma_m64n64k16_ss<0>(s, desc_kmajor(q_addr + (kk >> 2) * L::kQBlock + step),
+                              desc_kmajor(k_addr + (kk >> 2) * L::kKVBlock + step), kk);
+      }
       wgmma_commit();
       wgmma_wait<0>();
       fence_operand(s);
@@ -328,16 +254,14 @@ flash_fwd_wgmma(__grid_constant__ const CUtensorMap tq, __grid_constant__ const 
       l_a = l_a * alpha_a + sum_a;
       l_b = l_b * alpha_b + sum_b;
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
+      for (int j = 0; j < D / 8; ++j) {
         o[j * 4 + 0] *= alpha_a;
         o[j * 4 + 1] *= alpha_a;
         o[j * 4 + 2] *= alpha_b;
         o[j * 4 + 3] *= alpha_b;
       }
       wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-        wgmma_m64n64k16_rs<1>(o, p[kk], desc_mnmajor(v_addr + kk * 16 * kRowBytes), 1);
+      pv_product<D>(o, p, v_addr);
       wgmma_commit();
       wgmma_wait<0>();
       fence_operand(o);
@@ -359,9 +283,9 @@ flash_fwd_wgmma(__grid_constant__ const CUtensorMap tq, __grid_constant__ const 
     const float l = r == 0 ? l_a : l_b;
     const bool valid = m > kNegInf * 0.5f;  // at least one unmasked key
     const float denom = (l == 0.f) ? 1.f : l;
-    __nv_bfloat16* orow = out + ((brow + row) * H + h) * 64;
+    __nv_bfloat16* orow = out + ((brow + row) * H + h) * D;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
+    for (int j = 0; j < D / 8; ++j) {
       const float v0 = valid ? o[j * 4 + 2 * r] / denom : 0.f;
       const float v1 = valid ? o[j * 4 + 2 * r + 1] / denom : 0.f;
       *reinterpret_cast<__nv_bfloat162*>(orow + j * 8 + 2 * (lane & 3)) =
@@ -372,22 +296,23 @@ flash_fwd_wgmma(__grid_constant__ const CUtensorMap tq, __grid_constant__ const 
   }
 }
 
+template <int D>
 int launch(const void* q, const void* k, const void* v, const void* kv_mask, const void* segs,
-           void* out, void* lse, int B, int S, int H, const long long* st, int causal,
+           void* out, void* lse, int B, int S, int H, const flash::Strides& st, int causal,
            float scale, cudaStream_t stream) {
   const EncodeTiled encode = tensor_map_encoder();
   if (encode == nullptr) return static_cast<int>(cudaErrorSharedObjectSymbolNotFound);
   CUtensorMap mq, mk, mv;
-  if (!tensor_map_bshd(encode, &mq, q, B, S, H, st[0], st[1], st[2], kBQ) ||
-      !tensor_map_bshd(encode, &mk, k, B, S, H, st[3], st[4], st[5], kBKV) ||
-      !tensor_map_bshd(encode, &mv, v, B, S, H, st[6], st[7], st[8], kBKV)) {
+  if (!tensor_map_bshd(encode, &mq, q, B, S, H, st.qb, st.qs, st.qh, kBQ, D) ||
+      !tensor_map_bshd(encode, &mk, k, B, S, H, st.kb, st.ks, st.kh, kBKV, D) ||
+      !tensor_map_bshd(encode, &mv, v, B, S, H, st.vb, st.vs, st.vh, kBKV, D)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_wgmma, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+      flash_fwd_wgmma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, Layout<D>::kSmem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((S + kBQ - 1) / kBQ, B * H);
-  flash_fwd_wgmma<<<grid, kThreads, kSmem, stream>>>(
+  flash_fwd_wgmma<D><<<grid, kThreads, Layout<D>::kSmem, stream>>>(
       mq, mk, mv, static_cast<const uint8_t*>(kv_mask), static_cast<const int*>(segs),
       static_cast<__nv_bfloat16*>(out), static_cast<float*>(lse), S, H, causal, scale);
   return static_cast<int>(cudaGetLastError());
@@ -398,31 +323,33 @@ int launch(const void* q, const void* k, const void* v, const void* kv_mask, con
 }  // namespace
 
 // strides: q (batch, seq, head), k (batch, seq, head), v (batch, seq,
-// head), in elements; the head_dim axis must be contiguous. bf16 (the
-// tensor-core design, through TMA) also needs 16-byte aligned bases and
-// strides of size>1 dimensions that are multiples of 8 elements, or it
-// returns cudaErrorInvalidValue; f32 runs the CUDA-core design.
+// head), in elements; the head_dim axis must be contiguous. width: the
+// plan's (ops/flash_attention.py flash_plan), checked against
+// flash::plan_width; D outside 1..256 returns cudaErrorInvalidValue. The
+// tensor-core design (bf16 at D 64 and 128, through TMA) also needs
+// 16-byte aligned bases and strides of size>1 dimensions that are
+// multiples of 8 elements, or it returns cudaErrorInvalidValue.
 extern "C" int port_flash_attention_fwd(
     const void* q, const void* k, const void* v, const void* kv_mask,
     const void* segs, void* out, void* lse, int B, int S, int H, int D,
     long long qsb, long long qss, long long qsh,
     long long ksb, long long kss, long long ksh,
     long long vsb, long long vss, long long vsh,
-    int causal, float scale, int dtype, int device, void* stream) {
+    int causal, float scale, int dtype, int width, int device, void* stream) {
   // this library links its own CUDA runtime: select the caller's
   // device in it before launching on the caller's stream
   if (cudaSetDevice(device) != cudaSuccess) return static_cast<int>(cudaGetLastError());
+  const int w = flash::plan_width(D, dtype);
+  if (w == 0 || w != width) return static_cast<int>(cudaErrorInvalidValue);
   if (B <= 0 || S <= 0 || H <= 0) return 0;
   if (B * H > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  // head_dim 64 is the only width a ported model uses (GPT-small); a
-  // new width is a new instantiation, checked on the card before use
-  if (D != 64) return static_cast<int>(cudaErrorInvalidValue);
-  const long long st[9] = {qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh};
+  const flash::Strides st{qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh, 0, 0, 0};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case kF32: launch<float, 64>(q, k, v, kv_mask, segs, out, lse, B, S, H, st, causal, scale, s); break;
-    case kBF16: return wg::launch(q, k, v, kv_mask, segs, out, lse, B, S, H, st, causal, scale, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
+  if (!flash::tensor_core(D, dtype)) {
+    return flash::simt_fwd(q, k, v, kv_mask, segs, out, lse, B, S, H, D, st, causal, scale,
+                           dtype, s);
   }
-  return static_cast<int>(cudaGetLastError());
+  return D == 64 ? wg::launch<64>(q, k, v, kv_mask, segs, out, lse, B, S, H, st, causal, scale, s)
+                 : wg::launch<128>(q, k, v, kv_mask, segs, out, lse, B, S, H, st, causal, scale,
+                                   s);
 }

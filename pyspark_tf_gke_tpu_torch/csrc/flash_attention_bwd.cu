@@ -23,10 +23,14 @@
 // 0.0228 ms of bytes against 0.0130 ms of bf16 tensor-core operations,
 // so bound by bytes, and in practice by how fast the products are fed.
 //
-// Each entry point chooses the design by dtype and nothing else: bf16
-// runs the tensor-core kernels below, f32 the CUDA-core ones.
+// Each entry point runs the design of the plan (flash_attention.cuh,
+// ops/flash_attention.py flash_plan), from the head width and dtype
+// alone: bf16 at head_dim 64 and 128 takes the tensor-core kernels
+// below, every other width and f32 at every width the CUDA-core ones
+// (flash_attention_simt.cu).
 //
-// K2dkv bf16 (wg::flash_dkv_wgmma, the tensor-core design): a CTA owns
+// K2dkv bf16 (wg::flash_dkv_wgmma<D>, the tensor-core design, D 64 or
+// 128): a CTA owns
 // 128 keys of one (b, h) on two consumer warpgroups of 64 keys, and a
 // producer warpgroup that gives its registers to them. K and V arrive
 // once by TMA from the 4-D maps over the strided [B, S, H, D] views
@@ -41,16 +45,18 @@
 // forms P = exp(S - lse) and dS = P (dP - delta) scale in f32 on the
 // accumulator fragments, rounds both to bf16 in registers as A
 // fragments, and runs dV += P^T dO and dK += dS^T Q with A from
-// registers and dO, Q read MN-major through the transpose bit. Each
-// tile's two products go into fresh accumulators that are added to the
-// f32 sums in tile order (the TPU kernel also adds one f32 product a
-// block). Keys and query rows past S arrive as zeros from TMA
+// registers and dO, Q read MN-major through the transpose bit. At D 64
+// each tile's two products go into fresh accumulators that are added to
+// the f32 sums in tile order (the TPU kernel also adds one f32 product a
+// block); at D 128 the dK and dV sums alone are 128 registers a thread,
+// so the products accumulate into them directly (the wgmma's own f32
+// accumulation). Keys and query rows past S arrive as zeros from TMA
 // and padded query rows take lse = +inf, so they contribute nothing;
 // dK and dV are rounded once and stored from the fragments. Causal CTAs
 // are launched longest first: the key block is the slow grid axis, so
 // the first wave takes the blocks that see every query tile.
 //
-// K2dq bf16 (wgdq::flash_dq_wgmma, the tensor-core design): K2dkv's
+// K2dq bf16 (wgdq::flash_dq_wgmma<D>, the tensor-core design): K2dkv's
 // design with the roles turned. A CTA owns 128 query rows of one (b, h)
 // on two consumer warpgroups of 64 rows, and a producer warpgroup that
 // gives its registers to them (setmaxnreg 40 / 232, as wg::). Q and dO
@@ -84,277 +90,30 @@
 // ring overlap them), and each CTA re-reads the K/V tiles that the
 // other query blocks of its (b, h) also read (from L2).
 //
-// K2dq f32 and K2dkv f32 (the first, CUDA-core design, kept as the f32
-// reference the model-parity gates stand on): one CTA per
-// (b*h, 64-row block): 64 query rows for K2dq, 64 keys for K2dkv. Each
-// row belongs to a PAIR of neighbouring threads and each thread holds
-// half of head_dim in registers: K2dq keeps q, dO and the dQ accumulator
-// (3 x 32 floats a thread), K2dkv keeps k, v and the dK and dV
-// accumulators (4 x 32 floats). One thread per row, as in the forward,
-// would need 192 or 256 floats a thread and spill; with the split, a dot
-// product over D is two half-sums and one shuffle between the pair. The
-// thread with `half` = h holds the float4 chunks 2c + h (c < D/8), so
-// the two threads of a pair read neighbouring 16-byte words of a
-// shared-memory row, and every thread of a warp reads the same row (a
-// broadcast, no bank conflicts). The walked tiles (K/V for K2dq, Q/dO
-// plus lse/delta for K2dkv) are staged in shared memory as f32. Causal
-// K2dq blocks stop at the block's last query row; causal K2dkv blocks
-// start at the first query row that can see the block. Query rows and
-// keys past S are masked, so S need not be a multiple of 64.
-
-#include "common.cuh"
+#include "flash_attention.cuh"
 #include "wgmma.cuh"
 
 using namespace port;
 
 namespace {
 
-constexpr int kRows = 64;             // rows (K2dq) or keys (K2dkv) per CTA
-constexpr int kThreads = 2 * kRows;   // a pair of threads per row
-constexpr int kTile = 64;             // keys (K2dq) or rows (K2dkv) per tile
-
-__device__ __forceinline__ float pair_sum(float v) {
-  return v + __shfl_xor_sync(0xffffffffu, v, 1);
-}
-
-// This thread's half of a row: float4 chunks 2c + half, c < D/8.
-template <typename T, int D>
-__device__ __forceinline__ void load_half(const T* row, int half, bool ok,
-                                          float* out) {
-#pragma unroll
-  for (int c = 0; c < D / 8; ++c) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      out[4 * c + e] = ok ? to_f32(row[8 * c + 4 * half + e]) : 0.f;
-    }
-  }
-}
-
-template <typename T, int D>
-__device__ __forceinline__ void store_half(T* row, int half, const float* v) {
-#pragma unroll
-  for (int c = 0; c < D / 8; ++c) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) row[8 * c + 4 * half + e] = from_f32<T>(v[4 * c + e]);
-  }
-}
-
-// Half of the dot product of a register half-row with shared row `t`.
-template <int D>
-__device__ __forceinline__ float half_dot(const float* a, const float4* t, int half) {
-  float s = 0.f;
-#pragma unroll
-  for (int c = 0; c < D / 8; ++c) {
-    const float4 w = t[2 * c + half];
-    s = fmaf(a[4 * c], w.x, s);
-    s = fmaf(a[4 * c + 1], w.y, s);
-    s = fmaf(a[4 * c + 2], w.z, s);
-    s = fmaf(a[4 * c + 3], w.w, s);
-  }
-  return s;
-}
-
-// acc += f * shared row `t` (this thread's half).
-template <int D>
-__device__ __forceinline__ void half_axpy(float* acc, float f, const float4* t, int half) {
-#pragma unroll
-  for (int c = 0; c < D / 8; ++c) {
-    const float4 w = t[2 * c + half];
-    acc[4 * c] = fmaf(f, w.x, acc[4 * c]);
-    acc[4 * c + 1] = fmaf(f, w.y, acc[4 * c + 1]);
-    acc[4 * c + 2] = fmaf(f, w.z, acc[4 * c + 2]);
-    acc[4 * c + 3] = fmaf(f, w.w, acc[4 * c + 3]);
-  }
-}
-
-// Stage rows [r0, r0 + n) of a [B, S, H, D] tensor (head h of batch b,
-// strides in elements) into a shared f32 tile of float4 chunks.
-template <typename T, int D>
-__device__ __forceinline__ void stage_rows(float4 (*tile)[D / 4], const T* base,
-                                           long long ss, int r0, int n) {
-  for (int idx = threadIdx.x; idx < n * (D / 4); idx += kThreads) {
-    const int j = idx / (D / 4);
-    const int m = idx % (D / 4);
-    const T* src = base + static_cast<long long>(r0 + j) * ss + 4 * m;
-    tile[j][m] = make_float4(to_f32(src[0]), to_f32(src[1]), to_f32(src[2]),
-                             to_f32(src[3]));
-  }
-}
-
-struct Strides {
-  long long qb, qs, qh, kb, ks, kh, vb, vs, vh, ob, os, oh;
-};
-
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                const T* __restrict__ v, const T* __restrict__ dout,
-                const uint8_t* __restrict__ kv_mask, const int* __restrict__ segs,
-                const float* __restrict__ lse, const float* __restrict__ delta,
-                T* __restrict__ dq, int S, int H, Strides st, int causal,
-                float scale) {
-  __shared__ float4 k_tile[kTile][D / 4];
-  __shared__ float4 v_tile[kTile][D / 4];
-  __shared__ float k_bias[kTile];
-  __shared__ int k_seg[kTile];
-
-  const int bh = blockIdx.y;
-  const int b = bh / H;
-  const int h = bh % H;
-  const int q0 = blockIdx.x * kRows;
-  const int half = threadIdx.x & 1;
-  const int qi = q0 + (threadIdx.x >> 1);
-  const bool row_ok = qi < S;
-
-  float qv[D / 2], dov[D / 2], acc[D / 2];
-  load_half<T, D>(q + b * st.qb + static_cast<long long>(qi) * st.qs + h * st.qh, half, row_ok, qv);
-  load_half<T, D>(dout + b * st.ob + static_cast<long long>(qi) * st.os + h * st.oh, half, row_ok, dov);
-#pragma unroll
-  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
-  const long long rv = (static_cast<long long>(b) * H + h) * S + qi;
-  // rows past S take lse = +inf: p = 0, so they stay in the shuffles
-  // of their warp without contributing
-  const float lse_i = row_ok ? lse[rv] : INFINITY;
-  const float delta_i = row_ok ? delta[rv] : 0.f;
-  const int seg_q = (segs != nullptr && row_ok) ? segs[static_cast<long long>(b) * S + qi] : 0;
-
-  const int q_last = min(q0 + kRows, S) - 1;
-  const int k_end = causal ? q_last + 1 : S;
-  for (int k0 = 0; k0 < k_end; k0 += kTile) {
-    const int nk = min(kTile, k_end - k0);
-    __syncthreads();  // the previous tile's readers are done
-    stage_rows<T, D>(k_tile, k + b * st.kb + h * st.kh, st.ks, k0, nk);
-    stage_rows<T, D>(v_tile, v + b * st.vb + h * st.vh, st.vs, k0, nk);
-    for (int j = threadIdx.x; j < nk; j += kThreads) {
-      const long long key = static_cast<long long>(b) * S + k0 + j;
-      k_bias[j] = (kv_mask != nullptr && !kv_mask[key]) ? kNegInf : 0.f;
-      k_seg[j] = segs != nullptr ? segs[key] : 0;
-    }
-    __syncthreads();
-    for (int j = 0; j < nk; ++j) {
-      const float s_dot = pair_sum(half_dot<D>(qv, k_tile[j], half));
-      const float dp = pair_sum(half_dot<D>(dov, v_tile[j], half));
-      // the forward's order: scale, additive bias, then the segment and
-      // causal masks replace the score
-      float s = s_dot * scale + k_bias[j];
-      if (segs != nullptr && k_seg[j] != seg_q) s = kNegInf;
-      if (causal && k0 + j > qi) s = kNegInf;
-      const float p = expf(s - lse_i);
-      const float ds = p * (dp - delta_i) * scale;
-      half_axpy<D>(acc, ds, k_tile[j], half);
-    }
-  }
-  if (!row_ok) return;
-  store_half<T, D>(dq + ((static_cast<long long>(b) * S + qi) * H + h) * D, half, acc);
-}
-
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, const T* __restrict__ dout,
-                 const uint8_t* __restrict__ kv_mask, const int* __restrict__ segs,
-                 const float* __restrict__ lse, const float* __restrict__ delta,
-                 T* __restrict__ dk, T* __restrict__ dv, int S, int H, Strides st,
-                 int causal, float scale) {
-  __shared__ float4 q_tile[kTile][D / 4];
-  __shared__ float4 do_tile[kTile][D / 4];
-  __shared__ float q_lse[kTile];
-  __shared__ float q_delta[kTile];
-  __shared__ int q_seg[kTile];
-
-  const int bh = blockIdx.y;
-  const int b = bh / H;
-  const int h = bh % H;
-  const int k0 = blockIdx.x * kRows;
-  const int half = threadIdx.x & 1;
-  const int kj = k0 + (threadIdx.x >> 1);
-  const bool key_ok = kj < S;
-
-  float kv[D / 2], vv[D / 2], dka[D / 2], dva[D / 2];
-  load_half<T, D>(k + b * st.kb + static_cast<long long>(kj) * st.ks + h * st.kh, half, key_ok, kv);
-  load_half<T, D>(v + b * st.vb + static_cast<long long>(kj) * st.vs + h * st.vh, half, key_ok, vv);
-#pragma unroll
-  for (int i = 0; i < D / 2; ++i) {
-    dka[i] = 0.f;
-    dva[i] = 0.f;
-  }
-  const long long key = static_cast<long long>(b) * S + kj;
-  const float k_bias = (key_ok && kv_mask != nullptr && !kv_mask[key]) ? kNegInf : 0.f;
-  const int seg_k = (segs != nullptr && key_ok) ? segs[key] : 0;
-  const long long rv0 = (static_cast<long long>(b) * H + h) * S;
-
-  // causal: query rows before this block's first key never see it
-  const int q_begin = causal ? k0 : 0;
-  for (int r0 = q_begin; r0 < S; r0 += kTile) {
-    const int nq = min(kTile, S - r0);
-    __syncthreads();  // the previous tile's readers are done
-    stage_rows<T, D>(q_tile, q + b * st.qb + h * st.qh, st.qs, r0, nq);
-    stage_rows<T, D>(do_tile, dout + b * st.ob + h * st.oh, st.os, r0, nq);
-    for (int i = threadIdx.x; i < nq; i += kThreads) {
-      q_lse[i] = lse[rv0 + r0 + i];
-      q_delta[i] = delta[rv0 + r0 + i];
-      q_seg[i] = segs != nullptr ? segs[static_cast<long long>(b) * S + r0 + i] : 0;
-    }
-    __syncthreads();
-    for (int i = 0; i < nq; ++i) {
-      const float s_dot = pair_sum(half_dot<D>(kv, q_tile[i], half));
-      const float dp = pair_sum(half_dot<D>(vv, do_tile[i], half));
-      float s = s_dot * scale + k_bias;
-      if (segs != nullptr && q_seg[i] != seg_k) s = kNegInf;
-      if (causal && kj > r0 + i) s = kNegInf;
-      if (!key_ok) s = kNegInf;
-      const float p = expf(s - q_lse[i]);
-      const float ds = p * (dp - q_delta[i]) * scale;
-      half_axpy<D>(dva, p, do_tile[i], half);
-      half_axpy<D>(dka, ds, q_tile[i], half);
-    }
-  }
-  if (!key_ok) return;
-  const long long out = ((static_cast<long long>(b) * S + kj) * H + h) * D;
-  store_half<T, D>(dk + out, half, dka);
-  store_half<T, D>(dv + out, half, dva);
-}
-
-template <typename T>
-void launch_dq(const void* q, const void* k, const void* v, const void* dout,
-               const void* kv_mask, const void* segs, const void* lse,
-               const void* delta, void* dq, int B, int S, int H, const Strides& st,
-               int causal, float scale, cudaStream_t stream) {
-  const dim3 grid((S + kRows - 1) / kRows, B * H);
-  flash_dq_kernel<T, 64><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(dout), static_cast<const uint8_t*>(kv_mask),
-      static_cast<const int*>(segs), static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<T*>(dq), S, H, st, causal, scale);
-}
-
-template <typename T>
-void launch_dkv(const void* q, const void* k, const void* v, const void* dout,
-                const void* kv_mask, const void* segs, const void* lse,
-                const void* delta, void* dk, void* dv, int B, int S, int H,
-                const Strides& st, int causal, float scale, cudaStream_t stream) {
-  const dim3 grid((S + kRows - 1) / kRows, B * H);
-  flash_dkv_kernel<T, 64><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(dout), static_cast<const uint8_t*>(kv_mask),
-      static_cast<const int*>(segs), static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<T*>(dk), static_cast<T*>(dv),
-      S, H, st, causal, scale);
-}
+using flash::Strides;
 
 // The 4-D TMA maps (q, k, v, dout) of a bf16 backward kernel over the
-// strided [B, S, H, D] views, q and dout in boxes of q_rows positions,
-// k and v of kv_rows. Returns 0 or a CUDA error code.
+// strided [B, S, H, d] views, q and dout in boxes of q_rows positions,
+// k and v of kv_rows, 64 head_dim values a box. Returns 0 or a CUDA
+// error code.
 int bwd_maps(CUtensorMap (&m)[4], const void* q, const void* k, const void* v,
              const void* dout, int B, int S, int H, const Strides& st, int q_rows,
-             int kv_rows) {
+             int kv_rows, int d) {
   using namespace port::hopper;
   const EncodeTiled encode = tensor_map_encoder();
   if (encode == nullptr) return static_cast<int>(cudaErrorSharedObjectSymbolNotFound);
-  const bool ok = tensor_map_bshd(encode, &m[0], q, B, S, H, st.qb, st.qs, st.qh, q_rows) &&
-                  tensor_map_bshd(encode, &m[1], k, B, S, H, st.kb, st.ks, st.kh, kv_rows) &&
-                  tensor_map_bshd(encode, &m[2], v, B, S, H, st.vb, st.vs, st.vh, kv_rows) &&
-                  tensor_map_bshd(encode, &m[3], dout, B, S, H, st.ob, st.os, st.oh, q_rows);
+  const bool ok =
+      tensor_map_bshd(encode, &m[0], q, B, S, H, st.qb, st.qs, st.qh, q_rows, d) &&
+      tensor_map_bshd(encode, &m[1], k, B, S, H, st.kb, st.ks, st.kh, kv_rows, d) &&
+      tensor_map_bshd(encode, &m[2], v, B, S, H, st.vb, st.vs, st.vh, kv_rows, d) &&
+      tensor_map_bshd(encode, &m[3], dout, B, S, H, st.ob, st.os, st.oh, q_rows, d);
   return ok ? 0 : static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -375,23 +134,55 @@ constexpr int kThreads = kConsumers + 128;  // and a producer warpgroup
 constexpr int kProducerRegs = 40;
 constexpr int kConsumerRegs = 232;
 static_assert(kProducerRegs * 128 + kConsumerRegs * kConsumers <= 65536, "register file");
-constexpr int kRowBytes = 128;             // 64 bf16 of head_dim: one swizzle row
-constexpr int kKVBytes = kBK * kRowBytes;  // K or V of the CTA's keys
-constexpr int kTileBytes = kBQ * kRowBytes;
-constexpr int kStageBytes = 2 * kTileBytes;  // Q, then dO
-constexpr int kVecs = 3 * kBQ;               // a stage's lse, delta (f32) and segment ids
-constexpr int kVecOffset = 2 * kKVBytes + kStages * kStageBytes;
-constexpr int kBarOffset = kVecOffset + kStages * kVecs * 4;
-// 1024 of slack to align the swizzled tiles; full and empty a stage, K/V
-constexpr int kSmem = 1024 + kBarOffset + 8 * (2 * kStages + 1);
+constexpr int kAtomRow = 128;  // a swizzle-atom row: 64 bf16 of head_dim
 
-// The accumulator granularity: each query tile's dV and dK products go
-// into fresh wgmma accumulators, added to f32 sums in tile order, as the
-// TPU kernel adds one f32 product a block. Chaining every tile (up to 8
-// at S = 512) into the two accumulators left up to 14% more dK and dV
-// elements a bf16 rounding away from an f64 reference (causal; as many
-// with segments) and was 3-6% faster (PERF.md).
+// The shared-memory plan at head width D: every tile is D/64 column
+// blocks ([rows][64 bf16], 128B-swizzled), block a at a * rows * 128.
+template <int D>
+struct Layout {
+  static constexpr int kAtoms = D / 64;
+  static constexpr int kKVBlock = kBK * kAtomRow;   // K's or V's column-block stride
+  static constexpr int kTileBlock = kBQ * kAtomRow;  // a Q or dO tile's
+  static constexpr int kKVBytes = kAtoms * kKVBlock;  // K or V of the CTA's keys
+  static constexpr int kTileBytes = kAtoms * kTileBlock;
+  static constexpr int kStageBytes = 2 * kTileBytes;  // Q, then dO
+  static constexpr int kVecs = 3 * kBQ;               // a stage's lse, delta (f32) and segment ids
+  static constexpr int kVecOffset = 2 * kKVBytes + kStages * kStageBytes;
+  static constexpr int kBarOffset = kVecOffset + kStages * kVecs * 4;
+  // 1024 of slack to align the swizzled tiles; full and empty a stage, K/V
+  static constexpr int kSmem = 1024 + kBarOffset + 8 * (2 * kStages + 1);
+};
+static_assert(Layout<128>::kSmem <= 232448, "shared memory");
 
+// The accumulator granularity at D 64: each query tile's dV and dK
+// products go into fresh wgmma accumulators, added to f32 sums in tile
+// order, as the TPU kernel adds one f32 product a block. Chaining every
+// tile (up to 8 at S = 512) into the two accumulators left up to 14%
+// more dK and dV elements a bf16 rounding away from an f64 reference
+// (causal; as many with segments) and was 3-6% faster (PERF.md). At D
+// 128 the two sums are 128 registers a thread and fresh products would
+// need 128 more: the products accumulate into the sums.
+
+// acc (+)= A B over one 64-row query tile (four k16 steps): A (bf16 P or
+// dS, rows: keys) from registers, B (dO or Q) read MN-major through the
+// transpose bit, N = D (at D 128 an n128 product over both column blocks)
+template <int D>
+__device__ __forceinline__ void tile_product(float (&acc)[D / 2], const uint32_t (&a)[4][4],
+                                             uint32_t b_addr, bool fresh) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const uint64_t db = desc_mnmajor(b_addr + kk * 16 * kAtomRow, Layout<D>::kTileBlock);
+    if constexpr (D == 64) {
+      if (kk == 0 && fresh) wgmma_m64n64k16_rs_first<1>(acc, a[kk], db);
+      else wgmma_m64n64k16_rs<1>(acc, a[kk], db, 1);
+    } else {
+      if (kk == 0 && fresh) wgmma_m64n128k16_rs_first<1>(acc, a[kk], db);
+      else wgmma_m64n128k16_rs<1>(acc, a[kk], db, 1);
+    }
+  }
+}
+
+template <int D>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_dkv_wgmma(__grid_constant__ const CUtensorMap tq, __grid_constant__ const CUtensorMap tk,
                 __grid_constant__ const CUtensorMap tv, __grid_constant__ const CUtensorMap tdo,
@@ -399,13 +190,14 @@ flash_dkv_wgmma(__grid_constant__ const CUtensorMap tq, __grid_constant__ const 
                 const float* __restrict__ lse, const float* __restrict__ delta,
                 __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int S, int H,
                 int causal, float scale) {
+  using L = Layout<D>;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   uint8_t* k_s = smem;
-  uint8_t* v_s = smem + kKVBytes;
-  uint8_t* ring = smem + 2 * kKVBytes;
-  float* vecs = reinterpret_cast<float*>(smem + kVecOffset);  // [kStages][3][kBQ]
-  uint64_t* full = reinterpret_cast<uint64_t*>(smem + kBarOffset);
+  uint8_t* v_s = smem + L::kKVBytes;
+  uint8_t* ring = smem + 2 * L::kKVBytes;
+  float* vecs = reinterpret_cast<float*>(smem + L::kVecOffset);  // [kStages][3][kBQ]
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::kBarOffset);
   uint64_t* empty = full + kStages;
   uint64_t* kvbar = empty + kStages;
 
@@ -431,15 +223,17 @@ flash_dkv_wgmma(__grid_constant__ const CUtensorMap tq, __grid_constant__ const 
     setmaxnreg_dec<kProducerRegs>();
     if (warp != kConsumers / 32) return;  // its first warp loads
     if (lane == 0) {
-      mbar_arrive_expect_tx(kvbar, 2 * kKVBytes);
-      tma_load_4d(k_s, &tk, kvbar, 0, h, k0, b);
-      tma_load_4d(v_s, &tv, kvbar, 0, h, k0, b);
+      mbar_arrive_expect_tx(kvbar, 2 * L::kKVBytes);
+      for (int a = 0; a < L::kAtoms; ++a) {
+        tma_load_4d(k_s + a * L::kKVBlock, &tk, kvbar, 64 * a, h, k0, b);
+        tma_load_4d(v_s + a * L::kKVBlock, &tv, kvbar, 64 * a, h, k0, b);
+      }
     }
     for (int it = 0; it < ntiles; ++it) {
       const int slot = it % kStages, q0 = (qt0 + it) * kBQ;
       if (it >= kStages) mbar_wait(&empty[slot], ((it / kStages) - 1) & 1);
       // lse (+inf past S: p = 0), delta and segment ids of the tile's rows
-      float* vl = vecs + slot * kVecs;
+      float* vl = vecs + slot * L::kVecs;
       for (int i = lane; i < kBQ; i += 32) {
         const int q = q0 + i;
         const bool in = q < S;
@@ -448,10 +242,13 @@ flash_dkv_wgmma(__grid_constant__ const CUtensorMap tq, __grid_constant__ const 
         reinterpret_cast<int*>(vl)[2 * kBQ + i] = (in && segs != nullptr) ? segs[brow + q] : 0;
       }
       if (lane == 0) {
-        uint8_t* st = ring + slot * kStageBytes;
-        mbar_arrive_expect_tx(&full[slot], kStageBytes);
-        tma_load_4d(st, &tq, &full[slot], 0, h, q0, b);
-        tma_load_4d(st + kTileBytes, &tdo, &full[slot], 0, h, q0, b);
+        uint8_t* st = ring + slot * L::kStageBytes;
+        mbar_arrive_expect_tx(&full[slot], L::kStageBytes);
+        for (int a = 0; a < L::kAtoms; ++a) {
+          tma_load_4d(st + a * L::kTileBlock, &tq, &full[slot], 64 * a, h, q0, b);
+          tma_load_4d(st + L::kTileBytes + a * L::kTileBlock, &tdo, &full[slot], 64 * a, h, q0,
+                      b);
+        }
       } else {
         mbar_arrive(&full[slot]);
       }
@@ -472,12 +269,12 @@ flash_dkv_wgmma(__grid_constant__ const CUtensorMap tq, __grid_constant__ const 
   const int seg_a = (segs != nullptr && key_a < S) ? segs[brow + key_a] : 0;
   const int seg_b = (segs != nullptr && key_b < S) ? segs[brow + key_b] : 0;
   const int kq = 2 * (lane & 3);  // the thread's first column in each 8
-  const uint32_t k_addr = smem_u32(k_s) + g * 64 * kRowBytes;
-  const uint32_t v_addr = smem_u32(v_s) + g * 64 * kRowBytes;
+  const uint32_t k_addr = smem_u32(k_s) + g * 64 * kAtomRow;
+  const uint32_t v_addr = smem_u32(v_s) + g * 64 * kAtomRow;
 
-  float dks[32], dvs[32];  // the f32 sums of the tiles' products
+  float dks[D / 2], dvs[D / 2];  // the f32 sums of the tiles' products
 #pragma unroll
-  for (int i = 0; i < 32; ++i) dks[i] = dvs[i] = 0.f;
+  for (int i = 0; i < D / 2; ++i) dks[i] = dvs[i] = 0.f;
   mbar_wait(kvbar, 0);
 
   for (int it = 0; it < ntiles; ++it) {
@@ -485,24 +282,29 @@ flash_dkv_wgmma(__grid_constant__ const CUtensorMap tq, __grid_constant__ const 
     mbar_wait(&full[slot], (it / kStages) & 1);
     // causal: a tile wholly before the warpgroup's keys sees none of them
     if (!causal || q0 + kBQ - 1 >= wk0) {
-      const uint32_t q_addr = smem_u32(ring + slot * kStageBytes);
-      const uint32_t do_addr = q_addr + kTileBytes;
-      const float* vl = vecs + slot * kVecs;
+      const uint32_t q_addr = smem_u32(ring + slot * L::kStageBytes);
+      const uint32_t do_addr = q_addr + L::kTileBytes;
+      const float* vl = vecs + slot * L::kVecs;
       const float* vd = vl + kBQ;
       const int* vs = reinterpret_cast<const int*>(vl + 2 * kBQ);
       float s[32], dp[32];
       wgmma_fence();
+      // S^T = K Q^T and dP^T = V dO^T: D/16 k16 steps each, 32 bytes on
+      // inside a column block, then the next block
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {  // S^T = K Q^T
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t a_off = (kk >> 2) * L::kKVBlock + (kk & 3) * 32;
+        const uint32_t b_off = (kk >> 2) * L::kTileBlock + (kk & 3) * 32;
         if (kk == 0) wgmma_m64n64k16_ss_first<0>(s, desc_kmajor(k_addr), desc_kmajor(q_addr));
-        else wgmma_m64n64k16_ss<0>(s, desc_kmajor(k_addr + kk * 32),
-                                   desc_kmajor(q_addr + kk * 32), 1);
+        else wgmma_m64n64k16_ss<0>(s, desc_kmajor(k_addr + a_off), desc_kmajor(q_addr + b_off), 1);
       }
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {  // dP^T = V dO^T
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t a_off = (kk >> 2) * L::kKVBlock + (kk & 3) * 32;
+        const uint32_t b_off = (kk >> 2) * L::kTileBlock + (kk & 3) * 32;
         if (kk == 0) wgmma_m64n64k16_ss_first<0>(dp, desc_kmajor(v_addr), desc_kmajor(do_addr));
-        else wgmma_m64n64k16_ss<0>(dp, desc_kmajor(v_addr + kk * 32),
-                                   desc_kmajor(do_addr + kk * 32), 1);
+        else wgmma_m64n64k16_ss<0>(dp, desc_kmajor(v_addr + a_off), desc_kmajor(do_addr + b_off),
+                                   1);
       }
       wgmma_commit();
       wgmma_wait<0>();
@@ -536,28 +338,28 @@ flash_dkv_wgmma(__grid_constant__ const CUtensorMap tq, __grid_constant__ const 
 
       // dV += P^T dO and dK += dS^T Q, dO and Q read MN-major (head_dim
       // contiguous) through the transpose bit, a k16 step 16 query rows
-      float dvt[32], dkt[32];
-      wgmma_fence();
+      if constexpr (D == 64) {
+        float dvt[32], dkt[32];
+        wgmma_fence();
+        tile_product<D>(dvt, pf, do_addr, true);
+        tile_product<D>(dkt, df, q_addr, true);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_operand(dvt);
+        fence_operand(dkt);
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        const uint64_t db = desc_mnmajor(do_addr + kk * 16 * kRowBytes);
-        if (kk == 0) wgmma_m64n64k16_rs_first<1>(dvt, pf[kk], db);
-        else wgmma_m64n64k16_rs<1>(dvt, pf[kk], db, 1);
-      }
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        const uint64_t db = desc_mnmajor(q_addr + kk * 16 * kRowBytes);
-        if (kk == 0) wgmma_m64n64k16_rs_first<1>(dkt, df[kk], db);
-        else wgmma_m64n64k16_rs<1>(dkt, df[kk], db, 1);
-      }
-      wgmma_commit();
-      wgmma_wait<0>();
-      fence_operand(dvt);
-      fence_operand(dkt);
-#pragma unroll
-      for (int i = 0; i < 32; ++i) {
-        dvs[i] += dvt[i];
-        dks[i] += dkt[i];
+        for (int i = 0; i < 32; ++i) {
+          dvs[i] += dvt[i];
+          dks[i] += dkt[i];
+        }
+      } else {
+        wgmma_fence();
+        tile_product<D>(dvs, pf, do_addr, false);
+        tile_product<D>(dks, df, q_addr, false);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_operand(dvs);
+        fence_operand(dks);
       }
     }
     if (lane == 0) mbar_arrive(&empty[slot]);  // this warp is done with the stage
@@ -568,9 +370,9 @@ flash_dkv_wgmma(__grid_constant__ const CUtensorMap tq, __grid_constant__ const 
   for (int r = 0; r < 2; ++r) {
     const int key = r == 0 ? key_a : key_b;
     if (key >= S) continue;
-    const long long off = ((brow + key) * H + h) * 64;
+    const long long off = ((brow + key) * H + h) * D;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
+    for (int j = 0; j < D / 8; ++j) {
       const int col = j * 8 + kq;
       *reinterpret_cast<__nv_bfloat162*>(dk + off + col) =
           __floats2bfloat162_rn(dks[j * 4 + 2 * r], dks[j * 4 + 2 * r + 1]);
@@ -582,17 +384,18 @@ flash_dkv_wgmma(__grid_constant__ const CUtensorMap tq, __grid_constant__ const 
 
 // st: q, k, v, dout strides (batch, seq, head) in elements; every
 // operand TMA-addressable (ops/flash_attention.py tma_compatible)
+template <int D>
 int launch(const void* q, const void* k, const void* v, const void* dout, const void* kv_mask,
            const void* segs, const void* lse, const void* delta, void* dk, void* dv, int B, int S,
            int H, const Strides& st, int causal, float scale, cudaStream_t stream) {
   CUtensorMap m[4];
-  if (int rc = bwd_maps(m, q, k, v, dout, B, S, H, st, kBQ, kBK)) return rc;
-  const cudaError_t err =
-      cudaFuncSetAttribute(flash_dkv_wgmma, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+  if (int rc = bwd_maps(m, q, k, v, dout, B, S, H, st, kBQ, kBK, D)) return rc;
+  const cudaError_t err = cudaFuncSetAttribute(
+      flash_dkv_wgmma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, Layout<D>::kSmem);
   if (err != cudaSuccess) return static_cast<int>(err);
   // x: (b, h); y: the key block, the slow axis (longest causal blocks first)
   const dim3 grid(B * H, (S + kBK - 1) / kBK);
-  flash_dkv_wgmma<<<grid, kThreads, kSmem, stream>>>(
+  flash_dkv_wgmma<D><<<grid, kThreads, Layout<D>::kSmem, stream>>>(
       m[0], m[1], m[2], m[3], static_cast<const uint8_t*>(kv_mask),
       static_cast<const int*>(segs),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
@@ -607,41 +410,51 @@ int launch(const void* q, const void* k, const void* v, const void* dout, const 
 namespace wgdq {
 
 using namespace port::hopper;
+using wg::kAtomRow;
 using wg::kConsumerRegs;
 using wg::kConsumers;
 using wg::kProducerRegs;
-using wg::kRowBytes;
 using wg::kStages;
 using wg::kThreads;
 
 constexpr int kBQ = 128;  // query rows a CTA: two consumer warpgroups of 64
 constexpr int kBK = 64;   // keys a tile
-constexpr int kQBytes = kBQ * kRowBytes;  // Q or dO of the CTA's rows
-constexpr int kTileBytes = kBK * kRowBytes;
-constexpr int kStageBytes = 2 * kTileBytes;  // K, then V
-constexpr int kVecs = 2 * kBK;               // a stage's key bias (f32) and segment ids
-constexpr int kVecOffset = 2 * kQBytes + kStages * kStageBytes;
-constexpr int kBarOffset = kVecOffset + kStages * kVecs * 4;
-// 1024 of slack to align the swizzled tiles; full and empty a stage, Q/dO
-constexpr int kSmem = 1024 + kBarOffset + 8 * (2 * kStages + 1);
 
-// The accumulator granularity is K2dkv's: each key tile's dQ product
-// goes into a fresh wgmma accumulator, added to the f32 sum in tile
-// order.
+template <int D>
+struct Layout {
+  static constexpr int kAtoms = D / 64;
+  static constexpr int kQBlock = kBQ * kAtomRow;     // Q's or dO's column-block stride
+  static constexpr int kTileBlock = kBK * kAtomRow;  // a K or V tile's
+  static constexpr int kQBytes = kAtoms * kQBlock;   // Q or dO of the CTA's rows
+  static constexpr int kTileBytes = kAtoms * kTileBlock;
+  static constexpr int kStageBytes = 2 * kTileBytes;  // K, then V
+  static constexpr int kVecs = 2 * kBK;               // a stage's key bias (f32) and segment ids
+  static constexpr int kVecOffset = 2 * kQBytes + kStages * kStageBytes;
+  static constexpr int kBarOffset = kVecOffset + kStages * kVecs * 4;
+  // 1024 of slack to align the swizzled tiles; full and empty a stage, Q/dO
+  static constexpr int kSmem = 1024 + kBarOffset + 8 * (2 * kStages + 1);
+};
+static_assert(Layout<128>::kSmem <= 232448, "shared memory");
 
+// The accumulator granularity is K2dkv's at D 64: each key tile's dQ
+// product goes into a fresh wgmma accumulator, added to the f32 sum in
+// tile order (at D 128 too: dQ's sum and product are 128 registers).
+
+template <int D>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_dq_wgmma(__grid_constant__ const CUtensorMap tq, __grid_constant__ const CUtensorMap tk,
                __grid_constant__ const CUtensorMap tv, __grid_constant__ const CUtensorMap tdo,
                const uint8_t* __restrict__ kv_mask, const int* __restrict__ segs,
                const float* __restrict__ lse, const float* __restrict__ delta,
                __nv_bfloat16* __restrict__ dq, int S, int H, int causal, float scale) {
+  using L = Layout<D>;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   uint8_t* q_s = smem;
-  uint8_t* do_s = smem + kQBytes;
-  uint8_t* ring = smem + 2 * kQBytes;
-  float* vecs = reinterpret_cast<float*>(smem + kVecOffset);  // [kStages][2][kBK]
-  uint64_t* full = reinterpret_cast<uint64_t*>(smem + kBarOffset);
+  uint8_t* do_s = smem + L::kQBytes;
+  uint8_t* ring = smem + 2 * L::kQBytes;
+  float* vecs = reinterpret_cast<float*>(smem + L::kVecOffset);  // [kStages][2][kBK]
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::kBarOffset);
   uint64_t* empty = full + kStages;
   uint64_t* qbar = empty + kStages;
 
@@ -669,16 +482,18 @@ flash_dq_wgmma(__grid_constant__ const CUtensorMap tq, __grid_constant__ const C
     setmaxnreg_dec<kProducerRegs>();
     if (warp != kConsumers / 32) return;  // its first warp loads
     if (lane == 0) {
-      mbar_arrive_expect_tx(qbar, 2 * kQBytes);
-      tma_load_4d(q_s, &tq, qbar, 0, h, q0, b);
-      tma_load_4d(do_s, &tdo, qbar, 0, h, q0, b);
+      mbar_arrive_expect_tx(qbar, 2 * L::kQBytes);
+      for (int a = 0; a < L::kAtoms; ++a) {
+        tma_load_4d(q_s + a * L::kQBlock, &tq, qbar, 64 * a, h, q0, b);
+        tma_load_4d(do_s + a * L::kQBlock, &tdo, qbar, 64 * a, h, q0, b);
+      }
     }
     for (int it = 0; it < ntiles; ++it) {
       const int slot = it % kStages, k0 = it * kBK;
       if (it >= kStages) mbar_wait(&empty[slot], ((it / kStages) - 1) & 1);
       // the tile's key bias (NEG_INF for padding and for keys past S,
       // whose K and V rows TMA fills with zeros) and segment ids
-      float* vk = vecs + slot * kVecs;
+      float* vk = vecs + slot * L::kVecs;
       for (int j = lane; j < kBK; j += 32) {
         const int key = k0 + j;
         const bool in = key < S;
@@ -686,10 +501,13 @@ flash_dq_wgmma(__grid_constant__ const CUtensorMap tq, __grid_constant__ const C
         reinterpret_cast<int*>(vk)[kBK + j] = (in && segs != nullptr) ? segs[brow + key] : 0;
       }
       if (lane == 0) {
-        uint8_t* st = ring + slot * kStageBytes;
-        mbar_arrive_expect_tx(&full[slot], kStageBytes);
-        tma_load_4d(st, &tk, &full[slot], 0, h, k0, b);
-        tma_load_4d(st + kTileBytes, &tv, &full[slot], 0, h, k0, b);
+        uint8_t* st = ring + slot * L::kStageBytes;
+        mbar_arrive_expect_tx(&full[slot], L::kStageBytes);
+        for (int a = 0; a < L::kAtoms; ++a) {
+          tma_load_4d(st + a * L::kTileBlock, &tk, &full[slot], 64 * a, h, k0, b);
+          tma_load_4d(st + L::kTileBytes + a * L::kTileBlock, &tv, &full[slot], 64 * a, h, k0,
+                      b);
+        }
       } else {
         mbar_arrive(&full[slot]);
       }
@@ -712,12 +530,12 @@ flash_dq_wgmma(__grid_constant__ const CUtensorMap tq, __grid_constant__ const C
   const int seg_a = (segs != nullptr && row_a < S) ? segs[brow + row_a] : 0;
   const int seg_b = (segs != nullptr && row_b < S) ? segs[brow + row_b] : 0;
   const int kq = 2 * (lane & 3);  // the thread's first column in each 8
-  const uint32_t q_addr = smem_u32(q_s) + g * 64 * kRowBytes;
-  const uint32_t do_addr = smem_u32(do_s) + g * 64 * kRowBytes;
+  const uint32_t q_addr = smem_u32(q_s) + g * 64 * kAtomRow;
+  const uint32_t do_addr = smem_u32(do_s) + g * 64 * kAtomRow;
 
-  float dqs[32];  // the f32 sum of the tiles' products
+  float dqs[D / 2];  // the f32 sum of the tiles' products
 #pragma unroll
-  for (int i = 0; i < 32; ++i) dqs[i] = 0.f;
+  for (int i = 0; i < D / 2; ++i) dqs[i] = 0.f;
   mbar_wait(qbar, 0);
 
   for (int it = 0; it < ntiles; ++it) {
@@ -726,23 +544,28 @@ flash_dq_wgmma(__grid_constant__ const CUtensorMap tq, __grid_constant__ const C
     // causal: a tile wholly after the warpgroup's rows is none of its
     // business (nor is any tile of a warpgroup past S)
     if (wq0 < S && (!causal || k0 <= wq_last)) {
-      const uint32_t k_addr = smem_u32(ring + slot * kStageBytes);
-      const uint32_t v_addr = k_addr + kTileBytes;
-      const float* vk = vecs + slot * kVecs;
+      const uint32_t k_addr = smem_u32(ring + slot * L::kStageBytes);
+      const uint32_t v_addr = k_addr + L::kTileBytes;
+      const float* vk = vecs + slot * L::kVecs;
       const int* vs = reinterpret_cast<const int*>(vk + kBK);
       float s[32], dp[32];
       wgmma_fence();
+      // S = Q K^T and dP = dO V^T: D/16 k16 steps each, 32 bytes on
+      // inside a column block, then the next block
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {  // S = Q K^T
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t a_off = (kk >> 2) * L::kQBlock + (kk & 3) * 32;
+        const uint32_t b_off = (kk >> 2) * L::kTileBlock + (kk & 3) * 32;
         if (kk == 0) wgmma_m64n64k16_ss_first<0>(s, desc_kmajor(q_addr), desc_kmajor(k_addr));
-        else wgmma_m64n64k16_ss<0>(s, desc_kmajor(q_addr + kk * 32),
-                                   desc_kmajor(k_addr + kk * 32), 1);
+        else wgmma_m64n64k16_ss<0>(s, desc_kmajor(q_addr + a_off), desc_kmajor(k_addr + b_off), 1);
       }
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {  // dP = dO V^T
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t a_off = (kk >> 2) * L::kQBlock + (kk & 3) * 32;
+        const uint32_t b_off = (kk >> 2) * L::kTileBlock + (kk & 3) * 32;
         if (kk == 0) wgmma_m64n64k16_ss_first<0>(dp, desc_kmajor(do_addr), desc_kmajor(v_addr));
-        else wgmma_m64n64k16_ss<0>(dp, desc_kmajor(do_addr + kk * 32),
-                                   desc_kmajor(v_addr + kk * 32), 1);
+        else wgmma_m64n64k16_ss<0>(dp, desc_kmajor(do_addr + a_off), desc_kmajor(v_addr + b_off),
+                                   1);
       }
       wgmma_commit();
       wgmma_wait<0>();
@@ -775,19 +598,24 @@ flash_dq_wgmma(__grid_constant__ const CUtensorMap tq, __grid_constant__ const C
 
       // dQ_t = dS K into a fresh accumulator, K read MN-major (head_dim
       // contiguous) through the transpose bit, a k16 step 16 keys
-      float dqt[32];
+      float dqt[D / 2];
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk) {
-        const uint64_t db = desc_mnmajor(k_addr + kk * 16 * kRowBytes);
-        if (kk == 0) wgmma_m64n64k16_rs_first<1>(dqt, df[kk], db);
-        else wgmma_m64n64k16_rs<1>(dqt, df[kk], db, 1);
+        const uint64_t db = desc_mnmajor(k_addr + kk * 16 * kAtomRow, L::kTileBlock);
+        if constexpr (D == 64) {
+          if (kk == 0) wgmma_m64n64k16_rs_first<1>(dqt, df[kk], db);
+          else wgmma_m64n64k16_rs<1>(dqt, df[kk], db, 1);
+        } else {
+          if (kk == 0) wgmma_m64n128k16_rs_first<1>(dqt, df[kk], db);
+          else wgmma_m64n128k16_rs<1>(dqt, df[kk], db, 1);
+        }
       }
       wgmma_commit();
       wgmma_wait<0>();
       fence_operand(dqt);
 #pragma unroll
-      for (int i = 0; i < 32; ++i) dqs[i] += dqt[i];
+      for (int i = 0; i < D / 2; ++i) dqs[i] += dqt[i];
     }
     if (lane == 0) mbar_arrive(&empty[slot]);  // this warp is done with the stage
   }
@@ -797,9 +625,9 @@ flash_dq_wgmma(__grid_constant__ const CUtensorMap tq, __grid_constant__ const C
   for (int r = 0; r < 2; ++r) {
     const int row = r == 0 ? row_a : row_b;
     if (row >= S) continue;
-    const long long off = ((brow + row) * H + h) * 64;
+    const long long off = ((brow + row) * H + h) * D;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
+    for (int j = 0; j < D / 8; ++j) {
       *reinterpret_cast<__nv_bfloat162*>(dq + off + j * 8 + kq) =
           __floats2bfloat162_rn(dqs[j * 4 + 2 * r], dqs[j * 4 + 2 * r + 1]);
     }
@@ -808,17 +636,18 @@ flash_dq_wgmma(__grid_constant__ const CUtensorMap tq, __grid_constant__ const C
 
 // st: q, k, v, dout strides (batch, seq, head) in elements; every
 // operand TMA-addressable (ops/flash_attention.py tma_compatible)
+template <int D>
 int launch(const void* q, const void* k, const void* v, const void* dout, const void* kv_mask,
            const void* segs, const void* lse, const void* delta, void* dq, int B, int S, int H,
            const Strides& st, int causal, float scale, cudaStream_t stream) {
   CUtensorMap m[4];
-  if (int rc = bwd_maps(m, q, k, v, dout, B, S, H, st, kBQ, kBK)) return rc;
-  const cudaError_t err =
-      cudaFuncSetAttribute(flash_dq_wgmma, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+  if (int rc = bwd_maps(m, q, k, v, dout, B, S, H, st, kBQ, kBK, D)) return rc;
+  const cudaError_t err = cudaFuncSetAttribute(
+      flash_dq_wgmma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, Layout<D>::kSmem);
   if (err != cudaSuccess) return static_cast<int>(err);
   // x: (b, h); y: the query block, the slow axis (longest causal blocks first)
   const dim3 grid(B * H, (S + kBQ - 1) / kBQ);
-  flash_dq_wgmma<<<grid, kThreads, kSmem, stream>>>(
+  flash_dq_wgmma<D><<<grid, kThreads, Layout<D>::kSmem, stream>>>(
       m[0], m[1], m[2], m[3], static_cast<const uint8_t*>(kv_mask),
       static_cast<const int*>(segs),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
@@ -828,10 +657,11 @@ int launch(const void* q, const void* k, const void* v, const void* dout, const 
 
 }  // namespace wgdq
 
-int check_shape(int B, int S, int H, int D) {
+// the plan's width (flash_attention.cuh), checked, and the grid limit
+int check_shape(int B, int H, int D, int dtype, int width) {
+  const int w = flash::plan_width(D, dtype);
+  if (w == 0 || w != width) return static_cast<int>(cudaErrorInvalidValue);
   if (B * H > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  // head_dim 64 only, as the forward (csrc/flash_attention.cu)
-  if (D != 64) return static_cast<int>(cudaErrorInvalidValue);
   return 0;
 }
 
@@ -839,10 +669,12 @@ int check_shape(int B, int S, int H, int D) {
 
 // strides: q, k, v, dout (batch, seq, head), in elements; the head_dim
 // axis of each must be contiguous. dq/dk/dv are written contiguous
-// [B, S, H, D]; lse and delta are f32 [B, H, S]. bf16 K2dkv (the
-// tensor-core design, through TMA) also needs 16-byte aligned bases and
-// strides of size>1 dimensions that are multiples of 8 elements, or it
-// returns cudaErrorInvalidValue.
+// [B, S, H, D]; lse and delta are f32 [B, H, S]. width: the plan's
+// (ops/flash_attention.py flash_plan), checked; D outside 1..256 returns
+// cudaErrorInvalidValue. The tensor-core designs (bf16 at D 64 and 128,
+// through TMA) also need 16-byte aligned bases and strides of size>1
+// dimensions that are multiples of 8 elements, or return
+// cudaErrorInvalidValue.
 extern "C" int port_flash_attention_dq(
     const void* q, const void* k, const void* v, const void* dout,
     const void* kv_mask, const void* segs, const void* lse, const void* delta,
@@ -851,20 +683,22 @@ extern "C" int port_flash_attention_dq(
     long long ksb, long long kss, long long ksh,
     long long vsb, long long vss, long long vsh,
     long long osb, long long oss, long long osh,
-    int causal, float scale, int dtype, int device, void* stream) {
+    int causal, float scale, int dtype, int width, int device, void* stream) {
   // this library links its own CUDA runtime: select the caller's
   // device in it before launching on the caller's stream
   if (cudaSetDevice(device) != cudaSuccess) return static_cast<int>(cudaGetLastError());
+  if (int rc = check_shape(B, H, D, dtype, width)) return rc;
   if (B <= 0 || S <= 0 || H <= 0) return 0;
-  if (int rc = check_shape(B, S, H, D)) return rc;
   const Strides st{qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh, osb, oss, osh};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case kF32: launch_dq<float>(q, k, v, dout, kv_mask, segs, lse, delta, dq, B, S, H, st, causal, scale, s); break;
-    case kBF16: return wgdq::launch(q, k, v, dout, kv_mask, segs, lse, delta, dq, B, S, H, st, causal, scale, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
+  if (!flash::tensor_core(D, dtype)) {
+    return flash::simt_dq(q, k, v, dout, kv_mask, segs, lse, delta, dq, B, S, H, D, st, causal,
+                          scale, dtype, s);
   }
-  return static_cast<int>(cudaGetLastError());
+  return D == 64 ? wgdq::launch<64>(q, k, v, dout, kv_mask, segs, lse, delta, dq, B, S, H, st,
+                                    causal, scale, s)
+                 : wgdq::launch<128>(q, k, v, dout, kv_mask, segs, lse, delta, dq, B, S, H, st,
+                                     causal, scale, s);
 }
 
 extern "C" int port_flash_attention_dkv(
@@ -875,16 +709,18 @@ extern "C" int port_flash_attention_dkv(
     long long ksb, long long kss, long long ksh,
     long long vsb, long long vss, long long vsh,
     long long osb, long long oss, long long osh,
-    int causal, float scale, int dtype, int device, void* stream) {
+    int causal, float scale, int dtype, int width, int device, void* stream) {
   if (cudaSetDevice(device) != cudaSuccess) return static_cast<int>(cudaGetLastError());
+  if (int rc = check_shape(B, H, D, dtype, width)) return rc;
   if (B <= 0 || S <= 0 || H <= 0) return 0;
-  if (int rc = check_shape(B, S, H, D)) return rc;
   const Strides st{qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh, osb, oss, osh};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case kF32: launch_dkv<float>(q, k, v, dout, kv_mask, segs, lse, delta, dk, dv, B, S, H, st, causal, scale, s); break;
-    case kBF16: return wg::launch(q, k, v, dout, kv_mask, segs, lse, delta, dk, dv, B, S, H, st, causal, scale, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
+  if (!flash::tensor_core(D, dtype)) {
+    return flash::simt_dkv(q, k, v, dout, kv_mask, segs, lse, delta, dk, dv, B, S, H, D, st,
+                           causal, scale, dtype, s);
   }
-  return static_cast<int>(cudaGetLastError());
+  return D == 64 ? wg::launch<64>(q, k, v, dout, kv_mask, segs, lse, delta, dk, dv, B, S, H, st,
+                                  causal, scale, s)
+                 : wg::launch<128>(q, k, v, dout, kv_mask, segs, lse, delta, dk, dv, B, S, H, st,
+                                   causal, scale, s);
 }

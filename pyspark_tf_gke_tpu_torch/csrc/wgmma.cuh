@@ -4,7 +4,7 @@
 // from shared memory, K- or MN-major, or from registers), mbarriers,
 // named barriers, register moves between warpgroups, the proxy fence,
 // TMA tensor loads and stores and their tensor maps, and cp.async. Only what the bf16 flash forward
-// (flash_attention.cu), the bf16 fused 3x3 conv forward (fused_conv3.cu),
+// at head_dim 64 and 128 (flash_attention.cu), the bf16 fused 3x3 conv forward (fused_conv3.cu),
 // the bf16 fused 1x1 conv forward and input gradient (fused_matmul.cu),
 // the bf16 fused 3x3 conv input gradient (fused_conv3.cu), the bf16
 // flash dK/dV (flash_attention_bwd.cu) and the bf16 weight gradients
@@ -222,6 +222,34 @@ __device__ __forceinline__ void wgmma_m64n128k16_ss_first(float (&d)[64], uint64
       : "l"(da), "l"(db), "r"(0), "n"(kTransB));
 }
 
+// d[64 x 128] (+)= A[64 x 16] B[16 x 128] with A from registers (the
+// fragment order of wgmma_m64n64k16_rs) and B from shared memory
+// (kTransB: MN-major, two 64-column atoms LBO apart): the flash kernels'
+// P V, P^T dO, dS^T Q and dS K at head_dim 128.
+template <int kTransB>
+__device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64], const uint32_t (&a)[4],
+                                                    uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " PORT_DREGS64
+      ", {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
+      : PORT_D64
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d), "n"(kTransB));
+}
+
+// d = A B with A from registers (as wgmma_m64n128k16_rs), the outputs
+// write-only: a fresh accumulator whose old value is dead
+template <int kTransB>
+__device__ __forceinline__ void wgmma_m64n128k16_rs_first(float (&d)[64], const uint32_t (&a)[4],
+                                                          uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " PORT_DREGS64
+      ", {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
+      : PORT_D64_OUT
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(0), "n"(kTransB));
+}
+
 #undef PORT_D64
 #undef PORT_D64_OUT
 #undef PORT_DREGS64
@@ -394,18 +422,22 @@ inline bool tensor_map_2d(EncodeTiled encode, CUtensorMap* map, const void* base
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// A 4-D map over a [B, S, H, 64] bf16 view with element strides (sb, ss,
-// sh, 1), dimensions innermost first as (head_dim, head, seq, batch),
-// boxes of `rows` positions of one (batch, head), 128-byte swizzle,
-// zeros past S. The stride of a size-1 dimension is never followed and
-// is replaced by a valid one. The flash kernels' Q, K, V and dO.
+// A 4-D map over a [B, S, H, d] bf16 view (d a multiple of 64) with
+// element strides (sb, ss, sh, 1), dimensions innermost first as
+// (head_dim, head, seq, batch), boxes of 64 head_dim values (one swizzle
+// atom: a 128B-swizzled box is at most 128 bytes wide) by `rows`
+// positions of one (batch, head), 128-byte swizzle, zeros past S; a
+// wider row is d/64 boxes at head_dim coordinates 0, 64, ... The stride
+// of a size-1 dimension is never followed and is replaced by a valid
+// one. The flash kernels' Q, K, V and dO.
 inline bool tensor_map_bshd(EncodeTiled encode, CUtensorMap* map, const void* base, int B, int S,
-                            int H, long long sb, long long ss, long long sh, int rows) {
-  const cuuint64_t st_h = static_cast<cuuint64_t>(H > 1 ? sh : 64) * 2;
+                            int H, long long sb, long long ss, long long sh, int rows,
+                            int d = 64) {
+  const cuuint64_t st_h = static_cast<cuuint64_t>(H > 1 ? sh : d) * 2;
   const cuuint64_t st_s = S > 1 ? static_cast<cuuint64_t>(ss) * 2 : st_h * H;
   const cuuint64_t st_b = B > 1 ? static_cast<cuuint64_t>(sb) * 2 : st_s * S;
-  const cuuint64_t dims[4] = {64, static_cast<cuuint64_t>(H), static_cast<cuuint64_t>(S),
-                              static_cast<cuuint64_t>(B)};
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d), static_cast<cuuint64_t>(H),
+                              static_cast<cuuint64_t>(S), static_cast<cuuint64_t>(B)};
   const cuuint64_t strides[3] = {st_h, st_s, st_b};
   const cuuint32_t box[4] = {64, 1, static_cast<cuuint32_t>(rows), 1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};

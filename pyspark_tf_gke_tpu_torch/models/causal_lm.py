@@ -36,6 +36,7 @@ and ``cfg.remat`` recomputes each block in the backward
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 from typing import List, Optional, Union
 
@@ -241,6 +242,16 @@ class PagedKV:
             self._vs = [torch.zeros(shape[:3], device=device) for _ in layers]
         self.block_table = torch.full((num_slots, cfg.max_pages_per_slot), n,
                                       dtype=torch.int32, device=device)
+
+    def with_table(self, block_table: torch.Tensor) -> "PagedKV":
+        """A view that shares every page tensor with this pool (no copy)
+        but reads and writes through ``block_table`` instead: a
+        chunked-prefill piece writes its K/V straight into the pool
+        through the admission's page row while the slot's own table row
+        stays at the sentinel (``_paged_prefill_chunk``'s cache view)."""
+        view = copy.copy(self)
+        view.block_table = block_table
+        return view
 
     def pages(self, layer: int):
         """``(k_pages, v_pages, k_scales, v_scales)`` views of ``[0, N)``."""

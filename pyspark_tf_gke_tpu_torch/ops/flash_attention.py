@@ -20,27 +20,35 @@ The plain versions are :func:`flash_attention_plain` (masked
 ``dot_product_attention`` plus the lse) and
 :func:`flash_attention_bwd_plain` (the same recompute-from-lse math).
 
-The forward chooses its design by dtype: bf16 runs the tensor-core
-kernel (``wgmma``, K/V by TMA), which rounds P to bf16 before P.V as the
-TPU kernel does (``:97``; the plain version rounds its normalised
-probabilities there); f32 runs the CUDA-core kernel, P in f32. The
-bf16 kernel reads q/k/v through TMA tensor maps, so each needs a
-16-byte aligned base and strides (of dimensions longer than 1) that are
-multiples of 8 elements: :func:`tma_compatible`; another layout raises.
-The backward rounds where the TPU kernels round (``:202``, ``:255``,
-``:262``): for inputs narrower than f32, P is rounded to dO's dtype
-before ``dV += P^T dO`` and dS to q's dtype before ``dK += dS^T Q`` and
-``dQ += dS K``; f32 and f64 inputs keep both unrounded. The bf16 K2dkv
-and K2dq are tensor-core kernels (``wgmma``; K2dkv: K/V once, Q/dO
-tiles by TMA; K2dq: Q/dO once, K/V tiles by TMA) whose products take
-bf16 P and dS anyway; both f32 kernels are the CUDA-core designs. The
+Every head width D from 1 to 256 has a kernel, in bf16 and in f32:
+:func:`flash_plan` picks the design and the instantiated width from D
+and the dtype alone, the wrappers pass the width to the C entry points
+and those check it. bf16 at D 64 and 128 runs the tensor-core designs
+(``wgmma``; K2f: K/V by TMA; K2dkv: K/V once, Q/dO tiles by TMA; K2dq:
+Q/dO once, K/V tiles by TMA); every other width, and f32 at every width,
+runs the CUDA-core designs (``csrc/flash_attention_simt.cu``),
+instantiated at 16, 32, 64, 128 and 256: a width between two of them
+runs the next one up with its loads masked, the padded columns 0, the
+scale ``D ** -0.5`` of the true D and the outputs written for the true D
+alone. The tensor-core designs read q/k/v (and dout) through TMA tensor
+maps, so each needs a 16-byte aligned base and strides (of dimensions
+longer than 1) that are multiples of 8 elements: :func:`tma_compatible`;
+another q/k/v layout raises, another dout is copied. The CUDA-core
+designs take any layout with a contiguous head_dim.
+
+The rounding points are the TPU kernels' at every width and design: for
+inputs narrower than f32, the forward rounds P to V's dtype before P.V
+(``:97``; the plain version rounds its normalised probabilities there),
+and the backward rounds P to dO's dtype before ``dV += P^T dO`` and dS
+to q's dtype before ``dK += dS^T Q`` and ``dQ += dS K`` (``:202``,
+``:255``, ``:262``); f32 and f64 inputs keep both unrounded. The
 wrappers take the plain versions only for tensors on the CPU; a CUDA
-tensor launches the kernel or raises.
+tensor launches the plan's kernel or raises.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -49,11 +57,36 @@ from pyspark_tf_gke_tpu_torch.ops.attention import (dot_product_attention,
                                                     masked_scores)
 
 NEG_INF = -1e30
-HEAD_DIMS = (64,)  # instantiated in csrc/flash_attention*.cu
+# csrc/flash_attention.cuh: every head width up to MAX_HEAD_DIM has a
+# kernel; bf16 at TENSOR_CORE_DIMS runs the tensor-core designs, every
+# other (width, dtype) the CUDA-core design at the smallest SIMT_WIDTHS
+# entry >= the width
+MAX_HEAD_DIM = 256
+TENSOR_CORE_DIMS = (64, 128)
+SIMT_WIDTHS = (16, 32, 64, 128, 256)
 
 launches = 0  # K2 forward launches since the last reset (chip_smoke reads it)
 dq_launches = 0  # K2dq launches since the last reset
 dkv_launches = 0  # K2dkv launches since the last reset
+
+
+class FlashPlan(NamedTuple):
+    design: str  # "wgmma" (tensor cores, operands by TMA) or "simt"
+    width: int   # the instantiated head width (>= D)
+
+
+def flash_plan(d: int, dtype: torch.dtype) -> FlashPlan:
+    """K2f's, K2dq's and K2dkv's design and instantiated width for head
+    width ``d`` in ``dtype``, from those alone: bf16 at 64 and 128 runs
+    the tensor-core designs at ``d``; every other ``d``, and f32, the
+    CUDA-core design at the smallest of :data:`SIMT_WIDTHS` that holds
+    it. Raises for ``d`` outside ``0 < d <= MAX_HEAD_DIM``."""
+    if not 0 < d <= MAX_HEAD_DIM:
+        raise ValueError(f"the flash kernels take head_dim 0 < D <= "
+                         f"{MAX_HEAD_DIM}, got {d}")
+    if dtype == torch.bfloat16 and d in TENSOR_CORE_DIMS:
+        return FlashPlan("wgmma", d)
+    return FlashPlan("simt", next(w for w in SIMT_WIDTHS if w >= d))
 
 
 def _mask(kv_mask: Optional[torch.Tensor],
@@ -140,13 +173,12 @@ def _check(kernel: str, q, k, v, kv_mask, segment_ids, *more):
         raise ValueError(f"q/k/v must share one [B, S, H, D] shape, got "
                          f"{tuple(q.shape)}/{tuple(k.shape)}/{tuple(v.shape)}")
     b, s, h, d = q.shape
-    if d not in HEAD_DIMS:
-        raise ValueError(f"flash kernel takes head_dim in {HEAD_DIMS}, got {d}")
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError("q/k/v must share one dtype")
     code = kernels.dtype_code(q.dtype, kernel)
     if code == kernels.DTYPE_CODES[torch.int8]:
         raise TypeError("flash kernel takes float q/k/v")
+    plan = flash_plan(d, q.dtype)
     if any(t.stride(-1) != 1 for t in (q, k, v)):
         raise ValueError("flash kernel needs a contiguous head_dim axis")
     if b * h > 65535:
@@ -157,12 +189,14 @@ def _check(kernel: str, q, k, v, kv_mask, segment_ids, *more):
                               or not t.is_contiguous()):
             raise ValueError(f"{name} must be a contiguous [B, S] {dt} "
                              f"tensor, got {tuple(t.shape)} {t.dtype}")
-    return device, code
+    if plan.design == "wgmma":
+        _require_tma(kernel, q, k, v)
+    return device, code, plan
 
 
 def tma_compatible(t: torch.Tensor) -> bool:
-    """Whether the bf16 forward's TMA tensor maps can address ``t [B, S,
-    H, D]``: head_dim contiguous, the base 16-byte aligned, and the
+    """Whether the tensor-core designs' TMA tensor maps can address ``t
+    [B, S, H, D]``: head_dim contiguous, the base 16-byte aligned, and the
     strides of the batch, sequence and head dimensions longer than 1
     positive multiples of 8 elements (16 bytes)."""
     if t.stride(-1) != 1 or t.data_ptr() % 16:
@@ -179,13 +213,20 @@ def _require_tma(kernel: str, q, k, v) -> None:
 
 
 def tma_dout(dout: torch.Tensor) -> torch.Tensor:
-    """``dout`` as bf16 K2dq and K2dkv read it: itself where TMA can
-    address it, else a contiguous copy. Autograd may hand the backward an
-    expanded or strided cotangent (a broadcast loss, a sliced output);
-    unlike q, k and v, which the caller laid out, it is copied, not
-    refused."""
+    """``dout`` as the tensor-core K2dq and K2dkv read it: itself where
+    TMA can address it, else a contiguous copy. Autograd may hand the
+    backward an expanded or strided cotangent (a broadcast loss, a sliced
+    output); unlike q, k and v, which the caller laid out, it is copied,
+    not refused."""
     return dout if tma_compatible(dout) else dout.clone(
         memory_format=torch.contiguous_format)
+
+
+def _bwd_dout(dout: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """``dout`` as the plan's backward design reads it."""
+    if flash_plan(q.shape[-1], q.dtype).design == "wgmma":
+        return tma_dout(dout)
+    return dout
 
 
 def _ptr(t: Optional[torch.Tensor]):
@@ -205,9 +246,8 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     global launches
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, kv_mask, causal, segment_ids)
-    device, code = _check("flash_attention", q, k, v, kv_mask, segment_ids)
-    if q.dtype == torch.bfloat16:
-        _require_tma("flash", q, k, v)
+    device, code, plan = _check("flash_attention", q, k, v, kv_mask,
+                                segment_ids)
     b, s, h, d = q.shape
     out = torch.empty((b, s, h, d), dtype=q.dtype, device=device)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=device)
@@ -216,15 +256,15 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(kv_mask),
         _ptr(segment_ids), out.data_ptr(), lse.data_ptr(), b, s, h, d,
         *_strides(q, k, v), int(bool(causal)), float(d ** -0.5), code,
-        *kernels.launch_args(device))
+        plan.width, *kernels.launch_args(device))
     kernels.check(rc, "flash_attention")
     launches += 1
     return out, lse
 
 
 def _check_bwd(kernel, dout, q, k, v, lse, delta, kv_mask, segment_ids):
-    device, code = _check(kernel, q, k, v, kv_mask, segment_ids, dout, lse,
-                          delta)
+    device, code, plan = _check(kernel, q, k, v, kv_mask, segment_ids, dout,
+                                lse, delta)
     b, s, h, _ = q.shape
     if dout.shape != q.shape or dout.dtype != q.dtype:
         raise ValueError("the output gradient must match q in shape and dtype")
@@ -235,16 +275,16 @@ def _check_bwd(kernel, dout, q, k, v, lse, delta, kv_mask, segment_ids):
                 or not t.is_contiguous():
             raise ValueError(f"{name} must be a contiguous float32 [B, H, S] "
                              "tensor")
-    return device, code
+    return device, code, plan
 
 
 def _bwd_args(dout, q, k, v, lse, delta, kv_mask, segment_ids, causal,
-              code, device):
+              code, plan, device):
     b, s, h, d = q.shape
     head = (q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
             _ptr(kv_mask), _ptr(segment_ids), lse.data_ptr(), delta.data_ptr())
     tail = (b, s, h, d, *_strides(q, k, v, dout), int(bool(causal)),
-            float(d ** -0.5), code, *kernels.launch_args(device))
+            float(d ** -0.5), code, plan.width, *kernels.launch_args(device))
     return head, tail
 
 
@@ -254,18 +294,15 @@ def flash_attention_dq(dout: torch.Tensor, q: torch.Tensor, k: torch.Tensor,
                        causal: bool = False,
                        segment_ids: Optional[torch.Tensor] = None
                        ) -> torch.Tensor:
-    """K2dq: ``dq [B, S, H, D]`` (CUDA tensors only). bf16 runs the
-    tensor-core kernel, which reads q, k, v and dout by TMA: q, k and v
+    """K2dq: ``dq [B, S, H, D]`` (CUDA tensors only). The tensor-core
+    design (:func:`flash_plan`) reads q, k, v and dout by TMA: q, k and v
     must be TMA-addressable, dout is copied where not (:func:`tma_dout`)."""
     global dq_launches
-    if q.dtype == torch.bfloat16:
-        dout = tma_dout(dout)
-    device, code = _check_bwd("flash_attention_dq", dout, q, k, v, lse, delta,
-                              kv_mask, segment_ids)
-    if q.dtype == torch.bfloat16:
-        _require_tma("flash_attention_dq", q, k, v)
+    dout = _bwd_dout(dout, q)
+    device, code, plan = _check_bwd("flash_attention_dq", dout, q, k, v, lse,
+                                    delta, kv_mask, segment_ids)
     head, tail = _bwd_args(dout, q, k, v, lse, delta, kv_mask, segment_ids,
-                           causal, code, device)
+                           causal, code, plan, device)
     dq = torch.empty(q.shape, dtype=q.dtype, device=device)
     kernels.check(kernels.library().port_flash_attention_dq(
         *head, dq.data_ptr(), *tail), "flash_attention_dq")
@@ -281,18 +318,15 @@ def flash_attention_dkv(dout: torch.Tensor, q: torch.Tensor, k: torch.Tensor,
                         segment_ids: Optional[torch.Tensor] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K2dkv: ``(dk, dv)``, each ``[B, S, H, D]`` (CUDA tensors only).
-    bf16 runs the tensor-core kernel, which reads q, k, v and dout by
+    The tensor-core design (:func:`flash_plan`) reads q, k, v and dout by
     TMA: q, k and v must be TMA-addressable, dout is copied where not
     (:func:`tma_dout`)."""
     global dkv_launches
-    if q.dtype == torch.bfloat16:
-        dout = tma_dout(dout)
-    device, code = _check_bwd("flash_attention_dkv", dout, q, k, v, lse,
-                              delta, kv_mask, segment_ids)
-    if q.dtype == torch.bfloat16:
-        _require_tma("flash_attention_dkv", q, k, v)
+    dout = _bwd_dout(dout, q)
+    device, code, plan = _check_bwd("flash_attention_dkv", dout, q, k, v,
+                                    lse, delta, kv_mask, segment_ids)
     head, tail = _bwd_args(dout, q, k, v, lse, delta, kv_mask, segment_ids,
-                           causal, code, device)
+                           causal, code, plan, device)
     dk = torch.empty(q.shape, dtype=q.dtype, device=device)
     dv = torch.empty_like(dk)
     kernels.check(kernels.library().port_flash_attention_dkv(

@@ -51,13 +51,13 @@ _F = ctypes.c_float
 SIGNATURES = {
     "port_layernorm": [_P] * 5 + [_I, _I, _F] + [_I] * 6 + [_P],
     "port_flash_attention_fwd": ([_P] * 7 + [_I] * 4 + [_L] * 9
-                                 + [_I, _F, _I, _I, _P]),
+                                 + [_I, _F, _I, _I, _I, _P]),
     "port_paged_attention": [_P] * 9 + [_I] * 13 + [_F, _I, _I, _I, _P],
     "port_layernorm_bwd": [_P] * 9 + [_I] * 7 + [_F, _I, _I, _P],
     "port_flash_attention_dq": ([_P] * 9 + [_I] * 4 + [_L] * 12
-                                + [_I, _F, _I, _I, _P]),
+                                + [_I, _F, _I, _I, _I, _P]),
     "port_flash_attention_dkv": ([_P] * 10 + [_I] * 4 + [_L] * 12
-                                 + [_I, _F, _I, _I, _P]),
+                                 + [_I, _F, _I, _I, _I, _P]),
     "port_k4_fwd": [_P] * 7 + [_I] * 8 + [_P],
     "port_k4_dx": [_P] * 8 + [_I] * 7 + [_P],
     "port_k4_dw": [_P] * 6 + [_I] * 10 + [_P],

@@ -18,6 +18,16 @@ allocation at admission and release at finish — no allocation inside
 a chunk. A freed slot's block-table row goes back to the sentinel, so
 its dead-row writes can never land in pages handed to another request.
 
+Chunked prefill (``prefill_chunk``): a prompt longer than
+``prefill_chunk`` admits piecewise, one ``prefill_chunk``-wide piece a
+step, each written straight into the page pool through the admission's
+own page row (``_paged_prefill_chunk``) while the reserved slot's table
+row stays at the sentinel; decode chunks run between the pieces, so a
+long arrival stalls the streaming slots by one piece, not a whole
+prefill. ``step_token_budget`` caps one step's work (the piece plus
+live slots x decode steps) by shrinking the decode chunk
+(``_budget_cap``).
+
 This slice's engine is serial (``pipeline_depth=0``): one chunk is
 dispatched and collected per ``step``, with one device-to-host copy per
 chunk. The attribute names ``_queue``, ``_slots``, ``_admitting``,
@@ -48,8 +58,6 @@ PAD_BUCKETS = (32, 64, 128, 256, 512, 1024)
 # engine options of the JAX engine this slice does not carry, with the
 # ROADMAP item (queue 1) that brings each
 _NOT_PORTED = {
-    "prefill_chunk": "P3 chunked prefill (_paged_prefill_chunk)",
-    "step_token_budget": "P3 chunked prefill (_paged_prefill_chunk)",
     "prefix_cache_size": "P4 radix prefix cache",
     "pipeline_depth": "P5 async step pipeline",
     "adaptive_chunk": "P5 async step pipeline",
@@ -154,6 +162,47 @@ def _insert_slots_batch_paged(state: SlotState, caches: DenseCache,
                                   else None)
 
 
+def _paged_prefill_chunk(model: CausalLM, state: SlotState,
+                         padded: np.ndarray, fill: int, true_len: int,
+                         row: np.ndarray) -> torch.Tensor:
+    """One chunked-prefill piece written STRAIGHT into the page pool: a
+    batch-1 multi-token slot-decode forward at positions ``fill +
+    arange(w)`` whose cache view shares the pool's pages but reads and
+    writes through ``row`` (the admission's sentinel-padded page row)
+    instead of the block table. The slot's own table row stays at the
+    sentinel until activation, so interleaved decode chunks' dead-row
+    writes for the reserved slot go to the trash page. Pad rows past the
+    piece's ``true_len`` real tokens land in pages the admission owns (or
+    the trash) and are overwritten by the next piece or by decode.
+    Returns the logits at the piece's last REAL token ``[1, V]``."""
+    device = model.device
+    w = padded.shape[0]
+    ids = torch.from_numpy(padded[None].astype(np.int64)).to(device)
+    positions = (fill + torch.arange(w, device=device))[None]
+    view = state.cache.with_table(torch.from_numpy(row[None]).to(device))
+    last = torch.tensor([true_len - 1], device=device)
+    return model(ids, positions=positions, cache=view, last_index=last)[:, 0]
+
+
+def _activate_slot_paged(state: SlotState, slot: int, row: np.ndarray,
+                         fill: int, logits1: torch.Tensor,
+                         sampling: tuple) -> None:
+    """Chunked-prefill admission complete: point the slot's block-table
+    row at the admission's pages (every piece already lives in them) and
+    flip the slot live with its fill level, carried logits and sampling
+    lane — no cache rows to move."""
+    device = logits1.device
+    temp, topp, seed = sampling
+    state.cache.block_table[slot] = torch.from_numpy(row).to(device)
+    state.positions[slot] = fill
+    state.last_logits[slot] = logits1[0]
+    state.live[slot] = True
+    state.temps[slot] = temp
+    state.topps[slot] = topp
+    state.generators[slot] = (_slot_generator(seed, device) if temp > 0
+                              else None)
+
+
 def _clear_live_paged(state: SlotState, slot: int) -> None:
     """Paged free: drop the live flag AND reset the slot's block-table
     row to the sentinel."""
@@ -209,7 +258,9 @@ class ContinuousEngine:
 
     def __init__(self, model: CausalLM, num_slots: int = 8, chunk: int = 8,
                  eos_token_id: Optional[int] = None, pad_id: int = 0,
-                 buckets: Sequence[int] = PAD_BUCKETS, **unported):
+                 buckets: Sequence[int] = PAD_BUCKETS,
+                 prefill_chunk: int = 0, step_token_budget: int = 0,
+                 **unported):
         for name, value in unported.items():
             if name not in _NOT_PORTED:
                 raise TypeError(f"unexpected engine option {name!r}")
@@ -225,6 +276,21 @@ class ContinuousEngine:
                 "kv_num_pages")
         if num_slots < 1 or chunk < 1:
             raise ValueError("num_slots and chunk must be >= 1")
+        if prefill_chunk and prefill_chunk < 32:
+            raise ValueError(
+                f"prefill_chunk must be 0 (off) or >= 32, got "
+                f"{prefill_chunk} (tiny pieces spend more dispatches "
+                "than they save)")
+        if step_token_budget < 0:
+            raise ValueError(
+                f"step_token_budget must be >= 0, got {step_token_budget}")
+        # prefill_chunk: prompts longer than this admit one piece a step;
+        # step_token_budget ("Sarathi-style"): cap one step's work at
+        # ~this many tokens, split between the prefill piece and the
+        # decode chunk (live slots x steps, bucketed down to a power of
+        # two, floored at 1). 0 = off.
+        self.prefill_chunk = int(prefill_chunk)
+        self.step_token_budget = int(step_token_budget)
         self.model = model
         self.device = model.device
         self.num_slots, self.chunk = num_slots, chunk
@@ -249,7 +315,7 @@ class ContinuousEngine:
         self._rid = itertools.count()
         self._queue: List[_Request] = []
         self._slots: Dict[int, _Request] = {}
-        self._admitting = None            # chunked prefill: not ported
+        self._admitting: Optional[dict] = None  # the piecewise admission
         self._inflight_q: Deque = deque()  # decode-ahead: not ported
         self.radix = None                 # radix prefix cache: not ported
         self._n_finished = 0
@@ -257,6 +323,8 @@ class ContinuousEngine:
         self._n_solo_admits = 0
         self._n_dispatched_steps = 0
         self._n_prefill_tokens = 0
+        self._n_prefill_chunks = 0     # pieces processed
+        self._step_prefill_tokens = 0  # this step's piece tokens
         self._state = SlotState(model, num_slots, self.device)
 
     # -- submission ------------------------------------------------------
@@ -281,8 +349,13 @@ class ContinuousEngine:
             raise ValueError(
                 f"prompt {prompt.size} + {max_new_tokens} new tokens "
                 f"exceeds max_seq_len {cfg.max_seq_len}")
-        sb = bucket_length(prompt.size, self.buckets)
-        need = self._pages_needed(sb, prompt.size, max_new_tokens)
+        if self._chunked_route(prompt.size):
+            # pieces write real tokens only and touch no bucket: the
+            # bound is max_seq_len (above) and the true token extent
+            need = -(-(prompt.size + max_new_tokens) // cfg.kv_page_size)
+        else:
+            sb = bucket_length(prompt.size, self.buckets)
+            need = self._pages_needed(sb, prompt.size, max_new_tokens)
         if need > cfg.kv_num_pages:
             # with the whole pool free it still could not admit —
             # queueing it would livelock run_until_drained
@@ -295,8 +368,12 @@ class ContinuousEngine:
         self._queue.append(req)
         return req.rid
 
+    def _chunked_route(self, prompt_len: int) -> bool:
+        return bool(self.prefill_chunk and prompt_len > self.prefill_chunk)
+
     def cancel(self, rid: int) -> bool:
-        """Drop a queued request or free the slot of an active one."""
+        """Drop a queued request, free the slot of an active one, or
+        abandon the piecewise admission of one (its pages return)."""
         for i, req in enumerate(self._queue):
             if req.rid == rid:
                 req.done = True
@@ -308,6 +385,10 @@ class ContinuousEngine:
                 del self._slots[slot]
                 self._free_slot(slot)
                 return True
+        if self._admitting is not None and self._admitting["req"].rid == rid:
+            self._admitting["req"].done = True
+            self._drop_admitting()
+            return True
         return False
 
     # -- page pool (host side) -------------------------------------------
@@ -400,8 +481,8 @@ class ContinuousEngine:
     def _admit_batch(self, free: List[int]) -> None:
         """Batched admission: the FIFO prefix of the queue that shares
         one prompt bucket and fits the pool prefills in one forward. The
-        batch stops at the first request needing another bucket or more
-        pages than remain."""
+        batch stops at the first request needing another bucket, the
+        piecewise route or more pages than remain."""
         group: List[_Request] = []
         needs: List[int] = []
         sb0 = None
@@ -409,6 +490,8 @@ class ContinuousEngine:
         for req in self._queue:
             if len(group) >= len(free):
                 break
+            if self._chunked_route(req.prompt.size):
+                break  # piecewise route
             sb = bucket_length(req.prompt.size, self.buckets)
             if sb0 is None:
                 sb0 = sb
@@ -428,8 +511,15 @@ class ContinuousEngine:
         self._n_batch_admits += len(group)
 
     def _try_admit(self, slot: int, req: _Request) -> bool:
-        """Admit ``req`` into ``slot``; False when the pool cannot cover
-        it yet (FIFO holds; the request stays queued)."""
+        """Admit ``req`` into ``slot``, or START its piecewise (chunked
+        prefill) admission; False when the pool cannot cover it yet or a
+        piecewise admission is already in flight (FIFO holds; the
+        request stays queued)."""
+        if self._chunked_route(req.prompt.size):
+            if self._admitting is not None:
+                return False  # one piecewise admission at a time
+            self._start_paged_admission(slot, req)
+            return True
         sb = bucket_length(req.prompt.size, self.buckets)
         alloc = self._alloc_pages(self._pages_needed(
             sb, req.prompt.size, req.max_new_tokens))
@@ -438,14 +528,98 @@ class ContinuousEngine:
         self._admit_group([req], [slot], sb, [alloc])
         return True
 
+    def _start_paged_admission(self, slot: int, req: _Request) -> None:
+        """Begin a piecewise paged admission into ``slot`` (reserved from
+        here on) and run its first piece."""
+        cfg = self.model.cfg
+        self._admitting = {
+            "slot": slot, "req": req, "fill": 0, "pages": [],
+            "row": np.full((cfg.max_pages_per_slot,), cfg.kv_num_pages,
+                           np.int32)}
+        self._advance_admission()
+
+    def _advance_admission(self) -> None:
+        """One piece of the piecewise admission: extend its page
+        allocation to cover the piece's real tokens (the final piece
+        claims the whole decode extent — nothing is allocated
+        mid-decode), write the piece's K/V into the pool, and on the
+        final piece activate the slot. Pool dry: the admission stalls (no
+        piece; one allocation failure counted a stalled step) and resumes
+        after frees."""
+        a = self._admitting
+        req, fill = a["req"], a["fill"]
+        cfg = self.model.cfg
+        # near the context limit a full-width piece would run positions
+        # past max_seq_len: clamp its width
+        w = min(self.prefill_chunk, cfg.max_seq_len - fill)
+        piece = req.prompt[fill:fill + w]
+        final = fill + piece.size == req.prompt.size
+        covered = len(a["pages"])
+        need_tokens = (req.prompt.size + req.max_new_tokens if final
+                       else fill + piece.size)
+        need = -(-need_tokens // cfg.kv_page_size) - covered
+        if need > 0:
+            taken = self._take_pages(need)
+            if taken is None:
+                self._n_page_alloc_failures += 1
+                return  # stall: frees at later steps resume it
+            a["row"][covered:covered + need] = taken
+            a["pages"].extend(taken)
+        padded = np.full((w,), self.pad_id, np.int32)
+        padded[:piece.size] = piece
+        try:
+            with torch.no_grad():
+                logits1 = _paged_prefill_chunk(self.model, self._state,
+                                               padded, fill, piece.size,
+                                               a["row"])
+                if final:
+                    _activate_slot_paged(
+                        self._state, a["slot"], a["row"], req.prompt.size,
+                        logits1, (float(req.temperature),
+                                  float(req.top_p if req.top_p is not None
+                                        else 1.0), int(req.seed)))
+        except BaseException:
+            # a failed piece must not leak the admission's pages (the
+            # caller may keep driving this engine), nor lose its request:
+            # it goes back to the queue head (a first piece fails while
+            # it is still there), so outstanding_requests finds it
+            self._drop_admitting()
+            if not any(r is req for r in self._queue):
+                self._queue.insert(0, req)
+            raise
+        a["fill"] = fill + piece.size
+        self._n_prefill_chunks += 1
+        self._step_prefill_tokens += int(piece.size)
+        self._n_prefill_tokens += int(piece.size)
+        if final:
+            self._slots[a["slot"]] = req
+            self._slot_pages[a["slot"]] = a["pages"]
+            self._admitting = None
+
+    def _drop_admitting(self) -> None:
+        """Abandon the piecewise admission (cancel, failed piece): every
+        page it holds returns to the pool. The slot's table row was
+        never set, so what the pieces wrote is unreachable."""
+        a, self._admitting = self._admitting, None
+        if a is not None and a["pages"]:
+            self._unref_pages(a["pages"])
+
     def _admit_waiting(self) -> None:
-        free = [s for s in range(self.num_slots) if s not in self._slots]
-        if len(free) >= 2 and len(self._queue) >= 2:
+        reserved = (self._admitting["slot"]
+                    if self._admitting is not None else None)
+
+        def free_slots():
+            return [s for s in range(self.num_slots)
+                    if s not in self._slots and s != reserved]
+
+        free = free_slots()
+        if (len(free) >= 2 and len(self._queue) >= 2
+                and self._admitting is None):
             self._admit_batch(free)
-            free = [s for s in range(self.num_slots) if s not in self._slots]
+            free = free_slots()
         while free and self._queue:
             if not self._try_admit(free[0], self._queue[0]):
-                break  # pool dry: admit after frees return pages
+                break  # pool dry / piecewise admission busy
             free.pop(0)
             self._queue.pop(0)
             self._n_solo_admits += 1
@@ -487,30 +661,59 @@ class ContinuousEngine:
         self._n_finished += len(newly_done)
         return newly_done
 
+    def _budget_cap(self, prefill_tokens: int) -> Optional[int]:
+        """Decode steps the step-token budget leaves after this step's
+        prefill pieces: (budget - pieces) / live slots, bucketed DOWN to
+        a power of two and floored at 1 (the budget bounds the stall, it
+        never stops token flow). None = budget off."""
+        if not self.step_token_budget:
+            return None
+        live = max(len(self._slots), 1)
+        steps = max((self.step_token_budget - int(prefill_tokens)) // live,
+                    1)
+        b = 1
+        while b * 2 <= steps:
+            b *= 2
+        return b
+
     def step(self) -> List[_Request]:
-        """Admit into free slots, run one decode chunk, collect tokens.
-        Returns requests finished during this chunk."""
+        """Run the in-flight admission's next piece, admit into free
+        slots (a fresh piecewise admission runs its first piece here
+        too), run one decode chunk (capped by the step-token budget),
+        collect tokens. Returns requests finished during this chunk."""
+        self._step_prefill_tokens = 0
+        if self._admitting is not None:
+            self._advance_admission()
         self._admit_waiting()
         if not self._slots:
             return []
+        size = self.chunk
+        cap = self._budget_cap(self._step_prefill_tokens)
+        if cap:
+            size = min(size, cap)
         snapshot = dict(self._slots)
-        toks, live_host = self._run_chunk(self.chunk)
+        toks, live_host = self._run_chunk(size)
         return self._collect(toks, live_host, snapshot)
 
     def run_until_drained(self):
-        """Drive steps until queue and slots are empty; yields finished
-        ``(rid, tokens)`` in completion order."""
-        while self._queue or self._slots:
+        """Drive steps until queue, admission and slots are empty; yields
+        finished ``(rid, tokens)`` in completion order."""
+        while self.busy:
             for req in self.step():
                 yield req.rid, req.tokens
 
     @property
     def busy(self) -> bool:
-        return bool(self._queue or self._slots)
+        return bool(self._queue or self._slots
+                    or self._admitting is not None)
 
     def outstanding_requests(self) -> List[_Request]:
-        """Every accepted, undelivered request (queued or in a slot)."""
+        """Every accepted, undelivered request (queued, admitting or in
+        a slot)."""
+        admitting = ([self._admitting["req"]]
+                     if self._admitting is not None else [])
         return ([r for r in self._queue if not r.done]
+                + [r for r in admitting if not r.done]
                 + [r for r in self._slots.values() if not r.done])
 
     @property
@@ -525,7 +728,12 @@ class ContinuousEngine:
             "batch_admits": self._n_batch_admits,
             "solo_admits": self._n_solo_admits,
             "dispatched_steps": self._n_dispatched_steps,
+            "prefill_chunks": self._n_prefill_chunks,
             "prefill_tokens_computed": self._n_prefill_tokens,
+            **({"step_token_budget": self.step_token_budget}
+               if self.step_token_budget else {}),
+            "admitting": (self._admitting["req"].rid
+                          if self._admitting is not None else None),
             "paged": {
                 "page_size": cfg.kv_page_size,
                 "pages_total": cfg.kv_num_pages,

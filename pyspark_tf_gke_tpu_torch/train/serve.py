@@ -147,11 +147,17 @@ class BundleServer:
     """Loads a bundle onto ``device`` and serves generate/score. With
     ``continuous_slots > 0`` a slot engine (``--continuous-slots``,
     ``--continuous-chunk``) serves greedy and temperature/top-p
-    requests."""
+    requests; ``prefill_chunk`` and ``step_token_budget`` are its
+    chunked prefill (``--prefill-chunk``, ``--step-token-budget``)."""
 
     def __init__(self, bundle_dir: str, device: str = "cuda",
                  continuous_slots: int = 0, continuous_chunk: int = 8,
-                 int8_kv: bool = False):
+                 int8_kv: bool = False, prefill_chunk: int = 0,
+                 step_token_budget: int = 0):
+        if prefill_chunk and not continuous_slots:
+            raise ValueError(
+                "--prefill-chunk requires --continuous-slots (chunked "
+                "prefill is a slot-engine feature)")
         self.device = resolve_device(device)
         model, _, meta = load_serving_bundle(bundle_dir, self.device)
         if int8_kv and not model.cfg.kv_cache_quant:
@@ -173,7 +179,9 @@ class BundleServer:
             pad_id = getattr(self.tokenizer, "pad_id", 0)
             self._front = _ContinuousFront(lambda: ContinuousEngine(
                 model, num_slots=continuous_slots, chunk=continuous_chunk,
-                eos_token_id=eos_id, pad_id=pad_id))
+                eos_token_id=eos_id, pad_id=pad_id,
+                prefill_chunk=prefill_chunk,
+                step_token_budget=step_token_budget))
 
     def health(self) -> dict:
         return {
@@ -419,6 +427,21 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--continuous-chunk", type=int,
                    default=int(e("CONTINUOUS_CHUNK", "8")),
                    help="decode steps per engine chunk between admissions")
+    p.add_argument("--prefill-chunk", "--prefill-chunk-tokens",
+                   dest="prefill_chunk", type=int,
+                   default=int(e("PREFILL_CHUNK", "0")),
+                   help="chunked prefill: admit prompts longer than this "
+                        "in pieces of this many tokens, written straight "
+                        "into the page pool, with decode chunks "
+                        "interleaved (0 = whole-prompt prefill; 0 or >= "
+                        "32; requires --continuous-slots)")
+    p.add_argument("--step-token-budget", type=int,
+                   default=int(e("STEP_TOKEN_BUDGET", "0")),
+                   help="cap the tokens one engine step dispatches, split "
+                        "between the prefill piece and the decode chunk "
+                        "(live slots x steps): bounds the time between "
+                        "tokens under long-prompt arrivals (0 = off; pair "
+                        "with --prefill-chunk)")
     p.add_argument("--int8-kv", action="store_true",
                    default=e("SERVE_INT8_KV", "") == "1",
                    help="serve with an int8 KV cache")
@@ -432,7 +455,9 @@ def main(argv=None) -> int:
     server = BundleServer(args.bundle, device=args.device,
                           continuous_slots=args.continuous_slots,
                           continuous_chunk=args.continuous_chunk,
-                          int8_kv=args.int8_kv)
+                          int8_kv=args.int8_kv,
+                          prefill_chunk=args.prefill_chunk,
+                          step_token_budget=args.step_token_budget)
     httpd = start_http_server(server, args.host, args.port)
     logger.info("serving on http://%s:%d (healthz, /v1/generate, /v1/score)",
                 *httpd.server_address[:2])

@@ -113,8 +113,8 @@ def test_build_targets_sm90a_into_the_ignored_build_dir():
     compiles, link = kernels.build_commands("nvcc")
     assert {Path(c[c.index("-c") + 1]).name for c in compiles} == {
         "layernorm.cu", "layernorm_bwd.cu", "flash_attention.cu",
-        "flash_attention_bwd.cu", "paged_attention.cu", "fused_matmul.cu",
-        "fused_conv3.cu"}
+        "flash_attention_bwd.cu", "flash_attention_simt.cu",
+        "paged_attention.cu", "fused_matmul.cu", "fused_conv3.cu"}
     for cmd in compiles + [link]:
         assert "arch=compute_90a,code=sm_90a" in cmd
     for cmd in compiles:

@@ -172,11 +172,19 @@ def _np_lse(q, k, keep):
     return np.where(keep.any(-1), out, np.inf)
 
 
-@pytest.mark.parametrize("case", ["causal", "kv_mask", "segments",
-                                  "masked_row", "all"])
-def test_flash_matches_jax_kernel(case):
+FLASH_CASES = ["causal", "kv_mask", "segments", "masked_row", "all"]
+
+
+@pytest.mark.parametrize(
+    "case,d", [pytest.param(c, 8, id=c) for c in FLASH_CASES]
+    + [pytest.param(c, d, id=f"{c}-d{d}") for d in (16, 80, 128)
+       for c in FLASH_CASES])
+def test_flash_matches_jax_kernel(case, d):
+    """Every head width runs the same plain version: 8, and 16, 80 and
+    128 (a CUDA-core width, one between two instantiations, and the
+    second tensor-core width on the card)."""
     rng = np.random.default_rng(1)
-    b, s, h, d = 2, 16, 2, 8
+    b, s, h = 2, 16, 2
     q, k, v = (rng.standard_normal((b, s, h, d)).astype(np.float32)
                for _ in range(3))
     causal = case in ("causal", "all")
@@ -212,6 +220,94 @@ def test_flash_matches_jax_kernel(case):
     if case == "masked_row":
         assert np.all(out.numpy()[1] == 0.0)
         assert np.all(np.isposinf(lse.numpy()[1]))
+
+
+def _c_plan_width(d: int, code: int) -> int:
+    """``csrc/flash_attention.cuh plan_width``: the width the C entry
+    points accept for (head_dim, dtype code), 0 outside their limits."""
+    if not 1 <= d <= 256 or code not in (0, 1):
+        return 0
+    if code == 1 and d in (64, 128):
+        return d
+    w = 16
+    while w < d:
+        w *= 2
+    return w
+
+
+def test_flash_plan_takes_every_head_width(monkeypatch):
+    """Every head width 1..256 has a kernel in bf16 and f32: bf16 at 64
+    and 128 on the tensor cores at that width, every other (width,
+    dtype) on the CUDA cores at the next instantiated width; 257 raises
+    naming the limit. The kernel library is replaced by one that checks
+    what the C entry points check (the plan's width, recomputed from D
+    and the dtype; no card here): the wrappers hand K2dq and K2dkv the
+    plan's width at every D, and only the tensor-core widths require
+    TMA-addressable q/k/v (bf16 D = 12 has a head stride of 12, which
+    TMA cannot address, and runs)."""
+    simt = {1: 16, 8: 16, 12: 16, 16: 16, 32: 32, 64: 64, 80: 128, 96: 128,
+            128: 128, 200: 256, 256: 256}
+    for d, width in simt.items():
+        for dtype in (torch.bfloat16, torch.float32):
+            plan = t_flash.flash_plan(d, dtype)
+            if dtype == torch.bfloat16 and d in (64, 128):
+                assert plan == ("wgmma", d)
+            else:
+                assert plan == ("simt", width)
+            code = 1 if dtype == torch.bfloat16 else 0
+            assert _c_plan_width(d, code) == plan.width
+    for bad in (0, 257):
+        with pytest.raises(ValueError, match="256"):
+            t_flash.flash_plan(bad, torch.float32)
+
+    calls = []
+
+    class FakeLibrary:
+        @staticmethod
+        def _entry(name, args, n_ptrs):
+            d, code, width = args[n_ptrs + 3], args[-4], args[-3]
+            calls.append((name, d, code, width))
+            w = _c_plan_width(d, code)
+            return 0 if w and w == width else 1  # cudaErrorInvalidValue
+
+        def port_flash_attention_dq(self, *args):
+            return self._entry("dq", args, 9)
+
+        def port_flash_attention_dkv(self, *args):
+            return self._entry("dkv", args, 10)
+
+    monkeypatch.setattr(t_flash.kernels, "require_cuda",
+                        lambda kernel, *ts: ts[0].device)
+    monkeypatch.setattr(t_flash.kernels, "library", FakeLibrary)
+    monkeypatch.setattr(t_flash.kernels, "launch_args", lambda dev: (0, 0))
+    b, s, h = 2, 8, 3
+    lse, delta = (torch.zeros(b, h, s) for _ in range(2))
+    for d in simt:
+        for dtype in (torch.bfloat16, torch.float32):
+            q = torch.zeros(b, s, h, d, dtype=dtype)
+            calls.clear()
+            t_flash.flash_attention_dq(q, q, q, q, lse, delta, causal=True)
+            t_flash.flash_attention_dkv(q, q, q, q, lse, delta, causal=True)
+            code = 1 if dtype == torch.bfloat16 else 0
+            width = t_flash.flash_plan(d, dtype).width
+            assert calls == [("dq", d, code, width), ("dkv", d, code, width)]
+    # bf16 D 12: not TMA-addressable, and the CUDA-core design takes it
+    # as it is (no copy of dout: its strides reach the kernel)
+    q12 = torch.zeros(b, s, h, 12, dtype=torch.bfloat16)
+    assert not t_flash.tma_compatible(q12)
+    dout = torch.zeros(b, s, h, 16, dtype=torch.bfloat16)[..., :12]
+    assert t_flash._bwd_dout(dout, q12) is dout
+    t_flash.flash_attention_dkv(dout, q12, q12, q12, lse, delta)
+    # a tensor-core width still requires TMA-addressable q/k/v
+    for d in (64, 128):
+        bad = torch.zeros(b, s, h, d + 4, dtype=torch.bfloat16)[..., :d]
+        with pytest.raises(ValueError, match="TMA"):
+            t_flash.flash_attention_dq(bad, bad, bad, bad, lse, delta)
+    # a width the C entry points do not accept fails the launch
+    monkeypatch.setattr(t_flash, "flash_plan",
+                        lambda d, dtype: t_flash.FlashPlan("simt", 64))
+    with pytest.raises(RuntimeError, match="CUDA error 1"):
+        t_flash.flash_attention_dq(q12, q12, q12, q12, lse, delta)
 
 
 def test_dot_product_attention_fully_masked_row_is_zero():

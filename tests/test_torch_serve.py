@@ -10,6 +10,7 @@ import json
 import threading
 import urllib.error
 import urllib.request
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -172,3 +173,60 @@ def test_bad_requests_answer_400(http):
     assert _call(http, "/v1/score", {"texts": [1]})[0] == 400
     assert _call(http, "/v1/generate",
                  {"prompts": ["hi"], "max_new_tokens": 500})[0] == 400
+
+
+LONG_PROMPT = ("chunked prefill admits a long prompt in pieces of thirty-two "
+               "tokens")  # 68 bytes: three pieces
+
+
+def test_prefill_chunk_over_http_matches_jax_server(bundles):
+    """``--prefill-chunk 32 --step-token-budget 40`` from the CLI: a long
+    prompt beside two short ones admits through three pieces, and its
+    greedy completion over HTTP equals the JAX server's with the same
+    options on the same bundle; ``/healthz`` reports the pieces and the
+    budget in the engine's stats, as the JAX server does."""
+    from pyspark_tf_gke_tpu.train.serve import BundleServer as JaxServer
+    from pyspark_tf_gke_tpu_torch.train.serve import parse_args
+
+    jmodel, jparams, tdir = bundles
+    prompts = [PROMPTS[0], LONG_PROMPT, PROMPTS[2]]
+    args = parse_args(["--bundle", tdir, "--device", "cpu",
+                       "--continuous-slots", "2", "--continuous-chunk", "4",
+                       "--prefill-chunk", "32", "--step-token-budget", "40"])
+    assert (args.prefill_chunk, args.step_token_budget) == (32, 40)
+    server = BundleServer(args.bundle, device=args.device,
+                          continuous_slots=args.continuous_slots,
+                          continuous_chunk=args.continuous_chunk,
+                          prefill_chunk=args.prefill_chunk,
+                          step_token_budget=args.step_token_budget)
+    httpd = start_http_server(server, "127.0.0.1", 0)
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{httpd.server_address[1]}"
+    try:
+        status, body = _call(url, "/v1/generate",
+                             {"prompts": prompts, "max_new_tokens": 12})
+        assert status == 200
+        _, health = _call(url, "/healthz")
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        server.shutdown()
+        thread.join(10)
+    jserver = JaxServer(str(Path(tdir).parent / "jax"), continuous_slots=2,
+                        continuous_chunk=4, prefill_chunk=32,
+                        step_token_budget=40)
+    try:
+        want = jserver.generate(prompts, max_new_tokens=12)
+        jstats = jserver.health()["continuous"]
+    finally:
+        jserver._front.shutdown()
+    for got, ref in zip(body["completions"], want):
+        assert got["completion"] == ref["completion"]
+    assert got["completion"] == _jax_completion(jmodel, jparams,
+                                                prompts[2], 12)[0]
+    stats = health["continuous"]
+    assert stats["prefill_chunks"] == jstats["prefill_chunks"] == 3
+    assert stats["step_token_budget"] == jstats["step_token_budget"] == 40
+    with pytest.raises(ValueError, match="requires --continuous-slots"):
+        BundleServer(tdir, device="cpu", prefill_chunk=32)

@@ -1,7 +1,8 @@
 """PyTorch port, the causal-LM training slice on the CPU against the JAX
 package: step-0 gradients of the whole model through the causal-LM
 task, 3-step loss curves of the trainer under adam and under adamw +
-warmup_cosine + clipping, ``lm_batches``, and ``lm_pretrain`` end to end
+warmup_cosine + clipping (and adam at a head width of 128: hidden 256,
+2 heads), ``lm_batches``, and ``lm_pretrain`` end to end
 (``--device cpu``, where the kernels' plain versions run).
 
 Both packages start from one JAX init carried over with
@@ -38,6 +39,9 @@ GRAD_ATOL, GRAD_RTOL = 2e-6, 2e-4
 LOSS_ATOL = 2e-5
 TINY = dict(vocab_size=61, hidden_size=32, num_layers=2, num_heads=4,
             intermediate_size=64, max_seq_len=64, dtype=jnp.float32)
+# a head width of 128 (a Llama-width head; the bf16 tensor-core flash
+# kernels' second width on the card) at a small hidden size
+D128 = dict(hidden_size=256, num_heads=2, intermediate_size=256)
 
 
 def _port_cfg(jcfg):
@@ -59,12 +63,14 @@ def _flat(tree, prefix=""):
     return out
 
 
-@pytest.mark.parametrize("case", ["dense", "flash", "gqa", "segments"])
+@pytest.mark.parametrize("case", ["dense", "flash", "gqa", "segments",
+                                  "flash_d128"])
 def test_step0_gradients_match_jax(case):
     extra = {"dense": {}, "flash": {"use_flash": True},
              "gqa": {"num_kv_heads": 1},
-             "segments": {"use_flash": True, "num_kv_heads": 2}}[case]
-    jcfg = jlm.CausalLMConfig(**TINY, **extra)
+             "segments": {"use_flash": True, "num_kv_heads": 2},
+             "flash_d128": {"use_flash": True, **D128}}[case]
+    jcfg = jlm.CausalLMConfig(**{**TINY, **extra})
     jmodel = jlm.CausalLM(jcfg)
     rng = np.random.default_rng(30)
     batch = {"input_ids": rng.integers(0, 61, (2, 16)).astype(np.int32)}
@@ -99,20 +105,28 @@ def test_step0_gradients_match_jax(case):
                                    err_msg=path)
 
 
-@pytest.mark.parametrize("recipe", ["adam", "adamw_warmup_cosine_clip"])
+@pytest.mark.parametrize("recipe", ["adam", "adamw_warmup_cosine_clip",
+                                    "adamw_warmup_cosine_clip_d128"])
 def test_three_step_loss_curve_matches_jax_trainer(recipe, devices):
+    """``_d128``: at a head width of 128 (hidden 256, 2 heads) under the
+    clipped warmup-cosine recipe. Plain adam at lr 1e-2 there moves each
+    of the 15,616 embedding weights by ~lr on its first step whatever its
+    gradient, so a weight whose gradient is within Adam's eps of zero
+    steps by +-lr on the sign of a rounding residual (one such weight
+    read 3.2e-4 apart, the losses within 2e-5)."""
     from pyspark_tf_gke_tpu.data.pipeline import put_global_batch
     from pyspark_tf_gke_tpu.parallel.mesh import batch_sharding, make_mesh
     from pyspark_tf_gke_tpu.train.harness import (
         make_optimizer as jax_make_optimizer)
     from pyspark_tf_gke_tpu.utils.seeding import make_rng
 
+    recipe, _, width = recipe.partition("_d")
     opt = (dict(learning_rate=1e-2) if recipe == "adam" else
            dict(learning_rate=1e-2, optimizer="adamw", weight_decay=0.1,
                 schedule="warmup_cosine", warmup_steps=1, total_steps=3,
                 grad_clip_norm=0.5))
     mesh = make_mesh({"dp": 1}, devices[:1])
-    jcfg = jlm.CausalLMConfig(**TINY)
+    jcfg = jlm.CausalLMConfig(**{**TINY, **(D128 if width else {})})
     rng = np.random.default_rng(31)
     batches = [{"input_ids": rng.integers(0, 61, (4, 16)).astype(np.int32)}
                for _ in range(3)]

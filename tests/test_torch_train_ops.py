@@ -44,8 +44,8 @@ def _t(a, requires_grad=False):
 # -- K2dq / K2dkv ---------------------------------------------------------------
 
 
-def _flash_case(case, rng):
-    b, s, h, d = 2, 32, 2, 8
+def _flash_case(case, rng, d=8):
+    b, s, h = 2, 32, 2
     q, k, v, w = (rng.standard_normal((b, s, h, d)).astype(np.float32)
                   for _ in range(4))
     kv_mask = segs = None
@@ -59,10 +59,19 @@ def _flash_case(case, rng):
     return q, k, v, w, kv_mask, segs
 
 
-@pytest.mark.parametrize("case", ["causal", "segments", "all"])
-def test_flash_backward_matches_jax_grad(case):
+def _with_widths(cases, base, widths=(16, 80, 128)):
+    """``(case, d)`` parameters: each case at the ``base`` width under its
+    own id, then at each of ``widths`` as ``case-dD``."""
+    return ([pytest.param(c, base, id=c) for c in cases]
+            + [pytest.param(c, d, id=f"{c}-d{d}") for d in widths
+               for c in cases])
+
+
+@pytest.mark.parametrize("case,d",
+                         _with_widths(["causal", "segments", "all"], 8))
+def test_flash_backward_matches_jax_grad(case, d):
     rng = np.random.default_rng(20)
-    q, k, v, w, kv_mask, segs = _flash_case(case, rng)
+    q, k, v, w, kv_mask, segs = _flash_case(case, rng, d)
 
     def jax_loss(q, k, v):
         out = jax_flash(q, k, v,
@@ -110,9 +119,10 @@ def test_flash_gradcheck_f64():
     assert torch.autograd.gradcheck(fn, (q, k, v))
 
 
-@pytest.mark.parametrize("case", ["causal", "segments", "masked",
-                                  "masked_s77"])
-def test_flash_backward_bf16_rounds_where_jax_rounds(case):
+@pytest.mark.parametrize("case,d",
+                         _with_widths(["causal", "segments", "masked",
+                                       "masked_s77"], 64))
+def test_flash_backward_bf16_rounds_where_jax_rounds(case, d):
     """The bf16 backward rounds P to bf16 before dV and dS before dK and
     dQ, as the TPU kernels do. The same bf16 q, k, v, dO and the port
     forward's out and lse go through the JAX package's ``_flash_bwd_bh``
@@ -129,9 +139,12 @@ def test_flash_backward_bf16_rounds_where_jax_rounds(case):
     (2**-7 relative) of the JAX value or within 2e-6 absolute, and at
     most 1/32 of the elements differ at all. ``masked_s77``: the masked
     case at a ragged S = 77 (JAX blocks of 11), the edge that bf16 K2dq's
-    128-row and K2dkv's 128-key CTAs meet on the card."""
+    128-row and K2dkv's 128-key CTAs meet on the card. At head width 64
+    (the cases above) and at 16, 80 and 128, whose kernels round at the
+    same points; at those three dv is held within one bf16 step and the
+    1/32 count is of the elements more than 2e-6 apart (see below)."""
     case, _, ragged = case.partition("_")
-    b, s, h, d = 2, (77 if ragged else 64), 2, 64
+    b, s, h = 2, (77 if ragged else 64), 2
     block = 11 if ragged else 16
     rng = np.random.default_rng(30)
 
@@ -179,13 +192,20 @@ def test_flash_backward_bf16_rounds_where_jax_rounds(case):
             assert got.dtype == torch.bfloat16
             got = got.float()
             off = got != want
-            if name == "dv":
+            if name == "dv" and d == 64:
                 assert not off.any(), f"{case} {how} dv"
             near = (got - want).abs() <= torch.maximum(
                 want.abs() * 2.0 ** -7, torch.full_like(want, 2e-6))
             assert bool(near.all()), (case, how, name,
                                       float((got - want).abs().max()))
-            assert int(off.sum()) <= want.numel() // 32, (case, how, name)
+            # at the other widths, a query row that sees one key differs
+            # in all D of its dq elements (each by < 2e-6, as above), and
+            # an f32 score summed over more terms can round P to the
+            # neighbouring bf16 value: there the count is of the elements
+            # beyond that 2e-6 floor
+            counted = off if d == 64 else (got - want).abs() > 2e-6
+            assert int(counted.sum()) <= want.numel() // 32, (case, how,
+                                                              name)
 
 
 def _cu_constant(text: str, name: str) -> int:
