@@ -50,13 +50,26 @@
    and K1 at D 128);
 4. serving main path: serves a full-width GPT-small paged bundle
    (random weights from a numpy seed, int8 export) through
-   ``BundleServer`` + the HTTP server with 8 continuous slots: 12
-   ``/v1/generate`` requests from 3 client threads (greedy and seeded
-   top-p) and one ``/v1/score``; every serving kernel's launch counter
-   must move during this phase, K1's decode variant among them; then
-   profiles one batched prefill
-   admission and two decode chunks of the engine (host wall time
-   against device-busy time, top kernels);
+   ``BundleServer`` + the HTTP server with 8 continuous slots at the
+   server's defaults (decode-ahead depth 1, the decode chunk a replayed
+   CUDA graph; a greedy and a sampled warm-up capture both 16-step
+   graphs): 12 ``/v1/generate`` requests from 3 client threads (greedy
+   and seeded top-p) and one ``/v1/score``; every serving kernel's launch
+   counter must move during this phase, K1's decode variant among them,
+   and exactly the two graphs must exist; prints new tokens/s beside the
+   152.3 of an engine launching its decode steps one by one;
+4b. profiles one batched prefill admission and two replays of the
+   engine's captured 16-step decode chunk (host wall time against
+   device-busy time, top kernels; fails unless K1's decode kernel shows
+   inside the replay), then times three replayed chunks unprofiled;
+4d. the captured decode chunk against eager launches of the same body
+   on the same GPT-small model (8 slots, chunk 16, 16 requests of which
+   5 sampled with their own seeds): the tokens must agree bit for bit,
+   and so must the engines at decode-ahead depths 0, 1 and 2; a
+   replay-only run must move K1's decode counter by exactly its decode
+   steps x 12 layers; ``adaptive_chunk`` must dispatch only sizes 8 and
+   16; prints each depth's new tokens/s and ``step_phases``, and each
+   graph's capture time;
 5. checks serving parity on the card: the engine's f32 greedy tokens
    equal the dense ``generate``'s, full-width bf16 prefill logits
    through the kernels agree with the plain versions, and so do two
@@ -67,14 +80,25 @@
    2048 positions (int8 export), 8 slots, chunk 16, 64-token pages,
    ``prefill_chunk`` 256, ``step_token_budget`` 384; 32 requests, every
    4th with a 1024-token prompt and the rest 64, 64 new tokens each,
-   through the unchunked and the chunked engine in turns (unchunked,
-   chunked, chunked, unchunked). Every piece's K1 calls
+   through an unchunked and a chunked engine at decode-ahead depth 1,
+   each warmed by one whole run (its graphs captured there), then in
+   turns (unchunked, chunked, chunked, unchunked). Every piece's K1 calls
    must take the chunk variant and every serving kernel must launch;
    an f32 run of the same arrivals (the full width cut to 2 layers)
    must give the unchunked engine's tokens exactly. Prints the short
    requests' time to first token and largest gap between tokens, new
    tokens/s and the engine's step times of each run, and the ratios of
    the two engines' means;
+4e. the radix prefix cache, the JAX bench's shared-prefix traffic
+   (``bench.py:1330-1400``, the non-smoke shape) on GPT-small: 16
+   requests sharing a 512-token system prompt, 32-token suffixes, 16 new
+   tokens, 4 slots, chunk 8, 64-token pages, pieces of 128, the pool
+   sized as the bench sizes it; the cache off, then warmed and on, then
+   the cached pages exported, packed, unpacked and imported into a fresh
+   engine: the tokens must agree three ways, the prefill tokens must be
+   the warm's 512 plus the suffixes (the suffixes alone after the
+   import), the page audit green after every step; prints new tokens/s
+   both ways and the hit rate;
 6. training main path: ``lm_pretrain.main`` on a seeded synthetic text
    corpus at the GPT-small width (hidden 768, 12 layers, 12 heads, FFN
    3072, seq 512, batch 16, bf16, Adam 3e-4), 2 epochs x 10 steps with
@@ -172,6 +196,11 @@ TOL = {"float32": dict(atol=5e-5, rtol=1e-5, rel_l2=None),
 # 1e-4 of the largest reference sum (a few f32 roundings of a sum of
 # 8192 terms), and relative L2 within 2e-5.
 SUM_REL_MAX, SUM_REL_L2 = 1e-4, 2e-5
+
+
+# the card as `nvidia-smi --query-gpu=name,power.limit` names it, set by
+# main() and printed beside the serving phases' times
+CARD = "card not queried"
 
 
 class SmokeFailure(RuntimeError):
@@ -1448,7 +1477,12 @@ def run_main_path(torch, dev, counters, cfg):
             if i in (3, 8):
                 body.update(temperature=0.8, top_p=0.9, seed=100 + i)
             jobs.append(body)
+        # warm-up: the server's engine captures its greedy and its
+        # sampled 16-step decode chunk here (the only sizes this
+        # server dispatches: a fixed chunk, no budget, no adaptive)
         _post(url + "/v1/generate", {"prompt": "warm up", "max_new_tokens": 2})
+        _post(url + "/v1/generate", {"prompt": "warm up", "max_new_tokens": 2,
+                                     "temperature": 0.8, "seed": 1})
         torch.cuda.synchronize()
         for mod, attr in counters.values():  # count only the traffic below
             setattr(mod, attr, 0)
@@ -1478,6 +1512,7 @@ def run_main_path(torch, dev, counters, cfg):
         launches = {name: getattr(mod, attr)
                     for name, (mod, attr) in counters.items()}
         variants = dict(pa.variant_launches)
+        engine_stats = server.health()["continuous"]
     finally:
         httpd.shutdown()
         httpd.server_close()
@@ -1505,7 +1540,20 @@ def run_main_path(torch, dev, counters, cfg):
               f"malformed score {sc}")
     log(f"  score: {[round(s['nll'], 3) for s in score[1]['scores']]}")
     log(f"  aggregate {new_tokens} new tokens in {wall:.3f} s = "
-        f"{new_tokens / wall:.1f} tokens/s (12 requests, 3 clients)")
+        f"{new_tokens / wall:.1f} tokens/s (12 requests, 3 clients; the "
+        f"engine launching its decode steps one by one gave 152.3) on {CARD}")
+    phases = engine_stats["step_phases"]
+    log(f"  engine: pipeline_depth {engine_stats['pipeline_depth']}, "
+        f"{engine_stats['decode_graphs']} decode graphs, "
+        f"{engine_stats['dispatched_steps']} decode steps; step_phases "
+        f"host_overhead_frac {phases['host_overhead_frac']}, host_work_frac "
+        f"{phases['host_work_frac']}, wall p50 {phases['wall_ms'].get('p50')} "
+        f"ms over {phases['records']} steps")
+    check(engine_stats["pipeline_depth"] == 1,
+          "the server's default is not decode-ahead depth 1")
+    check(engine_stats["decode_graphs"] == 2,
+          f"{engine_stats['decode_graphs']} decode graphs captured, expected "
+          "the greedy and the sampled 16-step chunk")
     log(f"  kernel launches on the main path: {launches}; K1 by variant "
         f"{variants}")
     for name, n in launches.items():
@@ -1544,7 +1592,11 @@ def _profiled(torch, fn):
 def profile_engine(torch, full_model):
     """Where one batched prefill admission and one decode chunk of the
     full-width model spend their time: host wall clock against the
-    device-busy total from ``torch.profiler``, and the top kernels."""
+    device-busy total from ``torch.profiler``, and the top kernels. The
+    chunk is a replay of the engine's captured 16-step graph (captured
+    by an unprofiled first chunk); the profile must show K1's decode
+    kernel inside it. Returns the replayed chunk's ``(wall ms, device
+    ms)`` unprofiled and profiled."""
     from pyspark_tf_gke_tpu_torch.train.continuous import ContinuousEngine
 
     rng = random.Random(2)
@@ -1552,26 +1604,42 @@ def profile_engine(torch, full_model):
     for _ in range(8):
         eng.submit([rng.randrange(256) for _ in range(700)],
                    max_new_tokens=300)
-    phases = (("prefill admission, 8 x 700-token prompts (bucket 1024)",
-               eng._admit_waiting),
-              ("decode chunk, 16 steps x 8 live slots", eng.step),
-              ("decode chunk again (steady state)", eng.step))
-    for what, fn in phases:
-        wall, busy, top = _profiled(torch, fn)
+    wall, busy, top = _profiled(torch, eng._admit_waiting)
+    log(f"  prefill admission, 8 x 700-token prompts (bucket 1024): wall "
+        f"{wall:.2f} ms, device busy {busy:.2f} ms")
+    t0 = time.perf_counter()
+    eng.step()  # the first chunk captures the 16-step graph
+    torch.cuda.synchronize()
+    log(f"  first decode chunk (warm-up + capture + replay): wall "
+        f"{(time.perf_counter() - t0) * 1e3:.2f} ms; capture "
+        f"{eng.graph_capture_seconds}")
+    result = None
+    for what in ("decode chunk, 16 steps x 8 live slots, graph replay",
+                 "decode chunk again (steady state)"):
+        wall, busy, top = _profiled(torch, eng.step)
         if busy <= 0:
-            log(f"  {what}: wall {wall:.2f} ms; device time not visible "
-                "to torch.profiler")
-            continue
+            raise SmokeFailure(f"{what}: torch.profiler shows no device "
+                               "time for a replayed graph")
         log(f"  {what}: wall {wall:.2f} ms, device busy {busy:.2f} ms "
-            f"({100 * busy / wall:.1f}%), idle {100 * (1 - busy / wall):.1f}%")
+            f"({100 * busy / wall:.1f}%), idle {100 * (1 - busy / wall):.1f}% "
+            f"on {CARD}")
         for name, ms in top[:6]:
             log(f"    {ms:9.3f} ms  {name[:90]}")
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    eng.step()
-    torch.cuda.synchronize()
+        decode = [ms for name, ms in top if "paged_decode" in name]
+        check(bool(decode) and decode[0] > 0, "the replayed decode chunk's "
+              "profile shows no K1 decode kernel")
+        result = (wall, busy)
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.step()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
     log(f"  decode chunk without the profiler: wall "
-        f"{(time.perf_counter() - t0) * 1e3:.2f} ms for 16 steps")
+        f"{', '.join(f'{w:.2f}' for w in walls)} ms for 16 steps (launched "
+        f"step by step: 137-210 ms for 18.16 ms of device time) on {CARD}")
+    return statistics.median(walls), result
 
 
 # -- phase 5: parity on the card ----------------------------------------------
@@ -1796,14 +1864,20 @@ def run_chunked_serving(torch, dev, counters):
                       step_token_budget=CB["budget"])
 
     def engine(m, chunked):
+        # the server's default decode-ahead depth
         return ContinuousEngine(m, num_slots=CB["slots"], chunk=CB["chunk"],
+                                pipeline_depth=1,
                                 **(chunked_kw if chunked else {}))
 
-    for chunked in (False, True):  # warm-up: both engines' shapes
-        warm = engine(model, chunked)
-        for p in (prompts[0], prompts[1], prompts[3]):
-            warm.submit(p, max_new_tokens=2)
-        list(warm.run_until_drained())
+    # one engine of each kind, warmed by a whole run of the traffic: the
+    # decode chunks it dispatches (every budget-capped size) are captured
+    # there, so the timed runs below only replay
+    engines = {chunked: engine(model, chunked) for chunked in (False, True)}
+    for chunked, eng in engines.items():
+        _drive_engine(torch, eng, prompts)
+        log(f"  {'chunked' if chunked else 'unchunked'} engine warmed: "
+            f"graphs {sorted(eng.graph_capture_seconds)}, capture "
+            f"{sum(eng.graph_capture_seconds.values()):.2f} s in all")
     # the two engines in turns (unchunked, chunked, chunked, unchunked):
     # host wall clocks drift by tens of percent within a call, so each
     # engine's numbers are the mean of its two runs; the counters count
@@ -1811,7 +1885,9 @@ def run_chunked_serving(torch, dev, counters):
     results = {False: [], True: []}
     launches = variants = None
     for run, chunked in enumerate((False, True, True, False)):
-        eng = engine(model, chunked)
+        eng = engines[chunked]
+        graphs = len(eng.graph_capture_seconds)
+        before = dict(eng.stats)
         counted = chunked and launches is None
         if counted:
             torch.cuda.synchronize()
@@ -1829,12 +1905,16 @@ def run_chunked_serving(torch, dev, counters):
               f"{'chunked' if chunked else 'unchunked'} engine: a request "
               "did not get its 64 tokens")
         short = [i for i, p in enumerate(prompts) if len(p) == CB["short"]]
+        check(len(eng.graph_capture_seconds) == graphs,
+              "a timed phase-4c run captured a new decode graph")
         r = dict(wall_s=wall, tokens_per_s=sum(map(len, tokens)) / wall,
                  ttft_ms=statistics.median(ttft[i] * 1e3 for i in short),
                  ttft_max_ms=max(ttft[i] * 1e3 for i in short),
                  max_gap_ms=max(max(gaps[i]) for i in short),
-                 pieces=eng.stats["prefill_chunks"],
-                 decode_steps=eng.stats["dispatched_steps"])
+                 pieces=(eng.stats["prefill_chunks"]
+                         - before["prefill_chunks"]),
+                 decode_steps=(eng.stats["dispatched_steps"]
+                               - before["dispatched_steps"]))
         results[chunked].append(r)
         ms = [st[0] for st in steps]
         with_piece = [st[0] for st in steps if st[1]]
@@ -1858,7 +1938,8 @@ def run_chunked_serving(torch, dev, counters):
         f"{mean[True]['tokens_per_s'] / mean[False]['tokens_per_s']:.3f}, "
         f"median TTFT {mean[True]['ttft_ms'] / mean[False]['ttft_ms']:.3f}, "
         f"largest gap "
-        f"{mean[True]['max_gap_ms'] / mean[False]['max_gap_ms']:.3f}")
+        f"{mean[True]['max_gap_ms'] / mean[False]['max_gap_ms']:.3f} (serial "
+        f"engines launching step by step: 0.538, 1.548, 1.433) on {CARD}")
     pieces = results[True][0]["pieces"]
     log(f"  chunked run's launches {launches}; K1 by variant {variants}")
     n_long = sum(len(p) == CB["long"] for p in prompts)
@@ -1890,6 +1971,306 @@ def run_chunked_serving(torch, dev, counters):
         f"{len(prompts)} requests ({CB['new']} tokens each)")
     del model, m32
     return launches, variants
+
+
+# -- phase 4d: the captured decode chunk against eager launches ---------------
+
+
+def _graph_traffic(vocab: int):
+    """16 requests for 8 slots: prompts of 20-700 tokens, 16-64 new
+    tokens, every third one sampled (temperature 0.8, top-p 0.9, its
+    own seed)."""
+    rng = random.Random(4)
+    out = []
+    for i in range(16):
+        n = (20, 100, 300, 700)[i % 4]
+        out.append(dict(prompt_ids=[rng.randrange(vocab) for _ in range(n)],
+                        max_new_tokens=(16, 24, 40, 64)[(i * 5) % 4],
+                        **(dict(temperature=0.8, top_p=0.9, seed=100 + i)
+                           if i % 3 == 2 else {})))
+    return out
+
+
+def _run_traffic(eng, traffic):
+    """Submit every request, drain; ``(tokens by request, wall s)``."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rids = [eng.submit(**job) for job in traffic]
+    done = dict(eng.run_until_drained())
+    torch.cuda.synchronize()
+    return [done[r] for r in rids], time.perf_counter() - t0
+
+
+def check_decode_graphs(torch, dev, model=None):
+    """Phase 4d on the GPT-small serving model (bf16, int8 export, 8
+    slots, chunk 16): the captured chunks give the tokens of eager
+    launches of the same body, bit for bit, greedy and sampled; depth 0,
+    1 and 2 give identical per-request tokens; a replay-only run moves
+    K1's decode counter by exactly its decode steps x layers;
+    ``adaptive_chunk`` dispatches only its bucketed sizes. Prints each
+    depth's new tokens/s and step_phases, and each graph's capture time.
+    Returns the replay-only run's launches by kernel."""
+    from pyspark_tf_gke_tpu_torch.obs.stepstats import StepStatsRing
+    from pyspark_tf_gke_tpu_torch.ops import layernorm as ln
+    from pyspark_tf_gke_tpu_torch.ops import paged_attention as pa
+    from pyspark_tf_gke_tpu_torch.train import continuous as tc
+
+    if model is None:
+        model = _serving_model(torch, dev, _serving_cfg())
+    cfg = model.cfg
+    traffic = _graph_traffic(cfg.vocab_size)
+
+    def engine(**kw):
+        return tc.ContinuousEngine(model, num_slots=8, chunk=16, **kw)
+
+    eager = engine()
+
+    def eager_chunk(size, sampling):  # the same body, launched eagerly
+        toks = tc._decode_chunk(model, eager._state, size,
+                                eager.eos_token_id, eager.pad_id, sampling)
+        return toks.cpu(), eager._state.live.cpu(), None
+
+    eager._chunk_async = eager_chunk
+    ref, eager_s = _run_traffic(eager, traffic)
+    check(not eager._graphs, "the eager engine captured a graph")
+    sampled = [i for i, job in enumerate(traffic) if "seed" in job]
+    runs = {}
+    for depth in (0, 1, 2):
+        eng = engine(pipeline_depth=depth)
+        first, first_s = _run_traffic(eng, traffic)  # captures
+        check(first == ref, f"depth {depth}: the captured chunks' tokens "
+              "differ from eager launches of the same body")
+        eng.stepstats = StepStatsRing()
+        for mod, attr in ((pa, "launches"), (ln, "launches")):
+            setattr(mod, attr, 0)
+        for variant in pa.variant_launches:
+            pa.variant_launches[variant] = 0
+        steps0 = eng.stats["dispatched_steps"]
+        again, wall = _run_traffic(eng, traffic)  # replays only
+        steps = eng.stats["dispatched_steps"] - steps0
+        check(again == ref, f"depth {depth}: a replayed run's tokens differ")
+        check(pa.variant_launches["decode"] == steps * cfg.num_layers,
+              f"depth {depth}: K1's decode variant counted "
+              f"{pa.variant_launches['decode']} launches for {steps} decode "
+              f"steps x {cfg.num_layers} layers")
+        phases = eng.stats["step_phases"]
+        new = sum(map(len, again))
+        runs[depth] = dict(launches={"paged_attention": pa.launches,
+                                     "layernorm": ln.launches})
+        log(f"  depth {depth}: {new} new tokens in {wall:.3f} s = "
+            f"{new / wall:.1f} tokens/s (first run, capturing: "
+            f"{first_s:.3f} s; eager launches {eager_s:.3f} s); "
+            f"host_overhead_frac {phases['host_overhead_frac']}, "
+            f"host_work_frac {phases['host_work_frac']}, step wall p50 "
+            f"{phases['wall_ms']['p50']} ms over {phases['records']} steps; "
+            f"K1 decode {pa.variant_launches['decode']} launches = {steps} "
+            f"steps x {cfg.num_layers} layers, K3 {ln.launches}; on {CARD}")
+        log("    capture (warm-up + capture) s by (size, sampling): "
+            + ", ".join(f"{k}: {v:.3f}" for k, v in
+                        sorted(eng.graph_capture_seconds.items())))
+        check(sorted(eng.graph_capture_seconds) == [(16, False), (16, True)],
+              f"graphs {sorted(eng.graph_capture_seconds)}")
+    log(f"  eager == captured == depth 0, 1, 2 token for token for "
+        f"{len(traffic)} requests ({len(sampled)} sampled)")
+    adaptive = engine(pipeline_depth=1, adaptive_chunk=True)
+    sizes, inner = [], adaptive._dispatch_chunk
+    adaptive._dispatch_chunk = lambda size: (sizes.append(size),
+                                             inner(size))[1]
+    got, wall = _run_traffic(adaptive, traffic)
+    check(got == ref, "adaptive_chunk changed the tokens")
+    check(set(sizes) <= {8, 16} and 8 in sizes,
+          f"adaptive_chunk dispatched sizes {sorted(set(sizes))}")
+    check({k[0] for k in adaptive.graph_capture_seconds} <= {8, 16},
+          f"adaptive graphs {sorted(adaptive.graph_capture_seconds)}")
+    log(f"  adaptive_chunk (depth 1): sizes {sorted(set(sizes))} over "
+        f"{len(sizes)} dispatches, graphs "
+        f"{sorted(adaptive.graph_capture_seconds)}, tokens == fixed chunk "
+        f"({wall:.3f} s with its captures)")
+    return runs[1]["launches"]
+
+
+def _serving_cfg():
+    from pyspark_tf_gke_tpu_torch.models.causal_lm import CausalLMConfig
+
+    # GPT-small paged as the cb bench pages it: 64-token pages, slots x
+    # 16 of them (phase 4's configuration)
+    return CausalLMConfig(kv_page_size=64, kv_num_pages=128)
+
+
+def _serving_model(torch, dev, cfg, name="chip_smoke_graph_bundle"):
+    """A GPT-small bundle of ``cfg`` with random weights (numpy seed 0),
+    exported with int8 weights and loaded on the card."""
+    from pyspark_tf_gke_tpu_torch.models.causal_lm import init_params
+    from pyspark_tf_gke_tpu_torch.train.export import (export_serving_bundle,
+                                                       load_serving_bundle)
+
+    bundle = PORT_PKG / "_build" / name
+    export_serving_bundle(cfg, init_params(cfg, seed=0), str(bundle),
+                          quantize=True)
+    model = load_serving_bundle(str(bundle), dev)[0]
+    shutil.rmtree(bundle, ignore_errors=True)
+    return model
+
+
+# -- phase 4e: the radix prefix cache and the KV handoff -----------------------
+
+# The JAX bench's prefix-cache traffic (bench.py:1330-1400, the non-smoke
+# shape) on the GPT-small serving model: 16 requests sharing one
+# 512-token system prompt, each with a 32-token unique suffix and 16 new
+# tokens; 4 slots, chunk 8, 64-token pages, pieces of 128, the pool sized
+# as the bench sizes it (live slots + the resident prefix).
+PC = dict(slots=4, chunk=8, page=64, prefill_chunk=128, requests=16,
+          shared=512, suffix=32, new=16)
+
+
+def _audit_pages(eng) -> None:
+    """The page audit of ``tests/test_radix_cache.py``: free and
+    referenced pages partition the pool, every trie page is referenced
+    and indexed once."""
+    total = eng.model.cfg.kv_num_pages
+    free, refd = eng._free_pages, set(eng._page_refs)
+    check(len(free) == len(set(free)), "a page is free twice")
+    check(not (set(free) & refd), "a page is both free and referenced")
+    check(len(free) + len(refd) == total,
+          f"pages lost: {len(free)} free + {len(refd)} referenced != {total}")
+    check(all(n > 0 for n in eng._page_refs.values()), "a zero refcount")
+    if eng.radix is not None:
+        trie = eng.radix.indexed_pages()
+        check(len(trie) == len(set(trie)), "a page is indexed twice")
+        check(set(trie) <= refd, "the trie indexes an unreferenced page")
+        check(len(trie) == eng.radix.resident_pages, "resident count drifts")
+
+
+def run_radix_serving(torch, dev, counters):
+    """Phase 4e: the bench's shared-prefix traffic with the radix cache
+    off, then warmed and on; then the cached prefix pages exported from
+    the cached engine, packed, unpacked and imported into a fresh
+    engine, which serves the same traffic. Gates: the same tokens three
+    ways; prefill tokens with the cache on = the warm's 512 + the
+    suffixes, after the import the suffixes only; the page audit green
+    after every step; K1's chunk and decode variants and K3 launch. Each
+    engine is warmed first by two unrelated requests (its decode graph
+    captured there). Returns the cached run's launches."""
+    import numpy as np
+
+    from pyspark_tf_gke_tpu_torch.models.causal_lm import CausalLMConfig
+    from pyspark_tf_gke_tpu_torch.ops import paged_attention as pa
+    from pyspark_tf_gke_tpu_torch.train.continuous import ContinuousEngine
+    from pyspark_tf_gke_tpu_torch.train.kv_transfer import (pack_kv_export,
+                                                            unpack_kv_blob)
+
+    probe = CausalLMConfig()
+    pool = (PC["slots"] * (probe.max_seq_len // PC["page"])
+            + PC["shared"] // PC["page"] + 2)
+    cfg = CausalLMConfig(kv_page_size=PC["page"], kv_num_pages=pool)
+    model = _serving_model(torch, dev, cfg, "chip_smoke_radix_bundle")
+    vocab = model.cfg.vocab_size
+    rng = np.random.default_rng(0)
+    shared = rng.integers(0, vocab, PC["shared"]).astype(np.int32)
+    prompts = [np.concatenate([shared, rng.integers(
+        0, vocab, PC["suffix"]).astype(np.int32)])
+        for _ in range(PC["requests"])]
+    unrelated = [rng.integers(0, vocab, 40).astype(np.int32)
+                 for _ in range(2)]
+
+    def engine(cached):
+        eng = ContinuousEngine(
+            model, num_slots=PC["slots"], chunk=PC["chunk"],
+            prefill_chunk=PC["prefill_chunk"], pipeline_depth=1,
+            prefix_cache_size=pool if cached else 0)
+        for p in unrelated:
+            eng.submit(p, max_new_tokens=4)
+        list(eng.run_until_drained())
+        return eng
+
+    def run(eng, warm=None, count=False):
+        if count:
+            torch.cuda.synchronize()
+            for mod, attr in counters.values():
+                setattr(mod, attr, 0)
+            for variant in pa.variant_launches:
+                pa.variant_launches[variant] = 0
+        computed0 = eng.stats["prefill_tokens_computed"]
+        pc0 = dict(eng.stats.get("prefix_cache") or {})
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if warm is not None:
+            eng.warm_prefix(warm)
+        rids = [eng.submit(p, max_new_tokens=PC["new"]) for p in prompts]
+        done = {}
+        while eng.busy:
+            for req in eng.step():
+                done[req.rid] = list(req.tokens)
+            _audit_pages(eng)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        toks = [done[r] for r in rids]
+        check(all(len(t) == PC["new"] for t in toks),
+              "a request did not get its 16 tokens")
+        pc = eng.stats.get("prefix_cache") or {}
+        out = dict(tokens=toks, wall=wall,
+                   tokens_per_s=PC["requests"] * PC["new"] / wall,
+                   computed=eng.stats["prefill_tokens_computed"] - computed0,
+                   hits=pc.get("hits", 0) - pc0.get("hits", 0),
+                   misses=pc.get("misses", 0) - pc0.get("misses", 0),
+                   resident=pc.get("resident_pages", 0))
+        if count:
+            torch.cuda.synchronize()
+            out["launches"] = {name: getattr(mod, attr)
+                               for name, (mod, attr) in counters.items()}
+            out["variants"] = dict(pa.variant_launches)
+        return out
+
+    off = run(engine(False))
+    cached_eng = engine(True)
+    on = run(cached_eng, warm=shared, count=True)
+    suffixes = PC["requests"] * PC["suffix"]
+    check(on["tokens"] == off["tokens"],
+          "the radix cache changed the tokens")
+    check(off["computed"] == PC["requests"] * (PC["shared"] + PC["suffix"]),
+          f"cache off prefilled {off['computed']} tokens")
+    check(on["computed"] == PC["shared"] + suffixes,
+          f"cache on prefilled {on['computed']} tokens, expected the warm's "
+          f"{PC['shared']} + {suffixes} of suffixes")
+    check(on["hits"] == PC["requests"] and on["misses"] == 0,
+          f"hits {on['hits']}, misses {on['misses']}")
+    for name, n in on["launches"].items():
+        if name != "flash_attention_fwd":  # pieces only: no bucket prefill
+            check(n > 0, f"kernel {name} was not launched on the radix path")
+    check(on["variants"]["chunk"] > 0 and on["variants"]["decode"] > 0,
+          f"K1 by variant {on['variants']}")
+    export = cached_eng.export_prefix_pages(shared)
+    blob = pack_kv_export(export)
+    back = unpack_kv_blob(blob)
+    fresh = engine(True)
+    check(fresh.import_prefix_pages(back["token_ids"], back["layers"])
+          == PC["shared"], "the import did not cover the shared prompt")
+    _audit_pages(fresh)
+    imported = run(fresh)
+    check(imported["tokens"] == off["tokens"],
+          "the imported pages changed the tokens")
+    check(imported["computed"] == suffixes,
+          f"after the import {imported['computed']} tokens were prefilled, "
+          f"expected the {suffixes} of suffixes")
+    log(f"  cache off: {off['tokens_per_s']:.1f} new tokens/s "
+        f"({off['wall']:.3f} s), {off['computed']} prefill tokens")
+    log(f"  cache on (warm inside the timed window): "
+        f"{on['tokens_per_s']:.1f} new tokens/s ({on['wall']:.3f} s), "
+        f"{on['computed']} prefill tokens, hit rate "
+        f"{on['hits'] / max(on['hits'] + on['misses'], 1):.3f}, "
+        f"{on['resident']} resident pages; on / off tokens/s "
+        f"{on['tokens_per_s'] / off['tokens_per_s']:.3f}; on {CARD}")
+    log(f"  KV handoff: {len(export['layers'])} layers x "
+        f"{export['layers'][0]['k_pages'].shape[0]} pages, blob "
+        f"{len(blob) / 2**20:.1f} MiB; the importing engine: "
+        f"{imported['tokens_per_s']:.1f} new tokens/s, {imported['computed']} "
+        "prefill tokens, tokens == cache off")
+    log(f"  cached run's launches {on['launches']}; K1 by variant "
+        f"{on['variants']}")
+    del model, cached_eng, fresh
+    return on["launches"], on["variants"]
 
 
 # -- phase 6: the training main path ------------------------------------------
@@ -2228,7 +2609,12 @@ def check_d128_lm(torch, dev, counters):
                       "flash_attention_fwd": (fa, "launches"),
                       "paged_attention": (pa, "launches")}
     try:
+        # warm-up: the server's engine captures its greedy and its
+        # sampled 16-step decode chunk here (the only sizes this
+        # server dispatches: a fixed chunk, no budget, no adaptive)
         _post(url + "/v1/generate", {"prompt": "warm up", "max_new_tokens": 2})
+        _post(url + "/v1/generate", {"prompt": "warm up", "max_new_tokens": 2,
+                                     "temperature": 0.8, "seed": 1})
         torch.cuda.synchronize()
         for mod, attr in serve_counters.values():
             setattr(mod, attr, 0)
@@ -2742,7 +3128,9 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip().splitlines()
-    log(smi[0] if smi else "nvidia-smi: no output")
+    global CARD
+    CARD = smi[0] if smi else "nvidia-smi: no output"
+    log(CARD)
     dev = resolve_device("cuda")  # raises unless capability 9.0
     cap = torch.cuda.get_device_capability(dev)
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
@@ -2795,19 +3183,20 @@ def main() -> int:
                       "flash_attention_fwd": (fa, "launches"),
                       "flash_attention_dq": (fa, "dq_launches"),
                       "flash_attention_dkv": (fa, "dkv_launches")}
-    from pyspark_tf_gke_tpu_torch.models.causal_lm import CausalLMConfig
-
     # GPT-small (CausalLMConfig defaults: vocab 32000, hidden 768, 12
     # layers, 12 heads, FFN 3072, 1024 positions, bf16), paged as the
     # cb bench pages it: 64-token pages, slots x 16 of them
-    cfg = CausalLMConfig(kv_page_size=64, kv_num_pages=128)
+    cfg = _serving_cfg()
     log("== 4. serving main path: BundleServer + HTTP, GPT-small paged, "
         "8 slots")
     serve_launches, serve_variants, full_model = run_main_path(
         torch, dev, serve_counters, cfg)
     records["paged_attention"]["launches_by_variant"] = serve_variants
-    log("== 4b. where the engine's time goes (torch.profiler)")
+    log("== 4b. where a replayed decode chunk's time goes (torch.profiler)")
     profile_engine(torch, full_model)
+    log("== 4d. the decode chunk as a captured CUDA graph against eager "
+        "launches; decode-ahead depths 0, 1, 2; adaptive chunks")
+    graph_launches = check_decode_graphs(torch, dev, full_model)
     log("== 5. serving parity on the card")
     check_parity(torch, dev, full_model, dataclasses.replace(
         cfg, num_layers=2, dtype=torch.float32))
@@ -2820,6 +3209,12 @@ def main() -> int:
         torch, dev, serve_counters)
     records["paged_attention"]["launches_by_variant_chunked"] = \
         chunked_variants
+    torch.cuda.empty_cache()
+    log("== 4e. the radix prefix cache and the KV handoff: 16 requests "
+        "sharing a 512-token system prompt, GPT-small, 4 slots")
+    radix_launches, radix_variants = run_radix_serving(
+        torch, dev, serve_counters)
+    records["paged_attention"]["launches_by_variant_radix"] = radix_variants
     torch.cuda.empty_cache()
     log("== 6. training main path: lm_pretrain, GPT-small width, bf16, "
         "batch 16 x 512")
@@ -2884,7 +3279,9 @@ def main() -> int:
     for name, source, replaces, design in KERNELS:
         rec = records[name]
         per_path = {"serve": serve_launches.get(name, 0),
+                    "serve_graphs": graph_launches.get(name, 0),
                     "serve_chunked": chunked_launches.get(name, 0),
+                    "serve_radix": radix_launches.get(name, 0),
                     "lm_train": train_launches.get(name, 0),
                     "lm_train_1280": wide_launches.get(name, 0),
                     "lm_train_d128": d128_launches.get(name, 0),

@@ -297,6 +297,24 @@ class PagedKV:
             self._ks[layer][idx] = k_scale
             self._vs[layer][idx] = v_scale
 
+    def copy_page(self, src: int, dst: int) -> None:
+        """Clone page ``src`` into page ``dst`` in every layer's pools,
+        int8 scale pages included (``_copy_page``: the radix prefix
+        cache's copy-on-write of a partially matched tail page)."""
+        for pools in (self._k, self._v, self._ks, self._vs):
+            for pool in pools or ():
+                pool[dst].copy_(pool[src])
+
+    def page_leaves(self, layer: int) -> dict:
+        """The layer's whole pool tensors (trash page included) under
+        the JAX cache's leaf names: ``k_pages``, ``v_pages`` and, for
+        int8 pages, ``k_scale_pages`` and ``v_scale_pages``."""
+        out = {"k_pages": self._k[layer], "v_pages": self._v[layer]}
+        if self._ks is not None:
+            out["k_scale_pages"] = self._ks[layer]
+            out["v_scale_pages"] = self._vs[layer]
+        return out
+
 
 # -- the model ----------------------------------------------------------------
 
@@ -496,7 +514,12 @@ class CausalLM(nn.Module):
             positions = torch.arange(s, device=input_ids.device).expand(b, s)
         hidden = self.wte(input_ids)
         if self.cfg.pos_embedding == "learned":
-            hidden = hidden + self.wpe(positions)
+            # a decode row that overshoots its budget inside a chunk can
+            # sit at max_seq_len (its tokens are discarded and its write
+            # is clamped into its own last page); the lookup clamps too,
+            # where an index past the table would fault on the card
+            hidden = hidden + self.wpe(
+                positions.clamp(max=self.cfg.max_seq_len - 1))
         remat = (self.cfg.remat and cache is None
                  and torch.is_grad_enabled())
         for i in range(self.cfg.num_layers):

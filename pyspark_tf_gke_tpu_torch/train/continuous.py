@@ -7,40 +7,76 @@ at the next chunk boundary. Admission prefills prompts right-padded to
 a length bucket (exact under causal attention: no real token sees the
 padding after it), batching the FIFO prefix of the queue that shares a
 bucket into ONE forward, and scatters the dense prefill K/V into the
-pages the engine allocated for each slot. A decode chunk runs ``chunk``
+pages the engine allocated for each slot. A decode chunk runs ``size``
 slot-decode steps in the emit-then-step order of ``generate``: emit
 token t from the carried logits, then run the model at each row's own
 position. Dead rows (free slot, or past eos) keep computing with a pad
 token at their FROZEN position; their emitted tokens are ``pad_id``.
 
+The decode chunk is ONE body (``_decode_chunk``) that updates the slot
+state in place. The CPU runs it eagerly; on CUDA the engine captures it
+as one CUDA graph for each ``(size, sampling)`` the first time that pair
+is dispatched (a warm-up on a side stream first, one memory pool shared
+by every graph) and replays the graph from then on — the counterpart of
+the JAX engine's jitted ``lax.scan``. Sizes come only from ``chunk``,
+the step-token budget and ``adaptive_chunk``, so there are at most 2 x
+(log2(chunk) + 1) graphs. A failed capture raises; nothing falls back to
+eager launches. Admission writes into the same storage (index writes,
+never rebinding), so a graph replays over whatever slots are live.
+
+Sampling runs over ALL rows when any live row samples (a static
+``sampling`` flag, as the JAX engine's): greedy rows take the argmax and
+their stream is bit-identical to an all-greedy chunk; sampled rows draw
+Gumbel noise from a counter-based hash of the slot's seed key and its
+step counter (both ``[B]`` tensors written at admission), so each
+slot's stream depends only on its own seed, and the captured stream
+equals the eager one. Deterministic per (prompt, seed), not bit-equal to
+JAX's threefry stream.
+
 The engine owns the page pool on the host: a free list plus refcounts,
 allocation at admission and release at finish — no allocation inside
 a chunk. A freed slot's block-table row goes back to the sentinel, so
 its dead-row writes can never land in pages handed to another request.
+All of the engine's device work runs on one stream, so device order is
+host dispatch order: a page freed on the host while a chunk is still in
+flight is reused only by work queued after that chunk.
 
 Chunked prefill (``prefill_chunk``): a prompt longer than
-``prefill_chunk`` admits piecewise, one ``prefill_chunk``-wide piece a
-step, each written straight into the page pool through the admission's
-own page row (``_paged_prefill_chunk``) while the reserved slot's table
-row stays at the sentinel; decode chunks run between the pieces, so a
-long arrival stalls the streaming slots by one piece, not a whole
-prefill. ``step_token_budget`` caps one step's work (the piece plus
+``prefill_chunk`` admits piecewise, one piece a step, each written
+straight into the page pool through the admission's own page row
+(``_paged_prefill_chunk``) while the reserved slot's table row stays at
+the sentinel. ``step_token_budget`` caps one step's work (the piece plus
 live slots x decode steps) by shrinking the decode chunk
 (``_budget_cap``).
 
-This slice's engine is serial (``pipeline_depth=0``): one chunk is
-dispatched and collected per ``step``, with one device-to-host copy per
-chunk. The attribute names ``_queue``, ``_slots``, ``_admitting``,
+Decode-ahead (``pipeline_depth``): up to N dispatched chunks stay
+un-collected; each chunk's tokens and live flags are copied into pinned
+host buffers on the engine's stream behind a CUDA event, and the collect
+waits on that event, so the next step's host work overlaps the chunk's
+compute. ``adaptive_chunk`` sizes each dispatch to the smallest
+remaining budget over the live slots (powers of two from
+``_MIN_ADAPTIVE_CHUNK``). Every step that did work closes one
+``StepRecord`` (``obs/stepstats.py``).
+
+Radix prefix cache (``prefix_cache_size``): completed prompts' pages stay
+resident, indexed by a token trie (``RadixPrefixCache``); a new prompt
+shares its longest cached prefix at page granularity (copy-on-write for
+a partially matched tail page) and prefills only the suffix, its pieces
+starting at the match boundary. ``warm_prefix`` fills trie-owned pages
+directly; ``export_prefix_pages`` / ``import_prefix_pages`` hand cached
+pages between engines (and, through ``train/kv_transfer.py``, between
+this package and the JAX one).
+
+The attribute names ``_queue``, ``_slots``, ``_admitting``,
 ``_inflight_q``, ``_page_refs``, ``_free_pages``, ``_slot_pages`` and
 ``radix`` match the JAX engine so its invariant checker can run here.
-Sampled lanes draw from a per-slot ``torch.Generator`` seeded from the
-request's ``seed``: deterministic per (prompt, seed), not bit-equal to
-JAX's threefry stream.
 """
 
 from __future__ import annotations
 
+import contextlib
 import itertools
+import time
 from collections import deque
 from dataclasses import dataclass, field
 from typing import Deque, Dict, List, Optional, Sequence
@@ -50,21 +86,35 @@ import torch
 
 from pyspark_tf_gke_tpu_torch.models.causal_lm import (CausalLM, DenseCache,
                                                        PagedKV,
-                                                       _filter_logits,
-                                                       gumbel_argmax)
+                                                       _filter_logits)
+from pyspark_tf_gke_tpu_torch.obs.stepstats import (StepStatsRing,
+                                                    flops_per_token)
+from pyspark_tf_gke_tpu_torch.ops import layernorm as _ln
+from pyspark_tf_gke_tpu_torch.ops import paged_attention as _pa
 
 PAD_BUCKETS = (32, 64, 128, 256, 512, 1024)
+
+# Smallest chunk the budget-aligned adaptive scheduler dispatches: floors
+# the graph count (adaptive sizes are powers of two between this and the
+# engine's ``chunk``) and bounds the overshoot on a sub-minimum remainder.
+_MIN_ADAPTIVE_CHUNK = 8
 
 # engine options of the JAX engine this slice does not carry, with the
 # ROADMAP item (queue 1) that brings each
 _NOT_PORTED = {
-    "prefix_cache_size": "P4 radix prefix cache",
-    "pipeline_depth": "P5 async step pipeline",
-    "adaptive_chunk": "P5 async step pipeline",
     "spec_tokens": "P6 in-engine speculative decoding",
     "draft_model": "P6 in-engine speculative decoding",
     "tenant_weights": "P7 tenants and deadlines",
 }
+
+# the paged leaves of a KV-page transfer, in wire order (as the JAX
+# engine's ``_KV_XFER_KEYS``)
+_KV_XFER_KEYS = ("k_pages", "v_pages", "k_scale_pages", "v_scale_pages")
+
+# launch counters of the kernels a decode chunk runs (K1, K3): counted at
+# capture (where no kernel launches), undone there, and added back on
+# every replay
+_COUNTERS = ((_pa, "launches"), (_ln, "launches"))
 
 
 def bucket_length(n: int, buckets: Sequence[int] = PAD_BUCKETS) -> int:
@@ -73,6 +123,14 @@ def bucket_length(n: int, buckets: Sequence[int] = PAD_BUCKETS) -> int:
         if n <= b:
             return b
     raise ValueError(f"prompt length {n} exceeds largest bucket {buckets[-1]}")
+
+
+def wire_layer_order(num_layers: int) -> List[int]:
+    """Layer indices in the order a KV-page transfer carries them: the
+    JAX engine walks its cache tree's ``layer_{i}`` keys sorted as
+    strings (0, 1, 10, 11, 2, ...), and a blob is byte-compatible only
+    in that order."""
+    return sorted(range(num_layers), key=lambda i: f"layer_{i}")
 
 
 @dataclass
@@ -86,11 +144,56 @@ class _Request:
     top_p: Optional[float] = None
     seed: int = 0
 
+    def sampling(self) -> tuple:
+        return (float(self.temperature),
+                float(self.top_p if self.top_p is not None else 1.0),
+                int(self.seed))
+
+
+# -- the sampling lanes' counter-based draws ------------------------------------
+
+_M32 = 0xFFFFFFFF
+
+
+def _mul32(x, c: int):
+    """``(x * c) mod 2**32`` for ``x`` in ``[0, 2**32)`` without leaving
+    int64 (the constant is split in 16-bit halves); Python ints and int64
+    tensors alike."""
+    return (x * (c & 0xFFFF) + (((x * (c >> 16)) & 0xFFFF) << 16)) & _M32
+
+
+def _mix32(x):
+    """A 32-bit integer finalizer (xorshift-multiply): every input bit
+    reaches every output bit."""
+    x = x ^ (x >> 16)
+    x = _mul32(x, 0x7FEB352D)
+    x = x ^ (x >> 15)
+    x = _mul32(x, 0x846CA68B)
+    return x ^ (x >> 16)
+
+
+def _seed_key(seed: int) -> int:
+    """A slot lane's 32-bit key from a request's (64-bit) seed."""
+    s = int(seed) % (1 << 64)
+    return _mix32(_mix32((s >> 32) ^ 0x9E3779B9) ^ (s & _M32))
+
+
+def _gumbel(state: "SlotState") -> torch.Tensor:
+    """``[B, V]`` Gumbel noise: each row's from its key and step counter
+    only, each column from its vocabulary index."""
+    step = _mix32((state.draws + 0x632BE5AB) & _M32)
+    row = _mix32(state.keys ^ step)
+    bits = _mix32(row[:, None] ^ state.vocab_mix[None, :])
+    u = ((bits >> 8).to(torch.float32) + 0.5) * (1.0 / (1 << 24))
+    return -torch.log(-torch.log(u))
+
 
 class SlotState:
     """The slot pool's device state (``_paged_zeros_state``): the paged
     cache, per-slot fill levels, carried logits, live flags and sampling
-    lanes. Mutated in place by the functions below."""
+    lanes (temperature, top-p, seed key, step counter). Every tensor is
+    allocated once and written in place — a captured chunk replays over
+    this storage."""
 
     def __init__(self, model: CausalLM, num_slots: int,
                  device: torch.device):
@@ -103,11 +206,24 @@ class SlotState:
         self.live = torch.zeros(num_slots, dtype=torch.bool, device=device)
         self.temps = torch.zeros(num_slots, device=device)
         self.topps = torch.ones(num_slots, device=device)
-        self.generators: List[Optional[torch.Generator]] = [None] * num_slots
+        self.keys = torch.zeros(num_slots, dtype=torch.long, device=device)
+        self.draws = torch.zeros(num_slots, dtype=torch.long, device=device)
+        self.vocab_mix = _mix32(torch.arange(cfg.vocab_size, dtype=torch.long,
+                                             device=device) + 0x2545F491)
+
+    def carried(self) -> List[torch.Tensor]:
+        """The tensors a decode chunk rewrites (besides the KV pages)."""
+        return [self.positions, self.last_logits, self.live, self.draws]
 
 
-def _slot_generator(seed: int, device: torch.device) -> torch.Generator:
-    return torch.Generator(device=device).manual_seed(int(seed) % (1 << 64))
+def _h2d(arr: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A host array on ``device``; on CUDA through pinned memory and
+    queued on the stream, so an admission never waits for an in-flight
+    chunk."""
+    t = torch.from_numpy(np.ascontiguousarray(arr))
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t
 
 
 def _prefill_padded_batch(model: CausalLM, padded: np.ndarray,
@@ -116,11 +232,25 @@ def _prefill_padded_batch(model: CausalLM, padded: np.ndarray,
     Returns the dense ``[k, S_bucket]`` cache and the logits at each
     row's last real token ``[k, V]``."""
     device = model.device
-    ids = torch.from_numpy(padded).to(device=device, dtype=torch.long)
-    last = torch.from_numpy(true_lens.astype(np.int64) - 1).to(device)
+    ids = _h2d(padded.astype(np.int64), device)
+    last = _h2d(true_lens.astype(np.int64) - 1, device)
     cache = DenseCache(model.cfg, padded.shape[0], padded.shape[1], device)
     logits = model(ids, cache=cache, prefill=True, last_index=last)
     return cache, logits[:, 0]
+
+
+def _set_lanes(state: SlotState, slot_idx, samplings: List[tuple]) -> None:
+    """Sampling lanes of the admitted slots (``slot_idx`` an index
+    tensor or a slice): temperature, top-p, the seed key, and the step
+    counter reset to 0."""
+    device = state.temps.device
+    state.temps[slot_idx] = _h2d(
+        np.array([s[0] for s in samplings], np.float32), device)
+    state.topps[slot_idx] = _h2d(
+        np.array([s[1] for s in samplings], np.float32), device)
+    state.keys[slot_idx] = _h2d(
+        np.array([_seed_key(s[2]) for s in samplings], np.int64), device)
+    state.draws[slot_idx] = 0
 
 
 def _insert_slots_batch_paged(state: SlotState, caches: DenseCache,
@@ -136,8 +266,7 @@ def _insert_slots_batch_paged(state: SlotState, caches: DenseCache,
     ps = kv.page_size
     nc = n_rows // ps
     k_rows = len(slots)
-    idx = torch.from_numpy(
-        np.ascontiguousarray(pages_b[:, :nc]).reshape(-1)).to(device)
+    idx = _h2d(np.ascontiguousarray(pages_b[:, :nc]).reshape(-1), device)
     for layer in range(len(caches.k)):
         def chunks(t):
             rows = t[:, :n_rows]
@@ -147,19 +276,12 @@ def _insert_slots_batch_paged(state: SlotState, caches: DenseCache,
                   if caches.k_scale is not None else (None, None))
         kv.write_pages(layer, idx, chunks(caches.k[layer]),
                        chunks(caches.v[layer]), *scales)
-    slot_idx = torch.tensor(slots, dtype=torch.long, device=device)
-    kv.block_table[slot_idx] = torch.from_numpy(pages_b).to(device)
-    state.positions[slot_idx] = torch.from_numpy(
-        fills.astype(np.int64)).to(device)
+    slot_idx = _h2d(np.asarray(slots, np.int64), device)
+    kv.block_table[slot_idx] = _h2d(pages_b, device)
+    state.positions[slot_idx] = _h2d(fills.astype(np.int64), device)
     state.last_logits[slot_idx] = logits
     state.live[slot_idx] = True
-    state.temps[slot_idx] = torch.tensor([s[0] for s in samplings],
-                                         dtype=torch.float32, device=device)
-    state.topps[slot_idx] = torch.tensor([s[1] for s in samplings],
-                                         dtype=torch.float32, device=device)
-    for slot, (temp, _, seed) in zip(slots, samplings):
-        state.generators[slot] = (_slot_generator(seed, device) if temp > 0
-                                  else None)
+    _set_lanes(state, slot_idx, samplings)
 
 
 def _paged_prefill_chunk(model: CausalLM, state: SlotState,
@@ -177,10 +299,10 @@ def _paged_prefill_chunk(model: CausalLM, state: SlotState,
     Returns the logits at the piece's last REAL token ``[1, V]``."""
     device = model.device
     w = padded.shape[0]
-    ids = torch.from_numpy(padded[None].astype(np.int64)).to(device)
+    ids = _h2d(padded[None].astype(np.int64), device)
     positions = (fill + torch.arange(w, device=device))[None]
-    view = state.cache.with_table(torch.from_numpy(row[None]).to(device))
-    last = torch.tensor([true_len - 1], device=device)
+    view = state.cache.with_table(_h2d(row[None], device))
+    last = torch.full((1,), true_len - 1, dtype=torch.long, device=device)
     return model(ids, positions=positions, cache=view, last_index=last)[:, 0]
 
 
@@ -191,62 +313,342 @@ def _activate_slot_paged(state: SlotState, slot: int, row: np.ndarray,
     row at the admission's pages (every piece already lives in them) and
     flip the slot live with its fill level, carried logits and sampling
     lane — no cache rows to move."""
-    device = logits1.device
-    temp, topp, seed = sampling
-    state.cache.block_table[slot] = torch.from_numpy(row).to(device)
+    state.cache.block_table[slot] = _h2d(row, logits1.device)
     state.positions[slot] = fill
     state.last_logits[slot] = logits1[0]
     state.live[slot] = True
-    state.temps[slot] = temp
-    state.topps[slot] = topp
-    state.generators[slot] = (_slot_generator(seed, device) if temp > 0
-                              else None)
+    _set_lanes(state, slice(slot, slot + 1), [sampling])
 
 
 def _clear_live_paged(state: SlotState, slot: int) -> None:
     """Paged free: drop the live flag AND reset the slot's block-table
-    row to the sentinel."""
+    row to the sentinel, so in-flight dead-row replays write to the trash
+    page instead of pages the engine is about to hand to another
+    request."""
     state.cache.block_table[slot] = state.cache.num_pages
     state.live[slot] = False
-    state.generators[slot] = None
 
 
 def _pick_tokens(logits: torch.Tensor, state: SlotState,
-                 sampling_rows: Sequence[int]) -> torch.Tensor:
-    """[B] next tokens: greedy rows argmax; each sampling row draws from
-    its temperature-scaled, top-p-filtered distribution with its own
-    generator."""
-    tok = torch.argmax(logits, dim=-1)
-    for row in sampling_rows:
-        scaled = logits[row:row + 1] / state.temps[row].clamp_min(1e-6)
-        filtered = _filter_logits(scaled, None, state.topps[row])
-        tok[row] = gumbel_argmax(filtered, state.generators[row])[0]
-    return tok
+                 sampling: bool) -> torch.Tensor:
+    """[B] next tokens: greedy rows argmax; with ``sampling`` every row's
+    temperature-scaled, top-p-filtered draw is computed and the rows
+    with a temperature take it."""
+    greedy = torch.argmax(logits, dim=-1)
+    if not sampling:
+        return greedy
+    scaled = logits / state.temps.clamp_min(1e-6)[:, None]
+    filtered = _filter_logits(scaled, None, state.topps[:, None])
+    sampled = torch.argmax(filtered + _gumbel(state), dim=-1)
+    return torch.where(state.temps > 0, sampled, greedy)
 
 
-def _decode_chunk(model: CausalLM, state: SlotState, chunk: int,
+def _decode_chunk(model: CausalLM, state: SlotState, size: int,
                   eos_token_id: Optional[int], pad_id: int,
-                  sampling_rows: Sequence[int]) -> torch.Tensor:
-    """``chunk`` decode steps for ALL slots; returns the emitted tokens
-    ``[B, chunk]`` (on the device) and updates ``state`` in place."""
+                  sampling: bool) -> torch.Tensor:
+    """``size`` decode steps for ALL slots; returns the emitted tokens
+    ``[B, size]`` and updates ``state`` in place (the body a CUDA graph
+    captures)."""
     emitted_steps = []
-    for _ in range(chunk):
-        tok = _pick_tokens(state.last_logits, state, sampling_rows)
+    for _ in range(size):
+        tok = _pick_tokens(state.last_logits, state, sampling)
         live = state.live
         # emit BEFORE the eos latch drops `live`: the eos token itself
         # belongs to the output
         emitted_steps.append(torch.where(live, tok, pad_id))
         if eos_token_id is not None:
             live = live & (tok != eos_token_id)
-        # dead rows replay their FROZEN position with a pad token
+        # dead rows replay their FROZEN position with a pad token: one
+        # past the row's last real token, inside its own pages and past
+        # the extent the prefix cache adopts (never a shared page)
         step_tok = torch.where(live, tok, pad_id)
         logits = model(step_tok[:, None], positions=state.positions[:, None],
                        cache=state.cache)
-        state.positions = torch.where(live, state.positions + 1,
-                                      state.positions)
-        state.last_logits = logits[:, 0]
-        state.live = live
+        state.positions.add_(live.long())
+        state.last_logits.copy_(logits[:, 0])
+        state.live.copy_(live)
+        if sampling:
+            state.draws.add_(1)
     return torch.stack(emitted_steps, dim=1)
+
+
+def _counter_values() -> list:
+    return ([getattr(mod, attr) for mod, attr in _COUNTERS]
+            + [dict(_pa.variant_launches)])
+
+
+def _add_counters(delta: list, sign: int = 1) -> None:
+    for (mod, attr), d in zip(_COUNTERS, delta):
+        setattr(mod, attr, getattr(mod, attr) + sign * d)
+    for name, d in delta[-1].items():
+        _pa.variant_launches[name] += sign * d
+
+
+@dataclass
+class _ChunkGraph:
+    graph: "torch.cuda.CUDAGraph"
+    toks: torch.Tensor        # the graph's static [B, size] output
+    delta: list               # launch-counter moves of one replay
+    capture_s: float          # warm-up + capture wall time
+
+
+class _InflightStep:
+    """One dispatched-but-unsettled chunk (or admission): the result
+    handles (pinned host buffers filled behind ``event``), the
+    slot->request SNAPSHOT the chunk was computed over (scheduling for
+    the next step mutates ``engine._slots`` freely; the settle walks the
+    snapshot), and the dispatch/retire timestamps that feed the
+    device-busy interval derivation (``obs/stepstats.py``).
+    ``t_dispatch`` is stamped at ENTRY to the dispatch call; ``t_retire``
+    at the first moment the event was observed complete (a
+    non-blocking ``poll_ready`` at a step's top or tail, or the fetch
+    return). ``event`` is None on the CPU, where work is synchronous."""
+
+    __slots__ = ("a", "b", "event", "snapshot", "size", "t_dispatch",
+                 "t_retire")
+
+    def __init__(self, a, b, event, snapshot, size, t_dispatch):
+        self.a = a                  # tokens [B, size]
+        self.b = b                  # live flags [B]
+        self.event = event
+        self.snapshot = snapshot    # slot -> _Request at dispatch
+        self.size = size            # max tokens emitted per slot
+        self.t_dispatch = float(t_dispatch)
+        self.t_retire: Optional[float] = None
+
+    def poll_ready(self) -> bool:
+        """Non-blocking: has the device finished this work?"""
+        return self.event is None or self.event.query()
+
+    def fetch(self):
+        """``(tokens, live)`` as numpy, waiting for the event."""
+        if self.event is not None:
+            self.event.synchronize()
+        return self.a.numpy(), self.b.numpy()
+
+
+# -- the radix prefix cache (host side) -----------------------------------------
+
+
+class _RadixNode:
+    """One KV page in the radix prefix cache: ``tokens`` is the page's
+    token content (``page_size`` long for interior/full pages, shorter
+    for a TAIL page holding a partially-filled final page — always a
+    leaf). Children are keyed by their token tuple, but LOOKUP scans
+    children for the longest common prefix rather than dict-probing:
+    two siblings may share an in-page prefix after divergent inserts
+    ("efgh" and "efxy"), and a tail node matches any prompt that
+    extends its tokens."""
+
+    __slots__ = ("tokens", "page", "children", "parent", "last_used")
+
+    def __init__(self, tokens: tuple, page: Optional[int], parent):
+        self.tokens = tokens
+        self.page = page
+        self.parent = parent
+        self.children: Dict[tuple, "_RadixNode"] = {}
+        self.last_used = 0
+
+
+class RadixPrefixCache:
+    """Trie index over the PAGED KV pool (the engine owns the pages;
+    this class owns only the token->page index): completed prompts'
+    pages stay resident, a new prompt matches its longest cached prefix
+    at page granularity and SHARES those pages copy-on-write, so prefill
+    compute and pool traffic are proportional to the unique suffix only.
+
+    The trie never touches device state or refcounts: ``match`` /
+    ``insert`` / ``evict`` return page-id lists and the ENGINE moves the
+    refcounts (+1 for every page the trie adopts, -1 for every page it
+    releases). Eviction is LRU over leaf nodes whose page has no slot
+    reference (``busy`` predicate), leaf-first so a cached path is
+    always contiguous from the root."""
+
+    def __init__(self, page_size: int, capacity_pages: int):
+        if page_size < 1:
+            raise ValueError("page_size must be >= 1")
+        if capacity_pages < 1:
+            raise ValueError("capacity_pages must be >= 1")
+        self.page_size = int(page_size)
+        self.capacity = int(capacity_pages)
+        self._root = _RadixNode((), None, None)
+        self._tick = 0
+        self.resident_pages = 0
+        self.hits = 0
+        self.misses = 0
+        self.hit_tokens = 0
+        self.evictions = 0
+        # last-N admission outcomes: the windowed hit rate tracks what
+        # the cache absorbs NOW, not its lifetime ratio
+        self._recent: Deque[int] = deque(maxlen=64)
+
+    @staticmethod
+    def _common(a, b) -> int:
+        n = min(len(a), len(b))
+        i = 0
+        while i < n and a[i] == b[i]:
+            i += 1
+        return i
+
+    def _touch(self, node: _RadixNode) -> None:
+        # the whole matched path was used: eviction is leaf-only, but a
+        # deep leaf must keep its ancestors young for when IT is evicted
+        self._tick += 1
+        while node is not None and node.page is not None:
+            node.last_used = self._tick
+            node = node.parent
+
+    def match(self, prompt, limit: Optional[int] = None,
+              peek: bool = False, count: bool = True):
+        """Longest cached prefix of ``prompt``: ``(matched_tokens,
+        full_page_ids, cow)`` where ``cow`` is ``(src_page, rows)`` when
+        the match ends INSIDE a page (the admission clones those rows
+        into a fresh page before its suffix appends there). ``limit``
+        caps the match — default ``len(prompt) - 1``: at least one
+        suffix token must be computed for the carried logits. ``peek``
+        skips stats and LRU touching; ``count=False`` touches the LRU
+        but leaves the hit/miss stats to an explicit :meth:`note`."""
+        toks = tuple(int(t) for t in prompt)
+        limit = len(toks) - 1 if limit is None else min(limit, len(toks))
+        node = self._root
+        t = 0
+        pages: List[int] = []
+        cow = None
+        last = None
+        while t < limit:
+            rem = toks[t:]
+            best, best_c = None, 0
+            for child in node.children.values():
+                c = self._common(child.tokens, rem)
+                if c > best_c:
+                    best, best_c = child, c
+            if best is None:
+                break
+            best_c = min(best_c, limit - t)
+            if best_c <= 0:
+                break
+            last = best
+            if best_c == len(best.tokens) == self.page_size:
+                pages.append(best.page)
+                t += self.page_size
+                node = best
+                continue
+            # partial in-page match: a tail node, a mid-page divergence,
+            # or the limit cap — the walk ends here
+            cow = (best.page, best_c)
+            t += best_c
+            break
+        if not peek:
+            if last is not None:
+                self._touch(last)
+            if count:
+                self.note(t)
+        return t, pages, cow
+
+    def note(self, matched: int) -> None:
+        """Record one ADMISSION outcome."""
+        if matched > 0:
+            self.hits += 1
+            self.hit_tokens += int(matched)
+            self._recent.append(1)
+        else:
+            self.misses += 1
+            self._recent.append(0)
+
+    @property
+    def recent_hit_rate(self) -> float:
+        """Hit rate over the last up-to-64 admissions."""
+        if not self._recent:
+            return 0.0
+        return sum(self._recent) / len(self._recent)
+
+    def insert(self, tokens, pages):
+        """Index ``tokens`` (chunked per page) over their physical
+        ``pages`` (block-table row order). Chunks an existing node
+        already covers are NOT re-adopted; a partial tail node that is a
+        strict prefix of a longer chunk is UPGRADED in place to the new,
+        fuller page. Returns ``(adopted, released)`` page-id lists for
+        the engine's refcount moves."""
+        toks = tuple(int(t) for t in tokens)
+        ps = self.page_size
+        adopted: List[int] = []
+        released: List[int] = []
+        node = self._root
+        self._tick += 1
+        for i in range(0, len(toks), ps):
+            chunk = toks[i:i + ps]
+            page = int(pages[i // ps])
+            nxt = None
+            for child in node.children.values():
+                c = self._common(child.tokens, chunk)
+                if c == len(chunk) and len(child.tokens) >= len(chunk):
+                    nxt = child  # already covered (possibly by a
+                    break        # longer tail) — keep the cached page
+                if c == len(child.tokens) and c < len(chunk):
+                    # the cached tail is a strict prefix of our chunk:
+                    # upgrade the node to the fuller page
+                    del node.children[child.tokens]
+                    released.append(child.page)
+                    child.tokens = chunk
+                    child.page = page
+                    node.children[chunk] = child
+                    adopted.append(page)
+                    nxt = child
+                    break
+            if nxt is None:
+                nxt = _RadixNode(chunk, page, node)
+                node.children[chunk] = nxt
+                adopted.append(page)
+                self.resident_pages += 1
+            nxt.last_used = self._tick
+            if len(nxt.tokens) < ps or len(chunk) < ps:
+                break  # a tail page ends the path
+            node = nxt
+        return adopted, released
+
+    def evict(self, n_pages: int, busy) -> List[int]:
+        """Drop up to ``n_pages`` least-recently-used LEAF pages whose
+        ``busy(page)`` reports no slot reference; returns the released
+        page ids (the caller unrefs them back to the pool)."""
+        released: List[int] = []
+        while len(released) < n_pages:
+            victim = None
+            stack = [self._root]
+            while stack:
+                node = stack.pop()
+                for child in node.children.values():
+                    if child.children:
+                        stack.append(child)
+                    elif not busy(child.page) and (
+                            victim is None
+                            or child.last_used < victim.last_used):
+                        victim = child
+            if victim is None:
+                break  # everything left is pinned by live slots
+            del victim.parent.children[victim.tokens]
+            released.append(victim.page)
+            self.resident_pages -= 1
+            self.evictions += 1
+        return released
+
+    def indexed_pages(self) -> List[int]:
+        """Every page the trie currently references."""
+        out: List[int] = []
+        stack = [self._root]
+        while stack:
+            node = stack.pop()
+            for child in node.children.values():
+                out.append(child.page)
+                stack.append(child)
+        return out
+
+    @property
+    def stats(self) -> dict:
+        return {"kind": "radix", "resident_pages": self.resident_pages,
+                "capacity_pages": self.capacity, "hits": self.hits,
+                "misses": self.misses, "hit_tokens": self.hit_tokens,
+                "evictions": self.evictions,
+                "recent_hit_rate": round(self.recent_hit_rate, 4)}
 
 
 class ContinuousEngine:
@@ -259,7 +661,10 @@ class ContinuousEngine:
     def __init__(self, model: CausalLM, num_slots: int = 8, chunk: int = 8,
                  eos_token_id: Optional[int] = None, pad_id: int = 0,
                  buckets: Sequence[int] = PAD_BUCKETS,
+                 prefix_cache_size: int = 0,
                  prefill_chunk: int = 0, step_token_budget: int = 0,
+                 pipeline_depth: int = 0, adaptive_chunk: bool = False,
+                 stepstats: Optional[StepStatsRing] = None,
                  **unported):
         for name, value in unported.items():
             if name not in _NOT_PORTED:
@@ -276,6 +681,8 @@ class ContinuousEngine:
                 "kv_num_pages")
         if num_slots < 1 or chunk < 1:
             raise ValueError("num_slots and chunk must be >= 1")
+        if pipeline_depth < 0:
+            raise ValueError("pipeline_depth must be >= 0")
         if prefill_chunk and prefill_chunk < 32:
             raise ValueError(
                 f"prefill_chunk must be 0 (off) or >= 32, got "
@@ -284,6 +691,15 @@ class ContinuousEngine:
         if step_token_budget < 0:
             raise ValueError(
                 f"step_token_budget must be >= 0, got {step_token_budget}")
+        # pipeline_depth=N ("decode-ahead"): keep up to N dispatched
+        # chunks un-collected, so the host's scheduling and bookkeeping
+        # overlap the in-flight chunks' compute; token content per
+        # request is unchanged, frees and admissions land up to N chunks
+        # later (bounded extra dead-row compute, discarded by the host's
+        # budget clamp). adaptive_chunk: size each dispatch to the
+        # smallest remaining budget over the live slots.
+        self.pipeline_depth = int(pipeline_depth)
+        self.adaptive_chunk = bool(adaptive_chunk)
         # prefill_chunk: prompts longer than this admit one piece a step;
         # step_token_budget ("Sarathi-style"): cap one step's work at
         # ~this many tokens, split between the prefill piece and the
@@ -307,17 +723,33 @@ class ContinuousEngine:
         if not self.buckets:
             raise ValueError(f"no prompt bucket fits max_seq_len {s_max} as "
                              f"a multiple of kv_page_size {ps}")
+        # the radix prefix cache over the page pool: prefix_cache_size
+        # caps its resident pages (clamped to the pool; LRU-evicted under
+        # pool pressure either way)
+        self.radix: Optional[RadixPrefixCache] = (
+            RadixPrefixCache(ps, min(int(prefix_cache_size),
+                                     cfg.kv_num_pages))
+            if prefix_cache_size else None)
         self._free_pages: List[int] = list(range(cfg.kv_num_pages))
+        # page -> refcount: slots and in-flight admissions hold one ref
+        # per page they reference, the trie one per page it indexes; a
+        # page is in _free_pages iff its refcount is 0
         self._page_refs: Dict[int, int] = {}
         self._slot_pages: Dict[int, List[int]] = {}
         self._peak_pages_in_use = 0
         self._n_page_alloc_failures = 0
+        itemsize = 1 if cfg.kv_cache_quant else cfg.dtype.itemsize
+        self._page_bytes_per_layer = (
+            2 * ps * cfg.kv_heads * cfg.head_dim * itemsize
+            + (2 * ps * cfg.kv_heads * 4 if cfg.kv_cache_quant else 0))
         self._rid = itertools.count()
         self._queue: List[_Request] = []
         self._slots: Dict[int, _Request] = {}
         self._admitting: Optional[dict] = None  # the piecewise admission
-        self._inflight_q: Deque = deque()  # decode-ahead: not ported
-        self.radix = None                 # radix prefix cache: not ported
+        # dispatched-but-unsettled chunks, oldest first; admission work
+        # whose device-busy interval is still open
+        self._inflight_q: Deque[_InflightStep] = deque()
+        self._admit_q: Deque[_InflightStep] = deque(maxlen=32)
         self._n_finished = 0
         self._n_batch_admits = 0
         self._n_solo_admits = 0
@@ -325,7 +757,14 @@ class ContinuousEngine:
         self._n_prefill_tokens = 0
         self._n_prefill_chunks = 0     # pieces processed
         self._step_prefill_tokens = 0  # this step's piece tokens
+        self.stepstats = (stepstats if stepstats is not None
+                          else StepStatsRing())
+        self.stepstats.bind(None, flops_per_token=flops_per_token(cfg))
+        self._step_rec = None
         self._state = SlotState(model, num_slots, self.device)
+        # CUDA: the captured decode chunks, by (size, sampling)
+        self._graphs: Dict[tuple, _ChunkGraph] = {}
+        self._graph_pool = None
 
     # -- submission ------------------------------------------------------
     def submit(self, prompt_ids, max_new_tokens: int,
@@ -372,8 +811,9 @@ class ContinuousEngine:
         return bool(self.prefill_chunk and prompt_len > self.prefill_chunk)
 
     def cancel(self, rid: int) -> bool:
-        """Drop a queued request, free the slot of an active one, or
-        abandon the piecewise admission of one (its pages return)."""
+        """Drop a queued request, free the slot of an active one (an
+        in-flight decode-ahead snapshot skips it at collect), or abandon
+        the piecewise admission of one (its pages return)."""
         for i, req in enumerate(self._queue):
             if req.rid == rid:
                 req.done = True
@@ -391,6 +831,177 @@ class ContinuousEngine:
             return True
         return False
 
+    # -- prefix cache: warm, export, import ------------------------------
+    def _require_radix(self, what: str) -> None:
+        if self.radix is None:
+            raise ValueError(f"{what} needs the radix prefix cache (an "
+                             "engine built with prefix_cache_size > 0)")
+
+    def warm_prefix(self, prefix_ids) -> int:
+        """Prefill ``prefix_ids`` STRAIGHT into trie-owned pages (no slot
+        involved) and index it, so later prompts starting with it admit
+        at the match boundary; restarts from the last fully cached page
+        when part of it is resident. Returns the prefix length."""
+        self._require_radix("warm_prefix")
+        prefix = np.asarray(prefix_ids, np.int32).reshape(-1)
+        if prefix.size == 0:
+            raise ValueError("empty prefix")
+        cfg = self.model.cfg
+        if prefix.size >= cfg.max_seq_len:
+            raise ValueError(
+                f"prefix {prefix.size} leaves no room under max_seq_len "
+                f"{cfg.max_seq_len}")
+        ps = cfg.kv_page_size
+        matched, shared, _cow = self.radix.match(
+            prefix, limit=int(prefix.size), peek=True)
+        if matched >= prefix.size:
+            # every prefix token is derivable from cached pages: touch
+            # the path (LRU) without counting an admission
+            self.radix.match(prefix, limit=int(prefix.size), count=False)
+            return int(prefix.size)
+        fill = len(shared) * ps  # restart at the last FULL cached page
+        need = -(-int(prefix.size) // ps) - len(shared)
+        self._ref_pages(shared)  # pin through the pieces below
+        taken = self._take_pages(need)
+        if taken is None:
+            self._unref_pages(shared)
+            raise ValueError(
+                f"KV page pool cannot hold the prefix ({need} pages "
+                f"needed, {len(self._free_pages)} free after eviction)")
+        row = np.full((cfg.max_pages_per_slot,), cfg.kv_num_pages, np.int32)
+        row[:len(shared)] = shared
+        row[len(shared):len(shared) + need] = taken
+        try:
+            while fill < prefix.size:
+                if self.prefill_chunk:
+                    w = min(self.prefill_chunk, cfg.max_seq_len - fill)
+                else:
+                    rem = int(prefix.size) - fill
+                    w = min(-(-rem // 32) * 32, cfg.max_seq_len - fill)
+                piece = prefix[fill:fill + w]
+                padded = np.full((w,), self.pad_id, np.int32)
+                padded[:piece.size] = piece
+                with torch.no_grad():
+                    _paged_prefill_chunk(self.model, self._state, padded,
+                                         fill, piece.size, row)
+                self._n_prefill_tokens += int(piece.size)
+                fill += int(piece.size)
+        except BaseException:
+            self._unref_pages(list(shared) + taken)
+            raise
+        # trie refs keep the pages; the warm's own holds drop with them
+        self._adopt_into_trie(prefix, list(shared) + taken,
+                              holds=list(shared) + taken)
+        return int(prefix.size)
+
+    def export_prefix_pages(self, prefix_ids) -> Optional[dict]:
+        """Prefill side of a KV handoff: the radix-cached FULL pages
+        covering ``prefix_ids`` read back to the host, pinned (+1 ref)
+        across the read. None when not even one full page is cached,
+        else ``{token_ids, page_size, layers}`` with one dict of numpy
+        arrays per layer in wire order (bf16 pools as float32)."""
+        self._require_radix("KV export")
+        prefix = np.asarray(prefix_ids, np.int32).reshape(-1)
+        if prefix.size == 0:
+            raise ValueError("empty prefix")
+        ps = self.model.cfg.kv_page_size
+        _matched, shared, _cow = self.radix.match(
+            prefix, limit=int(prefix.size), peek=True)
+        if not shared:
+            return None
+        self._ref_pages(shared)
+        try:
+            layers = self._read_pages(shared)
+        finally:
+            self._unref_pages(shared)
+        return {"token_ids": [int(t) for t in prefix[:len(shared) * ps]],
+                "page_size": int(ps), "layers": layers}
+
+    def import_prefix_pages(self, token_ids, layers) -> int:
+        """Decode side of a KV handoff: install the transferred page
+        rows into this pool and adopt them into the radix trie, so the
+        importing request and every later same-prefix admission hit
+        locally. Returns the number of prefix tokens now derivable from
+        cached pages."""
+        self._require_radix("KV import")
+        prefix = np.asarray(token_ids, np.int32).reshape(-1)
+        cfg = self.model.cfg
+        ps = cfg.kv_page_size
+        if len(layers) != cfg.num_layers:
+            raise ValueError(f"KV transfer carries {len(layers)} layers, "
+                             f"the model has {cfg.num_layers}")
+        # full pages only, and room for >= 1 new token
+        n = min(int(prefix.size), cfg.max_seq_len - 1) // ps
+        if n <= 0:
+            raise ValueError(
+                f"KV transfer smaller than one page "
+                f"(page_size {ps}, got {prefix.size} tokens)")
+        prefix = prefix[:n * ps]
+        _matched, shared, _cow = self.radix.match(
+            prefix, limit=int(prefix.size), peek=True)
+        if len(shared) >= n:
+            self.radix.match(prefix, limit=int(prefix.size), count=False)
+            return int(prefix.size)
+        need = n - len(shared)
+        self._ref_pages(shared)  # pin through the install below
+        taken = self._take_pages(need)
+        if taken is None:
+            self._unref_pages(shared)
+            raise ValueError(
+                f"KV page pool cannot hold the transfer ({need} pages "
+                f"needed, {len(self._free_pages)} free after eviction)")
+        # install only the rows BEYOND the locally cached pages
+        blobs = [{key: np.asarray(leaf)[len(shared):n]
+                  for key, leaf in rec.items()} for rec in layers]
+        try:
+            self._write_pages(taken, blobs)
+        except BaseException:
+            self._unref_pages(list(shared) + taken)
+            raise
+        self._adopt_into_trie(prefix, list(shared) + taken,
+                              holds=list(shared) + taken)
+        return int(prefix.size)
+
+    def _read_pages(self, pages) -> List[dict]:
+        """``_gather_pages``: the rows of ``pages`` from every layer's
+        pool leaves, host numpy, one dict per layer in wire order."""
+        kv = self._state.cache
+        idx = torch.as_tensor(list(pages), dtype=torch.long,
+                              device=self.device)
+        out = []
+        with torch.no_grad():
+            for layer in wire_layer_order(self.model.cfg.num_layers):
+                rec = {}
+                for key, leaf in kv.page_leaves(layer).items():
+                    rows = leaf[idx]
+                    if rows.dtype == torch.bfloat16:
+                        rows = rows.float()  # numpy has no bfloat16
+                    rec[key] = rows.cpu().numpy()
+                out.append(rec)
+        return out
+
+    def _write_pages(self, pages, blobs) -> None:
+        """``_install_pages``: scatter transferred page rows (one dict a
+        layer, wire order) into the pool at ``pages``, cast to each
+        leaf's dtype."""
+        kv = self._state.cache
+        idx = _h2d(np.asarray(pages, np.int64), self.device)
+        with torch.no_grad():
+            for layer, rec in zip(wire_layer_order(self.model.cfg.num_layers),
+                                  blobs):
+                for key, leaf in kv.page_leaves(layer).items():
+                    if key not in rec:
+                        raise ValueError(f"KV transfer lacks {key} for "
+                                         f"layer {layer}")
+                    rows = np.asarray(rec[key])
+                    if rows.dtype.kind not in "iuf":
+                        rows = rows.astype(np.float32)  # bfloat16 arrays
+                    if rows.shape[1:] != leaf.shape[1:]:
+                        raise ValueError(
+                            f"KV transfer {key} rows {rows.shape[1:]} do "
+                            f"not fit pages {tuple(leaf.shape[1:])}")
+                    leaf[idx] = _h2d(rows, self.device).to(leaf.dtype)
+
     # -- page pool (host side) -------------------------------------------
     def _pages_needed(self, s_bucket: int, true_len: int,
                       max_new: int) -> int:
@@ -398,6 +1009,16 @@ class ContinuousEngine:
         rows land in pages) and the request's maximum token extent."""
         ps = self.model.cfg.kv_page_size
         return -(-max(int(s_bucket), int(true_len) + int(max_new)) // ps)
+
+    def _note_peak(self) -> None:
+        used = self.model.cfg.kv_num_pages - len(self._free_pages)
+        self._peak_pages_in_use = max(self._peak_pages_in_use, used)
+
+    def _ref_pages(self, pages) -> None:
+        """+1 refcount on every page (a slot, an admission or the trie
+        took a reference)."""
+        for p in pages:
+            self._page_refs[p] = self._page_refs.get(p, 0) + 1
 
     def _unref_pages(self, pages) -> None:
         """-1 refcount; pages reaching zero return to the free list.
@@ -414,15 +1035,48 @@ class ContinuousEngine:
                     f"KV page {p} unreferenced while already free "
                     "(double free)")
 
+    def _adopt_into_trie(self, tokens, pages,
+                         holds: Optional[List[int]] = None) -> None:
+        """Index ``tokens`` over ``pages`` and move the refcounts in ONE
+        place: +1 per page the trie adopts, -1 per page it releases,
+        then the caller's own ``holds`` drop and the resident-page cap
+        is enforced."""
+        adopted, released = self.radix.insert(tokens, pages)
+        if adopted:
+            self._ref_pages(adopted)
+        if released:
+            self._unref_pages(released)
+        if holds:
+            self._unref_pages(holds)
+        self._enforce_cache_cap()
+
+    def _evict_cache_pages(self, n: int) -> int:
+        """LRU-evict up to ``n`` trie-resident pages with no slot
+        reference back to the free list; returns how many freed."""
+        released = self.radix.evict(
+            n, busy=lambda p: self._page_refs.get(p, 0) > 1)
+        if released:
+            self._unref_pages(released)
+        return len(released)
+
+    def _enforce_cache_cap(self) -> None:
+        over = (self.radix.resident_pages - self.radix.capacity
+                if self.radix is not None else 0)
+        if over > 0:
+            self._evict_cache_pages(over)
+
     def _take_pages(self, n: int) -> Optional[List[int]]:
-        """Pop ``n`` fresh pages (refcount 1 each), or None."""
+        """Pop ``n`` fresh pages (refcount 1 each); under pressure the
+        radix cache's coldest resident pages are evicted first. None
+        when even that cannot cover ``n``."""
+        if n > len(self._free_pages) and self.radix is not None:
+            self._evict_cache_pages(n - len(self._free_pages))
         if n > len(self._free_pages):
             return None
         taken = [self._free_pages.pop() for _ in range(n)]
         for p in taken:
             self._page_refs[p] = 1
-        used = self.model.cfg.kv_num_pages - len(self._free_pages)
-        self._peak_pages_in_use = max(self._peak_pages_in_use, used)
+        self._note_peak()
         return taken
 
     def _alloc_pages(self, n: int):
@@ -444,7 +1098,8 @@ class ContinuousEngine:
             self._unref_pages(taken)
 
     def _free_slot(self, slot: int) -> None:
-        _clear_live_paged(self._state, slot)
+        with torch.no_grad():
+            _clear_live_paged(self._state, slot)
         self._release_pages(slot)
 
     # -- admission -------------------------------------------------------
@@ -456,13 +1111,12 @@ class ContinuousEngine:
         for i, req in enumerate(group):
             padded[i, :req.prompt.size] = req.prompt
             lens[i] = req.prompt.size
-        samplings = [(r.temperature,
-                      float(r.top_p if r.top_p is not None else 1.0), r.seed)
-                     for r in group]
         with torch.no_grad():
             caches, logits = _prefill_padded_batch(self.model, padded, lens)
             _insert_slots_batch_paged(self._state, caches, logits, slots,
-                                      lens, pages_b, samplings, n_rows=sb)
+                                      lens, pages_b,
+                                      [r.sampling() for r in group],
+                                      n_rows=sb)
         self._n_prefill_tokens += int(lens.sum())
 
     def _admit_group(self, group: List[_Request], slots: List[int],
@@ -477,12 +1131,15 @@ class ContinuousEngine:
         for slot, req, (_, taken) in zip(slots, group, allocs):
             self._slots[slot] = req
             self._slot_pages[slot] = taken
+            if self.radix is not None:
+                self.radix.note(0)  # bucket admissions are misses
 
     def _admit_batch(self, free: List[int]) -> None:
         """Batched admission: the FIFO prefix of the queue that shares
         one prompt bucket and fits the pool prefills in one forward. The
         batch stops at the first request needing another bucket, the
-        piecewise route or more pages than remain."""
+        piecewise route (chunked, or a radix hit) or more pages than
+        remain."""
         group: List[_Request] = []
         needs: List[int] = []
         sb0 = None
@@ -492,6 +1149,9 @@ class ContinuousEngine:
                 break
             if self._chunked_route(req.prompt.size):
                 break  # piecewise route
+            if (self.radix is not None
+                    and self.radix.match(req.prompt, peek=True)[0]):
+                break  # a radix hit prefills its suffix only
             sb = bucket_length(req.prompt.size, self.buckets)
             if sb0 is None:
                 sb0 = sb
@@ -511,14 +1171,18 @@ class ContinuousEngine:
         self._n_batch_admits += len(group)
 
     def _try_admit(self, slot: int, req: _Request) -> bool:
-        """Admit ``req`` into ``slot``, or START its piecewise (chunked
-        prefill) admission; False when the pool cannot cover it yet or a
-        piecewise admission is already in flight (FIFO holds; the
-        request stays queued)."""
-        if self._chunked_route(req.prompt.size):
+        """Admit ``req`` into ``slot``, or START its piecewise admission
+        (a long prompt under chunked prefill, or any radix-cache hit);
+        False when the pool cannot cover it yet or a piecewise admission
+        is already in flight (FIFO holds; the request stays queued)."""
+        # ONE trie walk decides the route AND seeds the admission
+        # (count=False: the stats wait for the final post-COW outcome)
+        m = (self.radix.match(req.prompt, count=False)
+             if self.radix is not None else (0, [], None))
+        if m[0] or self._chunked_route(req.prompt.size - m[0]):
             if self._admitting is not None:
                 return False  # one piecewise admission at a time
-            self._start_paged_admission(slot, req)
+            self._start_paged_admission(slot, req, m)
             return True
         sb = bucket_length(req.prompt.size, self.buckets)
         alloc = self._alloc_pages(self._pages_needed(
@@ -528,33 +1192,69 @@ class ContinuousEngine:
         self._admit_group([req], [slot], sb, [alloc])
         return True
 
-    def _start_paged_admission(self, slot: int, req: _Request) -> None:
-        """Begin a piecewise paged admission into ``slot`` (reserved from
-        here on) and run its first piece."""
+    def _start_paged_admission(self, slot: int, req: _Request,
+                               match=(0, [], None)) -> None:
+        """Begin a piecewise admission into ``slot`` (reserved from here
+        on), seeded from the radix match: the matched FULL pages are
+        shared read-only (refcount +1, at the head of the admission's
+        row), a match ending inside a page clones that page
+        copy-on-write into a fresh one, and the pieces start at the
+        match boundary. Runs the first piece."""
         cfg = self.model.cfg
-        self._admitting = {
-            "slot": slot, "req": req, "fill": 0, "pages": [],
-            "row": np.full((cfg.max_pages_per_slot,), cfg.kv_num_pages,
-                           np.int32)}
+        a = {"slot": slot, "req": req, "fill": 0,
+             "row": np.full((cfg.max_pages_per_slot,), cfg.kv_num_pages,
+                            np.int32),
+             "pages": [], "shared": [], "cow": None}
+        if self.radix is not None:
+            matched, shared, cow = match
+            if cow is not None:
+                # pin the source while the clone allocates (allocation
+                # may evict resident pages — never the pinned source)
+                self._ref_pages([cow[0]])
+                dst = self._take_pages(1)
+                if dst is None:
+                    # degrade to the page boundary: the full pages still
+                    # share, only the tail rows recompute
+                    self._unref_pages([cow[0]])
+                    matched -= cow[1]
+                    cow = None
+                else:
+                    a["cow"] = (cow[0], dst[0])
+                    a["pages"].append(dst[0])
+            self.radix.note(matched)
+            if matched:
+                self._ref_pages(shared)
+                a["shared"] = list(shared)
+                a["row"][:len(shared)] = shared
+                if a["cow"] is not None:
+                    a["row"][len(shared)] = a["cow"][1]
+                a["fill"] = matched
+        self._admitting = a
         self._advance_admission()
 
     def _advance_admission(self) -> None:
         """One piece of the piecewise admission: extend its page
         allocation to cover the piece's real tokens (the final piece
         claims the whole decode extent — nothing is allocated
-        mid-decode), write the piece's K/V into the pool, and on the
-        final piece activate the slot. Pool dry: the admission stalls (no
-        piece; one allocation failure counted a stalled step) and resumes
-        after frees."""
+        mid-decode), clone the copy-on-write page before the first
+        piece, write the piece's K/V into the pool, and on the final
+        piece activate the slot. An unchunked engine runs a radix hit's
+        whole suffix as one piece (its width a multiple of 32). Pool
+        dry: the admission stalls (no piece; one allocation failure
+        counted a stalled step) and resumes after frees."""
         a = self._admitting
         req, fill = a["req"], a["fill"]
         cfg = self.model.cfg
         # near the context limit a full-width piece would run positions
         # past max_seq_len: clamp its width
-        w = min(self.prefill_chunk, cfg.max_seq_len - fill)
+        if self.prefill_chunk:
+            w = min(self.prefill_chunk, cfg.max_seq_len - fill)
+        else:
+            rem = int(req.prompt.size) - fill
+            w = min(-(-rem // 32) * 32, cfg.max_seq_len - fill)
         piece = req.prompt[fill:fill + w]
         final = fill + piece.size == req.prompt.size
-        covered = len(a["pages"])
+        covered = len(a["shared"]) + len(a["pages"])
         need_tokens = (req.prompt.size + req.max_new_tokens if final
                        else fill + piece.size)
         need = -(-need_tokens // cfg.kv_page_size) - covered
@@ -567,17 +1267,18 @@ class ContinuousEngine:
             a["pages"].extend(taken)
         padded = np.full((w,), self.pad_id, np.int32)
         padded[:piece.size] = piece
+        cow = a["cow"]
         try:
             with torch.no_grad():
+                if cow is not None:
+                    self._state.cache.copy_page(*cow)
                 logits1 = _paged_prefill_chunk(self.model, self._state,
                                                padded, fill, piece.size,
                                                a["row"])
                 if final:
-                    _activate_slot_paged(
-                        self._state, a["slot"], a["row"], req.prompt.size,
-                        logits1, (float(req.temperature),
-                                  float(req.top_p if req.top_p is not None
-                                        else 1.0), int(req.seed)))
+                    _activate_slot_paged(self._state, a["slot"], a["row"],
+                                         req.prompt.size, logits1,
+                                         req.sampling())
         except BaseException:
             # a failed piece must not leak the admission's pages (the
             # caller may keep driving this engine), nor lose its request:
@@ -587,22 +1288,65 @@ class ContinuousEngine:
             if not any(r is req for r in self._queue):
                 self._queue.insert(0, req)
             raise
+        if cow is not None:
+            # the clone ran: drop the source pin (the trie's own ref
+            # keeps the page alive for future matches)
+            a["cow"] = None
+            self._unref_pages([cow[0]])
         a["fill"] = fill + piece.size
         self._n_prefill_chunks += 1
         self._step_prefill_tokens += int(piece.size)
         self._n_prefill_tokens += int(piece.size)
         if final:
             self._slots[a["slot"]] = req
-            self._slot_pages[a["slot"]] = a["pages"]
+            self._slot_pages[a["slot"]] = a["shared"] + a["pages"]
             self._admitting = None
 
     def _drop_admitting(self) -> None:
         """Abandon the piecewise admission (cancel, failed piece): every
-        page it holds returns to the pool. The slot's table row was
-        never set, so what the pieces wrote is unreachable."""
+        page reference it holds drops — owned pages return to the pool,
+        shared prefix pages fall back to their trie/other-slot refs, a
+        pending copy-on-write source loses its pin. The slot's table row
+        was never set, so what the pieces wrote is unreachable."""
         a, self._admitting = self._admitting, None
-        if a is not None and a["pages"]:
-            self._unref_pages(a["pages"])
+        if a is None:
+            return
+        if a["cow"] is not None:
+            self._unref_pages([a["cow"][0]])
+        drop = list(a["shared"]) + list(a["pages"])
+        if drop:
+            self._unref_pages(drop)
+
+    def _radix_insert(self, slot: int, req: _Request) -> None:
+        """Index a FINISHED request's pages: they hold valid KV for
+        prompt + emitted tokens (minus a trailing eos, which is emitted
+        but never fed back). Near the context limit the insert is
+        skipped: rows still live on the device after the host-side
+        finish (up to ``(pipeline_depth + 1) * chunk`` steps of
+        overshoot) can reach position ``max_seq_len``, where the paged
+        write's table-index clamp lands a garbage row at the LAST page's
+        first offset — cheap to exclude, impossible to repair."""
+        pages = self._slot_pages.get(slot)
+        if not pages:
+            return
+        s_max = self.model.cfg.max_seq_len
+        if (req.prompt.size + req.max_new_tokens
+                + (self.pipeline_depth + 1) * self._chunk_token_bound()
+                >= s_max):
+            return
+        toks = [int(t) for t in req.prompt] + list(req.tokens)
+        if (self.eos_token_id is not None and toks
+                and toks[-1] == self.eos_token_id):
+            toks.pop()
+        if not toks:
+            return
+        n_pages = -(-len(toks) // self.model.cfg.kv_page_size)
+        self._adopt_into_trie(toks, pages[:n_pages])
+
+    def _chunk_token_bound(self) -> int:
+        """Upper bound on a slot's fill advance from ONE dispatched
+        chunk (the overshoot term of the near-limit radix guard)."""
+        return self.chunk
 
     def _admit_waiting(self) -> None:
         reserved = (self._admitting["slot"]
@@ -624,26 +1368,141 @@ class ContinuousEngine:
             self._queue.pop(0)
             self._n_solo_admits += 1
 
-    # -- the loop --------------------------------------------------------
-    def _run_chunk(self, size: int):
-        """Dispatch one ``size``-step chunk over the current slots and
-        read it back: ``(tokens [B, size], live [B])`` as numpy."""
-        sampling_rows = [slot for slot, req in self._slots.items()
-                         if req.temperature > 0]
-        self._n_dispatched_steps += size
-        with torch.no_grad():
-            toks = _decode_chunk(self.model, self._state, size,
-                                 self.eos_token_id, self.pad_id,
-                                 sampling_rows)
-            # the loop's one device-to-host copy per chunk
-            return toks.cpu().numpy(), self._state.live.cpu().numpy()
+    # -- the decode chunk on the device -----------------------------------
+    def _capture(self, size: int, sampling: bool) -> _ChunkGraph:
+        """Capture the ``(size, sampling)`` chunk as a CUDA graph: one
+        eager warm-up on a side stream (lazy library state, attribute
+        and occupancy queries are paid there), the carried state put
+        back, then the capture into the engine's shared pool. The
+        warm-up's page writes land where the first replay writes the
+        same values: at and past each row's fill, in its own pages or
+        the trash page. Kernel counters moved by the capture (where
+        nothing launches) are undone and kept as the replay delta."""
+        st = self._state
+        args = (self.model, st, size, self.eos_token_id, self.pad_id,
+                sampling)
+        t0 = time.perf_counter()
+        saved = [t.clone() for t in st.carried()]
+        main = torch.cuda.current_stream(self.device)
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(main)
+        with torch.cuda.stream(side):
+            _decode_chunk(*args)
+        main.wait_stream(side)
+        for t, s in zip(st.carried(), saved):
+            t.copy_(s)
+        if self._graph_pool is None:
+            self._graph_pool = torch.cuda.graph_pool_handle()
+        before = _counter_values()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, pool=self._graph_pool,
+                              capture_error_mode="thread_local"):
+            toks = _decode_chunk(*args)
+        after = _counter_values()
+        delta = [a - b for a, b in zip(after[:-1], before[:-1])]
+        delta.append({k: after[-1][k] - before[-1][k] for k in after[-1]})
+        _add_counters(delta, -1)
+        entry = _ChunkGraph(graph, toks, delta, time.perf_counter() - t0)
+        self._graphs[(size, sampling)] = entry
+        return entry
 
-    def _collect(self, toks: np.ndarray, live_host: np.ndarray,
-                 snapshot: Dict[int, _Request]) -> List[_Request]:
-        """Host bookkeeping for one chunk: token append, eos/budget
-        completion, frees."""
+    def _chunk_async(self, size: int, sampling: bool):
+        """Run one decode chunk without reading it back: ``(tokens,
+        live, event)``. On CUDA the chunk's graph replays (captured on
+        first use) and its static outputs are copied into fresh pinned
+        host buffers on the same stream, behind ``event`` — the next
+        replay cannot overwrite them first. On the CPU the same body
+        runs eagerly and ``event`` is None."""
+        st = self._state
+        if self.device.type != "cuda":
+            toks = _decode_chunk(self.model, st, size, self.eos_token_id,
+                                 self.pad_id, sampling)
+            return toks, st.live.clone(), None
+        entry = self._graphs.get((size, sampling))
+        if entry is None:
+            entry = self._capture(size, sampling)
+        entry.graph.replay()
+        _add_counters(entry.delta)
+        toks = torch.empty(entry.toks.shape, dtype=entry.toks.dtype,
+                           pin_memory=True)
+        live = torch.empty(st.live.shape, dtype=torch.bool, pin_memory=True)
+        toks.copy_(entry.toks, non_blocking=True)
+        live.copy_(st.live, non_blocking=True)
+        event = torch.cuda.Event()
+        event.record(torch.cuda.current_stream(self.device))
+        return toks, live, event
+
+    @property
+    def graph_capture_seconds(self) -> Dict[tuple, float]:
+        """Warm-up + capture wall time of each captured chunk graph, by
+        ``(size, sampling)`` (empty on the CPU)."""
+        return {key: g.capture_s for key, g in self._graphs.items()}
+
+    def _admission_event(self):
+        if self.device.type != "cuda":
+            return None
+        event = torch.cuda.Event()
+        event.record(torch.cuda.current_stream(self.device))
+        return event
+
+    # -- the loop --------------------------------------------------------
+    def _phase(self, name: str):
+        rec = self._step_rec
+        return rec.phase(name) if rec is not None else (
+            contextlib.nullcontext())
+
+    def _dispatch_chunk(self, size: int) -> _InflightStep:
+        """Dispatch one ``size``-step decode chunk over the current slots;
+        returns the in-flight record (result handles and the
+        slot->request snapshot the chunk was computed over)."""
+        sampling = any(r.temperature > 0 for r in self._slots.values())
+        if self._step_rec is not None:
+            self._step_rec.decode_slots = max(self._step_rec.decode_slots,
+                                              len(self._slots))
+        self._n_dispatched_steps += size
+        # t_dispatch stamps the dispatch-call ENTRY
+        t0 = time.monotonic()
+        with torch.no_grad():
+            toks, live, event = self._chunk_async(size, sampling)
+        return _InflightStep(toks, live, event, dict(self._slots), size, t0)
+
+    def _note_retired(self, fs: _InflightStep, t_retire: float) -> None:
+        """Stamp a record's retire time (once) and feed its
+        [dispatch, retire] device-busy interval to the stats ring."""
+        if fs.t_retire is not None:
+            return
+        fs.t_retire = t_retire
+        self.stepstats.note_device_interval(fs.t_dispatch, fs.t_retire)
+
+    def poll_retire(self) -> None:
+        """Non-blocking retire sweep: every in-flight chunk and admission
+        whose event completed gets its retire time stamped now."""
+        now = time.monotonic()
+        for fs in self._inflight_q:
+            if fs.t_retire is None and fs.poll_ready():
+                self._note_retired(fs, now)
+        # admissions complete in dispatch order (one stream)
+        while self._admit_q and self._admit_q[0].poll_ready():
+            self._note_retired(self._admit_q.popleft(), now)
+
+    def _collect(self, inflight: _InflightStep) -> List[_Request]:
+        """Settle one dispatched chunk: wait for its host copy (blocks
+        only if it is still computing) and do the host bookkeeping —
+        token append, eos/budget completion, trie adoption, frees — for
+        the slot snapshot it was computed over."""
+        with self._phase("device_wait"):
+            toks, live_host = inflight.fetch()
+        self._note_retired(inflight, time.monotonic())
+        if self._step_rec is not None:
+            self._step_rec.device_busy_ms += (
+                inflight.t_retire - inflight.t_dispatch) * 1000.0
         newly_done = []
-        for slot, req in snapshot.items():
+        useful = 0
+        for slot, req in inflight.snapshot.items():
+            if req.done:
+                # freed or cancelled while this chunk was in flight
+                # (decode-ahead): its rows decoded what nobody reads
+                continue
             budget = req.max_new_tokens - len(req.tokens)
             take = toks[slot, :budget]
             if self.eos_token_id is not None:
@@ -651,15 +1510,47 @@ class ContinuousEngine:
                 if hit.size:
                     take = take[:hit[0] + 1]
             req.tokens.extend(int(t) for t in take)
+            useful += int(take.size)
             eos_done = self.eos_token_id is not None and not live_host[slot]
             if eos_done or len(req.tokens) >= req.max_new_tokens:
                 req.done = True
                 newly_done.append(req)
                 if self._slots.get(slot) is req:
                     del self._slots[slot]
+                if self.radix is not None:
+                    # completed prefixes stay resident: adopt the slot's
+                    # pages BEFORE the slot's refs drop
+                    self._radix_insert(slot, req)
                 self._free_slot(slot)
         self._n_finished += len(newly_done)
+        if self._step_rec is not None:
+            self._step_rec.tokens_out += useful
         return newly_done
+
+    def _effective_chunk(self) -> int:
+        """Size of the next dispatch. Fixed mode: ``chunk``. Adaptive:
+        the largest power of two (floored at ``_MIN_ADAPTIVE_CHUNK``,
+        capped at ``chunk``) that does not overshoot the smallest
+        remaining per-slot budget, counting steps already dispatched but
+        not collected; 0 when every live slot's budget is covered by
+        in-flight chunks."""
+        if not self.adaptive_chunk or not self._slots:
+            return self.chunk
+        pending: Dict[int, int] = {}
+        for fs in self._inflight_q:
+            for slot, sreq in fs.snapshot.items():
+                if self._slots.get(slot) is sreq:
+                    pending[slot] = pending.get(slot, 0) + fs.size
+        remaining = min(
+            req.max_new_tokens - len(req.tokens) - pending.get(slot, 0)
+            for slot, req in self._slots.items())
+        if remaining <= 0:
+            return 0
+        c = min(remaining, self.chunk)
+        b = _MIN_ADAPTIVE_CHUNK  # a sub-minimum remainder overshoots by
+        while b * 2 <= c:        # < _MIN_ADAPTIVE_CHUNK steps; the
+            b *= 2               # collect's budget clamp discards it
+        return min(b, self.chunk)
 
     def _budget_cap(self, prefill_tokens: int) -> Optional[int]:
         """Decode steps the step-token budget leaves after this step's
@@ -678,26 +1569,98 @@ class ContinuousEngine:
 
     def step(self) -> List[_Request]:
         """Run the in-flight admission's next piece, admit into free
-        slots (a fresh piecewise admission runs its first piece here
-        too), run one decode chunk (capped by the step-token budget),
-        collect tokens. Returns requests finished during this chunk."""
+        slots, dispatch one decode chunk (capped by the step-token
+        budget, sized by ``adaptive_chunk``) and collect the chunk
+        ``pipeline_depth`` steps behind. Returns the requests finished
+        in the chunks collected. Every step that did work closes exactly
+        one record into ``stepstats`` ("error" when it raises)."""
+        rec = self.stepstats.begin(queue_depth=len(self._queue))
+        self._step_rec = rec
+        try:
+            finished = self._step_body(rec)
+        except BaseException:
+            self.stepstats.close(rec, outcome="error")
+            raise
+        finally:
+            self._step_rec = None
+        if rec.activity:
+            self.stepstats.close(rec)
+        else:
+            self.stepstats.discard(rec)  # idle spin: no record
+        return finished
+
+    def _admission_marker(self) -> tuple:
+        return (self._n_prefill_tokens, self._n_batch_admits,
+                self._n_solo_admits)
+
+    def _step_body(self, rec) -> List[_Request]:
+        # chunks that finished while the host was away get their busy
+        # intervals closed before this step's host work
+        self.poll_retire()
         self._step_prefill_tokens = 0
-        if self._admitting is not None:
-            self._advance_admission()
-        self._admit_waiting()
-        if not self._slots:
-            return []
-        size = self.chunk
+        pieces0 = self._n_prefill_chunks
+        marker0 = self._admission_marker()
+        t_sched = time.monotonic()
+        with rec.phase("schedule"):
+            if self._admitting is not None:
+                self._advance_admission()
+            self._admit_waiting()
+        if self._admission_marker() != marker0:
+            # the admission's prefill forwards are device work too
+            self._admit_q.append(_InflightStep(
+                None, None, self._admission_event(), {}, 0, t_sched))
+        rec.prefill_pieces = self._n_prefill_chunks - pieces0
+        rec.prefill_tokens = self._step_prefill_tokens
         cap = self._budget_cap(self._step_prefill_tokens)
-        if cap:
-            size = min(size, cap)
-        snapshot = dict(self._slots)
-        toks, live_host = self._run_chunk(size)
-        return self._collect(toks, live_host, snapshot)
+        if not self.pipeline_depth:
+            if not self._slots:
+                return []
+            size = self._effective_chunk() or self.chunk
+            if cap:
+                size = min(size, cap)
+            with rec.phase("dispatch"):
+                inflight = self._dispatch_chunk(size)
+            with rec.phase("collect"):
+                return self._collect(inflight)
+        dispatched = False
+        if self._slots:
+            size = self._effective_chunk()
+            if size and cap:
+                size = min(size, cap)
+            if size:  # 0 = every slot's budget is already in flight
+                with rec.phase("dispatch"):
+                    self._inflight_q.append(self._dispatch_chunk(size))
+                dispatched = True
+        finished: List[_Request] = []
+        # Drain to the target depth: with live slots exactly one collect
+        # a step; with every slot idle the whole backlog flushes now (no
+        # later step is guaranteed); a step that dispatched nothing
+        # (adaptive, budgets in flight) collects one, or
+        # run_until_drained would livelock.
+        while (len(self._inflight_q) > self.pipeline_depth
+               or (self._inflight_q and not self._slots)
+               or (self._inflight_q and not dispatched)):
+            with rec.phase("collect"):
+                finished += self._collect(self._inflight_q.popleft())
+            if self._slots:
+                break
+        # the chunk dispatched THIS step often finishes during the settle
+        self.poll_retire()
+        return finished
+
+    def quiesce(self) -> List[_Request]:
+        """Settle EVERY in-flight chunk (device sync + full host
+        bookkeeping) without dispatching new work; returns the requests
+        that finished in the flush. Idempotent."""
+        finished: List[_Request] = []
+        while self._inflight_q:
+            finished += self._collect(self._inflight_q.popleft())
+        return finished
 
     def run_until_drained(self):
-        """Drive steps until queue, admission and slots are empty; yields
-        finished ``(rid, tokens)`` in completion order."""
+        """Drive steps until queue, admission, slots and the pipeline
+        are empty; yields finished ``(rid, tokens)`` in completion
+        order."""
         while self.busy:
             for req in self.step():
                 yield req.rid, req.tokens
@@ -705,16 +1668,29 @@ class ContinuousEngine:
     @property
     def busy(self) -> bool:
         return bool(self._queue or self._slots
-                    or self._admitting is not None)
+                    or self._admitting is not None or self._inflight_q)
 
     def outstanding_requests(self) -> List[_Request]:
-        """Every accepted, undelivered request (queued, admitting or in
-        a slot)."""
-        admitting = ([self._admitting["req"]]
-                     if self._admitting is not None else [])
-        return ([r for r in self._queue if not r.done]
-                + [r for r in admitting if not r.done]
-                + [r for r in self._slots.values() if not r.done])
+        """Every accepted, undelivered request: queued, admitting, in a
+        slot, or held only by an in-flight chunk's snapshot."""
+        out: List[_Request] = []
+        seen = set()
+
+        def add(req):
+            if not req.done and id(req) not in seen:
+                seen.add(id(req))
+                out.append(req)
+
+        for req in self._queue:
+            add(req)
+        if self._admitting is not None:
+            add(self._admitting["req"])
+        for req in self._slots.values():
+            add(req)
+        for fs in self._inflight_q:
+            for req in fs.snapshot.values():
+                add(req)
+        return out
 
     @property
     def stats(self) -> dict:
@@ -730,15 +1706,22 @@ class ContinuousEngine:
             "dispatched_steps": self._n_dispatched_steps,
             "prefill_chunks": self._n_prefill_chunks,
             "prefill_tokens_computed": self._n_prefill_tokens,
+            "step_phases": self.stepstats.summary(),
             **({"step_token_budget": self.step_token_budget}
                if self.step_token_budget else {}),
             "admitting": (self._admitting["req"].rid
                           if self._admitting is not None else None),
+            "inflight": bool(self._inflight_q),
+            "pipeline_depth": self.pipeline_depth,
+            "decode_graphs": len(self._graphs),
+            **({"prefix_cache": self.radix.stats}
+               if self.radix is not None else {}),
             "paged": {
                 "page_size": cfg.kv_page_size,
                 "pages_total": cfg.kv_num_pages,
                 "pages_in_use": cfg.kv_num_pages - len(self._free_pages),
                 "peak_pages_in_use": self._peak_pages_in_use,
                 "page_alloc_failures": self._n_page_alloc_failures,
+                "page_bytes_per_layer": self._page_bytes_per_layer,
             },
         }

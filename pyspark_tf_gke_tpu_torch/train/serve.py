@@ -15,10 +15,16 @@ default) and answers
 
 Routing follows the JAX server: with ``--continuous-slots`` greedy and
 temperature/top-p requests share the slot engine's KV slots; top-k and
-repetition-penalty requests run the whole-batch ``generate``. Beam
-search, streaming, ``/loadz``, tenants, deadlines, drain and reload are
-not ported yet and answer 400 where a request asks for them (ROADMAP
-queue 1, P7).
+repetition-penalty requests run the whole-batch ``generate``. The engine
+runs decode-ahead by default (``--continuous-pipeline 1``, as the JAX
+server), on CUDA its decode chunks replay captured CUDA graphs;
+``--adaptive-chunk`` sizes chunks to the remaining budgets and
+``--prefix-cache N`` keeps up to N pages of completed prompts in the
+radix prefix cache. ``/healthz`` carries the engine's stats, its step
+phases and prefix-cache block included. Beam search, streaming,
+``/loadz``, ``/stepz``, tenants, deadlines, drain, reload, ``/v1/warm``,
+``/v1/prefill`` and ``/v1/kv_import`` are not ported yet and answer 400
+or 404 (ROADMAP queue 1, P7).
 """
 
 from __future__ import annotations
@@ -39,6 +45,7 @@ import torch
 from pyspark_tf_gke_tpu_torch.data.text import get_tokenizer
 from pyspark_tf_gke_tpu_torch.device import resolve_device
 from pyspark_tf_gke_tpu_torch.models.causal_lm import generate
+from pyspark_tf_gke_tpu_torch.obs.stepstats import StepStatsRing
 from pyspark_tf_gke_tpu_torch.train.continuous import ContinuousEngine
 from pyspark_tf_gke_tpu_torch.train.export import load_serving_bundle
 from pyspark_tf_gke_tpu_torch.train.serving import serve_score
@@ -57,8 +64,9 @@ class NotPorted(ValueError):
 class _ContinuousFront:
     """One engine thread runs the slot engine; HTTP threads ``submit``
     (non-blocking) and ``wait`` for their tokens. A step that raises
-    fails every outstanding request with the error and the engine is
-    rebuilt (its device state may be mid-chunk garbage)."""
+    fails every outstanding request with the error — those held only by
+    in-flight chunks included — and the engine is rebuilt (its device
+    state may be mid-chunk garbage)."""
 
     def __init__(self, make_engine):
         self._make_engine = make_engine
@@ -138,9 +146,22 @@ class _ContinuousFront:
             return self.engine.stats
 
     def shutdown(self, timeout_s: float = 10.0) -> None:
+        """Stop the engine thread, then settle the pipeline: every
+        in-flight chunk is collected and its finished requests
+        delivered, so none is abandoned mid-flight."""
         self._stop = True
         self.new_work.set()
         self.thread.join(timeout_s)
+        with self.lock:
+            try:
+                finished = self.engine.quiesce()
+            except Exception as exc:  # noqa: BLE001 — fail the waiters
+                logger.exception("engine failed while quiescing")
+                for req in self.engine.outstanding_requests():
+                    self._deliver(req.rid, exc)
+                return
+        for req in finished:
+            self._deliver(req.rid, list(req.tokens))
 
 
 class BundleServer:
@@ -148,16 +169,27 @@ class BundleServer:
     ``continuous_slots > 0`` a slot engine (``--continuous-slots``,
     ``--continuous-chunk``) serves greedy and temperature/top-p
     requests; ``prefill_chunk`` and ``step_token_budget`` are its
-    chunked prefill (``--prefill-chunk``, ``--step-token-budget``)."""
+    chunked prefill (``--prefill-chunk``, ``--step-token-budget``),
+    ``continuous_pipeline`` its decode-ahead depth
+    (``--continuous-pipeline``, 1 by default), ``adaptive_chunk`` its
+    budget-aligned chunks (``--adaptive-chunk``) and
+    ``prefix_cache_size`` its radix cache's resident pages
+    (``--prefix-cache``). The step-stats ring outlives engine
+    rebuilds."""
 
     def __init__(self, bundle_dir: str, device: str = "cuda",
                  continuous_slots: int = 0, continuous_chunk: int = 8,
                  int8_kv: bool = False, prefill_chunk: int = 0,
-                 step_token_budget: int = 0):
+                 step_token_budget: int = 0, continuous_pipeline: int = 1,
+                 adaptive_chunk: bool = False, prefix_cache_size: int = 0):
         if prefill_chunk and not continuous_slots:
             raise ValueError(
                 "--prefill-chunk requires --continuous-slots (chunked "
                 "prefill is a slot-engine feature)")
+        if prefix_cache_size and not continuous_slots:
+            raise ValueError(
+                "--prefix-cache requires --continuous-slots (the radix "
+                "prefix cache lives in the slot engine's page pool)")
         self.device = resolve_device(device)
         model, _, meta = load_serving_bundle(bundle_dir, self.device)
         if int8_kv and not model.cfg.kv_cache_quant:
@@ -174,6 +206,7 @@ class BundleServer:
                 f"model vocab {model.cfg.vocab_size}")
         self._lock = threading.Lock()  # whole-batch generate and score
         self._front: Optional[_ContinuousFront] = None
+        self.stepstats = StepStatsRing()
         if continuous_slots > 0:
             eos_id = getattr(self.tokenizer, "eos_id", None)
             pad_id = getattr(self.tokenizer, "pad_id", 0)
@@ -181,7 +214,11 @@ class BundleServer:
                 model, num_slots=continuous_slots, chunk=continuous_chunk,
                 eos_token_id=eos_id, pad_id=pad_id,
                 prefill_chunk=prefill_chunk,
-                step_token_budget=step_token_budget))
+                step_token_budget=step_token_budget,
+                pipeline_depth=continuous_pipeline,
+                adaptive_chunk=adaptive_chunk,
+                prefix_cache_size=prefix_cache_size,
+                stepstats=self.stepstats))
 
     def health(self) -> dict:
         return {
@@ -411,6 +448,15 @@ def start_http_server(server: BundleServer, host: str = "0.0.0.0",
     return ThreadingHTTPServer((host, port), _make_handler(server))
 
 
+def _pipeline_depth(v: str) -> int:
+    n = int(v)
+    if not 0 <= n <= 4:
+        # fail at argparse time, not after the bundle loads
+        raise argparse.ArgumentTypeError(
+            f"--continuous-pipeline must be 0..4, got {n}")
+    return n
+
+
 def parse_args(argv=None) -> argparse.Namespace:
     e = os.environ.get
     p = argparse.ArgumentParser(
@@ -442,6 +488,24 @@ def parse_args(argv=None) -> argparse.Namespace:
                         "(live slots x steps): bounds the time between "
                         "tokens under long-prompt arrivals (0 = off; pair "
                         "with --prefill-chunk)")
+    p.add_argument("--continuous-pipeline", type=_pipeline_depth,
+                   default=int(e("CONTINUOUS_PIPELINE", "1")),
+                   help="decode-ahead depth: keep up to N dispatched "
+                        "chunks un-collected so a step's host work "
+                        "overlaps the in-flight chunk (default 1, as the "
+                        "JAX server; 0 = the serial loop; 0..4)")
+    p.add_argument("--adaptive-chunk", action="store_true",
+                   default=e("ADAPTIVE_CHUNK", "") not in ("", "0"),
+                   help="budget-aligned chunking: size each dispatch to "
+                        "the smallest remaining token budget over the "
+                        "live slots (powers of two down to 8)")
+    p.add_argument("--prefix-cache", type=int,
+                   default=int(e("PREFIX_CACHE", "0")),
+                   help="radix prefix cache over the KV page pool: "
+                        "completed prompts stay resident as shared "
+                        "pages and same-prefix admissions prefill only "
+                        "their suffix; the value caps the resident pages "
+                        "(0 = off; requires --continuous-slots)")
     p.add_argument("--int8-kv", action="store_true",
                    default=e("SERVE_INT8_KV", "") == "1",
                    help="serve with an int8 KV cache")
@@ -457,7 +521,10 @@ def main(argv=None) -> int:
                           continuous_chunk=args.continuous_chunk,
                           int8_kv=args.int8_kv,
                           prefill_chunk=args.prefill_chunk,
-                          step_token_budget=args.step_token_budget)
+                          step_token_budget=args.step_token_budget,
+                          continuous_pipeline=args.continuous_pipeline,
+                          adaptive_chunk=args.adaptive_chunk,
+                          prefix_cache_size=args.prefix_cache)
     httpd = start_http_server(server, args.host, args.port)
     logger.info("serving on http://%s:%d (healthz, /v1/generate, /v1/score)",
                 *httpd.server_address[:2])

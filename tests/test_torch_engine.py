@@ -129,10 +129,13 @@ def test_oversized_request_and_unported_options_raise():
         eng.submit(np.arange(1, 11, dtype=np.int32), max_new_tokens=110)
     with pytest.raises(NotImplementedError, match="deadlines"):
         eng.submit([1, 2], max_new_tokens=2, deadline_s=1.0)
-    for option in ("prefix_cache_size", "spec_tokens", "pipeline_depth",
-                   "adaptive_chunk"):
+    for option in ("spec_tokens", "draft_model", "tenant_weights"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             ContinuousEngine(tmodel, **{option: 2})
+    with pytest.raises(TypeError, match="unexpected engine option"):
+        ContinuousEngine(tmodel, announce=True)
+    with pytest.raises(ValueError, match="pipeline_depth"):
+        ContinuousEngine(tmodel, pipeline_depth=-1)
     dense = tlm.CausalLM(dataclasses.replace(tmodel.cfg, kv_num_pages=None))
     with pytest.raises(NotImplementedError, match="dense slot-cache"):
         ContinuousEngine(dense)
@@ -194,7 +197,7 @@ def test_chunked_prefill_matches_jax_engine(kv_quant, budget):
     jsizes = _record_sizes(jeng, "_dispatch_chunk")
     ref = _run(jeng, specs)
     eng = ContinuousEngine(tmodel, **kw)
-    sizes = _record_sizes(eng, "_run_chunk")
+    sizes = _record_sizes(eng, "_dispatch_chunk")
     assert _drive_audited(eng, specs) == ref
     assert eng.stats["prefill_chunks"] == jeng.stats["prefill_chunks"] > 0
     assert sizes == jsizes

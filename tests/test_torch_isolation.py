@@ -34,6 +34,8 @@ TRAINING_MODULES = ("utils/fs.py", "data/text.py", "data/pipeline.py",
                     "train/trainer.py", "train/lm_pretrain.py",
                     "ops/fused_matmul.py", "ops/fused_conv3.py",
                     "models/resnet.py")
+SERVING_MODULES = ("train/continuous.py", "train/serve.py",
+                   "train/kv_transfer.py", "obs/stepstats.py")
 
 
 def _port_files():
@@ -43,6 +45,7 @@ def _port_files():
     assert len(files) > 10
     rel = {p.relative_to(pkg).as_posix() for p in files}
     assert set(TRAINING_MODULES) <= rel
+    assert set(SERVING_MODULES) <= rel
     return files + [REPO / "chip_smoke.py", REPO / "kernel_probe.py"]
 
 

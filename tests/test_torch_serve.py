@@ -230,3 +230,76 @@ def test_prefill_chunk_over_http_matches_jax_server(bundles):
     assert stats["step_token_budget"] == jstats["step_token_budget"] == 40
     with pytest.raises(ValueError, match="requires --continuous-slots"):
         BundleServer(tdir, device="cpu", prefill_chunk=32)
+
+
+SYSTEM = "you are a careful assistant; answer in one short line. "  # 56 B
+
+
+@pytest.mark.parametrize("flags", [
+    ["--continuous-pipeline", "0"],
+    ["--continuous-pipeline", "1", "--adaptive-chunk"],
+    ["--prefix-cache", "32"],
+], ids=["serial", "pipeline_adaptive", "prefix_cache"])
+def test_engine_options_over_http_match_jax_server(bundles, flags):
+    """``--continuous-pipeline``, ``--adaptive-chunk`` and
+    ``--prefix-cache`` from the CLI: two rounds of prompts sharing a
+    56-byte system prefix give the JAX server's greedy completions with
+    the same options on the same bundle; with the cache on, both servers
+    hit it."""
+    from pyspark_tf_gke_tpu.train.serve import BundleServer as JaxServer
+    from pyspark_tf_gke_tpu_torch.train.serve import parse_args
+
+    _, _, tdir = bundles
+    args = parse_args(["--bundle", tdir, "--device", "cpu",
+                       "--continuous-slots", "2", "--continuous-chunk", "4",
+                       *flags])
+    opts = dict(continuous_pipeline=args.continuous_pipeline,
+                adaptive_chunk=args.adaptive_chunk,
+                prefix_cache_size=args.prefix_cache)
+    assert opts["continuous_pipeline"] == (0 if flags[1] == "0" else 1)
+    rounds = [[SYSTEM + "name a color", SYSTEM + "count to three"],
+              [SYSTEM + "name a fruit", "xyz"]]
+    server = BundleServer(args.bundle, device=args.device,
+                          continuous_slots=args.continuous_slots,
+                          continuous_chunk=args.continuous_chunk, **opts)
+    httpd = start_http_server(server, "127.0.0.1", 0)
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{httpd.server_address[1]}"
+    try:
+        got = []
+        for prompts in rounds:
+            status, body = _call(url, "/v1/generate",
+                                 {"prompts": prompts, "max_new_tokens": 10})
+            assert status == 200
+            got += [c["completion"] for c in body["completions"]]
+        _, health = _call(url, "/healthz")
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        server.shutdown()
+        thread.join(10)
+    jserver = JaxServer(str(Path(tdir).parent / "jax"), continuous_slots=2,
+                        continuous_chunk=4, **opts)
+    try:
+        want = [c["completion"] for prompts in rounds
+                for c in jserver.generate(prompts, max_new_tokens=10)]
+        jstats = jserver.health()["continuous"]
+    finally:
+        jserver._front.shutdown()
+    assert got == want
+    stats = health["continuous"]
+    assert stats["pipeline_depth"] == opts["continuous_pipeline"]
+    assert stats["step_phases"]["records"] > 0
+    assert stats["inflight"] is False
+    if opts["prefix_cache_size"]:
+        # how many of round 1's requests hit depends on when the engine
+        # thread admits them; round 2's shared-prefix request always hits
+        assert stats["prefix_cache"]["hits"] >= 1
+        assert jstats["prefix_cache"]["hits"] >= 1
+    else:
+        assert "prefix_cache" not in stats
+    with pytest.raises(ValueError, match="requires --continuous-slots"):
+        BundleServer(tdir, device="cpu", prefix_cache_size=8)
+    with pytest.raises(SystemExit):
+        parse_args(["--bundle", tdir, "--continuous-pipeline", "5"])
