@@ -99,6 +99,27 @@
    the warm's 512 plus the suffixes (the suffixes alone after the
    import), the page audit green after every step; prints new tokens/s
    both ways and the hit rate;
+4f. in-engine speculative decoding: (a) the JAX bench's ``cb --spec``
+   pair (``bench.py:1479-1560``: a 12-layer hidden-64 target and a
+   1-layer hidden-32 draft distilled on its greedy rollouts, trained
+   here by the port's ``_train_lm``; f32, 2 slots, chunk 64, adaptive
+   chunks, k = 5, 8 prompts of 16 tokens, 128 new tokens each) through
+   the engine with speculation on and off, warmed, then in turns: on ==
+   off token for token, the accept rate strictly between 0 and 1, no
+   timed run capturing a graph; (b) phase 4's GPT-small bundle with a
+   random 1-layer hidden-768 draft bundle over HTTP (``--spec-tokens 5
+   --draft-bundle``), then phase 4's 12 requests through engines with
+   speculation off, a self-draft and the random draft (8 slots, chunk
+   16, depth 1): every request completes, the K1, K3 and K2f counters
+   move, K1's verify launches are exactly rounds x layers on the variant
+   ``paged_plan`` names for S = 6 (the exit feeds on the decode
+   variant), replayed spec chunks equal eager launches of the same body
+   bit for bit (greedy and sampled), and the f32 full width cut to 2
+   layers gives spec off's greedy tokens with both drafts; prints new
+   tokens/s, the share of bf16 greedy tokens identical to spec off, the
+   accept rates and a replayed spec chunk's device and wall time;
+   (c) the standalone driver's device and host loops on the trained pair
+   equal ``generate`` and each other's stats;
 6. training main path: ``lm_pretrain.main`` on a seeded synthetic text
    corpus at the GPT-small width (hidden 768, 12 layers, 12 heads, FFN
    3072, seq 512, batch 16, bf16, Adam 3e-4), 2 epochs x 10 steps with
@@ -205,6 +226,18 @@ CARD = "card not queried"
 
 class SmokeFailure(RuntimeError):
     pass
+
+
+def query_card() -> str:
+    """The card's name and power limit as ``nvidia-smi`` gives them, kept
+    in ``CARD`` for the lines that print a time."""
+    global CARD
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines()
+    CARD = smi[0] if smi else "nvidia-smi: no output"
+    return CARD
 
 
 def check(cond: bool, msg: str) -> None:
@@ -1208,17 +1241,19 @@ PAGED_CASES = ((12, 1, False, PAGED_FILLS), (4, 1, False, PAGED_FILLS),
                (12, 256, False, (0, 1, 63, 64, 100, 127, 128, 128)),
                (12, 1, False, SERVE_FILLS), (12, 1, True, SERVE_FILLS),
                (12, 1, False, SPLIT_FILLS), (12, 1, True, SPLIT_FILLS),
-               (4, 8, False, SPLIT_FILLS))
+               (4, 8, False, SPLIT_FILLS), (12, 4, False, PAGED_FILLS),
+               (4, 2, True, PAGED_FILLS), (12, 6, False, SERVE_FILLS))
 
 
 def _split_fills(torch, pa, hkv, s):
-    """Fills on the decode plan's split boundaries at this shape (8
+    """Fills on the decode variant's split boundaries at this shape (8
     slots, H = 12, 16 pages of 64 tokens; the split does not depend on
-    the dtypes): empty, a split's entries full (pages_per_split x P) and
+    the dtypes, and a bf16 S past ``DECODE_MAX_S`` runs them through the
+    chunk variant): empty, a split's entries full (pages_per_split x P) and
     one token past them, two splits less one token, every entry (MP x
     P), and three others."""
     plan = pa.paged_plan(8, s, 12, hkv, 64, 64, 16, torch.bfloat16,
-                         torch.bfloat16)
+                         torch.bfloat16, variant="decode")
     edge = plan.pages_per_split * 64
     return (0, edge, edge + 1, 2 * edge - 1, 1024, 65, 700, s)
 
@@ -1291,8 +1326,10 @@ def check_paged(torch, dev):
                 torch, dev, g if s <= 8 else g_rows, dtype, hkv, s, quant,
                 fill_list)
             plan = pa.paged_plan(8, s, 12, hkv, 64, 64, 16, dtype, kp.dtype)
-            if s <= 8:
-                check(plan.variant == "decode",
+            if s <= 8:  # bf16 verify widths past DECODE_MAX_S: chunk
+                want = ("decode" if s <= pa.DECODE_MAX_S
+                        or dtype == torch.float32 else "chunk")
+                check(plan.variant == want,
                       f"K1 at S={s} takes the {plan.variant} variant")
             before_variants = dict(pa.variant_launches)
             out = pa.paged_attention_chunk(q, kp, vp, table, fills, ks, vs)
@@ -1448,6 +1485,20 @@ def _post(url: str, body: dict):
         return resp.status, json.loads(resp.read())
 
 
+def _phase4_jobs(rng: random.Random) -> list:
+    """Phase 4's 12 ``/v1/generate`` bodies: prompts of 20-700 bytes,
+    16-64 new tokens, two of them sampled (top-p, their own seeds)."""
+    lengths = (20, 100, 300, 700)
+    jobs = []
+    for i in range(12):
+        body = {"prompt": _prompt(rng, lengths[i % 4]),
+                "max_new_tokens": (16, 32, 48, 64)[(i * 7) % 4]}
+        if i in (3, 8):
+            body.update(temperature=0.8, top_p=0.9, seed=100 + i)
+        jobs.append(body)
+    return jobs
+
+
 def run_main_path(torch, dev, counters, cfg):
     from pyspark_tf_gke_tpu_torch.models.causal_lm import init_params
     from pyspark_tf_gke_tpu_torch.ops import paged_attention as pa
@@ -1469,14 +1520,7 @@ def run_main_path(torch, dev, counters, cfg):
         f"({url})")
     try:
         rng = random.Random(0)
-        lengths = (20, 100, 300, 700)
-        jobs = []
-        for i in range(12):
-            body = {"prompt": _prompt(rng, lengths[i % 4]),
-                    "max_new_tokens": (16, 32, 48, 64)[(i * 7) % 4]}
-            if i in (3, 8):
-                body.update(temperature=0.8, top_p=0.9, seed=100 + i)
-            jobs.append(body)
+        jobs = _phase4_jobs(rng)
         # warm-up: the server's engine captures its greedy and its
         # sampled 16-step decode chunk here (the only sizes this
         # server dispatches: a fixed chunk, no budget, no adaptive)
@@ -2271,6 +2315,383 @@ def run_radix_serving(torch, dev, counters):
         f"{on['variants']}")
     del model, cached_eng, fresh
     return on["launches"], on["variants"]
+
+
+# -- phase 4f: in-engine speculative decoding ---------------------------------
+
+# bench.py cb --spec (bench_spec_cb, bench.py:1479-1560), full mode: a
+# 12-layer hidden-64 target trained 800 Adam steps on the skewed chain, a
+# 1-layer hidden-32 draft distilled 1200 steps on the target's greedy
+# rollouts; vocab 259, 256 positions, f32, 32-token pages, a pool of 16,
+# 2 slots, chunk 64, adaptive chunks, k = 5; 8 prompts of 16 tokens, 128
+# new tokens each
+SPEC = dict(k=5, steps=800, distill_steps=1200, distill_rows=64, slots=2,
+            chunk=64, page=32, requests=8, plen=16, new=128, skew=0.8)
+# the GPT-small runs: phase 4's bundle and requests, 8 slots, chunk 16,
+# decode-ahead depth 1, k = 5
+SPEC_K = 5
+
+
+def _spec_pair(torch, dev):
+    """The cb --spec pair trained on the card by the port's ``_train_lm``
+    (f32, no TF32): ``(target, draft, seconds)``, dense f32 serving
+    models."""
+    from pyspark_tf_gke_tpu_torch.models.causal_lm import (CausalLM,
+                                                           CausalLMConfig,
+                                                           generate,
+                                                           init_params)
+    from pyspark_tf_gke_tpu_torch.train.spec_fixture import (_pack_rows,
+                                                             _train_lm)
+
+    common = dict(vocab_size=259, max_seq_len=256, dtype=torch.float32)
+    tcfg = CausalLMConfig(hidden_size=64, num_layers=12, num_heads=4,
+                          intermediate_size=128, **common)
+    dcfg = CausalLMConfig(hidden_size=32, num_layers=1, num_heads=2,
+                          intermediate_size=64, **common)
+
+    def train(cfg, rows, steps, seed):
+        with torch.device(dev):
+            model = CausalLM(cfg, param_dtype=torch.float32)
+            served = CausalLM(cfg)
+        model.load_params(init_params(cfg, seed=seed))
+        _train_lm(model, rows, steps, lr=3e-3)
+        served.load_state_dict(model.state_dict())
+        return served.eval()
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    target = train(tcfg, _pack_rows(64, n_rows=32, seed=0, skew=SPEC["skew"]),
+                   SPEC["steps"], seed=0)
+    # distil the draft on the target's own greedy rollouts
+    seeds = _pack_rows(8, n_rows=SPEC["distill_rows"], seed=3,
+                       skew=SPEC["skew"])
+    rollouts = generate(target, seeds, 56).cpu().numpy()
+    draft = train(dcfg, rollouts, SPEC["distill_steps"], seed=1)
+    torch.cuda.synchronize()
+    return target, draft, time.perf_counter() - t0
+
+
+def _first_divergence(torch, model, prompts, got, want, what):
+    """Raise with the first divergent token's top-2 logit margin."""
+    for i, (a, b) in enumerate(zip(got, want)):
+        if a != b:
+            j = next((k for k, (x, y) in enumerate(zip(a, b)) if x != y),
+                     min(len(a), len(b)))
+            margin = _top2_margin(torch, model, list(prompts[i]) + b[:j])
+            raise SmokeFailure(
+                f"{what}: request {i} (prompt {len(prompts[i])}) diverges "
+                f"at new token {j}: {a[j:j + 1]} != {b[j:j + 1]}; top-2 "
+                f"logit margin there {margin:.3e}")
+
+
+def _identical_share(got, want):
+    """Share of positions where two token lists agree, over requests."""
+    same = sum(x == y for a, b in zip(got, want) for x, y in zip(a, b))
+    return same / max(sum(len(b) for b in want), 1)
+
+
+def _spec_trained(torch, dev):
+    """Phase 4f (a) and (c): the trained pair through the paged engine
+    with speculation on and off (warmed, then in turns), and through the
+    standalone driver's two loops."""
+    from pyspark_tf_gke_tpu_torch.models.causal_lm import CausalLM, generate
+    from pyspark_tf_gke_tpu_torch.models.speculative import (
+        speculative_generate)
+    from pyspark_tf_gke_tpu_torch.train.continuous import ContinuousEngine
+    from pyspark_tf_gke_tpu_torch.train.spec_fixture import _pack_rows
+
+    target, draft, train_s = _spec_pair(torch, dev)
+    log(f"  (a) the cb --spec pair trained on the card in {train_s:.1f} s "
+        f"({SPEC['steps']} + {SPEC['distill_steps']} Adam steps, f32)")
+    pool = SPEC["slots"] * target.cfg.max_seq_len // SPEC["page"]
+    with torch.device(dev):
+        paged = CausalLM(dataclasses.replace(
+            target.cfg, kv_page_size=SPEC["page"], kv_num_pages=pool))
+    paged.load_state_dict(target.state_dict())
+    paged.eval()
+    prompts = [p.tolist() for p in _pack_rows(
+        SPEC["plen"], n_rows=SPEC["requests"], seed=5, skew=SPEC["skew"])]
+    traffic = [dict(prompt_ids=p, max_new_tokens=SPEC["new"])
+               for p in prompts]
+
+    def engine(spec):
+        kw = dict(spec_tokens=SPEC["k"], draft_model=draft) if spec else {}
+        return ContinuousEngine(paged, num_slots=SPEC["slots"],
+                                chunk=SPEC["chunk"], adaptive_chunk=True,
+                                **kw)
+
+    engines = {spec: engine(spec) for spec in (False, True)}
+    for eng in engines.values():  # warm: every graph captured here
+        _run_traffic(eng, traffic)
+    runs = {False: [], True: []}
+    spec0 = dict(engines[True].stats["spec"])
+    for spec in (False, True, True, False):
+        eng = engines[spec]
+        n_graphs = len(eng.graph_capture_seconds)
+        toks, wall = _run_traffic(eng, traffic)
+        check(len(eng.graph_capture_seconds) == n_graphs,
+              "a timed phase-4f run captured a new graph")
+        check(all(len(t) == SPEC["new"] for t in toks),
+              "phase 4f (a): a request did not get its 128 tokens")
+        runs[spec].append((toks, SPEC["requests"] * SPEC["new"] / wall))
+    _first_divergence(torch, target, prompts, runs[True][0][0],
+                      runs[False][0][0], "f32 spec on against off")
+    st = engines[True].stats["spec"]
+    prop = st["proposed"] - spec0["proposed"]
+    acc = st["accepted"] - spec0["accepted"]
+    rate = acc / max(prop, 1)
+    check(0 < rate < 1, f"phase 4f (a) accept rate {rate} not in (0, 1)")
+    on = statistics.mean(r for _, r in runs[True])
+    off = statistics.mean(r for _, r in runs[False])
+    log(f"  (a) spec on == off token for token (f32, {SPEC['requests']} x "
+        f"{SPEC['new']} tokens); new tokens/s off "
+        f"{', '.join(f'{r:.1f}' for _, r in runs[False])}, on "
+        f"{', '.join(f'{r:.1f}' for _, r in runs[True])} (on / off "
+        f"{on / off:.3f}); accept rate {rate:.4f} over {prop} proposed, "
+        f"{1 + SPEC['k'] * rate:.3f} tokens a verify; graphs "
+        f"{sorted(engines[True].graph_capture_seconds)}; on {CARD}")
+
+    # (c) the standalone driver: both loops, the target's own tokens
+    prompt = [prompts[0]]
+    want = generate(target, prompt, SPEC["new"])[0].tolist()
+    stats = {}
+    for loop in (True, False):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, stats[loop] = speculative_generate(
+            target, draft, prompt, SPEC["new"], gamma=4, return_stats=True,
+            device_loop=loop)
+        wall = time.perf_counter() - t0
+        check(out[0].tolist() == want, f"speculative_generate (device_loop="
+              f"{loop}) differs from generate")
+        log(f"  (c) speculative_generate device_loop={loop}: == generate, "
+            f"{stats[loop]}, {wall * 1e3:.1f} ms with its capture")
+    check(stats[True] == stats[False], "the device loop's stats differ "
+          "from the host loop's")
+    return dict(on=on, off=off, rate=rate)
+
+
+def run_spec_serving(torch, dev, counters=None):
+    """Phase 4f: in-engine speculative decoding. (a) the trained cb --spec
+    pair, spec on == off in f32 token for token, accept rate in (0, 1);
+    (b) phase 4's GPT-small bundle over HTTP with ``--spec-tokens 5
+    --draft-bundle`` (a random 1-layer hidden-768 draft), then through
+    engines spec off / self-draft / random draft (warmed, timed runs
+    capturing nothing): every request completes, the K1, K3 and K2f
+    counters move, K1's verify calls take the variant ``paged_plan``
+    names for S = 6, a replayed spec chunk equals eager launches of its
+    body bit for bit (greedy and sampled), an f32 2-layer cut gives spec
+    off's tokens for both drafts; a replayed spec chunk profiled;
+    (c) the standalone driver's loops == ``generate``. Returns the
+    self-draft timed run's launches by kernel."""
+    from pyspark_tf_gke_tpu_torch.data.text import ByteTokenizer
+    from pyspark_tf_gke_tpu_torch.models.causal_lm import (CausalLM,
+                                                           CausalLMConfig,
+                                                           init_params)
+    from pyspark_tf_gke_tpu_torch.ops import flash_attention as fa
+    from pyspark_tf_gke_tpu_torch.ops import layernorm as ln
+    from pyspark_tf_gke_tpu_torch.ops import paged_attention as pa
+    from pyspark_tf_gke_tpu_torch.train import continuous as tc
+    from pyspark_tf_gke_tpu_torch.train.export import export_serving_bundle
+    from pyspark_tf_gke_tpu_torch.train.serve import (BundleServer,
+                                                      start_http_server)
+
+    if counters is None:
+        counters = {"layernorm": (ln, "launches"),
+                    "flash_attention_fwd": (fa, "launches"),
+                    "paged_attention": (pa, "launches")}
+    _spec_trained(torch, dev)
+
+    # (b) GPT-small: phase 4's bundle and a random 1-layer draft bundle
+    cfg = _serving_cfg()
+    dcfg = CausalLMConfig(num_layers=1)
+    root = PORT_PKG / "_build"
+    tdir, ddir = root / "chip_smoke_spec_bundle", root / "chip_smoke_draft"
+    export_serving_bundle(cfg, init_params(cfg, seed=0), str(tdir),
+                          quantize=True)
+    export_serving_bundle(dcfg, init_params(dcfg, seed=1), str(ddir),
+                          quantize=True)
+    server = BundleServer(str(tdir), device=str(dev), continuous_slots=8,
+                          continuous_chunk=16, spec_tokens=SPEC_K,
+                          draft_bundle_dir=str(ddir))
+    httpd = start_http_server(server, "127.0.0.1", 0)
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{httpd.server_address[1]}"
+    jobs = _phase4_jobs(random.Random(0))
+    try:
+        t0 = time.perf_counter()
+        results = [_post(url + "/v1/generate", body) for body in jobs]
+        wall = time.perf_counter() - t0
+        health = server.health()
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        server.shutdown()
+        thread.join(30)
+        shutil.rmtree(tdir, ignore_errors=True)
+        shutil.rmtree(ddir, ignore_errors=True)
+    for body, (code, res) in zip(jobs, results):
+        check(code == 200 and res["completions"][0]["completion"].startswith(
+            body["prompt"]), f"spec generate failed: {code} {res}")
+    spec = health["continuous"]["spec"]
+    check(spec["proposed"] > 0 and not spec["self_draft"]
+          and health["speculative_draft"] == str(ddir),
+          f"the server's spec block {spec}")
+    log(f"  (b) HTTP, --spec-tokens {SPEC_K} --draft-bundle (random "
+        f"1-layer draft), 12 requests one at a time: {wall:.2f} s with the "
+        f"captures; /healthz continuous.spec {spec}")
+    model, draft = server.model, server.draft_model
+    tok = ByteTokenizer()
+    traffic = []
+    for body in jobs:
+        job = dict(prompt_ids=tok.encode(body["prompt"]),
+                   max_new_tokens=body["max_new_tokens"])
+        for key in ("temperature", "top_p", "seed"):
+            if key in body:
+                job[key] = body[key]
+        traffic.append(job)
+    greedy = [i for i, job in enumerate(traffic) if "seed" not in job]
+    prompts = [job["prompt_ids"] for job in traffic]
+    new = sum(job["max_new_tokens"] for job in traffic)
+
+    def engine(m, kind, d=None, **kw):
+        spec = ({} if kind == "off" else dict(
+            spec_tokens=SPEC_K, draft_model=None if kind == "self" else d))
+        return tc.ContinuousEngine(m, num_slots=8, chunk=16,
+                                   pipeline_depth=1, **spec, **kw)
+
+    plan = pa.paged_plan(8, SPEC_K + 1, cfg.num_heads, cfg.kv_heads,
+                         cfg.head_dim, cfg.kv_page_size,
+                         cfg.max_pages_per_slot, torch.bfloat16,
+                         torch.bfloat16)
+    runs, launches, variants = {}, None, None
+    for kind in ("off", "self", "random"):
+        eng = engine(model, kind, draft)
+        first, first_s = _run_traffic(eng, traffic)  # captures
+        n_graphs = len(eng.graph_capture_seconds)
+        counted = kind == "self"
+        if counted:
+            torch.cuda.synchronize()
+            for mod, attr in counters.values():
+                setattr(mod, attr, 0)
+            for v in pa.variant_launches:
+                pa.variant_launches[v] = 0
+            rounds0, steps0 = eng._n_spec_rounds, eng._n_dispatched_steps
+        toks, wall = _run_traffic(eng, traffic)
+        if counted:
+            torch.cuda.synchronize()
+            launches = {name: getattr(mod, attr)
+                        for name, (mod, attr) in counters.items()}
+            variants = dict(pa.variant_launches)
+            rounds = eng._n_spec_rounds - rounds0
+            chunks = (eng._n_dispatched_steps - steps0
+                      - rounds * (2 * SPEC_K + 2)) // 2
+        check(len(eng.graph_capture_seconds) == n_graphs,
+              f"a timed phase-4f {kind} run captured a new graph")
+        check(all(len(t) == job["max_new_tokens"]
+                  for t, job in zip(toks, traffic)),
+              f"phase 4f {kind}: a request did not complete")
+        check(toks == first, f"phase 4f {kind}: the replayed run's tokens "
+              "differ from the capturing run's")
+        runs[kind] = dict(toks=toks, tps=new / wall, first_s=first_s,
+                          stats=eng.stats, graphs=sorted(
+                              eng.graph_capture_seconds))
+    layers = cfg.num_layers
+    verify = rounds * layers
+    exits = chunks * layers
+    if plan.variant == "decode":
+        check(variants["decode"] == verify + exits,
+              f"K1 decode launches {variants['decode']} != (rounds {rounds}"
+              f" + chunks {chunks}) x {layers}")
+    else:
+        check(variants[plan.variant] == verify and variants["decode"] == exits,
+              f"K1 by variant {variants}: {rounds} verify rounds x {layers} "
+              f"on {plan.variant}, {chunks} exits x {layers} on decode")
+    for name, n in launches.items():
+        check(n > 0, f"kernel {name} was not launched on the spec path")
+    for kind in ("off", "self", "random"):
+        r = runs[kind]
+        extra = ""
+        if kind != "off":
+            g = [r["toks"][i] for i in greedy]
+            w = [runs["off"]["toks"][i] for i in greedy]
+            same = sum(a == b for a, b in zip(g, w))
+            extra = (f"; greedy tokens identical to spec off "
+                     f"{_identical_share(g, w):.4f} ({same}/{len(g)} "
+                     f"requests whole); accept rate "
+                     f"{r['stats']['spec']['accept_rate']}")
+        log(f"  (b) {kind:6s}: {new} new tokens, {r['tps']:.1f} tokens/s "
+            f"(first run with its captures {r['first_s']:.3f} s); graphs "
+            f"{r['graphs']}{extra}; on {CARD}")
+    log(f"  (b) self-draft timed run: {rounds} verify rounds, {chunks} spec "
+        f"chunks; launches {launches}; K1 by variant {variants} (S = "
+        f"{SPEC_K + 1} plans {plan.variant})")
+
+    # a replayed spec chunk against eager launches of its body
+    eager = engine(model, "self")
+
+    def eager_spec(rounds_, sampling):
+        packed = tc._spec_chunk(model, eager._draft, eager._state, rounds_,
+                                SPEC_K, eager.eos_token_id, eager.pad_id,
+                                sampling)
+        return packed.cpu(), None
+
+    eager._spec_async = eager_spec
+    ref, eager_s = _run_traffic(eager, traffic)
+    check(not eager._graphs, "the eager spec engine captured a graph")
+    check(ref == runs["self"]["toks"], "replayed spec chunks differ from "
+          "eager launches of the same body")
+    log(f"  (b) replayed spec chunks == eager launches bit for bit "
+        f"({len(traffic)} requests, {len(traffic) - len(greedy)} sampled; "
+        f"eager {eager_s:.3f} s)")
+
+    # f32, the full width cut to 2 layers: spec off's tokens, both drafts
+    cfg32 = dataclasses.replace(cfg, num_layers=2, dtype=torch.float32)
+    d32 = dataclasses.replace(dcfg, dtype=torch.float32)
+    with torch.device(dev):
+        m32, dm32 = CausalLM(cfg32), CausalLM(d32)
+    m32.load_params(init_params(cfg32, seed=1)).eval()
+    dm32.load_params(init_params(dcfg, seed=1)).eval()
+    off32 = _run_traffic(engine(m32, "off"), traffic)[0]
+    for kind in ("self", "random"):
+        got = _run_traffic(engine(m32, kind, dm32), traffic)[0]
+        _first_divergence(torch, m32, [prompts[i] for i in greedy],
+                          [got[i] for i in greedy], [off32[i] for i in greedy],
+                          f"f32 2-layer {kind}-draft spec against off")
+    log(f"  (b) f32 2-layer: self-draft and random-draft spec == spec off "
+        f"for the {len(greedy)} greedy requests")
+    del m32, dm32
+
+    # where a replayed spec chunk's time goes
+    rng = random.Random(2)
+    for kind in ("self", "random"):
+        eng = tc.ContinuousEngine(model, num_slots=8, chunk=16,
+                                  spec_tokens=SPEC_K,
+                                  draft_model=None if kind == "self" else draft)
+        for _ in range(8):
+            eng.submit([rng.randrange(256) for _ in range(700)],
+                       max_new_tokens=300)
+        eng.step()  # admissions, the capture, one chunk
+        wall_p, busy, top = _profiled(torch, eng.step)
+        check(busy > 0, "the profiler shows no device time for a replayed "
+              "spec chunk")
+        walls = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            eng.step()
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        rounds_ = eng._spec_rounds(16, None)
+        log(f"  (b) a replayed {kind}-draft spec chunk ({rounds_} rounds of "
+            f"k = {SPEC_K}, 8 slots at ~700 tokens): device {busy:.2f} ms "
+            f"in a profiled wall of {wall_p:.2f} ms; unprofiled wall "
+            f"{', '.join(f'{w:.2f}' for w in walls)} ms; on {CARD}")
+        for name, ms in top[:6]:
+            log(f"    {ms:9.3f} ms  {name[:90]}")
+        del eng
+    return launches
 
 
 # -- phase 6: the training main path ------------------------------------------
@@ -3124,13 +3545,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     log("== 1. device")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60).stdout.strip().splitlines()
-    global CARD
-    CARD = smi[0] if smi else "nvidia-smi: no output"
-    log(CARD)
+    log(query_card())
     dev = resolve_device("cuda")  # raises unless capability 9.0
     cap = torch.cuda.get_device_capability(dev)
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
@@ -3216,6 +3631,11 @@ def main() -> int:
         torch, dev, serve_counters)
     records["paged_attention"]["launches_by_variant_radix"] = radix_variants
     torch.cuda.empty_cache()
+    log("== 4f. in-engine speculative decoding: the cb --spec pair, "
+        "GPT-small with a self-draft and a random draft, the standalone "
+        "driver")
+    spec_launches = run_spec_serving(torch, dev, serve_counters)
+    torch.cuda.empty_cache()
     log("== 6. training main path: lm_pretrain, GPT-small width, bf16, "
         "batch 16 x 512")
     train_launches, _ = run_training(torch, dev, train_counters)
@@ -3282,6 +3702,7 @@ def main() -> int:
                     "serve_graphs": graph_launches.get(name, 0),
                     "serve_chunked": chunked_launches.get(name, 0),
                     "serve_radix": radix_launches.get(name, 0),
+                    "serve_spec": spec_launches.get(name, 0),
                     "lm_train": train_launches.get(name, 0),
                     "lm_train_1280": wide_launches.get(name, 0),
                     "lm_train_d128": d128_launches.get(name, 0),

@@ -69,8 +69,10 @@ editing a ``.cu`` file, and for the experiments PERF.md reports.
         1024 each; the 256-token piece at fills {0..1024}), eager and
         replayed from a CUDA graph, beside SDPA over the gathered pages,
         with the bounds; then, where the wrapper has a plan, the decode
-        variant at each pages-a-split and the decode and chunk variants
-        at chunk widths around the threshold;
+        variant at each pages-a-split, the decode and chunk variants
+        at chunk widths around the threshold, and both at the verify
+        widths of speculative decoding (S = 2..8 on the serving decode
+        shape, at fills {0..1024} and at 716 each);
     python3 kernel_probe.py flash-widths [f32] [D ...]
         K2f, K2dq and K2dkv in bf16 (f32 with ``f32``) at head width D
         (default 128, 80 and 64; causal, B=16 S=512 H=8), checked against
@@ -119,6 +121,7 @@ def check(torch, dev, names) -> None:
     import chip_smoke as cs
     from pyspark_tf_gke_tpu_torch.ops import kernels
 
+    print(cs.query_card(), flush=True)
     kernels.library()
     for fn, info in cs.ptxas_report(kernels.build_log).items():
         if any(k in fn for k in cs.NO_SPILL + ("ln_bwd", "flash_")):
@@ -677,6 +680,7 @@ def paged_modes(torch, dev) -> None:
     import chip_smoke as cs
     from pyspark_tf_gke_tpu_torch.ops import paged_attention as pa
 
+    print(cs.query_card(), flush=True)
     _ptxas(("paged",))
     planned = hasattr(pa, "paged_plan")
     for name, fills, s in PAGED_SHAPES:
@@ -717,6 +721,23 @@ def paged_modes(torch, dev) -> None:
                 times.append(f"{variant} {cs.graph_ms(fn):.4f}")
             print(f"  S={s} H_kv={hkv} (R={s * 12 // hkv}) graph: "
                   f"{', '.join(times)} ms; plan "
+                  f"{pa.paged_plan(*_plan_args(q, kp, table)).variant}",
+                  flush=True)
+    # the verify widths of speculative decoding (S = k + 1) on the
+    # GPT-small decode shape, at fills {0..1024} and at 716 each
+    for label, fills in (("fills {0..1024}", None), ("fills 716", (716,) * 8)):
+        for s in range(2, 9):
+            q, kp, vp, table, fills_t, _, _ = _paged_shape(
+                torch, dev, fills, s)
+            times = []
+            for variant in ("decode", "chunk"):
+                pl = pa.paged_plan(*_plan_args(q, kp, table), variant=variant)
+                fn = lambda: pa._launch(  # noqa: E731
+                    q, kp, vp, table, fills_t, None, None, pl)
+                times.append(f"{variant} {cs.graph_ms(fn):.4f}")
+            bms, by = cs._paged_bound(q, kp, table, fills_t)
+            print(f"  verify S={s} H_kv=12 {label} graph: "
+                  f"{', '.join(times)} ms; bound {bms:.4f} ({by}); plan "
                   f"{pa.paged_plan(*_plan_args(q, kp, table)).variant}",
                   flush=True)
 

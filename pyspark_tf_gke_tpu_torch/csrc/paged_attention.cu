@@ -25,7 +25,8 @@
 // card), and the entry point below checks what it is given:
 //
 // decode (dec::, split-KV, "flash-decoding"), for every decode step and
-// verify chunk (S <= 8), f32 and bf16 queries, float or int8 pages,
+// the narrowest verify chunks (S <= 4 with a bf16 query, S <= 8 with an
+// f32 one; 1-8 query rows a CTA), float or int8 pages,
 // head_dim 64, pages of a multiple of 16 tokens. The
 // grid is (slot, KV head, split x row block): a split walks a fixed
 // range of `pages_per_split` table entries, only those before its slot's

@@ -269,12 +269,17 @@ class PagedKV:
                      positions: torch.Tensor) -> None:
         """Write ``k/v [B, s, H_kv, D]`` at ``positions [B, s]`` through
         the block table (page ``table[b, pos // P]``, offset ``pos %
-        P``); the page index is clipped into the table as
-        ``take_along_axis`` does, and sentinel pages go to the trash."""
+        P``); sentinel pages go to the trash, and so does a position past
+        the table's extent. (The JAX model clips such a position's page
+        index into the table, writing it over the row at offset ``pos %
+        P`` of the slot's last page: a spec verify's overhang near
+        ``max_seq_len`` would overwrite a live row there.)"""
         ps = self.page_size
         pos = positions.long()
-        col = (pos // ps).clamp(max=self.block_table.shape[1] - 1)
-        page = self._safe(self.block_table.long().gather(1, col))
+        mp = self.block_table.shape[1]
+        col = pos // ps
+        page = self.block_table.long().gather(1, col.clamp(max=mp - 1))
+        page = self._safe(torch.where(col < mp, page, self.num_pages))
         off = pos % ps
         if self._ks is not None:
             k, ks = quantize_kv(k)
@@ -489,7 +494,8 @@ class CausalLM(nn.Module):
                 segment_ids: Optional[torch.Tensor] = None,
                 cache: Union[DenseCache, PagedKV, None] = None,
                 prefill: bool = False,
-                last_index: Optional[torch.Tensor] = None) -> torch.Tensor:
+                last_index: Optional[torch.Tensor] = None,
+                return_hidden: bool = False) -> torch.Tensor:
         """f32 logits ``[B, S, V]``.
 
         * ``cache=None``: full causal forward (scoring).
@@ -502,6 +508,10 @@ class CausalLM(nn.Module):
         ``last_index [B]`` applies the final norm and head only at one
         position per row (returns ``[B, 1, V]``) — prefill needs just the
         last real token's logits.
+
+        ``return_hidden`` returns the last block's output ``[B, S, H]``
+        and skips the final norm and the head: a forward run only for
+        the K/V it writes (a draft's cache feed) reads no logits.
         """
         b, s = input_ids.shape
         if prefill and not isinstance(cache, DenseCache):
@@ -530,6 +540,8 @@ class CausalLM(nn.Module):
             else:
                 hidden = block(hidden, positions, i, cache, prefill,
                                segment_ids)
+        if return_hidden:
+            return hidden
         if last_index is not None:
             rows = torch.arange(b, device=hidden.device)
             hidden = hidden[rows, last_index.long()][:, None]

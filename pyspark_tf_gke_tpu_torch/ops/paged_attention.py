@@ -19,11 +19,13 @@ contract is exactly ``paged_attention_chunk_reference`` (``:63-104``):
 The kernel (``csrc/paged_attention.cu``) has three variants, and
 :func:`paged_plan` picks one and its launch shape from the shapes and
 dtypes alone (never from ``fills``, never from the card): ``decode``, a
-split-KV design for every decode step and verify chunk (``S <= 8``);
-``chunk``, a tensor-core design for wider chunks with a bf16 query (the
-256-token chunked-prefill piece); and ``rows``, the first design, for
-wider f32 chunks and shapes the others do not take (head_dim other
-than 64, pages not a multiple of 16 tokens). Any ``S`` launches. The
+split-KV design for every decode step and the narrowest verify chunks
+(``S <= 4``; f32 chunks up to ``S = 8``); ``chunk``, a tensor-core
+design for wider chunks with a bf16 query (speculative verify chunks
+from ``S = 5``, the 256-token chunked-prefill piece); and ``rows``, the
+first design, for wider f32 chunks and shapes the others do not take
+(head_dim other than 64, pages not a multiple of 16 tokens). Any ``S``
+launches. The
 wrappers take the plain
 version only for CPU tensors; a CUDA tensor launches the kernel or
 raises. Paged attention has no backward (neither has the JAX kernel):
@@ -53,9 +55,12 @@ MAX_ROW_BLOCKS = 65535  # the grid's z dimension: row blocks of a group
 # asks the card); at 8 slots x 12 KV heads x 16 pages that is 4 splits
 # of 4 pages, the fastest split measured there (kernel_probe.py
 # paged-modes, PERF.md). Every chunk of S <= DECODE_MAX_S takes the
-# decode variant; a wider one the chunk variant where it takes the
-# shape (at S = 16 it was 2.2x faster than the decode variant), else
-# the first design.
+# decode variant; a wider one the chunk variant where it takes the shape
+# (at the serving decode shape it was faster from S = 5: 0.0200 against
+# 0.0204 ms at fills {0..1024} and 0.0159 against 0.0234 at 716 each;
+# 2.2x faster at S = 16), else the decode variant up to
+# DECODE_ALONE_MAX_S (f32 chunks, which the chunk variant does not
+# take), else the first design.
 DECODE_ROWS = (1, 2, 4, 8)
 DECODE_D = 64
 DECODE_KEYS = 16
@@ -63,7 +68,8 @@ DECODE_WARPS = 4
 DECODE_MAX_STAGES = 4
 DECODE_RING_BYTES = 64 * 1024
 DECODE_TARGET_CTAS = 384
-DECODE_MAX_S = 8
+DECODE_MAX_S = 4
+DECODE_ALONE_MAX_S = 8
 # The chunk variant: 128 query rows a CTA, 64-token pages, head_dim 64,
 # a bf16 query; two K/V slots and a 128-row Q tile, 1024-byte aligned.
 CHUNK_ROWS = 128
@@ -191,7 +197,8 @@ def paged_plan(b: int, s: int, h: int, hkv: int, d: int, p: int, mp: int,
     tokens, ``mp`` table entries a slot — a function of the shape and
     dtypes alone. ``decode`` for ``s <= DECODE_MAX_S`` (head_dim 64,
     pages a multiple of 16 tokens); else ``chunk`` for a bf16 query over
-    64-token pages of head_dim 64; else the first design
+    64-token pages of head_dim 64; else ``decode`` up to
+    ``DECODE_ALONE_MAX_S``; else the first design
     (:func:`row_plan`). ``pages_per_split`` and ``variant`` override the
     choice (``kernel_probe.py paged-modes`` sweeps them); a variant that
     cannot take the shape raises ``ValueError``."""
@@ -200,7 +207,8 @@ def paged_plan(b: int, s: int, h: int, hkv: int, d: int, p: int, mp: int,
     chunk_ok = (d == 64 and p == 64 and qdtype == torch.bfloat16
                 and kvdtype in (torch.bfloat16, torch.int8))
     if variant is None:
-        if decode_ok and s <= DECODE_MAX_S:
+        if decode_ok and (s <= DECODE_MAX_S or (
+                not chunk_ok and s <= DECODE_ALONE_MAX_S)):
             variant = "decode"
         elif chunk_ok:
             variant = "chunk"

@@ -67,6 +67,15 @@ directly; ``export_prefix_pages`` / ``import_prefix_pages`` hand cached
 pages between engines (and, through ``train/kv_transfer.py``, between
 this package and the JAX one).
 
+Speculative decoding (``spec_tokens=k``, ``draft_model``): every dispatch
+is a spec chunk (``_spec_chunk``): rounds of k draft proposals a slot
+and one (k+1)-wide verify of the target through K1's chunk entry, the
+shared acceptance rule of ``models/speculative.py``, the rollback a
+position that does not advance. The draft (the target itself when none
+is given) runs a dense cache of its own, prefilled at each admission;
+on CUDA each ``(rounds, k, sampling)`` chunk is one captured graph,
+replayed as the decode chunk is.
+
 The attribute names ``_queue``, ``_slots``, ``_admitting``,
 ``_inflight_q``, ``_page_refs``, ``_free_pages``, ``_slot_pages`` and
 ``radix`` match the JAX engine so its invariant checker can run here.
@@ -84,13 +93,15 @@ from typing import Deque, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from pyspark_tf_gke_tpu_torch.models import lanes
 from pyspark_tf_gke_tpu_torch.models.causal_lm import (CausalLM, DenseCache,
                                                        PagedKV,
                                                        _filter_logits)
+from pyspark_tf_gke_tpu_torch.models.speculative import (accept_and_correct,
+                                                         emit_window)
 from pyspark_tf_gke_tpu_torch.obs.stepstats import (StepStatsRing,
                                                     flops_per_token)
-from pyspark_tf_gke_tpu_torch.ops import layernorm as _ln
-from pyspark_tf_gke_tpu_torch.ops import paged_attention as _pa
+from pyspark_tf_gke_tpu_torch.ops import graphs
 
 PAD_BUCKETS = (32, 64, 128, 256, 512, 1024)
 
@@ -102,8 +113,6 @@ _MIN_ADAPTIVE_CHUNK = 8
 # engine options of the JAX engine this slice does not carry, with the
 # ROADMAP item (queue 1) that brings each
 _NOT_PORTED = {
-    "spec_tokens": "P6 in-engine speculative decoding",
-    "draft_model": "P6 in-engine speculative decoding",
     "tenant_weights": "P7 tenants and deadlines",
 }
 
@@ -111,10 +120,9 @@ _NOT_PORTED = {
 # engine's ``_KV_XFER_KEYS``)
 _KV_XFER_KEYS = ("k_pages", "v_pages", "k_scale_pages", "v_scale_pages")
 
-# launch counters of the kernels a decode chunk runs (K1, K3): counted at
-# capture (where no kernel launches), undone there, and added back on
-# every replay
-_COUNTERS = ((_pa, "launches"), (_ln, "launches"))
+# spec chunks' accept counts over this many collected chunks make the
+# windowed ``spec_accept_rate``
+_SPEC_WINDOW = 64
 
 
 def bucket_length(n: int, buckets: Sequence[int] = PAD_BUCKETS) -> int:
@@ -143,6 +151,10 @@ class _Request:
     temperature: float = 0.0      # 0 = greedy
     top_p: Optional[float] = None
     seed: int = 0
+    # speculative decoding: draft tokens proposed / accepted for THIS
+    # request while it still had budget
+    spec_proposed: int = 0
+    spec_accepted: int = 0
 
     def sampling(self) -> tuple:
         return (float(self.temperature),
@@ -150,42 +162,15 @@ class _Request:
                 int(self.seed))
 
 
-# -- the sampling lanes' counter-based draws ------------------------------------
+# -- the sampling lanes' counter-based draws (models/lanes.py) ------------------
 
-_M32 = 0xFFFFFFFF
-
-
-def _mul32(x, c: int):
-    """``(x * c) mod 2**32`` for ``x`` in ``[0, 2**32)`` without leaving
-    int64 (the constant is split in 16-bit halves); Python ints and int64
-    tensors alike."""
-    return (x * (c & 0xFFFF) + (((x * (c >> 16)) & 0xFFFF) << 16)) & _M32
+_seed_key = lanes.seed_key
 
 
-def _mix32(x):
-    """A 32-bit integer finalizer (xorshift-multiply): every input bit
-    reaches every output bit."""
-    x = x ^ (x >> 16)
-    x = _mul32(x, 0x7FEB352D)
-    x = x ^ (x >> 15)
-    x = _mul32(x, 0x846CA68B)
-    return x ^ (x >> 16)
-
-
-def _seed_key(seed: int) -> int:
-    """A slot lane's 32-bit key from a request's (64-bit) seed."""
-    s = int(seed) % (1 << 64)
-    return _mix32(_mix32((s >> 32) ^ 0x9E3779B9) ^ (s & _M32))
-
-
-def _gumbel(state: "SlotState") -> torch.Tensor:
-    """``[B, V]`` Gumbel noise: each row's from its key and step counter
-    only, each column from its vocabulary index."""
-    step = _mix32((state.draws + 0x632BE5AB) & _M32)
-    row = _mix32(state.keys ^ step)
-    bits = _mix32(row[:, None] ^ state.vocab_mix[None, :])
-    u = ((bits >> 8).to(torch.float32) + 0.5) * (1.0 / (1 << 24))
-    return -torch.log(-torch.log(u))
+def _gumbel(state: "SlotState", stream: int = lanes.PICK) -> torch.Tensor:
+    """``[B, V]`` Gumbel noise: each row's from its key, its step counter
+    and ``stream`` only, each column from its vocabulary index."""
+    return lanes.gumbel(state.keys, state.draws, stream, state.vocab_mix)
 
 
 class SlotState:
@@ -208,8 +193,7 @@ class SlotState:
         self.topps = torch.ones(num_slots, device=device)
         self.keys = torch.zeros(num_slots, dtype=torch.long, device=device)
         self.draws = torch.zeros(num_slots, dtype=torch.long, device=device)
-        self.vocab_mix = _mix32(torch.arange(cfg.vocab_size, dtype=torch.long,
-                                             device=device) + 0x2545F491)
+        self.vocab_mix = lanes.column_mix(cfg.vocab_size, device)
 
     def carried(self) -> List[torch.Tensor]:
         """The tensors a decode chunk rewrites (besides the KV pages)."""
@@ -329,17 +313,17 @@ def _clear_live_paged(state: SlotState, slot: int) -> None:
     state.live[slot] = False
 
 
-def _pick_tokens(logits: torch.Tensor, state: SlotState,
-                 sampling: bool) -> torch.Tensor:
+def _pick_tokens(logits: torch.Tensor, state: SlotState, sampling: bool,
+                 stream: int = lanes.PICK) -> torch.Tensor:
     """[B] next tokens: greedy rows argmax; with ``sampling`` every row's
-    temperature-scaled, top-p-filtered draw is computed and the rows
-    with a temperature take it."""
+    temperature-scaled, top-p-filtered draw (noise of ``stream``) is
+    computed and the rows with a temperature take it."""
     greedy = torch.argmax(logits, dim=-1)
     if not sampling:
         return greedy
     scaled = logits / state.temps.clamp_min(1e-6)[:, None]
     filtered = _filter_logits(scaled, None, state.topps[:, None])
-    sampled = torch.argmax(filtered + _gumbel(state), dim=-1)
+    sampled = torch.argmax(filtered + _gumbel(state, stream), dim=-1)
     return torch.where(state.temps > 0, sampled, greedy)
 
 
@@ -372,44 +356,213 @@ def _decode_chunk(model: CausalLM, state: SlotState, size: int,
     return torch.stack(emitted_steps, dim=1)
 
 
-def _counter_values() -> list:
-    return ([getattr(mod, attr) for mod, attr in _COUNTERS]
-            + [dict(_pa.variant_launches)])
+# -- speculative decoding in the slots (draft/verify) ---------------------------
+#
+# Per slot, a cheap DRAFT model (a small companion model, or the target
+# itself — "self-draft" — when none is given) proposes ``spec_tokens``
+# tokens, then ONE (k+1)-wide verify forward of the target scores them
+# through the same paged slot-decode path chunked prefill uses (K1's
+# chunk entry). Accepted tokens advance each slot's position; rejected
+# ones roll back by not advancing it — the rows past the position are
+# masked and overwritten by the next round. The acceptance rule lives in
+# ``models/speculative.py``, shared with the standalone driver.
+#
+# The draft runs a DENSE slot cache of its own (``[num_slots,
+# draft_max_seq, ...]``, sharing the target's per-slot positions):
+# drafts are cheap and transient, and their contents never affect
+# correctness — a cold draft row only proposes tokens the verify
+# rejects. The draft cache has no fill state of its own (the positions
+# are the target's), so a capture's warm-up needs nothing of it put
+# back: its draft writes land at and past each row's position, where
+# the first replay writes again before any row reads them.
 
 
-def _add_counters(delta: list, sign: int = 1) -> None:
-    for (mod, attr), d in zip(_COUNTERS, delta):
-        setattr(mod, attr, getattr(mod, attr) + sign * d)
-    for name, d in delta[-1].items():
-        _pa.variant_launches[name] += sign * d
+class DraftSlots:
+    """The draft half of the slot pool (``_draft_zeros_cache``): the
+    draft model and its dense ``[num_slots, max_seq_len]`` cache,
+    allocated once and written in place by index, so a captured spec
+    chunk replays over it."""
+
+    def __init__(self, model: CausalLM, num_slots: int,
+                 device: torch.device):
+        self.model = model
+        self.cache = DenseCache(model.cfg, num_slots, model.cfg.max_seq_len,
+                                device)
 
 
-@dataclass
-class _ChunkGraph:
-    graph: "torch.cuda.CUDAGraph"
-    toks: torch.Tensor        # the graph's static [B, size] output
-    delta: list               # launch-counter moves of one replay
-    capture_s: float          # warm-up + capture wall time
+def _insert_draft_rows(draft: DraftSlots, caches: DenseCache,
+                       slots: List[int]) -> None:
+    """``_insert_draft_rows_batch``: drop the rows of a batched draft
+    prefill (``[len(slots), w]``) into the draft rows of ``slots``, by
+    index through pinned host buffers. Rows past ``w`` keep stale values
+    past the prompt, masked until a round writes them."""
+    dc = draft.cache
+    w = caches.k[0].shape[1]
+    idx = _h2d(np.asarray(slots, np.int64), dc.k[0].device)
+    for layer in range(len(dc.k)):
+        dc.k[layer][idx, :w] = caches.k[layer]
+        dc.v[layer][idx, :w] = caches.v[layer]
+        if dc.k_scale is not None:
+            dc.k_scale[layer][idx, :w] = caches.k_scale[layer]
+            dc.v_scale[layer][idx, :w] = caches.v_scale[layer]
+
+
+def _draft_prefill_rows(draft: DraftSlots, padded: np.ndarray,
+                        true_lens: np.ndarray, slots: List[int]) -> None:
+    """``draft_prefill_rows_batch``: one right-padded draft prefill of
+    ``padded [k, w]`` into the draft rows of ``slots``."""
+    caches, _ = _prefill_padded_batch(draft.model, padded, true_lens)
+    _insert_draft_rows(draft, caches, slots)
+
+
+def _spec_chunk(model: CausalLM, draft: DraftSlots, state: SlotState,
+                rounds: int, k: int, eos_token_id: Optional[int],
+                pad_id: int, sampling: bool) -> torch.Tensor:
+    """``rounds`` draft/verify rounds for ALL slots — the spec
+    counterpart of :func:`_decode_chunk`, updating ``state`` and the
+    draft cache in place (the body a CUDA graph captures).
+
+    Entry emits one token from the carried logits (a plain step's emit)
+    as the first PENDING token. Each round runs k single-token draft
+    forwards proposing d_1..d_k from the pending token, feeds d_k too
+    (its K/V a fully accepted round needs next), then ONE (k+1)-wide
+    verify forward of the target over [pending, d_1..d_k] at positions
+    fill..fill+k; :func:`accept_and_correct` gives the accepted length
+    and the correction, the round emits [d_1..d_a, correction] (eos in
+    the window truncates it and drops the live flag, as the plain
+    chunk's emit-then-latch order), and the position advances by exactly
+    the emitted count — the rollback. Exit feeds the final pending token
+    through target and draft, so ``last_logits`` / ``positions`` leave in
+    the plain chunk's invariant.
+
+    Returns the packed int32 ``[rounds·(k+1) + 3·rounds + 2, B]``: the
+    rounds' emission windows, their valid lengths, the accepted and
+    proposed counts, the entry tokens and the final live flags
+    (:func:`_unpack_spec` is the host-side inverse)."""
+    b = state.live.shape[0]
+    width = k + 1
+    iota_w = torch.arange(width, device=state.positions.device)
+    dmodel, dcache = draft.model, draft.cache
+    # entry: emit one token from the carried logits (the eos token itself
+    # belongs to the output)
+    t0 = _pick_tokens(state.last_logits, state, sampling)
+    if sampling:
+        state.draws.add_(1)
+    entry_tok = torch.where(state.live, t0, pad_id)
+    live = state.live
+    if eos_token_id is not None:
+        live = live & (t0 != eos_token_id)
+    pending = torch.where(live, t0, pad_id)
+    positions = state.positions
+    windows, wlens, accepted, proposed = [], [], [], []
+    for _ in range(rounds):
+        # 1. draft: k single-token forwards from the pending token
+        cur, dtoks, dlogits = pending, [], []
+        for j in range(k):
+            feed = torch.where(live, cur, pad_id)
+            lg = dmodel(feed[:, None], positions=(positions + j)[:, None],
+                        cache=dcache)[:, 0]
+            cur = _pick_tokens(lg, state, sampling, lanes.DRAFT)
+            if sampling:
+                state.draws.add_(1)
+            dtoks.append(cur)
+            dlogits.append(lg)
+        # feed the final proposal too (cache rows only)
+        dmodel(torch.where(live, cur, pad_id)[:, None],
+               positions=(positions + k)[:, None], cache=dcache,
+               return_hidden=True)
+        drafts = torch.stack(dtoks, dim=1)                  # [B, k]
+        # 2. verify: ONE (k+1)-wide chunk forward writes K/V for
+        #    [pending, d_1..d_k] at fill..fill+k and scores every position
+        #    (dead rows feed pad at their frozen position: their writes
+        #    go through the sentinel to the trash page, or past the fill)
+        vchunk = torch.where(live[:, None],
+                             torch.cat([pending[:, None], drafts], dim=1),
+                             pad_id)
+        logits_v = model(vchunk, positions=positions[:, None] + iota_w,
+                         cache=state.cache)
+        # 3. accept + correct (THE shared rule)
+        if sampling:
+            a, correction = accept_and_correct(
+                drafts, torch.stack(dlogits, dim=1), logits_v,
+                temps=state.temps, topps=state.topps, keys=state.keys,
+                draws=state.draws)
+            state.draws.add_(1)
+        else:
+            a, correction = accept_and_correct(
+                drafts, torch.stack(dlogits, dim=1), logits_v)
+        # 4. emit window + eos latch + position advance (= rollback)
+        window = emit_window(drafts, correction, a)         # [B, k+1]
+        if eos_token_id is not None:
+            is_eos = (window == eos_token_id) & (iota_w <= a[:, None])
+            any_eos = is_eos.any(dim=1)
+            eos_idx = torch.argmax(is_eos.long(), dim=1)    # the first
+            vlen = torch.where(any_eos, eos_idx + 1, a + 1)
+            new_live = live & ~any_eos
+        else:
+            vlen = a + 1
+            new_live = live
+        vlen = torch.where(live, vlen, 0)
+        windows.append(torch.where(iota_w < vlen[:, None], window, pad_id))
+        wlens.append(vlen)
+        accepted.append(torch.where(live, a, 0))
+        proposed.append(live.long() * k)
+        # rows fed and valid this round = pending + the accepted drafts
+        # before any eos: exactly the emitted count
+        positions = positions + vlen
+        pending = torch.where(new_live, correction, pad_id)
+        live = new_live
+    # exit: feed the final pending token through target AND draft
+    step_tok = torch.where(live, pending, pad_id)
+    logits = model(step_tok[:, None], positions=positions[:, None],
+                   cache=state.cache)
+    dmodel(step_tok[:, None], positions=positions[:, None], cache=dcache,
+           return_hidden=True)
+    state.positions.copy_(positions + live.long())
+    state.last_logits.copy_(logits[:, 0])
+    state.live.copy_(live)
+    return torch.cat([
+        torch.stack(windows).transpose(1, 2).reshape(rounds * width, b),
+        torch.stack(wlens), torch.stack(accepted), torch.stack(proposed),
+        entry_tok[None], live.long()[None]], dim=0).to(torch.int32)
+
+
+def _unpack_spec(packed: np.ndarray, k: int):
+    """Host-side inverse of :func:`_spec_chunk`'s packed output:
+    ``(entry_tok [B], windows [rounds, k+1, B], wlens [rounds, B],
+    accepted [rounds, B], proposed [rounds, B], live [B] bool)``."""
+    width = k + 1
+    rounds = (packed.shape[0] - 2) // (width + 3)
+    wrows = rounds * width
+    windows = packed[:wrows].reshape(rounds, width, -1)
+    wlens = packed[wrows:wrows + rounds]
+    accepted = packed[wrows + rounds:wrows + 2 * rounds]
+    proposed = packed[wrows + 2 * rounds:wrows + 3 * rounds]
+    return (packed[-2], windows, wlens, accepted, proposed,
+            packed[-1] > 0)
 
 
 class _InflightStep:
-    """One dispatched-but-unsettled chunk (or admission): the result
-    handles (pinned host buffers filled behind ``event``), the
-    slot->request SNAPSHOT the chunk was computed over (scheduling for
-    the next step mutates ``engine._slots`` freely; the settle walks the
-    snapshot), and the dispatch/retire timestamps that feed the
+    """One dispatched-but-unsettled chunk (or admission): its ``kind``
+    (``"dev"`` a decode chunk, ``"spec_dev"`` a spec chunk, ``"admit"``),
+    the result handles (pinned host buffers filled behind ``event``: a
+    decode chunk's tokens and live flags, a spec chunk's packed array),
+    the slot->request SNAPSHOT the chunk was computed over (scheduling
+    for the next step mutates ``engine._slots`` freely; the settle walks
+    the snapshot), and the dispatch/retire timestamps that feed the
     device-busy interval derivation (``obs/stepstats.py``).
     ``t_dispatch`` is stamped at ENTRY to the dispatch call; ``t_retire``
     at the first moment the event was observed complete (a
     non-blocking ``poll_ready`` at a step's top or tail, or the fetch
     return). ``event`` is None on the CPU, where work is synchronous."""
 
-    __slots__ = ("a", "b", "event", "snapshot", "size", "t_dispatch",
-                 "t_retire")
+    __slots__ = ("kind", "a", "b", "event", "snapshot", "size",
+                 "t_dispatch", "t_retire")
 
-    def __init__(self, a, b, event, snapshot, size, t_dispatch):
-        self.a = a                  # tokens [B, size]
-        self.b = b                  # live flags [B]
+    def __init__(self, kind, a, b, event, snapshot, size, t_dispatch):
+        self.kind = kind
+        self.a = a                  # tokens [B, size], or the packed array
+        self.b = b                  # live flags [B] (decode chunks)
         self.event = event
         self.snapshot = snapshot    # slot -> _Request at dispatch
         self.size = size            # max tokens emitted per slot
@@ -421,10 +574,12 @@ class _InflightStep:
         return self.event is None or self.event.query()
 
     def fetch(self):
-        """``(tokens, live)`` as numpy, waiting for the event."""
+        """``(a, b)`` as numpy (``b`` None for a spec chunk), waiting for
+        the event."""
         if self.event is not None:
             self.event.synchronize()
-        return self.a.numpy(), self.b.numpy()
+        return (self.a.numpy(),
+                self.b.numpy() if self.b is not None else None)
 
 
 # -- the radix prefix cache (host side) -----------------------------------------
@@ -665,6 +820,8 @@ class ContinuousEngine:
                  prefill_chunk: int = 0, step_token_budget: int = 0,
                  pipeline_depth: int = 0, adaptive_chunk: bool = False,
                  stepstats: Optional[StepStatsRing] = None,
+                 spec_tokens: int = 0,
+                 draft_model: Optional[CausalLM] = None,
                  **unported):
         for name, value in unported.items():
             if name not in _NOT_PORTED:
@@ -762,8 +919,34 @@ class ContinuousEngine:
         self.stepstats.bind(None, flops_per_token=flops_per_token(cfg))
         self._step_rec = None
         self._state = SlotState(model, num_slots, self.device)
-        # CUDA: the captured decode chunks, by (size, sampling)
-        self._graphs: Dict[tuple, _ChunkGraph] = {}
+        # speculative decoding: spec_tokens draft proposals a slot a
+        # round, ONE multi-query verify; no draft model = SELF-draft (the
+        # target proposes for itself through a dense shadow cache)
+        if spec_tokens < 0:
+            raise ValueError(f"spec_tokens must be >= 0, got {spec_tokens}")
+        self.spec_tokens = int(spec_tokens)
+        self._spec = self.spec_tokens > 0
+        if (draft_model is not None
+                and draft_model.cfg.vocab_size != cfg.vocab_size):
+            raise ValueError(
+                f"draft vocab {draft_model.cfg.vocab_size} != target vocab "
+                f"{cfg.vocab_size}: the models must share a tokenizer")
+        self._self_draft = self._spec and draft_model is None
+        self._draft: Optional[DraftSlots] = None
+        if self._spec:
+            draft = draft_model if draft_model is not None else model
+            if draft.device != self.device:
+                raise ValueError(f"draft model on {draft.device}, target on "
+                                 f"{self.device}: one device for both")
+            self._draft = DraftSlots(draft, num_slots, self.device)
+        self._n_spec_rounds = 0
+        self._n_spec_proposed = 0
+        self._n_spec_accepted = 0
+        # (proposed, accepted) of the last collected spec chunks
+        self._spec_window: Deque[tuple] = deque(maxlen=_SPEC_WINDOW)
+        # CUDA: the captured chunks, decode by (size, sampling), spec by
+        # (rounds, k, sampling)
+        self._graphs: Dict[tuple, graphs.Captured] = {}
         self._graph_pool = None
 
     # -- submission ------------------------------------------------------
@@ -1103,9 +1286,37 @@ class ContinuousEngine:
         self._release_pages(slot)
 
     # -- admission -------------------------------------------------------
+    def _draft_payload(self, req: _Request):
+        """``(padded [1, w], true_len)`` for the admission's draft
+        prefill, or None when speculation is off or the prompt cannot
+        fit the draft's context (the slot then runs on a COLD draft row:
+        its proposals are rejected — slower, never wrong). Width: the
+        smallest engine bucket that fits the draft, else a multiple of
+        32, bounded by the draft's max_seq_len."""
+        if not self._spec:
+            return None
+        d_max = self._draft.model.cfg.max_seq_len
+        n = int(req.prompt.size)
+        if n >= d_max:
+            return None
+        cands = [x for x in self.buckets if n <= x <= d_max]
+        w = min(cands) if cands else min(-(-n // 32) * 32, d_max)
+        padded = np.full((1, w), self.pad_id, np.int32)
+        padded[0, :n] = req.prompt
+        return padded, n
+
+    def _draft_admit(self, slot: int, req: _Request) -> None:
+        """The draft's half of an admission: prefill the whole prompt
+        into the slot's draft row."""
+        dp = self._draft_payload(req)
+        if dp is not None:
+            _draft_prefill_rows(self._draft, dp[0],
+                                np.asarray([dp[1]], np.int32), [slot])
+
     def _device_admit(self, group: List[_Request], slots: List[int],
                       sb: int, pages_b: np.ndarray) -> None:
-        """ONE batched prefill + ONE scatter admits ``group``."""
+        """ONE batched prefill + ONE scatter admits ``group`` (and, under
+        speculation, the draft's prefill of the same prompts)."""
         padded = np.full((len(group), sb), self.pad_id, np.int32)
         lens = np.zeros((len(group),), np.int32)
         for i, req in enumerate(group):
@@ -1117,6 +1328,16 @@ class ContinuousEngine:
                                       lens, pages_b,
                                       [r.sampling() for r in group],
                                       n_rows=sb)
+            if self._spec and len(group) > 1 and (
+                    sb <= self._draft.model.cfg.max_seq_len):
+                # the group's shared bucket fits the draft: one batched
+                # draft prefill
+                _draft_prefill_rows(self._draft, padded, lens, slots)
+            elif self._spec:
+                # a solo admission, or a bucket too wide for the draft:
+                # each request's own draft width
+                for slot, req in zip(slots, group):
+                    self._draft_admit(slot, req)
         self._n_prefill_tokens += int(lens.sum())
 
     def _admit_group(self, group: List[_Request], slots: List[int],
@@ -1279,6 +1500,10 @@ class ContinuousEngine:
                     _activate_slot_paged(self._state, a["slot"], a["row"],
                                          req.prompt.size, logits1,
                                          req.sampling())
+                    # the draft's context spans the WHOLE prompt (a radix
+                    # match boundary included: shared pages never cross
+                    # into the draft's dense rows)
+                    self._draft_admit(a["slot"], req)
         except BaseException:
             # a failed piece must not leak the admission's pages (the
             # caller may keep driving this engine), nor lose its request:
@@ -1321,11 +1546,13 @@ class ContinuousEngine:
         """Index a FINISHED request's pages: they hold valid KV for
         prompt + emitted tokens (minus a trailing eos, which is emitted
         but never fed back). Near the context limit the insert is
-        skipped: rows still live on the device after the host-side
-        finish (up to ``(pipeline_depth + 1) * chunk`` steps of
-        overshoot) can reach position ``max_seq_len``, where the paged
-        write's table-index clamp lands a garbage row at the LAST page's
-        first offset — cheap to exclude, impossible to repair."""
+        skipped, as the JAX engine skips it: rows still live on the
+        device after the host-side finish (up to ``(pipeline_depth + 1)
+        * _chunk_token_bound()`` positions of overshoot) can reach
+        ``max_seq_len``, where the JAX model's paged write lands a
+        garbage row in the LAST page (this model's write sends it to the
+        trash page); the same trie contents keep the two engines' cache
+        stats equal."""
         pages = self._slot_pages.get(slot)
         if not pages:
             return
@@ -1345,8 +1572,13 @@ class ContinuousEngine:
 
     def _chunk_token_bound(self) -> int:
         """Upper bound on a slot's fill advance from ONE dispatched
-        chunk (the overshoot term of the near-limit radix guard)."""
-        return self.chunk
+        chunk (the overshoot term of the near-limit radix guard): a plain
+        chunk advances by at most ``chunk``; a spec chunk by 1 (entry) +
+        rounds x (k+1) accepted + correction tokens (+1 exit feed)."""
+        if not self._spec:
+            return self.chunk
+        k = self.spec_tokens
+        return 2 + max(1, self.chunk // (k + 1)) * (k + 1)
 
     def _admit_waiting(self) -> None:
         reserved = (self._admitting["slot"]
@@ -1369,41 +1601,35 @@ class ContinuousEngine:
             self._n_solo_admits += 1
 
     # -- the decode chunk on the device -----------------------------------
-    def _capture(self, size: int, sampling: bool) -> _ChunkGraph:
-        """Capture the ``(size, sampling)`` chunk as a CUDA graph: one
-        eager warm-up on a side stream (lazy library state, attribute
-        and occupancy queries are paid there), the carried state put
-        back, then the capture into the engine's shared pool. The
-        warm-up's page writes land where the first replay writes the
-        same values: at and past each row's fill, in its own pages or
-        the trash page. Kernel counters moved by the capture (where
-        nothing launches) are undone and kept as the replay delta."""
+    def _chunk_body(self, key: tuple):
+        """The chunk body of a graph key: a decode chunk for ``(size,
+        sampling)``, a spec chunk for ``(rounds, k, sampling)``."""
         st = self._state
-        args = (self.model, st, size, self.eos_token_id, self.pad_id,
-                sampling)
-        t0 = time.perf_counter()
-        saved = [t.clone() for t in st.carried()]
-        main = torch.cuda.current_stream(self.device)
-        side = torch.cuda.Stream(self.device)
-        side.wait_stream(main)
-        with torch.cuda.stream(side):
-            _decode_chunk(*args)
-        main.wait_stream(side)
-        for t, s in zip(st.carried(), saved):
-            t.copy_(s)
-        if self._graph_pool is None:
-            self._graph_pool = torch.cuda.graph_pool_handle()
-        before = _counter_values()
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, pool=self._graph_pool,
-                              capture_error_mode="thread_local"):
-            toks = _decode_chunk(*args)
-        after = _counter_values()
-        delta = [a - b for a, b in zip(after[:-1], before[:-1])]
-        delta.append({k: after[-1][k] - before[-1][k] for k in after[-1]})
-        _add_counters(delta, -1)
-        entry = _ChunkGraph(graph, toks, delta, time.perf_counter() - t0)
-        self._graphs[(size, sampling)] = entry
+        if len(key) == 3:
+            rounds, k, sampling = key
+            return lambda: _spec_chunk(self.model, self._draft, st, rounds,
+                                       k, self.eos_token_id, self.pad_id,
+                                       sampling)
+        size, sampling = key
+        return lambda: _decode_chunk(self.model, st, size, self.eos_token_id,
+                                     self.pad_id, sampling)
+
+    def _graph(self, key: tuple) -> graphs.Captured:
+        """The captured chunk of ``key``, captured on first use
+        (``ops/graphs.py``: an eager warm-up on a side stream, the
+        carried slot state put back, then the capture into the engine's
+        shared pool). The warm-up's page and draft writes land where the
+        first replay writes the same values: at and past each row's
+        position, in its own pages, the trash page or its draft row. A
+        failed capture raises; nothing falls back to eager launches."""
+        entry = self._graphs.get(key)
+        if entry is None:
+            if self._graph_pool is None:
+                self._graph_pool = torch.cuda.graph_pool_handle()
+            entry = graphs.capture(self._chunk_body(key),
+                                   self._state.carried(), self.device,
+                                   self._graph_pool)
+            self._graphs[key] = entry
         return entry
 
     def _chunk_async(self, size: int, sampling: bool):
@@ -1415,27 +1641,30 @@ class ContinuousEngine:
         runs eagerly and ``event`` is None."""
         st = self._state
         if self.device.type != "cuda":
-            toks = _decode_chunk(self.model, st, size, self.eos_token_id,
-                                 self.pad_id, sampling)
+            toks = self._chunk_body((size, sampling))()
             return toks, st.live.clone(), None
-        entry = self._graphs.get((size, sampling))
-        if entry is None:
-            entry = self._capture(size, sampling)
-        entry.graph.replay()
-        _add_counters(entry.delta)
-        toks = torch.empty(entry.toks.shape, dtype=entry.toks.dtype,
-                           pin_memory=True)
-        live = torch.empty(st.live.shape, dtype=torch.bool, pin_memory=True)
-        toks.copy_(entry.toks, non_blocking=True)
-        live.copy_(st.live, non_blocking=True)
-        event = torch.cuda.Event()
-        event.record(torch.cuda.current_stream(self.device))
+        entry = self._graph((size, sampling))
+        entry.replay()
+        (toks, live), event = graphs.pinned_copies([entry.out, st.live],
+                                                   self.device)
         return toks, live, event
+
+    def _spec_async(self, rounds: int, sampling: bool):
+        """Run one spec chunk without reading it back: ``(packed,
+        event)``, as :meth:`_chunk_async`."""
+        key = (rounds, self.spec_tokens, sampling)
+        if self.device.type != "cuda":
+            return self._chunk_body(key)(), None
+        entry = self._graph(key)
+        entry.replay()
+        (packed,), event = graphs.pinned_copies([entry.out], self.device)
+        return packed, event
 
     @property
     def graph_capture_seconds(self) -> Dict[tuple, float]:
         """Warm-up + capture wall time of each captured chunk graph, by
-        ``(size, sampling)`` (empty on the CPU)."""
+        ``(size, sampling)`` or, for spec chunks, ``(rounds, k,
+        sampling)`` (empty on the CPU)."""
         return {key: g.capture_s for key, g in self._graphs.items()}
 
     def _admission_event(self):
@@ -1452,19 +1681,90 @@ class ContinuousEngine:
             contextlib.nullcontext())
 
     def _dispatch_chunk(self, size: int) -> _InflightStep:
-        """Dispatch one ``size``-step decode chunk over the current slots;
-        returns the in-flight record (result handles and the
-        slot->request snapshot the chunk was computed over)."""
+        """Dispatch one ``size``-step decode chunk (a spec engine: a
+        ``size``-round spec chunk) over the current slots; returns the
+        in-flight record (result handles and the slot->request snapshot
+        the chunk was computed over)."""
         sampling = any(r.temperature > 0 for r in self._slots.values())
         if self._step_rec is not None:
             self._step_rec.decode_slots = max(self._step_rec.decode_slots,
                                               len(self._slots))
+        if self._spec:
+            return self._dispatch_spec(size, sampling)
         self._n_dispatched_steps += size
         # t_dispatch stamps the dispatch-call ENTRY
         t0 = time.monotonic()
         with torch.no_grad():
             toks, live, event = self._chunk_async(size, sampling)
-        return _InflightStep(toks, live, event, dict(self._slots), size, t0)
+        return _InflightStep("dev", toks, live, event, dict(self._slots),
+                             size, t0)
+
+    def _spec_rounds(self, size: int, cap: Optional[int]) -> int:
+        """Draft/verify rounds of one spec dispatch. ``size`` bounds the
+        EMITTED tokens a slot (the fixed or adaptive chunk); ``cap`` (the
+        step-token budget) bounds the device WORK a slot — a round costs
+        ~2k+2 forward tokens (k+1 draft feeds, the k+1-wide verify), so
+        draft and verify tokens both count. A power of two (a small graph
+        set), at least 1."""
+        k = self.spec_tokens
+        r = max(1, size // (k + 1))
+        if cap is not None:
+            r = min(r, max(1, cap // (2 * k + 2)))
+        b = 1
+        while b * 2 <= r:
+            b *= 2
+        return b
+
+    def _dispatch_spec(self, rounds: int, sampling: bool) -> _InflightStep:
+        """Dispatch one ``rounds``-round spec chunk over the current
+        slots (one replayed graph on CUDA); its packed result comes back
+        at the collect."""
+        k = self.spec_tokens
+        # device work: (k+1) draft feeds + (k+1) verify positions a
+        # round, + the entry/exit feeds
+        self._n_dispatched_steps += rounds * (2 * k + 2) + 2
+        self._n_spec_rounds += rounds
+        if self._step_rec is not None:
+            self._step_rec.spec_rounds += rounds
+        t0 = time.monotonic()
+        with torch.no_grad():
+            packed, event = self._spec_async(rounds, sampling)
+        return _InflightStep("spec_dev", packed, None, event,
+                             dict(self._slots), 1 + rounds * (k + 1), t0)
+
+    def _spec_slot_stream(self, spec_data, slot: int, req: _Request):
+        """One slot's tokens from a spec chunk: the entry token, then each
+        round's window up to its valid length. Tallies proposed/accepted
+        onto the request while it still had budget (overshoot rounds
+        must not bias acceptance)."""
+        entry, windows, wlens, accepted, proposed, _live = spec_data
+        stream = [int(entry[slot])]
+        prop = acc = 0
+        for r in range(windows.shape[0]):
+            if (int(proposed[r, slot])
+                    and len(req.tokens) + len(stream) < req.max_new_tokens):
+                prop += int(proposed[r, slot])
+                acc += int(accepted[r, slot])
+            n = int(wlens[r, slot])
+            if n:
+                stream.extend(int(t) for t in windows[r, :n, slot])
+        req.spec_proposed += prop
+        req.spec_accepted += acc
+        return np.asarray(stream, np.int64), prop, acc
+
+    def _note_spec_stats(self, proposed: int, accepted: int) -> None:
+        if not proposed:
+            return
+        self._n_spec_proposed += proposed
+        self._n_spec_accepted += accepted
+        self._spec_window.append((proposed, accepted))
+
+    def spec_accept_rate(self) -> float:
+        """Draft acceptance over the last 64 collected spec chunks (0.0
+        when speculation is off or nothing was decoded yet)."""
+        prop = sum(p for p, _ in self._spec_window)
+        acc = sum(a for _, a in self._spec_window)
+        return acc / prop if prop else 0.0
 
     def _note_retired(self, fs: _InflightStep, t_retire: float) -> None:
         """Stamp a record's retire time (once) and feed its
@@ -1492,19 +1792,29 @@ class ContinuousEngine:
         the slot snapshot it was computed over."""
         with self._phase("device_wait"):
             toks, live_host = inflight.fetch()
+        spec_data = None
+        if inflight.kind == "spec_dev":
+            spec_data = _unpack_spec(toks, self.spec_tokens)
+            live_host = spec_data[-1]
         self._note_retired(inflight, time.monotonic())
         if self._step_rec is not None:
             self._step_rec.device_busy_ms += (
                 inflight.t_retire - inflight.t_dispatch) * 1000.0
         newly_done = []
-        useful = 0
+        useful = chunk_prop = chunk_acc = 0
         for slot, req in inflight.snapshot.items():
             if req.done:
                 # freed or cancelled while this chunk was in flight
                 # (decode-ahead): its rows decoded what nobody reads
                 continue
             budget = req.max_new_tokens - len(req.tokens)
-            take = toks[slot, :budget]
+            if spec_data is not None:
+                row, prop, acc = self._spec_slot_stream(spec_data, slot, req)
+                chunk_prop += prop
+                chunk_acc += acc
+                take = row[:budget]
+            else:
+                take = toks[slot, :budget]
             if self.eos_token_id is not None:
                 hit = np.nonzero(take == self.eos_token_id)[0]
                 if hit.size:
@@ -1523,6 +1833,8 @@ class ContinuousEngine:
                     self._radix_insert(slot, req)
                 self._free_slot(slot)
         self._n_finished += len(newly_done)
+        if spec_data is not None:
+            self._note_spec_stats(chunk_prop, chunk_acc)
         if self._step_rec is not None:
             self._step_rec.tokens_out += useful
         return newly_done
@@ -1608,7 +1920,8 @@ class ContinuousEngine:
         if self._admission_marker() != marker0:
             # the admission's prefill forwards are device work too
             self._admit_q.append(_InflightStep(
-                None, None, self._admission_event(), {}, 0, t_sched))
+                "admit", None, None, self._admission_event(), {}, 0,
+                t_sched))
         rec.prefill_pieces = self._n_prefill_chunks - pieces0
         rec.prefill_tokens = self._step_prefill_tokens
         cap = self._budget_cap(self._step_prefill_tokens)
@@ -1616,7 +1929,11 @@ class ContinuousEngine:
             if not self._slots:
                 return []
             size = self._effective_chunk() or self.chunk
-            if cap:
+            if self._spec:
+                # size bounds emitted tokens, cap bounds device work
+                # (draft and verify both count)
+                size = self._spec_rounds(size, cap)
+            elif cap:
                 size = min(size, cap)
             with rec.phase("dispatch"):
                 inflight = self._dispatch_chunk(size)
@@ -1625,7 +1942,9 @@ class ContinuousEngine:
         dispatched = False
         if self._slots:
             size = self._effective_chunk()
-            if size and cap:
+            if size and self._spec:
+                size = self._spec_rounds(size, cap)
+            elif size and cap:
                 size = min(size, cap)
             if size:  # 0 = every slot's budget is already in flight
                 with rec.phase("dispatch"):
@@ -1709,6 +2028,16 @@ class ContinuousEngine:
             "step_phases": self.stepstats.summary(),
             **({"step_token_budget": self.step_token_budget}
                if self.step_token_budget else {}),
+            **({"spec": {
+                "spec_tokens": self.spec_tokens,
+                "rounds": self._n_spec_rounds,
+                "proposed": self._n_spec_proposed,
+                "accepted": self._n_spec_accepted,
+                "accept_rate": round(self._n_spec_accepted
+                                     / max(self._n_spec_proposed, 1), 4),
+                "recent_accept_rate": round(self.spec_accept_rate(), 4),
+                "self_draft": self._self_draft,
+            }} if self._spec else {}),
             "admitting": (self._admitting["req"].rid
                           if self._admitting is not None else None),
             "inflight": bool(self._inflight_q),

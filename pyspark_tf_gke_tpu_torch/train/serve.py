@@ -20,8 +20,14 @@ runs decode-ahead by default (``--continuous-pipeline 1``, as the JAX
 server), on CUDA its decode chunks replay captured CUDA graphs;
 ``--adaptive-chunk`` sizes chunks to the remaining budgets and
 ``--prefix-cache N`` keeps up to N pages of completed prompts in the
-radix prefix cache. ``/healthz`` carries the engine's stats, its step
-phases and prefix-cache block included. Beam search, streaming,
+radix prefix cache. ``--spec-tokens k`` makes the engine speculate in
+its slots (k draft proposals a round, one (k+1)-wide verify), drafting
+with ``--draft-bundle`` (a smaller bundle of the same vocabulary) or,
+without one, with the target itself; ``--draft-bundle`` alone serves a
+single greedy prompt through the standalone speculative driver (its
+response carries a ``"speculative"`` block). ``/healthz`` carries the
+engine's stats, its step phases, prefix-cache and spec blocks included,
+and the draft bundle. Beam search, streaming,
 ``/loadz``, ``/stepz``, tenants, deadlines, drain, reload, ``/v1/warm``,
 ``/v1/prefill`` and ``/v1/kv_import`` are not ported yet and answer 400
 or 404 (ROADMAP queue 1, P7).
@@ -45,6 +51,7 @@ import torch
 from pyspark_tf_gke_tpu_torch.data.text import get_tokenizer
 from pyspark_tf_gke_tpu_torch.device import resolve_device
 from pyspark_tf_gke_tpu_torch.models.causal_lm import generate
+from pyspark_tf_gke_tpu_torch.models.speculative import speculative_generate
 from pyspark_tf_gke_tpu_torch.obs.stepstats import StepStatsRing
 from pyspark_tf_gke_tpu_torch.train.continuous import ContinuousEngine
 from pyspark_tf_gke_tpu_torch.train.export import load_serving_bundle
@@ -55,6 +62,7 @@ logger = get_logger("torch.train.serve")
 
 MAX_BODY_BYTES = 8 << 20
 MAX_BATCH = 64
+SPEC_GAMMA = 4  # the standalone speculative path's draft width (echoed)
 
 
 class NotPorted(ValueError):
@@ -172,16 +180,19 @@ class BundleServer:
     chunked prefill (``--prefill-chunk``, ``--step-token-budget``),
     ``continuous_pipeline`` its decode-ahead depth
     (``--continuous-pipeline``, 1 by default), ``adaptive_chunk`` its
-    budget-aligned chunks (``--adaptive-chunk``) and
+    budget-aligned chunks (``--adaptive-chunk``),
     ``prefix_cache_size`` its radix cache's resident pages
-    (``--prefix-cache``). The step-stats ring outlives engine
-    rebuilds."""
+    (``--prefix-cache``) and ``spec_tokens`` its in-slot speculation
+    (``--spec-tokens``). ``draft_bundle_dir`` (``--draft-bundle``) is the
+    draft of both speculative paths. The step-stats ring outlives
+    engine rebuilds."""
 
     def __init__(self, bundle_dir: str, device: str = "cuda",
                  continuous_slots: int = 0, continuous_chunk: int = 8,
                  int8_kv: bool = False, prefill_chunk: int = 0,
                  step_token_budget: int = 0, continuous_pipeline: int = 1,
-                 adaptive_chunk: bool = False, prefix_cache_size: int = 0):
+                 adaptive_chunk: bool = False, prefix_cache_size: int = 0,
+                 spec_tokens: int = 0, draft_bundle_dir: str = ""):
         if prefill_chunk and not continuous_slots:
             raise ValueError(
                 "--prefill-chunk requires --continuous-slots (chunked "
@@ -190,6 +201,15 @@ class BundleServer:
             raise ValueError(
                 "--prefix-cache requires --continuous-slots (the radix "
                 "prefix cache lives in the slot engine's page pool)")
+        # in-engine speculation: spec_tokens draft proposals a slot a
+        # round, one multi-query verify; greedy token-exact against the
+        # plain engine
+        self.spec_tokens = int(spec_tokens)
+        if self.spec_tokens and not continuous_slots:
+            raise ValueError(
+                "--spec-tokens requires --continuous-slots (in-engine "
+                "speculation is a slot-engine feature; single-prompt "
+                "whole-batch speculation rides --draft-bundle alone)")
         self.device = resolve_device(device)
         model, _, meta = load_serving_bundle(bundle_dir, self.device)
         if int8_kv and not model.cfg.kv_cache_quant:
@@ -199,6 +219,23 @@ class BundleServer:
                 if hasattr(module, "cfg"):
                     module.cfg = cfg
         self.bundle_dir, self.model, self.meta = bundle_dir, model, meta
+        self.draft_bundle_dir = draft_bundle_dir or None
+        self.draft_model = None
+        if draft_bundle_dir:
+            # the draft of both speculative paths: a smaller bundle of the
+            # same tokenizer (a float16 one is refused by the loader)
+            self.draft_model = load_serving_bundle(draft_bundle_dir,
+                                                   self.device)[0]
+            if self.draft_model.cfg.vocab_size != model.cfg.vocab_size:
+                raise ValueError(
+                    f"draft bundle vocab {self.draft_model.cfg.vocab_size} "
+                    f"!= target vocab {model.cfg.vocab_size}")
+        if self.spec_tokens and self.draft_model is None:
+            logger.warning(
+                "--spec-tokens %d without --draft-bundle: SELF-draft mode "
+                "(the draft forwards cost as much as the verify, and the "
+                "dense draft cache costs memory; deploy a small draft "
+                "bundle for the speedup)", self.spec_tokens)
         self.tokenizer = get_tokenizer(meta.get("tokenizer", "byte"))
         if self.tokenizer.vocab_size > model.cfg.vocab_size:
             raise ValueError(
@@ -218,7 +255,8 @@ class BundleServer:
                 pipeline_depth=continuous_pipeline,
                 adaptive_chunk=adaptive_chunk,
                 prefix_cache_size=prefix_cache_size,
-                stepstats=self.stepstats))
+                stepstats=self.stepstats, spec_tokens=self.spec_tokens,
+                draft_model=self.draft_model if self.spec_tokens else None))
 
     def health(self) -> dict:
         return {
@@ -233,12 +271,13 @@ class BundleServer:
             "device": str(self.device),
             "device_name": (torch.cuda.get_device_name(self.device)
                             if self.device.type == "cuda" else "cpu"),
+            "speculative_draft": self.draft_bundle_dir,
             "continuous": (self._front.stats()
                            if self._front is not None else None),
         }
 
     def _entry(self, prompt: str, new_tokens: List[int], dt_ms: float,
-               eos_id) -> dict:
+               eos_id, **extra) -> dict:
         if eos_id is not None and eos_id in new_tokens:
             new_tokens = new_tokens[:new_tokens.index(eos_id)]
         return {
@@ -246,6 +285,7 @@ class BundleServer:
             "completion": prompt + self.tokenizer.decode(new_tokens),
             "new_tokens": len(new_tokens),
             "latency_ms": round(dt_ms, 2),
+            **extra,
         }
 
     def generate(self, prompts, max_new_tokens: int = 64,
@@ -276,6 +316,34 @@ class BundleServer:
             encoded.append((i, ids))
         engine_ok = (not num_beams and repetition_penalty is None
                      and top_k is None)
+        plain_greedy = (engine_ok and top_p is None
+                        and not (temperature and temperature > 0))
+        # Routing for plain-greedy traffic: the standalone speculative
+        # path (a draft is loaded, one prompt that fits the draft's
+        # context, and the engine does not speculate itself) -> the slot
+        # engine -> whole-batch generate
+        could_spec = (self.draft_model is not None and len(prompts) == 1
+                      and plain_greedy
+                      and not (self.spec_tokens and self._front is not None)
+                      and len(encoded[0][1]) + max_new_tokens
+                      <= self.draft_model.cfg.max_seq_len)
+        if could_spec:
+            ids = encoded[0][1]
+            with self._lock:
+                t0 = time.perf_counter()
+                out, stats = speculative_generate(
+                    self.model, self.draft_model, np.asarray([ids]),
+                    max_new_tokens, gamma=SPEC_GAMMA, eos_token_id=eos_id,
+                    return_stats=True)
+                dt = (time.perf_counter() - t0) * 1000.0
+            return [self._entry(
+                prompts[0], out[0, len(ids):].tolist(), dt, eos_id,
+                speculative={
+                    "gamma": SPEC_GAMMA,
+                    "acceptance_rate": round(
+                        stats["accepted"] / max(stats["proposed"], 1), 3),
+                    "tokens_per_round": round(stats["tokens_per_round"], 2),
+                })]
         if self._front is not None and engine_ok:
             t0 = time.perf_counter()
             temp = float(temperature or 0.0)
@@ -506,6 +574,18 @@ def parse_args(argv=None) -> argparse.Namespace:
                         "pages and same-prefix admissions prefill only "
                         "their suffix; the value caps the resident pages "
                         "(0 = off; requires --continuous-slots)")
+    p.add_argument("--spec-tokens", type=int,
+                   default=int(e("SERVE_SPEC_TOKENS", "0")),
+                   help="in-engine speculative decoding: draft k tokens a "
+                        "slot a round, verify all k+1 in ONE multi-query "
+                        "forward (greedy token-exact; 0 = off; requires "
+                        "--continuous-slots; drafts with --draft-bundle, "
+                        "else the target SELF-drafts)")
+    p.add_argument("--draft-bundle", default=e("DRAFT_BUNDLE_DIR", ""),
+                   help="a smaller bundle of the same vocabulary: the "
+                        "draft of --spec-tokens, and alone the "
+                        "speculative path of single-prompt greedy "
+                        "requests (identical tokens)")
     p.add_argument("--int8-kv", action="store_true",
                    default=e("SERVE_INT8_KV", "") == "1",
                    help="serve with an int8 KV cache")
@@ -524,7 +604,9 @@ def main(argv=None) -> int:
                           step_token_budget=args.step_token_budget,
                           continuous_pipeline=args.continuous_pipeline,
                           adaptive_chunk=args.adaptive_chunk,
-                          prefix_cache_size=args.prefix_cache)
+                          prefix_cache_size=args.prefix_cache,
+                          spec_tokens=args.spec_tokens,
+                          draft_bundle_dir=args.draft_bundle)
     httpd = start_http_server(server, args.host, args.port)
     logger.info("serving on http://%s:%d (healthz, /v1/generate, /v1/score)",
                 *httpd.server_address[:2])

@@ -129,9 +129,10 @@ def test_oversized_request_and_unported_options_raise():
         eng.submit(np.arange(1, 11, dtype=np.int32), max_new_tokens=110)
     with pytest.raises(NotImplementedError, match="deadlines"):
         eng.submit([1, 2], max_new_tokens=2, deadline_s=1.0)
-    for option in ("spec_tokens", "draft_model", "tenant_weights"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ContinuousEngine(tmodel, **{option: 2})
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ContinuousEngine(tmodel, tenant_weights=2)
+    with pytest.raises(ValueError, match="spec_tokens"):
+        ContinuousEngine(tmodel, spec_tokens=-1)
     with pytest.raises(TypeError, match="unexpected engine option"):
         ContinuousEngine(tmodel, announce=True)
     with pytest.raises(ValueError, match="pipeline_depth"):

@@ -35,7 +35,9 @@ TRAINING_MODULES = ("utils/fs.py", "data/text.py", "data/pipeline.py",
                     "ops/fused_matmul.py", "ops/fused_conv3.py",
                     "models/resnet.py")
 SERVING_MODULES = ("train/continuous.py", "train/serve.py",
-                   "train/kv_transfer.py", "obs/stepstats.py")
+                   "train/kv_transfer.py", "obs/stepstats.py",
+                   "models/speculative.py", "models/lanes.py",
+                   "train/spec_fixture.py", "ops/graphs.py")
 
 
 def _port_files():

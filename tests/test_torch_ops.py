@@ -531,9 +531,11 @@ def test_paged_row_plan_takes_any_chunk(g, kv, monkeypatch):
     equal blocks that cover the group's rows; S <= 8 keeps one block of
     every row. Through the wrapper, with the launch recorded instead of
     run, no S — 256 at H = H_kv = 12, GPT-small's chunked-prefill piece,
-    included — is refused, for f32, bf16 or int8 pages: S = 1 and 8 take
-    the decode variant, wider chunks the chunk variant (bf16) or the
-    first design, 128 rows a block at S = 256, G = 1 either way."""
+    included — is refused, for f32, bf16 or int8 pages: S = 1 and 4 take
+    the decode variant, S = 8 the decode variant for an f32 query and
+    the chunk variant for a bf16 one, wider chunks the chunk variant
+    (bf16) or the first design, 128 rows a block at S = 256, G = 1 either
+    way."""
     import re
     from pathlib import Path
 
@@ -558,18 +560,19 @@ def test_paged_row_plan_takes_any_chunk(g, kv, monkeypatch):
     pages, scales, qdtype = _paged_pages(kv, 2, p, hkv, d)
     table = torch.zeros(1, 1, dtype=torch.int32)
     fills = torch.full((1,), 1, dtype=torch.int32)
-    for s in (1, 8, 256, 2048):
+    for s in (1, 4, 8, 256, 2048):
         q = torch.zeros(1, s, h, d, dtype=qdtype)
         t_paged._launch(q, pages, pages, table, fills,
                         scales.get("k_scales"), scales.get("v_scales"))
-    assert [c[0] for c in fake.calls] == [1, 8, 256, 2048]
+    assert [c[0] for c in fake.calls] == [1, 4, 8, 256, 2048]
     decode = t_paged.VARIANTS["decode"]
     assert [c[3] for c in fake.calls[:2]] == [decode, decode]
-    wide = (t_paged.VARIANTS["chunk"] if qdtype == torch.bfloat16
-            else t_paged.VARIANTS["rows"])
-    assert [c[3] for c in fake.calls[2:]] == [wide, wide]
+    bf16 = qdtype == torch.bfloat16
+    wide = t_paged.VARIANTS["chunk"] if bf16 else t_paged.VARIANTS["rows"]
+    assert fake.calls[2][3] == (wide if bf16 else decode)
+    assert [c[3] for c in fake.calls[3:]] == [wide, wide]
     if g == 1:
-        assert fake.calls[2][:3] == (256, 128, 2)
+        assert fake.calls[3][:3] == (256, 128, 2)
 
 
 @pytest.mark.parametrize("kv", ["float32", "bfloat16", "int8"])
@@ -581,8 +584,9 @@ def test_paged_plan_splits_the_table_and_takes_decode_for_small_chunks(
     splits cover every table entry exactly once, in at most 65535 CTAs
     along the grid's z axis, and reach the target CTA count where the
     table has the pages for it; every decode step and every chunk of S
-    <= 8 takes the decode variant, wider chunks the chunk variant for a
-    bf16 query (rows in 128-row blocks) and the first design otherwise.
+    <= 4 takes the decode variant, wider chunks the chunk variant for a
+    bf16 query (rows in 128-row blocks), the decode variant up to S = 8
+    for an f32 one, and the first design otherwise.
     Every plan for S up to 2048 and tables of 1 to 5000 entries launches
     through the wrapper (the launch recorded, as the kernel checks it)."""
     fake = _fake_library(monkeypatch)
@@ -599,10 +603,11 @@ def test_paged_plan_splits_the_table_and_takes_decode_for_small_chunks(
                 r = s * g
                 assert (plan.blocks - 1) * plan.rows < r <= (plan.blocks
                                                              * plan.rows)
-                if s <= 8:
+                alone = qdtype != torch.bfloat16  # no chunk variant
+                if s <= 4 or (alone and s <= 8):
                     assert plan.variant == "decode"
                 if plan.variant == "decode":
-                    assert s <= 8
+                    assert s <= 4 or (alone and s <= 8)
                     covered = [j for z in range(plan.splits)
                                for j in range(z * plan.pages_per_split,
                                               min((z + 1)
