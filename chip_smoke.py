@@ -120,6 +120,27 @@
    accept rates and a replayed spec chunk's device and wall time;
    (c) the standalone driver's device and host loops on the trained pair
    equal ``generate`` and each other's stats;
+4g. the replica's fleet contract on phase 4's bundle (``BundleServer``
+   over HTTP, 8 slots, chunk 16, decode-ahead depth 1; the f32 gates on
+   the same width cut to 2 layers): (a) 8 greedy prompts streamed and
+   sent blocking, each alone (a stream's tokens == the blocking
+   request's, ``[DONE]`` last), then all 8 at once both ways in turns
+   (prints TTFT to the first event, the mean gap between events, new
+   tokens/s streamed and blocking); (b) f32: a stream cut after 10
+   events by closing the socket, its slot freed, a ``continuation`` with
+   those ids == the uncut stream; (c) ``/v1/prefill`` on a ``--role
+   prefill`` server into ``/v1/kv_import`` on a ``--role decode`` one,
+   in bf16 and f32: the decode server prefills exactly the tokens past
+   the imported pages, and in f32 gives the tokens of a server that
+   imported nothing; (d) ``deadline_ms`` 1 -> 504, a stream cut by its
+   deadline mid-run, then ``/loadz`` active 0 and the page audit; (e)
+   ``--tenants`` light=3, noisy=1 flooded: admitted tokens 3:1 +- 15%
+   while both are backlogged, a quota'd tenant's 429 with
+   ``Retry-After`` and an oversize ask's 400; (f) drain: new requests
+   503 with ``reason``, in-flight ones finish, ``/loadz`` draining,
+   ``/livez`` live; (g) ``/loadz``'s key set == the contract's 17 keys
+   on every server; K1's decode and chunk variants, K2f, K3 and the
+   graph replays must all move;
 6. training main path: ``lm_pretrain.main`` on a seeded synthetic text
    corpus at the GPT-small width (hidden 768, 12 layers, 12 heads, FFN
    3072, seq 512, batch 16, bf16, Adam 3e-4), 2 epochs x 10 steps with
@@ -184,10 +205,12 @@ import math
 import random
 import shutil
 import statistics
+import http.client
 import subprocess
 import sys
 import threading
 import time
+import urllib.error
 import urllib.request
 from pathlib import Path
 
@@ -2694,6 +2717,474 @@ def run_spec_serving(torch, dev, counters=None):
     return launches
 
 
+# -- phase 4g: the replica's fleet contract ------------------------------------
+
+# /loadz's key set: the contract a router's prober reads (the JAX server's
+# keys, pinned by its tests)
+LOADZ_KEYS = frozenset({
+    "queued", "queued_tokens", "active", "slots_total", "kv_pages_free",
+    "inflight_http", "draining", "bundle_generation", "prefix_cache_pages",
+    "prefix_hit_rate", "capacity_free", "queue_delay_ms", "tenants",
+    "spec_accept_rate", "step_host_overhead_frac", "step_tokens_per_sec",
+    "role"})
+# (e)'s tenants: light and noisy at 3:1 flood; capped has a token bucket
+FLEET_TENANTS = "light=3,noisy=1,capped=1:10:400"
+
+
+def _call(url: str, path: str, body=None, headers=None):
+    """``(status, headers, json body)`` of one request, errors included."""
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(url + path, data=data, headers={
+        "Content-Type": "application/json", **(headers or {})})
+    try:
+        with urllib.request.urlopen(req, timeout=600) as resp:
+            return resp.status, resp.headers, json.loads(resp.read())
+    except urllib.error.HTTPError as err:
+        return err.code, err.headers, json.loads(err.read())
+
+
+def _sse(url: str, body: dict, cut_after=None):
+    """POST a stream; ``(events, done, ttft_s, gaps_s)``: the ``data:``
+    payloads parsed, whether ``[DONE]`` closed it, the time to the first
+    event and between events. ``cut_after``: close the socket after that
+    many events (a client, or a replica, gone mid-stream)."""
+    host, port = url.split("//")[1].split(":")
+    conn = http.client.HTTPConnection(host, int(port), timeout=600)
+    t0 = time.perf_counter()
+    conn.request("POST", "/v1/generate", body=json.dumps(body).encode(),
+                 headers={"Content-Type": "application/json"})
+    resp = conn.getresponse()
+    check(resp.status == 200, f"stream answered {resp.status}")
+    events, done, stamps = [], False, []
+    for raw in resp:
+        line = raw.decode().strip()
+        if not line.startswith("data: "):
+            continue
+        if line == "data: [DONE]":
+            done = True
+            break
+        stamps.append(time.perf_counter())
+        events.append(json.loads(line[6:]))
+        if cut_after is not None and len(events) == cut_after:
+            break
+    resp.close()  # then the socket: a cut leaves the server writing
+    conn.close()  # into a closed connection
+    gaps = [b - a for a, b in zip(stamps, stamps[1:])]
+    return events, done, (stamps[0] - t0 if stamps else None), gaps
+
+
+def _ids(events) -> list:
+    return [t for e in events for t in e.get("token_ids", ())]
+
+
+def _serve_bundle(torch, dev, bundle, **kw):
+    from pyspark_tf_gke_tpu_torch.train.serve import (BundleServer,
+                                                      start_http_server)
+
+    server = BundleServer(str(bundle), device=str(dev), continuous_slots=8,
+                          continuous_chunk=16, **kw)
+    httpd = start_http_server(server, "127.0.0.1", 0)
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{httpd.server_address[1]}"
+    # the greedy 16-step chunk's graph is captured here
+    check(_call(url, "/v1/generate", {"prompt": "warm up",
+                                      "max_new_tokens": 2})[0] == 200,
+          "a warm-up request failed")
+    return server, httpd, thread, url
+
+
+def _unserve(server, httpd, thread) -> None:
+    httpd.shutdown()
+    httpd.server_close()
+    server.shutdown()
+    thread.join(30)
+
+
+def _wait(cond, timeout_s=30.0) -> bool:
+    deadline = time.monotonic() + timeout_s
+    while not cond():
+        if time.monotonic() > deadline:
+            return False
+        time.sleep(0.01)
+    return True
+
+
+def _prefill_count(server) -> int:
+    return server.health()["continuous"]["prefill_tokens_computed"]
+
+
+def _fleet_streams(url, prompts, new):
+    """(a): each prompt streamed alone, then sent blocking alone (a
+    request alone takes one admission route, so bf16 tokens compare
+    exactly); then all 8 streamed at once and all 8 blocking at once,
+    twice in turns. Returns the timed figures."""
+    ttfts, gaps = [], []
+    for p in prompts:
+        events, done, ttft, g = _sse(url, {"prompt": p, "stream": True,
+                                           "max_new_tokens": new})
+        check(done and events[-1].get("done"),
+              "phase 4g (a): a stream did not end with its terminal and "
+              "[DONE]")
+        status, _, out = _call(url, "/v1/generate", {"prompt": p,
+                                                     "max_new_tokens": new})
+        check(status == 200, f"phase 4g (a): blocking answered {status}")
+        comp = out["completions"][0]
+        check(events[-1]["completion"] == comp["completion"]
+              and events[-1]["new_tokens"] == comp["new_tokens"]
+              == len(_ids(events[:-1])),
+              "phase 4g (a): a stream's tokens differ from the blocking "
+              "request's")
+        ttfts.append(ttft)
+        gaps += g
+    rates = {"stream": [], "blocking": []}
+    for kind in ("stream", "blocking", "stream", "blocking"):
+        counts = [0] * len(prompts)
+
+        def client(i, kind=kind, counts=counts):
+            if kind == "stream":
+                events, done, _, _ = _sse(url, {"prompt": prompts[i],
+                                                "stream": True,
+                                                "max_new_tokens": new})
+                check(done, "phase 4g (a): a concurrent stream was cut")
+                counts[i] = events[-1]["new_tokens"]
+            else:
+                counts[i] = _call(url, "/v1/generate", {
+                    "prompt": prompts[i], "max_new_tokens": new}
+                    )[2]["completions"][0]["new_tokens"]
+
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=client, args=(i,))
+                   for i in range(len(prompts))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(600)
+        rates[kind].append(sum(counts) / (time.perf_counter() - t0))
+    return ttfts, gaps, rates
+
+
+def _fleet_splice(url, prompt, new):
+    """(b): a stream cut after 10 events by closing the socket; its slot
+    frees; a continuation with those ids completes the run exactly."""
+    body = {"prompt": prompt, "stream": True, "max_new_tokens": new}
+    whole, done, _, _ = _sse(url, body)
+    check(done and len(whole) > 11, "phase 4g (b): the uncut stream has "
+          f"{len(whole)} events, fewer than 10 and a terminal")
+    cut, done, _, _ = _sse(url, body, cut_after=10)
+    check(not done and len(cut) == 10, "phase 4g (b): the cut stream")
+    check(_wait(lambda: _call(url, "/loadz")[2]["active"] == 0),
+          "phase 4g (b): the abandoned stream's slot did not free")
+    emitted = _ids(cut)
+    rest, done, _, _ = _sse(url, {
+        **body, "max_new_tokens": new - len(emitted),
+        "continuation": {"emitted_ids": emitted}})
+    check(done and rest[-1].get("resumed"), "phase 4g (b): the "
+          "continuation did not complete as a resumed stream")
+    check(emitted + _ids(rest[:-1]) == _ids(whole[:-1])
+          and rest[-1]["completion"] == whole[-1]["completion"]
+          and rest[-1]["new_tokens"] == whole[-1]["new_tokens"],
+          "phase 4g (b): the spliced stream differs from the uncut one")
+    return len(emitted), len(_ids(whole[:-1]))
+
+
+def _fleet_handoff(prefill, decode, prompt, new, tag):
+    """(c): ``/v1/prefill`` on the prefill server, its blob into the
+    decode server's ``/v1/kv_import``, then the prompt on the decode
+    server, which prefills only the tail past the imported pages.
+    Returns the decode server's completion."""
+    (_, purl), (ds, durl) = prefill, decode
+    check(_call(purl, "/loadz")[2]["role"] == "prefill"
+          and _call(durl, "/loadz")[2]["role"] == "decode",
+          f"phase 4g (c) {tag}: the roles on /loadz")
+    t0 = time.perf_counter()
+    status, _, exp = _call(purl, "/v1/prefill", {"prompt": prompt})
+    check(status == 200 and exp["blob"], f"phase 4g (c) {tag}: /v1/prefill "
+          f"answered {status}")
+    t1 = time.perf_counter()
+    status, _, imp = _call(durl, "/v1/kv_import", {"blob": exp["blob"]})
+    t2 = time.perf_counter()
+    page = ds.model.cfg.kv_page_size
+    full = len(prompt.encode()) // page * page
+    check(status == 200 and imp["imported_tokens"] == full,
+          f"phase 4g (c) {tag}: /v1/kv_import {status} {imp}")
+    before = _prefill_count(ds)
+    status, _, out = _call(durl, "/v1/generate", {"prompt": prompt,
+                                                  "max_new_tokens": new})
+    tail = _prefill_count(ds) - before
+    check(status == 200 and tail == len(prompt.encode()) - full,
+          f"phase 4g (c) {tag}: the decode server prefilled {tail} tokens, "
+          f"not the {len(prompt.encode()) - full} past its {full // page} "
+          "imported pages")
+    log(f"  (c) {tag}: /v1/prefill {exp['pages']} pages, "
+        f"{len(exp['blob']) * 3 // 4} bytes in {(t1 - t0) * 1e3:.1f} ms, "
+        f"/v1/kv_import {(t2 - t1) * 1e3:.1f} ms; the decode server "
+        f"prefilled the {tail} tokens past {full}")
+    return out["completions"][0]
+
+
+def _fleet_tenants(url, server):
+    """(e): light and noisy flood their queues at once; while both are
+    backlogged the admitted tokens split 3:1; then capped's quota and an
+    oversize ask."""
+    front = server._front
+    # requests of 480 + 64 tokens: ~1.4 light admissions a DWRR rotation
+    # (quantum 256 x weight 3), so the window spans ~40 rotations and
+    # its ends cut few tokens off the shares
+    prompt, new, n = _prompt(random.Random(5), 480), 64, 64
+    samples = []
+    stop = threading.Event()
+
+    def poll():
+        while not stop.is_set():
+            t = front.stats()["tenants"]
+            samples.append({k: (t.get(k, {}).get("queued", 0),
+                                t.get(k, {}).get("admitted_tokens", 0))
+                            for k in ("light", "noisy")})
+            time.sleep(0.002)
+
+    statuses = []
+
+    def client(tenant):
+        statuses.append(_call(url, "/v1/generate", {
+            "prompt": prompt, "max_new_tokens": new},
+            headers={"X-Tenant": tenant})[0])
+
+    poller = threading.Thread(target=poll)
+    poller.start()
+    threads = [threading.Thread(target=client, args=(t,))
+               for _ in range(n) for t in ("light", "noisy")]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(600)
+    stop.set()
+    poller.join()
+    check(statuses.count(200) == 2 * n, "phase 4g (e): a flood request "
+          "failed")
+    # the window while both queues are backlogged: from the first sample
+    # with 4 of each queued to the last before light's queue empties
+    # (once it is empty, the free slots all go to noisy)
+    start = next((i for i, s in enumerate(samples)
+                  if s["light"][0] >= 4 and s["noisy"][0] >= 4), None)
+    check(start is not None, "phase 4g (e): the queues never both held 4")
+    end = next(i for i in range(start, len(samples))
+               if samples[i]["light"][0] == 0) - 1
+    light = samples[end]["light"][1] - samples[start]["light"][1]
+    noisy = samples[end]["noisy"][1] - samples[start]["noisy"][1]
+    share = light / max(noisy, 1)
+    check(noisy > 0 and abs(share / 3.0 - 1.0) <= 0.15,
+          f"phase 4g (e): admitted tokens light {light} / noisy {noisy} = "
+          f"{share:.3f}, not 3 +- 15%")
+    ok = _call(url, "/v1/generate", {"prompt": "q" * 100,
+                                     "max_new_tokens": 200},
+               headers={"X-Tenant": "capped"})
+    shed = _call(url, "/v1/generate", {"prompt": "q" * 100,
+                                       "max_new_tokens": 200},
+                 headers={"X-Tenant": "capped"})
+    big = _call(url, "/v1/generate", {"prompt": "q" * 100,
+                                      "max_new_tokens": 400},
+                headers={"X-Tenant": "capped"})
+    check(ok[0] == 200, f"phase 4g (e): capped's first request {ok[0]}")
+    check(shed[0] == 429 and shed[2]["reason"] == "tenant_quota"
+          and int(shed[1]["Retry-After"]) >= 1
+          and shed[1]["X-Tenant-Shed"] == "capped",
+          f"phase 4g (e): capped's second request {shed[0]} {shed[2]}")
+    check(big[0] == 400 and "burst" in big[2]["error"],
+          f"phase 4g (e): an oversize ask {big[0]} {big[2]}")
+    log(f"  (e) tenants light=3 noisy=1, {n} requests each of 480 + {new} "
+        f"tokens: while both were backlogged ({end - start + 1} samples) "
+        f"light took {light} admitted tokens, noisy {noisy}: {share:.3f}; "
+        f"capped: 200, then 429 (Retry-After {shed[1]['Retry-After']}), "
+        "an oversize ask 400")
+
+
+def run_fleet_contract(torch, dev, counters=None):
+    """Phase 4g: phase 4's bundle behind the port's ``BundleServer`` with
+    the fleet contract's endpoints (GPT-small, bf16, int8 export, 8
+    slots, chunk 16, decode-ahead depth 1), the f32 gates on the same
+    width cut to 2 layers. (a) 8 greedy prompts streamed and blocking;
+    (b) a stream cut after 10 events, continued; (c) a KV handoff from a
+    ``--role prefill`` server to a ``--role decode`` one; (d) deadlines;
+    (e) tenants at 3:1; (f) drain; (g) ``/loadz``'s key set. Every
+    count is set to 0 before (a) and read after (g): K1's decode and
+    chunk variants, K2f, K3 and the graph replays must all move.
+    Returns the launches by kernel."""
+    from pyspark_tf_gke_tpu_torch.models.causal_lm import init_params
+    from pyspark_tf_gke_tpu_torch.ops import flash_attention as fa
+    from pyspark_tf_gke_tpu_torch.ops import graphs
+    from pyspark_tf_gke_tpu_torch.ops import layernorm as ln
+    from pyspark_tf_gke_tpu_torch.ops import paged_attention as pa
+    from pyspark_tf_gke_tpu_torch.train.export import export_serving_bundle
+
+    if counters is None:
+        counters = {"layernorm": (ln, "launches"),
+                    "flash_attention_fwd": (fa, "launches"),
+                    "paged_attention": (pa, "launches")}
+    t_phase = time.perf_counter()
+    cfg = _serving_cfg()
+    cfg32 = dataclasses.replace(cfg, num_layers=2, dtype=torch.float32)
+    root = PORT_PKG / "_build"
+    b16, b32 = root / "chip_smoke_fleet_bundle", root / "chip_smoke_fleet32"
+    export_serving_bundle(cfg, init_params(cfg, seed=0), str(b16),
+                          quantize=True)
+    export_serving_bundle(cfg32, init_params(cfg32, seed=1), str(b32))
+    served = {
+        "main": _serve_bundle(torch, dev, b16, tenants_spec=FLEET_TENANTS),
+        "prefill": _serve_bundle(torch, dev, b16, prefix_cache_size=64,
+                                 role="prefill"),
+        "decode": _serve_bundle(torch, dev, b16, prefix_cache_size=64,
+                                role="decode"),
+        "ref32": _serve_bundle(torch, dev, b32),
+        "prefill32": _serve_bundle(torch, dev, b32, prefix_cache_size=64,
+                                   role="prefill"),
+        "decode32": _serve_bundle(torch, dev, b32, prefix_cache_size=64,
+                                  role="decode")}
+    setup_s = time.perf_counter() - t_phase
+    server, _, _, url = served["main"]
+    rng = random.Random(4)
+    try:
+        torch.cuda.synchronize()
+        for mod, attr in counters.values():
+            setattr(mod, attr, 0)
+        for variant in pa.variant_launches:
+            pa.variant_launches[variant] = 0
+        graphs.replays = 0
+        t_drive = time.perf_counter()
+
+        # (a) streams against blocking
+        prompts = [_prompt(rng, n) for n in (20, 60, 100, 200, 300, 40, 80,
+                                             150)]
+        ttfts, gaps, rates = _fleet_streams(url, prompts, 64)
+        log(f"  (a) 8 greedy prompts of 20-300 B, 64 new tokens, each alone: "
+            f"streamed == blocking; TTFT to the first event median "
+            f"{statistics.median(ttfts) * 1e3:.2f} ms (min "
+            f"{min(ttfts) * 1e3:.2f}, max {max(ttfts) * 1e3:.2f}); mean gap "
+            f"between events {statistics.mean(gaps) * 1e3:.2f} ms over "
+            f"{len(gaps)} gaps; all 8 at once, new tokens/s streamed "
+            f"{', '.join(f'{r:.1f}' for r in rates['stream'])}, blocking "
+            f"{', '.join(f'{r:.1f}' for r in rates['blocking'])} (in turns); "
+            f"on {CARD}")
+
+        # (b) the continuation splice, f32 at 2 layers
+        url32 = served["ref32"][3]
+        n_cut, n_all = _fleet_splice(url32, _prompt(rng, 40), 256)
+        log(f"  (b) f32 2-layer: a stream cut after 10 events ({n_cut} of "
+            f"{n_all} tokens), its slot freed, the continuation == the "
+            "uncut stream token for token")
+
+        # (c) the disaggregated handoff: bf16 full width, then f32. The
+        # wire carries bf16 pages as f32: a GPT-small page is 4.7 MB of
+        # blob, so one page (a 100-byte prompt: 64 tokens and 36) stays
+        # under the 8 MiB body cap in base64; the f32 2-layer cut moves
+        # 4 pages (300 bytes: 256 tokens and 44)
+        hand16, hand32 = _prompt(rng, 100), _prompt(rng, 300)
+        got16 = _fleet_handoff(served["prefill"][::3], served["decode"][::3],
+                               hand16, 32, "bf16 GPT-small")
+        ref16 = _call(url, "/v1/generate", {"prompt": hand16,
+                                            "max_new_tokens": 32})[2]
+        same16 = got16["completion"] == ref16["completions"][0]["completion"]
+        got32 = _fleet_handoff(served["prefill32"][::3],
+                               served["decode32"][::3], hand32, 32,
+                               "f32 2-layer")
+        want32 = _call(url32, "/v1/generate", {"prompt": hand32,
+                                               "max_new_tokens": 32})[2]
+        check(got32["completion"] == want32["completions"][0]["completion"],
+              "phase 4g (c): the f32 decode server's tokens after the "
+              "import differ from a server that imported nothing")
+        log(f"  (c) f32: tokens == a server that imported nothing; bf16 "
+            f"tokens {'equal' if same16 else 'differ from'} the main "
+            "server's (not gated)")
+
+        # (d) deadlines
+        status, _, body = _call(url, "/v1/generate", {
+            "prompt": "x" * 20, "max_new_tokens": 64, "deadline_ms": 1})
+        check(status == 504 and "deadline" in body["error"],
+              f"phase 4g (d): deadline_ms 1 answered {status}")
+        t0 = time.perf_counter()
+        events, done, _, _ = _sse(url, {"prompt": _prompt(rng, 20),
+                                        "stream": True, "max_new_tokens": 900,
+                                        "deadline_ms": 400})
+        cut_s = time.perf_counter() - t0
+        decoded = len(_ids(events))
+        check(done and decoded > 0 and "deadline" in events[-1].get(
+            "error", ""), "phase 4g (d): the in-slot deadline did not cut "
+            f"the stream ({decoded} tokens, last event {events[-1:]})")
+        check(_wait(lambda: _call(url, "/loadz")[2]["active"] == 0, 10),
+              "phase 4g (d): /loadz active did not return to 0")
+        with server._front.lock:
+            _audit_pages(server._front.engine)
+            expired = server._front.engine.stats["deadline_expired"]
+        check(expired == 2, f"phase 4g (d): {expired} requests expired, "
+              "expected 2")
+        log(f"  (d) deadline_ms 1: 504; a 900-token stream under 400 ms cut "
+            f"after {decoded} tokens at {cut_s * 1e3:.1f} ms with an error "
+            "event; active 0, the page audit holds at depth 1")
+
+        # (e) tenants
+        _fleet_tenants(url, server)
+
+        # (f) drain: in-flight requests finish, new ones get 503
+        outs = []
+        flight = [threading.Thread(target=lambda: outs.append(_call(
+            url, "/v1/generate", {"prompt": _prompt(random.Random(i), 50),
+                                  "max_new_tokens": 256})[0]))
+            for i in range(4)]
+        for t in flight:
+            t.start()
+        check(_wait(lambda: _call(url, "/loadz")[2]["active"] >= 1),
+              "phase 4g (f): nothing got in flight")
+        server.begin_drain()
+        status, hdrs, body = _call(url, "/v1/generate", {"prompt": "late",
+                                                         "max_new_tokens": 4})
+        check(status == 503 and body.get("reason") == "draining"
+              and hdrs["Retry-After"], f"phase 4g (f): a new request while "
+              f"draining answered {status} {body}")
+        load, live = _call(url, "/loadz")[2], _call(url, "/livez")
+        check(load["draining"] is True and live[0] == 200
+              and live[2]["live"] is True,
+              f"phase 4g (f): /loadz {load['draining']} /livez {live}")
+        for t in flight:
+            t.join(600)
+        check(outs == [200] * 4, f"phase 4g (f): in-flight requests "
+              f"answered {outs}")
+        check(server.drain(30), "phase 4g (f): the server did not drain")
+        log("  (f) drain: 4 requests in flight finished (200), a new one got "
+            "503 draining; /loadz draining true, /livez live true")
+
+        # (g) the contract's key set, on every server
+        for name, (_, _, _, u) in served.items():
+            keys = set(_call(u, "/loadz")[2])
+            check(keys == LOADZ_KEYS, f"phase 4g (g): /loadz of {name} has "
+                  f"keys {sorted(keys ^ LOADZ_KEYS)} off the contract")
+        status, _, stepz = _call(url, "/stepz?n=4")
+        check(status == 200 and len(stepz["steps"]) == 4,
+              "phase 4g (g): /stepz")
+        torch.cuda.synchronize()
+        drive_s = time.perf_counter() - t_drive
+        launches = {name: getattr(mod, attr)
+                    for name, (mod, attr) in counters.items()}
+        variants = dict(pa.variant_launches)
+        replays = graphs.replays
+    finally:
+        for entry in served.values():
+            _unserve(*entry[:3])
+        shutil.rmtree(b16, ignore_errors=True)
+        shutil.rmtree(b32, ignore_errors=True)
+    log(f"  (g) /loadz has the contract's 17 keys on all 6 servers; /stepz "
+        "answers")
+    log(f"  launches in 4g: {launches}; K1 by variant {variants}; decode "
+        f"graph replays {replays}; set-up {setup_s:.1f} s, driven "
+        f"{drive_s:.1f} s")
+    for name, n in launches.items():
+        check(n > 0, f"kernel {name} was not launched in phase 4g")
+    check(variants["decode"] > 0 and variants["chunk"] > 0,
+          f"phase 4g: K1's decode and chunk variants did not both launch "
+          f"({variants})")
+    check(replays > 0, "phase 4g: no decode graph replayed")
+    return launches
+
+
 # -- phase 6: the training main path ------------------------------------------
 
 CORPUS_WORDS = ("flash", "attention", "kernel", "hopper", "gradient",
@@ -3636,6 +4127,11 @@ def main() -> int:
         "driver")
     spec_launches = run_spec_serving(torch, dev, serve_counters)
     torch.cuda.empty_cache()
+    log("== 4g. the replica's fleet contract: streams and the failover "
+        "continuation, the KV handoff between a prefill and a decode "
+        "server, deadlines, tenants, drain, /loadz")
+    fleet_launches = run_fleet_contract(torch, dev, serve_counters)
+    torch.cuda.empty_cache()
     log("== 6. training main path: lm_pretrain, GPT-small width, bf16, "
         "batch 16 x 512")
     train_launches, _ = run_training(torch, dev, train_counters)
@@ -3703,6 +4199,7 @@ def main() -> int:
                     "serve_chunked": chunked_launches.get(name, 0),
                     "serve_radix": radix_launches.get(name, 0),
                     "serve_spec": spec_launches.get(name, 0),
+                    "serve_fleet": fleet_launches.get(name, 0),
                     "lm_train": train_launches.get(name, 0),
                     "lm_train_1280": wide_launches.get(name, 0),
                     "lm_train_d128": d128_launches.get(name, 0),

@@ -72,7 +72,8 @@ editing a ``.cu`` file, and for the experiments PERF.md reports.
         variant at each pages-a-split, the decode and chunk variants
         at chunk widths around the threshold, and both at the verify
         widths of speculative decoding (S = 2..8 on the serving decode
-        shape, at fills {0..1024} and at 716 each);
+        shape, at fills {0..1024} and at 716 each) beside SDPA over the
+        gathered pages;
     python3 kernel_probe.py flash-widths [f32] [D ...]
         K2f, K2dq and K2dkv in bf16 (f32 with ``f32``) at head width D
         (default 128, 80 and 64; causal, B=16 S=512 H=8), checked against
@@ -736,8 +737,11 @@ def paged_modes(torch, dev) -> None:
                     q, kp, vp, table, fills_t, None, None, pl)
                 times.append(f"{variant} {cs.graph_ms(fn):.4f}")
             bms, by = cs._paged_bound(q, kp, table, fills_t)
+            lib = lambda: cs._sdpa_over_gathered(  # noqa: E731
+                torch, q, kp, vp, table, fills_t)
             print(f"  verify S={s} H_kv=12 {label} graph: "
-                  f"{', '.join(times)} ms; bound {bms:.4f} ({by}); plan "
+                  f"{', '.join(times)} ms; SDPA over gathered pages "
+                  f"{cs.graph_ms(lib):.4f}; bound {bms:.4f} ({by}); plan "
                   f"{pa.paged_plan(*_plan_args(q, kp, table)).variant}",
                   flush=True)
 

@@ -6,7 +6,7 @@ and K1's ``variant_launches``) are Python integers a wrapper bumps where
 it launches its kernel. A capture records the launches without running
 them, and a replay runs them without Python, so :func:`capture` undoes
 the counters' moves during capture and :meth:`Captured.replay` adds them
-back on every replay.
+back on every replay. ``replays`` counts the replays themselves.
 """
 
 from __future__ import annotations
@@ -22,6 +22,8 @@ from pyspark_tf_gke_tpu_torch.ops import paged_attention as _pa
 
 # the counters of the kernels a decode or spec chunk runs (K1, K3)
 _COUNTERS = ((_pa, "launches"), (_ln, "launches"))
+
+replays = 0  # graph replays since import (a caller may reset it)
 
 
 def counter_values() -> list:
@@ -44,8 +46,10 @@ class Captured:
     capture_s: float          # warm-up + capture wall time
 
     def replay(self) -> None:
+        global replays
         self.graph.replay()
         add_counters(self.delta)
+        replays += 1
 
 
 def capture(body: Callable[[], object], carried: Sequence[torch.Tensor],

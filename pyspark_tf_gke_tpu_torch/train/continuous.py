@@ -76,6 +76,17 @@ is given) runs a dense cache of its own, prefilled at each admission;
 on CUDA each ``(rounds, k, sampling)`` chunk is one captured graph,
 replayed as the decode chunk is.
 
+Admission order and deadlines: ``schedule="fifo"`` admits in arrival
+order, ``"longest"`` keeps the queue sorted by budget (LPT). Once two
+distinct tenants have submitted, a deficit-weighted round robin
+(``DwrrScheduler``, weights from ``tenant_weights``) picks between the
+tenants' subqueues and batched admission stands down. A request's
+``deadline_s`` is enforced at the chunk boundary (``_expire_deadlines``:
+queued requests never admit, in-slot ones free their slot through the
+route ``cancel`` takes, a piecewise admission drops its pages), and
+``on_tokens`` receives each collected token group on the host, after the
+chunk's event (never from a captured region).
+
 The attribute names ``_queue``, ``_slots``, ``_admitting``,
 ``_inflight_q``, ``_page_refs``, ``_free_pages``, ``_slot_pages`` and
 ``radix`` match the JAX engine so its invariant checker can run here.
@@ -88,7 +99,7 @@ import itertools
 import time
 from collections import deque
 from dataclasses import dataclass, field
-from typing import Deque, Dict, List, Optional, Sequence
+from typing import Callable, Deque, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -102,6 +113,9 @@ from pyspark_tf_gke_tpu_torch.models.speculative import (accept_and_correct,
 from pyspark_tf_gke_tpu_torch.obs.stepstats import (StepStatsRing,
                                                     flops_per_token)
 from pyspark_tf_gke_tpu_torch.ops import graphs
+from pyspark_tf_gke_tpu_torch.utils.logging import get_logger
+
+logger = get_logger("torch.train.continuous")
 
 PAD_BUCKETS = (32, 64, 128, 256, 512, 1024)
 
@@ -109,12 +123,6 @@ PAD_BUCKETS = (32, 64, 128, 256, 512, 1024)
 # the graph count (adaptive sizes are powers of two between this and the
 # engine's ``chunk``) and bounds the overshoot on a sub-minimum remainder.
 _MIN_ADAPTIVE_CHUNK = 8
-
-# engine options of the JAX engine this slice does not carry, with the
-# ROADMAP item (queue 1) that brings each
-_NOT_PORTED = {
-    "tenant_weights": "P7 tenants and deadlines",
-}
 
 # the paged leaves of a KV-page transfer, in wire order (as the JAX
 # engine's ``_KV_XFER_KEYS``)
@@ -148,9 +156,23 @@ class _Request:
     max_new_tokens: int
     tokens: List[int] = field(default_factory=list)
     done: bool = False
+    # the fairness identity: the DWRR scheduler arbitrates between
+    # tenants' subqueues, the serving front's quota buckets charge and
+    # refund per tenant
+    tenant: str = "default"
+    # time.monotonic() at submit (/loadz queue_delay_ms is the age of
+    # the oldest queued request)
+    enqueued_at: float = 0.0
+    # streaming: called with each collected token group on the engine's
+    # driver thread (keep it cheap: enqueue and return)
+    on_tokens: Optional[Callable[[List[int]], None]] = None
     temperature: float = 0.0      # 0 = greedy
     top_p: Optional[float] = None
     seed: int = 0
+    # absolute time.monotonic() deadline (None = none); past it the
+    # request expires at the next chunk boundary
+    deadline: Optional[float] = None
+    expired: bool = False
     # speculative decoding: draft tokens proposed / accepted for THIS
     # request while it still had budget
     spec_proposed: int = 0
@@ -160,6 +182,100 @@ class _Request:
         return (float(self.temperature),
                 float(self.top_p if self.top_p is not None else 1.0),
                 int(self.seed))
+
+
+def _request_cost(req: _Request) -> int:
+    """A request's worst-case token footprint, prompt + budget: what the
+    DWRR deficit pays for admission and the quota buckets charge."""
+    return int(req.prompt.size) + int(req.max_new_tokens)
+
+
+class DwrrScheduler:
+    """Deficit-weighted round robin over per-tenant subqueues (the JAX
+    engine's ``DwrrScheduler``, line for line).
+
+    Each tenant's subqueue is its arrival-ordered subsequence of the
+    engine's admission queue (FIFO or LPT within a tenant). Every
+    rotation visit banks ``quantum * weight`` tokens of deficit; a
+    tenant admits its head-of-line request when its deficit covers the
+    request's cost (prompt + budget), paying the cost on admission. Over
+    a saturated queue the admitted-token shares converge to the weight
+    ratio whatever the request sizes, and an idle tenant's deficit is
+    dropped the moment its subqueue empties (no banked credit).
+
+    Host bookkeeping only: the engine consults :meth:`pick` only once
+    it has seen two distinct tenants, so a single-tenant engine keeps
+    its FIFO / LPT order exactly."""
+
+    def __init__(self, weights: Optional[Dict[str, float]] = None,
+                 quantum: int = 256):
+        if quantum < 1:
+            raise ValueError(f"quantum must be >= 1, got {quantum}")
+        self.weights: Dict[str, float] = {}
+        for name, w in (weights or {}).items():
+            w = float(w)
+            if w <= 0:
+                raise ValueError(
+                    f"tenant {name!r} weight must be > 0, got {w}")
+            self.weights[name] = w
+        self.quantum = int(quantum)
+        self._deficit: Dict[str, float] = {}
+        self._rr: Deque[str] = deque()  # rotation over queued tenants
+        # cumulative admitted token cost per tenant (stats, and what the
+        # shares converge over)
+        self.admitted_tokens: Dict[str, int] = {}
+
+    def weight(self, tenant: str) -> float:
+        """The configured weight; an unknown tenant takes the ``*``
+        entry's, else 1.0."""
+        w = self.weights.get(tenant)
+        if w is None:
+            w = self.weights.get("*", 1.0)
+        return float(w)
+
+    def pick(self, queue: List[_Request]) -> int:
+        """Index into ``queue`` of the request to admit next. The
+        rotation and deficits persist across calls; a tenant that left
+        the queue is dropped with its deficit."""
+        heads: Dict[str, int] = {}
+        for i, req in enumerate(queue):
+            if req.tenant not in heads:
+                heads[req.tenant] = i
+        if len(heads) <= 1:
+            return 0  # one tenant queued: its own order stands
+        present = set(heads)
+        for t in list(self._deficit):
+            if t not in present:
+                del self._deficit[t]
+        if any(t not in present for t in self._rr):
+            self._rr = deque(t for t in self._rr if t in present)
+        for t in heads:  # first-appearance order joins at the back
+            if t not in self._rr:
+                self._rr.append(t)
+        # rotate, banking quanta, until a head of line is affordable; the
+        # bound only turns a pathological weight/quantum into round robin
+        for _ in range(10000):
+            t = self._rr[0]
+            cost = _request_cost(queue[heads[t]])
+            if self._deficit.get(t, 0.0) >= cost:
+                return heads[t]
+            self._deficit[t] = (self._deficit.get(t, 0.0)
+                                + self.quantum * self.weight(t))
+            self._rr.rotate(-1)
+        return heads[self._rr[0]]
+
+    def charge(self, req: _Request) -> None:
+        """Pay one admitted request's cost from its tenant's deficit and
+        tally it."""
+        t = req.tenant
+        cost = _request_cost(req)
+        self._deficit[t] = self._deficit.get(t, 0.0) - cost
+        self.tally(req)
+
+    def tally(self, req: _Request) -> None:
+        """Count an admitted request's cost (every admission route)."""
+        self.admitted_tokens[req.tenant] = (
+            self.admitted_tokens.get(req.tenant, 0) + _request_cost(req))
 
 
 # -- the sampling lanes' counter-based draws (models/lanes.py) ------------------
@@ -811,7 +927,9 @@ class ContinuousEngine:
     next chunk boundary. ``submit`` queues, ``run_until_drained`` (or
     repeated ``step``) decodes; finished requests come back as
     ``(rid, token_list)``. The model must be paged
-    (``CausalLMConfig.kv_num_pages``)."""
+    (``CausalLMConfig.kv_num_pages``). ``schedule`` is the admission
+    order ("fifo" or "longest"), ``tenant_weights`` the DWRR weights of
+    the tenants (a ``*`` entry for unnamed ones)."""
 
     def __init__(self, model: CausalLM, num_slots: int = 8, chunk: int = 8,
                  eos_token_id: Optional[int] = None, pad_id: int = 0,
@@ -819,17 +937,11 @@ class ContinuousEngine:
                  prefix_cache_size: int = 0,
                  prefill_chunk: int = 0, step_token_budget: int = 0,
                  pipeline_depth: int = 0, adaptive_chunk: bool = False,
+                 schedule: str = "fifo",
+                 tenant_weights: Optional[Dict[str, float]] = None,
                  stepstats: Optional[StepStatsRing] = None,
                  spec_tokens: int = 0,
-                 draft_model: Optional[CausalLM] = None,
-                 **unported):
-        for name, value in unported.items():
-            if name not in _NOT_PORTED:
-                raise TypeError(f"unexpected engine option {name!r}")
-            if value:
-                raise NotImplementedError(
-                    f"engine option {name}={value!r} is not ported yet "
-                    f"(ROADMAP queue 1, {_NOT_PORTED[name]})")
+                 draft_model: Optional[CausalLM] = None):
         cfg = model.cfg
         if not cfg.paged_kv:
             raise NotImplementedError(
@@ -838,6 +950,13 @@ class ContinuousEngine:
                 "kv_num_pages")
         if num_slots < 1 or chunk < 1:
             raise ValueError("num_slots and chunk must be >= 1")
+        if schedule not in ("fifo", "longest"):
+            raise ValueError(
+                f"schedule must be 'fifo' or 'longest', got {schedule!r}")
+        # "longest" = LPT admission: the queue stays sorted by budget, so
+        # long requests anchor the slots early and short ones fill the
+        # gaps (throughput over first-come latency)
+        self.schedule = schedule
         if pipeline_depth < 0:
             raise ValueError("pipeline_depth must be >= 0")
         if prefill_chunk and prefill_chunk < 32:
@@ -901,6 +1020,12 @@ class ContinuousEngine:
             + (2 * ps * cfg.kv_heads * 4 if cfg.kv_cache_quant else 0))
         self._rid = itertools.count()
         self._queue: List[_Request] = []
+        # DWRR over per-tenant subqueues, consulted only once two
+        # distinct tenants have submitted (``_fair_active``)
+        self._fair = DwrrScheduler(tenant_weights)
+        self._first_tenant: Optional[str] = None
+        self._fair_active = False
+        self._n_deadline_expired = 0
         self._slots: Dict[int, _Request] = {}
         self._admitting: Optional[dict] = None  # the piecewise admission
         # dispatched-but-unsettled chunks, oldest first; admission work
@@ -951,14 +1076,17 @@ class ContinuousEngine:
 
     # -- submission ------------------------------------------------------
     def submit(self, prompt_ids, max_new_tokens: int,
+               on_tokens: Optional[Callable[[List[int]], None]] = None,
                temperature: float = 0.0, top_p: Optional[float] = None,
-               seed: int = 0, deadline_s: Optional[float] = None) -> int:
-        if deadline_s is not None:
-            raise NotImplementedError(
-                "request deadlines are not ported yet (ROADMAP queue 1, P7 "
-                "tenants and deadlines)")
+               seed: int = 0, deadline_s: Optional[float] = None,
+               tenant: str = "default") -> int:
+        """Queue a request; returns its id. ``on_tokens`` receives each
+        collected token group, ``deadline_s`` (seconds from now) expires
+        it at a chunk boundary, ``tenant`` is its fairness identity."""
         if temperature and temperature < 0:
             raise ValueError(f"temperature must be >= 0, got {temperature}")
+        if deadline_s is not None and deadline_s <= 0:
+            raise ValueError(f"deadline_s must be > 0, got {deadline_s}")
         if top_p is not None and not 0 < top_p <= 1:
             raise ValueError(f"top_p must be in (0, 1], got {top_p}")
         prompt = np.asarray(prompt_ids, np.int32).reshape(-1)
@@ -984,10 +1112,27 @@ class ContinuousEngine:
             raise ValueError(
                 f"request needs {need} KV pages but the pool has "
                 f"{cfg.kv_num_pages} (page_size {cfg.kv_page_size})")
+        tenant = str(tenant) or "default"
+        if self._first_tenant is None:
+            self._first_tenant = tenant
+        elif not self._fair_active and tenant != self._first_tenant:
+            self._fair_active = True  # two tenants seen: DWRR from here
+        now = time.monotonic()
         req = _Request(next(self._rid), prompt, int(max_new_tokens),
+                       tenant=tenant, enqueued_at=now, on_tokens=on_tokens,
                        temperature=float(temperature or 0.0), top_p=top_p,
-                       seed=int(seed))
-        self._queue.append(req)
+                       seed=int(seed),
+                       deadline=(now + float(deadline_s)
+                                 if deadline_s is not None else None))
+        if self.schedule == "longest":
+            # keep the queue budget-descending; ties stay FIFO
+            i = 0
+            while (i < len(self._queue)
+                   and self._queue[i].max_new_tokens >= max_new_tokens):
+                i += 1
+            self._queue.insert(i, req)
+        else:
+            self._queue.append(req)
         return req.rid
 
     def _chunked_route(self, prompt_len: int) -> bool:
@@ -1389,6 +1534,8 @@ class ContinuousEngine:
         allocs = [self._alloc_pages(n) for n in needs]  # covered above
         self._admit_group(group, free[:len(group)], sb0, allocs)
         del self._queue[:len(group)]
+        for req in group:  # batched admission runs single-tenant only
+            self._fair.tally(req)
         self._n_batch_admits += len(group)
 
     def _try_admit(self, slot: int, req: _Request) -> bool:
@@ -1590,15 +1737,95 @@ class ContinuousEngine:
 
         free = free_slots()
         if (len(free) >= 2 and len(self._queue) >= 2
-                and self._admitting is None):
+                and self._admitting is None and not self._fair_active):
+            # a multi-tenant queue skips the batch: it takes the queue
+            # PREFIX, which would let one tenant's burst jump the DWRR
+            # order
             self._admit_batch(free)
             free = free_slots()
         while free and self._queue:
-            if not self._try_admit(free[0], self._queue[0]):
-                break  # pool dry / piecewise admission busy
+            # single tenant: index 0 (the FIFO / LPT order); several:
+            # the DWRR pick between the tenants' subqueues
+            idx = self._fair.pick(self._queue) if self._fair_active else 0
+            req = self._queue[idx]
+            if not self._try_admit(free[0], req):
+                break  # pool dry / piecewise admission busy; the pick
+                #        and its banked deficit hold for the next step
             free.pop(0)
-            self._queue.pop(0)
+            self._queue.pop(idx)
+            if self._fair_active:
+                self._fair.charge(req)
+            else:
+                self._fair.tally(req)
             self._n_solo_admits += 1
+
+    def _expire_deadlines(self) -> List[_Request]:
+        """Chunk-boundary deadline enforcement: a queued request past its
+        deadline never admits, an in-slot one is cancelled (``done`` set
+        so an in-flight chunk's collect skips it; the slot's table row
+        goes back to the sentinel behind that chunk on the stream and
+        its pages return, as ``cancel`` does), and a piecewise admission
+        drops its pages. Returns them marked ``expired`` and ``done``;
+        ``step`` returns them with its finished requests."""
+        now = time.monotonic()
+        expired: List[_Request] = []
+        keep = []
+        for req in self._queue:
+            if req.deadline is not None and now > req.deadline:
+                expired.append(req)
+            else:
+                keep.append(req)
+        if expired:
+            self._queue[:] = keep
+        for slot, req in list(self._slots.items()):
+            if req.deadline is not None and now > req.deadline:
+                req.done = True
+                del self._slots[slot]
+                self._free_slot(slot)
+                expired.append(req)
+        a = self._admitting
+        if (a is not None and a["req"].deadline is not None
+                and now > a["req"].deadline):
+            expired.append(a["req"])
+            self._drop_admitting()
+        for req in expired:
+            req.expired = True
+            req.done = True
+        self._n_deadline_expired += len(expired)
+        return expired
+
+    # -- queue introspection (the serving front's admission bounds) -------
+    def queue_depth(self, tenant: Optional[str] = None) -> int:
+        """Requests waiting for a slot (``tenant``: that subqueue's)."""
+        if tenant is None:
+            return len(self._queue)
+        return sum(1 for r in self._queue if r.tenant == tenant)
+
+    def queued_tokens(self, tenant: Optional[str] = None) -> int:
+        """Prompt + budget tokens of the queued requests (``tenant``:
+        that subqueue's) — the bound ``max_queued_tokens`` sheds on."""
+        return sum(_request_cost(r) for r in self._queue
+                   if tenant is None or r.tenant == tenant)
+
+    def queue_delay_ms(self) -> float:
+        """Age of the oldest queued request in ms (0 when none)."""
+        if not self._queue:
+            return 0.0
+        oldest = min(r.enqueued_at for r in self._queue)
+        return max(0.0, (time.monotonic() - oldest) * 1000.0)
+
+    def tenant_stats(self) -> Dict[str, dict]:
+        """Per tenant: queued requests and tokens, and the cumulative
+        admitted token cost (what the DWRR shares converge over)."""
+        out: Dict[str, dict] = {}
+        blank = {"queued": 0, "queued_tokens": 0, "admitted_tokens": 0}
+        for r in self._queue:
+            t = out.setdefault(r.tenant, dict(blank))
+            t["queued"] += 1
+            t["queued_tokens"] += _request_cost(r)
+        for tenant, adm in self._fair.admitted_tokens.items():
+            out.setdefault(tenant, dict(blank))["admitted_tokens"] = int(adm)
+        return out
 
     # -- the decode chunk on the device -----------------------------------
     def _chunk_body(self, key: tuple):
@@ -1819,8 +2046,16 @@ class ContinuousEngine:
                 hit = np.nonzero(take == self.eos_token_id)[0]
                 if hit.size:
                     take = take[:hit[0] + 1]
-            req.tokens.extend(int(t) for t in take)
-            useful += int(take.size)
+            new_toks = [int(t) for t in take]
+            req.tokens.extend(new_toks)
+            useful += len(new_toks)
+            if req.on_tokens is not None and new_toks:
+                try:
+                    req.on_tokens(new_toks)
+                except Exception:  # noqa: BLE001 — a broken consumer
+                    # must not take the engine down
+                    logger.exception(
+                        "on_tokens callback failed for request %d", req.rid)
             eos_done = self.eos_token_id is not None and not live_host[slot]
             if eos_done or len(req.tokens) >= req.max_new_tokens:
                 req.done = True
@@ -1880,12 +2115,14 @@ class ContinuousEngine:
         return b
 
     def step(self) -> List[_Request]:
-        """Run the in-flight admission's next piece, admit into free
-        slots, dispatch one decode chunk (capped by the step-token
-        budget, sized by ``adaptive_chunk``) and collect the chunk
-        ``pipeline_depth`` steps behind. Returns the requests finished
-        in the chunks collected. Every step that did work closes exactly
-        one record into ``stepstats`` ("error" when it raises)."""
+        """Expire requests past their deadline, run the in-flight
+        admission's next piece, admit into free slots, dispatch one
+        decode chunk (capped by the step-token budget, sized by
+        ``adaptive_chunk``) and collect the chunk ``pipeline_depth``
+        steps behind. Returns the requests expired here (``expired``
+        set) and those finished in the chunks collected. Every step that
+        did work closes exactly one record into ``stepstats`` ("error"
+        when it raises)."""
         rec = self.stepstats.begin(queue_depth=len(self._queue))
         self._step_rec = rec
         try:
@@ -1909,6 +2146,9 @@ class ContinuousEngine:
         # chunks that finished while the host was away get their busy
         # intervals closed before this step's host work
         self.poll_retire()
+        with rec.phase("expire"):
+            expired = self._expire_deadlines()
+        rec.expired = len(expired)
         self._step_prefill_tokens = 0
         pieces0 = self._n_prefill_chunks
         marker0 = self._admission_marker()
@@ -1927,7 +2167,7 @@ class ContinuousEngine:
         cap = self._budget_cap(self._step_prefill_tokens)
         if not self.pipeline_depth:
             if not self._slots:
-                return []
+                return expired
             size = self._effective_chunk() or self.chunk
             if self._spec:
                 # size bounds emitted tokens, cap bounds device work
@@ -1938,7 +2178,7 @@ class ContinuousEngine:
             with rec.phase("dispatch"):
                 inflight = self._dispatch_chunk(size)
             with rec.phase("collect"):
-                return self._collect(inflight)
+                return expired + self._collect(inflight)
         dispatched = False
         if self._slots:
             size = self._effective_chunk()
@@ -1950,7 +2190,7 @@ class ContinuousEngine:
                 with rec.phase("dispatch"):
                     self._inflight_q.append(self._dispatch_chunk(size))
                 dispatched = True
-        finished: List[_Request] = []
+        finished = list(expired)
         # Drain to the target depth: with live slots exactly one collect
         # a step; with every slot idle the whole backlog flushes now (no
         # later step is guaranteed); a step that dispatched nothing
@@ -2016,8 +2256,13 @@ class ContinuousEngine:
         cfg = self.model.cfg
         return {
             "queued": len(self._queue),
+            "queued_tokens": self.queued_tokens(),
+            "queue_delay_ms": round(self.queue_delay_ms(), 2),
+            "tenants": self.tenant_stats(),
+            "fair_active": self._fair_active,
             "active": len(self._slots),
             "finished": self._n_finished,
+            "deadline_expired": self._n_deadline_expired,
             "num_slots": self.num_slots,
             "chunk": self.chunk,
             "batch_admits": self._n_batch_admits,

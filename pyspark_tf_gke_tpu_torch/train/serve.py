@@ -1,17 +1,32 @@
 """HTTP serving of an exported bundle on the card (the subset of
-``pyspark_tf_gke_tpu/train/serve.py`` this slice carries).
+``pyspark_tf_gke_tpu/train/serve.py`` this port carries).
 
 ``python -m pyspark_tf_gke_tpu_torch.train.serve --bundle DIR
 --continuous-slots 8`` loads a bundle onto ``--device`` (``cuda`` by
 default) and answers
 
-* ``GET  /healthz``      -> 200 with the bundle and engine status;
+* ``GET  /healthz``      -> 200 with the bundle and engine status (503
+  while draining);
+* ``GET  /livez``        -> liveness: 503 only when the engine's driver
+  loop has stalled past ``--live-stall``;
+* ``GET  /loadz``        -> the load snapshot a router's prober reads
+  (the JAX server's key set);
+* ``GET  /stepz``        -> the engine-step records (``?n=``,
+  ``?min_ms=``) and their summary;
 * ``POST /v1/generate``  -> ``{"completions": [{"prompt", "completion",
   "new_tokens", "latency_ms"}, ...]}`` for ``{"prompts": [...]}`` (or
   ``"prompt"``), ``max_new_tokens``, ``temperature``, ``top_k``,
-  ``top_p``, ``repetition_penalty``, ``seed``;
+  ``top_p``, ``repetition_penalty``, ``seed``, ``deadline_ms`` (504 once
+  past) and ``tenant`` (or the ``X-Tenant`` header); with ``"stream":
+  true`` server-sent events, ``data: {json}`` a token group, the
+  terminal entry and ``data: [DONE]``, and with ``"continuation":
+  {"emitted_ids": [...]}`` the continuation of a stream another replica
+  started (the router's failover splice);
 * ``POST /v1/score``     -> ``{"scores": [{"nll", "tokens",
-  "truncated"}, ...]}`` for ``{"texts": [...]}``.
+  "truncated"}, ...]}`` for ``{"texts": [...]}``;
+* ``POST /v1/warm``, ``/v1/prefill``, ``/v1/kv_import`` -> a prefix into
+  the radix cache; a prompt's KV pages as a blob; a blob into the
+  pool (the disaggregated handoff, across packages too).
 
 Routing follows the JAX server: with ``--continuous-slots`` greedy and
 temperature/top-p requests share the slot engine's KV slots; top-k and
@@ -25,20 +40,30 @@ its slots (k draft proposals a round, one (k+1)-wide verify), drafting
 with ``--draft-bundle`` (a smaller bundle of the same vocabulary) or,
 without one, with the target itself; ``--draft-bundle`` alone serves a
 single greedy prompt through the standalone speculative driver (its
-response carries a ``"speculative"`` block). ``/healthz`` carries the
-engine's stats, its step phases, prefix-cache and spec blocks included,
-and the draft bundle. Beam search, streaming,
-``/loadz``, ``/stepz``, tenants, deadlines, drain, reload, ``/v1/warm``,
-``/v1/prefill`` and ``/v1/kv_import`` are not ported yet and answer 400
-or 404 (ROADMAP queue 1, P7).
+response carries a ``"speculative"`` block). Admission is bounded
+(``--max-queue-depth``, ``--max-queued-tokens``: 429 with
+``Retry-After``), ``--tenants`` shares it between tenants (DWRR weights,
+queue shares and token buckets; a tenant's shed carries
+``X-Tenant-Shed``), ``--schedule longest`` admits the longest budget
+first, ``--role`` is what ``/loadz`` advertises to a disaggregating
+router, and SIGTERM drains (new requests 503, in-flight ones finish,
+``--drain-timeout``) before the server stops. Not ported yet, answering
+400 or 404 (ROADMAP queue 1, P7b): beam search, ``/admin/reload`` and
+``/admin/profile``, ``/metrics``, ``/events``, ``/traces`` and request
+tracing, the step watchdog, the heartbeat file, chaos hooks, the HF
+tokenizer adapter and ``--stdin``.
 """
 
 from __future__ import annotations
 
 import argparse
+import base64
+import contextlib
 import dataclasses
+import itertools
 import json
 import os
+import queue
 import signal
 import threading
 import time
@@ -55,6 +80,8 @@ from pyspark_tf_gke_tpu_torch.models.speculative import speculative_generate
 from pyspark_tf_gke_tpu_torch.obs.stepstats import StepStatsRing
 from pyspark_tf_gke_tpu_torch.train.continuous import ContinuousEngine
 from pyspark_tf_gke_tpu_torch.train.export import load_serving_bundle
+from pyspark_tf_gke_tpu_torch.train.kv_transfer import (pack_kv_export,
+                                                        unpack_kv_blob)
 from pyspark_tf_gke_tpu_torch.train.serving import serve_score
 from pyspark_tf_gke_tpu_torch.utils.logging import get_logger
 
@@ -63,41 +90,429 @@ logger = get_logger("torch.train.serve")
 MAX_BODY_BYTES = 8 << 20
 MAX_BATCH = 64
 SPEC_GAMMA = 4  # the standalone speculative path's draft width (echoed)
+# warmed prefixes a rebuilt engine warms again (the JAX front's horizon
+# for the radix cache)
+_REWARM = 8
+# the JAX server's POST endpoints this port does not serve yet
+_NOT_PORTED_PATHS = {"/admin/reload": "P7b, bundle hot swap",
+                     "/admin/profile": "P7b, profiler capture"}
 
 
 class NotPorted(ValueError):
     """A request feature the port does not serve yet (HTTP 400)."""
 
 
+class RequestRejected(RuntimeError):
+    """A shed before any device work: HTTP 429 (``queue_full``,
+    ``tenant_quota``, ``tenant_queue_full``) or 503 (``draining``) with a
+    ``Retry-After``. ``tenant`` is set on a per-tenant shed, which the
+    handler surfaces as ``X-Tenant-Shed`` (a verdict about one tenant,
+    not about the replica's health)."""
+
+    def __init__(self, reason: str, message: str, status: int,
+                 retry_after_s: int = 1, tenant: Optional[str] = None):
+        super().__init__(message)
+        self.reason = reason
+        self.status = int(status)
+        self.retry_after_s = int(retry_after_s)
+        self.tenant = tenant
+
+
+def _draining_rejection() -> RequestRejected:
+    """The one draining rejection (admission gate, whole-batch path and
+    handler alike)."""
+    return RequestRejected(
+        "draining",
+        "server is draining (shutting down); retry against a live "
+        "replica", status=503, retry_after_s=5)
+
+
+class TokenBucket:
+    """One tenant's token-rate quota: ``rate`` tokens/s refill up to
+    ``burst``. Admission charges the worst case (prompt + budget) with
+    :meth:`try_take`; delivery refunds the unused budget, so a quota
+    shed only ever happens at admission. Thread-safe."""
+
+    def __init__(self, rate_per_s: float, burst: float):
+        if rate_per_s <= 0:
+            raise ValueError(f"rate must be > 0, got {rate_per_s}")
+        if burst < 1:
+            raise ValueError(f"burst must be >= 1, got {burst}")
+        self.rate = float(rate_per_s)
+        self.burst = float(burst)
+        self._level = float(burst)  # a fresh server admits at once
+        self._last = time.monotonic()
+        self._lock = threading.Lock()
+
+    def _refill(self, now: float) -> None:
+        self._level = min(self.burst,
+                          self._level + (now - self._last) * self.rate)
+        self._last = now
+
+    def try_take(self, n: float) -> bool:
+        with self._lock:
+            self._refill(time.monotonic())
+            if self._level >= n:
+                self._level -= n
+                return True
+            return False
+
+    def refund(self, n: float) -> None:
+        """Return an unused charge (never past ``burst``)."""
+        if n <= 0:
+            return
+        with self._lock:
+            self._refill(time.monotonic())
+            self._level = min(self.burst, self._level + float(n))
+
+    def retry_after_s(self, n: float) -> int:
+        """Whole seconds until ``n`` tokens refill (at least 1): a quota
+        shed's ``Retry-After``."""
+        with self._lock:
+            self._refill(time.monotonic())
+            if self._level >= n:
+                return 1
+            need = min(float(n), self.burst) - self._level
+        return max(1, int(-(-need // self.rate)))
+
+    @property
+    def level(self) -> float:
+        with self._lock:
+            self._refill(time.monotonic())
+            return self._level
+
+
+def parse_tenant_spec(spec) -> Optional[Dict[str, dict]]:
+    """The ``--tenants`` spec as ``{tenant: {"weight", "rate", "burst"}}``.
+
+    Either a JSON object (``{"light": {"weight": 3}, "noisy": {"weight":
+    1, "rate": 200, "burst": 400}}``, or ``{"light": 3}``) or the compact
+    ``name=weight[:rate[:burst]],...``. ``weight`` is the tenant's DWRR
+    share and its slice of the queue bounds; ``rate`` (tokens/s, absent
+    = unmetered) and ``burst`` (2 x rate by default) its token bucket; a
+    ``*`` entry covers tenants the spec does not name. Empty -> None
+    (tenancy off)."""
+    if not spec:
+        return None
+    if isinstance(spec, dict):
+        raw = spec
+    else:
+        spec = str(spec).strip()
+        if spec.startswith("{"):
+            raw = json.loads(spec)
+            if not isinstance(raw, dict):
+                raise ValueError(f"tenant spec must be a JSON object, "
+                                 f"got {type(raw).__name__}")
+        else:
+            raw = {}
+            for part in spec.split(","):
+                part = part.strip()
+                if not part:
+                    continue
+                name, _, rest = part.partition("=")
+                if not name or not rest:
+                    raise ValueError(
+                        f"bad tenant spec entry {part!r} (want "
+                        "name=weight[:rate[:burst]])")
+                fields = rest.split(":")
+                entry: dict = {"weight": float(fields[0])}
+                if len(fields) > 1 and fields[1]:
+                    entry["rate"] = float(fields[1])
+                if len(fields) > 2 and fields[2]:
+                    entry["burst"] = float(fields[2])
+                if len(fields) > 3:
+                    raise ValueError(
+                        f"bad tenant spec entry {part!r}: too many "
+                        "fields")
+                raw[name.strip()] = entry
+    out: Dict[str, dict] = {}
+    for name, entry in raw.items():
+        if not isinstance(entry, dict):
+            entry = {"weight": entry}
+        weight = float(entry.get("weight", 1.0))
+        if weight <= 0:
+            raise ValueError(
+                f"tenant {name!r} weight must be > 0, got {weight}")
+        rate = entry.get("rate")
+        rate = float(rate) if rate is not None else None
+        if rate is not None and rate <= 0:
+            raise ValueError(
+                f"tenant {name!r} rate must be > 0, got {rate}")
+        burst = entry.get("burst")
+        burst = (float(burst) if burst is not None
+                 else (2.0 * rate if rate is not None else None))
+        unknown = set(entry) - {"weight", "rate", "burst"}
+        if unknown:
+            raise ValueError(
+                f"tenant {name!r}: unknown field(s) {sorted(unknown)}")
+        out[str(name)] = {"weight": weight, "rate": rate, "burst": burst}
+    return out or None
+
+
+class DeadlineExceeded(RuntimeError):
+    """The client's deadline passed (HTTP 504): the request expired in
+    the queue or was cancelled in its slot at a chunk boundary."""
+
+
+class EngineShutdown(RuntimeError):
+    """Delivered to every pending waiter when the front shuts down."""
+
+
 class _ContinuousFront:
     """One engine thread runs the slot engine; HTTP threads ``submit``
-    (non-blocking) and ``wait`` for their tokens. A step that raises
-    fails every outstanding request with the error — those held only by
-    in-flight chunks included — and the engine is rebuilt (its device
-    state may be mid-chunk garbage)."""
+    (or ``submit_stream``) and ``wait``. The front gates admission
+    (drain, queue depth and tokens, per-tenant shares and token
+    buckets) before the engine sees a request, and settles every
+    delivery (a refund of the unused budget, exactly one terminal per
+    waiter). A step that raises fails every outstanding request with
+    the error and the engine is rebuilt (its device state may be
+    mid-chunk garbage); warmed prefixes are warmed again.
 
-    def __init__(self, make_engine):
-        self._make_engine = make_engine
-        self.engine: ContinuousEngine = make_engine()
+    ``engine_kw`` go to ``ContinuousEngine``; ``tenants`` is a
+    :func:`parse_tenant_spec` spec. The step-stats ring outlives engine
+    rebuilds."""
+
+    def __init__(self, model, tenants=None, max_queue_depth: int = 0,
+                 max_queued_tokens: int = 0,
+                 stepstats: Optional[StepStatsRing] = None, **engine_kw):
+        # tenancy off (no spec): every request rides "default" and the
+        # admission bounds stay global
+        self._tenants = parse_tenant_spec(tenants)
+        self._tenant_weights = ({name: c["weight"]
+                                 for name, c in self._tenants.items()}
+                                if self._tenants else None)
+        self._buckets: Dict[str, TokenBucket] = {
+            name: TokenBucket(c["rate"], c["burst"])
+            for name, c in (self._tenants or {}).items()
+            if c["rate"] is not None}
+        self.stepstats = stepstats if stepstats is not None else (
+            StepStatsRing())
+        self._model, self._engine_kw = model, engine_kw
+        # 0 = unbounded; past a bound submit sheds with RequestRejected
+        self.max_queue_depth = int(max_queue_depth)
+        self.max_queued_tokens = int(max_queued_tokens)
+        self.draining = threading.Event()
+        self.engine: ContinuousEngine = self._new_engine()
         self.lock = threading.Lock()  # guards the engine
-        self._results_lock = threading.Lock()
-        self._results: Dict[int, list] = {}  # rid -> [event, result]
+        # HTTP threads waiting for (or holding) the lock: the driver loop
+        # lets them in between two steps, where it would otherwise take
+        # the lock straight back (a busy loop starves them)
+        self._waiting = 0
+        self._waiting_cv = threading.Condition()
         self.new_work = threading.Event()
-        self._stop = False
+        self.stop = threading.Event()
+        # rid -> [done event, tokens | Exception | None, stream queue |
+        # None]; the dict has its own lock, always inner to self.lock
+        self._results: Dict[int, list] = {}
+        self._results_lock = threading.Lock()
+        self._warmed: List[List[int]] = []  # re-warmed after a rebuild
+        # the driver loop's last iteration: /livez reads it
+        self._last_loop_ts = time.monotonic()
         self.thread = threading.Thread(target=self._loop,
                                        name="continuous-engine", daemon=True)
         self.thread.start()
 
-    def submit(self, prompt_ids, max_new_tokens: int,
-               temperature: float = 0.0, top_p=None, seed: int = 0) -> int:
-        with self.lock:
-            rid = self.engine.submit(prompt_ids, max_new_tokens,
-                                     temperature=temperature, top_p=top_p,
-                                     seed=seed)
+    @contextlib.contextmanager
+    def _locked(self, timeout_s: float = -1):
+        """The engine lock, taken by an HTTP thread: yields whether it
+        was acquired (within ``timeout_s``; -1 waits)."""
+        with self._waiting_cv:
+            self._waiting += 1
+        acquired = self.lock.acquire(timeout=timeout_s)
+        try:
+            yield acquired
+        finally:
+            if acquired:
+                self.lock.release()
+            with self._waiting_cv:
+                self._waiting -= 1
+                self._waiting_cv.notify_all()
+
+    def _new_engine(self) -> ContinuousEngine:
+        return ContinuousEngine(self._model,
+                                tenant_weights=self._tenant_weights,
+                                stepstats=self.stepstats, **self._engine_kw)
+
+    # -- tenancy ---------------------------------------------------------
+    def resolve_tenant(self, tenant: Optional[str]) -> str:
+        """A client's tenant id as the fairness machinery sees it:
+        without a spec always "default"; with one, a named tenant passes
+        and every other id folds into the one ``*`` aggregate (made-up
+        ids gain no share and mint no state)."""
+        if self._tenants is None:
+            return "default"
+        t = str(tenant) if tenant else "default"
+        return t if (t in self._tenants and t != "*") else "*"
+
+    def _tenant_share(self, tenant: str, bound: int) -> int:
+        """A resolved tenant's weight-proportional slice of a global
+        bound. The denominator sums the spec's weights; without a ``*``
+        entry the unnamed aggregate weighs 1.0 in its own denominator
+        only."""
+        cfgs = self._tenants
+        total = sum(c["weight"] for c in cfgs.values())
+        if tenant == "*" and "*" not in cfgs:
+            w = 1.0
+            total += w
+        else:
+            w = cfgs[tenant]["weight"]
+        return max(1, int(bound * w / max(total, w)))
+
+    def _bucket_for(self, tenant: str) -> Optional[TokenBucket]:
+        if not self._tenants:
+            return None
+        return self._buckets.get(tenant)
+
+    @staticmethod
+    def _shed_tenant(tenant: str, reason: str, message: str,
+                     retry_after_s: int) -> None:
+        raise RequestRejected(reason, message, status=429,
+                              retry_after_s=retry_after_s, tenant=tenant)
+
+    def charge_tokens(self, tenant: Optional[str], n: int) -> str:
+        """Charge ``n`` tokens of work outside the engine (``/v1/score``)
+        to the tenant's bucket, up front and without refund; the same
+        429 / terminal 400 as admission. Returns the resolved tenant."""
+        tenant = self.resolve_tenant(tenant)
+        bucket = self._bucket_for(tenant)
+        if bucket is None:
+            return tenant
+        if n > bucket.burst:
+            raise ValueError(
+                f"score batch of {n} tokens exceeds tenant {tenant!r} "
+                f"quota burst {bucket.burst:g} — split the batch")
+        if not bucket.try_take(n):
+            self._shed_tenant(
+                tenant, "tenant_quota",
+                f"tenant {tenant!r} token quota exhausted (score "
+                f"batch needs {n} tokens; refill {bucket.rate:g}/s)",
+                retry_after_s=bucket.retry_after_s(n))
+        return tenant
+
+    def _settle(self, req) -> None:
+        """Refund a delivered (or expired, or failed) request's unused
+        budget to its tenant's bucket."""
+        bucket = self._buckets.get(req.tenant)
+        if bucket is not None:
+            unused = int(req.max_new_tokens) - len(req.tokens)
+            if unused > 0:
+                bucket.refund(unused)
+
+    def _check_admission(self, prompt_len: int, max_new_tokens: int,
+                         tenant: str = "default") -> None:
+        """The admission gates, in the JAX front's order (caller holds
+        ``self.lock``): draining (503), an ask that can never fit (400),
+        then the global bounds (429 ``queue_full``) or, with a tenant
+        spec, the tenant's queue share and token bucket (429 with the
+        tenant and its own ``Retry-After``)."""
+        if self.draining.is_set():
+            raise _draining_rejection()
+        ask = int(prompt_len) + int(max_new_tokens)
+        if self.max_queued_tokens and ask > self.max_queued_tokens:
+            raise ValueError(
+                f"request footprint {ask} tokens (prompt + budget) "
+                f"exceeds max_queued_tokens {self.max_queued_tokens}")
+        if self._tenants is None:
+            if self.max_queue_depth:
+                depth = self.engine.queue_depth()
+                if depth >= self.max_queue_depth:
+                    raise RequestRejected(
+                        "queue_full",
+                        f"admission queue full ({depth} waiting >= "
+                        f"max_queue_depth {self.max_queue_depth})",
+                        status=429, retry_after_s=1)
+            if self.max_queued_tokens:
+                queued = self.engine.queued_tokens()
+                if queued + ask > self.max_queued_tokens:
+                    raise RequestRejected(
+                        "queue_full",
+                        f"queued-token budget exhausted ({queued} queued "
+                        f"+ {ask} requested > max_queued_tokens "
+                        f"{self.max_queued_tokens})",
+                        status=429, retry_after_s=1)
+            return
+        if self.max_queue_depth:
+            share = self._tenant_share(tenant, self.max_queue_depth)
+            depth = self.engine.queue_depth(tenant)
+            if depth >= share:
+                self._shed_tenant(
+                    tenant, "tenant_queue_full",
+                    f"tenant {tenant!r} admission-queue share full "
+                    f"({depth} waiting >= share {share} of "
+                    f"max_queue_depth {self.max_queue_depth})",
+                    retry_after_s=1)
+        if self.max_queued_tokens:
+            share = self._tenant_share(tenant, self.max_queued_tokens)
+            if ask > share:
+                raise ValueError(
+                    f"request footprint {ask} tokens exceeds tenant "
+                    f"{tenant!r} queued-token share {share}")
+            queued = self.engine.queued_tokens(tenant)
+            if queued + ask > share:
+                self._shed_tenant(
+                    tenant, "tenant_queue_full",
+                    f"tenant {tenant!r} queued-token share exhausted "
+                    f"({queued} queued + {ask} requested > share "
+                    f"{share} of max_queued_tokens "
+                    f"{self.max_queued_tokens})",
+                    retry_after_s=1)
+        bucket = self._bucket_for(tenant)
+        if bucket is not None:
+            if ask > bucket.burst:
+                raise ValueError(
+                    f"request footprint {ask} tokens exceeds tenant "
+                    f"{tenant!r} quota burst {bucket.burst:g} — it can "
+                    "never admit at any retry")
+            if not bucket.try_take(ask):
+                self._shed_tenant(
+                    tenant, "tenant_quota",
+                    f"tenant {tenant!r} token quota exhausted "
+                    f"(request needs {ask} tokens; refill "
+                    f"{bucket.rate:g}/s)",
+                    retry_after_s=bucket.retry_after_s(ask))
+
+    # -- submission and delivery -----------------------------------------
+    def _submit(self, prompt_ids, max_new_tokens: int, tenant, stream,
+                **kw):
+        tenant = self.resolve_tenant(tenant)
+        q = queue.Queue() if stream else None
+        with self._locked():
+            self._check_admission(len(prompt_ids), max_new_tokens,
+                                  tenant=tenant)
+            try:
+                rid = self.engine.submit(
+                    prompt_ids, max_new_tokens, tenant=tenant,
+                    on_tokens=q.put if stream else None, **kw)
+            except BaseException:
+                # the quota charge landed in _check_admission: a request
+                # that never queued must not cost its tenant
+                bucket = self._buckets.get(tenant)
+                if bucket is not None:
+                    bucket.refund(len(prompt_ids) + int(max_new_tokens))
+                raise
             with self._results_lock:
-                self._results[rid] = [threading.Event(), None]
+                self._results[rid] = [threading.Event(), None, q]
         self.new_work.set()
-        return rid
+        return rid, q
+
+    def submit(self, prompt_ids, max_new_tokens: int,
+               temperature: float = 0.0, top_p=None, seed: int = 0,
+               deadline_s=None, tenant: str = "default") -> int:
+        """Queue a request (non-blocking); pair with :meth:`wait`.
+        ``deadline_s`` expires it at a chunk boundary (``wait`` raises
+        :class:`DeadlineExceeded`); ``tenant`` is resolved here."""
+        return self._submit(prompt_ids, max_new_tokens, tenant, False,
+                            temperature=temperature, top_p=top_p, seed=seed,
+                            deadline_s=deadline_s)[0]
+
+    def submit_stream(self, prompt_ids, max_new_tokens: int,
+                      deadline_s=None, tenant: str = "default"):
+        """Greedy streaming variant: ``(rid, queue)``. The queue gets each
+        collected token group, then one terminal: ``[]`` on completion or
+        an exception (failure, deadline, shutdown). The charge covers the
+        whole budget, so a stream is never quota-cut mid-flight."""
+        return self._submit(prompt_ids, max_new_tokens, tenant, True,
+                            deadline_s=deadline_s)
 
     def wait(self, rid: int, timeout_s: float = 600.0) -> List[int]:
         with self._results_lock:
@@ -105,94 +520,216 @@ class _ContinuousFront:
         if entry is None:
             raise KeyError(f"unknown or already-collected request {rid}")
         if not entry[0].wait(timeout_s):
-            self.abandon(rid)
+            with self._locked():
+                # an abandoned request must not keep its slot
+                self.engine.cancel(rid)
+                with self._results_lock:
+                    self._results.pop(rid, None)
             raise RuntimeError(
                 f"continuous decode timed out after {timeout_s}s")
         with self._results_lock:
             self._results.pop(rid, None)
-        if isinstance(entry[1], Exception):
+        result = entry[1]
+        if isinstance(result, (DeadlineExceeded, EngineShutdown,
+                               RequestRejected)):
+            raise result
+        if isinstance(result, Exception):
             raise RuntimeError(
-                f"continuous engine failed this request: {entry[1]}")
-        return entry[1]
+                f"continuous engine failed this request: {result}")
+        return result
 
     def abandon(self, rid: int) -> None:
-        """Cancel a request nobody will collect (frees its KV slot)."""
-        with self.lock:
-            self.engine.cancel(rid)
+        """Give up on a request: free its slot or queue place and drop
+        its results entry (idempotent). The lock is taken with a bound:
+        if a step holds it that long, the request runs out its budget
+        and its delivery finds no waiter."""
+        with self._locked(timeout_s=1.0) as acquired:
+            if acquired:
+                self.engine.cancel(rid)
         with self._results_lock:
             self._results.pop(rid, None)
 
-    def _deliver(self, rid: int, result) -> None:
+    def warm_prefix(self, prefix_ids) -> int:
+        """Prefill and cache a prefix (under the engine lock); kept so a
+        rebuilt engine warms it again."""
+        with self._locked():
+            n = self.engine.warm_prefix(prefix_ids)
+            toks = [int(t) for t in prefix_ids]
+            if toks not in self._warmed:
+                self._warmed.append(toks)
+                del self._warmed[:-_REWARM]
+            return n
+
+    def export_prefix_pages(self, prefix_ids):
+        """The prefill side of a KV handoff (under the engine lock)."""
+        with self._locked():
+            return self.engine.export_prefix_pages(prefix_ids)
+
+    def import_prefix_pages(self, token_ids, layers) -> int:
+        """The decode side of a KV handoff (under the engine lock)."""
+        with self._locked():
+            return self.engine.import_prefix_pages(token_ids, layers)
+
+    def _fail_pending(self, err: Exception) -> None:
+        """Exactly one terminal, ``err``, to every waiter still without
+        one."""
         with self._results_lock:
-            entry = self._results.get(rid)
-        if entry is not None:
-            entry[1] = result
-            entry[0].set()
+            for slot in self._results.values():
+                if slot[1] is None and not slot[0].is_set():
+                    slot[1] = err
+                    slot[0].set()
+                    if slot[2] is not None:
+                        slot[2].put(err)
+
+    def _deliver_finished(self, finished) -> None:
+        """Settle one step's finished and expired requests (refunds),
+        then give each waiter its one terminal: the tokens, or
+        :class:`DeadlineExceeded`; a stream also gets ``[]`` or the
+        error on its queue. Caller holds ``self.lock``."""
+        if not finished:
+            return
+        for req in finished:
+            self._settle(req)
+        with self._results_lock:
+            for req in finished:
+                slot = self._results.get(req.rid)
+                if slot is None or slot[1] is not None or slot[0].is_set():
+                    continue
+                if req.expired:
+                    slot[1] = DeadlineExceeded(
+                        f"request deadline exceeded after "
+                        f"{len(req.tokens)} decoded token(s)")
+                else:
+                    slot[1] = req.tokens
+                slot[0].set()
+                if slot[2] is not None:
+                    slot[2].put(slot[1] if req.expired else [])
 
     def _loop(self) -> None:
-        while not self._stop:
-            if not self.new_work.wait(timeout=0.5):
-                continue
+        while not self.stop.is_set():
+            self._last_loop_ts = time.monotonic()
+            busy = False
+            with self._waiting_cv:  # HTTP threads first, briefly
+                self._waiting_cv.wait_for(lambda: not self._waiting,
+                                          timeout=0.01)
             with self.lock:
-                if not self.engine.busy:
-                    self.new_work.clear()
-                    continue
                 try:
-                    finished = self.engine.step()
+                    busy = self.engine.busy
+                    seq0 = self.stepstats.next_seq
+                    finished = self.engine.step() if busy else []
+                    t_deliver = time.monotonic()
+                    self._deliver_finished(finished)
+                    if busy:
+                        # the chunk in flight often retires during the
+                        # delivery: keep that out of its busy interval,
+                        # and amend the delivery onto the step's record
+                        self.engine.poll_retire()
+                        rec = self.stepstats.last_record
+                        if (rec is not None and rec.closed
+                                and rec.seq >= seq0):
+                            self.stepstats.add_deliver(
+                                rec, (time.monotonic() - t_deliver) * 1e3)
                 except Exception as exc:  # noqa: BLE001 — keep serving
-                    logger.exception("engine step failed; rebuilding")
-                    failed = self.engine.outstanding_requests()
-                    self.engine = self._make_engine()
-                    finished = []
-                    for req in failed:
-                        self._deliver(req.rid, exc)
-            for req in finished:
-                self._deliver(req.rid, list(req.tokens))
+                    logger.exception("engine step failed; failing %d "
+                                     "request(s) and rebuilding",
+                                     len(self._results))
+                    for req in self.engine.outstanding_requests():
+                        req.done = True
+                        self._settle(req)
+                    self._fail_pending(exc)
+                    self.engine = self._new_engine()
+                    for toks in self._warmed:
+                        try:
+                            self.engine.warm_prefix(toks)
+                        except Exception:  # noqa: BLE001
+                            logger.exception("re-warm of a cached prefix "
+                                             "failed after a rebuild")
+                    busy = False
+            if not busy:
+                # idle: park until a submit wakes the loop (a short
+                # timeout keeps shutdown and /livez prompt)
+                self.new_work.wait(0.05)
+                self.new_work.clear()
 
     def stats(self) -> dict:
-        with self.lock:
+        with self._locked():
             return self.engine.stats
 
+    def begin_drain(self) -> None:
+        """Stop admission (every later submit gets 503); queued and
+        in-slot requests decode to completion."""
+        self.draining.set()
+
+    def drain(self, timeout_s: float) -> bool:
+        """Wait until every accepted request has its terminal and the
+        engine is idle, or ``timeout_s`` passes; True when drained."""
+        deadline = time.monotonic() + timeout_s
+        while True:
+            with self._locked():
+                busy = self.engine.busy
+                with self._results_lock:
+                    pending = any(slot[1] is None and not slot[0].is_set()
+                                  for slot in self._results.values())
+            if not pending and not busy:
+                return True
+            if time.monotonic() >= deadline:
+                return False
+            time.sleep(0.05)
+
     def shutdown(self, timeout_s: float = 10.0) -> None:
-        """Stop the engine thread, then settle the pipeline: every
-        in-flight chunk is collected and its finished requests
-        delivered, so none is abandoned mid-flight."""
-        self._stop = True
+        """Stop the engine thread, settle the pipeline (every in-flight
+        chunk collected and its finished requests delivered), then fail
+        every waiter still pending with :class:`EngineShutdown`."""
+        self.stop.set()
         self.new_work.set()
         self.thread.join(timeout_s)
         with self.lock:
             try:
-                finished = self.engine.quiesce()
-            except Exception as exc:  # noqa: BLE001 — fail the waiters
+                self._deliver_finished(self.engine.quiesce())
+            except Exception:  # noqa: BLE001 — the waiters fail below
                 logger.exception("engine failed while quiescing")
-                for req in self.engine.outstanding_requests():
-                    self._deliver(req.rid, exc)
-                return
-        for req in finished:
-            self._deliver(req.rid, list(req.tokens))
+            self._fail_pending(EngineShutdown(
+                "serving front shut down while the request was in flight"))
 
 
 class BundleServer:
     """Loads a bundle onto ``device`` and serves generate/score. With
     ``continuous_slots > 0`` a slot engine (``--continuous-slots``,
     ``--continuous-chunk``) serves greedy and temperature/top-p
-    requests; ``prefill_chunk`` and ``step_token_budget`` are its
-    chunked prefill (``--prefill-chunk``, ``--step-token-budget``),
-    ``continuous_pipeline`` its decode-ahead depth
-    (``--continuous-pipeline``, 1 by default), ``adaptive_chunk`` its
-    budget-aligned chunks (``--adaptive-chunk``),
+    requests and the streams; ``prefill_chunk`` and
+    ``step_token_budget`` are its chunked prefill (``--prefill-chunk``,
+    ``--step-token-budget``), ``continuous_pipeline`` its decode-ahead
+    depth (``--continuous-pipeline``, 1 by default), ``adaptive_chunk``
+    its budget-aligned chunks (``--adaptive-chunk``),
     ``prefix_cache_size`` its radix cache's resident pages
-    (``--prefix-cache``) and ``spec_tokens`` its in-slot speculation
-    (``--spec-tokens``). ``draft_bundle_dir`` (``--draft-bundle``) is the
-    draft of both speculative paths. The step-stats ring outlives
-    engine rebuilds."""
+    (``--prefix-cache``), ``spec_tokens`` its in-slot speculation
+    (``--spec-tokens``) and ``schedule`` its admission order
+    (``--schedule``). ``max_queue_depth``, ``max_queued_tokens`` and
+    ``tenants_spec`` gate admission (``--max-queue-depth``,
+    ``--max-queued-tokens``, ``--tenants``); ``role`` is the
+    disaggregated serving role ``/loadz`` advertises (``--role``);
+    ``live_stall_s`` the driver-loop age past which ``/livez`` answers
+    503 (``--live-stall``); ``step_record_ring`` the ``/stepz`` ring's
+    length (``--step-record-ring``). ``draft_bundle_dir``
+    (``--draft-bundle``) is the draft of both speculative paths."""
 
     def __init__(self, bundle_dir: str, device: str = "cuda",
                  continuous_slots: int = 0, continuous_chunk: int = 8,
                  int8_kv: bool = False, prefill_chunk: int = 0,
                  step_token_budget: int = 0, continuous_pipeline: int = 1,
                  adaptive_chunk: bool = False, prefix_cache_size: int = 0,
-                 spec_tokens: int = 0, draft_bundle_dir: str = ""):
+                 spec_tokens: int = 0, draft_bundle_dir: str = "",
+                 schedule: str = "fifo", max_queue_depth: int = 0,
+                 max_queued_tokens: int = 0, tenants_spec: str = "",
+                 live_stall_s: float = 120.0, step_record_ring: int = 256,
+                 role: str = "mixed"):
+        if role not in ("mixed", "prefill", "decode"):
+            raise ValueError(
+                f"role must be mixed, prefill or decode, got {role!r}")
+        # advisory: the router sends long-prompt handoffs to `prefill`
+        # replicas and generate traffic to the others; every role still
+        # serves every endpoint
+        self.role = role
         if prefill_chunk and not continuous_slots:
             raise ValueError(
                 "--prefill-chunk requires --continuous-slots (chunked "
@@ -219,6 +756,9 @@ class BundleServer:
                 if hasattr(module, "cfg"):
                     module.cfg = cfg
         self.bundle_dir, self.model, self.meta = bundle_dir, model, meta
+        # the bundle's pipeline generation (/healthz, /loadz); it
+        # advances only with a hot swap, which is not ported
+        self.bundle_generation = int(meta.get("pipeline_generation", 1))
         self.draft_bundle_dir = draft_bundle_dir or None
         self.draft_model = None
         if draft_bundle_dir:
@@ -242,26 +782,74 @@ class BundleServer:
                 f"bundle tokenizer vocab {self.tokenizer.vocab_size} exceeds "
                 f"model vocab {model.cfg.vocab_size}")
         self._lock = threading.Lock()  # whole-batch generate and score
+        # drain: admission stops, in-flight work finishes; /livez reads
+        # the driver loop's age against live_stall_s
+        self._draining = threading.Event()
+        self._inflight_lock = threading.Lock()
+        self._inflight_http = 0
+        self._live_stall_s = float(live_stall_s)
         self._front: Optional[_ContinuousFront] = None
-        self.stepstats = StepStatsRing()
+        self.stepstats = StepStatsRing(capacity=max(1, int(step_record_ring)))
         if continuous_slots > 0:
-            eos_id = getattr(self.tokenizer, "eos_id", None)
-            pad_id = getattr(self.tokenizer, "pad_id", 0)
-            self._front = _ContinuousFront(lambda: ContinuousEngine(
-                model, num_slots=continuous_slots, chunk=continuous_chunk,
-                eos_token_id=eos_id, pad_id=pad_id,
+            self._front = _ContinuousFront(
+                model, tenants=tenants_spec, max_queue_depth=max_queue_depth,
+                max_queued_tokens=max_queued_tokens, stepstats=self.stepstats,
+                num_slots=continuous_slots, chunk=continuous_chunk,
+                eos_token_id=getattr(self.tokenizer, "eos_id", None),
+                pad_id=getattr(self.tokenizer, "pad_id", 0),
                 prefill_chunk=prefill_chunk,
                 step_token_budget=step_token_budget,
                 pipeline_depth=continuous_pipeline,
                 adaptive_chunk=adaptive_chunk,
-                prefix_cache_size=prefix_cache_size,
-                stepstats=self.stepstats, spec_tokens=self.spec_tokens,
-                draft_model=self.draft_model if self.spec_tokens else None))
+                prefix_cache_size=prefix_cache_size, schedule=schedule,
+                spec_tokens=self.spec_tokens,
+                draft_model=self.draft_model if self.spec_tokens else None)
 
+    # -- lifecycle -------------------------------------------------------
+    @property
+    def draining(self) -> bool:
+        return self._draining.is_set()
+
+    def begin_drain(self) -> None:
+        """Flip to draining: ``/healthz`` answers 503, new requests get
+        503 with ``Retry-After``, in-flight requests keep decoding.
+        Idempotent."""
+        self._draining.set()
+        if self._front is not None:
+            self._front.begin_drain()
+
+    def _http_enter(self) -> None:
+        with self._inflight_lock:
+            self._inflight_http += 1
+
+    def _http_exit(self) -> None:
+        with self._inflight_lock:
+            self._inflight_http -= 1
+
+    def drain(self, timeout_s: float = 30.0) -> bool:
+        """Wait for every in-flight HTTP request and the slot engine to
+        finish, up to ``timeout_s``; True when fully drained."""
+        deadline = time.monotonic() + timeout_s
+        while True:
+            with self._inflight_lock:
+                busy_http = self._inflight_http
+            if not busy_http and (self._front is None
+                                  or self._front.drain(timeout_s=0)):
+                return True
+            if time.monotonic() >= deadline:
+                return False
+            time.sleep(0.05)
+
+    def shutdown(self) -> None:
+        if self._front is not None:
+            self._front.shutdown()
+
+    # -- health and load -------------------------------------------------
     def health(self) -> dict:
         return {
-            "status": "ok",
+            "status": "draining" if self.draining else "ok",
             "bundle": self.bundle_dir,
+            "bundle_generation": self.bundle_generation,
             "format": self.meta.get("format"),
             "model": self.meta.get("model"),
             "quantized": bool(self.meta.get("quantized")),
@@ -272,10 +860,80 @@ class BundleServer:
             "device_name": (torch.cuda.get_device_name(self.device)
                             if self.device.type == "cuda" else "cpu"),
             "speculative_draft": self.draft_bundle_dir,
+            "draining": self.draining,
+            "admission": ({"max_queue_depth": self._front.max_queue_depth,
+                           "max_queued_tokens":
+                               self._front.max_queued_tokens}
+                          if self._front is not None else None),
             "continuous": (self._front.stats()
                            if self._front is not None else None),
         }
 
+    def livez(self) -> dict:
+        """Liveness (``GET /livez``), taking no lock: ``live`` goes false
+        only when the engine's driver loop has not finished an iteration
+        for ``live_stall_s``. Draining and load are readiness, not
+        liveness; a whole-batch server is always live."""
+        out = {"live": True, "draining": self.draining}
+        front = self._front
+        if front is not None:
+            age = time.monotonic() - front._last_loop_ts
+            out["driver_loop_age_s"] = round(age, 3)
+            if self._live_stall_s and age > self._live_stall_s:
+                out["live"] = False
+        return out
+
+    def loadz(self) -> dict:
+        """The load snapshot the router's prober polls (``GET /loadz``).
+        Its key set is the JAX server's, a contract: the router scores
+        on ``queued_tokens`` / ``active``, gates on ``draining`` and
+        ``role``, and reads ``capacity_free`` (the tighter of the
+        queued-token budget and the free pages' tokens),
+        ``queue_delay_ms``, ``tenants`` and the step telemetry. A
+        whole-batch server reports zeros."""
+        with self._inflight_lock:
+            inflight_http = self._inflight_http
+        out = {
+            "queued": 0, "queued_tokens": 0, "active": 0, "slots_total": 0,
+            "kv_pages_free": None, "inflight_http": inflight_http,
+            "draining": self.draining,
+            "bundle_generation": self.bundle_generation,
+            "role": self.role,
+            "prefix_cache_pages": 0, "prefix_hit_rate": 0.0,
+            "capacity_free": 0, "queue_delay_ms": 0.0, "tenants": {},
+            "spec_accept_rate": 0.0, "step_host_overhead_frac": 0.0,
+            "step_tokens_per_sec": 0.0,
+        }
+        if self._front is None:
+            return out
+        stats = self._front.stats()
+        out["queued"] = stats["queued"]
+        out["queued_tokens"] = stats["queued_tokens"]
+        out["active"] = stats["active"]
+        out["slots_total"] = stats["num_slots"]
+        out["queue_delay_ms"] = stats["queue_delay_ms"]
+        paged = stats["paged"]
+        out["kv_pages_free"] = paged["pages_total"] - paged["pages_in_use"]
+        cache = stats.get("prefix_cache")
+        if cache:
+            out["prefix_cache_pages"] = int(cache["resident_pages"])
+            out["prefix_hit_rate"] = float(cache["recent_hit_rate"])
+        caps = [out["kv_pages_free"] * paged["page_size"]]
+        if self._front.max_queued_tokens:
+            caps.append(self._front.max_queued_tokens
+                        - stats["queued_tokens"])
+        out["capacity_free"] = max(0, min(caps))
+        if self.spec_tokens:
+            out["spec_accept_rate"] = stats["spec"]["recent_accept_rate"]
+        phases = stats["step_phases"]
+        out["step_host_overhead_frac"] = phases["host_overhead_frac"]
+        out["step_tokens_per_sec"] = phases.get("tokens_per_sec") or 0.0
+        out["tenants"] = {name: {"queued": t["queued"],
+                                 "queued_tokens": t["queued_tokens"]}
+                          for name, t in stats["tenants"].items()}
+        return out
+
+    # -- generation ------------------------------------------------------
     def _entry(self, prompt: str, new_tokens: List[int], dt_ms: float,
                eos_id, **extra) -> dict:
         if eos_id is not None and eos_id in new_tokens:
@@ -291,12 +949,26 @@ class BundleServer:
     def generate(self, prompts, max_new_tokens: int = 64,
                  temperature: float = 0.0, top_k=None, top_p=None,
                  num_beams: int = 0, repetition_penalty=None,
+                 deadline_s=None, tenant: str = "default",
                  seed=None) -> list:
         """Batch completion, results in input order. Slot-engine
         requests draw their sampling lane from ``seed + index`` when the
-        client pins ``seed`` (deterministic per prompt and seed)."""
+        client pins ``seed`` (deterministic per prompt and seed).
+        ``deadline_s`` (seconds from now): the slot engine expires the
+        request at a chunk boundary, the whole-batch path checks between
+        length groups; both raise :class:`DeadlineExceeded`. ``tenant``
+        is the fairness identity of the slot engine's requests."""
+        if self.draining:
+            raise _draining_rejection()
         if num_beams and num_beams > 1:
             raise NotPorted("num_beams (beam search) is not yet ported")
+        t_deadline = None
+        if deadline_s is not None:
+            if deadline_s <= 0:
+                raise DeadlineExceeded(
+                    f"deadline of {deadline_s * 1000.0:.0f}ms already "
+                    "expired at submission")
+            t_deadline = time.monotonic() + float(deadline_s)
         if not prompts:
             return []
         if len(prompts) > MAX_BATCH:
@@ -320,10 +992,11 @@ class BundleServer:
                         and not (temperature and temperature > 0))
         # Routing for plain-greedy traffic: the standalone speculative
         # path (a draft is loaded, one prompt that fits the draft's
-        # context, and the engine does not speculate itself) -> the slot
-        # engine -> whole-batch generate
+        # context, no deadline — the spec loop has no chunk boundary to
+        # cancel at — and the engine does not speculate itself) -> the
+        # slot engine -> whole-batch generate
         could_spec = (self.draft_model is not None and len(prompts) == 1
-                      and plain_greedy
+                      and plain_greedy and deadline_s is None
                       and not (self.spec_tokens and self._front is not None)
                       and len(encoded[0][1]) + max_new_tokens
                       <= self.draft_model.cfg.max_seq_len)
@@ -353,8 +1026,10 @@ class BundleServer:
                     rids.append((i, self._front.submit(
                         ids, max_new_tokens, temperature=temp, top_p=top_p,
                         seed=(int(seed) + i if seed is not None else
-                              int.from_bytes(os.urandom(4), "little")))))
+                              int.from_bytes(os.urandom(4), "little")),
+                        deadline_s=deadline_s, tenant=tenant)))
             except Exception:
+                # a rejection mid-batch must not strand the rows before it
                 for _, rid in rids:
                     self._front.abandon(rid)
                 raise
@@ -378,6 +1053,11 @@ class BundleServer:
         sampling = bool(temperature and temperature > 0)
         with self._lock:
             for length, members in sorted(groups.items()):
+                if t_deadline is not None and time.monotonic() > t_deadline:
+                    # whole-batch granularity: between length groups
+                    raise DeadlineExceeded(
+                        "request deadline exceeded before the batch "
+                        "finished decoding")
                 rows = [ids for _, ids in members]
                 gen = None
                 if sampling:
@@ -398,10 +1078,148 @@ class BundleServer:
                                              dt, eos_id)
         return results
 
-    def score(self, texts) -> list:
+    def generate_stream(self, prompt: str, max_new_tokens: int = 64,
+                        deadline_s=None, tenant: str = "default",
+                        continuation=None):
+        """Greedy streaming through the slot engine: yields one event a
+        collected token group (``token_ids`` and the whole ``text`` so
+        far, so a multibyte sequence never tears), then the terminal
+        entry. ``continuation`` (``{"emitted_ids": [...]}``) is the
+        router's failover splice: ``prompt`` is the original prompt and
+        ``emitted_ids`` what a dead replica already delivered; the
+        engine prefills ``encode(prompt) + emitted_ids`` (token ids, not
+        re-tokenized text) and events and the terminal frame text and
+        counts cumulatively, so the spliced stream reads as one run."""
+        if self._front is None:
+            raise ValueError(
+                "streaming requires --continuous-slots (the slot engine "
+                "is what yields tokens as they decode)")
+        if deadline_s is not None and deadline_s <= 0:
+            raise DeadlineExceeded(
+                f"deadline of {deadline_s * 1000.0:.0f}ms already "
+                "expired at submission")
+        ids = self.tokenizer.encode(prompt)
+        if not ids:
+            raise ValueError("prompt tokenized to zero tokens")
+        prior_ids: list = []
+        if continuation is not None:
+            prior_ids = [int(t) for t in continuation["emitted_ids"]]
+            ids = ids + prior_ids
+        cfg = self.model.cfg
+        if len(ids) + max_new_tokens > cfg.max_seq_len:
+            raise ValueError(
+                f"{len(ids)} tokens + {max_new_tokens} new exceeds "
+                f"max_seq_len {cfg.max_seq_len}")
+        eos_id = getattr(self.tokenizer, "eos_id", None)
+        t0 = time.perf_counter()
+        rid, q = self._front.submit_stream(ids, max_new_tokens,
+                                           deadline_s=deadline_s,
+                                           tenant=tenant)
+        toks, finished = [], False
+        try:
+            while True:
+                item = q.get(timeout=600)
+                if isinstance(item, Exception):
+                    if isinstance(item, (DeadlineExceeded, EngineShutdown,
+                                         RequestRejected)):
+                        raise item
+                    raise RuntimeError(
+                        f"continuous engine failed this request: {item}")
+                if item == []:
+                    break
+                if eos_id is not None and eos_id in item:
+                    item = item[:item.index(eos_id)]
+                    toks.extend(item)
+                    if item:
+                        yield {"token_ids": item,
+                               "text": prompt + self.tokenizer.decode(
+                                   prior_ids + toks)}
+                    break
+                toks.extend(item)
+                yield {"token_ids": item,
+                       "text": prompt + self.tokenizer.decode(
+                           prior_ids + toks)}
+            # release the results entry (its event is set by now)
+            self._front.wait(rid, timeout_s=60)
+            finished = True
+        finally:
+            if not finished:
+                # a client gone mid-stream, or a failure: free the slot
+                self._front.abandon(rid)
+        entry = {
+            "prompt": prompt,
+            "completion": prompt + self.tokenizer.decode(prior_ids + toks),
+            "new_tokens": len(prior_ids) + len(toks),
+            "latency_ms": round((time.perf_counter() - t0) * 1000.0, 2),
+            "done": True,
+        }
+        if continuation is not None:
+            entry["resumed"] = True
+        yield entry
+
+    # -- prefix warming and the disaggregated KV handoff -----------------
+    def warm_prefix(self, prefix: str) -> dict:
+        """``POST /v1/warm``: prefill a shared prefix into the radix
+        cache, so later prompts starting with it skip that prefill."""
+        if self._front is None:
+            raise ValueError("warming requires --continuous-slots")
+        ids = self.tokenizer.encode(prefix)
+        if not ids:
+            raise ValueError("prefix tokenized to zero tokens")
+        n = self._front.warm_prefix(ids)
+        return {"prefix_tokens": n,
+                "prefix_cache": self._front.stats().get("prefix_cache")}
+
+    def prefill_export(self, prompt: str) -> dict:
+        """``POST /v1/prefill``: prefill the prompt into the radix cache
+        and export its full KV pages as one base64 ``.npz`` blob (the
+        prefill replica's half of a handoff; the router ships it to a
+        decode replica's ``/v1/kv_import``). A prompt under one page has
+        nothing to transfer: ``blob`` is null."""
+        if self._front is None:
+            raise ValueError("KV export requires --continuous-slots")
+        ids = self.tokenizer.encode(prompt)
+        if not ids:
+            raise ValueError("prompt tokenized to zero tokens")
+        warmed = self._front.warm_prefix(ids)
+        export = self._front.export_prefix_pages(ids)
+        if export is None:
+            return {"prefix_tokens": warmed, "page_size": 0,
+                    "pages": 0, "blob": None}
+        blob = pack_kv_export(export)
+        return {
+            "prefix_tokens": warmed,
+            "page_size": export["page_size"],
+            "pages": len(export["token_ids"]) // export["page_size"],
+            "blob": base64.b64encode(blob).decode("ascii"),
+        }
+
+    def kv_import(self, blob_b64: str) -> dict:
+        """``POST /v1/kv_import``: install a transferred page blob into
+        the pool and adopt it into the radix trie (the decode replica's
+        half; idempotent). Blobs cross packages: either one's export
+        imports into the other."""
+        if self._front is None:
+            raise ValueError("KV import requires --continuous-slots")
+        transfer = unpack_kv_blob(
+            base64.b64decode(blob_b64.encode("ascii"), validate=True))
+        ps = self.model.cfg.kv_page_size
+        if transfer["page_size"] != ps:
+            raise ValueError(
+                f"KV transfer page_size {transfer['page_size']} does "
+                f"not match this replica's kv_page_size {ps} — "
+                "role-split fleets must serve one bundle shape")
+        imported = self._front.import_prefix_pages(transfer["token_ids"],
+                                                   transfer["layers"])
+        return {"imported_tokens": imported, "pages": imported // ps}
+
+    # -- scoring ---------------------------------------------------------
+    def score(self, texts, tenant: str = "default") -> list:
         """Per-text total NLL in nats and the scored token count. Texts
         longer than max_seq_len are truncated (``truncated``); texts
-        under 2 tokens come back ``{"skipped": true, "tokens": 0}``."""
+        under 2 tokens come back ``{"skipped": true, "tokens": 0}``. With
+        a tenant spec the batch's tokens are charged to the tenant's
+        bucket up front (no refund)."""
         if not texts:
             return []
         if len(texts) > MAX_BATCH:
@@ -417,6 +1235,9 @@ class BundleServer:
                               "skipped": True}
                 continue
             rows.append((i, ids[:cap], len(ids) > cap))
+        if rows and self._front is not None:
+            self._front.charge_tokens(
+                tenant, sum(len(ids) for _, ids, _ in rows))
         if rows:
             # right padding to the longest text: causal attention keeps
             # every real position blind to the padding after it
@@ -431,9 +1252,39 @@ class BundleServer:
                               "truncated": trunc}
         return results
 
-    def shutdown(self) -> None:
-        if self._front is not None:
-            self._front.shutdown()
+
+def _shed_headers(exc: RequestRejected):
+    """``Retry-After`` always; a per-tenant shed also ``X-Tenant-Shed``,
+    so the router keeps the replica in rotation."""
+    hdrs = [("Retry-After", str(exc.retry_after_s))]
+    if exc.tenant:
+        hdrs.append(("X-Tenant-Shed", str(exc.tenant)))
+    return tuple(hdrs)
+
+
+def _shed_body(exc: RequestRejected) -> dict:
+    body = {"error": str(exc), "reason": exc.reason}
+    if exc.tenant:
+        body["tenant"] = exc.tenant
+    return body
+
+
+def _stepz(server: BundleServer, query: str):
+    """``GET /stepz``: the step-stats ring's summary and its newest
+    records, ``?n=`` of them (1..1024, 64 by default) at least
+    ``?min_ms=`` long."""
+    n, min_ms = 64, None
+    for part in query.split("&"):
+        key, _, val = part.partition("=")
+        try:
+            if key == "n" and val:
+                n = max(1, min(int(val), 1024))
+            elif key == "min_ms" and val:
+                min_ms = float(val)
+        except ValueError:
+            return 400, {"error": "bad /stepz query parameter"}
+    return 200, {"summary": server.stepstats.summary(),
+                 "steps": server.stepstats.snapshot(n=n, min_ms=min_ms)}
 
 
 def _make_handler(server: BundleServer):
@@ -443,20 +1294,119 @@ def _make_handler(server: BundleServer):
         def log_message(self, fmt, *args):  # quiet per-request logging
             logger.debug("%s " + fmt, self.address_string(), *args)
 
-        def _reply(self, code: int, body: dict) -> None:
+        def _reply(self, code: int, body: dict, headers=()) -> None:
             data = json.dumps(body).encode()
             self.send_response(code)
             self.send_header("Content-Type", "application/json")
             self.send_header("Content-Length", str(len(data)))
+            for name, value in headers:
+                self.send_header(name, value)
+            if self.close_connection:
+                self.send_header("Connection", "close")
             self.end_headers()
             self.wfile.write(data)
 
+        def _stream_generate(self, req, prompts, tenant):
+            """Server-sent events: ``data: {json}\\n\\n`` a token group,
+            the terminal entry, then ``data: [DONE]\\n\\n``; the
+            connection closes at the end. Greedy, one prompt. Errors
+            found before the first event answer with a status; after it
+            an ``{"error": ...}`` event ends the stream."""
+            if len(prompts) != 1:
+                return self._reply(
+                    400, {"error": "streaming takes exactly one prompt"})
+            if (float(req.get("temperature", 0.0) or 0.0) > 0
+                    or req.get("num_beams") or req.get("top_k")
+                    or req.get("top_p") or req.get("repetition_penalty")):
+                return self._reply(
+                    400, {"error": "streaming is greedy-only (no "
+                                   "sampling/beam parameters)"})
+            deadline_ms = req.get("deadline_ms")
+            continuation = req.get("continuation")
+            if continuation is not None:
+                try:
+                    emitted = [int(t) for t in continuation["emitted_ids"]]
+                    if not emitted or any(t < 0 for t in emitted):
+                        raise ValueError
+                    continuation = {"emitted_ids": emitted}
+                except (TypeError, KeyError, ValueError):
+                    return self._reply(
+                        400, {"error": "'continuation' must carry "
+                                       "emitted_ids: a non-empty list "
+                                       "of non-negative token ids"})
+            events = None
+            try:
+                events = server.generate_stream(
+                    prompts[0],
+                    max_new_tokens=int(req.get("max_new_tokens", 64)),
+                    deadline_s=(float(deadline_ms) / 1000.0
+                                if deadline_ms is not None else None),
+                    tenant=tenant, continuation=continuation)
+                # validation errors surface before the status line
+                first = next(events)
+            except RequestRejected as exc:
+                return self._reply(exc.status, _shed_body(exc),
+                                   headers=_shed_headers(exc))
+            except DeadlineExceeded as exc:
+                return self._reply(504, {"error": str(exc)})
+            except (TypeError, ValueError) as exc:
+                return self._reply(400, {"error": str(exc)})
+            self.close_connection = True
+            self.send_response(200)
+            self.send_header("Content-Type", "text/event-stream")
+            self.send_header("Cache-Control", "no-cache")
+            self.send_header("Connection", "close")
+            self.end_headers()
+            try:
+                for event in itertools.chain([first], events):
+                    self.wfile.write(
+                        f"data: {json.dumps(event)}\n\n".encode())
+                    self.wfile.flush()
+                self.wfile.write(b"data: [DONE]\n\n")
+            except Exception as exc:  # noqa: BLE001 — mid-stream: the
+                # status line is gone; an error event if the socket still
+                # listens, else the client sees the cut
+                logger.warning("stream ended mid-flight: %s", exc)
+                try:
+                    self.wfile.write(
+                        f"data: {json.dumps({'error': str(exc)})}"
+                        "\n\n".encode())
+                    self.wfile.write(b"data: [DONE]\n\n")
+                except OSError:
+                    pass
+            finally:
+                events.close()  # an unfinished stream frees its slot now
+
         def do_GET(self):
-            if self.path.partition("?")[0] in ("/healthz", "/health", "/"):
-                return self._reply(200, server.health())
+            route, _, query = self.path.partition("?")
+            if route in ("/healthz", "/health", "/"):
+                # draining -> 503: readiness fails, routing stops
+                return self._reply(503 if server.draining else 200,
+                                   server.health())
+            if route == "/livez":
+                out = server.livez()
+                return self._reply(200 if out["live"] else 503, out)
+            if route == "/loadz":
+                # draining answers 200: the field carries the state
+                return self._reply(200, server.loadz())
+            if route == "/stepz":
+                return self._reply(*_stepz(server, query))
             self._reply(404, {"error": f"unknown path {self.path}"})
 
         def do_POST(self):
+            server._http_enter()  # drain() waits for this to reach zero
+            try:
+                self._do_post()
+            finally:
+                server._http_exit()
+
+        def _do_post(self):
+            if server.draining:
+                # shed before reading the body: the connection closes
+                self.close_connection = True
+                exc = _draining_rejection()
+                return self._reply(exc.status, _shed_body(exc),
+                                   headers=_shed_headers(exc))
             try:
                 length = int(self.headers.get("Content-Length", "0"))
             except ValueError:
@@ -468,6 +1418,15 @@ def _make_handler(server: BundleServer):
                 req = json.loads(self.rfile.read(length) or b"{}")
                 if not isinstance(req, dict):
                     raise ValueError("request body must be a JSON object")
+                deadline_ms = req.get("deadline_ms")
+                deadline_s = (float(deadline_ms) / 1000.0
+                              if deadline_ms is not None else None)
+                # the X-Tenant header wins, then the body's "tenant"
+                tenant = (self.headers.get("X-Tenant") or req.get("tenant")
+                          or "default")
+                if not isinstance(tenant, str):
+                    return self._reply(
+                        400, {"error": "'tenant' must be a string"})
                 if self.path == "/v1/generate":
                     prompts = req.get("prompts")
                     if prompts is None and "prompt" in req:
@@ -477,9 +1436,15 @@ def _make_handler(server: BundleServer):
                         return self._reply(
                             400, {"error": "'prompts' must be a list of "
                                            "strings (or 'prompt': str)"})
-                    if req.get("stream"):
-                        raise NotPorted("stream (SSE) is not yet ported")
                     seed = req.get("seed")
+                    if seed is not None:
+                        try:
+                            seed = int(seed)
+                        except (TypeError, ValueError):
+                            return self._reply(
+                                400, {"error": "'seed' must be an integer"})
+                    if req.get("stream"):
+                        return self._stream_generate(req, prompts, tenant)
                     out = server.generate(
                         prompts,
                         max_new_tokens=int(req.get("max_new_tokens", 64)),
@@ -487,7 +1452,7 @@ def _make_handler(server: BundleServer):
                         top_k=req.get("top_k"), top_p=req.get("top_p"),
                         num_beams=int(req.get("num_beams", 0)),
                         repetition_penalty=req.get("repetition_penalty"),
-                        seed=int(seed) if seed is not None else None)
+                        deadline_s=deadline_s, tenant=tenant, seed=seed)
                     self._reply(200, {"completions": out})
                 elif self.path == "/v1/score":
                     texts = req.get("texts")
@@ -496,9 +1461,36 @@ def _make_handler(server: BundleServer):
                         return self._reply(
                             400, {"error": "'texts' must be a list of "
                                            "strings"})
-                    self._reply(200, {"scores": server.score(texts)})
+                    self._reply(200, {"scores": server.score(texts, tenant)})
+                elif self.path == "/v1/warm":
+                    prefix = req.get("prefix")
+                    if not isinstance(prefix, str):
+                        return self._reply(
+                            400, {"error": "'prefix' must be a string"})
+                    self._reply(200, server.warm_prefix(prefix))
+                elif self.path == "/v1/prefill":
+                    prompt = req.get("prompt")
+                    if not isinstance(prompt, str):
+                        return self._reply(
+                            400, {"error": "'prompt' must be a string"})
+                    self._reply(200, server.prefill_export(prompt))
+                elif self.path == "/v1/kv_import":
+                    blob = req.get("blob")
+                    if not isinstance(blob, str):
+                        return self._reply(
+                            400, {"error": "'blob' must be a base64 "
+                                           "string"})
+                    self._reply(200, server.kv_import(blob))
+                elif self.path in _NOT_PORTED_PATHS:
+                    raise NotPorted(f"{self.path} is not yet ported "
+                                    f"({_NOT_PORTED_PATHS[self.path]})")
                 else:
                     self._reply(404, {"error": f"unknown path {self.path}"})
+            except RequestRejected as exc:
+                self._reply(exc.status, _shed_body(exc),
+                            headers=_shed_headers(exc))
+            except DeadlineExceeded as exc:
+                self._reply(504, {"error": str(exc)})
             except (TypeError, ValueError) as exc:
                 # caller error (NotPorted included), not a server fault
                 self._reply(400, {"error": str(exc)})
@@ -509,11 +1501,18 @@ def _make_handler(server: BundleServer):
     return Handler
 
 
+class _HTTPServer(ThreadingHTTPServer):
+    # a burst of connections (a router's flood) queues in the listen
+    # backlog instead of overflowing socketserver's default of 5 into
+    # reset connections
+    request_queue_size = 256
+
+
 def start_http_server(server: BundleServer, host: str = "0.0.0.0",
                       port: int = 8000) -> ThreadingHTTPServer:
     """Bind and return the HTTP server (``port=0`` -> ephemeral; read it
     from ``.server_address[1]``). The caller runs ``serve_forever``."""
-    return ThreadingHTTPServer((host, port), _make_handler(server))
+    return _HTTPServer((host, port), _make_handler(server))
 
 
 def _pipeline_depth(v: str) -> int:
@@ -591,6 +1590,47 @@ def parse_args(argv=None) -> argparse.Namespace:
                    help="serve with an int8 KV cache")
     p.add_argument("--device", default=e("SERVE_DEVICE", "cuda"),
                    help="torch device ('cuda' or 'cpu')")
+    p.add_argument("--schedule", choices=("fifo", "longest"),
+                   default=e("CB_SCHEDULE", "fifo"),
+                   help="slot admission order: fifo (arrival) or longest "
+                        "(longest budget first: a shorter makespan, at "
+                        "the cost of short requests' queueing)")
+    p.add_argument("--max-queue-depth", type=int,
+                   default=int(e("MAX_QUEUE_DEPTH", "0")),
+                   help="shed (429 + Retry-After) once this many requests "
+                        "wait for a slot (0 = unbounded)")
+    p.add_argument("--max-queued-tokens", type=int,
+                   default=int(e("MAX_QUEUED_TOKENS", "0")),
+                   help="shed when the queued prompt + budget tokens would "
+                        "exceed this (0 = unbounded); a request alone "
+                        "above it gets 400")
+    p.add_argument("--tenants", default=e("SERVE_TENANTS", ""),
+                   help="tenants: JSON ('{\"light\": {\"weight\": 3}, "
+                        "\"noisy\": {\"weight\": 1, \"rate\": 200}}') "
+                        "or name=weight[:rate[:burst]],...; weights are "
+                        "DWRR admission shares and slices of the queue "
+                        "bounds, rate (tokens/s) and burst a token bucket "
+                        "(429 with the tenant's own Retry-After); '*' "
+                        "covers unnamed tenants; empty = tenancy off")
+    p.add_argument("--drain-timeout", type=float,
+                   default=float(e("DRAIN_TIMEOUT", "30")),
+                   help="seconds SIGTERM waits for in-flight requests "
+                        "before the server exits")
+    p.add_argument("--role", choices=("mixed", "prefill", "decode"),
+                   default=e("SERVE_ROLE", "mixed"),
+                   help="disaggregated serving role on /loadz: the router "
+                        "sends long-prompt prefills (/v1/prefill) to "
+                        "'prefill' replicas and generate traffic to the "
+                        "others (advisory: every role serves every "
+                        "endpoint)")
+    p.add_argument("--live-stall", type=float,
+                   default=float(e("SERVE_LIVE_STALL", "120")),
+                   help="GET /livez answers 503 once the engine's driver "
+                        "loop has not finished an iteration for this many "
+                        "seconds (0 = never)")
+    p.add_argument("--step-record-ring", type=int,
+                   default=int(e("SERVE_STEP_RECORD_RING", "256")),
+                   help="engine-step records kept for GET /stepz")
     return p.parse_args(argv)
 
 
@@ -606,13 +1646,32 @@ def main(argv=None) -> int:
                           adaptive_chunk=args.adaptive_chunk,
                           prefix_cache_size=args.prefix_cache,
                           spec_tokens=args.spec_tokens,
-                          draft_bundle_dir=args.draft_bundle)
+                          draft_bundle_dir=args.draft_bundle,
+                          schedule=args.schedule,
+                          max_queue_depth=args.max_queue_depth,
+                          max_queued_tokens=args.max_queued_tokens,
+                          tenants_spec=args.tenants,
+                          live_stall_s=args.live_stall,
+                          step_record_ring=args.step_record_ring,
+                          role=args.role)
     httpd = start_http_server(server, args.host, args.port)
-    logger.info("serving on http://%s:%d (healthz, /v1/generate, /v1/score)",
-                *httpd.server_address[:2])
+    logger.info("serving on http://%s:%d (healthz, livez, loadz, stepz, "
+                "/v1/generate, /v1/score, /v1/warm, /v1/prefill, "
+                "/v1/kv_import)", *httpd.server_address[:2])
+
+    def drain_then_stop():
+        # SIGTERM: admission stops, in-flight requests finish (bounded
+        # by --drain-timeout), then the accept loop stops
+        server.begin_drain()
+        drained = server.drain(args.drain_timeout)
+        logger.info("drain %s after SIGTERM; stopping the HTTP server",
+                    "complete" if drained else
+                    f"timed out at {args.drain_timeout}s")
+        httpd.shutdown()
+
     if threading.current_thread() is threading.main_thread():
         signal.signal(signal.SIGTERM, lambda signum, frame: threading.Thread(
-            target=httpd.shutdown, daemon=True).start())
+            target=drain_then_stop, name="drain", daemon=True).start())
     try:
         httpd.serve_forever()
     except KeyboardInterrupt:

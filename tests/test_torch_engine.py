@@ -123,17 +123,30 @@ def test_sampled_lanes_are_deterministic_per_seed():
 
 
 def test_oversized_request_and_unported_options_raise():
-    _, _, tmodel = _models(num_pages=4)
+    jmodel, params, tmodel = _models(num_pages=4)
     eng = ContinuousEngine(tmodel, num_slots=2, chunk=2, buckets=(16,))
     with pytest.raises(ValueError, match="KV pages"):
         eng.submit(np.arange(1, 11, dtype=np.int32), max_new_tokens=110)
-    with pytest.raises(NotImplementedError, match="deadlines"):
-        eng.submit([1, 2], max_new_tokens=2, deadline_s=1.0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ContinuousEngine(tmodel, tenant_weights=2)
+    # deadlines and tenant weights are checked as the JAX engine checks
+    # them: a nonpositive deadline and a malformed weight map raise the
+    # same error type in both
+    jeng = JaxEngine(jmodel, params, num_slots=2, chunk=2, buckets=(16,))
+    for bad in (0.0, -1.0):
+        with pytest.raises(ValueError, match="deadline_s"):
+            jeng.submit([1, 2], max_new_tokens=2, deadline_s=bad)
+        with pytest.raises(ValueError, match="deadline_s"):
+            eng.submit([1, 2], max_new_tokens=2, deadline_s=bad)
+    for weights, err in ((2, AttributeError), ({"a": 0}, ValueError),
+                         ({"a": "x"}, ValueError)):
+        with pytest.raises(err):
+            JaxEngine(jmodel, params, tenant_weights=weights)
+        with pytest.raises(err):
+            ContinuousEngine(tmodel, tenant_weights=weights)
+    with pytest.raises(ValueError, match="schedule"):
+        ContinuousEngine(tmodel, schedule="shortest")
     with pytest.raises(ValueError, match="spec_tokens"):
         ContinuousEngine(tmodel, spec_tokens=-1)
-    with pytest.raises(TypeError, match="unexpected engine option"):
+    with pytest.raises(TypeError, match="unexpected keyword argument"):
         ContinuousEngine(tmodel, announce=True)
     with pytest.raises(ValueError, match="pipeline_depth"):
         ContinuousEngine(tmodel, pipeline_depth=-1)

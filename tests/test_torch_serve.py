@@ -159,12 +159,12 @@ def test_score_matches_jax(bundles, http):
         np.testing.assert_allclose(scores[i]["nll"], ref[r], rtol=1e-4)
 
 
-@pytest.mark.parametrize("body", [
-    {"prompts": ["hi"], "num_beams": 2},
-    {"prompts": ["hi"], "stream": True},
+@pytest.mark.parametrize("path,body", [
+    ("/v1/generate", {"prompts": ["hi"], "num_beams": 2}),
+    ("/admin/reload", {"bundle": "/nowhere"}),
 ])
-def test_unported_features_answer_400(http, body):
-    status, reply = _call(http, "/v1/generate", body)
+def test_unported_features_answer_400(http, path, body):
+    status, reply = _call(http, path, body)
     assert status == 400 and "not yet ported" in reply["error"]
 
 
