@@ -141,6 +141,30 @@
    ``/livez`` live; (g) ``/loadz``'s key set == the contract's 17 keys
    on every server; K1's decode and chunk variants, K2f, K3 and the
    graph replays must all move;
+4h. the replica's operator contract on phase 4's bundle (the f32 gates
+   on the 2-layer cut): (a) ``num_beams`` 4 over HTTP, 4 prompts of 64
+   tokens, 64 new tokens: bf16 ``beam_score`` within 2e-2 of the plain
+   model's rescoring of the sequence, f32 sequences and scores == the
+   search with ``use_kernels=False`` (1e-5), K2f and K3 moving, ms a new
+   token printed; (b) ``POST /admin/reload`` to a second bundle
+   (generation 2) under 8 open streams: exactly one terminal a stream,
+   generation 2 on ``/healthz`` and ``/loadz``, tokens == a fresh
+   server's on that bundle (bf16 and f32), 409 during a reload, a
+   failing load (502, nothing swapped) and a failing canary (502,
+   rolled back) leave the old generation serving; the reload's wall
+   and the first request's after it printed; (c) ``/admin/profile``
+   for 4 steps under traffic: the Chrome trace names K1's decode kernel,
+   ``profile_trace_written`` carries the step window, a second capture
+   while armed 409; (d) ``--step-timeout 0.5`` with one device step held
+   2 s: every waiter's ``EngineWedged`` within the timeout plus one
+   poll, ``/livez`` 503 while wedged, the rebuild's recaptured graphs
+   give the tokens of before, the reap counter and the heartbeat move;
+   (e) ``/metrics``' request and token counters == the phase's own, one
+   trace per ``X-Request-Id`` sent, ``runtime_live_array_bytes`` > 0,
+   new tokens/s traced against untraced in turns; (f) a bundle naming a
+   locally trained BPE tokenizer serves ``/v1/generate``; the card's
+   allocated memory after two more reloads within 5% of its level after
+   a warm-up before them (the main server alone);
 6. training main path: ``lm_pretrain.main`` on a seeded synthetic text
    corpus at the GPT-small width (hidden 768, 12 layers, 12 heads, FFN
    3072, seq 512, batch 16, bf16, Adam 3e-4), 2 epochs x 10 steps with
@@ -199,6 +223,7 @@ prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -3185,6 +3210,671 @@ def run_fleet_contract(torch, dev, counters=None):
     return launches
 
 
+# -- phase 4h: the operator contract ------------------------------------------
+
+ADMIN_TOKEN = "chip-smoke-admin"
+
+
+def _hf_tokenizer_dir(path: Path, vocab: int = 512, seed: int = 0) -> str:
+    """A byte-level BPE of at most ``vocab`` tokens trained on generated
+    text, saved with ``save_pretrained`` (no download)."""
+    from tokenizers import Tokenizer, decoders, models, pre_tokenizers, \
+        trainers
+    from transformers import PreTrainedTokenizerFast
+
+    rng = random.Random(seed)
+    text = [_prompt(rng, 120) for _ in range(400)]
+    tok = Tokenizer(models.BPE(unk_token="<unk>"))
+    tok.pre_tokenizer = pre_tokenizers.ByteLevel(add_prefix_space=False)
+    tok.decoder = decoders.ByteLevel()
+    tok.train_from_iterator(text, trainers.BpeTrainer(
+        vocab_size=vocab, special_tokens=["<pad>", "<eos>", "<unk>"],
+        initial_alphabet=pre_tokenizers.ByteLevel.alphabet()))
+    PreTrainedTokenizerFast(
+        tokenizer_object=tok, eos_token="<eos>", pad_token="<pad>",
+        unk_token="<unk>").save_pretrained(str(path))
+    return str(path)
+
+
+def _traceparent(i: int) -> tuple:
+    tid = f"{0x5eed0000 + i:032x}"
+    return tid, f"00-{tid}-{0xab00 + i:016x}-01"
+
+
+def _metric(url: str, name: str) -> float:
+    """One unlabeled sample of ``/metrics``."""
+    with urllib.request.urlopen(url + "/metrics", timeout=60) as resp:
+        for line in resp.read().decode().splitlines():
+            if line.startswith(name + " "):
+                return float(line.split()[1])
+    raise SmokeFailure(f"/metrics has no sample {name}")
+
+
+def _greedy(url: str, prompts, new: int) -> list:
+    """Each prompt alone (one admission route a request, so bf16 tokens
+    compare exactly): the completions."""
+    out = []
+    for p in prompts:
+        status, _, body = _call(url, "/v1/generate", {"prompt": p,
+                                                      "max_new_tokens": new})
+        check(status == 200, f"a greedy request answered {status} {body}")
+        out.append(body["completions"][0]["completion"])
+    return out
+
+
+def _rescore(torch, model, seq, s_prompt: int, eos) -> float:
+    """The length-penalised log-probability (alpha 1) of one beam's
+    generated tokens under ``model``: up to and including the first eos,
+    as the beam search scores it."""
+    gen = seq[s_prompt:].tolist()
+    n = gen.index(eos) + 1 if eos is not None and eos in gen else len(gen)
+    ids = torch.tensor([seq[:s_prompt + n].tolist()], device=model.device)
+    with torch.inference_mode():
+        logp = torch.log_softmax(model(ids)[0].float(), dim=-1)
+    pos = torch.arange(s_prompt - 1, s_prompt + n - 1, device=model.device)
+    total = logp[pos, ids[0, pos + 1]].sum().item()
+    return total / ((5.0 + n) / 6.0)
+
+
+def _plain_model(torch, dev, bundle):
+    from pyspark_tf_gke_tpu_torch.models.causal_lm import CausalLM
+    from pyspark_tf_gke_tpu_torch.train.export import load_serving_bundle
+
+    _, params, _ = load_serving_bundle(str(bundle), dev)
+    with torch.device(dev):
+        plain = CausalLM(_load_cfg(bundle), use_kernels=False)
+    return plain.load_params(params).eval()
+
+
+def _load_cfg(bundle):
+    from pyspark_tf_gke_tpu_torch.train.export import config_from_dict
+
+    return config_from_dict(json.loads(
+        (Path(bundle) / "config.json").read_text())["config"])
+
+
+@contextlib.contextmanager
+def _uncounted(counters):
+    """A reference computed on a served model beside the path (the
+    servers idle meanwhile): every launch count, K1's variants and the
+    graph replays are put back as they were on entry."""
+    from pyspark_tf_gke_tpu_torch.ops import graphs
+    from pyspark_tf_gke_tpu_torch.ops import paged_attention as pa
+
+    counts = {name: getattr(mod, attr)
+              for name, (mod, attr) in counters.items()}
+    variants, replays = dict(pa.variant_launches), graphs.replays
+    try:
+        yield
+    finally:
+        for name, (mod, attr) in counters.items():
+            setattr(mod, attr, counts[name])
+        pa.variant_launches.update(variants)
+        graphs.replays = replays
+
+
+def _beam_text(tokenizer, prompt: str, seq, s_prompt: int, eos) -> str:
+    """The completion the server returns for one beam's sequence: the
+    prompt and the decoded new tokens up to the first eos."""
+    gen = seq[s_prompt:].tolist()
+    if eos is not None and eos in gen:
+        gen = gen[:gen.index(eos)]
+    return prompt + tokenizer.decode(gen)
+
+
+def _op_beams(torch, dev, served, b32, rng, counters):
+    """(a): beam search over HTTP, bf16 at full width and the f32 cut.
+    The references on the served models run outside the path's counts."""
+    from pyspark_tf_gke_tpu_torch.models.beam_search import beam_search
+    from pyspark_tf_gke_tpu_torch.ops import flash_attention as fa
+    from pyspark_tf_gke_tpu_torch.ops import layernorm as ln
+
+    server, url = served["main"][0], served["main"][3]
+    prompts = [_prompt(rng, 64) for _ in range(4)]
+    body = {"prompts": prompts, "max_new_tokens": 64, "num_beams": 4}
+    k2, k3 = fa.launches, ln.launches
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    status, _, out = _call(url, "/v1/generate", body)
+    torch.cuda.synchronize()
+    beam_s = time.perf_counter() - t0
+    check(status == 200, f"phase 4h (a): beams answered {status} {out}")
+    check(fa.launches > k2 and ln.launches > k3,
+          "phase 4h (a): beam search launched no K2f or K3")
+    # the served model's own search on the same prompts must return the
+    # HTTP completions; the plain model rescores those sequences
+    ids = torch.tensor([list(p.encode()) for p in prompts])
+    tok = server.tokenizer
+    eos = tok.eos_id
+    with _uncounted(counters):
+        seqs, scores = beam_search(server.model, ids, 64, num_beams=4,
+                                   eos_token_id=eos)
+    plain = _plain_model(torch, dev, served["main"][4])
+    worst = 0.0
+    for i, entry in enumerate(out["completions"]):
+        check(entry["completion"] == _beam_text(tok, prompts[i], seqs[i],
+                                                64, eos),
+              "phase 4h (a): an HTTP completion is not the served model's "
+              "search's sequence")
+        check(abs(entry["beam_score"] - scores[i].item()) < 1e-3,
+              f"phase 4h (a): HTTP beam_score {entry['beam_score']} != the "
+              f"server model's search {scores[i].item()}")
+        ref = _rescore(torch, plain, seqs[i].cpu(), 64, eos)
+        worst = max(worst, abs(entry["beam_score"] - ref))
+    del plain
+    check(worst <= 2e-2, f"phase 4h (a): bf16 beam_score against the plain "
+          f"model's rescoring differs by {worst}")
+    # f32: the served search == the plain search, sequences and scores
+    url32, server32 = served["ref32"][3], served["ref32"][0]
+    status, _, out32 = _call(url32, "/v1/generate", body)
+    check(status == 200, f"phase 4h (a): f32 beams answered {status}")
+    plain32 = _plain_model(torch, dev, b32)
+    want, want_sc = beam_search(plain32, ids, 64, num_beams=4,
+                                eos_token_id=eos)
+    del plain32
+    with _uncounted(counters):
+        got, got_sc = beam_search(server32.model, ids, 64, num_beams=4,
+                                  eos_token_id=eos)
+    check(torch.equal(got.cpu(), want.cpu()), "phase 4h (a): f32 beam "
+          "sequences with kernels != use_kernels=False")
+    err32 = (got_sc - want_sc).abs().max().item()
+    for i, entry in enumerate(out32["completions"]):
+        check(entry["completion"] == _beam_text(server32.tokenizer,
+                                                prompts[i], want[i], 64, eos),
+              "phase 4h (a): an f32 HTTP completion != use_kernels=False")
+        err32 = max(err32, abs(entry["beam_score"] - want_sc[i].item()))
+    check(err32 <= 1e-5, f"phase 4h (a): f32 beam scores differ by {err32}")
+    ms_tok = beam_s * 1e3 / 64
+    log(f"  (a) beams 4, 4 prompts of 64 tokens, 64 new tokens: bf16 "
+        f"{ms_tok:.2f} ms a new token ({beam_s:.2f} s over HTTP; the dense "
+        f"cache reordered every step), completions == the served model's "
+        f"search, beam_score vs the plain model's rescoring within "
+        f"{worst:.2e}; f32 2-layer: HTTP and kernel sequences == "
+        f"use_kernels=False, scores within {err32:.1e}; on {CARD}")
+    return ms_tok
+
+
+def _op_reload(torch, dev, served, bundles, rng):
+    """(b): a hot swap under 8 open streams, the generation, the swapped
+    tokens against fresh servers, 409, the two rollbacks."""
+    from pyspark_tf_gke_tpu_torch.chaos import inject
+
+    server, url = served["main"][0], served["main"][3]
+    admin = {"X-Admin-Token": ADMIN_TOKEN}
+    # 8 streams open, then the reload
+    results = [None] * 8
+
+    def stream(i):
+        results[i] = _sse(url, {"prompt": _prompt(random.Random(40 + i), 60),
+                                "stream": True, "max_new_tokens": 200})
+
+    flight = [threading.Thread(target=stream, args=(i,)) for i in range(8)]
+    for t in flight:
+        t.start()
+    check(_wait(lambda: _call(url, "/loadz")[2]["active"] >= 8, 60),
+          "phase 4h (b): the 8 streams never all got slots")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    status, _, rel = _call(url, "/admin/reload",
+                           {"bundle": str(bundles["b16_2"]), "generation": 2},
+                           headers=admin)
+    reload_s = time.perf_counter() - t0
+    check(status == 200 and rel["bundle_generation"] == 2,
+          f"phase 4h (b): reload answered {status} {rel}")
+    for t in flight:
+        t.join(600)
+    ended = 0
+    for events, done, _, _ in results:
+        terminals = [e for e in events if e.get("done") or "error" in e]
+        check(done and len(terminals) == 1,
+              f"phase 4h (b): a stream across the reload had "
+              f"{len(terminals)} terminals (done {done})")
+        last = terminals[0]
+        check(last.get("done") or "reload" in last.get("error", ""),
+              f"phase 4h (b): a stream ended with {last}")
+        ended += bool(last.get("done"))
+    for path in ("/healthz", "/loadz"):
+        check(_call(url, path)[2]["bundle_generation"] == 2,
+              f"phase 4h (b): {path} does not read generation 2")
+    t0 = time.perf_counter()
+    check(_call(url, "/v1/generate", {"prompt": "first after", 
+                                      "max_new_tokens": 16})[0] == 200,
+          "phase 4h (b): the first request after the reload failed")
+    first_s = time.perf_counter() - t0
+    # the swapped server's tokens against a fresh one on bundle 2
+    prompts = [_prompt(rng, n) for n in (30, 90, 180, 400)]
+    fresh = _serve_bundle(torch, dev, bundles["b16_2"])
+    try:
+        same16 = _greedy(url, prompts, 32) == _greedy(fresh[3], prompts, 32)
+    finally:
+        _unserve(*fresh[:3])
+    check(same16, "phase 4h (b): bf16 tokens after the reload differ from "
+          "a fresh server's on bundle 2")
+    url32 = served["ref32"][3]
+    check(_call(url32, "/admin/reload", {"bundle": str(bundles["b32_2"]),
+                                         "generation": 2},
+                headers=admin)[0] == 200, "phase 4h (b): f32 reload")
+    fresh = _serve_bundle(torch, dev, bundles["b32_2"])
+    try:
+        same32 = _greedy(url32, prompts, 32) == _greedy(fresh[3], prompts, 32)
+    finally:
+        _unserve(*fresh[:3])
+    check(same32, "phase 4h (b): f32 tokens after the reload differ from a "
+          "fresh server's on bundle 2")
+    # 409 while one is in flight (the second reload goes back to bundle 1)
+    holder = {}
+    t = threading.Thread(target=lambda: holder.update(r=_call(
+        url, "/admin/reload", {"bundle": str(bundles["b16"]),
+                               "generation": 3}, headers=admin)))
+    t.start()
+    check(_wait(server._reload_lock.locked, 30),
+          "phase 4h (b): the second reload never started")
+    status, _, body = _call(url, "/admin/reload",
+                            {"bundle": str(bundles["b16"])}, headers=admin)
+    t.join(600)
+    check(status == 409, f"phase 4h (b): a reload during a reload answered "
+          f"{status} {body}")
+    check(holder["r"][0] == 200 and holder["r"][2]["bundle_generation"] == 3,
+          f"phase 4h (b): the second reload answered {holder['r']}")
+    before = _greedy(url, prompts[:2], 16)
+    # a load that keeps failing: nothing swaps
+    inject.install(inject.ChaosInjector.from_spec("bundle.load:fail%1x3"))
+    try:
+        status, _, body = _call(url, "/admin/reload",
+                                {"bundle": str(bundles["b16_2"])},
+                                headers=admin)
+    finally:
+        inject.uninstall()
+    check(status == 502 and body["rolled_back"] is False
+          and body["bundle_generation"] == 3,
+          f"phase 4h (b): a failing load answered {status} {body}")
+    # a canary that raises (its admission): the swap rolls back, and the
+    # engine it built and dropped leaves nothing allocated behind it
+    mem_pre = _allocated(torch, dev)
+    inject.install(inject.ChaosInjector.from_spec("engine.admit:fail@1"))
+    try:
+        status, _, body = _call(url, "/admin/reload",
+                                {"bundle": str(bundles["b16_2"])},
+                                headers=admin)
+    finally:
+        inject.uninstall()
+    check(status == 502 and body["rolled_back"] is True
+          and body["bundle_generation"] == 3,
+          f"phase 4h (b): a failing canary answered {status} {body}")
+    check(_greedy(url, prompts[:2], 16) == before
+          and _call(url, "/loadz")[2]["bundle_generation"] == 3,
+          "phase 4h (b): after the rollbacks the old generation does not "
+          "serve its tokens")
+    mem_post = _allocated(torch, dev)  # the rebuilt engine's graphs taken
+    check(abs(mem_post - mem_pre) <= 0.05 * mem_pre,
+          f"phase 4h (b): allocated memory {mem_post / 2**20:.1f} MiB after "
+          f"the failing canary's rollback against {mem_pre / 2**20:.1f} MiB "
+          f"before it")
+    log(f"  (b) reload under 8 open streams: {ended}/8 streams finished "
+        f"with their tokens, the others 503 reloading, each exactly one "
+        f"terminal; wall {reload_s:.2f} s (load {rel['timings_s']['load']:.2f}, "
+        f"drain + swap {rel['timings_s']['swap']:.2f}, canary "
+        f"{rel['timings_s']['canary']:.2f}: the new engine's first step and "
+        f"its graph capture); the first request after it {first_s * 1e3:.1f} "
+        f"ms; generation 2 on /healthz and /loadz; tokens == a fresh "
+        f"server's on bundle 2 (bf16 and f32); a reload in flight: 409; a "
+        f"failing load: 502 nothing swapped; a failing canary: 502 rolled "
+        f"back, generation 3 serves as before, allocated "
+        f"{mem_pre / 2**20:.1f} -> {mem_post / 2**20:.1f} MiB "
+        f"({100 * (mem_post - mem_pre) / mem_pre:+.2f}%) across it; on "
+        f"{CARD}")
+    return reload_s, rel["timings_s"], first_s
+
+
+def _op_profile(torch, served, rng, out_dir: Path):
+    """(c): /admin/profile over 4 busy steps under traffic."""
+    url = served["main"][3]
+    admin = {"X-Admin-Token": ADMIN_TOKEN}
+    status, _, armed = _call(url, "/admin/profile",
+                             {"steps": 4, "output_dir": str(out_dir)},
+                             headers=admin)
+    check(status == 202 and armed["armed"],
+          f"phase 4h (c): /admin/profile answered {status} {armed}")
+    status, _, _ = _call(url, "/admin/profile", {"steps": 4}, headers=admin)
+    check(status == 409, f"phase 4h (c): a second capture while armed "
+          f"answered {status}")
+    outs = []
+    flight = [threading.Thread(target=lambda i=i: outs.append(_call(
+        url, "/v1/generate", {"prompt": _prompt(random.Random(60 + i), 80),
+                              "max_new_tokens": 96})[0])) for i in range(8)]
+    for t in flight:
+        t.start()
+    for t in flight:
+        t.join(600)
+    check(outs == [200] * 8, f"phase 4h (c): traffic answered {outs}")
+
+    def written():
+        evs = _call(url, "/events?n=50")[2]["events"]
+        return [e for e in evs if e["kind"] == "profile_trace_written"]
+
+    check(_wait(lambda: bool(written()), 60),
+          "phase 4h (c): no profile_trace_written event")
+    ev = written()[-1]
+    check(ev["step_seq_last"] - ev["step_seq_first"] >= 3
+          and ev["trace_file"], f"phase 4h (c): the event is {ev}")
+    text = Path(ev["trace_file"]).read_text()
+    check("paged_decode" in text, "phase 4h (c): the written Chrome trace "
+          "names no K1 decode kernel")
+    log(f"  (c) /admin/profile steps 4: 202, a second one 409; the Chrome "
+        f"trace ({len(text) / 1e6:.1f} MB) covers steps "
+        f"{ev['step_seq_first']}..{ev['step_seq_last']} with "
+        f"{len(ev['trace_ids'])} trace ids and names K1's decode kernel")
+
+
+def _op_watchdog(torch, dev, b32, hb: Path):
+    """(d): one device step held 2 s under --step-timeout 0.5 (the f32
+    2-layer cut: its graph capture stays far inside the timeout)."""
+    from pyspark_tf_gke_tpu_torch.chaos import inject
+    from pyspark_tf_gke_tpu_torch.obs.metrics import MetricsRegistry
+
+    wd = _serve_bundle(torch, dev, b32, live_stall_s=1.0,
+                       heartbeat_file=str(hb), registry=MetricsRegistry())
+    server, url = wd[0], wd[3]
+    front = server._front
+    try:
+        prompt = _prompt(random.Random(7), 50)
+        before = _greedy(url, [prompt], 48)
+        beat0 = json.loads(hb.read_text())["step"]
+        front.step_timeout_s = 0.5  # armed after the warm-up's capture
+        http_reply = {}
+
+        def ask():
+            status, _, body = _call(url, "/v1/generate", {
+                "prompt": _prompt(random.Random(70), 40),
+                "max_new_tokens": 600})
+            http_reply.update(status=status, body=body,
+                              t=time.perf_counter())
+
+        asker = threading.Thread(target=ask)
+        asker.start()
+        rids = [front.submit(list(_prompt(random.Random(71 + i),
+                                          40).encode()), 600)
+                for i in range(3)]
+        check(_wait(lambda: _call(url, "/loadz")[2]["active"] == 4, 10),
+              "phase 4h (d): the 4 waiters never all got slots")
+        # the next device step holds the driver loop (and its lock) 2 s
+        inject.install(inject.ChaosInjector.from_spec(
+            "engine.device_step:hang@1:2"))
+        t_hold = time.perf_counter()
+        waits = []
+
+        def waiter(rid):
+            try:
+                front.wait(rid, timeout_s=60)
+                waits.append(("ok", time.perf_counter() - t_hold))
+            except RuntimeError as exc:
+                waits.append((str(exc), time.perf_counter() - t_hold))
+
+        try:
+            ws = [threading.Thread(target=waiter, args=(r,)) for r in rids]
+            for w in ws:
+                w.start()
+            time.sleep(1.3)  # inside the hold, past --live-stall 1
+            live_status, _, live = _call(url, "/livez")
+            for w in ws:
+                w.join(60)
+            asker.join(60)
+        finally:
+            inject.uninstall()
+        check(live_status == 503 and live["wedged"],
+              f"phase 4h (d): /livez during the wedge: {live_status} {live}")
+        for what, wait_s in waits:
+            check("step_timeout" in what and wait_s <= 0.5 + 0.125 + 0.3,
+                  f"phase 4h (d): a waiter got {what!r} after {wait_s:.3f} "
+                  "s of the hold")
+        http_s = http_reply["t"] - t_hold
+        check(http_reply["status"] == 500
+              and "step_timeout" in http_reply["body"]["error"]
+              and http_s < 2.5, f"phase 4h (d): the HTTP waiter got "
+              f"{http_reply['status']} after {http_s:.2f} s")
+        check(_wait(lambda: _metric(url, "serve_engine_rebuilds_total") >= 1,
+                    10), "phase 4h (d): the engine did not rebuild")
+        after = _greedy(url, [prompt], 48)
+        graphs_n = front.stats()["decode_graphs"]
+        reaps = _metric(url, "serve_step_watchdog_reaps_total")
+        beat1 = json.loads(hb.read_text())["step"]
+    finally:
+        _unserve(*wd[:3])
+    check(after == before, "phase 4h (d): greedy tokens after the rebuild "
+          "differ from before the wedge")
+    check(graphs_n >= 1 and reaps >= 1 and beat1 > beat0,
+          f"phase 4h (d): graphs {graphs_n}, reaps {reaps}, heartbeat "
+          f"{beat0} -> {beat1}")
+    log(f"  (d) --step-timeout 0.5, one device step held 2 s with 4 requests "
+        f"in flight: 3 waiters got EngineWedged "
+        f"{', '.join(f'{w:.3f}' for _, w in sorted(waits))} s into the hold, "
+        f"the HTTP one 500 at {http_s:.2f} s; /livez 503 wedged during the "
+        f"hold; rebuilt, graphs recaptured ({graphs_n}), tokens == before; "
+        f"reaps {reaps:g}, heartbeat step {beat0} -> {beat1}")
+
+
+def _op_obs(torch, served, rng):
+    """(e): /metrics counters, /traces, the runtime gauges, traced
+    against untraced tokens/s."""
+    server, url = served["main"][0], served["main"][3]
+    names = ("serve_requests_total", "serve_generate_requests_total",
+             "serve_generate_tokens_total")
+    before = {n: _metric(url, n) for n in names}
+    tids, tokens = [], 0
+    for i in range(8):
+        tid, tp = _traceparent(i)
+        status, hdrs, body = _call(url, "/v1/generate", {
+            "prompt": _prompt(rng, 40), "max_new_tokens": 24},
+            headers={"traceparent": tp})
+        check(status == 200 and hdrs["X-Request-Id"] == tid,
+              f"phase 4h (e): X-Request-Id {hdrs['X-Request-Id']} != {tid}")
+        tokens += body["completions"][0]["new_tokens"]
+        tids.append(tid)
+    after = {n: _metric(url, n) for n in names}
+    check(after["serve_requests_total"] - before["serve_requests_total"] == 8
+          and after["serve_generate_requests_total"]
+          - before["serve_generate_requests_total"] == 8
+          and after["serve_generate_tokens_total"]
+          - before["serve_generate_tokens_total"] == tokens,
+          f"phase 4h (e): /metrics moved {before} -> {after}, the phase "
+          f"sent 8 requests for {tokens} tokens")
+    for tid in tids:
+        got = _call(url, f"/traces?trace_id={tid}")[2]["traces"]
+        check(len(got) == 1, f"phase 4h (e): /traces has {len(got)} traces "
+              f"for {tid}")
+        names_ = [e["name"] for e in got[0]["spans"][0]["events"]]
+        check(names_[:2] == ["queue_wait", "admission"]
+              and names_[-1] == "terminal",
+              f"phase 4h (e): a trace's events are {names_}")
+    live = _metric(url, "runtime_live_array_bytes")
+    check(live > 0, "phase 4h (e): runtime_live_array_bytes is 0")
+    rates = {"traced": [], "untraced": []}
+    for _ in range(2):
+        for mode, sample in (("traced", 1.0), ("untraced", 0.0)):
+            server.tracer.sample = sample
+            outs = []
+            flight = [threading.Thread(target=lambda i=i: outs.append(_call(
+                url, "/v1/generate", {"prompt": _prompt(
+                    random.Random(90 + i), 60), "max_new_tokens": 128})[2]))
+                for i in range(8)]
+            t0 = time.perf_counter()
+            for t in flight:
+                t.start()
+            for t in flight:
+                t.join(600)
+            dt = time.perf_counter() - t0
+            rates[mode].append(sum(o["completions"][0]["new_tokens"]
+                                   for o in outs) / dt)
+    server.tracer.sample = 1.0
+    # after a reload the canary's tenant makes the first client a second
+    # one: DWRR on, batched admission off (as in the JAX server)
+    fair = server._front.stats()["fair_active"]
+    log(f"  (e) /metrics requests +8, generate requests +8, tokens +{tokens} "
+        f"== the phase's own; /traces: one trace per X-Request-Id, each "
+        f"queue_wait, admission .. terminal; runtime_live_array_bytes "
+        f"{live:.0f}; 8 requests x 128 new tokens, new tokens/s traced "
+        f"(sample 1.0) {', '.join(f'{r:.1f}' for r in rates['traced'])}, "
+        f"untraced (0.0) {', '.join(f'{r:.1f}' for r in rates['untraced'])} "
+        f"(in turns; not gated; the engine's fair_active {fair}) on "
+        f"{CARD}")
+    return rates
+
+
+def _op_hf(torch, dev, root: Path):
+    """(f): a bundle whose tokenizer is a local Hugging Face directory."""
+    from pyspark_tf_gke_tpu_torch.models.causal_lm import init_params
+    from pyspark_tf_gke_tpu_torch.train.export import export_serving_bundle
+
+    tok_dir = _hf_tokenizer_dir(root / "hf_tokenizer")
+    cfg = dataclasses.replace(_serving_cfg(), num_layers=2)
+    bundle = root / "chip_smoke_hf_bundle"
+    export_serving_bundle(cfg, init_params(cfg, seed=3), str(bundle),
+                          tokenizer_spec=tok_dir)
+    hf = _serve_bundle(torch, dev, bundle)
+    try:
+        prompt = "paged attention on hopper"
+        status, _, body = _call(hf[3], "/v1/generate", {
+            "prompt": prompt, "max_new_tokens": 24})
+        tok = hf[0].tokenizer
+    finally:
+        _unserve(*hf[:3])
+        shutil.rmtree(bundle, ignore_errors=True)
+    entry = body["completions"][0] if status == 200 else body
+    check(status == 200 and entry["completion"].startswith(prompt)
+          and isinstance(entry["completion"], str),
+          f"phase 4h (f): the HF-tokenizer bundle answered {status} {entry}")
+    check(tok.decode(tok.encode(prompt)) == prompt,
+          "phase 4h (f): the tokenizer does not round-trip")
+    log(f"  (f) a bundle naming a local BPE tokenizer ({tok.vocab_size} "
+        f"tokens, save_pretrained): /v1/generate decodes "
+        f"{entry['new_tokens']} new tokens")
+
+
+def run_operator_contract(torch, dev, counters=None):
+    """Phase 4h: the replica's operator contract. Phase 4's bundle
+    (GPT-small, bf16, int8 export) behind ``BundleServer`` with an admin
+    token, a fresh registry and event trail, and every request traced;
+    the f32 gates on the same width cut to 2 layers. (a) beam search;
+    (b) hot reload under open streams, 409, rollbacks; (c)
+    ``/admin/profile``; (d) the step watchdog; (e) ``/metrics``,
+    ``/traces``, the runtime gauges, traced against untraced tokens/s;
+    (f) a Hugging Face tokenizer bundle. Then the card's allocated memory
+    after two more reloads against its level before them. Every
+    count is set to 0 before (a) and read after (f). Returns the launches
+    by kernel."""
+    from pyspark_tf_gke_tpu_torch.models.causal_lm import init_params
+    from pyspark_tf_gke_tpu_torch.obs.events import EventLog
+    from pyspark_tf_gke_tpu_torch.obs.metrics import MetricsRegistry
+    from pyspark_tf_gke_tpu_torch.ops import flash_attention as fa
+    from pyspark_tf_gke_tpu_torch.ops import graphs
+    from pyspark_tf_gke_tpu_torch.ops import layernorm as ln
+    from pyspark_tf_gke_tpu_torch.ops import paged_attention as pa
+    from pyspark_tf_gke_tpu_torch.train.export import export_serving_bundle
+
+    if counters is None:
+        counters = {"layernorm": (ln, "launches"),
+                    "flash_attention_fwd": (fa, "launches"),
+                    "paged_attention": (pa, "launches")}
+    t_phase = time.perf_counter()
+    cfg = _serving_cfg()
+    cfg32 = dataclasses.replace(cfg, num_layers=2, dtype=torch.float32)
+    root = PORT_PKG / "_build" / "chip_smoke_ops"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    bundles = {"b16": root / "b16", "b16_2": root / "b16_2",
+               "b32": root / "b32", "b32_2": root / "b32_2"}
+    for name, c, seed in (("b16", cfg, 0), ("b16_2", cfg, 5),
+                          ("b32", cfg32, 1), ("b32_2", cfg32, 6)):
+        export_serving_bundle(c, init_params(c, seed=seed),
+                              str(bundles[name]), quantize=c is cfg,
+                              extra_meta={"pipeline_generation": 1})
+    served = {}
+    try:
+        served["main"] = _serve_bundle(
+            torch, dev, bundles["b16"], admin_token=ADMIN_TOKEN,
+            registry=MetricsRegistry(), trace_sample=1.0, trace_slow_ms=0.0,
+            event_log=EventLog(str(root / "events.jsonl")))
+        served["main"] += (bundles["b16"],)
+        raw0 = _allocated(torch, dev)
+        served["ref32"] = _serve_bundle(torch, dev, bundles["b32"],
+                                        admin_token=ADMIN_TOKEN,
+                                        registry=MetricsRegistry())
+        setup_s = time.perf_counter() - t_phase
+        rng = random.Random(8)
+        torch.cuda.synchronize()
+        for mod, attr in counters.values():
+            setattr(mod, attr, 0)
+        for variant in pa.variant_launches:
+            pa.variant_launches[variant] = 0
+        graphs.replays = 0
+        t_drive = time.perf_counter()
+        beam_ms = _op_beams(torch, dev, served, bundles["b32"], rng,
+                           counters)
+        reload = _op_reload(torch, dev, served, bundles, rng)
+        _op_profile(torch, served, rng, root / "profile")
+        _op_watchdog(torch, dev, bundles["b32"], root / "heartbeat.json")
+        rates = _op_obs(torch, served, rng)
+        _op_hf(torch, dev, root)
+        torch.cuda.synchronize()
+        drive_s = time.perf_counter() - t_drive
+        launches = {name: getattr(mod, attr)
+                    for name, (mod, attr) in counters.items()}
+        variants = dict(pa.variant_launches)
+        replays = graphs.replays
+        _unserve(*served.pop("ref32")[:3])
+        mem0, mem2 = _reload_memory(torch, dev, served, bundles)
+    finally:
+        for entry in served.values():
+            _unserve(*entry[:3])
+        shutil.rmtree(root, ignore_errors=True)
+    check(abs(mem2 - mem0) <= 0.05 * mem0,
+          f"phase 4h: allocated memory {mem2 / 2**20:.1f} MiB after the "
+          f"reloads against {mem0 / 2**20:.1f} MiB after the first warm-up")
+    log(f"  allocated on the card, the main server alone: {mem0 / 2**20:.1f} "
+        f"MiB after a warm-up, {mem2 / 2**20:.1f} MiB after two more reloads "
+        f"({100 * (mem2 - mem0) / mem0:+.2f}%); {raw0 / 2**20:.1f} MiB at "
+        f"the phase's first warm-up (not compared: other servers' threads "
+        f"come and go in between, each cuBLAS handle with its workspaces)")
+    log(f"  launches in 4h: {launches}; K1 by variant {variants}; decode "
+        f"graph replays {replays}; set-up {setup_s:.1f} s, driven "
+        f"{drive_s:.1f} s")
+    for name, n in launches.items():
+        check(n > 0, f"kernel {name} was not launched in phase 4h")
+    check(replays > 0, "phase 4h: no decode graph replayed")
+    return launches, {"beam_ms_per_token": beam_ms, "reload_s": reload[0],
+                      "reload_timings_s": reload[1],
+                      "first_after_reload_s": reload[2], "rates": rates}
+
+
+def _allocated(torch, dev) -> int:
+    """Bytes allocated on the card after a collection (an engine's graphs
+    hold their engine in a reference cycle)."""
+    import gc
+
+    gc.collect()
+    torch.cuda.synchronize()
+    return torch.cuda.memory_allocated(dev)
+
+
+def _reload_memory(torch, dev, served, bundles):
+    """The card's allocated memory after a warm-up against its level
+    after two more reloads, each followed by a request that recaptures
+    the graphs: only the main server is up and only its driver thread
+    runs cuBLAS, so the workspaces cuBLAS keeps for each thread's handle
+    (for the process's life) are the same at both readings."""
+    url = served["main"][3]
+    admin = {"X-Admin-Token": ADMIN_TOKEN}
+    prompt = [_prompt(random.Random(5), 40)]
+    _greedy(url, prompt, 16)
+    mem0 = _allocated(torch, dev)
+    for key, gen in (("b16_2", 4), ("b16", 5)):
+        status, _, body = _call(url, "/admin/reload",
+                                {"bundle": str(bundles[key]),
+                                 "generation": gen}, headers=admin)
+        check(status == 200, f"phase 4h: reload answered {status} {body}")
+        _greedy(url, prompt, 16)
+    return mem0, _allocated(torch, dev)
+
 # -- phase 6: the training main path ------------------------------------------
 
 CORPUS_WORDS = ("flash", "attention", "kernel", "hopper", "gradient",
@@ -4132,6 +4822,11 @@ def main() -> int:
         "server, deadlines, tenants, drain, /loadz")
     fleet_launches = run_fleet_contract(torch, dev, serve_counters)
     torch.cuda.empty_cache()
+    log("== 4h. the replica's operator contract: beam search, hot reload "
+        "with canary and rollback, /admin/profile, the step watchdog, "
+        "/metrics /events /traces, a Hugging Face tokenizer")
+    ops_launches, _ = run_operator_contract(torch, dev, serve_counters)
+    torch.cuda.empty_cache()
     log("== 6. training main path: lm_pretrain, GPT-small width, bf16, "
         "batch 16 x 512")
     train_launches, _ = run_training(torch, dev, train_counters)
@@ -4200,6 +4895,7 @@ def main() -> int:
                     "serve_radix": radix_launches.get(name, 0),
                     "serve_spec": spec_launches.get(name, 0),
                     "serve_fleet": fleet_launches.get(name, 0),
+                    "serve_ops": ops_launches.get(name, 0),
                     "lm_train": train_launches.get(name, 0),
                     "lm_train_1280": wide_launches.get(name, 0),
                     "lm_train_d128": d128_launches.get(name, 0),

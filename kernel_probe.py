@@ -84,7 +84,19 @@ editing a ``.cu`` file, and for the experiments PERF.md reports.
     python3 kernel_probe.py paged-accuracy
         bf16 K1 and its plain version against an f64 reference at the
         checked shape and the 256-token piece: output elements a bf16
-        rounding away from it.
+        rounding away from it;
+    python3 kernel_probe.py serve-path
+        chip_smoke's phase 4 three times and phase 4b of the tree this
+        file sits in (the served path's new tokens/s, a replayed decode
+        chunk's device time and wall): copied into an unpacked parent
+        commit, it runs
+        that commit's serving path, so parent and change compare in one
+        call, in turns.
+    python3 kernel_probe.py cublas-workspace
+        ``torch.cuda.memory_allocated`` around one bf16 GEMM on the main
+        thread, on threads started one after another, on four threads
+        alive at once (twice) and on a thread with a stream of its own:
+        what cuBLAS keeps for each thread's handle and stream.
 
 Each exits non-zero without a CUDA device.
 """
@@ -798,6 +810,75 @@ def flash_widths(torch, dev, args) -> None:
               flush=True)
 
 
+def serve_path(torch, dev) -> None:
+    import chip_smoke as cs
+    from pyspark_tf_gke_tpu_torch.ops import flash_attention as fa
+    from pyspark_tf_gke_tpu_torch.ops import layernorm as ln
+    from pyspark_tf_gke_tpu_torch.ops import paged_attention as pa
+
+    print(cs.query_card(), ROOT, flush=True)
+    counters = {"layernorm": (ln, "launches"),
+                "flash_attention_fwd": (fa, "launches"),
+                "paged_attention": (pa, "launches")}
+    for _ in range(3):  # phase 4's aggregate is a ~0.7 s burst: repeat it
+        _, _, model = cs.run_main_path(torch, dev, counters,
+                                       cs._serving_cfg())
+    print("decode chunk wall median (ms), profiled (wall, device)",
+          cs.profile_engine(torch, model), flush=True)
+
+
+def cublas_workspace(torch, dev) -> None:
+    import gc
+    import json
+    import threading
+
+    import chip_smoke as cs
+
+    a = torch.randn(768, 768, device=dev, dtype=torch.bfloat16)
+
+    def mib() -> float:
+        gc.collect()
+        torch.cuda.synchronize(dev)
+        return torch.cuda.memory_allocated(dev) / 2**20
+
+    def gemm(own_stream=False) -> None:
+        stream = torch.cuda.Stream(dev) if own_stream else None
+        with torch.cuda.stream(stream):
+            (a @ a).float().sum().item()
+
+    def on_threads(n, own_stream=False) -> None:
+        gate = threading.Barrier(n)
+
+        def run():
+            gemm(own_stream)
+            gate.wait()  # every handle held until all n have run
+
+        threads = [threading.Thread(target=run) for _ in range(n)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+
+    base = mib()
+    rows = []
+    for what, fn in (
+            ("main thread, first GEMM", gemm),
+            ("main thread, second GEMM", gemm),
+            ("a new thread", lambda: on_threads(1)),
+            ("another new thread, after the first ended",
+             lambda: on_threads(1)),
+            ("4 threads alive at once", lambda: on_threads(4)),
+            ("4 threads alive at once, again", lambda: on_threads(4)),
+            ("a new thread on a stream of its own",
+             lambda: on_threads(1, own_stream=True))):
+        before = mib()
+        fn()
+        rows.append({"step": what, "delta_mib": mib() - before})
+    print(json.dumps({"card": cs.query_card(), "torch": torch.__version__,
+                      "base_mib": base, "rows": rows,
+                      "total_mib": mib() - base}), flush=True)
+
+
 def main(argv) -> int:
     import torch
 
@@ -824,6 +905,8 @@ def main(argv) -> int:
                 "dkv-modes": lambda: dkv_modes(torch, dev),
                 "paged-modes": lambda: paged_modes(torch, dev),
                 "paged-accuracy": lambda: paged_accuracy(torch, dev),
+                "serve-path": lambda: serve_path(torch, dev),
+                "cublas-workspace": lambda: cublas_workspace(torch, dev),
                 "flash-widths": lambda: flash_widths(torch, dev, argv[1:]),
                 "ln-widths": lambda: ln_widths(
                     torch, dev, [int(a) for a in argv[1:]])}

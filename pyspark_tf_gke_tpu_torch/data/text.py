@@ -2,8 +2,11 @@
 ``pyspark_tf_gke_tpu/data/text.py``).
 
 * ``ByteTokenizer``: UTF-8 bytes 0..255 plus ``<pad>``/``<bos>``/
-  ``<eos>`` (vocab 259). The Hugging Face adapter is not ported
-  (ROADMAP, P7/P8): any other tokenizer spec raises.
+  ``<eos>`` (vocab 259).
+* ``load_hf_tokenizer``: the adapter over a ``transformers``
+  ``AutoTokenizer`` (a local directory written by ``save_pretrained``, or
+  a name the local cache holds); ``transformers`` is imported only when
+  a bundle names such a tokenizer.
 * ``iter_documents`` / ``pack_tokens`` / ``lm_batches``: blank-line
   documents, eos-packed into fixed-length rows (optionally with
   per-document segment ids), through the same seeded reservoir shuffle
@@ -14,7 +17,7 @@
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Iterable, Iterator, List, Sequence
+from typing import Dict, Iterable, Iterator, List, Sequence, Union
 
 import numpy as np
 
@@ -41,12 +44,41 @@ class ByteTokenizer:
             "utf-8", errors="replace")
 
 
-def get_tokenizer(spec: str = "byte") -> ByteTokenizer:
+class HFTokenizerAdapter:
+    """Uniform facade (encode/decode/vocab_size/eos_id/pad_id) over a
+    ``transformers`` tokenizer, as the JAX package's."""
+
+    def __init__(self, tok):
+        self._tok = tok
+        self.eos_id = (tok.eos_token_id if tok.eos_token_id is not None
+                       else tok.sep_token_id or 0)
+        self.pad_id = tok.pad_token_id if tok.pad_token_id is not None else 0
+        self.vocab_size = int(len(tok))
+
+    def encode(self, text: str) -> List[int]:
+        return self._tok.encode(text, add_special_tokens=False)
+
+    def decode(self, ids: Sequence[int]) -> str:
+        return self._tok.decode(list(ids))
+
+
+def load_hf_tokenizer(name_or_path: str) -> HFTokenizerAdapter:
+    try:
+        from transformers import AutoTokenizer
+    except ImportError as exc:
+        raise ImportError(
+            "transformers is required for a tokenizer other than 'byte'"
+        ) from exc
+    return HFTokenizerAdapter(AutoTokenizer.from_pretrained(name_or_path))
+
+
+def get_tokenizer(spec: str = "byte"
+                  ) -> Union[ByteTokenizer, HFTokenizerAdapter]:
+    """``byte`` -> ByteTokenizer; anything else -> an ``AutoTokenizer``
+    name or directory."""
     if spec in ("", "byte"):
         return ByteTokenizer()
-    raise NotImplementedError(
-        f"tokenizer {spec!r}: only 'byte' is ported; the Hugging Face "
-        "adapter is queued in ROADMAP (queue 1, P7 and P8)")
+    return load_hf_tokenizer(spec)
 
 
 def iter_documents(pattern: str, *, process_index: int = 0,

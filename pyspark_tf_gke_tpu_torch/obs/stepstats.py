@@ -237,11 +237,25 @@ class StepStatsRing:
              peak_flops: float = 0.0) -> "StepStatsRing":
         """Attach metric handles (a ``platform_families`` dict) and
         the MFU inputs; re-binding (engine rebuild) is fine — last
-        bind wins."""
+        bind wins. The windowed gauges (``serve_device_idle_fraction``,
+        ``serve_mfu``) read this ring when scraped, so a step pays only
+        its histogram observations."""
         self._obs = obs
         self.flops_per_token = float(flops_per_token or 0.0)
         self.peak_flops = float(peak_flops or 0.0)
+        if obs is not None:
+            g = obs.get("serve_device_idle_fraction")
+            if g is not None:
+                g.set_function(lambda: round(self.host_overhead_frac(), 4))
+            g = obs.get("serve_mfu")
+            if g is not None:
+                g.set_function(lambda: round(self._windowed(self._mfu_locked),
+                                             6))
         return self
+
+    def _windowed(self, fn) -> float:
+        with self._lock:
+            return fn()
 
     @property
     def next_seq(self) -> int:
@@ -295,7 +309,6 @@ class StepStatsRing:
                 h = self._obs.get("serve_step_phase_ms")
                 if h is not None:
                     h.labels(phase="deliver").observe(ms)
-                self._refresh_window_gauges_locked()
 
     def note_device_interval(self, t0: float, t1: float) -> None:
         """Record one device-busy interval: ``t0`` = chunk dispatch
@@ -491,15 +504,3 @@ class StepStatsRing:
         if h is not None:
             for name, ms in rec.phases.items():
                 h.labels(phase=name).observe(ms)
-        self._refresh_window_gauges_locked()
-
-    def _refresh_window_gauges_locked(self) -> None:
-        obs = self._obs
-        if obs is None:
-            return
-        g = obs.get("serve_device_idle_fraction")
-        if g is not None:
-            g.set(round(self._host_overhead_frac_locked(), 4))
-        g = obs.get("serve_mfu")
-        if g is not None:
-            g.set(round(self._mfu_locked(), 6))

@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import time
 from dataclasses import dataclass
-from typing import Callable, List, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence
 
 import torch
 
@@ -24,6 +24,11 @@ from pyspark_tf_gke_tpu_torch.ops import paged_attention as _pa
 _COUNTERS = ((_pa, "launches"), (_ln, "launches"))
 
 replays = 0  # graph replays since import (a caller may reset it)
+
+# one warm-up stream a device, shared by every capture: a stream's first
+# cuBLAS call allocates a workspace that lives as long as the process, so
+# a new stream a capture would leak one workspace an engine rebuild
+_warmup_streams: Dict[torch.device, "torch.cuda.Stream"] = {}
 
 
 def counter_values() -> list:
@@ -62,7 +67,9 @@ def capture(body: Callable[[], object], carried: Sequence[torch.Tensor],
     t0 = time.perf_counter()
     saved: List[torch.Tensor] = [t.clone() for t in carried]
     main = torch.cuda.current_stream(device)
-    side = torch.cuda.Stream(device)
+    side = _warmup_streams.get(device)
+    if side is None:
+        side = _warmup_streams[device] = torch.cuda.Stream(device)
     side.wait_stream(main)
     with torch.cuda.stream(side):
         body()

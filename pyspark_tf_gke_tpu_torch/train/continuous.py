@@ -87,6 +87,16 @@ route ``cancel`` takes, a piecewise admission drops its pages), and
 ``on_tokens`` receives each collected token group on the host, after the
 chunk's event (never from a captured region).
 
+Observability: the engine increments the JAX engine's ``serve_`` families
+(``obs``, a ``platform_families`` dict) at admission and collect
+boundaries, and annotates a traced request's span there (queue wait and
+admission, each prefill piece, the first token and each later token
+group, the ``spec`` summary and one terminal), as the JAX engine does;
+an untraced request costs one ``None`` check at each. The chaos points
+``engine.admit`` (after the page allocation) and ``engine.device_step``
+(on the host before each chunk's dispatch or graph replay, never inside
+a captured region) fire as the JAX engine's.
+
 The attribute names ``_queue``, ``_slots``, ``_admitting``,
 ``_inflight_q``, ``_page_refs``, ``_free_pages``, ``_slot_pages`` and
 ``radix`` match the JAX engine so its invariant checker can run here.
@@ -104,14 +114,17 @@ from typing import Callable, Deque, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from pyspark_tf_gke_tpu_torch.chaos.inject import chaos_fire
 from pyspark_tf_gke_tpu_torch.models import lanes
 from pyspark_tf_gke_tpu_torch.models.causal_lm import (CausalLM, DenseCache,
                                                        PagedKV,
                                                        _filter_logits)
 from pyspark_tf_gke_tpu_torch.models.speculative import (accept_and_correct,
                                                          emit_window)
+from pyspark_tf_gke_tpu_torch.obs.metrics import platform_families
 from pyspark_tf_gke_tpu_torch.obs.stepstats import (StepStatsRing,
                                                     flops_per_token)
+from pyspark_tf_gke_tpu_torch.obs.trace import annotate_request_shape
 from pyspark_tf_gke_tpu_torch.ops import graphs
 from pyspark_tf_gke_tpu_torch.utils.logging import get_logger
 
@@ -177,6 +190,11 @@ class _Request:
     # request while it still had budget
     spec_proposed: int = 0
     spec_accepted: int = 0
+    # the request's trace span (obs/trace.py, or None): the engine
+    # annotates its queue wait, admission, prefill pieces, first token,
+    # token groups and terminal onto it, never per token
+    span: Optional[object] = None
+    last_emit: Optional[float] = None  # time of the last token delivery
 
     def sampling(self) -> tuple:
         return (float(self.temperature),
@@ -931,6 +949,8 @@ class ContinuousEngine:
     order ("fifo" or "longest"), ``tenant_weights`` the DWRR weights of
     the tenants (a ``*`` entry for unnamed ones)."""
 
+    paged = True  # the JAX engine's flag (its invariant checker reads it)
+
     def __init__(self, model: CausalLM, num_slots: int = 8, chunk: int = 8,
                  eos_token_id: Optional[int] = None, pad_id: int = 0,
                  buckets: Sequence[int] = PAD_BUCKETS,
@@ -941,7 +961,8 @@ class ContinuousEngine:
                  tenant_weights: Optional[Dict[str, float]] = None,
                  stepstats: Optional[StepStatsRing] = None,
                  spec_tokens: int = 0,
-                 draft_model: Optional[CausalLM] = None):
+                 draft_model: Optional[CausalLM] = None,
+                 obs: Optional[dict] = None):
         cfg = model.cfg
         if not cfg.paged_kv:
             raise NotImplementedError(
@@ -1041,7 +1062,13 @@ class ContinuousEngine:
         self._step_prefill_tokens = 0  # this step's piece tokens
         self.stepstats = (stepstats if stepstats is not None
                           else StepStatsRing())
-        self.stepstats.bind(None, flops_per_token=flops_per_token(cfg))
+        # the metrics plane: the serving front passes its registry's
+        # handles; a direct caller gets the process registry's
+        self._obs = obs if obs is not None else platform_families()
+        self._obs["serve_slots_total"].set(num_slots)
+        self._obs["serve_prefill_inflight"].set(0)
+        self._obs["serve_kv_pages_total"].set(cfg.kv_num_pages)
+        self.stepstats.bind(self._obs, flops_per_token=flops_per_token(cfg))
         self._step_rec = None
         self._state = SlotState(model, num_slots, self.device)
         # speculative decoding: spec_tokens draft proposals a slot a
@@ -1079,10 +1106,11 @@ class ContinuousEngine:
                on_tokens: Optional[Callable[[List[int]], None]] = None,
                temperature: float = 0.0, top_p: Optional[float] = None,
                seed: int = 0, deadline_s: Optional[float] = None,
-               tenant: str = "default") -> int:
+               tenant: str = "default", span=None) -> int:
         """Queue a request; returns its id. ``on_tokens`` receives each
         collected token group, ``deadline_s`` (seconds from now) expires
-        it at a chunk boundary, ``tenant`` is its fairness identity."""
+        it at a chunk boundary, ``tenant`` is its fairness identity and
+        ``span`` its trace span (annotated at each state transition)."""
         if temperature and temperature < 0:
             raise ValueError(f"temperature must be >= 0, got {temperature}")
         if deadline_s is not None and deadline_s <= 0:
@@ -1117,13 +1145,20 @@ class ContinuousEngine:
             self._first_tenant = tenant
         elif not self._fair_active and tenant != self._first_tenant:
             self._fair_active = True  # two tenants seen: DWRR from here
+        # the request's shape onto its trace (idempotent with the serving
+        # front's earlier stamp; direct callers get it here)
+        annotate_request_shape(span, tenant=tenant,
+                               prompt_tokens=int(prompt.size),
+                               max_new_tokens=max_new_tokens,
+                               deadline_s=deadline_s)
         now = time.monotonic()
         req = _Request(next(self._rid), prompt, int(max_new_tokens),
                        tenant=tenant, enqueued_at=now, on_tokens=on_tokens,
                        temperature=float(temperature or 0.0), top_p=top_p,
                        seed=int(seed),
                        deadline=(now + float(deadline_s)
-                                 if deadline_s is not None else None))
+                                 if deadline_s is not None else None),
+                       span=span)
         if self.schedule == "longest":
             # keep the queue budget-descending; ties stay FIFO
             i = 0
@@ -1146,18 +1181,43 @@ class ContinuousEngine:
             if req.rid == rid:
                 req.done = True
                 del self._queue[i]
+                self._trace_terminal(req, "cancelled")
                 return True
         for slot, req in list(self._slots.items()):
             if req.rid == rid:
                 req.done = True
                 del self._slots[slot]
                 self._free_slot(slot)
+                self._trace_terminal(req, "cancelled")
                 return True
         if self._admitting is not None and self._admitting["req"].rid == rid:
-            self._admitting["req"].done = True
+            req = self._admitting["req"]
+            req.done = True
             self._drop_admitting()
+            self._trace_terminal(req, "cancelled")
             return True
         return False
+
+    @staticmethod
+    def _trace_terminal(req: _Request, outcome: str) -> None:
+        """The terminal span event of a transition other than delivery
+        (cancel, a rebuild's error, a reload's shed)."""
+        if req.span is not None:
+            req.span.event("terminal", rid=req.rid, outcome=outcome,
+                           new_tokens=len(req.tokens))
+
+    @staticmethod
+    def _trace_admit(req: _Request, slot: int, route: str,
+                     **fields) -> None:
+        """Span events at the moment a request wins a KV slot: the
+        measured queue wait and the admission route."""
+        sp = req.span
+        if sp is None:
+            return
+        sp.event("queue_wait", rid=req.rid,
+                 ms=round((time.monotonic() - req.enqueued_at) * 1000.0, 3))
+        sp.event("admission", rid=req.rid, slot=slot, route=route,
+                 **fields)
 
     # -- prefix cache: warm, export, import ------------------------------
     def _require_radix(self, what: str) -> None:
@@ -1341,6 +1401,9 @@ class ContinuousEngine:
     def _note_peak(self) -> None:
         used = self.model.cfg.kv_num_pages - len(self._free_pages)
         self._peak_pages_in_use = max(self._peak_pages_in_use, used)
+        self._obs["serve_kv_pages_in_use"].set(used)
+        self._obs["serve_kv_cache_bytes_per_layer"].set(
+            used * self._page_bytes_per_layer)
 
     def _ref_pages(self, pages) -> None:
         """+1 refcount on every page (a slot, an admission or the trie
@@ -1486,9 +1549,13 @@ class ContinuousEngine:
         self._n_prefill_tokens += int(lens.sum())
 
     def _admit_group(self, group: List[_Request], slots: List[int],
-                     sb: int, allocs: List[tuple]) -> None:
+                     sb: int, allocs: List[tuple], route: str) -> None:
         pages_b = np.stack([row for row, _ in allocs])
         try:
+            if route == "paged":
+                # chaos: a crash between the page allocation and the
+                # prefill landing (the except below returns every page)
+                chaos_fire("engine.admit", rid=group[0].rid)
             self._device_admit(group, slots, sb, pages_b)
         except BaseException:
             for _, taken in allocs:  # a failed admit must not leak pages
@@ -1497,6 +1564,7 @@ class ContinuousEngine:
         for slot, req, (_, taken) in zip(slots, group, allocs):
             self._slots[slot] = req
             self._slot_pages[slot] = taken
+            self._trace_admit(req, slot, route)
             if self.radix is not None:
                 self.radix.note(0)  # bucket admissions are misses
 
@@ -1532,7 +1600,7 @@ class ContinuousEngine:
         if len(group) < 2:
             return
         allocs = [self._alloc_pages(n) for n in needs]  # covered above
-        self._admit_group(group, free[:len(group)], sb0, allocs)
+        self._admit_group(group, free[:len(group)], sb0, allocs, "batch")
         del self._queue[:len(group)]
         for req in group:  # batched admission runs single-tenant only
             self._fair.tally(req)
@@ -1557,7 +1625,7 @@ class ContinuousEngine:
             sb, req.prompt.size, req.max_new_tokens))
         if alloc is None:
             return False
-        self._admit_group([req], [slot], sb, [alloc])
+        self._admit_group([req], [slot], sb, [alloc], "paged")
         return True
 
     def _start_paged_admission(self, slot: int, req: _Request,
@@ -1597,7 +1665,13 @@ class ContinuousEngine:
                 if a["cow"] is not None:
                     a["row"][len(shared)] = a["cow"][1]
                 a["fill"] = matched
+                self._obs["serve_prefix_cache_hits_total"].inc()
+                self._obs["serve_prefix_cache_hit_tokens_total"].inc(matched)
+        self._trace_admit(req, slot, "paged_chunked",
+                          prefix_hit_tokens=int(a["fill"]),
+                          cow=a["cow"] is not None)
         self._admitting = a
+        self._obs["serve_prefill_inflight"].set(1)
         self._advance_admission()
 
     def _advance_admission(self) -> None:
@@ -1669,10 +1743,15 @@ class ContinuousEngine:
         self._n_prefill_chunks += 1
         self._step_prefill_tokens += int(piece.size)
         self._n_prefill_tokens += int(piece.size)
+        self._obs["serve_prefill_chunk_tokens"].observe(piece.size)
+        if req.span is not None:
+            req.span.event("prefill_chunk", rid=req.rid,
+                           tokens=int(piece.size))
         if final:
             self._slots[a["slot"]] = req
             self._slot_pages[a["slot"]] = a["shared"] + a["pages"]
             self._admitting = None
+            self._obs["serve_prefill_inflight"].set(0)
 
     def _drop_admitting(self) -> None:
         """Abandon the piecewise admission (cancel, failed piece): every
@@ -1683,6 +1762,7 @@ class ContinuousEngine:
         a, self._admitting = self._admitting, None
         if a is None:
             return
+        self._obs["serve_prefill_inflight"].set(0)
         if a["cow"] is not None:
             self._unref_pages([a["cow"][0]])
         drop = list(a["shared"]) + list(a["pages"])
@@ -1777,6 +1857,7 @@ class ContinuousEngine:
                 keep.append(req)
         if expired:
             self._queue[:] = keep
+        queued_expired = len(expired)
         for slot, req in list(self._slots.items()):
             if req.deadline is not None and now > req.deadline:
                 req.done = True
@@ -1791,7 +1872,17 @@ class ContinuousEngine:
         for req in expired:
             req.expired = True
             req.done = True
-        self._n_deadline_expired += len(expired)
+            if req.span is not None:
+                req.span.event("terminal", rid=req.rid, outcome="deadline",
+                               new_tokens=len(req.tokens))
+        if expired:
+            self._n_deadline_expired += len(expired)
+            self._obs["serve_request_deadline_exceeded_total"].inc(
+                len(expired))
+            if queued_expired:
+                # expired before any device work: a shed
+                self._obs["serve_requests_rejected_total"].labels(
+                    reason="deadline").inc(queued_expired)
         return expired
 
     # -- queue introspection (the serving front's admission bounds) -------
@@ -1912,6 +2003,10 @@ class ContinuousEngine:
         ``size``-round spec chunk) over the current slots; returns the
         in-flight record (result handles and the slot->request snapshot
         the chunk was computed over)."""
+        # chaos: a failed (raise) or hung (sleep, with the driver loop's
+        # lock held) device step, on the host before the dispatch or the
+        # graph replay, never inside a captured region
+        chaos_fire("engine.device_step")
         sampling = any(r.temperature > 0 for r in self._slots.values())
         if self._step_rec is not None:
             self._step_rec.decode_slots = max(self._step_rec.decode_slots,
@@ -1985,6 +2080,9 @@ class ContinuousEngine:
         self._n_spec_proposed += proposed
         self._n_spec_accepted += accepted
         self._spec_window.append((proposed, accepted))
+        self._obs["serve_spec_proposed_total"].inc(proposed)
+        self._obs["serve_spec_accepted_total"].inc(accepted)
+        self._obs["serve_spec_accept_rate"].set(self.spec_accept_rate())
 
     def spec_accept_rate(self) -> float:
         """Draft acceptance over the last 64 collected spec chunks (0.0
@@ -2029,6 +2127,7 @@ class ContinuousEngine:
                 inflight.t_retire - inflight.t_dispatch) * 1000.0
         newly_done = []
         useful = chunk_prop = chunk_acc = 0
+        now = time.monotonic()
         for slot, req in inflight.snapshot.items():
             if req.done:
                 # freed or cancelled while this chunk was in flight
@@ -2047,8 +2146,24 @@ class ContinuousEngine:
                 if hit.size:
                     take = take[:hit[0] + 1]
             new_toks = [int(t) for t in take]
-            req.tokens.extend(new_toks)
             useful += len(new_toks)
+            if new_toks:
+                # time between token deliveries to one request, as its
+                # client sees them (a chunk lands as one delivery)
+                if req.last_emit is not None:
+                    self._obs["serve_tbt_ms"].observe(
+                        (now - req.last_emit) * 1000.0)
+                if req.span is not None:
+                    if req.last_emit is None:
+                        req.span.event(
+                            "first_token", rid=req.rid,
+                            ttft_ms=round((now - req.enqueued_at) * 1000.0,
+                                          3))
+                    else:
+                        req.span.event("tokens", rid=req.rid,
+                                       n=len(new_toks))
+                req.last_emit = now
+            req.tokens.extend(new_toks)
             if req.on_tokens is not None and new_toks:
                 try:
                     req.on_tokens(new_toks)
@@ -2060,6 +2175,16 @@ class ContinuousEngine:
             if eos_done or len(req.tokens) >= req.max_new_tokens:
                 req.done = True
                 newly_done.append(req)
+                if req.span is not None:
+                    if req.spec_proposed:
+                        # the request's speculation quality on its trace
+                        req.span.event(
+                            "spec", rid=req.rid, proposed=req.spec_proposed,
+                            accepted=req.spec_accepted,
+                            accept_rate=round(
+                                req.spec_accepted / req.spec_proposed, 4))
+                    req.span.event("terminal", rid=req.rid, outcome="ok",
+                                   new_tokens=len(req.tokens))
                 if self._slots.get(slot) is req:
                     del self._slots[slot]
                 if self.radix is not None:
@@ -2072,6 +2197,12 @@ class ContinuousEngine:
             self._note_spec_stats(chunk_prop, chunk_acc)
         if self._step_rec is not None:
             self._step_rec.tokens_out += useful
+        if useful:
+            self._obs["serve_useful_tokens_total"].inc(useful)
+        self._obs["serve_slots_active"].set(len(self._slots))
+        self._obs["serve_queue_depth"].set(len(self._queue))
+        self._obs["serve_kv_pages_in_use"].set(
+            self.model.cfg.kv_num_pages - len(self._free_pages))
         return newly_done
 
     def _effective_chunk(self) -> int:
@@ -2228,6 +2359,18 @@ class ContinuousEngine:
     def busy(self) -> bool:
         return bool(self._queue or self._slots
                     or self._admitting is not None or self._inflight_q)
+
+    def fail_outstanding(self, outcome: str = "error") -> List[_Request]:
+        """Mark every accepted, undelivered request terminally failed: its
+        one terminal span event (``outcome``: "error" for a rebuild after
+        a failed or hung step, "shed" for a reload past its drain bound)
+        and ``done``, so no later path delivers it. Returns them for the
+        front to settle; no device work (the engine is being dropped)."""
+        out = self.outstanding_requests()
+        for req in out:
+            self._trace_terminal(req, outcome)
+            req.done = True
+        return out
 
     def outstanding_requests(self) -> List[_Request]:
         """Every accepted, undelivered request: queued, admitting, in a

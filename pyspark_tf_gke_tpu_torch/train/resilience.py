@@ -1,22 +1,30 @@
-"""Liveness and restart-with-resume (the port's copy of ``Heartbeat``
-and ``run_with_recovery`` from ``pyspark_tf_gke_tpu/train/resilience.py``).
+"""Liveness, restart-with-resume and transient-failure retries (the
+port's copy of ``Heartbeat``, ``run_with_recovery`` and
+``retry_with_backoff`` from ``pyspark_tf_gke_tpu/train/resilience.py``).
 
 * :class:`Heartbeat` — an atomically replaced JSON file written from the
-  step loop; its age is the liveness signal a probe or watchdog reads.
+  step loop (or the serving driver loop); its age is the liveness
+  signal a probe or watchdog reads (:meth:`Heartbeat.is_stalled`).
 * :func:`run_with_recovery` — re-enter the training function on failure
   with ``attempt > 0``, so it resumes from the latest checkpoint.
+* :func:`retry_with_backoff` — exponential backoff with jitter around an
+  idempotent call (bundle loads), each retry counted in
+  ``retries_total{op}`` and on the event trail.
 
-The JAX module's event trail, fault injection, stall watchdog and
-``retry_with_backoff`` are not ported (ROADMAP, P9).
+The JAX module's stall watchdog CLI is not ported (ROADMAP, P9); its
+fault injectors live in ``chaos/inject.py``.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import random
 import time
 from typing import Callable, Optional, Sequence, TypeVar
 
+from pyspark_tf_gke_tpu_torch.obs.events import get_event_log
+from pyspark_tf_gke_tpu_torch.obs.metrics import platform_families
 from pyspark_tf_gke_tpu_torch.utils.fs import is_remote
 from pyspark_tf_gke_tpu_torch.utils.logging import get_logger
 
@@ -65,6 +73,13 @@ class Heartbeat:
             return None
         return time.time() - float(data["time"])
 
+    @staticmethod
+    def is_stalled(path: str, stall_seconds: float) -> bool:
+        """True when the loop wrote a heartbeat once but has gone quiet.
+        A missing file is 'not started', not 'stalled'."""
+        a = Heartbeat.age(path)
+        return a is not None and a > stall_seconds
+
 
 def run_with_recovery(
     train_once: Callable[[int], T],
@@ -88,3 +103,54 @@ def run_with_recovery(
                 "(%d/%d)", attempt, type(e).__name__, e, attempt, max_restarts)
             if retry_delay_s:
                 time.sleep(retry_delay_s)
+
+
+def retry_with_backoff(
+    fn: Callable[[], T],
+    *,
+    attempts: int = 3,
+    base_delay_s: float = 0.1,
+    max_delay_s: float = 5.0,
+    jitter: float = 0.5,
+    retry_on: Sequence[type] = (Exception,),
+    give_up_on: Sequence[type] = (),
+    op: str = "operation",
+    sleep: Callable[[float], None] = time.sleep,
+    rng: Optional[random.Random] = None,
+) -> T:
+    """Call ``fn()`` with exponential backoff and jitter between
+    attempts. ``attempts`` counts calls (3 = up to 2 retries); the delay
+    before retry k is ``base_delay_s * 2**(k-1)`` capped at
+    ``max_delay_s``, its top ``jitter`` fraction randomized. Exceptions
+    outside ``retry_on``, or in ``give_up_on`` (a mistyped path's
+    ``FileNotFoundError``), propagate at once. Every retry emits a
+    ``retry`` event and increments ``retries_total{op}``; ``sleep`` and
+    ``rng`` are injectable for tests."""
+    if attempts < 1:
+        raise ValueError(f"attempts must be >= 1, got {attempts}")
+    if not 0 <= jitter <= 1:
+        raise ValueError(f"jitter must be in [0, 1], got {jitter}")
+    r = rng if rng is not None else random
+    retry_on = tuple(retry_on)
+    give_up_on = tuple(give_up_on)
+    for attempt in range(1, attempts + 1):
+        try:
+            return fn()
+        except Exception as exc:  # noqa: BLE001 — filtered by retry_on
+            if (isinstance(exc, give_up_on)
+                    or not isinstance(exc, retry_on)
+                    or attempt >= attempts):
+                raise
+            delay = min(max_delay_s, base_delay_s * (2 ** (attempt - 1)))
+            delay = delay * (1.0 - jitter) + delay * jitter * r.random()
+            platform_families()["retries_total"].labels(op=op).inc()
+            get_event_log().emit(
+                "retry", op=op, attempt=attempt, max_attempts=attempts,
+                delay_s=round(delay, 4),
+                error=f"{type(exc).__name__}: {exc}"[:500])
+            logger.warning(
+                "%s failed (%s: %s); retrying in %.2fs (%d/%d)",
+                op, type(exc).__name__, exc, delay, attempt, attempts - 1)
+            if delay > 0:
+                sleep(delay)
+    raise AssertionError("unreachable")  # the loop returns or raises

@@ -1,5 +1,5 @@
-"""HTTP serving of an exported bundle on the card (the subset of
-``pyspark_tf_gke_tpu/train/serve.py`` this port carries).
+"""HTTP (and stdin) serving of an exported bundle on the card (the
+counterpart of ``pyspark_tf_gke_tpu/train/serve.py``).
 
 ``python -m pyspark_tf_gke_tpu_torch.train.serve --bundle DIR
 --continuous-slots 8`` loads a bundle onto ``--device`` (``cuda`` by
@@ -8,50 +8,75 @@ default) and answers
 * ``GET  /healthz``      -> 200 with the bundle and engine status (503
   while draining);
 * ``GET  /livez``        -> liveness: 503 only when the engine's driver
-  loop has stalled past ``--live-stall``;
+  loop has stalled past ``--live-stall``; reports a step-watchdog wedge;
 * ``GET  /loadz``        -> the load snapshot a router's prober reads
   (the JAX server's key set);
 * ``GET  /stepz``        -> the engine-step records (``?n=``,
   ``?min_ms=``) and their summary;
+* ``GET  /metrics``, ``/metrics.json`` -> the Prometheus exposition of
+  the ``train_`` / ``serve_`` / ``runtime_`` families (the JAX server's
+  names, plus its ``pyspark_tf_gke_tpu_serve_*`` aliases) and its JSON
+  snapshot with trace-id exemplars;
+* ``GET  /events``       -> the event trail's tail (``?n=``);
+* ``GET  /traces``       -> the request-trace flight recorder
+  (``?slow_ms=``, ``?trace_id=``, ``?n=``, ``?format=jsonl``);
 * ``POST /v1/generate``  -> ``{"completions": [{"prompt", "completion",
   "new_tokens", "latency_ms"}, ...]}`` for ``{"prompts": [...]}`` (or
   ``"prompt"``), ``max_new_tokens``, ``temperature``, ``top_k``,
-  ``top_p``, ``repetition_penalty``, ``seed``, ``deadline_ms`` (504 once
-  past) and ``tenant`` (or the ``X-Tenant`` header); with ``"stream":
-  true`` server-sent events, ``data: {json}`` a token group, the
-  terminal entry and ``data: [DONE]``, and with ``"continuation":
-  {"emitted_ids": [...]}`` the continuation of a stream another replica
-  started (the router's failover splice);
+  ``top_p``, ``repetition_penalty``, ``num_beams`` (beam search: each
+  entry gains ``beam_score``), ``seed``, ``deadline_ms`` (504 once past)
+  and ``tenant`` (or the ``X-Tenant`` header); with ``"stream": true``
+  server-sent events (a ``: trace_id=`` comment, ``data: {json}`` a
+  token group, the terminal entry and ``data: [DONE]``), and with
+  ``"continuation": {"emitted_ids": [...]}`` the continuation of a
+  stream another replica started (the router's failover splice);
 * ``POST /v1/score``     -> ``{"scores": [{"nll", "tokens",
   "truncated"}, ...]}`` for ``{"texts": [...]}``;
 * ``POST /v1/warm``, ``/v1/prefill``, ``/v1/kv_import`` -> a prefix into
   the radix cache; a prompt's KV pages as a blob; a blob into the
-  pool (the disaggregated handoff, across packages too).
+  pool (the disaggregated handoff, across packages too);
+* ``POST /admin/reload`` -> hot swap to ``{"bundle": DIR, "generation":
+  N}``: load and verify, drain the old engine (``drain_s``), a canary
+  generate on the new weights, rollback on failure (502), 409 while one
+  is in flight; ``POST /admin/profile`` -> a ``torch.profiler`` capture
+  of the next ``steps`` busy engine steps written as a Chrome trace into
+  ``output_dir`` (202; ``profile_trace_written`` on ``/events``). Both
+  need ``SERVE_ADMIN_TOKEN`` (403 without one, 401 on a wrong
+  ``X-Admin-Token``).
+
+Every response echoes ``X-Request-Id``, the trace id of the request's
+span (the caller's ``traceparent`` adopted, else a new root); the engine
+annotates the span's queue wait, admission, prefill, first token and
+terminal (``--trace-sample``, ``--trace-slow-ms``). ``--step-timeout``
+arms the step watchdog (every waiter of a hung step gets an
+``EngineWedged`` terminal; the engine rebuilds when the step returns),
+``--heartbeat-file`` is beaten by the driver loop, ``--chaos`` injects
+faults (``fail@N`` / ``slow@N:S`` in the driver loop, and the named
+points ``serve.request``, ``engine.admit``, ``engine.device_step``,
+``bundle.load``), ``--metrics-textfile`` writes the exposition for a
+node exporter, ``--stdin`` serves stdin lines.
 
 Routing follows the JAX server: with ``--continuous-slots`` greedy and
-temperature/top-p requests share the slot engine's KV slots; top-k and
-repetition-penalty requests run the whole-batch ``generate``. The engine
-runs decode-ahead by default (``--continuous-pipeline 1``, as the JAX
-server), on CUDA its decode chunks replay captured CUDA graphs;
+temperature/top-p requests share the slot engine's KV slots; beams,
+top-k and repetition-penalty requests run the whole-batch path. The
+engine runs decode-ahead by default (``--continuous-pipeline 1``), on
+CUDA its decode chunks replay captured CUDA graphs;
 ``--adaptive-chunk`` sizes chunks to the remaining budgets and
 ``--prefix-cache N`` keeps up to N pages of completed prompts in the
 radix prefix cache. ``--spec-tokens k`` makes the engine speculate in
-its slots (k draft proposals a round, one (k+1)-wide verify), drafting
-with ``--draft-bundle`` (a smaller bundle of the same vocabulary) or,
-without one, with the target itself; ``--draft-bundle`` alone serves a
-single greedy prompt through the standalone speculative driver (its
-response carries a ``"speculative"`` block). Admission is bounded
+its slots, drafting with ``--draft-bundle`` (or, without one, the
+target itself); ``--draft-bundle`` alone serves a single greedy prompt
+through the standalone speculative driver. Admission is bounded
 (``--max-queue-depth``, ``--max-queued-tokens``: 429 with
 ``Retry-After``), ``--tenants`` shares it between tenants (DWRR weights,
 queue shares and token buckets; a tenant's shed carries
 ``X-Tenant-Shed``), ``--schedule longest`` admits the longest budget
 first, ``--role`` is what ``/loadz`` advertises to a disaggregating
 router, and SIGTERM drains (new requests 503, in-flight ones finish,
-``--drain-timeout``) before the server stops. Not ported yet, answering
-400 or 404 (ROADMAP queue 1, P7b): beam search, ``/admin/reload`` and
-``/admin/profile``, ``/metrics``, ``/events``, ``/traces`` and request
-tracing, the step watchdog, the heartbeat file, chaos hooks, the HF
-tokenizer adapter and ``--stdin``.
+``--drain-timeout``) before the server stops. Not ported (ROADMAP queue
+1): the multi-host serve wire (``--tp``, ``--num-processes``; P11) and
+the dense slot-cache engine (a bundle without ``kv_num_pages`` serves
+whole-batch only; item 5).
 """
 
 from __future__ import annotations
@@ -60,11 +85,15 @@ import argparse
 import base64
 import contextlib
 import dataclasses
+import gc
+import hmac
 import itertools
 import json
 import os
 import queue
 import signal
+import sys
+import tempfile
 import threading
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
@@ -73,15 +102,31 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from pyspark_tf_gke_tpu_torch.chaos.inject import (chaos_fire,
+                                                  install as chaos_install,
+                                                  split_serve_chaos_spec)
 from pyspark_tf_gke_tpu_torch.data.text import get_tokenizer
 from pyspark_tf_gke_tpu_torch.device import resolve_device
+from pyspark_tf_gke_tpu_torch.models.beam_search import beam_search
 from pyspark_tf_gke_tpu_torch.models.causal_lm import generate
 from pyspark_tf_gke_tpu_torch.models.speculative import speculative_generate
+from pyspark_tf_gke_tpu_torch.obs.events import get_event_log
+from pyspark_tf_gke_tpu_torch.obs.export import (PROMETHEUS_CONTENT_TYPE,
+                                                 TextfileExporter,
+                                                 handle_obs_request)
+from pyspark_tf_gke_tpu_torch.obs.metrics import (get_registry,
+                                                  platform_families)
+from pyspark_tf_gke_tpu_torch.obs.runtime import install_runtime_metrics
 from pyspark_tf_gke_tpu_torch.obs.stepstats import StepStatsRing
+from pyspark_tf_gke_tpu_torch.obs.trace import (TraceRecorder,
+                                                annotate_request_shape,
+                                                use_span)
 from pyspark_tf_gke_tpu_torch.train.continuous import ContinuousEngine
 from pyspark_tf_gke_tpu_torch.train.export import load_serving_bundle
 from pyspark_tf_gke_tpu_torch.train.kv_transfer import (pack_kv_export,
                                                         unpack_kv_blob)
+from pyspark_tf_gke_tpu_torch.train.resilience import (Heartbeat,
+                                                       retry_with_backoff)
 from pyspark_tf_gke_tpu_torch.train.serving import serve_score
 from pyspark_tf_gke_tpu_torch.utils.logging import get_logger
 
@@ -93,13 +138,9 @@ SPEC_GAMMA = 4  # the standalone speculative path's draft width (echoed)
 # warmed prefixes a rebuilt engine warms again (the JAX front's horizon
 # for the radix cache)
 _REWARM = 8
-# the JAX server's POST endpoints this port does not serve yet
-_NOT_PORTED_PATHS = {"/admin/reload": "P7b, bundle hot swap",
-                     "/admin/profile": "P7b, profiler capture"}
-
-
-class NotPorted(ValueError):
-    """A request feature the port does not serve yet (HTTP 400)."""
+# a bundle load's deterministic errors fail at once instead of retrying
+_PERMANENT_LOAD_ERRORS = (FileNotFoundError, ValueError, KeyError,
+                          TypeError)
 
 
 class RequestRejected(RuntimeError):
@@ -125,6 +166,36 @@ def _draining_rejection() -> RequestRejected:
         "draining",
         "server is draining (shutting down); retry against a live "
         "replica", status=503, retry_after_s=5)
+
+
+def _reloading_rejection() -> RequestRejected:
+    """The terminal of a request a hot swap could not drain within its
+    grace window: explicit and retryable (the new bundle serves the
+    retry)."""
+    return RequestRejected(
+        "reloading",
+        "bundle hot-swap interrupted this request; retry", status=503,
+        retry_after_s=1)
+
+
+class ReloadInFlight(RuntimeError):
+    """A bundle reload is already running (HTTP 409)."""
+
+
+class ProfileInFlight(RuntimeError):
+    """A profiler capture is already armed or running (HTTP 409):
+    ``torch.profiler`` holds one session a process."""
+
+
+class BundleReloadError(RuntimeError):
+    """A reload failed (HTTP 502). ``rolled_back``: the new bundle got as
+    far as serving before its canary failed and the previous one was
+    reinstalled (True), or it never installed (False). Either way the
+    advertised ``bundle_generation`` did not advance."""
+
+    def __init__(self, message: str, rolled_back: bool):
+        super().__init__(message)
+        self.rolled_back = bool(rolled_back)
 
 
 class TokenBucket:
@@ -258,6 +329,12 @@ class EngineShutdown(RuntimeError):
     """Delivered to every pending waiter when the front shuts down."""
 
 
+class EngineWedged(RuntimeError):
+    """The step watchdog's terminal for every waiter of an engine step
+    that ran past ``--step-timeout``: the client hears now, and the
+    engine rebuilds when the stuck step returns."""
+
+
 class _ContinuousFront:
     """One engine thread runs the slot engine; HTTP threads ``submit``
     (or ``submit_stream``) and ``wait``. The front gates admission
@@ -268,13 +345,22 @@ class _ContinuousFront:
     the error and the engine is rebuilt (its device state may be
     mid-chunk garbage); warmed prefixes are warmed again.
 
+    A watchdog thread reaps the waiters of a step that runs past
+    ``step_timeout_s`` (:class:`EngineWedged`, touching only the results
+    lock: the driver holds the engine lock for the whole stuck step) and
+    the engine rebuilds when that step returns. The driver loop beats
+    ``heartbeat``, runs ``chaos`` (a :class:`FaultInjector`) on busy
+    iterations, and drives an armed ``torch.profiler`` capture.
+
     ``engine_kw`` go to ``ContinuousEngine``; ``tenants`` is a
     :func:`parse_tenant_spec` spec. The step-stats ring outlives engine
     rebuilds."""
 
     def __init__(self, model, tenants=None, max_queue_depth: int = 0,
                  max_queued_tokens: int = 0,
-                 stepstats: Optional[StepStatsRing] = None, **engine_kw):
+                 stepstats: Optional[StepStatsRing] = None, obs=None,
+                 event_log=None, chaos=None, heartbeat=None,
+                 step_timeout_s: float = 0.0, tracer=None, **engine_kw):
         # tenancy off (no spec): every request rides "default" and the
         # admission bounds stay global
         self._tenants = parse_tenant_spec(tenants)
@@ -287,10 +373,17 @@ class _ContinuousFront:
             if c["rate"] is not None}
         self.stepstats = stepstats if stepstats is not None else (
             StepStatsRing())
+        self._obs = obs if obs is not None else platform_families()
+        self._event_log = (event_log if event_log is not None
+                           else get_event_log())
         self._model, self._engine_kw = model, engine_kw
         # 0 = unbounded; past a bound submit sheds with RequestRejected
         self.max_queue_depth = int(max_queue_depth)
         self.max_queued_tokens = int(max_queued_tokens)
+        # the driver loop's busy iterations drive --chaos fail@N/slow@N:S
+        self._chaos = chaos
+        self._chaos_step = 0
+        self._heartbeat = heartbeat
         self.draining = threading.Event()
         self.engine: ContinuousEngine = self._new_engine()
         self.lock = threading.Lock()  # guards the engine
@@ -302,15 +395,29 @@ class _ContinuousFront:
         self.new_work = threading.Event()
         self.stop = threading.Event()
         # rid -> [done event, tokens | Exception | None, stream queue |
-        # None]; the dict has its own lock, always inner to self.lock
+        # None]; the dict has its own lock, always inner to self.lock,
+        # so the watchdog reaps while a stuck step holds self.lock
         self._results: Dict[int, list] = {}
         self._results_lock = threading.Lock()
         self._warmed: List[List[int]] = []  # re-warmed after a rebuild
+        # the step watchdog: 0 = off (a live attribute, retunable)
+        self.step_timeout_s = float(step_timeout_s)
+        self._step_started: Optional[float] = None
+        self._wedged = False
         # the driver loop's last iteration: /livez reads it
         self._last_loop_ts = time.monotonic()
+        # an armed or running torch.profiler capture (POST /admin/profile)
+        self._profile_lock = threading.Lock()
+        self._profile: Optional[dict] = None
+        self._tracer = tracer
         self.thread = threading.Thread(target=self._loop,
                                        name="continuous-engine", daemon=True)
         self.thread.start()
+        # always running (an idle 1 Hz sweep while the timeout is 0), so
+        # a timeout armed at run time takes effect
+        self._watchdog = threading.Thread(target=self._watch_steps,
+                                          name="step-watchdog", daemon=True)
+        self._watchdog.start()
 
     @contextlib.contextmanager
     def _locked(self, timeout_s: float = -1):
@@ -331,7 +438,8 @@ class _ContinuousFront:
     def _new_engine(self) -> ContinuousEngine:
         return ContinuousEngine(self._model,
                                 tenant_weights=self._tenant_weights,
-                                stepstats=self.stepstats, **self._engine_kw)
+                                stepstats=self.stepstats, obs=self._obs,
+                                **self._engine_kw)
 
     # -- tenancy ---------------------------------------------------------
     def resolve_tenant(self, tenant: Optional[str]) -> str:
@@ -363,9 +471,12 @@ class _ContinuousFront:
             return None
         return self._buckets.get(tenant)
 
-    @staticmethod
-    def _shed_tenant(tenant: str, reason: str, message: str,
+    def _shed_tenant(self, tenant: str, reason: str, message: str,
                      retry_after_s: int) -> None:
+        self._obs["serve_requests_rejected_total"].labels(
+            reason=reason).inc()
+        self._obs["serve_tenant_rejected_total"].labels(
+            tenant=tenant, reason=reason).inc()
         raise RequestRejected(reason, message, status=429,
                               retry_after_s=retry_after_s, tenant=tenant)
 
@@ -391,12 +502,15 @@ class _ContinuousFront:
 
     def _settle(self, req) -> None:
         """Refund a delivered (or expired, or failed) request's unused
-        budget to its tenant's bucket."""
+        budget to its tenant's bucket and count its tokens."""
         bucket = self._buckets.get(req.tenant)
         if bucket is not None:
             unused = int(req.max_new_tokens) - len(req.tokens)
             if unused > 0:
                 bucket.refund(unused)
+        if req.tokens:
+            self._obs["serve_tenant_tokens_total"].labels(
+                tenant=req.tenant).inc(len(req.tokens))
 
     def _check_admission(self, prompt_len: int, max_new_tokens: int,
                          tenant: str = "default") -> None:
@@ -406,6 +520,8 @@ class _ContinuousFront:
         spec, the tenant's queue share and token bucket (429 with the
         tenant and its own ``Retry-After``)."""
         if self.draining.is_set():
+            self._obs["serve_requests_rejected_total"].labels(
+                reason="draining").inc()
             raise _draining_rejection()
         ask = int(prompt_len) + int(max_new_tokens)
         if self.max_queued_tokens and ask > self.max_queued_tokens:
@@ -416,6 +532,8 @@ class _ContinuousFront:
             if self.max_queue_depth:
                 depth = self.engine.queue_depth()
                 if depth >= self.max_queue_depth:
+                    self._obs["serve_requests_rejected_total"].labels(
+                        reason="queue_full").inc()
                     raise RequestRejected(
                         "queue_full",
                         f"admission queue full ({depth} waiting >= "
@@ -424,6 +542,8 @@ class _ContinuousFront:
             if self.max_queued_tokens:
                 queued = self.engine.queued_tokens()
                 if queued + ask > self.max_queued_tokens:
+                    self._obs["serve_requests_rejected_total"].labels(
+                        reason="queue_full").inc()
                     raise RequestRejected(
                         "queue_full",
                         f"queued-token budget exhausted ({queued} queued "
@@ -473,8 +593,14 @@ class _ContinuousFront:
 
     # -- submission and delivery -----------------------------------------
     def _submit(self, prompt_ids, max_new_tokens: int, tenant, stream,
-                **kw):
+                span=None, deadline_s=None, **kw):
         tenant = self.resolve_tenant(tenant)
+        # the shape before the gates: a shed request is demand a replay
+        # of this trace must still see
+        annotate_request_shape(span, tenant=tenant,
+                               prompt_tokens=len(prompt_ids),
+                               max_new_tokens=max_new_tokens,
+                               deadline_s=deadline_s)
         q = queue.Queue() if stream else None
         with self._locked():
             self._check_admission(len(prompt_ids), max_new_tokens,
@@ -482,7 +608,8 @@ class _ContinuousFront:
             try:
                 rid = self.engine.submit(
                     prompt_ids, max_new_tokens, tenant=tenant,
-                    on_tokens=q.put if stream else None, **kw)
+                    on_tokens=q.put if stream else None,
+                    deadline_s=deadline_s, span=span, **kw)
             except BaseException:
                 # the quota charge landed in _check_admission: a request
                 # that never queued must not cost its tenant
@@ -492,27 +619,43 @@ class _ContinuousFront:
                 raise
             with self._results_lock:
                 self._results[rid] = [threading.Event(), None, q]
+        self._obs["serve_tenant_requests_total"].labels(tenant=tenant).inc()
         self.new_work.set()
         return rid, q
 
     def submit(self, prompt_ids, max_new_tokens: int,
                temperature: float = 0.0, top_p=None, seed: int = 0,
-               deadline_s=None, tenant: str = "default") -> int:
+               deadline_s=None, tenant: str = "default", span=None) -> int:
         """Queue a request (non-blocking); pair with :meth:`wait`.
         ``deadline_s`` expires it at a chunk boundary (``wait`` raises
-        :class:`DeadlineExceeded`); ``tenant`` is resolved here."""
+        :class:`DeadlineExceeded`); ``tenant`` is resolved here; ``span``
+        is the request's trace span."""
         return self._submit(prompt_ids, max_new_tokens, tenant, False,
-                            temperature=temperature, top_p=top_p, seed=seed,
-                            deadline_s=deadline_s)[0]
+                            span=span, deadline_s=deadline_s,
+                            temperature=temperature, top_p=top_p,
+                            seed=seed)[0]
 
     def submit_stream(self, prompt_ids, max_new_tokens: int,
-                      deadline_s=None, tenant: str = "default"):
+                      deadline_s=None, tenant: str = "default", span=None):
         """Greedy streaming variant: ``(rid, queue)``. The queue gets each
         collected token group, then one terminal: ``[]`` on completion or
         an exception (failure, deadline, shutdown). The charge covers the
         whole budget, so a stream is never quota-cut mid-flight."""
         return self._submit(prompt_ids, max_new_tokens, tenant, True,
-                            deadline_s=deadline_s)
+                            span=span, deadline_s=deadline_s)
+
+    def submit_internal(self, prompt_ids, max_new_tokens: int) -> int:
+        """An engine submit past the admission gates, for the server's
+        own probes (the reload canary): a canary shed by overload would
+        roll back a good bundle when the fleet is busiest. Its reserved
+        tenant is in no client's bucket."""
+        with self._locked():
+            rid = self.engine.submit(prompt_ids, max_new_tokens,
+                                     tenant="__internal__")
+            with self._results_lock:
+                self._results[rid] = [threading.Event(), None, None]
+        self.new_work.set()
+        return rid
 
     def wait(self, rid: int, timeout_s: float = 600.0) -> List[int]:
         with self._results_lock:
@@ -528,6 +671,7 @@ class _ContinuousFront:
             raise RuntimeError(
                 f"continuous decode timed out after {timeout_s}s")
         with self._results_lock:
+            # the watchdog leaves reaped entries here for this pop
             self._results.pop(rid, None)
         result = entry[1]
         if isinstance(result, (DeadlineExceeded, EngineShutdown,
@@ -541,8 +685,8 @@ class _ContinuousFront:
     def abandon(self, rid: int) -> None:
         """Give up on a request: free its slot or queue place and drop
         its results entry (idempotent). The lock is taken with a bound:
-        if a step holds it that long, the request runs out its budget
-        and its delivery finds no waiter."""
+        if a step holds it that long (a wedge), the rebuild clears the
+        engine, and a merely busy engine runs the request out."""
         with self._locked(timeout_s=1.0) as acquired:
             if acquired:
                 self.engine.cancel(rid)
@@ -570,9 +714,13 @@ class _ContinuousFront:
         with self._locked():
             return self.engine.import_prefix_pages(token_ids, layers)
 
-    def _fail_pending(self, err: Exception) -> None:
+    def _fail_pending(self, err: Exception, reason: Optional[str] = None
+                      ) -> int:
         """Exactly one terminal, ``err``, to every waiter still without
-        one."""
+        one (claimed under the results lock, so a racing delivery or
+        watchdog sweep never doubles it); ``reason`` counts each in
+        ``serve_requests_rejected_total``. Returns how many."""
+        n = 0
         with self._results_lock:
             for slot in self._results.values():
                 if slot[1] is None and not slot[0].is_set():
@@ -580,12 +728,18 @@ class _ContinuousFront:
                     slot[0].set()
                     if slot[2] is not None:
                         slot[2].put(err)
+                    n += 1
+        if reason is not None and n:
+            self._obs["serve_requests_rejected_total"].labels(
+                reason=reason).inc(n)
+        return n
 
     def _deliver_finished(self, finished) -> None:
         """Settle one step's finished and expired requests (refunds),
         then give each waiter its one terminal: the tokens, or
         :class:`DeadlineExceeded`; a stream also gets ``[]`` or the
-        error on its queue. Caller holds ``self.lock``."""
+        error on its queue. A waiter the watchdog already answered is
+        skipped. Caller holds ``self.lock``."""
         if not finished:
             return
         for req in finished:
@@ -605,18 +759,207 @@ class _ContinuousFront:
                 if slot[2] is not None:
                     slot[2].put(slot[1] if req.expired else [])
 
-    def _loop(self) -> None:
+    def _rebuild(self) -> None:
+        """A fresh engine in place of the current one (its device state
+        is untrustworthy after a failed or hung step), warmed prefixes
+        warmed again. Caller holds ``self.lock``."""
+        self.engine = None
+        gc.collect()  # the old engine's graphs and pool go now
+        self.engine = self._new_engine()
+        for toks in self._warmed:
+            try:
+                self.engine.warm_prefix(toks)
+            except Exception:  # noqa: BLE001
+                logger.exception("re-warm of a cached prefix failed "
+                                 "after a rebuild")
+
+    def swap_model(self, model, eos_id, pad_id, drain_s: float = 30.0):
+        """Hot swap: the old engine is stepped to completion here, under
+        the lock, so in-flight requests and streams finish on the weights
+        they started on, bounded by ``drain_s``; the pipeline is
+        quiesced; anything still unfinished gets a retryable 503
+        ``reloading`` terminal. Then a new engine starts on ``model``
+        (its graphs captured on its first busy step) and the warmed
+        prefixes are dropped (they were prefilled under the old
+        bundle). The old engine is released before the new one is
+        built, so the card holds one engine's pool and graphs."""
+        with self._locked():
+            deadline = time.monotonic() + float(drain_s)
+            try:
+                while time.monotonic() < deadline and self.engine.busy:
+                    self._deliver_finished(self.engine.step())
+                self._deliver_finished(self.engine.quiesce())
+            except Exception:  # noqa: BLE001 — the sweep below answers
+                logger.exception(
+                    "old engine failed while draining for a bundle swap")
+            try:
+                for req in self.engine.fail_outstanding("shed"):
+                    self._settle(req)
+            except Exception:  # noqa: BLE001 — refunds must not block
+                logger.exception("settling the old engine's requests "
+                                 "failed")
+            self._fail_pending(_reloading_rejection(), reason="reloading")
+            self._model = model
+            self._engine_kw["eos_token_id"] = eos_id
+            self._engine_kw["pad_id"] = pad_id
+            self._warmed.clear()
+            self._rebuild()
+
+    # -- the step watchdog -----------------------------------------------
+    def _watch_steps(self) -> None:
+        """Reap the waiters of a hung step. Touches only
+        ``_results_lock`` (the driver holds ``self.lock`` for the whole
+        stuck step)."""
         while not self.stop.is_set():
+            timeout = self.step_timeout_s
+            started = self._step_started
+            if (timeout > 0 and started is not None
+                    and time.monotonic() - started > timeout):
+                self._reap_wedged(time.monotonic() - started)
+            self.stop.wait(max(0.05, min(1.0, timeout / 4))
+                           if timeout > 0 else 1.0)
+
+    def _reap_wedged(self, stuck_s: float) -> None:
+        """One watchdog sweep over a stuck step: flag the wedge (the
+        driver rebuilds when the step returns; ``/livez`` reports it)
+        and give every waiter without a terminal an
+        :class:`EngineWedged` one. Entries stay for ``wait`` to pop.
+        Re-runs each poll while the step stays stuck."""
+        first = not self._wedged
+        self._wedged = True
+        reaped = self._fail_pending(EngineWedged(
+            f"engine step exceeded step_timeout {self.step_timeout_s:g}s "
+            f"(stuck {stuck_s:.1f}s); the step watchdog failed this "
+            "request"))
+        if first or reaped:
+            self._obs["serve_step_watchdog_reaps_total"].inc()
+            self._event_log.emit("engine_watchdog_reap", reaped=reaped,
+                                 stuck_s=round(stuck_s, 3),
+                                 step_timeout_s=self.step_timeout_s)
+            logger.error(
+                "step watchdog: engine step stuck %.1fs (> %gs); failed "
+                "%d in-flight request(s); the engine rebuilds when the "
+                "step returns", stuck_s, self.step_timeout_s, reaped)
+
+    # -- the profiler capture --------------------------------------------
+    def start_profile(self, output_dir: str, steps: int) -> dict:
+        """Arm a ``torch.profiler`` capture: the driver loop starts it
+        at the next busy step and stops it after ``steps`` closed step
+        records (:class:`ProfileInFlight` while one is armed)."""
+        steps = int(steps)
+        if steps < 1:
+            raise ValueError(f"profile steps must be >= 1, got {steps}")
+        with self._profile_lock:
+            if self._profile is not None:
+                raise ProfileInFlight(
+                    "a profiler capture is already in flight")
+            self._profile = {"dir": str(output_dir), "steps": steps,
+                             "remaining": steps, "prof": None,
+                             "seq_first": None, "seq_last": None}
+        return {"output_dir": str(output_dir), "steps": steps,
+                "armed": True}
+
+    def profile_in_flight(self) -> bool:
+        with self._profile_lock:
+            return self._profile is not None
+
+    def _profile_maybe_start(self) -> None:
+        """Driver hook before a busy step: start the armed capture."""
+        p = self._profile
+        if p is None or p["prof"] is not None:
+            return
+        activities = [torch.profiler.ProfilerActivity.CPU]
+        if self.engine.device.type == "cuda":
+            activities.append(torch.profiler.ProfilerActivity.CUDA)
+        try:
+            prof = torch.profiler.profile(activities=activities)
+            prof.start()
+            p["prof"] = prof
+            logger.info("profiler capture started -> %s (%d steps)",
+                        p["dir"], p["steps"])
+        except Exception:  # noqa: BLE001 — a profiler that will not
+            # start (another session open) disarms, never kills the loop
+            logger.exception("torch.profiler did not start; capture "
+                             "disarmed")
+            with self._profile_lock:
+                self._profile = None
+
+    def _profile_note_step(self, seq: int) -> None:
+        """Driver hook after a step that closed record ``seq``: count it
+        and, at the last, stop the capture, write the Chrome trace and
+        emit ``profile_trace_written`` with the step-seq window and the
+        recorder's recent trace ids."""
+        p = self._profile
+        if p is None or p["prof"] is None:
+            return
+        if p["seq_first"] is None:
+            p["seq_first"] = seq
+        p["seq_last"] = seq
+        p["remaining"] -= 1
+        if p["remaining"] > 0:
+            return
+        path = os.path.join(
+            p["dir"], f"trace_steps_{p['seq_first']}-{p['seq_last']}.json")
+        try:
+            p["prof"].stop()
+            p["prof"].export_chrome_trace(path)
+        except Exception:  # noqa: BLE001
+            logger.exception("writing the profiler capture failed")
+            path = None
+        trace_ids = []
+        if self._tracer is not None:
+            trace_ids = [t.get("trace_id")
+                         for t in self._tracer.traces(limit=8)]
+        self._event_log.emit(
+            "profile_trace_written", output_dir=p["dir"], trace_file=path,
+            steps=p["steps"], step_seq_first=p["seq_first"],
+            step_seq_last=p["seq_last"], trace_ids=trace_ids)
+        logger.info("profiler capture written to %s (steps %s..%s)",
+                    path, p["seq_first"], p["seq_last"])
+        with self._profile_lock:
+            self._profile = None
+
+    def _stop_profile(self) -> None:
+        """Close a running capture without writing it (shutdown)."""
+        with self._profile_lock:
+            p, self._profile = self._profile, None
+        if p is not None and p["prof"] is not None:
+            with contextlib.suppress(Exception):
+                p["prof"].stop()
+
+    # -- the driver loop -------------------------------------------------
+    def _loop(self) -> None:
+        beat = 0
+        while not self.stop.is_set():
+            beat += 1
             self._last_loop_ts = time.monotonic()
+            if self._heartbeat is not None:
+                try:
+                    self._heartbeat.beat(beat)
+                except OSError:  # liveness never takes the loop down
+                    pass
             busy = False
+            seq0 = None
             with self._waiting_cv:  # HTTP threads first, briefly
                 self._waiting_cv.wait_for(lambda: not self._waiting,
                                           timeout=0.01)
             with self.lock:
                 try:
                     busy = self.engine.busy
-                    seq0 = self.stepstats.next_seq
-                    finished = self.engine.step() if busy else []
+                    if busy and self._chaos is not None:
+                        # counted on busy iterations only; a raise lands
+                        # in the rebuild below, as a failed step does
+                        self._chaos_step += 1
+                        self._chaos.maybe_slow(self._chaos_step)
+                        self._chaos.maybe_fail(self._chaos_step)
+                    if busy:
+                        self._profile_maybe_start()
+                        seq0 = self.stepstats.next_seq
+                        self._step_started = time.monotonic()
+                    try:
+                        finished = self.engine.step() if busy else []
+                    finally:
+                        self._step_started = None
                     t_deliver = time.monotonic()
                     self._deliver_finished(finished)
                     if busy:
@@ -629,21 +972,37 @@ class _ContinuousFront:
                                 and rec.seq >= seq0):
                             self.stepstats.add_deliver(
                                 rec, (time.monotonic() - t_deliver) * 1e3)
+                            if self._wedged:
+                                self.stepstats.mark_reaped(rec)
+                            self._profile_note_step(rec.seq)
+                    if self._wedged:
+                        # the stuck step returned: its waiters were
+                        # reaped; rebuild through the failed-step path
+                        self._wedged = False
+                        raise RuntimeError(
+                            "engine step exceeded the watchdog timeout; "
+                            "rebuilding")
                 except Exception as exc:  # noqa: BLE001 — keep serving
                     logger.exception("engine step failed; failing %d "
                                      "request(s) and rebuilding",
                                      len(self._results))
-                    for req in self.engine.outstanding_requests():
-                        req.done = True
-                        self._settle(req)
+                    self._obs["serve_engine_rebuilds_total"].inc()
+                    self._event_log.emit(
+                        "engine_rebuilt", inflight=len(self._results),
+                        error=f"{type(exc).__name__}: {exc}"[:500])
+                    # a failed step closed a record too: advance an armed
+                    # capture so it never stays open
+                    rec = self.stepstats.last_record
+                    if (seq0 is not None and rec is not None
+                            and rec.closed and rec.seq >= seq0):
+                        self._profile_note_step(rec.seq)
+                    try:
+                        for req in self.engine.fail_outstanding("error"):
+                            self._settle(req)
+                    except Exception:  # noqa: BLE001 — refunds must
+                        logger.exception("settling failed")  # not block
                     self._fail_pending(exc)
-                    self.engine = self._new_engine()
-                    for toks in self._warmed:
-                        try:
-                            self.engine.warm_prefix(toks)
-                        except Exception:  # noqa: BLE001
-                            logger.exception("re-warm of a cached prefix "
-                                             "failed after a rebuild")
+                    self._rebuild()
                     busy = False
             if not busy:
                 # idle: park until a submit wakes the loop (a short
@@ -659,6 +1018,7 @@ class _ContinuousFront:
         """Stop admission (every later submit gets 503); queued and
         in-slot requests decode to completion."""
         self.draining.set()
+        self._obs["serve_draining"].set(1)
 
     def drain(self, timeout_s: float) -> bool:
         """Wait until every accepted request has its terminal and the
@@ -677,12 +1037,15 @@ class _ContinuousFront:
             time.sleep(0.05)
 
     def shutdown(self, timeout_s: float = 10.0) -> None:
-        """Stop the engine thread, settle the pipeline (every in-flight
-        chunk collected and its finished requests delivered), then fail
-        every waiter still pending with :class:`EngineShutdown`."""
+        """Stop the engine thread and the watchdog, close a running
+        profiler capture, settle the pipeline (every in-flight chunk
+        collected and its finished requests delivered), then fail every
+        waiter still pending with :class:`EngineShutdown`."""
         self.stop.set()
         self.new_work.set()
         self.thread.join(timeout_s)
+        self._watchdog.join(timeout_s)
+        self._stop_profile()
         with self.lock:
             try:
                 self._deliver_finished(self.engine.quiesce())
@@ -711,7 +1074,16 @@ class BundleServer:
     ``live_stall_s`` the driver-loop age past which ``/livez`` answers
     503 (``--live-stall``); ``step_record_ring`` the ``/stepz`` ring's
     length (``--step-record-ring``). ``draft_bundle_dir``
-    (``--draft-bundle``) is the draft of both speculative paths."""
+    (``--draft-bundle``) is the draft of both speculative paths.
+
+    The operator contract: ``registry`` and ``event_log`` (the process
+    defaults when None) carry ``/metrics`` and ``/events``;
+    ``trace_sample`` / ``trace_slow_ms`` the request tracer
+    (``--trace-sample``, ``--trace-slow-ms``); ``step_timeout_s`` the
+    step watchdog (``--step-timeout``); ``heartbeat_file`` the driver
+    loop's heartbeat (``--heartbeat-file``); ``chaos_spec`` the fault
+    injection (``--chaos``); ``admin_token`` gates ``/admin/reload`` and
+    ``/admin/profile`` (``SERVE_ADMIN_TOKEN``)."""
 
     def __init__(self, bundle_dir: str, device: str = "cuda",
                  continuous_slots: int = 0, continuous_chunk: int = 8,
@@ -722,7 +1094,11 @@ class BundleServer:
                  schedule: str = "fifo", max_queue_depth: int = 0,
                  max_queued_tokens: int = 0, tenants_spec: str = "",
                  live_stall_s: float = 120.0, step_record_ring: int = 256,
-                 role: str = "mixed"):
+                 role: str = "mixed", registry=None, event_log=None,
+                 chaos_spec: str = "", heartbeat_file: str = "",
+                 admin_token: str = "", trace_sample: float = 0.01,
+                 trace_slow_ms: float = 1000.0,
+                 step_timeout_s: float = 0.0):
         if role not in ("mixed", "prefill", "decode"):
             raise ValueError(
                 f"role must be mixed, prefill or decode, got {role!r}")
@@ -748,39 +1124,53 @@ class BundleServer:
                 "speculation is a slot-engine feature; single-prompt "
                 "whole-batch speculation rides --draft-bundle alone)")
         self.device = resolve_device(device)
-        model, _, meta = load_serving_bundle(bundle_dir, self.device)
-        if int8_kv and not model.cfg.kv_cache_quant:
-            # the cache layout is a serving-time choice (weights unchanged)
-            cfg = dataclasses.replace(model.cfg, kv_cache_quant=True)
-            for module in model.modules():
-                if hasattr(module, "cfg"):
-                    module.cfg = cfg
-        self.bundle_dir, self.model, self.meta = bundle_dir, model, meta
-        # the bundle's pipeline generation (/healthz, /loadz); it
-        # advances only with a hot swap, which is not ported
-        self.bundle_generation = int(meta.get("pipeline_generation", 1))
+        self._int8_kv = bool(int8_kv)
+        # the shared metrics plane and event trail (/metrics, /events)
+        self.registry = registry if registry is not None else get_registry()
+        self._obs = platform_families(self.registry)
+        install_runtime_metrics(self.registry)
+        self.event_log = (event_log if event_log is not None
+                          else get_event_log())
+        # named-point chaos installs the process injector (it covers
+        # bundle.load below); fail@N / slow@N:S drive the driver loop
+        chaos = None
+        if chaos_spec:
+            chaos, named = split_serve_chaos_spec(chaos_spec)
+            if named is not None:
+                chaos_install(named)
+                logger.warning("named-point chaos injection ACTIVE: %s",
+                               named.describe())
         self.draft_bundle_dir = draft_bundle_dir or None
         self.draft_model = None
         if draft_bundle_dir:
             # the draft of both speculative paths: a smaller bundle of the
             # same tokenizer (a float16 one is refused by the loader)
-            self.draft_model = load_serving_bundle(draft_bundle_dir,
-                                                   self.device)[0]
-            if self.draft_model.cfg.vocab_size != model.cfg.vocab_size:
-                raise ValueError(
-                    f"draft bundle vocab {self.draft_model.cfg.vocab_size} "
-                    f"!= target vocab {model.cfg.vocab_size}")
+            self.draft_model = retry_with_backoff(
+                lambda: load_serving_bundle(draft_bundle_dir, self.device),
+                op="bundle_load", give_up_on=_PERMANENT_LOAD_ERRORS)[0]
+        self.model, self.meta, self.tokenizer = self._load_and_verify(
+            bundle_dir)
+        model = self.model
         if self.spec_tokens and self.draft_model is None:
             logger.warning(
                 "--spec-tokens %d without --draft-bundle: SELF-draft mode "
                 "(the draft forwards cost as much as the verify, and the "
                 "dense draft cache costs memory; deploy a small draft "
                 "bundle for the speedup)", self.spec_tokens)
-        self.tokenizer = get_tokenizer(meta.get("tokenizer", "byte"))
-        if self.tokenizer.vocab_size > model.cfg.vocab_size:
-            raise ValueError(
-                f"bundle tokenizer vocab {self.tokenizer.vocab_size} exceeds "
-                f"model vocab {model.cfg.vocab_size}")
+        self.bundle_dir = bundle_dir
+        # the serving generation (/healthz, /loadz, the
+        # serve_bundle_generation gauge): it advances only after a hot
+        # swap's canary passes; one reload at a time
+        self.bundle_generation = int(self.meta.get("pipeline_generation", 1))
+        self._obs["serve_bundle_generation"].set(self.bundle_generation)
+        self.admin_token = admin_token
+        self._reload_lock = threading.Lock()
+        # request tracing: every POST gets a span (the caller's
+        # traceparent adopted, else a new root); sample 0 and slow 0
+        # keep only the ids
+        self.tracer = TraceRecorder(
+            sample=trace_sample, slow_ms=trace_slow_ms,
+            counter=self._obs["serve_traces_recorded_total"])
         self._lock = threading.Lock()  # whole-batch generate and score
         # drain: admission stops, in-flight work finishes; /livez reads
         # the driver loop's age against live_stall_s
@@ -791,9 +1181,16 @@ class BundleServer:
         self._front: Optional[_ContinuousFront] = None
         self.stepstats = StepStatsRing(capacity=max(1, int(step_record_ring)))
         if continuous_slots > 0:
+            # the driver loop beats the heartbeat (every 5th iteration:
+            # the idle spin runs at ~20 Hz)
+            heartbeat = (Heartbeat(heartbeat_file, every_steps=5)
+                         if heartbeat_file else None)
             self._front = _ContinuousFront(
                 model, tenants=tenants_spec, max_queue_depth=max_queue_depth,
                 max_queued_tokens=max_queued_tokens, stepstats=self.stepstats,
+                obs=self._obs, event_log=self.event_log, chaos=chaos,
+                heartbeat=heartbeat, step_timeout_s=step_timeout_s,
+                tracer=self.tracer,
                 num_slots=continuous_slots, chunk=continuous_chunk,
                 eos_token_id=getattr(self.tokenizer, "eos_id", None),
                 pad_id=getattr(self.tokenizer, "pad_id", 0),
@@ -805,6 +1202,200 @@ class BundleServer:
                 spec_tokens=self.spec_tokens,
                 draft_model=self.draft_model if self.spec_tokens else None)
 
+    # -- bundle loading and the hot swap ---------------------------------
+    def _load_and_verify(self, bundle_dir: str):
+        """``(model, meta, tokenizer)`` of one bundle: the one path of
+        construction and :meth:`reload_bundle`. The load retries with
+        backoff (``bundle.load`` chaos fires inside it); a missing path
+        or a corrupt config fails at once."""
+        def _load():
+            chaos_fire("bundle.load", bundle=bundle_dir)
+            return load_serving_bundle(bundle_dir, self.device)
+
+        model, _, meta = retry_with_backoff(
+            _load, op="bundle_load", give_up_on=_PERMANENT_LOAD_ERRORS)
+        if self._int8_kv and not model.cfg.kv_cache_quant:
+            # the cache layout is a serving-time choice (weights unchanged)
+            cfg = dataclasses.replace(model.cfg, kv_cache_quant=True)
+            for module in model.modules():
+                if hasattr(module, "cfg"):
+                    module.cfg = cfg
+        tokenizer = get_tokenizer(meta.get("tokenizer", "byte"))
+        if tokenizer.vocab_size > model.cfg.vocab_size:
+            raise ValueError(
+                f"bundle tokenizer vocab {tokenizer.vocab_size} exceeds "
+                f"model vocab {model.cfg.vocab_size}")
+        if (self.draft_model is not None
+                and self.draft_model.cfg.vocab_size
+                != model.cfg.vocab_size):
+            raise ValueError(
+                f"draft bundle vocab {self.draft_model.cfg.vocab_size} != "
+                f"target vocab {model.cfg.vocab_size}")
+        return model, meta, tokenizer
+
+    def _check_swap_compat(self, meta: dict, model) -> None:
+        """A hot-swapped bundle speaks the serving one's request
+        contract: the same tokenizer spec and vocabulary (a request
+        racing the swap may encode under one and decode under the
+        other). Layers, widths and the KV layout may change: the engine
+        is rebuilt around the new config."""
+        old_spec = self.meta.get("tokenizer", "byte")
+        new_spec = meta.get("tokenizer", "byte")
+        if new_spec != old_spec:
+            raise ValueError(
+                f"incompatible bundle: tokenizer {new_spec!r} != "
+                f"serving tokenizer {old_spec!r}")
+        if model.cfg.vocab_size != self.model.cfg.vocab_size:
+            raise ValueError(
+                f"incompatible bundle: vocab {model.cfg.vocab_size} != "
+                f"serving vocab {self.model.cfg.vocab_size}")
+
+    def _install_bundle(self, model, meta, tokenizer, bundle_dir: str,
+                        drain_s: float = 30.0) -> None:
+        """Point the serving surfaces at a verified bundle: the
+        whole-batch path under its lock, the slot engine through
+        :meth:`_ContinuousFront.swap_model`."""
+        with self._lock:
+            self.model, self.meta = model, meta
+            self.tokenizer, self.bundle_dir = tokenizer, bundle_dir
+        if self._front is not None:
+            self._front.swap_model(
+                model, getattr(tokenizer, "eos_id", None),
+                getattr(tokenizer, "pad_id", 0), drain_s=drain_s)
+
+    def _canary(self) -> None:
+        """One tiny generate through the freshly swapped bundle (past the
+        admission gates on the slot engine): only after it returns does
+        the advertised generation advance. On the card it is also the
+        new engine's first busy step, which captures its graphs."""
+        ids = self.tokenizer.encode("canary")
+        if self._front is not None:
+            rid = self._front.submit_internal(ids, 2)
+            self._front.wait(rid, timeout_s=120)
+            return
+        out = self.generate(["canary"], max_new_tokens=2)
+        if not out or "completion" not in out[0]:
+            raise RuntimeError(f"canary generate returned {out!r}")
+
+    def reload_bundle(self, bundle_dir: str, generation=None,
+                      canary: bool = True, drain_s: float = 30.0) -> dict:
+        """Hot swap to the bundle at ``bundle_dir`` (``POST
+        /admin/reload``): load and verify (the boot path), the compat
+        check, the swap (in-flight work drains on the old weights), the
+        canary, then the generation advances. A load or compat failure
+        swaps nothing; a canary failure reinstalls the previous bundle;
+        both raise :class:`BundleReloadError` (502) with the old
+        generation serving. One reload at a time
+        (:class:`ReloadInFlight`, 409). ``timings_s`` in the reply has
+        the load, swap and canary walls."""
+        if generation is not None:
+            # before any swap: a bad generation failing after the canary
+            # would leave the new bundle serving under the old number
+            try:
+                generation = int(generation)
+            except (TypeError, ValueError):
+                raise ValueError(
+                    f"'generation' must be an integer, got "
+                    f"{generation!r}") from None
+        if not self._reload_lock.acquire(blocking=False):
+            raise ReloadInFlight(
+                "a bundle reload is already in flight; retry after it "
+                "settles")
+        try:
+            self.event_log.emit("bundle_reload_started", bundle=bundle_dir,
+                                current_generation=self.bundle_generation)
+            old = (self.model, self.meta, self.tokenizer, self.bundle_dir)
+            t0 = time.perf_counter()
+            try:
+                model, meta, tokenizer = self._load_and_verify(bundle_dir)
+                self._check_swap_compat(meta, model)
+            except Exception as exc:
+                self._obs["serve_bundle_reloads_total"].labels(
+                    outcome="rejected").inc()
+                self.event_log.emit(
+                    "bundle_reload_failed", bundle=bundle_dir,
+                    rolled_back=False,
+                    error=f"{type(exc).__name__}: {exc}"[:500])
+                raise BundleReloadError(
+                    f"bundle rejected before swap: {exc}",
+                    rolled_back=False) from exc
+            t1 = time.perf_counter()
+            self._install_bundle(model, meta, tokenizer, bundle_dir,
+                                 drain_s=drain_s)
+            del model  # the rollback below must leave no reference
+            t2 = time.perf_counter()
+            if canary:
+                try:
+                    self._canary()
+                except Exception as exc:  # noqa: BLE001 — any canary
+                    # failure leaves the OLD generation serving
+                    logger.exception(
+                        "canary generate failed after bundle swap; "
+                        "rolling back to %s", old[3])
+                    self._install_bundle(*old, drain_s=drain_s)
+                    self._obs["serve_bundle_reloads_total"].labels(
+                        outcome="rolled_back").inc()
+                    self.event_log.emit(
+                        "bundle_reload_rolled_back", bundle=bundle_dir,
+                        restored=old[3],
+                        error=f"{type(exc).__name__}: {exc}"[:500])
+                    raise BundleReloadError(
+                        f"canary generate failed (previous bundle "
+                        f"restored): {exc}", rolled_back=True) from exc
+            t3 = time.perf_counter()
+            del old
+            gen = (generation if generation is not None
+                   else int(self.meta.get("pipeline_generation",
+                                          self.bundle_generation + 1)))
+            self.bundle_generation = gen
+            self._obs["serve_bundle_generation"].set(gen)
+            self._obs["serve_bundle_reloads_total"].labels(
+                outcome="ok").inc()
+            self.event_log.emit("bundle_reload_succeeded",
+                                bundle=bundle_dir, generation=gen,
+                                canary=bool(canary))
+            logger.info("bundle hot-swapped: %s (generation %d)",
+                        bundle_dir, gen)
+            return {"ok": True, "bundle": bundle_dir,
+                    "bundle_generation": gen, "canary": bool(canary),
+                    "timings_s": {"load": round(t1 - t0, 4),
+                                  "swap": round(t2 - t1, 4),
+                                  "canary": round(t3 - t2, 4)}}
+        finally:
+            self._reload_lock.release()
+
+    def start_profile(self, output_dir: Optional[str],
+                      steps: int = 8) -> dict:
+        """``POST /admin/profile``: arm a ``torch.profiler`` capture
+        (CPU and, on the card, CUDA activity) over the next ``steps``
+        busy engine steps, written as a Chrome trace into ``output_dir``
+        (a fresh temporary directory when omitted; the reply names it).
+        Completion lands on the event trail as ``profile_trace_written``
+        with the step-seq window and recent trace ids.
+        :class:`ProfileInFlight` (409) while a capture is armed; 400 on
+        a whole-batch server (no step loop)."""
+        if self._front is None:
+            raise ValueError(
+                "profiling requires --continuous-slots (the capture "
+                "spans engine steps; whole-batch serving has no step "
+                "loop)")
+        if int(steps) < 1:
+            raise ValueError(f"profile steps must be >= 1, got {steps}")
+        if self._front.profile_in_flight():
+            raise ProfileInFlight("a profiler capture is already in flight")
+        created = None
+        if not output_dir:
+            output_dir = created = tempfile.mkdtemp(prefix="stepprof-")
+        else:
+            os.makedirs(output_dir, exist_ok=True)
+        try:
+            return self._front.start_profile(output_dir, steps)
+        except ProfileInFlight:
+            if created is not None:
+                with contextlib.suppress(OSError):
+                    os.rmdir(created)
+            raise
+
     # -- lifecycle -------------------------------------------------------
     @property
     def draining(self) -> bool:
@@ -814,7 +1405,11 @@ class BundleServer:
         """Flip to draining: ``/healthz`` answers 503, new requests get
         503 with ``Retry-After``, in-flight requests keep decoding.
         Idempotent."""
+        if self._draining.is_set():
+            return
         self._draining.set()
+        self._obs["serve_draining"].set(1)
+        self.event_log.emit("serve_drain_started", bundle=self.bundle_dir)
         if self._front is not None:
             self._front.begin_drain()
 
@@ -835,8 +1430,11 @@ class BundleServer:
                 busy_http = self._inflight_http
             if not busy_http and (self._front is None
                                   or self._front.drain(timeout_s=0)):
+                self.event_log.emit("serve_drain_finished", drained=True)
                 return True
             if time.monotonic() >= deadline:
+                self.event_log.emit("serve_drain_finished", drained=False,
+                                    inflight_http=busy_http)
                 return False
             time.sleep(0.05)
 
@@ -872,13 +1470,16 @@ class BundleServer:
     def livez(self) -> dict:
         """Liveness (``GET /livez``), taking no lock: ``live`` goes false
         only when the engine's driver loop has not finished an iteration
-        for ``live_stall_s``. Draining and load are readiness, not
-        liveness; a whole-batch server is always live."""
+        for ``live_stall_s``; ``wedged`` reports a step the watchdog is
+        reaping. Draining and load are readiness, not liveness; a
+        whole-batch server is always live."""
         out = {"live": True, "draining": self.draining}
         front = self._front
         if front is not None:
             age = time.monotonic() - front._last_loop_ts
             out["driver_loop_age_s"] = round(age, 3)
+            out["wedged"] = bool(front._wedged)
+            out["step_timeout_s"] = front.step_timeout_s
             if self._live_stall_s and age > self._live_stall_s:
                 out["live"] = False
         return out
@@ -923,6 +1524,7 @@ class BundleServer:
             caps.append(self._front.max_queued_tokens
                         - stats["queued_tokens"])
         out["capacity_free"] = max(0, min(caps))
+        self._obs["serve_capacity_free_tokens"].set(out["capacity_free"])
         if self.spec_tokens:
             out["spec_accept_rate"] = stats["spec"]["recent_accept_rate"]
         phases = stats["step_phases"]
@@ -931,6 +1533,9 @@ class BundleServer:
         out["tenants"] = {name: {"queued": t["queued"],
                                  "queued_tokens": t["queued_tokens"]}
                           for name, t in stats["tenants"].items()}
+        for name, t in stats["tenants"].items():
+            self._obs["serve_tenant_queue_depth"].labels(
+                tenant=name).set(t["queued"])
         return out
 
     # -- generation ------------------------------------------------------
@@ -950,21 +1555,24 @@ class BundleServer:
                  temperature: float = 0.0, top_k=None, top_p=None,
                  num_beams: int = 0, repetition_penalty=None,
                  deadline_s=None, tenant: str = "default",
-                 seed=None) -> list:
+                 seed=None, span=None) -> list:
         """Batch completion, results in input order. Slot-engine
         requests draw their sampling lane from ``seed + index`` when the
         client pins ``seed`` (deterministic per prompt and seed).
         ``deadline_s`` (seconds from now): the slot engine expires the
         request at a chunk boundary, the whole-batch path checks between
         length groups; both raise :class:`DeadlineExceeded`. ``tenant``
-        is the fairness identity of the slot engine's requests."""
+        is the fairness identity of the slot engine's requests, ``span``
+        their trace span. ``num_beams > 1`` runs beam search on the
+        whole-batch path (each entry gains ``beam_score``)."""
         if self.draining:
+            self._obs["serve_requests_rejected_total"].labels(
+                reason="draining").inc()
             raise _draining_rejection()
-        if num_beams and num_beams > 1:
-            raise NotPorted("num_beams (beam search) is not yet ported")
         t_deadline = None
         if deadline_s is not None:
             if deadline_s <= 0:
+                self._obs["serve_request_deadline_exceeded_total"].inc()
                 raise DeadlineExceeded(
                     f"deadline of {deadline_s * 1000.0:.0f}ms already "
                     "expired at submission")
@@ -1027,7 +1635,7 @@ class BundleServer:
                         ids, max_new_tokens, temperature=temp, top_p=top_p,
                         seed=(int(seed) + i if seed is not None else
                               int.from_bytes(os.urandom(4), "little")),
-                        deadline_s=deadline_s, tenant=tenant)))
+                        deadline_s=deadline_s, tenant=tenant, span=span)))
             except Exception:
                 # a rejection mid-batch must not strand the rows before it
                 for _, rid in rids:
@@ -1055,32 +1663,44 @@ class BundleServer:
             for length, members in sorted(groups.items()):
                 if t_deadline is not None and time.monotonic() > t_deadline:
                     # whole-batch granularity: between length groups
+                    self._obs["serve_request_deadline_exceeded_total"].inc()
                     raise DeadlineExceeded(
                         "request deadline exceeded before the batch "
                         "finished decoding")
-                rows = [ids for _, ids in members]
-                gen = None
-                if sampling:
-                    gen = torch.Generator(device=self.device).manual_seed(
-                        int(seed) % (1 << 64) if seed is not None else
-                        int.from_bytes(os.urandom(4), "little"))
+                rows = np.asarray([ids for _, ids in members], np.int64)
                 t0 = time.perf_counter()
-                out = generate(self.model, np.asarray(rows, np.int64),
-                               max_new_tokens=max_new_tokens,
-                               temperature=float(temperature or 0.0),
-                               generator=gen, eos_token_id=eos_id,
-                               top_k=top_k, top_p=top_p,
-                               repetition_penalty=repetition_penalty)
+                scores = None
+                if num_beams and num_beams > 1:
+                    out, scores = beam_search(
+                        self.model, rows, max_new_tokens,
+                        num_beams=num_beams, eos_token_id=eos_id)
+                    scores = scores.cpu().numpy()
+                else:
+                    gen = None
+                    if sampling:
+                        gen = torch.Generator(
+                            device=self.device).manual_seed(
+                                int(seed) % (1 << 64) if seed is not None
+                                else int.from_bytes(os.urandom(4),
+                                                    "little"))
+                    out = generate(self.model, rows,
+                                   max_new_tokens=max_new_tokens,
+                                   temperature=float(temperature or 0.0),
+                                   generator=gen, eos_token_id=eos_id,
+                                   top_k=top_k, top_p=top_p,
+                                   repetition_penalty=repetition_penalty)
                 toks = out[:, length:].cpu().numpy()
                 dt = (time.perf_counter() - t0) * 1000.0
                 for row, (i, _) in enumerate(members):
+                    extra = ({"beam_score": float(scores[row])}
+                             if scores is not None else {})
                     results[i] = self._entry(prompts[i], toks[row].tolist(),
-                                             dt, eos_id)
+                                             dt, eos_id, **extra)
         return results
 
     def generate_stream(self, prompt: str, max_new_tokens: int = 64,
                         deadline_s=None, tenant: str = "default",
-                        continuation=None):
+                        continuation=None, span=None):
         """Greedy streaming through the slot engine: yields one event a
         collected token group (``token_ids`` and the whole ``text`` so
         far, so a multibyte sequence never tears), then the terminal
@@ -1095,6 +1715,7 @@ class BundleServer:
                 "streaming requires --continuous-slots (the slot engine "
                 "is what yields tokens as they decode)")
         if deadline_s is not None and deadline_s <= 0:
+            self._obs["serve_request_deadline_exceeded_total"].inc()
             raise DeadlineExceeded(
                 f"deadline of {deadline_s * 1000.0:.0f}ms already "
                 "expired at submission")
@@ -1105,6 +1726,9 @@ class BundleServer:
         if continuation is not None:
             prior_ids = [int(t) for t in continuation["emitted_ids"]]
             ids = ids + prior_ids
+            if span is not None:
+                # the resume crosses replicas inside one trace
+                span.event("continuation", emitted_tokens=len(prior_ids))
         cfg = self.model.cfg
         if len(ids) + max_new_tokens > cfg.max_seq_len:
             raise ValueError(
@@ -1114,8 +1738,8 @@ class BundleServer:
         t0 = time.perf_counter()
         rid, q = self._front.submit_stream(ids, max_new_tokens,
                                            deadline_s=deadline_s,
-                                           tenant=tenant)
-        toks, finished = [], False
+                                           tenant=tenant, span=span)
+        toks, finished, yielded = [], False, False
         try:
             while True:
                 item = q.get(timeout=600)
@@ -1131,11 +1755,13 @@ class BundleServer:
                     item = item[:item.index(eos_id)]
                     toks.extend(item)
                     if item:
+                        yielded = True
                         yield {"token_ids": item,
                                "text": prompt + self.tokenizer.decode(
                                    prior_ids + toks)}
                     break
                 toks.extend(item)
+                yielded = True
                 yield {"token_ids": item,
                        "text": prompt + self.tokenizer.decode(
                            prior_ids + toks)}
@@ -1146,6 +1772,14 @@ class BundleServer:
             if not finished:
                 # a client gone mid-stream, or a failure: free the slot
                 self._front.abandon(rid)
+                exc_type = sys.exc_info()[0]
+                if not (not yielded and exc_type is not None
+                        and issubclass(exc_type, (DeadlineExceeded,
+                                                  RequestRejected))):
+                    # past the 200 (or an engine failure): /metrics is
+                    # where this failure still shows; a shed or expiry
+                    # before the first event is the handler's to count
+                    self.record_metrics(failed=True)
         entry = {
             "prompt": prompt,
             "completion": prompt + self.tokenizer.decode(prior_ids + toks),
@@ -1155,6 +1789,11 @@ class BundleServer:
         }
         if continuation is not None:
             entry["resumed"] = True
+        # this replica's tokens only (a continuation's prior tokens were
+        # another replica's work)
+        self.record_metrics(
+            generate_entries=[{**entry, "new_tokens": len(toks)}],
+            trace_id=span.trace_id if span is not None else None)
         yield entry
 
     # -- prefix warming and the disaggregated KV handoff -----------------
@@ -1187,6 +1826,7 @@ class BundleServer:
             return {"prefix_tokens": warmed, "page_size": 0,
                     "pages": 0, "blob": None}
         blob = pack_kv_export(export)
+        self._obs["serve_kv_xfer_bytes_total"].inc(len(blob))
         return {
             "prefix_tokens": warmed,
             "page_size": export["page_size"],
@@ -1201,8 +1841,9 @@ class BundleServer:
         imports into the other."""
         if self._front is None:
             raise ValueError("KV import requires --continuous-slots")
-        transfer = unpack_kv_blob(
-            base64.b64decode(blob_b64.encode("ascii"), validate=True))
+        data = base64.b64decode(blob_b64.encode("ascii"), validate=True)
+        self._obs["serve_kv_xfer_bytes_total"].inc(len(data))
+        transfer = unpack_kv_blob(data)
         ps = self.model.cfg.kv_page_size
         if transfer["page_size"] != ps:
             raise ValueError(
@@ -1212,6 +1853,87 @@ class BundleServer:
         imported = self._front.import_prefix_pages(transfer["token_ids"],
                                                    transfer["layers"])
         return {"imported_tokens": imported, "pages": imported // ps}
+
+    # -- metrics ---------------------------------------------------------
+    def record_metrics(self, *, generate_entries=None, score: bool = False,
+                       failed: bool = False,
+                       trace_id: Optional[str] = None) -> None:
+        """Fold one request into the registry (thread-safe: each metric
+        holds its own lock). ``trace_id`` rides the latency histogram as
+        its bucket's exemplar (``/metrics.json``)."""
+        m = self._obs
+        m["serve_requests_total"].inc()
+        if failed:
+            m["serve_requests_failed_total"].inc()
+        if score:
+            m["serve_score_requests_total"].inc()
+        if generate_entries:
+            m["serve_generate_requests_total"].inc()
+            m["serve_generate_tokens_total"].inc(sum(
+                e.get("new_tokens", 0) for e in generate_entries))
+            m["serve_generate_latency_ms"].observe(max(
+                (e.get("latency_ms", 0.0) for e in generate_entries),
+                default=0.0), exemplar=trace_id)
+
+    def _legacy_metrics_text(self) -> str:
+        """The JAX server's pre-registry exposition names
+        (``pyspark_tf_gke_tpu_serve_*``), aliased onto registry values."""
+        m = self._obs
+        alias = [
+            ("requests_total", "counter", m["serve_requests_total"].value),
+            ("requests_failed_total", "counter",
+             m["serve_requests_failed_total"].value),
+            ("generate_tokens_total", "counter",
+             m["serve_generate_tokens_total"].value),
+            ("generate_latency_ms_sum", "counter",
+             m["serve_generate_latency_ms"].sum),
+            ("generate_requests_total", "counter",
+             m["serve_generate_requests_total"].value),
+            ("score_requests_total", "counter",
+             m["serve_score_requests_total"].value),
+        ]
+        lines = []
+        for key, kind, val in alias:
+            name = f"pyspark_tf_gke_tpu_serve_{key}"
+            lines.append(f"# TYPE {name} {kind}")
+            lines.append(f"{name} "
+                         f"{int(val) if float(val).is_integer() else val}")
+        if self._front is not None:
+            stats = self._front.stats()
+            for key in ("queued", "active", "finished", "num_slots"):
+                name = f"pyspark_tf_gke_tpu_serve_continuous_{key}"
+                kind = "counter" if key == "finished" else "gauge"
+                lines.append(f"# TYPE {name} {kind}")
+                lines.append(f"{name} {stats[key]}")
+            for key, val in (stats.get("prefix_cache") or {}).items():
+                if not isinstance(val, (int, float)):
+                    continue  # a tag, not a number
+                name = ("pyspark_tf_gke_tpu_serve_continuous_"
+                        f"prefix_cache_{key}")
+                kind = ("counter" if key in ("hits", "misses",
+                                             "hit_tokens", "evictions")
+                        else "gauge")
+                lines.append(f"# TYPE {name} {kind}")
+                lines.append(f"{name} {val}")
+        return "\n".join(lines) + "\n"
+
+    def _refresh_engine_gauges(self) -> None:
+        """Scrape-time refresh of the engine gauges (the engine sets
+        them only at collect boundaries)."""
+        if self._front is not None:
+            stats = self._front.stats()
+            self._obs["serve_slots_total"].set(stats["num_slots"])
+            self._obs["serve_slots_active"].set(stats["active"])
+            self._obs["serve_queue_depth"].set(stats["queued"])
+            for name, t in (stats.get("tenants") or {}).items():
+                self._obs["serve_tenant_queue_depth"].labels(
+                    tenant=name).set(t["queued"])
+
+    def metrics_text(self) -> str:
+        """The Prometheus exposition: the registry (``train_`` /
+        ``serve_`` / ``runtime_`` families) plus the alias block."""
+        self._refresh_engine_gauges()
+        return self.registry.exposition() + self._legacy_metrics_text()
 
     # -- scoring ---------------------------------------------------------
     def score(self, texts, tenant: str = "default") -> list:
@@ -1253,6 +1975,19 @@ class BundleServer:
         return results
 
 
+def _span_shed_event(span, exc: RequestRejected) -> None:
+    """The shed verdict on the request's span, unless the span already
+    has its terminal: a reload past its drain bound hands an ADMITTED
+    request a 'reloading' shed whose terminal the engine stamped, and a
+    second verdict would read as a double delivery."""
+    if span is None:
+        return
+    if any(e.get("name") == "terminal" for e in span.events):
+        return
+    span.event("shed", reason=exc.reason,
+               **({"tenant": exc.tenant} if exc.tenant else {}))
+
+
 def _shed_headers(exc: RequestRejected):
     """``Retry-After`` always; a per-tenant shed also ``X-Tenant-Shed``,
     so the router keeps the replica in rotation."""
@@ -1269,27 +2004,24 @@ def _shed_body(exc: RequestRejected) -> dict:
     return body
 
 
-def _stepz(server: BundleServer, query: str):
-    """``GET /stepz``: the step-stats ring's summary and its newest
-    records, ``?n=`` of them (1..1024, 64 by default) at least
-    ``?min_ms=`` long."""
-    n, min_ms = 64, None
-    for part in query.split("&"):
-        key, _, val = part.partition("=")
-        try:
-            if key == "n" and val:
-                n = max(1, min(int(val), 1024))
-            elif key == "min_ms" and val:
-                min_ms = float(val)
-        except ValueError:
-            return 400, {"error": "bad /stepz query parameter"}
-    return 200, {"summary": server.stepstats.summary(),
-                 "steps": server.stepstats.snapshot(n=n, min_ms=min_ms)}
+def _admin_token_error(server: BundleServer, headers):
+    """The admin endpoints' token gate: without ``SERVE_ADMIN_TOKEN``
+    the endpoint is disabled (403); with one, ``X-Admin-Token`` must
+    match it (compared in constant time; 401). ``(status, body)``, or
+    None when authorised."""
+    if not server.admin_token:
+        return 403, {"error": "admin endpoint disabled (set "
+                              "SERVE_ADMIN_TOKEN to enable)"}
+    if not hmac.compare_digest(headers.get("X-Admin-Token") or "",
+                               server.admin_token):
+        return 401, {"error": "bad or missing X-Admin-Token"}
+    return None
 
 
 def _make_handler(server: BundleServer):
     class Handler(BaseHTTPRequestHandler):
         protocol_version = "HTTP/1.1"
+        _span = None  # the request's trace span (POST paths set it)
 
         def log_message(self, fmt, *args):  # quiet per-request logging
             logger.debug("%s " + fmt, self.address_string(), *args)
@@ -1299,6 +2031,10 @@ def _make_handler(server: BundleServer):
             self.send_response(code)
             self.send_header("Content-Type", "application/json")
             self.send_header("Content-Length", str(len(data)))
+            if self._span is not None:
+                # every response, sheds included, echoes the trace id
+                self.send_header("X-Request-Id", self._span.trace_id)
+                self._span.set("http.status", code)
             for name, value in headers:
                 self.send_header(name, value)
             if self.close_connection:
@@ -1307,17 +2043,20 @@ def _make_handler(server: BundleServer):
             self.wfile.write(data)
 
         def _stream_generate(self, req, prompts, tenant):
-            """Server-sent events: ``data: {json}\\n\\n`` a token group,
-            the terminal entry, then ``data: [DONE]\\n\\n``; the
-            connection closes at the end. Greedy, one prompt. Errors
-            found before the first event answer with a status; after it
-            an ``{"error": ...}`` event ends the stream."""
+            """Server-sent events: a ``: trace_id=`` comment, then
+            ``data: {json}\\n\\n`` a token group, the terminal entry, and
+            ``data: [DONE]\\n\\n``; the connection closes at the end.
+            Greedy, one prompt. Errors found before the first event
+            answer with a status; after it an ``{"error": ...}`` event
+            ends the stream."""
             if len(prompts) != 1:
+                server.record_metrics(failed=True)
                 return self._reply(
                     400, {"error": "streaming takes exactly one prompt"})
             if (float(req.get("temperature", 0.0) or 0.0) > 0
                     or req.get("num_beams") or req.get("top_k")
                     or req.get("top_p") or req.get("repetition_penalty")):
+                server.record_metrics(failed=True)
                 return self._reply(
                     400, {"error": "streaming is greedy-only (no "
                                    "sampling/beam parameters)"})
@@ -1330,6 +2069,7 @@ def _make_handler(server: BundleServer):
                         raise ValueError
                     continuation = {"emitted_ids": emitted}
                 except (TypeError, KeyError, ValueError):
+                    server.record_metrics(failed=True)
                     return self._reply(
                         400, {"error": "'continuation' must carry "
                                        "emitted_ids: a non-empty list "
@@ -1341,23 +2081,36 @@ def _make_handler(server: BundleServer):
                     max_new_tokens=int(req.get("max_new_tokens", 64)),
                     deadline_s=(float(deadline_ms) / 1000.0
                                 if deadline_ms is not None else None),
-                    tenant=tenant, continuation=continuation)
+                    tenant=tenant, continuation=continuation,
+                    span=self._span)
                 # validation errors surface before the status line
                 first = next(events)
             except RequestRejected as exc:
+                _span_shed_event(self._span, exc)
+                server.record_metrics()
                 return self._reply(exc.status, _shed_body(exc),
                                    headers=_shed_headers(exc))
             except DeadlineExceeded as exc:
+                server.record_metrics()
                 return self._reply(504, {"error": str(exc)})
             except (TypeError, ValueError) as exc:
+                server.record_metrics(failed=True)
                 return self._reply(400, {"error": str(exc)})
             self.close_connection = True
             self.send_response(200)
             self.send_header("Content-Type", "text/event-stream")
             self.send_header("Cache-Control", "no-cache")
             self.send_header("Connection", "close")
+            if self._span is not None:
+                self.send_header("X-Request-Id", self._span.trace_id)
+                self._span.set("http.status", 200)
             self.end_headers()
             try:
+                if self._span is not None:
+                    # a comment carrying the trace id, for SSE clients
+                    # that never see the response headers
+                    self.wfile.write(
+                        f": trace_id={self._span.trace_id}\n\n".encode())
                 for event in itertools.chain([first], events):
                     self.wfile.write(
                         f"data: {json.dumps(event)}\n\n".encode())
@@ -1378,7 +2131,7 @@ def _make_handler(server: BundleServer):
                 events.close()  # an unfinished stream frees its slot now
 
         def do_GET(self):
-            route, _, query = self.path.partition("?")
+            route = self.path.partition("?")[0]
             if route in ("/healthz", "/health", "/"):
                 # draining -> 503: readiness fails, routing stops
                 return self._reply(503 if server.draining else 200,
@@ -1389,35 +2142,74 @@ def _make_handler(server: BundleServer):
             if route == "/loadz":
                 # draining answers 200: the field carries the state
                 return self._reply(200, server.loadz())
-            if route == "/stepz":
-                return self._reply(*_stepz(server, query))
-            self._reply(404, {"error": f"unknown path {self.path}"})
+            # /metrics is the server's exposition; /metrics.json, /events,
+            # /traces, /stepz: the obs package assembles the reply
+            if route == "/metrics":
+                out = (200, PROMETHEUS_CONTENT_TYPE,
+                       server.metrics_text().encode())
+            else:
+                out = handle_obs_request(self.path, server.registry,
+                                         server.event_log,
+                                         tracer=server.tracer,
+                                         stepstats=server.stepstats)
+            if out is None:
+                return self._reply(404,
+                                   {"error": f"unknown path {self.path}"})
+            code, ctype, body = out
+            self.send_response(code)
+            self.send_header("Content-Type", ctype)
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
 
         def do_POST(self):
             server._http_enter()  # drain() waits for this to reach zero
+            # adopt the caller's traceparent (the router's, or a
+            # client's) or mint a root; a malformed one mints a root
+            self._span = server.tracer.start_span(
+                "serve.request", parent=self.headers.get("traceparent"),
+                attrs={"path": self.path.partition("?")[0]})
             try:
-                self._do_post()
+                with use_span(self._span):
+                    self._do_post()
             finally:
+                self._span.finish()
+                # a handler lives per keep-alive connection: a later GET
+                # on the socket must not echo this finished span
+                self._span = None
                 server._http_exit()
 
         def _do_post(self):
             if server.draining:
                 # shed before reading the body: the connection closes
                 self.close_connection = True
+                server.record_metrics()
+                server._obs["serve_requests_rejected_total"].labels(
+                    reason="draining").inc()
                 exc = _draining_rejection()
+                self._span.event("shed", reason=exc.reason)
                 return self._reply(exc.status, _shed_body(exc),
                                    headers=_shed_headers(exc))
             try:
                 length = int(self.headers.get("Content-Length", "0"))
             except ValueError:
+                server.record_metrics(failed=True)
                 return self._reply(400, {"error": "bad Content-Length"})
             if length > MAX_BODY_BYTES:
                 self.close_connection = True
+                server.record_metrics(failed=True)
                 return self._reply(413, {"error": "request body too large"})
             try:
                 req = json.loads(self.rfile.read(length) or b"{}")
                 if not isinstance(req, dict):
                     raise ValueError("request body must be a JSON object")
+            except ValueError as exc:
+                server.record_metrics(failed=True)
+                return self._reply(400, {"error": f"bad JSON body: {exc}"})
+            try:
+                # chaos: the request front's fault point (a fail rule is
+                # a 500 terminal, a slow rule front latency)
+                chaos_fire("serve.request")
                 deadline_ms = req.get("deadline_ms")
                 deadline_s = (float(deadline_ms) / 1000.0
                               if deadline_ms is not None else None)
@@ -1425,6 +2217,7 @@ def _make_handler(server: BundleServer):
                 tenant = (self.headers.get("X-Tenant") or req.get("tenant")
                           or "default")
                 if not isinstance(tenant, str):
+                    server.record_metrics(failed=True)
                     return self._reply(
                         400, {"error": "'tenant' must be a string"})
                 if self.path == "/v1/generate":
@@ -1433,6 +2226,7 @@ def _make_handler(server: BundleServer):
                         prompts = [req["prompt"]]
                     if not isinstance(prompts, list) or not all(
                             isinstance(p, str) for p in prompts or [None]):
+                        server.record_metrics(failed=True)
                         return self._reply(
                             400, {"error": "'prompts' must be a list of "
                                            "strings (or 'prompt': str)"})
@@ -1441,6 +2235,7 @@ def _make_handler(server: BundleServer):
                         try:
                             seed = int(seed)
                         except (TypeError, ValueError):
+                            server.record_metrics(failed=True)
                             return self._reply(
                                 400, {"error": "'seed' must be an integer"})
                     if req.get("stream"):
@@ -1452,50 +2247,115 @@ def _make_handler(server: BundleServer):
                         top_k=req.get("top_k"), top_p=req.get("top_p"),
                         num_beams=int(req.get("num_beams", 0)),
                         repetition_penalty=req.get("repetition_penalty"),
-                        deadline_s=deadline_s, tenant=tenant, seed=seed)
+                        deadline_s=deadline_s, tenant=tenant, seed=seed,
+                        span=self._span)
+                    server.record_metrics(generate_entries=out,
+                                          trace_id=self._span.trace_id)
                     self._reply(200, {"completions": out})
                 elif self.path == "/v1/score":
                     texts = req.get("texts")
                     if not isinstance(texts, list) or not all(
                             isinstance(t, str) for t in texts or [None]):
+                        server.record_metrics(failed=True)
                         return self._reply(
                             400, {"error": "'texts' must be a list of "
                                            "strings"})
-                    self._reply(200, {"scores": server.score(texts, tenant)})
+                    scores = server.score(texts, tenant)
+                    server.record_metrics(score=True)
+                    self._reply(200, {"scores": scores})
                 elif self.path == "/v1/warm":
                     prefix = req.get("prefix")
                     if not isinstance(prefix, str):
+                        server.record_metrics(failed=True)
                         return self._reply(
                             400, {"error": "'prefix' must be a string"})
-                    self._reply(200, server.warm_prefix(prefix))
+                    out = server.warm_prefix(prefix)
+                    server.record_metrics()
+                    self._reply(200, out)
                 elif self.path == "/v1/prefill":
                     prompt = req.get("prompt")
                     if not isinstance(prompt, str):
+                        server.record_metrics(failed=True)
                         return self._reply(
                             400, {"error": "'prompt' must be a string"})
-                    self._reply(200, server.prefill_export(prompt))
+                    out = server.prefill_export(prompt)
+                    server.record_metrics()
+                    self._reply(200, out)
                 elif self.path == "/v1/kv_import":
                     blob = req.get("blob")
                     if not isinstance(blob, str):
+                        server.record_metrics(failed=True)
                         return self._reply(
                             400, {"error": "'blob' must be a base64 "
                                            "string"})
-                    self._reply(200, server.kv_import(blob))
-                elif self.path in _NOT_PORTED_PATHS:
-                    raise NotPorted(f"{self.path} is not yet ported "
-                                    f"({_NOT_PORTED_PATHS[self.path]})")
+                    out = server.kv_import(blob)
+                    server.record_metrics()
+                    self._reply(200, out)
+                elif self.path == "/admin/reload":
+                    err = _admin_token_error(server, self.headers)
+                    if err is not None:
+                        server.record_metrics()
+                        server._obs["serve_bundle_reloads_total"].labels(
+                            outcome="rejected").inc()
+                        return self._reply(*err)
+                    bundle = req.get("bundle")
+                    if not isinstance(bundle, str) or not bundle:
+                        server.record_metrics(failed=True)
+                        return self._reply(
+                            400, {"error": "'bundle' must be a bundle "
+                                           "directory path"})
+                    out = server.reload_bundle(
+                        bundle, generation=req.get("generation"),
+                        canary=bool(req.get("canary", True)))
+                    server.record_metrics()
+                    self._reply(200, out)
+                elif self.path == "/admin/profile":
+                    # 202: the capture is ARMED; profile_trace_written
+                    # lands on /events when it is written
+                    err = _admin_token_error(server, self.headers)
+                    if err is not None:
+                        server.record_metrics()
+                        return self._reply(*err)
+                    out = server.start_profile(
+                        req.get("output_dir"),
+                        steps=int(req.get("steps", 8)))
+                    server.record_metrics()
+                    self._reply(202, out)
                 else:
+                    server.record_metrics(failed=True)
                     self._reply(404, {"error": f"unknown path {self.path}"})
             except RequestRejected as exc:
+                # a shed is not a server fault: counted where it was
+                # raised, in serve_requests_rejected_total
+                server.record_metrics()
+                _span_shed_event(self._span, exc)
                 self._reply(exc.status, _shed_body(exc),
                             headers=_shed_headers(exc))
             except DeadlineExceeded as exc:
+                server.record_metrics()
                 self._reply(504, {"error": str(exc)})
+            except ReloadInFlight as exc:
+                server.record_metrics()
+                server._obs["serve_bundle_reloads_total"].labels(
+                    outcome="rejected").inc()
+                self._reply(409, {"error": str(exc)})
+            except ProfileInFlight as exc:
+                server.record_metrics()
+                self._reply(409, {"error": str(exc)})
+            except BundleReloadError as exc:
+                # the old generation serves either way; the body says
+                # whether a swap happened and was rolled back
+                server.record_metrics(failed=True)
+                self._reply(502, {
+                    "error": str(exc), "rolled_back": exc.rolled_back,
+                    "bundle_generation": server.bundle_generation})
             except (TypeError, ValueError) as exc:
-                # caller error (NotPorted included), not a server fault
+                # caller error, not a server fault
+                server.record_metrics(failed=True)
                 self._reply(400, {"error": str(exc)})
             except Exception as exc:  # noqa: BLE001 — keep the server up
                 logger.exception("request failed")
+                server.record_metrics(failed=True)
                 self._reply(500, {"error": f"{type(exc).__name__}: {exc}"})
 
     return Handler
@@ -1527,7 +2387,8 @@ def _pipeline_depth(v: str) -> int:
 def parse_args(argv=None) -> argparse.Namespace:
     e = os.environ.get
     p = argparse.ArgumentParser(
-        description="Serve an exported bundle over HTTP on the card")
+        description="Serve an exported bundle over HTTP (or stdin) on the "
+                    "card")
     p.add_argument("--bundle", default=e("BUNDLE_DIR"),
                    required=e("BUNDLE_DIR") is None,
                    help="directory written by train/export.py")
@@ -1631,6 +2492,48 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--step-record-ring", type=int,
                    default=int(e("SERVE_STEP_RECORD_RING", "256")),
                    help="engine-step records kept for GET /stepz")
+    p.add_argument("--trace-sample", type=float,
+                   default=float(e("TRACE_SAMPLE", "0.01")),
+                   help="fraction of requests whose traces are kept in "
+                        "the /traces flight recorder (0..1); ids always "
+                        "propagate (traceparent in, X-Request-Id out); 0 "
+                        "with --trace-slow-ms 0 records nothing")
+    p.add_argument("--trace-slow-ms", type=float,
+                   default=float(e("TRACE_SLOW_MS", "1000")),
+                   help="keep every trace slower than this in /traces, "
+                        "sampled or not (0 = off)")
+    p.add_argument("--chaos", default=e("SERVE_CHAOS", ""),
+                   help="fault injection: driver-loop tokens (fail@STEP, "
+                        "slow@STEP:SECONDS) and named points "
+                        "(POINT:ACTION@N, POINT:ACTION%%P[:SECONDS][xK], "
+                        "seed=S; points serve.request, engine.admit, "
+                        "engine.device_step, bundle.load); never in "
+                        "production")
+    p.add_argument("--step-timeout", type=float,
+                   default=float(e("SERVE_STEP_TIMEOUT", "0")),
+                   help="step watchdog: an engine step running longer "
+                        "than this fails every in-flight request with an "
+                        "explicit error and the engine rebuilds when the "
+                        "step returns (0 = off; size it well above the "
+                        "first step's graph capture)")
+    p.add_argument("--heartbeat-file", default=e("HEARTBEAT_FILE", ""),
+                   help="node-local file the engine driver loop beats "
+                        "(its age is a liveness probe's signal); "
+                        "--continuous-slots only")
+    p.add_argument("--metrics-textfile", default=e("METRICS_TEXTFILE", ""),
+                   help="also write the metrics exposition to this .prom "
+                        "file every --metrics-interval seconds (atomic "
+                        "rename; a node exporter's textfile collector "
+                        "reads it)")
+    p.add_argument("--metrics-interval", type=float,
+                   default=float(e("METRICS_INTERVAL", "15")))
+    p.add_argument("--stdin", action="store_true",
+                   help="serve stdin lines instead of HTTP: each input "
+                        "line is a prompt, each output line a JSON result")
+    p.add_argument("--max-new-tokens", type=int,
+                   default=int(e("MAX_NEW_TOKENS", "64")))
+    p.add_argument("--temperature", type=float,
+                   default=float(e("TEMPERATURE", "0.0")))
     return p.parse_args(argv)
 
 
@@ -1653,33 +2556,68 @@ def main(argv=None) -> int:
                           tenants_spec=args.tenants,
                           live_stall_s=args.live_stall,
                           step_record_ring=args.step_record_ring,
-                          role=args.role)
-    httpd = start_http_server(server, args.host, args.port)
-    logger.info("serving on http://%s:%d (healthz, livez, loadz, stepz, "
-                "/v1/generate, /v1/score, /v1/warm, /v1/prefill, "
-                "/v1/kv_import)", *httpd.server_address[:2])
-
-    def drain_then_stop():
-        # SIGTERM: admission stops, in-flight requests finish (bounded
-        # by --drain-timeout), then the accept loop stops
-        server.begin_drain()
-        drained = server.drain(args.drain_timeout)
-        logger.info("drain %s after SIGTERM; stopping the HTTP server",
-                    "complete" if drained else
-                    f"timed out at {args.drain_timeout}s")
-        httpd.shutdown()
-
-    if threading.current_thread() is threading.main_thread():
-        signal.signal(signal.SIGTERM, lambda signum, frame: threading.Thread(
-            target=drain_then_stop, name="drain", daemon=True).start())
+                          role=args.role, chaos_spec=args.chaos,
+                          heartbeat_file=args.heartbeat_file,
+                          trace_sample=args.trace_sample,
+                          trace_slow_ms=args.trace_slow_ms,
+                          step_timeout_s=args.step_timeout,
+                          # env only: a flag would show in ps and pod specs
+                          admin_token=os.environ.get("SERVE_ADMIN_TOKEN",
+                                                     ""))
+    if args.chaos:
+        logger.warning("serve-side chaos injection ACTIVE: %s", args.chaos)
+    exporter = None
+    if args.metrics_textfile:
+        exporter = TextfileExporter(server.registry, args.metrics_textfile,
+                                    args.metrics_interval).start()
     try:
-        httpd.serve_forever()
-    except KeyboardInterrupt:
-        logger.info("shutting down")
+        if args.stdin:
+            for line in sys.stdin:
+                prompt = line.rstrip("\n")
+                if not prompt:
+                    continue
+                try:
+                    out = server.generate(
+                        [prompt], max_new_tokens=args.max_new_tokens,
+                        temperature=args.temperature)[0]
+                except ValueError as exc:
+                    # a bad line (too long, zero tokens) is that line's
+                    # error, as a 400 is over HTTP
+                    out = {"prompt": prompt, "error": str(exc)}
+                print(json.dumps(out), flush=True)
+            return 0
+        httpd = start_http_server(server, args.host, args.port)
+        logger.info("serving on http://%s:%d (healthz, livez, loadz, stepz, "
+                    "metrics, events, traces, /v1/generate, /v1/score, "
+                    "/v1/warm, /v1/prefill, /v1/kv_import, /admin/reload, "
+                    "/admin/profile)", *httpd.server_address[:2])
+
+        def drain_then_stop():
+            # SIGTERM: admission stops, in-flight requests finish
+            # (bounded by --drain-timeout), then the accept loop stops
+            server.begin_drain()
+            drained = server.drain(args.drain_timeout)
+            logger.info("drain %s after SIGTERM; stopping the HTTP server",
+                        "complete" if drained else
+                        f"timed out at {args.drain_timeout}s")
+            httpd.shutdown()
+
+        if threading.current_thread() is threading.main_thread():
+            signal.signal(signal.SIGTERM,
+                          lambda signum, frame: threading.Thread(
+                              target=drain_then_stop, name="drain",
+                              daemon=True).start())
+        try:
+            httpd.serve_forever()
+        except KeyboardInterrupt:
+            logger.info("shutting down")
+        finally:
+            httpd.server_close()
+        return 0
     finally:
-        httpd.server_close()
+        if exporter is not None:
+            exporter.stop()  # the final write has the shutdown state
         server.shutdown()
-    return 0
 
 
 if __name__ == "__main__":

@@ -37,7 +37,10 @@ TRAINING_MODULES = ("utils/fs.py", "data/text.py", "data/pipeline.py",
 SERVING_MODULES = ("train/continuous.py", "train/serve.py",
                    "train/kv_transfer.py", "obs/stepstats.py",
                    "models/speculative.py", "models/lanes.py",
-                   "train/spec_fixture.py", "ops/graphs.py")
+                   "train/spec_fixture.py", "ops/graphs.py",
+                   "obs/metrics.py", "obs/events.py", "obs/trace.py",
+                   "obs/runtime.py", "obs/export.py", "chaos/inject.py",
+                   "models/beam_search.py")
 
 
 def _port_files():

@@ -159,13 +159,44 @@ def test_score_matches_jax(bundles, http):
         np.testing.assert_allclose(scores[i]["nll"], ref[r], rtol=1e-4)
 
 
+@pytest.fixture(scope="module")
+def jax_http(bundles):
+    """The JAX server on the JAX export of the same bundle."""
+    from pyspark_tf_gke_tpu.obs.metrics import MetricsRegistry
+    from pyspark_tf_gke_tpu.train import serve as jserve
+
+    _, _, tdir = bundles
+    server = jserve.BundleServer(str(Path(tdir).parent / "jax"),
+                                 continuous_slots=2, continuous_chunk=4,
+                                 registry=MetricsRegistry())
+    httpd = jserve.start_http_server(server, "127.0.0.1", 0)
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    yield f"http://127.0.0.1:{httpd.server_address[1]}"
+    httpd.shutdown()
+    httpd.server_close()
+    server._front.shutdown()
+
+
 @pytest.mark.parametrize("path,body", [
-    ("/v1/generate", {"prompts": ["hi"], "num_beams": 2}),
+    ("/v1/generate", {"prompts": ["hi"], "num_beams": 2,
+                      "max_new_tokens": 6}),
     ("/admin/reload", {"bundle": "/nowhere"}),
 ])
-def test_unported_features_answer_400(http, path, body):
+def test_unported_features_answer_400(http, jax_http, path, body):
+    """The two requests the port once refused with 400 (beam search, and
+    the hot reload on a server without SERVE_ADMIN_TOKEN) answer as the
+    JAX server does: the same status and the same body keys."""
     status, reply = _call(http, path, body)
-    assert status == 400 and "not yet ported" in reply["error"]
+    jstatus, jreply = _call(jax_http, path, body)
+    assert status == jstatus and set(reply) == set(jreply)
+    if path == "/v1/generate":
+        assert status == 200
+        assert ([set(c) for c in reply["completions"]]
+                == [set(c) for c in jreply["completions"]])
+        assert "beam_score" in reply["completions"][0]
+    else:
+        assert status == 403 and "SERVE_ADMIN_TOKEN" in reply["error"]
 
 
 def test_bad_requests_answer_400(http):

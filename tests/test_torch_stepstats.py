@@ -36,10 +36,10 @@ class _Clock:
         return self.t
 
 
-def _feed(mod, scenario):
+def _feed(mod, scenario, obs=None):
     ring = mod.StepStatsRing(capacity=8, window=6,
                              clock=_Clock([0.003, 0.011, 0.0007, 0.02]))
-    ring.bind(None, flops_per_token=1e6, peak_flops=1e12)
+    ring.bind(obs, flops_per_token=1e6, peak_flops=1e12)
     for i in range(scenario["steps"]):
         rec = ring.begin(queue_depth=i % 3)
         with rec.phase("schedule"):
@@ -89,6 +89,24 @@ def test_ring_matches_jax_ring(name):
     assert got.host_overhead_frac() == ref.host_overhead_frac()
     assert len(got) == len(ref) and got.next_seq == ref.next_seq
     assert tss.PHASES == jss.PHASES
+
+
+@pytest.mark.parametrize("name", ["intervals", "amends"])
+def test_bound_ring_metrics_equal_the_jax_rings(name):
+    """Bound to a registry, the port's ring gives the JAX ring's step
+    histograms and windowed gauges (read when scraped here, set at each
+    close there) after the same records."""
+    from pyspark_tf_gke_tpu.obs import metrics as jmetrics
+    from pyspark_tf_gke_tpu_torch.obs import metrics as tmetrics
+
+    regs = (tmetrics.MetricsRegistry(), jmetrics.MetricsRegistry())
+    _feed(tss, SCENARIOS[name], tmetrics.platform_families(regs[0]))
+    _feed(jss, SCENARIOS[name], jmetrics.platform_families(regs[1]))
+    keep = ("serve_step_", "serve_device_idle_fraction", "serve_mfu")
+    got, want = ([line for line in r.exposition().splitlines()
+                  if line.lstrip("# HELPTYPE").startswith(keep)]
+                 for r in regs)
+    assert got == want and any("serve_mfu " in line for line in got)
 
 
 @pytest.mark.parametrize("widths", [

@@ -387,3 +387,133 @@ def test_ema_checkpoint_roundtrip_and_heartbeat(tmp_path):
     hb.beat(2)
     assert Heartbeat.read(str(tmp_path / "hb-0.json"))["step"] == 2
     assert Heartbeat.age(str(tmp_path / "hb-0.json")) >= 0
+
+
+# -- the Hugging Face tokenizer adapter and --stdin ---------------------------
+
+
+def _hf_tokenizer(path, vocab=384, seed=0):
+    """A byte-level BPE trained on generated text, saved with
+    ``save_pretrained`` (built here: nothing is downloaded)."""
+    import random
+
+    from tokenizers import (Tokenizer, decoders, models, pre_tokenizers,
+                            trainers)
+    from transformers import PreTrainedTokenizerFast
+
+    rng = random.Random(seed)
+    words = ("paged", "attention", "kernel", "hopper", "serving", "token",
+             "cache", "slot", "batch", "decode", "prefill", "layer")
+    text = [" ".join(rng.choice(words) for _ in range(12))
+            for _ in range(300)]
+    tok = Tokenizer(models.BPE(unk_token="<unk>"))
+    tok.pre_tokenizer = pre_tokenizers.ByteLevel(add_prefix_space=False)
+    tok.decoder = decoders.ByteLevel()
+    tok.train_from_iterator(text, trainers.BpeTrainer(
+        vocab_size=vocab, special_tokens=["<pad>", "<eos>", "<unk>"],
+        initial_alphabet=pre_tokenizers.ByteLevel.alphabet()))
+    PreTrainedTokenizerFast(tokenizer_object=tok, eos_token="<eos>",
+                            pad_token="<pad>", unk_token="<unk>"
+                            ).save_pretrained(str(path))
+    return str(path)
+
+
+@pytest.fixture(scope="module")
+def hf_dir(tmp_path_factory):
+    return _hf_tokenizer(tmp_path_factory.mktemp("hf") / "tok")
+
+
+@pytest.mark.parametrize("text", ["paged attention on hopper", "",
+                                  "unseen wörds ✓ and 123 digits"])
+def test_hf_tokenizer_adapter_equals_jax(hf_dir, text):
+    from pyspark_tf_gke_tpu.data.text import get_tokenizer as jax_get
+    from pyspark_tf_gke_tpu_torch.data.text import (HFTokenizerAdapter,
+                                                    get_tokenizer)
+
+    ours, ref = get_tokenizer(hf_dir), jax_get(hf_dir)
+    assert isinstance(ours, HFTokenizerAdapter)
+    assert (ours.vocab_size, ours.eos_id, ours.pad_id) == (
+        ref.vocab_size, ref.eos_id, ref.pad_id)
+    assert ours.vocab_size <= 512
+    ids = ours.encode(text)
+    assert ids == ref.encode(text)
+    assert ours.decode(ids) == ref.decode(ids)
+    assert ours.decode(ids + [ours.eos_id]) == ref.decode(ids + [ref.eos_id])
+
+
+def _hf_bundles(tmp_path, hf_dir):
+    """The JAX export of a bundle naming the tokenizer, and its
+    conversion."""
+    from pyspark_tf_gke_tpu.train import export as jexport
+    from pyspark_tf_gke_tpu_torch.train import export as texport
+
+    cfg = jlm.CausalLMConfig(vocab_size=400, hidden_size=32, num_layers=2,
+                             num_heads=4, intermediate_size=64,
+                             max_seq_len=64, dtype=jnp.float32,
+                             kv_page_size=16, kv_num_pages=16)
+    model = jlm.CausalLM(cfg)
+    params = nn.meta.unbox(model.init(jax.random.key(4),
+                                      jnp.ones((1, 8), jnp.int32))["params"])
+    jdir = jexport.export_serving_bundle(cfg, params, str(tmp_path / "j"),
+                                         quantize=False,
+                                         tokenizer_spec=hf_dir)
+    fields = dataclasses.asdict(cfg)
+    fields["dtype"] = "float32"
+    tdir = texport.export_serving_bundle(
+        config_from_dict(fields),
+        texport.params_from_flax(jax.device_get(params)),
+        str(tmp_path / "t"), quantize=False, tokenizer_spec=hf_dir)
+    return jdir, tdir
+
+
+def test_hf_tokenizer_bundle_serves_the_jax_servers_completion(tmp_path,
+                                                               hf_dir):
+    """A bundle whose ``tokenizer`` names the local directory: the torch
+    server's greedy completions (slot engine and whole batch) equal the
+    JAX server's on the same bundle."""
+    from pyspark_tf_gke_tpu.obs.metrics import MetricsRegistry as JaxReg
+    from pyspark_tf_gke_tpu.train.serve import BundleServer as JaxServer
+    from pyspark_tf_gke_tpu_torch.obs.metrics import MetricsRegistry
+    from pyspark_tf_gke_tpu_torch.train.serve import BundleServer
+
+    jdir, tdir = _hf_bundles(tmp_path, hf_dir)
+    prompts = ["paged attention", "kernel cache slot batch"]
+    ref = JaxServer(jdir, registry=JaxReg()).generate(prompts,
+                                                      max_new_tokens=10)
+    for slots in (0, 2):
+        server = BundleServer(tdir, device="cpu", continuous_slots=slots,
+                              continuous_chunk=4,
+                              registry=MetricsRegistry())
+        try:
+            assert server.health()["tokenizer"] == hf_dir
+            out = server.generate(prompts, max_new_tokens=10)
+        finally:
+            server.shutdown()
+        assert [o["completion"] for o in out] == [r["completion"]
+                                                  for r in ref]
+        assert [o["new_tokens"] for o in out] == [r["new_tokens"]
+                                                  for r in ref]
+
+
+def test_stdin_mode_through_main(tmp_path, hf_dir, monkeypatch, capsys):
+    """``--stdin``: each line a prompt, each output line the JSON entry
+    the JAX server's ``generate`` gives; a bad line answers its error."""
+    import io
+
+    from pyspark_tf_gke_tpu.obs.metrics import MetricsRegistry as JaxReg
+    from pyspark_tf_gke_tpu.train.serve import BundleServer as JaxServer
+    from pyspark_tf_gke_tpu_torch.train import serve as tserve
+
+    jdir, tdir = _hf_bundles(tmp_path, hf_dir)
+    lines = ["paged attention", "", "decode prefill layer " * 30, "token"]
+    monkeypatch.setattr("sys.stdin", io.StringIO("\n".join(lines) + "\n"))
+    assert tserve.main(["--bundle", tdir, "--device", "cpu", "--stdin",
+                        "--max-new-tokens", "6"]) == 0
+    out = [json.loads(line) for line in
+           capsys.readouterr().out.strip().splitlines()]
+    assert len(out) == 3
+    ref = JaxServer(jdir, registry=JaxReg()).generate(
+        [lines[0], lines[3]], max_new_tokens=6)
+    for got, want in zip((out[0], out[2]), ref):
+        assert got["completion"] == want["completion"]
+    assert out[1]["prompt"] == lines[2] and "max_seq_len" in out[1]["error"]
