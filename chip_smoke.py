@@ -48,6 +48,17 @@
    K4dw and K5dw and their yardsticks also replayed from a CUDA graph,
    which takes the host's launch cost out; K2 also at D 128 and D 80
    and K1 at D 128);
+3c. the ring's block entry ``flash_attention_block`` (K2f, and K2dq /
+   K2dkv with ``delta - g_lse``) at B=8 S=512 H=12 in bf16 and f32 at D
+   64 and bf16 at D 128, a fully masked batch row and a nonzero lse
+   cotangent: out, lse (NEG_INF on the empty rows) and dQ/dK/dV against
+   the plain versions, every counter moving; then the ring's arithmetic
+   on one card: S split into 4 blocks, the padding covering the last
+   whole, each query block against each K/V block through the entry,
+   merged by logsumexp, output and gradients equal to K2f/K2dq/K2dkv over
+   the whole sequence (bf16 and f32); the entry timed forward and
+   backward, eager and graph-replayed, beside its plain version and
+   ``aten._scaled_dot_product_efficient_attention`` with the logsumexp;
 4. serving main path: serves a full-width GPT-small paged bundle
    (random weights from a numpy seed, int8 export) through
    ``BundleServer`` + the HTTP server with 8 continuous slots at the
@@ -57,7 +68,8 @@
    and seeded top-p) and one ``/v1/score``; every serving kernel's launch
    counter must move during this phase, K1's decode variant among them,
    and exactly the two graphs must exist; prints new tokens/s beside the
-   152.3 of an engine launching its decode steps one by one;
+   152.3 of an engine launching its decode steps one by one, and
+   ``/metrics``' ``serve_mfu`` at ``--peak-flops 989e12`` (must be > 0);
 4b. profiles one batched prefill admission and two replays of the
    engine's captured 16-step decode chunk (host wall time against
    device-busy time, top kernels; fails unless K1's decode kernel shows
@@ -189,6 +201,19 @@
    served over HTTP for three greedy requests (K2f at D 128 in prefill,
    K1's first design at D 128 in decode) and an f32 copy's engine
    holding the dense ``generate``'s tokens;
+7d. BERT fine-tuning main path: ``bert_finetune.main`` at BERT-base
+   (vocab 30522, hidden 768, 12 layers, 12 heads, FFN 3072; seq 128,
+   batch 32, bf16, random weights from a numpy seed) on TFRecord shards
+   the port's writer writes from a numpy seed (every third row padded),
+   ``--objective classification`` 2 epochs x 10 steps (the loss must fall
+   from epoch 1 to 2), then ``--objective mlm`` 2 x 5; the losses finite
+   and K2f, K2dq, K2dkv, K3 and K3b launched in each; prints ms/step and
+   profiles two steady steps;
+7e. BERT training parity: a 2-layer f32 model at the full width trains
+   3 steps with the kernels and with ``use_kernels=False`` from one init
+   (losses and step-0 gradients agree), and BERT-base bf16 step-0 loss
+   and gradients through the kernels agree with the plain versions
+   (phase 7's limits);
 8. ResNet-50 training main path: ``Trainer`` on ``ResNet50(norm_variant=
    "fused")`` (bf16 over f32 weights and statistics, Adam 1e-3), 2 epochs
    x 10 steps on one batch of 64 images at 224^2; every K4 counter must
@@ -1514,6 +1539,240 @@ def _paged_bound(q, kp, table, fills):
     return bound(nbytes, ops, str(q.dtype).split(".")[-1])
 
 
+# -- phase 3c: the ring's block entry and its merge ---------------------------
+
+# the block entry's checked cases: (dtype name, head_dim) at B=8 S=512 H=12
+BLOCK_CASES = (("bfloat16", 64), ("float32", 64), ("bfloat16", 128))
+
+
+def _block_inputs(torch, dev, g, dtype, b=8, s=512, h=12, d=64):
+    """q, k, v, an output cotangent and an lse cotangent (nonzero), and a
+    key mask padding ~10% of the keys and one batch row whole."""
+    q, k, v, g_out = (torch.randn(b, s, h, d, generator=g, device=dev
+                                  ).to(dtype) for _ in range(4))
+    g_lse = torch.randn(b, s, h, generator=g, device=dev)
+    kv_mask = torch.rand(b, s, generator=g, device=dev) > 0.1
+    kv_mask[_masked_batch(b)] = False
+    return q, k, v, g_out, g_lse, kv_mask.contiguous()
+
+
+def _block_fwd_bwd(torch, fn, q, k, v, g_out, g_lse, kv_mask):
+    """``(out, lse, [dq, dk, dv])`` of one block call whose two outputs
+    take the cotangents ``g_out`` and ``g_lse``."""
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    out, lse = fn(*leaves, kv_mask=kv_mask)
+    torch.autograd.backward([out, lse], [g_out, g_lse])
+    return out.detach(), lse.detach(), [t.grad for t in leaves]
+
+
+def _block_counters():
+    """Phase 3c's counters: K2f, K2dq, K2dkv and the block entry."""
+    from pyspark_tf_gke_tpu_torch.ops import flash_attention as fa
+
+    return {"flash_attention_fwd": (fa, "launches"),
+            "flash_attention_dq": (fa, "dq_launches"),
+            "flash_attention_dkv": (fa, "dkv_launches"),
+            "flash_attention_block": (fa, "block_launches")}
+
+
+def _train_counters():
+    """The training kernels' counters: K3, K3b, K2f, K2dq and K2dkv."""
+    from pyspark_tf_gke_tpu_torch.ops import flash_attention as fa
+    from pyspark_tf_gke_tpu_torch.ops import layernorm as ln
+
+    return {"layernorm": (ln, "launches"),
+            "layernorm_bwd": (ln, "bwd_launches"),
+            "flash_attention_fwd": (fa, "launches"),
+            "flash_attention_dq": (fa, "dq_launches"),
+            "flash_attention_dkv": (fa, "dkv_launches")}
+
+
+def _moved(counters):
+    return {name: getattr(mod, attr) for name, (mod, attr) in counters.items()}
+
+
+def _reset(torch, counters):
+    torch.cuda.synchronize()
+    for mod, attr in counters.values():
+        setattr(mod, attr, 0)
+
+
+def check_flash_block(torch, dev, counters=None):
+    """``flash_attention_block`` (K2f forward, K2dq and K2dkv with
+    ``delta - g_lse``) at B=8 S=512 H=12 in bf16 and f32 at D 64 and in
+    bf16 at D 128, with a nonzero lse cotangent and a fully masked batch
+    row: out and lse (NEG_INF on the empty rows) against
+    ``flash_attention_block_plain``; dQ/dK/dV against autograd through
+    the plain version in f32, and in bf16 against
+    ``flash_attention_bwd_plain`` on the kernels' inputs (the forward's
+    raw lse and out, the shifted delta: the plain version rounds P and
+    dS where the kernels do, which autograd through the bf16 plain
+    forward does not); each call moves every counter by one. Then times
+    the bf16 D-64 call, forward and backward. Returns its record."""
+    from pyspark_tf_gke_tpu_torch.ops import flash_attention as fa
+
+    counters = counters or _block_counters()
+    g = torch.Generator(device=dev).manual_seed(16)
+    rec = None
+    for name, d in BLOCK_CASES:
+        dtype = getattr(torch, name)
+        q, k, v, g_out, g_lse, kv_mask = _block_inputs(torch, dev, g, dtype,
+                                                       d=d)
+        tag = f"{name} B=8 S=512 H=12 D={d}"
+        _reset(torch, counters)
+        out, lse, grads = _block_fwd_bwd(torch, fa.flash_attention_block, q,
+                                         k, v, g_out, g_lse, kv_mask)
+        torch.cuda.synchronize()
+        moved = _moved(counters)
+        check(all(n == 1 for n in moved.values()),
+              f"block {tag}: launches {moved}, one each expected")
+        ref_out, ref_lse = fa.flash_attention_block_plain(q, k, v, kv_mask)
+        compare(out, ref_out, name, f"block {tag} out")
+        empty = ref_lse == fa.NEG_INF
+        check(bool(((lse == fa.NEG_INF) == empty).all())
+              and bool(empty[_masked_batch(8)].all()),
+              f"block {tag}: the empty rows' lse is not NEG_INF")
+        compare(lse[~empty], ref_lse[~empty], "float32", f"block {tag} lse")
+        if dtype == torch.float32:
+            ref = _block_fwd_bwd(torch, fa.flash_attention_block_plain, q, k,
+                                 v, g_out, g_lse, kv_mask)[2]
+        else:
+            _, raw = fa.flash_attention_fwd(q, k, v, kv_mask)
+            shift = torch.where(torch.isposinf(raw), 0.0,
+                                g_lse.transpose(1, 2))
+            delta = ((g_out.float() * out.float()).sum(-1).transpose(1, 2)
+                     - shift).contiguous()
+            ref = fa.flash_attention_bwd_plain(q, k, v, g_out, raw, delta,
+                                               kv_mask)
+        errs = [compare(got, want, name, f"block {tag} {what}")
+                for got, want, what in zip(grads, ref, ("dq", "dk", "dv"))]
+        row = _masked_batch(8)
+        check(all(bool((t[row] == 0).all()) for t in grads),
+              f"block {tag}: the fully masked batch row has a gradient")
+        if name == "bfloat16" and d == 64:
+            rec = _block_record(torch, fa, q, k, v, g_out, g_lse, kv_mask,
+                                max([float((out.float() - ref_out.float())
+                                           .abs().max())] + errs))
+    return rec
+
+
+def _block_record(torch, fa, q, k, v, g_out, g_lse, kv_mask, err):
+    """The block entry's forward and backward timed eager and
+    graph-replayed, beside the plain version and the efficient-attention
+    op that also returns the logsumexp (its backward takes the output's
+    cotangent only)."""
+    b, s, h, d = q.shape
+    name = str(q.dtype).split(".")[-1]
+    shape = f"B={b} S={s} H={h} D={d} {name.replace('bfloat16', 'bf16')}"
+
+    def fwd_bwd(fn):
+        return lambda: _block_fwd_bwd(torch, fn, q, k, v, g_out, g_lse,
+                                      kv_mask)
+
+    kernel = fwd_bwd(fa.flash_attention_block)
+    ms = cuda_ms(kernel)
+    plain = cuda_ms(fwd_bwd(fa.flash_attention_block_plain))
+    graphed = graph_ms(kernel)
+    lib, lib_graph = _efficient_attention_times(torch, q, k, v, g_out,
+                                                kv_mask)
+    # reads q, k, v, dO, the mask and the lse cotangent; writes out, lse,
+    # dq, dk and dv. Per (query, unmasked key) pair the function needs 6
+    # products of D (QK and PV forward; dP, dV, dQ and dK backward), 12 D
+    # operations; the kernels' recomputed S and dP are not part of it
+    row = q.numel() * q.element_size()
+    vec = b * s * h * 4
+    nbytes = 8 * row + 2 * vec + kv_mask.numel()
+    pairs = h * s * int(kv_mask.sum())
+    bms, by = bound(nbytes, 12 * d * pairs, name)
+    log(f"  flash_attention_block {shape} forward + backward ({CARD}): "
+        f"kernel {ms:.4f} ms, graph-replayed {graphed}, plain {plain:.4f}, "
+        f"efficient attention {lib}, graph-replayed {lib_graph}, bound "
+        f"{bms:.4f} ({by})")
+    return dict(max_abs_err=err, ms=ms, graph_ms=graphed, plain_ms=plain,
+                bound_ms=bms, bound_by=by, library_ms=lib,
+                library_graph_ms=lib_graph, shape=shape + " fwd+bwd")
+
+
+def _efficient_attention_times(torch, q, k, v, g_out, kv_mask):
+    """``aten._scaled_dot_product_efficient_attention`` with the key mask
+    as an additive bias and ``compute_log_sumexp=True``, forward and
+    backward, eager and graph-replayed; (None, None) if it refuses the
+    inputs (logged)."""
+    b, s, h, d = q.shape
+    qt, kt, vt, gt = (t.transpose(1, 2) for t in (q, k, v, g_out))
+    bias = torch.zeros(b, 1, 1, s, dtype=q.dtype, device=q.device)
+    bias = bias.masked_fill(~kv_mask[:, None, None, :], -1e4).expand(
+        b, h, s, s)
+
+    def fwd_bwd():
+        own = [t.detach().requires_grad_() for t in (qt, kt, vt)]
+        out = torch.ops.aten._scaled_dot_product_efficient_attention(
+            *own, bias, True)[0]
+        torch.autograd.grad(out, own, gt)
+
+    try:
+        eager = cuda_ms(fwd_bwd)
+    except RuntimeError as exc:
+        log(f"  efficient attention refused the inputs, not measured: "
+            f"{str(exc).splitlines()[0]}")
+        torch.cuda.synchronize()
+        return None, None
+    try:
+        return eager, graph_ms(fwd_bwd)
+    except RuntimeError as exc:  # torch.AcceleratorError included
+        log(f"  efficient attention graph capture failed, not measured: "
+            f"{str(exc).splitlines()[0]}")
+        torch.cuda.synchronize()
+        return eager, None
+
+
+def check_ring_merge(torch, dev, counters=None):
+    """The ring's block-and-merge arithmetic in one process (four sp
+    ranks' worth): S = 512 split into 4 blocks, the key padding covering
+    the last block whole (K2f on a 128-key block with no key at all) and
+    one batch row whole; each query block through
+    ``ops.attention.flash_block_merge`` (the ring's flash engine:
+    ``flash_attention_block`` against each K/V block, merged by
+    logsumexp) over the four K/V blocks. Output and q/k/v gradients must
+    equal K2f/K2dq/K2dkv over the whole sequence, bf16 and f32. Returns
+    the block entry's launches in the merges."""
+    from pyspark_tf_gke_tpu_torch.ops import attention as att
+    from pyspark_tf_gke_tpu_torch.ops import flash_attention as fa
+
+    counters = counters or _block_counters()
+    g = torch.Generator(device=dev).manual_seed(17)
+    blocks = [slice(128 * j, 128 * (j + 1)) for j in range(4)]
+    total = {}
+    for name in ("bfloat16", "float32"):
+        dtype = getattr(torch, name)
+        q, k, v, g_out, _, kv_mask = _block_inputs(torch, dev, g, dtype)
+        kv_mask[:, 384:] = False
+        _reset(torch, counters)
+        lq, lk, lv = (t.detach().requires_grad_() for t in (q, k, v))
+        out = torch.cat([att.flash_block_merge(
+            lq[:, qs], ((lk[:, ks], lv[:, ks], kv_mask[:, ks].contiguous())
+                        for ks in blocks)) for qs in blocks], dim=1)
+        out.backward(g_out)
+        torch.cuda.synchronize()
+        moved = _moved(counters)
+        check(all(n == 16 for n in moved.values()),
+              f"ring merge {name}: launches {moved}, 16 each expected")
+        for key, n in moved.items():
+            total[key] = total.get(key, 0) + n
+        rq, rk, rv = (t.detach().requires_grad_() for t in (q, k, v))
+        ref = fa.flash_attention(rq, rk, rv, kv_mask=kv_mask)
+        ref.backward(g_out)
+        tag = f"ring merge {name} B=8 S=4x128 H=12 D=64"
+        compare(out.detach(), ref.detach(), name, f"{tag} out vs K2f")
+        for got, want, what in ((lq, rq, "dq"), (lk, rk, "dk"),
+                                (lv, rv, "dv")):
+            compare(got.grad, want.grad, name, f"{tag} {what} vs K2dq/K2dkv")
+        check(not bool(lk.grad[:, 384:].any() or lv.grad[:, 384:].any()),
+              f"{tag}: the padded block has a gradient")
+    log(f"  launches in the two merges: {total}")
+    return total
+
+
 # -- phase 4: the main path ---------------------------------------------------
 
 
@@ -1558,8 +1817,9 @@ def run_main_path(torch, dev, counters, cfg):
     bundle = PORT_PKG / "_build" / "chip_smoke_bundle"
     export_serving_bundle(cfg, init_params(cfg, seed=0), str(bundle),
                           quantize=True)
+    # --peak-flops at the H100's bf16 peak arms /metrics' serve_mfu
     server = BundleServer(str(bundle), device=str(dev), continuous_slots=8,
-                          continuous_chunk=16)
+                          continuous_chunk=16, peak_flops=PEAK_OPS["bfloat16"])
     httpd = start_http_server(server, "127.0.0.1", 0)
     thread = threading.Thread(target=httpd.serve_forever, daemon=True)
     thread.start()
@@ -1605,6 +1865,10 @@ def run_main_path(torch, dev, counters, cfg):
                     for name, (mod, attr) in counters.items()}
         variants = dict(pa.variant_launches)
         engine_stats = server.health()["continuous"]
+        with urllib.request.urlopen(url + "/metrics", timeout=30) as resp:
+            mfu = [float(line.split()[1]) for line in
+                   resp.read().decode().splitlines()
+                   if line.startswith("serve_mfu ")]
     finally:
         httpd.shutdown()
         httpd.server_close()
@@ -1641,6 +1905,10 @@ def run_main_path(torch, dev, counters, cfg):
         f"host_overhead_frac {phases['host_overhead_frac']}, host_work_frac "
         f"{phases['host_work_frac']}, wall p50 {phases['wall_ms'].get('p50')} "
         f"ms over {phases['records']} steps")
+    log(f"  /metrics serve_mfu at --peak-flops {PEAK_OPS['bfloat16']:g} "
+        f"(the windowed model FLOPs a second over the peak): {mfu}")
+    check(len(mfu) == 1 and mfu[0] > 0,
+          f"serve_mfu {mfu} after traffic with --peak-flops set")
     check(engine_stats["pipeline_depth"] == 1,
           "the server's default is not decode-ahead depth 1")
     check(engine_stats["decode_graphs"] == 2,
@@ -4265,6 +4533,226 @@ def check_d128_lm(torch, dev, counters):
     return launches, served
 
 
+# -- phases 7d and 7e: BERT-base fine-tuning ----------------------------------
+
+# BERT-base (the JAX bert_finetune defaults: vocab 30522, hidden 768, 12
+# layers, 12 heads, FFN 3072) at seq 128, global batch 32, bf16; Adam at
+# 1e-4 (the JAX default 2e-5 moves a random init too little in 20 steps
+# to show the loss fall)
+BERT_SEQ, BERT_BATCH, BERT_VOCAB = 128, 32, 30522
+BERT_FLAGS = ["--seq-len", str(BERT_SEQ), "--batch-size", str(BERT_BATCH),
+              "--compute-dtype", "bfloat16", "--learning-rate", "1e-4",
+              "--seed", "0"]
+
+
+def write_bert_shards(root: Path, n: int = 1024, seed: int = 0) -> str:
+    """ETL-bridge shards written by the port's writer from a numpy seed:
+    every third row padded after 32-127 tokens, and a label the tokens
+    carry, so that 20 steps from a random init can learn it: label-1
+    rows draw their ids from the upper half of the vocabulary, label-0
+    rows from the lower, and the first token (the one the classifier
+    reads) is 101 + label."""
+    import numpy as np
+
+    from pyspark_tf_gke_tpu_torch.data.tfrecord import write_tfrecord_shards
+
+    rng = np.random.default_rng(seed)
+    labels = rng.integers(0, 2, n)
+    half = BERT_VOCAB // 2
+    ids = rng.integers(1000, half, (n, BERT_SEQ)) + labels[:, None] * (
+        half - 1000)
+    lengths = np.where(np.arange(n) % 3 == 0,
+                       rng.integers(32, BERT_SEQ, n), BERT_SEQ)
+    mask = (np.arange(BERT_SEQ)[None] < lengths[:, None]).astype(np.int64)
+    ids = np.where(mask == 1, ids, 0)
+    ids[:, 0] = 101 + labels
+    write_tfrecord_shards({"input_ids": ids.astype(np.int64),
+                           "attention_mask": mask,
+                           "label": labels.astype(np.int64)},
+                          str(root / "train"), num_shards=4)
+    return str(root / "train-*.tfrecord")
+
+
+def run_bert_training(torch, dev, counters=None):
+    """Phase 7d: ``bert_finetune.main`` at BERT-base on the port's shards,
+    classification 2 epochs x 10 steps then MLM 2 epochs x 5 steps: the
+    losses finite, classification's falling from epoch 1 to 2, every
+    training kernel launched. Then times and profiles two steady steps.
+    Returns the launches of the classification run."""
+    from pyspark_tf_gke_tpu_torch.train.bert_finetune import main as bert_main
+
+    counters = counters or _train_counters()
+    work = PORT_PKG / "_build" / "chip_smoke_bert"
+    shutil.rmtree(work, ignore_errors=True)
+    pattern = write_bert_shards(work / "shards")
+    launches = {}
+    for objective, epochs, steps in (("classification", 2, 10),
+                                     ("mlm", 2, 5)):
+        _reset(torch, counters)
+        t0 = time.perf_counter()
+        history = bert_main(["--data-pattern", pattern, *BERT_FLAGS,
+                             "--objective", objective, "--epochs",
+                             str(epochs), "--steps-per-epoch", str(steps),
+                             "--output-dir", str(work / objective),
+                             "--device", str(dev)])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        moved = _moved(counters)
+        losses = history["loss"]
+        log(f"  bert_finetune --objective {objective}, {epochs} epochs x "
+            f"{steps} steps in {wall:.1f} s (init, data, training, "
+            f"checkpoint; {CARD})")
+        for key, vals in history.items():
+            log(f"  {key}: {vals}")
+        log(f"  kernel launches ({epochs * steps} steps): {moved}")
+        check(all(math.isfinite(v) for v in losses),
+              f"non-finite BERT {objective} loss {losses}")
+        for name, n in moved.items():
+            check(n > 0, f"kernel {name} was not launched on the BERT "
+                  f"{objective} path")
+        if objective == "classification":
+            check(losses[1] < losses[0], f"BERT epoch-2 mean loss "
+                  f"{losses[1]} is not below epoch 1's {losses[0]}")
+            launches = moved
+    shutil.rmtree(work, ignore_errors=True)
+    profile_bert(torch, dev)
+    return launches
+
+
+def _bert_model(torch, dev, cfg, seed, use_kernels=True):
+    from pyspark_tf_gke_tpu_torch.models.bert import (BertForPretraining,
+                                                      init_params)
+
+    with torch.device(dev):
+        model = BertForPretraining(cfg, use_kernels=use_kernels,
+                                   param_dtype=torch.float32)
+    return model.load_params(init_params(cfg, seed=seed))
+
+
+def _bert_batch(torch, dev, cfg, b, seed):
+    """Ids with every other row padded after 80 tokens, labels, and MLM
+    labels at half the real tokens (the loss a mean over ~1,700 of
+    them at batch 32)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    ids = torch.randint(1000, cfg.vocab_size, (b, BERT_SEQ), generator=g,
+                        device=dev, dtype=torch.int32)
+    mask = torch.ones(b, BERT_SEQ, dtype=torch.int32, device=dev)
+    mask[::2, 80:] = 0
+    pick = (torch.rand(b, BERT_SEQ, generator=g, device=dev) < 0.5) & (
+        mask == 1)
+    return {"input_ids": ids, "attention_mask": mask,
+            "labels": torch.randint(0, 2, (b,), generator=g, device=dev),
+            "mlm_labels": torch.where(pick, ids, -100)}
+
+
+def _bert_loss(torch, model, batch):
+    """The classification loss plus the MLM loss from one forward, so
+    that every parameter takes a gradient."""
+    from pyspark_tf_gke_tpu_torch.train.trainer import TASKS
+
+    cls, mlm = TASKS["bert_classification"](), TASKS["bert_mlm"]()
+    preds = cls.forward(model, batch)
+    return (cls.loss_and_metrics(preds, batch)[0]
+            + mlm.loss_and_metrics(preds, batch)[0])
+
+
+def _bert_grads(torch, model, batch):
+    loss = _bert_loss(torch, model, batch)
+    loss.backward()
+    grads = {n: p.grad.detach().float().clone()
+             for n, p in model.named_parameters()}
+    model.zero_grad(set_to_none=True)
+    return float(loss.detach()), grads
+
+
+def profile_bert(torch, dev):
+    """Two steady BERT-base classification steps (bf16, 32 x 128) under
+    ``torch.profiler``, after 5 timed without it."""
+    from pyspark_tf_gke_tpu_torch.models.bert import BertConfig
+    from pyspark_tf_gke_tpu_torch.train.harness import make_optimizer
+    from pyspark_tf_gke_tpu_torch.train.trainer import TASKS, Trainer
+
+    cfg = BertConfig()
+    trainer = Trainer(_bert_model(torch, dev, cfg, 0),
+                      TASKS["bert_classification"](), tx=make_optimizer(1e-4))
+    state = trainer.init_state()
+    batch = _bert_batch(torch, dev, cfg, BERT_BATCH, 7)
+    for _ in range(3):
+        trainer.step(state, batch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        trainer.step(state, batch)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / 5
+    log(f"  5 steady BERT-base steps without the profiler ({CARD}): "
+        f"{step_ms:.2f} ms/step, {BERT_BATCH / step_ms * 1e3:.1f} "
+        f"sequences/s, {BERT_BATCH * BERT_SEQ / step_ms * 1e3:.0f} tokens/s")
+    wall, busy, top = _profiled(
+        torch, lambda: [trainer.step(state, batch) for _ in range(2)])
+    if busy <= 0:
+        log(f"  2 steps: wall {wall:.2f} ms; device time not visible to "
+            "torch.profiler")
+        return
+    log(f"  2 steps under the profiler: wall {wall:.2f} ms, device busy "
+        f"{busy:.2f} ms ({100 * busy / wall:.1f}%), idle "
+        f"{100 * (1 - busy / wall):.1f}%")
+    for name, ms in top[:12]:
+        log(f"    {ms:9.3f} ms  {name[:90]}")
+
+
+def check_bert_parity(torch, dev):
+    """Phase 7e, phase 7's limits on BERT: a 2-layer f32 model at the
+    full width trains 3 classification steps through the kernels and
+    through ``use_kernels=False`` from one init (losses within 1e-4,
+    step-0 gradients of the classification + MLM loss within 1e-4
+    relative L2, whole tree and each tensor); then full-width bf16 step-0
+    loss (within 1e-3) and gradients (5e-2 relative L2, each tensor 1e-1)
+    through the kernels against the plain versions."""
+    import dataclasses as dc
+
+    from pyspark_tf_gke_tpu_torch.models.bert import BertConfig
+    from pyspark_tf_gke_tpu_torch.train.harness import make_optimizer
+    from pyspark_tf_gke_tpu_torch.train.trainer import TASKS, Trainer
+
+    cfg = BertConfig(num_layers=2, dtype=torch.float32)
+    batches = [_bert_batch(torch, dev, cfg, 8, 40 + i) for i in range(3)]
+    runs = {}
+    for use_kernels in (True, False):
+        model = _bert_model(torch, dev, cfg, 3, use_kernels)
+        _, g0 = _bert_grads(torch, model, batches[0])
+        trainer = Trainer(model, TASKS["bert_classification"](),
+                          tx=make_optimizer(1e-4))
+        state = trainer.init_state()
+        losses = [float(trainer.step(state, b)[1]["loss"]) for b in batches]
+        runs[use_kernels] = (g0, losses)
+    rel, worst, worst_rel = _grad_diff(torch, runs[True][0], runs[False][0])
+    dloss = max(abs(a - b) for a, b in zip(runs[True][1], runs[False][1]))
+    log(f"  BERT f32 2-layer: losses kernels {runs[True][1]} vs plain "
+        f"{runs[False][1]} (max diff {dloss:.2e}, tolerance 1e-4); step-0 "
+        f"gradients relative L2 {rel:.2e}, worst tensor {worst} "
+        f"{worst_rel:.2e} (tolerance 1e-4 each)")
+    check(dloss <= 1e-4 and rel <= 1e-4 and worst_rel <= 1e-4,
+          "BERT f32 training through the kernels disagrees with plain")
+
+    cfg = dc.replace(cfg, num_layers=12, dtype=torch.bfloat16)
+    batch = _bert_batch(torch, dev, cfg, BERT_BATCH, 50)
+    loss_k, gk = _bert_grads(torch, _bert_model(torch, dev, cfg, 4), batch)
+    loss_p, gp = _bert_grads(torch, _bert_model(torch, dev, cfg, 4, False),
+                             batch)
+    rel, worst, worst_rel = _grad_diff(torch, gk, gp)
+    log(f"  BERT-base bf16 step-0: loss kernels {loss_k:.5f} vs plain "
+        f"{loss_p:.5f} (diff {abs(loss_k - loss_p):.2e}, tolerance 1e-3); "
+        f"gradients relative L2 {rel:.2e} (tolerance 5e-2); worst tensor "
+        f"{worst} {worst_rel:.2e} (tolerance 1e-1)")
+    check(all(bool(torch.isfinite(g).all()) for g in gk.values()),
+          "non-finite BERT bf16 gradient")
+    check(abs(loss_k - loss_p) <= 1e-3,
+          "BERT bf16 loss through the kernels disagrees")
+    check(rel <= 5e-2 and worst_rel <= 1e-1,
+          "BERT bf16 gradients through the kernels disagree")
+
+
 # -- phases 8 and 9: ResNet-50 training ---------------------------------------
 
 RESNET_BATCH, RESNET_IMAGE, RESNET_STEPS = 64, 224, (2, 10)
@@ -4685,6 +5173,10 @@ KERNELS = (
     ("flash_attention_dkv",
      "pyspark_tf_gke_tpu_torch/csrc/flash_attention_bwd.cu",
      "pyspark_tf_gke_tpu/ops/pallas/flash_attention.py:215", FLASH_DESIGN),
+    ("flash_attention_block", "pyspark_tf_gke_tpu_torch/ops/flash_attention.py",
+     "pyspark_tf_gke_tpu/ops/pallas/flash_attention.py:456",
+     "autograd entry over K2f, K2dq and K2dkv (csrc/flash_attention.cu, "
+     "csrc/flash_attention_bwd.cu); " + FLASH_DESIGN),
     ("paged_attention", "pyspark_tf_gke_tpu_torch/csrc/paged_attention.cu",
      "pyspark_tf_gke_tpu/ops/pallas/paged_attention.py:124",
      "split-kv simt (decode), wgmma (chunk), rows (other head_dim, f32)"),
@@ -4765,6 +5257,12 @@ def main() -> int:
     for name, by_width in check_flash_widths(torch, dev).items():
         records[name].update(by_width)
     records["paged_attention"]["d128"] = check_paged_d128(torch, dev)
+    block_counters = _block_counters()
+    log("== 3c. the ring's block entry (flash_attention_block) and the "
+        "4-block lse merge against K2f over the whole sequence")
+    records["flash_attention_block"] = check_flash_block(torch, dev,
+                                                         block_counters)
+    ring_launches = check_ring_merge(torch, dev, block_counters)
     for name, rec in records.items():
         log(f"  {name} at {rec['shape']}: kernel_ms {rec['ms']:.4f}, "
             f"plain_ms {rec['plain_ms']:.4f}, library_ms "
@@ -4774,11 +5272,7 @@ def main() -> int:
     serve_counters = {"layernorm": (ln, "launches"),
                       "flash_attention_fwd": (fa, "launches"),
                       "paged_attention": (pa, "launches")}
-    train_counters = {"layernorm": (ln, "launches"),
-                      "layernorm_bwd": (ln, "bwd_launches"),
-                      "flash_attention_fwd": (fa, "launches"),
-                      "flash_attention_dq": (fa, "dq_launches"),
-                      "flash_attention_dkv": (fa, "dkv_launches")}
+    train_counters = _train_counters()
     # GPT-small (CausalLMConfig defaults: vocab 32000, hidden 768, 12
     # layers, 12 heads, FFN 3072, 1024 positions, bf16), paged as the
     # cb bench pages it: 64-token pages, slots x 16 of them
@@ -4845,6 +5339,13 @@ def main() -> int:
         "served bundle")
     d128_launches, d128_served = check_d128_lm(torch, dev, train_counters)
     torch.cuda.empty_cache()
+    log("== 7d. BERT fine-tuning main path: bert_finetune, BERT-base, bf16, "
+        "batch 32 x 128, classification then MLM")
+    bert_launches = run_bert_training(torch, dev, train_counters)
+    torch.cuda.empty_cache()
+    log("== 7e. BERT training parity on the card: kernels vs plain")
+    check_bert_parity(torch, dev)
+    torch.cuda.empty_cache()
 
     k4_counters = {"fused_matmul_fwd": (fm, "fwd_launches"),
                    "fused_matmul_dx": (fm, "dx_launches"),
@@ -4901,12 +5402,19 @@ def main() -> int:
                     "lm_train_d128": d128_launches.get(name, 0),
                     "serve_d128": d128_served.get(name, 0),
                     "resnet_train": resnet_launches.get(name, 0),
-                    "resnet_fused3_train": fused3_launches.get(name, 0)}
+                    "resnet_fused3_train": fused3_launches.get(name, 0),
+                    "bert_train": bert_launches.get(name, 0),
+                    "ring_merge": ring_launches.get(name, 0)}
         # each kernel's count from the path that runs it, the newest
-        # slice's path first (paged attention runs only on serving)
-        launches = (per_path["resnet_fused3_train"]
-                    or per_path["resnet_train"] or per_path["lm_train"]
-                    or per_path["serve"])
+        # slice's path first (paged attention runs only on serving; the
+        # block entry on the ring, phase 3c's merge on one card)
+        if name == "flash_attention_block":
+            launches = per_path["ring_merge"]
+        else:
+            launches = (per_path["bert_train"]
+                        or per_path["resnet_fused3_train"]
+                        or per_path["resnet_train"] or per_path["lm_train"]
+                        or per_path["serve"])
         out.append({"name": name, "route": "cuda", "source": source,
                     "replaces": replaces, "design": design,
                     "launches": launches,

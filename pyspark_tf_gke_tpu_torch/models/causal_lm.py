@@ -50,9 +50,12 @@ from pyspark_tf_gke_tpu_torch.ops.attention import dot_product_attention
 from pyspark_tf_gke_tpu_torch.ops.flash_attention import flash_attention
 from pyspark_tf_gke_tpu_torch.ops.paged_attention import (
     paged_attention, paged_attention_chunk, paged_attention_chunk_plain)
-from pyspark_tf_gke_tpu_torch.ops.quant import Params, QTensor
+from pyspark_tf_gke_tpu_torch.ops.quant import Params
 from pyspark_tf_gke_tpu_torch.models.embedding import TokenEmbed
-from pyspark_tf_gke_tpu_torch.models.layers import Dense, FusedLayerNorm
+from pyspark_tf_gke_tpu_torch.models.layers import (Dense, FusedLayerNorm,
+                                                    flax_parameters,
+                                                    init_flax_params,
+                                                    load_flax_params)
 
 NEG_INF = -1e30
 
@@ -552,27 +555,12 @@ class CausalLM(nn.Module):
 
     def flax_parameters(self):
         """``{flax path: parameter}``."""
-        return {name.replace(".", "/"): p
-                for name, p in self.named_parameters()}
+        return flax_parameters(self)
 
-    @torch.no_grad()
     def load_params(self, params: Params) -> "CausalLM":
         """Copy a flat flax-path tree (QTensor leaves dequantized here,
         once) into the model, casting to each parameter's dtype."""
-        own = self.flax_parameters()
-        missing = sorted(set(own) - set(params))
-        extra = sorted(set(params) - set(own))
-        if missing or extra:
-            raise KeyError(f"parameter tree mismatch: missing {missing[:5]}, "
-                           f"unexpected {extra[:5]}")
-        for path, p in own.items():
-            leaf = params[path]
-            if isinstance(leaf, QTensor):
-                leaf = leaf.dequantize()
-            if tuple(leaf.shape) != tuple(p.shape):
-                raise ValueError(f"{path}: shape {tuple(leaf.shape)} != "
-                                 f"{tuple(p.shape)}")
-            p.copy_(leaf)
+        load_flax_params(self, params)
         return self
 
 
@@ -580,21 +568,7 @@ def init_params(cfg: CausalLMConfig, seed: int = 0) -> Params:
     """Random f32 parameters from a numpy seed, with the flax
     initialisers' shapes and laws: kernels and embeddings normal(0,
     0.02), biases 0, norm scales 1."""
-    rng = np.random.default_rng(seed)
-    with torch.device("meta"):
-        shapes = {path: tuple(p.shape)
-                  for path, p in CausalLM(cfg).flax_parameters().items()}
-    params: Params = {}
-    for path, shape in shapes.items():
-        leaf = path.rsplit("/", 1)[-1]
-        if leaf in ("kernel", "embedding"):
-            arr = rng.standard_normal(shape, dtype=np.float32) * np.float32(0.02)
-        elif leaf == "scale":
-            arr = np.ones(shape, np.float32)
-        else:
-            arr = np.zeros(shape, np.float32)
-        params[path] = torch.from_numpy(arr)
-    return params
+    return init_flax_params(lambda: CausalLM(cfg), seed)
 
 
 # -- generation -----------------------------------------------------------------

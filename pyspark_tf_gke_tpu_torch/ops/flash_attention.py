@@ -20,6 +20,19 @@ The plain versions are :func:`flash_attention_plain` (masked
 ``dot_product_attention`` plus the lse) and
 :func:`flash_attention_bwd_plain` (the same recompute-from-lse math).
 
+:func:`flash_attention_block` is the ring's block engine (JAX
+``flash_attention_block`` ``:456`` over ``_flash_bh_lse`` ``:368`` and
+its backward ``_flash_bh_lse_bwd`` ``:383``): one non-causal block that
+returns ``(out, lse [B, S, H])``, differentiable in both. It launches
+the same three kernels: K2f forward, and K2dq/K2dkv with ``delta -
+g_lse`` in place of ``delta`` (d lse / d scores is P, so the lse
+cotangent folds into the term the kernels already subtract: ``dS = P *
+(dP - delta + g_lse) * scale``). A row with no unmasked key returns
+``out = 0`` and ``lse = NEG_INF`` (finite, so an lse merge stays free of
+NaN); the backward keeps the kernel's raw +inf there, so that row's P,
+and with it every gradient it feeds, is exactly 0, and its lse
+cotangent is dropped.
+
 Every head width D from 1 to 256 has a kernel, in bf16 and in f32:
 :func:`flash_plan` picks the design and the instantiated width from D
 and the dtype alone, the wrappers pass the width to the C entry points
@@ -68,6 +81,8 @@ SIMT_WIDTHS = (16, 32, 64, 128, 256)
 launches = 0  # K2 forward launches since the last reset (chip_smoke reads it)
 dq_launches = 0  # K2dq launches since the last reset
 dkv_launches = 0  # K2dkv launches since the last reset
+block_launches = 0  # flash_attention_block forwards on the card (each one
+#   K2f launch, also counted in ``launches``)
 
 
 class FlashPlan(NamedTuple):
@@ -382,3 +397,63 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``[B, S, H, D]`` with key-padding, segment and causal masks.
     Differentiable in q, k and v (K2dq, K2dkv)."""
     return _FlashAttention.apply(q, k, v, kv_mask, segment_ids, causal)
+
+
+def _block_lse(lse: torch.Tensor) -> torch.Tensor:
+    """K2f's ``lse [B, H, S]`` (+inf on empty rows) as the block entry
+    returns it: ``[B, S, H]``, NEG_INF on empty rows."""
+    lse = lse.transpose(1, 2)
+    return torch.where(torch.isposinf(lse), NEG_INF, lse)
+
+
+def flash_attention_block_plain(q: torch.Tensor, k: torch.Tensor,
+                                v: torch.Tensor,
+                                kv_mask: Optional[torch.Tensor] = None,
+                                segment_ids: Optional[torch.Tensor] = None
+                                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`flash_attention_block` in plain PyTorch, differentiable by
+    autograd: ``(out [B, S, H, D], lse [B, S, H] f32)``."""
+    out, lse = flash_attention_plain(q, k, v, kv_mask, False, segment_ids)
+    return out, _block_lse(lse)
+
+
+class _FlashAttentionBlock(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, kv_mask, segment_ids):
+        global block_launches
+        out, lse = flash_attention_fwd(q, k, v, kv_mask, False, segment_ids)
+        if q.device.type == "cuda":
+            block_launches += 1
+        ctx.save_for_backward(q, k, v, kv_mask, segment_ids, out, lse)
+        return out, _block_lse(lse)
+
+    @staticmethod
+    def backward(ctx, dout, g_lse):
+        q, k, v, kv_mask, segment_ids, out, lse = ctx.saved_tensors
+        acc = torch.promote_types(q.dtype, torch.float32)
+        # the rows the forward returned as NEG_INF take no lse cotangent
+        g = torch.where(torch.isposinf(lse), 0.0, g_lse.transpose(1, 2))
+        delta = ((dout.to(acc) * out.to(acc)).sum(-1).transpose(1, 2)
+                 - g.to(acc))  # [B, H, S]
+        if q.device.type == "cpu":
+            dq, dk, dv = flash_attention_bwd_plain(
+                q, k, v, dout, lse, delta, kv_mask, False, segment_ids)
+        else:
+            dout, delta = dout.contiguous(), delta.float().contiguous()
+            dq = flash_attention_dq(dout, q, k, v, lse, delta, kv_mask,
+                                    False, segment_ids)
+            dk, dv = flash_attention_dkv(dout, q, k, v, lse, delta, kv_mask,
+                                         False, segment_ids)
+        return dq, dk, dv, None, None
+
+
+def flash_attention_block(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          kv_mask: Optional[torch.Tensor] = None,
+                          segment_ids: Optional[torch.Tensor] = None
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One non-causal attention block: ``(out [B, S, H, D], lse [B, S, H]
+    f32)``, so a caller can merge partial attentions over K/V blocks held
+    elsewhere by their lse (ring attention). Rows with no unmasked key
+    give ``out = 0`` and ``lse = NEG_INF``. Differentiable in q, k and v
+    through both outputs (K2dq, K2dkv)."""
+    return _FlashAttentionBlock.apply(q, k, v, kv_mask, segment_ids)

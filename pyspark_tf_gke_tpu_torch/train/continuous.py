@@ -957,12 +957,14 @@ class ContinuousEngine:
                  prefix_cache_size: int = 0,
                  prefill_chunk: int = 0, step_token_budget: int = 0,
                  pipeline_depth: int = 0, adaptive_chunk: bool = False,
+                 batch_admit: bool = True,
                  schedule: str = "fifo",
                  tenant_weights: Optional[Dict[str, float]] = None,
                  stepstats: Optional[StepStatsRing] = None,
                  spec_tokens: int = 0,
                  draft_model: Optional[CausalLM] = None,
-                 obs: Optional[dict] = None):
+                 obs: Optional[dict] = None,
+                 peak_flops: float = 0.0):
         cfg = model.cfg
         if not cfg.paged_kv:
             raise NotImplementedError(
@@ -997,6 +999,9 @@ class ContinuousEngine:
         # smallest remaining budget over the live slots.
         self.pipeline_depth = int(pipeline_depth)
         self.adaptive_chunk = bool(adaptive_chunk)
+        # batch_admit=False admits one request at a time: the A/B lever
+        # for what the batched prefill buys
+        self.batch_admit = bool(batch_admit)
         # prefill_chunk: prompts longer than this admit one piece a step;
         # step_token_budget ("Sarathi-style"): cap one step's work at
         # ~this many tokens, split between the prefill piece and the
@@ -1068,7 +1073,10 @@ class ContinuousEngine:
         self._obs["serve_slots_total"].set(num_slots)
         self._obs["serve_prefill_inflight"].set(0)
         self._obs["serve_kv_pages_total"].set(cfg.kv_num_pages)
-        self.stepstats.bind(self._obs, flops_per_token=flops_per_token(cfg))
+        # peak_flops arms the windowed serve_mfu gauge (0 = off, the CPU
+        # default; FLOPs a token are estimated from the config)
+        self.stepstats.bind(self._obs, flops_per_token=flops_per_token(cfg),
+                            peak_flops=peak_flops)
         self._step_rec = None
         self._state = SlotState(model, num_slots, self.device)
         # speculative decoding: spec_tokens draft proposals a slot a
@@ -1816,7 +1824,7 @@ class ContinuousEngine:
                     if s not in self._slots and s != reserved]
 
         free = free_slots()
-        if (len(free) >= 2 and len(self._queue) >= 2
+        if (self.batch_admit and len(free) >= 2 and len(self._queue) >= 2
                 and self._admitting is None and not self._fair_active):
             # a multi-tenant queue skips the batch: it takes the queue
             # PREFIX, which would let one tenant's burst jump the DWRR

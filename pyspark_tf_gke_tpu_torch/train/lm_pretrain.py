@@ -17,8 +17,9 @@ initialised from a numpy generator seeded with ``--seed`` (the JAX
 package draws from ``jax.random``, so the two start from different
 numbers). Flags the port does not carry raise ``NotImplementedError``
 naming their ROADMAP item: ``--mesh-shape``, ``--dcn-mesh-shape``,
-``--num-processes > 1``, ``--data-format tokens``, a non-``byte``
-``--tokenizer``, ``--vocab-chunks > 0``, ``--async-checkpoint`` and
+``--num-processes > 1``, ``--data-format tokens``, a ``--tokenizer``
+that is neither ``byte`` nor a local Hugging Face directory (a hub name
+would need a download), ``--vocab-chunks > 0``, ``--async-checkpoint`` and
 ``--optimizer lamb|adafactor``.
 """
 
@@ -73,7 +74,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--eval-batches", type=int,
                    default=int(e("EVAL_BATCHES", "16")))
     p.add_argument("--tokenizer", default=e("TOKENIZER", "byte"),
-                   help="'byte' (vocab 259); others are not ported")
+                   help="'byte' (built-in, vocab 259) or a local Hugging "
+                        "Face tokenizer directory (save_pretrained)")
     p.add_argument("--seq-len", type=int, default=int(e("SEQ_LEN", "512")))
     p.add_argument("--hidden-size", type=int,
                    default=int(e("HIDDEN_SIZE", "768")))
@@ -171,8 +173,10 @@ def _refuse_unported(args: argparse.Namespace) -> None:
          "P8 (multi-process training)"),
         (args.data_format == "tokens", "--data-format tokens",
          "P8 (token-shard data format)"),
-        (args.tokenizer not in ("", "byte"), f"--tokenizer {args.tokenizer}",
-         "P7/P8 (Hugging Face tokenizers)"),
+        (args.tokenizer not in ("", "byte")
+         and not os.path.isdir(args.tokenizer),
+         f"--tokenizer {args.tokenizer} (a hub name: only local "
+         "save_pretrained directories are read)", "P8 (tokenizer downloads)"),
         (args.vocab_chunks > 0, "--vocab-chunks", "P8 (chunked CE)"),
         (args.async_checkpoint, "--async-checkpoint",
          "P8 (asynchronous checkpoints)"),

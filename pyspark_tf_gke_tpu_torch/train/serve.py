@@ -1083,7 +1083,9 @@ class BundleServer:
     step watchdog (``--step-timeout``); ``heartbeat_file`` the driver
     loop's heartbeat (``--heartbeat-file``); ``chaos_spec`` the fault
     injection (``--chaos``); ``admin_token`` gates ``/admin/reload`` and
-    ``/admin/profile`` (``SERVE_ADMIN_TOKEN``)."""
+    ``/admin/profile`` (``SERVE_ADMIN_TOKEN``); ``peak_flops`` the
+    card's peak FLOPs/s, which arms the ``serve_mfu`` gauge
+    (``--peak-flops``, 0 = off)."""
 
     def __init__(self, bundle_dir: str, device: str = "cuda",
                  continuous_slots: int = 0, continuous_chunk: int = 8,
@@ -1098,7 +1100,7 @@ class BundleServer:
                  chaos_spec: str = "", heartbeat_file: str = "",
                  admin_token: str = "", trace_sample: float = 0.01,
                  trace_slow_ms: float = 1000.0,
-                 step_timeout_s: float = 0.0):
+                 step_timeout_s: float = 0.0, peak_flops: float = 0.0):
         if role not in ("mixed", "prefill", "decode"):
             raise ValueError(
                 f"role must be mixed, prefill or decode, got {role!r}")
@@ -1200,7 +1202,8 @@ class BundleServer:
                 adaptive_chunk=adaptive_chunk,
                 prefix_cache_size=prefix_cache_size, schedule=schedule,
                 spec_tokens=self.spec_tokens,
-                draft_model=self.draft_model if self.spec_tokens else None)
+                draft_model=self.draft_model if self.spec_tokens else None,
+                peak_flops=float(peak_flops))
 
     # -- bundle loading and the hot swap ---------------------------------
     def _load_and_verify(self, bundle_dir: str):
@@ -2489,6 +2492,11 @@ def parse_args(argv=None) -> argparse.Namespace:
                    help="GET /livez answers 503 once the engine's driver "
                         "loop has not finished an iteration for this many "
                         "seconds (0 = never)")
+    p.add_argument("--peak-flops", type=float,
+                   default=float(e("SERVE_PEAK_FLOPS", "0")),
+                   help="the card's peak FLOPs/s for the serve_mfu gauge "
+                        "(989e12 for an H100 in bf16); 0 = MFU off, the "
+                        "CPU default")
     p.add_argument("--step-record-ring", type=int,
                    default=int(e("SERVE_STEP_RECORD_RING", "256")),
                    help="engine-step records kept for GET /stepz")
@@ -2561,6 +2569,7 @@ def main(argv=None) -> int:
                           trace_sample=args.trace_sample,
                           trace_slow_ms=args.trace_slow_ms,
                           step_timeout_s=args.step_timeout,
+                          peak_flops=args.peak_flops,
                           # env only: a flag would show in ps and pod specs
                           admin_token=os.environ.get("SERVE_ADMIN_TOKEN",
                                                      ""))

@@ -1,5 +1,6 @@
 """The trainer: train step + epoch loop (counterpart of
-``pyspark_tf_gke_tpu/train/trainer.py``, the causal-LM and ResNet tasks).
+``pyspark_tf_gke_tpu/train/trainer.py``, the causal-LM, ResNet and BERT
+tasks).
 
 A step is forward, loss, ``backward`` and the optimizer update, eager on
 one device: the attention, LayerNorm and fused 1x1-conv gradients come
@@ -33,6 +34,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import torch
 from torch.func import functional_call
 
+from pyspark_tf_gke_tpu_torch.data.mlm import IGNORE_INDEX
 from pyspark_tf_gke_tpu_torch.data.pipeline import prefetch_to_device, put_batch
 from pyspark_tf_gke_tpu_torch.train.harness import make_optimizer
 from pyspark_tf_gke_tpu_torch.train.losses import (accuracy_metric,
@@ -111,7 +113,61 @@ def resnet_task() -> TrainerTask:
                        has_batch_stats=True)
 
 
-TASKS = {"causal_lm": causal_lm_task, "resnet": resnet_task}
+# the JAX trainer's weight of the MoE load-balance loss; the dense BERT's
+# aux loss is 0, so the term only carries the metric
+MOE_AUX_WEIGHT = 0.01
+
+
+def _bert_forward(model, batch, train=True):
+    """The forward every BERT objective shares (``:133-140``)."""
+    return model(batch["input_ids"], attention_mask=batch.get(
+        "attention_mask"), train=train)
+
+
+def _add_moe_aux(loss, metrics, preds):
+    aux = preds.get("aux_loss")
+    if aux is not None:
+        loss = loss + MOE_AUX_WEIGHT * aux
+        metrics["moe_aux_loss"] = aux
+    return loss, metrics
+
+
+def bert_classification_task() -> TrainerTask:
+    """Sequence classification on ``cls_logits`` (``:152-160``)."""
+    def lam(preds, batch):
+        logits = preds["cls_logits"]
+        loss = softmax_cross_entropy(logits, batch["labels"])
+        metrics = {"loss": loss,
+                   "accuracy": accuracy_metric(logits, batch["labels"])}
+        return _add_moe_aux(loss, metrics, preds)
+
+    return TrainerTask("bert_classification", _bert_forward, lam)
+
+
+def bert_mlm_task() -> TrainerTask:
+    """Masked-language-model pretraining (``:163-181``): cross-entropy
+    over the masked positions only (labels == ``IGNORE_INDEX``
+    elsewhere, ``data/mlm.py``), with ``mlm_accuracy`` and
+    ``masked_frac``."""
+    def lam(preds, batch):
+        logits = preds["mlm_logits"].float()  # [B, S, V]
+        labels = batch["mlm_labels"].long()
+        mask = labels != IGNORE_INDEX
+        safe = torch.where(mask, labels, 0)
+        per_tok = per_token_cross_entropy(logits, safe)
+        denom = mask.sum().clamp_min(1)
+        loss = torch.where(mask, per_tok, 0.0).sum() / denom
+        acc = (mask & (torch.argmax(logits, -1) == safe)).sum() / denom
+        metrics = {"loss": loss, "mlm_accuracy": acc,
+                   "masked_frac": mask.float().mean()}
+        return _add_moe_aux(loss, metrics, preds)
+
+    return TrainerTask("bert_mlm", _bert_forward, lam)
+
+
+TASKS = {"causal_lm": causal_lm_task, "resnet": resnet_task,
+         "bert_classification": bert_classification_task,
+         "bert_mlm": bert_mlm_task}
 
 
 class _CountingIterator:
@@ -137,7 +193,8 @@ def _sync(device: torch.device) -> None:
 
 class Trainer:
     """Runs the step and the epoch loop for ``model``, whose trainable
-    parameters (``CausalLM(..., param_dtype=torch.float32)``, ``ResNet``)
+    parameters (``CausalLM(..., param_dtype=torch.float32)``, ``ResNet``,
+    ``BertForPretraining(..., param_dtype=torch.float32)``)
     are the training state's parameters, and whose buffers are its
     ``batch_stats`` when the task has them."""
 

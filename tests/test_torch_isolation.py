@@ -41,6 +41,9 @@ SERVING_MODULES = ("train/continuous.py", "train/serve.py",
                    "obs/metrics.py", "obs/events.py", "obs/trace.py",
                    "obs/runtime.py", "obs/export.py", "chaos/inject.py",
                    "models/beam_search.py")
+BERT_MODULES = ("utils/seeding.py", "data/codec.py", "data/tfrecord.py",
+                "data/mlm.py", "models/bert.py", "train/bert_finetune.py",
+                "ops/attention.py")
 
 
 def _port_files():
@@ -51,6 +54,7 @@ def _port_files():
     rel = {p.relative_to(pkg).as_posix() for p in files}
     assert set(TRAINING_MODULES) <= rel
     assert set(SERVING_MODULES) <= rel
+    assert set(BERT_MODULES) <= rel
     return files + [REPO / "chip_smoke.py", REPO / "kernel_probe.py"]
 
 
@@ -73,6 +77,7 @@ def test_importing_the_server_loads_no_jax():
     code = ("import sys, pyspark_tf_gke_tpu_torch.train.serve, chip_smoke\n"
             "import pyspark_tf_gke_tpu_torch.train.lm_pretrain\n"
             "import pyspark_tf_gke_tpu_torch.models.resnet\n"
+            "import pyspark_tf_gke_tpu_torch.train.bert_finetune\n"
             f"bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{sorted(FORBIDDEN)!r})\n"
             "print(bad)\nsys.exit(1 if bad else 0)\n")
