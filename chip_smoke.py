@@ -59,6 +59,13 @@
    the whole sequence (bf16 and f32); the entry timed forward and
    backward, eager and graph-replayed, beside its plain version and
    ``aten._scaled_dot_product_efficient_attention`` with the logsumexp;
+3d. K6, the int8-weight matmul (``x @ dtype(q * scale)``), against its
+   plain version at GPT-small's weights (768x768, 768x3072, 3072x768,
+   768x32000) and the cb --spec pair's 64x259, M = 1, 8 and 40, bf16
+   (relative L2 1e-2) and f32 (phase 3's f32 rule); each case timed
+   eager and graph-replayed beside its plain version, ``torch.matmul``
+   on the already dequantized weight and its bound; the record is one
+   GPT-small decode step at M = 8 (73 calls);
 4. serving main path: serves a full-width GPT-small paged bundle
    (random weights from a numpy seed, int8 export) through
    ``BundleServer`` + the HTTP server with 8 continuous slots at the
@@ -66,22 +73,25 @@
    CUDA graph; a greedy and a sampled warm-up capture both 16-step
    graphs): 12 ``/v1/generate`` requests from 3 client threads (greedy
    and seeded top-p) and one ``/v1/score``; every serving kernel's launch
-   counter must move during this phase, K1's decode variant among them,
-   and exactly the two graphs must exist; prints new tokens/s beside the
+   counter must move during this phase, K1's decode variant and K6 (the
+   int8 weights stay int8 on the card) among them, and exactly the two
+   graphs must exist; prints new tokens/s beside the
    152.3 of an engine launching its decode steps one by one, and
    ``/metrics``' ``serve_mfu`` at ``--peak-flops 989e12`` (must be > 0);
 4b. profiles one batched prefill admission and two replays of the
    engine's captured 16-step decode chunk (host wall time against
-   device-busy time, top kernels; fails unless K1's decode kernel shows
+   device-busy time, top kernels, the Dense layers' K6 time; fails
+   unless K6 and K1's decode kernel show
    inside the replay), then times three replayed chunks unprofiled;
 4d. the captured decode chunk against eager launches of the same body
    on the same GPT-small model (8 slots, chunk 16, 16 requests of which
    5 sampled with their own seeds): the tokens must agree bit for bit,
    and so must the engines at decode-ahead depths 0, 1 and 2; a
    replay-only run must move K1's decode counter by exactly its decode
-   steps x 12 layers; ``adaptive_chunk`` must dispatch only sizes 8 and
-   16; prints each depth's new tokens/s and ``step_phases``, and each
-   graph's capture time;
+   steps x 12 layers, and K6's by its decode steps x 73 int8 Dense;
+   ``adaptive_chunk`` must dispatch only sizes 8 and 16; prints each
+   depth's new tokens/s and ``step_phases``, and each graph's capture
+   time;
 5. checks serving parity on the card: the engine's f32 greedy tokens
    equal the dense ``generate``'s, full-width bf16 prefill logits
    through the kernels agree with the plain versions, and so do two
@@ -177,6 +187,20 @@
    locally trained BPE tokenizer serves ``/v1/generate``; the card's
    allocated memory after two more reloads within 5% of its level after
    a warm-up before them (the main server alone);
+4i. int8 weights resident: phase 4's weights exported int8 and with
+   ``quantize=False`` and loaded: the int8 load's allocated bytes within
+   5% of the reckoned int8 elements + scales + unquantized leaves, every
+   quantized path int8 (no float copy); each load's MiB and its replayed
+   16-step 8-slot decode chunk profiled (device time, K6 or cuBLAS);
+4j. the dense slot-cache engine: a dense GPT-small bundle (int8) served
+   over HTTP with ``--continuous-slots 8`` and phase 4's traffic (K6, K3
+   and K2f launch, K1 does not, the decode chunk replays its graph; its
+   device time beside the paged chunk's); bf16 greedy tokens against the
+   paged engine on the same weights (the identical share printed); f32
+   at the 2-layer cut: engine == ``generate`` with the kernels and
+   without, the prefix LRU warmed with 512 tokens hits every request and
+   gives the cache-off tokens, pieces of 256 the unchunked tokens; the
+   trained cb --spec pair exported dense int8: spec on == off;
 6. training main path: ``lm_pretrain.main`` on a seeded synthetic text
    corpus at the GPT-small width (hidden 768, 12 layers, 12 heads, FFN
    3072, seq 512, batch 16, bf16, Adam 3e-4), 2 epochs x 10 steps with
@@ -1539,6 +1563,105 @@ def _paged_bound(q, kp, table, fills):
     return bound(nbytes, ops, str(q.dtype).split(".")[-1])
 
 
+# -- phase 3d: K6, the int8-weight matmul ------------------------------------
+
+# K6's checked weights (K, N): GPT-small's query/key/value/out, mlp_in,
+# mlp_out and lm_head, and the cb --spec pair's lm_head (vocab 259: N
+# neither a multiple of 16 nor of the 128-column tile), each at M = 1
+# (one slot), 8 (phase 4's slots) and 40 (8 slots x a k = 4 verify)
+INT8_SHAPES = ((768, 768), (768, 3072), (3072, 768), (768, 32000),
+               (64, 259))
+INT8_ROWS = (1, 8, 40)
+# Dense weights one GPT-small decode step streams: 12 layers x (query,
+# key, value, out, mlp_in, mlp_out) and lm_head, as ((K, N), calls)
+INT8_STEP = (((768, 768), 48), ((768, 3072), 12), ((3072, 768), 12),
+             ((768, 32000), 1))
+
+
+def _int8_weight(torch, dev, g, k, n):
+    """An int8 weight and its column scales, quantized as the exporter
+    quantizes a normal(0, 0.02) kernel."""
+    from pyspark_tf_gke_tpu_torch.ops.quant import quantize_tensor
+
+    w = torch.randn(k, n, generator=g, device=dev) * 0.02
+    qt = quantize_tensor(w)
+    return qt.q.contiguous(), qt.scale.contiguous()
+
+
+def _int8_bound(m, k, n, dtype_name):
+    """K6's bound: the int8 weight, its f32 scales and x read once and y
+    written once, against 2 M K N operations over the peak for x's
+    type."""
+    size = 2 if dtype_name == "bfloat16" else 4
+    return bound(k * n + 4 * n + size * m * (k + n), 2 * m * k * n,
+                 dtype_name)
+
+
+def check_int8_matmul(torch, dev):
+    """K6 against ``int8_matmul_plain`` at every (K, N) of
+    ``INT8_SHAPES`` and M of ``INT8_ROWS``, bf16 (TOL's bf16 rule) and
+    f32 (TOL's f32 rule: both sides multiply the same f32 weights and
+    differ in summation order only); each case timed (eager and
+    graph-replayed) beside its plain version and beside ``torch.matmul``
+    on the weight already dequantized to x's dtype (what a
+    dequantize-at-load port runs), with its bound. The record is one
+    GPT-small decode step at M = 8 in bf16 (``INT8_STEP``), summed over
+    its 73 calls."""
+    from pyspark_tf_gke_tpu_torch.ops import int8_matmul as im
+
+    g = torch.Generator(device=dev).manual_seed(6)
+    times = {}
+    err_max = 0.0
+    for k, n in INT8_SHAPES:
+        q, scale = _int8_weight(torch, dev, g, k, n)
+        for name, dtype in (("bfloat16", torch.bfloat16),
+                            ("float32", torch.float32)):
+            w = (q.float() * scale).to(dtype)
+            for m in INT8_ROWS:
+                x = torch.randn(m, k, generator=g, device=dev).to(dtype)
+                plan = im.int8_plan(m, k, n, dtype)
+                before = im.launches
+                out = im.int8_matmul(x, q, scale)
+                torch.cuda.synchronize()
+                check(im.launches == before + 1,
+                      f"int8_matmul [{m},{k}]x[{k},{n}] did not count")
+                tag = f"int8_matmul [{m},{k}]x[{k},{n}] {name} {plan}"
+                err = compare(out, im.int8_matmul_plain(x, q, scale), name,
+                              tag)
+                if name == "bfloat16":
+                    err_max = max(err_max, err)
+                kern = lambda: im.int8_matmul(x, q, scale)  # noqa: E731
+                lib = lambda: torch.matmul(x, w)  # noqa: E731
+                bms, by = _int8_bound(m, k, n, name)
+                t = dict(ms=cuda_ms(kern), graph_ms=graph_ms(kern),
+                         plain_ms=cuda_ms(lambda: im.int8_matmul_plain(
+                             x, q, scale)),
+                         library_ms=cuda_ms(lib),
+                         library_graph_ms=graph_ms(lib), bound_ms=bms,
+                         bound_by=by)
+                times[(m, k, n, name)] = t
+                log(f"  K6 [{m},{k}]x[{k},{n}] {name}: kernel {t['ms']:.4f} "
+                    f"ms, graph-replayed {t['graph_ms']:.4f}; plain "
+                    f"{t['plain_ms']:.4f}; torch.matmul on the dequantized "
+                    f"weight {t['library_ms']:.4f}, graph-replayed "
+                    f"{t['library_graph_ms']:.4f}; bound {bms:.4f} ({by}); "
+                    f"{CARD}")
+    rec = {key: sum(times[(8, k, n, "bfloat16")][key] * calls
+                    for (k, n), calls in INT8_STEP)
+           for key in ("ms", "graph_ms", "plain_ms", "library_ms",
+                       "library_graph_ms", "bound_ms")}
+    rec.update(max_abs_err=err_max, bound_by="bytes",
+               shape="one GPT-small decode step, M=8 bf16: 12 x (4 x "
+                     "[768,768], [768,3072], [3072,768]) + [768,32000], "
+                     "73 calls summed")
+    log(f"  K6 {rec['shape']}: kernel {rec['ms']:.4f} ms, graph-replayed "
+        f"{rec['graph_ms']:.4f}; torch.matmul on dequantized bf16 weights "
+        f"{rec['library_ms']:.4f}, graph-replayed "
+        f"{rec['library_graph_ms']:.4f}; bound {rec['bound_ms']:.4f}; "
+        f"{CARD}")
+    return rec
+
+
 # -- phase 3c: the ring's block entry and its merge ---------------------------
 
 # the block entry's checked cases: (dtype name, head_dim) at B=8 S=512 H=12
@@ -1573,6 +1696,20 @@ def _block_counters():
             "flash_attention_dq": (fa, "dq_launches"),
             "flash_attention_dkv": (fa, "dkv_launches"),
             "flash_attention_block": (fa, "block_launches")}
+
+
+def _serve_counters():
+    """The serving kernels' counters: K3, K2f, K1 and K6 (every serving
+    phase decodes an int8 bundle)."""
+    from pyspark_tf_gke_tpu_torch.ops import flash_attention as fa
+    from pyspark_tf_gke_tpu_torch.ops import int8_matmul as im
+    from pyspark_tf_gke_tpu_torch.ops import layernorm as ln
+    from pyspark_tf_gke_tpu_torch.ops import paged_attention as pa
+
+    return {"layernorm": (ln, "launches"),
+            "flash_attention_fwd": (fa, "launches"),
+            "paged_attention": (pa, "launches"),
+            "int8_matmul": (im, "launches")}
 
 
 def _train_counters():
@@ -1949,14 +2086,28 @@ def _profiled(torch, fn):
     return wall, sum(ms for _, ms in per_kernel), per_kernel
 
 
-def profile_engine(torch, full_model):
+def _matmul_ms(top):
+    """``(K6 ms, cuBLAS ms)`` of a profile's kernels: the int8-weight
+    matmul, and cuBLAS's GEMV/GEMM kernels (``nvjet_*`` on this CUDA: the
+    Dense layers of a model holding float weights; the dense engine's
+    attention einsums land there too)."""
+    k6 = sum(ms for name, ms in top if "int8_mm" in name)
+    lib = sum(ms for name, ms in top
+              if any(s in name.lower() for s in ("gemv", "gemm", "nvjet",
+                                                 "splitkreduce")))
+    return k6, lib
+
+
+def profile_engine(torch, full_model, label="int8 paged"):
     """Where one batched prefill admission and one decode chunk of the
     full-width model spend their time: host wall clock against the
-    device-busy total from ``torch.profiler``, and the top kernels. The
-    chunk is a replay of the engine's captured 16-step graph (captured
-    by an unprofiled first chunk); the profile must show K1's decode
-    kernel inside it. Returns the replayed chunk's ``(wall ms, device
-    ms)`` unprofiled and profiled."""
+    device-busy total from ``torch.profiler``, the top kernels, and the
+    Dense layers' share (K6, or cuBLAS on float weights). The chunk is a
+    replay of the engine's captured 16-step graph (captured by an
+    unprofiled first chunk); the profile of a paged model must show K1's
+    decode kernel inside it, that of an int8 model K6. Returns the
+    replayed chunk's wall ms unprofiled, its ``(wall ms, device ms)``
+    profiled and its ``(K6 ms, cuBLAS ms)``."""
     from pyspark_tf_gke_tpu_torch.train.continuous import ContinuousEngine
 
     rng = random.Random(2)
@@ -1980,15 +2131,22 @@ def profile_engine(torch, full_model):
         if busy <= 0:
             raise SmokeFailure(f"{what}: torch.profiler shows no device "
                                "time for a replayed graph")
-        log(f"  {what}: wall {wall:.2f} ms, device busy {busy:.2f} ms "
-            f"({100 * busy / wall:.1f}%), idle {100 * (1 - busy / wall):.1f}% "
+        k6, lib = _matmul_ms(top)
+        log(f"  {label} {what}: wall {wall:.2f} ms, device busy {busy:.2f} "
+            f"ms ({100 * busy / wall:.1f}%), idle "
+            f"{100 * (1 - busy / wall):.1f}%; Dense layers: K6 {k6:.3f} ms, "
+            f"cuBLAS {lib:.3f} ms (PERF.md §5: 4.51 ms of bf16 GEMVs) "
             f"on {CARD}")
         for name, ms in top[:6]:
             log(f"    {ms:9.3f} ms  {name[:90]}")
-        decode = [ms for name, ms in top if "paged_decode" in name]
-        check(bool(decode) and decode[0] > 0, "the replayed decode chunk's "
-              "profile shows no K1 decode kernel")
+        if full_model.cfg.paged_kv:
+            decode = [ms for name, ms in top if "paged_decode" in name]
+            check(bool(decode) and decode[0] > 0, "the replayed decode "
+                  "chunk's profile shows no K1 decode kernel")
+        if full_model.lm_head.kernel.dtype == torch.int8:
+            check(k6 > 0, "the replayed decode chunk's profile shows no K6")
         result = (wall, busy)
+        shares = (k6, lib)
     walls = []
     for _ in range(3):
         torch.cuda.synchronize()
@@ -1996,10 +2154,10 @@ def profile_engine(torch, full_model):
         eng.step()
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) * 1e3)
-    log(f"  decode chunk without the profiler: wall "
+    log(f"  {label} decode chunk without the profiler: wall "
         f"{', '.join(f'{w:.2f}' for w in walls)} ms for 16 steps (launched "
         f"step by step: 137-210 ms for 18.16 ms of device time) on {CARD}")
-    return statistics.median(walls), result
+    return statistics.median(walls), result, shares
 
 
 # -- phase 5: parity on the card ----------------------------------------------
@@ -2039,8 +2197,7 @@ def check_parity(torch, dev, full_model, cfg):
     else:
         raise SmokeFailure("use_flash=False ran plain attention on the card")
 
-    plain = CausalLM(full_model.cfg, use_kernels=False).to(dev).eval()
-    plain.load_state_dict(full_model.state_dict())
+    plain = _plain_twin(torch, full_model)
     ids = torch.randint(0, full_model.cfg.vocab_size,
                         (2, full_model.cfg.max_seq_len),
                         generator=torch.Generator(device=dev).manual_seed(4),
@@ -2059,6 +2216,17 @@ def check_parity(torch, dev, full_model, cfg):
           "bf16 prefill logits through the kernels disagree with plain")
 
 
+def _plain_twin(torch, model):
+    """``model``'s weights (int8 kernels and tables with their scales as
+    they are held) in a model of its config with ``use_kernels=False``."""
+    from pyspark_tf_gke_tpu_torch.models.causal_lm import CausalLM
+    from pyspark_tf_gke_tpu_torch.models.layers import flax_tree
+
+    with torch.device(model.device):
+        plain = CausalLM(model.cfg, use_kernels=False)
+    return plain.load_params(flax_tree(model)).eval()
+
+
 def check_paged_piece(torch, dev, full_model):
     """Two 256-token pieces of chunked prefill (the JAX bench's chip
     piece, ``bench.py:1199``) through the full-width paged model's
@@ -2066,12 +2234,11 @@ def check_paged_piece(torch, dev, full_model):
     kernels (K1's chunk variant on 256 query rows a head: two 128-row
     blocks) against ``use_kernels=False`` on its own cache, as phase 5's
     prefill logits."""
-    from pyspark_tf_gke_tpu_torch.models.causal_lm import CausalLM, PagedKV
+    from pyspark_tf_gke_tpu_torch.models.causal_lm import PagedKV
     from pyspark_tf_gke_tpu_torch.ops import paged_attention as pa
 
     cfg = full_model.cfg
-    plain = CausalLM(cfg, use_kernels=False).to(dev).eval()
-    plain.load_state_dict(full_model.state_dict())
+    plain = _plain_twin(torch, full_model)
     b, piece, starts = 4, 256, (0, 37, 64, 200)
     caches = [PagedKV(cfg, b, dev) for _ in range(2)]
     per_slot = cfg.max_pages_per_slot
@@ -2373,6 +2540,7 @@ def check_decode_graphs(torch, dev, model=None):
     depth's new tokens/s and step_phases, and each graph's capture time.
     Returns the replay-only run's launches by kernel."""
     from pyspark_tf_gke_tpu_torch.obs.stepstats import StepStatsRing
+    from pyspark_tf_gke_tpu_torch.ops import int8_matmul as im
     from pyspark_tf_gke_tpu_torch.ops import layernorm as ln
     from pyspark_tf_gke_tpu_torch.ops import paged_attention as pa
     from pyspark_tf_gke_tpu_torch.train import continuous as tc
@@ -2403,7 +2571,8 @@ def check_decode_graphs(torch, dev, model=None):
         check(first == ref, f"depth {depth}: the captured chunks' tokens "
               "differ from eager launches of the same body")
         eng.stepstats = StepStatsRing()
-        for mod, attr in ((pa, "launches"), (ln, "launches")):
+        for mod, attr in ((pa, "launches"), (ln, "launches"),
+                          (im, "launches")):
             setattr(mod, attr, 0)
         for variant in pa.variant_launches:
             pa.variant_launches[variant] = 0
@@ -2415,10 +2584,16 @@ def check_decode_graphs(torch, dev, model=None):
               f"depth {depth}: K1's decode variant counted "
               f"{pa.variant_launches['decode']} launches for {steps} decode "
               f"steps x {cfg.num_layers} layers")
+        # every int8 Dense of a decode step streams through K6 (prefill
+        # admissions dequantize into transients)
+        check(im.launches == steps * _int8_linears(cfg),
+              f"depth {depth}: K6 counted {im.launches} launches for "
+              f"{steps} decode steps x {_int8_linears(cfg)} int8 Dense")
         phases = eng.stats["step_phases"]
         new = sum(map(len, again))
         runs[depth] = dict(launches={"paged_attention": pa.launches,
-                                     "layernorm": ln.launches})
+                                     "layernorm": ln.launches,
+                                     "int8_matmul": im.launches})
         log(f"  depth {depth}: {new} new tokens in {wall:.3f} s = "
             f"{new / wall:.1f} tokens/s (first run, capturing: "
             f"{first_s:.3f} s; eager launches {eager_s:.3f} s); "
@@ -2426,7 +2601,8 @@ def check_decode_graphs(torch, dev, model=None):
             f"host_work_frac {phases['host_work_frac']}, step wall p50 "
             f"{phases['wall_ms']['p50']} ms over {phases['records']} steps; "
             f"K1 decode {pa.variant_launches['decode']} launches = {steps} "
-            f"steps x {cfg.num_layers} layers, K3 {ln.launches}; on {CARD}")
+            f"steps x {cfg.num_layers} layers, K3 {ln.launches}, K6 "
+            f"{im.launches} = {steps} x {_int8_linears(cfg)}; on {CARD}")
         log("    capture (warm-up + capture) s by (size, sampling): "
             + ", ".join(f"{k}: {v:.3f}" for k, v in
                         sorted(eng.graph_capture_seconds.items())))
@@ -2449,6 +2625,12 @@ def check_decode_graphs(torch, dev, model=None):
         f"{sorted(adaptive.graph_capture_seconds)}, tokens == fixed chunk "
         f"({wall:.3f} s with its captures)")
     return runs[1]["launches"]
+
+
+def _int8_linears(cfg) -> int:
+    """The int8 Dense layers one decode step runs: query, key, value,
+    out, the MLP's two (three with SwiGLU) in each layer, and lm_head."""
+    return cfg.num_layers * (7 if cfg.ffn == "swiglu" else 6) + 1
 
 
 def _serving_cfg():
@@ -2784,7 +2966,7 @@ def _spec_trained(torch, dev):
             f"{stats[loop]}, {wall * 1e3:.1f} ms with its capture")
     check(stats[True] == stats[False], "the device loop's stats differ "
           "from the host loop's")
-    return dict(on=on, off=off, rate=rate)
+    return dict(on=on, off=off, rate=rate, pair=(target, draft))
 
 
 def run_spec_serving(torch, dev, counters=None):
@@ -2813,10 +2995,8 @@ def run_spec_serving(torch, dev, counters=None):
                                                       start_http_server)
 
     if counters is None:
-        counters = {"layernorm": (ln, "launches"),
-                    "flash_attention_fwd": (fa, "launches"),
-                    "paged_attention": (pa, "launches")}
-    _spec_trained(torch, dev)
+        counters = _serve_counters()
+    trained = _spec_trained(torch, dev)
 
     # (b) GPT-small: phase 4's bundle and a random 1-layer draft bundle
     cfg = _serving_cfg()
@@ -3007,7 +3187,7 @@ def run_spec_serving(torch, dev, counters=None):
         for name, ms in top[:6]:
             log(f"    {ms:9.3f} ms  {name[:90]}")
         del eng
-    return launches
+    return launches, trained["pair"]
 
 
 # -- phase 4g: the replica's fleet contract ------------------------------------
@@ -3311,9 +3491,7 @@ def run_fleet_contract(torch, dev, counters=None):
     from pyspark_tf_gke_tpu_torch.train.export import export_serving_bundle
 
     if counters is None:
-        counters = {"layernorm": (ln, "launches"),
-                    "flash_attention_fwd": (fa, "launches"),
-                    "paged_attention": (pa, "launches")}
+        counters = _serve_counters()
     t_phase = time.perf_counter()
     cfg = _serving_cfg()
     cfg32 = dataclasses.replace(cfg, num_layers=2, dtype=torch.float32)
@@ -4040,9 +4218,7 @@ def run_operator_contract(torch, dev, counters=None):
     from pyspark_tf_gke_tpu_torch.train.export import export_serving_bundle
 
     if counters is None:
-        counters = {"layernorm": (ln, "launches"),
-                    "flash_attention_fwd": (fa, "launches"),
-                    "paged_attention": (pa, "launches")}
+        counters = _serve_counters()
     t_phase = time.perf_counter()
     cfg = _serving_cfg()
     cfg32 = dataclasses.replace(cfg, num_layers=2, dtype=torch.float32)
@@ -4142,6 +4318,290 @@ def _reload_memory(torch, dev, served, bundles):
         check(status == 200, f"phase 4h: reload answered {status} {body}")
         _greedy(url, prompt, 16)
     return mem0, _allocated(torch, dev)
+
+# -- phase 4i: int8 weights resident -----------------------------------------
+
+
+def _reckoned_bytes(model, meta) -> int:
+    """What a model loaded from a bundle should hold: each quantized
+    path's int8 elements and f32 scales (one a kernel column, one a table
+    row), every other leaf at the dtype the model stores it in."""
+    qpaths = set(meta.get("quantized_paths", []))
+    total = 0
+    for path, p in model.flax_parameters().items():
+        if path in qpaths:
+            scales = p.shape[1] if path.endswith("/kernel") else p.shape[0]
+            total += p.numel() + 4 * scales
+        else:
+            total += p.numel() * p.element_size()
+    return total
+
+
+def check_resident(torch, dev):
+    """Phase 4i: phase 4's GPT-small weights (numpy seed 0) exported with
+    int8 weights and with ``quantize=False``, each loaded on the card.
+    The int8 load's allocated bytes lie within 5% of the reckoned int8
+    elements + f32 scales + unquantized leaves, and every quantized path
+    is an int8 parameter (no float copy). Prints both loads' MiB and the
+    16-step, 8-slot decode chunk's device time (profiler) of each, with
+    its Dense layers' share (K6 or cuBLAS). Returns the int8 chunk's
+    profiled ``(wall ms, device ms)``."""
+    from pyspark_tf_gke_tpu_torch.models.causal_lm import init_params
+    from pyspark_tf_gke_tpu_torch.train.export import (export_serving_bundle,
+                                                       load_serving_bundle)
+
+    cfg = _serving_cfg()
+    params = init_params(cfg, seed=0)
+    chunks = {}
+    for name, quantize in (("int8", True), ("bf16", False)):
+        bundle = PORT_PKG / "_build" / f"chip_smoke_{name}_bundle"
+        export_serving_bundle(cfg, params, str(bundle), quantize=quantize)
+        torch.cuda.empty_cache()
+        before = _allocated(torch, dev)
+        model, _, meta = load_serving_bundle(str(bundle), dev)
+        held = _allocated(torch, dev) - before
+        shutil.rmtree(bundle, ignore_errors=True)
+        want = _reckoned_bytes(model, meta)
+        qpaths = meta["quantized_paths"]
+        own = model.flax_parameters()
+        floats = [p for p in qpaths if own[p].dtype != torch.int8]
+        log(f"  {name} bundle loaded: {held / 2**20:.1f} MiB allocated, "
+            f"reckoned {want / 2**20:.1f} MiB ({len(qpaths)} int8 paths); "
+            f"{CARD}")
+        if quantize:
+            check(len(qpaths) == 2 + 6 * cfg.num_layers + 1 and not floats,
+                  f"quantized paths held as float: {floats[:4]}")
+            check(abs(held - want) <= 0.05 * want,
+                  f"the int8 load holds {held} bytes, reckoned {want}")
+        chunks[name] = profile_engine(torch, model, label=f"{name} paged")
+        del model, own
+    log(f"  decode chunk device time int8 / bf16 weights: "
+        f"{chunks['int8'][1][1]:.2f} / {chunks['bf16'][1][1]:.2f} ms; Dense "
+        f"layers K6 {chunks['int8'][2][0]:.3f} ms against cuBLAS "
+        f"{chunks['bf16'][2][1]:.3f} ms; {CARD}")
+    return chunks["int8"][1]
+
+
+# -- phase 4j: the dense slot-cache engine ------------------------------------
+
+
+def _engine_tokens(torch, model, traffic, **kw):
+    """Tokens of ``traffic`` through a fresh engine of ``model`` (8 slots,
+    chunk 16 unless given) and the engine."""
+    from pyspark_tf_gke_tpu_torch.train.continuous import ContinuousEngine
+
+    eng = ContinuousEngine(model, **{"num_slots": 8, "chunk": 16, **kw})
+    return _run_traffic(eng, traffic)[0], eng
+
+
+def _dense_f32_gates(torch, dev):
+    """Phase 4j's f32 gates on GPT-small's width cut to 2 layers, int8
+    weights: the engine's greedy tokens equal ``generate``'s (with the
+    kernels and with ``use_kernels=False``); the prefix LRU, warmed with
+    a 512-token system prompt, hits every request and gives the cache-off
+    tokens; pieces of 256 give the unchunked tokens."""
+    from pyspark_tf_gke_tpu_torch.models.causal_lm import (CausalLM,
+                                                           CausalLMConfig,
+                                                           generate,
+                                                           init_params)
+    from pyspark_tf_gke_tpu_torch.ops.quant import quantize_tree
+    from pyspark_tf_gke_tpu_torch.train.continuous import ContinuousEngine
+
+    cfg = CausalLMConfig(num_layers=2, dtype=torch.float32)
+    params = quantize_tree(init_params(cfg, seed=1))
+    rng = random.Random(5)
+    prompts = [[rng.randrange(cfg.vocab_size) for _ in range(n)]
+               for n in (20, 100, 300, 700, 5, 50)]
+    model = None
+    for use_kernels in (True, False):
+        with torch.device(dev):
+            model = CausalLM(cfg, use_kernels=use_kernels)
+        model.load_params(params).eval()
+        got, _ = _engine_tokens(torch, model, [
+            dict(prompt_ids=p, max_new_tokens=24) for p in prompts])
+        want = [generate(model, [p], 24)[0, len(p):].tolist()
+                for p in prompts]
+        _first_divergence(torch, model, prompts, got, want,
+                          f"f32 dense engine (use_kernels={use_kernels}) "
+                          "against generate")
+    log(f"  (c) f32 2-layer int8 dense engine == generate for "
+        f"{len(prompts)} prompts, with the kernels and without")
+    system = [rng.randrange(cfg.vocab_size) for _ in range(512)]
+    shared = [dict(prompt_ids=system + [rng.randrange(cfg.vocab_size)
+                                        for _ in range(32)],
+                   max_new_tokens=16) for _ in range(8)]
+    off, _ = _engine_tokens(torch, model, shared, num_slots=4, chunk=8)
+    eng = ContinuousEngine(model, num_slots=4, chunk=8, prefix_cache_size=4)
+    eng.warm_prefix(system)
+    on = _run_traffic(eng, shared)[0]
+    pc = eng.stats["prefix_cache"]
+    computed = eng.stats["prefill_tokens_computed"]
+    check(on == off, "dense prefix-cache hits changed the tokens")
+    check(pc["hits"] == len(shared) and pc["misses"] == 0
+          and computed == 512 + 32 * len(shared),
+          f"prefix cache {pc}, {computed} prefill tokens computed")
+    log(f"  (c) f32 dense --prefix-cache 4 warmed with 512 tokens: "
+        f"{pc['hits']} hits, {computed} prefill tokens computed "
+        f"(512 + {len(shared)} x 32), tokens == cache off")
+    long = [dict(prompt_ids=[rng.randrange(cfg.vocab_size)
+                             for _ in range(n)], max_new_tokens=16)
+            for n in (1000, 64, 600, 64)]
+    whole, _ = _engine_tokens(torch, model, long)
+    pieces, eng = _engine_tokens(torch, model, long, prefill_chunk=256,
+                                 step_token_budget=384)
+    check(pieces == whole, "dense chunked prefill changed the tokens")
+    check(eng.stats["prefill_chunks"] >= 4 + 3,
+          f"{eng.stats['prefill_chunks']} prefill pieces")
+    log(f"  (c) f32 dense --prefill-chunk 256: "
+        f"{eng.stats['prefill_chunks']} pieces, tokens == unchunked")
+
+
+def _dense_spec(torch, dev, pair):
+    """Phase 4j: the trained cb --spec pair exported dense with int8
+    weights: speculation (k = 5, the draft bundle) gives spec off's
+    tokens in f32."""
+    from pyspark_tf_gke_tpu_torch.models.layers import flax_tree
+    from pyspark_tf_gke_tpu_torch.train.export import (export_serving_bundle,
+                                                       load_serving_bundle)
+    from pyspark_tf_gke_tpu_torch.train.spec_fixture import _pack_rows
+
+    loaded = []
+    for name, m in zip(("target", "draft"), pair):
+        bundle = PORT_PKG / "_build" / f"chip_smoke_dense_{name}"
+        export_serving_bundle(m.cfg, flax_tree(m), str(bundle),
+                              quantize=True)
+        loaded.append(load_serving_bundle(str(bundle), dev)[0])
+        shutil.rmtree(bundle, ignore_errors=True)
+    target, draft = loaded
+    check(not target.cfg.paged_kv and target.lm_head.kernel.dtype
+          == torch.int8, "the spec target is not a dense int8 model")
+    prompts = [p.tolist() for p in _pack_rows(
+        SPEC["plen"], n_rows=SPEC["requests"], seed=5, skew=SPEC["skew"])]
+    traffic = [dict(prompt_ids=p, max_new_tokens=SPEC["new"])
+               for p in prompts]
+    kw = dict(num_slots=SPEC["slots"], chunk=SPEC["chunk"],
+              adaptive_chunk=True)
+    off, _ = _engine_tokens(torch, target, traffic, **kw)
+    on, eng = _engine_tokens(torch, target, traffic, spec_tokens=SPEC["k"],
+                             draft_model=draft, **kw)
+    _first_divergence(torch, target, prompts, on, off,
+                      "f32 dense int8 spec against spec off")
+    log(f"  (c) the trained pair exported dense int8: spec on (k = "
+        f"{SPEC['k']}) == off for {len(traffic)} requests, accept rate "
+        f"{eng.stats['spec']['accept_rate']}")
+
+
+def run_dense_serving(torch, dev, counters, pair, paged_chunk):
+    """Phase 4j: a dense GPT-small bundle (no ``kv_num_pages``, int8
+    weights, numpy seed 0) served by ``BundleServer --continuous-slots 8``
+    over HTTP with phase 4's traffic: every request completes, K6, K3 and
+    K2f launch and K1 does not, the engine's two 16-step decode chunks
+    are captured graphs and replay; the replayed dense chunk's device
+    time beside the paged one's (``paged_chunk``, phase 4i); bf16's share
+    of greedy tokens identical to the paged engine on the same weights;
+    then the f32 gates and the trained pair. Returns the HTTP run's
+    launches."""
+    from pyspark_tf_gke_tpu_torch.models.causal_lm import (CausalLM,
+                                                           CausalLMConfig,
+                                                           init_params)
+    from pyspark_tf_gke_tpu_torch.models.layers import flax_tree
+    from pyspark_tf_gke_tpu_torch.ops import graphs
+    from pyspark_tf_gke_tpu_torch.ops import paged_attention as pa
+    from pyspark_tf_gke_tpu_torch.train.export import export_serving_bundle
+    from pyspark_tf_gke_tpu_torch.train.serve import (BundleServer,
+                                                      start_http_server)
+
+    t0 = time.perf_counter()
+    cfg = CausalLMConfig()
+    bundle = PORT_PKG / "_build" / "chip_smoke_dense_bundle"
+    export_serving_bundle(cfg, init_params(cfg, seed=0), str(bundle),
+                          quantize=True)
+    server = BundleServer(str(bundle), device=str(dev), continuous_slots=8,
+                          continuous_chunk=16)
+    httpd = start_http_server(server, "127.0.0.1", 0)
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{httpd.server_address[1]}"
+    try:
+        _post(url + "/v1/generate", {"prompt": "warm up", "max_new_tokens": 2})
+        _post(url + "/v1/generate", {"prompt": "warm up", "max_new_tokens": 2,
+                                     "temperature": 0.8, "seed": 1})
+        torch.cuda.synchronize()
+        for mod, attr in counters.values():
+            setattr(mod, attr, 0)
+        replays0 = graphs.replays
+        jobs = _phase4_jobs(random.Random(0))
+        results, errors = [None] * len(jobs), []
+
+        def client(idx):
+            for j in range(idx, len(jobs), 3):
+                try:
+                    results[j] = _post(url + "/v1/generate", jobs[j])
+                except Exception as exc:  # noqa: BLE001 — reported below
+                    errors.append(f"request {j}: {exc}")
+
+        t_start = time.perf_counter()
+        clients = [threading.Thread(target=client, args=(c,))
+                   for c in range(3)]
+        for c in clients:
+            c.start()
+        for c in clients:
+            c.join(900)
+        wall = time.perf_counter() - t_start
+        torch.cuda.synchronize()
+        launches = {name: getattr(mod, attr)
+                    for name, (mod, attr) in counters.items()}
+        replays = graphs.replays - replays0
+        stats = server._front.engine.stats
+        model = server.model
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        server.shutdown()
+        thread.join(30)
+        shutil.rmtree(bundle, ignore_errors=True)
+    check(not errors, "; ".join(errors))
+    new = 0
+    for body, res in zip(jobs, results):
+        check(res is not None and res[0] == 200, f"dense generate: {res}")
+        comp = res[1]["completions"][0]
+        check(comp["completion"].startswith(body["prompt"])
+              and 0 <= comp["new_tokens"] <= body["max_new_tokens"],
+              f"malformed dense completion {comp}")
+        new += comp["new_tokens"]
+    check("paged" not in stats and stats["decode_graphs"] == 2,
+          f"dense engine stats: decode_graphs {stats['decode_graphs']}, "
+          f"paged {'paged' in stats}")
+    check(replays > 0, "the dense decode chunk did not replay its graph")
+    for name, n in launches.items():
+        if name == "paged_attention":
+            check(n == 0, f"K1 launched {n} times on the dense path")
+        else:
+            check(n > 0, f"kernel {name} was not launched on the dense path")
+    log(f"  (c) dense GPT-small over HTTP (8 slots, chunk 16): {new} new "
+        f"tokens in {wall:.3f} s = {new / wall:.1f} tokens/s, {replays} "
+        f"graph replays; launches {launches}; served in "
+        f"{time.perf_counter() - t0:.1f} s; on {CARD}")
+    _, dense_chunk, _ = profile_engine(torch, model, label="int8 dense")
+    log(f"  (c) replayed 16-step 8-slot decode chunk, device time: dense "
+        f"{dense_chunk[1]:.2f} ms, paged {paged_chunk[1]:.2f} ms (4i); "
+        f"{CARD}")
+    with torch.device(dev):
+        paged = CausalLM(_serving_cfg())
+    paged.load_params(flax_tree(model)).eval()
+    rng = random.Random(6)
+    traffic = [dict(prompt_ids=[rng.randrange(cfg.vocab_size)
+                                for _ in range(n)], max_new_tokens=32)
+               for n in (20, 100, 300, 700) * 2]
+    dense_toks, _ = _engine_tokens(torch, model, traffic)
+    paged_toks, _ = _engine_tokens(torch, paged, traffic)
+    log(f"  (c) bf16 greedy tokens identical, dense against paged on the "
+        f"same weights: {_identical_share(dense_toks, paged_toks):.4f}")
+    del model, paged
+    _dense_f32_gates(torch, dev)
+    _dense_spec(torch, dev, pair)
+    return launches
+
 
 # -- phase 6: the training main path ------------------------------------------
 
@@ -4475,9 +4935,7 @@ def check_d128_lm(torch, dev, counters):
     thread.start()
     url = f"http://127.0.0.1:{httpd.server_address[1]}"
     rng = random.Random(3)
-    serve_counters = {"layernorm": (ln, "launches"),
-                      "flash_attention_fwd": (fa, "launches"),
-                      "paged_attention": (pa, "launches")}
+    serve_counters = _serve_counters()
     try:
         # warm-up: the server's engine captures its greedy and its
         # sampled 16-step decode chunk here (the only sizes this
@@ -5192,6 +5650,12 @@ KERNELS = (
      "pyspark_tf_gke_tpu/ops/pallas/fused_conv3.py:116", "wgmma"),
     ("fused_conv3_dw", "pyspark_tf_gke_tpu_torch/csrc/fused_conv3.cu",
      "pyspark_tf_gke_tpu/ops/pallas/fused_conv3.py:179", "wgmma"),
+    # no pallas_call stands behind K6: it is the counterpart of XLA's
+    # convert + scale fused into the matmul at inloop_dequantize
+    ("int8_matmul", "pyspark_tf_gke_tpu_torch/csrc/int8_matmul.cu",
+     "pyspark_tf_gke_tpu/ops/quant.py:136",
+     "simt split-K (no TPU kernel: XLA's fused dequantize at "
+     "inloop_dequantize)"),
 )
 
 
@@ -5206,6 +5670,7 @@ def main() -> int:
         print("torch.cuda.is_available() is False: the port runs on a "
               "CUDA card", file=sys.stderr)
         return 2
+    t_main = time.perf_counter()
     sys.path.insert(0, str(ROOT))
     from pyspark_tf_gke_tpu_torch.device import resolve_device
     from pyspark_tf_gke_tpu_torch.ops import flash_attention as fa
@@ -5263,15 +5728,18 @@ def main() -> int:
     records["flash_attention_block"] = check_flash_block(torch, dev,
                                                          block_counters)
     ring_launches = check_ring_merge(torch, dev, block_counters)
+    log("== 3d. K6, the int8-weight matmul, at GPT-small's and the cb "
+        "--spec pair's widths")
+    t_new = time.perf_counter()
+    records["int8_matmul"] = check_int8_matmul(torch, dev)
+    new_s = time.perf_counter() - t_new
     for name, rec in records.items():
         log(f"  {name} at {rec['shape']}: kernel_ms {rec['ms']:.4f}, "
             f"plain_ms {rec['plain_ms']:.4f}, library_ms "
             f"{rec['library_ms']:.4f}, bound_ms {rec['bound_ms']:.4f} "
             f"({rec['bound_by']})")
 
-    serve_counters = {"layernorm": (ln, "launches"),
-                      "flash_attention_fwd": (fa, "launches"),
-                      "paged_attention": (pa, "launches")}
+    serve_counters = _serve_counters()
     train_counters = _train_counters()
     # GPT-small (CausalLMConfig defaults: vocab 32000, hidden 768, 12
     # layers, 12 heads, FFN 3072, 1024 positions, bf16), paged as the
@@ -5309,7 +5777,7 @@ def main() -> int:
     log("== 4f. in-engine speculative decoding: the cb --spec pair, "
         "GPT-small with a self-draft and a random draft, the standalone "
         "driver")
-    spec_launches = run_spec_serving(torch, dev, serve_counters)
+    spec_launches, spec_pair = run_spec_serving(torch, dev, serve_counters)
     torch.cuda.empty_cache()
     log("== 4g. the replica's fleet contract: streams and the failover "
         "continuation, the KV handoff between a prefill and a decode "
@@ -5321,6 +5789,19 @@ def main() -> int:
         "/metrics /events /traces, a Hugging Face tokenizer")
     ops_launches, _ = run_operator_contract(torch, dev, serve_counters)
     torch.cuda.empty_cache()
+    t_new = time.perf_counter()
+    log("== 4i. int8 weights resident: GPT-small loaded from an int8 and a "
+        "bf16 bundle, its decode chunk on each")
+    paged_chunk = check_resident(torch, dev)
+    torch.cuda.empty_cache()
+    log("== 4j. the dense slot-cache engine: a dense GPT-small bundle over "
+        "HTTP, prefix LRU, chunked prefill, speculation")
+    dense_launches = run_dense_serving(torch, dev, serve_counters, spec_pair,
+                                       paged_chunk)
+    del spec_pair
+    torch.cuda.empty_cache()
+    new_s += time.perf_counter() - t_new
+    log(f"  phases 3d, 4i and 4j took {new_s:.1f} s")
     log("== 6. training main path: lm_pretrain, GPT-small width, bf16, "
         "batch 16 x 512")
     train_launches, _ = run_training(torch, dev, train_counters)
@@ -5397,6 +5878,7 @@ def main() -> int:
                     "serve_spec": spec_launches.get(name, 0),
                     "serve_fleet": fleet_launches.get(name, 0),
                     "serve_ops": ops_launches.get(name, 0),
+                    "serve_dense": dense_launches.get(name, 0),
                     "lm_train": train_launches.get(name, 0),
                     "lm_train_1280": wide_launches.get(name, 0),
                     "lm_train_d128": d128_launches.get(name, 0),
@@ -5410,6 +5892,8 @@ def main() -> int:
         # block entry on the ring, phase 3c's merge on one card)
         if name == "flash_attention_block":
             launches = per_path["ring_merge"]
+        elif name == "int8_matmul":
+            launches = per_path["serve"]
         else:
             launches = (per_path["bert_train"]
                         or per_path["resnet_fused3_train"]
@@ -5424,6 +5908,8 @@ def main() -> int:
                     "bound_by": rec["bound_by"],
                     "library_ms": rec["library_ms"],
                     **{key: rec[key] for key in EXTRA_KEYS if key in rec}})
+    log(f"chip_smoke: every phase passed in {time.perf_counter() - t_main:.1f}"
+        f" s on {CARD}")
     log(json.dumps({"kernels": out}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -137,7 +137,7 @@ def check(torch, dev, names) -> None:
     print(cs.query_card(), flush=True)
     kernels.library()
     for fn, info in cs.ptxas_report(kernels.build_log).items():
-        if any(k in fn for k in cs.NO_SPILL + ("ln_bwd", "flash_")):
+        if any(k in fn for k in cs.NO_SPILL + ("ln_bwd", "flash_", "int8_mm")):
             print("ptxas", fn[:100], info)
     for name in names:
         print(name, getattr(cs, name)(torch, dev))
@@ -817,9 +817,7 @@ def serve_path(torch, dev) -> None:
     from pyspark_tf_gke_tpu_torch.ops import paged_attention as pa
 
     print(cs.query_card(), ROOT, flush=True)
-    counters = {"layernorm": (ln, "launches"),
-                "flash_attention_fwd": (fa, "launches"),
-                "paged_attention": (pa, "launches")}
+    counters = cs._serve_counters()
     for _ in range(3):  # phase 4's aggregate is a ~0.7 s burst: repeat it
         _, _, model = cs.run_main_path(torch, dev, counters,
                                        cs._serving_cfg())

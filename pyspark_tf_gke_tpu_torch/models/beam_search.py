@@ -113,7 +113,7 @@ def _beam_decode(model: CausalLM, cache: DenseCache,
         pos = t - s_prompt
         logits = model(tokens[:, pos:pos + 1],
                        positions=torch.full((b * k, 1), t, device=device),
-                       cache=cache)[:, 0]
+                       cache=cache, inloop=True)[:, 0]
         logp = torch.log_softmax(logits.float(), dim=-1).reshape(b, k, v)
         if eos_token_id is not None:
             # hypotheses finishing NOW: length pos + 2 (eos included)

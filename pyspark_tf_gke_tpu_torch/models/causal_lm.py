@@ -194,6 +194,17 @@ class DenseCache:
             self.v_scale = [torch.zeros(shape[:3], device=device)
                             for _ in range(cfg.num_layers)]
 
+    def clone(self) -> "DenseCache":
+        """A copy whose tensors share nothing with this cache (an
+        extension of a cached prefix must leave the cached entry as it
+        was, as the JAX cache, an immutable array, stays)."""
+        out = copy.copy(self)
+        for name in ("k", "v", "k_scale", "v_scale"):
+            leaves = getattr(self, name)
+            if leaves is not None:
+                setattr(out, name, [t.clone() for t in leaves])
+        return out
+
     def write(self, layer: int, start: torch.Tensor, k: torch.Tensor,
               v: torch.Tensor) -> None:
         """Write ``k/v [B, s, H_kv, D]`` at per-row offsets ``start [B]``
@@ -334,20 +345,22 @@ class CausalSelfAttention(nn.Module):
         self.cfg = cfg
         self.use_kernels = use_kernels
         hkv, d = cfg.kv_heads, cfg.head_dim
-        dense = lambda i, o: Dense(i, o, cfg.dtype, param_dtype)  # noqa: E731
+        dense = lambda i, o: Dense(i, o, cfg.dtype, param_dtype,  # noqa: E731
+                                   use_kernels)
         self.query = dense(cfg.hidden_size, cfg.hidden_size)
         self.key = dense(cfg.hidden_size, hkv * d)
         self.value = dense(cfg.hidden_size, hkv * d)
         self.out = dense(cfg.hidden_size, cfg.hidden_size)
 
     def forward(self, hidden, positions, layer: int, cache=None,
-                prefill: bool = False, segment_ids=None):
+                prefill: bool = False, segment_ids=None,
+                inloop: bool = False):
         cfg = self.cfg
         b, s, _ = hidden.shape
         h, hkv, d = cfg.num_heads, cfg.kv_heads, cfg.head_dim
-        q = self.query(hidden).reshape(b, s, h, d)
-        k = self.key(hidden).reshape(b, s, hkv, d)
-        v = self.value(hidden).reshape(b, s, hkv, d)
+        q = self.query(hidden, inloop).reshape(b, s, h, d)
+        k = self.key(hidden, inloop).reshape(b, s, hkv, d)
+        v = self.value(hidden, inloop).reshape(b, s, hkv, d)
         if cfg.pos_embedding == "rope":
             if d % 2:
                 raise ValueError(f"rope needs an even head_dim, got {d}")
@@ -369,7 +382,7 @@ class CausalSelfAttention(nn.Module):
                 k = k.repeat_interleave(h // hkv, dim=2)
                 v = v.repeat_interleave(h // hkv, dim=2)
             out = self._causal_attend(q, k, v, segment_ids)
-        return self.out(out.reshape(b, s, cfg.hidden_size))
+        return self.out(out.reshape(b, s, cfg.hidden_size), inloop)
 
     def _causal_attend(self, q, k, v, segment_ids=None):
         if self.use_kernels:
@@ -446,21 +459,23 @@ class CausalLMBlock(nn.Module):
         self.ln_mlp = _norm(cfg, use_kernels, param_dtype)
         h, f = cfg.hidden_size, cfg.intermediate_size
         if cfg.ffn == "swiglu":
-            self.mlp_gate = Dense(h, f, cfg.dtype, param_dtype)
-        self.mlp_in = Dense(h, f, cfg.dtype, param_dtype)
-        self.mlp_out = Dense(f, h, cfg.dtype, param_dtype)
+            self.mlp_gate = Dense(h, f, cfg.dtype, param_dtype, use_kernels)
+        self.mlp_in = Dense(h, f, cfg.dtype, param_dtype, use_kernels)
+        self.mlp_out = Dense(f, h, cfg.dtype, param_dtype, use_kernels)
 
     def forward(self, hidden, positions, layer: int, cache=None,
-                prefill: bool = False, segment_ids=None):
+                prefill: bool = False, segment_ids=None,
+                inloop: bool = False):
         attn_in = self.ln_attn(hidden)
         hidden = hidden + self.attention(attn_in, positions, layer, cache,
-                                         prefill, segment_ids)
+                                         prefill, segment_ids, inloop)
         mlp_in = self.ln_mlp(hidden)
         if self.cfg.ffn == "swiglu":
-            mlp = F.silu(self.mlp_gate(mlp_in)) * self.mlp_in(mlp_in)
+            mlp = (F.silu(self.mlp_gate(mlp_in, inloop))
+                   * self.mlp_in(mlp_in, inloop))
         else:
-            mlp = F.gelu(self.mlp_in(mlp_in), approximate="tanh")
-        return hidden + self.mlp_out(mlp)
+            mlp = F.gelu(self.mlp_in(mlp_in, inloop), approximate="tanh")
+        return hidden + self.mlp_out(mlp, inloop)
 
 
 class CausalLM(nn.Module):
@@ -486,7 +501,8 @@ class CausalLM(nn.Module):
             self.add_module(f"layer_{i}",
                             CausalLMBlock(cfg, use_kernels, param_dtype))
         self.ln_final = _norm(cfg, use_kernels, param_dtype)
-        self.lm_head = Dense(h, cfg.vocab_size, cfg.dtype, param_dtype)
+        self.lm_head = Dense(h, cfg.vocab_size, cfg.dtype, param_dtype,
+                             use_kernels)
 
     @property
     def device(self) -> torch.device:
@@ -498,7 +514,8 @@ class CausalLM(nn.Module):
                 cache: Union[DenseCache, PagedKV, None] = None,
                 prefill: bool = False,
                 last_index: Optional[torch.Tensor] = None,
-                return_hidden: bool = False) -> torch.Tensor:
+                return_hidden: bool = False,
+                inloop: bool = False) -> torch.Tensor:
         """f32 logits ``[B, S, V]``.
 
         * ``cache=None``: full causal forward (scoring).
@@ -515,6 +532,11 @@ class CausalLM(nn.Module):
         ``return_hidden`` returns the last block's output ``[B, S, H]``
         and skips the final norm and the head: a forward run only for
         the K/V it writes (a draft's cache feed) reads no logits.
+
+        ``inloop`` marks a forward at one of the JAX package's in-loop
+        dequantization sites (a decode loop's step): the int8 weights of
+        a quantized model stream through K6 there (``models/layers.
+        Dense``); elsewhere they are dequantized into a transient.
         """
         b, s = input_ids.shape
         if prefill and not isinstance(cache, DenseCache):
@@ -542,14 +564,14 @@ class CausalLM(nn.Module):
                                     segment_ids, use_reentrant=False)
             else:
                 hidden = block(hidden, positions, i, cache, prefill,
-                               segment_ids)
+                               segment_ids, inloop)
         if return_hidden:
             return hidden
         if last_index is not None:
             rows = torch.arange(b, device=hidden.device)
             hidden = hidden[rows, last_index.long()][:, None]
         hidden = self.ln_final(hidden)
-        return self.lm_head(hidden).float()
+        return self.lm_head(hidden, inloop).float()
 
     # -- parameters ------------------------------------------------------
 
@@ -558,8 +580,9 @@ class CausalLM(nn.Module):
         return flax_parameters(self)
 
     def load_params(self, params: Params) -> "CausalLM":
-        """Copy a flat flax-path tree (QTensor leaves dequantized here,
-        once) into the model, casting to each parameter's dtype."""
+        """Copy a flat flax-path tree into the model, casting to each
+        parameter's dtype; QTensor leaves stay int8 with their scales
+        (``models/layers.load_flax_params``)."""
         load_flax_params(self, params)
         return self
 
@@ -668,7 +691,7 @@ def generate(model: CausalLM, prompt_ids, max_new_tokens: int,
         tok, done = emit(logits, done)
         tokens.append(tok)
         logits = model(tok[:, None], positions=torch.full(
-            (b, 1), t, device=device), cache=cache)[:, 0]
+            (b, 1), t, device=device), cache=cache, inloop=True)[:, 0]
     tok, done = emit(logits, done)
     tokens.append(tok)
     return torch.cat([prompt, torch.stack(tokens, dim=1)], dim=1)

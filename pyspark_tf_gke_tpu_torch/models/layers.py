@@ -4,19 +4,27 @@ borrows: ``_dense`` (``:99``) and ``FusedLayerNorm`` (``:122``).
 ``Dense`` keeps the flax layout: ``kernel [in, out]`` and ``y = x @
 kernel + bias``, with input, kernel and bias cast to the compute dtype
 and the bias added after the product in that dtype — the rounding
-points of ``nn.Dense(dtype=...)``. Two ways to hold the weights:
+points of ``nn.Dense(dtype=...)``. Three ways to hold the weights:
 
 * serving (``param_dtype=None``): the weights live in the compute dtype
   and take no gradient, so the casts are no-ops;
+* serving from an int8 tree: a ``QTensor`` kernel stays int8 on the
+  device with its f32 column scales (``kernel_scale``). A forward at the
+  JAX package's in-loop sites (``inloop=True``: the decode loops of
+  ``generate``, beam search and the engine's chunks) streams it through
+  K6 (``ops/int8_matmul.py``); any other forward (prefill, scoring, a
+  prefill piece) dequantizes the weight into a transient and calls
+  ``torch.matmul``, as the JAX package's ``dequantize_tree`` sites do.
+  Both give ``x @ dtype(f32(q) * scale)``;
 * training (``param_dtype=torch.float32``): trainable f32 master
   weights, cast to the compute dtype at every use, as flax keeps f32
   ``param_dtype`` parameters under a bf16 ``dtype``. Their gradients
   come back through the casts in f32.
 
 The models keep flax's parameter paths (``layer_3/attention/query/
-kernel``): :func:`flax_parameters`, :func:`load_flax_params` and
-:func:`init_flax_params` are the one place that maps a module's
-parameters to and from such a flat tree.
+kernel``): :func:`flax_parameters`, :func:`load_flax_params`,
+:func:`flax_tree` and :func:`init_flax_params` are the one place that
+maps a module's parameters to and from such a flat tree.
 
 ``FusedLayerNorm`` keeps f32 ``scale`` and ``bias`` (trainable when
 ``trainable``) and calls the K3/K3b wrapper (plain math on CPU tensors);
@@ -32,6 +40,9 @@ import numpy as np
 import torch
 from torch import nn
 
+from pyspark_tf_gke_tpu_torch.models.embedding import TokenEmbed
+from pyspark_tf_gke_tpu_torch.ops.int8_matmul import (int8_matmul,
+                                                      int8_matmul_plain)
 from pyspark_tf_gke_tpu_torch.ops.layernorm import (fused_layernorm,
                                                     layernorm_plain)
 from pyspark_tf_gke_tpu_torch.ops.quant import Params, QTensor
@@ -40,9 +51,11 @@ from pyspark_tf_gke_tpu_torch.ops.quant import Params, QTensor
 class Dense(nn.Module):
     def __init__(self, in_features: int, out_features: int,
                  dtype: torch.dtype = torch.float32,
-                 param_dtype: Optional[torch.dtype] = None):
+                 param_dtype: Optional[torch.dtype] = None,
+                 use_kernels: bool = True):
         super().__init__()
         self.dtype = dtype
+        self.use_kernels = use_kernels
         trainable = param_dtype is not None
         store = param_dtype if trainable else dtype
         self.kernel = nn.Parameter(
@@ -50,10 +63,34 @@ class Dense(nn.Module):
             requires_grad=trainable)
         self.bias = nn.Parameter(torch.zeros(out_features, dtype=store),
                                  requires_grad=trainable)
+        self.register_buffer("kernel_scale", None)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return (torch.matmul(x.to(self.dtype), self.kernel.to(self.dtype))
-                + self.bias.to(self.dtype))
+    def hold_int8(self, qt: QTensor) -> None:
+        """Keep ``qt`` as the kernel: int8 ``[in, out]`` and its f32
+        column scales, on the kernel's device (serving only)."""
+        if self.kernel.requires_grad:
+            raise ValueError("a trainable Dense holds float weights")
+        n = self.kernel.shape[1]
+        if tuple(qt.q.shape) != tuple(self.kernel.shape) or (
+                qt.scale.numel() != n):
+            raise ValueError(f"int8 kernel {tuple(qt.q.shape)} with scales "
+                             f"{tuple(qt.scale.shape)} does not fit "
+                             f"{tuple(self.kernel.shape)} per column")
+        device = self.kernel.device
+        self.kernel = nn.Parameter(qt.q.to(device, torch.int8).contiguous(),
+                                   requires_grad=False)
+        self.kernel_scale = qt.scale.to(device, torch.float32).reshape(
+            n).contiguous()
+
+    def forward(self, x: torch.Tensor, inloop: bool = False) -> torch.Tensor:
+        x = x.to(self.dtype)
+        if self.kernel_scale is None:
+            y = torch.matmul(x, self.kernel.to(self.dtype))
+        elif inloop and self.use_kernels:
+            y = int8_matmul(x, self.kernel, self.kernel_scale)
+        else:
+            y = int8_matmul_plain(x, self.kernel, self.kernel_scale)
+        return y + self.bias.to(self.dtype)
 
 
 class FusedLayerNorm(nn.Module):
@@ -82,8 +119,10 @@ def flax_parameters(module: nn.Module) -> Dict[str, nn.Parameter]:
 
 @torch.no_grad()
 def load_flax_params(module: nn.Module, params: Params) -> None:
-    """Copy a flat flax-path tree (QTensor leaves dequantized here, once)
-    into ``module``, casting to each parameter's dtype."""
+    """Copy a flat flax-path tree into ``module``, casting to each
+    parameter's dtype. A QTensor leaf stays int8 with its scales where
+    it lands in a serving ``Dense`` kernel or ``TokenEmbed`` table;
+    elsewhere (a trainable module) it is dequantized here, once."""
     own = flax_parameters(module)
     missing = sorted(set(own) - set(params))
     extra = sorted(set(params) - set(own))
@@ -93,11 +132,32 @@ def load_flax_params(module: nn.Module, params: Params) -> None:
     for path, p in own.items():
         leaf = params[path]
         if isinstance(leaf, QTensor):
+            owner = module.get_submodule(".".join(path.split("/")[:-1]))
+            if not p.requires_grad and (
+                    (isinstance(owner, Dense) and path.endswith("/kernel"))
+                    or isinstance(owner, TokenEmbed)):
+                owner.hold_int8(leaf)
+                continue
             leaf = leaf.dequantize()
         if tuple(leaf.shape) != tuple(p.shape):
             raise ValueError(f"{path}: shape {tuple(leaf.shape)} != "
                              f"{tuple(p.shape)}")
         p.copy_(leaf)
+
+
+def flax_tree(module: nn.Module) -> Params:
+    """The module's weights as a flat flax-path tree, the inverse of
+    :func:`load_flax_params`: an int8 kernel or table comes back as a
+    ``QTensor`` with its scales (tensors shared, not copied)."""
+    out: Params = {}
+    for path, p in flax_parameters(module).items():
+        owner = module.get_submodule(".".join(path.split("/")[:-1]))
+        scale = (getattr(owner, "kernel_scale", None) if isinstance(
+            owner, Dense) else getattr(owner, "embedding_scale", None))
+        out[path] = (QTensor(p.detach(), scale, torch.float32)
+                     if p.dtype == torch.int8 and scale is not None
+                     else p.detach())
+    return out
 
 
 def init_flax_params(build: Callable[[], nn.Module], seed: int) -> Params:

@@ -1,8 +1,9 @@
 """A body captured as one CUDA graph, with the kernels' launch counters
 kept true under replay.
 
-The launch counters (``paged_attention.launches``, ``layernorm.launches``
-and K1's ``variant_launches``) are Python integers a wrapper bumps where
+The launch counters (``paged_attention.launches``, ``layernorm.launches``,
+``int8_matmul.launches`` and K1's ``variant_launches``) are Python
+integers a wrapper bumps where
 it launches its kernel. A capture records the launches without running
 them, and a replay runs them without Python, so :func:`capture` undoes
 the counters' moves during capture and :meth:`Captured.replay` adds them
@@ -17,11 +18,12 @@ from typing import Callable, Dict, List, Optional, Sequence
 
 import torch
 
+from pyspark_tf_gke_tpu_torch.ops import int8_matmul as _im
 from pyspark_tf_gke_tpu_torch.ops import layernorm as _ln
 from pyspark_tf_gke_tpu_torch.ops import paged_attention as _pa
 
-# the counters of the kernels a decode or spec chunk runs (K1, K3)
-_COUNTERS = ((_pa, "launches"), (_ln, "launches"))
+# the counters of the kernels a decode or spec chunk runs (K1, K3, K6)
+_COUNTERS = ((_pa, "launches"), (_ln, "launches"), (_im, "launches"))
 
 replays = 0  # graph replays since import (a caller may reset it)
 

@@ -4,9 +4,14 @@
 ``QTensor`` holds an int8 tensor and a float32 scale: per output column
 ``(cols,)`` for dense kernels, per row ``(rows, 1)`` for embedding
 tables. ``q = clip(round(w / s), -127, 127)`` with ``s = max|w| / 127``
-(``torch.round`` rounds half to even, as ``jnp.round`` does). The port
-dequantizes once at load; keeping int8 weights resident and
-dequantizing them inside the decode loop is later work.
+(``torch.round`` rounds half to even, as ``jnp.round`` does).
+
+A model loaded from a quantized tree keeps its ``QTensor`` leaves int8
+on the device with their f32 scales (``models/layers.load_flax_params``):
+a serving ``Dense`` streams them through K6 (``ops/int8_matmul.py``) at
+the JAX package's in-loop sites, and an embedding table gathers int8
+rows (:func:`gather_rows`), the counterpart of dequantizing the table
+once and gathering (``dequantize_embeddings``).
 
 A parameter tree here is a flat dict keyed by flax path
 (``layer_3/attention/query/kernel``).
@@ -77,3 +82,25 @@ def dequantize_tree(params: Params) -> Dict[str, torch.Tensor]:
 
 def is_quantized(params: Params) -> bool:
     return any(isinstance(leaf, QTensor) for leaf in params.values())
+
+
+def gather_rows(q: torch.Tensor, scale: torch.Tensor, ids: torch.Tensor,
+                dtype: torch.dtype) -> torch.Tensor:
+    """Rows ``ids`` of an int8 table with per-row scales ``[rows, 1]``,
+    dequantized and cast to ``dtype``: ``dtype(f32(q[ids]) *
+    scale[ids])``, bit for bit what dequantizing the whole table (f32)
+    and then gathering and casting gives — no dequantized table is ever
+    held."""
+    return (q[ids].float() * scale[ids]).to(dtype)
+
+
+def tree_bytes(params: Params) -> int:
+    """Bytes of a (possibly quantized) parameter tree as it sits on the
+    device: an int8 leaf counts its int8 elements and f32 scales."""
+    total = 0
+    for leaf in params.values():
+        if isinstance(leaf, QTensor):
+            total += leaf.q.numel() + leaf.scale.numel() * 4
+        else:
+            total += leaf.numel() * leaf.element_size()
+    return total

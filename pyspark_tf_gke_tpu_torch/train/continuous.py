@@ -1,5 +1,5 @@
-"""Slot-based continuous batching over a paged KV pool (the core of
-``pyspark_tf_gke_tpu/train/continuous.py``).
+"""Slot-based continuous batching over a paged KV pool, or a dense slot
+cache (the core of ``pyspark_tf_gke_tpu/train/continuous.py``).
 
 A fixed pool of ``num_slots`` request slots decodes together; requests
 arrive and finish at different times and every free slot is refilled
@@ -96,6 +96,15 @@ an untraced request costs one ``None`` check at each. The chaos points
 ``engine.admit`` (after the page allocation) and ``engine.device_step``
 (on the host before each chunk's dispatch or graph replay, never inside
 a captured region) fire as the JAX engine's.
+
+A model without ``kv_num_pages`` runs the same engine over a dense
+``[num_slots, max_seq_len]`` cache, with the JAX engine's dense routes:
+admissions copy prefill rows into the slot (``_insert_slots_batch``),
+``prefix_cache_size`` keeps an LRU of batch-1 prefix caches
+(``PrefixCache``; a hit extends a clone of the entry by the remainder),
+chunked prefill extends a batch-1 staging cache piece by piece, and the
+spec verify runs over the dense cache. There are no pages to move: the
+KV handoff and the page reads and writes raise, as the JAX engine's do.
 
 The attribute names ``_queue``, ``_slots``, ``_admitting``,
 ``_inflight_q``, ``_page_refs``, ``_free_pages``, ``_slot_pages`` and
@@ -308,16 +317,20 @@ def _gumbel(state: "SlotState", stream: int = lanes.PICK) -> torch.Tensor:
 
 
 class SlotState:
-    """The slot pool's device state (``_paged_zeros_state``): the paged
-    cache, per-slot fill levels, carried logits, live flags and sampling
-    lanes (temperature, top-p, seed key, step counter). Every tensor is
-    allocated once and written in place — a captured chunk replays over
-    this storage."""
+    """The slot pool's device state (``_paged_zeros_state``, or the dense
+    ``_zeros_state``): the cache — the paged pool of a paged model, else
+    a dense ``[num_slots, max_seq_len, H_kv, D]`` cache a layer (int8
+    under ``kv_cache_quant``) — per-slot fill levels, carried logits,
+    live flags and sampling lanes (temperature, top-p, seed key, step
+    counter). Every tensor is allocated once and written in place — a
+    captured chunk replays over this storage."""
 
     def __init__(self, model: CausalLM, num_slots: int,
                  device: torch.device):
         cfg = model.cfg
-        self.cache = PagedKV(cfg, num_slots, device)
+        self.cache = (PagedKV(cfg, num_slots, device) if cfg.paged_kv
+                      else DenseCache(cfg, num_slots, cfg.max_seq_len,
+                                      device))
         self.positions = torch.zeros(num_slots, dtype=torch.long,
                                      device=device)
         self.last_logits = torch.zeros(num_slots, cfg.vocab_size,
@@ -345,16 +358,45 @@ def _h2d(arr: np.ndarray, device: torch.device) -> torch.Tensor:
 
 
 def _prefill_padded_batch(model: CausalLM, padded: np.ndarray,
-                          true_lens: np.ndarray):
+                          true_lens: np.ndarray,
+                          length: Optional[int] = None):
     """Right-padded prefill of ``[k, S_bucket]`` prompts in ONE forward.
-    Returns the dense ``[k, S_bucket]`` cache and the logits at each
-    row's last real token ``[k, V]``."""
+    Returns the dense ``[k, length]`` cache (``length`` defaults to the
+    bucket; a staging cache that later extends takes ``max_seq_len``)
+    and the logits at each row's last real token ``[k, V]``."""
     device = model.device
     ids = _h2d(padded.astype(np.int64), device)
     last = _h2d(true_lens.astype(np.int64) - 1, device)
-    cache = DenseCache(model.cfg, padded.shape[0], padded.shape[1], device)
+    cache = DenseCache(model.cfg, padded.shape[0],
+                       length if length is not None else padded.shape[1],
+                       device)
     logits = model(ids, cache=cache, prefill=True, last_index=last)
     return cache, logits[:, 0]
+
+
+def _prefill_padded(model: CausalLM, padded: np.ndarray,
+                    true_len: int) -> tuple:
+    """Batch-1 prefill of the right-padded ``padded [w]`` into a fresh
+    ``[1, max_seq_len]`` staging cache: ``(cache1, logits1 [1, V])``."""
+    return _prefill_padded_batch(model, padded[None],
+                                 np.asarray([true_len]),
+                                 length=model.cfg.max_seq_len)
+
+
+def _extend_prefix(model: CausalLM, cache, padded: np.ndarray, fill: int,
+                   true_len: int) -> torch.Tensor:
+    """Extend a batch-1 cache at fill level ``fill`` with the right-padded
+    ``padded [w]`` in ONE multi-token slot-decode forward: K/V for every
+    position ``fill + arange(w)`` are written IN PLACE and the causal
+    offset mask keeps every real token blind to the padding after it.
+    ``cache`` is a dense staging cache or a paged view. Returns the
+    logits at the last REAL token ``[1, V]``."""
+    device = model.device
+    w = padded.shape[0]
+    ids = _h2d(padded[None].astype(np.int64), device)
+    positions = (fill + torch.arange(w, device=device))[None]
+    last = torch.full((1,), true_len - 1, dtype=torch.long, device=device)
+    return model(ids, positions=positions, cache=cache, last_index=last)[:, 0]
 
 
 def _set_lanes(state: SlotState, slot_idx, samplings: List[tuple]) -> None:
@@ -415,13 +457,12 @@ def _paged_prefill_chunk(model: CausalLM, state: SlotState,
     piece's ``true_len`` real tokens land in pages the admission owns (or
     the trash) and are overwritten by the next piece or by decode.
     Returns the logits at the piece's last REAL token ``[1, V]``."""
-    device = model.device
-    w = padded.shape[0]
-    ids = _h2d(padded[None].astype(np.int64), device)
-    positions = (fill + torch.arange(w, device=device))[None]
-    view = state.cache.with_table(_h2d(row[None], device))
-    last = torch.full((1,), true_len - 1, dtype=torch.long, device=device)
-    return model(ids, positions=positions, cache=view, last_index=last)[:, 0]
+    if not isinstance(state.cache, PagedKV):
+        raise ValueError(
+            "prefill_chunk writes into the paged pool; dense engines run "
+            "chunked prefill through _extend_prefix")
+    view = state.cache.with_table(_h2d(row[None], model.device))
+    return _extend_prefix(model, view, padded, fill, true_len)
 
 
 def _activate_slot_paged(state: SlotState, slot: int, row: np.ndarray,
@@ -436,6 +477,37 @@ def _activate_slot_paged(state: SlotState, slot: int, row: np.ndarray,
     state.last_logits[slot] = logits1[0]
     state.live[slot] = True
     _set_lanes(state, slice(slot, slot + 1), [sampling])
+
+
+def _insert_slots_batch(state: SlotState, caches: DenseCache,
+                        logits: torch.Tensor, slots: List[int],
+                        fills: np.ndarray, samplings: List[tuple]) -> None:
+    """Dense admission: copy each prefilled row (``caches [k, w]``, ``w``
+    a bucket or the whole context) into the first ``w`` rows of its slot
+    and set the slot's fill level, carried logits, live flag and
+    sampling lane. The slot's rows past ``w`` keep an earlier request's
+    values, masked by position until the slot's own writes reach them
+    (the JAX insert copies zeros there: both mask to the same 0)."""
+    dc = state.cache
+    w = caches.k[0].shape[1]
+    device = logits.device
+    slot_idx = _h2d(np.asarray(slots, np.int64), device)
+    for layer in range(len(dc.k)):
+        dc.k[layer][slot_idx, :w] = caches.k[layer]
+        dc.v[layer][slot_idx, :w] = caches.v[layer]
+        if dc.k_scale is not None:
+            dc.k_scale[layer][slot_idx, :w] = caches.k_scale[layer]
+            dc.v_scale[layer][slot_idx, :w] = caches.v_scale[layer]
+    state.positions[slot_idx] = _h2d(np.asarray(fills, np.int64), device)
+    state.last_logits[slot_idx] = logits
+    state.live[slot_idx] = True
+    _set_lanes(state, slot_idx, samplings)
+
+
+def _clear_live(state: SlotState, slot: int) -> None:
+    """Dense free: drop the live flag (the slot's rows are rewritten by
+    its next admission)."""
+    state.live[slot] = False
 
 
 def _clear_live_paged(state: SlotState, slot: int) -> None:
@@ -481,7 +553,7 @@ def _decode_chunk(model: CausalLM, state: SlotState, size: int,
         # the extent the prefix cache adopts (never a shared page)
         step_tok = torch.where(live, tok, pad_id)
         logits = model(step_tok[:, None], positions=state.positions[:, None],
-                       cache=state.cache)
+                       cache=state.cache, inloop=True)
         state.positions.add_(live.long())
         state.last_logits.copy_(logits[:, 0])
         state.live.copy_(live)
@@ -595,7 +667,7 @@ def _spec_chunk(model: CausalLM, draft: DraftSlots, state: SlotState,
         for j in range(k):
             feed = torch.where(live, cur, pad_id)
             lg = dmodel(feed[:, None], positions=(positions + j)[:, None],
-                        cache=dcache)[:, 0]
+                        cache=dcache, inloop=True)[:, 0]
             cur = _pick_tokens(lg, state, sampling, lanes.DRAFT)
             if sampling:
                 state.draws.add_(1)
@@ -604,7 +676,7 @@ def _spec_chunk(model: CausalLM, draft: DraftSlots, state: SlotState,
         # feed the final proposal too (cache rows only)
         dmodel(torch.where(live, cur, pad_id)[:, None],
                positions=(positions + k)[:, None], cache=dcache,
-               return_hidden=True)
+               return_hidden=True, inloop=True)
         drafts = torch.stack(dtoks, dim=1)                  # [B, k]
         # 2. verify: ONE (k+1)-wide chunk forward writes K/V for
         #    [pending, d_1..d_k] at fill..fill+k and scores every position
@@ -614,7 +686,7 @@ def _spec_chunk(model: CausalLM, draft: DraftSlots, state: SlotState,
                              torch.cat([pending[:, None], drafts], dim=1),
                              pad_id)
         logits_v = model(vchunk, positions=positions[:, None] + iota_w,
-                         cache=state.cache)
+                         cache=state.cache, inloop=True)
         # 3. accept + correct (THE shared rule)
         if sampling:
             a, correction = accept_and_correct(
@@ -649,9 +721,9 @@ def _spec_chunk(model: CausalLM, draft: DraftSlots, state: SlotState,
     # exit: feed the final pending token through target AND draft
     step_tok = torch.where(live, pending, pad_id)
     logits = model(step_tok[:, None], positions=positions[:, None],
-                   cache=state.cache)
+                   cache=state.cache, inloop=True)
     dmodel(step_tok[:, None], positions=positions[:, None], cache=dcache,
-           return_hidden=True)
+           return_hidden=True, inloop=True)
     state.positions.copy_(positions + live.long())
     state.last_logits.copy_(logits[:, 0])
     state.live.copy_(live)
@@ -717,6 +789,71 @@ class _InflightStep:
 
 
 # -- the radix prefix cache (host side) -----------------------------------------
+
+
+class PrefixCache:
+    """The dense engine's prefix cache: an LRU of prefilled prompt
+    PREFIXES (the shared-system-prompt pattern), each a batch-1 ``[1,
+    max_seq_len]`` staging cache and the logits at its fill level (the
+    JAX engine's ``PrefixCache``). ``lookup`` returns the entry with the
+    longest common token prefix; admission copies it into the slot and
+    only the remainder pays prefill compute. Each entry costs one slot's
+    worth of KV memory. An admission that extends an entry extends a
+    clone: the entry itself is never written."""
+
+    def __init__(self, capacity: int = 4):
+        if capacity < 1:
+            raise ValueError("prefix cache capacity must be >= 1")
+        self.capacity = capacity
+        self._entries: Dict[tuple, tuple] = {}  # key -> (cache1, logits1)
+        self._order: List[tuple] = []  # LRU, most recent last
+        self.hits = self.misses = 0
+
+    def put(self, key_tokens, cache1: DenseCache,
+            logits1: torch.Tensor) -> None:
+        key = tuple(int(t) for t in key_tokens)
+        if key in self._entries:
+            self._order.remove(key)
+        elif len(self._entries) >= self.capacity:
+            del self._entries[self._order.pop(0)]
+        self._entries[key] = (cache1, logits1)
+        self._order.append(key)
+
+    def lookup(self, prompt, peek: bool = False):
+        """The entry with the LONGEST COMMON TOKEN PREFIX with ``prompt``
+        (BPE tokenizers are not prefix-stable: a warmed prefix and a
+        prompt can diverge one token early, and every row before the
+        divergence is reused). ``(usable_fill, cache1, logits1 or
+        None)`` or None; ``logits1`` only when the whole entry is the
+        whole prompt. A prompt that is a STRICT prefix of an entry would
+        need logits at a fill level the entry does not store: declined.
+        ``peek`` leaves the stats and the LRU order alone."""
+        toks = np.asarray(prompt, np.int64)
+        best, best_common = None, 0
+        for key in self._entries:
+            k = np.asarray(key, np.int64)
+            n = min(k.size, toks.size)
+            neq = np.nonzero(k[:n] != toks[:n])[0]
+            common = int(neq[0]) if neq.size else n
+            if common > best_common:
+                best, best_common = key, common
+        if best is None or best_common == 0 or (
+                best_common == toks.size and best_common != len(best)):
+            if not peek:
+                self.misses += 1
+            return None
+        if not peek:
+            self.hits += 1
+            self._order.remove(best)
+            self._order.append(best)
+        cache1, logits1 = self._entries[best]
+        exact = best_common == len(best) == toks.size
+        return best_common, cache1, (logits1 if exact else None)
+
+    @property
+    def stats(self) -> dict:
+        return {"entries": len(self._entries), "capacity": self.capacity,
+                "hits": self.hits, "misses": self.misses}
 
 
 class _RadixNode:
@@ -944,12 +1081,14 @@ class ContinuousEngine:
     """Admit requests any time; every free KV slot is refilled at the
     next chunk boundary. ``submit`` queues, ``run_until_drained`` (or
     repeated ``step``) decodes; finished requests come back as
-    ``(rid, token_list)``. The model must be paged
-    (``CausalLMConfig.kv_num_pages``). ``schedule`` is the admission
-    order ("fifo" or "longest"), ``tenant_weights`` the DWRR weights of
-    the tenants (a ``*`` entry for unnamed ones)."""
-
-    paged = True  # the JAX engine's flag (its invariant checker reads it)
+    ``(rid, token_list)``. A paged model (``CausalLMConfig.kv_num_pages``)
+    runs over the page pool; any other over the dense slot cache, with
+    the JAX engine's dense routes: the ``PrefixCache`` LRU for
+    ``prefix_cache_size`` (entries, not pages), chunked prefill through
+    a batch-1 staging cache extended piece by piece, and speculation
+    verifying over the dense cache. ``schedule`` is the admission order
+    ("fifo" or "longest"), ``tenant_weights`` the DWRR weights of the
+    tenants (a ``*`` entry for unnamed ones)."""
 
     def __init__(self, model: CausalLM, num_slots: int = 8, chunk: int = 8,
                  eos_token_id: Optional[int] = None, pad_id: int = 0,
@@ -966,11 +1105,8 @@ class ContinuousEngine:
                  obs: Optional[dict] = None,
                  peak_flops: float = 0.0):
         cfg = model.cfg
-        if not cfg.paged_kv:
-            raise NotImplementedError(
-                "the dense slot-cache engine is not ported yet (ROADMAP "
-                "queue 1, dense slot-cache engine); use a bundle with "
-                "kv_num_pages")
+        # the JAX engine's flag (its invariant checker reads it)
+        self.paged = cfg.paged_kv
         if num_slots < 1 or chunk < 1:
             raise ValueError("num_slots and chunk must be >= 1")
         if schedule not in ("fifo", "longest"):
@@ -1015,24 +1151,31 @@ class ContinuousEngine:
         self.eos_token_id, self.pad_id = eos_token_id, pad_id
         s_max = cfg.max_seq_len
         ps = cfg.kv_page_size
-        if s_max % ps:
+        if self.paged and s_max % ps:
             raise ValueError(f"kv_page_size {ps} must divide max_seq_len "
                              f"{s_max}")
         if buckets is PAD_BUCKETS:
             buckets = tuple(b for b in PAD_BUCKETS if b < s_max) + (s_max,)
-        # prefill rows scatter whole pages: every bucket is page-aligned
-        self.buckets = tuple(b for b in buckets if b <= s_max and b % ps == 0)
+        # paged: prefill rows scatter whole pages, so every bucket is
+        # page-aligned
+        self.buckets = tuple(b for b in buckets if b <= s_max and (
+            not self.paged or b % ps == 0))
         if not self.buckets:
-            raise ValueError(f"no prompt bucket fits max_seq_len {s_max} as "
-                             f"a multiple of kv_page_size {ps}")
-        # the radix prefix cache over the page pool: prefix_cache_size
-        # caps its resident pages (clamped to the pool; LRU-evicted under
-        # pool pressure either way)
+            raise ValueError(f"no prompt bucket fits max_seq_len {s_max}"
+                             + (f" as a multiple of kv_page_size {ps}"
+                                if self.paged else ""))
+        # paged: the radix prefix cache over the page pool,
+        # prefix_cache_size capping its resident pages (clamped to the
+        # pool; LRU-evicted under pool pressure either way); dense: the
+        # LRU of prefix_cache_size batch-1 entries
         self.radix: Optional[RadixPrefixCache] = (
             RadixPrefixCache(ps, min(int(prefix_cache_size),
                                      cfg.kv_num_pages))
-            if prefix_cache_size else None)
-        self._free_pages: List[int] = list(range(cfg.kv_num_pages))
+            if prefix_cache_size and self.paged else None)
+        self.prefix_cache: Optional[PrefixCache] = (
+            PrefixCache(int(prefix_cache_size))
+            if prefix_cache_size and not self.paged else None)
+        self._free_pages: List[int] = list(range(cfg.kv_num_pages or 0))
         # page -> refcount: slots and in-flight admissions hold one ref
         # per page they reference, the trie one per page it indexes; a
         # page is in _free_pages iff its refcount is 0
@@ -1072,7 +1215,8 @@ class ContinuousEngine:
         self._obs = obs if obs is not None else platform_families()
         self._obs["serve_slots_total"].set(num_slots)
         self._obs["serve_prefill_inflight"].set(0)
-        self._obs["serve_kv_pages_total"].set(cfg.kv_num_pages)
+        if self.paged:
+            self._obs["serve_kv_pages_total"].set(cfg.kv_num_pages)
         # peak_flops arms the windowed serve_mfu gauge (0 = off, the CPU
         # default; FLOPs a token are estimated from the config)
         self.stepstats.bind(self._obs, flops_per_token=flops_per_token(cfg),
@@ -1139,10 +1283,10 @@ class ContinuousEngine:
             # pieces write real tokens only and touch no bucket: the
             # bound is max_seq_len (above) and the true token extent
             need = -(-(prompt.size + max_new_tokens) // cfg.kv_page_size)
-        else:
+        else:  # raises when no bucket fits
             sb = bucket_length(prompt.size, self.buckets)
             need = self._pages_needed(sb, prompt.size, max_new_tokens)
-        if need > cfg.kv_num_pages:
+        if self.paged and need > cfg.kv_num_pages:
             # with the whole pool free it still could not admit —
             # queueing it would livelock run_until_drained
             raise ValueError(
@@ -1230,15 +1374,27 @@ class ContinuousEngine:
     # -- prefix cache: warm, export, import ------------------------------
     def _require_radix(self, what: str) -> None:
         if self.radix is None:
-            raise ValueError(f"{what} needs the radix prefix cache (an "
-                             "engine built with prefix_cache_size > 0)")
+            raise ValueError(f"{what} needs the paged radix prefix cache "
+                             "(prefix_cache_size > 0 on a paged model)")
+
+    @property
+    def warm_capacity(self) -> int:
+        """How many warmed prefixes a rebuilt engine should replay: the
+        dense LRU's entry capacity, or a fixed horizon of 8 for the radix
+        cache (its residency is page-bounded, not entry-bounded)."""
+        if self.prefix_cache is not None:
+            return self.prefix_cache.capacity
+        return 8 if self.radix is not None else 0
 
     def warm_prefix(self, prefix_ids) -> int:
         """Prefill ``prefix_ids`` STRAIGHT into trie-owned pages (no slot
         involved) and index it, so later prompts starting with it admit
         at the match boundary; restarts from the last fully cached page
-        when part of it is resident. Returns the prefix length."""
-        self._require_radix("warm_prefix")
+        when part of it is resident. A dense engine prefills it into a
+        batch-1 staging cache and keeps that in its ``PrefixCache`` LRU.
+        Returns the prefix length."""
+        if self.prefix_cache is None:
+            self._require_radix("warm_prefix")
         prefix = np.asarray(prefix_ids, np.int32).reshape(-1)
         if prefix.size == 0:
             raise ValueError("empty prefix")
@@ -1247,6 +1403,16 @@ class ContinuousEngine:
             raise ValueError(
                 f"prefix {prefix.size} leaves no room under max_seq_len "
                 f"{cfg.max_seq_len}")
+        if self.prefix_cache is not None:
+            padded = np.full((bucket_length(prefix.size, self.buckets),),
+                             self.pad_id, np.int32)
+            padded[:prefix.size] = prefix
+            with torch.no_grad():
+                cache1, logits1 = _prefill_padded(self.model, padded,
+                                                  int(prefix.size))
+            self._n_prefill_tokens += int(prefix.size)
+            self.prefix_cache.put(prefix, cache1, logits1)
+            return int(prefix.size)
         ps = cfg.kv_page_size
         matched, shared, _cow = self.radix.match(
             prefix, limit=int(prefix.size), peek=True)
@@ -1361,6 +1527,8 @@ class ContinuousEngine:
     def _read_pages(self, pages) -> List[dict]:
         """``_gather_pages``: the rows of ``pages`` from every layer's
         pool leaves, host numpy, one dict per layer in wire order."""
+        if not self.paged:
+            raise ValueError("read_pages needs the paged cache layout")
         kv = self._state.cache
         idx = torch.as_tensor(list(pages), dtype=torch.long,
                               device=self.device)
@@ -1380,6 +1548,8 @@ class ContinuousEngine:
         """``_install_pages``: scatter transferred page rows (one dict a
         layer, wire order) into the pool at ``pages``, cast to each
         leaf's dtype."""
+        if not self.paged:
+            raise ValueError("write_pages needs the paged cache layout")
         kv = self._state.cache
         idx = _h2d(np.asarray(pages, np.int64), self.device)
         with torch.no_grad():
@@ -1498,7 +1668,10 @@ class ContinuousEngine:
 
     def _free_slot(self, slot: int) -> None:
         with torch.no_grad():
-            _clear_live_paged(self._state, slot)
+            if self.paged:
+                _clear_live_paged(self._state, slot)
+            else:
+                _clear_live(self._state, slot)
         self._release_pages(slot)
 
     # -- admission -------------------------------------------------------
@@ -1530,20 +1703,26 @@ class ContinuousEngine:
                                 np.asarray([dp[1]], np.int32), [slot])
 
     def _device_admit(self, group: List[_Request], slots: List[int],
-                      sb: int, pages_b: np.ndarray) -> None:
+                      sb: int, pages_b: Optional[np.ndarray]) -> None:
         """ONE batched prefill + ONE scatter admits ``group`` (and, under
-        speculation, the draft's prefill of the same prompts)."""
+        speculation, the draft's prefill of the same prompts); a paged
+        engine scatters into ``pages_b``, a dense one into the slots'
+        rows."""
         padded = np.full((len(group), sb), self.pad_id, np.int32)
         lens = np.zeros((len(group),), np.int32)
         for i, req in enumerate(group):
             padded[i, :req.prompt.size] = req.prompt
             lens[i] = req.prompt.size
+        samplings = [r.sampling() for r in group]
         with torch.no_grad():
             caches, logits = _prefill_padded_batch(self.model, padded, lens)
-            _insert_slots_batch_paged(self._state, caches, logits, slots,
-                                      lens, pages_b,
-                                      [r.sampling() for r in group],
-                                      n_rows=sb)
+            if self.paged:
+                _insert_slots_batch_paged(self._state, caches, logits, slots,
+                                          lens, pages_b, samplings,
+                                          n_rows=sb)
+            else:
+                _insert_slots_batch(self._state, caches, logits, slots, lens,
+                                    samplings)
             if self._spec and len(group) > 1 and (
                     sb <= self._draft.model.cfg.max_seq_len):
                 # the group's shared bucket fits the draft: one batched
@@ -1558,7 +1737,10 @@ class ContinuousEngine:
 
     def _admit_group(self, group: List[_Request], slots: List[int],
                      sb: int, allocs: List[tuple], route: str) -> None:
-        pages_b = np.stack([row for row, _ in allocs])
+        """Admit ``group`` into ``slots`` through one bucket-``sb``
+        prefill; ``allocs`` holds each request's ``(row, pages)`` (empty
+        for a dense engine)."""
+        pages_b = np.stack([row for row, _ in allocs]) if allocs else None
         try:
             if route == "paged":
                 # chaos: a crash between the page allocation and the
@@ -1569,9 +1751,10 @@ class ContinuousEngine:
             for _, taken in allocs:  # a failed admit must not leak pages
                 self._unref_pages(taken)
             raise
-        for slot, req, (_, taken) in zip(slots, group, allocs):
+        for i, (slot, req) in enumerate(zip(slots, group)):
             self._slots[slot] = req
-            self._slot_pages[slot] = taken
+            if allocs:
+                self._slot_pages[slot] = allocs[i][1]
             self._trace_admit(req, slot, route)
             if self.radix is not None:
                 self.radix.note(0)  # bucket admissions are misses
@@ -1594,16 +1777,21 @@ class ContinuousEngine:
             if (self.radix is not None
                     and self.radix.match(req.prompt, peek=True)[0]):
                 break  # a radix hit prefills its suffix only
+            if (self.prefix_cache is not None
+                    and self.prefix_cache.lookup(req.prompt, peek=True)):
+                break  # the hit path is cheaper than a fresh prefill
             sb = bucket_length(req.prompt.size, self.buckets)
             if sb0 is None:
                 sb0 = sb
             elif sb != sb0:
                 break
-            need = self._pages_needed(sb, req.prompt.size, req.max_new_tokens)
-            if need > pages_left:
-                break
-            pages_left -= need
-            needs.append(need)
+            if self.paged:
+                need = self._pages_needed(sb, req.prompt.size,
+                                          req.max_new_tokens)
+                if need > pages_left:
+                    break
+                pages_left -= need
+                needs.append(need)
             group.append(req)
         if len(group) < 2:
             return
@@ -1619,6 +1807,8 @@ class ContinuousEngine:
         (a long prompt under chunked prefill, or any radix-cache hit);
         False when the pool cannot cover it yet or a piecewise admission
         is already in flight (FIFO holds; the request stays queued)."""
+        if not self.paged:
+            return self._try_admit_dense(slot, req)
         # ONE trie walk decides the route AND seeds the admission
         # (count=False: the stats wait for the final post-COW outcome)
         m = (self.radix.match(req.prompt, count=False)
@@ -1635,6 +1825,77 @@ class ContinuousEngine:
             return False
         self._admit_group([req], [slot], sb, [alloc], "paged")
         return True
+
+    def _try_admit_dense(self, slot: int, req: _Request) -> bool:
+        """The dense engine's admission (the JAX engine's dense routes):
+        a prompt whose remainder past its ``PrefixCache`` hit exceeds
+        ``prefill_chunk`` STARTS a piecewise admission; any other hit
+        extends a clone of the cached entry by the remainder
+        (:meth:`_admit_from_prefix`); everything else is one bucket
+        prefill copied into the slot. False only when a piecewise
+        admission is needed and one is already in flight."""
+        if (self._admitting is not None
+                and self._chunked_route(req.prompt.size)):
+            # peek (no stats or LRU churn on every retried step): a hit
+            # may shrink the remainder under the threshold
+            hit = (self.prefix_cache.lookup(req.prompt, peek=True)
+                   if self.prefix_cache is not None else None)
+            if self._chunked_route(req.prompt.size
+                                   - (hit[0] if hit is not None else 0)):
+                return False
+        hit = (self.prefix_cache.lookup(req.prompt)
+               if self.prefix_cache is not None else None)
+        matched = hit[0] if hit is not None else 0
+        if hit is not None:
+            self._obs["serve_prefix_cache_hits_total"].inc()
+            self._obs["serve_prefix_cache_hit_tokens_total"].inc(matched)
+        if self._chunked_route(req.prompt.size - matched):
+            # one piece a step; the first piece prefills unless a hit
+            # seeds the staging cache (a clone: the entry stays as it is)
+            self._admitting = {
+                "slot": slot, "req": req, "fill": matched,
+                "cache1": hit[1].clone() if hit is not None else None}
+            self._trace_admit(req, slot, "chunked",
+                              prefix_hit_tokens=matched)
+            self._advance_admission()
+            return True
+        if hit is not None:
+            self._trace_admit(req, slot, "prefix", prefix_hit_tokens=matched)
+            self._admit_from_prefix(slot, req, *hit)
+            with torch.no_grad():
+                self._draft_admit(slot, req)
+            self._slots[slot] = req
+            return True
+        self._admit_group([req], [slot],
+                          bucket_length(req.prompt.size, self.buckets), [],
+                          "dense")
+        return True
+
+    def _admit_from_prefix(self, slot: int, req: _Request, fill: int,
+                           cache1: DenseCache,
+                           logits1: Optional[torch.Tensor]) -> None:
+        """Admission on a dense prefix-cache hit: only the prompt
+        REMAINDER pays a forward (one multi-token extension of a clone of
+        the cached batch-1 cache), then the cache drops into the slot.
+        The remainder's width is the smallest engine bucket that fits
+        both it and the room above ``fill``, else a multiple of 32, else
+        the exact room near the context limit (a wider write would be
+        clamped onto earlier rows)."""
+        rem = req.prompt[fill:]
+        with torch.no_grad():
+            if rem.size:
+                room = self.model.cfg.max_seq_len - fill
+                fits = [b for b in self.buckets if rem.size <= b <= room]
+                quant = -(-int(rem.size) // 32) * 32
+                w = min(fits) if fits else min(quant, room)
+                padded = np.full((w,), self.pad_id, np.int32)
+                padded[:rem.size] = rem
+                cache1 = cache1.clone()
+                logits1 = _extend_prefix(self.model, cache1, padded, fill,
+                                         int(rem.size))
+                self._n_prefill_tokens += int(rem.size)
+            _insert_slots_batch(self._state, cache1, logits1, [slot],
+                                [req.prompt.size], [req.sampling()])
 
     def _start_paged_admission(self, slot: int, req: _Request,
                                match=(0, [], None)) -> None:
@@ -1692,6 +1953,8 @@ class ContinuousEngine:
         whole suffix as one piece (its width a multiple of 32). Pool
         dry: the admission stalls (no piece; one allocation failure
         counted a stalled step) and resumes after frees."""
+        if not self.paged:
+            return self._advance_admission_dense()
         a = self._admitting
         req, fill = a["req"], a["fill"]
         cfg = self.model.cfg
@@ -1748,16 +2011,59 @@ class ContinuousEngine:
             a["cow"] = None
             self._unref_pages([cow[0]])
         a["fill"] = fill + piece.size
-        self._n_prefill_chunks += 1
-        self._step_prefill_tokens += int(piece.size)
-        self._n_prefill_tokens += int(piece.size)
-        self._obs["serve_prefill_chunk_tokens"].observe(piece.size)
-        if req.span is not None:
-            req.span.event("prefill_chunk", rid=req.rid,
-                           tokens=int(piece.size))
+        self._note_prefill_piece(int(piece.size), req)
         if final:
             self._slots[a["slot"]] = req
             self._slot_pages[a["slot"]] = a["shared"] + a["pages"]
+            self._admitting = None
+            self._obs["serve_prefill_inflight"].set(0)
+
+    def _note_prefill_piece(self, n: int, req: _Request) -> None:
+        self._n_prefill_chunks += 1
+        self._step_prefill_tokens += n
+        self._n_prefill_tokens += n
+        self._obs["serve_prefill_chunk_tokens"].observe(n)
+        if req.span is not None:
+            req.span.event("prefill_chunk", rid=req.rid, tokens=n)
+
+    def _advance_admission_dense(self) -> None:
+        """One piece of the dense piecewise admission, always
+        ``prefill_chunk`` wide (clamped to the room under
+        ``max_seq_len``, where a wider write would be clamped onto
+        earlier rows): the first piece prefills a batch-1 staging cache
+        (unless a prefix hit seeded it), later ones extend it in place;
+        the final piece copies it into the reserved slot."""
+        a = self._admitting
+        req, fill = a["req"], a["fill"]
+        w = min(self.prefill_chunk, self.model.cfg.max_seq_len - fill)
+        piece = req.prompt[fill:fill + w]
+        padded = np.full((w,), self.pad_id, np.int32)
+        padded[:piece.size] = piece
+        try:
+            with torch.no_grad():
+                if a["cache1"] is None:
+                    a["cache1"], logits1 = _prefill_padded(
+                        self.model, padded, int(piece.size))
+                else:
+                    logits1 = _extend_prefix(self.model, a["cache1"], padded,
+                                             fill, int(piece.size))
+                if fill + piece.size == req.prompt.size:
+                    _insert_slots_batch(self._state, a["cache1"], logits1,
+                                        [a["slot"]], [req.prompt.size],
+                                        [req.sampling()])
+                    self._draft_admit(a["slot"], req)
+        except BaseException:
+            # the request goes back to the queue head (a first piece
+            # fails while it is still there), so outstanding_requests
+            # finds it
+            self._drop_admitting()
+            if not any(r is req for r in self._queue):
+                self._queue.insert(0, req)
+            raise
+        a["fill"] = fill + piece.size
+        self._note_prefill_piece(int(piece.size), req)
+        if a["fill"] == req.prompt.size:
+            self._slots[a["slot"]] = req
             self._admitting = None
             self._obs["serve_prefill_inflight"].set(0)
 
@@ -1771,6 +2077,8 @@ class ContinuousEngine:
         if a is None:
             return
         self._obs["serve_prefill_inflight"].set(0)
+        if not self.paged:
+            return  # the staging cache goes with the dict
         if a["cow"] is not None:
             self._unref_pages([a["cow"][0]])
         drop = list(a["shared"]) + list(a["pages"])
@@ -2209,8 +2517,9 @@ class ContinuousEngine:
             self._obs["serve_useful_tokens_total"].inc(useful)
         self._obs["serve_slots_active"].set(len(self._slots))
         self._obs["serve_queue_depth"].set(len(self._queue))
-        self._obs["serve_kv_pages_in_use"].set(
-            self.model.cfg.kv_num_pages - len(self._free_pages))
+        if self.paged:
+            self._obs["serve_kv_pages_in_use"].set(
+                self.model.cfg.kv_num_pages - len(self._free_pages))
         return newly_done
 
     def _effective_chunk(self) -> int:
@@ -2303,6 +2612,8 @@ class ContinuousEngine:
                 t_sched))
         rec.prefill_pieces = self._n_prefill_chunks - pieces0
         rec.prefill_tokens = self._step_prefill_tokens
+        self._obs["serve_prefill_inflight"].set(
+            1 if self._admitting is not None else 0)
         cap = self._budget_cap(self._step_prefill_tokens)
         if not self.pipeline_depth:
             if not self._slots:
@@ -2439,14 +2750,16 @@ class ContinuousEngine:
             "inflight": bool(self._inflight_q),
             "pipeline_depth": self.pipeline_depth,
             "decode_graphs": len(self._graphs),
-            **({"prefix_cache": self.radix.stats}
+            **({"prefix_cache": self.prefix_cache.stats}
+               if self.prefix_cache is not None else
+               {"prefix_cache": self.radix.stats}
                if self.radix is not None else {}),
-            "paged": {
+            **({"paged": {
                 "page_size": cfg.kv_page_size,
                 "pages_total": cfg.kv_num_pages,
                 "pages_in_use": cfg.kv_num_pages - len(self._free_pages),
                 "peak_pages_in_use": self._peak_pages_in_use,
                 "page_alloc_failures": self._n_page_alloc_failures,
                 "page_bytes_per_layer": self._page_bytes_per_layer,
-            },
+            }} if self.paged else {}),
         }

@@ -141,9 +141,13 @@ def export_serving_bundle(cfg: CausalLMConfig, params: Params, out_dir: str,
 def load_serving_bundle(bundle_dir: str,
                         device: Union[str, torch.device] = "cuda"
                         ) -> Tuple[CausalLM, Params, dict]:
-    """``(model, params, meta)``: the model on ``device`` with its
-    weights dequantized once, the bundle's parameter tree as stored
-    (host tensors, QTensor leaves kept), and ``config.json``."""
+    """``(model, params, meta)``: the model on ``device``, the bundle's
+    parameter tree as stored (host tensors, QTensor leaves kept), and
+    ``config.json``. An int8 bundle's quantized leaves stay int8 on the
+    device with their f32 scales, as the JAX package keeps them at rest:
+    the Dense kernels stream through K6 in the decode loops and the
+    embedding tables gather int8 rows (``models/layers.py``); no float
+    copy of a quantized path is made."""
     device = resolve_device(device)
     with open(os.path.join(bundle_dir, "config.json")) as fh:
         meta = json.load(fh)

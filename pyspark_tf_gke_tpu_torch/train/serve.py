@@ -33,8 +33,9 @@ default) and answers
 * ``POST /v1/score``     -> ``{"scores": [{"nll", "tokens",
   "truncated"}, ...]}`` for ``{"texts": [...]}``;
 * ``POST /v1/warm``, ``/v1/prefill``, ``/v1/kv_import`` -> a prefix into
-  the radix cache; a prompt's KV pages as a blob; a blob into the
-  pool (the disaggregated handoff, across packages too);
+  the prefix cache; a prompt's KV pages as a blob; a blob into the
+  pool (the disaggregated handoff, across packages too; a dense engine
+  has no pages and refuses both, as the JAX server does);
 * ``POST /admin/reload`` -> hot swap to ``{"bundle": DIR, "generation":
   N}``: load and verify, drain the old engine (``drain_s``), a canary
   generate on the new weights, rollback on failure (502), 409 while one
@@ -63,7 +64,9 @@ engine runs decode-ahead by default (``--continuous-pipeline 1``), on
 CUDA its decode chunks replay captured CUDA graphs;
 ``--adaptive-chunk`` sizes chunks to the remaining budgets and
 ``--prefix-cache N`` keeps up to N pages of completed prompts in the
-radix prefix cache. ``--spec-tokens k`` makes the engine speculate in
+radix prefix cache of a paged bundle, or N warmed prefixes in the LRU
+of a dense one (a bundle without ``kv_num_pages`` runs the dense slot
+cache). ``--spec-tokens k`` makes the engine speculate in
 its slots, drafting with ``--draft-bundle`` (or, without one, the
 target itself); ``--draft-bundle`` alone serves a single greedy prompt
 through the standalone speculative driver. Admission is bounded
@@ -74,9 +77,7 @@ queue shares and token buckets; a tenant's shed carries
 first, ``--role`` is what ``/loadz`` advertises to a disaggregating
 router, and SIGTERM drains (new requests 503, in-flight ones finish,
 ``--drain-timeout``) before the server stops. Not ported (ROADMAP queue
-1): the multi-host serve wire (``--tp``, ``--num-processes``; P11) and
-the dense slot-cache engine (a bundle without ``kv_num_pages`` serves
-whole-batch only; item 5).
+1): the multi-host serve wire (``--tp``, ``--num-processes``; P11).
 """
 
 from __future__ import annotations
@@ -135,9 +136,6 @@ logger = get_logger("torch.train.serve")
 MAX_BODY_BYTES = 8 << 20
 MAX_BATCH = 64
 SPEC_GAMMA = 4  # the standalone speculative path's draft width (echoed)
-# warmed prefixes a rebuilt engine warms again (the JAX front's horizon
-# for the radix cache)
-_REWARM = 8
 # a bundle load's deterministic errors fail at once instead of retrying
 _PERMANENT_LOAD_ERRORS = (FileNotFoundError, ValueError, KeyError,
                           TypeError)
@@ -701,7 +699,7 @@ class _ContinuousFront:
             toks = [int(t) for t in prefix_ids]
             if toks not in self._warmed:
                 self._warmed.append(toks)
-                del self._warmed[:-_REWARM]
+                del self._warmed[:-self.engine.warm_capacity]
             return n
 
     def export_prefix_pages(self, prefix_ids):
@@ -1492,9 +1490,11 @@ class BundleServer:
         Its key set is the JAX server's, a contract: the router scores
         on ``queued_tokens`` / ``active``, gates on ``draining`` and
         ``role``, and reads ``capacity_free`` (the tighter of the
-        queued-token budget and the free pages' tokens),
+        queued-token budget and the free pages' tokens; a dense engine
+        without a queued-token bound: free slots x ``max_seq_len``),
         ``queue_delay_ms``, ``tenants`` and the step telemetry. A
-        whole-batch server reports zeros."""
+        whole-batch server reports zeros, a dense engine
+        ``kv_pages_free`` None."""
         with self._inflight_lock:
             inflight_http = self._inflight_http
         out = {
@@ -1516,16 +1516,22 @@ class BundleServer:
         out["active"] = stats["active"]
         out["slots_total"] = stats["num_slots"]
         out["queue_delay_ms"] = stats["queue_delay_ms"]
-        paged = stats["paged"]
-        out["kv_pages_free"] = paged["pages_total"] - paged["pages_in_use"]
+        paged = stats.get("paged")
+        caps = []
+        if paged:
+            out["kv_pages_free"] = (paged["pages_total"]
+                                    - paged["pages_in_use"])
+            caps.append(out["kv_pages_free"] * paged["page_size"])
         cache = stats.get("prefix_cache")
         if cache:
-            out["prefix_cache_pages"] = int(cache["resident_pages"])
-            out["prefix_hit_rate"] = float(cache["recent_hit_rate"])
-        caps = [out["kv_pages_free"] * paged["page_size"]]
+            out["prefix_cache_pages"] = int(cache.get("resident_pages", 0))
+            out["prefix_hit_rate"] = float(cache.get("recent_hit_rate", 0.0))
         if self._front.max_queued_tokens:
             caps.append(self._front.max_queued_tokens
                         - stats["queued_tokens"])
+        if not caps:  # dense and unbounded: crude, monotone in headroom
+            caps.append((stats["num_slots"] - stats["active"])
+                        * self.model.cfg.max_seq_len)
         out["capacity_free"] = max(0, min(caps))
         self._obs["serve_capacity_free_tokens"].set(out["capacity_free"])
         if self.spec_tokens:
@@ -2400,7 +2406,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--continuous-slots", type=int,
                    default=int(e("CONTINUOUS_SLOTS", "0")),
                    help="KV slots of the continuous-batching engine (0 = "
-                        "whole-batch serving); needs a paged bundle")
+                        "whole-batch serving); a paged bundle runs the "
+                        "page pool, any other the dense slot cache")
     p.add_argument("--continuous-chunk", type=int,
                    default=int(e("CONTINUOUS_CHUNK", "8")),
                    help="decode steps per engine chunk between admissions")
@@ -2432,11 +2439,13 @@ def parse_args(argv=None) -> argparse.Namespace:
                         "live slots (powers of two down to 8)")
     p.add_argument("--prefix-cache", type=int,
                    default=int(e("PREFIX_CACHE", "0")),
-                   help="radix prefix cache over the KV page pool: "
-                        "completed prompts stay resident as shared "
-                        "pages and same-prefix admissions prefill only "
-                        "their suffix; the value caps the resident pages "
-                        "(0 = off; requires --continuous-slots)")
+                   help="prefix cache: on a paged bundle the radix cache "
+                        "over the KV page pool (completed prompts stay "
+                        "resident as shared pages and same-prefix "
+                        "admissions prefill only their suffix; the value "
+                        "caps the resident pages), on a dense bundle an "
+                        "LRU of that many warmed prefixes (0 = off; "
+                        "requires --continuous-slots)")
     p.add_argument("--spec-tokens", type=int,
                    default=int(e("SERVE_SPEC_TOKENS", "0")),
                    help="in-engine speculative decoding: draft k tokens a "

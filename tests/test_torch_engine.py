@@ -150,9 +150,12 @@ def test_oversized_request_and_unported_options_raise():
         ContinuousEngine(tmodel, announce=True)
     with pytest.raises(ValueError, match="pipeline_depth"):
         ContinuousEngine(tmodel, pipeline_depth=-1)
+    # a model without kv_num_pages builds the dense slot-cache engine
+    # (tests/test_torch_dense_engine.py holds it against the JAX one)
     dense = tlm.CausalLM(dataclasses.replace(tmodel.cfg, kv_num_pages=None))
-    with pytest.raises(NotImplementedError, match="dense slot-cache"):
-        ContinuousEngine(dense)
+    eng = ContinuousEngine(dense, num_slots=2, chunk=2, buckets=(16,))
+    assert not eng.paged and "paged" not in eng.stats
+    assert isinstance(eng._state.cache, tlm.DenseCache)
 
 
 # -- chunked prefill and the step-token budget ----------------------------------

@@ -40,7 +40,8 @@ SERVING_MODULES = ("train/continuous.py", "train/serve.py",
                    "train/spec_fixture.py", "ops/graphs.py",
                    "obs/metrics.py", "obs/events.py", "obs/trace.py",
                    "obs/runtime.py", "obs/export.py", "chaos/inject.py",
-                   "models/beam_search.py")
+                   "models/beam_search.py", "ops/int8_matmul.py",
+                   "ops/quant.py")
 BERT_MODULES = ("utils/seeding.py", "data/codec.py", "data/tfrecord.py",
                 "data/mlm.py", "models/bert.py", "train/bert_finetune.py",
                 "ops/attention.py")
@@ -127,7 +128,8 @@ def test_build_targets_sm90a_into_the_ignored_build_dir():
     assert {Path(c[c.index("-c") + 1]).name for c in compiles} == {
         "layernorm.cu", "layernorm_bwd.cu", "flash_attention.cu",
         "flash_attention_bwd.cu", "flash_attention_simt.cu",
-        "paged_attention.cu", "fused_matmul.cu", "fused_conv3.cu"}
+        "paged_attention.cu", "fused_matmul.cu", "fused_conv3.cu",
+        "int8_matmul.cu"}
     for cmd in compiles + [link]:
         assert "arch=compute_90a,code=sm_90a" in cmd
     for cmd in compiles:
