@@ -32,8 +32,13 @@
    tensor cores, f32 on the CUDA cores), 32 and 80 (the CUDA cores, 80
    on the 128-wide instantiation) in three mask cases, each call's
    counter moving and ``flash_plan`` naming the expected design, and
-   K1's first design at head_dim 128 (decode, the serving decode shape
-   and a 256-token piece) — and times kernel, plain version and a
+   K1 at head_dim 128 (its decode variant at S = 1 and 4, bf16 and f32,
+   float and int8 pages, at fills {0..1024} and the serving decode
+   shape, over 8, 4, 2 and 1 KV heads so that its CTAs hold 1, 2, 4 and
+   8 query rows; the 256-token piece on its chunk variant in bf16 over
+   float and int8 pages and with GQA, the first design in f32; the
+   serving shape and the piece also timed on the first design
+   in turns with the new variants) — and times kernel, plain version and a
    library yardstick
    with CUDA events (K1 at S = 1 at fills {0..1024}, 716 each and 1024
    each, and at S = 256, against SDPA over the gathered pages; K3 at
@@ -64,8 +69,12 @@
    768x32000) and the cb --spec pair's 64x259, M = 1, 8 and 40, bf16
    (relative L2 1e-2) and f32 (phase 3's f32 rule); each case timed
    eager and graph-replayed beside its plain version, ``torch.matmul``
-   on the already dequantized weight and its bound; the record is one
-   GPT-small decode step at M = 8 (73 calls);
+   on the already dequantized weight and its bound; the grouped call
+   (a layer's query, key and value, one launch) against each plain
+   product; a split-K and a grouped call each one kernel in the
+   profiler's list (no second pass), a captured replay == the eager
+   call bit for bit; the record is one GPT-small decode step at M = 8
+   (49 launches, beside the yardstick's 73 products);
 4. serving main path: serves a full-width GPT-small paged bundle
    (random weights from a numpy seed, int8 export) through
    ``BundleServer`` + the HTTP server with 8 continuous slots at the
@@ -88,7 +97,8 @@
    5 sampled with their own seeds): the tokens must agree bit for bit,
    and so must the engines at decode-ahead depths 0, 1 and 2; a
    replay-only run must move K1's decode counter by exactly its decode
-   steps x 12 layers, and K6's by its decode steps x 73 int8 Dense;
+   steps x 12 layers, and K6's by its decode steps x the launches a step
+   reckoned from the model's int8 Dense groups (49 on GPT-small);
    ``adaptive_chunk`` must dispatch only sizes 8 and 16; prints each
    depth's new tokens/s and ``step_phases``, and each graph's capture
    time;
@@ -223,7 +233,7 @@
    512) against ``use_kernels=False`` under phase 7's bf16 limits, every
    training kernel's counter moving; then a paged bundle of those widths
    served over HTTP for three greedy requests (K2f at D 128 in prefill,
-   K1's first design at D 128 in decode) and an f32 copy's engine
+   K1's decode variant at D 128 in decode) and an f32 copy's engine
    holding the dense ``generate``'s tokens;
 7d. BERT fine-tuning main path: ``bert_finetune.main`` at BERT-base
    (vocab 30522, hidden 768, 12 layers, 12 heads, FFN 3072; seq 128,
@@ -1478,48 +1488,108 @@ def check_paged(torch, dev):
     return rec
 
 
+# K1's cases at head_dim 128 and 8 query heads: (S, int8 pages, fills,
+# KV heads). S <= 4 runs the decode variant with H / Hkv x S query rows
+# a KV head, in CTAs of 1, 2, 4 or 8 rows (GQA and verify chunks: each
+# instantiation at least once); the 256-token piece runs the chunk
+# variant (bf16, float and int8 pages, GQA), the first design in f32.
+PAGED_D128_CASES = ((1, False, PAGED_FILLS, 8), (1, True, PAGED_FILLS, 8),
+                    (1, False, SERVE_FILLS, 8), (1, False, PAGED_FILLS, 4),
+                    (1, False, PAGED_FILLS, 2), (1, False, PAGED_FILLS, 1),
+                    (1, True, PAGED_FILLS, 1), (4, False, PAGED_FILLS, 8),
+                    (4, False, PAGED_FILLS, 2), (4, True, PAGED_FILLS, 1),
+                    (256, False, PAGED_FILLS, 8), (256, True, PAGED_FILLS, 8),
+                    (256, False, PAGED_FILLS, 2))
+
+
 def check_paged_d128(torch, dev):
-    """K1 at head_dim 128 (8 heads, the phase-7c model's decode): its
-    decode and chunk variants are built for head_dim 64, so the plan
-    takes the first design (``rows``), which takes any head_dim. Decode
-    (S = 1) at fills {0..1024} and at the serving shape (8 slots at 716),
-    and a 256-token piece, bf16 and f32, float and int8 pages, against
-    the plain version; timed (bf16, the serving decode shape) beside SDPA
-    over the gathered pages and the bound."""
+    """K1 at head_dim 128 (8 heads; the phase-7c model's decode is H =
+    Hkv = 8, S = 1): every case of ``PAGED_D128_CASES`` in bf16 and f32
+    against the plain version, each call on the variant ``paged_plan``
+    names, the decode variant's CTAs holding 1, 2, 4 and 8 query rows in
+    each dtype;
+    timed (bf16) at the serving decode shape, (e), and at the piece, (h),
+    beside SDPA over the gathered pages and the bound, and the first
+    design (``rows``, what D 128 ran before these variants took it) at
+    both, graph-replayed
+    in turns with the new variants."""
     from pyspark_tf_gke_tpu_torch.ops import paged_attention as pa
 
     g = torch.Generator(device=dev).manual_seed(17)
-    rec = None
+    timed = {}
     for dtype in (torch.bfloat16, torch.float32):
         name = str(dtype).split(".")[-1]
-        for s, quant, fill_list in ((1, False, PAGED_FILLS),
-                                    (1, True, PAGED_FILLS),
-                                    (1, False, SERVE_FILLS),
-                                    (256, False, PAGED_FILLS)):
+        decode_rows = set()
+        for s, quant, fill_list, hkv in PAGED_D128_CASES:
             q, kp, vp, table, fills, ks, vs = _paged_case(
-                torch, dev, g, dtype, 8, s, quant, fill_list, h=8, d=128)
-            plan = pa.paged_plan(8, s, 8, 8, 128, 64, 16, dtype, kp.dtype)
-            check(plan.variant == "rows",
+                torch, dev, g, dtype, hkv, s, quant, fill_list, h=8, d=128)
+            plan = pa.paged_plan(8, s, 8, hkv, 128, 64, 16, dtype, kp.dtype)
+            want = ("decode" if s <= pa.DECODE_MAX_S else
+                    "chunk" if dtype == torch.bfloat16 else "rows")
+            check(plan.variant == want,
                   f"K1 at D=128 S={s} takes the {plan.variant} variant")
-            before = pa.variant_launches["rows"]
+            before = pa.variant_launches[want]
             out = pa.paged_attention_chunk(q, kp, vp, table, fills, ks, vs)
             ref = pa.paged_attention_chunk_plain(q, kp, vp, table, fills,
                                                  ks, vs)
-            check(pa.variant_launches["rows"] == before + 1,
-                  "K1 at D=128 did not launch its first design")
-            tag = (f"paged {name} slots=8 N=128 P=64 H=Hkv=8 D=128 S={s}"
+            check(pa.variant_launches[want] == before + 1,
+                  f"K1 at D=128 did not launch its {want} variant")
+            if want == "decode":
+                decode_rows.add(plan.rows)
+            tag = (f"paged {name} slots=8 N=128 P=64 H=8 Hkv={hkv} D=128 "
+                   f"S={s}"
                    f"{' int8' if quant else ''} fills {list(fill_list)} "
-                   f"(rows: {plan.blocks} row blocks of {plan.rows})")
+                   f"({plan.variant}: {plan.blocks} row blocks of "
+                   f"{plan.rows}, {plan.splits} splits of "
+                   f"{plan.pages_per_split} pages, {plan.stages} stages, "
+                   f"{plan.smem} B)")
             err = compare(out, ref, name, tag)
-            if (dtype, s, fill_list) == (torch.bfloat16, 1, SERVE_FILLS):
-                rec = _paged_record(torch, pa, q, kp, vp, table, fills, err,
-                                    "8 slots at fill 716, H=8 D=128, S=1 "
-                                    "bf16 (first design)")
-    log(f"  K1 {rec['shape']}: kernel {rec['ms']:.4f} ms, graph-replayed "
-        f"{rec['graph_ms']:.4f}; SDPA over gathered pages "
-        f"{rec['library_ms']:.4f}, graph-replayed "
-        f"{rec['library_graph_ms']:.4f}; plain {rec['plain_ms']:.4f}; bound "
-        f"{rec['bound_ms']:.4f} ({rec['bound_by']})")
+            before_rows = (fills[:, None] - s
+                           + torch.arange(s, device=dev)) < 0
+            check(bool((out[before_rows] == 0).all()),
+                  f"{tag}: a query with no key is not zero")
+            if dtype != torch.bfloat16 or quant or hkv != 8 or s == 4:
+                continue
+            key = "e" if s == 1 else "h"
+            if s == 1 and fill_list != SERVE_FILLS:
+                continue
+            r = _paged_record(torch, pa, q, kp, vp, table, fills, err,
+                              f"({key}) 8 slots " + (
+                                  "at fill 716, H=8 D=128, S=1 bf16"
+                                  if s == 1 else
+                                  "at fills {0..1024}, H=8 D=128, S=256 "
+                                  "bf16"))
+            first = pa.paged_plan(8, s, 8, 8, 128, 64, 16, dtype, kp.dtype,
+                                  variant="rows")
+            first_out = pa._launch(q, kp, vp, table, fills, None, None,
+                                   first)
+            compare(first_out, ref, name, f"{tag} first design (rows)")
+            # in turns: new, first, new, first
+            new_fn = lambda: pa.paged_attention_chunk(  # noqa: E731
+                q, kp, vp, table, fills)
+            first_fn = lambda: pa._launch(  # noqa: E731
+                q, kp, vp, table, fills, None, None, first)
+            turns = [graph_ms(fn) for fn in (new_fn, first_fn, new_fn,
+                                             first_fn)]
+            r.update(first_graph_ms=min(turns[1], turns[3]),
+                     turns_graph_ms=turns)
+            timed[key] = r
+        check(decode_rows == set(pa.DECODE_ROWS),
+              f"K1 {name} at D=128: the decode variant ran CTAs of "
+              f"{sorted(decode_rows)} query rows, not each of "
+              f"{list(pa.DECODE_ROWS)}")
+        log(f"  K1 {name} at D=128: decode variant checked at "
+            f"{sorted(decode_rows)} query rows a CTA")
+    for key, r in sorted(timed.items()):
+        log(f"  K1 {r['shape']}: kernel {r['ms']:.4f} ms, graph-replayed "
+            f"{r['graph_ms']:.4f}; SDPA over gathered pages "
+            f"{r['library_ms']:.4f}, graph-replayed "
+            f"{r['library_graph_ms']:.4f}; plain {r['plain_ms']:.4f}; bound "
+            f"{r['bound_ms']:.4f} ({r['bound_by']}); in turns graph-replayed "
+            f"new / first design / new / first "
+            f"{' / '.join(f'{t:.4f}' for t in r['turns_graph_ms'])}; {CARD}")
+    rec = timed["e"]
+    rec["piece"] = timed["h"]
     return rec
 
 
@@ -1567,15 +1637,22 @@ def _paged_bound(q, kp, table, fills):
 
 # K6's checked weights (K, N): GPT-small's query/key/value/out, mlp_in,
 # mlp_out and lm_head, and the cb --spec pair's lm_head (vocab 259: N
-# neither a multiple of 16 nor of the 128-column tile), each at M = 1
+# neither a multiple of 16 nor of the 64-column tile), each at M = 1
 # (one slot), 8 (phase 4's slots) and 40 (8 slots x a k = 4 verify)
 INT8_SHAPES = ((768, 768), (768, 3072), (3072, 768), (768, 32000),
                (64, 259))
 INT8_ROWS = (1, 8, 40)
-# Dense weights one GPT-small decode step streams: 12 layers x (query,
-# key, value, out, mlp_in, mlp_out) and lm_head, as ((K, N), calls)
+# Dense weights one GPT-small decode step streams, as the products the
+# yardstick runs: 12 layers x (query, key, value, out, mlp_in, mlp_out)
+# and lm_head, ((K, N), calls): 73 products
 INT8_STEP = (((768, 768), 48), ((768, 3072), 12), ((3072, 768), 12),
              ((768, 32000), 1))
+# the same step as K6's launches (``layers.dense_group``): 12 x (the
+# query/key/value group, out, mlp_in, mlp_out) and lm_head, ((K, (N,
+# ...)), calls): 49 launches
+INT8_STEP_CALLS = (((768, (768, 768, 768)), 12), ((768, (768,)), 12),
+                   ((768, (3072,)), 12), ((3072, (768,)), 12),
+                   ((768, (32000,)), 1))
 
 
 def _int8_weight(torch, dev, g, k, n):
@@ -1597,23 +1674,56 @@ def _int8_bound(m, k, n, dtype_name):
                  dtype_name)
 
 
+def _one_kernel(torch, fn, what):
+    """Profile one call of ``fn``: exactly one device kernel, K6's
+    (``int8_mm_hopper``), and no second pass."""
+    _, _, top = _profiled(torch, fn)
+    names = [name for name, _ in top]
+    check(len(names) == 1 and "int8_mm_hopper" in names[0],
+          f"{what}: one call launched {names}")
+    return names[0]
+
+
+def _captured_equals_eager(torch, fn, what):
+    """``fn``'s output replayed from a captured CUDA graph equals an
+    eager call's bit for bit."""
+    eager = fn().clone()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    check(torch.equal(out, eager), f"{what}: captured != eager")
+    del graph
+
+
 def check_int8_matmul(torch, dev):
     """K6 against ``int8_matmul_plain`` at every (K, N) of
     ``INT8_SHAPES`` and M of ``INT8_ROWS``, bf16 (TOL's bf16 rule) and
     f32 (TOL's f32 rule: both sides multiply the same f32 weights and
-    differ in summation order only); each case timed (eager and
-    graph-replayed) beside its plain version and beside ``torch.matmul``
-    on the weight already dequantized to x's dtype (what a
-    dequantize-at-load port runs), with its bound. The record is one
-    GPT-small decode step at M = 8 in bf16 (``INT8_STEP``), summed over
-    its 73 calls."""
+    differ in summation order only), and its grouped call (GPT-small's
+    query/key/value) against each weight's plain product; each case
+    timed (eager and graph-replayed) beside its plain version and beside
+    ``torch.matmul`` on the weight already dequantized to x's dtype (what
+    a dequantize-at-load port runs), with its bound. A split-K call and
+    a grouped call each launch one kernel (the profiler's list), and a
+    captured replay equals the eager call bit for bit. The record is one
+    GPT-small decode step at M = 8 in bf16: K6's 49 launches
+    (``INT8_STEP_CALLS``) beside the yardstick's 73 products
+    (``INT8_STEP``) and their bound."""
     from pyspark_tf_gke_tpu_torch.ops import int8_matmul as im
 
     g = torch.Generator(device=dev).manual_seed(6)
     times = {}
     err_max = 0.0
+    weights = {}
     for k, n in INT8_SHAPES:
-        q, scale = _int8_weight(torch, dev, g, k, n)
+        q, scale = weights[(k, n)] = _int8_weight(torch, dev, g, k, n)
         for name, dtype in (("bfloat16", torch.bfloat16),
                             ("float32", torch.float32)):
             w = (q.float() * scale).to(dtype)
@@ -1639,26 +1749,71 @@ def check_int8_matmul(torch, dev):
                          library_ms=cuda_ms(lib),
                          library_graph_ms=graph_ms(lib), bound_ms=bms,
                          bound_by=by)
-                times[(m, k, n, name)] = t
+                times[(m, k, (n,), name)] = t
                 log(f"  K6 [{m},{k}]x[{k},{n}] {name}: kernel {t['ms']:.4f} "
                     f"ms, graph-replayed {t['graph_ms']:.4f}; plain "
                     f"{t['plain_ms']:.4f}; torch.matmul on the dequantized "
                     f"weight {t['library_ms']:.4f}, graph-replayed "
                     f"{t['library_graph_ms']:.4f}; bound {bms:.4f} ({by}); "
                     f"{CARD}")
-    rec = {key: sum(times[(8, k, n, "bfloat16")][key] * calls
-                    for (k, n), calls in INT8_STEP)
-           for key in ("ms", "graph_ms", "plain_ms", "library_ms",
-                       "library_graph_ms", "bound_ms")}
-    rec.update(max_abs_err=err_max, bound_by="bytes",
-               shape="one GPT-small decode step, M=8 bf16: 12 x (4 x "
-                     "[768,768], [768,3072], [3072,768]) + [768,32000], "
-                     "73 calls summed")
+    # the query/key/value group of a GPT-small layer: one launch, three
+    # outputs
+    group = [_int8_weight(torch, dev, g, 768, 768) for _ in range(3)]
+    for name, dtype in (("bfloat16", torch.bfloat16),
+                        ("float32", torch.float32)):
+        for m in INT8_ROWS:
+            x = torch.randn(m, 768, generator=g, device=dev).to(dtype)
+            before = im.launches
+            outs = im.int8_matmul_group(x, group)
+            torch.cuda.synchronize()
+            check(im.launches == before + 1, "the grouped K6 call did not "
+                  "count one launch")
+            plan = im.int8_plan(m, 768, (768,) * 3, dtype)
+            for i, (out, (q, scale)) in enumerate(zip(outs, group)):
+                err = compare(out, im.int8_matmul_plain(x, q, scale), name,
+                              f"int8_matmul_group [{m},768]x3 [768,768] "
+                              f"{name} output {i} {plan}")
+                if name == "bfloat16":
+                    err_max = max(err_max, err)
+            kern = lambda: im.int8_matmul_group(x, group)  # noqa: E731
+            t = dict(ms=cuda_ms(kern), graph_ms=graph_ms(kern))
+            times[(m, 768, (768, 768, 768), name)] = t
+            log(f"  K6 group [{m},768]x3 [768,768] {name}: kernel "
+                f"{t['ms']:.4f} ms, graph-replayed {t['graph_ms']:.4f}; "
+                f"{CARD}")
+    x8 = torch.randn(8, 768, generator=g, device=dev).to(torch.bfloat16)
+    q, scale = weights[(768, 768)]
+    names = {_one_kernel(torch, lambda: im.int8_matmul(x8, q, scale),
+                         "a split-K call ([8,768]x[768,768])"),
+             _one_kernel(torch, lambda: im.int8_matmul_group(x8, group),
+                         "a grouped call")}
+    _captured_equals_eager(torch, lambda: im.int8_matmul(x8, q, scale),
+                           "K6 [8,768]x[768,768]")
+    _captured_equals_eager(torch, lambda: im.int8_matmul_group(
+        x8, group)[2], "K6 group")
+    log(f"  K6: one kernel a call ({', '.join(sorted(n[:60] for n in names))}"
+        f"), no second pass; captured == eager bit for bit")
+    rec = {key: sum(times[(8, k, ns, "bfloat16")][key] * calls
+                    for (k, ns), calls in INT8_STEP_CALLS)
+           for key in ("ms", "graph_ms")}
+    rec.update({key: sum(times[(8, k, (n,), "bfloat16")][key] * calls
+                         for (k, n), calls in INT8_STEP)
+                for key in ("plain_ms", "library_ms", "library_graph_ms",
+                            "bound_ms")})
+    calls = sum(c for _, c in INT8_STEP_CALLS)
+    rec.update(max_abs_err=err_max, bound_by="bytes", calls=calls,
+               shape=f"one GPT-small decode step, M=8 bf16: {calls} K6 "
+                     "launches (12 x (the [768,768] x3 group, [768,768], "
+                     "[768,3072], [3072,768]) + [768,32000]) against 73 "
+                     "products of the yardstick")
     log(f"  K6 {rec['shape']}: kernel {rec['ms']:.4f} ms, graph-replayed "
         f"{rec['graph_ms']:.4f}; torch.matmul on dequantized bf16 weights "
         f"{rec['library_ms']:.4f}, graph-replayed "
         f"{rec['library_graph_ms']:.4f}; bound {rec['bound_ms']:.4f}; "
-        f"{CARD}")
+        f"lm_head [8,768]x[768,32000] graph-replayed "
+        f"{times[(8, 768, (32000,), 'bfloat16')]['graph_ms']:.4f} against "
+        f"its bound {times[(8, 768, (32000,), 'bfloat16')]['bound_ms']:.4f}"
+        f"; {CARD}")
     return rec
 
 
@@ -2061,10 +2216,13 @@ def run_main_path(torch, dev, counters, cfg):
     return launches, variants, server.model
 
 
-def _profiled(torch, fn):
+def _profiled(torch, fn, spans=False):
     """``(host wall ms, device busy ms, [(kernel, ms), ...])`` of one
     call of ``fn`` under ``torch.profiler`` (busy = the sum of the
-    device time of every kernel, copy and set)."""
+    device time of every kernel, copy and set); with ``spans``, also the
+    ms the device had any of them running (their intervals' union: less
+    than the sum where a kernel launched early overlaps the one before
+    it)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -2083,7 +2241,17 @@ def _profiled(torch, fn):
             us = getattr(ev, "self_cuda_time_total", 0)
         per_kernel.append((ev.key, us / 1e3))
     per_kernel.sort(key=lambda kv: -kv[1])
-    return wall, sum(ms for _, ms in per_kernel), per_kernel
+    busy = sum(ms for _, ms in per_kernel)
+    if not spans:
+        return wall, busy, per_kernel
+    union, end = 0.0, float("-inf")
+    for start, stop in sorted(
+            (ev.time_range.start, ev.time_range.end) for ev in prof.events()
+            if ev.device_type == torch.autograd.DeviceType.CUDA):
+        if stop > end:
+            union += stop - max(start, end)
+            end = stop
+    return wall, busy, per_kernel, union / 1e3
 
 
 def _matmul_ms(top):
@@ -2127,13 +2295,14 @@ def profile_engine(torch, full_model, label="int8 paged"):
     result = None
     for what in ("decode chunk, 16 steps x 8 live slots, graph replay",
                  "decode chunk again (steady state)"):
-        wall, busy, top = _profiled(torch, eng.step)
+        wall, busy, top, union = _profiled(torch, eng.step, spans=True)
         if busy <= 0:
             raise SmokeFailure(f"{what}: torch.profiler shows no device "
                                "time for a replayed graph")
         k6, lib = _matmul_ms(top)
         log(f"  {label} {what}: wall {wall:.2f} ms, device busy {busy:.2f} "
-            f"ms ({100 * busy / wall:.1f}%), idle "
+            f"ms ({100 * busy / wall:.1f}%; {union:.2f} ms with a kernel "
+            f"running), idle "
             f"{100 * (1 - busy / wall):.1f}%; Dense layers: K6 {k6:.3f} ms, "
             f"cuBLAS {lib:.3f} ms (PERF.md §5: 4.51 ms of bf16 GEMVs) "
             f"on {CARD}")
@@ -2145,7 +2314,7 @@ def profile_engine(torch, full_model, label="int8 paged"):
                   "chunk's profile shows no K1 decode kernel")
         if full_model.lm_head.kernel.dtype == torch.int8:
             check(k6 > 0, "the replayed decode chunk's profile shows no K6")
-        result = (wall, busy)
+        result = (wall, busy, union)
         shares = (k6, lib)
     walls = []
     for _ in range(3):
@@ -2157,7 +2326,15 @@ def profile_engine(torch, full_model, label="int8 paged"):
     log(f"  {label} decode chunk without the profiler: wall "
         f"{', '.join(f'{w:.2f}' for w in walls)} ms for 16 steps (launched "
         f"step by step: 137-210 ms for 18.16 ms of device time) on {CARD}")
-    return statistics.median(walls), result, shares
+    # the captured greedy chunk replayed back to back (its device-side
+    # state advances 16 tokens a replay; 7 replays stay inside the
+    # slots' pages): CUDA events, the device's time with its gaps between
+    # kernels and without the engine's host work
+    replay = eng._graphs[(16, False)].graph.replay
+    replay_ms = cuda_ms(replay, warmup=1, iters=2, reps=3)
+    log(f"  {label} decode chunk graph replayed alone: {replay_ms:.3f} ms "
+        f"for 16 steps (CUDA events) on {CARD}")
+    return statistics.median(walls), result, shares, replay_ms
 
 
 # -- phase 5: parity on the card ----------------------------------------------
@@ -2584,11 +2761,13 @@ def check_decode_graphs(torch, dev, model=None):
               f"depth {depth}: K1's decode variant counted "
               f"{pa.variant_launches['decode']} launches for {steps} decode "
               f"steps x {cfg.num_layers} layers")
-        # every int8 Dense of a decode step streams through K6 (prefill
-        # admissions dequantize into transients)
-        check(im.launches == steps * _int8_linears(cfg),
+        # every int8 Dense of a decode step streams through K6, the
+        # query/key/value group one launch (prefill admissions dequantize
+        # into transients)
+        per_step = model.k6_launches_per_step()
+        check(im.launches == steps * per_step,
               f"depth {depth}: K6 counted {im.launches} launches for "
-              f"{steps} decode steps x {_int8_linears(cfg)} int8 Dense")
+              f"{steps} decode steps x {per_step} launches a step")
         phases = eng.stats["step_phases"]
         new = sum(map(len, again))
         runs[depth] = dict(launches={"paged_attention": pa.launches,
@@ -2602,7 +2781,7 @@ def check_decode_graphs(torch, dev, model=None):
             f"{phases['wall_ms']['p50']} ms over {phases['records']} steps; "
             f"K1 decode {pa.variant_launches['decode']} launches = {steps} "
             f"steps x {cfg.num_layers} layers, K3 {ln.launches}, K6 "
-            f"{im.launches} = {steps} x {_int8_linears(cfg)}; on {CARD}")
+            f"{im.launches} = {steps} x {per_step}; on {CARD}")
         log("    capture (warm-up + capture) s by (size, sampling): "
             + ", ".join(f"{k}: {v:.3f}" for k, v in
                         sorted(eng.graph_capture_seconds.items())))
@@ -2625,12 +2804,6 @@ def check_decode_graphs(torch, dev, model=None):
         f"{sorted(adaptive.graph_capture_seconds)}, tokens == fixed chunk "
         f"({wall:.3f} s with its captures)")
     return runs[1]["launches"]
-
-
-def _int8_linears(cfg) -> int:
-    """The int8 Dense layers one decode step runs: query, key, value,
-    out, the MLP's two (three with SwiGLU) in each layer, and lm_head."""
-    return cfg.num_layers * (7 if cfg.ffn == "swiglu" else 6) + 1
 
 
 def _serving_cfg():
@@ -4378,7 +4551,10 @@ def check_resident(torch, dev):
     log(f"  decode chunk device time int8 / bf16 weights: "
         f"{chunks['int8'][1][1]:.2f} / {chunks['bf16'][1][1]:.2f} ms; Dense "
         f"layers K6 {chunks['int8'][2][0]:.3f} ms against cuBLAS "
-        f"{chunks['bf16'][2][1]:.3f} ms; {CARD}")
+        f"{chunks['bf16'][2][1]:.3f} ms; a kernel running "
+        f"{chunks['int8'][1][2]:.2f} / {chunks['bf16'][1][2]:.2f} ms; the "
+        f"graph replayed alone "
+        f"{chunks['int8'][3]:.3f} / {chunks['bf16'][3]:.3f} ms; {CARD}")
     return chunks["int8"][1]
 
 
@@ -4582,7 +4758,7 @@ def run_dense_serving(torch, dev, counters, pair, paged_chunk):
         f"tokens in {wall:.3f} s = {new / wall:.1f} tokens/s, {replays} "
         f"graph replays; launches {launches}; served in "
         f"{time.perf_counter() - t0:.1f} s; on {CARD}")
-    _, dense_chunk, _ = profile_engine(torch, model, label="int8 dense")
+    _, dense_chunk, *_ = profile_engine(torch, model, label="int8 dense")
     log(f"  (c) replayed 16-step 8-slot decode chunk, device time: dense "
         f"{dense_chunk[1]:.2f} ms, paged {paged_chunk[1]:.2f} ms (4i); "
         f"{CARD}")
@@ -4872,7 +5048,7 @@ def check_d128_lm(torch, dev, counters):
     one Adam step; every training kernel's counter must move. Then a
     paged bundle of the same widths is served over HTTP (4 slots) for
     three greedy requests: prefill through K2f at D 128, decode through
-    K1's first design at D 128; and an f32 copy's engine must give the
+    K1's decode variant at D 128; and an f32 copy's engine must give the
     dense ``generate``'s tokens. Returns ``(training launches, serving
     launches)``."""
     from pyspark_tf_gke_tpu_torch.models.causal_lm import (CausalLM,
@@ -4946,14 +5122,14 @@ def check_d128_lm(torch, dev, counters):
         torch.cuda.synchronize()
         for mod, attr in serve_counters.values():
             setattr(mod, attr, 0)
-        rows0 = pa.variant_launches["rows"]
+        decode0 = pa.variant_launches["decode"]
         body = {"prompts": [_prompt(rng, n) for n in (30, 150, 400)],
                 "max_new_tokens": 24}
         res = _post(url + "/v1/generate", body)
         torch.cuda.synchronize()
         served = {name: getattr(mod, attr)
                   for name, (mod, attr) in serve_counters.items()}
-        rows = pa.variant_launches["rows"] - rows0
+        decode = pa.variant_launches["decode"] - decode0
     finally:
         httpd.shutdown()
         httpd.server_close()
@@ -4968,11 +5144,11 @@ def check_d128_lm(torch, dev, counters):
               f"malformed D-128 completion {comp}")
     log(f"  D-128 bundle served 3 greedy requests: new tokens "
         f"{[c['new_tokens'] for c in res[1]['completions']]}; launches "
-        f"{served}, K1 first design {rows}")
+        f"{served}, K1 decode variant {decode}")
     for name, n in served.items():
         check(n > 0, f"kernel {name} was not launched serving head_dim 128")
-    check(rows == served["paged_attention"],
-          "K1 at head_dim 128 did not run its first design")
+    check(decode == served["paged_attention"] and decode > 0,
+          "K1 at head_dim 128 did not run its decode variant")
 
     cfg32 = dataclasses.replace(serve_cfg, dtype=torch.float32)
     with torch.device(dev):
@@ -5611,8 +5787,9 @@ EXTRA_KEYS = ("graph_ms", "library_graph_ms", "library_contiguous_ms",
               "full_pool", "piece", "d128", "d80", "launches_by_variant",
               "launches_by_variant_chunked")
 # kernels (substrings of ptxas's entry names) that must not spill: the
-# tensor-core kernels and K1's decode variant and merge
-NO_SPILL = ("wgmma", "paged_decode", "paged_merge")
+# tensor-core kernels (K1's chunk variant at D 64 and 128 among them),
+# K1's decode variant and merge (D 64 and 128) and K6
+NO_SPILL = ("wgmma", "paged_decode", "paged_merge", "int8_mm_hopper")
 # (name, source, the TPU kernel it replaces, design of its bf16
 # instantiation: "wgmma" on the tensor cores, "simt" on the CUDA cores;
 # K1 by variant, K2 by head width)
@@ -5637,7 +5814,8 @@ KERNELS = (
      "csrc/flash_attention_bwd.cu); " + FLASH_DESIGN),
     ("paged_attention", "pyspark_tf_gke_tpu_torch/csrc/paged_attention.cu",
      "pyspark_tf_gke_tpu/ops/pallas/paged_attention.py:124",
-     "split-kv simt (decode), wgmma (chunk), rows (other head_dim, f32)"),
+     "split-kv simt (decode, D 64 and 128), wgmma (chunk, D 64 and 128), "
+     "rows (other head_dim, f32)"),
     ("fused_matmul_fwd", "pyspark_tf_gke_tpu_torch/csrc/fused_matmul.cu",
      "pyspark_tf_gke_tpu/ops/pallas/fused_matmul.py:91", "wgmma"),
     ("fused_matmul_dx", "pyspark_tf_gke_tpu_torch/csrc/fused_matmul.cu",
@@ -5654,8 +5832,10 @@ KERNELS = (
     # convert + scale fused into the matmul at inloop_dequantize
     ("int8_matmul", "pyspark_tf_gke_tpu_torch/csrc/int8_matmul.cu",
      "pyspark_tf_gke_tpu/ops/quant.py:136",
-     "simt split-K (no TPU kernel: XLA's fused dequantize at "
-     "inloop_dequantize)"),
+     "mma.sync m16n8k16 (bf16; f32 on the CUDA cores), split K as a "
+     "thread-block cluster reduced through distributed shared memory, one "
+     "launch a call, q/k/v and gate/in grouped (no TPU kernel: XLA's "
+     "fused dequantize at inloop_dequantize)"),
 )
 
 

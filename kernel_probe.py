@@ -92,6 +92,16 @@ editing a ``.cu`` file, and for the experiments PERF.md reports.
         commit, it runs
         that commit's serving path, so parent and change compare in one
         call, in turns.
+    python3 kernel_probe.py int8-modes
+        K6 of the tree this file sits in, graph-replayed: one GPT-small
+        decode step at M = 8 in bf16 over twelve layers' own weights and
+        lm_head (110 MB of int8, more than L2 holds; the query, key and
+        value one launch where the tree's K6 takes a group, else 73
+        launches) and lm_head alone, beside ``torch.matmul`` on the
+        weights dequantized to bf16 (73 products) and the bounds, each
+        checked against the plain version first; copied into an unpacked
+        earlier commit, it times that commit's K6, so two designs
+        compare in one call, in turns (parent, change, change, parent);
     python3 kernel_probe.py cublas-workspace
         ``torch.cuda.memory_allocated`` around one bf16 GEMM on the main
         thread, on threads started one after another, on four threads
@@ -825,6 +835,74 @@ def serve_path(torch, dev) -> None:
           cs.profile_engine(torch, model), flush=True)
 
 
+def int8_modes(torch, dev) -> None:
+    import chip_smoke as cs
+    from pyspark_tf_gke_tpu_torch.ops import int8_matmul as im
+
+    print(cs.query_card(), ROOT, flush=True)
+    _ptxas(("int8_mm",))
+    g = torch.Generator(device=dev).manual_seed(18)
+    bf16 = torch.bfloat16
+    grouped = hasattr(im, "int8_matmul_group")
+    qkv = ("query", "key", "value")
+
+    def weight(k, n):
+        q, scale = cs._int8_weight(torch, dev, g, k, n)
+        return q, scale, (q.float() * scale).to(bf16)
+
+    layers = [{name: weight(k, n) for name, (k, n) in (
+        ("query", (768, 768)), ("key", (768, 768)), ("value", (768, 768)),
+        ("out", (768, 768)), ("mlp_in", (768, 3072)),
+        ("mlp_out", (3072, 768)))} for _ in range(12)]
+    head = weight(768, 32000)
+    x = {768: torch.randn(8, 768, generator=g, device=dev).to(bf16),
+         3072: torch.randn(8, 3072, generator=g, device=dev).to(bf16)}
+
+    def one(w):
+        return im.int8_matmul(x[w[0].shape[0]], w[0], w[1])
+
+    def step():
+        for lay in layers:
+            if grouped:
+                im.int8_matmul_group(x[768], [lay[n][:2] for n in qkv])
+            for name, w in lay.items():
+                if not (grouped and name in qkv):
+                    one(w)
+        one(head)
+
+    def step_lib():
+        for lay in layers:
+            for w in lay.values():
+                torch.matmul(x[w[0].shape[0]], w[2])
+        torch.matmul(x[768], head[2])
+
+    for w in (layers[0]["query"], layers[0]["mlp_out"], head):
+        ref = im.int8_matmul_plain(x[w[0].shape[0]], w[0], w[1])
+        cs.compare(one(w), ref, "bfloat16", f"K6 {tuple(w[0].shape)}")
+    if grouped:
+        for w, y in zip((layers[0][n] for n in qkv), im.int8_matmul_group(
+                x[768], [layers[0][n][:2] for n in qkv])):
+            cs.compare(y, im.int8_matmul_plain(x[768], w[0], w[1]),
+                       "bfloat16", "K6 grouped query/key/value")
+    before = im.launches
+    step()
+    calls = im.launches - before
+    step_bound = sum(cs._int8_bound(8, w[0].shape[0], w[0].shape[1],
+                                    "bfloat16")[0]
+                     for lay in layers for w in lay.values())
+    head_bound = cs._int8_bound(8, 768, 32000, "bfloat16")[0]
+    step_bound += head_bound
+    for label, fn, lib, bms in (
+            (f"one GPT-small decode step ({calls} launches)", step,
+             step_lib, step_bound),
+            ("lm_head [8,768]x[768,32000]", lambda: one(head),
+             lambda: torch.matmul(x[768], head[2]), head_bound)):
+        print(f"K6 {label}, M=8 bf16, graph-replayed "
+              f"{cs.graph_ms(fn, calls=4):.4f} ms; torch.matmul on "
+              f"dequantized bf16 weights {cs.graph_ms(lib, calls=4):.4f}; "
+              f"bound {bms:.4f} (bytes); {cs.CARD}", flush=True)
+
+
 def cublas_workspace(torch, dev) -> None:
     import gc
     import json
@@ -905,6 +983,7 @@ def main(argv) -> int:
                 "paged-accuracy": lambda: paged_accuracy(torch, dev),
                 "serve-path": lambda: serve_path(torch, dev),
                 "cublas-workspace": lambda: cublas_workspace(torch, dev),
+                "int8-modes": lambda: int8_modes(torch, dev),
                 "flash-widths": lambda: flash_widths(torch, dev, argv[1:]),
                 "ln-widths": lambda: ln_widths(
                     torch, dev, [int(a) for a in argv[1:]])}

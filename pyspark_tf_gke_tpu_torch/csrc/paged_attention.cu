@@ -27,7 +27,8 @@
 // decode (dec::, split-KV, "flash-decoding"), for every decode step and
 // the narrowest verify chunks (S <= 4 with a bf16 query, S <= 8 with an
 // f32 one; 1-8 query rows a CTA), float or int8 pages,
-// head_dim 64, pages of a multiple of 16 tokens. The
+// head_dim 64 or 128 (a template on D), pages of a multiple
+// of 16 tokens. The
 // grid is (slot, KV head, split x row block): a split walks a fixed
 // range of `pages_per_split` table entries, only those before its slot's
 // last live page and its rows' last key (a split past them writes an
@@ -44,8 +45,9 @@
 // one key (each lane half of head_dim, then a shuffle); max and sum are
 // shuffles over the warp's 16 keys; p is rounded to V's dtype before P
 // V, as _paged_kernel rounds it (:184), and l sums the unrounded p
-// (:189); in P V each lane owns two head_dim columns, p arriving by
-// shuffle. The four warps' states meet in shared memory in warp order.
+// (:189); in P V each lane owns D / 32 head_dim columns (pairs 64
+// apart), p arriving by shuffle. At D 128 a ring slot is twice D 64's,
+// so the plan's ring budget holds fewer stages. The four warps' states meet in shared memory in warp order.
 // One split writes the output itself; more write their partial (m, l,
 // acc) in f32 to scratch that the wrapper allocates, and paged_merge
 // combines them in split order (no atomics: the result does not depend
@@ -54,11 +56,11 @@
 // H100, 8 slots x 716 tokens x 12 heads take 0.0103 ms (PERF.md).
 //
 // chunk (wgc::, tensor cores), for larger R with a bf16 query (bf16 or
-// int8 pages, head_dim 64, 64-token pages): K2f's design
+// int8 pages, head_dim 64 or 128, 64-token pages): K2f's design
 // (flash_attention.cu wg::) moved onto pages. A CTA holds 128 query rows
 // of a head group on two warpgroups of 64; the rows of a group are not
 // one stride (r = s*G + g), so they are gathered by 16-byte loads into
-// the 128B-swizzled Q tile. K and V page tiles [64 tokens, 64] of one KV
+// the 128B-swizzled Q tile. K and V page tiles [64 tokens, D] of one KV
 // head come from the table's page (sentinels clamped) as 16-byte loads
 // into registers, one page ahead of the products, and are stored into a
 // 2-slot ring of swizzled tiles; int8 pages are dequantized with their
@@ -71,11 +73,16 @@
 // rounded to bf16 in registers where _paged_kernel rounds it; a
 // warpgroup skips a page wholly past its rows; a CTA walks pages only up
 // to its last row's key, and CTAs of later rows (more pages) start
-// first. Replayed from a CUDA graph on an H100, the 256-token piece at 8
-// slots x 12 heads takes 0.0375 ms (PERF.md).
+// first. At D 128 every tile is two 64-column blocks laid out as K2f's
+// D-128 tiles (a 256-byte row is two 128-byte swizzle rows): S = Q K^T
+// takes 8 k16 steps over both blocks, P V one fresh n64 product a
+// block, and the output accumulator is 64 x 128 f32 a warpgroup; Q is
+// 32 KB and the two K/V stages 64 KB. Replayed from a CUDA graph on an
+// H100, the 256-token piece at 8 slots x 12 heads takes 0.0375 ms
+// (PERF.md).
 //
 // rows (the first design), for f32 queries with large R
-// and shapes the others do not take: one CTA per (slot, KV head, row
+// and shapes the others do not take (head_dim other than 64 and 128): one CTA per (slot, KV head, row
 // block) of 128 threads, each page's K and V staged in shared memory as
 // f32, scores and P V on the CUDA cores (p kept in f32), an online
 // softmax a row on one warp. The R rows of a group split into blocks
@@ -244,25 +251,29 @@ using namespace port::hopper;
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
 constexpr int kKeys = 16;       // keys of a key group: one warp's share of a page
-constexpr int kD = 64;          // head_dim
-constexpr int kPartStride = kD + 2;  // a partial row: acc[64], m, l (f32)
 constexpr int kMaxStages = 4;
+// head_dim D: 64 or 128 (ops/paged_attention.py DECODE_DS); a lane
+// owns D / 32 columns of P V, in pairs 64 columns apart
 
-template <typename KV>
+// a partial row: acc[D], m, l (f32)
+__host__ __device__ constexpr int part_stride(int d) { return d + 2; }
+
+template <typename KV, int D>
 __host__ __device__ constexpr int stage_bytes() {
   // a key group's K and V rows, and for int8 their 16 + 16 scales
-  return 2 * kKeys * kD * static_cast<int>(sizeof(KV)) +
+  return 2 * kKeys * D * static_cast<int>(sizeof(KV)) +
          (std::is_same<KV, int8_t>::value ? 2 * kKeys * 4 : 0);
 }
 
-// Shared memory of a CTA holding `rows` query rows with a ring of
-// `stages` slots a warp (ops/paged_attention.py decode_smem): the f32
-// query rows, then the rings, which the warps' final states reuse.
-inline long long smem_bytes(int rows, int stages, int kv_size) {
-  const long long stage = 2LL * kKeys * kD * kv_size + (kv_size == 1 ? 2 * kKeys * 4 : 0);
+// Shared memory of a CTA holding `rows` query rows of head_dim `d` with
+// a ring of `stages` slots a warp (ops/paged_attention.py decode_smem):
+// the f32 query rows, then the rings, which the warps' final states
+// reuse.
+inline long long smem_bytes(int rows, int stages, int kv_size, int d) {
+  const long long stage = 2LL * kKeys * d * kv_size + (kv_size == 1 ? 2 * kKeys * 4 : 0);
   const long long ring = kWarps * stages * stage;
-  const long long merge = 4LL * kWarps * rows * (kD + 2);
-  return 4LL * rows * kD + (ring > merge ? ring : merge);
+  const long long merge = 4LL * kWarps * rows * part_stride(d);
+  return 4LL * rows * d + (ring > merge ? ring : merge);
 }
 
 __device__ __forceinline__ void cp_async4(uint32_t dst, const void* src) {
@@ -325,13 +336,13 @@ __device__ __forceinline__ long long group_token(const int* __restrict__ table, 
 // One warp's cp.async copies of a key group (16 tokens from tok0) of KV
 // head hk into its ring slot: K rows (16-byte chunks swizzled by row),
 // V rows, and for int8 pages the 16 + 16 scales.
-template <typename KV>
+template <typename KV, int D>
 __device__ __forceinline__ void load_group(uint8_t* kt, const KV* __restrict__ kp,
                                            const KV* __restrict__ vp,
                                            const float* __restrict__ ks,
                                            const float* __restrict__ vs, long long tok0, int Hkv,
                                            int hk, int lane) {
-  constexpr int kRowBytes = kD * static_cast<int>(sizeof(KV));
+  constexpr int kRowBytes = D * static_cast<int>(sizeof(KV));
   constexpr int kCpr = kRowBytes / 16;
   constexpr int kSw = kCpr < 8 ? kCpr : 8;
   uint8_t* vt = kt + kKeys * kRowBytes;
@@ -351,24 +362,27 @@ __device__ __forceinline__ void load_group(uint8_t* kt, const KV* __restrict__ k
 }
 
 // An explicit target of four CTAs an SM (at most 128 registers, above
-// what any instantiation needs): with the thread count alone ptxas chose
-// 56-96 registers for some and spilled a few bytes.
-template <typename T, typename KV, int kRows>
-__global__ void __launch_bounds__(kThreads, 4)
+// what any D-64 instantiation needs): with the thread count alone ptxas
+// chose 56-96 registers for some and spilled a few bytes. Three at D
+// 128, whose bf16 8-row instantiation spilled 8 bytes under 128.
+template <typename T, typename KV, int kRows, int kD>
+__global__ void __launch_bounds__(kThreads, kD > 64 ? 3 : 4)
 paged_decode(const T* __restrict__ q, const KV* __restrict__ kp, const KV* __restrict__ vp,
              const float* __restrict__ ks, const float* __restrict__ vs,
              const int* __restrict__ table, const int* __restrict__ fills, T* __restrict__ out,
              float* __restrict__ part, int S, int H, int Hkv, int N, int P, int MP, int pps,
              int splits, int stages, float scale) {
   constexpr bool kQuant = std::is_same<KV, int8_t>::value;
-  constexpr int kRowBytes = kD * static_cast<int>(sizeof(KV));  // 128 bf16, 256 f32, 64 int8
+  constexpr int kRowBytes = kD * static_cast<int>(sizeof(KV));  // D 64: 128 bf16, 256 f32, 64 int8
   constexpr int kCpr = kRowBytes / 16;                           // 16-byte chunks a row
   constexpr int kSw = kCpr < 8 ? kCpr : 8;                       // K's swizzle period (rows)
   constexpr int kTileBytes = kKeys * kRowBytes;
-  constexpr int kStage = stage_bytes<KV>();
+  constexpr int kStage = stage_bytes<KV, kD>();
+  constexpr int kPairs = kD / 64;           // a lane's column pairs of P V
+  constexpr int kPartStride = part_stride(kD);
   constexpr int kPer = 16 / static_cast<int>(sizeof(KV));  // elements a chunk
   extern __shared__ __align__(16) uint8_t smem[];
-  float* q_s = reinterpret_cast<float*>(smem);  // [kRows][64]
+  float* q_s = reinterpret_cast<float*>(smem);  // [kRows][kD]
   uint8_t* ring = smem + kRows * kD * 4;        // [warp][stage] K rows, V rows, scales
 
   const int b = blockIdx.x, hk = blockIdx.y;
@@ -401,19 +415,21 @@ paged_decode(const T* __restrict__ q, const KV* __restrict__ kp, const KV* __res
   const int items = j1 > j0 ? (j1 - j0) * mine : 0;
   uint8_t* wring = ring + warp * stages * kStage;
 
-  float m[kRows], l[kRows], acc[kRows][2];  // m, l: the same in every lane
+  float m[kRows], l[kRows], acc[kRows][2 * kPairs];  // m, l: the same in every lane
 #pragma unroll
   for (int r = 0; r < kRows; ++r) {
     m[r] = kNegInf;
     l[r] = 0.f;
-    acc[r][0] = acc[r][1] = 0.f;
+#pragma unroll
+    for (int c = 0; c < 2 * kPairs; ++c) acc[r][c] = 0.f;
   }
   __syncthreads();  // q_s
   for (int st = 0; st < stages; ++st) {
     if (st < items) {
-      load_group<KV>(wring + st * kStage, kp, vp, ks, vs,
-                     group_token(table, b, MP, N, P, j0 + st / mine, warp + kWarps * (st % mine)),
-                     Hkv, hk, lane);
+      load_group<KV, kD>(wring + st * kStage, kp, vp, ks, vs,
+                         group_token(table, b, MP, N, P, j0 + st / mine,
+                                     warp + kWarps * (st % mine)),
+                         Hkv, hk, lane);
     }
     cp_async_commit();  // one group a slot, empty or not: the count stays even
   }
@@ -445,7 +461,7 @@ paged_decode(const T* __restrict__ q, const KV* __restrict__ kp, const KV* __res
       }
 #pragma unroll
       for (int r = 0; r < kRows; ++r) {
-        const float* qr = q_s + r * kD + half * 32 + cc * kPer;
+        const float* qr = q_s + r * kD + half * (kD / 2) + cc * kPer;
 #pragma unroll
         for (int e = 0; e < kPer; e += 4) {
           const float4 qv = *reinterpret_cast<const float4*>(qr + e);
@@ -475,8 +491,8 @@ paged_decode(const T* __restrict__ q, const KV* __restrict__ kp, const KV* __res
       for (int o = 2; o < 32; o <<= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
       l[r] = l[r] * alpha + sum;  // l sums the unrounded p
       m[r] = m_new;
-      acc[r][0] *= alpha;
-      acc[r][1] *= alpha;
+#pragma unroll
+      for (int c = 0; c < 2 * kPairs; ++c) acc[r][c] *= alpha;
       p[r] = round_through<T>(e);  // p in V's dtype for P V
     }
     // a few keys at a time past 2 rows: the loads a full unroll hoists
@@ -484,26 +500,34 @@ paged_decode(const T* __restrict__ q, const KV* __restrict__ kp, const KV* __res
     constexpr int kUnroll = kRows > 2 ? 4 : kKeys;
 #pragma unroll kUnroll
     for (int k = 0; k < kKeys; ++k) {
-      float2 v = pair(vt + k * kRowBytes, lane, static_cast<const KV*>(nullptr));
-      if constexpr (kQuant) {
-        const float s = sc[kKeys + k];
-        v.x = round_through<T>(v.x * s);
-        v.y = round_through<T>(v.y * s);
+      float2 v[kPairs];
+#pragma unroll
+      for (int h = 0; h < kPairs; ++h) {
+        v[h] = pair(vt + k * kRowBytes + h * 64 * static_cast<int>(sizeof(KV)), lane,
+                    static_cast<const KV*>(nullptr));
+        if constexpr (kQuant) {
+          const float s = sc[kKeys + k];
+          v[h].x = round_through<T>(v[h].x * s);
+          v[h].y = round_through<T>(v[h].y * s);
+        }
       }
 #pragma unroll
       for (int r = 0; r < kRows; ++r) {
         const float pk = __shfl_sync(0xffffffffu, p[r], 2 * k);
-        acc[r][0] = fmaf(pk, v.x, acc[r][0]);
-        acc[r][1] = fmaf(pk, v.y, acc[r][1]);
+#pragma unroll
+        for (int h = 0; h < kPairs; ++h) {
+          acc[r][2 * h] = fmaf(pk, v[h].x, acc[r][2 * h]);
+          acc[r][2 * h + 1] = fmaf(pk, v[h].y, acc[r][2 * h + 1]);
+        }
       }
     }
     __syncwarp();  // every lane is done with slot st
     const int next = it + stages;
     if (next < items) {
-      load_group<KV>(wring + st * kStage, kp, vp, ks, vs,
-                     group_token(table, b, MP, N, P, j0 + next / mine,
-                                 warp + kWarps * (next % mine)),
-                     Hkv, hk, lane);
+      load_group<KV, kD>(wring + st * kStage, kp, vp, ks, vs,
+                         group_token(table, b, MP, N, P, j0 + next / mine,
+                                     warp + kWarps * (next % mine)),
+                         Hkv, hk, lane);
     }
     cp_async_commit();
   }
@@ -512,15 +536,18 @@ paged_decode(const T* __restrict__ q, const KV* __restrict__ kp, const KV* __res
 
   float* mw = reinterpret_cast<float*>(ring);  // [warp][row]
   float* lw = mw + kWarps * kRows;             // [warp][row]
-  float* aw = lw + kWarps * kRows;             // [warp][row][64]
+  float* aw = lw + kWarps * kRows;             // [warp][row][kD]
 #pragma unroll
   for (int r = 0; r < kRows; ++r) {
     if (lane == 0) {
       mw[warp * kRows + r] = m[r];
       lw[warp * kRows + r] = l[r];
     }
-    *reinterpret_cast<float2*>(aw + (warp * kRows + r) * kD + 2 * lane) =
-        make_float2(acc[r][0], acc[r][1]);
+#pragma unroll
+    for (int h = 0; h < kPairs; ++h) {
+      *reinterpret_cast<float2*>(aw + (warp * kRows + r) * kD + 64 * h + 2 * lane) =
+          make_float2(acc[r][2 * h], acc[r][2 * h + 1]);
+    }
   }
   __syncthreads();
   const int rpad = (gridDim.z / splits) * kRows;
@@ -560,10 +587,11 @@ paged_decode(const T* __restrict__ q, const KV* __restrict__ kp, const KV* __res
 
 // The splits' partials of each query row combined in split order: grid
 // (row, KV head, slot), a thread a head_dim column.
-template <typename T>
+template <typename T, int kD>
 __global__ void __launch_bounds__(kD)
 paged_merge(const float* __restrict__ part, T* __restrict__ out, int S, int H, int Hkv,
             int splits, int rpad) {
+  constexpr int kPartStride = part_stride(kD);
   const int r = blockIdx.x, hk = blockIdx.y, b = blockIdx.z, d = threadIdx.x;
   const int G = H / Hkv;
   const long long split_stride = static_cast<long long>(rpad) * kPartStride;
@@ -586,13 +614,13 @@ paged_merge(const float* __restrict__ part, T* __restrict__ out, int S, int H, i
       from_f32<T>(valid ? A / (L == 0.f ? 1.f : L) : 0.f);
 }
 
-template <typename T, typename KV, int kRows>
+template <typename T, typename KV, int kRows, int kD>
 int launch_rows(const void* q, const void* kp, const void* vp, const void* ks, const void* vs,
                 const void* table, const void* fills, void* out, void* part, int B, int S, int H,
                 int Hkv, int N, int P, int MP, int pps, int splits, int stages, int blocks,
                 float scale, cudaStream_t stream) {
-  auto kernel = paged_decode<T, KV, kRows>;
-  const long long smem = smem_bytes(kRows, stages, sizeof(KV));
+  auto kernel = paged_decode<T, KV, kRows, kD>;
+  const long long smem = smem_bytes(kRows, stages, sizeof(KV), kD);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
@@ -604,22 +632,22 @@ int launch_rows(const void* q, const void* kp, const void* vp, const void* ks, c
       static_cast<const int*>(table), static_cast<const int*>(fills), static_cast<T*>(out),
       static_cast<float*>(part), S, H, Hkv, N, P, MP, pps, splits, stages, scale);
   if (splits > 1) {
-    paged_merge<T><<<dim3(S * (H / Hkv), Hkv, B), kD, 0, stream>>>(
+    paged_merge<T, kD><<<dim3(S * (H / Hkv), Hkv, B), kD, 0, stream>>>(
         static_cast<const float*>(part), static_cast<T*>(out), S, H, Hkv, splits,
         blocks * kRows);
   }
   return 0;
 }
 
-template <typename T, typename KV>
-int launch(int rows, const void* q, const void* kp, const void* vp, const void* ks,
-           const void* vs, const void* table, const void* fills, void* out, void* part, int B,
-           int S, int H, int Hkv, int N, int P, int MP, int pps, int splits, int stages,
-           int blocks, float scale, cudaStream_t stream) {
-#define PORT_DEC(R)                                                                        \
-  case R:                                                                                  \
-    return launch_rows<T, KV, R>(q, kp, vp, ks, vs, table, fills, out, part, B, S, H, Hkv, \
-                                 N, P, MP, pps, splits, stages, blocks, scale, stream);
+template <typename T, typename KV, int kD>
+int launch_d(int rows, const void* q, const void* kp, const void* vp, const void* ks,
+             const void* vs, const void* table, const void* fills, void* out, void* part, int B,
+             int S, int H, int Hkv, int N, int P, int MP, int pps, int splits, int stages,
+             int blocks, float scale, cudaStream_t stream) {
+#define PORT_DEC(R)                                                                            \
+  case R:                                                                                      \
+    return launch_rows<T, KV, R, kD>(q, kp, vp, ks, vs, table, fills, out, part, B, S, H, Hkv, \
+                                     N, P, MP, pps, splits, stages, blocks, scale, stream);
   switch (rows) {
     PORT_DEC(1)
     PORT_DEC(2)
@@ -628,6 +656,19 @@ int launch(int rows, const void* q, const void* kp, const void* vp, const void* 
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 #undef PORT_DEC
+}
+
+template <typename T, typename KV>
+int launch(int D, int rows, const void* q, const void* kp, const void* vp, const void* ks,
+           const void* vs, const void* table, const void* fills, void* out, void* part, int B,
+           int S, int H, int Hkv, int N, int P, int MP, int pps, int splits, int stages,
+           int blocks, float scale, cudaStream_t stream) {
+  if (D == 64) {
+    return launch_d<T, KV, 64>(rows, q, kp, vp, ks, vs, table, fills, out, part, B, S, H, Hkv,
+                               N, P, MP, pps, splits, stages, blocks, scale, stream);
+  }
+  return launch_d<T, KV, 128>(rows, q, kp, vp, ks, vs, table, fills, out, part, B, S, H, Hkv,
+                              N, P, MP, pps, splits, stages, blocks, scale, stream);
 }
 
 }  // namespace dec
@@ -641,11 +682,22 @@ using namespace port::hopper;
 constexpr int kThreads = 256;      // two warpgroups of 64 query rows
 constexpr int kRows = 128;         // query rows a CTA
 constexpr int kTok = 64;           // tokens a page: a K/V tile
-constexpr int kRowBytes = 128;     // 64 bf16 of head_dim: one swizzle row
-constexpr int kQBytes = kRows * kRowBytes;
-constexpr int kTileBytes = kTok * kRowBytes;
-constexpr int kStageBytes = 2 * kTileBytes;  // K then V
-constexpr int kSmem = 1024 + kQBytes + 2 * kStageBytes;
+constexpr int kRowBytes = 128;     // a swizzle-atom row: 64 bf16 of head_dim
+
+// The shared-memory plan at head_dim D (64 or 128), as K2f's
+// (flash_attention.cu wg::Layout): every tile is D/64 column blocks
+// ([rows][64 bf16], 128B-swizzled), block a at a * rows * 128.
+template <int D>
+struct Layout {
+  static constexpr int kAtoms = D / 64;
+  static constexpr int kQBlock = kRows * kRowBytes;     // Q's column-block stride
+  static constexpr int kKVBlock = kTok * kRowBytes;     // a K or V tile's
+  static constexpr int kQBytes = kAtoms * kQBlock;
+  static constexpr int kTileBytes = kAtoms * kKVBlock;
+  static constexpr int kStageBytes = 2 * kTileBytes;    // K then V
+  static constexpr int kSmem = 1024 + kQBytes + 2 * kStageBytes;
+};
+static_assert(Layout<128>::kSmem <= 232448, "shared memory");
 
 __device__ __forceinline__ uint4 ld16(const void* p) {
   return __ldg(reinterpret_cast<const uint4*>(p));
@@ -663,20 +715,23 @@ __device__ __forceinline__ void dequant16(const uint4& u, float s, uint4& lo, ui
   hi = make_uint4(w[4], w[5], w[6], w[7]);
 }
 
-template <typename KV>
+template <typename KV, int D>
 __global__ void __launch_bounds__(kThreads)
 paged_chunk_wgmma(const __nv_bfloat16* __restrict__ q, const KV* __restrict__ kp,
                   const KV* __restrict__ vp, const float* __restrict__ ks,
                   const float* __restrict__ vs, const int* __restrict__ table,
                   const int* __restrict__ fills, __nv_bfloat16* __restrict__ out, int S, int H,
                   int Hkv, int N, int MP, float scale) {
+  using L = Layout<D>;
   constexpr bool kQuant = std::is_same<KV, int8_t>::value;
-  // 16-byte loads a thread makes of a page's K (and of its V)
-  constexpr int kLoads = kQuant ? 1 : 2;
+  constexpr int kCpr = D / 8;  // 16-byte bf16 chunks a row
+  // 16-byte loads a thread makes of a page's K (and of its V): a row is
+  // D / 8 bf16 chunks, or D / 16 int8 ones
+  constexpr int kLoads = kTok * (kQuant ? D / 16 : kCpr) / kThreads;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   uint8_t* q_s = smem;
-  uint8_t* kv_s = smem + kQBytes;
+  uint8_t* kv_s = smem + L::kQBytes;
 
   const int t = threadIdx.x, wg = t >> 7, warp = (t >> 5) & 3, lane = t & 31;
   const int b = blockIdx.x, hk = blockIdx.y;
@@ -685,12 +740,12 @@ paged_chunk_wgmma(const __nv_bfloat16* __restrict__ q, const KV* __restrict__ kp
   const int fill = fills[b];
 
 #pragma unroll
-  for (int i = 0; i < kRows * 8 / kThreads; ++i) {  // the group's rows, gathered
+  for (int i = 0; i < kRows * kCpr / kThreads; ++i) {  // the group's rows, gathered
     const int c = t + kThreads * i;
-    const int row = c >> 3, ch = c & 7, r = r0 + row;
+    const int row = c / kCpr, ch = c % kCpr, r = r0 + row;
     uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (r < R) v = ld16(q + ((static_cast<long long>(b) * S + r / G) * H + hk * G + r % G) * 64 + ch * 8);
-    *reinterpret_cast<uint4*>(q_s + sw128(row, ch)) = v;
+    if (r < R) v = ld16(q + ((static_cast<long long>(b) * S + r / G) * H + hk * G + r % G) * D + ch * 8);
+    *reinterpret_cast<uint4*>(q_s + (ch >> 3) * L::kQBlock + sw128(row, ch & 7)) = v;
   }
 
   int live = fill > 0 ? (fill + kTok - 1) / kTok : 0;
@@ -706,49 +761,52 @@ paged_chunk_wgmma(const __nv_bfloat16* __restrict__ q, const KV* __restrict__ kp
   const int wg_key = wg_first < R ? fill - S + (min(wg_first + 63, R - 1)) / G : -1;
 
   uint4 kr[kLoads], vr[kLoads];
-  float ksc = 0.f, vsc = 0.f;
+  float ksc[kLoads], vsc[kLoads];
   auto fetch = [&](int j) {  // page j's K and V of head hk into registers
     int page = table[static_cast<long long>(b) * MP + j];
     page = page < 0 ? 0 : (page >= N ? N - 1 : page);  // sentinel clamp
 #pragma unroll
     for (int i = 0; i < kLoads; ++i) {
       const int c = t + kThreads * i;
-      const int tok = kQuant ? c >> 2 : c >> 3;
-      const int col = kQuant ? (c & 3) * 16 : (c & 7) * 8;
+      const int tok = kQuant ? c / (D / 16) : c / kCpr;
+      const int col = kQuant ? (c % (D / 16)) * 16 : (c % kCpr) * 8;
       const long long row = (static_cast<long long>(page) * kTok + tok) * Hkv + hk;
-      kr[i] = ld16(kp + row * 64 + col);
-      vr[i] = ld16(vp + row * 64 + col);
+      kr[i] = ld16(kp + row * D + col);
+      vr[i] = ld16(vp + row * D + col);
       if constexpr (kQuant) {
-        ksc = __ldg(ks + row);
-        vsc = __ldg(vs + row);
+        ksc[i] = __ldg(ks + row);
+        vsc[i] = __ldg(vs + row);
       }
     }
   };
   auto stash = [&](int st) {  // the registers into slot st, swizzled
-    uint8_t* kt = kv_s + st * kStageBytes;
-    uint8_t* vt = kt + kTileBytes;
+    uint8_t* kt = kv_s + st * L::kStageBytes;
+    uint8_t* vt = kt + L::kTileBytes;
 #pragma unroll
     for (int i = 0; i < kLoads; ++i) {
       const int c = t + kThreads * i;
       if constexpr (kQuant) {
-        const int tok = c >> 2, ch = 2 * (c & 3);
+        const int tok = c / (D / 16), ch = 2 * (c % (D / 16));  // its first bf16 chunk
+        const int off = (ch >> 3) * L::kKVBlock;
         uint4 lo, hi;
-        dequant16(kr[i], ksc, lo, hi);
-        *reinterpret_cast<uint4*>(kt + sw128(tok, ch)) = lo;
-        *reinterpret_cast<uint4*>(kt + sw128(tok, ch + 1)) = hi;
-        dequant16(vr[i], vsc, lo, hi);
-        *reinterpret_cast<uint4*>(vt + sw128(tok, ch)) = lo;
-        *reinterpret_cast<uint4*>(vt + sw128(tok, ch + 1)) = hi;
+        dequant16(kr[i], ksc[i], lo, hi);
+        *reinterpret_cast<uint4*>(kt + off + sw128(tok, ch & 7)) = lo;
+        *reinterpret_cast<uint4*>(kt + off + sw128(tok, (ch & 7) + 1)) = hi;
+        dequant16(vr[i], vsc[i], lo, hi);
+        *reinterpret_cast<uint4*>(vt + off + sw128(tok, ch & 7)) = lo;
+        *reinterpret_cast<uint4*>(vt + off + sw128(tok, (ch & 7) + 1)) = hi;
       } else {
-        *reinterpret_cast<uint4*>(kt + sw128(c >> 3, c & 7)) = kr[i];
-        *reinterpret_cast<uint4*>(vt + sw128(c >> 3, c & 7)) = vr[i];
+        const int tok = c / kCpr, ch = c % kCpr;
+        const int off = (ch >> 3) * L::kKVBlock + sw128(tok, ch & 7);
+        *reinterpret_cast<uint4*>(kt + off) = kr[i];
+        *reinterpret_cast<uint4*>(vt + off) = vr[i];
       }
     }
   };
 
-  float o[32];
+  float o[D / 2];  // the accumulator layout of an n = D product
 #pragma unroll
-  for (int i = 0; i < 32; ++i) o[i] = 0.f;
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
   float m_a = kNegInf, m_b = kNegInf, l_a = 0.f, l_b = 0.f;  // l: this thread's columns
   const uint32_t q_addr = smem_u32(q_s) + wg * 64 * kRowBytes;
   if (ntiles > 0) fetch(0);
@@ -760,13 +818,15 @@ paged_chunk_wgmma(const __nv_bfloat16* __restrict__ q, const KV* __restrict__ kp
     if (it + 1 < ntiles) fetch(it + 1);
     const int k0 = it * kTok;
     if (k0 > wg_key) continue;  // a page wholly past the warpgroup's rows
-    const uint32_t k_addr = smem_u32(kv_s + st * kStageBytes);
-    const uint32_t v_addr = k_addr + kTileBytes;
+    const uint32_t k_addr = smem_u32(kv_s + st * L::kStageBytes);
+    const uint32_t v_addr = k_addr + L::kTileBytes;
     float s[32];
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-      wgmma_m64n64k16_ss<0>(s, desc_kmajor(q_addr + kk * 32), desc_kmajor(k_addr + kk * 32), kk);
+    for (int kk = 0; kk < D / 16; ++kk) {  // 4 k16 steps in each column block
+      wgmma_m64n64k16_ss<0>(s, desc_kmajor(q_addr + (kk >> 2) * L::kQBlock + (kk & 3) * 32),
+                            desc_kmajor(k_addr + (kk >> 2) * L::kKVBlock + (kk & 3) * 32), kk);
+    }
     wgmma_commit();
     wgmma_wait<0>();
     fence_operand(s);
@@ -813,21 +873,27 @@ paged_chunk_wgmma(const __nv_bfloat16* __restrict__ q, const KV* __restrict__ kp
     }
     l_a = l_a * alpha_a + sum_a;
     l_b = l_b * alpha_b + sum_b;
-    // P V into a fresh accumulator (s is dead), then added in f32
-    wgmma_fence();
-    wgmma_m64n64k16_rs_first<1>(s, p[0], desc_mnmajor(v_addr));
+    // P V, a column block at a time, into a fresh accumulator (s is
+    // dead), then added in f32
 #pragma unroll
-    for (int kk = 1; kk < 4; ++kk)
-      wgmma_m64n64k16_rs<1>(s, p[kk], desc_mnmajor(v_addr + kk * 16 * kRowBytes), 1);
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_operand(s);
+    for (int a = 0; a < L::kAtoms; ++a) {
+      const uint32_t va = v_addr + a * L::kKVBlock;
+      wgmma_fence();
+      wgmma_m64n64k16_rs_first<1>(s, p[0], desc_mnmajor(va));
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      o[j * 4 + 0] = o[j * 4 + 0] * alpha_a + s[j * 4 + 0];
-      o[j * 4 + 1] = o[j * 4 + 1] * alpha_a + s[j * 4 + 1];
-      o[j * 4 + 2] = o[j * 4 + 2] * alpha_b + s[j * 4 + 2];
-      o[j * 4 + 3] = o[j * 4 + 3] * alpha_b + s[j * 4 + 3];
+      for (int kk = 1; kk < 4; ++kk)
+        wgmma_m64n64k16_rs<1>(s, p[kk], desc_mnmajor(va + kk * 16 * kRowBytes), 1);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_operand(s);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int oj = 32 * a + 4 * j;  // column 64 a + 8 j + ... of the n = D layout
+        o[oj + 0] = o[oj + 0] * alpha_a + s[j * 4 + 0];
+        o[oj + 1] = o[oj + 1] * alpha_a + s[j * 4 + 1];
+        o[oj + 2] = o[oj + 2] * alpha_b + s[j * 4 + 2];
+        o[oj + 3] = o[oj + 3] * alpha_b + s[j * 4 + 3];
+      }
     }
   }
 
@@ -844,9 +910,9 @@ paged_chunk_wgmma(const __nv_bfloat16* __restrict__ q, const KV* __restrict__ kp
     const bool valid = mm > kNegInf * 0.5f;  // at least one live key
     const float denom = (l == 0.f) ? 1.f : l;
     __nv_bfloat16* orow =
-        out + ((static_cast<long long>(b) * S + row / G) * H + hk * G + row % G) * 64;
+        out + ((static_cast<long long>(b) * S + row / G) * H + hk * G + row % G) * D;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
+    for (int j = 0; j < D / 8; ++j) {
       const float v0 = valid ? o[j * 4 + 2 * r] / denom : 0.f;
       const float v1 = valid ? o[j * 4 + 2 * r + 1] / denom : 0.f;
       *reinterpret_cast<__nv_bfloat162*>(orow + j * 8 + 2 * (lane & 3)) =
@@ -855,20 +921,30 @@ paged_chunk_wgmma(const __nv_bfloat16* __restrict__ q, const KV* __restrict__ kp
   }
 }
 
-template <typename KV>
+template <typename KV, int D>
 int launch(const void* q, const void* kp, const void* vp, const void* ks, const void* vs,
            const void* table, const void* fills, void* out, int B, int S, int H, int Hkv, int N,
            int MP, int blocks, float scale, cudaStream_t stream) {
-  auto kernel = paged_chunk_wgmma<KV>;
-  const cudaError_t e =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+  auto kernel = paged_chunk_wgmma<KV, D>;
+  const cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Layout<D>::kSmem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  kernel<<<dim3(B, Hkv, blocks), kThreads, kSmem, stream>>>(
+  kernel<<<dim3(B, Hkv, blocks), kThreads, Layout<D>::kSmem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const KV*>(kp),
       static_cast<const KV*>(vp), static_cast<const float*>(ks), static_cast<const float*>(vs),
       static_cast<const int*>(table), static_cast<const int*>(fills),
       static_cast<__nv_bfloat16*>(out), S, H, Hkv, N, MP, scale);
   return 0;
+}
+
+template <typename KV>
+int launch(int D, const void* q, const void* kp, const void* vp, const void* ks, const void* vs,
+           const void* table, const void* fills, void* out, int B, int S, int H, int Hkv, int N,
+           int MP, int blocks, float scale, cudaStream_t stream) {
+  return D == 64 ? launch<KV, 64>(q, kp, vp, ks, vs, table, fills, out, B, S, H, Hkv, N, MP,
+                                  blocks, scale, stream)
+                 : launch<KV, 128>(q, kp, vp, ks, vs, table, fills, out, B, S, H, Hkv, N, MP,
+                                   blocks, scale, stream);
 }
 
 }  // namespace wgc
@@ -912,30 +988,30 @@ extern "C" int port_paged_attention(
   int rc = static_cast<int>(cudaErrorInvalidValue);
   if (variant == kDecode) {
     const int kv_size = quant ? 1 : (kvdtype == kF32 ? 4 : 2);
-    const bool ok = D == dec::kD && P % dec::kKeys == 0 && pages_per_split > 0 &&
+    const bool ok = (D == 64 || D == 128) && P % dec::kKeys == 0 && pages_per_split > 0 &&
                     splits == (MP + pages_per_split - 1) / pages_per_split &&
                     splits * blocks <= 65535 && stages >= 1 && stages <= dec::kMaxStages &&
                     (rows == 1 || rows == 2 || rows == 4 || rows == 8) &&
-                    dec::smem_bytes(rows, stages, kv_size) <= kMaxSmem &&
+                    dec::smem_bytes(rows, stages, kv_size, D) <= kMaxSmem &&
                     (splits == 1 || part != nullptr);
     if (!ok) return static_cast<int>(cudaErrorInvalidValue);
     const int nb = static_cast<int>(blocks);
     if (qdtype == kF32 && kvdtype == kF32) {
-      rc = dec::launch<float, float>(rows, q, kp, vp, ks, vs, table, fills, out, part, B, S, H, Hkv, N, P, MP, pages_per_split, splits, stages, nb, scale, s);
+      rc = dec::launch<float, float>(D, rows, q, kp, vp, ks, vs, table, fills, out, part, B, S, H, Hkv, N, P, MP, pages_per_split, splits, stages, nb, scale, s);
     } else if (qdtype == kBF16 && kvdtype == kBF16) {
-      rc = dec::launch<__nv_bfloat16, __nv_bfloat16>(rows, q, kp, vp, ks, vs, table, fills, out, part, B, S, H, Hkv, N, P, MP, pages_per_split, splits, stages, nb, scale, s);
+      rc = dec::launch<__nv_bfloat16, __nv_bfloat16>(D, rows, q, kp, vp, ks, vs, table, fills, out, part, B, S, H, Hkv, N, P, MP, pages_per_split, splits, stages, nb, scale, s);
     } else if (qdtype == kF32) {
-      rc = dec::launch<float, int8_t>(rows, q, kp, vp, ks, vs, table, fills, out, part, B, S, H, Hkv, N, P, MP, pages_per_split, splits, stages, nb, scale, s);
+      rc = dec::launch<float, int8_t>(D, rows, q, kp, vp, ks, vs, table, fills, out, part, B, S, H, Hkv, N, P, MP, pages_per_split, splits, stages, nb, scale, s);
     } else {
-      rc = dec::launch<__nv_bfloat16, int8_t>(rows, q, kp, vp, ks, vs, table, fills, out, part, B, S, H, Hkv, N, P, MP, pages_per_split, splits, stages, nb, scale, s);
+      rc = dec::launch<__nv_bfloat16, int8_t>(D, rows, q, kp, vp, ks, vs, table, fills, out, part, B, S, H, Hkv, N, P, MP, pages_per_split, splits, stages, nb, scale, s);
     }
   } else if (variant == kChunk) {
-    const bool ok = qdtype == kBF16 && D == 64 && P == wgc::kTok && rows == wgc::kRows &&
+    const bool ok = qdtype == kBF16 && (D == 64 || D == 128) && P == wgc::kTok && rows == wgc::kRows &&
                     splits == 1 && pages_per_split == MP && stages == 2 && blocks <= 65535;
     if (!ok) return static_cast<int>(cudaErrorInvalidValue);
     const int nb = static_cast<int>(blocks);
-    rc = quant ? wgc::launch<int8_t>(q, kp, vp, ks, vs, table, fills, out, B, S, H, Hkv, N, MP, nb, scale, s)
-               : wgc::launch<__nv_bfloat16>(q, kp, vp, ks, vs, table, fills, out, B, S, H, Hkv, N, MP, nb, scale, s);
+    rc = quant ? wgc::launch<int8_t>(D, q, kp, vp, ks, vs, table, fills, out, B, S, H, Hkv, N, MP, nb, scale, s)
+               : wgc::launch<__nv_bfloat16>(D, q, kp, vp, ks, vs, table, fills, out, B, S, H, Hkv, N, MP, nb, scale, s);
   } else if (variant == kRowsVariant) {
     const long long smem = smem_bytes(rows, D, P);
     if (rows > R || blocks > 65535 || smem > kMaxSmem || splits != 1 ||

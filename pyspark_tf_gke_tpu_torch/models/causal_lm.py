@@ -53,8 +53,10 @@ from pyspark_tf_gke_tpu_torch.ops.paged_attention import (
 from pyspark_tf_gke_tpu_torch.ops.quant import Params
 from pyspark_tf_gke_tpu_torch.models.embedding import TokenEmbed
 from pyspark_tf_gke_tpu_torch.models.layers import (Dense, FusedLayerNorm,
+                                                    dense_group,
                                                     flax_parameters,
                                                     init_flax_params,
+                                                    k6_launches,
                                                     load_flax_params)
 
 NEG_INF = -1e30
@@ -358,9 +360,11 @@ class CausalSelfAttention(nn.Module):
         cfg = self.cfg
         b, s, _ = hidden.shape
         h, hkv, d = cfg.num_heads, cfg.kv_heads, cfg.head_dim
-        q = self.query(hidden, inloop).reshape(b, s, h, d)
-        k = self.key(hidden, inloop).reshape(b, s, hkv, d)
-        v = self.value(hidden, inloop).reshape(b, s, hkv, d)
+        q, k, v = dense_group((self.query, self.key, self.value), hidden,
+                              inloop)
+        q = q.reshape(b, s, h, d)
+        k = k.reshape(b, s, hkv, d)
+        v = v.reshape(b, s, hkv, d)
         if cfg.pos_embedding == "rope":
             if d % 2:
                 raise ValueError(f"rope needs an even head_dim, got {d}")
@@ -471,8 +475,9 @@ class CausalLMBlock(nn.Module):
                                          prefill, segment_ids, inloop)
         mlp_in = self.ln_mlp(hidden)
         if self.cfg.ffn == "swiglu":
-            mlp = (F.silu(self.mlp_gate(mlp_in, inloop))
-                   * self.mlp_in(mlp_in, inloop))
+            gate, up = dense_group((self.mlp_gate, self.mlp_in), mlp_in,
+                                   inloop)
+            mlp = F.silu(gate) * up
         else:
             mlp = F.gelu(self.mlp_in(mlp_in, inloop), approximate="tanh")
         return hidden + self.mlp_out(mlp, inloop)
@@ -507,6 +512,22 @@ class CausalLM(nn.Module):
     @property
     def device(self) -> torch.device:
         return self.lm_head.kernel.device
+
+    def k6_launches_per_step(self) -> int:
+        """K6 launches of one in-loop forward (a decode step): one for
+        each layer's query, key and value together, for SwiGLU's gate
+        and input together, for each other int8 Dense, and for lm_head
+        (``layers.dense_group``); 0 on float weights."""
+        total = k6_launches((self.lm_head,))
+        for i in range(self.cfg.num_layers):
+            block = getattr(self, f"layer_{i}")
+            att = block.attention
+            mlp = ((block.mlp_gate, block.mlp_in) if self.cfg.ffn == "swiglu"
+                   else (block.mlp_in,))
+            total += sum(k6_launches(group) for group in (
+                (att.query, att.key, att.value), (att.out,), mlp,
+                (block.mlp_out,)))
+        return total
 
     def forward(self, input_ids: torch.Tensor,
                 positions: Optional[torch.Tensor] = None,

@@ -15,7 +15,9 @@ points of ``nn.Dense(dtype=...)``. Three ways to hold the weights:
   K6 (``ops/int8_matmul.py``); any other forward (prefill, scoring, a
   prefill piece) dequantizes the weight into a transient and calls
   ``torch.matmul``, as the JAX package's ``dequantize_tree`` sites do.
-  Both give ``x @ dtype(f32(q) * scale)``;
+  Both give ``x @ dtype(f32(q) * scale)``. :func:`dense_group` runs
+  Dense layers that share their input (a layer's query, key and value;
+  SwiGLU's gate and input) as one K6 launch there;
 * training (``param_dtype=torch.float32``): trainable f32 master
   weights, cast to the compute dtype at every use, as flax keeps f32
   ``param_dtype`` parameters under a bf16 ``dtype``. Their gradients
@@ -42,6 +44,7 @@ from torch import nn
 
 from pyspark_tf_gke_tpu_torch.models.embedding import TokenEmbed
 from pyspark_tf_gke_tpu_torch.ops.int8_matmul import (int8_matmul,
+                                                      int8_matmul_group,
                                                       int8_matmul_plain)
 from pyspark_tf_gke_tpu_torch.ops.layernorm import (fused_layernorm,
                                                     layernorm_plain)
@@ -86,11 +89,37 @@ class Dense(nn.Module):
         x = x.to(self.dtype)
         if self.kernel_scale is None:
             y = torch.matmul(x, self.kernel.to(self.dtype))
-        elif inloop and self.use_kernels:
+        elif _streams_int8(self, inloop):
             y = int8_matmul(x, self.kernel, self.kernel_scale)
         else:
             y = int8_matmul_plain(x, self.kernel, self.kernel_scale)
         return y + self.bias.to(self.dtype)
+
+
+def _streams_int8(dense: Dense, inloop: bool) -> bool:
+    return (inloop and dense.use_kernels
+            and dense.kernel_scale is not None)
+
+
+def dense_group(denses, x: torch.Tensor, inloop: bool = False):
+    """``[d(x, inloop) for d in denses]`` for Dense layers that share
+    ``x``: where every one streams int8 through K6 (``inloop``), one
+    grouped launch (``int8_matmul_group``) gives their products, each
+    then adding its bias; otherwise each layer runs alone."""
+    if not all(_streams_int8(d, inloop) for d in denses):
+        return [d(x, inloop) for d in denses]
+    dtype = denses[0].dtype
+    ys = int8_matmul_group(x.to(dtype), [(d.kernel, d.kernel_scale)
+                                         for d in denses])
+    return [y + d.bias.to(d.dtype) for y, d in zip(ys, denses)]
+
+
+def k6_launches(denses) -> int:
+    """K6 launches an in-loop forward makes through ``denses`` run
+    together (:func:`dense_group`): 1 when they stream int8 as a group,
+    else one a streaming layer."""
+    streaming = sum(_streams_int8(d, True) for d in denses)
+    return 1 if streaming == len(denses) and streaming else streaming
 
 
 class FusedLayerNorm(nn.Module):

@@ -64,7 +64,7 @@ SIGNATURES = {
     "port_k5_fwd": [_P] * 7 + [_I] * 9 + [_P],
     "port_k5_dx": [_P] * 8 + [_I] * 11 + [_P],
     "port_k5_dw": [_P] * 6 + [_I] * 10 + [_P],
-    "port_int8_matmul": [_P] * 5 + [_I] * 9 + [_P],
+    "port_int8_matmul": [_P] * 10 + [_I] * 13 + [_P],
 }
 
 _lock = threading.Lock()

@@ -24,7 +24,8 @@ split-KV design for every decode step and the narrowest verify chunks
 design for wider chunks with a bf16 query (speculative verify chunks
 from ``S = 5``, the 256-token chunked-prefill piece); and ``rows``, the
 first design, for wider f32 chunks and shapes the others do not take
-(head_dim other than 64, pages not a multiple of 16 tokens). Any ``S``
+(head_dim other than 64 and 128, pages not a multiple of 16 tokens).
+Any ``S``
 launches. The
 wrappers take the plain
 version only for CPU tensors; a CUDA tensor launches the kernel or
@@ -47,7 +48,7 @@ MAX_SMEM = 232448  # bytes of shared memory one block may use on Hopper
 MAX_ROW_BLOCKS = 65535  # the grid's z dimension: row blocks of a group
 
 # The decode variant: 128-thread CTAs of four warps, 1-8 query rows a
-# CTA, head_dim 64, key groups of 16 tokens; a split walks
+# CTA, head_dim 64 or 128, key groups of 16 tokens; a split walks
 # ``pages_per_split`` table entries, each warp through a ring of at most
 # DECODE_MAX_STAGES cp.async slots, the slots of a CTA within
 # DECODE_RING_BYTES. Splits are sized so that ``B * H_kv * splits *
@@ -62,7 +63,7 @@ MAX_ROW_BLOCKS = 65535  # the grid's z dimension: row blocks of a group
 # DECODE_ALONE_MAX_S (f32 chunks, which the chunk variant does not
 # take), else the first design.
 DECODE_ROWS = (1, 2, 4, 8)
-DECODE_D = 64
+DECODE_DS = (64, 128)  # head widths the decode and chunk variants take
 DECODE_KEYS = 16
 DECODE_WARPS = 4
 DECODE_MAX_STAGES = 4
@@ -70,12 +71,22 @@ DECODE_RING_BYTES = 64 * 1024
 DECODE_TARGET_CTAS = 384
 DECODE_MAX_S = 4
 DECODE_ALONE_MAX_S = 8
-# The chunk variant: 128 query rows a CTA, 64-token pages, head_dim 64,
-# a bf16 query; two K/V slots and a 128-row Q tile, 1024-byte aligned.
+# The chunk variant: 128 query rows a CTA, 64-token pages, head_dim 64
+# or 128, a bf16 query; two K/V slots and a 128-row Q tile, 1024-byte
+# aligned.
 CHUNK_ROWS = 128
-CHUNK_SMEM = 1024 + 128 * 128 + 2 * 2 * 64 * 128
 VARIANTS = {"rows": 0, "decode": 1, "chunk": 2}  # csrc enum Variant
-PART_STRIDE = DECODE_D + 2  # a split's partial row: acc[64], m, l (f32)
+
+
+def chunk_smem(d: int) -> int:
+    """Shared memory of a chunk CTA at head_dim ``d``: 1024 bytes of
+    alignment slack, the bf16 Q tile and two K/V page slots."""
+    return 1024 + CHUNK_ROWS * 2 * d + 2 * 2 * 64 * 2 * d
+
+
+def part_stride(d: int) -> int:
+    """A decode split's partial row: acc[d], m, l (f32)."""
+    return d + 2
 
 launches = 0  # kernel launches since the last reset (chip_smoke reads it)
 # launches by variant since the last reset: which one a path took
@@ -171,21 +182,22 @@ def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def _decode_slots(kv_size: int) -> int:
+def _decode_slots(kv_size: int, d: int) -> int:
     """Bytes of one ring slot of each of a decode CTA's warps: a key
-    group's K and V rows, and for int8 pages their 16 + 16 scales."""
-    return DECODE_WARPS * (2 * DECODE_KEYS * DECODE_D * kv_size
+    group's K and V rows of head_dim ``d``, and for int8 pages their 16
+    + 16 scales."""
+    return DECODE_WARPS * (2 * DECODE_KEYS * d * kv_size
                            + (2 * DECODE_KEYS * 4 if kv_size == 1 else 0))
 
 
-def decode_smem(rows: int, stages: int, kv_size: int) -> int:
+def decode_smem(rows: int, stages: int, kv_size: int, d: int) -> int:
     """Shared memory of a decode CTA (``csrc/paged_attention.cu``
     ``dec::smem_bytes``): its f32 query rows, then the four warps' rings
     of K and V key groups (and int8 scales), which the warps' final
-    states (m, l and 64 sums a row) reuse."""
-    ring = stages * _decode_slots(kv_size)
-    merge = 4 * DECODE_WARPS * rows * (DECODE_D + 2)
-    return 4 * rows * DECODE_D + max(ring, merge)
+    states (m, l and d sums a row) reuse."""
+    ring = stages * _decode_slots(kv_size, d)
+    merge = 4 * DECODE_WARPS * rows * part_stride(d)
+    return 4 * rows * d + max(ring, merge)
 
 
 def paged_plan(b: int, s: int, h: int, hkv: int, d: int, p: int, mp: int,
@@ -195,16 +207,16 @@ def paged_plan(b: int, s: int, h: int, hkv: int, d: int, p: int, mp: int,
     """K1's variant and launch shape for ``b`` slots of ``s`` queries,
     ``h`` heads over ``hkv`` KV heads of width ``d``, pages of ``p``
     tokens, ``mp`` table entries a slot — a function of the shape and
-    dtypes alone. ``decode`` for ``s <= DECODE_MAX_S`` (head_dim 64,
-    pages a multiple of 16 tokens); else ``chunk`` for a bf16 query over
-    64-token pages of head_dim 64; else ``decode`` up to
+    dtypes alone. ``decode`` for ``s <= DECODE_MAX_S`` (head_dim 64 or
+    128, pages a multiple of 16 tokens); else ``chunk`` for a bf16 query
+    over 64-token pages of head_dim 64 or 128; else ``decode`` up to
     ``DECODE_ALONE_MAX_S``; else the first design
     (:func:`row_plan`). ``pages_per_split`` and ``variant`` override the
     choice (``kernel_probe.py paged-modes`` sweeps them); a variant that
     cannot take the shape raises ``ValueError``."""
     r = s * (h // hkv)
-    decode_ok = d == DECODE_D and p % DECODE_KEYS == 0
-    chunk_ok = (d == 64 and p == 64 and qdtype == torch.bfloat16
+    decode_ok = d in DECODE_DS and p % DECODE_KEYS == 0
+    chunk_ok = (d in DECODE_DS and p == 64 and qdtype == torch.bfloat16
                 and kvdtype in (torch.bfloat16, torch.int8))
     if variant is None:
         if decode_ok and (s <= DECODE_MAX_S or (
@@ -216,7 +228,8 @@ def paged_plan(b: int, s: int, h: int, hkv: int, d: int, p: int, mp: int,
             variant = "rows"
     if variant == "decode":
         if not decode_ok:
-            raise ValueError(f"the decode variant takes head_dim {DECODE_D} "
+            raise ValueError(f"the decode variant takes head_dim "
+                             f"{' or '.join(map(str, DECODE_DS))} "
                              f"and pages of a multiple of {DECODE_KEYS} "
                              f"tokens, got D={d}, P={p}")
         rows = next(n for n in DECODE_ROWS if n >= min(r, DECODE_ROWS[-1]))
@@ -233,20 +246,22 @@ def paged_plan(b: int, s: int, h: int, hkv: int, d: int, p: int, mp: int,
         kv_size = kvdtype.itemsize
         items = pages_per_split * _cdiv(p // DECODE_KEYS, DECODE_WARPS)
         stages = max(1, min(DECODE_MAX_STAGES, items,
-                            DECODE_RING_BYTES // _decode_slots(kv_size)))
+                            DECODE_RING_BYTES // _decode_slots(kv_size, d)))
         return PagedPlan("decode", rows, blocks, _cdiv(mp, pages_per_split),
                          pages_per_split, stages,
-                         decode_smem(rows, stages, kv_size))
+                         decode_smem(rows, stages, kv_size, d))
     if variant == "chunk":
         if not chunk_ok:
             raise ValueError("the chunk variant takes a bfloat16 query over "
                              "bfloat16 or int8 pages of 64 tokens, head_dim "
-                             f"64, got {qdtype}/{kvdtype}, P={p}, D={d}")
+                             f"64 or 128, got {qdtype}/{kvdtype}, P={p}, "
+                             f"D={d}")
         blocks = _cdiv(r, CHUNK_ROWS)
         if blocks > MAX_ROW_BLOCKS:
             raise ValueError(f"paged kernel: {r} query rows need {blocks} "
                              f"row blocks (max {MAX_ROW_BLOCKS})")
-        return PagedPlan("chunk", CHUNK_ROWS, blocks, 1, mp, 2, CHUNK_SMEM)
+        return PagedPlan("chunk", CHUNK_ROWS, blocks, 1, mp, 2,
+                         chunk_smem(d))
     if variant != "rows":
         raise ValueError(f"unknown paged attention variant {variant!r}")
     rows, blocks, smem = row_plan(s, h, hkv, d, p)
@@ -296,7 +311,7 @@ def _launch(q, k_pages, v_pages, block_table, fills, k_scales, v_scales,
     part = None
     if plan.splits > 1:  # the splits' partials, merged in split order
         part = torch.empty((b, hkv, plan.splits, plan.blocks * plan.rows,
-                            PART_STRIDE), dtype=torch.float32,
+                            part_stride(d)), dtype=torch.float32,
                            device=device)
     lib = kernels.library()
     rc = lib.port_paged_attention(

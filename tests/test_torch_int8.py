@@ -1,7 +1,10 @@
-"""PyTorch port, int8 weights kept resident: K6's plain version against
-the JAX package's ``QTensor.dequantize()`` followed by the product (bf16
-and f32); ``int8_plan`` through a recording library that refuses what
-``csrc/int8_matmul.cu`` refuses, tails included; a model loaded from an
+"""PyTorch port, int8 weights kept resident: K6's plain version, and its
+grouped call (query/key/value, SwiGLU's gate/input), against the JAX
+package's ``QTensor.dequantize()`` followed by the product (bf16 and
+f32); ``int8_plan`` and the grouped launch through a
+recording library that refuses what ``csrc/int8_matmul.cu`` refuses,
+tails included; the K6 launches a decode step reckoned from the model's
+Dense groups; a model loaded from an
 int8 tree or bundle holds int8 kernels and tables with their scales and
 no float copy of them (its bytes are ``tree_bytes``, equal to the JAX
 package's); the embedding row gather equals dequantize-then-gather bit
@@ -102,76 +105,254 @@ def test_int8_matmul_plain_matches_jax_dequantize_then_dot(dtype, k, n):
                        out)
 
 
-def _cu_constants():
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("ns", [(64, 32, 32), (96, 96)])
+def test_int8_matmul_group_matches_jax_dequantize_then_dense(dtype, ns):
+    """One grouped call (a layer's query, key and value at 2:1 GQA; a
+    SwiGLU gate and input) through ``int8_matmul_group`` — K6's grouped
+    launch; its plain version on the CPU — against each weight's
+    ``QTensor.dequantize()`` followed by flax ``nn.Dense(dtype=...)``: f32
+    within 1e-5 relative (summation order), bf16 within one bf16
+    rounding (rtol 1e-2) of outputs of O(1); each output as the
+    one-weight call gives it, bit for bit."""
+    rng = np.random.default_rng(sum(ns))
+    k = 48
+    x = rng.standard_normal((5, k)).astype(np.float32)
+    jdt = jnp.dtype(dtype)
+    tdt = getattr(torch, dtype)
+    weights, refs = [], []
+    for n in ns:
+        jq = jquant.quantize_tensor(jnp.asarray(
+            (rng.standard_normal((k, n)) * 0.05).astype(np.float32)))
+        dense = nn.Dense(n, dtype=jdt)
+        refs.append(np.asarray(dense.apply(
+            {"params": {"kernel": jq.dequantize(),
+                        "bias": jnp.zeros((n,), jnp.float32)}},
+            jnp.asarray(x)).astype(jnp.float32)))
+        weights.append((torch.from_numpy(np.array(jq.q)),
+                        torch.from_numpy(np.array(jq.scale))))
+    xt = torch.from_numpy(x).to(tdt)
+    outs = im.int8_matmul_group(xt, weights)
+    tol = dict(rtol=1e-5, atol=1e-6) if dtype == "float32" else dict(
+        rtol=1e-2, atol=1e-2)
+    for out, ref, (q, scale), n in zip(outs, refs, weights, ns):
+        assert out.dtype == tdt and out.shape == (5, n)
+        np.testing.assert_allclose(out.float().numpy(), ref, **tol)
+        assert torch.equal(out, im.int8_matmul(xt, q, scale))
+
+
+def _cu_constants(namespace):
+    """The ``constexpr int`` constants of ``csrc/int8_matmul.cu``'s
+    ``namespace``."""
     src = (Path(kernels.CSRC_DIR) / "int8_matmul.cu").read_text()
-    return {name: int(re.search(rf"constexpr int {name} = (\d+);",
-                                src).group(1))
-            for name in ("kTileN", "kMaxRows", "kSmemFloats", "kTargetCtas",
-                         "kColsThread", "kThreads")}
+    start = src.index(f"namespace {namespace} {{")
+    body = src[start:src.index(f"}}  // namespace {namespace}")]
+    return {m.group(1): int(m.group(2)) * int(m.group(3) or 1)
+            for m in re.finditer(
+                r"constexpr int (k\w+) = (\d+)(?: \* (\d+))?;", body)}
+
+
+def _cdiv(a, b):
+    return -(-a // b)
 
 
 class _FakeInt8Library:
-    """Stands in for the built library: records ``port_int8_matmul``'s
-    arguments and refuses what the C entry point refuses (a plan that is
-    not the fewest rows holding M, K ranges that do not tile K in
-    multiples of 32, shared memory over 48 KB, a grid over 65535 along y
-    or z, 16-byte loads off N % 16, no partials for several splits)."""
+    """Stands in for the built library: records the C entry points'
+    arguments and refuses what ``csrc/int8_matmul.cu`` refuses.
+    ``port_int8_matmul`` (hop::): anything but the plan its ``plan_for``
+    computes from (M, K, the weights' N) with the file's constants (rows
+    8, 16 or 32, the fewest holding M; K cut into at most
+    ``kMaxCluster`` ranges of a multiple of 16 rows, each at least one
+    64-row slot, toward ``kTargetCtas`` CTAs; x's window; 16-byte copies
+    only when every N is a multiple of 16), 1-3 weights, a grid over
+    65535 along y or z, and a plan whose shared memory exceeds what its
+    instantiation sets once (``max_smem``)."""
 
     def __init__(self):
         self.calls = []
+        self.c = _cu_constants("hop")
 
-    def port_int8_matmul(self, x, q, scale, y, part, m, k, n, vec, rows,
-                         splits, kps, dtype, device, stream):
-        self.calls.append((m, k, n, vec, rows, splits, kps))
-        fewest = rows in (1, 2, 4, 8) and rows >= min(m, 8) and (
-            rows == 1 or rows // 2 < m)
-        ok = (fewest and kps % 32 == 0 and (splits - 1) * kps < k
-              <= splits * kps
-              and rows * max(kps, 8 * 128) * 4 <= 49152
-              and splits <= 65535 and -(-m // rows) <= 65535
-              and vec == (16 if n % 16 == 0 else 1)
-              and (splits == 1 or part is not None) and dtype in (0, 1))
+    def _plan(self, m, k, ns, size):
+        c = self.c
+        rows = 8 if m <= 8 else 16 if m <= 16 else 32
+        tiles = sum(_cdiv(n, c["kTileN"]) for n in ns)
+        want = max(1, min(c["kMaxCluster"],
+                          _cdiv(c["kTargetCtas"], tiles * _cdiv(m, rows)),
+                          k // c["kStageK"]))
+        kps = _cdiv(_cdiv(k, want), c["kKAlign"]) * c["kKAlign"]
+        cap = ((c["kXBytes"] // (rows * size) - c["kXPad"]) // c["kStageK"]
+               * c["kStageK"])
+        xw = min(_cdiv(kps, c["kStageK"]) * c["kStageK"], cap)
+        vec = 16 if all(n % 16 == 0 for n in ns) else 1
+        ring = c["kStages"] * c["kStageK"] * c["kTileN"]
+        sums = (c["kThreads"] // 32 + 1) * 4 * rows * c["kTileN"]
+        smem = rows * (xw + c["kXPad"]) * size + max(ring, sums)
+        return rows, _cdiv(k, kps), kps, xw, vec, tiles, smem
+
+    def max_smem(self, rows, size):
+        """``hop::max_smem<T, rows>``: the plan's shared memory at x's
+        widest window, which the kernel's attribute is set to once."""
+        c = self.c
+        cap = ((c["kXBytes"] // (rows * size) - c["kXPad"]) // c["kStageK"]
+               * c["kStageK"])
+        ring = c["kStages"] * c["kStageK"] * c["kTileN"]
+        sums = (c["kThreads"] // 32 + 1) * 4 * rows * c["kTileN"]
+        return rows * (cap + c["kXPad"]) * size + max(ring, sums)
+
+    def port_int8_matmul(self, x, q0, q1, q2, s0, s1, s2, y0, y1, y2, n0,
+                         n1, n2, groups, m, k, vec, rows, splits, kps, xw,
+                         dtype, device, stream):
+        ns = (n0, n1, n2)[:groups]
+        self.calls.append((m, k, ns, vec, rows, splits, kps, xw))
+        if not 1 <= groups <= 3 or min(ns) < 1 or dtype not in (0, 1):
+            return 1
+        size = 4 if dtype == 0 else 2
+        want_rows, want_splits, want_kps, want_xw, want_vec, tiles, smem = \
+            self._plan(m, k, ns, size)
+        ok = ((rows, splits, kps, xw, vec) == (want_rows, want_splits,
+                                               want_kps, want_xw, want_vec)
+              and tiles <= 65535 and _cdiv(m, rows) <= 65535
+              and smem <= self.max_smem(rows, size))
         return 0 if ok else 1
+
+
+def _fake_int8(monkeypatch):
+    fake = _FakeInt8Library()
+    monkeypatch.setattr(kernels, "library", lambda: fake)
+    monkeypatch.setattr(kernels, "require_cuda", lambda name, *t: t[0].device)
+    monkeypatch.setattr(kernels, "launch_args", lambda device: (0, None))
+    return fake
+
+
+INT8_SWEEP_ROWS = (1, 2, 3, 5, 8, 9, 40, 100)
+INT8_SWEEP_SHAPES = ((768, 768), (768, 3072), (3072, 768), (768, 32000),
+                     (64, 259), (33, 7), (1, 129), (5000, 16), (100, 130))
 
 
 def test_int8_plan_fits_the_kernel_at_every_shape(monkeypatch):
     """``int8_plan`` is a function of the shape alone, keeps the kernel's
     constants, and every plan launches through the wrapper as the kernel
     checks it — GPT-small's weights, the cb --spec pair's vocab 259, and
-    tails of N and K that are not multiples of 16, 32 or 128. At decode
-    (M <= 8) on GPT-small's 768-deep weights K is split until the grid
-    has at least 72 CTAs, or into its 32-row steps."""
-    consts = _cu_constants()
-    assert (consts["kTileN"], consts["kMaxRows"], consts["kSmemFloats"],
-            consts["kTargetCtas"], consts["kColsThread"]) == (
-        im.TILE_N, im.MAX_ROWS, im.SMEM_FLOATS, im.TARGET_CTAS, im.VEC)
-    assert consts["kThreads"] // 32 * 4 == im.K_STEP
-    fake = _FakeInt8Library()
-    monkeypatch.setattr(kernels, "library", lambda: fake)
-    monkeypatch.setattr(kernels, "require_cuda", lambda name, *t: t[0].device)
-    monkeypatch.setattr(kernels, "launch_args", lambda device: (0, None))
+    tails of N and K that are not multiples of 16, 64 or 128, in bf16
+    and f32. A plan's K ranges tile K in multiples of 16 in at most 8
+    (one cluster), each but a one-range plan at least 64 rows; x's
+    window is a whole number of 64-row slots within 48 KB; a CTA's
+    shared memory is at most what the kernel sets once for its
+    instantiation (``max_smem``), which fits the card. At decode (M <= 8) on GPT-small's
+    768-deep weights the grid has at least 72 CTAs."""
+    consts = _cu_constants("hop")
+    assert (consts["kTileN"], consts["kStageK"], consts["kStages"],
+            consts["kKAlign"], consts["kMaxCluster"], consts["kTargetCtas"],
+            consts["kXBytes"], consts["kXPad"], consts["kMaxGroups"]) == (
+        im.TILE_N, im.STAGE_K, im.STAGES, im.K_ALIGN, im.MAX_CLUSTER,
+        im.TARGET_CTAS, im.X_BYTES, im.X_PAD, im.MAX_GROUPS)
+    assert consts["kThreads"] // 32 == im.PARTS
+    fake = _fake_int8(monkeypatch)
     before = im.launches
     calls = 0
-    for m in (1, 2, 3, 5, 8, 9, 40, 100):
-        for k, n in ((768, 768), (768, 3072), (3072, 768), (768, 32000),
-                     (64, 259), (33, 7), (1, 129), (5000, 16), (100, 130)):
-            plan = im.int8_plan(m, k, n, torch.bfloat16)
-            assert plan == im.int8_plan(m, k, n, torch.float32)
-            x = torch.zeros(m, k, dtype=torch.bfloat16, device="meta")
-            q = torch.zeros(k, n, dtype=torch.int8, device="meta")
-            scale = torch.zeros(n, device="meta")
-            y = im.int8_matmul(x, q, scale)
-            calls += 1
-            assert y.shape == (m, n) and y.dtype == torch.bfloat16
-            assert fake.calls[-1] == (m, k, n) + tuple(plan)
-            ctas = (-(-n // im.TILE_N)) * plan.splits * (-(-m // plan.rows))
-            if m <= 8 and k == 768:
-                assert 72 <= ctas or plan.splits == -(-k // 32)
+    for m in INT8_SWEEP_ROWS:
+        for k, n in INT8_SWEEP_SHAPES:
+            for dtype in (torch.bfloat16, torch.float32):
+                plan = im.int8_plan(m, k, n, dtype)
+                assert plan == im.int8_plan(m, k, (n,), dtype)
+                assert plan.rows == next(r for r in (8, 16, 32)
+                                         if r >= min(m, 32))
+                assert 1 <= plan.splits <= im.MAX_CLUSTER
+                assert plan.k_per_split % im.K_ALIGN == 0
+                assert ((plan.splits - 1) * plan.k_per_split < k
+                        <= plan.splits * plan.k_per_split)
+                assert plan.splits == 1 or plan.k_per_split >= im.STAGE_K
+                assert plan.x_window % im.STAGE_K == 0
+                assert (plan.rows * (plan.x_window + im.X_PAD)
+                        * dtype.itemsize <= im.X_BYTES)
+                size = dtype.itemsize
+                assert plan.smem == fake._plan(m, k, (n,), size)[-1]
+                assert plan.smem <= fake.max_smem(plan.rows, size) <= 232448
+                x = torch.zeros(m, k, dtype=dtype, device="meta")
+                q = torch.zeros(k, n, dtype=torch.int8, device="meta")
+                scale = torch.zeros(n, device="meta")
+                y = im.int8_matmul(x, q, scale)
+                calls += 1
+                assert y.shape == (m, n) and y.dtype == dtype
+                assert fake.calls[-1] == (m, k, (n,), plan.vec, plan.rows,
+                                          plan.splits, plan.k_per_split,
+                                          plan.x_window)
+                ctas = _cdiv(n, im.TILE_N) * plan.splits * _cdiv(m, plan.rows)
+                if m <= 8 and k == 768:
+                    assert ctas >= 72
     assert im.launches == before + calls
+    # the kernel's attribute, set once an instantiation, is the widest
+    # window's plan: no lower than a plan can ask
+    for dtype in (torch.bfloat16, torch.float32):
+        plan = im.int8_plan(8, 64 * 8 * 1024, 64, dtype)
+        assert plan.smem == fake.max_smem(8, dtype.itemsize)
     with pytest.raises(TypeError):
         im.int8_plan(8, 768, 768, torch.float16)
     with pytest.raises(ValueError):
         im.int8_plan(0, 768, 768, torch.float32)
+    with pytest.raises(ValueError):
+        im.int8_plan(8, 768, (768,) * 4, torch.float32)
+
+
+def test_int8_group_is_one_launch(monkeypatch):
+    """A grouped call (GPT-small's query, key and value; a GQA cut whose
+    key and value are narrower; a SwiGLU gate and input) is one launch
+    of ``port_int8_matmul`` with every weight's N, counted once, its
+    plan tiling the weights' columns together; a weight whose N is not a
+    multiple of 16 takes byte loads for the group."""
+    fake = _fake_int8(monkeypatch)
+    for m, k, ns in ((8, 768, (768, 768, 768)), (8, 1024, (1024, 256, 256)),
+                     (40, 768, (3072, 3072)), (3, 64, (64, 259))):
+        for dtype in (torch.bfloat16, torch.float32):
+            before = im.launches
+            x = torch.zeros(m, k, dtype=dtype, device="meta")
+            weights = [(torch.zeros(k, n, dtype=torch.int8, device="meta"),
+                        torch.zeros(n, device="meta")) for n in ns]
+            ys = im.int8_matmul_group(x, weights)
+            assert im.launches == before + 1
+            assert [tuple(y.shape) for y in ys] == [(m, n) for n in ns]
+            plan = im.int8_plan(m, k, ns, dtype)
+            assert fake.calls[-1] == (m, k, ns, plan.vec, plan.rows,
+                                      plan.splits, plan.k_per_split,
+                                      plan.x_window)
+            assert plan.vec == (16 if all(n % 16 == 0 for n in ns) else 1)
+    # GPT-small's decode step: the q/k/v group fills the card without
+    # more splits than one 768-wide weight needs
+    assert im.int8_plan(8, 768, (768,) * 3, torch.bfloat16).splits <= \
+        im.int8_plan(8, 768, 768, torch.bfloat16).splits
+
+
+@pytest.mark.parametrize("ffn", ["gelu", "swiglu"])
+def test_k6_launches_per_step_counts_the_dense_groups(ffn, monkeypatch):
+    """``CausalLM.k6_launches_per_step`` is what an in-loop forward
+    launches: one for each layer's query/key/value, one for SwiGLU's gate
+    and input, one for each other int8 Dense, one for lm_head (2 layers:
+    9 either way, from 13 and 15 int8 Dense); a float model launches
+    none, and a forward outside the loop dequantizes instead."""
+    from pyspark_tf_gke_tpu_torch.models import layers
+
+    _, _, tmodel = _int8_pair(ffn=ffn)
+    launched = []
+    single, group = layers.int8_matmul, layers.int8_matmul_group
+    monkeypatch.setattr(layers, "int8_matmul", lambda *a: (
+        launched.append(1), single(*a))[1])
+    monkeypatch.setattr(layers, "int8_matmul_group", lambda x, w: (
+        launched.append(len(w)), group(x, w))[1])
+    ids = torch.ones(2, 1, dtype=torch.long)
+    cache = tlm.DenseCache(tmodel.cfg, 2, tmodel.cfg.max_seq_len, "cpu")
+    with torch.inference_mode():
+        tmodel(ids, positions=torch.zeros(2, 1, dtype=torch.long),
+               cache=cache, inloop=True)
+    assert len(launched) == tmodel.k6_launches_per_step() == 9
+    assert sum(launched) == TINY["num_layers"] * (
+        7 if ffn == "swiglu" else 6) + 1
+    launched.clear()
+    with torch.inference_mode():
+        tmodel(ids, positions=torch.ones(2, 1, dtype=torch.long),
+               cache=cache)
+    assert not launched
+    float_model = tlm.CausalLM(tmodel.cfg)
+    assert float_model.k6_launches_per_step() == 0
 
 
 # -- weights resident ---------------------------------------------------------

@@ -324,8 +324,8 @@ def test_dot_product_attention_fully_masked_row_is_zero():
 # -- K1: paged attention -----------------------------------------------------
 
 
-def _paged_inputs(rng, g, sq, quant):
-    n, ps, hkv, d, b, mp = 12, 8, 2, 16, 6, 4
+def _paged_inputs(rng, g, sq, quant, d=16):
+    n, ps, hkv, b, mp = 12, 8, 2, 6, 4
     h = hkv * g
     if quant:
         kp = rng.integers(-127, 128, (n, ps, hkv, d)).astype(np.int8)
@@ -460,13 +460,45 @@ def test_paged_split_merge_matches_jax_kernel(g, sq, quant, pages_per_split):
     assert np.all(out.numpy()[0] == 0.0)  # empty slot: exact zeros
 
 
+@pytest.mark.parametrize("quant", [False, True], ids=["f32", "int8"])
+@pytest.mark.parametrize("g", [1, 2])
+def test_paged_split_merge_matches_jax_kernel_at_head_dim_128(g, quant):
+    """The decode variant's split-then-merge at head_dim 128 (the width
+    the decode and chunk variants take besides 64), emulated in plain
+    PyTorch with two table entries a split, against the JAX kernel
+    (``interpret=True``) and against the port's plain version, at the
+    fills of ``_paged_inputs`` (decode steps, and the 8-token pages'
+    chunk of 4 queries)."""
+    for sq in (1, 4):
+        rng = np.random.default_rng(140 + 4 * g + sq)
+        q, kp, vp, table, fills, ks, vs = _paged_inputs(rng, g, sq, quant,
+                                                        d=128)
+        jscales = ({} if ks is None else
+                   dict(k_scales=jnp.asarray(ks), v_scales=jnp.asarray(vs)))
+        ref = jax_paged_chunk(jnp.asarray(q), jnp.asarray(kp),
+                              jnp.asarray(vp), jnp.asarray(table),
+                              jnp.asarray(fills), interpret=True, **jscales)
+        tks = None if ks is None else _t(ks)
+        tvs = None if vs is None else _t(vs)
+        out = _split_merge_plain(_t(q), _t(kp), _t(vp), _t(table),
+                                 _t(fills), tks, tvs, 2)
+        np.testing.assert_allclose(out.numpy(), np.asarray(ref),
+                                   atol=OP_ATOL)
+        plain = t_paged.paged_attention_chunk_plain(
+            _t(q), _t(kp), _t(vp), _t(table), _t(fills), tks, tvs)
+        np.testing.assert_allclose(plain.numpy(), np.asarray(ref),
+                                   atol=OP_ATOL)
+        assert np.all(out.numpy()[0] == 0.0)
+
+
 class _FakeKernelLibrary:
     """Stands in for the built kernel library: records the K1 launch's
     arguments and refuses what ``port_paged_attention`` refuses, variant
     by variant (``csrc/paged_attention.cu``): a decode plan whose splits
-    do not cover the table, rows outside 1-8, a ring over its shared
-    memory or no scratch for several splits; a chunk plan off its bf16
-    query, 64-token pages, head_dim 64 and 128 rows; a first-design row
+    do not cover the table, rows outside 1-8, a head_dim other than 64
+    and 128, a ring over its shared memory or no scratch for several
+    splits; a chunk plan off its bf16 query, 64-token pages, head_dim 64
+    or 128 and 128 rows; a first-design row
     block over the group's rows or its shared memory; more than 65535
     blocks."""
 
@@ -483,13 +515,13 @@ class _FakeKernelLibrary:
         self.calls.append((s, rows, blocks, variant, splits, pps))
         if variant == t_paged.VARIANTS["decode"]:
             kv_size = 1 if kvcode == 2 else 4 if kvcode == 0 else 2
-            ok = (d == 64 and p % 16 == 0 and pps > 0
+            ok = (d in (64, 128) and p % 16 == 0 and pps > 0
                   and splits == -(-mp // pps) and splits * blocks <= 65535
                   and 1 <= stages <= 4 and rows in (1, 2, 4, 8)
-                  and t_paged.decode_smem(rows, stages, kv_size) <= 232448
-                  and (splits == 1 or part is not None))
+                  and t_paged.decode_smem(rows, stages, kv_size, d)
+                  <= 232448 and (splits == 1 or part is not None))
         elif variant == t_paged.VARIANTS["chunk"]:
-            ok = (qcode == 1 and d == 64 and p == 64 and rows == 128
+            ok = (qcode == 1 and d in (64, 128) and p == 64 and rows == 128
                   and splits == 1 and pps == mp and stages == 2
                   and blocks <= 65535)
         else:
@@ -589,8 +621,40 @@ def test_paged_plan_splits_the_table_and_takes_decode_for_small_chunks(
     for an f32 one, and the first design otherwise.
     Every plan for S up to 2048 and tables of 1 to 5000 entries launches
     through the wrapper (the launch recorded, as the kernel checks it)."""
+    _check_paged_plans(g, kv, 64, monkeypatch)
+
+
+@pytest.mark.parametrize("kv", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("g", [1, 2, 4, 8])
+def test_paged_plan_takes_decode_and_chunk_at_head_dim_128(g, kv,
+                                                           monkeypatch):
+    """The same plan rules at head_dim 128 (H = 8, the phase-7c model's
+    width and its GQA cuts): the decode and chunk variants take D 128
+    (a decode ring slot twice D 64's, so fewer stages fit its budget;
+    the chunk variant's shared memory is a 32 KB Q tile and two 32 KB
+    K/V slots), every plan launches through the wrapper as the kernel
+    checks it, and a head width neither variant takes (96) goes to the
+    first design."""
+    _check_paged_plans(g, kv, 128, monkeypatch, h=8)
+    for kv_size, stages in ((1, 3), (2, 2), (4, 1)):
+        kvdtype = {1: torch.int8, 2: torch.bfloat16, 4: torch.float32}[
+            kv_size]
+        qdtype = torch.float32 if kv_size == 4 else torch.bfloat16
+        # 8 slots of 32 pages: each split walks enough key groups to
+        # fill its ring
+        plan = t_paged.paged_plan(8, 1, 8, 8, 128, 64, 32, qdtype, kvdtype)
+        assert plan.variant == "decode" and plan.stages == stages
+    piece = t_paged.paged_plan(8, 256, 8, 8, 128, 64, 16, torch.bfloat16,
+                               torch.bfloat16)
+    assert piece.variant == "chunk" and piece.smem == 1024 + 3 * 32768
+    for s in (1, 256):
+        assert t_paged.paged_plan(8, s, 8, 8, 96, 64, 16, torch.bfloat16,
+                                  torch.bfloat16).variant == "rows"
+
+
+def _check_paged_plans(g, kv, d, monkeypatch, h=12):
     fake = _fake_library(monkeypatch)
-    h, hkv, d, p = 12, 12 // g, 64, 64
+    hkv, p = h // g, 64
     pages, scales, qdtype = _paged_pages(kv, 4, p, hkv, d)
     decode = t_paged.VARIANTS["decode"]
     for b in (1, 8, 64):
@@ -620,7 +684,7 @@ def test_paged_plan_splits_the_table_and_takes_decode_for_small_chunks(
                             or plan.splits == mp
                             or plan.splits * plan.blocks > 65535 // 2)
                     assert plan.smem == t_paged.decode_smem(
-                        plan.rows, plan.stages, pages.element_size())
+                        plan.rows, plan.stages, pages.element_size(), d)
                 elif qdtype == torch.bfloat16:
                     assert plan.variant == "chunk" and plan.rows == 128
                 else:
