@@ -218,6 +218,28 @@
    to epoch 2, every training kernel's counter must move, and the
    exported bundle must load and generate on the card; then profiles
    two steady training steps;
+6c. the rest of the LM training plane at GPT-2's vocabulary (50257, a
+   local WordLevel tokenizer of that size saved with ``save_pretrained``):
+   (a) a seeded Zipf corpus packed by the port's text bridge into token
+   shards and their sidecar, then ``lm_pretrain --data-format tokens
+   --vocab-chunks 8 --optimizer adafactor --weight-decay 0.01
+   --async-checkpoint --checkpoint-every-steps 5`` at GPT-small width
+   (seq 512, batch 16, bf16), 2 epochs x 10 steps with an int8 export:
+   finite losses falling from epoch 1 to 2, K2f, K2dq, K2dkv, K3 and K3b
+   launched, ``train_steps_total`` up by 20, the steps on disk and both
+   ``history.json`` files equal to the run's; ``--resume`` continues the
+   step count to 30, and a ``--optimizer lamb`` run trains 10 steps; the
+   stall of an asynchronous save on the next step against a synchronous
+   one, in turns; (b) the chunked loss against the dense f32-logit loss
+   at B=16 S=512 V=50257 E=768 bf16: loss, argmax and the gradients of
+   hidden, kernel and bias within the stated tolerance, each path's
+   peak allocated memory over loss and backward (the chunked one at
+   least 1 GiB lower) and its ms; (c) five LAMB and Adafactor updates of
+   a flax-shaped tree on the card against the same updates on the CPU
+   (1e-5 of each leaf's largest value); (d) ``lm_eval`` on (a)'s bundle
+   (perplexity, a greedy and a 4-beam sample; K6, K2f and K3 launched),
+   then ``--endpoint`` against a ``BundleServer`` on the card serving it
+   (finite mean NLL);
 7. checks training parity on the card: a 2-layer f32 model trains 3
    steps with the kernels and with ``use_kernels=False`` from one init
    (losses and step-0 gradients agree), and full-width bf16 step-0 loss
@@ -5179,6 +5201,389 @@ BERT_FLAGS = ["--seq-len", str(BERT_SEQ), "--batch-size", str(BERT_BATCH),
               "--seed", "0"]
 
 
+# -- phase 6c: the rest of the LM training plane ---------------------------------
+
+# GPT-2's vocabulary size: the width --vocab-chunks exists for
+LM_PLANE_VOCAB = 50257
+LM_PLANE_FLAGS = ["--data-format", "tokens", "--seq-len", "512",
+                  "--batch-size", "16", "--compute-dtype", "bfloat16",
+                  "--learning-rate", "1e-2", "--steps-per-epoch", "10",
+                  "--seed", "0", "--vocab-chunks", "8",
+                  "--async-checkpoint", "--checkpoint-every-steps", "5"]
+# the chunked loss against the dense f32-logit loss: the loss sums the
+# same bf16 products in f32 (another order); the gradients' products take
+# the logit gradient rounded to bf16 (phase 3d's bf16 rule, relative L2)
+CE_LOSS_ATOL = 1e-3
+CE_ARGMAX_AGREE = 0.999
+CE_GRAD_REL_L2 = 1e-2
+# LAMB / Adafactor on the card against the CPU, of each leaf's largest
+# value (f32 formulas, reductions summed in another order)
+OPT_REL = 1e-5
+OPT_SHAPES = {"layer_0/attention/query/kernel": (768, 768),
+              "layer_0/mlp_in/kernel": (768, 3072),
+              "layer_0/mlp_in/bias": (3072,),
+              "ln_final/scale": (768,), "wpe/embedding": (512, 768),
+              "conv/kernel": (3, 3, 128, 256), "small/kernel": (64, 100)}
+
+
+def _wordlevel_tokenizer_dir(path: Path, vocab: int = LM_PLANE_VOCAB) -> str:
+    """A WordLevel tokenizer of exactly ``vocab`` tokens (``<pad>``,
+    ``<eos>``, ``<unk>`` and the words ``w0``...), split on whitespace,
+    saved with ``save_pretrained`` (no download)."""
+    from tokenizers import Tokenizer, models, pre_tokenizers
+    from transformers import PreTrainedTokenizerFast
+
+    specials = ["<pad>", "<eos>", "<unk>"]
+    words = specials + [f"w{i}" for i in range(vocab - len(specials))]
+    tok = Tokenizer(models.WordLevel(
+        vocab={w: i for i, w in enumerate(words)}, unk_token="<unk>"))
+    tok.pre_tokenizer = pre_tokenizers.WhitespaceSplit()
+    PreTrainedTokenizerFast(
+        tokenizer_object=tok, eos_token="<eos>", pad_token="<pad>",
+        unk_token="<unk>").save_pretrained(str(path))
+    return str(path)
+
+
+def _zipf_docs(n: int, seed: int, vocab: int = LM_PLANE_VOCAB) -> list:
+    """Documents of 60-120 words ``w{k}`` with Zipf-distributed ``k``."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    docs = []
+    for _ in range(n):
+        # the tail folds back over the words (no clipped spike)
+        ks = (rng.zipf(1.2, rng.integers(60, 121)) - 1) % (vocab - 3)
+        docs.append(" ".join(f"w{k}" for k in ks))
+    return docs
+
+
+def write_token_corpus(root: Path, tokenizer: str, seq_len: int = 512,
+                       docs: int = 2400, shards: int = 4) -> str:
+    """Token shards of a seeded Zipf corpus through the port's text
+    bridge (the executor body of each partition, then the sidecar);
+    returns the shards' glob."""
+    from pyspark_tf_gke_tpu_torch.etl.text_bridge import (
+        tokenize_partition_docs, write_shard_metadata)
+
+    root.mkdir(parents=True, exist_ok=True)
+    prefix = str(root / "lm")
+    corpus = _zipf_docs(docs, seed=0)
+    for i in range(shards):
+        list(tokenize_partition_docs(i, corpus[i::shards], prefix, seq_len,
+                                     tokenizer_spec=tokenizer,
+                                     num_shards=shards))
+    write_shard_metadata(prefix, seq_len, tokenizer_spec=tokenizer)
+    return f"{prefix}-*.tfrecord"
+
+
+def _train_total() -> float:
+    from pyspark_tf_gke_tpu_torch.obs.metrics import platform_families
+
+    return platform_families()["train_steps_total"].value
+
+
+def _lm_plane_cli(torch, dev, counters, work: Path, tok: str, shards: str):
+    """(a): the token-shard CLI with chunked CE, Adafactor and async
+    checkpoints, its resume, and a LAMB run."""
+    from pyspark_tf_gke_tpu_torch.train.checkpoint import CheckpointManager
+    from pyspark_tf_gke_tpu_torch.train.lm_pretrain import main as lm_main
+
+    run, bundle = work / "run", work / "bundle"
+    base = ["--data-pattern", shards, "--tokenizer", tok, *LM_PLANE_FLAGS,
+            "--device", str(dev)]
+    _reset(torch, counters)
+    steps_before = _train_total()
+    t0 = time.perf_counter()
+    history = lm_main(base + ["--optimizer", "adafactor", "--weight-decay",
+                              "0.01", "--epochs", "2", "--output-dir",
+                              str(run), "--export-bundle", str(bundle)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _moved(counters)
+    losses = history["loss"]
+    log(f"  lm_pretrain tokens + vocab chunks 8 + adafactor + async "
+        f"checkpoints, 2 x 10 steps in {wall:.1f} s (model init, shards, "
+        f"training, checkpoints, int8 export)")
+    for key in ("loss", "next_token_accuracy", "step_time_ms",
+                "examples_per_sec"):
+        log(f"  {key}: {history[key]}")
+    log(f"  step time at vocab {LM_PLANE_VOCAB}: {history['step_time_ms']}"
+        f" ms ({CARD})")
+    log(f"  kernel launches (20 steps): {launches}")
+    check(all(math.isfinite(v) for v in losses), f"non-finite loss {losses}")
+    check(losses[1] < losses[0], f"epoch-2 mean loss {losses[1]} is not "
+          f"below epoch 1's {losses[0]}")
+    for name, n in launches.items():
+        check(n > 0, f"kernel {name} was not launched by lm_pretrain")
+    steps = _train_total() - steps_before
+    check(steps == 20, f"train_steps_total moved by {steps}, not 20")
+    on_disk = CheckpointManager(str(run / "checkpoints")).all_steps()
+    check(on_disk == [10, 20], f"checkpoint steps on disk {on_disk}")
+    for path in (run / "history.json", run / "checkpoints" / "history.json"):
+        check(json.loads(path.read_text()) == history,
+              f"{path.name} under {path.parent.name} is not the run's")
+    lm_main(base + ["--optimizer", "adafactor", "--weight-decay", "0.01",
+                    "--epochs", "1", "--output-dir", str(run), "--resume"])
+    notes = (run / "causal-lm.txt").read_text()
+    check("final step: 30" in notes, "--resume did not continue the step "
+          "count from 20 to 30")
+    lamb = lm_main(base + ["--optimizer", "lamb", "--weight-decay", "0.01",
+                           "--epochs", "1", "--output-dir",
+                           str(work / "lamb")])
+    check(all(math.isfinite(v) for v in lamb["loss"]),
+          f"lamb: non-finite loss {lamb['loss']}")
+    log(f"  resume: step 20 -> 30; lamb: loss {lamb['loss']}, "
+        f"{lamb['step_time_ms']} ms/step")
+    return launches, history, bundle
+
+
+def _checkpoint_stall(torch, dev, work: Path):
+    """The host time of one step after a synchronous, an asynchronous or
+    no save of the GPT-small state at vocab 50257 (Adafactor, chunked
+    loss), in turns; returns each mode's median ms."""
+    from pyspark_tf_gke_tpu_torch.models.causal_lm import (CausalLM,
+                                                           CausalLMConfig,
+                                                           init_params)
+    from pyspark_tf_gke_tpu_torch.train.checkpoint import CheckpointManager
+    from pyspark_tf_gke_tpu_torch.train.harness import make_optimizer
+    from pyspark_tf_gke_tpu_torch.train.trainer import Trainer, causal_lm_task
+
+    cfg = CausalLMConfig(vocab_size=LM_PLANE_VOCAB, max_seq_len=512,
+                         dtype=torch.bfloat16)
+    with torch.device(dev):
+        model = CausalLM(cfg, param_dtype=torch.float32)
+    model.load_params(init_params(cfg, seed=0))
+    trainer = Trainer(model, causal_lm_task(8),
+                      tx=make_optimizer(1e-2, optimizer="adafactor"))
+    state = trainer.init_state()
+    g = torch.Generator(device=dev).manual_seed(0)
+    batch = {"input_ids": torch.randint(0, LM_PLANE_VOCAB, (16, 512),
+                                        generator=g, device=dev)}
+    managers = {mode: CheckpointManager(str(work / f"stall-{mode}"),
+                                        async_save=mode == "async")
+                for mode in ("sync", "async")}
+    times = {"none": [], "sync": [], "async": []}
+    for _ in range(2):
+        trainer.step(state, batch)  # warm-up
+    for mode in ("none", "sync", "async", "async", "sync", "none") * 2:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if mode != "none":
+            managers[mode].save(state, force=True)
+        trainer.step(state, batch)
+        torch.cuda.synchronize()
+        times[mode].append((time.perf_counter() - t0) * 1e3)
+        if mode == "async":
+            managers[mode].wait()  # the write ends outside the clock
+    for m in managers.values():
+        m.close()
+    med = {k: statistics.median(v) for k, v in times.items()}
+    log(f"  a step after no save / a synchronous / an asynchronous save "
+        f"(state {sum(p.numel() for p in state.params.values()) / 1e6:.1f}M "
+        f"params + Adafactor): {med['none']:.1f} / {med['sync']:.1f} / "
+        f"{med['async']:.1f} ms (runs {times}); stall sync "
+        f"{med['sync'] - med['none']:.1f}, async "
+        f"{med['async'] - med['none']:.1f} ms ({CARD})")
+    return med
+
+
+def check_chunked_ce(torch, dev, b=16, s=512, e=768, v=LM_PLANE_VOCAB,
+                     chunks=8):
+    """(b): ``chunked_cross_entropy`` against the dense f32-logit loss
+    on the trainer's operands (bf16 hidden states, the f32 head kernel
+    cast to bf16, an f32 bias); prints each path's peak memory and ms."""
+    import torch.nn.functional as F
+
+    from pyspark_tf_gke_tpu_torch.ops.chunked_ce import chunked_cross_entropy
+
+    n = b * (s - 1)
+    g = torch.Generator(device=dev).manual_seed(0)
+    hidden = torch.randn(n, e, generator=g, device=dev).to(torch.bfloat16)
+    master = torch.randn(e, v, generator=g, device=dev) * 0.02
+    bias = torch.randn(v, generator=g, device=dev) * 0.02
+    labels = torch.randint(0, v, (n,), generator=g, device=dev)
+
+    def leaves():
+        return [t.detach().clone().requires_grad_()
+                for t in (hidden, master, bias)]
+
+    def chunked(h, k, bb):
+        loss, amax = chunked_cross_entropy(h, k.to(torch.bfloat16), bb,
+                                           labels, chunks)
+        return loss, amax
+
+    def dense(h, k, bb):
+        logits = h.float() @ k.to(torch.bfloat16).float() + bb
+        return F.cross_entropy(logits, labels, reduction="none"), \
+            logits.argmax(-1)
+
+    results, peaks, times = {}, {}, {}
+    for name, fn in (("dense", dense), ("chunked", chunked)):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        h, k, bb = leaves()
+        loss, amax = fn(h, k, bb)
+        loss.mean().backward()
+        torch.cuda.synchronize()
+        peaks[name] = torch.cuda.max_memory_allocated(dev) - base
+        results[name] = (loss.detach(), amax, h.grad, k.grad, bb.grad)
+        del h, k, bb, loss, amax
+
+        def step(fn=fn):
+            h, k, bb = leaves()
+            fn(h, k, bb)[0].mean().backward()
+
+        times[name] = cuda_ms(step, warmup=1, iters=3, reps=3)
+        wall, busy, top = _profiled(torch, step)
+        log(f"  {name} loss + backward profiled: wall {wall:.2f} ms, device "
+            f"busy {busy:.2f} ms; top: " + ", ".join(
+                f"{k[:40]} {ms:.2f}" for k, ms in top[:6]))
+    (dl, da, dh, dk, db), (cl, ca, ch, ck, cb) = (results["dense"],
+                                                  results["chunked"])
+    loss_err = float((cl - dl).abs().max())
+    agree = float((ca.long() == da).float().mean())
+    acc = [float((a.long() == labels).float().mean()) for a in (da, ca)]
+    rel = {name: float((x.float() - y.float()).norm()
+                       / y.float().norm().clamp_min(1e-30))
+           for name, x, y in (("hidden", ch, dh), ("kernel", ck, dk),
+                              ("bias", cb, db))}
+    log(f"  chunked CE ({chunks} chunks) vs dense f32 logits, N={n} E={e} "
+        f"V={v} bf16: loss max_abs_err {loss_err:.3e} (tolerance "
+        f"{CE_LOSS_ATOL}); argmax agreement {agree:.6f} (>= "
+        f"{CE_ARGMAX_AGREE}), accuracy {acc[1]:.6f} vs {acc[0]:.6f}; "
+        f"gradients relative L2 {rel} (tolerance {CE_GRAD_REL_L2})")
+    log(f"  peak allocated over loss + backward: dense {peaks['dense'] / 2**20:.1f} MiB, "
+        f"chunked {peaks['chunked'] / 2**20:.1f} MiB; loss + backward "
+        f"dense {times['dense']:.3f} ms, chunked {times['chunked']:.3f} ms "
+        f"({CARD})")
+    check(loss_err <= CE_LOSS_ATOL and bool(torch.isfinite(cl).all()),
+          f"chunked loss off the dense loss by {loss_err}")
+    check(agree >= CE_ARGMAX_AGREE, f"argmax agreement {agree}")
+    for name, r in rel.items():
+        check(r <= CE_GRAD_REL_L2, f"chunked CE d{name} relative L2 {r}")
+    check(peaks["chunked"] <= peaks["dense"] - 2**30,
+          f"chunked peak {peaks['chunked']} B is not 1 GiB below the "
+          f"dense {peaks['dense']} B")
+    return {"peaks": peaks, "ms": times}
+
+
+def check_optimizers_on_card(torch, dev):
+    """(c): five LAMB and Adafactor updates (weight decay, clipping,
+    warmup_cosine) of a flax-shaped tree on the card against the CPU."""
+    import numpy as np
+
+    from pyspark_tf_gke_tpu_torch.train.harness import make_optimizer
+
+    rng = np.random.default_rng(0)
+    params = {k: rng.normal(0, 0.05, s).astype(np.float32)
+              for k, s in OPT_SHAPES.items()}
+    grads = [{k: rng.normal(0, 1, s).astype(np.float32)
+              for k, s in OPT_SHAPES.items()} for _ in range(5)]
+    for name in ("lamb", "adafactor"):
+        out = {}
+        for where in ("cpu", dev):
+            tx = make_optimizer(1e-2, optimizer=name, weight_decay=0.01,
+                                grad_clip_norm=1.0,
+                                schedule="warmup_cosine", warmup_steps=2,
+                                total_steps=10)
+            p = {k: torch.tensor(v, device=where) for k, v in params.items()}
+            st = tx.init(p)
+            for gr in grads:
+                tx.update({k: torch.tensor(v, device=where)
+                           for k, v in gr.items()}, st, p)
+            out[str(where)] = {k: t.cpu() for k, t in p.items()}
+        worst = max(float((out[str(dev)][k] - out["cpu"][k]).abs().max()
+                          / out["cpu"][k].abs().max()) for k in params)
+        log(f"  {name}: 5 updates on the card vs the CPU, worst error of a "
+            f"leaf's largest value {worst:.2e} (tolerance {OPT_REL})")
+        check(worst <= OPT_REL, f"{name} on the card disagrees with the CPU")
+
+
+def run_lm_eval(torch, dev, counters, bundle: Path, tok: str, work: Path):
+    """(d): ``lm_eval`` in bundle mode on the card, then against a
+    ``BundleServer`` on the card."""
+    from pyspark_tf_gke_tpu_torch.evaluate.lm_eval import main as eval_main
+
+    heldout = work / "heldout"
+    heldout.mkdir(parents=True, exist_ok=True)
+    (heldout / "part-0.txt").write_text("\n\n".join(_zipf_docs(64, 9)) + "\n")
+    pattern = str(heldout / "*.txt")
+    _reset(torch, counters)
+    t0 = time.perf_counter()
+    greedy = eval_main(["--bundle", str(bundle), "--data-pattern", pattern,
+                        "--batches", "2", "--batch-size", "8", "--prompt",
+                        "w1 w2 w3", "--max-new-tokens", "16", "--device",
+                        str(dev)])
+    beams = eval_main(["--bundle", str(bundle), "--prompt", "w4 w1",
+                       "--max-new-tokens", "16", "--num-beams", "4",
+                       "--device", str(dev)])
+    torch.cuda.synchronize()
+    launches = _moved(counters)
+    log(f"  lm_eval on the int8 bundle in {time.perf_counter() - t0:.1f} s: "
+        f"perplexity {greedy['perplexity']:.2f} over {greedy['tokens']} "
+        f"tokens; greedy {greedy['samples'][0]['completion'][:80]!r}; "
+        f"4 beams {beams['samples'][0]['completion'][:80]!r} (score "
+        f"{beams['samples'][0]['beam_score']:.3f}); launches {launches}")
+    check(math.isfinite(greedy["perplexity"]) and greedy["quantized"],
+          f"lm_eval perplexity {greedy.get('perplexity')}")
+    for out in (greedy, beams):
+        check(out["samples"][0]["completion"].startswith(
+            out["samples"][0]["prompt"]), "a sample did not decode")
+    for name, n in launches.items():
+        check(n > 0, f"kernel {name} was not launched by lm_eval")
+    server, httpd, thread, url = _serve_bundle(torch, dev, bundle)
+    try:
+        remote = eval_main(["--endpoint", url, "--data-pattern", pattern,
+                            "--batches", "1", "--batch-size", "4",
+                            "--prompt", "w7 w8", "--max-new-tokens", "8"])
+    finally:
+        _unserve(server, httpd, thread)
+    log(f"  lm_eval --endpoint: mean NLL {remote['mean_nll']:.4f} over "
+        f"{remote['tokens']} tokens, sample "
+        f"{remote['samples'][0]['completion'][:60]!r}")
+    check(math.isfinite(remote["mean_nll"]) and remote["tokens"] > 0,
+          f"lm_eval --endpoint mean NLL {remote.get('mean_nll')}")
+    return launches
+
+
+def _lm_eval_counters():
+    """The kernels ``lm_eval`` runs on an int8 bundle: K3 and K2f (the
+    perplexity forward, the prompts' prefill) and K6 (the decode loop)."""
+    serve = _serve_counters()
+    return {k: serve[k] for k in ("layernorm", "flash_attention_fwd",
+                                  "int8_matmul")}
+
+
+def run_lm_plane(torch, dev):
+    """Phase 6c; returns the CLI's and ``lm_eval``'s launches and the
+    measurements."""
+    from pyspark_tf_gke_tpu_torch.data.text import get_tokenizer
+
+    work = PORT_PKG / "_build" / "chip_smoke_lm_plane"
+    shutil.rmtree(work, ignore_errors=True)
+    t0 = time.perf_counter()
+    tok = _wordlevel_tokenizer_dir(work / "tokenizer")
+    check(get_tokenizer(tok).vocab_size == LM_PLANE_VOCAB,
+          "the WordLevel tokenizer's vocabulary is not 50257")
+    shards = write_token_corpus(work / "shards", tok)
+    log(f"  tokenizer and token shards in {time.perf_counter() - t0:.1f} s")
+    launches, history, bundle = _lm_plane_cli(torch, dev, _train_counters(),
+                                              work, tok, shards)
+    torch.cuda.empty_cache()
+    stall = _checkpoint_stall(torch, dev, work)
+    torch.cuda.empty_cache()
+    ce = check_chunked_ce(torch, dev)
+    torch.cuda.empty_cache()
+    check_optimizers_on_card(torch, dev)
+    eval_launches = run_lm_eval(torch, dev, _lm_eval_counters(), bundle,
+                                tok, work)
+    shutil.rmtree(work, ignore_errors=True)
+    log(f"  phase 6c took {time.perf_counter() - t0:.1f} s")
+    return launches, eval_launches, {"stall_ms": stall, **ce}
+
+
 def write_bert_shards(root: Path, n: int = 1024, seed: int = 0) -> str:
     """ETL-bridge shards written by the port's writer from a numpy seed:
     every third row padded after 32-127 tokens, and a label the tokens
@@ -5988,6 +6393,11 @@ def main() -> int:
     log("== 6b. where a training step's time goes (torch.profiler)")
     profile_training(torch, dev)
     torch.cuda.empty_cache()
+    log("== 6c. the rest of the LM training plane at vocab 50257: token "
+        "shards, chunked CE, Adafactor and LAMB, async checkpoints, "
+        "lm_eval")
+    plane_launches, eval_launches, _ = run_lm_plane(torch, dev)
+    torch.cuda.empty_cache()
     log("== 7. training parity on the card")
     check_training_parity(torch, dev)
     torch.cuda.empty_cache()
@@ -6060,6 +6470,8 @@ def main() -> int:
                     "serve_ops": ops_launches.get(name, 0),
                     "serve_dense": dense_launches.get(name, 0),
                     "lm_train": train_launches.get(name, 0),
+                    "lm_plane_train": plane_launches.get(name, 0),
+                    "lm_eval": eval_launches.get(name, 0),
                     "lm_train_1280": wide_launches.get(name, 0),
                     "lm_train_d128": d128_launches.get(name, 0),
                     "serve_d128": d128_served.get(name, 0),

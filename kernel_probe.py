@@ -56,6 +56,10 @@ editing a ``.cu`` file, and for the experiments PERF.md reports.
     python3 kernel_probe.py dkv-modes
         bf16 K2dkv and K2dq at the LM training shape, causal and not,
         eager and replayed from a CUDA graph;
+    python3 kernel_probe.py ce-modes
+        one chunk product of the chunked loss (f32 sums of bf16
+        operands) through ``out_dtype``, TF32 at an unaligned width and
+        TF32 padded to a multiple of 8 columns, beside the bf16 product;
     python3 kernel_probe.py ln-widths [D ...]
         bf16 K3 and K3b at [8192, D] (default D 768, 1024, 1280, 1600
         and 4096), with and without the residual, eager and replayed
@@ -955,6 +959,52 @@ def cublas_workspace(torch, dev) -> None:
                       "total_mib": mib() - base}), flush=True)
 
 
+def ce_modes(torch, dev) -> None:
+    """One chunk's product of the chunked loss at the LM training shape
+    (N = 16 x 511 rows, E = 768, one of 8 chunks of V = 50257: 6283
+    columns) with f32 sums of bf16 operands, three ways: ``torch.mm``
+    with ``out_dtype=torch.float32``, an f32 upcast with TF32 allowed at
+    6283 columns, and the same padded to 6288 (``ops/chunked_ce.py``);
+    beside them the bf16 product, rounded to bf16 (which the loss may
+    not use). Each mode's ms (CUDA events), its kernels (the profiler)
+    and its max error against the f32 product of the same values."""
+    import json
+
+    import chip_smoke as cs
+
+    card = cs.query_card()
+    n, e, w, wp = 16 * 511, 768, 6283, 6288
+    g = torch.Generator(device=dev).manual_seed(0)
+    h = torch.randn(n, e, generator=g, device=dev).to(torch.bfloat16)
+    kc = (torch.randn(e, w, generator=g, device=dev) * 0.02).to(
+        torch.bfloat16)
+    h32, kc32 = h.float(), kc.float()
+    kp32 = torch.zeros(e, wp, device=dev)
+    kp32[:, :w] = kc32
+    ref = h32 @ kc32  # TF32 off: an f32 product of exact values
+
+    def tf32(fn):
+        prev = torch.get_float32_matmul_precision()
+        torch.set_float32_matmul_precision("high")
+        try:
+            return fn()
+        finally:
+            torch.set_float32_matmul_precision(prev)
+
+    modes = {"mm out_dtype float32":
+             lambda: torch.mm(h, kc, out_dtype=torch.float32),
+             "tf32, 6283 columns": lambda: tf32(lambda: h32 @ kc32),
+             "tf32, padded to 6288": lambda: tf32(lambda: h32 @ kp32),
+             "bf16 product": lambda: h @ kc}
+    for name, fn in modes.items():
+        err = float((fn()[:, :w].float() - ref).abs().max())
+        ms = cs.cuda_ms(fn)
+        _, _, top = cs._profiled(torch, fn)
+        print(json.dumps({"mode": name, "ms": ms, "max_abs_err": err,
+                          "kernels": [k[:60] for k, _ in top[:2]],
+                          "card": card}), flush=True)
+
+
 def main(argv) -> int:
     import torch
 
@@ -984,6 +1034,7 @@ def main(argv) -> int:
                 "serve-path": lambda: serve_path(torch, dev),
                 "cublas-workspace": lambda: cublas_workspace(torch, dev),
                 "int8-modes": lambda: int8_modes(torch, dev),
+                "ce-modes": lambda: ce_modes(torch, dev),
                 "flash-widths": lambda: flash_widths(torch, dev, argv[1:]),
                 "ln-widths": lambda: ln_widths(
                     torch, dev, [int(a) for a in argv[1:]])}

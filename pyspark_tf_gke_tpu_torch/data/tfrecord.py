@@ -12,7 +12,10 @@ remainder and casts int features to int32. Records go through the
 pure-Python codec (``data/codec.py``), so the bytes are the JAX codec's
 and each package reads the other's shards. The threaded writer and the
 native C++ reader are not ported (ROADMAP, P12): the codec is the one
-path, and shards are written one after another.
+path, and shards are written one after another. Remote shards
+(``gs://``, ``memory://``) are striped over processes first and then
+staged through ``utils/fs.spool_local``, so a process downloads only its
+own files, once.
 """
 
 from __future__ import annotations
@@ -25,7 +28,7 @@ import numpy as np
 from pyspark_tf_gke_tpu_torch.data.codec import (Schema, encode_example,
                                                  encode_record, iter_records,
                                                  parse_example)
-from pyspark_tf_gke_tpu_torch.utils.fs import fs_glob
+from pyspark_tf_gke_tpu_torch.utils.fs import fs_glob, spool_local
 from pyspark_tf_gke_tpu_torch.utils.seeding import DEFAULT_SEED, np_rng
 
 
@@ -119,7 +122,7 @@ def read_tfrecord_batches(pattern: str, schema: Schema, batch_size: int,
                           shuffle_buffer: int = 3000,
                           int_dtype=np.int32) -> Iterator[Dict[str, np.ndarray]]:
     """Stream this process's numpy batches from the TFRecord shards
-    matching ``pattern`` (local paths)."""
+    matching ``pattern`` (a local glob or an fsspec URL)."""
     files = fs_glob(pattern)
     if not files:
         raise FileNotFoundError(f"no TFRecord shards match {pattern!r}")
@@ -128,6 +131,7 @@ def read_tfrecord_batches(pattern: str, schema: Schema, batch_size: int,
         raise ValueError(
             f"{len(files)} shards < {process_count} processes; write more "
             "shards")
+    local_files = [spool_local(f) for f in local_files]
 
     def cast(batch: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
         return {k: batch[k].astype(int_dtype) if kind == "int" else batch[k]

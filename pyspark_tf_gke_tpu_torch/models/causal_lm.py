@@ -536,7 +536,7 @@ class CausalLM(nn.Module):
                 prefill: bool = False,
                 last_index: Optional[torch.Tensor] = None,
                 return_hidden: bool = False,
-                inloop: bool = False) -> torch.Tensor:
+                inloop: bool = False, return_head: bool = False):
         """f32 logits ``[B, S, V]``.
 
         * ``cache=None``: full causal forward (scoring).
@@ -553,6 +553,12 @@ class CausalLM(nn.Module):
         ``return_hidden`` returns the last block's output ``[B, S, H]``
         and skips the final norm and the head: a forward run only for
         the K/V it writes (a draft's cache feed) reads no logits.
+
+        ``return_head`` returns ``(ln_final(hidden) [B, S, H], lm_head
+        kernel in the compute dtype, lm_head bias)`` and skips the head's
+        product: the chunked loss (``ops/chunked_ce.py``) applies the
+        head one vocab chunk at a time, as the JAX model's training
+        forward with ``return_hidden=True`` lets it.
 
         ``inloop`` marks a forward at one of the JAX package's in-loop
         dequantization sites (a decode loop's step): the int8 weights of
@@ -592,6 +598,9 @@ class CausalLM(nn.Module):
             rows = torch.arange(b, device=hidden.device)
             hidden = hidden[rows, last_index.long()][:, None]
         hidden = self.ln_final(hidden)
+        if return_head:
+            head = self.lm_head
+            return hidden, head.kernel.to(head.dtype), head.bias
         return self.lm_head(hidden, inloop).float()
 
     # -- parameters ------------------------------------------------------

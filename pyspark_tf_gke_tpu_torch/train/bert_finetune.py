@@ -20,8 +20,7 @@ generator seeded with ``--seed`` (the JAX package draws from
 ``NotImplementedError`` naming their ROADMAP item: ``--mesh-shape``,
 ``--dcn-mesh-shape`` and ``--num-processes > 1`` (P11: the sp ranks run
 over ``torch.distributed`` in ``ops/attention.py``, but the entry point
-drives one device), ``--num-experts > 0`` (P10), ``--async-checkpoint``
-and ``--optimizer lamb|adafactor`` (P8).
+drives one device) and ``--num-experts > 0`` (P10).
 """
 
 from __future__ import annotations
@@ -146,10 +145,6 @@ def _refuse_unported(args: argparse.Namespace) -> None:
         (args.num_processes > 1, "--num-processes > 1",
          "P11 (multi-process training)"),
         (args.num_experts > 0, "--num-experts > 0", "P10 (models/moe.py)"),
-        (args.async_checkpoint, "--async-checkpoint",
-         "P8 (asynchronous checkpoints)"),
-        (args.optimizer in ("lamb", "adafactor"),
-         f"--optimizer {args.optimizer}", "P8 (lamb/adafactor)"),
     )
     for bad, flag, item in unported:
         if bad:

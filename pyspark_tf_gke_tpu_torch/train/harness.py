@@ -16,19 +16,32 @@ from PyTorch's optimizers:
   t``;
 * the schedule is read at the count BEFORE the update, so the first
   update uses ``lr(0)`` — 0 under ``warmup_cosine``;
+* lamb (``optax.lamb``): adam's update with ``eps = 1e-6``, plus ``wd *
+  p`` under the decay mask, scaled per leaf by the trust ratio
+  ``||p|| / ||u||`` (1 where either norm is 0), then by ``-lr``;
+* adafactor (``optax.adafactor`` at its defaults): per leaf, the second
+  moment decays at ``1 - (t+1)^-0.8`` and is factored over the leaf's
+  two largest dims (``np.argsort`` of its shape, the same tie order)
+  when the smaller of them is at least 128, else kept whole; ``g^2 +
+  1e-30`` feeds it; the update ``g / sqrt(v)`` is clipped to block RMS
+  1, scaled by ``lr`` and by ``max(rms(p), 1e-3)``, then ``wd * p`` is
+  added under the mask when ``weight_decay`` is set, and the sum is
+  subtracted. No momentum;
 * global-norm clipping leaves the gradients alone when their norm is
   below the limit and otherwise divides by the norm and multiplies by
   the limit — no epsilon, unlike ``clip_grad_norm_``.
 
-The updates run as multi-tensor (``torch._foreach_*``) operations, in
-place, with no host synchronisation. ``lamb`` and ``adafactor`` are
-not ported (ROADMAP, P8).
+Both lamb and adafactor depend on each leaf's shape: every parameter is
+updated at its flax shape under its flax path (``models/layers.py``),
+never fused or reshaped. The updates run as multi-tensor
+(``torch._foreach_*``) operations where the rule is elementwise and per
+leaf otherwise, in place, with no host synchronisation.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -38,10 +51,17 @@ from pyspark_tf_gke_tpu_torch.train.checkpoint import (CheckpointManager,
 from pyspark_tf_gke_tpu_torch.train.resilience import Heartbeat
 from pyspark_tf_gke_tpu_torch.utils.fs import fs_write_text, is_remote
 
-# the JAX package's optimizer list (its CLIs offer every name); the last
-# two raise here
+# the JAX package's optimizer list (its CLIs offer every name)
 OPTIMIZERS = ("adam", "adamw", "sgd", "momentum", "lamb", "adafactor")
-PORTED_OPTIMIZERS = ("adam", "adamw", "sgd", "momentum")
+# the optimizers that take a weight decay
+DECAYING = ("adamw", "lamb", "adafactor")
+
+# optax.adafactor's defaults
+ADAFACTOR_MIN_DIM_TO_FACTOR = 128
+ADAFACTOR_DECAY_RATE = 0.8
+ADAFACTOR_EPS = 1e-30
+ADAFACTOR_CLIP = 1.0
+ADAFACTOR_MIN_SCALE = 1e-3
 
 _F32 = np.float32
 
@@ -73,12 +93,27 @@ def _warmup_cosine(init_value: float, peak_value: float, warmup_steps: int,
     return schedule
 
 
+def _factored_dims(shape) -> Optional[Tuple[int, int]]:
+    """optax's ``_factored_dims``: ``(second largest, largest)`` axis of
+    a leaf whose two largest dims are both >= 128, else None."""
+    if len(shape) < 2:
+        return None
+    order = np.argsort(shape)
+    if shape[order[-2]] < ADAFACTOR_MIN_DIM_TO_FACTOR:
+        return None
+    return int(order[-2]), int(order[-1])
+
+
+def _rms(t: torch.Tensor) -> torch.Tensor:
+    return torch.sqrt(torch.mean(t * t))
+
+
 class Optimizer:
     """An optax-like gradient transformation over named tensors:
     ``init(params) -> state`` and ``update(grads, state, params)``,
     which applies the update to ``params`` and ``state`` in place."""
 
-    b1, b2, eps = 0.9, 0.999, 1e-8
+    b1, b2 = 0.9, 0.999
 
     def __init__(self, kind: str, lr: Callable[[int], float],
                  weight_decay: float = 0.0, momentum: float = 0.9,
@@ -92,10 +127,21 @@ class Optimizer:
     def init(self, params: Dict[str, torch.Tensor]) -> dict:
         zeros = lambda: {k: torch.zeros_like(p)  # noqa: E731
                          for k, p in params.items()}
-        if self.kind in ("adam", "adamw"):
+        if self.kind in ("adam", "adamw", "lamb"):
             return {"count": 0, "mu": zeros(), "nu": zeros()}
         if self.kind == "momentum":
             return {"count": 0, "trace": zeros()}
+        if self.kind == "adafactor":
+            state = {"count": 0, "v_row": {}, "v_col": {}, "v": {}}
+            for k, p in params.items():
+                dims = _factored_dims(tuple(p.shape))
+                if dims is None:
+                    state["v"][k] = torch.zeros_like(p)
+                    continue
+                d1, d0 = dims
+                state["v_row"][k] = torch.zeros_like(p.select(d0, 0))
+                state["v_col"][k] = torch.zeros_like(p.select(d1, 0))
+            return state
         return {"count": 0}
 
     def _clip(self, g: List[torch.Tensor]) -> List[torch.Tensor]:
@@ -116,24 +162,17 @@ class Optimizer:
             g = self._clip(g)
         lr = self.lr(state["count"])  # optax reads the schedule first
         count = state["count"] + 1
-        if self.kind in ("adam", "adamw"):
-            mu = [state["mu"][k] for k in names]
-            nu = [state["nu"][k] for k in names]
-            torch._foreach_mul_(mu, self.b1)
-            torch._foreach_add_(mu, g, alpha=1.0 - self.b1)
-            torch._foreach_mul_(nu, self.b2)
-            torch._foreach_addcmul_(nu, g, g, value=1.0 - self.b2)
-            bc1 = float(_F32(1) - _F32(self.b1) ** _F32(count))
-            bc2 = float(_F32(1) - _F32(self.b2) ** _F32(count))
-            denom = torch._foreach_div(nu, bc2)
-            torch._foreach_sqrt_(denom)
-            torch._foreach_add_(denom, self.eps)
-            upd = torch._foreach_div(torch._foreach_div(mu, bc1), denom)
-            if self.kind == "adamw" and self.weight_decay:
-                idx = [i for i, t in enumerate(p) if t.dim() >= 2]
-                decayed = [upd[i] for i in idx]
-                torch._foreach_add_(decayed, [p[i] for i in idx],
-                                    alpha=self.weight_decay)
+        if self.kind in ("adam", "adamw", "lamb"):
+            upd = self._adam(names, g, state, count)
+            if self.kind != "adam" and self.weight_decay:
+                self._decay(upd, p, self.weight_decay)
+            if self.kind == "lamb":
+                self._trust_ratio(upd, p)
+        elif self.kind == "adafactor":
+            upd = self._adafactor(names, g, p, state, lr)
+            if self.weight_decay:
+                self._decay(upd, p, self.weight_decay)
+            lr = 1.0  # scaled inside, before the parameter scale
         elif self.kind == "momentum":
             trace = [state["trace"][k] for k in names]
             torch._foreach_mul_(trace, self.momentum)
@@ -144,30 +183,88 @@ class Optimizer:
         torch._foreach_add_(p, upd, alpha=-lr)
         state["count"] = count
 
+    def _adam(self, names, g, state, count) -> List[torch.Tensor]:
+        """``scale_by_adam``: the moments updated in place; returns
+        ``mu_hat / (sqrt(nu_hat) + eps)``."""
+        mu = [state["mu"][k] for k in names]
+        nu = [state["nu"][k] for k in names]
+        torch._foreach_mul_(mu, self.b1)
+        torch._foreach_add_(mu, g, alpha=1.0 - self.b1)
+        torch._foreach_mul_(nu, self.b2)
+        torch._foreach_addcmul_(nu, g, g, value=1.0 - self.b2)
+        bc1 = float(_F32(1) - _F32(self.b1) ** _F32(count))
+        bc2 = float(_F32(1) - _F32(self.b2) ** _F32(count))
+        denom = torch._foreach_div(nu, bc2)
+        torch._foreach_sqrt_(denom)
+        torch._foreach_add_(denom, 1e-6 if self.kind == "lamb" else 1e-8)
+        return torch._foreach_div(torch._foreach_div(mu, bc1), denom)
+
+    @staticmethod
+    def _decay(upd, p, weight_decay: float) -> None:
+        """``add_decayed_weights`` under the mask ``ndim >= 2``."""
+        idx = [i for i, t in enumerate(p) if t.dim() >= 2]
+        torch._foreach_add_([upd[i] for i in idx], [p[i] for i in idx],
+                            alpha=weight_decay)
+
+    @staticmethod
+    def _trust_ratio(upd, p) -> None:
+        """``scale_by_trust_ratio``: each leaf times ``||p|| / ||u||``,
+        or 1 where either norm is 0."""
+        p_norm = torch.stack(torch._foreach_norm(p))
+        u_norm = torch.stack(torch._foreach_norm(upd))
+        ratio = torch.where((p_norm == 0) | (u_norm == 0),
+                            torch.ones_like(p_norm), p_norm / u_norm)
+        torch._foreach_mul_(upd, list(ratio.unbind()))
+
+    def _adafactor(self, names, g, p, state, lr: float
+                   ) -> List[torch.Tensor]:
+        """``scale_by_factored_rms``, ``clip_by_block_rms``, the learning
+        rate and ``scale_by_param_block_rms``, leaf by leaf."""
+        t = _F32(state["count"] + 1)
+        decay = float(_F32(1) - t ** _F32(-ADAFACTOR_DECAY_RATE))
+        out = []
+        for k, gi, pi in zip(names, g, p):
+            g2 = gi * gi + ADAFACTOR_EPS
+            dims = _factored_dims(tuple(pi.shape))
+            if dims is None:
+                v = state["v"][k]
+                v.mul_(decay).add_(g2, alpha=1.0 - decay)
+                u = gi * torch.rsqrt(v)
+            else:
+                d1, d0 = dims
+                v_row, v_col = state["v_row"][k], state["v_col"][k]
+                v_row.mul_(decay).add_(g2.mean(dim=d0), alpha=1.0 - decay)
+                v_col.mul_(decay).add_(g2.mean(dim=d1), alpha=1.0 - decay)
+                rd1 = d1 - 1 if d1 > d0 else d1
+                row = torch.rsqrt(v_row / v_row.mean(dim=rd1, keepdim=True))
+                u = (gi * row.unsqueeze(d0)) * torch.rsqrt(v_col).unsqueeze(
+                    d1)
+            u = u / torch.clamp_min(_rms(u) / ADAFACTOR_CLIP, 1.0)
+            out.append(u * lr * torch.clamp_min(_rms(pi),
+                                                 ADAFACTOR_MIN_SCALE))
+        return out
+
 
 def make_optimizer(learning_rate: float, schedule: str = "constant",
                    total_steps: int = 0, warmup_steps: int = 0,
                    optimizer: str = "adam", weight_decay: float = 0.0,
                    momentum: float = 0.9,
                    grad_clip_norm: float = 0.0) -> Optimizer:
-    """adam | adamw | sgd | momentum with a constant | cosine |
-    warmup_cosine schedule and optional global-norm clipping; the same
+    """adam | adamw | sgd | momentum | lamb | adafactor with a constant |
+    cosine | warmup_cosine schedule and optional global-norm clipping; the same
     argument checks as the JAX factory."""
     if schedule not in ("constant", "cosine", "warmup_cosine"):
         raise ValueError(
             f"unknown lr schedule {schedule!r}; use constant | cosine | "
             "warmup_cosine")
-    if optimizer in ("lamb", "adafactor"):
-        raise NotImplementedError(
-            f"--optimizer {optimizer} is not ported (ROADMAP, P8); use "
-            + " | ".join(PORTED_OPTIMIZERS))
-    if optimizer not in PORTED_OPTIMIZERS:
+    if optimizer not in OPTIMIZERS:
         raise ValueError(f"unknown optimizer {optimizer!r}; use "
                          + " | ".join(OPTIMIZERS))
-    if weight_decay and optimizer != "adamw":
+    if weight_decay and optimizer not in DECAYING:
         raise ValueError(
             f"weight_decay={weight_decay} is ignored by optimizer "
-            f"{optimizer!r} — use adamw (or set weight_decay=0)")
+            f"{optimizer!r} — use adamw, lamb or adafactor (or set "
+            "weight_decay=0)")
     if warmup_steps and schedule != "warmup_cosine":
         raise ValueError(
             f"warmup_steps={warmup_steps} is ignored by schedule "
@@ -189,7 +286,7 @@ def make_optimizer(learning_rate: float, schedule: str = "constant",
 
 def local_batch_size(global_batch: int) -> int:
     """Per-process batch from the GLOBAL batch size: all of it, in the
-    one process the port runs (multi-process training: ROADMAP, P8)."""
+    one process the port runs (multi-process training: ROADMAP, P11)."""
     return global_batch
 
 
@@ -245,9 +342,10 @@ def make_heartbeat(output_dir: str, every_steps: int,
     if not every_steps:
         return None
     if not path:
-        if is_remote(output_dir):
-            raise NotImplementedError(
-                f"{output_dir!r}: object-store output directories are not "
-                "ported (ROADMAP, P8)")
-        path = os.path.join(output_dir, "heartbeat-{process_index}.json")
+        # a heartbeat is node-local (a probe reads its mtime): with an
+        # object-store output directory it goes to /tmp, per process
+        path = ("/tmp/tpu-heartbeat-{process_index}.json"
+                if is_remote(output_dir)
+                else os.path.join(output_dir,
+                                  "heartbeat-{process_index}.json"))
     return Heartbeat(path, every_steps)

@@ -1,4 +1,4 @@
-"""Causal-LM pretraining entry point: raw text -> packed tokens ->
+"""Causal-LM pretraining entry point: raw text or packed-token shards ->
 decoder (counterpart of ``pyspark_tf_gke_tpu/train/lm_pretrain.py``).
 
 ``python -m pyspark_tf_gke_tpu_torch.train.lm_pretrain --data-pattern
@@ -6,21 +6,26 @@ decoder (counterpart of ``pyspark_tf_gke_tpu/train/lm_pretrain.py``).
 defaults (GPT-small: hidden 768, 12 layers, 12 heads, FFN 3072, seq 512,
 global batch 16, byte tokenizer, bf16 compute, Adam at 3e-4) and
 ``--arch`` preset rules, and writes the same artifacts under
-``--output-dir``: ``history.json``, ``causal-lm.txt``, checkpoints
-(the port's format) and the heartbeat. ``--export-bundle`` writes a
-port serving bundle (EMA weights when enabled, int8 unless
-``--export-dense``). It runs on ``cuda`` unless ``--device cpu``; there
-the kernels' plain versions run.
+``--output-dir`` (a local directory or an object-store URL):
+``history.json``, ``causal-lm.txt``, checkpoints (the port's format;
+``--async-checkpoint`` writes them from a background thread) and the
+heartbeat (under ``/tmp`` when the output directory is remote).
+``--data-format tokens`` reads the text bridge's packed-token shards
+(``etl/text_bridge.py``), held to their sidecar; ``--vocab-chunks N``
+trains on the chunked large-vocab loss (``ops/chunked_ce.py``);
+``--optimizer`` takes every JAX optimizer, lamb and adafactor included.
+``--export-bundle`` writes a port serving bundle (EMA weights when
+enabled, int8 unless ``--export-dense``). It runs on ``cuda`` unless
+``--device cpu``; there the kernels' plain versions run.
 
 The parameters are f32 master weights computed in ``--compute-dtype``,
 initialised from a numpy generator seeded with ``--seed`` (the JAX
 package draws from ``jax.random``, so the two start from different
 numbers). Flags the port does not carry raise ``NotImplementedError``
-naming their ROADMAP item: ``--mesh-shape``, ``--dcn-mesh-shape``,
-``--num-processes > 1``, ``--data-format tokens``, a ``--tokenizer``
-that is neither ``byte`` nor a local Hugging Face directory (a hub name
-would need a download), ``--vocab-chunks > 0``, ``--async-checkpoint`` and
-``--optimizer lamb|adafactor``.
+naming their ROADMAP item: ``--mesh-shape``, ``--dcn-mesh-shape`` and
+``--num-processes > 1`` (P11: data parallelism over several cards), and
+a ``--tokenizer`` that is neither ``byte`` nor a local Hugging Face
+directory (a hub name would need a download).
 """
 
 from __future__ import annotations
@@ -34,7 +39,9 @@ import numpy as np
 import torch
 
 from pyspark_tf_gke_tpu_torch.data.text import get_tokenizer, lm_batches
+from pyspark_tf_gke_tpu_torch.data.tfrecord import read_tfrecord_batches
 from pyspark_tf_gke_tpu_torch.device import resolve_device
+from pyspark_tf_gke_tpu_torch.etl.text_bridge import validate_shard_meta
 from pyspark_tf_gke_tpu_torch.models.causal_lm import (CausalLM,
                                                        CausalLMConfig,
                                                        init_params)
@@ -66,8 +73,9 @@ def parse_args(argv=None) -> argparse.Namespace:
                    help="glob of local text files")
     p.add_argument("--data-format", default=e("DATA_FORMAT", "text"),
                    choices=["text", "tokens"],
-                   help="text = raw files tokenized host-side (tokens: "
-                        "not ported)")
+                   help="text = raw files tokenized host-side; tokens = "
+                        "packed-token TFRecord shards from the text bridge "
+                        "(etl/text_bridge.py)")
     p.add_argument("--eval-pattern", default=e("EVAL_PATTERN", ""),
                    help="optional glob of held-out text files; per-epoch "
                         "val_loss and val_perplexity land in history")
@@ -104,7 +112,8 @@ def parse_args(argv=None) -> argparse.Namespace:
                    default=int(e("INTERMEDIATE_SIZE", "3072")))
     p.add_argument("--vocab-chunks", type=int,
                    default=int(e("VOCAB_CHUNKS", "0")),
-                   help="chunked large-vocab loss (not ported)")
+                   help=">0 uses the chunked large-vocab cross-entropy "
+                        "(ops/chunked_ce.py) with this many vocab chunks")
     p.add_argument("--remat", action="store_true", default=e("REMAT", "") == "1")
     p.add_argument("--epochs", type=int, default=int(e("EPOCHS", "1")))
     p.add_argument("--steps-per-epoch", type=int,
@@ -133,9 +142,9 @@ def parse_args(argv=None) -> argparse.Namespace:
                    help="skip int8 quantization in the exported bundle")
     p.add_argument("--seed", type=int, default=int(e("SEED", "1337")))
     p.add_argument("--mesh-shape", default=e("MESH_SHAPE", ""),
-                   help="not ported (one device)")
+                   help="not ported (P11: one device)")
     p.add_argument("--dcn-mesh-shape", default=e("DCN_MESH_SHAPE", ""),
-                   help="not ported (one device)")
+                   help="not ported (P11: one device)")
     p.add_argument("--output-dir", default=e("OUTPUT_DIR", "./lm-pretrain"))
     p.add_argument("--checkpoint-every-steps", type=int,
                    default=int(e("CHECKPOINT_EVERY_STEPS", "0")))
@@ -170,18 +179,11 @@ def _refuse_unported(args: argparse.Namespace) -> None:
         (args.mesh_shape, "--mesh-shape", "P11 (parallelism)"),
         (args.dcn_mesh_shape, "--dcn-mesh-shape", "P11 (parallelism)"),
         (args.num_processes > 1, "--num-processes > 1",
-         "P8 (multi-process training)"),
-        (args.data_format == "tokens", "--data-format tokens",
-         "P8 (token-shard data format)"),
+         "P11 (data parallelism over several cards)"),
         (args.tokenizer not in ("", "byte")
          and not os.path.isdir(args.tokenizer),
          f"--tokenizer {args.tokenizer} (a hub name: only local "
          "save_pretrained directories are read)", "P8 (tokenizer downloads)"),
-        (args.vocab_chunks > 0, "--vocab-chunks", "P8 (chunked CE)"),
-        (args.async_checkpoint, "--async-checkpoint",
-         "P8 (asynchronous checkpoints)"),
-        (args.optimizer in ("lamb", "adafactor"),
-         f"--optimizer {args.optimizer}", "P8 (lamb/adafactor)"),
     )
     for bad, flag, item in unported:
         if bad:
@@ -249,11 +251,19 @@ def main(argv=None) -> dict:
         total_steps=args.epochs * args.steps_per_epoch,
         warmup_steps=args.warmup_steps, optimizer=args.optimizer,
         weight_decay=args.weight_decay, grad_clip_norm=args.grad_clip_norm)
-    trainer = Trainer(model, TASKS["causal_lm"](), tx=tx,
-                      ema_decay=args.ema_decay)
+    task = TASKS["causal_lm"](vocab_chunks=args.vocab_chunks or None)
+    trainer = Trainer(model, task, tx=tx, ema_decay=args.ema_decay)
     local_bs = local_batch_size(args.batch_size)
 
     def batches():
+        if args.data_format == "tokens":
+            validate_shard_meta(args.data_pattern, args.tokenizer,
+                                args.seq_len, tokenizer.vocab_size)
+            # the reader yields int32 ids
+            yield from read_tfrecord_batches(
+                args.data_pattern, {"input_ids": ("int", (args.seq_len,))},
+                local_bs, seed=args.seed)
+            return
         yield from lm_batches(args.data_pattern, tokenizer, args.seq_len,
                               local_bs, seed=args.seed,
                               with_segments=args.doc_masking)

@@ -129,6 +129,7 @@ from pyspark_tf_gke_tpu_torch.train.kv_transfer import (pack_kv_export,
 from pyspark_tf_gke_tpu_torch.train.resilience import (Heartbeat,
                                                        retry_with_backoff)
 from pyspark_tf_gke_tpu_torch.train.serving import serve_score
+from pyspark_tf_gke_tpu_torch.utils.fs import fs_copy_tree, is_remote
 from pyspark_tf_gke_tpu_torch.utils.logging import get_logger
 
 logger = get_logger("torch.train.serve")
@@ -2314,7 +2315,8 @@ def _make_handler(server: BundleServer):
                             400, {"error": "'bundle' must be a bundle "
                                            "directory path"})
                     out = server.reload_bundle(
-                        bundle, generation=req.get("generation"),
+                        _resolve_bundle(bundle),
+                        generation=req.get("generation"),
                         canary=bool(req.get("canary", True)))
                     server.record_metrics()
                     self._reply(200, out)
@@ -2554,9 +2556,21 @@ def parse_args(argv=None) -> argparse.Namespace:
     return p.parse_args(argv)
 
 
+def _resolve_bundle(path: str) -> str:
+    """A bundle named by an object-store URL (``gs://``) is pulled into a
+    local temporary directory first (a one-time pull; the loader reads a
+    directory); a local path passes through."""
+    if not is_remote(path):
+        return path
+    local = tempfile.mkdtemp(prefix="bundle-")
+    logger.info("pulling %s -> %s", path, local)
+    fs_copy_tree(path, local)
+    return local
+
+
 def main(argv=None) -> int:
     args = parse_args(argv)
-    server = BundleServer(args.bundle, device=args.device,
+    server = BundleServer(_resolve_bundle(args.bundle), device=args.device,
                           continuous_slots=args.continuous_slots,
                           continuous_chunk=args.continuous_chunk,
                           int8_kv=args.int8_kv,
@@ -2566,7 +2580,9 @@ def main(argv=None) -> int:
                           adaptive_chunk=args.adaptive_chunk,
                           prefix_cache_size=args.prefix_cache,
                           spec_tokens=args.spec_tokens,
-                          draft_bundle_dir=args.draft_bundle,
+                          draft_bundle_dir=(
+                              _resolve_bundle(args.draft_bundle)
+                              if args.draft_bundle else args.draft_bundle),
                           schedule=args.schedule,
                           max_queue_depth=args.max_queue_depth,
                           max_queued_tokens=args.max_queued_tokens,

@@ -19,10 +19,16 @@ reads them. The epoch loop keeps the JAX one's contract:
 * batches reach the device through a prefetch of 2 (pinned host memory,
   ``data/pipeline.py``);
 * the history has the same keys: ``loss``, ``next_token_accuracy``,
-  ``step_time_ms``, ``examples_per_sec`` and ``val_*``.
+  ``step_time_ms``, ``examples_per_sec`` and ``val_*``;
+* the loop feeds the metrics registry and the event trail as the JAX
+  one does (``obs/``): ``train_fit_start`` and ``train_epoch_end``
+  events, the ``train_steps_total``, ``train_examples_total`` and
+  ``train_epochs_total`` counters, the ``train_step_time_ms`` histogram
+  of each step's host dispatch interval (each epoch's first step left
+  out) and the ``train_last_loss`` gauge.
 
-The JAX trainer's metrics registry and event trail, its sharding and
-its other tasks are not ported (ROADMAP, P8 and P9).
+The JAX trainer's sharding and its other tasks are not ported (ROADMAP,
+P9 and P11).
 """
 
 from __future__ import annotations
@@ -36,6 +42,9 @@ from torch.func import functional_call
 
 from pyspark_tf_gke_tpu_torch.data.mlm import IGNORE_INDEX
 from pyspark_tf_gke_tpu_torch.data.pipeline import prefetch_to_device, put_batch
+from pyspark_tf_gke_tpu_torch.obs.events import get_event_log
+from pyspark_tf_gke_tpu_torch.obs.metrics import get_registry, platform_families
+from pyspark_tf_gke_tpu_torch.ops.chunked_ce import chunked_cross_entropy
 from pyspark_tf_gke_tpu_torch.train.harness import make_optimizer
 from pyspark_tf_gke_tpu_torch.train.losses import (accuracy_metric,
                                                    per_token_cross_entropy,
@@ -64,11 +73,13 @@ class TrainerTask:
 def causal_lm_task(vocab_chunks: Optional[int] = None) -> TrainerTask:
     """Next-token prediction: shift-by-one cross entropy over every
     position that has a successor, masked by ``attention_mask`` when the
-    batch carries one (the JAX task's dense loss, ``:184-243``)."""
-    if vocab_chunks:
-        raise NotImplementedError(
-            "--vocab-chunks (the chunked large-vocab loss, ops/chunked_ce.py)"
-            " is not ported (ROADMAP, P8)")
+    batch carries one (the JAX task, ``:184-243``).
+
+    ``vocab_chunks=N`` takes the chunked large-vocab loss
+    (``ops/chunked_ce.py``): the forward returns the final norm's output
+    and the head's weights, and the loss applies the head in N vocab
+    chunks, so ``[B, S, V]`` logits never exist. The head's kernel is
+    taken in the compute dtype, as the dense head's product takes it."""
 
     def _reduce(per_tok, pred_ids, targets, mask):
         if mask is not None:
@@ -80,6 +91,25 @@ def causal_lm_task(vocab_chunks: Optional[int] = None) -> TrainerTask:
             loss = per_tok.mean()
             acc = (pred_ids == targets).float().mean()
         return loss, {"loss": loss, "next_token_accuracy": acc}
+
+    if vocab_chunks:
+        def forward(model, batch, train=True):
+            hidden, kernel, bias = model(
+                batch["input_ids"].long(),
+                segment_ids=batch.get("segment_ids"), return_head=True)
+            return {"hidden": hidden, "kernel": kernel, "bias": bias}
+
+        def lam(preds, batch):
+            targets = batch["input_ids"][:, 1:].long()
+            h = preds["hidden"][:, :-1]
+            b, s1, e = h.shape
+            per_tok, amax = chunked_cross_entropy(
+                h.reshape(b * s1, e), preds["kernel"], preds["bias"],
+                targets.reshape(-1), num_chunks=vocab_chunks)
+            return _reduce(per_tok.reshape(b, s1), amax.reshape(b, s1),
+                           targets, batch.get("attention_mask"))
+
+        return TrainerTask("causal_lm", forward, lam)
 
     def forward(model, batch, train=True):
         return model(batch["input_ids"].long(),
@@ -200,7 +230,8 @@ class Trainer:
 
     def __init__(self, model: torch.nn.Module, task: TrainerTask,
                  learning_rate: float = 1e-3, tx=None,
-                 ema_decay: float = 0.0):
+                 ema_decay: float = 0.0, metrics_registry=None,
+                 event_log=None):
         self.model = model
         self.task = task
         self.tx = tx if tx is not None else make_optimizer(learning_rate)
@@ -210,6 +241,13 @@ class Trainer:
             raise ValueError("the model has no trainable parameters: build "
                              "it with param_dtype=torch.float32")
         self.device = params[0].device
+        # the live, scrapable view of the loop (obs/); history stays the
+        # artifact
+        self.metrics_registry = (metrics_registry if metrics_registry
+                                 is not None else get_registry())
+        self._obs = platform_families(self.metrics_registry)
+        self._event_log = (event_log if event_log is not None
+                           else get_event_log())
 
     def init_state(self) -> TrainState:
         params = {name: p for name, p in self.model.named_parameters()
@@ -313,6 +351,11 @@ class Trainer:
     def _fit_epochs(self, state, device_batches, epochs, steps_per_epoch,
                     val_batches, checkpoint_manager, heartbeat, history,
                     grad_accum, val_use_ema):
+        global_step = int(state.step)
+        self._event_log.emit(
+            "train_fit_start", task=self.task.name, epochs=epochs,
+            steps_per_epoch=steps_per_epoch, start_step=global_step,
+            grad_accum=grad_accum)
         for epoch in range(epochs):
             sums: Dict[str, torch.Tensor] = {}
             t_first_step = 0.0
@@ -332,7 +375,16 @@ class Trainer:
                     # of the step-time statistics
                     _sync(self.device)
                     t_first_step = time.perf_counter() - t0
-                examples += device_batches.rows - rows_before
+                step_rows = device_batches.rows - rows_before
+                examples += step_rows
+                global_step += 1
+                # counters take every step; the histogram the steady ones
+                # (the host dispatch interval, as in the JAX loop)
+                self._obs["train_steps_total"].inc()
+                self._obs["train_examples_total"].inc(step_rows)
+                if step_i != 0:
+                    self._obs["train_step_time_ms"].observe(
+                        (time.perf_counter() - t0) * 1000.0)
                 if heartbeat is not None:
                     heartbeat.beat(state.step)
                 for k, v in metrics.items():
@@ -353,6 +405,13 @@ class Trainer:
             logger.info("Epoch %d/%d - %s - %.1f ms/step", epoch + 1, epochs,
                         " - ".join(f"{k}: {history[k][-1]:.4f}"
                                    for k in sums), step_ms)
+            self._obs["train_epochs_total"].inc()
+            if "loss" in history:
+                self._obs["train_last_loss"].set(history["loss"][-1])
+            self._event_log.emit(
+                "train_epoch_end", epoch=epoch + 1, global_step=global_step,
+                step_time_ms=round(step_ms, 3),
+                loss=history.get("loss", [None])[-1])
 
             if val_batches is not None:
                 val_iter = (put_batch(b, self.device) for b in val_batches())

@@ -33,7 +33,8 @@ TRAINING_MODULES = ("utils/fs.py", "data/text.py", "data/pipeline.py",
                     "train/checkpoint.py", "train/resilience.py",
                     "train/trainer.py", "train/lm_pretrain.py",
                     "ops/fused_matmul.py", "ops/fused_conv3.py",
-                    "models/resnet.py")
+                    "models/resnet.py", "ops/chunked_ce.py",
+                    "etl/text_bridge.py", "evaluate/lm_eval.py")
 SERVING_MODULES = ("train/continuous.py", "train/serve.py",
                    "train/kv_transfer.py", "obs/stepstats.py",
                    "models/speculative.py", "models/lanes.py",
@@ -79,6 +80,8 @@ def test_importing_the_server_loads_no_jax():
             "import pyspark_tf_gke_tpu_torch.train.lm_pretrain\n"
             "import pyspark_tf_gke_tpu_torch.models.resnet\n"
             "import pyspark_tf_gke_tpu_torch.train.bert_finetune\n"
+            "import pyspark_tf_gke_tpu_torch.etl.text_bridge\n"
+            "import pyspark_tf_gke_tpu_torch.evaluate.lm_eval\n"
             f"bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{sorted(FORBIDDEN)!r})\n"
             "print(bad)\nsys.exit(1 if bad else 0)\n")
