@@ -294,8 +294,33 @@
     ``none``, ``nf``, ``nf`` and ``fused3`` with the s2d stem; bf16, 8
     images of 64^2): finite loss, gradients and parameters, and K5
     launched under ``fused3``;
-13. prints one ``{"kernels": [...]}`` line, then
-14. ``{"ok": true, "device": {...}}`` as the last line.
+13. the reference-parity training plane (P9), with every port kernel's
+    counter at 0 before it and read after (it runs none: cuDNN convs,
+    cuBLAS products, PyTorch's elementwise ops, as the JAX package runs
+    these in XLA): (a) loss parity in f32 (no TF32) as
+    ``tools/loss_parity.py`` trains the JAX side, from the JAX run's own
+    initial parameters (``jax_init_params``: flax's Keras glorot-uniform
+    under ``jax.random.key(1337)``, recomputed in numpy): CNN-B1 on its
+    copy of ``make_spot_arrays(128, 256, 320)`` (batch 16, 30 epochs,
+    in order, Adam lr 1e-3 eps 1e-7) and the MLP on
+    ``make_health_arrays(4096)`` (batch 16, 20 epochs), gated as
+    ``compare`` / ``compare_cls`` gate the JAX run against the TF runs
+    of ``tools/parity_report.json`` (read as data: final loss <= TF best
+    x 1.6; final MAE <= TF best x 1.35, accuracy >= TF best - 0.05; the
+    loss falls) and the first three epochs within 1% of the recorded
+    JAX losses; (b) ``train.cli`` end to end: image mode on 320 PNGs of
+    ``make_synthetic_image_dataset`` at 256x320 (B1, bf16, batch 32, 2
+    epochs of 8 steps) and CSV mode on the 18,154-row reference CSV
+    (epochs of 96 steps), each with a save every epoch, a fault in
+    epoch 2 and one restart: the restart resumes at the save, the run
+    ends 2 epochs past it, ``history.json``, the run notes and
+    ``label_map.json`` written, every loss finite; then
+    ``ManualImageChecker`` over every image of the image run (mean and
+    max pixel error); (c) a CNN-B1 step at batch 32 x 256x320 in f32 and
+    bf16 (ms/step, images/s, two steps under ``torch.profiler``: host
+    wall against device busy, top device ops) and an MLP step;
+14. prints one ``{"kernels": [...]}`` line, then
+15. ``{"ok": true, "device": {...}}`` as the last line.
 
 It takes no arguments. Any failed check exits non-zero. Without a CUDA
 device, or outside a checkout of the repository, it exits non-zero and
@@ -6183,6 +6208,483 @@ def check_resnet_variants(torch, dev, k5_counters):
         torch.cuda.empty_cache()
 
 
+# -- phase 13: the reference-parity training plane (P9) ----------------------
+
+PARITY_REPORT = ROOT / "tools" / "parity_report.json"
+# the CLI runs at the reference's size: about 320 PNGs at 256x320, the
+# B1 head, bf16, batch 32, 2 epochs (8 steps each); a save every epoch,
+# a fault in epoch 2
+P9_IMAGES, P9_SIZE, P9_BATCH, P9_EPOCHS = 320, (256, 320), 32, 2
+P9_CSV_STEPS = 96
+
+
+def make_spot_arrays(n: int, height: int, width: int, seed: int = 1337):
+    """``tools/loss_parity.py::make_spot_arrays``: ``n`` dark frames with
+    a bright gaussian spot, [0, 1] f32 NHWC, and the spot's centre in
+    pixels."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:height, 0:width].astype(np.float32)
+    images = np.empty((n, height, width, 3), np.float32)
+    targets = np.empty((n, 2), np.float32)
+    for i in range(n):
+        cx = float(rng.uniform(4, width - 4))
+        cy = float(rng.uniform(4, height - 4))
+        blob = np.exp(-(((xx - cx) ** 2 + (yy - cy) ** 2) / (2 * 3.0 ** 2)))
+        img = (blob[..., None] * np.array([255.0, 40.0, 40.0]) +
+               rng.normal(8, 4, (height, width, 3))).clip(0, 255)
+        images[i] = img / 255.0
+        targets[i] = (cx, cy)
+    return images, targets
+
+
+def make_health_arrays(n: int, num_classes: int = 6, seed: int = 1337):
+    """``tools/loss_parity.py::make_health_arrays``: 3 features (value,
+    lower_ci, upper_ci) clustered by label."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    labels = rng.integers(0, num_classes, n).astype(np.int32)
+    centers = rng.uniform(-3, 3, (num_classes, 3)).astype(np.float32)
+    feats = centers[labels] + rng.normal(0, 0.6, (n, 3)).astype(np.float32)
+    feats[:, 1] = feats[:, 0] - np.abs(feats[:, 1]) * 0.1
+    feats[:, 2] = feats[:, 0] + np.abs(feats[:, 2]) * 0.1
+    return feats.astype(np.float32), labels
+
+
+def _all_counters():
+    """Every port kernel's launch counter."""
+    from pyspark_tf_gke_tpu_torch.ops import fused_conv3 as fc
+    from pyspark_tf_gke_tpu_torch.ops import fused_matmul as fm
+    from pyspark_tf_gke_tpu_torch.ops import layernorm as ln
+
+    return {**_serve_counters(), **_train_counters(), **_block_counters(),
+            "layernorm_bwd": (ln, "bwd_launches"),
+            "fused_matmul_fwd": (fm, "fwd_launches"),
+            "fused_matmul_dx": (fm, "dx_launches"),
+            "fused_matmul_dw": (fm, "dw_launches"),
+            "fused_conv3_fwd": (fc, "fwd_launches"),
+            "fused_conv3_dx": (fc, "dx_launches"),
+            "fused_conv3_dw": (fc, "dw_launches")}
+
+
+def _epoch_history(torch, trainer, arrays, batch_size, epochs, keys):
+    """``tools/loss_parity.py``'s loop: ``epochs`` unshuffled passes in
+    order over ``arrays`` (staged on the card once), one ``Trainer.step``
+    a batch, each key's per-epoch mean."""
+    from pyspark_tf_gke_tpu_torch.data.pipeline import put_batch
+
+    n = len(next(iter(arrays.values())))
+    steps = n // batch_size
+    batches = [put_batch({k: v[i * batch_size:(i + 1) * batch_size]
+                          for k, v in arrays.items()}, trainer.device)
+               for i in range(steps)]
+    state = trainer.init_state()
+    history = {k: [] for k in keys}
+    for _ in range(epochs):
+        sums = None
+        for batch in batches:
+            state, metrics = trainer.step(state, batch)
+            sums = ({k: metrics[k] for k in keys} if sums is None else
+                    {k: sums[k] + metrics[k] for k in keys})
+        for k in keys:
+            history[k].append(float(sums[k]) / steps)
+    return history
+
+
+def _threefry2x32(k1, k2, x0, x1):
+    """JAX's Threefry-2x32 (20 rounds) over uint32 numpy arrays."""
+    import numpy as np
+
+    x0, x1 = x0.astype(np.uint32), x1.astype(np.uint32)
+    ks = (np.uint32(k1), np.uint32(k2),
+          np.uint32(k1) ^ np.uint32(k2) ^ np.uint32(0x1BD11BDA))
+    with np.errstate(over="ignore"):
+        x0 += ks[0]
+        x1 += ks[1]
+        for i in range(5):
+            for r in ((13, 15, 26, 6), (17, 29, 16, 24))[i % 2]:
+                x0 += x1
+                x1 = (x1 << np.uint32(r)) | (x1 >> np.uint32(32 - r))
+                x1 ^= x0
+            x0 += ks[(i + 1) % 3]
+            x1 += ks[(i + 2) % 3] + np.uint32(i + 1)
+    return x0, x1
+
+
+def _flax_key(seed: int, *suffix):
+    """The key flax's ``make_rng('params')`` hands a parameter of the
+    module at ``suffix`` (its path, then the scope's counter) under
+    ``jax.random.key(seed)``: ``fold_in`` of the first 4 bytes of the
+    suffix's SHA-1."""
+    import hashlib
+
+    import numpy as np
+
+    m = hashlib.sha1()
+    for x in suffix:
+        m.update(x.encode() if isinstance(x, str)
+                 else x.to_bytes((x.bit_length() + 7) // 8, "big"))
+    data = int.from_bytes(m.digest()[:4], "big")
+    o1, o2 = _threefry2x32(seed >> 32, seed & 0xFFFFFFFF,
+                           np.zeros(1, np.uint32),
+                           np.array([data], np.uint32))
+    return int(o1[0]), int(o2[0])
+
+
+def _glorot_uniform(key, shape, chunk: int = 1 << 20):
+    """``nn.initializers.glorot_uniform()(key, shape)`` (f32) in numpy:
+    the partitionable Threefry bits of each element's index, 23 of them
+    as a float in [1, 2), mapped to [-1, 1) and scaled by ``sqrt(3 *
+    2 / (fan_in + fan_out))``."""
+    import numpy as np
+
+    from concurrent.futures import ThreadPoolExecutor
+
+    n = int(np.prod(shape))
+    out = np.empty(n, np.float32)
+
+    def fill(lo: int) -> None:
+        idx = np.arange(lo, min(n, lo + chunk), dtype=np.uint32)
+        o1, o2 = _threefry2x32(key[0], key[1], np.zeros_like(idx), idx)
+        f = (((o1 ^ o2) >> np.uint32(9)) | np.uint32(0x3F800000)).view(
+            np.float32) - np.float32(1.0)
+        out[lo:lo + len(idx)] = np.maximum(np.float32(-1.0),
+                                           f * np.float32(2.0)
+                                           + np.float32(-1.0))
+
+    # numpy's ufuncs release the GIL: the chunks run in parallel
+    with ThreadPoolExecutor(max_workers=8) as ex:
+        for done in [ex.submit(fill, lo) for lo in range(0, n, chunk)]:
+            done.result()
+    receptive = int(np.prod(shape[:-2]))
+    fan_in, fan_out = receptive * shape[-2], receptive * shape[-1]
+    scale = np.float32(np.sqrt(np.float32(3.0 / ((fan_in + fan_out) / 2.0))))
+    return (out * scale).reshape(shape)
+
+
+def jax_init_params(model, seed: int = 1337):
+    """The initial parameters ``model.init(jax.random.key(seed), x)``
+    gives the JAX twin of a reference-parity model (``MLPClassifier``,
+    ``CNNRegressor``: Keras glorot-uniform kernels, every bias and PReLU
+    alpha zero), recomputed in numpy, as ``{flax path: f32 tensor}``.
+    A kernel is the first parameter its module makes (counter 1)."""
+    import numpy as np
+    import torch
+
+    from pyspark_tf_gke_tpu_torch.models.layers import flax_parameters
+
+    out = {}
+    for path, p in flax_parameters(model).items():
+        *module, leaf = path.split("/")
+        shape = tuple(p.shape)
+        arr = (_glorot_uniform(_flax_key(seed, *module, 1), shape)
+               if leaf == "kernel" else np.zeros(shape, np.float32))
+        out[path] = torch.from_numpy(arr)
+    return out
+
+
+def check_loss_parity(torch, dev):
+    """Phase 13 (a): CNN-B1 (f32) and the MLP trained as
+    ``tools/loss_parity.py`` trains the JAX side (Adam lr 1e-3, eps 1e-7;
+    in order, no shuffle; the report's sizes) from the same initial
+    parameters (``jax_init_params``: the JAX run's init, seed 1337), held
+    to its ``compare`` / ``compare_cls`` gates against the TF runs in
+    ``tools/parity_report.json`` (read as data), and the first epochs to
+    the recorded JAX history (1% relative)."""
+    from pyspark_tf_gke_tpu_torch.models.cnn import CNNRegressor
+    from pyspark_tf_gke_tpu_torch.models.layers import load_flax_params
+    from pyspark_tf_gke_tpu_torch.models.mlp import MLPClassifier
+    from pyspark_tf_gke_tpu_torch.train.harness import make_optimizer
+    from pyspark_tf_gke_tpu_torch.train.trainer import TASKS, Trainer
+
+    report = json.loads(PARITY_REPORT.read_text())
+    out = {}
+    for name, section in (("cnn_b1", report["cnn_b1"]),
+                          ("mlp_csv", report["mlp_csv"])):
+        cfg, opt = section["config"], section["optimizer"]
+        t0 = time.perf_counter()
+        if name == "cnn_b1":
+            images, targets = make_spot_arrays(cfg["images"], cfg["height"],
+                                               cfg["width"], seed=1337)
+            arrays = {"image": images, "target": targets}
+            model = CNNRegressor(flat=True, dtype=None, device=dev,
+                                 image_size=(cfg["height"], cfg["width"]))
+            task, metric = TASKS["regression"](), "mae"
+        else:
+            feats, labels = make_health_arrays(cfg["rows"])
+            arrays = {"x": feats, "y": labels}
+            model = MLPClassifier(int(labels.max()) + 1, feats.shape[1],
+                                  device=dev)
+            task, metric = TASKS["classification"](), "accuracy"
+        load_flax_params(model, jax_init_params(model, 1337))
+        init_s = time.perf_counter() - t0
+        trainer = Trainer(model, task, tx=make_optimizer(opt["lr"],
+                                                         eps=opt["eps"]))
+        t0 = time.perf_counter()
+        hist = _epoch_history(torch, trainer, arrays, cfg["batch_size"],
+                              cfg["epochs"], ("loss", metric))
+        wall = time.perf_counter() - t0
+        checks = section["checks"]
+        loss_gate = checks["final_loss_not_worse_than_tf_best"]
+        metric_gate = checks[f"final_{metric}_not_worse_than_tf_best"]
+        final_loss, final_metric = hist["loss"][-1], hist[metric][-1]
+        jax_loss = section["jax_history"]["loss"]
+        log(f"  {name}: {cfg}, Adam lr {opt['lr']} eps {opt['eps']}, f32 "
+            f"from the JAX run's init ({init_s:.1f} s), {wall:.1f} s on "
+            f"{CARD}")
+        log(f"    loss by epoch: {[round(v, 4) for v in hist['loss']]}")
+        log(f"    JAX's recorded: {[round(v, 4) for v in jax_loss]}")
+        log(f"    {metric} by epoch: {[round(v, 4) for v in hist[metric]]}")
+        log(f"    final loss: port {final_loss:.6g}, TF best "
+            f"{loss_gate['tf_best']:.6g} (TF final {loss_gate['tf_final']:.6g}"
+            f"), JAX final {loss_gate['jax_final']:.6g}; gate <= TF best x "
+            f"{loss_gate['tol']}")
+        log(f"    final {metric}: port {final_metric:.6g}, TF best "
+            f"{metric_gate['tf_best']:.6g} (TF final "
+            f"{metric_gate['tf_final']:.6g}), JAX final "
+            f"{metric_gate['jax_final']:.6g}")
+        check(all(math.isfinite(v) for v in hist["loss"] + hist[metric]),
+              f"{name}: non-finite history {hist}")
+        early = [abs(a - b) / abs(b) for a, b in zip(hist["loss"][:3],
+                                                     jax_loss[:3])]
+        check(max(early) < 1e-2, f"{name}: the first epochs' losses "
+              f"{hist['loss'][:3]} are not within 1% of JAX's {jax_loss[:3]}")
+        check(hist["loss"][-1] < hist["loss"][0],
+              f"{name}: the loss did not fall ({hist['loss']})")
+        check(final_loss <= loss_gate["tf_best"] * loss_gate["tol"],
+              f"{name}: final loss {final_loss} above TF best "
+              f"{loss_gate['tf_best']} x {loss_gate['tol']}")
+        if metric == "mae":
+            limit = metric_gate["tf_best"] * (1.0 + metric_gate["tol"])
+            check(final_metric <= limit, f"{name}: final MAE {final_metric} "
+                  f"above TF best x (1 + {metric_gate['tol']}) = {limit}")
+        else:
+            limit = metric_gate["tf_best"] - metric_gate["tol"]
+            check(final_metric >= limit, f"{name}: final accuracy "
+                  f"{final_metric} below TF best - {metric_gate['tol']} = "
+                  f"{limit}")
+        out[name] = {"loss": final_loss, metric: final_metric, "s": wall,
+                     "first_epochs_rel": max(early)}
+        del model, trainer
+        torch.cuda.empty_cache()
+    return out
+
+
+def _fit_starts(events):
+    return [e["start_step"] for e in events if e["kind"] == "train_fit_start"]
+
+
+def _p9_cli(trail: Path, args):
+    """``train.cli.main(args)`` with its event trail in the file
+    ``trail``; returns the history and the trail's events."""
+    from pyspark_tf_gke_tpu_torch.obs.events import (EventLog, read_events,
+                                                     set_event_log)
+    from pyspark_tf_gke_tpu_torch.train import cli
+
+    set_event_log(EventLog(str(trail)))
+    try:
+        history = cli.main(args)
+    finally:
+        set_event_log(None)
+    return history, list(read_events(str(trail)))
+
+
+def _check_cli_run(tag, out: Path, history, events, notes, every):
+    """The gates of one faulted CLI run (epochs of ``every`` steps, a save
+    at each epoch's end, a fault in epoch 2): it restarted once, at the
+    save of step ``every``, and ran its epochs from there; every
+    artifact written; every loss finite."""
+    starts = _fit_starts(events)
+    kinds = [e["kind"] for e in events]
+    saved = every
+    final = saved + P9_EPOCHS * every
+    text = (out / notes).read_text()
+    log(f"  {tag}: fit started at steps {starts}; events "
+        f"{sorted(set(kinds))}; loss {history['loss']}; "
+        f"{[line for line in text.splitlines() if 'step' in line]}")
+    check(starts == [0, saved], f"{tag}: the restart did not resume at the "
+          f"saved step {saved} (fit started at {starts})")
+    check(kinds.count("fault_injected") == 1
+          and "recovery_succeeded" in kinds,
+          f"{tag}: expected one injected fault and a recovery, got {kinds}")
+    check(f"final step: {final}" in text, f"{tag}: the run notes do not "
+          f"end at step {final}:\n{text}")
+    check((out / "history.json").is_file()
+          and json.loads((out / "history.json").read_text()) == history,
+          f"{tag}: history.json missing or not the run's")
+    check(len(history["loss"]) == P9_EPOCHS
+          and all(math.isfinite(v) for v in history["loss"]
+                  + history.get("val_loss", [])),
+          f"{tag}: non-finite or missing losses {history}")
+    check((out / "checkpoints" / str(final) / "state.pt").is_file(),
+          f"{tag}: no checkpoint at step {final}")
+
+
+def run_p9_cli(torch, dev):
+    """Phase 13 (b): ``train.cli`` end to end in image mode (B1, bf16,
+    about 320 PNGs at 256x320) and CSV mode (the 18,154-row reference
+    CSV, epochs of 96 steps), each with a save every epoch, a fault in
+    epoch 2 and one restart; then the image checker on the image run's
+    checkpoint."""
+    import numpy as np
+
+    from pyspark_tf_gke_tpu_torch.data.csv_loader import load_csv
+    from pyspark_tf_gke_tpu_torch.data.pipeline import train_validation_split
+    from pyspark_tf_gke_tpu_torch.data.synthetic import (
+        make_reference_csv, make_synthetic_image_dataset)
+    from pyspark_tf_gke_tpu_torch.evaluate.image_checker import (
+        ManualImageChecker)
+
+    work = PORT_PKG / "_build" / "chip_smoke_p9"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    t0 = time.perf_counter()
+    imgs = make_synthetic_image_dataset(str(work / "imgs"),
+                                        num_images=P9_IMAGES,
+                                        height=P9_SIZE[0], width=P9_SIZE[1])
+    csv = make_reference_csv(str(work / "health.csv"))
+    log(f"  {P9_IMAGES} PNGs at {P9_SIZE[0]}x{P9_SIZE[1]} and the "
+        f"reference CSV written in {time.perf_counter() - t0:.1f} s")
+    common = ["--epochs", str(P9_EPOCHS), "--batch-size", str(P9_BATCH),
+              "--checkpoint-every-steps", "1", "--max-restarts", "1",
+              "--heartbeat-every-steps", "1", "--device", dev.type]
+    # image mode: 256 training images, 8 steps an epoch
+    every = (P9_IMAGES - int(P9_IMAGES * 0.2)) // P9_BATCH
+    out = work / "image_run"
+    t0 = time.perf_counter()
+    history, events = _p9_cli(work / "image_events.jsonl", [
+        "--data-path", imgs, "--flat-layer", "--img-height",
+        str(P9_SIZE[0]), "--img-width", str(P9_SIZE[1]), "--output-dir",
+        str(out), "--fail-at-steps", str(every + every // 2)] + common)
+    image_s = time.perf_counter() - t0
+    log(f"  image mode (B1, bf16): {image_s:.1f} s, step_time_ms "
+        f"{history['step_time_ms']}, examples_per_sec "
+        f"{history['examples_per_sec']}, mae {history['mae']}, val_mae "
+        f"{history.get('val_mae')}")
+    _check_cli_run("image mode", out, history, events, "cnn-b1.txt", every)
+    # CSV mode: 96-step epochs over the rows load_csv keeps (a quarter
+    # of a pass at batch 32), so the restore lands inside a data epoch
+    n_rows = len(load_csv(csv)[1])
+    per_pass = len(train_validation_split(n_rows, 0.2)[0]) // P9_BATCH
+    every_csv = P9_CSV_STEPS
+    out_csv = work / "csv_run"
+    t0 = time.perf_counter()
+    history_csv, events_csv = _p9_cli(work / "csv_events.jsonl", [
+        "--data-path", csv, "--output-dir", str(out_csv),
+        "--steps-per-epoch", str(every_csv), "--fail-at-steps",
+        str(every_csv + every_csv // 2)] + common)
+    csv_s = time.perf_counter() - t0
+    log(f"  CSV mode (MLP, {n_rows} rows kept, {per_pass} batches a pass, "
+        f"{every_csv} steps an epoch): {csv_s:.1f} s, step_time_ms "
+        f"{history_csv['step_time_ms']}, accuracy {history_csv['accuracy']}"
+        f", val_accuracy {history_csv.get('val_accuracy')}")
+    _check_cli_run("CSV mode", out_csv, history_csv, events_csv, "mlp.txt",
+                   every_csv)
+    labels = json.loads((out_csv / "label_map.json").read_text())
+    check(len(labels) == 15 and "" not in labels.values(),
+          f"label_map.json holds {labels}")
+    # the checker on the image run's last checkpoint, every image
+    t0 = time.perf_counter()
+    checker = ManualImageChecker(str(out / "checkpoints"), P9_SIZE,
+                                 flat=True, device=dev)
+    result = checker.main(imgs, plots=False)
+    log(f"  ManualImageChecker (f32) over {result['n_images']} images in "
+        f"{time.perf_counter() - t0:.1f} s: mean pixel error "
+        f"{result['mean_px_error']:.3f}, max {result['max_px_error']:.3f}")
+    check(result["n_images"] == P9_IMAGES
+          and np.isfinite([result["mean_px_error"],
+                           result["max_px_error"]]).all(),
+          f"image checker: {result}")
+    del checker
+    shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return {"image_s": image_s, "csv_s": csv_s, **result}
+
+
+def time_p9_steps(torch, dev):
+    """Phase 13 (c): a CNN-B1 step at batch 32 x 256x320 in f32 and bf16
+    (5 steady steps, then two under ``torch.profiler``: host wall against
+    device busy, top device ops), and an MLP step at batch 32."""
+    from pyspark_tf_gke_tpu_torch.data.pipeline import put_batch
+    from pyspark_tf_gke_tpu_torch.models.cnn import CNNRegressor
+    from pyspark_tf_gke_tpu_torch.models.mlp import MLPClassifier
+    from pyspark_tf_gke_tpu_torch.train.trainer import TASKS, Trainer
+
+    images, targets = make_spot_arrays(P9_BATCH, *P9_SIZE, seed=3)
+    batch = put_batch({"image": images, "target": targets}, dev)
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = f"CNN-B1 {str(dtype).split('.')[-1]}"
+        trainer = Trainer(CNNRegressor(flat=True, dtype=dtype, device=dev,
+                                       image_size=P9_SIZE),
+                          TASKS["regression"](), learning_rate=1e-3)
+        state = trainer.init_state()
+        for _ in range(2):
+            trainer.step(state, batch)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            trainer.step(state, batch)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / 5
+        log(f"  {tag}, batch {P9_BATCH} x {P9_SIZE[0]}x{P9_SIZE[1]}: "
+            f"{ms:.2f} ms/step, {P9_BATCH / ms * 1e3:.1f} images/s (5 "
+            f"steady steps, no profiler; {CARD})")
+        wall, busy, top = _profiled(
+            torch, lambda: [trainer.step(state, batch) for _ in range(2)])
+        check(busy > 0, f"{tag}: torch.profiler saw no device time")
+        log(f"  2 {tag} steps under the profiler: wall {wall:.2f} ms, "
+            f"device busy {busy:.2f} ms ({100 * busy / wall:.1f}%), idle "
+            f"{100 * (1 - busy / wall):.1f}%")
+        for name, t in top[:10]:
+            log(f"    {t:9.3f} ms  {name[:90]}")
+        out[tag] = ms
+        del trainer, state
+        torch.cuda.empty_cache()
+    feats, labels = make_health_arrays(P9_BATCH)
+    trainer = Trainer(MLPClassifier(6, 3, device=dev),
+                      TASKS["classification"](), learning_rate=1e-3)
+    state = trainer.init_state()
+    mlp_batch = put_batch({"x": feats, "y": labels}, dev)
+    for _ in range(5):
+        trainer.step(state, mlp_batch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(50):
+        trainer.step(state, mlp_batch)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / 50
+    wall, busy, _ = _profiled(torch, lambda: [trainer.step(state, mlp_batch)
+                                              for _ in range(5)])
+    log(f"  MLP, batch {P9_BATCH}: {ms:.3f} ms/step (50 steady steps); 5 "
+        f"steps under the profiler: wall {wall:.2f} ms, device busy "
+        f"{busy:.3f} ms ({100 * busy / wall:.1f}%)")
+    out["MLP"] = ms
+    return out
+
+
+def run_p9(torch, dev):
+    """Phase 13, with every kernel counter at 0 before it and read after:
+    the P9 path runs cuDNN convs, cuBLAS products and PyTorch's
+    elementwise ops, no port kernel."""
+    counters = _all_counters()
+    _reset(torch, counters)
+    t0 = time.perf_counter()
+    parity = check_loss_parity(torch, dev)
+    cli = run_p9_cli(torch, dev)
+    steps = time_p9_steps(torch, dev)
+    torch.cuda.synchronize()
+    launches = _moved(counters)
+    log(f"  port kernel launches on the P9 path: {launches}")
+    check(not any(launches.values()),
+          f"the P9 path launched port kernels: {launches}")
+    log(f"  phase 13 took {time.perf_counter() - t0:.1f} s: {parity}, "
+        f"{cli}, {steps}")
+    return launches
+
+
 # -- main ---------------------------------------------------------------------
 
 
@@ -6457,6 +6959,11 @@ def main() -> int:
     log("== 12. the other ResNet-50 variants: one training step each, "
         "bf16, 8 x 64^2")
     check_resnet_variants(torch, dev, k5_counters)
+    torch.cuda.empty_cache()
+    log("== 13. the reference-parity training plane (P9): CNN-B1 and MLP "
+        "loss parity, train.cli in image and CSV mode with a fault and a "
+        "resume, the image checker, where a CNN-B1 step goes")
+    p9_launches = run_p9(torch, dev)
 
     out = []
     for name, source, replaces, design in KERNELS:
@@ -6478,7 +6985,8 @@ def main() -> int:
                     "resnet_train": resnet_launches.get(name, 0),
                     "resnet_fused3_train": fused3_launches.get(name, 0),
                     "bert_train": bert_launches.get(name, 0),
-                    "ring_merge": ring_launches.get(name, 0)}
+                    "ring_merge": ring_launches.get(name, 0),
+                    "p9_train": p9_launches[name]}
         # each kernel's count from the path that runs it, the newest
         # slice's path first (paged attention runs only on serving; the
         # block entry on the ring, phase 3c's merge on one card)

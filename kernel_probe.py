@@ -110,7 +110,13 @@ editing a ``.cu`` file, and for the experiments PERF.md reports.
         ``torch.cuda.memory_allocated`` around one bf16 GEMM on the main
         thread, on threads started one after another, on four threads
         alive at once (twice) and on a thread with a stream of its own:
-        what cuBLAS keeps for each thread's handle and stream.
+        what cuBLAS keeps for each thread's handle and stream;
+    python3 kernel_probe.py p9-seeds [SEED ...]
+        phase 13's CNN-B1 loss-parity run (f32, the sizes of
+        ``tools/parity_report.json``) from the port's own numpy
+        initialisation at each seed (default 1337 and 0-6) in place of
+        the JAX run's: each run's final and best loss, final MAE, and
+        whether the report's gates hold.
 
 Each exits non-zero without a CUDA device.
 """
@@ -959,6 +965,41 @@ def cublas_workspace(torch, dev) -> None:
                       "total_mib": mib() - base}), flush=True)
 
 
+def p9_seeds(torch, dev, seeds) -> None:
+    import json
+
+    import chip_smoke as cs
+    from pyspark_tf_gke_tpu_torch.models.cnn import CNNRegressor
+    from pyspark_tf_gke_tpu_torch.train.harness import make_optimizer
+    from pyspark_tf_gke_tpu_torch.train.trainer import TASKS, Trainer
+
+    section = json.loads(cs.PARITY_REPORT.read_text())["cnn_b1"]
+    cfg, opt, gates = section["config"], section["optimizer"], \
+        section["checks"]
+    lg = gates["final_loss_not_worse_than_tf_best"]
+    mg = gates["final_mae_not_worse_than_tf_best"]
+    images, targets = cs.make_spot_arrays(cfg["images"], cfg["height"],
+                                          cfg["width"], seed=1337)
+    card = cs.query_card()
+    for seed in seeds or [1337, 0, 1, 2, 3, 4, 5, 6]:
+        model = CNNRegressor(flat=True, device=dev, seed=seed,
+                             image_size=(cfg["height"], cfg["width"]))
+        trainer = Trainer(model, TASKS["regression"](), tx=make_optimizer(
+            opt["lr"], eps=opt["eps"]))
+        hist = cs._epoch_history(torch, trainer,
+                                 {"image": images, "target": targets},
+                                 cfg["batch_size"], cfg["epochs"],
+                                 ("loss", "mae"))
+        final, mae = hist["loss"][-1], hist["mae"][-1]
+        print(json.dumps({
+            "seed": seed, "final_loss": final, "best_loss": min(hist["loss"]),
+            "final_mae": mae, "loss_gate": final <= lg["tf_best"] * lg["tol"],
+            "mae_gate": mae <= mg["tf_best"] * (1 + mg["tol"]),
+            "card": card}), flush=True)
+        del model, trainer
+        torch.cuda.empty_cache()
+
+
 def ce_modes(torch, dev) -> None:
     """One chunk's product of the chunked loss at the LM training shape
     (N = 16 x 511 rows, E = 768, one of 8 chunks of V = 50257: 6283
@@ -1035,6 +1076,8 @@ def main(argv) -> int:
                 "cublas-workspace": lambda: cublas_workspace(torch, dev),
                 "int8-modes": lambda: int8_modes(torch, dev),
                 "ce-modes": lambda: ce_modes(torch, dev),
+                "p9-seeds": lambda: p9_seeds(
+                    torch, dev, [int(a) for a in argv[1:]]),
                 "flash-widths": lambda: flash_widths(torch, dev, argv[1:]),
                 "ln-widths": lambda: ln_widths(
                     torch, dev, [int(a) for a in argv[1:]])}

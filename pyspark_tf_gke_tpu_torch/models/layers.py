@@ -25,8 +25,12 @@ points of ``nn.Dense(dtype=...)``. Three ways to hold the weights:
 
 The models keep flax's parameter paths (``layer_3/attention/query/
 kernel``): :func:`flax_parameters`, :func:`load_flax_params`,
-:func:`flax_tree` and :func:`init_flax_params` are the one place that
+:func:`flax_tree`, :func:`flatten_flax` (a nested JAX tree of host
+arrays), :func:`init_flax_params` and :func:`init_keras_params` (the
+reference-parity models' Keras initialisers) are the one place that
 maps a module's parameters to and from such a flat tree.
+:func:`build_device` places a model's parameters where they are made:
+``meta`` builds shapes only (a parameter count without memory).
 
 ``FusedLayerNorm`` keeps f32 ``scale`` and ``bias`` (trainable when
 ``trainable``) and calls the K3/K3b wrapper (plain math on CPU tensors);
@@ -36,12 +40,13 @@ autograd through plain PyTorch.
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Mapping, Optional, Union
 
 import numpy as np
 import torch
 from torch import nn
 
+from pyspark_tf_gke_tpu_torch.device import resolve_device
 from pyspark_tf_gke_tpu_torch.models.embedding import TokenEmbed
 from pyspark_tf_gke_tpu_torch.ops.int8_matmul import (int8_matmul,
                                                       int8_matmul_group,
@@ -208,3 +213,44 @@ def init_flax_params(build: Callable[[], nn.Module], seed: int) -> Params:
             arr = np.zeros(shape, np.float32)
         params[path] = torch.from_numpy(arr)
     return params
+
+
+def flatten_flax(tree: Mapping, prefix: str = "") -> Params:
+    """A nested flax ``params`` tree of host arrays as ``{flax path: f32
+    tensor}`` (``Dense_0/kernel``), layouts unchanged."""
+    out: Params = {}
+    for key, value in tree.items():
+        path = f"{prefix}/{key}" if prefix else str(key)
+        if isinstance(value, Mapping):
+            out.update(flatten_flax(value, path))
+        else:
+            out[path] = torch.from_numpy(np.array(value, dtype=np.float32))
+    return out
+
+
+def build_device(device: Union[str, torch.device]) -> torch.device:
+    """The device a model builds its parameters on: ``meta`` (shapes
+    only), else :func:`resolve_device`'s answer."""
+    if str(device) == "meta":
+        return torch.device("meta")
+    return resolve_device(device)
+
+
+@torch.no_grad()
+def init_keras_params(module: nn.Module, seed: int) -> None:
+    """Keras' defaults, as the JAX reference-parity models pin them
+    (``KERAS_KERNEL_INIT`` / ``KERAS_BIAS_INIT``): every ``kernel``
+    glorot-uniform, bound ``sqrt(6 / (fan_in + fan_out))`` with flax's
+    fans (a conv's receptive field times its input / output channels),
+    drawn from a numpy generator seeded with ``seed``; every other
+    parameter (biases, PReLU alphas) zero."""
+    rng = np.random.default_rng(seed)
+    for path, p in flax_parameters(module).items():
+        if path.rsplit("/", 1)[-1] != "kernel":
+            p.zero_()
+            continue
+        receptive = int(np.prod(p.shape[:-2]))
+        fan_in, fan_out = receptive * p.shape[-2], receptive * p.shape[-1]
+        limit = np.sqrt(6.0 / (fan_in + fan_out))
+        p.copy_(torch.from_numpy(rng.uniform(
+            -limit, limit, tuple(p.shape)).astype(np.float32)))

@@ -32,7 +32,7 @@ import json
 import os
 import shutil
 import threading
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
@@ -275,9 +275,10 @@ class CheckpointManager:
         if int(state.step) - (self.latest_step() or 0) >= self.every_steps:
             self.save(state, history)
 
-    def restore(self, state: Any, step: Optional[int] = None) -> Any:
-        """Load ``step`` (default the latest) into ``state`` in place and
-        return it."""
+    def read(self, step: Optional[int] = None) -> Tuple[int, dict]:
+        """``(step, saved tree)`` of ``step`` (default the latest): the
+        step, ``params``, ``opt_state``, ``ema_params`` and
+        ``batch_stats`` as CPU tensors keyed as the state's."""
         self._join()  # a save in flight lands first
         if step is None:
             step = self.latest_step()
@@ -286,7 +287,7 @@ class CheckpointManager:
                 f"No checkpoint found under {self.directory}")
         path = f"{self._step_path(step)}/{STATE_FILE}"
 
-        def _restore():
+        def _read():
             chaos_fire("checkpoint.restore", step=step)
             if self.remote:
                 with self._fs().open(path, "rb") as fh:
@@ -296,8 +297,13 @@ class CheckpointManager:
             return torch.load(path, map_location="cpu", weights_only=True)
 
         # a pure read: retried on transient faults, not when missing
-        saved = retry_with_backoff(_restore, op="checkpoint_restore",
-                                   give_up_on=(FileNotFoundError,))
+        return step, retry_with_backoff(_read, op="checkpoint_restore",
+                                        give_up_on=(FileNotFoundError,))
+
+    def restore(self, state: Any, step: Optional[int] = None) -> Any:
+        """Load ``step`` (default the latest) into ``state`` in place and
+        return it."""
+        step, saved = self.read(step)
         _copy_into(state.params, saved["params"], "params")
         state.opt_state = _copy_into(state.opt_state, saved["opt_state"],
                                      "opt_state")
@@ -325,3 +331,11 @@ def save_history(output_dir: str, history: Dict) -> str:
     """``history.json`` (Keras-History-compatible)."""
     return fs_write_text(os.path.join(output_dir, "history.json"),
                          json.dumps(history))
+
+
+def save_label_map(output_dir: str, vocab) -> str:
+    """``label_map.json``, the reference's format: ``{index: label}``."""
+    return fs_write_text(
+        os.path.join(output_dir, "label_map.json"),
+        json.dumps({int(i): s for i, s in enumerate(vocab)},
+                   ensure_ascii=False, indent=2))

@@ -9,7 +9,9 @@ from PyTorch's optimizers:
 
 * adam / adamw: ``mu = (1-b1) g + b1 mu``, ``nu = (1-b2) g^2 + b2 nu``,
   bias corrections ``1 - b**t`` in f32 with ``t`` the update count from
-  1, update ``mu_hat / (sqrt(nu_hat) + eps)``; adamw adds ``wd * p`` to
+  1, update ``mu_hat / (sqrt(nu_hat) + eps)``, ``eps`` optax's 1e-8
+  unless given (``optax.adam(eps=)``; Keras' 1e-7 for the
+  reference-parity runs); adamw adds ``wd * p`` to
   the update of every parameter with ndim >= 2 (the decay mask) BEFORE
   the learning rate scales it;
 * sgd, and ``momentum``: nesterov trace ``t = g + m t``, update ``g + m
@@ -117,9 +119,12 @@ class Optimizer:
 
     def __init__(self, kind: str, lr: Callable[[int], float],
                  weight_decay: float = 0.0, momentum: float = 0.9,
-                 grad_clip_norm: float = 0.0):
+                 grad_clip_norm: float = 0.0, eps: Optional[float] = None):
         self.kind = kind
         self.lr = lr
+        # optax's defaults: adam and adamw 1e-8, lamb 1e-6
+        self.eps = eps if eps is not None else (
+            1e-6 if kind == "lamb" else 1e-8)
         self.weight_decay = weight_decay
         self.momentum = momentum
         self.grad_clip_norm = grad_clip_norm
@@ -196,7 +201,7 @@ class Optimizer:
         bc2 = float(_F32(1) - _F32(self.b2) ** _F32(count))
         denom = torch._foreach_div(nu, bc2)
         torch._foreach_sqrt_(denom)
-        torch._foreach_add_(denom, 1e-6 if self.kind == "lamb" else 1e-8)
+        torch._foreach_add_(denom, self.eps)
         return torch._foreach_div(torch._foreach_div(mu, bc1), denom)
 
     @staticmethod
@@ -249,10 +254,12 @@ def make_optimizer(learning_rate: float, schedule: str = "constant",
                    total_steps: int = 0, warmup_steps: int = 0,
                    optimizer: str = "adam", weight_decay: float = 0.0,
                    momentum: float = 0.9,
-                   grad_clip_norm: float = 0.0) -> Optimizer:
+                   grad_clip_norm: float = 0.0,
+                   eps: Optional[float] = None) -> Optimizer:
     """adam | adamw | sgd | momentum | lamb | adafactor with a constant |
     cosine | warmup_cosine schedule and optional global-norm clipping; the same
-    argument checks as the JAX factory."""
+    argument checks as the JAX factory. ``eps`` is the Adam-family
+    epsilon (default optax's: 1e-8, lamb 1e-6)."""
     if schedule not in ("constant", "cosine", "warmup_cosine"):
         raise ValueError(
             f"unknown lr schedule {schedule!r}; use constant | cosine | "
@@ -281,7 +288,8 @@ def make_optimizer(learning_rate: float, schedule: str = "constant",
         lr = _warmup_cosine(0.0, learning_rate, max(warmup_steps, 1),
                             max(total_steps, warmup_steps + 1))
     return Optimizer(optimizer, lr, weight_decay=weight_decay,
-                     momentum=momentum, grad_clip_norm=grad_clip_norm)
+                     momentum=momentum, grad_clip_norm=grad_clip_norm,
+                     eps=eps)
 
 
 def local_batch_size(global_batch: int) -> int:

@@ -1,7 +1,8 @@
 """Loss and metric functions (counterpart of
 ``pyspark_tf_gke_tpu/train/losses.py``): softmax cross-entropy on
-integer labels and accuracy, both reduced as f32 means whatever the
-logits' dtype."""
+integer labels and accuracy (the classifiers), mean squared error and
+mean absolute error (the CNN regressor), all reduced as f32 means over
+f32-cast operands whatever the predictions' dtype."""
 
 from __future__ import annotations
 
@@ -26,3 +27,12 @@ def softmax_cross_entropy(logits: torch.Tensor,
 
 def accuracy_metric(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     return (torch.argmax(logits, dim=-1) == labels).float().mean()
+
+
+def mse_loss(preds: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    diff = preds.float() - targets.float()
+    return torch.mean(diff * diff)
+
+
+def mae_metric(preds: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    return torch.mean(torch.abs(preds.float() - targets.float()))

@@ -5,14 +5,18 @@ port's copy of ``Heartbeat``, ``run_with_recovery`` and
 * :class:`Heartbeat` — an atomically replaced JSON file written from the
   step loop (or the serving driver loop); its age is the liveness
   signal a probe or watchdog reads (:meth:`Heartbeat.is_stalled`).
+* :func:`detect_stall` and the watchdog (``python -m
+  pyspark_tf_gke_tpu_torch.train.resilience --paths hb0.json --stall
+  60``): exit 1 the moment a heartbeat goes stale or never appears
+  within the startup grace, 0 when the timeout passes without one;
 * :func:`run_with_recovery` — re-enter the training function on failure
   with ``attempt > 0``, so it resumes from the latest checkpoint.
 * :func:`retry_with_backoff` — exponential backoff with jitter around an
   idempotent call (bundle loads), each retry counted in
   ``retries_total{op}`` and on the event trail.
 
-The JAX module's stall watchdog CLI is not ported (ROADMAP, P9); its
-fault injectors live in ``chaos/inject.py``.
+The step-loop fault injector lives in ``chaos/inject.py`` and is
+re-exported here, as in the JAX module.
 """
 
 from __future__ import annotations
@@ -23,6 +27,10 @@ import random
 import time
 from typing import Callable, Optional, Sequence, TypeVar
 
+from pyspark_tf_gke_tpu_torch.chaos.inject import (  # noqa: F401 — the
+    FaultInjector,  # train-plane names, re-exported from the chaos plane
+    InjectedFault,
+)
 from pyspark_tf_gke_tpu_torch.obs.events import get_event_log
 from pyspark_tf_gke_tpu_torch.obs.metrics import platform_families
 from pyspark_tf_gke_tpu_torch.utils.fs import is_remote
@@ -81,6 +89,61 @@ class Heartbeat:
         return a is not None and a > stall_seconds
 
 
+def detect_stall(paths: Sequence[str], stall_seconds: float,
+                 timeout_s: float, poll_s: float = 0.5,
+                 startup_grace_s: Optional[float] = None) -> Optional[str]:
+    """Poll the heartbeat files until one goes stale (written once, then
+    quiet for ``stall_seconds``) or ``timeout_s`` elapses; returns the
+    first stalled path, or None. A file that never appears counts as
+    stalled once ``startup_grace_s`` (default ``3 * stall_seconds``: the
+    first beat lands after start-up and the kernels' build) has passed
+    since the watch began; with ``timeout_s`` below the grace a missing
+    file stays 'not started'."""
+    grace = (3 * stall_seconds if startup_grace_s is None
+             else startup_grace_s)
+    start = time.time()
+    deadline = start + timeout_s
+    while time.time() < deadline:
+        for p in paths:
+            if Heartbeat.is_stalled(p, stall_seconds):
+                return p
+            if Heartbeat.age(p) is None and time.time() - start > grace:
+                return p  # never appeared within the startup grace
+        time.sleep(poll_s)
+    return None
+
+
+def _watch_main(argv=None) -> int:
+    """The watchdog's CLI: exit 1 (printing the stalled file, its age and
+    its last beat as JSON) the moment a heartbeat goes stale, 0 when
+    ``--timeout`` passes without one. Compose with the shell for the
+    restart: ``watch ... || restart-the-job``."""
+    import argparse
+
+    ap = argparse.ArgumentParser(description="heartbeat stall watchdog")
+    ap.add_argument("--paths", required=True,
+                    help="comma-separated heartbeat files")
+    ap.add_argument("--stall", type=float, default=60.0,
+                    help="seconds of heartbeat silence that count as hung")
+    ap.add_argument("--timeout", type=float, default=3600.0,
+                    help="give up (exit 0) after this many seconds")
+    ap.add_argument("--poll", type=float, default=1.0)
+    ap.add_argument("--startup-grace", type=float, default=None,
+                    help="seconds a heartbeat file may remain absent "
+                         "before 'never started' counts as stalled "
+                         "(default 3x --stall)")
+    args = ap.parse_args(argv)
+    paths = [p for p in args.paths.split(",") if p]
+    stalled = detect_stall(paths, args.stall, args.timeout, args.poll,
+                           startup_grace_s=args.startup_grace)
+    if stalled:
+        print(json.dumps({"stalled": stalled,
+                          "age_s": Heartbeat.age(stalled),
+                          "last": Heartbeat.read(stalled)}))
+        return 1
+    return 0
+
+
 def run_with_recovery(
     train_once: Callable[[int], T],
     max_restarts: int = 2,
@@ -89,18 +152,30 @@ def run_with_recovery(
 ) -> T:
     """Run ``train_once(attempt)``; on an exception not in ``fatal``,
     restart with ``attempt + 1`` (``train_once`` resumes from its
-    checkpoint when ``attempt > 0``) up to ``max_restarts`` times."""
+    checkpoint when ``attempt > 0``) up to ``max_restarts`` times. The
+    event trail gets ``retry``, ``recovery_succeeded`` and
+    ``recovery_exhausted``, as from the JAX loop."""
     attempt = 0
     while True:
         try:
-            return train_once(attempt)
+            result = train_once(attempt)
+            if attempt:
+                get_event_log().emit("recovery_succeeded", attempt=attempt)
+            return result
         except BaseException as e:  # noqa: BLE001 — resilience boundary
             if isinstance(e, tuple(fatal)) or attempt >= max_restarts:
+                get_event_log().emit(
+                    "recovery_exhausted", attempt=attempt,
+                    error=f"{type(e).__name__}: {e}"[:500],
+                    fatal=isinstance(e, tuple(fatal)))
                 raise
             attempt += 1
             logger.warning(
                 "Training attempt %d failed (%s: %s); restarting with resume "
                 "(%d/%d)", attempt, type(e).__name__, e, attempt, max_restarts)
+            get_event_log().emit(
+                "retry", attempt=attempt, max_restarts=max_restarts,
+                error=f"{type(e).__name__}: {e}"[:500])
             if retry_delay_s:
                 time.sleep(retry_delay_s)
 
@@ -154,3 +229,9 @@ def retry_with_backoff(
             if delay > 0:
                 sleep(delay)
     raise AssertionError("unreachable")  # the loop returns or raises
+
+
+if __name__ == "__main__":
+    import sys
+
+    sys.exit(_watch_main())

@@ -1,6 +1,6 @@
 """The trainer: train step + epoch loop (counterpart of
-``pyspark_tf_gke_tpu/train/trainer.py``, the causal-LM, ResNet and BERT
-tasks).
+``pyspark_tf_gke_tpu/train/trainer.py``: the classification (MLP),
+regression (CNN), causal-LM, ResNet and BERT tasks).
 
 A step is forward, loss, ``backward`` and the optimizer update, eager on
 one device: the attention, LayerNorm and fused 1x1-conv gradients come
@@ -27,8 +27,10 @@ reads them. The epoch loop keeps the JAX one's contract:
   of each step's host dispatch interval (each epoch's first step left
   out) and the ``train_last_loss`` gauge.
 
-The JAX trainer's sharding and its other tasks are not ported (ROADMAP,
-P9 and P11).
+After each step the loop beats the heartbeat, then lets the fault
+injector fail the step (chaos tests), then logs every ``log_every``
+steps, in the JAX loop's order. The JAX trainer's sharding (P11) and its
+``vit`` task (P10) are not ported.
 """
 
 from __future__ import annotations
@@ -47,6 +49,7 @@ from pyspark_tf_gke_tpu_torch.obs.metrics import get_registry, platform_families
 from pyspark_tf_gke_tpu_torch.ops.chunked_ce import chunked_cross_entropy
 from pyspark_tf_gke_tpu_torch.train.harness import make_optimizer
 from pyspark_tf_gke_tpu_torch.train.losses import (accuracy_metric,
+                                                   mae_metric, mse_loss,
                                                    per_token_cross_entropy,
                                                    softmax_cross_entropy)
 from pyspark_tf_gke_tpu_torch.train.state import TrainState
@@ -68,6 +71,35 @@ class TrainerTask:
     loss_and_metrics: Callable[[Any, Batch],
                                Tuple[torch.Tensor, Dict[str, torch.Tensor]]]
     has_batch_stats: bool = False
+
+
+def classification_task() -> TrainerTask:
+    """The MLP on ``{"x", "y"}``: softmax cross-entropy and accuracy."""
+
+    def forward(model, batch, train=True):
+        return model(batch["x"])
+
+    def lam(preds, batch):
+        loss = softmax_cross_entropy(preds, batch["y"])
+        return loss, {"loss": loss,
+                      "accuracy": accuracy_metric(preds, batch["y"])}
+
+    return TrainerTask("classification", forward, lam)
+
+
+def regression_task() -> TrainerTask:
+    """The CNN regressor on ``{"image", "target"}``: MSE loss, with
+    ``mse`` and ``mae``."""
+
+    def forward(model, batch, train=True):
+        return model(batch["image"])
+
+    def lam(preds, batch):
+        loss = mse_loss(preds, batch["target"])
+        return loss, {"loss": loss, "mse": loss,
+                      "mae": mae_metric(preds, batch["target"])}
+
+    return TrainerTask("regression", forward, lam)
 
 
 def causal_lm_task(vocab_chunks: Optional[int] = None) -> TrainerTask:
@@ -195,7 +227,9 @@ def bert_mlm_task() -> TrainerTask:
     return TrainerTask("bert_mlm", _bert_forward, lam)
 
 
-TASKS = {"causal_lm": causal_lm_task, "resnet": resnet_task,
+TASKS = {"classification": classification_task,
+         "regression": regression_task,
+         "causal_lm": causal_lm_task, "resnet": resnet_task,
          "bert_classification": bert_classification_task,
          "bert_mlm": bert_mlm_task}
 
@@ -331,26 +365,29 @@ class Trainer:
     def fit(self, state: TrainState, batches, epochs: int,
             steps_per_epoch: int,
             val_batches: Optional[Callable[[], Any]] = None,
-            checkpoint_manager=None, heartbeat=None, prefetch: int = 2,
-            grad_accum: int = 1,
+            checkpoint_manager=None, log_every: int = 0, heartbeat=None,
+            fault_injector=None, prefetch: int = 2, grad_accum: int = 1,
             val_use_ema: bool = False) -> Tuple[TrainState, Dict[str, list]]:
         """Run the training loop; returns the final state and the
-        Keras-style history dict."""
+        Keras-style history dict. ``fault_injector`` is a
+        ``chaos.inject.FaultInjector``; ``log_every`` logs the epoch's
+        running mean loss every N steps (a host sync)."""
         history: Dict[str, list] = {}
         prefetched = prefetch_to_device(batches, self.device, size=prefetch)
         device_batches = _CountingIterator(prefetched)
         try:
             return self._fit_epochs(
                 state, device_batches, epochs, steps_per_epoch, val_batches,
-                checkpoint_manager, heartbeat, history, grad_accum, val_use_ema)
+                checkpoint_manager, log_every, heartbeat, fault_injector,
+                history, grad_accum, val_use_ema)
         finally:
             # stop the prefetch worker: it must not keep draining the
             # caller's iterator after fit returns or raises
             prefetched.close()
 
     def _fit_epochs(self, state, device_batches, epochs, steps_per_epoch,
-                    val_batches, checkpoint_manager, heartbeat, history,
-                    grad_accum, val_use_ema):
+                    val_batches, checkpoint_manager, log_every, heartbeat,
+                    fault_injector, history, grad_accum, val_use_ema):
         global_step = int(state.step)
         self._event_log.emit(
             "train_fit_start", task=self.task.name, epochs=epochs,
@@ -386,9 +423,16 @@ class Trainer:
                     self._obs["train_step_time_ms"].observe(
                         (time.perf_counter() - t0) * 1000.0)
                 if heartbeat is not None:
-                    heartbeat.beat(state.step)
+                    heartbeat.beat(global_step)
+                if fault_injector is not None:
+                    fault_injector.maybe_fail(global_step)
                 for k, v in metrics.items():
                     sums[k] = sums[k] + v if k in sums else v
+                if log_every and (step_i + 1) % log_every == 0:
+                    logger.info(
+                        "epoch %d step %d/%d loss=%.4f", epoch + 1,
+                        step_i + 1, steps_per_epoch,
+                        float(sums.get("loss", 0.0)) / (step_i + 1))
             sums_host = {k: float(v) for k, v in sums.items()}
             _sync(self.device)
             epoch_time = time.perf_counter() - epoch_start

@@ -46,6 +46,9 @@ SERVING_MODULES = ("train/continuous.py", "train/serve.py",
 BERT_MODULES = ("utils/seeding.py", "data/codec.py", "data/tfrecord.py",
                 "data/mlm.py", "models/bert.py", "train/bert_finetune.py",
                 "ops/attention.py")
+P9_MODULES = ("utils/config.py", "data/synthetic.py", "data/csv_loader.py",
+              "data/images.py", "models/__init__.py", "models/mlp.py",
+              "models/cnn.py", "train/cli.py", "evaluate/image_checker.py")
 
 
 def _port_files():
@@ -57,6 +60,7 @@ def _port_files():
     assert set(TRAINING_MODULES) <= rel
     assert set(SERVING_MODULES) <= rel
     assert set(BERT_MODULES) <= rel
+    assert set(P9_MODULES) <= rel
     return files + [REPO / "chip_smoke.py", REPO / "kernel_probe.py"]
 
 
@@ -82,6 +86,11 @@ def test_importing_the_server_loads_no_jax():
             "import pyspark_tf_gke_tpu_torch.train.bert_finetune\n"
             "import pyspark_tf_gke_tpu_torch.etl.text_bridge\n"
             "import pyspark_tf_gke_tpu_torch.evaluate.lm_eval\n"
+            "import pyspark_tf_gke_tpu_torch.train.cli\n"
+            "import pyspark_tf_gke_tpu_torch.evaluate.image_checker\n"
+            "from pyspark_tf_gke_tpu_torch.models import build_model\n"
+            "build_model('mlp', num_classes=3, input_dim=3, device='cpu')\n"
+            "build_model('cnn', image_size=(16, 16), device='cpu')\n"
             f"bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{sorted(FORBIDDEN)!r})\n"
             "print(bad)\nsys.exit(1 if bad else 0)\n")
