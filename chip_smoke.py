@@ -299,8 +299,9 @@
     cuBLAS products, PyTorch's elementwise ops, as the JAX package runs
     these in XLA): (a) loss parity in f32 (no TF32) as
     ``tools/loss_parity.py`` trains the JAX side, from the JAX run's own
-    initial parameters (``jax_init_params``: flax's Keras glorot-uniform
-    under ``jax.random.key(1337)``, recomputed in numpy): CNN-B1 on its
+    initial parameters (the models' own init at seed 1337,
+    ``utils/seeding.jax_init_params``: flax's Keras glorot-uniform under
+    ``jax.random.key(1337)``, recomputed in numpy): CNN-B1 on its
     copy of ``make_spot_arrays(128, 256, 320)`` (batch 16, 30 epochs,
     in order, Adam lr 1e-3 eps 1e-7) and the MLP on
     ``make_health_arrays(4096)`` (batch 16, 20 epochs), gated as
@@ -319,8 +320,30 @@
     max pixel error); (c) a CNN-B1 step at batch 32 x 256x320 in f32 and
     bf16 (ms/step, images/s, two steps under ``torch.profiler``: host
     wall against device busy, top device ops) and an MLP step;
-14. prints one ``{"kernels": [...]}`` line, then
-15. ``{"ok": true, "device": {...}}`` as the last line.
+14. P10: K2f, K2dq and K2dkv at ViT-Base's S = 197 (non-causal, an
+    all-ones key mask) against their plain versions in bf16 and f32,
+    timed at B=64 beside SDPA; (a) a 2-layer ViT at ViT-Base's width
+    (batch 8 of 224^2) through the kernels against ``use_kernels=False``
+    in bf16 and f32 (loss, logits, every gradient; one step's launches
+    gated); (b) ViT-Base/16 trained at the JAX bench's shape (batch 64 of
+    224^2, 1000 classes, bf16, Adam 1e-3; 2 + 10 steps): K2f, K2dq,
+    K2dkv 12 and K3, K3b 26 launches a step, finite losses, ms/step,
+    images/s, device busy and top ops; (c) a 2-layer MoE-BERT (8 experts,
+    top 2, every 2nd layer) through the kernels against plain, the plain
+    MoE layer handed the kernel run's inputs so both route alike (picks
+    and aux equal, router gradients and the rest held as (a)); then
+    ``bert_finetune`` at phase 7d's flags dense and with ``--num-experts
+    8`` (K2/K3 launches equal, ``moe_aux_loss`` finite) and a dense and
+    an MoE step timed in turns, the einsums' share of device time; (d)
+    the port's ``etl/bootstrap.py`` at its defaults on ``cuda`` and on
+    ``cpu`` over one CSV (rows, width, k, iterations and the round trip
+    equal, silhouettes within 1e-3), the KMeans fit on both (centres,
+    cost, ``n_iter``), a Lloyd iteration's device ms, no port kernel
+    launched; (e) a CNN-B1 ``Trainer`` with ``mu_dtype=torch.bfloat16``
+    on the card against the host (5 steps, losses within 1e-3) and the
+    JAX-init replay's host seconds for CNN-B1 at 256x320;
+15. prints one ``{"kernels": [...]}`` line, then
+16. ``{"ok": true, "device": {...}}`` as the last line.
 
 It takes no arguments. Any failed check exits non-zero. Without a CUDA
 device, or outside a checkout of the repository, it exits non-zero and
@@ -909,7 +932,7 @@ def _flash_bwd_record(torch, fa, q, k, v, dout, lse, delta, errs):
     return recs
 
 
-def _sdpa_bwd_times(torch, F, q, k, v, dout):
+def _sdpa_bwd_times(torch, F, q, k, v, dout, causal=True):
     """The SDPA backward (dQ, dK and dV together), eager and
     graph-replayed, on transposed [B, S, H, D] views and on contiguous
     [B, H, S, D] copies. Graph-replayed: forward and backward captured
@@ -925,17 +948,17 @@ def _sdpa_bwd_times(torch, F, q, k, v, dout):
         if contiguous:
             qt, kt, vt, dt = (t.contiguous() for t in (qt, kt, vt, dt))
         leaves = [t.detach().requires_grad_() for t in (qt, kt, vt)]
-        y = F.scaled_dot_product_attention(*leaves, is_causal=True)
+        y = F.scaled_dot_product_attention(*leaves, is_causal=causal)
         eager = cuda_ms(lambda: torch.autograd.grad(
             y, leaves, dt, retain_graph=True))
 
         def fwd():
-            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
 
         def fwd_bwd():
             own = [t.detach().requires_grad_() for t in (qt, kt, vt)]
             torch.autograd.grad(F.scaled_dot_product_attention(
-                *own, is_causal=True), own, dt)
+                *own, is_causal=causal), own, dt)
 
         try:
             graphed = max(graph_ms(fwd_bwd) - graph_ms(fwd), 0.0)
@@ -6293,108 +6316,15 @@ def _epoch_history(torch, trainer, arrays, batch_size, epochs, keys):
     return history
 
 
-def _threefry2x32(k1, k2, x0, x1):
-    """JAX's Threefry-2x32 (20 rounds) over uint32 numpy arrays."""
-    import numpy as np
-
-    x0, x1 = x0.astype(np.uint32), x1.astype(np.uint32)
-    ks = (np.uint32(k1), np.uint32(k2),
-          np.uint32(k1) ^ np.uint32(k2) ^ np.uint32(0x1BD11BDA))
-    with np.errstate(over="ignore"):
-        x0 += ks[0]
-        x1 += ks[1]
-        for i in range(5):
-            for r in ((13, 15, 26, 6), (17, 29, 16, 24))[i % 2]:
-                x0 += x1
-                x1 = (x1 << np.uint32(r)) | (x1 >> np.uint32(32 - r))
-                x1 ^= x0
-            x0 += ks[(i + 1) % 3]
-            x1 += ks[(i + 2) % 3] + np.uint32(i + 1)
-    return x0, x1
-
-
-def _flax_key(seed: int, *suffix):
-    """The key flax's ``make_rng('params')`` hands a parameter of the
-    module at ``suffix`` (its path, then the scope's counter) under
-    ``jax.random.key(seed)``: ``fold_in`` of the first 4 bytes of the
-    suffix's SHA-1."""
-    import hashlib
-
-    import numpy as np
-
-    m = hashlib.sha1()
-    for x in suffix:
-        m.update(x.encode() if isinstance(x, str)
-                 else x.to_bytes((x.bit_length() + 7) // 8, "big"))
-    data = int.from_bytes(m.digest()[:4], "big")
-    o1, o2 = _threefry2x32(seed >> 32, seed & 0xFFFFFFFF,
-                           np.zeros(1, np.uint32),
-                           np.array([data], np.uint32))
-    return int(o1[0]), int(o2[0])
-
-
-def _glorot_uniform(key, shape, chunk: int = 1 << 20):
-    """``nn.initializers.glorot_uniform()(key, shape)`` (f32) in numpy:
-    the partitionable Threefry bits of each element's index, 23 of them
-    as a float in [1, 2), mapped to [-1, 1) and scaled by ``sqrt(3 *
-    2 / (fan_in + fan_out))``."""
-    import numpy as np
-
-    from concurrent.futures import ThreadPoolExecutor
-
-    n = int(np.prod(shape))
-    out = np.empty(n, np.float32)
-
-    def fill(lo: int) -> None:
-        idx = np.arange(lo, min(n, lo + chunk), dtype=np.uint32)
-        o1, o2 = _threefry2x32(key[0], key[1], np.zeros_like(idx), idx)
-        f = (((o1 ^ o2) >> np.uint32(9)) | np.uint32(0x3F800000)).view(
-            np.float32) - np.float32(1.0)
-        out[lo:lo + len(idx)] = np.maximum(np.float32(-1.0),
-                                           f * np.float32(2.0)
-                                           + np.float32(-1.0))
-
-    # numpy's ufuncs release the GIL: the chunks run in parallel
-    with ThreadPoolExecutor(max_workers=8) as ex:
-        for done in [ex.submit(fill, lo) for lo in range(0, n, chunk)]:
-            done.result()
-    receptive = int(np.prod(shape[:-2]))
-    fan_in, fan_out = receptive * shape[-2], receptive * shape[-1]
-    scale = np.float32(np.sqrt(np.float32(3.0 / ((fan_in + fan_out) / 2.0))))
-    return (out * scale).reshape(shape)
-
-
-def jax_init_params(model, seed: int = 1337):
-    """The initial parameters ``model.init(jax.random.key(seed), x)``
-    gives the JAX twin of a reference-parity model (``MLPClassifier``,
-    ``CNNRegressor``: Keras glorot-uniform kernels, every bias and PReLU
-    alpha zero), recomputed in numpy, as ``{flax path: f32 tensor}``.
-    A kernel is the first parameter its module makes (counter 1)."""
-    import numpy as np
-    import torch
-
-    from pyspark_tf_gke_tpu_torch.models.layers import flax_parameters
-
-    out = {}
-    for path, p in flax_parameters(model).items():
-        *module, leaf = path.split("/")
-        shape = tuple(p.shape)
-        arr = (_glorot_uniform(_flax_key(seed, *module, 1), shape)
-               if leaf == "kernel" else np.zeros(shape, np.float32))
-        out[path] = torch.from_numpy(arr)
-    return out
-
-
 def check_loss_parity(torch, dev):
     """Phase 13 (a): CNN-B1 (f32) and the MLP trained as
     ``tools/loss_parity.py`` trains the JAX side (Adam lr 1e-3, eps 1e-7;
     in order, no shuffle; the report's sizes) from the same initial
-    parameters (``jax_init_params``: the JAX run's init, seed 1337), held
+    parameters (the models' init at seed 1337: the JAX run's), held
     to its ``compare`` / ``compare_cls`` gates against the TF runs in
     ``tools/parity_report.json`` (read as data), and the first epochs to
     the recorded JAX history (1% relative)."""
     from pyspark_tf_gke_tpu_torch.models.cnn import CNNRegressor
-    from pyspark_tf_gke_tpu_torch.models.layers import load_flax_params
     from pyspark_tf_gke_tpu_torch.models.mlp import MLPClassifier
     from pyspark_tf_gke_tpu_torch.train.harness import make_optimizer
     from pyspark_tf_gke_tpu_torch.train.trainer import TASKS, Trainer
@@ -6410,15 +6340,15 @@ def check_loss_parity(torch, dev):
                                                cfg["width"], seed=1337)
             arrays = {"image": images, "target": targets}
             model = CNNRegressor(flat=True, dtype=None, device=dev,
-                                 image_size=(cfg["height"], cfg["width"]))
+                                 image_size=(cfg["height"], cfg["width"]),
+                                 seed=1337)
             task, metric = TASKS["regression"](), "mae"
         else:
             feats, labels = make_health_arrays(cfg["rows"])
             arrays = {"x": feats, "y": labels}
             model = MLPClassifier(int(labels.max()) + 1, feats.shape[1],
-                                  device=dev)
+                                  device=dev, seed=1337)
             task, metric = TASKS["classification"](), "accuracy"
-        load_flax_params(model, jax_init_params(model, 1337))
         init_s = time.perf_counter() - t0
         trainer = Trainer(model, task, tx=make_optimizer(opt["lr"],
                                                          eps=opt["eps"]))
@@ -6685,6 +6615,639 @@ def run_p9(torch, dev):
     return launches
 
 
+# -- phase 14: ViT-Base, the MoE FFN, the native ETL chain, the faults (P10) --
+
+# ViT-Base/16 at the JAX bench's shape (bench.py:244-258, Dosovitskiy et
+# al. 2021): batch 64 of 224^2, 1000 classes, bf16, Adam lr 1e-3
+VIT_BATCH, VIT_IMAGE, VIT_CLASSES = 64, 224, 1000
+VIT_STEPS = (2, 10)  # warm-up, timed
+VIT_SEQ = (VIT_IMAGE // 16) ** 2 + 1  # 196 patches + CLS = 197
+# per ViT-Base training step (forward + backward, 12 layers): K2f, K2dq
+# and K2dkv once a layer; K3 and K3b at ln_embed, twice a layer and at
+# ln_final (2 + 2 x 12 = 26)
+VIT_PER_STEP = {"flash_attention_fwd": 12, "flash_attention_dq": 12,
+                "flash_attention_dkv": 12, "layernorm": 26,
+                "layernorm_bwd": 26}
+MOE_FLAGS = ["--num-experts", "8", "--moe-every", "2"]
+MOE_BERT_STEPS = 10
+
+
+def _flash_s197_record(torch, fa, name, q, k, v, dout, mask, errs):
+    """K2f, K2dq and K2dkv at ViT-Base's training shape (non-causal, an
+    all-ones key mask), eager and graph-replayed, beside their plain
+    versions, SDPA's forward and backward and the bounds: q/k/v (dO,
+    lse, delta) read and out (dq; dk, dv) written once; 4, 6 and 8
+    products of D per (query, key) pair."""
+    import torch.nn.functional as F
+
+    b, s, h, d = q.shape
+    shape = f"B={b} S={s} H={h} D={d} non-causal {name}"
+    out, lse = fa.flash_attention_fwd(q, k, v, mask, False)
+    delta = (dout.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    fwd = lambda: fa.flash_attention_fwd(q, k, v, mask, False)  # noqa: E731
+    dq = lambda: fa.flash_attention_dq(  # noqa: E731
+        dout, q, k, v, lse, delta, mask, False)
+    dkv = lambda: fa.flash_attention_dkv(  # noqa: E731
+        dout, q, k, v, lse, delta, mask, False)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt)  # noqa: E731
+    lib_bwd, lib_bwd_graph, _, _ = _sdpa_bwd_times(torch, F, q, k, v, dout,
+                                                   causal=False)
+    plain_fwd = cuda_ms(lambda: fa.flash_attention_plain(q, k, v, mask,
+                                                         False))
+    plain_bwd = cuda_ms(lambda: fa.flash_attention_bwd_plain(
+        q, k, v, dout, lse, delta, mask, False))
+    pairs = b * h * s * s
+    row = q.numel() * q.element_size()
+    vecs = b * h * s * 4
+    recs = {}
+    for key, fn, nbytes, ops, plain, lib, lib_graph, err in (
+            ("flash_attention_fwd", fwd, 4 * row + vecs, 4 * d * pairs,
+             plain_fwd, cuda_ms(sdpa), graph_ms(sdpa), errs[0]),
+            ("flash_attention_dq", dq, 5 * row + 2 * vecs, 6 * d * pairs,
+             plain_bwd, lib_bwd, lib_bwd_graph, errs[1]),
+            ("flash_attention_dkv", dkv, 6 * row + 2 * vecs, 8 * d * pairs,
+             plain_bwd, lib_bwd, lib_bwd_graph, errs[2])):
+        bms, by = bound(nbytes, ops, name)
+        recs[key] = dict(max_abs_err=err, ms=cuda_ms(fn),
+                         graph_ms=graph_ms(fn), plain_ms=plain,
+                         library_ms=lib, library_graph_ms=lib_graph,
+                         bound_ms=bms, bound_by=by, shape=shape)
+        r = recs[key]
+        log(f"  {key} {shape}: kernel {r['ms']:.4f} ms, graph-replayed "
+            f"{r['graph_ms']:.4f}, plain {plain:.4f}, SDPA "
+            f"{'forward' if key.endswith('fwd') else 'backward'} "
+            f"{lib:.4f} (graph-replayed {lib_graph}), bound {bms:.4f} "
+            f"({by}); {CARD}")
+    return recs
+
+
+def check_flash_s197(torch, dev):
+    """K2f, K2dq and K2dkv at ViT-Base's S = 197 (no tile divides it)
+    against their plain versions, non-causal over an all-ones key mask
+    as the ViT calls them, in bf16 (the tensor-core kernels) and f32,
+    forward and backward; then timed at the training shape B=64 S=197
+    H=12 D=64 in bf16. Returns the records by kernel."""
+    from pyspark_tf_gke_tpu_torch.ops import flash_attention as fa
+
+    g = torch.Generator(device=dev).manual_seed(14)
+    recs = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).split(".")[-1]
+        for b in (8, VIT_BATCH):
+            if dtype == torch.float32 and b == VIT_BATCH:
+                continue
+            q, k, v, dout = (torch.randn(b, VIT_SEQ, 12, 64, generator=g,
+                                         device=dev).to(dtype)
+                             for _ in range(4))
+            mask = torch.ones(b, VIT_SEQ, dtype=torch.bool, device=dev)
+            tag = f"{name} B={b} S={VIT_SEQ} H=12 D=64 non-causal"
+            out, lse = fa.flash_attention_fwd(q, k, v, mask, False)
+            ref, ref_lse = fa.flash_attention_plain(q, k, v, mask, False)
+            err_f = compare(out, ref, name, f"flash fwd {tag} out")
+            compare(lse, ref_lse, "float32", f"flash fwd {tag} lse")
+            delta = (dout.float() * out.float()).sum(-1).transpose(
+                1, 2).contiguous()
+            dq = fa.flash_attention_dq(dout, q, k, v, lse, delta, mask,
+                                       False)
+            dk, dv = fa.flash_attention_dkv(dout, q, k, v, lse, delta, mask,
+                                            False)
+            want = fa.flash_attention_bwd_plain(q, k, v, dout, lse, delta,
+                                                mask, False)
+            errs = [compare(got, ref_g, name, f"flash bwd {tag} {what}")
+                    for got, ref_g, what in zip((dq, dk, dv), want,
+                                                ("dq", "dk", "dv"))]
+            if dtype == torch.bfloat16 and b == VIT_BATCH:
+                recs = _flash_s197_record(
+                    torch, fa, name, q, k, v, dout, mask,
+                    (err_f, errs[0], max(errs[1], errs[2])))
+    return recs
+
+
+def _vit_model(torch, dev, cfg, num_classes, seed, use_kernels=True):
+    from pyspark_tf_gke_tpu_torch.models.vit import ViTClassifier, init_params
+
+    size = (VIT_IMAGE, VIT_IMAGE)
+    model = ViTClassifier(cfg, num_classes, image_size=size,
+                          use_kernels=use_kernels, device=dev)
+    return model.load_params(init_params(cfg, num_classes, image_size=size,
+                                         seed=seed))
+
+
+def _vit_batch(torch, dev, b, num_classes, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return {"image": torch.rand(b, VIT_IMAGE, VIT_IMAGE, 3, generator=g,
+                                device=dev),
+            "label": torch.randint(0, num_classes, (b,), generator=g,
+                                   device=dev)}
+
+
+def _task_grads(torch, task, model, batch):
+    """Loss, preds and every parameter's gradient (f32) of one step."""
+    preds = task.forward(model, batch)
+    loss, _ = task.loss_and_metrics(preds, batch)
+    loss.backward()
+    grads = {n: p.grad.detach().float().clone()
+             for n, p in model.named_parameters() if p.grad is not None}
+    model.zero_grad(set_to_none=True)
+    return float(loss.detach()), preds, grads
+
+
+# kernels against plain: f32 as phase 7e holds the LM and BERT (loss
+# 1e-4, gradients 1e-4 relative L2 whole and each tensor); bf16 as 7e's
+# bf16 step-0 (loss 1e-3, gradients 5e-2 whole, 1e-1 each tensor); the
+# logits within the kernels' bf16 / f32 tolerance of their scale
+P10_PARITY = {"float32": dict(loss=1e-4, rel=1e-4, worst=1e-4, logits=1e-4),
+              "bfloat16": dict(loss=1e-3, rel=5e-2, worst=1e-1,
+                               logits=3e-2)}
+
+
+def _hold(torch, tag, name, got, want):
+    """Kernels run ``got`` against plain run ``want``: (loss, logits,
+    grads) within ``P10_PARITY[name]``."""
+    lim = P10_PARITY[name]
+    (loss_k, lk, gk), (loss_p, lp, gp) = got, want
+    lk, lp = lk.detach().float(), lp.detach().float()
+    rel, worst, worst_rel = _grad_diff(torch, gk, gp)
+    scale = float(lp.abs().max())
+    dlog = float((lk - lp).abs().max())
+    log(f"  {tag} {name}: loss kernels {loss_k:.6f} vs plain {loss_p:.6f} "
+        f"(tolerance {lim['loss']}); logits max diff {dlog:.2e} of scale "
+        f"{scale:.3f} (tolerance {lim['logits']} x scale); gradients "
+        f"relative L2 {rel:.2e} (tolerance {lim['rel']}), worst tensor "
+        f"{worst} {worst_rel:.2e} (tolerance {lim['worst']})")
+    check(all(bool(torch.isfinite(g).all()) for g in gk.values()),
+          f"{tag} {name}: non-finite gradient")
+    check(abs(loss_k - loss_p) <= lim["loss"]
+          and dlog <= lim["logits"] * scale and rel <= lim["rel"]
+          and worst_rel <= lim["worst"],
+          f"{tag} {name}: the kernels disagree with the plain versions")
+
+
+def check_vit_kernels(torch, dev):
+    """Phase 14 (a): ViT at ViT-Base's width (hidden 768, 12 heads of 64,
+    FFN 3072), 2 layers, batch 8 of 224^2, 10 classes, through the
+    kernels and through ``use_kernels=False`` from one init, in bf16 and
+    f32: loss, logits and every gradient; the kernels' launches of the
+    kernels run gated at one forward + backward's count."""
+    from pyspark_tf_gke_tpu_torch.models.bert import BertConfig
+    from pyspark_tf_gke_tpu_torch.train.trainer import TASKS
+
+    counters = _train_counters()
+    task = TASKS["vit"]()
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).split(".")[-1]
+        cfg = BertConfig(num_layers=2, dtype=dtype)
+        batch = _vit_batch(torch, dev, 8, 10, seed=21)
+        _reset(torch, counters)
+        loss_k, pk, gk = _task_grads(torch, task, _vit_model(
+            torch, dev, cfg, 10, 5), batch)
+        torch.cuda.synchronize()
+        launches = _moved(counters)
+        loss_p, pp, gp = _task_grads(torch, task, _vit_model(
+            torch, dev, cfg, 10, 5, use_kernels=False), batch)
+        want = {"flash_attention_fwd": 2, "flash_attention_dq": 2,
+                "flash_attention_dkv": 2, "layernorm": 6,
+                "layernorm_bwd": 6}
+        log(f"  ViT 2-layer {name}: launches of one step {launches} "
+            f"(expected {want})")
+        check(launches == want, f"ViT 2-layer {name}: launches {launches} "
+              f"!= {want}")
+        _hold(torch, "ViT 2-layer at ViT-Base width", name,
+              (loss_k, pk["logits"], gk), (loss_p, pp["logits"], gp))
+
+
+def run_vit_training(torch, dev):
+    """Phase 14 (b): ViT-Base/16 trained at the JAX bench's shape through
+    ``Trainer`` and ``TASKS["vit"]``: warm-up steps, then timed steps
+    with every counter at 0 before them; each kernel's launches gated at
+    ``VIT_PER_STEP`` a step; losses finite. Then two steps under the
+    profiler. Returns the timed steps' launches."""
+    from pyspark_tf_gke_tpu_torch.models.bert import BertConfig
+    from pyspark_tf_gke_tpu_torch.train.harness import make_optimizer
+    from pyspark_tf_gke_tpu_torch.train.trainer import TASKS, Trainer
+
+    counters = _train_counters()
+    cfg = BertConfig()
+    model = _vit_model(torch, dev, cfg, VIT_CLASSES, 0)
+    n_params = sum(p.numel() for p in model.parameters())
+    check(n_params == 86_569_192, f"ViT-Base has {n_params} parameters")
+    trainer = Trainer(model, TASKS["vit"](), tx=make_optimizer(1e-3))
+    state = trainer.init_state()
+    batch = _vit_batch(torch, dev, VIT_BATCH, VIT_CLASSES, seed=22)
+    warm, timed = VIT_STEPS
+    losses = [float(trainer.step(state, batch)[1]["loss"])
+              for _ in range(warm)]
+    _reset(torch, counters)
+    t0 = time.perf_counter()
+    sums = []
+    for _ in range(timed):
+        sums.append(trainer.step(state, batch)[1]["loss"])
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / timed
+    launches = _moved(counters)
+    losses += [float(x) for x in sums]
+    log(f"  ViT-Base/16 ({n_params:,} parameters), batch {VIT_BATCH} x "
+        f"{VIT_IMAGE}^2, bf16, Adam 1e-3: {ms:.2f} ms/step, "
+        f"{VIT_BATCH / ms * 1e3:.1f} images/s ({timed} timed steps after "
+        f"{warm}; {CARD})")
+    log(f"  losses {[round(x, 4) for x in losses]}")
+    log(f"  kernel launches over {timed} steps: {launches}")
+    check(all(math.isfinite(x) for x in losses),
+          f"non-finite ViT-Base loss {losses}")
+    want = {k: n * timed for k, n in VIT_PER_STEP.items()}
+    check(launches == want, f"ViT-Base launches {launches} != {want} "
+          f"({VIT_PER_STEP} a step)")
+    wall, busy, top = _profiled(
+        torch, lambda: [trainer.step(state, batch) for _ in range(2)])
+    check(busy > 0, "ViT-Base: torch.profiler saw no device time")
+    log(f"  2 ViT-Base steps under the profiler: wall {wall:.2f} ms, device "
+        f"busy {busy:.2f} ms ({100 * busy / wall:.1f}%), idle "
+        f"{100 * (1 - busy / wall):.1f}%")
+    for name, t in top[:12]:
+        log(f"    {t:9.3f} ms  {name[:90]}")
+    del trainer, state, model
+    torch.cuda.empty_cache()
+    return launches, {"ms": ms, "images_per_s": VIT_BATCH / ms * 1e3,
+                      "busy_share": busy / wall}
+
+
+def _moe_inputs(torch, model):
+    """Forward pre-hooks recording each MoE layer's input, in order."""
+    from pyspark_tf_gke_tpu_torch.models.moe import MoELayer
+
+    seen = []
+    hooks = [m.register_forward_pre_hook(
+        lambda mod, args: seen.append(args[0].detach()))
+        for m in model.modules() if isinstance(m, MoELayer)]
+    return seen, hooks
+
+
+def _moe_replay(torch, model, inputs):
+    """Forward pre-hooks giving each MoE layer the values ``inputs``
+    recorded, with the gradient of its own input (a straight-through
+    shift, exact in f32): both runs route the same tokens."""
+    from pyspark_tf_gke_tpu_torch.models.moe import MoELayer
+
+    it = iter(list(inputs))
+
+    def hook(mod, args):
+        x = args[0]
+        want = next(it)
+        shifted = x.float() + (want.float() - x.float()).detach()
+        return (shifted.to(x.dtype),)
+
+    return [m.register_forward_pre_hook(hook)
+            for m in model.modules() if isinstance(m, MoELayer)]
+
+
+def _picks(torch, model, inputs, k):
+    """Each MoE layer's top-k expert picks on its recorded inputs."""
+    from pyspark_tf_gke_tpu_torch.models.moe import MoELayer
+
+    layers = [m for m in model.modules() if isinstance(m, MoELayer)]
+    with torch.no_grad():
+        return [torch.topk(torch.softmax(x.float() @ m.router, -1), k,
+                           dim=-1).indices
+                for m, x in zip(layers, inputs)]
+
+
+def check_moe_kernels(torch, dev):
+    """Phase 14 (c), first half: BERT-base widths with 8 experts, top 2,
+    every 2nd layer, 2 layers, batch 8 x 128, through the kernels and
+    through ``use_kernels=False`` from one init, in bf16 and f32. The
+    plain run's MoE layer is handed the kernel run's input values (with
+    its own gradient), so that both route the same tokens: the picks are
+    checked equal, the aux loss equal, the loss, logits and gradients
+    held as (a), the router's gradient within 1e-3 relative in f32 and
+    5e-2 in bf16."""
+    import dataclasses as dc
+
+    from pyspark_tf_gke_tpu_torch.models.bert import BertConfig
+    from pyspark_tf_gke_tpu_torch.train.trainer import TASKS
+
+    cls = TASKS["bert_classification"]()
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).split(".")[-1]
+        cfg = dc.replace(BertConfig(num_layers=2, dtype=dtype),
+                         num_experts=8, moe_top_k=2, moe_every=2)
+        batch = _bert_batch(torch, dev, cfg, 8, 60)
+        runs, seen = {}, None
+        for use_kernels in (True, False):
+            model = _bert_model(torch, dev, cfg, 6, use_kernels)
+            # the plain run: the kernel run's MoE inputs, then recorded
+            hooks = [] if seen is None else _moe_replay(torch, model, seen)
+            got, record = _moe_inputs(torch, model)
+            loss, preds, grads = _task_grads(torch, cls, model, batch)
+            for h in hooks + record:
+                h.remove()
+            seen = got if seen is None else seen
+            router = grads["encoder.layer_1.moe.router"]
+            runs[use_kernels] = (loss, preds, grads, router, got,
+                                 _picks(torch, model, got, 2))
+        (lk, pk, gk, rk, xk, ik), (lp, pp, gp, rp, xp, ip) = (runs[True],
+                                                              runs[False])
+        same = (all(bool(torch.equal(a, b)) for a, b in zip(xk, xp))
+                and all(bool(torch.equal(a, b)) for a, b in zip(ik, ip)))
+        aux_k, aux_p = (float(p["aux_loss"].detach()) for p in (pk, pp))
+        r_rel = float((rk - rp).norm() / rp.norm().clamp_min(1e-30))
+        r_tol = 1e-3 if dtype == torch.float32 else 5e-2
+        log(f"  MoE-BERT 2-layer {name}: identical MoE inputs and picks "
+            f"{same}; aux loss "
+            f"kernels {aux_k:.6f} vs plain {aux_p:.6f} (1 under balanced "
+            f"routing); router gradient relative L2 {r_rel:.2e} (tolerance "
+            f"{r_tol}), norm {float(rk.norm()):.3e}")
+        check(same, f"MoE-BERT {name}: the runs routed differently")
+        check(aux_k == aux_p and math.isfinite(aux_k),
+              f"MoE-BERT {name}: aux loss {aux_k} != {aux_p}")
+        check(float(rk.norm()) > 0 and r_rel <= r_tol,
+              f"MoE-BERT {name}: router gradients disagree ({r_rel})")
+        _hold(torch, "MoE-BERT 2-layer", name,
+              (lk, pk["cls_logits"], gk), (lp, pp["cls_logits"], gp))
+
+
+def _bmm_ms(torch, fn):
+    """Device ms of the batched products (``aten::bmm``: the MoE
+    einsums' forward and backward products) in one call of ``fn``, and
+    the device busy ms, under ``torch.profiler``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    bmm = busy = 0.0
+    for ev in prof.key_averages():
+        total = getattr(ev, "device_time_total", None)
+        if total is None:
+            total = getattr(ev, "cuda_time_total", 0)
+        if ev.key == "aten::bmm":
+            bmm += total / 1e3
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            own = getattr(ev, "self_device_time_total", None)
+            busy += (own if own is not None
+                     else getattr(ev, "self_cuda_time_total", 0)) / 1e3
+    return bmm, busy
+
+
+def run_moe_bert(torch, dev):
+    """Phase 14 (c), second half: ``bert_finetune`` at phase 7d's flags
+    (BERT-base, bf16, batch 32 x 128) on 7d's shards, dense and then
+    with ``--num-experts 8 --moe-every 2``, one epoch of
+    ``MOE_BERT_STEPS`` steps each, every counter at 0 before each run:
+    finite losses, ``moe_aux_loss`` finite (0 dense), K2/K3 launches
+    equal. Then a dense and an MoE BERT-base step timed in turns (dense,
+    MoE, MoE, dense; 5 steps each) and two MoE steps profiled for the
+    einsums' share of device time. Returns the MoE run's launches."""
+    import dataclasses as dc
+
+    from pyspark_tf_gke_tpu_torch.models.bert import BertConfig
+    from pyspark_tf_gke_tpu_torch.train.bert_finetune import main as bert_main
+    from pyspark_tf_gke_tpu_torch.train.harness import make_optimizer
+    from pyspark_tf_gke_tpu_torch.train.trainer import TASKS, Trainer
+
+    counters = _train_counters()
+    work = PORT_PKG / "_build" / "chip_smoke_moe"
+    shutil.rmtree(work, ignore_errors=True)
+    pattern = write_bert_shards(work / "shards")
+    runs = {}
+    for tag, extra in (("dense", []), ("moe", MOE_FLAGS)):
+        _reset(torch, counters)
+        t0 = time.perf_counter()
+        history = bert_main(["--data-pattern", pattern, *BERT_FLAGS, *extra,
+                             "--epochs", "1", "--steps-per-epoch",
+                             str(MOE_BERT_STEPS), "--output-dir",
+                             str(work / tag), "--device", str(dev)])
+        torch.cuda.synchronize()
+        runs[tag] = (history, _moved(counters))
+        log(f"  bert_finetune {tag} {' '.join(extra)}: "
+            f"{time.perf_counter() - t0:.1f} s; {history}; launches "
+            f"{runs[tag][1]}")
+    hist, launches = runs["moe"]
+    aux = hist["moe_aux_loss"][0]
+    n_moe = BertConfig().num_layers // 2
+    log(f"  MoE moe_aux_loss {aux:.6f}, summed over its {n_moe} MoE layers: "
+        f"{aux / n_moe:.4f} a layer (1 under perfectly balanced routing); "
+        f"dense {runs['dense'][0]['moe_aux_loss'][0]}")
+    check(all(math.isfinite(x) for x in hist["loss"] + [aux]) and aux > 0,
+          f"MoE bert_finetune: losses {hist['loss']}, aux {aux}")
+    check(launches == runs["dense"][1], f"MoE bert_finetune launches "
+          f"{launches} != dense {runs['dense'][1]}")
+    shutil.rmtree(work, ignore_errors=True)
+    trainers = {}
+    for tag, cfg in (("dense", BertConfig()),
+                     ("moe", dc.replace(BertConfig(), num_experts=8))):
+        trainer = Trainer(_bert_model(torch, dev, cfg, 0),
+                          TASKS["bert_classification"](),
+                          tx=make_optimizer(1e-4))
+        trainers[tag] = (trainer, trainer.init_state())
+    batch = _bert_batch(torch, dev, BertConfig(), BERT_BATCH, 7)
+    times = {"dense": [], "moe": []}
+    for tag in ("dense", "moe", "moe", "dense"):
+        trainer, state = trainers[tag]
+        for _ in range(2):
+            trainer.step(state, batch)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            trainer.step(state, batch)
+        torch.cuda.synchronize()
+        times[tag].append((time.perf_counter() - t0) * 1e3 / 5)
+    trainer, state = trainers["moe"]
+    bmm, busy = _bmm_ms(torch, lambda: [trainer.step(state, batch)
+                                        for _ in range(2)])
+    log(f"  BERT-base step, batch {BERT_BATCH} x {BERT_SEQ}, bf16, in turns "
+        f"(dense, MoE, MoE, dense): dense {times['dense']} ms, MoE (8 "
+        f"experts, top 2, every 2nd layer) {times['moe']} ms; {CARD}")
+    log(f"  2 MoE steps under the profiler: the MoE einsums' batched "
+        f"products {bmm:.2f} ms of {busy:.2f} ms device busy "
+        f"({100 * bmm / max(busy, 1e-9):.1f}%)")
+    del trainers
+    torch.cuda.empty_cache()
+    return launches, {"dense_ms": times["dense"], "moe_ms": times["moe"],
+                      "einsum_share": bmm / max(busy, 1e-9)}
+
+
+def _bootstrap(argv):
+    """``etl.bootstrap.run(argv)``: its exit code and JSON summary."""
+    import contextlib
+    import io
+
+    from pyspark_tf_gke_tpu_torch.etl import bootstrap
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = bootstrap.run(argv)
+    return rc, json.loads(buf.getvalue().strip().splitlines()[-1])
+
+
+def run_etl_chain(torch, dev):
+    """Phase 14 (d): the port's ``etl/bootstrap.py`` at its defaults
+    (18,154 generated rows, k 25, 100 iterations) on ``cuda``, then on
+    ``cpu`` over the same CSV: the summaries' rows, width, k, iterations
+    and round trip equal, the silhouettes within 1e-3. Then the fit
+    itself on both devices: ``n_iter`` equal, centres within 1e-3
+    absolute + 1e-4 relative and cost within 1e-4 relative (f32
+    products summed in another order; any assignments that differ are
+    printed with their distance margins); the Lloyd iteration's device
+    ms, the fit's and the silhouette's wall times."""
+    import numpy as np
+
+    from pyspark_tf_gke_tpu_torch.etl.feature_pipeline import FeaturePipeline
+    from pyspark_tf_gke_tpu_torch.etl.kmeans import (KMeans, _sq_dists,
+                                                     lloyd_step,
+                                                     silhouette_score)
+    from pyspark_tf_gke_tpu_torch.etl.workload import read_columns
+
+    work = PORT_PKG / "_build" / "chip_smoke_etl"
+    shutil.rmtree(work, ignore_errors=True)
+    t0 = time.perf_counter()
+    rc, cuda_sum = _bootstrap(["--out", str(work / "cuda"), "--device",
+                               "cuda"])
+    cuda_s = time.perf_counter() - t0
+    csv = cuda_sum["dataset"]["path"]
+    t0 = time.perf_counter()
+    rc_cpu, cpu_sum = _bootstrap(["--out", str(work / "cpu"), "--csv", csv,
+                                  "--device", "cpu"])
+    cpu_s = time.perf_counter() - t0
+    log(f"  bootstrap --device cuda ({cuda_s:.1f} s): {cuda_sum}")
+    log(f"  bootstrap --device cpu ({cpu_s:.1f} s): {cpu_sum}")
+    nc, np_ = cuda_sum["native_chain"], cpu_sum["native_chain"]
+    check(rc == rc_cpu == 0 and cuda_sum["value"] == cpu_sum["value"] == 1,
+          "the bootstrap failed")
+    for key in ("rows_in", "rows_kept", "feature_width", "k", "iters",
+                "silhouette_sample"):
+        check(nc[key] == np_[key], f"bootstrap {key}: cuda {nc[key]} != "
+              f"cpu {np_[key]}")
+    for key in ("shards", "rows_written", "rows_read", "roundtrip_ok"):
+        check(cuda_sum["bridge"][key] == cpu_sum["bridge"][key],
+              f"bootstrap bridge {key} differs")
+    check(cuda_sum["bridge"]["roundtrip_ok"], "the bridge lost rows")
+    check(abs(nc["silhouette"] - np_["silhouette"]) <= 1e-3,
+          f"silhouettes {nc['silhouette']} / {np_['silhouette']}")
+    check(nc["rows_kept"] == 18154 and nc["k"] == 25,
+          f"the bootstrap's defaults moved: {nc}")
+    feats = FeaturePipeline().fit_transform(read_columns(csv))
+    fits = {}
+    for device in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        km = KMeans(k=25, max_iter=100, seed=1, device=device).fit(feats)
+        fit_s = time.perf_counter() - t0
+        fits[device] = (km, fit_s, km.cost(feats), km.predict(feats))
+    (kg, fit_g, cost_g, lab_g), (kc, fit_c, cost_c, lab_c) = (
+        fits["cuda"], fits["cpu"])
+    move = float(np.abs(kg.centers - kc.centers).max())
+    differ = np.flatnonzero(lab_g != lab_c)
+    log(f"  KMeans k 25 on {feats.shape}: n_iter cuda {kg.n_iter} / cpu "
+        f"{kc.n_iter}; centres max diff {move:.3e}; cost {cost_g:.6f} / "
+        f"{cost_c:.6f}; fit wall {fit_g:.3f} s on {CARD} / {fit_c:.3f} s "
+        f"on the host; {differ.size} assignments differ")
+    if differ.size:
+        d = np.sort(_sq_dists(torch.from_numpy(feats[differ]),
+                              torch.from_numpy(kc.centers)).numpy(), axis=1)
+        log(f"    their distance margins (2nd - 1st nearest): "
+            f"{(d[:, 1] - d[:, 0]).tolist()[:20]}")
+    check(kg.n_iter == kc.n_iter, f"KMeans n_iter {kg.n_iter} != "
+          f"{kc.n_iter}")
+    check(bool(np.allclose(kg.centers, kc.centers, atol=1e-3, rtol=1e-4)),
+          f"KMeans centres differ by {move}")
+    check(abs(cost_g - cost_c) <= 1e-4 * abs(cost_c),
+          f"KMeans cost {cost_g} != {cost_c}")
+    x = torch.from_numpy(feats).to(dev)
+    c = torch.from_numpy(kg.centers).to(dev)
+    step_ms = cuda_ms(lambda: lloyd_step(x, c))
+    rng = np.random.default_rng(0)
+    sample = rng.choice(len(feats), 4096, replace=False)
+    t0 = time.perf_counter()
+    sil = silhouette_score(feats[sample], lab_g[sample], device=dev)
+    sil_s = time.perf_counter() - t0
+    log(f"  a Lloyd iteration over {feats.shape}: {step_ms:.4f} ms of device "
+        f"(CUDA events); the silhouette over 4096 rows: {sil_s * 1e3:.1f} ms "
+        f"wall ({sil:.4f}); {CARD}")
+    shutil.rmtree(work, ignore_errors=True)
+    return {"lloyd_ms": step_ms, "fit_s": fit_g, "silhouette_s": sil_s,
+            "n_iter": kg.n_iter}
+
+
+def check_faults_on_card(torch, dev):
+    """Phase 14 (e): a CNN-B1 (f32) ``Trainer`` with ``mu_dtype=
+    torch.bfloat16`` takes 5 steps on the card and on the host from the
+    same init and batches (batch 8 at 64x80): the stored first moment
+    bf16 on both, the losses within 1e-3 relative. Then the host seconds
+    of the JAX-init replay for CNN-B1's 43.4M parameters at 256x320."""
+    import numpy as np
+
+    from pyspark_tf_gke_tpu_torch.data.pipeline import put_batch
+    from pyspark_tf_gke_tpu_torch.models.cnn import CNNRegressor
+    from pyspark_tf_gke_tpu_torch.train.trainer import TASKS, Trainer
+    from pyspark_tf_gke_tpu_torch.utils.seeding import jax_init_params
+
+    images, targets = make_spot_arrays(40, 64, 80, seed=5)
+    losses = []
+    for device in (dev, torch.device("cpu")):
+        trainer = Trainer(CNNRegressor(flat=True, dtype=None, device=device,
+                                       image_size=(64, 80), seed=3),
+                          TASKS["regression"](), learning_rate=1e-3,
+                          mu_dtype=torch.bfloat16)
+        state = trainer.init_state()
+        out = []
+        for i in range(5):
+            batch = put_batch({"image": images[8 * i:8 * i + 8],
+                               "target": targets[8 * i:8 * i + 8]}, device)
+            out.append(float(trainer.step(state, batch)[1]["loss"]))
+        dtypes = {m.dtype for m in state.opt_state["mu"].values()}
+        check(dtypes == {torch.bfloat16}, f"stored first moment {dtypes}")
+        losses.append(out)
+    rel = max(abs(a - b) / abs(b) for a, b in zip(*losses))
+    log(f"  CNN-B1 f32, mu_dtype bf16, 5 steps: losses card "
+        f"{losses[0]} / host {losses[1]} (max relative diff "
+        f"{rel:.2e}, tolerance 1e-3); stored moment bf16")
+    check(rel <= 1e-3, "mu_dtype=bf16 on the card disagrees with the host")
+    meta = CNNRegressor(flat=True, image_size=(256, 320), device="meta")
+    t0 = time.perf_counter()
+    params = jax_init_params(meta, 1337)
+    replay_s = time.perf_counter() - t0
+    n = sum(int(np.prod(t.shape)) for t in params.values())
+    log(f"  the JAX-init replay of CNN-B1 at 256x320 ({n:,} parameters): "
+        f"{replay_s:.2f} s of host time")
+    return {"replay_s": replay_s, "losses": losses}
+
+
+def run_p10(torch, dev):
+    """Phase 14, P10: (a) ViT kernels vs plain; (b) ViT-Base training;
+    (c) MoE-BERT kernels vs plain, then ``bert_finetune --num-experts 8``
+    against the dense run; (d) the native ETL chain on the card and the
+    host, with every counter at 0 before it and read after (it runs no
+    port kernel: the Lloyd products are cuBLAS calls, as the JAX ones are
+    XLA's); (e) ``mu_dtype`` and the init replay's time. Returns the
+    launches of (b), (c)'s MoE run and (d), and the figures."""
+    t0 = time.perf_counter()
+    log("  -- 14 (a) ViT kernels vs plain")
+    check_vit_kernels(torch, dev)
+    torch.cuda.empty_cache()
+    log("  -- 14 (b) ViT-Base/16 training")
+    vit_launches, vit = run_vit_training(torch, dev)
+    log("  -- 14 (c) MoE-BERT")
+    check_moe_kernels(torch, dev)
+    torch.cuda.empty_cache()
+    moe_launches, moe = run_moe_bert(torch, dev)
+    log("  -- 14 (d) the native ETL chain")
+    counters = _all_counters()
+    _reset(torch, counters)
+    etl = run_etl_chain(torch, dev)
+    torch.cuda.synchronize()
+    etl_launches = _moved(counters)
+    check(not any(etl_launches.values()),
+          f"the ETL chain launched port kernels: {etl_launches}")
+    log("  -- 14 (e) mu_dtype on the card; the init replay")
+    faults = check_faults_on_card(torch, dev)
+    torch.cuda.empty_cache()
+    log(f"  phase 14 took {time.perf_counter() - t0:.1f} s: {vit}, {moe}, "
+        f"{etl}, {faults}")
+    return vit_launches, moe_launches, etl_launches
+
+
 # -- main ---------------------------------------------------------------------
 
 
@@ -6692,7 +7255,7 @@ def run_p9(torch, dev):
 EXTRA_KEYS = ("graph_ms", "library_graph_ms", "library_contiguous_ms",
               "library_contiguous_graph_ms", "train_shape", "decode_shape",
               "full_pool", "piece", "d128", "d80", "launches_by_variant",
-              "launches_by_variant_chunked")
+              "launches_by_variant_chunked", "vit_shape")
 # kernels (substrings of ptxas's entry names) that must not spill: the
 # tensor-core kernels (K1's chunk variant at D 64 and 128 among them),
 # K1's decode variant and merge (D 64 and 128) and K6
@@ -6964,6 +7527,12 @@ def main() -> int:
         "loss parity, train.cli in image and CSV mode with a fault and a "
         "resume, the image checker, where a CNN-B1 step goes")
     p9_launches = run_p9(torch, dev)
+    log("== 14. P10: K2f/K2dq/K2dkv at ViT-Base's S = 197; ViT kernels vs "
+        "plain and ViT-Base/16 training; the MoE FFN in BERT-base; the "
+        "native ETL chain on the card and the host; mu_dtype on the card")
+    for name, rec in check_flash_s197(torch, dev).items():
+        records[name]["vit_shape"] = rec
+    vit_launches, moe_launches, etl_launches = run_p10(torch, dev)
 
     out = []
     for name, source, replaces, design in KERNELS:
@@ -6986,7 +7555,10 @@ def main() -> int:
                     "resnet_fused3_train": fused3_launches.get(name, 0),
                     "bert_train": bert_launches.get(name, 0),
                     "ring_merge": ring_launches.get(name, 0),
-                    "p9_train": p9_launches[name]}
+                    "p9_train": p9_launches[name],
+                    "vit_train": vit_launches.get(name, 0),
+                    "moe_bert_train": moe_launches.get(name, 0),
+                    "p10_etl": etl_launches[name]}
         # each kernel's count from the path that runs it, the newest
         # slice's path first (paged attention runs only on serving; the
         # block entry on the ring, phase 3c's merge on one card)
@@ -6995,7 +7567,7 @@ def main() -> int:
         elif name == "int8_matmul":
             launches = per_path["serve"]
         else:
-            launches = (per_path["bert_train"]
+            launches = (per_path["vit_train"] or per_path["bert_train"]
                         or per_path["resnet_fused3_train"]
                         or per_path["resnet_train"] or per_path["lm_train"]
                         or per_path["serve"])

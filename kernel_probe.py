@@ -113,10 +113,10 @@ editing a ``.cu`` file, and for the experiments PERF.md reports.
         what cuBLAS keeps for each thread's handle and stream;
     python3 kernel_probe.py p9-seeds [SEED ...]
         phase 13's CNN-B1 loss-parity run (f32, the sizes of
-        ``tools/parity_report.json``) from the port's own numpy
-        initialisation at each seed (default 1337 and 0-6) in place of
-        the JAX run's: each run's final and best loss, final MAE, and
-        whether the report's gates hold.
+        ``tools/parity_report.json``) from the model's initialisation at
+        each seed (default 1337 and 0-6: the JAX init of that seed,
+        replayed by ``utils/seeding.jax_init_params``): each run's final
+        and best loss, final MAE, and whether the report's gates hold.
 
 Each exits non-zero without a CUDA device.
 """

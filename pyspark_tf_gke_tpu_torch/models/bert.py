@@ -25,8 +25,12 @@ approximation), LayerNorm eps 1e-12, f32 logits.
   kernel on any device (the reference the kernels are held against).
 * The token embeddings gather rows of the f32 table (the JAX model's
   one-hot matmul gives the same forward; ``models/embedding.py``).
-* ``num_experts > 0`` (the MoE FFN, ``models/moe.py``) is not ported
-  (ROADMAP, P10).
+* ``num_experts > 0`` replaces the dense FFN of every ``moe_every``-th
+  layer with a ``moe`` submodule (``models/moe.py``); each layer returns
+  ``(hidden, aux)``, the encoder ``(hidden, sum of aux)`` and the model's
+  ``aux_loss`` is that sum (0 for a dense config). MoE under an sp group
+  of more than one rank raises (P11: the capacity and the aux loss's
+  means are global over the sequence in the JAX model).
 
 Weights: ``param_dtype=None`` keeps them in ``cfg.dtype`` without
 gradients; ``torch.float32`` keeps trainable f32 master weights cast to
@@ -38,7 +42,7 @@ parameter tree.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -50,6 +54,7 @@ from pyspark_tf_gke_tpu_torch.models.layers import (Dense, FusedLayerNorm,
                                                     flax_parameters,
                                                     init_flax_params,
                                                     load_flax_params)
+from pyspark_tf_gke_tpu_torch.models.moe import MoELayer
 from pyspark_tf_gke_tpu_torch.ops.attention import (dot_product_attention,
                                                     ring_attention, sp_world,
                                                     ulysses_attention)
@@ -71,7 +76,12 @@ class BertConfig:
     use_flash: Optional[bool] = None  # CUDA: None/True = the kernel
     # the sp group's engine when the model is given one of > 1 rank
     sp_impl: str = "ring"
-    num_experts: int = 0  # > 0: not ported (ROADMAP, P10)
+    # Mixture-of-Experts: num_experts > 0 replaces the dense FFN of every
+    # moe_every-th layer with a MoELayer (models/moe.py)
+    num_experts: int = 0
+    moe_top_k: int = 2
+    moe_every: int = 2
+    capacity_factor: float = 1.25
 
     def __post_init__(self):
         if self.sp_impl not in ("ring", "ulysses"):
@@ -127,32 +137,71 @@ class BertSelfAttention(nn.Module):
 
 
 class BertLayer(nn.Module):
+    """Post-LN block: ``(hidden, mask) -> (hidden, aux)``, ``aux`` the
+    MoE FFN's load-balance loss (``use_moe``) or 0."""
+
     def __init__(self, cfg: BertConfig, use_kernels: bool = True,
-                 param_dtype: Optional[torch.dtype] = None, sp_group=None):
+                 param_dtype: Optional[torch.dtype] = None, sp_group=None,
+                 use_moe: bool = False):
         super().__init__()
+        if use_moe and sp_world(sp_group) > 1:
+            raise NotImplementedError(
+                "MoE under an sp group of more than one rank is not ported "
+                "to pyspark_tf_gke_tpu_torch (ROADMAP, P11): the capacity "
+                "and the aux loss's means are global over the sequence")
         self.attention = BertSelfAttention(cfg, use_kernels, param_dtype,
                                            sp_group)
         self.ln_attn = _norm(cfg, use_kernels, param_dtype)
-        self.mlp_in = Dense(cfg.hidden_size, cfg.intermediate_size,
-                            cfg.dtype, param_dtype)
-        self.mlp_out = Dense(cfg.intermediate_size, cfg.hidden_size,
-                             cfg.dtype, param_dtype)
+        if use_moe:
+            self.moe = MoELayer(cfg.num_experts, cfg.hidden_size,
+                                cfg.intermediate_size, cfg.moe_top_k,
+                                cfg.capacity_factor, cfg.dtype,
+                                trainable=param_dtype is not None,
+                                device=torch.get_default_device())
+        else:
+            self.mlp_in = Dense(cfg.hidden_size, cfg.intermediate_size,
+                                cfg.dtype, param_dtype)
+            self.mlp_out = Dense(cfg.intermediate_size, cfg.hidden_size,
+                                 cfg.dtype, param_dtype)
         self.ln_mlp = _norm(cfg, use_kernels, param_dtype)
 
-    def forward(self, hidden: torch.Tensor, mask: torch.Tensor):
+    def forward(self, hidden: torch.Tensor, mask: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
         hidden = self.ln_attn(self.attention(hidden, mask), residual=hidden)
-        mlp = self.mlp_out(F.gelu(self.mlp_in(hidden), approximate="tanh"))
-        return self.ln_mlp(mlp, residual=hidden)
+        if hasattr(self, "moe"):
+            mlp, aux = self.moe(hidden)
+        else:
+            mlp = self.mlp_out(F.gelu(self.mlp_in(hidden), approximate="tanh"))
+            aux = torch.zeros((), dtype=torch.float32, device=hidden.device)
+        return self.ln_mlp(mlp, residual=hidden), aux
+
+
+def layer_uses_moe(cfg: BertConfig, i: int) -> bool:
+    """Whether layer ``i`` holds the MoE FFN (every ``moe_every``-th)."""
+    return cfg.num_experts > 0 and (i + 1) % cfg.moe_every == 0
+
+
+def run_layers(module: nn.Module, cfg: BertConfig, hidden: torch.Tensor,
+               mask: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``module``'s ``layer_0 .. layer_{L-1}`` over ``hidden``, each
+    recomputed in the backward under ``cfg.remat``; returns the hidden
+    states and the layers' summed aux loss."""
+    remat = cfg.remat and torch.is_grad_enabled()
+    aux_total = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for i in range(cfg.num_layers):
+        layer = getattr(module, f"layer_{i}")
+        if remat:
+            hidden, aux = checkpoint(layer, hidden, mask, use_reentrant=False)
+        else:
+            hidden, aux = layer(hidden, mask)
+        aux_total = aux_total + aux
+    return hidden, aux_total
 
 
 class BertEncoder(nn.Module):
     def __init__(self, cfg: BertConfig, use_kernels: bool = True,
                  param_dtype: Optional[torch.dtype] = None, sp_group=None):
         super().__init__()
-        if cfg.num_experts > 0:
-            raise NotImplementedError(
-                "num_experts > 0 (the MoE FFN, models/moe.py) is not "
-                "ported to pyspark_tf_gke_tpu_torch (ROADMAP, P10)")
         self.cfg = cfg
         self.sp_group = sp_group
         h = cfg.hidden_size
@@ -164,14 +213,16 @@ class BertEncoder(nn.Module):
                                                 cfg.dtype, param_dtype)
         self.ln_embed = _norm(cfg, use_kernels, param_dtype)
         for i in range(cfg.num_layers):
-            self.add_module(f"layer_{i}", BertLayer(cfg, use_kernels,
-                                                    param_dtype, sp_group))
+            self.add_module(f"layer_{i}", BertLayer(
+                cfg, use_kernels, param_dtype, sp_group,
+                layer_uses_moe(cfg, i)))
 
     def forward(self, input_ids: torch.Tensor,
                 token_type_ids: Optional[torch.Tensor] = None,
                 attention_mask: Optional[torch.Tensor] = None
-                ) -> torch.Tensor:
-        """``[B, S, H]`` hidden states (this rank's block under sp)."""
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``(hidden, aux_loss)``: the ``[B, S, H]`` hidden states (this
+        rank's block under sp) and the layers' summed MoE aux loss."""
         b, s = input_ids.shape
         dev = input_ids.device
         if attention_mask is None:
@@ -187,21 +238,14 @@ class BertEncoder(nn.Module):
         hidden = (self.word_embeddings(input_ids.long())
                   + self.position_embeddings(positions)
                   + self.token_type_embeddings(token_type_ids.long()))
-        hidden = self.ln_embed(hidden)
-        remat = self.cfg.remat and torch.is_grad_enabled()
-        for i in range(self.cfg.num_layers):
-            layer = getattr(self, f"layer_{i}")
-            if remat:
-                hidden = checkpoint(layer, hidden, mask, use_reentrant=False)
-            else:
-                hidden = layer(hidden, mask)
-        return hidden
+        return run_layers(self, self.cfg, self.ln_embed(hidden), mask)
 
 
 class BertForPretraining(nn.Module):
     """Encoder + MLM head + sequence-level classifier (the fine-tune
     head of config 5). Returns ``{"mlm_logits" [B, S, V] f32,
-    "cls_logits" [B, num_labels] f32, "aux_loss" 0}``."""
+    "cls_logits" [B, num_labels] f32, "aux_loss"}``, the MoE layers'
+    summed load-balance loss (0 for a dense config)."""
 
     def __init__(self, cfg: BertConfig, num_labels: int = 2,
                  use_kernels: bool = True,
@@ -223,7 +267,8 @@ class BertForPretraining(nn.Module):
                 train: bool = True) -> Dict[str, torch.Tensor]:
         """``train`` is the JAX model's embedding switch (one-hot matmul
         against gather); both give the same numbers here."""
-        hidden = self.encoder(input_ids, token_type_ids, attention_mask)
+        hidden, aux_loss = self.encoder(input_ids, token_type_ids,
+                                        attention_mask)
         mlm = F.gelu(self.mlm_transform(hidden), approximate="tanh")
         mlm_logits = self.mlm_head(self.mlm_ln(mlm))
         first = hidden[:, 0]
@@ -236,8 +281,7 @@ class BertForPretraining(nn.Module):
         pooled = torch.tanh(self.pooler(first))
         return {"mlm_logits": mlm_logits.float(),
                 "cls_logits": self.classifier(pooled).float(),
-                "aux_loss": torch.zeros((), dtype=torch.float32,
-                                        device=hidden.device)}
+                "aux_loss": aux_loss}
 
     @property
     def device(self) -> torch.device:
@@ -259,7 +303,9 @@ def bert_params_from_flax(params) -> Dict[str, torch.Tensor]:
     """The JAX ``BertForPretraining`` parameter tree (nested dicts of
     numpy arrays, unboxed) as the port's flat flax-path tree of f32
     tensors (``train/export.py params_from_flax``, whose int8 leaves a
-    BERT tree does not have)."""
+    BERT tree does not have). A MoE layer's ``moe/{router, w_in, b_in,
+    w_out, b_out}`` carry over as they are: the port keeps their flax
+    shapes."""
     from pyspark_tf_gke_tpu_torch.train.export import params_from_flax
 
     return params_from_flax(params)
@@ -268,7 +314,8 @@ def bert_params_from_flax(params) -> Dict[str, torch.Tensor]:
 def init_params(cfg: BertConfig, num_labels: int = 2,
                 seed: int = 0) -> Dict[str, torch.Tensor]:
     """Random f32 parameters from a numpy seed, with the flax
-    initialisers' shapes and laws: kernels and embeddings normal(0,
-    0.02), biases 0, norm scales 1."""
+    initialisers' shapes and laws: kernels, embeddings and the MoE
+    router and expert weights normal(0, 0.02), biases 0, norm scales
+    1."""
     return init_flax_params(lambda: BertForPretraining(cfg, num_labels),
                             seed)

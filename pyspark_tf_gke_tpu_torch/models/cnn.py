@@ -17,8 +17,10 @@ call; here they follow from ``image_size``. B1 at 256x320 has
 43,368,850 parameters (convs 170,384, alphas 1,249,280, dense
 41,949,186). The parameters are f32 master weights cast to the compute
 dtype at each use (``dtype=None`` is f32); ``jnp.mean``'s f32 sum of a
-bf16 map is kept. Keras initialisers from a numpy ``seed``
-(``layers.init_keras_params``); ``load_params`` takes the JAX tree.
+bf16 map is kept. The initial parameters are the JAX model's at the
+same ``seed`` (``utils/seeding.jax_init_params``: Keras' glorot-uniform
+kernels replayed bit for bit in numpy, biases and alphas zero);
+``load_params`` takes the JAX tree.
 """
 
 from __future__ import annotations
@@ -31,10 +33,10 @@ from torch import nn
 
 from pyspark_tf_gke_tpu_torch.models.layers import (Dense, build_device,
                                                     flatten_flax,
-                                                    init_keras_params,
                                                     load_flax_params)
 from pyspark_tf_gke_tpu_torch.models.resnet import conv_nhwc
-from pyspark_tf_gke_tpu_torch.utils.seeding import DEFAULT_SEED
+from pyspark_tf_gke_tpu_torch.utils.seeding import (DEFAULT_SEED,
+                                                    jax_init_params)
 
 
 class PReLU(nn.Module):
@@ -109,7 +111,7 @@ class CNNRegressor(nn.Module):
             self.Dense_1 = Dense(self.Dense_0.kernel.shape[1], num_outputs,
                                  self.dtype, torch.float32)
         if target.type != "meta":
-            init_keras_params(self, seed)
+            load_flax_params(self, jax_init_params(self, seed))
 
     def load_params(self, params: Mapping) -> "CNNRegressor":
         """Copy the JAX model's ``params`` tree (host arrays) in."""

@@ -26,9 +26,8 @@ points of ``nn.Dense(dtype=...)``. Three ways to hold the weights:
 The models keep flax's parameter paths (``layer_3/attention/query/
 kernel``): :func:`flax_parameters`, :func:`load_flax_params`,
 :func:`flax_tree`, :func:`flatten_flax` (a nested JAX tree of host
-arrays), :func:`init_flax_params` and :func:`init_keras_params` (the
-reference-parity models' Keras initialisers) are the one place that
-maps a module's parameters to and from such a flat tree.
+arrays) and :func:`init_flax_params` are the one place that maps a
+module's parameters to and from such a flat tree.
 :func:`build_device` places a model's parameters where they are made:
 ``meta`` builds shapes only (a parameter count without memory).
 
@@ -194,10 +193,16 @@ def flax_tree(module: nn.Module) -> Params:
     return out
 
 
+# the leaves flax draws from normal(0, 0.02) in the transformer models
+NORMAL_LEAVES = ("kernel", "embedding", "router", "w_in", "w_out",
+                 "cls_token", "pos_embedding")
+
+
 def init_flax_params(build: Callable[[], nn.Module], seed: int) -> Params:
     """Random f32 parameters for the module ``build()`` makes, from a
-    numpy seed, with the flax initialisers' shapes and laws: kernels and
-    embeddings normal(0, 0.02), biases 0, norm scales 1."""
+    numpy seed, with the flax initialisers' shapes and laws: kernels,
+    embeddings, the MoE router and expert weights and ViT's learned
+    tokens normal(0, 0.02), biases 0, norm scales 1."""
     rng = np.random.default_rng(seed)
     with torch.device("meta"):
         shapes = {path: tuple(p.shape)
@@ -205,7 +210,7 @@ def init_flax_params(build: Callable[[], nn.Module], seed: int) -> Params:
     params: Params = {}
     for path, shape in shapes.items():
         leaf = path.rsplit("/", 1)[-1]
-        if leaf in ("kernel", "embedding"):
+        if leaf in NORMAL_LEAVES:
             arr = rng.standard_normal(shape, dtype=np.float32) * np.float32(0.02)
         elif leaf == "scale":
             arr = np.ones(shape, np.float32)
@@ -234,23 +239,3 @@ def build_device(device: Union[str, torch.device]) -> torch.device:
     if str(device) == "meta":
         return torch.device("meta")
     return resolve_device(device)
-
-
-@torch.no_grad()
-def init_keras_params(module: nn.Module, seed: int) -> None:
-    """Keras' defaults, as the JAX reference-parity models pin them
-    (``KERAS_KERNEL_INIT`` / ``KERAS_BIAS_INIT``): every ``kernel``
-    glorot-uniform, bound ``sqrt(6 / (fan_in + fan_out))`` with flax's
-    fans (a conv's receptive field times its input / output channels),
-    drawn from a numpy generator seeded with ``seed``; every other
-    parameter (biases, PReLU alphas) zero."""
-    rng = np.random.default_rng(seed)
-    for path, p in flax_parameters(module).items():
-        if path.rsplit("/", 1)[-1] != "kernel":
-            p.zero_()
-            continue
-        receptive = int(np.prod(p.shape[:-2]))
-        fan_in, fan_out = receptive * p.shape[-2], receptive * p.shape[-1]
-        limit = np.sqrt(6.0 / (fan_in + fan_out))
-        p.copy_(torch.from_numpy(rng.uniform(
-            -limit, limit, tuple(p.shape)).astype(np.float32)))

@@ -5,9 +5,11 @@ with relu, logits cast to f32 (softmax lives in the loss).
 Flax infers the input width on first call; here it is ``input_dim``.
 The parameters keep flax's paths (``Dense_0/kernel [in, out]``,
 ``Dense_0/bias``) as f32 master weights cast to the compute dtype at
-each use (``dtype=None`` is f32), initialised with Keras' defaults
-(glorot-uniform kernels, zero biases; ``layers.init_keras_params``) from
-a numpy ``seed``. ``load_params`` takes the JAX model's ``params`` tree.
+each use (``dtype=None`` is f32), initialised as the JAX model's
+``init(jax.random.key(seed), x)`` initialises it: Keras' glorot-uniform
+kernels and zero biases, replayed bit for bit in numpy
+(``utils/seeding.jax_init_params``). ``load_params`` takes the JAX
+model's ``params`` tree.
 """
 
 from __future__ import annotations
@@ -19,9 +21,9 @@ from torch import nn
 
 from pyspark_tf_gke_tpu_torch.models.layers import (Dense, build_device,
                                                     flatten_flax,
-                                                    init_keras_params,
                                                     load_flax_params)
-from pyspark_tf_gke_tpu_torch.utils.seeding import DEFAULT_SEED
+from pyspark_tf_gke_tpu_torch.utils.seeding import (DEFAULT_SEED,
+                                                    jax_init_params)
 
 
 class MLPClassifier(nn.Module):
@@ -40,7 +42,7 @@ class MLPClassifier(nn.Module):
                 self.add_module(f"Dense_{i}", Dense(
                     widths[i], widths[i + 1], self.dtype, torch.float32))
         if target.type != "meta":
-            init_keras_params(self, seed)
+            load_flax_params(self, jax_init_params(self, seed))
 
     def load_params(self, params: Mapping) -> "MLPClassifier":
         """Copy the JAX model's ``params`` tree (host arrays) in."""

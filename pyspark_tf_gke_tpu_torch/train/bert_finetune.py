@@ -20,7 +20,10 @@ generator seeded with ``--seed`` (the JAX package draws from
 ``NotImplementedError`` naming their ROADMAP item: ``--mesh-shape``,
 ``--dcn-mesh-shape`` and ``--num-processes > 1`` (P11: the sp ranks run
 over ``torch.distributed`` in ``ops/attention.py``, but the entry point
-drives one device) and ``--num-experts > 0`` (P10).
+drives one device). ``--num-experts N`` turns every ``--moe-every``-th
+FFN into an N-expert MoE (``models/moe.py``, top-2, capacity factor
+1.25, as the JAX CLI builds it); its load-balance loss is the history's
+``moe_aux_loss``.
 """
 
 from __future__ import annotations
@@ -79,10 +82,7 @@ def parse_args(argv=None) -> argparse.Namespace:
                    choices=["ring", "ulysses"])
     p.add_argument("--num-experts", type=int,
                    default=int(e("NUM_EXPERTS", "0")),
-                   help=">0 turns every --moe-every'th FFN into an MoE "
-                        "(not ported)")
-    # parsed for the JAX CLI's flag set; it acts only with --num-experts,
-    # which is refused
+                   help=">0 turns every --moe-every'th FFN into an MoE")
     p.add_argument("--moe-every", type=int, default=int(e("MOE_EVERY", "2")))
     p.add_argument("--remat", action="store_true", default=e("REMAT", "") == "1")
     p.add_argument("--epochs", type=int, default=int(e("EPOCHS", "1")))
@@ -144,7 +144,6 @@ def _refuse_unported(args: argparse.Namespace) -> None:
         (args.dcn_mesh_shape, "--dcn-mesh-shape", "P11 (parallelism)"),
         (args.num_processes > 1, "--num-processes > 1",
          "P11 (multi-process training)"),
-        (args.num_experts > 0, "--num-experts > 0", "P10 (models/moe.py)"),
     )
     for bad, flag, item in unported:
         if bad:
@@ -182,6 +181,7 @@ def main(argv=None) -> dict:
         remat=args.remat,
         sp_impl=args.sp_impl,
         num_experts=args.num_experts,
+        moe_every=args.moe_every,
     )
     with torch.device(device):
         model = BertForPretraining(cfg, num_labels=args.num_labels,

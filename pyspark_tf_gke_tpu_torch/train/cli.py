@@ -22,8 +22,9 @@ attempts, so a replayed step passes). ``--profile-dir`` writes a
 ``torch.profiler`` Chrome trace of the run (``trace.json``). The run is
 on ``cuda`` unless ``--device cpu``; the options that need several
 processes or devices raise (``utils/config.py::refuse_unported``, P11).
-The weights start from a numpy generator seeded with ``--seed`` (the JAX
-CLI draws from ``jax.random``).
+The weights start where the JAX CLI's start for the same ``--seed``:
+``model.init(jax.random.key(seed), x)``'s parameters, replayed bit for
+bit in numpy (``utils/seeding.jax_init_params``).
 """
 
 from __future__ import annotations

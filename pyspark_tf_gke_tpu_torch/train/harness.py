@@ -13,7 +13,11 @@ from PyTorch's optimizers:
   unless given (``optax.adam(eps=)``; Keras' 1e-7 for the
   reference-parity runs); adamw adds ``wd * p`` to
   the update of every parameter with ndim >= 2 (the decay mask) BEFORE
-  the learning rate scales it;
+  the learning rate scales it. ``mu_dtype`` (``optax.adam(mu_dtype=)``)
+  stores the first moment in that dtype: a step computes it in f32 from
+  the stored moment (``b1 * mu`` in the stored dtype, ``b1`` itself
+  rounded to it, as jnp casts a Python float) and the f32 gradient, uses
+  it in f32, and only the stored copy is rounded;
 * sgd, and ``momentum``: nesterov trace ``t = g + m t``, update ``g + m
   t``;
 * the schedule is read at the count BEFORE the update, so the first
@@ -119,8 +123,10 @@ class Optimizer:
 
     def __init__(self, kind: str, lr: Callable[[int], float],
                  weight_decay: float = 0.0, momentum: float = 0.9,
-                 grad_clip_norm: float = 0.0, eps: Optional[float] = None):
+                 grad_clip_norm: float = 0.0, eps: Optional[float] = None,
+                 mu_dtype: Optional[torch.dtype] = None):
         self.kind = kind
+        self.mu_dtype = mu_dtype
         self.lr = lr
         # optax's defaults: adam and adamw 1e-8, lamb 1e-6
         self.eps = eps if eps is not None else (
@@ -130,10 +136,10 @@ class Optimizer:
         self.grad_clip_norm = grad_clip_norm
 
     def init(self, params: Dict[str, torch.Tensor]) -> dict:
-        zeros = lambda: {k: torch.zeros_like(p)  # noqa: E731
-                         for k, p in params.items()}
+        zeros = lambda dtype=None: {  # noqa: E731
+            k: torch.zeros_like(p, dtype=dtype) for k, p in params.items()}
         if self.kind in ("adam", "adamw", "lamb"):
-            return {"count": 0, "mu": zeros(), "nu": zeros()}
+            return {"count": 0, "mu": zeros(self.mu_dtype), "nu": zeros()}
         if self.kind == "momentum":
             return {"count": 0, "trace": zeros()}
         if self.kind == "adafactor":
@@ -193,8 +199,16 @@ class Optimizer:
         ``mu_hat / (sqrt(nu_hat) + eps)``."""
         mu = [state["mu"][k] for k in names]
         nu = [state["nu"][k] for k in names]
-        torch._foreach_mul_(mu, self.b1)
-        torch._foreach_add_(mu, g, alpha=1.0 - self.b1)
+        if self.mu_dtype is None:
+            torch._foreach_mul_(mu, self.b1)
+            torch._foreach_add_(mu, g, alpha=1.0 - self.b1)
+        else:
+            stored = mu
+            # jnp casts the Python float to the moment's dtype first
+            b1 = torch.tensor(self.b1, dtype=self.mu_dtype).item()
+            mu = [t.float() for t in torch._foreach_mul(stored, b1)]
+            torch._foreach_add_(mu, g, alpha=1.0 - self.b1)
+            torch._foreach_copy_(stored, mu)
         torch._foreach_mul_(nu, self.b2)
         torch._foreach_addcmul_(nu, g, g, value=1.0 - self.b2)
         bc1 = float(_F32(1) - _F32(self.b1) ** _F32(count))
@@ -255,11 +269,14 @@ def make_optimizer(learning_rate: float, schedule: str = "constant",
                    optimizer: str = "adam", weight_decay: float = 0.0,
                    momentum: float = 0.9,
                    grad_clip_norm: float = 0.0,
-                   eps: Optional[float] = None) -> Optimizer:
+                   eps: Optional[float] = None,
+                   mu_dtype: Optional[torch.dtype] = None) -> Optimizer:
     """adam | adamw | sgd | momentum | lamb | adafactor with a constant |
     cosine | warmup_cosine schedule and optional global-norm clipping; the same
     argument checks as the JAX factory. ``eps`` is the Adam-family
-    epsilon (default optax's: 1e-8, lamb 1e-6)."""
+    epsilon (default optax's: 1e-8, lamb 1e-6); ``mu_dtype`` the dtype
+    the Adam family stores its first moment in (default the
+    parameter's)."""
     if schedule not in ("constant", "cosine", "warmup_cosine"):
         raise ValueError(
             f"unknown lr schedule {schedule!r}; use constant | cosine | "
@@ -289,7 +306,7 @@ def make_optimizer(learning_rate: float, schedule: str = "constant",
                             max(total_steps, warmup_steps + 1))
     return Optimizer(optimizer, lr, weight_decay=weight_decay,
                      momentum=momentum, grad_clip_norm=grad_clip_norm,
-                     eps=eps)
+                     eps=eps, mu_dtype=mu_dtype)
 
 
 def local_batch_size(global_batch: int) -> int:

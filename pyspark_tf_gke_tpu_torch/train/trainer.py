@@ -1,6 +1,6 @@
 """The trainer: train step + epoch loop (counterpart of
 ``pyspark_tf_gke_tpu/train/trainer.py``: the classification (MLP),
-regression (CNN), causal-LM, ResNet and BERT tasks).
+regression (CNN), causal-LM, ResNet, ViT and BERT tasks).
 
 A step is forward, loss, ``backward`` and the optimizer update, eager on
 one device: the attention, LayerNorm and fused 1x1-conv gradients come
@@ -29,8 +29,7 @@ reads them. The epoch loop keeps the JAX one's contract:
 
 After each step the loop beats the heartbeat, then lets the fault
 injector fail the step (chaos tests), then logs every ``log_every``
-steps, in the JAX loop's order. The JAX trainer's sharding (P11) and its
-``vit`` task (P10) are not ported.
+steps, in the JAX loop's order. The JAX trainer's sharding is P11's.
 """
 
 from __future__ import annotations
@@ -175,9 +174,23 @@ def resnet_task() -> TrainerTask:
                        has_batch_stats=True)
 
 
-# the JAX trainer's weight of the MoE load-balance loss; the dense BERT's
+# the JAX trainer's weight of the MoE load-balance loss; a dense model's
 # aux loss is 0, so the term only carries the metric
 MOE_AUX_WEIGHT = 0.01
+
+
+def vit_task() -> TrainerTask:
+    """Image classification for the ViT (``:118-130``): no BatchNorm
+    statistics; the MoE aux loss, when experts are on, joins the loss."""
+
+    def forward(model, batch, train=True):
+        return model(batch["image"])
+
+    def lam(preds, batch):
+        loss, metrics = _image_cls_lam(preds["logits"], batch)
+        return _add_moe_aux(loss, metrics, preds)
+
+    return TrainerTask("vit", forward, lam)
 
 
 def _bert_forward(model, batch, train=True):
@@ -230,6 +243,7 @@ def bert_mlm_task() -> TrainerTask:
 TASKS = {"classification": classification_task,
          "regression": regression_task,
          "causal_lm": causal_lm_task, "resnet": resnet_task,
+         "vit": vit_task,
          "bert_classification": bert_classification_task,
          "bert_mlm": bert_mlm_task}
 
@@ -258,17 +272,22 @@ def _sync(device: torch.device) -> None:
 class Trainer:
     """Runs the step and the epoch loop for ``model``, whose trainable
     parameters (``CausalLM(..., param_dtype=torch.float32)``, ``ResNet``,
-    ``BertForPretraining(..., param_dtype=torch.float32)``)
+    ``ViTClassifier``, ``BertForPretraining(...,
+    param_dtype=torch.float32)``)
     are the training state's parameters, and whose buffers are its
     ``batch_stats`` when the task has them."""
 
     def __init__(self, model: torch.nn.Module, task: TrainerTask,
                  learning_rate: float = 1e-3, tx=None,
-                 ema_decay: float = 0.0, metrics_registry=None,
-                 event_log=None):
+                 ema_decay: float = 0.0,
+                 mu_dtype: Optional[torch.dtype] = None,
+                 metrics_registry=None, event_log=None):
         self.model = model
         self.task = task
-        self.tx = tx if tx is not None else make_optimizer(learning_rate)
+        # mu_dtype: Adam's stored first moment (the JAX trainer's
+        # optax.adam(mu_dtype=)); ignored when tx is given, as there
+        self.tx = tx if tx is not None else make_optimizer(
+            learning_rate, mu_dtype=mu_dtype)
         self.ema_decay = ema_decay
         params = [p for p in model.parameters() if p.requires_grad]
         if not params:

@@ -4,7 +4,8 @@ attention) from the JAX model's parameters through
 ``bert_params_from_flax``; step-0 loss and gradients of both BERT tasks
 and one ``Trainer`` step of each against the JAX ``Trainer``;
 ``bert_finetune.main`` on codec shards (falling loss, artifacts,
-resume) and its refused flags.
+resume) and its refused flags (``--num-experts`` runs since the MoE FFN
+was ported: ``test_torch_p10_moe.py``).
 
 Tolerances, all f32: logits within 1e-5 (two layers of products summed
 in another order; logits are O(1)); losses within 1e-5 and gradients
@@ -219,12 +220,10 @@ def test_bert_finetune_main_on_codec_shards(tmp_path, objective):
 def test_bert_finetune_refuses_unported_flags(tmp_path):
     base = ["--data-pattern", str(tmp_path / "*.tfrecord"), "--device", "cpu"]
     for flags in (["--mesh-shape", "dp=2,sp=4"], ["--dcn-mesh-shape", "dp=2"],
-                  ["--num-processes", "2"], ["--num-experts", "4"]):
+                  ["--num-processes", "2"]):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             bert_finetune.main(base + flags)
     with pytest.raises(SystemExit):
         bert_finetune.main(["--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="P10"):
-        tb.BertForPretraining(tb.BertConfig(**CFG, num_experts=4))
     with pytest.raises(ValueError, match="sp_impl"):
         tb.BertConfig(sp_impl="tree")

@@ -1,6 +1,7 @@
-"""PyTorch port, isolation: the package, ``chip_smoke.py`` and
-``kernel_probe.py`` import no JAX and nothing of the JAX package; the
-device is explicit and nothing falls back to the CPU; the kernels build
+"""PyTorch port, isolation: the package (P10's modules among them),
+``chip_smoke.py`` and ``kernel_probe.py`` import no JAX and nothing of
+the JAX package; the device is explicit and nothing falls back to the
+CPU (P10's entry points too); the kernels build
 for ``sm_90a`` into the ignored build directory (checked without running
 ``nvcc``).
 """
@@ -49,6 +50,10 @@ BERT_MODULES = ("utils/seeding.py", "data/codec.py", "data/tfrecord.py",
 P9_MODULES = ("utils/config.py", "data/synthetic.py", "data/csv_loader.py",
               "data/images.py", "models/__init__.py", "models/mlp.py",
               "models/cnn.py", "train/cli.py", "evaluate/image_checker.py")
+P10_MODULES = ("models/moe.py", "models/vit.py", "etl/__init__.py",
+               "etl/knobs.py", "etl/feature_pipeline.py", "etl/kmeans.py",
+               "etl/tfrecord_bridge.py", "etl/workload.py",
+               "etl/bootstrap.py")
 
 
 def _port_files():
@@ -61,6 +66,7 @@ def _port_files():
     assert set(SERVING_MODULES) <= rel
     assert set(BERT_MODULES) <= rel
     assert set(P9_MODULES) <= rel
+    assert set(P10_MODULES) <= rel
     return files + [REPO / "chip_smoke.py", REPO / "kernel_probe.py"]
 
 
@@ -88,6 +94,10 @@ def test_importing_the_server_loads_no_jax():
             "import pyspark_tf_gke_tpu_torch.evaluate.lm_eval\n"
             "import pyspark_tf_gke_tpu_torch.train.cli\n"
             "import pyspark_tf_gke_tpu_torch.evaluate.image_checker\n"
+            "import pyspark_tf_gke_tpu_torch.models.vit\n"
+            "import pyspark_tf_gke_tpu_torch.etl.bootstrap\n"
+            "import pyspark_tf_gke_tpu_torch.etl.workload\n"
+            "import pyspark_tf_gke_tpu_torch.etl.tfrecord_bridge\n"
             "from pyspark_tf_gke_tpu_torch.models import build_model\n"
             "build_model('mlp', num_classes=3, input_dim=3, device='cpu')\n"
             "build_model('cnn', image_size=(16, 16), device='cpu')\n"
@@ -107,6 +117,31 @@ def test_cuda_without_a_card_raises():
         resolve_device("cuda")
     with pytest.raises(RuntimeError, match="CUDA"):
         kernels.library()
+
+
+def test_p10_entry_points_run_on_cuda_unless_asked():
+    """ViT, the MoE FFN, KMeans, the silhouette and the bootstrap build
+    on ``cuda`` by default, which raises without a card."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    import numpy as np
+
+    from pyspark_tf_gke_tpu_torch.etl import bootstrap
+    from pyspark_tf_gke_tpu_torch.etl.kmeans import KMeans, silhouette_score
+    from pyspark_tf_gke_tpu_torch.models.bert import BertConfig
+    from pyspark_tf_gke_tpu_torch.models.moe import MoELayer
+    from pyspark_tf_gke_tpu_torch.models.vit import ViTClassifier
+
+    cfg = BertConfig(hidden_size=32, num_layers=1, num_heads=4,
+                     intermediate_size=64)
+    for build in (lambda: ViTClassifier(cfg, 3, patch_size=8,
+                                        image_size=(16, 16)),
+                  lambda: MoELayer(2, 32, 64), lambda: KMeans(k=2),
+                  lambda: silhouette_score(np.zeros((4, 2)), np.arange(4)),
+                  lambda: bootstrap.run(["--out", "unused"])):
+        with pytest.raises(RuntimeError, match="cuda"):
+            build()
+    assert bootstrap.parse_args(["--out", "x"]).device == "cuda"
 
 
 def test_wrapper_refuses_a_non_cpu_non_cuda_tensor():

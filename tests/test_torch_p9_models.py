@@ -3,7 +3,7 @@ carried weights: the MLP, CNN-B1 and CNN-A1 at 32x40 (forward and every
 gradient; f32 within 1e-5 relative, bf16 within 2e-2 of the output's
 scale and 5e-2 relative L2 on the gradients), PReLU with shared axes,
 B1's 43,368,850 parameters at 256x320 counted on the meta device, the
-Keras initialisers' law, ``chip_smoke.jax_init_params`` bit for bit
+Keras initialisers' law, ``utils/seeding.jax_init_params`` bit for bit
 against flax's init, Adam's ``eps``, ``build_model`` and a few ``Trainer``
 steps (f32, Adam eps 1e-7) against the JAX ``Trainer`` with
 ``optax.adam(eps=1e-7)``: metrics within 1e-5 relative, weights within
@@ -33,6 +33,7 @@ from pyspark_tf_gke_tpu_torch.models.mlp import MLPClassifier
 from pyspark_tf_gke_tpu_torch.models.resnet import ResNet
 from pyspark_tf_gke_tpu_torch.train.harness import make_optimizer
 from pyspark_tf_gke_tpu_torch.train.trainer import TASKS, Trainer
+from pyspark_tf_gke_tpu_torch.utils import seeding
 
 torch.set_num_threads(1)
 
@@ -203,15 +204,15 @@ def test_chip_smoke_replays_the_jax_init_bit_for_bit():
         for seed in (1337, 5):
             want = flatten_flax(jax.device_get(
                 jax.jit(jm.init)(jax.random.key(seed), x)["params"]))
-            got = chip_smoke.jax_init_params(tm, seed)
+            got = seeding.jax_init_params(tm, seed)
             assert want.keys() == got.keys()
             for k in want:
                 assert torch.equal(want[k], got[k]), (seed, k)
     # a kernel drawn in many chunks, in parallel, is the one drawn whole
-    key = chip_smoke._flax_key(1337, "Dense_0", 1)
+    key = seeding._flax_key(1337, "Dense_0", 1)
     np.testing.assert_array_equal(
-        chip_smoke._glorot_uniform(key, (64, 100), chunk=777),
-        chip_smoke._glorot_uniform(key, (64, 100)))
+        seeding._glorot_uniform(key, (64, 100), chunk=777),
+        seeding._glorot_uniform(key, (64, 100)))
 
 
 def test_adam_eps_mirrors_optax():

@@ -127,7 +127,7 @@ def _bert(data, rank, world, group):
         cfg = dataclasses.replace(base, sp_impl=impl, use_flash=use_flash)
         model = tb.BertForPretraining(cfg, sp_group=group).load_params(params)
         with torch.no_grad():
-            hidden = model.encoder(ids, attention_mask=ids_mask)
+            hidden, _ = model.encoder(ids, attention_mask=ids_mask)
             preds = model(ids, attention_mask=ids_mask)
         out[f"{name}/hidden"] = hidden.numpy()
         out[f"{name}/mlm_logits"] = preds["mlm_logits"].numpy()
