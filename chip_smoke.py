@@ -342,8 +342,26 @@
     launched; (e) a CNN-B1 ``Trainer`` with ``mu_dtype=torch.bfloat16``
     on the card against the host (5 steps, losses within 1e-3) and the
     JAX-init replay's host seconds for CNN-B1 at 256x320;
-15. prints one ``{"kernels": [...]}`` line, then
-16. ``{"ok": true, "device": {...}}`` as the last line.
+15. P11a, the training mesh on one card (a one-rank NCCL world and a
+    ``DeviceMesh``): (a) ``lm_pretrain`` at its defaults (GPT-small,
+    seq 512, batch 16; 2 epochs x 3 steps) with ``--mesh-shape
+    fsdp=1,tp=1`` against the run without one, bf16 in turns (plain,
+    mesh, mesh, plain) and f32: losses within 1e-5 relative in f32 and
+    5e-3 in bf16, K2f/K2dq/K2dkv 12 and K3/K3b 25 launches a step on
+    both, the step times side by side; (b) ResNet-50 fused3 (bf16, batch
+    64 of 224^2) on a ``dp=1`` mesh against no mesh, steps in turns from
+    the same weights: K4 36 and K5 13 launches a step on both, losses
+    within 2e-3 and the running statistics within 1e-2 of their scale;
+    (c) ``bert_finetune`` at phase 7d's flags with ``--mesh-shape
+    dp=1,sp=1``: finite losses and phase 7d's launches a step; (d) two
+    ranks of one gloo world on the one card (NCCL refuses them; gloo
+    takes the collectives the mesh calls on CUDA tensors): a 2-layer
+    GPT-small (f32, vocabulary 32000, batch 16 x 512, padding by row) at
+    ``tp=2`` (6 heads a rank on the kernels, the vocabulary split),
+    ``dp=2`` and ``fsdp=2``, 3 Adam steps against the run without a
+    mesh: losses within 1e-5 relative, launches a step equal;
+16. prints one ``{"kernels": [...]}`` line, then
+17. ``{"ok": true, "device": {...}}`` as the last line.
 
 It takes no arguments. Any failed check exits non-zero. Without a CUDA
 device, or outside a checkout of the repository, it exits non-zero and
@@ -7248,6 +7266,340 @@ def run_p10(torch, dev):
     return vit_launches, moe_launches, etl_launches
 
 
+# -- phase 15: the training mesh (P11a) ----------------------------------------
+
+# lm_pretrain at its defaults (GPT-small: hidden 768, 12 layers, 12 heads,
+# seq 512, global batch 16, byte tokenizer) for 2 epochs x 3 steps
+P11_LM_FLAGS = ["--epochs", "2", "--steps-per-epoch", "3", "--seed", "0",
+                "--learning-rate", "3e-4", "--heartbeat-every-steps", "0"]
+# K2f, K2dq and K2dkv once a layer, K3 and K3b at each block's two norms
+# and the final one, per GPT-small training step
+P11_LM_PER_STEP = {"flash_attention_fwd": 12, "flash_attention_dq": 12,
+                   "flash_attention_dkv": 12, "layernorm": 25,
+                   "layernorm_bwd": 25}
+# the mesh's losses against the run without one: the same f32 program
+# (fsdp = tp = 1 places every parameter whole), so only the kernels'
+# accumulation order can part them; bf16 to a rounding of its logits
+P11_LOSS_RTOL = {"float32": 1e-5, "bfloat16": 5e-3}
+
+
+def _p11_lm(torch, dev, counters, pattern, work, dtype, mesh, tag):
+    from pyspark_tf_gke_tpu_torch.train.lm_pretrain import main as lm_main
+
+    argv = ["--data-pattern", pattern, *P11_LM_FLAGS, "--compute-dtype",
+            dtype, "--output-dir", str(work / tag), "--device", str(dev)]
+    if mesh:
+        argv += ["--mesh-shape", "fsdp=1,tp=1"]
+    _reset(torch, counters)
+    history = lm_main(argv)
+    torch.cuda.synchronize()
+    shutil.rmtree(work / tag, ignore_errors=True)
+    return history, _moved(counters)
+
+
+def check_mesh_lm(torch, dev, counters, work):
+    """(a) lm_pretrain at GPT-small width with ``--mesh-shape fsdp=1,tp=1``
+    against the run without ``--mesh-shape``: bf16 in turns (plain,
+    mesh, mesh, plain), then f32; the losses within P11_LOSS_RTOL, the
+    training kernels launched the same number of times a step on both
+    (P11_LM_PER_STEP). Returns the bf16 mesh run's launches."""
+    import torch.distributed as dist
+
+    pattern = write_corpus(work / "corpus")
+    steps = int(P11_LM_FLAGS[1]) * int(P11_LM_FLAGS[3])
+    want = {k: n * steps for k, n in P11_LM_PER_STEP.items()}
+    mesh_launches = {}
+    for dtype, order in (("bfloat16", (False, True, True, False)),
+                         ("float32", (False, True))):
+        runs = {False: [], True: []}
+        for mesh in order:
+            history, moved = _p11_lm(torch, dev, counters, pattern, work,
+                                     dtype, mesh, f"{dtype}-{mesh}")
+            runs[mesh].append(history)
+            check(moved == want, f"lm_pretrain {dtype} (mesh {mesh}) "
+                  f"launched {moved}, not {want}")
+            if mesh:
+                mesh_launches = moved
+        plain, meshed = runs[False][0], runs[True][0]
+        for a, b in zip(plain["loss"], meshed["loss"]):
+            check(math.isfinite(b) and abs(a - b) <= P11_LOSS_RTOL[dtype]
+                  * abs(a), f"{dtype} mesh loss {b} against {a}")
+        log(f"  {dtype}: loss without a mesh {plain['loss']}, with "
+            f"fsdp=1,tp=1 {meshed['loss']}")
+        log(f"  {dtype} step_time_ms in turns (plain, mesh"
+            f"{', mesh, plain' if len(order) == 4 else ''}): "
+            + ", ".join(f"{'mesh' if m else 'plain'} "
+                        f"{runs[m][order[:i].count(m)]['step_time_ms']}"
+                        for i, m in enumerate(order)))
+    check(dist.is_initialized() and dist.get_world_size() == 1
+          and dist.get_backend() == "nccl",
+          "the mesh run did not make a one-rank NCCL world")
+    log(f"  kernel launches a mesh run ({steps} steps): {mesh_launches}")
+    return mesh_launches
+
+
+def check_mesh_resnet(torch, dev, counters):
+    """(b) ResNet-50 fused3 (bf16, batch 64 of 224^2) on a ``dp=1`` mesh
+    against no mesh, step by step in turns from the same weights: K4
+    and K5 launched 36 and 13 times a step on both, the losses and the
+    running statistics within bf16's tolerance."""
+    from pyspark_tf_gke_tpu_torch.data.pipeline import put_batch
+    from pyspark_tf_gke_tpu_torch.models.resnet import ResNet50
+    from pyspark_tf_gke_tpu_torch.parallel.mesh import make_mesh
+    from pyspark_tf_gke_tpu_torch.train.trainer import TASKS, Trainer
+
+    per_step = RESNET_PER_STEP["fused3"]
+    mesh = make_mesh({"dp": 1}, dev)
+    trainers = {}
+    for tag, m in (("plain", None), ("mesh", mesh)):
+        trainer = Trainer(ResNet50(norm_variant="fused3", device=dev,
+                                   seed=0), TASKS["resnet"](),
+                          learning_rate=1e-3, mesh=m)
+        trainers[tag] = (trainer, trainer.init_state())
+    batch = put_batch(resnet_batch(RESNET_BATCH, RESNET_IMAGE), dev)
+    losses = {"plain": [], "mesh": []}
+    times = {"plain": [], "mesh": []}
+    launches = {}
+    for i, tag in enumerate(("plain", "mesh", "mesh", "plain") * 2):
+        trainer, state = trainers[tag]
+        _reset(torch, counters)
+        t0 = time.perf_counter()
+        _, metrics = trainer.step(state, batch)
+        torch.cuda.synchronize()
+        times[tag].append((time.perf_counter() - t0) * 1e3)
+        losses[tag].append(float(metrics["loss"]))
+        moved = _moved(counters)
+        check(moved == per_step, f"ResNet-50 fused3 ({tag}) step launched "
+              f"{moved}, not {per_step}")
+        if tag == "mesh":
+            launches = {k: launches.get(k, 0) + n for k, n in moved.items()}
+    for a, b in zip(losses["plain"], losses["mesh"]):
+        check(math.isfinite(b) and abs(a - b) <= 2e-3 * abs(a),
+              f"ResNet-50 mesh loss {b} against {a}")
+    plain_stats = trainers["plain"][1].batch_stats
+    worst = 0.0
+    for name, value in trainers["mesh"][1].batch_stats.items():
+        ref = plain_stats[name]
+        worst = max(worst, float((value - ref).abs().max()
+                                 / ref.abs().max().clamp_min(1e-3)))
+    check(worst <= 1e-2, f"ResNet-50 mesh running statistics {worst:.2e} "
+          "of their scale from the run without a mesh")
+    log(f"  losses, plain {losses['plain']}, mesh {losses['mesh']}; "
+        f"running statistics within {worst:.2e} of their scale")
+    log(f"  step ms in turns (the first of each is its warm-up): plain "
+        f"{[round(t, 2) for t in times['plain']]}, mesh "
+        f"{[round(t, 2) for t in times['mesh']]} ({CARD})")
+    return launches
+
+
+def check_mesh_bert(torch, dev, counters, work, launches_7d=None):
+    """(c) bert_finetune at phase 7d's flags with ``--mesh-shape
+    dp=1,sp=1``: the losses finite, and each training kernel launched
+    as often a step as phase 7d's classification run launched it (2
+    epochs x 10 steps there; with no ``launches_7d``, as a run of the
+    same steps without a mesh launches it)."""
+    from pyspark_tf_gke_tpu_torch.train.bert_finetune import main as bert_main
+
+    pattern = write_bert_shards(work / "shards")
+    epochs, steps = 2, 3
+    runs = {}
+    for mesh in ((False, True) if launches_7d is None else (True,)):
+        _reset(torch, counters)
+        history = bert_main(
+            ["--data-pattern", pattern, *BERT_FLAGS, "--epochs", str(epochs),
+             "--steps-per-epoch", str(steps), "--output-dir",
+             str(work / f"bert-{mesh}"), "--device", str(dev)]
+            + (["--mesh-shape", "dp=1,sp=1"] if mesh else []))
+        torch.cuda.synchronize()
+        runs[mesh] = (history, _moved(counters))
+    history, moved = runs[True]
+    log(f"  bert_finetune --mesh-shape dp=1,sp=1: loss {history['loss']}, "
+        f"step_time_ms {history['step_time_ms']}; launches {moved}")
+    check(all(math.isfinite(v) for v in history["loss"]),
+          f"non-finite BERT mesh loss {history['loss']}")
+    if launches_7d is None:
+        ref, ref_steps = runs[False][1], epochs * steps
+    else:
+        ref, ref_steps = launches_7d, 20
+    for name, n in ref.items():
+        check(moved[name] * ref_steps == n * epochs * steps, f"{name}: "
+              f"{moved[name]} launches in {epochs * steps} steps on the "
+              f"mesh, {n} in {ref_steps} without one")
+    shutil.rmtree(work, ignore_errors=True)
+    return moved
+
+
+# (d) two ranks on the one card: gloo takes the collectives the mesh
+# calls on CUDA tensors (all_reduce, all_gather; ``kernel_probe.py
+# gloo-cuda``: not point-to-point, nor DTensor's gather); NCCL refuses two
+# ranks on a card. A 2-layer GPT-small in f32, 3 Adam steps of batch 16
+# x 512 with padding that differs by row, on each mesh of 2 ranks
+P11_PAIR_LM = dict(vocab_size=32000, hidden_size=768, num_layers=2,
+                   num_heads=12, intermediate_size=3072, max_seq_len=512)
+P11_PAIR_MESHES = ({"tp": 2}, {"dp": 2}, {"fsdp": 2})
+
+
+def _p11_pair_batches():
+    import numpy as np
+
+    rng = np.random.default_rng(11)
+    out = []
+    for _ in range(3):
+        lengths = rng.integers(256, 513, 16)
+        out.append({"input_ids": rng.integers(0, 32000, (16, 512)).astype(
+            np.int32), "attention_mask": (np.arange(512)[None]
+                                          < lengths[:, None]).astype(
+                                              np.int32)})
+    return out
+
+
+def _p11_pair_run(torch, dev, mesh):
+    """3 steps of the 2-layer GPT-small on ``mesh`` (None: no mesh) from
+    seed 0's parameters: ``(losses, each step's launches, the query
+    heads this rank's kernels see)``."""
+    from pyspark_tf_gke_tpu_torch.data.pipeline import put_batch
+    from pyspark_tf_gke_tpu_torch.models.causal_lm import CausalLMConfig
+    from pyspark_tf_gke_tpu_torch.train.harness import make_optimizer
+    from pyspark_tf_gke_tpu_torch.train.trainer import TASKS, Trainer
+
+    cfg = CausalLMConfig(**P11_PAIR_LM, dtype=torch.float32)
+    trainer = Trainer(_train_model(torch, dev, cfg, 0), TASKS["causal_lm"](),
+                      tx=make_optimizer(1e-3), mesh=mesh)
+    state = trainer.init_state()
+    counters = _train_counters()
+    losses, launches = [], []
+    for batch in _p11_pair_batches():
+        _reset(torch, counters)
+        _, metrics = trainer.step(state, put_batch(trainer.local_batch(batch),
+                                                   dev))
+        torch.cuda.synchronize()
+        losses.append(float(metrics["loss"]))
+        launches.append(_moved(counters))
+    query = trainer.model.layer_0.attention.query.kernel
+    return losses, launches, query.shape[1] // cfg.head_dim
+
+
+def _p11_pair_rank(rank: int, port: int, out) -> None:
+    """One of the two ranks on the card: every mesh of P11_PAIR_MESHES."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(ROOT))
+    from pyspark_tf_gke_tpu_torch.parallel.mesh import make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=rank, world_size=2)
+    try:
+        results = {}
+        for axes in P11_PAIR_MESHES:
+            results[json.dumps(axes)] = _p11_pair_run(
+                torch, dev, make_mesh(axes, dev))
+        out.put((rank, results))
+    except Exception as exc:  # noqa: BLE001 — reported to the parent
+        out.put((rank, f"{type(exc).__name__}: {exc}"))
+        raise
+    finally:
+        dist.destroy_process_group()
+
+
+def check_mesh_pair(torch, dev):
+    """(d) the 2-layer GPT-small on meshes of two ranks of the one card
+    (tp=2: each rank's 6 heads on the kernels, the vocabulary split; dp=2;
+    fsdp=2) against the run without a mesh: losses within 1e-5 relative
+    (f32), every rank's launches a step equal to it. Returns rank 0's
+    launches over the tp=2 run."""
+    import multiprocessing as mp
+    import queue
+    import socket
+
+    want_losses, want_launches, _ = _p11_pair_run(torch, dev, None)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    ctx = mp.get_context("spawn")
+    out = ctx.Queue()
+    procs = [ctx.Process(target=_p11_pair_rank, args=(r, port, out))
+             for r in range(2)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    got = {}
+    try:
+        for _ in procs:
+            rank, results = out.get(timeout=300)
+            got[rank] = results
+    except queue.Empty:
+        pass
+    finally:
+        for p in procs:
+            p.join(60)
+            if p.is_alive():
+                p.kill()
+                p.join(10)
+    log(f"  two ranks on the card: {time.perf_counter() - t0:.1f} s "
+        f"(exit codes {[p.exitcode for p in procs]}); without a mesh: "
+        f"losses {want_losses}, launches a step {want_launches[0]}")
+    check(sorted(got) == [0, 1] and all(isinstance(r, dict)
+                                        for r in got.values()),
+          f"the two-rank runs did not finish: {got}")
+    for axes in P11_PAIR_MESHES:
+        key = json.dumps(axes)
+        for rank in (0, 1):
+            losses, launches, heads = got[rank][key]
+            log(f"  {key} rank {rank}: losses {losses}; launches a step "
+                f"{launches[0]}; {heads} query heads on the kernels")
+            check(heads == P11_PAIR_LM["num_heads"] // axes.get("tp", 1),
+                  f"{key} rank {rank}: {heads} query heads")
+            for a, b in zip(want_losses, losses):
+                check(abs(a - b) <= 1e-5 * abs(a),
+                      f"{key} rank {rank}: loss {b} against {a}")
+            check(launches == want_launches, f"{key} rank {rank}: "
+                  f"launches {launches} against {want_launches}")
+    tp = got[0][json.dumps({"tp": 2})][1]
+    return {k: sum(step[k] for step in tp) for k in tp[0]}
+
+
+def run_p11(torch, dev, launches_7d=None):
+    """Phase 15: the training mesh on one card. A one-rank NCCL world
+    (``make_mesh`` makes it: ``initialize_distributed`` is a no-op for
+    one process, as the JAX one is) and (a)-(d) above; ``launches_7d``
+    are phase 7d's classification launches (``None`` when the phase runs
+    alone, ``kernel_probe.py check run_p11``)."""
+    from pyspark_tf_gke_tpu_torch.ops import fused_conv3 as fc
+    from pyspark_tf_gke_tpu_torch.ops import fused_matmul as fm
+
+    work = PORT_PKG / "_build" / "chip_smoke_p11"
+    shutil.rmtree(work, ignore_errors=True)
+    counters = _train_counters()
+    t0 = time.perf_counter()
+    log("  (a) lm_pretrain, GPT-small, --mesh-shape fsdp=1,tp=1 against "
+        "no mesh")
+    lm = check_mesh_lm(torch, dev, counters, work)
+    torch.cuda.empty_cache()
+    log("  (b) ResNet-50 fused3 on a dp=1 mesh against no mesh")
+    resnet = check_mesh_resnet(torch, dev, {
+        "fused_matmul_fwd": (fm, "fwd_launches"),
+        "fused_matmul_dx": (fm, "dx_launches"),
+        "fused_matmul_dw": (fm, "dw_launches"),
+        "fused_conv3_fwd": (fc, "fwd_launches"),
+        "fused_conv3_dx": (fc, "dx_launches"),
+        "fused_conv3_dw": (fc, "dw_launches")})
+    torch.cuda.empty_cache()
+    log("  (c) bert_finetune, BERT-base, --mesh-shape dp=1,sp=1")
+    bert = check_mesh_bert(torch, dev, counters, work, launches_7d)
+    torch.cuda.empty_cache()
+    log("  (d) two ranks on the card (gloo): a 2-layer GPT-small at tp=2, "
+        "dp=2 and fsdp=2 against no mesh")
+    pair = check_mesh_pair(torch, dev)
+    torch.cuda.empty_cache()
+    log(f"  phase 15 took {time.perf_counter() - t0:.1f} s")
+    return lm, resnet, bert, pair
+
+
 # -- main ---------------------------------------------------------------------
 
 
@@ -7533,6 +7885,11 @@ def main() -> int:
     for name, rec in check_flash_s197(torch, dev).items():
         records[name]["vit_shape"] = rec
     vit_launches, moe_launches, etl_launches = run_p10(torch, dev)
+    log("== 15. P11a, the training mesh on one card: lm_pretrain at "
+        "GPT-small and bert_finetune on meshes of one rank, ResNet-50 "
+        "fused3 at dp=1, each against its run without a mesh")
+    mesh_lm, mesh_resnet, mesh_bert, mesh_pair = run_p11(torch, dev,
+                                                         bert_launches)
 
     out = []
     for name, source, replaces, design in KERNELS:
@@ -7558,7 +7915,11 @@ def main() -> int:
                     "p9_train": p9_launches[name],
                     "vit_train": vit_launches.get(name, 0),
                     "moe_bert_train": moe_launches.get(name, 0),
-                    "p10_etl": etl_launches[name]}
+                    "p10_etl": etl_launches[name],
+                    "mesh_lm_train": mesh_lm.get(name, 0),
+                    "mesh_resnet_fused3_train": mesh_resnet.get(name, 0),
+                    "mesh_bert_train": mesh_bert.get(name, 0),
+                    "mesh_pair_tp2_lm_train": mesh_pair.get(name, 0)}
         # each kernel's count from the path that runs it, the newest
         # slice's path first (paged attention runs only on serving; the
         # block entry on the ring, phase 3c's merge on one card)
@@ -7567,7 +7928,9 @@ def main() -> int:
         elif name == "int8_matmul":
             launches = per_path["serve"]
         else:
-            launches = (per_path["vit_train"] or per_path["bert_train"]
+            launches = (per_path["mesh_bert_train"]
+                        or per_path["mesh_resnet_fused3_train"]
+                        or per_path["vit_train"] or per_path["bert_train"]
                         or per_path["resnet_fused3_train"]
                         or per_path["resnet_train"] or per_path["lm_train"]
                         or per_path["serve"])

@@ -117,6 +117,12 @@ editing a ``.cu`` file, and for the experiments PERF.md reports.
         each seed (default 1337 and 0-6: the JAX init of that seed,
         replayed by ``utils/seeding.jax_init_params``): each run's final
         and best loss, final MAE, and whether the report's gates hold.
+    python3 kernel_probe.py gloo-cuda
+        two processes in a gloo world on the one card (NCCL refuses two
+        ranks on a card), a fresh world for each ``torch.distributed``
+        collective the training mesh calls, on CUDA tensors, with a 20 s
+        timeout: which the gloo backend takes, which it refuses and
+        which abort the process.
 
 Each exits non-zero without a CUDA device.
 """
@@ -1046,6 +1052,110 @@ def ce_modes(torch, dev) -> None:
                           "card": card}), flush=True)
 
 
+GLOO_OPS = ("all_reduce", "broadcast", "all_gather",
+            "all_gather_into_tensor", "reduce_scatter_tensor",
+            "all_to_all_single", "send_recv", "dtensor_full_tensor")
+
+
+def _gloo_op(rank: int, port: int, name: str, out) -> None:
+    """One rank of a two-rank gloo world on cuda:0 running ``name``; the
+    answer goes to ``out`` (a process gloo aborts sends nothing)."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=rank, world_size=2,
+                            timeout=datetime.timedelta(seconds=20))
+    dev = torch.device("cuda:0")
+    x = torch.full((4, 3), float(rank + 1), device=dev)
+
+    def run():
+        if name == "all_reduce":
+            y = x.clone()
+            dist.all_reduce(y)
+            return float(y[0, 0]) == 3.0
+        if name == "broadcast":
+            y = x.clone()
+            dist.broadcast(y, 0)
+            return float(y[0, 0]) == 1.0
+        if name == "all_gather":
+            parts = [torch.empty_like(x) for _ in range(2)]
+            dist.all_gather(parts, x)
+            return float(parts[1][0, 0]) == 2.0
+        if name == "all_gather_into_tensor":
+            y = torch.empty((8, 3), device=dev)
+            dist.all_gather_into_tensor(y, x)
+            return float(y[4, 0]) == 2.0
+        if name == "reduce_scatter_tensor":
+            y = torch.empty((2, 3), device=dev)
+            dist.reduce_scatter_tensor(y, x)
+            return float(y[0, 0]) == 3.0
+        if name == "all_to_all_single":
+            y = torch.empty_like(x)
+            dist.all_to_all_single(y, x)
+            return float(y[2, 0]) == 2.0
+        if name == "send_recv":
+            y = torch.empty_like(x)
+            ops = [dist.P2POp(dist.isend, x, 1 - rank),
+                   dist.P2POp(dist.irecv, y, 1 - rank)]
+            for req in dist.batch_isend_irecv(ops):
+                req.wait()
+            return float(y[0, 0]) == float(2 - rank)
+        from torch.distributed.device_mesh import DeviceMesh
+        from torch.distributed.tensor import DTensor, Shard
+
+        mesh = DeviceMesh("cuda", [0, 1])
+        full = DTensor.from_local(x, mesh, [Shard(0)]).full_tensor()
+        return tuple(full.shape) == (8, 3)
+
+    try:
+        ok = run()
+        torch.cuda.synchronize()
+        out.put((rank, "ok" if ok else "wrong values"))
+    except Exception as exc:  # noqa: BLE001 — the probe's answer
+        out.put((rank, f"{type(exc).__name__}: {str(exc)[:160]}"))
+    dist.destroy_process_group()
+
+
+def gloo_cuda(torch, dev) -> None:
+    """Each op in a fresh two-rank world: what the ranks answer, or the
+    exit code of a rank the backend aborted."""
+    import json
+    import multiprocessing as mp
+    import queue
+    import socket
+
+    card = torch.cuda.get_device_name(dev)
+    ctx = mp.get_context("spawn")
+    for name in GLOO_OPS:
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+        out = ctx.Queue()
+        procs = [ctx.Process(target=_gloo_op, args=(r, port, name, out))
+                 for r in range(2)]
+        for p in procs:
+            p.start()
+        got = {}
+        try:
+            for _ in procs:
+                rank, answer = out.get(timeout=60)
+                got[rank] = answer
+        except queue.Empty:
+            pass
+        finally:
+            for p in procs:
+                p.join(30)
+                if p.is_alive():
+                    p.kill()
+                    p.join(5)
+        print(json.dumps({"op": name, "answers": got,
+                          "exit_codes": [p.exitcode for p in procs],
+                          "card": card}), flush=True)
+
+
 def main(argv) -> int:
     import torch
 
@@ -1080,7 +1190,8 @@ def main(argv) -> int:
                     torch, dev, [int(a) for a in argv[1:]]),
                 "flash-widths": lambda: flash_widths(torch, dev, argv[1:]),
                 "ln-widths": lambda: ln_widths(
-                    torch, dev, [int(a) for a in argv[1:]])}
+                    torch, dev, [int(a) for a in argv[1:]]),
+                "gloo-cuda": lambda: gloo_cuda(torch, dev)}
     if not argv or argv[0] not in commands:
         print(__doc__, file=sys.stderr)
         return 2

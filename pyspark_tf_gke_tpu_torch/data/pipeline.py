@@ -5,7 +5,7 @@ of ``pyspark_tf_gke_tpu/data/pipeline.py``).
   ``np.random.default_rng(seed)`` shuffle, the tail is validation),
   shared by the CSV and image paths;
 * ``host_shard`` — process ``i`` keeps rows ``i::count``; one process
-  keeps every row;
+  keeps every row (the port's CLIs keep every row on every rank);
 * ``BatchIterator`` — one seeded shuffle per started epoch, fixed-size
   batches, and ``fast_forward`` to resume mid-epoch after a restore;
 * ``put_batch`` / ``prefetch_to_device`` — a background thread turns
@@ -20,7 +20,7 @@ from __future__ import annotations
 
 import queue
 import threading
-from typing import Dict, Iterator, Tuple
+from typing import Callable, Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
@@ -50,8 +50,11 @@ def host_shard(
     process_index: int = 0,
     process_count: int = 1,
 ) -> Tuple[np.ndarray, ...]:
-    """Per-process rows, strided like tf.data's ``shard(n, id)``; the port
-    trains in one process (index 0 of 1)."""
+    """Per-process rows, strided like tf.data's ``shard(n, id)`` (the
+    JAX CLIs' split over hosts). The port's CLIs do not split the rows:
+    each rank reads every row and keeps its block of each global batch
+    (``Trainer.local_batch``), so a mesh run sees the one-process run's
+    batches."""
     if process_count <= 1:
         return arrays
     return tuple(a[process_index::process_count] for a in arrays)
@@ -143,9 +146,15 @@ def put_batch(batch: Dict[str, np.ndarray],
 
 def prefetch_to_device(batches: Iterator[Dict[str, np.ndarray]],
                        device: torch.device,
-                       size: int = 2) -> Iterator[Dict[str, torch.Tensor]]:
+                       size: int = 2,
+                       shard: Optional[Callable] = None
+                       ) -> Iterator[Dict[str, torch.Tensor]]:
     """Stream :func:`put_batch`-ed batches with up to ``size`` staged
-    ahead (``size=0``: inline)."""
+    ahead (``size=0``: inline). ``shard`` maps a global host batch to
+    this rank's rows first (``Trainer.local_batch`` on a mesh, the JAX
+    version's placement over a sharding)."""
+    if shard is not None:
+        batches = (shard(b) for b in batches)
     if size <= 0:
         for b in batches:
             yield put_batch(b, device)

@@ -25,7 +25,13 @@ workload (k 25, seed 1, maxIter 1000) with Spark MLlib's behaviour.
 * ``silhouette_score`` is the squared-Euclidean silhouette in 1024-row
   blocks, each point's own zero distance excluded.
 
-Sharding the rows over a mesh (the JAX ``mesh=``) is P11's.
+* ``mesh=`` (a ``DeviceMesh``, ``parallel/``) splits the rows over the
+  data axes, as the JAX fit places them on ``P(("dp", "fsdp"))``: each
+  rank holds one contiguous block of rows (``np.array_split``), and the
+  f64 per-centre sums and the counts of every Lloyd step are summed
+  over the ranks before the division, so every rank steps the same
+  centres and a fit over ranks equals the one-process fit (the same
+  ``n_iter``, the same centres).
 """
 
 from __future__ import annotations
@@ -52,13 +58,19 @@ def _sq_dists(x: torch.Tensor, centers: torch.Tensor) -> torch.Tensor:
     return torch.clamp_min(x_norm - 2.0 * cross + c_norm, 0.0)
 
 
-def lloyd_step(x: torch.Tensor, centers: torch.Tensor):
-    """One Lloyd iteration: ``(new_centers, largest move)``."""
+def lloyd_step(x: torch.Tensor, centers: torch.Tensor, group=None):
+    """One Lloyd iteration: ``(new_centers, largest move)``; ``group``
+    sums the centre sums and counts over the ranks that split the
+    rows."""
     k = centers.shape[0]
     onehot = F.one_hot(torch.argmin(_sq_dists(x, centers), dim=1),
                        k).to(x.dtype)
-    sums = (onehot.T.double() @ x.double()).float()
+    sums = onehot.T.double() @ x.double()
     counts = onehot.sum(0)
+    if group is not None:
+        torch.distributed.all_reduce(sums, group=group)
+        torch.distributed.all_reduce(counts, group=group)
+    sums = sums.float()
     new = torch.where(counts[:, None] > 0,
                       sums / torch.clamp_min(counts, 1.0)[:, None], centers)
     move = torch.sqrt(((new - centers) ** 2).sum(1)).max()
@@ -69,10 +81,13 @@ class KMeans:
     def __init__(self, k: int = 25, max_iter: int = 1000, tol: float = 1e-4,
                  seed: int = 1, device: Union[str, torch.device] = "cuda",
                  mesh=None):
+        self.mesh = mesh
         if mesh is not None:
-            raise NotImplementedError(
-                "KMeans(mesh=...) (rows sharded over dp) is not ported to "
-                "pyspark_tf_gke_tpu_torch (ROADMAP, P11)")
+            from torch.distributed.device_mesh import DeviceMesh
+
+            if not isinstance(mesh, DeviceMesh):
+                raise TypeError(f"mesh must be a DeviceMesh (parallel."
+                                f"make_mesh), got {type(mesh).__name__}")
         self.k = k
         self.max_iter = max_iter
         self.tol = tol
@@ -99,14 +114,22 @@ class KMeans:
         x = np.asarray(x, dtype=np.float32)
         if len(x) < self.k:
             raise ValueError(f"n={len(x)} rows < k={self.k}")
+        init = self._init_centers(x)
+        group = None
+        if self.mesh is not None:
+            from pyspark_tf_gke_tpu_torch.parallel.spmd import Spmd
+
+            spmd = Spmd(self.mesh)
+            x = np.array_split(x, spmd.batch_count)[spmd.batch_index]
+            group = spmd.batch_group
         xd = torch.from_numpy(x).to(self.device)
-        centers = torch.from_numpy(self._init_centers(x)).to(self.device)
+        centers = torch.from_numpy(init).to(self.device)
         n_iter = torch.zeros((), dtype=torch.long, device=self.device)
         done = torch.zeros((), dtype=torch.bool, device=self.device)
         ran = 0
         while ran < self.max_iter:
             for _ in range(min(CHECK_EVERY, self.max_iter - ran)):
-                new, move = lloyd_step(xd, centers)
+                new, move = lloyd_step(xd, centers, group)
                 centers = torch.where(done, centers, new)
                 n_iter += (~done).long()
                 # the JAX loop's condition (move > tol), read after its body

@@ -49,11 +49,11 @@ def read_columns(csv_path: str) -> Dict[str, np.ndarray]:
 
 class KMeansWorkloadTPU:
     def __init__(self, k: int = 25, seed: int = 1, max_iter: int = 1000,
-                 device: Union[str, torch.device] = "cuda"):
+                 device: Union[str, torch.device] = "cuda", mesh=None):
         self.pipeline: Optional[FeaturePipeline] = None
         self.model: Optional[KMeans] = None
         self.k, self.seed, self.max_iter = k, seed, max_iter
-        self.device = device
+        self.device, self.mesh = device, mesh
 
     def run(self, columns: Dict[str, np.ndarray],
             evaluate: bool = True) -> dict:
@@ -68,7 +68,7 @@ class KMeansWorkloadTPU:
                     self.pipeline.repeats, len(self.pipeline.numeric_cols))
         k = min(self.k, len(features) - 1)
         self.model = KMeans(k=k, seed=self.seed, max_iter=self.max_iter,
-                            device=self.device).fit(features)
+                            device=self.device, mesh=self.mesh).fit(features)
         result = {"n_rows": int(len(features)), "k": k,
                   "n_iter": self.model.n_iter,
                   "cost": self.model.cost(features)}

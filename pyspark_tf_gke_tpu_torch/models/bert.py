@@ -29,7 +29,7 @@ approximation), LayerNorm eps 1e-12, f32 logits.
   layer with a ``moe`` submodule (``models/moe.py``); each layer returns
   ``(hidden, aux)``, the encoder ``(hidden, sum of aux)`` and the model's
   ``aux_loss`` is that sum (0 for a dense config). MoE under an sp group
-  of more than one rank raises (P11: the capacity and the aux loss's
+  of more than one rank raises (P11b: the capacity and the aux loss's
   means are global over the sequence in the JAX model).
 
 Weights: ``param_dtype=None`` keeps them in ``cfg.dtype`` without
@@ -50,12 +50,14 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from pyspark_tf_gke_tpu_torch.models.embedding import TokenEmbed
-from pyspark_tf_gke_tpu_torch.models.layers import (Dense, FusedLayerNorm,
+from pyspark_tf_gke_tpu_torch.models.layers import (COLUMN, ROW, Dense,
+                                                    FusedLayerNorm,
                                                     flax_parameters,
                                                     init_flax_params,
                                                     load_flax_params)
 from pyspark_tf_gke_tpu_torch.models.moe import MoELayer
-from pyspark_tf_gke_tpu_torch.ops.attention import (dot_product_attention,
+from pyspark_tf_gke_tpu_torch.ops.attention import (broadcast_first,
+                                                    dot_product_attention,
                                                     ring_attention, sp_world,
                                                     ulysses_attention)
 from pyspark_tf_gke_tpu_torch.ops.flash_attention import flash_attention
@@ -108,15 +110,15 @@ class BertSelfAttention(nn.Module):
         self.use_kernels = use_kernels
         self.sp_group = sp_group
         h = cfg.hidden_size
-        self.query = Dense(h, h, cfg.dtype, param_dtype)
-        self.key = Dense(h, h, cfg.dtype, param_dtype)
-        self.value = Dense(h, h, cfg.dtype, param_dtype)
-        self.out = Dense(h, h, cfg.dtype, param_dtype)
+        self.query = Dense(h, h, cfg.dtype, param_dtype, axes=COLUMN)
+        self.key = Dense(h, h, cfg.dtype, param_dtype, axes=COLUMN)
+        self.value = Dense(h, h, cfg.dtype, param_dtype, axes=COLUMN)
+        self.out = Dense(h, h, cfg.dtype, param_dtype, axes=ROW)
 
     def forward(self, hidden: torch.Tensor, mask: torch.Tensor):
         cfg = self.cfg
         b, s, _ = hidden.shape
-        shape = (b, s, cfg.num_heads, cfg.head_dim)
+        shape = (b, s, -1, cfg.head_dim)  # this rank's heads under tp
         q = self.query(hidden).reshape(shape)
         k = self.key(hidden).reshape(shape)
         v = self.value(hidden).reshape(shape)
@@ -133,7 +135,7 @@ class BertSelfAttention(nn.Module):
             out = flash_attention(q, k, v, kv_mask=mask)
         else:
             out = dot_product_attention(q, k, v, mask=mask[:, None, None, :])
-        return self.out(out.reshape(b, s, cfg.hidden_size))
+        return self.out(out.reshape(b, s, -1))
 
 
 class BertLayer(nn.Module):
@@ -147,7 +149,7 @@ class BertLayer(nn.Module):
         if use_moe and sp_world(sp_group) > 1:
             raise NotImplementedError(
                 "MoE under an sp group of more than one rank is not ported "
-                "to pyspark_tf_gke_tpu_torch (ROADMAP, P11): the capacity "
+                "to pyspark_tf_gke_tpu_torch yet (ROADMAP, P11b): the capacity "
                 "and the aux loss's means are global over the sequence")
         self.attention = BertSelfAttention(cfg, use_kernels, param_dtype,
                                            sp_group)
@@ -160,9 +162,9 @@ class BertLayer(nn.Module):
                                 device=torch.get_default_device())
         else:
             self.mlp_in = Dense(cfg.hidden_size, cfg.intermediate_size,
-                                cfg.dtype, param_dtype)
+                                cfg.dtype, param_dtype, axes=COLUMN)
             self.mlp_out = Dense(cfg.intermediate_size, cfg.hidden_size,
-                                 cfg.dtype, param_dtype)
+                                 cfg.dtype, param_dtype, axes=ROW)
         self.ln_mlp = _norm(cfg, use_kernels, param_dtype)
 
     def forward(self, hidden: torch.Tensor, mask: torch.Tensor
@@ -206,11 +208,13 @@ class BertEncoder(nn.Module):
         self.sp_group = sp_group
         h = cfg.hidden_size
         self.word_embeddings = TokenEmbed(cfg.vocab_size, h, cfg.dtype,
-                                          param_dtype)
+                                          param_dtype, ("vocab", "embed"))
         self.position_embeddings = TokenEmbed(cfg.max_position_embeddings,
-                                              h, cfg.dtype, param_dtype)
+                                              h, cfg.dtype, param_dtype,
+                                              (None, "embed"))
         self.token_type_embeddings = TokenEmbed(cfg.type_vocab_size, h,
-                                                cfg.dtype, param_dtype)
+                                                cfg.dtype, param_dtype,
+                                                (None, "embed"))
         self.ln_embed = _norm(cfg, use_kernels, param_dtype)
         for i in range(cfg.num_layers):
             self.add_module(f"layer_{i}", BertLayer(
@@ -247,6 +251,8 @@ class BertForPretraining(nn.Module):
     "cls_logits" [B, num_labels] f32, "aux_loss"}``, the MoE layers'
     summed load-balance loss (0 for a dense config)."""
 
+    spmd = None  # set by the trainer on a mesh (parallel/spmd.py)
+
     def __init__(self, cfg: BertConfig, num_labels: int = 2,
                  use_kernels: bool = True,
                  param_dtype: Optional[torch.dtype] = None, sp_group=None):
@@ -255,11 +261,15 @@ class BertForPretraining(nn.Module):
         self.sp_group = sp_group
         h = cfg.hidden_size
         self.encoder = BertEncoder(cfg, use_kernels, param_dtype, sp_group)
-        self.mlm_transform = Dense(h, h, cfg.dtype, param_dtype)
+        self.mlm_transform = Dense(h, h, cfg.dtype, param_dtype,
+                                   axes=("embed", "embed_out"))
         self.mlm_ln = _norm(cfg, use_kernels, param_dtype)
-        self.mlm_head = Dense(h, cfg.vocab_size, cfg.dtype, param_dtype)
-        self.pooler = Dense(h, h, cfg.dtype, param_dtype)
-        self.classifier = Dense(h, num_labels, cfg.dtype, param_dtype)
+        self.mlm_head = Dense(h, cfg.vocab_size, cfg.dtype, param_dtype,
+                              axes=("embed", "vocab"))
+        self.pooler = Dense(h, h, cfg.dtype, param_dtype,
+                            axes=("embed", "embed_out"))
+        self.classifier = Dense(h, num_labels, cfg.dtype, param_dtype,
+                                axes=("embed", None))
 
     def forward(self, input_ids: torch.Tensor,
                 token_type_ids: Optional[torch.Tensor] = None,
@@ -271,13 +281,11 @@ class BertForPretraining(nn.Module):
                                         attention_mask)
         mlm = F.gelu(self.mlm_transform(hidden), approximate="tanh")
         mlm_logits = self.mlm_head(self.mlm_ln(mlm))
+        if self.mlm_head.kernel.shape[1] != self.cfg.vocab_size:
+            mlm_logits = self.spmd.tp.gather_from(mlm_logits, -1)
         first = hidden[:, 0]
         if sp_world(self.sp_group) > 1:
-            from torch.distributed.nn.functional import broadcast
-
-            first = broadcast(first.contiguous(), torch.distributed
-                              .get_global_rank(self.sp_group, 0),
-                              group=self.sp_group)
+            first = broadcast_first(first, self.sp_group)
         pooled = torch.tanh(self.pooler(first))
         return {"mlm_logits": mlm_logits.float(),
                 "cls_logits": self.classifier(pooled).float(),

@@ -52,7 +52,8 @@ from pyspark_tf_gke_tpu_torch.ops.paged_attention import (
     paged_attention, paged_attention_chunk, paged_attention_chunk_plain)
 from pyspark_tf_gke_tpu_torch.ops.quant import Params
 from pyspark_tf_gke_tpu_torch.models.embedding import TokenEmbed
-from pyspark_tf_gke_tpu_torch.models.layers import (Dense, FusedLayerNorm,
+from pyspark_tf_gke_tpu_torch.models.layers import (COLUMN, ROW, Dense,
+                                                    FusedLayerNorm,
                                                     dense_group,
                                                     flax_parameters,
                                                     init_flax_params,
@@ -146,6 +147,8 @@ def quantize_kv(x: torch.Tensor):
 
 
 class RMSNorm(nn.Module):
+    logical_axes = {"scale": ("embed",)}
+
     def __init__(self, features: int, epsilon: float = 1e-5,
                  dtype: torch.dtype = torch.bfloat16, trainable: bool = False):
         super().__init__()
@@ -341,18 +344,20 @@ class PagedKV:
 
 
 class CausalSelfAttention(nn.Module):
+    spmd = None  # set by the trainer on a mesh (parallel/spmd.py)
+
     def __init__(self, cfg: CausalLMConfig, use_kernels: bool = True,
                  param_dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.cfg = cfg
         self.use_kernels = use_kernels
         hkv, d = cfg.kv_heads, cfg.head_dim
-        dense = lambda i, o: Dense(i, o, cfg.dtype, param_dtype,  # noqa: E731
-                                   use_kernels)
-        self.query = dense(cfg.hidden_size, cfg.hidden_size)
-        self.key = dense(cfg.hidden_size, hkv * d)
-        self.value = dense(cfg.hidden_size, hkv * d)
-        self.out = dense(cfg.hidden_size, cfg.hidden_size)
+        dense = lambda i, o, axes: Dense(  # noqa: E731
+            i, o, cfg.dtype, param_dtype, use_kernels, axes)
+        self.query = dense(cfg.hidden_size, cfg.hidden_size, COLUMN)
+        self.key = dense(cfg.hidden_size, hkv * d, COLUMN)
+        self.value = dense(cfg.hidden_size, hkv * d, COLUMN)
+        self.out = dense(cfg.hidden_size, cfg.hidden_size, ROW)
 
     def forward(self, hidden, positions, layer: int, cache=None,
                 prefill: bool = False, segment_ids=None,
@@ -360,11 +365,23 @@ class CausalSelfAttention(nn.Module):
         cfg = self.cfg
         b, s, _ = hidden.shape
         h, hkv, d = cfg.num_heads, cfg.kv_heads, cfg.head_dim
+        tp = self.spmd.tp if self.spmd is not None else None
+        if tp is not None and cache is not None:
+            raise NotImplementedError(
+                "a KV cache under tp is the multi-host serve path, not "
+                "ported to pyspark_tf_gke_tpu_torch (ROADMAP, P11b)")
         q, k, v = dense_group((self.query, self.key, self.value), hidden,
                               inloop)
-        q = q.reshape(b, s, h, d)
-        k = k.reshape(b, s, hkv, d)
-        v = v.reshape(b, s, hkv, d)
+        gather_kv = tp is not None and hkv % tp.size != 0
+        if gather_kv:
+            # fewer K/V heads than tp ranks split evenly: JAX repeats K/V
+            # to every query head before splitting the heads (:204-216),
+            # so each rank takes its heads of the whole, repeated K/V
+            k, v = (tp.copy_to(tp.gather_from(t, -1)) for t in (k, v))
+        # this rank's heads (all of them off a tp mesh)
+        q = q.reshape(b, s, -1, d)
+        k = k.reshape(b, s, -1, d)
+        v = v.reshape(b, s, -1, d)
         if cfg.pos_embedding == "rope":
             if d % 2:
                 raise ValueError(f"rope needs an even head_dim, got {d}")
@@ -383,10 +400,14 @@ class CausalSelfAttention(nn.Module):
             if hkv != h:
                 # GQA prefill/score: broadcast K/V to every query head (as
                 # the JAX model does); the memory win is in the cache
+                hl = q.shape[2]
                 k = k.repeat_interleave(h // hkv, dim=2)
                 v = v.repeat_interleave(h // hkv, dim=2)
+                if gather_kv:
+                    k, v = (t[:, :, tp.rank * hl:(tp.rank + 1) * hl]
+                            for t in (k, v))
             out = self._causal_attend(q, k, v, segment_ids)
-        return self.out(out.reshape(b, s, cfg.hidden_size), inloop)
+        return self.out(out.reshape(b, s, -1), inloop)
 
     def _causal_attend(self, q, k, v, segment_ids=None):
         if self.use_kernels:
@@ -463,9 +484,11 @@ class CausalLMBlock(nn.Module):
         self.ln_mlp = _norm(cfg, use_kernels, param_dtype)
         h, f = cfg.hidden_size, cfg.intermediate_size
         if cfg.ffn == "swiglu":
-            self.mlp_gate = Dense(h, f, cfg.dtype, param_dtype, use_kernels)
-        self.mlp_in = Dense(h, f, cfg.dtype, param_dtype, use_kernels)
-        self.mlp_out = Dense(f, h, cfg.dtype, param_dtype, use_kernels)
+            self.mlp_gate = Dense(h, f, cfg.dtype, param_dtype, use_kernels,
+                                  COLUMN)
+        self.mlp_in = Dense(h, f, cfg.dtype, param_dtype, use_kernels,
+                            COLUMN)
+        self.mlp_out = Dense(f, h, cfg.dtype, param_dtype, use_kernels, ROW)
 
     def forward(self, hidden, positions, layer: int, cache=None,
                 prefill: bool = False, segment_ids=None,
@@ -490,6 +513,8 @@ class CausalLM(nn.Module):
     ``cfg.dtype`` without gradients (serving); ``torch.float32`` holds
     trainable f32 weights cast to ``cfg.dtype`` at use (training)."""
 
+    spmd = None  # set by the trainer on a mesh (parallel/spmd.py)
+
     def __init__(self, cfg: CausalLMConfig, use_kernels: bool = True,
                  param_dtype: Optional[torch.dtype] = None):
         super().__init__()
@@ -499,15 +524,17 @@ class CausalLM(nn.Module):
         self.cfg = cfg
         self.use_kernels = use_kernels
         h = cfg.hidden_size
-        self.wte = TokenEmbed(cfg.vocab_size, h, cfg.dtype, param_dtype)
+        self.wte = TokenEmbed(cfg.vocab_size, h, cfg.dtype, param_dtype,
+                              ("vocab", "embed"))
         if cfg.pos_embedding == "learned":
-            self.wpe = TokenEmbed(cfg.max_seq_len, h, cfg.dtype, param_dtype)
+            self.wpe = TokenEmbed(cfg.max_seq_len, h, cfg.dtype, param_dtype,
+                                  (None, "embed"))
         for i in range(cfg.num_layers):
             self.add_module(f"layer_{i}",
                             CausalLMBlock(cfg, use_kernels, param_dtype))
         self.ln_final = _norm(cfg, use_kernels, param_dtype)
         self.lm_head = Dense(h, cfg.vocab_size, cfg.dtype, param_dtype,
-                             use_kernels)
+                             use_kernels, ("embed", "vocab"))
 
     @property
     def device(self) -> torch.device:
@@ -598,10 +625,19 @@ class CausalLM(nn.Module):
             rows = torch.arange(b, device=hidden.device)
             hidden = hidden[rows, last_index.long()][:, None]
         hidden = self.ln_final(hidden)
+        head = self.lm_head
+        split = head.kernel.shape[1] != self.cfg.vocab_size
         if return_head:
-            head = self.lm_head
-            return hidden, head.kernel.to(head.dtype), head.bias
-        return self.lm_head(hidden, inloop).float()
+            kernel, bias = head.kernel.to(head.dtype), head.bias
+            if split:  # each tp rank computes the loss over the whole head
+                tp = self.spmd.tp
+                kernel, bias = tp.gather_from(kernel, 1), tp.gather_from(
+                    bias, 0)
+            return hidden, kernel, bias
+        logits = head(hidden, inloop)
+        if split:
+            logits = self.spmd.tp.gather_from(logits, -1)
+        return logits.float()
 
     # -- parameters ------------------------------------------------------
 

@@ -28,11 +28,16 @@ from pyspark_tf_gke_tpu_torch.ops.quant import QTensor, gather_rows
 
 
 class TokenEmbed(nn.Module):
+    spmd = None  # set by the trainer on a mesh (parallel/spmd.py)
+
     def __init__(self, num_embeddings: int, features: int,
                  dtype: torch.dtype = torch.float32,
-                 param_dtype: Optional[torch.dtype] = None):
+                 param_dtype: Optional[torch.dtype] = None,
+                 axes: Optional[tuple] = None):
         super().__init__()
         self.dtype = dtype
+        self.logical_axes = {"embedding": axes} if axes else None
+        self.rows = num_embeddings
         trainable = param_dtype is not None
         self.embedding = nn.Parameter(
             torch.zeros(num_embeddings, features,
@@ -61,4 +66,14 @@ class TokenEmbed(nn.Module):
         if self.embedding_scale is not None:
             return gather_rows(self.embedding, self.embedding_scale, ids,
                                self.dtype)
+        local = self.embedding.shape[0]
+        if local != self.rows:
+            # vocab-parallel: this tp rank holds rows [r*local, (r+1)*local);
+            # the others' rows come in through the sum
+            tp = self.spmd.tp
+            idx = ids - tp.rank * local
+            mine = (idx >= 0) & (idx < local)
+            rows = self.embedding[torch.where(mine, idx, 0)]
+            rows = torch.where(mine[..., None], rows, 0.0)
+            return tp.reduce_from(rows).to(self.dtype)
         return self.embedding[ids].to(self.dtype)

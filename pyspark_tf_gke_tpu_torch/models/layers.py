@@ -54,15 +54,29 @@ from pyspark_tf_gke_tpu_torch.ops.layernorm import (fused_layernorm,
                                                     layernorm_plain)
 from pyspark_tf_gke_tpu_torch.ops.quant import Params, QTensor
 
+# the logical axes of a column-parallel (output split) and a
+# row-parallel (input split) kernel: "mlp" goes to tp (LOGICAL_RULES)
+COLUMN = ("embed", "mlp")
+ROW = ("mlp", "embed")
+
 
 class Dense(nn.Module):
+    # set by the trainer on a mesh (parallel/spmd.py): a kernel split on
+    # tp makes this a column- or row-parallel layer
+    spmd = None
+
     def __init__(self, in_features: int, out_features: int,
                  dtype: torch.dtype = torch.float32,
                  param_dtype: Optional[torch.dtype] = None,
-                 use_kernels: bool = True):
+                 use_kernels: bool = True, axes: Optional[tuple] = None):
         super().__init__()
         self.dtype = dtype
         self.use_kernels = use_kernels
+        # the JAX model's logical axes (``_dense``: the bias takes the
+        # kernel's last), read by parallel/sharding.py
+        self.logical_axes = ({"kernel": axes, "bias": (axes[-1],)}
+                             if axes else None)
+        self.features = (in_features, out_features)
         trainable = param_dtype is not None
         store = param_dtype if trainable else dtype
         self.kernel = nn.Parameter(
@@ -91,6 +105,16 @@ class Dense(nn.Module):
 
     def forward(self, x: torch.Tensor, inloop: bool = False) -> torch.Tensor:
         x = x.to(self.dtype)
+        tp = self.spmd.tp if self.spmd is not None else None
+        if tp is not None and self.kernel.shape[0] != self.features[0]:
+            # row-parallel: the ranks' partial products summed, then the
+            # (whole) bias once
+            y = tp.reduce_from(torch.matmul(x, self.kernel.to(self.dtype)))
+            return y + self.bias.to(self.dtype)
+        if tp is not None and self.kernel.shape[1] != self.features[1]:
+            # column-parallel: this rank's output columns; the input's
+            # gradient is summed over the ranks
+            x = tp.copy_to(x)
         if self.kernel_scale is None:
             y = torch.matmul(x, self.kernel.to(self.dtype))
         elif _streams_int8(self, inloop):
@@ -127,6 +151,8 @@ def k6_launches(denses) -> int:
 
 
 class FusedLayerNorm(nn.Module):
+    logical_axes = {"scale": ("norm",), "bias": ("norm",)}
+
     def __init__(self, features: int, epsilon: float = 1e-12,
                  dtype: torch.dtype = torch.float32, use_fused: bool = True,
                  trainable: bool = False):

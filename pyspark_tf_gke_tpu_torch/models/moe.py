@@ -20,7 +20,9 @@ a dense one-hot dispatch, as the JAX layer computes it.
 Parameters keep flax's names and shapes, in f32 whatever the compute
 dtype (trainable when ``trainable``): ``router [H, E]``, ``w_in [E, H,
 I]``, ``b_in [E, I]``, ``w_out [E, I, H]``, ``b_out [E, H]``.
-Expert parallelism (the ``ep`` axis) is P11's.
+Expert parallelism (the ``ep`` axis) is P11b's; on a mesh the trainer
+sets ``spmd``: the experts' hidden units split on ``tp`` and the aux
+loss's means are taken over the whole batch.
 """
 
 from __future__ import annotations
@@ -78,6 +80,13 @@ def route(gates: torch.Tensor, k: int, cap: int
 class MoELayer(nn.Module):
     """``x [B, S, H] -> (out [B, S, H], aux_loss f32)``."""
 
+    logical_axes = {"router": ("embed", "expert"),
+                    "w_in": ("expert", "embed", "mlp"),
+                    "b_in": ("expert", "mlp"),
+                    "w_out": ("expert", "mlp", "embed"),
+                    "b_out": ("expert", "embed")}
+    spmd = None  # set by the trainer on a mesh (parallel/spmd.py)
+
     def __init__(self, num_experts: int, hidden_size: int,
                  intermediate_size: int, top_k: int = 2,
                  capacity_factor: float = 1.25,
@@ -105,13 +114,25 @@ class MoELayer(nn.Module):
         _, s, _ = x.shape
         cap = capacity(self.capacity_factor, self.top_k, s, self.num_experts)
         gates = torch.softmax(x.float() @ self.router, dim=-1)
-        dispatch, combine, aux, _ = route(gates, self.top_k, cap)
+        dispatch, combine, aux, top1 = route(gates, self.top_k, cap)
+        spmd = self.spmd
+        tp = spmd.tp if spmd is not None else None
+        if spmd is not None:
+            # the load-balance terms are means over the whole batch, as
+            # the JAX layer takes them over the global array; capacity
+            # is per row, so the routing itself needs nothing global
+            frac = spmd.mean(top1.mean(dim=(0, 1)))
+            prob = spmd.mean(gates.mean(dim=(0, 1)))
+            aux = self.num_experts * (frac * prob).sum()
         dt = self.dtype
-        xe = torch.einsum("bsec,bsh->ebch", dispatch.to(dt), x.to(dt))
+        xin = tp.copy_to(x) if tp is not None else x
+        xe = torch.einsum("bsec,bsh->ebch", dispatch.to(dt), xin.to(dt))
         hmid = torch.einsum("ebch,ehi->ebci", xe, self.w_in.to(dt))
         hmid = F.gelu(hmid + self.b_in[:, None, None, :].to(dt),
                       approximate="tanh")
         ye = torch.einsum("ebci,eih->ebch", hmid, self.w_out.to(dt))
+        if tp is not None:  # the expert FFN's hidden units split on tp
+            ye = tp.reduce_from(ye)
         ye = ye + self.b_out[:, None, None, :].to(dt)
         out = torch.einsum("bsec,ebch->bsh", combine.to(dt), ye)
         return out.to(x.dtype), aux

@@ -159,12 +159,26 @@ def _param(shape, fill: float = 0.0) -> nn.Parameter:
 # -- norms and convs ----------------------------------------------------------
 
 
-def _moments(xf: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def _moments(xf: torch.Tensor, spmd=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-channel (last axis) mean and biased variance of an f32 tensor,
-    ``E[x^2] - E[x]^2`` clamped at 0, as flax's BatchNorm computes them."""
+    ``E[x^2] - E[x]^2`` clamped at 0, as flax's BatchNorm computes them;
+    on a mesh (``spmd``) over the rows of every data rank."""
     dims = tuple(range(xf.dim() - 1))
+    if spmd is not None:
+        count = xf.numel() // xf.shape[-1]
+        return _global_moments(xf.sum(dims), (xf * xf).sum(dims), count,
+                               spmd)
     mean = xf.mean(dims)
     return mean, torch.clamp_min((xf * xf).mean(dims) - mean * mean, 0.0)
+
+
+def _global_moments(s: torch.Tensor, ss: torch.Tensor, count: int, spmd
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Moments of the whole batch from one rank's per-channel sum and
+    sum of squares over ``count`` rows: both summed over the data group
+    (differentiable; the JAX step takes them over the global array)."""
+    return stats_to_moments(spmd.sum(s), spmd.sum(ss),
+                            count * spmd.data_size)
 
 
 def _update_running(mean_buf: torch.Tensor, var_buf: torch.Tensor,
@@ -179,6 +193,8 @@ class BatchNorm(nn.Module):
     the last axis: f32 ``scale`` / ``bias`` and running ``mean`` / ``var``
     (buffers)."""
 
+    spmd = None  # set by the trainer on a mesh (parallel/spmd.py)
+
     def __init__(self, features: int, dtype: torch.dtype,
                  zero_scale: bool = False):
         super().__init__()
@@ -191,7 +207,7 @@ class BatchNorm(nn.Module):
     def forward(self, x: torch.Tensor, train: bool) -> torch.Tensor:
         xf = x.float()
         if train:
-            mean, var = _moments(xf)
+            mean, var = _moments(xf, self.spmd)
             _update_running(self.mean, self.var, mean, var)
         else:
             mean, var = self.mean, self.var
@@ -380,6 +396,8 @@ class FusedBottleneckBlock(nn.Module):
     materialised relu(norm1), with norm2's moments from one f32
     reduction, as the JAX block's XLA branch has it (``:374-394``)."""
 
+    spmd = None  # set by the trainer on a mesh (parallel/spmd.py)
+
     def __init__(self, cin: int, features: int, stride: int,
                  dtype: torch.dtype, use_kernels: bool = True,
                  pallas_conv3: bool = False):
@@ -403,13 +421,21 @@ class FusedBottleneckBlock(nn.Module):
             self.register_buffer(f"{name}_mean", torch.zeros(dim))
             self.register_buffer(f"{name}_var", torch.ones(dim))
 
-    def _fold(self, name: str, train: bool, moments=None):
-        """moments -> running-average update -> folded ``(a, b)``; eval
-        reads the running statistics (``_fold_stats``, ``:289-310``)."""
+    def _fold(self, name: str, train: bool, moments=None, sums=None):
+        """moments, or a kernel's ``(sum, sumsq, rows)`` -> running-average
+        update -> folded ``(a, b)``; eval reads the running statistics
+        (``_fold_stats``, ``:289-310``). On a mesh the sums are summed
+        over the data ranks here, so the statistics are the whole
+        batch's."""
         ra_mean = getattr(self, f"{name}_mean")
         ra_var = getattr(self, f"{name}_var")
         if train:
-            mean, var = moments
+            if sums is None:
+                mean, var = moments
+            elif self.spmd is not None:
+                mean, var = _global_moments(*sums, self.spmd)
+            else:
+                mean, var = stats_to_moments(*sums)
             _update_running(ra_mean, ra_var, mean, var)
         else:
             mean, var = ra_mean, ra_var
@@ -426,7 +452,7 @@ class FusedBottleneckBlock(nn.Module):
         if train:
             y, s, ss = matmul(x_flat, w.to(self.dtype), a_in, b_in, relu=relu,
                               want_stats=True)
-            a, b = self._fold(name, True, stats_to_moments(s, ss, y.shape[0]))
+            a, b = self._fold(name, True, sums=(s, ss, y.shape[0]))
         else:
             y = matmul(x_flat, w.to(self.dtype), a_in, b_in, relu=relu)
             a, b = self._fold(name, False)
@@ -445,10 +471,10 @@ class FusedBottleneckBlock(nn.Module):
             # its rounded output for norm2
             conv = (conv3_norm_stats if self.use_kernels
                     else conv3_norm_stats_plain)
-            moments = None
+            sums = moments = None
             if train:
                 y2, s2, ss2 = conv(y1, k2, a1, b1, relu=True, want_stats=True)
-                moments = stats_to_moments(s2, ss2, bsz * h * w_)
+                sums = (s2, ss2, bsz * h * w_)
             else:
                 y2 = conv(y1, k2, a1, b1, relu=True)
         else:
@@ -456,8 +482,9 @@ class FusedBottleneckBlock(nn.Module):
             n1 = torch.relu(y1.float() * a1 + b1).to(dt)
             y2 = conv_nhwc(n1, k2, s).contiguous()
             # norm2's moments: one f32 reduction of y2
-            moments = _moments(y2.float()) if train else None
-        a2, b2 = self._fold("norm2", train, moments)
+            sums = None
+            moments = _moments(y2.float(), self.spmd) if train else None
+        a2, b2 = self._fold("norm2", train, moments, sums)
         h2, w2 = y2.shape[1], y2.shape[2]
         # conv3 normalises + relus raw y2 as it reads it
         y3, a3, b3 = self._conv_bn(y2.reshape(-1, f), self.conv3_kernel,

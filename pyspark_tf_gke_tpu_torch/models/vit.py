@@ -64,6 +64,9 @@ class ViTClassifier(nn.Module):
     """``cfg`` gives the encoder's widths, dtype, remat and MoE;
     ``vocab_size`` and ``max_position_embeddings`` are unused."""
 
+    logical_axes = {"cls_token": (None, None, "embed"),
+                    "pos_embedding": (None, None, "embed")}
+
     def __init__(self, cfg: BertConfig, num_classes: int,
                  patch_size: int = 16,
                  image_size: Tuple[int, int] = (224, 224),
@@ -87,7 +90,8 @@ class ViTClassifier(nn.Module):
                 self.add_module(f"layer_{i}", BertLayer(
                     cfg, use_kernels, f32, use_moe=layer_uses_moe(cfg, i)))
             self.ln_final = _norm(cfg, use_kernels, f32)
-            self.head = Dense(hid, num_classes, cfg.dtype, f32)
+            self.head = Dense(hid, num_classes, cfg.dtype, f32,
+                              axes=("embed", None))
 
     def forward(self, images: torch.Tensor) -> Dict[str, torch.Tensor]:
         """``images [B, H, W, 3]`` at ``image_size``."""

@@ -85,6 +85,32 @@ def sp_world(group) -> int:
     return dist.get_world_size(group)
 
 
+class _BroadcastFirst(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        out = x.contiguous().clone()
+        dist.broadcast(out, dist.get_global_rank(group, 0), group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        # the adjoint: every rank's cotangent summed into group rank 0
+        g = g.contiguous().clone()
+        dist.all_reduce(g, group=ctx.group)
+        if dist.get_rank(ctx.group) != 0:
+            g.zero_()
+        return g, None
+
+
+def broadcast_first(x: torch.Tensor, group) -> torch.Tensor:
+    """Group rank 0's ``x`` on every rank of ``group``; differentiable
+    (the cotangents are summed into rank 0, the others get 0). BERT's
+    classifier reads the sequence's first token, which rank 0's
+    sequence block holds."""
+    return _BroadcastFirst.apply(x, group)
+
+
 def _ring_pass(x: torch.Tensor, group, shift: int) -> torch.Tensor:
     """Send ``x`` to group rank ``rank + shift`` and return what rank
     ``rank - shift`` sent (both mod the group size)."""

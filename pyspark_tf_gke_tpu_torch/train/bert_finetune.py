@@ -16,11 +16,15 @@ The input contract is the ETL bridge's: one Example per row with
 first two and masks them, ``data/mlm.py``). The parameters are f32
 master weights computed in ``--compute-dtype``, initialised from a numpy
 generator seeded with ``--seed`` (the JAX package draws from
-``jax.random``). Flags the port does not carry raise
-``NotImplementedError`` naming their ROADMAP item: ``--mesh-shape``,
-``--dcn-mesh-shape`` and ``--num-processes > 1`` (P11: the sp ranks run
-over ``torch.distributed`` in ``ops/attention.py``, but the entry point
-drives one device). ``--num-experts N`` turns every ``--moe-every``-th
+``jax.random``). ``--mesh-shape``, ``--dcn-mesh-shape`` and the process
+flags (one card a process) lay the run out on a ``DeviceMesh``
+(``train/harness.py::setup_mesh``): ``dp``, ``fsdp``, ``tp`` and ``sp``,
+whose ranks each hold one sequence block and run the ring or Ulysses
+attention (``--sp-impl``) over the mesh's ``sp`` axis; ``pp``, ``ep``
+and MoE under ``sp`` raise naming P11b. The batch flags are global:
+every rank reads the shard stream and keeps its rows (and, under
+``sp``, its sequence block) of each global batch. ``--num-experts N``
+turns every ``--moe-every``-th
 FFN into an N-expert MoE (``models/moe.py``, top-2, capacity factor
 1.25, as the JAX CLI builds it); its load-balance loss is the history's
 ``moe_aux_loss``.
@@ -44,10 +48,12 @@ from pyspark_tf_gke_tpu_torch.train.harness import (OPTIMIZERS, finalize_run,
                                                     local_batch_size,
                                                     make_checkpoint,
                                                     make_heartbeat,
-                                                    make_optimizer)
+                                                    make_optimizer,
+                                                    setup_mesh)
 from pyspark_tf_gke_tpu_torch.train.lm_pretrain import _env_bool
 from pyspark_tf_gke_tpu_torch.train.resilience import run_with_recovery
 from pyspark_tf_gke_tpu_torch.train.trainer import TASKS, Trainer
+from pyspark_tf_gke_tpu_torch.utils.config import parse_mesh_shape
 from pyspark_tf_gke_tpu_torch.utils.logging import get_logger
 
 logger = get_logger("train.bert_finetune")
@@ -106,9 +112,10 @@ def parse_args(argv=None) -> argparse.Namespace:
                    default=float(e("GRAD_CLIP_NORM", "0.0")))
     p.add_argument("--seed", type=int, default=int(e("SEED", "1337")))
     p.add_argument("--mesh-shape", default=e("MESH_SHAPE", ""),
-                   help="not ported (one device)")
+                   help='e.g. "dp=2,sp=2"; empty: every rank on dp')
     p.add_argument("--dcn-mesh-shape", default=e("DCN_MESH_SHAPE", ""),
-                   help="not ported (one device)")
+                   help="axes across nodes; --mesh-shape then gives the "
+                        "axes within a node")
     p.add_argument("--output-dir", default=e("OUTPUT_DIR", "./bert-finetune"))
     p.add_argument("--checkpoint-every-steps", type=int,
                    default=int(e("CHECKPOINT_EVERY_STEPS", "0")))
@@ -137,21 +144,6 @@ def parse_args(argv=None) -> argparse.Namespace:
     return p.parse_args(argv)
 
 
-def _refuse_unported(args: argparse.Namespace) -> None:
-    """Flags the port does not carry raise instead of being ignored."""
-    unported = (
-        (args.mesh_shape, "--mesh-shape", "P11 (parallelism)"),
-        (args.dcn_mesh_shape, "--dcn-mesh-shape", "P11 (parallelism)"),
-        (args.num_processes > 1, "--num-processes > 1",
-         "P11 (multi-process training)"),
-    )
-    for bad, flag, item in unported:
-        if bad:
-            raise NotImplementedError(
-                f"{flag} is not ported to pyspark_tf_gke_tpu_torch "
-                f"(ROADMAP, {item})")
-
-
 def shard_schema(seq_len: int) -> dict:
     """The ETL-bridge contract for sequence-classification shards."""
     return {
@@ -165,8 +157,17 @@ def main(argv=None) -> dict:
     args = parse_args(argv)
     if not args.data_pattern:
         raise SystemExit("--data-pattern is required (glob of TFRecord shards)")
-    _refuse_unported(args)
-    device = resolve_device(args.device)
+    resolve_device(args.device)  # raises before any world or data
+    if args.num_experts and parse_mesh_shape(args.mesh_shape).get("sp", 1) > 1:
+        raise NotImplementedError(
+            "--num-experts under sp > 1 is not ported to "
+            "pyspark_tf_gke_tpu_torch yet (ROADMAP, P11b): the capacity and "
+            "the aux loss's means are global over the sequence")
+    mesh = setup_mesh(args.mesh_shape, args.dcn_mesh_shape,
+                      args.num_processes, args.process_id,
+                      args.coordinator_addr, args.coordinator_port,
+                      args.device, sp_ok=True)
+    device = resolve_device(args.device)  # this rank's card
     logger.info("BERT fine-tune: %s on %s", args.data_pattern, device)
 
     cfg = BertConfig(
@@ -194,8 +195,11 @@ def main(argv=None) -> dict:
         total_steps=args.epochs * args.steps_per_epoch,
         warmup_steps=args.warmup_steps, optimizer=args.optimizer,
         weight_decay=args.weight_decay, grad_clip_norm=args.grad_clip_norm)
-    trainer = Trainer(model, task, tx=tx, ema_decay=args.ema_decay)
-    local_bs = local_batch_size(args.batch_size)
+    n_params = sum(p.numel() for p in model.parameters())
+    trainer = Trainer(model, task, tx=tx, ema_decay=args.ema_decay,
+                      mesh=mesh)
+    local_batch_size(args.batch_size, mesh)  # divides over the data shards
+    local_bs = args.batch_size  # every rank reads the global stream
 
     def batches():
         schema = shard_schema(args.seq_len)
@@ -213,7 +217,6 @@ def main(argv=None) -> dict:
                    "labels": raw["label"].reshape(-1)}
 
     state = trainer.init_state()
-    n_params = sum(p.numel() for p in state.params.values())
     logger.info("Model: %d params (%.1fM), device=%s", n_params,
                 n_params / 1e6, device)
 

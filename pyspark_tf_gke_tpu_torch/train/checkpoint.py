@@ -23,6 +23,14 @@ chaos fires inside the retried closure) and emit ``checkpoint_saved``
 or ``checkpoint_scheduled``; a restore retries too (``checkpoint.
 restore``) but not a missing checkpoint. The JAX package's orbax
 checkpoints are not read.
+
+On a mesh (``state.spmd``) every rank gathers its shards into the full
+tensors (a collective), and rank 0 alone writes them: the file is the
+one a one-device run writes, sync or async, local or ``memory://``, as
+the JAX package's process 0 writes. A restore reads the full state on
+every rank and keeps each rank's shards, so a checkpoint resumes onto
+any mesh, or onto none. ``history.json``, the label map and the run
+notes are rank 0's.
 """
 
 from __future__ import annotations
@@ -32,7 +40,8 @@ import json
 import os
 import shutil
 import threading
-from typing import Any, Dict, List, Optional, Tuple
+import types
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
@@ -85,6 +94,44 @@ class _HostCopy:
         if self.ready is not None:
             self.ready.record()  # after every copy, on the current stream
         return tree
+
+
+def is_writer() -> bool:
+    """Rank 0 of a world, or the only process."""
+    import torch.distributed as dist
+
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
+def _map_tree(tree: dict, spmd, fn: Callable) -> dict:
+    """``tree`` (the saved layout) with every parameter-shaped tensor
+    passed through ``fn(tensor, name, drop)``; ``drop`` is the leaf
+    dimension an Adafactor ``v_row`` / ``v_col`` was reduced over.
+    BatchNorm statistics are whole on every rank."""
+    from pyspark_tf_gke_tpu_torch.train.harness import _factored_dims
+
+    def leaves(sub, key=None):
+        if sub is None:
+            return None
+        out = {}
+        for name, t in sub.items():
+            drop = None
+            if key in ("v_row", "v_col"):
+                d1, d0 = _factored_dims(spmd.shapes[name])
+                drop = d0 if key == "v_row" else d1
+            out[name] = fn(t, name, drop)
+        return out
+
+    opt = {key: leaves(val, key) if isinstance(val, dict) else val
+           for key, val in tree["opt_state"].items()}
+    return {**tree, "params": leaves(tree["params"]), "opt_state": opt,
+            "ema_params": leaves(tree["ema_params"])}
+
+
+def _state_tree(state) -> dict:
+    return {"step": int(state.step), "params": state.params,
+            "opt_state": state.opt_state, "ema_params": state.ema_params,
+            "batch_stats": state.batch_stats}
 
 
 def _copy_into(dst, src, where: str):
@@ -189,7 +236,9 @@ class CheckpointManager:
                 shutil.rmtree(self._step_path(old), ignore_errors=True)
 
     def _write_history(self, history: Dict) -> None:
-        fs_write_text(f"{self.directory}/history.json", json.dumps(history))
+        if is_writer():
+            fs_write_text(f"{self.directory}/history.json",
+                          json.dumps(history))
 
     # -- saves -------------------------------------------------------------
 
@@ -220,6 +269,12 @@ class CheckpointManager:
             self._write_history(self._pending_history)
             self._pending_history = None
         step = int(state.step)
+        if getattr(state, "spmd", None) is not None:
+            # every rank gathers (a collective); rank 0 writes
+            state = types.SimpleNamespace(**_map_tree(
+                _state_tree(state), state.spmd, state.spmd.full))
+            if not is_writer():
+                return
         # a retry overwrites: the failed attempt may have left a step
         attempt_force = {"force": force}
 
@@ -272,7 +327,15 @@ class CheckpointManager:
         save (called at epoch boundaries)."""
         if not self.every_steps:
             return
-        if int(state.step) - (self.latest_step() or 0) >= self.every_steps:
+        due = int(state.step) - (self.latest_step() or 0) >= self.every_steps
+        if getattr(state, "spmd", None) is not None:
+            # rank 0 sees its own save in flight: its answer holds
+            import torch.distributed as dist
+
+            flag = [due]
+            dist.broadcast_object_list(flag, src=0)
+            due = flag[0]
+        if due:
             self.save(state, history)
 
     def read(self, step: Optional[int] = None) -> Tuple[int, dict]:
@@ -304,6 +367,9 @@ class CheckpointManager:
         """Load ``step`` (default the latest) into ``state`` in place and
         return it."""
         step, saved = self.read(step)
+        spmd = getattr(state, "spmd", None)
+        if spmd is not None:  # this rank's shards of the full state
+            saved = _map_tree(saved, spmd, spmd.shard)
         _copy_into(state.params, saved["params"], "params")
         state.opt_state = _copy_into(state.opt_state, saved["opt_state"],
                                      "opt_state")
@@ -328,14 +394,19 @@ class CheckpointManager:
 
 
 def save_history(output_dir: str, history: Dict) -> str:
-    """``history.json`` (Keras-History-compatible)."""
-    return fs_write_text(os.path.join(output_dir, "history.json"),
-                         json.dumps(history))
+    """``history.json`` (Keras-History-compatible; rank 0's)."""
+    path = os.path.join(output_dir, "history.json")
+    if is_writer():
+        fs_write_text(path, json.dumps(history))
+    return path
 
 
 def save_label_map(output_dir: str, vocab) -> str:
-    """``label_map.json``, the reference's format: ``{index: label}``."""
-    return fs_write_text(
-        os.path.join(output_dir, "label_map.json"),
-        json.dumps({int(i): s for i, s in enumerate(vocab)},
-                   ensure_ascii=False, indent=2))
+    """``label_map.json``, the reference's format: ``{index: label}``
+    (rank 0's)."""
+    path = os.path.join(output_dir, "label_map.json")
+    if is_writer():
+        fs_write_text(path, json.dumps(
+            {int(i): s for i, s in enumerate(vocab)}, ensure_ascii=False,
+            indent=2))
+    return path

@@ -20,8 +20,13 @@ microbatches it consumed. ``--max-restarts N`` re-enters a failed run
 with resume, and ``--fail-at-steps`` injects faults (one injector across
 attempts, so a replayed step passes). ``--profile-dir`` writes a
 ``torch.profiler`` Chrome trace of the run (``trace.json``). The run is
-on ``cuda`` unless ``--device cpu``; the options that need several
-processes or devices raise (``utils/config.py::refuse_unported``, P11).
+on ``cuda`` unless ``--device cpu``. ``--mesh-shape``,
+``--dcn-mesh-shape`` and ``--num-processes`` (one card a process) lay
+the run out on a ``DeviceMesh`` (``train/harness.py::setup_mesh``;
+``dp``, ``fsdp`` and ``tp`` run, the rest raise naming P11b). The batch
+flags are global: every rank reads every row and keeps its rows of each
+global batch, so a mesh run sees the one-process run's batches; rank 0
+writes the artifacts.
 The weights start where the JAX CLI's start for the same ``--seed``:
 ``model.init(jax.random.key(seed), x)``'s parameters, replayed bit for
 bit in numpy (``utils/seeding.jax_init_params``).
@@ -40,7 +45,7 @@ import torch
 from pyspark_tf_gke_tpu_torch.data.csv_loader import load_csv
 from pyspark_tf_gke_tpu_torch.data.images import (list_labeled_images,
                                                   make_image_arrays)
-from pyspark_tf_gke_tpu_torch.data.pipeline import (BatchIterator, host_shard,
+from pyspark_tf_gke_tpu_torch.data.pipeline import (BatchIterator,
                                                     train_validation_split)
 from pyspark_tf_gke_tpu_torch.device import resolve_device
 from pyspark_tf_gke_tpu_torch.models import build_model
@@ -49,12 +54,12 @@ from pyspark_tf_gke_tpu_torch.train.harness import (finalize_run,
                                                     local_batch_size,
                                                     make_checkpoint,
                                                     make_heartbeat,
-                                                    make_optimizer)
+                                                    make_optimizer,
+                                                    setup_mesh)
 from pyspark_tf_gke_tpu_torch.train.resilience import (FaultInjector,
                                                        run_with_recovery)
 from pyspark_tf_gke_tpu_torch.train.trainer import TASKS, Trainer
-from pyspark_tf_gke_tpu_torch.utils.config import (Config, parse_args,
-                                                   refuse_unported)
+from pyspark_tf_gke_tpu_torch.utils.config import Config, parse_args
 from pyspark_tf_gke_tpu_torch.utils.logging import get_logger
 
 logger = get_logger("train.cli")
@@ -112,7 +117,8 @@ def _train(cfg: Config, trainer: Trainer, train_iter: BatchIterator,
 
 
 def run_csv_training(cfg: Config,
-                     fault_injector: Optional[FaultInjector] = None) -> dict:
+                     fault_injector: Optional[FaultInjector] = None,
+                     mesh=None) -> dict:
     logger.info("CSV training: %s", cfg.data_path)
     X, y, vocab = load_csv(cfg.data_path)
     num_classes = int(np.max(y)) + 1
@@ -120,7 +126,7 @@ def run_csv_training(cfg: Config,
 
     train_idx, val_idx = train_validation_split(len(X), cfg.validation_split,
                                                 cfg.seed)
-    Xt, yt = host_shard(X[train_idx], y[train_idx])
+    Xt, yt = X[train_idx], y[train_idx]
     Xv, yv = X[val_idx], y[val_idx]
 
     if cfg.model not in ("", "mlp"):
@@ -128,8 +134,8 @@ def run_csv_training(cfg: Config,
             f"CSV mode trains the MLP classifier; got --model {cfg.model}. "
             "ResNet/BERT workloads have dedicated entry points.")
 
-    train_iter = BatchIterator({"x": Xt, "y": yt},
-                               local_batch_size(cfg.batch_size),
+    local_batch_size(cfg.batch_size, mesh)  # divides over the data shards
+    train_iter = BatchIterator({"x": Xt, "y": yt}, cfg.batch_size,
                                seed=cfg.seed)
     steps = cfg.steps_per_epoch or train_iter.steps_per_epoch
     # an optimizer step takes grad_accum microbatches: one epoch stays one
@@ -138,13 +144,15 @@ def run_csv_training(cfg: Config,
 
     model = build_model("mlp", num_classes=num_classes, input_dim=X.shape[1],
                         device=cfg.device, seed=cfg.seed)
-    trainer = Trainer(model, TASKS["classification"](), tx=_tx(cfg, steps))
+    trainer = Trainer(model, TASKS["classification"](), tx=_tx(cfg, steps),
+                      mesh=mesh, fsdp_min_size=cfg.fsdp_min_size)
     return _train(cfg, trainer, train_iter, steps, {"x": Xv, "y": yv}, "mlp",
                   fault_injector)
 
 
 def run_image_training(cfg: Config,
-                       fault_injector: Optional[FaultInjector] = None) -> dict:
+                       fault_injector: Optional[FaultInjector] = None,
+                       mesh=None) -> dict:
     logger.info("Image training: %s", cfg.data_path)
     filepaths, _ = list_labeled_images(cfg.data_path)
     train_idx, val_idx = train_validation_split(
@@ -152,11 +160,9 @@ def run_image_training(cfg: Config,
     size = (cfg.img_height, cfg.img_width)
     images_t, targets_t = make_image_arrays(cfg.data_path, size, train_idx)
     images_v, targets_v = make_image_arrays(cfg.data_path, size, val_idx)
-    images_t, targets_t = host_shard(images_t, targets_t)
-
+    local_batch_size(cfg.batch_size, mesh)  # divides over the data shards
     train_iter = BatchIterator({"image": images_t, "target": targets_t},
-                               local_batch_size(cfg.batch_size),
-                               seed=cfg.seed)
+                               cfg.batch_size, seed=cfg.seed)
     steps = cfg.steps_per_epoch or train_iter.steps_per_epoch
     steps = -(-steps // cfg.grad_accum_steps)
 
@@ -167,7 +173,8 @@ def run_image_training(cfg: Config,
     model = build_model("cnn", flat=cfg.flat_layer,
                         dtype=_dtype(cfg.compute_dtype), image_size=size,
                         device=cfg.device, seed=cfg.seed)
-    trainer = Trainer(model, TASKS["regression"](), tx=_tx(cfg, steps))
+    trainer = Trainer(model, TASKS["regression"](), tx=_tx(cfg, steps),
+                      mesh=mesh, fsdp_min_size=cfg.fsdp_min_size)
     return _train(cfg, trainer, train_iter, steps,
                   {"image": images_v, "target": targets_v},
                   "cnn-b1" if cfg.flat_layer else "cnn-a1", fault_injector)
@@ -200,8 +207,11 @@ def _profiled(profile_dir: str, device: torch.device):
 
 def main(argv: Optional[list] = None) -> dict:
     cfg = parse_args(argv)
-    refuse_unported(cfg)
-    device = resolve_device(cfg.device)  # raises before any data is read
+    resolve_device(cfg.device)  # raises before any world or data
+    mesh = setup_mesh(cfg.mesh_shape, cfg.dcn_mesh_shape, cfg.num_processes,
+                      cfg.process_id, cfg.coordinator_addr,
+                      cfg.coordinator_port, cfg.device)
+    device = resolve_device(cfg.device)  # this rank's card
     # one injector across attempts: each injected step fires once, so the
     # replay of that step after the resume goes through
     fault_injector = FaultInjector.from_spec(cfg.fail_at_steps)
@@ -213,8 +223,8 @@ def main(argv: Optional[list] = None) -> dict:
             logger.warning("Restart %d: resuming from latest checkpoint",
                            attempt)
         if is_image_mode:
-            return run_image_training(run_cfg, fault_injector)
-        return run_csv_training(run_cfg, fault_injector)
+            return run_image_training(run_cfg, fault_injector, mesh)
+        return run_csv_training(run_cfg, fault_injector, mesh)
 
     with _profiled(cfg.profile_dir, device):
         return run_with_recovery(attempt_run, max_restarts=cfg.max_restarts)

@@ -42,6 +42,16 @@ updated at its flax shape under its flax path (``models/layers.py``),
 never fused or reshaped. The updates run as multi-tensor
 (``torch._foreach_*``) operations where the rule is elementwise and per
 leaf otherwise, in place, with no host synchronisation.
+
+On a mesh (``Optimizer.spmd``, set by the trainer) each rank steps its
+shards of the parameters and of the state (``parallel/spmd.py``). The
+elementwise rules need nothing more; every reduction over a leaf is
+taken over the whole leaf, never over a rank's shard: the global norm
+of the clip and LAMB's trust-ratio norms sum each shard's squares over
+the world (a shard held by ``k`` ranks counted ``1/k`` times each), and
+Adafactor's factored row and column means, its update's RMS and its
+parameter RMS sum over the groups that split the leaf. Adafactor picks
+its factored dimensions from the whole leaf's shape.
 """
 
 from __future__ import annotations
@@ -53,6 +63,7 @@ import numpy as np
 import torch
 
 from pyspark_tf_gke_tpu_torch.train.checkpoint import (CheckpointManager,
+                                                       is_writer,
                                                        save_history)
 from pyspark_tf_gke_tpu_torch.train.resilience import Heartbeat
 from pyspark_tf_gke_tpu_torch.utils.fs import fs_write_text, is_remote
@@ -114,6 +125,29 @@ def _rms(t: torch.Tensor) -> torch.Tensor:
     return torch.sqrt(torch.mean(t * t))
 
 
+def _leaf_rms(t: torch.Tensor, layout) -> torch.Tensor:
+    """RMS of the whole leaf whose shard ``t`` is (``layout``: where the
+    shard sits, ``parallel/spmd.LeafLayout``; None: ``t`` is whole)."""
+    groups = [g for g in (layout.groups if layout else ()) if g is not None]
+    if not groups:
+        return _rms(t)
+    s = (t * t).sum()
+    for group in groups:
+        torch.distributed.all_reduce(s, group=group)
+    return torch.sqrt(s / float(np.prod(layout.shape)))
+
+
+def _dim_mean(t: torch.Tensor, dim: int, layout,
+              keepdim: bool = False) -> torch.Tensor:
+    """The mean over ``dim`` of the whole leaf whose shard ``t`` is."""
+    group = layout.groups[dim] if layout else None
+    if group is None:
+        return t.mean(dim=dim, keepdim=keepdim)
+    s = t.sum(dim=dim, keepdim=keepdim)
+    torch.distributed.all_reduce(s, group=group)
+    return s / layout.shape[dim]
+
+
 class Optimizer:
     """An optax-like gradient transformation over named tensors:
     ``init(params) -> state`` and ``update(grads, state, params)``,
@@ -134,6 +168,21 @@ class Optimizer:
         self.weight_decay = weight_decay
         self.momentum = momentum
         self.grad_clip_norm = grad_clip_norm
+        self.spmd = None  # parallel.spmd.Spmd on a mesh
+
+    def _layout(self, name: str):
+        return self.spmd.layout(name) if self.spmd is not None else None
+
+    def _leaf_norms(self, names, ts: List[torch.Tensor]) -> torch.Tensor:
+        """The L2 norm of each whole leaf."""
+        norms = torch.stack(torch._foreach_norm(ts))
+        if self.spmd is None:
+            return norms
+        reps = torch.tensor([self.spmd.layout(k).replicas for k in names],
+                            dtype=norms.dtype, device=norms.device)
+        sq = norms * norms / reps
+        torch.distributed.all_reduce(sq)
+        return torch.sqrt(sq)
 
     def init(self, params: Dict[str, torch.Tensor]) -> dict:
         zeros = lambda dtype=None: {  # noqa: E731
@@ -145,7 +194,7 @@ class Optimizer:
         if self.kind == "adafactor":
             state = {"count": 0, "v_row": {}, "v_col": {}, "v": {}}
             for k, p in params.items():
-                dims = _factored_dims(tuple(p.shape))
+                dims = _factored_dims(self.leaf_shape(k, p))
                 if dims is None:
                     state["v"][k] = torch.zeros_like(p)
                     continue
@@ -155,8 +204,13 @@ class Optimizer:
             return state
         return {"count": 0}
 
-    def _clip(self, g: List[torch.Tensor]) -> List[torch.Tensor]:
-        norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(g)))
+    def leaf_shape(self, name: str, p: torch.Tensor) -> Tuple[int, ...]:
+        """The whole leaf's shape (``p`` may be a shard of it)."""
+        layout = self._layout(name)
+        return layout.shape if layout is not None else tuple(p.shape)
+
+    def _clip(self, names, g: List[torch.Tensor]) -> List[torch.Tensor]:
+        norm = torch.linalg.vector_norm(self._leaf_norms(names, g))
         keep = norm < self.grad_clip_norm
         one = torch.ones((), dtype=norm.dtype, device=norm.device)
         denom = torch.where(keep, one, norm)
@@ -170,7 +224,7 @@ class Optimizer:
         p = [params[k] for k in names]
         g = [grads[k] for k in names]
         if self.grad_clip_norm > 0:
-            g = self._clip(g)
+            g = self._clip(names, g)
         lr = self.lr(state["count"])  # optax reads the schedule first
         count = state["count"] + 1
         if self.kind in ("adam", "adamw", "lamb"):
@@ -178,7 +232,7 @@ class Optimizer:
             if self.kind != "adam" and self.weight_decay:
                 self._decay(upd, p, self.weight_decay)
             if self.kind == "lamb":
-                self._trust_ratio(upd, p)
+                self._trust_ratio(names, upd, p)
         elif self.kind == "adafactor":
             upd = self._adafactor(names, g, p, state, lr)
             if self.weight_decay:
@@ -225,12 +279,11 @@ class Optimizer:
         torch._foreach_add_([upd[i] for i in idx], [p[i] for i in idx],
                             alpha=weight_decay)
 
-    @staticmethod
-    def _trust_ratio(upd, p) -> None:
+    def _trust_ratio(self, names, upd, p) -> None:
         """``scale_by_trust_ratio``: each leaf times ``||p|| / ||u||``,
         or 1 where either norm is 0."""
-        p_norm = torch.stack(torch._foreach_norm(p))
-        u_norm = torch.stack(torch._foreach_norm(upd))
+        p_norm = self._leaf_norms(names, p)
+        u_norm = self._leaf_norms(names, upd)
         ratio = torch.where((p_norm == 0) | (u_norm == 0),
                             torch.ones_like(p_norm), p_norm / u_norm)
         torch._foreach_mul_(upd, list(ratio.unbind()))
@@ -244,7 +297,8 @@ class Optimizer:
         out = []
         for k, gi, pi in zip(names, g, p):
             g2 = gi * gi + ADAFACTOR_EPS
-            dims = _factored_dims(tuple(pi.shape))
+            layout = self._layout(k)
+            dims = _factored_dims(self.leaf_shape(k, pi))
             if dims is None:
                 v = state["v"][k]
                 v.mul_(decay).add_(g2, alpha=1.0 - decay)
@@ -252,14 +306,19 @@ class Optimizer:
             else:
                 d1, d0 = dims
                 v_row, v_col = state["v_row"][k], state["v_col"][k]
-                v_row.mul_(decay).add_(g2.mean(dim=d0), alpha=1.0 - decay)
-                v_col.mul_(decay).add_(g2.mean(dim=d1), alpha=1.0 - decay)
+                v_row.mul_(decay).add_(_dim_mean(g2, d0, layout),
+                                       alpha=1.0 - decay)
+                v_col.mul_(decay).add_(_dim_mean(g2, d1, layout),
+                                       alpha=1.0 - decay)
                 rd1 = d1 - 1 if d1 > d0 else d1
-                row = torch.rsqrt(v_row / v_row.mean(dim=rd1, keepdim=True))
+                row_mean = _dim_mean(v_row, rd1, layout and layout.drop(d0),
+                                     keepdim=True)
+                row = torch.rsqrt(v_row / row_mean)
                 u = (gi * row.unsqueeze(d0)) * torch.rsqrt(v_col).unsqueeze(
                     d1)
-            u = u / torch.clamp_min(_rms(u) / ADAFACTOR_CLIP, 1.0)
-            out.append(u * lr * torch.clamp_min(_rms(pi),
+            u = u / torch.clamp_min(_leaf_rms(u, layout) / ADAFACTOR_CLIP,
+                                    1.0)
+            out.append(u * lr * torch.clamp_min(_leaf_rms(pi, layout),
                                                  ADAFACTOR_MIN_SCALE))
         return out
 
@@ -309,10 +368,44 @@ def make_optimizer(learning_rate: float, schedule: str = "constant",
                      eps=eps, mu_dtype=mu_dtype)
 
 
-def local_batch_size(global_batch: int) -> int:
-    """Per-process batch from the GLOBAL batch size: all of it, in the
-    one process the port runs (multi-process training: ROADMAP, P11)."""
-    return global_batch
+def local_batch_size(global_batch: int, mesh=None) -> int:
+    """Per-rank batch from the GLOBAL batch size: its share of the data
+    shards of ``mesh`` (all of it with no mesh). Batch flags are global;
+    each rank reads the global batch and keeps its rows
+    (``Trainer.local_batch``), so the data order is the one-process run's."""
+    if mesh is None:
+        return global_batch
+    from pyspark_tf_gke_tpu_torch.parallel.mesh import mesh_sizes
+
+    sizes = mesh_sizes(mesh)
+    shards = sizes["dp"] * sizes["fsdp"]
+    if global_batch % shards:
+        raise ValueError(f"global batch {global_batch} not divisible by "
+                         f"{shards} data shards")
+    return global_batch // shards
+
+
+def setup_mesh(mesh_shape: str = "", dcn_mesh_shape: str = "",
+               num_processes: int = 1, process_id: int = -1,
+               coordinator_addr: str = "", coordinator_port: int = 8476,
+               device="cuda", sp_ok: bool = False):
+    """Join the world of ``num_processes`` ranks and make the mesh the
+    flags ask for (``mesh_from_spec``), as the JAX CLIs do; ``None``
+    (the one-device path) for one process with no mesh flags. Raises for
+    the axes not ported yet (``refuse_unported_axes``)."""
+    from pyspark_tf_gke_tpu_torch.parallel.distributed import (
+        initialize_distributed)
+    from pyspark_tf_gke_tpu_torch.parallel.mesh import mesh_from_spec
+    from pyspark_tf_gke_tpu_torch.utils.config import (parse_mesh_shape,
+                                                       refuse_unported_axes)
+
+    ici, dcn = parse_mesh_shape(mesh_shape), parse_mesh_shape(dcn_mesh_shape)
+    refuse_unported_axes(ici, dcn, sp_ok)
+    initialize_distributed(num_processes, process_id, coordinator_addr,
+                           coordinator_port, device=device)
+    if not (ici or dcn or num_processes > 1):
+        return None
+    return mesh_from_spec(ici, dcn, device)
 
 
 def make_checkpoint(output_dir: str, every_steps: int, state, resume: bool,
@@ -340,18 +433,25 @@ def save_run_notes(output_dir: str, model_name: str, state,
     """``<model_name>.txt``: parameter count and size, device, final
     step and final metrics."""
     path = os.path.join(output_dir, f"{model_name}.txt")
-    leaves = list(state.params.values())
-    n_params = sum(t.numel() for t in leaves)
-    n_bytes = sum(t.numel() * t.element_size() for t in leaves)
-    device = leaves[0].device
+    if not is_writer():
+        return path
+    leaves = list(state.params.items())
+    spmd = getattr(state, "spmd", None)
+    sizes = [int(np.prod(spmd.shapes[k])) if spmd is not None
+             else t.numel() for k, t in leaves]
+    n_params = sum(sizes)
+    n_bytes = sum(n * t.element_size() for n, (_, t) in zip(sizes, leaves))
+    device = leaves[0][1].device
     kind = (f" ({torch.cuda.get_device_name(device)})"
             if device.type == "cuda" else "")
+    ranks = (torch.distributed.get_world_size()
+             if torch.distributed.is_initialized() else 1)
     lines = [
         f"model: {model_name}",
         f"total params: {n_params:,}",
         f"size: {n_bytes / (1 << 20):.2f} MB",
-        f"devices: 1x {device.type}{kind}",
-        "processes: 1",
+        f"devices: {ranks}x {device.type}{kind}",
+        f"processes: {ranks}",
         f"final step: {state.step}",
         f"epochs recorded: {len(history.get('loss', []))}",
     ]

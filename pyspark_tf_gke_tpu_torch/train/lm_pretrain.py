@@ -21,11 +21,17 @@ enabled, int8 unless ``--export-dense``). It runs on ``cuda`` unless
 The parameters are f32 master weights computed in ``--compute-dtype``,
 initialised from a numpy generator seeded with ``--seed`` (the JAX
 package draws from ``jax.random``, so the two start from different
-numbers). Flags the port does not carry raise ``NotImplementedError``
-naming their ROADMAP item: ``--mesh-shape``, ``--dcn-mesh-shape`` and
-``--num-processes > 1`` (P11: data parallelism over several cards), and
-a ``--tokenizer`` that is neither ``byte`` nor a local Hugging Face
-directory (a hub name would need a download).
+numbers). ``--mesh-shape``, ``--dcn-mesh-shape`` and the process
+flags (one card a process) lay the run out on a ``DeviceMesh``
+(``train/harness.py::setup_mesh``: ``dp``, ``fsdp`` and ``tp``; ``pp``,
+``ep`` and ``sp`` raise naming P11b). The batch flags are global: every
+rank reads the training stream and keeps its rows of each global
+batch. The eval files are split over the data shards as the JAX entry
+point splits them over its processes (``len(files)`` must divide
+evenly): each rank reads its stripe in batches of its share of
+``--batch-size``. A ``--tokenizer`` that is neither ``byte`` nor a
+local Hugging Face directory raises ``NotImplementedError`` (a hub name
+would need a download).
 """
 
 from __future__ import annotations
@@ -45,11 +51,13 @@ from pyspark_tf_gke_tpu_torch.etl.text_bridge import validate_shard_meta
 from pyspark_tf_gke_tpu_torch.models.causal_lm import (CausalLM,
                                                        CausalLMConfig,
                                                        init_params)
+from pyspark_tf_gke_tpu_torch.train.checkpoint import is_writer
 from pyspark_tf_gke_tpu_torch.train.harness import (OPTIMIZERS, finalize_run,
                                                     local_batch_size,
                                                     make_checkpoint,
                                                     make_heartbeat,
-                                                    make_optimizer)
+                                                    make_optimizer,
+                                                    setup_mesh)
 from pyspark_tf_gke_tpu_torch.train.resilience import run_with_recovery
 from pyspark_tf_gke_tpu_torch.train.trainer import TASKS, Trainer
 from pyspark_tf_gke_tpu_torch.utils.fs import fs_glob
@@ -142,9 +150,10 @@ def parse_args(argv=None) -> argparse.Namespace:
                    help="skip int8 quantization in the exported bundle")
     p.add_argument("--seed", type=int, default=int(e("SEED", "1337")))
     p.add_argument("--mesh-shape", default=e("MESH_SHAPE", ""),
-                   help="not ported (P11: one device)")
+                   help='e.g. "fsdp=2,tp=2"; empty: every rank on dp')
     p.add_argument("--dcn-mesh-shape", default=e("DCN_MESH_SHAPE", ""),
-                   help="not ported (P11: one device)")
+                   help="axes across nodes; --mesh-shape then gives the "
+                        "axes within a node")
     p.add_argument("--output-dir", default=e("OUTPUT_DIR", "./lm-pretrain"))
     p.add_argument("--checkpoint-every-steps", type=int,
                    default=int(e("CHECKPOINT_EVERY_STEPS", "0")))
@@ -176,10 +185,6 @@ def parse_args(argv=None) -> argparse.Namespace:
 def _refuse_unported(args: argparse.Namespace) -> None:
     """Flags the port does not carry raise instead of being ignored."""
     unported = (
-        (args.mesh_shape, "--mesh-shape", "P11 (parallelism)"),
-        (args.dcn_mesh_shape, "--dcn-mesh-shape", "P11 (parallelism)"),
-        (args.num_processes > 1, "--num-processes > 1",
-         "P11 (data parallelism over several cards)"),
         (args.tokenizer not in ("", "byte")
          and not os.path.isdir(args.tokenizer),
          f"--tokenizer {args.tokenizer} (a hub name: only local "
@@ -223,7 +228,12 @@ def main(argv=None) -> dict:
                          "(token shards carry no segment ids)")
     _resolve_arch(args)
     _refuse_unported(args)
-    device = resolve_device(args.device)
+    resolve_device(args.device)  # raises before any world or data
+    mesh = setup_mesh(args.mesh_shape, args.dcn_mesh_shape,
+                      args.num_processes, args.process_id,
+                      args.coordinator_addr, args.coordinator_port,
+                      args.device)
+    device = resolve_device(args.device)  # this rank's card
     logger.info("Causal-LM pretraining: %s on %s", args.data_pattern, device)
 
     tokenizer = get_tokenizer(args.tokenizer)
@@ -246,14 +256,21 @@ def main(argv=None) -> dict:
     with torch.device(device):
         model = CausalLM(cfg, param_dtype=torch.float32)
     model.load_params(init_params(cfg, seed=args.seed))
+    n_params = sum(p.numel() for p in model.parameters())
     tx = make_optimizer(
         args.learning_rate, schedule=args.lr_schedule,
         total_steps=args.epochs * args.steps_per_epoch,
         warmup_steps=args.warmup_steps, optimizer=args.optimizer,
         weight_decay=args.weight_decay, grad_clip_norm=args.grad_clip_norm)
     task = TASKS["causal_lm"](vocab_chunks=args.vocab_chunks or None)
-    trainer = Trainer(model, task, tx=tx, ema_decay=args.ema_decay)
-    local_bs = local_batch_size(args.batch_size)
+    trainer = Trainer(model, task, tx=tx, ema_decay=args.ema_decay,
+                      mesh=mesh)
+    local_bs = args.batch_size  # every rank reads the global stream
+    # the eval stripes: one a data shard, each its share of the batch
+    shard_index, shard_count = ((trainer.spmd.batch_index,
+                                 trainer.spmd.batch_count)
+                                if mesh is not None else (0, 1))
+    eval_bs = local_batch_size(args.batch_size, mesh)
 
     def batches():
         if args.data_format == "tokens":
@@ -270,10 +287,19 @@ def main(argv=None) -> dict:
 
     val_batches = None
     if args.eval_pattern:
-        if not fs_glob(args.eval_pattern):
+        eval_files = fs_glob(args.eval_pattern)
+        if not eval_files:
             # fail a typo'd eval path at startup, not after epoch 1
             raise SystemExit(f"--eval-pattern matches no files: "
                              f"{args.eval_pattern!r}")
+        if len(eval_files) % shard_count:
+            # each data shard evaluates its stripe in collective steps:
+            # uneven stripes would desynchronise them (the JAX rule)
+            raise SystemExit(
+                f"--eval-pattern matched {len(eval_files)} files, which "
+                f"does not divide evenly across {shard_count} data "
+                "shards; repack the eval set so every shard gets the "
+                "same number of files.")
 
         def val_batches():
             # a fresh unshuffled pass each epoch, capped at
@@ -282,8 +308,10 @@ def main(argv=None) -> dict:
                 try:
                     yield from itertools.islice(
                         lm_batches(args.eval_pattern, tokenizer, args.seq_len,
-                                   local_bs, seed=args.seed, repeat=False,
+                                   eval_bs, seed=args.seed, repeat=False,
                                    shuffle_buffer=1,
+                                   process_index=shard_index,
+                                   process_count=shard_count,
                                    with_segments=args.doc_masking),
                         args.eval_batches)
                 except ValueError as exc:
@@ -292,7 +320,6 @@ def main(argv=None) -> dict:
             return gen()
 
     state = trainer.init_state()
-    n_params = sum(p.numel() for p in state.params.values())
     logger.info("Model: %d params (%.1fM), vocab=%d, device=%s", n_params,
                 n_params / 1e6, cfg.vocab_size, device)
 
@@ -304,7 +331,7 @@ def main(argv=None) -> dict:
         try:
             state, history = trainer.fit(
                 state, batches(), args.epochs, args.steps_per_epoch,
-                val_batches=val_batches,
+                val_batches=val_batches, val_local=mesh is not None,
                 # validate the weights the bundle will ship: EMA if enabled
                 val_use_ema=args.ema_decay > 0,
                 checkpoint_manager=ckpt,
@@ -327,12 +354,15 @@ def main(argv=None) -> dict:
 
         weights = (state.ema_params if state.ema_params is not None
                    else state.params)
+        if state.spmd is not None:  # every rank gathers, rank 0 writes
+            weights = {k: state.spmd.full(t, k) for k, t in weights.items()}
         flat = {name.replace(".", "/"): t.detach().float()
                 for name, t in weights.items()}
-        export_serving_bundle(cfg, flat, args.export_bundle,
-                              quantize=not args.export_dense,
-                              tokenizer_spec=args.tokenizer)
-        logger.info("Exported serving bundle to %s", args.export_bundle)
+        if is_writer():
+            export_serving_bundle(cfg, flat, args.export_bundle,
+                                  quantize=not args.export_dense,
+                                  tokenizer_spec=args.tokenizer)
+            logger.info("Exported serving bundle to %s", args.export_bundle)
     return history
 
 

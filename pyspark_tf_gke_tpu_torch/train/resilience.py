@@ -42,15 +42,21 @@ T = TypeVar("T")
 
 
 class Heartbeat:
-    """Step-loop liveness signal: an atomically replaced JSON file. One
-    process, so ``{process_index}`` in the path becomes 0."""
+    """Step-loop liveness signal: an atomically replaced JSON file.
+    ``{process_index}`` in the path becomes the process's rank (0 with
+    no ``torch.distributed`` world)."""
 
     def __init__(self, path: str, every_steps: int = 10):
         if is_remote(path):
             raise ValueError(
                 f"heartbeat path must be node-local, got {path!r} — "
                 "point HEARTBEAT_FILE at a local path")
-        self.path = path.replace("{process_index}", "0")
+        import torch.distributed as dist
+
+        world = dist.is_initialized()
+        self.process_index = dist.get_rank() if world else 0
+        self.process_count = dist.get_world_size() if world else 1
+        self.path = path.replace("{process_index}", str(self.process_index))
         self.every_steps = max(1, every_steps)
         os.makedirs(os.path.dirname(os.path.abspath(self.path)),
                     exist_ok=True)
@@ -59,7 +65,8 @@ class Heartbeat:
         if not force and step % self.every_steps:
             return
         payload = {"step": int(step), "time": time.time(),
-                   "process_index": 0, "process_count": 1}
+                   "process_index": self.process_index,
+                   "process_count": self.process_count}
         tmp = f"{self.path}.tmp"
         with open(tmp, "w") as fh:
             json.dump(payload, fh)

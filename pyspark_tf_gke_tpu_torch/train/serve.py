@@ -77,7 +77,10 @@ queue shares and token buckets; a tenant's shed carries
 first, ``--role`` is what ``/loadz`` advertises to a disaggregating
 router, and SIGTERM drains (new requests 503, in-flight ones finish,
 ``--drain-timeout``) before the server stops. Not ported (ROADMAP queue
-1): the multi-host serve wire (``--tp``, ``--num-processes``; P11).
+1, P11b): the multi-host serve wire: ``--tp`` over 1 and
+``--num-processes`` over 1 raise ``NotImplementedError`` (the JAX
+server's ``--process-id`` and coordinator flags are taken and unused
+with one process).
 """
 
 from __future__ import annotations
@@ -2553,6 +2556,17 @@ def parse_args(argv=None) -> argparse.Namespace:
                    default=int(e("MAX_NEW_TOKENS", "64")))
     p.add_argument("--temperature", type=float,
                    default=float(e("TEMPERATURE", "0.0")))
+    # the JAX server's multi-host flags: over 1 they raise (P11b)
+    p.add_argument("--tp", type=int, default=int(e("SERVE_TP", "0")),
+                   help="tensor-parallel ways: 0/1 only (P11b)")
+    p.add_argument("--num-processes", type=int,
+                   default=int(e("NUM_PROCESSES", "1")),
+                   help="1 only (P11b: the multi-host serve wire)")
+    p.add_argument("--process-id", type=int,
+                   default=int(e("PROCESS_ID", "-1")))
+    p.add_argument("--coordinator-addr", default=e("COORDINATOR_ADDR", ""))
+    p.add_argument("--coordinator-port", type=int,
+                   default=int(e("COORDINATOR_PORT", "8476")))
     return p.parse_args(argv)
 
 
@@ -2570,6 +2584,12 @@ def _resolve_bundle(path: str) -> str:
 
 def main(argv=None) -> int:
     args = parse_args(argv)
+    for flag, value in (("--tp", args.tp),
+                        ("--num-processes", args.num_processes)):
+        if value > 1:
+            raise NotImplementedError(
+                f"{flag} {value}: the multi-host serve wire is not ported "
+                "to pyspark_tf_gke_tpu_torch yet (ROADMAP, queue 1, P11b)")
     server = BundleServer(_resolve_bundle(args.bundle), device=args.device,
                           continuous_slots=args.continuous_slots,
                           continuous_chunk=args.continuous_chunk,

@@ -2,7 +2,7 @@
 ``pyspark_tf_gke_tpu/train/serving.py::_nll_kernel`` / ``serve_score``):
 one full causal forward, then the masked per-row total next-token NLL
 as plain f32 cross-entropy. The multi-host announce/replay wire is not
-ported (ROADMAP queue 1, P11)."""
+ported (ROADMAP queue 1, P11b)."""
 
 from __future__ import annotations
 

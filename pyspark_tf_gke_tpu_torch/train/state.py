@@ -32,6 +32,8 @@ class TrainState:
     ema_params: Optional[Params] = None
     ema_decay: float = 0.0
     batch_stats: Optional[Params] = None
+    # parallel.spmd.Spmd when the tensors are a mesh rank's shards
+    spmd: Any = None
 
     @torch.no_grad()
     def apply_gradients(self, grads: Params) -> "TrainState":

@@ -29,7 +29,17 @@ reads them. The epoch loop keeps the JAX one's contract:
 
 After each step the loop beats the heartbeat, then lets the fault
 injector fail the step (chaos tests), then logs every ``log_every``
-steps, in the JAX loop's order. The JAX trainer's sharding is P11's.
+steps, in the JAX loop's order.
+
+``Trainer(mesh=)`` trains on a ``DeviceMesh`` (``parallel/``), one rank
+a card, as the JAX trainer trains on its ``Mesh``: the parameters are
+placed by the logical axes the model declares (``fsdp_spec`` for a
+model without them, ``fsdp_min_size``), each rank feeds its rows of
+every global batch (``batch_sharding``), the losses and metrics are the
+global batch's (each task reduces its sums and counts over the data
+ranks, counts first), and the optimizer steps sharded state
+(``parallel/spmd.py``). The same code runs at every extent, 1
+included; ``mesh=None`` is the one-device path.
 """
 
 from __future__ import annotations
@@ -46,6 +56,9 @@ from pyspark_tf_gke_tpu_torch.data.pipeline import prefetch_to_device, put_batch
 from pyspark_tf_gke_tpu_torch.obs.events import get_event_log
 from pyspark_tf_gke_tpu_torch.obs.metrics import get_registry, platform_families
 from pyspark_tf_gke_tpu_torch.ops.chunked_ce import chunked_cross_entropy
+from pyspark_tf_gke_tpu_torch.parallel.sharding import (DEFAULT_MIN_SIZE,
+                                                        LOGICAL_RULES,
+                                                        model_shardings)
 from pyspark_tf_gke_tpu_torch.train.harness import make_optimizer
 from pyspark_tf_gke_tpu_torch.train.losses import (accuracy_metric,
                                                    mae_metric, mse_loss,
@@ -59,11 +72,29 @@ logger = get_logger("train.trainer")
 Batch = Dict[str, torch.Tensor]
 
 
+class _Local:
+    """The reductions of a task off a mesh: the values are the whole
+    batch's already (``parallel.spmd.Spmd`` on a mesh)."""
+
+    @staticmethod
+    def sum(x):
+        return x
+
+    @staticmethod
+    def mean(x):
+        return x
+
+
+LOCAL = _Local()
+
+
 @dataclasses.dataclass(frozen=True)
 class TrainerTask:
     """How a model family plugs into the step: how to call it
     (``forward(model, batch, train=True) -> preds``) and how to score it
-    (``loss_and_metrics(preds, batch) -> (loss, metrics)``)."""
+    (``loss_and_metrics(preds, batch, reduce=LOCAL) -> (loss,
+    metrics)``; ``reduce.sum`` / ``reduce.mean`` take a rank's sum or
+    mean to the global batch's on a mesh)."""
 
     name: str
     forward: Callable[..., Any]
@@ -78,10 +109,10 @@ def classification_task() -> TrainerTask:
     def forward(model, batch, train=True):
         return model(batch["x"])
 
-    def lam(preds, batch):
-        loss = softmax_cross_entropy(preds, batch["y"])
-        return loss, {"loss": loss,
-                      "accuracy": accuracy_metric(preds, batch["y"])}
+    def lam(preds, batch, reduce=LOCAL):
+        loss = reduce.mean(softmax_cross_entropy(preds, batch["y"]))
+        return loss, {"loss": loss, "accuracy": reduce.mean(
+            accuracy_metric(preds, batch["y"]))}
 
     return TrainerTask("classification", forward, lam)
 
@@ -93,10 +124,10 @@ def regression_task() -> TrainerTask:
     def forward(model, batch, train=True):
         return model(batch["image"])
 
-    def lam(preds, batch):
-        loss = mse_loss(preds, batch["target"])
-        return loss, {"loss": loss, "mse": loss,
-                      "mae": mae_metric(preds, batch["target"])}
+    def lam(preds, batch, reduce=LOCAL):
+        loss = reduce.mean(mse_loss(preds, batch["target"]))
+        return loss, {"loss": loss, "mse": loss, "mae": reduce.mean(
+            mae_metric(preds, batch["target"]))}
 
     return TrainerTask("regression", forward, lam)
 
@@ -112,15 +143,16 @@ def causal_lm_task(vocab_chunks: Optional[int] = None) -> TrainerTask:
     chunks, so ``[B, S, V]`` logits never exist. The head's kernel is
     taken in the compute dtype, as the dense head's product takes it."""
 
-    def _reduce(per_tok, pred_ids, targets, mask):
+    def _reduce(per_tok, pred_ids, targets, mask, reduce):
         if mask is not None:
+            # the global masked mean: ranks' padding differs
             m = mask[:, 1:].float()
-            denom = m.sum().clamp_min(1.0)
-            loss = (per_tok * m).sum() / denom
-            acc = ((pred_ids == targets) * m).sum() / denom
+            denom = reduce.sum(m.sum()).clamp_min(1.0)
+            loss = reduce.sum((per_tok * m).sum()) / denom
+            acc = reduce.sum(((pred_ids == targets) * m).sum()) / denom
         else:
-            loss = per_tok.mean()
-            acc = (pred_ids == targets).float().mean()
+            loss = reduce.mean(per_tok.mean())
+            acc = reduce.mean((pred_ids == targets).float().mean())
         return loss, {"loss": loss, "next_token_accuracy": acc}
 
     if vocab_chunks:
@@ -130,7 +162,7 @@ def causal_lm_task(vocab_chunks: Optional[int] = None) -> TrainerTask:
                 segment_ids=batch.get("segment_ids"), return_head=True)
             return {"hidden": hidden, "kernel": kernel, "bias": bias}
 
-        def lam(preds, batch):
+        def lam(preds, batch, reduce=LOCAL):
             targets = batch["input_ids"][:, 1:].long()
             h = preds["hidden"][:, :-1]
             b, s1, e = h.shape
@@ -138,7 +170,7 @@ def causal_lm_task(vocab_chunks: Optional[int] = None) -> TrainerTask:
                 h.reshape(b * s1, e), preds["kernel"], preds["bias"],
                 targets.reshape(-1), num_chunks=vocab_chunks)
             return _reduce(per_tok.reshape(b, s1), amax.reshape(b, s1),
-                           targets, batch.get("attention_mask"))
+                           targets, batch.get("attention_mask"), reduce)
 
         return TrainerTask("causal_lm", forward, lam)
 
@@ -146,20 +178,20 @@ def causal_lm_task(vocab_chunks: Optional[int] = None) -> TrainerTask:
         return model(batch["input_ids"].long(),
                      segment_ids=batch.get("segment_ids"))
 
-    def lam(logits, batch):
+    def lam(logits, batch, reduce=LOCAL):
         targets = batch["input_ids"][:, 1:].long()
         lg = logits[:, :-1].float()
         per_tok = per_token_cross_entropy(lg, targets)
         return _reduce(per_tok, torch.argmax(lg, -1), targets,
-                       batch.get("attention_mask"))
+                       batch.get("attention_mask"), reduce)
 
     return TrainerTask("causal_lm", forward, lam)
 
 
-def _image_cls_lam(preds, batch):
-    loss = softmax_cross_entropy(preds, batch["label"])
-    return loss, {"loss": loss,
-                  "accuracy": accuracy_metric(preds, batch["label"])}
+def _image_cls_lam(preds, batch, reduce=LOCAL):
+    loss = reduce.mean(softmax_cross_entropy(preds, batch["label"]))
+    return loss, {"loss": loss, "accuracy": reduce.mean(
+        accuracy_metric(preds, batch["label"]))}
 
 
 def resnet_task() -> TrainerTask:
@@ -186,8 +218,8 @@ def vit_task() -> TrainerTask:
     def forward(model, batch, train=True):
         return model(batch["image"])
 
-    def lam(preds, batch):
-        loss, metrics = _image_cls_lam(preds["logits"], batch)
+    def lam(preds, batch, reduce=LOCAL):
+        loss, metrics = _image_cls_lam(preds["logits"], batch, reduce)
         return _add_moe_aux(loss, metrics, preds)
 
     return TrainerTask("vit", forward, lam)
@@ -209,11 +241,11 @@ def _add_moe_aux(loss, metrics, preds):
 
 def bert_classification_task() -> TrainerTask:
     """Sequence classification on ``cls_logits`` (``:152-160``)."""
-    def lam(preds, batch):
+    def lam(preds, batch, reduce=LOCAL):
         logits = preds["cls_logits"]
-        loss = softmax_cross_entropy(logits, batch["labels"])
-        metrics = {"loss": loss,
-                   "accuracy": accuracy_metric(logits, batch["labels"])}
+        loss = reduce.mean(softmax_cross_entropy(logits, batch["labels"]))
+        metrics = {"loss": loss, "accuracy": reduce.mean(
+            accuracy_metric(logits, batch["labels"]))}
         return _add_moe_aux(loss, metrics, preds)
 
     return TrainerTask("bert_classification", _bert_forward, lam)
@@ -224,17 +256,18 @@ def bert_mlm_task() -> TrainerTask:
     over the masked positions only (labels == ``IGNORE_INDEX``
     elsewhere, ``data/mlm.py``), with ``mlm_accuracy`` and
     ``masked_frac``."""
-    def lam(preds, batch):
+    def lam(preds, batch, reduce=LOCAL):
         logits = preds["mlm_logits"].float()  # [B, S, V]
         labels = batch["mlm_labels"].long()
         mask = labels != IGNORE_INDEX
         safe = torch.where(mask, labels, 0)
         per_tok = per_token_cross_entropy(logits, safe)
-        denom = mask.sum().clamp_min(1)
-        loss = torch.where(mask, per_tok, 0.0).sum() / denom
-        acc = (mask & (torch.argmax(logits, -1) == safe)).sum() / denom
+        denom = reduce.sum(mask.sum()).clamp_min(1)
+        loss = reduce.sum(torch.where(mask, per_tok, 0.0).sum()) / denom
+        acc = reduce.sum(
+            (mask & (torch.argmax(logits, -1) == safe)).sum()) / denom
         metrics = {"loss": loss, "mlm_accuracy": acc,
-                   "masked_frac": mask.float().mean()}
+                   "masked_frac": reduce.mean(mask.float().mean())}
         return _add_moe_aux(loss, metrics, preds)
 
     return TrainerTask("bert_mlm", _bert_forward, lam)
@@ -249,10 +282,12 @@ TASKS = {"classification": classification_task,
 
 
 class _CountingIterator:
-    """Pass-through iterator that tallies consumed rows."""
+    """Pass-through iterator that tallies consumed rows (of the global
+    batch: a rank's rows times ``scale``, the data shards)."""
 
-    def __init__(self, it):
+    def __init__(self, it, scale: int = 1):
         self._it = it
+        self.scale = scale
         self.rows = 0
 
     def __iter__(self):
@@ -260,8 +295,32 @@ class _CountingIterator:
 
     def __next__(self):
         batch = next(self._it)
-        self.rows += next(iter(batch.values())).shape[0]
+        self.rows += next(iter(batch.values())).shape[0] * self.scale
         return batch
+
+
+def _refuse_unported(model: torch.nn.Module, task: TrainerTask,
+                     sizes: Dict[str, int]) -> None:
+    """The mesh axes this slice does not run raise, naming their item."""
+    from pyspark_tf_gke_tpu_torch.models.moe import MoELayer
+
+    if sizes["sp"] > 1 and not task.name.startswith("bert"):
+        raise NotImplementedError(
+            f"sp={sizes['sp']} runs BERT's ring and Ulysses attention; the "
+            f"{task.name} task under sp is not ported to "
+            "pyspark_tf_gke_tpu_torch yet (ROADMAP, P11b)")
+    for axis, what in (("pp", "the GPipe schedule"),
+                       ("ep", "MoE expert parallelism")):
+        if sizes[axis] > 1:
+            raise NotImplementedError(
+                f"{axis}={sizes[axis]} ({what}) is not ported to "
+                "pyspark_tf_gke_tpu_torch yet (ROADMAP, P11b)")
+    if sizes["sp"] > 1 and any(isinstance(m, MoELayer)
+                               for m in model.modules()):
+        raise NotImplementedError(
+            "MoE under sp > 1 is not ported to pyspark_tf_gke_tpu_torch yet "
+            "(ROADMAP, P11b): the capacity and the aux loss's means are "
+            "global over the sequence")
 
 
 def _sync(device: torch.device) -> None:
@@ -281,7 +340,9 @@ class Trainer:
                  learning_rate: float = 1e-3, tx=None,
                  ema_decay: float = 0.0,
                  mu_dtype: Optional[torch.dtype] = None,
-                 metrics_registry=None, event_log=None):
+                 metrics_registry=None, event_log=None, mesh=None,
+                 fsdp_min_size: int = DEFAULT_MIN_SIZE,
+                 logical_rules=LOGICAL_RULES):
         self.model = model
         self.task = task
         # mu_dtype: Adam's stored first moment (the JAX trainer's
@@ -294,6 +355,18 @@ class Trainer:
             raise ValueError("the model has no trainable parameters: build "
                              "it with param_dtype=torch.float32")
         self.device = params[0].device
+        self.mesh = mesh
+        self.spmd = None
+        self._reduce = LOCAL
+        if mesh is not None:
+            from pyspark_tf_gke_tpu_torch.parallel.spmd import Spmd
+
+            self.spmd = Spmd(mesh)
+            _refuse_unported(model, task, self.spmd.sizes)
+            self._masters = self.spmd.place(model, model_shardings(
+                model, mesh, fsdp_min_size, logical_rules))
+            self.tx.spmd = self.spmd
+            self._reduce = self.spmd
         # the live, scrapable view of the loop (obs/); history stays the
         # artifact
         self.metrics_registry = (metrics_registry if metrics_registry
@@ -303,22 +376,37 @@ class Trainer:
                            else get_event_log())
 
     def init_state(self) -> TrainState:
-        params = {name: p for name, p in self.model.named_parameters()
-                  if p.requires_grad}
+        """The state over the model's parameters (on a mesh: over this
+        rank's shards of them, ``parallel/spmd.py``)."""
+        params = (dict(self._masters) if self.spmd is not None else
+                  {name: p for name, p in self.model.named_parameters()
+                   if p.requires_grad})
         batch_stats = (dict(self.model.named_buffers())
                        if self.task.has_batch_stats else None)
-        return TrainState.create(params, self.tx, batch_stats,
-                                 ema_decay=self.ema_decay)
+        state = TrainState.create(params, self.tx, batch_stats,
+                                  ema_decay=self.ema_decay)
+        state.spmd = self.spmd
+        return state
+
+    def local_batch(self, batch):
+        """This rank's rows of a global host batch (all of it off a
+        mesh)."""
+        return self.spmd.local_batch(batch) if self.spmd is not None \
+            else batch
 
     def _grads(self, batch: Batch):
         """Loss, metrics; leaves the gradients in ``.grad``."""
         preds = self.task.forward(self.model, batch, train=True)
-        loss, metrics = self.task.loss_and_metrics(preds, batch)
+        loss, metrics = self.task.loss_and_metrics(preds, batch,
+                                                   self._reduce)
         loss.backward()
         return {k: v.detach() for k, v in metrics.items()}
 
-    @staticmethod
-    def _take_grads(state: TrainState, accum: int = 1):
+    def _take_grads(self, state: TrainState, accum: int = 1):
+        if self.spmd is not None:
+            grads = self.spmd.reduce_grads()
+            return grads if accum == 1 else {k: g / accum
+                                             for k, g in grads.items()}
         grads = {}
         for name, p in state.params.items():
             g = p.grad if p.grad is not None else torch.zeros_like(p)
@@ -326,9 +414,16 @@ class Trainer:
             p.grad = None
         return grads
 
+    def _sync_model(self, state: TrainState) -> None:
+        """On a mesh, gather the fsdp-split shards into the model."""
+        if self.spmd is not None:
+            self.spmd.gather(state.params)
+
     def step(self, state: TrainState, batch: Batch):
-        """One optimizer step on ``batch`` (device tensors). Returns
-        ``(state, metrics)``; metrics are device scalars."""
+        """One optimizer step on ``batch`` (device tensors; a rank's rows
+        on a mesh). Returns ``(state, metrics)``; metrics are device
+        scalars."""
+        self._sync_model(state)
         metrics = self._grads(batch)
         state.apply_gradients(self._take_grads(state))
         return state, metrics
@@ -339,6 +434,7 @@ class Trainer:
         are averaged. Every microbatch starts from the same running
         statistics, as in the JAX step."""
         sums: Dict[str, torch.Tensor] = {}
+        self._sync_model(state)
         stats = state.batch_stats or {}
         start = {k: v.clone() for k, v in stats.items()}
         stat_sums = {k: torch.zeros_like(v) for k, v in stats.items()}
@@ -364,8 +460,11 @@ class Trainer:
             raise ValueError("use_ema=True but the trainer was built with "
                              "ema_decay=0")
         model = self.model
+        self._sync_model(state)
         if use_ema:
             ema = state.ema_params
+            if self.spmd is not None:
+                ema = self.spmd.gather(ema, into={})
 
             def model(*args, **kwargs):  # noqa: F811 — the EMA view
                 return functional_call(self.model, ema, args, kwargs)
@@ -373,7 +472,8 @@ class Trainer:
         count = 0
         for batch in batches:
             preds = self.task.forward(model, batch, train=False)
-            _, metrics = self.task.loss_and_metrics(preds, batch)
+            _, metrics = self.task.loss_and_metrics(preds, batch,
+                                                    self._reduce)
             sums = (metrics if sums is None
                     else {k: sums[k] + v for k, v in metrics.items()})
             count += 1
@@ -386,19 +486,27 @@ class Trainer:
             val_batches: Optional[Callable[[], Any]] = None,
             checkpoint_manager=None, log_every: int = 0, heartbeat=None,
             fault_injector=None, prefetch: int = 2, grad_accum: int = 1,
-            val_use_ema: bool = False) -> Tuple[TrainState, Dict[str, list]]:
+            val_use_ema: bool = False, val_local: bool = False
+            ) -> Tuple[TrainState, Dict[str, list]]:
         """Run the training loop; returns the final state and the
         Keras-style history dict. ``fault_injector`` is a
         ``chaos.inject.FaultInjector``; ``log_every`` logs the epoch's
-        running mean loss every N steps (a host sync)."""
+        running mean loss every N steps (a host sync). On a mesh each
+        batch of ``batches`` and ``val_batches`` is global and each rank
+        keeps its rows; ``val_local`` says the validation batches are
+        this rank's already."""
         history: Dict[str, list] = {}
-        prefetched = prefetch_to_device(batches, self.device, size=prefetch)
-        device_batches = _CountingIterator(prefetched)
+        shard = self.local_batch if self.spmd is not None else None
+        prefetched = prefetch_to_device(batches, self.device, size=prefetch,
+                                        shard=shard)
+        device_batches = _CountingIterator(
+            prefetched, self.spmd.sizes["dp"] * self.spmd.sizes["fsdp"]
+            if self.spmd is not None else 1)
         try:
             return self._fit_epochs(
                 state, device_batches, epochs, steps_per_epoch, val_batches,
                 checkpoint_manager, log_every, heartbeat, fault_injector,
-                history, grad_accum, val_use_ema)
+                history, grad_accum, val_use_ema, val_local)
         finally:
             # stop the prefetch worker: it must not keep draining the
             # caller's iterator after fit returns or raises
@@ -406,7 +514,8 @@ class Trainer:
 
     def _fit_epochs(self, state, device_batches, epochs, steps_per_epoch,
                     val_batches, checkpoint_manager, log_every, heartbeat,
-                    fault_injector, history, grad_accum, val_use_ema):
+                    fault_injector, history, grad_accum, val_use_ema,
+                    val_local):
         global_step = int(state.step)
         self._event_log.emit(
             "train_fit_start", task=self.task.name, epochs=epochs,
@@ -477,7 +586,8 @@ class Trainer:
                 loss=history.get("loss", [None])[-1])
 
             if val_batches is not None:
-                val_iter = (put_batch(b, self.device) for b in val_batches())
+                val_iter = (put_batch(b if val_local else self.local_batch(b),
+                                      self.device) for b in val_batches())
                 val_metrics = self.evaluate(state, val_iter,
                                             use_ema=val_use_ema)
                 for k, v in val_metrics.items():

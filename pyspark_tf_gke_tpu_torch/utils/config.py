@@ -4,12 +4,15 @@ variable default, and ``parse_args`` takes the JAX CLI's flags with the
 same names, choices and defaults, plus ``--device`` (env ``DEVICE``,
 default ``cuda``: the card; ``cpu`` runs the plain versions).
 
-The port trains in one process on one device, so the options that need
-several processes or devices — ``--num-processes > 1`` and a
-``--mesh-shape`` or ``--dcn-mesh-shape`` over more than one device —
-raise ``NotImplementedError`` naming ROADMAP item P11
-(:func:`refuse_unported`). The JAX ``fsdp_min_size`` field (a sharding
-threshold) has no counterpart.
+``--mesh-shape``, ``--dcn-mesh-shape`` and the process flags
+(``--num-processes``, ``--process-id``, ``--coordinator-addr``,
+``--coordinator-port``) lay the run out on a ``DeviceMesh`` as the JAX
+flags lay it out on a ``Mesh`` (``train/harness.py::setup_mesh``); a
+port process drives one card, so ``--num-processes`` counts cards.
+``fsdp_min_size`` (env ``FSDP_MIN_SIZE``) is the shape-based
+partitioner's threshold. The mesh axes this slice does not run raise
+``NotImplementedError`` naming ROADMAP item P11b
+(:func:`refuse_unported_axes`): ``pp``, ``ep``, and ``sp`` outside BERT.
 """
 
 from __future__ import annotations
@@ -86,9 +89,10 @@ class Config:
     grad_accum_steps: int = _env_int("GRAD_ACCUM_STEPS", 1)
     compute_dtype: str = _env("COMPUTE_DTYPE", "bfloat16")
 
-    # --- parallelism: one process on one device (P11 raises) ---
-    mesh_shape: str = _env("MESH_SHAPE", "")
+    # --- parallelism (train/harness.py::setup_mesh) ---
+    mesh_shape: str = _env("MESH_SHAPE", "")  # e.g. "dp=2,fsdp=2"
     dcn_mesh_shape: str = _env("DCN_MESH_SHAPE", "")
+    fsdp_min_size: int = _env_int("FSDP_MIN_SIZE", 256 << 10 >> 2)
     coordinator_addr: str = _env("COORDINATOR_ADDR", "")
     coordinator_port: int = _env_int("COORDINATOR_PORT", 8476)
     num_processes: int = _env_int("NUM_PROCESSES", 1)
@@ -121,22 +125,19 @@ class Config:
         return json.dumps(dataclasses.asdict(self), indent=2, sort_keys=True)
 
 
-def refuse_unported(cfg: Config) -> None:
-    """Raise ``NotImplementedError`` for the options that need several
-    processes or devices (ROADMAP, queue 1, P11)."""
-    unported = (
-        (cfg.num_processes > 1, f"--num-processes {cfg.num_processes}"),
-        (math.prod(cfg.mesh_axes().values()) > 1,
-         f"--mesh-shape {cfg.mesh_shape}"),
-        (math.prod(cfg.dcn_mesh_axes().values()) > 1,
-         f"--dcn-mesh-shape {cfg.dcn_mesh_shape}"),
-    )
-    for bad, flag in unported:
-        if bad:
+def refuse_unported_axes(ici: dict, dcn: dict, sp_ok: bool = False) -> None:
+    """Raise ``NotImplementedError`` for the mesh axes not ported yet
+    (ROADMAP, queue 1, P11b): ``pp`` (the GPipe schedule), ``ep`` (MoE
+    expert parallelism) and, unless ``sp_ok`` (BERT), ``sp``."""
+    unported = {"pp": "the GPipe schedule", "ep": "MoE expert parallelism"}
+    if not sp_ok:
+        unported["sp"] = "sequence parallelism outside BERT"
+    for axis, what in unported.items():
+        size = math.prod(spec.get(axis, 1) for spec in (ici, dcn))
+        if size not in (0, 1):
             raise NotImplementedError(
-                f"{flag} is not ported to pyspark_tf_gke_tpu_torch: it "
-                "trains in one process on one device (ROADMAP, queue 1, "
-                "P11: data parallelism over several cards)")
+                f"{axis}={size} ({what}) is not ported to "
+                "pyspark_tf_gke_tpu_torch yet (ROADMAP, queue 1, P11b)")
 
 
 def parse_args(argv: Optional[Sequence[str]] = None) -> Config:
@@ -180,14 +181,16 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> Config:
                    help="microbatches accumulated per optimizer step")
     p.add_argument("--compute-dtype", default=cfg.compute_dtype)
     p.add_argument("--mesh-shape", default=cfg.mesh_shape,
-                   help="over more than one device: not ported (P11)")
+                   help='e.g. "dp=4,fsdp=2"; empty: every rank on dp '
+                        '(no mesh in one process)')
     p.add_argument("--dcn-mesh-shape", default=cfg.dcn_mesh_shape,
-                   help="over more than one device: not ported (P11)")
+                   help='axes across nodes, e.g. "dp=2"; --mesh-shape then '
+                        'gives the axes within a node')
     p.add_argument("--coordinator-addr", default=cfg.coordinator_addr)
     p.add_argument("--coordinator-port", type=int,
                    default=cfg.coordinator_port)
     p.add_argument("--num-processes", type=int, default=cfg.num_processes,
-                   help="more than 1: not ported (P11)")
+                   help="processes of the run, one card each")
     p.add_argument("--process-id", type=int, default=cfg.process_id)
     p.add_argument("--device", default=cfg.device,
                    help="'cuda' (the default: the card) or 'cpu' (the plain "

@@ -219,9 +219,10 @@ def test_bert_finetune_main_on_codec_shards(tmp_path, objective):
 
 def test_bert_finetune_refuses_unported_flags(tmp_path):
     base = ["--data-pattern", str(tmp_path / "*.tfrecord"), "--device", "cpu"]
-    for flags in (["--mesh-shape", "dp=2,sp=4"], ["--dcn-mesh-shape", "dp=2"],
-                  ["--num-processes", "2"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # the axes of the next slice raise, naming it
+    for flags in (["--mesh-shape", "pp=2"], ["--dcn-mesh-shape", "ep=2"],
+                  ["--mesh-shape", "sp=2", "--num-experts", "4"]):
+        with pytest.raises(NotImplementedError, match="P11b"):
             bert_finetune.main(base + flags)
     with pytest.raises(SystemExit):
         bert_finetune.main(["--device", "cpu"])

@@ -1,4 +1,5 @@
-"""PyTorch port, isolation: the package (P10's modules among them),
+"""PyTorch port, isolation: the package (P10's modules and P11a's
+``parallel/`` among them),
 ``chip_smoke.py`` and ``kernel_probe.py`` import no JAX and nothing of
 the JAX package; the device is explicit and nothing falls back to the
 CPU (P10's entry points too); the kernels build
@@ -54,6 +55,9 @@ P10_MODULES = ("models/moe.py", "models/vit.py", "etl/__init__.py",
                "etl/knobs.py", "etl/feature_pipeline.py", "etl/kmeans.py",
                "etl/tfrecord_bridge.py", "etl/workload.py",
                "etl/bootstrap.py")
+P11_MODULES = ("parallel/__init__.py", "parallel/mesh.py",
+               "parallel/sharding.py", "parallel/distributed.py",
+               "parallel/spmd.py")
 
 
 def _port_files():
@@ -67,6 +71,7 @@ def _port_files():
     assert set(BERT_MODULES) <= rel
     assert set(P9_MODULES) <= rel
     assert set(P10_MODULES) <= rel
+    assert set(P11_MODULES) <= rel
     return files + [REPO / "chip_smoke.py", REPO / "kernel_probe.py"]
 
 
@@ -98,6 +103,8 @@ def test_importing_the_server_loads_no_jax():
             "import pyspark_tf_gke_tpu_torch.etl.bootstrap\n"
             "import pyspark_tf_gke_tpu_torch.etl.workload\n"
             "import pyspark_tf_gke_tpu_torch.etl.tfrecord_bridge\n"
+            "import pyspark_tf_gke_tpu_torch.parallel\n"
+            "import pyspark_tf_gke_tpu_torch.parallel.spmd\n"
             "from pyspark_tf_gke_tpu_torch.models import build_model\n"
             "build_model('mlp', num_classes=3, input_dim=3, device='cpu')\n"
             "build_model('cnn', image_size=(16, 16), device='cpu')\n"

@@ -16,8 +16,9 @@ are reported). ``silhouette_score`` within 1e-6 of JAX's and of a
 naive O(n^2) one. ``KMeansWorkloadTPU.run`` and the bootstrap's summary
 equal JAX's, less their ``seconds`` fields and paths (the silhouette,
 rounded to 4 places, within 1e-4). No fallback: ``cuda`` without a
-card raises, ``mesh=`` names P11, a Spark or MySQL step the JAX module
-would run names P12.
+card raises, ``mesh=`` takes a ``DeviceMesh`` only (the fit over ranks
+is ``tests/test_torch_p11_models.py``'s), a Spark or MySQL step the JAX
+module would run names P12.
 """
 
 import contextlib
@@ -307,7 +308,7 @@ def test_no_fallback_and_the_unported_steps(tmp_path, monkeypatch):
         tkm.silhouette_score(_blobs(), np.zeros(256, int))
     with pytest.raises(RuntimeError, match="is_available"):
         bootstrap.run(["--out", str(tmp_path / "b")])
-    with pytest.raises(NotImplementedError, match="P11"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         tkm.KMeans(device="cpu", mesh=object())
     base = ["--out", str(tmp_path / "c"), "--rows", "60", "--k", "3",
             "--device", "cpu"]

@@ -134,17 +134,22 @@ def test_refusals(tmp_path):
                   "16", "--img-width", "16", "--batch-size", "8"] + extra)
         with pytest.raises(SystemExit):
             main(["--data-path", csv, "--model", "vit"] + extra)
-    for flags in (["--mesh-shape", "dp=2"], ["--mesh-shape", "dp=2,tp=2"],
-                  ["--dcn-mesh-shape", "dp=2"], ["--num-processes", "2"]):
-        with pytest.raises(NotImplementedError, match="P11"):
+    # the axes of the next slice raise, naming it
+    for flags in (["--mesh-shape", "pp=2"], ["--mesh-shape", "dp=1,ep=2"],
+                  ["--mesh-shape", "sp=2"], ["--dcn-mesh-shape", "pp=2"]):
+        with pytest.raises(NotImplementedError, match="P11b"):
             cli.main(["--data-path", csv] + base + flags)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             cli.main(["--data-path", csv, "--output-dir",
                       str(tmp_path / "out")])
-    # a one-device mesh is no parallelism: it trains
-    history = cli.main(["--data-path", csv, "--mesh-shape", "dp=1",
-                        "--batch-size", "16"] + base)
+    # a one-device mesh trains (a world of one rank)
+    try:
+        history = cli.main(["--data-path", csv, "--mesh-shape", "dp=1",
+                            "--batch-size", "16"] + base)
+    finally:
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
     assert len(history["loss"]) == 1
 
 
@@ -161,7 +166,7 @@ def test_profile_dir_writes_a_trace(tmp_path):
 def test_config_matches_the_jax_flags():
     jfields = {f.name: f.default for f in dataclasses.fields(jconfig.Config)}
     tfields = {f.name: f.default for f in dataclasses.fields(config.Config)}
-    assert set(tfields) == set(jfields) - {"fsdp_min_size"} | {"device"}
+    assert set(tfields) == set(jfields) | {"device"}
     assert all(tfields[k] == jfields[k] for k in tfields if k != "device")
     assert tfields["device"] == os.environ.get("DEVICE", "cuda")
     argv = ["--data-path", "x.csv", "--epochs", "3", "--batch-size", "8",

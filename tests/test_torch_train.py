@@ -229,9 +229,10 @@ def test_lm_pretrain_refuses_unported_flags(tmp_path):
     from pyspark_tf_gke_tpu_torch.train.lm_pretrain import main
 
     base = ["--data-pattern", str(tmp_path / "*.txt"), "--device", "cpu"]
-    for flags in (["--mesh-shape", "dp=2"], ["--num-processes", "2"],
-                  ["--dcn-mesh-shape", "dp=2"]):
-        with pytest.raises(NotImplementedError, match="P11"):
+    # the axes of the next slice raise, naming it
+    for flags in (["--mesh-shape", "pp=2"], ["--mesh-shape", "ep=2"],
+                  ["--mesh-shape", "sp=2"], ["--dcn-mesh-shape", "pp=2"]):
+        with pytest.raises(NotImplementedError, match="P11b"):
             main(base + flags)
     # a hub tokenizer name would need a download
     with pytest.raises(NotImplementedError, match="ROADMAP"):
