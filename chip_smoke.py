@@ -360,8 +360,34 @@
     ``tp=2`` (6 heads a rank on the kernels, the vocabulary split),
     ``dp=2`` and ``fsdp=2``, 3 Adam steps against the run without a
     mesh: losses within 1e-5 relative, launches a step equal;
-16. prints one ``{"kernels": [...]}`` line, then
-17. ``{"ok": true, "device": {...}}`` as the last line.
+16. P11b-serve, tensor-parallel serving over the serve wire:
+    ``serve.main --tp 2 --num-processes 2`` as two processes of one gloo
+    world on the card (rank 0 on HTTP, rank 1 replaying in
+    ``serve_worker_loop``; NCCL refuses two ranks on one card) against a
+    one-process server of the same bundle in this process, with phase
+    4's flags (8 slots, chunk 16, pieces of 256); first K6, K1 and K2f
+    against their plain versions at a rank's shapes (K6's weight slices,
+    6 heads); (a) GPT-small bf16 (6
+    heads a rank): sequential greedy requests and a score batch, after
+    which each rank's K1, K2f and K3 launches equal the one-process
+    server's, the score within 0.005 nats a token and at least a
+    quarter of the greedy tokens identical; then phase 4's mix
+    (12 requests from 3 clients, a sampled one repeated, an SSE stream,
+    4 beams, a radix hit under ``--prefix-cache``), the score and the
+    share again, and ms a decode step at 8
+    slots for both (gloo's host staging, not a tp speed), the
+    tp chunk launched eagerly (gloo's collectives cannot be captured);
+    (b) the f32 copy at the 2-layer cut: greedy tokens equal the
+    one-process server's, and with a draft (the target's bundle) and
+    ``--spec-tokens 3`` the same tokens with drafts accepted; (c) int8
+    weights: the sequential traffic, each
+    rank's K6, K1, K2f and K3 launches equal the one-process server's;
+    (d) in (b) ``/v1/prefill`` on one server feeds ``/v1/kv_import`` on
+    the other, both ways, each then giving its own prefill's tokens; (e)
+    at the end of (c) SIGTERM on rank 0 with a request in flight: it
+    completes and both ranks exit 0;
+17. prints one ``{"kernels": [...]}`` line, then
+18. ``{"ok": true, "device": {...}}`` as the last line.
 
 It takes no arguments. Any failed check exits non-zero. Without a CUDA
 device, or outside a checkout of the repository, it exits non-zero and
@@ -1440,14 +1466,14 @@ PAGED_CASES = ((12, 1, False, PAGED_FILLS), (4, 1, False, PAGED_FILLS),
                (4, 2, True, PAGED_FILLS), (12, 6, False, SERVE_FILLS))
 
 
-def _split_fills(torch, pa, hkv, s):
+def _split_fills(torch, pa, hkv, s, h=12):
     """Fills on the decode variant's split boundaries at this shape (8
-    slots, H = 12, 16 pages of 64 tokens; the split does not depend on
+    slots, H = ``h``, 16 pages of 64 tokens; the split does not depend on
     the dtypes, and a bf16 S past ``DECODE_MAX_S`` runs them through the
     chunk variant): empty, a split's entries full (pages_per_split x P) and
     one token past them, two splits less one token, every entry (MP x
     P), and three others."""
-    plan = pa.paged_plan(8, s, 12, hkv, 64, 64, 16, torch.bfloat16,
+    plan = pa.paged_plan(8, s, h, hkv, 64, 64, 16, torch.bfloat16,
                          torch.bfloat16, variant="decode")
     edge = plan.pages_per_split * 64
     return (0, edge, edge + 1, 2 * edge - 1, 1024, 65, 700, s)
@@ -7600,6 +7626,629 @@ def run_p11(torch, dev, launches_7d=None):
     return lm, resnet, bert, pair
 
 
+# -- phase 16: tensor-parallel serving over the serve wire (P11b-serve) --------
+
+# Every run of phase 16 serves with these flags, the tp pair and the
+# one-process server alike (phase 4's slots and chunk, pieces of 256).
+P16_FLAGS = ["--continuous-slots", "8", "--continuous-chunk", "16",
+             "--prefill-chunk", "256"]
+# The mix run adds the radix cache (pages of 64 tokens).
+P16_RADIX = ["--prefix-cache", "32"]
+# /v1/score under bf16 or int8 weights: the tp pair's row-parallel
+# products are summed across the ranks after their own bf16 rounding, so
+# each of 12 layers rounds once more than the one-process product; held
+# to a mean NLL a token within 0.005 nats of the one-process server's
+# (sound runs read at most 0.0024; the random GPT-small scores ~10.4
+# nats a token, close to uniform, so the score alone is a weak check:
+# the kernels are also held at the ranks' shapes, check_tp2_slices).
+P16_NLL_TOL = 0.005
+# the share of greedy tokens identical to the one-process server's, at
+# least (sound runs read 0.78-0.94 over 4-10 prompts: a rounding flip
+# between two near-equal logits changes every later token of its prompt,
+# so two early flips in four prompts halve it; a wrong product changes
+# nearly every token)
+P16_SHARE_MIN = 0.25
+# the counted traffic: sequential greedy requests (one at a time, so the
+# engine runs the same ops on both servers), prompts of 20 to 700 tokens
+# (the last two over --prefill-chunk: pieces), 16 new tokens (the first
+# from the prompt, then one 16-step decode chunk), and one /v1/score
+# batch
+P16_COUNTED = ((20, 16), (100, 16), (300, 16), (700, 16))
+
+
+def _p16_prompt(rng, n: int, vocab: int) -> str:
+    """``n`` tokens of phase 16's word-level tokenizer (``w0``...: one
+    word a token, so a completion's words ARE its token ids: the byte
+    tokenizer would decode only the ids under 256 of a 32000-token
+    model's output)."""
+    return " ".join(f"w{rng.randrange(vocab - 3)}" for _ in range(n))
+
+
+def _p16_cfgs(torch, tiny: bool):
+    """``{name: (config, seed, quantize)}`` of phase 16's bundles: the
+    GPT-small serving model (phase 4's, bf16 and int8) and its f32 copy
+    at the 2-layer cut; ``tiny`` the CPU rehearsal's widths."""
+    cfg = _serving_cfg()
+    if tiny:
+        cfg = dataclasses.replace(cfg, vocab_size=512, hidden_size=64,
+                                  num_layers=2, num_heads=4,
+                                  intermediate_size=128, max_seq_len=1024,
+                                  kv_page_size=64, kv_num_pages=128)
+    f32 = dataclasses.replace(cfg, num_layers=2, dtype=torch.float32)
+    return {"bf16": (cfg, 0, False), "int8": (cfg, 0, True),
+            "f32": (f32, 0, False)}
+
+
+def _p16_rank(rank: int, port: int, device: str, plan, out) -> None:
+    """One rank of the tp pair: ``serve.main`` once for each run of
+    ``plan``, the kernels' counters set to 0 before each and reported
+    with its exit code after it (rank 0 returns when its SIGTERM drain
+    ends, rank 1 when rank 0 announces shutdown)."""
+    import torch
+    import torch.distributed as dist
+
+    if device == "cuda":
+        torch.cuda.set_device(0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    else:
+        torch.set_num_threads(1)
+    sys.path.insert(0, str(ROOT))
+    from pyspark_tf_gke_tpu_torch.ops import paged_attention as pa
+    from pyspark_tf_gke_tpu_torch.train import serve
+
+    counters = _serve_counters()
+    # NCCL refuses two ranks on one card: the pair joins a gloo world
+    # itself, once, and every serve.main below keeps it
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=2, rank=rank)
+    try:
+        for name, argv in plan:
+            _reset_serve(torch, counters)
+            code = serve.main([a.format(rank=rank, port=port) for a in argv])
+            if device == "cuda":
+                torch.cuda.synchronize()
+            out.put((rank, name, code, _moved(counters),
+                     dict(pa.variant_launches)))
+    except BaseException as exc:  # noqa: BLE001 — reported to the parent
+        out.put((rank, "error", f"{type(exc).__name__}: {exc}", None, None))
+        raise
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _reset_serve(torch, counters) -> None:
+    from pyspark_tf_gke_tpu_torch.ops import paged_attention as pa
+
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    for mod, attr in counters.values():
+        setattr(mod, attr, 0)
+    for variant in pa.variant_launches:
+        pa.variant_launches[variant] = 0
+
+
+def _p16_wait(url: str, proc, timeout_s: float = 300.0) -> dict:
+    """Rank 0's ``/healthz`` once it answers (its process alive)."""
+    deadline = time.monotonic() + timeout_s
+    while time.monotonic() < deadline:
+        check(proc.is_alive(), f"rank 0 exited ({proc.exitcode}) before "
+              "serving")
+        try:
+            return _call(url, "/healthz")[2]
+        except OSError:
+            time.sleep(0.2)
+    raise SmokeFailure(f"rank 0 did not serve {url} in {timeout_s} s")
+
+
+def _p16_words(body: dict) -> list:
+    """The generated tokens (words) of a one-prompt completion."""
+    comp = body["completions"][0]
+    return comp["completion"][len(comp["prompt"]):].split()
+
+
+def _p16_greedy(url: str, prompts, new: int) -> list:
+    """The tokens of sequential greedy requests (one at a time)."""
+    out = []
+    for prompt in prompts:
+        status, _, body = _call(url, "/v1/generate", {
+            "prompt": prompt, "max_new_tokens": new})
+        check(status == 200, f"generate answered {status}: {body}")
+        out.append(_p16_words(body))
+    return out
+
+
+def _p16_score(url: str, texts) -> list:
+    status, _, body = _call(url, "/v1/score", {"texts": texts})
+    check(status == 200, f"score answered {status}: {body}")
+    return [(s["nll"], s["tokens"]) for s in body["scores"]]
+
+
+def _p16_counted(urls, rng, vocab: int):
+    """The counted traffic on each server of ``urls``: ``{url:
+    (tokens, scores)}``."""
+    prompts = [_p16_prompt(rng, n, vocab) for n, _ in P16_COUNTED]
+    texts = [_p16_prompt(rng, n, vocab) for n in (40, 600)]
+    return {url: (_p16_greedy(url, prompts, P16_COUNTED[0][1]),
+                  _p16_score(url, texts)) for url in urls}
+
+
+def _p16_nll_close(got, want, what: str) -> float:
+    worst = 0.0
+    for (a, n), (b, m) in zip(got, want):
+        check(n == m, f"{what}: scored {n} tokens against {m}")
+        worst = max(worst, abs(a - b) / n)
+    check(worst <= P16_NLL_TOL, f"{what}: mean NLL a token off by {worst:.4f}"
+          f" nats (limit {P16_NLL_TOL})")
+    return worst
+
+
+def _p16_share(got, want, what: str) -> float:
+    """Share of generated tokens that agree position by position, held
+    to ``P16_SHARE_MIN``."""
+    same = sum(x == y for a, b in zip(got, want) for x, y in zip(a, b))
+    share = same / max(sum(len(b) for b in want), 1)
+    check(share >= P16_SHARE_MIN, f"{what}: greedy tokens identical to one "
+          f"process {share:.4f} (floor {P16_SHARE_MIN})")
+    return share
+
+
+def _p16_step_ms(url: str) -> float:
+    """ms a decode step at 8 live slots: 8 prompts of 16 tokens decoding
+    192 new tokens (first tokens no earlier request shares, so no radix
+    hit), then the median wall of the server's steps that decoded 8
+    slots (``/stepz``; a step dispatches one 16-step chunk and collects
+    the one before), over 16. Under announce the 8 requests admit one an
+    op, over ~6 steps, so each must outlast them by a few chunks: 80 new
+    tokens left one step at 8 slots."""
+    prompts = [f"w{j} " + " ".join(["w99"] * 15) for j in range(8)]
+    status, _, _ = _call(url, "/v1/generate", {"prompts": prompts,
+                                               "max_new_tokens": 192})
+    check(status == 200, f"timing request answered {status}")
+    recs = _call(url, "/stepz?n=24")[2]["steps"]
+    steps = [r["wall_ms"] for r in recs if r["decode_slots"] == 8]
+    check(len(steps) >= 2, f"{len(steps)} steps at 8 slots: "
+          f"{[(r['decode_slots'], r['wall_ms']) for r in recs]}")
+    return statistics.median(steps) / 16
+
+
+def _p16_mix(torch, url: str, one_url: str, rng, vocab: int) -> dict:
+    """Phase 4's mix on the tp pair (12 requests from 3 clients, prompts
+    of 20-700 tokens, 16-64 new, two of them sampled with their own
+    seeds), a sampled request repeated, one SSE stream, a 4-beam
+    request, a 600-token prompt and a second one sharing its first 512
+    tokens (a radix hit), a /v1/score batch; the 12 jobs and the score
+    also on the one-process server."""
+    jobs = []
+    for i in range(12):
+        jobs.append({"prompt": _p16_prompt(rng, (20, 100, 300, 700)[i % 4],
+                                           vocab),
+                     "max_new_tokens": (16, 32, 48, 64)[(i * 7) % 4]})
+        if i in (3, 8):
+            jobs[-1].update(temperature=0.8, top_p=0.9, seed=100 + i)
+    out = {}
+    t0 = time.perf_counter()
+    for which, target in (("tp", url), ("one", one_url)):
+        results, errors = [None] * len(jobs), []
+
+        def client(idx, target=target, results=results, errors=errors):
+            for j in range(idx, len(jobs), 3):
+                try:
+                    results[j] = _call(target, "/v1/generate", jobs[j])
+                except Exception as exc:  # noqa: BLE001 — reported below
+                    errors.append(f"request {j}: {exc}")
+
+        clients = [threading.Thread(target=client, args=(c,))
+                   for c in range(3)]
+        for c in clients:
+            c.start()
+        for c in clients:
+            c.join(600)
+        check(not errors, f"{which}: " + "; ".join(errors))
+        for res in results:
+            check(res is not None and res[0] == 200, f"{which}: {res}")
+        out[which] = [_p16_words(r[2]) for r in results]
+    sampled = [i for i, job in enumerate(jobs) if "seed" in job]
+    again = _call(url, "/v1/generate", jobs[sampled[0]])
+    check(again[0] == 200 and _p16_words(again[2]) == out["tp"][sampled[0]]
+          and len(out["tp"][sampled[0]]) > 0, "a repeated sampled request "
+          "gave other tokens on the tp pair")
+    events, done, _, _ = _sse(url, {"prompt": _p16_prompt(rng, 60, vocab),
+                                    "max_new_tokens": 24, "stream": True})
+    check(done and events and events[-1].get("done"),
+          f"the SSE stream did not finish: {events[-1:]}")
+    beam = _call(url, "/v1/generate", {
+        "prompt": _p16_prompt(rng, 80, vocab), "max_new_tokens": 16,
+        "num_beams": 4})
+    check(beam[0] == 200 and "beam_score" in beam[2]["completions"][0],
+          f"the 4-beam request answered {beam[0]}")
+    system = _p16_prompt(rng, 512, vocab)
+    hits0 = _call(url, "/healthz")[2]["continuous"]["prefix_cache"]["hits"]
+    for suffix in (_p16_prompt(rng, 88, vocab),
+                   _p16_prompt(rng, 88, vocab)):
+        res = _call(url, "/v1/generate", {"prompt": system + " " + suffix,
+                                          "max_new_tokens": 16})
+        check(res[0] == 200, f"a 600-token request answered {res[0]}")
+    hits = _call(url, "/healthz")[2]["continuous"]["prefix_cache"]["hits"]
+    check(hits > hits0, "the second 600-token prompt did not hit the radix "
+          "cache")
+    texts = [_p16_prompt(rng, n, vocab) for n in (40, 200, 600)]
+    worst = _p16_nll_close(_p16_score(url, texts), _p16_score(one_url, texts),
+                           "bf16 /v1/score")
+    greedy = [i for i in range(len(jobs)) if i not in sampled]
+    share = _p16_share([out["tp"][i] for i in greedy],
+                       [out["one"][i] for i in greedy], "(a) the mix")
+    log(f"  (a) mix: 12 jobs, a sampled repeat, an SSE stream, 4 beams, a "
+        f"radix hit ({hits - hits0} hit), score worst {worst:.5f} nats a "
+        f"token; greedy tokens identical to one process: {share:.4f} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    return {"share": share, "nll_worst": worst}
+
+
+def _p16_handoff(url: str, one_url: str, one_model, tokdir: str,
+                 rng) -> None:
+    """(d) ``/v1/prefill`` on one server feeds ``/v1/kv_import`` on the
+    other, both ways; each then gives the tokens of its own prefill (f32:
+    the one-process model's ``generate``)."""
+    from pyspark_tf_gke_tpu_torch.data.text import get_tokenizer
+    from pyspark_tf_gke_tpu_torch.models.causal_lm import generate
+
+    tok = get_tokenizer(tokdir)
+    vocab = one_model.cfg.vocab_size
+    for src, dst, what in ((url, one_url, "tp -> one"),
+                           (one_url, url, "one -> tp")):
+        prefix = _p16_prompt(rng, 200, vocab)
+        status, _, blob = _call(src, "/v1/prefill", {"prompt": prefix})
+        check(status == 200 and blob["blob"], f"{what}: prefill {status}")
+        status, _, imp = _call(dst, "/v1/kv_import", {"blob": blob["blob"]})
+        check(status == 200 and imp["imported_tokens"] == blob["pages"] * 64,
+              f"{what}: kv_import {status} {imp}")
+        prompt = prefix + " " + _p16_prompt(rng, 30, vocab)
+        got = _p16_greedy(dst, [prompt], 16)[0]
+        ids = tok.encode(prompt)
+        toks = generate(one_model, [ids], 16)[0, len(ids):].tolist()
+        if tok.eos_id in toks:  # the server's entry ends at eos
+            toks = toks[:toks.index(tok.eos_id)]
+        check(got == tok.decode(toks).split(),
+              f"{what}: the imported prefix gave other tokens")
+        log(f"  (d) {what}: {blob['pages']} pages, the tokens of the "
+            "importer's own prefill")
+
+
+def _p16_launch_gate(runs, one, what: str, names, cuda: bool) -> None:
+    """Each rank's launches equal the one-process server's (and, on the
+    card, every kernel launched)."""
+    for rank in (0, 1):
+        got = runs[rank]
+        for name in names:
+            check((got[name] > 0 or not cuda) and got[name] == one[name],
+                  f"{what} rank {rank}: {name} {got[name]} launches, one "
+                  f"process {one[name]}")
+
+
+# The shapes a rank of GPT-small's tp=2 pair gives the kernels: K6 on
+# its weight slices, (K, N) (the query/key/value columns [768, 384], also
+# as one grouped launch of three, out's rows [384, 768], mlp_in's columns
+# [768, 1536], mlp_out's rows [1536, 768], the vocabulary-parallel lm_head
+# [768, 16000]); K1 and K2f on its 6 query (and KV) heads: K1's (S,
+# fills) of decode, the spec verify chunk and the 256-token piece, K2f's
+# (B, S) of prefill and of a padded /v1/score batch (causal)
+P16_INT8_SHAPES = ((768, 384), (384, 768), (768, 1536), (1536, 768),
+                   (768, 16000))
+P16_HEADS = 6
+P16_PAGED = ((1, PAGED_FILLS), (1, SERVE_FILLS), (1, SPLIT_FILLS),
+             (4, PAGED_FILLS), (256, PAGED_FILLS))
+P16_FLASH = ((1, 20), (1, 100), (1, 256), (3, 600))
+
+
+def check_tp2_slices(torch, dev) -> dict:
+    """K6, K1 and K2f against their plain versions at the shapes a rank
+    of the tp=2 pair gives them (``P16_*``), bf16 and f32; K6's plan
+    (split-K cluster, columns a CTA) and K1's variant depend on these
+    shapes, so each is checked at them. Returns each kernel's largest
+    bf16 error."""
+    from pyspark_tf_gke_tpu_torch.ops import flash_attention as fa
+    from pyspark_tf_gke_tpu_torch.ops import int8_matmul as im
+    from pyspark_tf_gke_tpu_torch.ops import paged_attention as pa
+
+    g = torch.Generator(device=dev).manual_seed(23)
+    errs = {"int8_matmul": 0.0, "paged_attention": 0.0,
+            "flash_attention_fwd": 0.0}
+    group = [_int8_weight(torch, dev, g, 768, 384) for _ in range(3)]
+    weights = {(k, n): _int8_weight(torch, dev, g, k, n)
+               for k, n in P16_INT8_SHAPES}
+    h = P16_HEADS
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).split(".")[-1]
+
+        def note(kernel, err, name=name):
+            if name == "bfloat16":
+                errs[kernel] = max(errs[kernel], err)
+
+        for m in INT8_ROWS:
+            for (k, n), (q, scale) in weights.items():
+                x = torch.randn(m, k, generator=g, device=dev).to(dtype)
+                before = im.launches
+                out = im.int8_matmul(x, q, scale)
+                check(im.launches == before + 1,
+                      f"int8_matmul [{m},{k}]x[{k},{n}] did not count")
+                note("int8_matmul", compare(
+                    out, im.int8_matmul_plain(x, q, scale), name,
+                    f"tp=2 rank: int8_matmul [{m},{k}]x[{k},{n}] {name} "
+                    f"{im.int8_plan(m, k, n, dtype)}"))
+            x = torch.randn(m, 768, generator=g, device=dev).to(dtype)
+            before = im.launches
+            outs = im.int8_matmul_group(x, group)
+            check(im.launches == before + 1, "the grouped K6 call at "
+                  "[768,384]x3 did not count one launch")
+            plan = im.int8_plan(m, 768, (384,) * 3, dtype)
+            for i, (out, (q, scale)) in enumerate(zip(outs, group)):
+                note("int8_matmul", compare(
+                    out, im.int8_matmul_plain(x, q, scale), name,
+                    f"tp=2 rank: int8_matmul_group [{m},768]x3 [768,384] "
+                    f"{name} output {i} {plan}"))
+        for s, fill_list in P16_PAGED:
+            if fill_list == SPLIT_FILLS:
+                fill_list = _split_fills(torch, pa, h, s, h=h)
+            q, kp, vp, table, fills, _, _ = _paged_case(
+                torch, dev, g, dtype, h, s, False, fill_list, h=h)
+            plan = pa.paged_plan(8, s, h, h, 64, 64, 16, dtype, kp.dtype)
+            before = pa.variant_launches[plan.variant]
+            out = pa.paged_attention_chunk(q, kp, vp, table, fills)
+            check(pa.variant_launches[plan.variant] == before + 1,
+                  f"K1 at H={h} did not launch its {plan.variant} variant")
+            note("paged_attention", compare(
+                out, pa.paged_attention_chunk_plain(q, kp, vp, table, fills),
+                name, f"tp=2 rank: paged {name} slots=8 H=Hkv={h} S={s} "
+                f"fills {list(fill_list)} ({plan.variant}: {plan.blocks} "
+                f"row blocks of {plan.rows}, {plan.splits} splits)"))
+        for b, s in P16_FLASH:
+            q, k, v = (torch.randn(b, s, h, 64, generator=g, device=dev
+                                   ).to(dtype) for _ in range(3))
+            note("flash_attention_fwd", _flash_case(
+                torch, fa, q, k, v, name,
+                f"tp=2 rank: flash causal {name} B={b} S={s} H={h}")[2])
+    log(f"  tp=2 rank shapes: K6 at {len(P16_INT8_SHAPES)} weight slices "
+        f"and the [768,384]x3 group, K1 and K2f at {h} heads == their plain "
+        f"versions; bf16 max_abs_err {errs}")
+    return errs
+
+
+def run_p16(torch, dev, tiny: bool = False):
+    """Phase 16: ``serve.main --tp 2 --num-processes 2`` as two processes
+    on the card (gloo), rank 0 on HTTP, against a one-process server of
+    the same bundle in this process. Runs: (a) GPT-small bf16, the
+    counted traffic then phase 4's mix; (b) the f32 copy at the 2-layer
+    cut, then with a draft (the target's bundle) and ``--spec-tokens 3``;
+    (c) int8 weights, the counted traffic; (d) the KV handoff both ways
+    in (b); (e) the drain at the end of (c). On the card the kernels are
+    first held at the ranks' shapes (:func:`check_tp2_slices`). ``tiny``
+    rehearses it on the CPU. Returns rank 0's launches over the counted
+    runs."""
+    import multiprocessing as mp
+    import os
+    import queue
+    import signal
+    import socket
+
+    from pyspark_tf_gke_tpu_torch.models.causal_lm import init_params
+    from pyspark_tf_gke_tpu_torch.train.export import export_serving_bundle
+
+    t_start = time.perf_counter()
+    if dev.type == "cuda":
+        check_tp2_slices(torch, dev)
+    work = PORT_PKG / "_build" / "chip_smoke_p16"
+    shutil.rmtree(work, ignore_errors=True)
+    cfgs = _p16_cfgs(torch, tiny)
+    vocab = cfgs["bf16"][0].vocab_size
+    # one word a token: a completion's words are its tokens
+    tokdir = _wordlevel_tokenizer_dir(work / "tokenizer", vocab)
+    bundles, made = {}, []  # the int8 bundle quantizes the bf16 one's
+    for name, (cfg, seed, quantize) in cfgs.items():
+        params = next((p for c, s, p in made if c == cfg and s == seed),
+                      None)
+        if params is None:
+            params = init_params(cfg, seed=seed)
+            made.append((cfg, seed, params))
+        bundles[name] = export_serving_bundle(cfg, params, str(work / name),
+                                              quantize=quantize,
+                                              tokenizer_spec=tokdir)
+    log(f"  bundles exported in {time.perf_counter() - t_start:.1f} s")
+
+    def free_port():
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            return s.getsockname()[1]
+
+    ports = {run: free_port() for run in ("counted", "mix", "f32", "spec",
+                                          "int8")}
+    device = dev.type
+
+    def argv(run, bundle, *extra):
+        return (["--bundle", bundles[bundle], "--device", device, "--tp", "2",
+                 "--num-processes", "2", "--process-id", "{rank}",
+                 "--coordinator-addr", "127.0.0.1", "--coordinator-port",
+                 "{port}", "--host", "127.0.0.1", "--port", str(ports[run]),
+                 "--drain-timeout", "120"] + P16_FLAGS + list(extra))
+
+    plan = [("counted", argv("counted", "bf16")),
+            ("mix", argv("mix", "bf16", *P16_RADIX)),
+            ("f32", argv("f32", "f32", *P16_RADIX)),
+            # the draft is the target's bundle: it agrees, so rounds
+            # accept and the accepted tokens advance both ranks' fills
+            ("spec", argv("spec", "f32", "--draft-bundle", bundles["f32"],
+                          "--spec-tokens", "3")),
+            ("int8", argv("int8", "int8"))]
+    ctx = mp.get_context("spawn")
+    out = ctx.Queue()
+    port = free_port()
+    procs = [ctx.Process(target=_p16_rank,
+                         args=(r, port, device, plan, out))
+             for r in range(2)]
+    for p in procs:
+        p.start()
+    reports = {}
+    counters = _serve_counters()
+    rng = random.Random(16)
+    one_kw = dict(prefill_chunk=256)
+
+    def finish(run, inflight=None):
+        """SIGTERM rank 0 (``inflight`` a request it must still answer
+        while draining) and collect both ranks' reports of ``run``."""
+        result = {}
+        thread = None
+        if inflight is not None:
+            def go():
+                result["inflight"] = _call(url(run), "/v1/generate",
+                                           inflight)
+            thread = threading.Thread(target=go)
+            thread.start()
+            time.sleep(0.5)
+        os.kill(procs[0].pid, signal.SIGTERM)
+        if thread is not None:
+            thread.join(300)
+        for _ in range(2):
+            try:
+                rank, name, code, launches, variants = out.get(timeout=300)
+            except queue.Empty:
+                raise SmokeFailure(f"{run}: a rank did not report") from None
+            check(name == run and code == 0,
+                  f"{run}: rank {rank} reported {name} {code}")
+            reports[(run, rank)] = (launches, variants)
+        log(f"  {run}: both ranks exited 0, {time.perf_counter() - t_start:.1f}"
+            " s into phase 16")
+        return result
+
+    def url(run):
+        return f"http://127.0.0.1:{ports[run]}"
+
+    try:
+        # (a) GPT-small bf16: the counted traffic
+        health = _p16_wait(url("counted"), procs[0])
+        check(health["tp"] == 2, f"/healthz tp {health['tp']}")
+        cont = health["continuous"]
+        log(f"  (a) rank 0 serving GPT-small bf16 at tp=2: the decode chunk "
+            f"{'captured' if cont['captured'] else 'launched eagerly'} "
+            f"({cont['decode_graphs']} graphs; gloo's collectives cannot be "
+            "captured)")
+        if device == "cuda":
+            check(not cont["captured"], "the tp chunk claims a capture under"
+                  " gloo")
+        server, httpd, thread, one_url = _serve_bundle(
+            torch, dev, bundles["bf16"], **one_kw)
+        try:
+            if device == "cuda":
+                check(server.health()["continuous"]["captured"],
+                      "the one-process chunk was not captured")
+            _reset_serve(torch, counters)
+            counted = _p16_counted([url("counted"), one_url], rng, vocab)
+            one_launches = _moved(counters)
+            finish("counted")
+            tp_launches = [reports[("counted", r)][0] for r in (0, 1)]
+            _p16_launch_gate(tp_launches, one_launches, "(a) bf16",
+                             ("paged_attention", "flash_attention_fwd",
+                              "layernorm"), device == "cuda")
+            worst = _p16_nll_close(counted[url("counted")][1],
+                                   counted[one_url][1], "(a) bf16 score")
+            share = _p16_share(counted[url("counted")][0],
+                               counted[one_url][0], "(a) counted")
+            log(f"  (a) counted: launches on each rank {tp_launches[0]} == "
+                f"one process {one_launches}; K1 by variant "
+                f"{reports[('counted', 0)][1]}; score worst {worst:.5f} nats"
+                f" a token; greedy tokens identical: {share:.4f}")
+            # (a) phase 4's mix, and ms a decode step on each server
+            _p16_wait(url("mix"), procs[0])
+            mix = _p16_mix(torch, url("mix"), one_url, rng, vocab)
+            steps = {"tp": _p16_step_ms(url("mix")),
+                     "one": _p16_step_ms(one_url)}
+            log(f"  (a) ms a decode step at 8 slots: tp=2 "
+                f"{steps['tp']}, one process {steps['one']} on {CARD} (the "
+                "tp pair's time is gloo's host staging of 25 collectives a "
+                "step over two ranks on ONE card, not a tp speed)")
+            finish("mix")
+        finally:
+            _unserve(server, httpd, thread)
+        if device == "cuda":
+            torch.cuda.empty_cache()
+        # (b) the f32 copy at the 2-layer cut, and (d) the handoff
+        _p16_wait(url("f32"), procs[0])
+        server, httpd, thread, one_url = _serve_bundle(
+            torch, dev, bundles["f32"], prefix_cache_size=32, **one_kw)
+        try:
+            prompts = [_p16_prompt(rng, n, vocab) for n, _ in P16_COUNTED]
+            f32 = _p16_greedy(url("f32"), prompts, 24)
+            one_f32 = _p16_greedy(one_url, prompts, 24)
+            check(f32 == one_f32, "(b) f32 greedy tokens differ from the "
+                  "one-process server's")
+            _p16_handoff(url("f32"), one_url, server.model, tokdir, rng)
+            finish("f32")
+            _p16_wait(url("spec"), procs[0])
+            spec = _p16_greedy(url("spec"), prompts, 24)
+            check(spec == one_f32, "(b) --spec-tokens 3 with a draft gave "
+                  "other tokens than spec off")
+            spec_stats = _call(url("spec"), "/healthz")[2]["continuous"][
+                "spec"]
+            check(spec_stats["accept_rate"] > 0, "(b) the draft (the "
+                  f"target's weights) accepted nothing: {spec_stats}")
+            finish("spec")
+            log(f"  (b) f32 at the 2-layer cut: greedy tokens == one process "
+                f"(4 prompts x 24); with a draft (the target's weights) and "
+                f"--spec-tokens 3 the same tokens, accept rate "
+                f"{spec_stats['accept_rate']}")
+        finally:
+            _unserve(server, httpd, thread)
+        # (c) int8 weights: the counted traffic, then (e) the drain
+        _p16_wait(url("int8"), procs[0])
+        server, httpd, thread, one_url = _serve_bundle(
+            torch, dev, bundles["int8"], **one_kw)
+        try:
+            _reset_serve(torch, counters)
+            counted = _p16_counted([url("int8"), one_url], rng, vocab)
+            # (e) the drained request: in flight at rank 0's SIGTERM; the
+            # one-process server then runs the same one, so the counts
+            # still cover the same ops
+            last = {"prompt": _p16_prompt(rng, 40, vocab),
+                    "max_new_tokens": 48}
+            drained = finish("int8", last)
+            inflight = drained.get("inflight")
+            check(inflight is not None and inflight[0] == 200,
+                  f"(e) the request in flight at SIGTERM: {inflight}")
+            check(_call(one_url, "/v1/generate", last)[0] == 200,
+                  "the drained request failed on one process")
+            one_int8 = _moved(counters)
+            tp_int8 = [reports[("int8", r)][0] for r in (0, 1)]
+            _p16_launch_gate(tp_int8, one_int8, "(c) int8",
+                             ("int8_matmul", "paged_attention",
+                              "flash_attention_fwd", "layernorm"),
+                             device == "cuda")
+            worst = _p16_nll_close(counted[url("int8")][1],
+                                   counted[one_url][1], "(c) int8 score")
+            share = _p16_share(counted[url("int8")][0], counted[one_url][0],
+                               "(c) int8")
+            k6 = server.model.k6_launches_per_step()
+            log(f"  (c) int8: launches on each rank {tp_int8[0]} == one "
+                f"process {one_int8} (K6 {k6} a decode step); score worst "
+                f"{worst:.5f} nats a token; greedy identical {share:.4f}; "
+                f"(e) the request in flight at SIGTERM answered "
+                f"{inflight[2]['completions'][0]['new_tokens']} tokens")
+        finally:
+            _unserve(server, httpd, thread)
+    finally:
+        for p in procs:
+            p.join(120)
+            if p.is_alive():
+                p.kill()
+                p.join(10)
+    codes = [p.exitcode for p in procs]
+    check(codes == [0, 0], f"the tp pair exited {codes}")
+    shutil.rmtree(work, ignore_errors=True)
+    log(f"  (e) SIGTERM drained the request in flight; both ranks exited 0; "
+        f"phase 16 took {time.perf_counter() - t_start:.1f} s")
+    return {name: tp_launches[0][name] + tp_int8[0][name]
+            for name in tp_launches[0]}
+
+
 # -- main ---------------------------------------------------------------------
 
 
@@ -7890,6 +8539,12 @@ def main() -> int:
         "fused3 at dp=1, each against its run without a mesh")
     mesh_lm, mesh_resnet, mesh_bert, mesh_pair = run_p11(torch, dev,
                                                          bert_launches)
+    torch.cuda.empty_cache()
+    log("== 16. P11b-serve, tensor-parallel serving over the serve wire: "
+        "serve.main --tp 2 --num-processes 2 as two processes on the card "
+        "(gloo), GPT-small bf16 and int8 and its f32 2-layer cut, against "
+        "a one-process server of each bundle")
+    tp_serve = run_p16(torch, dev)
 
     out = []
     for name, source, replaces, design in KERNELS:
@@ -7919,14 +8574,16 @@ def main() -> int:
                     "mesh_lm_train": mesh_lm.get(name, 0),
                     "mesh_resnet_fused3_train": mesh_resnet.get(name, 0),
                     "mesh_bert_train": mesh_bert.get(name, 0),
-                    "mesh_pair_tp2_lm_train": mesh_pair.get(name, 0)}
+                    "mesh_pair_tp2_lm_train": mesh_pair.get(name, 0),
+                    "serve_tp2_rank0": tp_serve.get(name, 0)}
         # each kernel's count from the path that runs it, the newest
         # slice's path first (paged attention runs only on serving; the
         # block entry on the ring, phase 3c's merge on one card)
         if name == "flash_attention_block":
             launches = per_path["ring_merge"]
-        elif name == "int8_matmul":
-            launches = per_path["serve"]
+        elif per_path["serve_tp2_rank0"]:
+            # K1, K2f, K3 and K6 on the tp=2 serving path (phase 16)
+            launches = per_path["serve_tp2_rank0"]
         else:
             launches = (per_path["mesh_bert_train"]
                         or per_path["mesh_resnet_fused3_train"]

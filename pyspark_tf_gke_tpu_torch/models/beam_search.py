@@ -176,7 +176,7 @@ def beam_search(model: CausalLM, prompt_ids, max_new_tokens: int,
     if eos_token_id is not None and not 0 <= eos_token_id < cfg.vocab_size:
         raise ValueError(
             f"eos_token_id {eos_token_id} outside vocab [0, {cfg.vocab_size})")
-    cache = DenseCache(cfg, b, cfg.max_seq_len, device)
+    cache = DenseCache(cfg, b, cfg.max_seq_len, device, model.kv_cache_heads)
     last_logits = model(prompt, cache=cache, prefill=True,
                         last_index=torch.full((b,), s_prompt - 1,
                                               device=device))[:, 0]

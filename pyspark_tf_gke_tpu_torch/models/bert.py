@@ -29,7 +29,7 @@ approximation), LayerNorm eps 1e-12, f32 logits.
   layer with a ``moe`` submodule (``models/moe.py``); each layer returns
   ``(hidden, aux)``, the encoder ``(hidden, sum of aux)`` and the model's
   ``aux_loss`` is that sum (0 for a dense config). MoE under an sp group
-  of more than one rank raises (P11b: the capacity and the aux loss's
+  of more than one rank raises (P11c: the capacity and the aux loss's
   means are global over the sequence in the JAX model).
 
 Weights: ``param_dtype=None`` keeps them in ``cfg.dtype`` without
@@ -149,7 +149,7 @@ class BertLayer(nn.Module):
         if use_moe and sp_world(sp_group) > 1:
             raise NotImplementedError(
                 "MoE under an sp group of more than one rank is not ported "
-                "to pyspark_tf_gke_tpu_torch yet (ROADMAP, P11b): the capacity "
+                "to pyspark_tf_gke_tpu_torch yet (ROADMAP, P11c): the capacity "
                 "and the aux loss's means are global over the sequence")
         self.attention = BertSelfAttention(cfg, use_kernels, param_dtype,
                                            sp_group)

@@ -17,6 +17,18 @@ variable collection:
 
 Both are updated IN PLACE (the JAX version returns new arrays).
 
+Under tensor parallelism (``spmd.tp``, set by the trainer or by
+``train/serving.shard_params_for_serving``) a rank computes its query
+heads, and its caches hold the KV heads those read
+(:func:`kv_heads_of`): ``H_kv / tp`` of them when ``tp`` divides
+``H_kv``; otherwise each rank gathers the whole K/V (the JAX model
+leaves K/V unsharded there, ``:204-216``) and keeps the one head its
+query heads share, or one a query head when they straddle two. The
+paged kernel (K1) and the flash kernel (K2f) run on the rank's heads,
+LayerNorm (K3) on whole rows, and a vocabulary-parallel head's logits
+are gathered before any pick, so every rank samples from the same full
+logits.
+
 On CUDA every causal full forward (prefill, score, training) runs
 through the flash kernel, at any length; ``use_flash=False`` raises
 there (on the CPU, ``True`` selects the flash plain version).
@@ -182,12 +194,15 @@ def _norm(cfg: CausalLMConfig, use_kernels: bool,
 class DenseCache:
     """Dense K/V cache: per layer ``k``/``v [B, L, H_kv, D]`` in the
     compute dtype, or int8 with f32 ``k_scale``/``v_scale [B, L, H_kv]``
-    under ``kv_cache_quant``. Updated in place."""
+    under ``kv_cache_quant``; ``heads`` KV heads (a tp rank's,
+    ``CausalLM.kv_cache_heads``; all of them by default). Updated in
+    place."""
 
     def __init__(self, cfg: CausalLMConfig, batch: int, length: int,
-                 device: Union[str, torch.device]):
+                 device: Union[str, torch.device],
+                 heads: Optional[int] = None):
         store = torch.int8 if cfg.kv_cache_quant else cfg.dtype
-        shape = (batch, length, cfg.kv_heads, cfg.head_dim)
+        shape = (batch, length, heads or cfg.kv_heads, cfg.head_dim)
         self.k = [torch.zeros(shape, dtype=store, device=device)
                   for _ in range(cfg.num_layers)]
         self.v = [torch.zeros(shape, dtype=store, device=device)
@@ -241,17 +256,20 @@ class PagedKV:
     the device would cost a host sync per write. So each pool carries
     one extra TRASH page at index ``N`` that absorbs every write through
     a sentinel, and readers (the kernel, the plain version) only ever
-    see the ``[0, N)`` view. Updated in place."""
+    see the ``[0, N)`` view. ``heads`` is the number of KV heads the
+    pool holds (a tp rank's; all of them by default). Updated in
+    place."""
 
     def __init__(self, cfg: CausalLMConfig, num_slots: int,
-                 device: Union[str, torch.device]):
+                 device: Union[str, torch.device],
+                 heads: Optional[int] = None):
         n, ps = cfg.kv_num_pages, cfg.kv_page_size
         if cfg.max_seq_len % ps:
             raise ValueError(f"kv_page_size {ps} must divide max_seq_len "
                              f"{cfg.max_seq_len}")
         self.num_pages, self.page_size = n, ps
         store = torch.int8 if cfg.kv_cache_quant else cfg.dtype
-        shape = (n + 1, ps, cfg.kv_heads, cfg.head_dim)
+        shape = (n + 1, ps, heads or cfg.kv_heads, cfg.head_dim)
         layers = range(cfg.num_layers)
         self._k = [torch.zeros(shape, dtype=store, device=device) for _ in layers]
         self._v = [torch.zeros(shape, dtype=store, device=device) for _ in layers]
@@ -343,6 +361,30 @@ class PagedKV:
 # -- the model ----------------------------------------------------------------
 
 
+def kv_heads_of(cfg: CausalLMConfig, size: int = 1, rank: int = 0
+                ) -> List[int]:
+    """The (global) KV heads the caches of tp rank ``rank`` of ``size``
+    hold, in cache order: every head off a tp mesh; the rank's ``H_kv /
+    size`` when ``size`` divides ``H_kv``; else the one head the rank's
+    ``H / size`` query heads share, or, when they straddle two, each
+    query head's own (so ``H / size`` is always a multiple of the count,
+    as the kernels need)."""
+    hkv = cfg.kv_heads
+    if hkv % size == 0:
+        n = hkv // size
+        return list(range(rank * n, (rank + 1) * n))
+    hl, g = cfg.num_heads // size, cfg.num_heads // hkv
+    first = rank * hl
+    if g % hl == 0:
+        return [first // g]
+    return [(first + j) // g for j in range(hl)]
+
+
+def _rank_kv_heads(cfg: CausalLMConfig, spmd) -> List[int]:
+    tp = spmd.tp if spmd is not None else None
+    return kv_heads_of(cfg, tp.size, tp.rank) if tp else kv_heads_of(cfg)
+
+
 class CausalSelfAttention(nn.Module):
     spmd = None  # set by the trainer on a mesh (parallel/spmd.py)
 
@@ -366,22 +408,22 @@ class CausalSelfAttention(nn.Module):
         b, s, _ = hidden.shape
         h, hkv, d = cfg.num_heads, cfg.kv_heads, cfg.head_dim
         tp = self.spmd.tp if self.spmd is not None else None
-        if tp is not None and cache is not None:
-            raise NotImplementedError(
-                "a KV cache under tp is the multi-host serve path, not "
-                "ported to pyspark_tf_gke_tpu_torch (ROADMAP, P11b)")
         q, k, v = dense_group((self.query, self.key, self.value), hidden,
                               inloop)
-        gather_kv = tp is not None and hkv % tp.size != 0
-        if gather_kv:
-            # fewer K/V heads than tp ranks split evenly: JAX repeats K/V
-            # to every query head before splitting the heads (:204-216),
-            # so each rank takes its heads of the whole, repeated K/V
-            k, v = (tp.copy_to(tp.gather_from(t, -1)) for t in (k, v))
-        # this rank's heads (all of them off a tp mesh)
+        # this rank's query heads (all of them off a tp mesh)
         q = q.reshape(b, s, -1, d)
-        k = k.reshape(b, s, -1, d)
-        v = v.reshape(b, s, -1, d)
+        if tp is not None and hkv % tp.size:
+            # fewer K/V heads than tp ranks split evenly: JAX leaves K/V
+            # whole there (:204-216), so each rank gathers them and keeps
+            # the heads its query heads read (kv_heads_of)
+            if k.shape[-1] != hkv * d:
+                k, v = (tp.copy_to(tp.gather_from(t, -1)) for t in (k, v))
+            heads = kv_heads_of(cfg, tp.size, tp.rank)
+            k = k.reshape(b, s, hkv, d)[:, :, heads]
+            v = v.reshape(b, s, hkv, d)[:, :, heads]
+        else:
+            k = k.reshape(b, s, -1, d)
+            v = v.reshape(b, s, -1, d)
         if cfg.pos_embedding == "rope":
             if d % 2:
                 raise ValueError(f"rope needs an even head_dim, got {d}")
@@ -397,15 +439,12 @@ class CausalSelfAttention(nn.Module):
             if prefill:  # _write_cache_prefix: rows 0..s-1 of every batch row
                 cache.write(layer, torch.zeros(b, dtype=torch.long,
                                                device=q.device), k, v)
-            if hkv != h:
+            if k.shape[2] != q.shape[2]:
                 # GQA prefill/score: broadcast K/V to every query head (as
                 # the JAX model does); the memory win is in the cache
-                hl = q.shape[2]
-                k = k.repeat_interleave(h // hkv, dim=2)
-                v = v.repeat_interleave(h // hkv, dim=2)
-                if gather_kv:
-                    k, v = (t[:, :, tp.rank * hl:(tp.rank + 1) * hl]
-                            for t in (k, v))
+                g = q.shape[2] // k.shape[2]
+                k = k.repeat_interleave(g, dim=2)
+                v = v.repeat_interleave(g, dim=2)
             out = self._causal_attend(q, k, v, segment_ids)
         return self.out(out.reshape(b, s, -1), inloop)
 
@@ -539,6 +578,15 @@ class CausalLM(nn.Module):
     @property
     def device(self) -> torch.device:
         return self.lm_head.kernel.device
+
+    @property
+    def kv_heads_held(self) -> List[int]:
+        """The KV heads this rank's caches hold (:func:`kv_heads_of`)."""
+        return _rank_kv_heads(self.cfg, self.spmd)
+
+    @property
+    def kv_cache_heads(self) -> int:
+        return len(self.kv_heads_held)
 
     def k6_launches_per_step(self) -> int:
         """K6 launches of one in-loop forward (a decode step): one for
@@ -723,7 +771,8 @@ def generate(model: CausalLM, prompt_ids, max_new_tokens: int,
     if not greedy and generator is None:
         generator = torch.Generator(device=device).manual_seed(0)
 
-    cache = DenseCache(cfg, b, cfg.max_seq_len, device)
+    cache = DenseCache(cfg, b, cfg.max_seq_len, device,
+                       model.kv_cache_heads)
     logits = model(prompt, cache=cache, prefill=True,
                    last_index=torch.full((b,), s_prompt - 1,
                                          device=device))[:, 0]

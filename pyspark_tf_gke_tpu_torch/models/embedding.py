@@ -62,18 +62,22 @@ class TokenEmbed(nn.Module):
         self.embedding_scale = qt.scale.to(device, torch.float32).reshape(
             rows, 1)
 
-    def forward(self, ids: torch.Tensor) -> torch.Tensor:
+    def _rows(self, ids: torch.Tensor) -> torch.Tensor:
         if self.embedding_scale is not None:
             return gather_rows(self.embedding, self.embedding_scale, ids,
                                self.dtype)
+        return self.embedding[ids]
+
+    def forward(self, ids: torch.Tensor) -> torch.Tensor:
         local = self.embedding.shape[0]
         if local != self.rows:
-            # vocab-parallel: this tp rank holds rows [r*local, (r+1)*local);
-            # the others' rows come in through the sum
+            # vocab-parallel: this tp rank holds rows [r*local, (r+1)*local)
+            # (int8 rows with their scales); the others' rows come in
+            # through the sum
             tp = self.spmd.tp
             idx = ids - tp.rank * local
             mine = (idx >= 0) & (idx < local)
-            rows = self.embedding[torch.where(mine, idx, 0)]
+            rows = self._rows(torch.where(mine, idx, 0))
             rows = torch.where(mine[..., None], rows, 0.0)
             return tp.reduce_from(rows).to(self.dtype)
-        return self.embedding[ids].to(self.dtype)
+        return self._rows(ids).to(self.dtype)

@@ -106,12 +106,9 @@ class Dense(nn.Module):
     def forward(self, x: torch.Tensor, inloop: bool = False) -> torch.Tensor:
         x = x.to(self.dtype)
         tp = self.spmd.tp if self.spmd is not None else None
-        if tp is not None and self.kernel.shape[0] != self.features[0]:
-            # row-parallel: the ranks' partial products summed, then the
-            # (whole) bias once
-            y = tp.reduce_from(torch.matmul(x, self.kernel.to(self.dtype)))
-            return y + self.bias.to(self.dtype)
-        if tp is not None and self.kernel.shape[1] != self.features[1]:
+        row = tp is not None and self.kernel.shape[0] != self.features[0]
+        if (tp is not None and not row
+                and self.kernel.shape[1] != self.features[1]):
             # column-parallel: this rank's output columns; the input's
             # gradient is summed over the ranks
             x = tp.copy_to(x)
@@ -121,6 +118,10 @@ class Dense(nn.Module):
             y = int8_matmul(x, self.kernel, self.kernel_scale)
         else:
             y = int8_matmul_plain(x, self.kernel, self.kernel_scale)
+        if row:
+            # row-parallel: the ranks' partial products summed, then the
+            # (whole) bias once
+            y = tp.reduce_from(y)
         return y + self.bias.to(self.dtype)
 
 

@@ -20,7 +20,7 @@ a dense one-hot dispatch, as the JAX layer computes it.
 Parameters keep flax's names and shapes, in f32 whatever the compute
 dtype (trainable when ``trainable``): ``router [H, E]``, ``w_in [E, H,
 I]``, ``b_in [E, I]``, ``w_out [E, I, H]``, ``b_out [E, H]``.
-Expert parallelism (the ``ep`` axis) is P11b's; on a mesh the trainer
+Expert parallelism (the ``ep`` axis) is P11c's; on a mesh the trainer
 sets ``spmd``: the experts' hidden units split on ``tp`` and the aux
 loss's means are taken over the whole batch.
 """

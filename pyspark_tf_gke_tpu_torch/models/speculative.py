@@ -147,7 +147,8 @@ def _prefill(model: CausalLM, prompt: torch.Tensor):
     """Dense prefill of ``prompt [B, S]``: the cache (``max_seq_len``
     rows) and the last token's logits ``[B, V]``."""
     b, s = prompt.shape
-    cache = DenseCache(model.cfg, b, model.cfg.max_seq_len, model.device)
+    cache = DenseCache(model.cfg, b, model.cfg.max_seq_len, model.device,
+                       model.kv_cache_heads)
     logits = model(prompt, cache=cache, prefill=True,
                    last_index=torch.full((b,), s - 1, device=model.device))
     return cache, logits[:, 0]

@@ -7,7 +7,7 @@ its differentiable collectives and the placement of a model).
 The JAX package's ``parallel/compat.py`` has no counterpart: it only
 spells ``shard_map`` and flax's unboxing across jax versions. Its
 ``parallel/pipeline.py`` (the GPipe schedule) is not ported yet
-(ROADMAP, P11b).
+(ROADMAP, P11c).
 """
 
 from pyspark_tf_gke_tpu_torch.parallel.mesh import (

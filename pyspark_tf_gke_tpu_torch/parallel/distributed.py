@@ -12,7 +12,16 @@ address.
 One difference in meaning: a JAX process is a host and drives every chip
 on it, while a port process drives ONE card. So ``--num-processes``
 counts cards in the port (a node with 8 cards runs 8 processes), and a
-process takes the card ``process_id % cards on the node``.
+process takes the card ``process_id % cards on the node``. A process
+already in a world (a caller that joined a gloo world itself, as two
+ranks on one card must: NCCL refuses them) keeps it.
+
+The serving wire (``train/serving.py``) broadcasts host arrays from rank
+0 with :func:`broadcast_one_to_all` (the counterpart of
+``multihost_utils.broadcast_one_to_all``) over a gloo group of CPU
+tensors made once beside the device group (:func:`wire_group`), so it
+never touches a device stream nor the NCCL communicator a captured
+chunk uses.
 """
 
 from __future__ import annotations
@@ -124,6 +133,38 @@ def ensure_world(device) -> None:
     if not dist.is_initialized():
         dist.init_process_group(backend_for(device), store=dist.HashStore(),
                                 world_size=1, rank=0)
+
+
+# (the world it was made in, the wire group): a process's groups live as
+# long as its world
+_WIRE_GROUP: list = [None, None]
+
+
+def wire_group():
+    """The host wire's gloo group over every rank: the world itself when
+    its backend is gloo, else one made on first use in this world (a
+    collective: every rank makes it, at the same point of its run)."""
+    world = dist.group.WORLD
+    if _WIRE_GROUP[0] is not world:
+        _WIRE_GROUP[:] = [world, world if dist.get_backend() == "gloo"
+                          else dist.new_group(backend="gloo")]
+    return _WIRE_GROUP[1]
+
+
+def broadcast_one_to_all(x):
+    """Rank 0's ``x`` (a numpy array or scalar) on every rank, as a
+    numpy array of ``x``'s shape and dtype; the other ranks' ``x`` gives
+    only the shape and dtype. The identity outside a world of several
+    ranks."""
+    import numpy as np
+
+    arr = np.ascontiguousarray(np.asarray(x))
+    if not dist.is_initialized() or dist.get_world_size() == 1:
+        return arr
+    # as bytes: gloo takes uint8 whatever the array's dtype
+    t = torch.from_numpy(arr.reshape(-1).view(np.uint8).copy())
+    dist.broadcast(t, src=0, group=wire_group())
+    return t.numpy().view(arr.dtype).reshape(arr.shape)
 
 
 def as_host_array(x):

@@ -102,12 +102,13 @@ def fsdp_shardings(params: Mapping, mesh,
 
 
 def logical_spec(axes: Optional[tuple], shape: tuple, mesh,
-                 rules=LOGICAL_RULES) -> Spec:
+                 rules=LOGICAL_RULES, fit: bool = False) -> Spec:
     """The spec of a leaf with logical ``axes`` (flax's
     ``logical_to_mesh_axes``: each name takes its first rule whose mesh
     axis the leaf does not use yet), evened out as the module docstring
     says. ``axes=None`` (an unannotated leaf of an annotated model)
-    is replicated."""
+    is replicated. ``fit=True`` leaves ANY dimension whole that its
+    extent does not divide (the serving placement's ``fit_spec``)."""
     if axes is None:
         return ()
     sizes = mesh_sizes(mesh)
@@ -128,7 +129,7 @@ def logical_spec(axes: Optional[tuple], shape: tuple, mesh,
             used.update(names)
             extent = int(np.prod([sizes.get(a, 1) for a in names]))
             if dim % extent:
-                if "tp" in names and name != "vocab":
+                if "tp" in names and name != "vocab" and not fit:
                     raise ValueError(
                         f"logical axis {name!r} of size {dim} does not "
                         f"split over {target}={extent}")

@@ -21,7 +21,7 @@ flags (one card a process) lay the run out on a ``DeviceMesh``
 (``train/harness.py::setup_mesh``): ``dp``, ``fsdp``, ``tp`` and ``sp``,
 whose ranks each hold one sequence block and run the ring or Ulysses
 attention (``--sp-impl``) over the mesh's ``sp`` axis; ``pp``, ``ep``
-and MoE under ``sp`` raise naming P11b. The batch flags are global:
+and MoE under ``sp`` raise naming P11c. The batch flags are global:
 every rank reads the shard stream and keeps its rows (and, under
 ``sp``, its sequence block) of each global batch. ``--num-experts N``
 turns every ``--moe-every``-th
@@ -161,7 +161,7 @@ def main(argv=None) -> dict:
     if args.num_experts and parse_mesh_shape(args.mesh_shape).get("sp", 1) > 1:
         raise NotImplementedError(
             "--num-experts under sp > 1 is not ported to "
-            "pyspark_tf_gke_tpu_torch yet (ROADMAP, P11b): the capacity and "
+            "pyspark_tf_gke_tpu_torch yet (ROADMAP, P11c): the capacity and "
             "the aux loss's means are global over the sequence")
     mesh = setup_mesh(args.mesh_shape, args.dcn_mesh_shape,
                       args.num_processes, args.process_id,

@@ -23,7 +23,7 @@ attempts, so a replayed step passes). ``--profile-dir`` writes a
 on ``cuda`` unless ``--device cpu``. ``--mesh-shape``,
 ``--dcn-mesh-shape`` and ``--num-processes`` (one card a process) lay
 the run out on a ``DeviceMesh`` (``train/harness.py::setup_mesh``;
-``dp``, ``fsdp`` and ``tp`` run, the rest raise naming P11b). The batch
+``dp``, ``fsdp`` and ``tp`` run, the rest raise naming P11c). The batch
 flags are global: every rank reads every row and keeps its rows of each
 global batch, so a mesh run sees the one-process run's batches; rank 0
 writes the artifacts.

@@ -106,6 +106,19 @@ chunked prefill extends a batch-1 staging cache piece by piece, and the
 spec verify runs over the dense cache. There are no pages to move: the
 KV handoff and the page reads and writes raise, as the JAX engine's do.
 
+The device half is :class:`SlotDeviceState` (the slot state, the draft
+slots, the captured chunks and every op on them); the engine keeps the
+host half (queue, pages and refcounts, the radix trie, scheduling,
+deadlines, step stats). With ``announce`` (rank 0 of a multi-process
+server, ``train/serving.py``) each device op is published on the serve
+wire before it runs, under the announce lock (``_announced``, at the
+JAX engine's sites), and the workers' replicas replay it: batched
+admission, the dense prefix LRU and dense chunked prefill are
+single-host, as in the JAX engine, and ``pipeline_depth`` over 1
+raises. On a tp mesh (a model placed by ``shard_params_for_serving``)
+the chunks run eagerly when the tp group is gloo's, whose collectives
+cannot be captured (``captured``).
+
 The attribute names ``_queue``, ``_slots``, ``_admitting``,
 ``_inflight_q``, ``_page_refs``, ``_free_pages``, ``_slot_pages`` and
 ``radix`` match the JAX engine so its invariant checker can run here.
@@ -127,7 +140,8 @@ from pyspark_tf_gke_tpu_torch.chaos.inject import chaos_fire
 from pyspark_tf_gke_tpu_torch.models import lanes
 from pyspark_tf_gke_tpu_torch.models.causal_lm import (CausalLM, DenseCache,
                                                        PagedKV,
-                                                       _filter_logits)
+                                                       _filter_logits,
+                                                       kv_heads_of)
 from pyspark_tf_gke_tpu_torch.models.speculative import (accept_and_correct,
                                                          emit_window)
 from pyspark_tf_gke_tpu_torch.obs.metrics import platform_families
@@ -328,9 +342,10 @@ class SlotState:
     def __init__(self, model: CausalLM, num_slots: int,
                  device: torch.device):
         cfg = model.cfg
-        self.cache = (PagedKV(cfg, num_slots, device) if cfg.paged_kv
+        heads = model.kv_cache_heads
+        self.cache = (PagedKV(cfg, num_slots, device, heads) if cfg.paged_kv
                       else DenseCache(cfg, num_slots, cfg.max_seq_len,
-                                      device))
+                                      device, heads))
         self.positions = torch.zeros(num_slots, dtype=torch.long,
                                      device=device)
         self.last_logits = torch.zeros(num_slots, cfg.vocab_size,
@@ -369,7 +384,7 @@ def _prefill_padded_batch(model: CausalLM, padded: np.ndarray,
     last = _h2d(true_lens.astype(np.int64) - 1, device)
     cache = DenseCache(model.cfg, padded.shape[0],
                        length if length is not None else padded.shape[1],
-                       device)
+                       device, model.kv_cache_heads)
     logits = model(ids, cache=cache, prefill=True, last_index=last)
     return cache, logits[:, 0]
 
@@ -593,7 +608,7 @@ class DraftSlots:
                  device: torch.device):
         self.model = model
         self.cache = DenseCache(model.cfg, num_slots, model.cfg.max_seq_len,
-                                device)
+                                device, model.kv_cache_heads)
 
 
 def _insert_draft_rows(draft: DraftSlots, caches: DenseCache,
@@ -786,6 +801,332 @@ class _InflightStep:
             self.event.synchronize()
         return (self.a.numpy(),
                 self.b.numpy() if self.b is not None else None)
+
+
+# -- the device half ------------------------------------------------------------
+
+# a greedy lane (temperature 0): what the wire gives a slot whose request
+# does not sample
+_GREEDY = (0.0, 1.0, 0)
+
+
+def wire_sampling(req: _Request) -> tuple:
+    """The lane a request's admission installs, as every rank receives it
+    (``announce_cb_admit`` sends a lane only when it samples): its
+    ``(temperature, top_p, seed)``, or the greedy lane."""
+    if req.temperature > 0:
+        return req.sampling()
+    return _GREEDY
+
+
+def _chunk_captured(model: CausalLM, device: torch.device) -> bool:
+    """Whether a chunk on ``device`` is captured as a CUDA graph: on
+    CUDA, unless the model's tp group is not NCCL's (gloo's collectives
+    cannot be captured; the chunk then runs eagerly). Decided once, from
+    the group's backend; a failed capture is never caught."""
+    if device.type != "cuda":
+        return False
+    tp = model.spmd.tp if model.spmd is not None else None
+    if tp is None:
+        return True
+    import torch.distributed as dist
+
+    return dist.get_backend(tp.group) == "nccl"
+
+
+class SlotDeviceState:
+    """The engine's DEVICE half (the JAX ``SlotDeviceState``): the slot
+    state (:class:`SlotState`), the draft's slots, the captured chunks
+    and every op that changes them — admit (batched or one request),
+    chunked-prefill piece, slot activation, copy-on-write page clone,
+    draft rows, decode and spec chunks (immediate or deferred), collect,
+    free and the KV page reads and installs. Process 0's engine and a
+    worker's replica (``train/serving.serve_worker_loop``) call the same
+    code with the same inputs in the same order, so on a tp mesh every
+    rank issues the same device collectives and holds the same fills,
+    block tables and carried logits.
+
+    ``draft_model`` is the draft of speculative chunks; without one
+    (``spec_tokens > 0``, or the first spec op a worker replays) the
+    target drafts for itself. ``captured`` says whether chunks replay
+    CUDA graphs (:func:`_chunk_captured`)."""
+
+    def __init__(self, model: CausalLM, num_slots: int,
+                 draft_model: Optional[CausalLM] = None,
+                 spec_tokens: int = 0):
+        self.model = model
+        self.num_slots = num_slots
+        self.device = model.device
+        self.paged = model.cfg.paged_kv
+        self.state = SlotState(model, num_slots, self.device)
+        self.spec_tokens = int(spec_tokens)
+        self._draft_model = draft_model
+        self.draft: Optional[DraftSlots] = None
+        if draft_model is not None or self.spec_tokens:
+            self._ensure_draft()
+        self.captured = _chunk_captured(model, self.device)
+        # the captured chunks, decode by (size, sampling), spec by
+        # (rounds, k, sampling)
+        self.graphs: Dict[tuple, graphs.Captured] = {}
+        self._graph_pool = None
+
+    def _ensure_draft(self) -> DraftSlots:
+        if self.draft is None:
+            draft = (self._draft_model if self._draft_model is not None
+                     else self.model)
+            if draft.device != self.device:
+                raise ValueError(f"draft model on {draft.device}, target on "
+                                 f"{self.device}: one device for both")
+            self.draft = DraftSlots(draft, self.num_slots, self.device)
+        return self.draft
+
+    # -- admission -------------------------------------------------------
+    @torch.no_grad()
+    def admit(self, padded: np.ndarray, lens: np.ndarray, slots: List[int],
+              samplings: List[tuple],
+              pages_b: Optional[np.ndarray] = None) -> None:
+        """ONE prefill of the right-padded prompts ``padded [k, w]`` and
+        ONE scatter of them into ``slots`` (a paged model's into the
+        pages of each row of ``pages_b``), with each slot's fill, carried
+        logits, live flag and sampling lane."""
+        caches, logits = _prefill_padded_batch(self.model, padded, lens)
+        if self.paged:
+            _insert_slots_batch_paged(self.state, caches, logits, slots,
+                                      lens, pages_b, samplings,
+                                      n_rows=padded.shape[1])
+        else:
+            _insert_slots_batch(self.state, caches, logits, slots, lens,
+                                samplings)
+
+    def admit_padded(self, padded: np.ndarray, true_len: int, slot: int,
+                     sampling: Optional[tuple] = None,
+                     pages: Optional[np.ndarray] = None) -> None:
+        """One request's admission (the wire's ``OP_CB_ADMIT``):
+        ``padded [1, w]`` into ``slot`` (a paged model's into the pages of
+        ``pages``), its lane ``sampling`` (greedy when None)."""
+        self.admit(np.asarray(padded, np.int32).reshape(1, -1),
+                   np.asarray([true_len], np.int32), [slot],
+                   [sampling if sampling is not None else _GREEDY],
+                   None if pages is None
+                   else np.asarray(pages, np.int32)[None])
+
+    @torch.no_grad()
+    def draft_prefill_rows(self, padded: np.ndarray, lens: np.ndarray,
+                           slots: List[int]) -> None:
+        """The draft's half of an admission: one right-padded draft
+        prefill of ``padded [k, w]`` into the draft rows of ``slots``."""
+        _draft_prefill_rows(self._ensure_draft(), padded,
+                            np.asarray(lens, np.int32), list(slots))
+
+    def draft_prefill_row(self, padded: np.ndarray, true_len: int,
+                          slot: int) -> None:
+        """One request's draft prefill (``padded [1, w]``) into the draft
+        row of ``slot``."""
+        self.draft_prefill_rows(np.asarray(padded, np.int32).reshape(1, -1),
+                                np.asarray([true_len], np.int32), [slot])
+
+    @torch.no_grad()
+    def prefill_chunk(self, padded: np.ndarray, fill: int, true_len: int,
+                      row: np.ndarray) -> torch.Tensor:
+        """One chunked-prefill piece (``padded [w]`` or ``[1, w]``)
+        straight into the page pool through ``row``
+        (:func:`_paged_prefill_chunk`); its last real token's logits
+        ``[1, V]``."""
+        return _paged_prefill_chunk(self.model, self.state,
+                                    np.asarray(padded, np.int32).reshape(-1),
+                                    fill, true_len,
+                                    np.asarray(row, np.int32))
+
+    @torch.no_grad()
+    def activate_slot(self, slot: int, fill: int, logits1: torch.Tensor,
+                      row: np.ndarray, sampling: tuple) -> None:
+        _activate_slot_paged(self.state, slot, row, fill, logits1, sampling)
+
+    @torch.no_grad()
+    def copy_page(self, src: int, dst: int) -> None:
+        self.state.cache.copy_page(src, dst)
+
+    @torch.no_grad()
+    def free(self, slot: int) -> None:
+        if self.paged:
+            _clear_live_paged(self.state, slot)
+        else:
+            _clear_live(self.state, slot)
+
+    # -- KV pages ----------------------------------------------------------
+    @torch.no_grad()
+    def read_pages(self, pages) -> List[dict]:
+        """``_gather_pages``: the rows of ``pages`` from every layer's
+        pool leaves, host numpy, one dict per layer in wire order (bf16
+        as float32). On a tp mesh every rank calls it: the ranks' heads
+        are gathered, so the rows hold every KV head, as one process's
+        do."""
+        if not self.paged:
+            raise ValueError("read_pages needs the paged cache layout")
+        kv = self.state.cache
+        idx = torch.as_tensor(list(pages), dtype=torch.long,
+                              device=self.device)
+        out = []
+        for layer in wire_layer_order(self.model.cfg.num_layers):
+            rec = {}
+            for key, leaf in kv.page_leaves(layer).items():
+                rows = _all_heads(self.model, leaf[idx])
+                if rows.dtype == torch.bfloat16:
+                    rows = rows.float()  # numpy has no bfloat16
+                rec[key] = rows.cpu().numpy()
+            out.append(rec)
+        return out
+
+    @torch.no_grad()
+    def write_pages(self, pages, blobs) -> None:
+        """``_install_pages``: scatter transferred page rows (one dict a
+        layer, wire order, every KV head) into the pool at ``pages``,
+        cast to each leaf's dtype; a tp rank installs its own heads."""
+        if not self.paged:
+            raise ValueError("write_pages needs the paged cache layout")
+        kv = self.state.cache
+        idx = _h2d(np.asarray(pages, np.int64), self.device)
+        heads = self.model.kv_heads_held
+        for layer, rec in zip(wire_layer_order(self.model.cfg.num_layers),
+                              blobs):
+            for key, leaf in kv.page_leaves(layer).items():
+                if key not in rec:
+                    raise ValueError(f"KV transfer lacks {key} for "
+                                     f"layer {layer}")
+                rows = np.asarray(rec[key])
+                if rows.dtype.kind not in "iuf":
+                    rows = rows.astype(np.float32)  # bfloat16 arrays
+                if rows.ndim >= 3 and rows.shape[2] == self.model.cfg.kv_heads:
+                    rows = rows[:, :, heads]
+                if rows.shape[1:] != leaf.shape[1:]:
+                    raise ValueError(
+                        f"KV transfer {key} rows {rows.shape[1:]} do "
+                        f"not fit pages {tuple(leaf.shape[1:])}")
+                leaf[idx] = _h2d(rows, self.device).to(leaf.dtype)
+
+    # -- chunks --------------------------------------------------------------
+    def _chunk_body(self, key: tuple, eos_token_id: Optional[int],
+                    pad_id: int):
+        """The chunk body of a graph key: a decode chunk for ``(size,
+        sampling)``, a spec chunk for ``(rounds, k, sampling)``."""
+        st = self.state
+        if len(key) == 3:
+            rounds, k, sampling = key
+            draft = self._ensure_draft()
+            return lambda: _spec_chunk(self.model, draft, st, rounds, k,
+                                       eos_token_id, pad_id, sampling)
+        size, sampling = key
+        return lambda: _decode_chunk(self.model, st, size, eos_token_id,
+                                     pad_id, sampling)
+
+    def _graph(self, key: tuple, eos_token_id: Optional[int],
+               pad_id: int) -> graphs.Captured:
+        """The captured chunk of ``key``, captured on first use
+        (``ops/graphs.py``: an eager warm-up on a side stream, the
+        carried slot state put back, then the capture into the shared
+        pool). The warm-up's page and draft writes land where the first
+        replay writes the same values: at and past each row's position,
+        in its own pages, the trash page or its draft row. A failed
+        capture raises; nothing falls back to eager launches."""
+        entry = self.graphs.get(key)
+        if entry is None:
+            if self._graph_pool is None:
+                self._graph_pool = torch.cuda.graph_pool_handle()
+            entry = graphs.capture(self._chunk_body(key, eos_token_id,
+                                                    pad_id),
+                                   self.state.carried(), self.device,
+                                   self._graph_pool)
+            self.graphs[key] = entry
+        return entry
+
+    def _run(self, key: tuple, eos_token_id: Optional[int], pad_id: int,
+             extra: Sequence[torch.Tensor]):
+        """Run one chunk without reading it back: ``(outputs, event)``,
+        its output and ``extra`` copied into fresh pinned host buffers
+        behind ``event`` on CUDA (the graph replayed when ``captured``,
+        the body launched eagerly otherwise); the CPU runs the body and
+        ``event`` is None."""
+        if self.device.type != "cuda":
+            out = self._chunk_body(key, eos_token_id, pad_id)()
+            return [out] + [t.clone() for t in extra], None
+        if self.captured:
+            entry = self._graph(key, eos_token_id, pad_id)
+            entry.replay()
+            out = entry.out
+        else:
+            out = self._chunk_body(key, eos_token_id, pad_id)()
+        return graphs.pinned_copies([out] + list(extra), self.device)
+
+    @torch.no_grad()
+    def chunk_async(self, size: int, eos_token_id: Optional[int],
+                    pad_id: int, sampling: bool = False):
+        """Dispatch one ``size``-step decode chunk over every slot:
+        ``(tokens [B, size], live [B], event)``."""
+        (toks, live), event = self._run((size, sampling), eos_token_id,
+                                        pad_id, [self.state.live])
+        return toks, live, event
+
+    @torch.no_grad()
+    def spec_chunk_async(self, rounds: int, eos_token_id: Optional[int],
+                         pad_id: int, sampling: bool = False,
+                         k: Optional[int] = None):
+        """Dispatch one ``rounds``-round spec chunk of width ``k`` (the
+        construction's ``spec_tokens`` when None: a worker learns it from
+        each chunk header): ``(packed, event)``."""
+        key = (rounds, int(k) if k is not None else self.spec_tokens,
+               sampling)
+        (packed,), event = self._run(key, eos_token_id, pad_id, [])
+        return packed, event
+
+    @staticmethod
+    def fetch(*arrays, event=None) -> tuple:
+        """A dispatched chunk's results as numpy, waiting for ``event``."""
+        if event is not None:
+            event.synchronize()
+        return tuple(a.numpy() if a is not None else None for a in arrays)
+
+    def fetch_tuple(self, handles) -> tuple:
+        """:meth:`fetch` of what :meth:`chunk_async` or
+        :meth:`spec_chunk_async` returned."""
+        *arrays, event = handles
+        return self.fetch(*arrays, event=event)
+
+    def chunk(self, size: int, eos_token_id: Optional[int], pad_id: int,
+              sampling: bool = False) -> tuple:
+        """Dispatch and read back (the unpipelined path): ``(tokens,
+        live)`` as numpy."""
+        toks, live, event = self.chunk_async(size, eos_token_id, pad_id,
+                                             sampling)
+        return self.fetch(toks, live, event=event)
+
+    def spec_chunk(self, rounds: int, eos_token_id: Optional[int],
+                   pad_id: int, sampling: bool = False,
+                   k: Optional[int] = None) -> np.ndarray:
+        packed, event = self.spec_chunk_async(rounds, eos_token_id, pad_id,
+                                              sampling, k)
+        return self.fetch(packed, event=event)[0]
+
+
+def _all_heads(model: CausalLM, rows: torch.Tensor) -> torch.Tensor:
+    """Page rows ``[n, P, h, ...]`` of a rank's KV heads as rows of every
+    KV head (one process's layout): gathered over the model's tp group
+    (a collective) and each global head taken from the first rank that
+    holds it. The rows themselves off a tp mesh."""
+    tp = model.spmd.tp if model.spmd is not None else None
+    if tp is None:
+        return rows
+    from pyspark_tf_gke_tpu_torch.parallel.spmd import all_gather_cat
+
+    cfg = model.cfg
+    held = [kv_heads_of(cfg, tp.size, r) for r in range(tp.size)]
+    both = all_gather_cat(rows.contiguous(), 2, tp.group, tp.order)
+    pick = []
+    for head in range(cfg.kv_heads):
+        for r, heads in enumerate(held):
+            if head in heads:
+                pick.append(r * len(heads) + heads.index(head))
+                break
+    return both[:, :, pick]
 
 
 # -- the radix prefix cache (host side) -----------------------------------------
@@ -1103,10 +1444,29 @@ class ContinuousEngine:
                  spec_tokens: int = 0,
                  draft_model: Optional[CausalLM] = None,
                  obs: Optional[dict] = None,
-                 peak_flops: float = 0.0):
+                 peak_flops: float = 0.0,
+                 announce: bool = False):
         cfg = model.cfg
         # the JAX engine's flag (its invariant checker reads it)
         self.paged = cfg.paged_kv
+        # announce (a multi-process server's rank 0): every device op is
+        # published on the serving wire before it runs, under the
+        # announce lock, and the workers replay it (train/serving.py).
+        # A tp model carries its groups: the engine takes no mesh.
+        self.announce = bool(announce)
+        if pipeline_depth > 1 and announce:
+            raise ValueError(
+                "pipeline_depth >= 2 is single-host only (the announce "
+                "replay's deferred-chunk window is depth-1 sized)")
+        if prefill_chunk and announce and not self.paged:
+            raise ValueError(
+                "dense chunked prefill is single-host only (announce "
+                "mode); the paged engine replays chunk progress over "
+                "the wire")
+        if prefix_cache_size and announce and not self.paged:
+            raise ValueError(
+                "dense prefix caching is single-host only (announce "
+                "mode); the paged radix cache replays over the wire")
         if num_slots < 1 or chunk < 1:
             raise ValueError("num_slots and chunk must be >= 1")
         if schedule not in ("fifo", "longest"):
@@ -1222,7 +1582,6 @@ class ContinuousEngine:
         self.stepstats.bind(self._obs, flops_per_token=flops_per_token(cfg),
                             peak_flops=peak_flops)
         self._step_rec = None
-        self._state = SlotState(model, num_slots, self.device)
         # speculative decoding: spec_tokens draft proposals a slot a
         # round, ONE multi-query verify; no draft model = SELF-draft (the
         # target proposes for itself through a dense shadow cache)
@@ -1236,22 +1595,45 @@ class ContinuousEngine:
                 f"draft vocab {draft_model.cfg.vocab_size} != target vocab "
                 f"{cfg.vocab_size}: the models must share a tokenizer")
         self._self_draft = self._spec and draft_model is None
-        self._draft: Optional[DraftSlots] = None
-        if self._spec:
-            draft = draft_model if draft_model is not None else model
-            if draft.device != self.device:
-                raise ValueError(f"draft model on {draft.device}, target on "
-                                 f"{self.device}: one device for both")
-            self._draft = DraftSlots(draft, num_slots, self.device)
+        # the device half: slot state, draft slots, captured chunks (a
+        # worker's replica runs the same class)
+        self._device = SlotDeviceState(
+            model, num_slots, draft_model if self._spec else None,
+            self.spec_tokens)
+        # whether chunks replay CUDA graphs: not under a gloo tp group,
+        # whose collectives cannot be captured (decided once)
+        self.captured = self._device.captured
+        self._tp = model.spmd.tp if model.spmd is not None else None
         self._n_spec_rounds = 0
         self._n_spec_proposed = 0
         self._n_spec_accepted = 0
         # (proposed, accepted) of the last collected spec chunks
         self._spec_window: Deque[tuple] = deque(maxlen=_SPEC_WINDOW)
-        # CUDA: the captured chunks, decode by (size, sampling), spec by
-        # (rounds, k, sampling)
-        self._graphs: Dict[tuple, graphs.Captured] = {}
-        self._graph_pool = None
+
+    @property
+    def _state(self) -> SlotState:
+        return self._device.state
+
+    @property
+    def _draft(self) -> Optional[DraftSlots]:
+        return self._device.draft
+
+    @property
+    def _graphs(self) -> Dict[tuple, graphs.Captured]:
+        return self._device.graphs
+
+    def _announced(self, announce_thunk, device_thunk):
+        """Announce an op and run its device work under one hold of the
+        announce lock (the workers run ops in announce order, so rank
+        0's device work must run in that order); without ``announce``,
+        the device work alone."""
+        if not self.announce:
+            return device_thunk()
+        from pyspark_tf_gke_tpu_torch.train import serving
+
+        with serving.mh_lock():
+            announce_thunk(serving)
+            return device_thunk()
 
     # -- submission ------------------------------------------------------
     def submit(self, prompt_ids, max_new_tokens: int,
@@ -1441,11 +1823,18 @@ class ContinuousEngine:
                     rem = int(prefix.size) - fill
                     w = min(-(-rem // 32) * 32, cfg.max_seq_len - fill)
                 piece = prefix[fill:fill + w]
-                padded = np.full((w,), self.pad_id, np.int32)
-                padded[:piece.size] = piece
-                with torch.no_grad():
-                    _paged_prefill_chunk(self.model, self._state, padded,
-                                         fill, piece.size, row)
+                padded = np.full((1, w), self.pad_id, np.int32)
+                padded[0, :piece.size] = piece
+                # a piece into trie-owned pages: never final, no slot
+                self._announced(
+                    lambda wire, padded=padded, piece=piece, f0=fill:
+                        wire.announce_cb_admit(
+                            self.num_slots, padded, piece.size, 0,
+                            self.eos_token_id, self.pad_id, pages=row,
+                            chunk_fill=f0),
+                    lambda padded=padded, piece=piece, f0=fill:
+                        self._device.prefill_chunk(padded, f0, piece.size,
+                                                   row))
                 self._n_prefill_tokens += int(piece.size)
                 fill += int(piece.size)
         except BaseException:
@@ -1525,48 +1914,22 @@ class ContinuousEngine:
         return int(prefix.size)
 
     def _read_pages(self, pages) -> List[dict]:
-        """``_gather_pages``: the rows of ``pages`` from every layer's
-        pool leaves, host numpy, one dict per layer in wire order."""
-        if not self.paged:
-            raise ValueError("read_pages needs the paged cache layout")
-        kv = self._state.cache
-        idx = torch.as_tensor(list(pages), dtype=torch.long,
-                              device=self.device)
-        out = []
-        with torch.no_grad():
-            for layer in wire_layer_order(self.model.cfg.num_layers):
-                rec = {}
-                for key, leaf in kv.page_leaves(layer).items():
-                    rows = leaf[idx]
-                    if rows.dtype == torch.bfloat16:
-                        rows = rows.float()  # numpy has no bfloat16
-                    rec[key] = rows.cpu().numpy()
-                out.append(rec)
-        return out
+        """The rows of ``pages`` with every KV head, host numpy, one dict
+        a layer in wire order (``SlotDeviceState.read_pages``). Under tp
+        the ranks' heads are gathered, so the workers are told
+        (``OP_KV_READ``)."""
+        if self._tp is None:
+            return self._device.read_pages(pages)
+        return self._announced(
+            lambda wire: wire.announce_kv_read(self.num_slots, pages),
+            lambda: self._device.read_pages(pages))
 
     def _write_pages(self, pages, blobs) -> None:
-        """``_install_pages``: scatter transferred page rows (one dict a
-        layer, wire order) into the pool at ``pages``, cast to each
-        leaf's dtype."""
-        if not self.paged:
-            raise ValueError("write_pages needs the paged cache layout")
-        kv = self._state.cache
-        idx = _h2d(np.asarray(pages, np.int64), self.device)
-        with torch.no_grad():
-            for layer, rec in zip(wire_layer_order(self.model.cfg.num_layers),
-                                  blobs):
-                for key, leaf in kv.page_leaves(layer).items():
-                    if key not in rec:
-                        raise ValueError(f"KV transfer lacks {key} for "
-                                         f"layer {layer}")
-                    rows = np.asarray(rec[key])
-                    if rows.dtype.kind not in "iuf":
-                        rows = rows.astype(np.float32)  # bfloat16 arrays
-                    if rows.shape[1:] != leaf.shape[1:]:
-                        raise ValueError(
-                            f"KV transfer {key} rows {rows.shape[1:]} do "
-                            f"not fit pages {tuple(leaf.shape[1:])}")
-                    leaf[idx] = _h2d(rows, self.device).to(leaf.dtype)
+        """Install transferred page rows (every KV head; each rank keeps
+        its own) at ``pages`` on every rank (``OP_KV_XFER``)."""
+        self._announced(
+            lambda wire: wire.announce_kv_xfer(self.num_slots, pages, blobs),
+            lambda: self._device.write_pages(pages, blobs))
 
     # -- page pool (host side) -------------------------------------------
     def _pages_needed(self, s_bucket: int, true_len: int,
@@ -1667,11 +2030,9 @@ class ContinuousEngine:
             self._unref_pages(taken)
 
     def _free_slot(self, slot: int) -> None:
-        with torch.no_grad():
-            if self.paged:
-                _clear_live_paged(self._state, slot)
-            else:
-                _clear_live(self._state, slot)
+        self._announced(
+            lambda wire: wire.announce_cb_free(self.num_slots, slot),
+            lambda: self._device.free(slot))
         self._release_pages(slot)
 
     # -- admission -------------------------------------------------------
@@ -1695,42 +2056,50 @@ class ContinuousEngine:
         return padded, n
 
     def _draft_admit(self, slot: int, req: _Request) -> None:
-        """The draft's half of an admission: prefill the whole prompt
-        into the slot's draft row."""
+        """The draft's half of an admission on a single-host route (a
+        dense prefix hit or chunked admission): prefill the whole prompt
+        into the slot's draft row. Announced routes carry it as the
+        admit's draft payload."""
         dp = self._draft_payload(req)
         if dp is not None:
-            _draft_prefill_rows(self._draft, dp[0],
-                                np.asarray([dp[1]], np.int32), [slot])
+            self._device.draft_prefill_row(dp[0], dp[1], slot)
 
     def _device_admit(self, group: List[_Request], slots: List[int],
                       sb: int, pages_b: Optional[np.ndarray]) -> None:
         """ONE batched prefill + ONE scatter admits ``group`` (and, under
         speculation, the draft's prefill of the same prompts); a paged
         engine scatters into ``pages_b``, a dense one into the slots'
-        rows."""
+        rows. One request is one announced op (batched admission is
+        single-host, as in the JAX engine)."""
         padded = np.full((len(group), sb), self.pad_id, np.int32)
         lens = np.zeros((len(group),), np.int32)
         for i, req in enumerate(group):
             padded[i, :req.prompt.size] = req.prompt
             lens[i] = req.prompt.size
-        samplings = [r.sampling() for r in group]
-        with torch.no_grad():
-            caches, logits = _prefill_padded_batch(self.model, padded, lens)
-            if self.paged:
-                _insert_slots_batch_paged(self._state, caches, logits, slots,
-                                          lens, pages_b, samplings,
-                                          n_rows=sb)
-            else:
-                _insert_slots_batch(self._state, caches, logits, slots, lens,
-                                    samplings)
-            if self._spec and len(group) > 1 and (
-                    sb <= self._draft.model.cfg.max_seq_len):
+        samplings = [wire_sampling(r) for r in group]
+        if len(group) == 1:
+            dp = self._draft_payload(group[0])
+
+            def device():
+                self._device.admit(padded, lens, slots, samplings, pages_b)
+                if dp is not None:
+                    self._device.draft_prefill_row(dp[0], dp[1], slots[0])
+
+            self._announced(
+                lambda wire: wire.announce_cb_admit(
+                    self.num_slots, padded, lens[0], slots[0],
+                    self.eos_token_id, self.pad_id, sampling=samplings[0],
+                    pages=pages_b[0] if pages_b is not None else None,
+                    draft=dp),
+                device)
+        else:
+            self._device.admit(padded, lens, slots, samplings, pages_b)
+            if self._spec and sb <= self._draft.model.cfg.max_seq_len:
                 # the group's shared bucket fits the draft: one batched
                 # draft prefill
-                _draft_prefill_rows(self._draft, padded, lens, slots)
+                self._device.draft_prefill_rows(padded, lens, slots)
             elif self._spec:
-                # a solo admission, or a bucket too wide for the draft:
-                # each request's own draft width
+                # a bucket too wide for the draft: each request's own
                 for slot, req in zip(slots, group):
                     self._draft_admit(slot, req)
         self._n_prefill_tokens += int(lens.sum())
@@ -1978,24 +2347,34 @@ class ContinuousEngine:
                 return  # stall: frees at later steps resume it
             a["row"][covered:covered + need] = taken
             a["pages"].extend(taken)
-        padded = np.full((w,), self.pad_id, np.int32)
-        padded[:piece.size] = piece
+        padded = np.full((1, w), self.pad_id, np.int32)
+        padded[0, :piece.size] = piece
         cow = a["cow"]
+        sampling = wire_sampling(req)
+        # the draft's context spans the WHOLE prompt (a radix match
+        # boundary included: shared pages never cross into the draft's
+        # dense rows), carried by the final piece
+        dp = self._draft_payload(req) if final else None
+
+        def device():
+            if cow is not None:
+                self._device.copy_page(*cow)
+            logits1 = self._device.prefill_chunk(padded, fill, piece.size,
+                                                 a["row"])
+            if final:
+                self._device.activate_slot(a["slot"], req.prompt.size,
+                                           logits1, a["row"], sampling)
+                if dp is not None:
+                    self._device.draft_prefill_row(dp[0], dp[1], a["slot"])
+
         try:
-            with torch.no_grad():
-                if cow is not None:
-                    self._state.cache.copy_page(*cow)
-                logits1 = _paged_prefill_chunk(self.model, self._state,
-                                               padded, fill, piece.size,
-                                               a["row"])
-                if final:
-                    _activate_slot_paged(self._state, a["slot"], a["row"],
-                                         req.prompt.size, logits1,
-                                         req.sampling())
-                    # the draft's context spans the WHOLE prompt (a radix
-                    # match boundary included: shared pages never cross
-                    # into the draft's dense rows)
-                    self._draft_admit(a["slot"], req)
+            self._announced(
+                lambda wire: wire.announce_cb_admit(
+                    self.num_slots, padded, piece.size, a["slot"],
+                    self.eos_token_id, self.pad_id,
+                    sampling=sampling if final else None, pages=a["row"],
+                    chunk_fill=fill, final=final, cow=cow, draft=dp),
+                device)
         except BaseException:
             # a failed piece must not leak the admission's pages (the
             # caller may keep driving this engine), nor lose its request:
@@ -2133,10 +2512,12 @@ class ContinuousEngine:
 
         free = free_slots()
         if (self.batch_admit and len(free) >= 2 and len(self._queue) >= 2
-                and self._admitting is None and not self._fair_active):
-            # a multi-tenant queue skips the batch: it takes the queue
-            # PREFIX, which would let one tenant's burst jump the DWRR
-            # order
+                and not self.announce and self._admitting is None
+                and not self._fair_active):
+            # the batched prefill is not on the wire: announce mode keeps
+            # the per-request ops. A multi-tenant queue skips the batch
+            # too: it takes the queue PREFIX, which would let one
+            # tenant's burst jump the DWRR order
             self._admit_batch(free)
             free = free_slots()
         while free and self._queue:
@@ -2235,64 +2616,21 @@ class ContinuousEngine:
         return out
 
     # -- the decode chunk on the device -----------------------------------
-    def _chunk_body(self, key: tuple):
-        """The chunk body of a graph key: a decode chunk for ``(size,
-        sampling)``, a spec chunk for ``(rounds, k, sampling)``."""
-        st = self._state
-        if len(key) == 3:
-            rounds, k, sampling = key
-            return lambda: _spec_chunk(self.model, self._draft, st, rounds,
-                                       k, self.eos_token_id, self.pad_id,
-                                       sampling)
-        size, sampling = key
-        return lambda: _decode_chunk(self.model, st, size, self.eos_token_id,
-                                     self.pad_id, sampling)
-
-    def _graph(self, key: tuple) -> graphs.Captured:
-        """The captured chunk of ``key``, captured on first use
-        (``ops/graphs.py``: an eager warm-up on a side stream, the
-        carried slot state put back, then the capture into the engine's
-        shared pool). The warm-up's page and draft writes land where the
-        first replay writes the same values: at and past each row's
-        position, in its own pages, the trash page or its draft row. A
-        failed capture raises; nothing falls back to eager launches."""
-        entry = self._graphs.get(key)
-        if entry is None:
-            if self._graph_pool is None:
-                self._graph_pool = torch.cuda.graph_pool_handle()
-            entry = graphs.capture(self._chunk_body(key),
-                                   self._state.carried(), self.device,
-                                   self._graph_pool)
-            self._graphs[key] = entry
-        return entry
-
     def _chunk_async(self, size: int, sampling: bool):
         """Run one decode chunk without reading it back: ``(tokens,
-        live, event)``. On CUDA the chunk's graph replays (captured on
-        first use) and its static outputs are copied into fresh pinned
-        host buffers on the same stream, behind ``event`` — the next
-        replay cannot overwrite them first. On the CPU the same body
-        runs eagerly and ``event`` is None."""
-        st = self._state
-        if self.device.type != "cuda":
-            toks = self._chunk_body((size, sampling))()
-            return toks, st.live.clone(), None
-        entry = self._graph((size, sampling))
-        entry.replay()
-        (toks, live), event = graphs.pinned_copies([entry.out, st.live],
-                                                   self.device)
-        return toks, live, event
+        live, event)`` (``SlotDeviceState.chunk_async``: on CUDA the
+        captured graph replays, or the body launches eagerly under a
+        gloo tp group, and the outputs are copied into fresh pinned host
+        buffers behind ``event``; the CPU runs the body and ``event`` is
+        None)."""
+        return self._device.chunk_async(size, self.eos_token_id,
+                                        self.pad_id, sampling)
 
     def _spec_async(self, rounds: int, sampling: bool):
         """Run one spec chunk without reading it back: ``(packed,
         event)``, as :meth:`_chunk_async`."""
-        key = (rounds, self.spec_tokens, sampling)
-        if self.device.type != "cuda":
-            return self._chunk_body(key)(), None
-        entry = self._graph(key)
-        entry.replay()
-        (packed,), event = graphs.pinned_copies([entry.out], self.device)
-        return packed, event
+        return self._device.spec_chunk_async(rounds, self.eos_token_id,
+                                             self.pad_id, sampling)
 
     @property
     def graph_capture_seconds(self) -> Dict[tuple, float]:
@@ -2333,7 +2671,11 @@ class ContinuousEngine:
         # t_dispatch stamps the dispatch-call ENTRY
         t0 = time.monotonic()
         with torch.no_grad():
-            toks, live, event = self._chunk_async(size, sampling)
+            toks, live, event = self._announced(
+                lambda wire: wire.announce_cb_chunk(
+                    self.num_slots, size, self.eos_token_id, self.pad_id,
+                    sampling=sampling, deferred=bool(self.pipeline_depth)),
+                lambda: self._chunk_async(size, sampling))
         return _InflightStep("dev", toks, live, event, dict(self._slots),
                              size, t0)
 
@@ -2366,7 +2708,12 @@ class ContinuousEngine:
             self._step_rec.spec_rounds += rounds
         t0 = time.monotonic()
         with torch.no_grad():
-            packed, event = self._spec_async(rounds, sampling)
+            packed, event = self._announced(
+                lambda wire: wire.announce_cb_chunk(
+                    self.num_slots, rounds, self.eos_token_id, self.pad_id,
+                    sampling=sampling, deferred=bool(self.pipeline_depth),
+                    spec_tokens=k),
+                lambda: self._spec_async(rounds, sampling))
         return _InflightStep("spec_dev", packed, None, event,
                              dict(self._slots), 1 + rounds * (k + 1), t0)
 
@@ -2432,7 +2779,13 @@ class ContinuousEngine:
         token append, eos/budget completion, trie adoption, frees — for
         the slot snapshot it was computed over."""
         with self._phase("device_wait"):
-            toks, live_host = inflight.fetch()
+            if self.announce and self.pipeline_depth:
+                # a deferred chunk: the workers settle theirs in step
+                toks, live_host = self._announced(
+                    lambda wire: wire.announce_cb_collect(self.num_slots),
+                    inflight.fetch)
+            else:
+                toks, live_host = inflight.fetch()
         spec_data = None
         if inflight.kind == "spec_dev":
             spec_data = _unpack_spec(toks, self.spec_tokens)
@@ -2750,6 +3103,7 @@ class ContinuousEngine:
             "inflight": bool(self._inflight_q),
             "pipeline_depth": self.pipeline_depth,
             "decode_graphs": len(self._graphs),
+            "captured": self.captured,
             **({"prefix_cache": self.prefix_cache.stats}
                if self.prefix_cache is not None else
                {"prefix_cache": self.radix.stats}

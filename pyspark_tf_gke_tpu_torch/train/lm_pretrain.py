@@ -24,7 +24,7 @@ package draws from ``jax.random``, so the two start from different
 numbers). ``--mesh-shape``, ``--dcn-mesh-shape`` and the process
 flags (one card a process) lay the run out on a ``DeviceMesh``
 (``train/harness.py::setup_mesh``: ``dp``, ``fsdp`` and ``tp``; ``pp``,
-``ep`` and ``sp`` raise naming P11b). The batch flags are global: every
+``ep`` and ``sp`` raise naming P11c). The batch flags are global: every
 rank reads the training stream and keeps its rows of each global
 batch. The eval files are split over the data shards as the JAX entry
 point splits them over its processes (``len(files)`` must divide

@@ -76,11 +76,19 @@ queue shares and token buckets; a tenant's shed carries
 ``X-Tenant-Shed``), ``--schedule longest`` admits the longest budget
 first, ``--role`` is what ``/loadz`` advertises to a disaggregating
 router, and SIGTERM drains (new requests 503, in-flight ones finish,
-``--drain-timeout``) before the server stops. Not ported (ROADMAP queue
-1, P11b): the multi-host serve wire: ``--tp`` over 1 and
-``--num-processes`` over 1 raise ``NotImplementedError`` (the JAX
-server's ``--process-id`` and coordinator flags are taken and unused
-with one process).
+``--drain-timeout``) before the server stops.
+
+Several processes (``--num-processes N``, ``--process-id``, the
+coordinator flags; one process a card) serve one model over a ``dp`` x
+``tp`` mesh (``--tp``): every rank holds its ``tp`` slices, rank 0
+answers HTTP and announces each request and slot-engine op on the serve
+wire (``train/serving.py``), the others replay them in
+``serve_worker_loop`` and ignore SIGTERM until rank 0's drain announces
+shutdown. ``--tp`` over 1 with one process raises (a port process
+drives one card), as does a ``--tp`` the ranks do not divide; a reload
+answers 400 (single-host only); ``/healthz`` reports ``tp``. Under a
+gloo tp group the engine launches its chunks eagerly (gloo's
+collectives cannot be captured in a CUDA graph).
 """
 
 from __future__ import annotations
@@ -125,12 +133,17 @@ from pyspark_tf_gke_tpu_torch.obs.stepstats import StepStatsRing
 from pyspark_tf_gke_tpu_torch.obs.trace import (TraceRecorder,
                                                 annotate_request_shape,
                                                 use_span)
+from pyspark_tf_gke_tpu_torch.parallel.distributed import (
+    initialize_distributed)
+from pyspark_tf_gke_tpu_torch.parallel.mesh import (make_mesh, mesh_array,
+                                                    mesh_sizes)
 from pyspark_tf_gke_tpu_torch.train.continuous import ContinuousEngine
 from pyspark_tf_gke_tpu_torch.train.export import load_serving_bundle
 from pyspark_tf_gke_tpu_torch.train.kv_transfer import (pack_kv_export,
                                                         unpack_kv_blob)
 from pyspark_tf_gke_tpu_torch.train.resilience import (Heartbeat,
                                                        retry_with_backoff)
+from pyspark_tf_gke_tpu_torch.train import serving
 from pyspark_tf_gke_tpu_torch.train.serving import serve_score
 from pyspark_tf_gke_tpu_torch.utils.fs import fs_copy_tree, is_remote
 from pyspark_tf_gke_tpu_torch.utils.logging import get_logger
@@ -764,9 +777,14 @@ class _ContinuousFront:
     def _rebuild(self) -> None:
         """A fresh engine in place of the current one (its device state
         is untrustworthy after a failed or hung step), warmed prefixes
-        warmed again. Caller holds ``self.lock``."""
+        warmed again. Caller holds ``self.lock``. An announcing engine's
+        workers restart from zeros with it (``OP_CB_RESET``): their
+        replicas may hold the half-done state of the failed op."""
         self.engine = None
         gc.collect()  # the old engine's graphs and pool go now
+        if self._engine_kw.get("announce"):
+            with serving.mh_lock():
+                serving.announce_cb_reset()
         self.engine = self._new_engine()
         for toks in self._warmed:
             try:
@@ -1087,9 +1105,18 @@ class BundleServer:
     injection (``--chaos``); ``admin_token`` gates ``/admin/reload`` and
     ``/admin/profile`` (``SERVE_ADMIN_TOKEN``); ``peak_flops`` the
     card's peak FLOPs/s, which arms the ``serve_mfu`` gauge
-    (``--peak-flops``, 0 = off)."""
+    (``--peak-flops``, 0 = off).
+
+    ``mesh`` (``--tp``, ``--num-processes``): a mesh over every rank; the
+    model (and the draft) keep this rank's ``tp`` slices
+    (``train/serving.shard_params_for_serving``). In a world of several
+    ranks this server is rank 0's: the slot engine announces its device
+    ops and the whole-batch paths go through ``mh_generate``,
+    ``mh_score`` and ``mh_speculative``, which the workers replay
+    (``serve_worker_loop``); a reload raises (single-host only)."""
 
     def __init__(self, bundle_dir: str, device: str = "cuda",
+                 mesh=None,
                  continuous_slots: int = 0, continuous_chunk: int = 8,
                  int8_kv: bool = False, prefill_chunk: int = 0,
                  step_token_budget: int = 0, continuous_pipeline: int = 1,
@@ -1154,6 +1181,17 @@ class BundleServer:
                 op="bundle_load", give_up_on=_PERMANENT_LOAD_ERRORS)[0]
         self.model, self.meta, self.tokenizer = self._load_and_verify(
             bundle_dir)
+        self.mesh = mesh
+        self.multi_host = serving.process_count() > 1
+        if self.multi_host and mesh is None:
+            raise ValueError("multi-host serving needs a mesh spanning "
+                             "all processes (set --tp / SERVE_TP)")
+        if mesh is not None:
+            # the draft rides the same mesh
+            serving.shard_params_for_serving(self.model, mesh)
+            if self.draft_model is not None:
+                serving.shard_params_for_serving(self.draft_model, mesh,
+                                                 spmd=self.model.spmd)
         model = self.model
         if self.spec_tokens and self.draft_model is None:
             logger.warning(
@@ -1184,7 +1222,8 @@ class BundleServer:
         self._live_stall_s = float(live_stall_s)
         self._front: Optional[_ContinuousFront] = None
         self.stepstats = StepStatsRing(capacity=max(1, int(step_record_ring)))
-        if continuous_slots > 0:
+        if continuous_slots > 0 and serving.process_index() == 0:
+            # (a worker rank's replica lives in its serve_worker_loop)
             # the driver loop beats the heartbeat (every 5th iteration:
             # the idle spin runs at ~20 Hz)
             heartbeat = (Heartbeat(heartbeat_file, every_steps=5)
@@ -1205,7 +1244,7 @@ class BundleServer:
                 prefix_cache_size=prefix_cache_size, schedule=schedule,
                 spec_tokens=self.spec_tokens,
                 draft_model=self.draft_model if self.spec_tokens else None,
-                peak_flops=float(peak_flops))
+                peak_flops=float(peak_flops), announce=self.multi_host)
 
     # -- bundle loading and the hot swap ---------------------------------
     def _load_and_verify(self, bundle_dir: str):
@@ -1292,7 +1331,12 @@ class BundleServer:
         both raise :class:`BundleReloadError` (502) with the old
         generation serving. One reload at a time
         (:class:`ReloadInFlight`, 409). ``timings_s`` in the reply has
-        the load, swap and canary walls."""
+        the load, swap and canary walls. Single-host only: a multi-host
+        swap would need the weights re-announced to every worker."""
+        if self.multi_host:
+            raise ValueError(
+                "bundle hot-swap is single-host only — multi-host "
+                "fleets roll pods through the k8s rolling update")
         if generation is not None:
             # before any swap: a bad generation failing after the canary
             # would leave the new bundle serving under the old number
@@ -1462,6 +1506,8 @@ class BundleServer:
             "device": str(self.device),
             "device_name": (torch.cuda.get_device_name(self.device)
                             if self.device.type == "cuda" else "cpu"),
+            "tp": (mesh_sizes(self.mesh)["tp"] if self.mesh is not None
+                   else 1),
             "speculative_draft": self.draft_bundle_dir,
             "draining": self.draining,
             "admission": ({"max_queue_depth": self._front.max_queue_depth,
@@ -1625,10 +1671,16 @@ class BundleServer:
             ids = encoded[0][1]
             with self._lock:
                 t0 = time.perf_counter()
-                out, stats = speculative_generate(
-                    self.model, self.draft_model, np.asarray([ids]),
-                    max_new_tokens, gamma=SPEC_GAMMA, eos_token_id=eos_id,
-                    return_stats=True)
+                if self.multi_host:
+                    out, stats = serving.mh_speculative(
+                        self.model, self.draft_model, np.asarray([ids]),
+                        max_new_tokens, gamma=SPEC_GAMMA,
+                        eos_token_id=eos_id)
+                else:
+                    out, stats = speculative_generate(
+                        self.model, self.draft_model, np.asarray([ids]),
+                        max_new_tokens, gamma=SPEC_GAMMA,
+                        eos_token_id=eos_id, return_stats=True)
                 dt = (time.perf_counter() - t0) * 1000.0
             return [self._entry(
                 prompts[0], out[0, len(ids):].tolist(), dt, eos_id,
@@ -1683,7 +1735,21 @@ class BundleServer:
                 rows = np.asarray([ids for _, ids in members], np.int64)
                 t0 = time.perf_counter()
                 scores = None
-                if num_beams and num_beams > 1:
+                if self.multi_host:
+                    # rank 0 announces, the workers replay the same call
+                    out = serving.mh_generate(
+                        self.model, rows,
+                        max_new_tokens=max_new_tokens, eos_token_id=eos_id,
+                        num_beams=num_beams,
+                        temperature=float(temperature or 0.0), top_k=top_k,
+                        top_p=top_p, repetition_penalty=repetition_penalty,
+                        seed=((int(seed) if seed is not None else
+                               int.from_bytes(os.urandom(4), "little"))
+                              if sampling else None))
+                    if num_beams and num_beams > 1:
+                        out, scores = out
+                        scores = scores.numpy()
+                elif num_beams and num_beams > 1:
                     out, scores = beam_search(
                         self.model, rows, max_new_tokens,
                         num_beams=num_beams, eos_token_id=eos_id)
@@ -1981,7 +2047,9 @@ class BundleServer:
             for r, (_, ids, _) in enumerate(rows):
                 padded[r, :len(ids)] = ids
             with self._lock:
-                nlls = serve_score(self.model, padded, lengths)
+                nlls = (serving.mh_score(self.model, padded, lengths)
+                        if self.multi_host
+                        else serve_score(self.model, padded, lengths))
             for r, (i, ids, trunc) in enumerate(rows):
                 results[i] = {"nll": float(nlls[r]), "tokens": len(ids) - 1,
                               "truncated": trunc}
@@ -2556,12 +2624,21 @@ def parse_args(argv=None) -> argparse.Namespace:
                    default=int(e("MAX_NEW_TOKENS", "64")))
     p.add_argument("--temperature", type=float,
                    default=float(e("TEMPERATURE", "0.0")))
-    # the JAX server's multi-host flags: over 1 they raise (P11b)
+    # the multi-process server: one process a card, rank 0 serving HTTP
+    # and announcing, the others replaying (train/serving.py)
     p.add_argument("--tp", type=int, default=int(e("SERVE_TP", "0")),
-                   help="tensor-parallel ways: 0/1 only (P11b)")
+                   help="tensor-parallel ways over the ranks of "
+                        "--num-processes (a port process drives ONE card, "
+                        "so --tp N needs N processes, one a card: "
+                        "--num-processes N, each with its --process-id); "
+                        "the remaining ranks form dp replicas of the "
+                        "tp group's program")
     p.add_argument("--num-processes", type=int,
                    default=int(e("NUM_PROCESSES", "1")),
-                   help="1 only (P11b: the multi-host serve wire)")
+                   help="ranks of the serving world, one process a card "
+                        "(each takes the card process_id %% cards on its "
+                        "node); rank 0 serves HTTP, the others replay its "
+                        "announced requests")
     p.add_argument("--process-id", type=int,
                    default=int(e("PROCESS_ID", "-1")))
     p.add_argument("--coordinator-addr", default=e("COORDINATOR_ADDR", ""))
@@ -2582,15 +2659,34 @@ def _resolve_bundle(path: str) -> str:
     return local
 
 
+def _serving_mesh(args):
+    """The mesh of ``--tp`` / ``--num-processes`` (None for one process):
+    joins the world, then ``dp`` x ``tp`` over every rank. The layout is
+    checked before the world is joined, so a bad ``--tp`` fails at once."""
+    tp = max(args.tp, 1)
+    if tp > 1 and args.num_processes <= 1:
+        raise ValueError(
+            f"--tp {tp} with --num-processes {args.num_processes}: a port "
+            "process drives one card, so tensor parallelism over "
+            f"{tp} cards is {tp} processes (--num-processes {tp}, one a "
+            "card)")
+    if args.num_processes <= 1:
+        return None
+    axes = {"dp": -1, "tp": tp}
+    mesh_array(axes, list(range(args.num_processes)))  # the divisibility
+    initialize_distributed(num_processes=args.num_processes,
+                           process_id=args.process_id,
+                           coordinator_addr=args.coordinator_addr,
+                           coordinator_port=args.coordinator_port,
+                           device=args.device)
+    return make_mesh(axes, args.device)
+
+
 def main(argv=None) -> int:
     args = parse_args(argv)
-    for flag, value in (("--tp", args.tp),
-                        ("--num-processes", args.num_processes)):
-        if value > 1:
-            raise NotImplementedError(
-                f"{flag} {value}: the multi-host serve wire is not ported "
-                "to pyspark_tf_gke_tpu_torch yet (ROADMAP, queue 1, P11b)")
+    mesh = _serving_mesh(args)
     server = BundleServer(_resolve_bundle(args.bundle), device=args.device,
+                          mesh=mesh,
                           continuous_slots=args.continuous_slots,
                           continuous_chunk=args.continuous_chunk,
                           int8_kv=args.int8_kv,
@@ -2620,10 +2716,17 @@ def main(argv=None) -> int:
                                                      ""))
     if args.chaos:
         logger.warning("serve-side chaos injection ACTIVE: %s", args.chaos)
+    if server.multi_host:
+        # a draft bundle on some ranks only fails here, at startup
+        serving.sync_serving_config(server.draft_model is not None)
+        if serving.process_index() != 0:
+            return _worker_main(server)
     exporter = None
     if args.metrics_textfile:
         exporter = TextfileExporter(server.registry, args.metrics_textfile,
                                     args.metrics_interval).start()
+    # ONE finally covers everything rank 0 does from here: whatever
+    # fails, the workers are released
     try:
         if args.stdin:
             for line in sys.stdin:
@@ -2671,7 +2774,24 @@ def main(argv=None) -> int:
     finally:
         if exporter is not None:
             exporter.stop()  # the final write has the shutdown state
-        server.shutdown()
+        try:
+            server.shutdown()
+        finally:
+            if server.multi_host:
+                serving.announce_shutdown()  # release the worker loops
+
+
+def _worker_main(server: BundleServer) -> int:
+    """Ranks 1..N-1: no socket; replay rank 0's announced requests until
+    it announces shutdown. SIGTERM is ignored: a rolling restart signals
+    every process, and a worker gone early would cut the wire while rank
+    0 still drains."""
+    if threading.current_thread() is threading.main_thread():
+        signal.signal(signal.SIGTERM, signal.SIG_IGN)
+    served = serving.serve_worker_loop(server.model,
+                                       draft_model=server.draft_model)
+    logger.info("worker loop done after %d requests", served)
+    return 0
 
 
 if __name__ == "__main__":

@@ -308,18 +308,18 @@ def _refuse_unported(model: torch.nn.Module, task: TrainerTask,
         raise NotImplementedError(
             f"sp={sizes['sp']} runs BERT's ring and Ulysses attention; the "
             f"{task.name} task under sp is not ported to "
-            "pyspark_tf_gke_tpu_torch yet (ROADMAP, P11b)")
+            "pyspark_tf_gke_tpu_torch yet (ROADMAP, P11c)")
     for axis, what in (("pp", "the GPipe schedule"),
                        ("ep", "MoE expert parallelism")):
         if sizes[axis] > 1:
             raise NotImplementedError(
                 f"{axis}={sizes[axis]} ({what}) is not ported to "
-                "pyspark_tf_gke_tpu_torch yet (ROADMAP, P11b)")
+                "pyspark_tf_gke_tpu_torch yet (ROADMAP, P11c)")
     if sizes["sp"] > 1 and any(isinstance(m, MoELayer)
                                for m in model.modules()):
         raise NotImplementedError(
             "MoE under sp > 1 is not ported to pyspark_tf_gke_tpu_torch yet "
-            "(ROADMAP, P11b): the capacity and the aux loss's means are "
+            "(ROADMAP, P11c): the capacity and the aux loss's means are "
             "global over the sequence")
 
 

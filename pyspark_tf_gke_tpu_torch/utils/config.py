@@ -11,7 +11,7 @@ flags lay it out on a ``Mesh`` (``train/harness.py::setup_mesh``); a
 port process drives one card, so ``--num-processes`` counts cards.
 ``fsdp_min_size`` (env ``FSDP_MIN_SIZE``) is the shape-based
 partitioner's threshold. The mesh axes this slice does not run raise
-``NotImplementedError`` naming ROADMAP item P11b
+``NotImplementedError`` naming ROADMAP item P11c
 (:func:`refuse_unported_axes`): ``pp``, ``ep``, and ``sp`` outside BERT.
 """
 
@@ -127,7 +127,7 @@ class Config:
 
 def refuse_unported_axes(ici: dict, dcn: dict, sp_ok: bool = False) -> None:
     """Raise ``NotImplementedError`` for the mesh axes not ported yet
-    (ROADMAP, queue 1, P11b): ``pp`` (the GPipe schedule), ``ep`` (MoE
+    (ROADMAP, queue 1, P11c): ``pp`` (the GPipe schedule), ``ep`` (MoE
     expert parallelism) and, unless ``sp_ok`` (BERT), ``sp``."""
     unported = {"pp": "the GPipe schedule", "ep": "MoE expert parallelism"}
     if not sp_ok:
@@ -137,7 +137,7 @@ def refuse_unported_axes(ici: dict, dcn: dict, sp_ok: bool = False) -> None:
         if size not in (0, 1):
             raise NotImplementedError(
                 f"{axis}={size} ({what}) is not ported to "
-                "pyspark_tf_gke_tpu_torch yet (ROADMAP, queue 1, P11b)")
+                "pyspark_tf_gke_tpu_torch yet (ROADMAP, queue 1, P11c)")
 
 
 def parse_args(argv: Optional[Sequence[str]] = None) -> Config:

@@ -222,7 +222,7 @@ def test_bert_finetune_refuses_unported_flags(tmp_path):
     # the axes of the next slice raise, naming it
     for flags in (["--mesh-shape", "pp=2"], ["--dcn-mesh-shape", "ep=2"],
                   ["--mesh-shape", "sp=2", "--num-experts", "4"]):
-        with pytest.raises(NotImplementedError, match="P11b"):
+        with pytest.raises(NotImplementedError, match="P11c"):
             bert_finetune.main(base + flags)
     with pytest.raises(SystemExit):
         bert_finetune.main(["--device", "cpu"])

@@ -146,8 +146,8 @@ def test_oversized_request_and_unported_options_raise():
         ContinuousEngine(tmodel, schedule="shortest")
     with pytest.raises(ValueError, match="spec_tokens"):
         ContinuousEngine(tmodel, spec_tokens=-1)
-    with pytest.raises(TypeError, match="unexpected keyword argument"):
-        ContinuousEngine(tmodel, announce=True)
+    with pytest.raises(ValueError, match="single-host only"):
+        ContinuousEngine(tmodel, announce=True, pipeline_depth=2)
     with pytest.raises(ValueError, match="pipeline_depth"):
         ContinuousEngine(tmodel, pipeline_depth=-1)
     # a model without kv_num_pages builds the dense slot-cache engine

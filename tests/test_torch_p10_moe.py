@@ -20,7 +20,7 @@ the JAX package on the CPU.
   --num-experts 2 --moe-every 1`` against the JAX CLI from the same
   initial parameters on the same shards, read in the same order (the
   history's keys, and each epoch's loss within 1e-4).
-* MoE under an sp group of more than one rank raises, naming P11b.
+* MoE under an sp group of more than one rank raises, naming P11c.
 """
 
 import functools
@@ -336,7 +336,7 @@ def test_moe_bert_remat_and_dense_aux():
 
 def test_moe_under_sp_raises(monkeypatch):
     monkeypatch.setattr(tb, "sp_world", lambda group: 2)
-    with pytest.raises(NotImplementedError, match="P11b"):
+    with pytest.raises(NotImplementedError, match="P11c"):
         tb.BertForPretraining(tb.BertConfig(**CFG, dtype=torch.float32),
                               sp_group=object())
     # the dense encoder still builds under sp

@@ -13,8 +13,9 @@ package on the conftest's 8 fake CPU devices, with no process group:
   init on ``dp=2,fsdp=2,tp=2``;
 * the rows each rank takes equal ``batch_sharding``'s;
 * the coordinator helpers;
-* the serve wire's multi-host flags (``--tp``, ``--num-processes`` over
-  1) raise, naming P11b.
+* the serve CLI's mesh flags that cannot run raise before any world is
+  joined: ``--tp 2`` with one process (a port process drives one
+  card) and a ``--tp`` the processes do not divide.
 """
 
 import jax
@@ -301,9 +302,15 @@ def test_parallel_exports_match_jax():
     assert tmesh.AXES == jmesh.AXES and tmesh.DATA_AXES == jmesh.DATA_AXES
 
 
-@pytest.mark.parametrize("flags", [["--tp", "2"], ["--num-processes", "2"]])
-def test_serve_multi_host_flags_raise_naming_p11b(flags):
+@pytest.mark.parametrize("flags,match", [
+    (["--tp", "2", "--num-processes", "1"], "a port process drives one card"),
+    (["--tp", "3", "--num-processes", "2"], "not divisible")],
+    ids=["flags0", "flags1"])
+def test_serve_multi_host_flags_raise_naming_p11b(flags, match):
+    # the serve wire is ported (tests/test_torch_p11_serve_cli.py): what
+    # still raises, before any world is joined, is tp over one process
+    # (a port process drives one card) and a tp the ranks do not divide
     from pyspark_tf_gke_tpu_torch.train import serve
 
-    with pytest.raises(NotImplementedError, match="P11b"):
+    with pytest.raises(ValueError, match=match):
         serve.main(["--bundle", "unused", "--device", "cpu"] + flags)

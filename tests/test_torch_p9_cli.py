@@ -137,7 +137,7 @@ def test_refusals(tmp_path):
     # the axes of the next slice raise, naming it
     for flags in (["--mesh-shape", "pp=2"], ["--mesh-shape", "dp=1,ep=2"],
                   ["--mesh-shape", "sp=2"], ["--dcn-mesh-shape", "pp=2"]):
-        with pytest.raises(NotImplementedError, match="P11b"):
+        with pytest.raises(NotImplementedError, match="P11c"):
             cli.main(["--data-path", csv] + base + flags)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):

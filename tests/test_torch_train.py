@@ -232,7 +232,7 @@ def test_lm_pretrain_refuses_unported_flags(tmp_path):
     # the axes of the next slice raise, naming it
     for flags in (["--mesh-shape", "pp=2"], ["--mesh-shape", "ep=2"],
                   ["--mesh-shape", "sp=2"], ["--dcn-mesh-shape", "pp=2"]):
-        with pytest.raises(NotImplementedError, match="P11b"):
+        with pytest.raises(NotImplementedError, match="P11c"):
             main(base + flags)
     # a hub tokenizer name would need a download
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -17,7 +17,11 @@ Runners:
   and a checkpoint written by every rank (compared with the port's
   one-process runs);
 * ``cli`` — each training CLI's ``main`` with ``--num-processes``: the
-  first joins the world through the coordinator flags.
+  first joins the world through the coordinator flags (and the serving
+  CLI's, ``tests/test_torch_p11_serve_cli.py``);
+* ``serve`` — the multi-process serve wire: rank 0 drives announcing
+  slot engines and whole-batch requests, the other ranks replay them in
+  ``serve_worker_loop``.
 """
 
 from __future__ import annotations
@@ -36,7 +40,7 @@ def _rank_main(rank: int, world: int, port: int, runner: str,
     torch.set_num_threads(1)
     with open(payload_path, "rb") as fh:
         payload = pickle.load(fh)
-    if runner != "cli":  # the CLIs join the world themselves
+    if runner not in ("cli", "serve_cli"):  # the CLIs join it themselves
         dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
                                 rank=rank, world_size=world)
     try:
@@ -271,5 +275,185 @@ def run_cli(payload, out_dir, rank, port):
     return out
 
 
-RUNNERS = {"lm": run_lm, "models": run_models, "cli": run_cli}
+def _serve_model(fields: dict, params: dict, mesh, spmd=None):
+    """A serving causal LM from the payload's port parameters, placed on
+    ``mesh`` (this rank's tp slices; a draft takes its target's groups,
+    ``spmd``)."""
+    from pyspark_tf_gke_tpu_torch.models import causal_lm as tlm
+    from pyspark_tf_gke_tpu_torch.train.export import config_from_dict
+    from pyspark_tf_gke_tpu_torch.train.serving import (
+        shard_params_for_serving)
+
+    model = tlm.CausalLM(config_from_dict(fields))
+    model.load_params(params).eval()
+    return shard_params_for_serving(model, mesh, spmd=spmd)
+
+
+def _engine_run(engine, specs) -> list:
+    rids = [engine.submit(p, max_new_tokens=m, **kw) for p, m, kw in specs]
+    done = dict(engine.run_until_drained())
+    return [done[r] for r in rids]
+
+
+def _serve_rank0(case, model, draft) -> dict:
+    """Rank 0 of a serve case: each slot engine announces its ops (a
+    reset before every engine after the first), then the whole-batch
+    paths and the KV handoff; finally the shutdown."""
+    import numpy as np
+
+    from pyspark_tf_gke_tpu_torch.train import serving
+    from pyspark_tf_gke_tpu_torch.train.continuous import ContinuousEngine
+
+    out = {}
+    for i, (name, kw, specs) in enumerate(case["engines"]):
+        if i:
+            with serving.mh_lock():
+                serving.announce_cb_reset()
+        eng = ContinuousEngine(model, announce=True,
+                               draft_model=draft if kw.get("spec_tokens")
+                               else None, **kw)
+        if "import" in case and name == "xfer":
+            tokens, layers = case["import"]
+            out["imported"] = eng.import_prefix_pages(tokens, layers)
+        out[name] = _engine_run(eng, specs)
+        if kw.get("spec_tokens"):
+            out[name + "_accepted"] = eng._n_spec_accepted
+        if "export" in case and name == "xfer":
+            eng.warm_prefix(case["export"])
+            blob = eng.export_prefix_pages(case["export"])
+            out["export"] = (blob["token_ids"], blob["layers"])
+    for name, kw in case.get("whole", {}).items():
+        got = serving.mh_generate(model, np.asarray(kw.pop("prompt")), **kw)
+        out[name] = ([t.numpy() for t in got] if isinstance(got, tuple)
+                     else got.numpy())
+    if "spec_prompt" in case:
+        toks, stats = serving.mh_speculative(model, draft,
+                                             case["spec_prompt"], 8, gamma=3)
+        out["mh_spec"] = np.asarray(toks)
+        out["mh_spec_accepted"] = int(stats["accepted"])
+    serving.announce_shutdown()
+    return out
+
+
+def run_serve(payload, out_dir, rank, **_):
+    """Each case on ``make_mesh(case["mesh"], "cpu")``: rank 0 drives the
+    slot engines and whole-batch requests with ``announce=True``, every
+    other rank replays them in ``serve_worker_loop`` and records the
+    whole-batch outputs its replay computed."""
+    from pyspark_tf_gke_tpu_torch.parallel.mesh import make_mesh
+    from pyspark_tf_gke_tpu_torch.train import serving
+
+    out = {}
+    for name, case in payload["cases"].items():
+        mesh = make_mesh(case["mesh"], "cpu")
+        model = _serve_model(case["cfg"], case["params"], mesh)
+        draft = (_serve_model(case["draft_cfg"], case["draft_params"], mesh,
+                              model.spmd)
+                 if "draft_cfg" in case else None)
+        if rank == 0:
+            out[name] = _serve_rank0(case, model, draft)
+            continue
+        seen = []
+        real = serving.serve_generate, serving.serve_beam
+
+        def gen(*a, **k):
+            seen.append(real[0](*a, **k).numpy())
+            return seen[-1]
+
+        def beam(*a, **k):
+            seen.append([t.numpy() for t in real[1](*a, **k)])
+            return seen[-1]
+
+        serving.serve_generate, serving.serve_beam = gen, beam
+        try:
+            served = serving.serve_worker_loop(model, draft_model=draft)
+        finally:
+            serving.serve_generate, serving.serve_beam = real
+        out[name] = {"whole": seen, "served": served}
+    return out
+
+
+def _http(url: str, path: str, body=None, headers=None, timeout=120):
+    """``(status, parsed JSON or the SSE lines)`` of one request."""
+    import json
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(
+        url + path, data=None if body is None else json.dumps(body).encode(),
+        headers={"Content-Type": "application/json", **(headers or {})})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            raw = resp.read().decode()
+            status = resp.status
+    except urllib.error.HTTPError as exc:
+        raw, status = exc.read().decode(), exc.code
+    if raw.startswith((":", "data:")):
+        return status, [line for line in raw.splitlines()
+                        if line.startswith("data:")]
+    return status, json.loads(raw)
+
+
+def _client(url: str, calls: list, out: dict) -> None:
+    """Rank 0's client: wait for ``/healthz``, make ``calls`` in turn,
+    then SIGTERM this process with the last one in flight (the drain
+    must answer it)."""
+    import signal
+    import threading
+    import time
+
+    for _ in range(600):
+        try:
+            out["healthz"] = _http(url, "/healthz", timeout=5)
+            break
+        except OSError:
+            time.sleep(0.2)
+    for name, path, body, headers in calls[:-1]:
+        out[name] = _http(url, path, body, headers)
+    name, path, body, headers = calls[-1]
+
+    def last():
+        out[name] = _http(url, path, body, headers)
+
+    inflight = threading.Thread(target=last)
+    inflight.start()
+    time.sleep(0.5)
+    os.kill(os.getpid(), signal.SIGTERM)
+    inflight.join(120)
+
+
+def run_serve_cli(payload, out_dir, rank, port):
+    """Each run: ``serve.main(argv)`` on every rank (``{rank}``, ``{port}``
+    and ``{http}`` in an argument are this rank's, the world's and rank
+    0's HTTP port); rank 0 also runs the run's ``calls`` from a client
+    thread, the last one drained by a SIGTERM. Returns each run's exit
+    code (or the error's text) and rank 0's responses."""
+    import threading
+
+    from pyspark_tf_gke_tpu_torch.train import serve
+
+    os.environ.update(payload.get("env", {}))
+    out = {}
+    for name, run in payload["runs"].items():
+        http = run.get("http_port", 0)
+        argv = [a.format(rank=rank, port=port, http=http)
+                for a in run["argv"][rank]]
+        got = {}
+        client = None
+        if rank == 0 and run.get("calls"):
+            client = threading.Thread(target=_client, args=(
+                f"http://127.0.0.1:{http}", run["calls"], got))
+            client.start()
+        try:
+            got["exit"] = serve.main(argv)
+        except Exception as exc:  # noqa: BLE001 — the refusal is the result
+            got["exit"] = f"{type(exc).__name__}: {exc}"
+        if client is not None:
+            client.join(120)
+        out[name] = got
+    return out
+
+
+RUNNERS = {"lm": run_lm, "models": run_models, "cli": run_cli,
+           "serve": run_serve, "serve_cli": run_serve_cli}
 
